@@ -1,0 +1,111 @@
+"""Axial vision transformers: AViT and FiLM-conditioned AViT.
+
+Counterpart of ``bubbleformer_tpu/models/axial_vit.py``, unrolled:
+``HMLPEmbed -> N SpaceTimeBlocks (drop-path rates linear 0 -> drop_path) ->
+HMLPDebed``, with FiLM modulation after the embed for :class:`FiLMAViT`.
+The public layout is ``(B, T, C, H, W)``; activations between embed and
+debed are channels-last ``(B, T, h, w, E)``.  The JAX package's TPU options
+(the ``carry="cm"`` layout, ``scan_blocks``, remat, ``spatial_shard_axis``)
+have no counterpart here.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from bubbleformer_tpu_torch.layers.attention import AxialAttentionBlock, TemporalAttentionBlock
+from bubbleformer_tpu_torch.layers.linear import FiLMMLP
+from bubbleformer_tpu_torch.layers.patching import HMLPDebed, HMLPEmbed
+from bubbleformer_tpu_torch.models._api import register_model
+
+__all__ = ["SpaceTimeBlock", "AViT", "FiLMAViT"]
+
+
+class SpaceTimeBlock(nn.Module):
+    """Temporal attention, then per-frame axial attention; ``(B, T, h, w, C)``."""
+
+    def __init__(self, embed_dim: int = 768, num_heads: int = 12, attn_scale: bool = True,
+                 feat_scale: bool = True, layer_scale_init_value: float = 1e-6,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.temporal = TemporalAttentionBlock(
+            embed_dim, num_heads, layer_scale_init_value, attn_scale, dtype=dtype
+        )
+        self.spatial = AxialAttentionBlock(
+            embed_dim, num_heads, layer_scale_init_value, attn_scale, feat_scale, dtype=dtype
+        )
+
+    def forward(self, x: torch.Tensor, drop_path_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        b, t, h, w, c = x.shape
+        x = self.temporal(x, drop_path_rate, generator)
+        x = self.spatial(x.reshape(b * t, h, w, c), drop_path_rate, generator)
+        return x.reshape(b, t, h, w, c)
+
+
+@register_model("avit")
+class AViT(nn.Module):
+    """``(B, T, C_in, H, W) -> (B, T, C_out, H, W)``."""
+
+    def __init__(self, input_fields: int = 3, output_fields: int = 3, time_window: int = 12,
+                 patch_size: int = 16, embed_dim: int = 768, num_heads: int = 12,
+                 processor_blocks: int = 12, drop_path: float = 0.2, attn_scale: bool = True,
+                 feat_scale: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        if patch_size < 2:
+            raise ValueError("patch_size must be >= 2")
+        self.output_fields = output_fields
+        self.embed_dim = embed_dim
+        self.dtype = dtype
+        self.embed = HMLPEmbed(patch_size, input_fields, embed_dim, dtype=dtype)
+        self.blocks = nn.ModuleList(
+            SpaceTimeBlock(embed_dim, num_heads, attn_scale, feat_scale, dtype=dtype)
+            for _ in range(processor_blocks)
+        )
+        self.debed = HMLPDebed(patch_size, output_fields, embed_dim, dtype=dtype)
+        self.drop_path_rates = [float(r) for r in np.linspace(0.0, drop_path, processor_blocks)]
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, T, C, H, W)`` -> channels-last patch grid ``(B, T, h, w, E)``.
+
+        The NCHW -> NHWC relayout and the first stage's space-to-depth fold
+        are one permute, as in the JAX package."""
+        b, t, c, hh, ww = x.shape
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = x.reshape(b * t, c, hh // 2, 2, ww // 2, 2).permute(0, 2, 4, 3, 5, 1)
+        x = self.embed(x.reshape(b * t, hh // 2, ww // 2, 4 * c), prefolded=True)
+        return x.reshape(b, t, x.shape[1], x.shape[2], self.embed_dim)
+
+    def _process(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        for rate, block in zip(self.drop_path_rates, self.blocks):
+            x = block(x, rate, generator)
+        return x
+
+    def _decode(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, T, h, w, E)`` -> ``(B, T, C_out, H, W)``."""
+        b, t = x.shape[:2]
+        x = self.debed(x.reshape(b * t, x.shape[2], x.shape[3], self.embed_dim))
+        return x.reshape(b, t, self.output_fields, x.shape[2], x.shape[3])
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the drop-path masks in train mode."""
+        return self._decode(self._process(self._encode(x), generator))
+
+
+@register_model("filmavit")
+class FiLMAViT(AViT):
+    """AViT with FiLM conditioning of the post-embed features on the fluid
+    parameters ``(B, num_fluid_params)``."""
+
+    def __init__(self, num_fluid_params: int = 9, **kwargs):
+        super().__init__(**kwargs)
+        self.film_embed = FiLMMLP(num_fluid_params, self.embed_dim, dtype=self.dtype)
+
+    def forward(self, x: torch.Tensor, fluid_params: torch.Tensor,  # type: ignore[override]
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.film_embed(self._encode(x), fluid_params)
+        return self._decode(self._process(x, generator))
