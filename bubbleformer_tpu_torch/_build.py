@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared library
-with a plain C interface, under ``build/bubbleformer_tpu_torch/`` at the root
-of the checkout.  The library's name carries a hash of the sources and the
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` — one process per
+source, all started together — and links the objects into one shared
+library with a plain C interface, under ``build/bubbleformer_tpu_torch/`` at
+the root of the checkout.  The library's name carries a hash of the sources and the
 flags, so an edit to a kernel builds anew and an unchanged tree reuses its
 build.  It is built at first use — the first CUDA call of a kernel wrapper —
 and loaded with ``ctypes``; every C entry returns the ``cudaError_t`` of its
@@ -23,10 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "bubbleformer_tpu_torch"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # dtype codes of the C entries (csrc/common.cuh).
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -35,11 +34,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # dtype, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout, bout, bias,
-    # scale, stats1, ao, stats2, out, B, T, N, C, heads, stream
-    "bf_temporal_block_fwd": [_I] + [_P] * 16 + [_I] * 5 + [_P],
+    # scale, stats1, qkv, ao, stats2, out, B, T, N, C, heads, stream
+    "bf_temporal_block_fwd": [_I] + [_P] * 17 + [_I] * 5 + [_P],
+    # dtype, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b, wout_t, bias,
+    # scale, stats1, ao, stats2, work, sums, dqkv, dx, din1, dwqkv, dbqkv, dln,
+    # din2, dwout, dbout, dbias, dscale, B, T, N, C, heads, stream
+    "bf_temporal_block_bwd": [_I] + [_P] * 28 + [_I] * 5 + [_P],
     # dtype, qkv, ln, bias_x, bias_y, scale, row_out, out, BT, H, W, C, heads,
     # stream
     "bf_axial_attention_fwd": [_I] + [_P] * 7 + [_I] * 5 + [_P],
+    # dtype, qkv, do, ln, bias_x, bias_y, scale, dqkv, dln, dbias_x, dbias_y,
+    # dscale, BT, H, W, C, heads, stream
+    "bf_axial_attention_bwd": [_I] + [_P] * 11 + [_I] * 5 + [_P],
 }
 
 
@@ -79,18 +85,32 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for cu in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmp) / f"{cu.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)]
+            jobs.append((cu.name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        log, failed = [], []
+        for name, _, proc in jobs:  # waits for every compiler, failed or not
+            out, err = proc.communicate()
+            log.append(f"== {name} (exit {proc.returncode})\n{out}{err}")
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{err[-6000:]}")
         tmp_so = Path(tmp) / so.name
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_so), *cus],
-            capture_output=True, text=True,
-        )
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {so.name}:\n{proc.stderr[-8000:]}"
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so), *(str(o) for _, o, _ in jobs)],
+                capture_output=True, text=True,
             )
+            log.append(f"== link (exit {link.returncode})\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append(f"link:\n{link.stderr[-6000:]}")
+        so.with_suffix(".log").write_text("\n".join(log))
+        if failed:
+            raise RuntimeError(f"nvcc failed building {so.name}:\n" + "\n".join(failed))
         os.replace(tmp_so, so)  # atomic: a half-written library is never loaded
     return so
 

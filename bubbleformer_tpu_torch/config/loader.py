@@ -1,10 +1,13 @@
-"""YAML config composition over the JAX package's config files.
+"""YAML config composition over the port's own copy of the config files.
 
 The same composition as ``bubbleformer_tpu/config/loader.py`` (defaults list
--> group files -> ``key=value`` overrides), reading the YAML files under
-``bubbleformer_tpu/config/`` by path: the port keeps no copy of them and
-cannot import the JAX package's loader (importing it imports jax).
-``yaml`` is imported only when a file is read.
+-> group files -> ``key=value`` overrides) over the YAML files beside this
+module: ``default.yaml`` and the ``data_cfg``, ``model_cfg``, ``optim_cfg``
+and ``scheduler_cfg`` groups, copied from ``bubbleformer_tpu/config/``
+(``tests/test_torch_config.py`` holds each copy equal to its original).  The
+port has no mesh, so it has no ``mesh_cfg`` group: a ``mesh_cfg`` entry of
+the defaults list or the command line is ignored.  ``yaml`` is imported only
+when a file is read.
 """
 from __future__ import annotations
 
@@ -12,9 +15,10 @@ import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-GROUPS = ("data_cfg", "model_cfg", "optim_cfg", "scheduler_cfg", "mesh_cfg")
+GROUPS = ("data_cfg", "model_cfg", "optim_cfg", "scheduler_cfg")
+IGNORED_GROUPS = ("mesh_cfg",)  # the JAX package's device mesh
 
-DEFAULT_CONFIG_DIR = str(Path(__file__).resolve().parents[2] / "bubbleformer_tpu" / "config")
+DEFAULT_CONFIG_DIR = str(Path(__file__).resolve().parent)
 
 
 def _yaml():
@@ -59,11 +63,13 @@ def load_config(overrides: Optional[List[str]] = None, config_dir: str = DEFAULT
         key, _, raw = ov.partition("=")
         if key in GROUPS:
             selections[key] = raw
-        else:
+        elif key not in IGNORED_GROUPS:
             value_overrides.append((key, _yaml().safe_load(raw)))
 
     cfg = dict(root)
     for group, name in selections.items():
+        if group in IGNORED_GROUPS:
+            continue
         cfg[group] = _load_yaml(os.path.join(config_dir, group, f"{name}.yaml"))
     for key, value in value_overrides:
         _set_dotted(cfg, key, value)

@@ -17,7 +17,8 @@
 //       steps, head): normalise the x rows, multiply by that head's
 //       contiguous 192-column slice of W_qkv, add the bias, qk-LN, the T x T
 //       attention, and write the attention output `ao` in float32 (the TPU
-//       kernel's f32 ao scratch);
+//       kernel's f32 ao scratch) and the rounded raw qkv, which the backward
+//       reads instead of redoing the product;
 //   (c) plane_stats_kernel over ao (IN2);
 //   (d) out_proj_kernel: IN2 apply, multiply by (W_out * gamma), add
 //       (b_out * gamma).
@@ -28,19 +29,18 @@
 // What bounds it at the slice shape (B=1, T=5, 32x32 tokens, C=384, 6 heads,
 // per block per window): the QKV product is ~4.5 GFLOP and the output
 // product ~1.5 GFLOP; activations are ~4 MB in bf16 (x, out) plus 7.9 MB of
-// f32 ao.  Both products run in bf16 on the tensor cores through WMMA
+// f32 ao and 11.8 MB of bf16 qkv kept for the backward.  Both products run in bf16 on the tensor cores through WMMA
 // (16x16x16, f32 accumulate) and in float32 as an FMA loop; at these sizes
 // the kernel is bound by latency and the x re-reads (each of the 6 head
 // blocks of a tile normalises the same x rows), not by either roofline.
-// Left for later: wgmma/TMA pipelining, one block for all heads of a tile
-// (x read once), keeping ao on chip (a thread-block cluster holding a whole
-// plane) instead of its f32 round trip through device memory, and the
-// backward kernel.
-#include <mma.h>
-
+// The GEMM tile is block_gemm.cuh's, shared with the backward kernels
+// (temporal_block_bwd.cu).  Left for later: wgmma/TMA pipelining, one block
+// for all heads of a tile (x read once), keeping ao on chip (a thread-block
+// cluster holding a whole plane) instead of its f32 round trip through
+// device memory.
 #include <cmath>
-#include <type_traits>
 
+#include "block_gemm.cuh"
 #include "common.cuh"
 
 namespace bft {
@@ -49,145 +49,20 @@ namespace {
 constexpr int kD = 64;              // head dim
 constexpr int kP = 16;              // spatial positions per attention block
 constexpr int kMaxT = 8;            // time steps (GEMM rows = 16 * T <= 128)
-constexpr int kKC = 32;             // K chunk staged in shared memory
-constexpr int kBN = 3 * kD;         // GEMM tile columns: one head's q|k|v
-constexpr int kLDC = kBN + 4;       // float32 output tile row stride
-constexpr int kThreads = 256;
+constexpr int kThreads = kGemmThreads;
 constexpr int kWarps = kThreads / 32;
 constexpr int kOutMTiles = 4;       // out-projection rows per block: 64
 constexpr float kEps = 1e-5f;
 constexpr float kScaling = 0.125f;  // kD ** -0.5
-
-// Shared-memory row strides of the staged A / B chunks: bf16 rows of 40
-// elements (WMMA needs a multiple of 8), float rows of 33 (odd: no bank
-// conflicts in the FMA loop).
-template <typename T>
-struct Tile {
-  static constexpr int ld = kKC + 8;
-};
-template <>
-struct Tile<float> {
-  static constexpr int ld = kKC + 1;
-};
-
-template <typename T>
-__host__ __device__ size_t a_bytes(int m_tiles) {
-  return align128(sizeof(T) * 16 * m_tiles * Tile<T>::ld);
-}
-template <typename T>
-__host__ __device__ size_t b_bytes() {
-  return align128(sizeof(T) * kBN * Tile<T>::ld);
-}
-template <typename T>
-size_t gemm_smem_bytes(int m_tiles) {
-  return a_bytes<T>(m_tiles) + b_bytes<T>() + sizeof(float) * 16 * m_tiles * kLDC;
-}
-template <typename T>
-__device__ float* gemm_out(unsigned char* smem, int m_tiles) {
-  return reinterpret_cast<float*>(smem + a_bytes<T>(m_tiles) + b_bytes<T>());
-}
-
-// Cs[m][n] = sum_k A(m, k) * W[n][k] for m < 16*m_tiles, n < 16*n_tiles,
-// into the float32 tile at gemm_out().  A(m, k) comes from `aload`, already
-// rounded to T; W rows are output features (torch (out, in) layout), `ldw`
-// elements apart.  K must be a multiple of kKC.
-template <typename T, typename ALoad>
-__device__ void block_gemm(int m_tiles, int n_tiles, int K, const T* __restrict__ W,
-                           int ldw, ALoad aload, unsigned char* smem) {
-  constexpr int LD = Tile<T>::ld;
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = reinterpret_cast<T*>(smem + a_bytes<T>(m_tiles));
-  float* Cs = gemm_out<T>(smem, m_tiles);
-  const int tid = threadIdx.x;
-  const int rows = 16 * m_tiles, cols = 16 * n_tiles;
-
-  auto stage = [&](int k0) {
-    for (int e = tid; e < rows * kKC; e += kThreads) {
-      const int m = e / kKC, kk = e % kKC;
-      As[m * LD + kk] = aload(m, k0 + kk);
-    }
-    for (int e = tid; e < cols * kKC; e += kThreads) {
-      const int n = e / kKC, kk = e % kKC;
-      Bs[n * LD + kk] = W[(size_t)n * ldw + k0 + kk];
-    }
-  };
-
-  if constexpr (std::is_same<T, float>::value) {
-    // float32: each thread owns rows tm + 16 i and columns tn + 16 j.
-    const int tm = tid % 16, tn = tid / 16;
-    float acc[kMaxT][12];
-#pragma unroll
-    for (int i = 0; i < kMaxT; ++i)
-#pragma unroll
-      for (int j = 0; j < 12; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kKC) {
-      stage(k0);
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kKC; ++kk) {
-        float a[kMaxT];
-#pragma unroll
-        for (int i = 0; i < kMaxT; ++i) a[i] = i < m_tiles ? As[(tm + 16 * i) * LD + kk] : 0.f;
-#pragma unroll
-        for (int j = 0; j < 12; ++j) {
-          if (j < n_tiles) {
-            const float bv = Bs[(tn + 16 * j) * LD + kk];
-#pragma unroll
-            for (int i = 0; i < kMaxT; ++i) acc[i][j] += a[i] * bv;
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kMaxT; ++i)
-#pragma unroll
-      for (int j = 0; j < 12; ++j)
-        if (i < m_tiles && j < n_tiles) Cs[(tm + 16 * i) * kLDC + tn + 16 * j] = acc[i][j];
-  } else {
-    // bf16: WMMA 16x16x16 tiles, float32 accumulators; warp w owns the
-    // fragments w, w + kWarps, ...
-    using namespace nvcuda;
-    constexpr int kMaxFrags = (kMaxT * 12 + kWarps - 1) / kWarps;
-    const int warp = tid / 32;
-    const int nfrag = m_tiles * n_tiles;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMaxFrags];
-#pragma unroll
-    for (int i = 0; i < kMaxFrags; ++i) wmma::fill_fragment(acc[i], 0.f);
-    for (int k0 = 0; k0 < K; k0 += kKC) {
-      stage(k0);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < kMaxFrags; ++i) {
-        const int f = warp + i * kWarps;
-        if (f < nfrag) {
-          const int mt = f / n_tiles, nt = f % n_tiles;
-#pragma unroll
-          for (int kk = 0; kk < kKC; kk += 16) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> fb;
-            wmma::load_matrix_sync(fa, As + mt * 16 * LD + kk, LD);
-            wmma::load_matrix_sync(fb, Bs + nt * 16 * LD + kk, LD);
-            wmma::mma_sync(acc[i], fa, fb, acc[i]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kMaxFrags; ++i) {
-      const int f = warp + i * kWarps;
-      if (f < nfrag) {
-        const int mt = f / n_tiles, nt = f % n_tiles;
-        wmma::store_matrix_sync(Cs + mt * 16 * kLDC + nt * 16, acc[i], kLDC, wmma::mem_row_major);
-      }
-    }
-  }
-}
+static_assert(kMaxT <= kMaxMTiles && 3 * kD == kBN, "one head's q|k|v is one GEMM tile");
 
 // (a), (c): mean and rstd over the N rows of each (plane, channel) of a
 // (G, N, C) tensor; single pass E[x^2] - E[x]^2 in float32, as the TPU
-// kernel's _in_fwd_t.  Block (32 channels, 8 row phases).
+// kernel's _in_fwd_t, but on the values shifted by the plane's first row.
+// Unshifted, the difference cancels wherever a channel's mean is far above
+// its spread (FiLM with |beta| >> |gamma|); shifted by a sample of the
+// plane, the sums are of deviations and the cancellation is gone.
+// Block (32 channels, 8 row phases).
 template <typename T>
 __global__ void plane_stats_kernel(const T* __restrict__ x, int N, int C,
                                    float* __restrict__ mean, float* __restrict__ rstd) {
@@ -195,11 +70,12 @@ __global__ void plane_stats_kernel(const T* __restrict__ x, int N, int C,
   __shared__ float sh_ss[8][33];
   const int g = blockIdx.y;
   const int c = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.f, ss = 0.f;
+  float s = 0.f, ss = 0.f, shift = 0.f;
   if (c < C) {
     const T* p = x + (size_t)g * N * C + c;
+    shift = to_f32(p[0]);
     for (int r = threadIdx.y; r < N; r += 8) {
-      const float v = to_f32(p[(size_t)r * C]);
+      const float v = to_f32(p[(size_t)r * C]) - shift;
       s += v;
       ss += v * v;
     }
@@ -216,7 +92,7 @@ __global__ void plane_stats_kernel(const T* __restrict__ x, int N, int C,
     }
     const float mu = ts / N;
     const float var = fmaxf(tss / N - mu * mu, 0.f);
-    mean[(size_t)g * C + c] = mu;
+    mean[(size_t)g * C + c] = shift + mu;
     rstd[(size_t)g * C + c] = 1.f / sqrtf(var + kEps);
   }
 }
@@ -227,8 +103,8 @@ __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
     const T* __restrict__ x, const float* __restrict__ mean1, const float* __restrict__ rstd1,
     const float* __restrict__ in1_w, const float* __restrict__ in1_b,
     const T* __restrict__ wqkv, const float* __restrict__ bqkv, const float* __restrict__ ln,
-    const float* __restrict__ bias, const float* __restrict__ scale, float* __restrict__ ao,
-    int steps, int N, int C) {
+    const float* __restrict__ bias, const float* __restrict__ scale, T* __restrict__ qkv,
+    float* __restrict__ ao, int steps, int N, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n0 = blockIdx.x * kP, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -240,14 +116,18 @@ __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
     const int s = g * C + k;
     return from_f32<T>((v - mean1[s]) * rstd1[s] * in1_w[k] + in1_b[k]);
   };
-  block_gemm<T>(steps, kBN / 16, C, wqkv + (size_t)h * kBN * C, C, aload, smem);
+  const T* w = wqkv + (size_t)h * kBN * C;
+  auto bload = [&](int n, int k) -> T { return w[(size_t)n * C + k]; };
+  block_gemm<T, false>(steps, kBN / 16, C, aload, bload, smem);
   float* Cs = gemm_out<T>(smem, steps);
   __syncthreads();
 
-  // qkv = dtype(acc + b_qkv)
+  // qkv = dtype(acc + b_qkv), also written out for the backward.
   for (int e = tid; e < rows * kBN; e += kThreads) {
     const int m = e / kBN, j = e % kBN;
-    Cs[m * kLDC + j] = round_to<T>(Cs[m * kLDC + j] + bqkv[h * kBN + j]);
+    const float v = round_to<T>(Cs[m * kLDC + j] + bqkv[h * kBN + j]);
+    Cs[m * kLDC + j] = v;
+    qkv[((size_t)(b * steps + m / kP) * N + n0 + m % kP) * 3 * C + h * kBN + j] = from_f32<T>(v);
   }
   __syncthreads();
 
@@ -328,7 +208,8 @@ __global__ void __launch_bounds__(kThreads) out_proj_kernel(
     const int s = (r / N) * C + k;
     return from_f32<T>((ao[(size_t)r * C + k] - mean2[s]) * rstd2[s] * in2_w[k] + in2_b[k]);
   };
-  block_gemm<T>(kOutMTiles, n_tiles, C, wout + (size_t)n0 * C, C, aload, smem);
+  auto bload = [&](int n, int k) -> T { return wout[(size_t)(n0 + n) * C + k]; };
+  block_gemm<T, false>(kOutMTiles, n_tiles, C, aload, bload, smem);
   const float* Cs = gemm_out<T>(smem, kOutMTiles);
   __syncthreads();
 
@@ -343,8 +224,8 @@ template <typename T>
 int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, const void* wqkv,
                        const float* bqkv, const float* ln, const float* in2_w, const float* in2_b,
                        const void* wout, const float* bout, const float* bias, const float* scale,
-                       float* stats1, float* ao, float* stats2, void* out, int B, int steps,
-                       int N, int C, int heads, cudaStream_t stream) {
+                       float* stats1, void* qkv, float* ao, float* stats2, void* out, int B,
+                       int steps, int N, int C, int heads, cudaStream_t stream) {
   const int G = B * steps;
   const dim3 sgrid((C + 31) / 32, G), sblock(32, 8);
   cudaError_t e;
@@ -360,7 +241,8 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
     return e;
   qkv_attention_kernel<T><<<dim3(N / kP, heads, B), kThreads, smem_b, stream>>>(
       static_cast<const T*>(x), stats1, stats1 + (size_t)G * C, in1_w, in1_b,
-      static_cast<const T*>(wqkv), bqkv, ln, bias, scale, ao, steps, N, C);
+      static_cast<const T*>(wqkv), bqkv, ln, bias, scale, static_cast<T*>(qkv), ao, steps, N,
+      C);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   plane_stats_kernel<float><<<sgrid, sblock, 0, stream>>>(ao, N, C, stats2,
@@ -384,25 +266,26 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
 
 // x, out: (B, T, N, C) in dtype; wqkv (3C, C) and wout (C, C) in dtype, torch
 // (out, in) layout; ln (4, 64) = [q scale; q bias; k scale; k bias]; bias
-// (heads, T, T); scale (heads,); stats1/stats2 (2, B*T, C) and ao (B*T*N, C)
-// are float32 scratch.  The wrapper checks head_dim == 64, T <= 8,
+// (heads, T, T); scale (heads,).  Also written, for the backward: stats1 and
+// stats2 (2, B*T, C) and ao (B*T*N, C) in float32, and the rounded raw qkv
+// (B*T*N, 3C) in dtype.  The wrapper checks head_dim == 64, T <= 8,
 // N % 16 == 0 and C % 32 == 0.  Returns a cudaError_t.
 extern "C" int bf_temporal_block_fwd(int dtype, const void* x, const float* in1_w,
                                      const float* in1_b, const void* wqkv, const float* bqkv,
                                      const float* ln, const float* in2_w, const float* in2_b,
                                      const void* wout, const float* bout, const float* bias,
-                                     const float* scale, float* stats1, float* ao, float* stats2,
-                                     void* out, int B, int steps, int N, int C, int heads,
-                                     void* stream) {
+                                     const float* scale, float* stats1, void* qkv, float* ao,
+                                     float* stats2, void* out, int B, int steps, int N, int C,
+                                     int heads, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == bft::kF32)
     return bft::run_temporal_block<float>(x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout,
-                                          bout, bias, scale, stats1, ao, stats2, out, B, steps, N,
-                                          C, heads, s);
+                                          bout, bias, scale, stats1, qkv, ao, stats2, out, B,
+                                          steps, N, C, heads, s);
   if (dtype == bft::kBF16)
     return bft::run_temporal_block<__nv_bfloat16>(x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b,
-                                                  wout, bout, bias, scale, stats1, ao, stats2,
-                                                  out, B, steps, N, C, heads, s);
+                                                  wout, bout, bias, scale, stats1, qkv, ao,
+                                                  stats2, out, B, steps, N, C, heads, s);
   return cudaErrorInvalidValue;
 }
 

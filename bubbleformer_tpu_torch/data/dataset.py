@@ -1,7 +1,9 @@
-"""Sliding-window HDF5 dataset: the parts the rollout uses.
+"""Sliding-window HDF5 dataset: the parts training and the rollout use.
 
 A subset of ``bubbleformer_tpu/data/dataset.py:BubbleForecast`` — windowing,
-normalization and the fluid-parameter vector — with the same indexing:
+normalization (constants computed on the training files and adopted by the
+validation set, ``normalize(diff, div)``) and the fluid-parameter vector;
+not the native C batch assembler — with the same indexing:
 samples per file ``traj_len - start_time - 2*time_window + 1``, input window
 ``[start, start+tw)``, target ``[start+tw, start+2tw)``.  Samples are numpy
 ``(T, C, H, W)`` float32.  ``h5py`` is imported when a file is opened.

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from bubbleformer_tpu_torch.layers.linear import GeluMLP, dense
-from bubbleformer_tpu_torch.layers.norm import InstanceNorm, LayerNorm
+from bubbleformer_tpu_torch.layers.norm import InstanceNorm, LayerNorm, accumulation_dtype
 from bubbleformer_tpu_torch.layers.positional import RelativePositionBias
 from bubbleformer_tpu_torch.layers.stochastic import drop_path
 from bubbleformer_tpu_torch.ops.axial_lane import lane_axial_attention_from_x
@@ -66,9 +66,10 @@ class TemporalAttentionBlock(nn.Module):
         scale = None if self.attn_scale_factor is None else self.attn_scale_factor.reshape(heads)
         # LayerScale folds into the output projection exactly:
         # gamma * (W y + b) == (gamma W) y + gamma b.
-        gamma = self.gamma.float()
-        wout = self.output_head.weight.reshape(c, c).float() * gamma[:, None]
-        bout = self.output_head.bias.float() * gamma
+        acc = accumulation_dtype(self.gamma.dtype)
+        gamma = self.gamma.to(acc)
+        wout = self.output_head.weight.reshape(c, c).to(acc) * gamma[:, None]
+        bout = self.output_head.bias.to(acc) * gamma
         xin = x if self.dtype is None else x.to(self.dtype)
         branch = mega_temporal_block(
             xin, self.norm1.weight, self.norm1.bias,

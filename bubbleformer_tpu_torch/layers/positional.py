@@ -14,6 +14,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from bubbleformer_tpu_torch.layers.norm import accumulation_dtype
+
 
 def t5_relative_position_bucket(relative_position: np.ndarray, bidirectional: bool = True,
                                 num_buckets: int = 32, max_distance: int = 128) -> np.ndarray:
@@ -56,7 +58,8 @@ def t5_bucket_table(qlen: int, klen: int, bidirectional: bool = True,
 
 
 class RelativePositionBias(nn.Module):
-    """Returns a ``(heads, qlen, klen)`` float32 additive bias.
+    """Returns a ``(heads, qlen, klen)`` float32 additive bias (float64 for a
+    float64 table).
 
     ``max_distance`` is 32, not the reference constructor's 128: the
     reference's ``compute_bias`` never forwards its attribute to the bucket
@@ -82,4 +85,4 @@ class RelativePositionBias(nn.Module):
             ids = t5_bucket_table(qlen, klen, self.bidirectional,
                                   self.num_buckets, self.max_distance)
             self._buckets[key] = torch.as_tensor(ids, device=table.device)
-        return table[self._buckets[key]].permute(2, 0, 1).float()
+        return table[self._buckets[key]].permute(2, 0, 1).to(accumulation_dtype(table.dtype))

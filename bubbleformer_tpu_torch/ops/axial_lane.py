@@ -1,17 +1,28 @@
-"""K2: the axial row + column attention core, forward.
+"""K2: the axial row + column attention core, forward and backward.
 
 Counterpart of ``bubbleformer_tpu/ops/axial_lane.py:
 lane_axial_attention_from_x``: the QKV projection of the InstanceNorm1
-output (a plain matmul, as it was XLA on the TPU), then per-head
-qk-LayerNorm, attention along each row (over W, ``bias_x``, ``scale_x``) and
-each column (over H, ``bias_y``, ``scale_y``) with the attn_scale blend folded
-into the probabilities, and the mean of the two directions.
+output (a plain ``addmm`` with autograd, as it was XLA on the TPU,
+``axial_lane.py:983-1000``), then per-head qk-LayerNorm, attention along
+each row (over W, ``bias_x``, ``scale_x``) and each column (over H,
+``bias_y``, ``scale_y``) with the attn_scale blend folded into the
+probabilities, and the mean of the two directions.
 
-:func:`lane_axial_attention` runs the hand-written CUDA kernel
-(``csrc/axial_attention.cu``) on CUDA tensors and :func:`axial_attention_plain`
-on CPU tensors.  Both round where the lane kernel rounds: qkv, q/k (after
-LN), the blended probabilities and each direction's output in the activation
-dtype (``axial_lane.py:_axis_fwd``, ``:844-848``).  Forward only.
+:func:`lane_axial_attention` is a ``torch.autograd.Function``.  On CUDA
+tensors its forward and backward run the hand-written kernels of
+``csrc/axial_attention.cu`` (:func:`lane_axial_attention_bwd`); on CPU
+tensors :func:`axial_attention_plain` and :func:`axial_attention_bwd_plain`;
+on any other device they raise.
+
+Both round where the lane kernel rounds: qkv, q/k (after LN), the blended
+probabilities and each direction's output in the activation dtype
+(``axial_lane.py:_axis_fwd``, ``:844-848``).  In the backward each direction's
+output gradient is ``dtype(0.5 * dout)``; the probability gradient ``dS`` is
+rounded before its products with q and k, and the blended probabilities
+before theirs with ``dao`` (``_axis_bwd :254-317``); each direction's
+``dqkv`` is rounded to the activation dtype (``:700-701``) and the two are
+added and rounded once more, since the port's QKV tensor is one tensor where
+the TPU package projected once per direction.
 """
 from __future__ import annotations
 
@@ -20,11 +31,28 @@ from typing import Optional
 import torch
 
 from bubbleformer_tpu_torch import _build
-from bubbleformer_tpu_torch.layers.norm import layer_norm_f32
+from bubbleformer_tpu_torch.layers.norm import (
+    accumulation_dtype,
+    layer_norm_bwd,
+    layer_norm_f32,
+    row_xhat,
+)
 from bubbleformer_tpu_torch.ops.attention import axis_attention
 
-HEAD_DIM = 64  # the kernel's compile-time head dim
-MAX_LINE = 64  # longest row or column the kernel stages in shared memory
+HEAD_DIM = 64  # the kernels' compile-time head dim
+MAX_LINE = 64  # longest row or column the kernels stage in shared memory
+
+
+def _rows(a):  # (bt, h, w, heads, d) <-> (bt, h, heads, w, d): its own inverse
+    return a.permute(0, 1, 3, 2, 4)
+
+
+def _cols(a):  # (bt, h, w, heads, d) -> (bt, w, heads, h, d)
+    return a.permute(0, 2, 3, 1, 4)
+
+
+def _uncols(a):
+    return a.permute(0, 3, 1, 2, 4)
 
 
 def axial_attention_plain(
@@ -34,70 +62,196 @@ def axial_attention_plain(
     scale_x: Optional[torch.Tensor] = None, scale_y: Optional[torch.Tensor] = None,
     *, heads: int,
 ) -> torch.Tensor:
-    """Plain PyTorch version of K2; the arguments of :func:`lane_axial_attention`."""
+    """Plain PyTorch version of K2's forward; the arguments of
+    :func:`lane_axial_attention`."""
     bt, h, w, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
-    dt = qkv.dtype
+    dt, acc = qkv.dtype, accumulation_dtype(qkv.dtype)
     q5 = qkv.reshape(bt, h, w, heads, 3, d)
     q = layer_norm_f32(q5[..., 0, :], qn_scale, qn_bias).to(dt)
     k = layer_norm_f32(q5[..., 1, :], kn_scale, kn_bias).to(dt)
     v = q5[..., 2, :]
-
-    def rows(a):  # (bt, h, w, heads, d) -> (bt, h, heads, w, d)
-        return a.permute(0, 1, 3, 2, 4)
-
-    def cols(a):  # (bt, h, w, heads, d) -> (bt, w, heads, h, d)
-        return a.permute(0, 2, 3, 1, 4)
-
-    o_r = axis_attention(rows(q), rows(k), rows(v), bias_x, scale_x, fold_dtype=dt).to(dt)
-    o_r = o_r.permute(0, 1, 3, 2, 4).reshape(bt, h, w, c)
-    o_c = axis_attention(cols(q), cols(k), cols(v), bias_y, scale_y, fold_dtype=dt).to(dt)
-    o_c = o_c.permute(0, 3, 1, 2, 4).reshape(bt, h, w, c)
-    return (0.5 * (o_r.float() + o_c.float())).to(dt)
+    o_r = axis_attention(_rows(q), _rows(k), _rows(v), bias_x, scale_x, fold_dtype=dt).to(dt)
+    o_r = _rows(o_r).reshape(bt, h, w, c)
+    o_c = axis_attention(_cols(q), _cols(k), _cols(v), bias_y, scale_y, fold_dtype=dt).to(dt)
+    o_c = _uncols(o_c).reshape(bt, h, w, c)
+    return (0.5 * (o_r.to(acc) + o_c.to(acc))).to(dt)
 
 
-def _axial_cuda(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y,
-                heads):
+def axial_attention_bwd_plain(
+    do: torch.Tensor, qkv: torch.Tensor, qn_scale: torch.Tensor, qn_bias: torch.Tensor,
+    kn_scale: torch.Tensor, kn_bias: torch.Tensor,
+    bias_x: Optional[torch.Tensor] = None, bias_y: Optional[torch.Tensor] = None,
+    scale_x: Optional[torch.Tensor] = None, scale_y: Optional[torch.Tensor] = None,
+    *, heads: int,
+) -> tuple:
+    """Plain PyTorch version of K2's backward: explicit formulas, no autograd.
+
+    Returns the gradients of ``(qkv, qn_scale, qn_bias, kn_scale, kn_bias,
+    bias_x, bias_y, scale_x, scale_y)`` for the output gradient ``do``:
+    ``dqkv`` in ``qkv.dtype``, the rest float32 (None where the argument is
+    absent).  Per direction, with ``G = dao v^T``: ``dscale = sum (P - 1/L) G``,
+    ``dS = P * (s G - rowsum(s G P))`` (the T5 table's gradient),
+    ``dq = dtype(dS) k / sqrt(d)``, ``dk = dtype(dS)^T q / sqrt(d)`` and
+    ``dv = dtype(s P + (1-s)/L)^T dao`` (``axial_lane.py:_axis_bwd``), then
+    the qk-LN backward (``_qkln_bwd``).
+    """
+    bt, h, w, c3 = qkv.shape
+    c = c3 // 3
+    d, dt, dev = c // heads, qkv.dtype, qkv.device
+    acc = accumulation_dtype(dt)
+    q5 = qkv.to(acc).reshape(bt, h, w, heads, 3, d)
+    qhat, qrstd = row_xhat(q5[..., 0, :])
+    khat, krstd = row_xhat(q5[..., 1, :])
+    q = (qhat * qn_scale.to(acc) + qn_bias.to(acc)).to(dt).to(acc)
+    k = (khat * kn_scale.to(acc) + kn_bias.to(acc)).to(dt).to(acc)
+    v = q5[..., 2, :]
+    dao = (0.5 * do.to(acc)).to(dt).to(acc).reshape(bt, h, w, heads, d)
+    ones = torch.ones(heads, device=dev, dtype=acc)
+
+    def direction(fold, unfold, bias, scale, length):
+        qs, ks, vs, ds = fold(q), fold(k), fold(v), fold(dao)
+        logits = qs @ ks.transpose(-1, -2) * d**-0.5
+        if bias is not None:
+            logits = logits + bias.to(acc)
+        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        p = e / e.sum(dim=-1, keepdim=True)
+        s = (ones if scale is None else scale.to(acc)).reshape(heads, 1, 1)
+        g = ds @ vs.transpose(-1, -2)
+        batch = (0, 1)
+        dscale = ((p - 1.0 / length) * g).sum(dim=(0, 1, 3, 4))
+        dp = s * g
+        dlog = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dlog_r = dlog.to(dt).to(acc)
+        dq = unfold((dlog_r @ ks) * d**-0.5)
+        dk = unfold((dlog_r.transpose(-1, -2) @ qs) * d**-0.5)
+        pb = (s * p + (1.0 - s) / length).to(dt).to(acc)
+        dv = unfold(pb.transpose(-1, -2) @ ds)
+        dqr, dgq, dbq = layer_norm_bwd(dq, qhat, qrstd, qn_scale)
+        dkr, dgk, dbk = layer_norm_bwd(dk, khat, krstd, kn_scale)
+        dqkv = torch.stack([dqr.to(dt), dkr.to(dt), dv.to(dt)], dim=-2)
+        return dqkv, torch.stack([dgq, dbq, dgk, dbk]), dlog.sum(dim=batch), dscale
+
+    dqkv_r, dln_r, dbx, dsx = direction(_rows, _rows, bias_x, scale_x, w)
+    dqkv_c, dln_c, dby, dsy = direction(_cols, _uncols, bias_y, scale_y, h)
+    dqkv = (dqkv_r.to(acc) + dqkv_c.to(acc)).to(dt).reshape(bt, h, w, c3)
+    dln = dln_r + dln_c
+    return (dqkv, dln[0], dln[1], dln[2], dln[3],
+            None if bias_x is None else dbx, None if bias_y is None else dby,
+            None if scale_x is None else dsx, None if scale_y is None else dsy)
+
+
+def _kernel_params(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y,
+                   heads, what):
     bt, h, w, c3 = qkv.shape
     c = c3 // 3
     if qkv.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"lane_axial_attention kernel takes float32 or bfloat16, not {qkv.dtype}")
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, not {qkv.dtype}")
     if c3 != 3 * c or c != heads * HEAD_DIM or max(h, w) > MAX_LINE:
         raise ValueError(
-            f"lane_axial_attention kernel needs head_dim {HEAD_DIM} and max(H, W) <= "
-            f"{MAX_LINE}; got {h}x{w}, C={c}, heads={heads}"
+            f"{what} kernel needs head_dim {HEAD_DIM} and max(H, W) <= {MAX_LINE}; "
+            f"got {h}x{w}, C={c}, heads={heads}"
         )
-    if torch.is_grad_enabled() and any(
-        a is not None and a.requires_grad for a in (qkv, bias_x, bias_y, scale_x, scale_y)
-    ):
-        raise RuntimeError("lane_axial_attention's CUDA kernel is forward-only; call it under "
-                           "torch.no_grad()")
     dev = qkv.device
 
     def f32(a):
         return a.detach().to(device=dev, dtype=torch.float32).contiguous()
 
     ones = torch.ones(heads, device=dev)
+    p = dict(
+        ln=torch.stack([f32(qn_scale), f32(qn_bias), f32(kn_scale), f32(kn_bias)]),
+        bias_x=torch.zeros(heads, w, w, device=dev) if bias_x is None else f32(bias_x),
+        bias_y=torch.zeros(heads, h, h, device=dev) if bias_y is None else f32(bias_y),
+        scale=torch.stack([ones if scale_x is None else f32(scale_x),
+                           ones if scale_y is None else f32(scale_y)], dim=1).contiguous(),
+    )
+    _build.check_shapes(what, ln=(p["ln"], (4, HEAD_DIM)), bias_x=(p["bias_x"], (heads, w, w)),
+                        bias_y=(p["bias_y"], (heads, h, h)), scale=(p["scale"], (heads, 2)))
+    return p
+
+
+def _axial_fwd_cuda(qkv, *params, heads):
+    bt, h, w, c3 = qkv.shape
+    c = c3 // 3
+    p = _kernel_params(qkv, *params, heads, "lane_axial_attention")
+    dev = qkv.device
     qkv = qkv.contiguous()
-    ln = torch.stack([f32(qn_scale), f32(qn_bias), f32(kn_scale), f32(kn_bias)])
-    bx = torch.zeros(heads, w, w, device=dev) if bias_x is None else f32(bias_x)
-    by = torch.zeros(heads, h, h, device=dev) if bias_y is None else f32(bias_y)
-    scale = torch.stack([ones if scale_x is None else f32(scale_x),
-                         ones if scale_y is None else f32(scale_y)], dim=1).contiguous()
-    _build.check_shapes("lane_axial_attention", ln=(ln, (4, HEAD_DIM)),
-                        bias_x=(bx, (heads, w, w)), bias_y=(by, (heads, h, h)),
-                        scale=(scale, (heads, 2)))
     row_out = torch.empty(bt, h, w, c, device=dev)
     out = torch.empty(bt, h, w, c, device=dev, dtype=qkv.dtype)
     lib = _build.library()
     err = lib.bf_axial_attention_fwd(
-        _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(), ln.data_ptr(), bx.data_ptr(),
-        by.data_ptr(), scale.data_ptr(), row_out.data_ptr(), out.data_ptr(),
-        bt, h, w, c, heads, _build.stream_handle(dev),
+        _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(), p["ln"].data_ptr(),
+        p["bias_x"].data_ptr(), p["bias_y"].data_ptr(), p["scale"].data_ptr(),
+        row_out.data_ptr(), out.data_ptr(), bt, h, w, c, heads, _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_axial_attention_fwd")
+    lane_axial_attention.launches += 1
     return out
+
+
+def lane_axial_attention_bwd(do: torch.Tensor, qkv: torch.Tensor, *params,
+                             heads: int) -> tuple:
+    """K2's backward: the gradients :func:`axial_attention_bwd_plain` returns.
+
+    CPU tensors take :func:`axial_attention_bwd_plain`; CUDA tensors launch
+    ``csrc/axial_attention.cu``'s backward (row pass, then the column pass
+    adding into the row pass's ``dqkv``, on one stream) and count
+    ``lane_axial_attention_bwd.launches``.  The parameter gradients are sums
+    over all lines, accumulated with float32 atomics: their last bits vary
+    from run to run."""
+    if qkv.device.type == "cpu":
+        return axial_attention_bwd_plain(do, qkv, *params, heads=heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"lane_axial_attention_bwd: unsupported device {qkv.device}")
+    bt, h, w, c3 = qkv.shape
+    p = _kernel_params(qkv, *params, heads, "lane_axial_attention_bwd")
+    _build.check_shapes("lane_axial_attention_bwd", do=(do, (bt, h, w, c3 // 3)))
+    dev = qkv.device
+    dqkv = torch.empty(bt, h, w, c3, device=dev, dtype=qkv.dtype)
+    dln = torch.zeros(4, HEAD_DIM, device=dev)
+    dbx = torch.zeros(heads, w, w, device=dev)
+    dby = torch.zeros(heads, h, h, device=dev)
+    dscale = torch.zeros(heads, 2, device=dev)
+    qkv, do = qkv.contiguous(), do.to(qkv.dtype).contiguous()  # held until queued
+    lib = _build.library()
+    err = lib.bf_axial_attention_bwd(
+        _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(), do.data_ptr(),
+        p["ln"].data_ptr(), p["bias_x"].data_ptr(), p["bias_y"].data_ptr(),
+        p["scale"].data_ptr(), dqkv.data_ptr(), dln.data_ptr(), dbx.data_ptr(),
+        dby.data_ptr(), dscale.data_ptr(), bt, h, w, c3 // 3, heads,
+        _build.stream_handle(dev),
+    )
+    _build.check(lib, err, "bf_axial_attention_bwd")
+    lane_axial_attention_bwd.launches += 1
+    bias_x, bias_y, scale_x, scale_y = params[4:]
+    return (dqkv, dln[0], dln[1], dln[2], dln[3],
+            None if bias_x is None else dbx, None if bias_y is None else dby,
+            None if scale_x is None else dscale[:, 0], None if scale_y is None else dscale[:, 1])
+
+
+class _AxialAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, heads, qkv, *params):
+        if qkv.device.type == "cpu":
+            out = axial_attention_plain(qkv, *params, heads=heads)
+        elif qkv.device.type == "cuda":
+            out = _axial_fwd_cuda(qkv, *params, heads=heads)
+        else:
+            raise ValueError(f"lane_axial_attention: unsupported device {qkv.device}")
+        ctx.heads = heads
+        ctx.absent = tuple(a is None for a in params)
+        ctx.save_for_backward(qkv, *(a for a in params if a is not None))
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        saved = list(ctx.saved_tensors)
+        qkv = saved.pop(0)
+        params = [None if absent else saved.pop(0) for absent in ctx.absent]
+        grads = lane_axial_attention_bwd(do, qkv, *params, heads=ctx.heads)
+        return (None, *(None if g is None else g.to(a.dtype)
+                        for g, a in zip(grads, [qkv] + params)))
 
 
 def lane_axial_attention(
@@ -108,24 +262,21 @@ def lane_axial_attention(
     *, heads: int,
 ) -> torch.Tensor:
     """Averaged row/column attention ``(BT, H, W, C)`` from the interleaved
-    QKV tensor ``qkv`` ``(BT, H, W, 3C)`` (float32 or bfloat16).
+    QKV tensor ``qkv`` ``(BT, H, W, 3C)`` (float32 or bfloat16),
+    differentiable in every argument.
 
     ``bias_x`` ``(heads, W, W)`` / ``bias_y`` ``(heads, H, H)``: the T5
     tables; ``scale_x`` / ``scale_y`` ``(heads,)``: per-axis attn_scale.
-    CPU tensors take :func:`axial_attention_plain`; CUDA tensors launch the
-    kernel (``lane_axial_attention.launches`` counts those launches).
+    CPU tensors take the plain versions; CUDA tensors launch the kernels
+    (``lane_axial_attention.launches`` and ``lane_axial_attention_bwd.launches``
+    count them).
     """
-    args = (qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y)
-    if qkv.device.type == "cpu":
-        return axial_attention_plain(*args, heads=heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"lane_axial_attention: unsupported device {qkv.device}")
-    out = _axial_cuda(*args, heads)
-    lane_axial_attention.launches += 1
-    return out
+    return _AxialAttention.apply(heads, qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x,
+                                 bias_y, scale_x, scale_y)
 
 
 lane_axial_attention.launches = 0
+lane_axial_attention_bwd.launches = 0
 
 
 def project_qkv(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,17 @@
 """Relative Lp loss and the eikonal SDF residual.
 
-Counterpart of ``bubbleformer_tpu/utils/losses.py``.  Inference uses
-``LpLoss(d=2, p=2, reduce_dims=[0, 1], reductions=["mean", "mean"])``.
+Counterpart of ``bubbleformer_tpu/utils/losses.py``.  Training uses
+``LpLoss(d=2, p=2, reduce_dims=[0, 1, 2], reductions=["mean", "mean", "sum"])``
+(``training/module.py``), inference ``LpLoss(d=2, p=2, reduce_dims=[0, 1],
+reductions=["mean", "mean"])``.
 """
 from __future__ import annotations
 
 from typing import List, Sequence, Union
 
 import torch
+
+from bubbleformer_tpu_torch.layers.norm import accumulation_dtype
 
 
 def _gradient_1d(x: torch.Tensor, spacing: float, dim: int) -> torch.Tensor:
@@ -45,8 +49,9 @@ class LpLoss:
         self.reductions: List[str] = list(reductions)
 
     def __call__(self, y_pred: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        flat_pred = y_pred.reshape(*y_pred.shape[: -self.d], -1).float()
-        flat_y = y.reshape(*y.shape[: -self.d], -1).float()
+        acc = accumulation_dtype(y_pred.dtype)
+        flat_pred = y_pred.reshape(*y_pred.shape[: -self.d], -1).to(acc)
+        flat_y = y.reshape(*y.shape[: -self.d], -1).to(acc)
         diff = flat_pred - flat_y
         if self.p == 2:
             diff_norm = torch.sqrt((diff * diff).sum(-1))

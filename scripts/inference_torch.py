@@ -2,17 +2,19 @@
 """Autoregressive rollout inference with the PyTorch port.
 
 Counterpart of ``scripts/inference.py`` on ``bubbleformer_tpu_torch``, with
-the same flags.  The rollout runs on the first CUDA card when there is one
-(through the port's CUDA kernels) and on the CPU otherwise (through their
-plain versions).
+the same flags plus ``--device``.  The rollout runs on ``--device`` (default
+``cuda``, through the port's CUDA kernels); without a CUDA card it raises
+unless ``--device cpu`` asks for the CPU (the kernels' plain versions).
 
-``--ckpt`` is a ``torch.save``d state dict of the port's model: Orbax
-checkpoints cannot be read without JAX, so convert one first with
-``bubbleformer_tpu_torch.utils.convert.jax_params_to_state_dict``.  The state
-dict carries no normalization constants, so the data are read unnormalized,
-as ``scripts/inference.py`` reads them for a checkpoint without constants.
+``--ckpt`` is either a checkpoint of ``scripts/train_torch.py`` (its model
+weights and the normalization constants it was trained with, which the data
+are then normalized by, as ``scripts/inference.py`` does) or a bare
+``torch.save``d state dict of the port's model, such as
+``bubbleformer_tpu_torch.utils.convert.jax_params_to_state_dict`` writes
+from JAX params (Orbax checkpoints cannot be read without JAX); a bare state
+dict carries no constants, so the data are read unnormalized.
 
-    python scripts/inference_torch.py --ckpt model.pt --data test.hdf5 \
+    python scripts/inference_torch.py --ckpt logs/run/last.pt --data test.hdf5 \
         --model-cfg film_avit_small --steps 500 --save-dir out/
 """
 from __future__ import annotations
@@ -34,6 +36,7 @@ from bubbleformer_tpu_torch.inference import (
     rollout_targets,
 )
 from bubbleformer_tpu_torch.models import build_model
+from bubbleformer_tpu_torch.training import load_checkpoint, resolve_device
 from bubbleformer_tpu_torch.utils.losses import LpLoss
 from bubbleformer_tpu_torch.utils.metrics import (
     eikonal_residual_per_step,
@@ -43,7 +46,8 @@ from bubbleformer_tpu_torch.utils.metrics import (
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ckpt", required=True, help="torch.save'd state dict of the port's model")
+    ap.add_argument("--ckpt", required=True,
+                    help="train_torch.py checkpoint, or a torch.save'd state dict of the model")
     ap.add_argument("--data", required=True, help="trajectory HDF5 to roll out on")
     ap.add_argument("--model-cfg", default="avit_small", help="model config group name")
     ap.add_argument("--data-cfg", default="singlebubble", help="data config group name")
@@ -57,7 +61,10 @@ def main(argv=None) -> None:
         help="reduce each window to its physics metrics as the rollout goes instead of "
         "stacking all predictions in device memory (no predictions.npz)",
     )
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on; without a CUDA card, pass --device cpu")
     args = ap.parse_args(argv)
+    device = resolve_device(args.device)
 
     cfg = load_config([f"model_cfg={args.model_cfg}", f"data_cfg={args.data_cfg}"])
     data_cfg = dict(cfg["data_cfg"])
@@ -73,14 +80,18 @@ def main(argv=None) -> None:
         start_time=args.start_time,
         return_fluid_params=data_cfg["return_fluid_params"],
     )
-    dataset.normalize()
+    state = torch.load(args.ckpt, map_location="cpu", weights_only=True)
+    if "format_version" in state:  # a training checkpoint
+        state = load_checkpoint(args.ckpt)
+        if state["norm_constants"] is not None:
+            dataset.normalize(*state["norm_constants"])
+        state = state["model"]
     tw = dataset.time_window
     num_windows = args.steps // tw
     conditioned = data_cfg["return_fluid_params"]
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
     model = build_model(cfg["model_cfg"], data_cfg)
-    model.load_state_dict(torch.load(args.ckpt, map_location="cpu", weights_only=True))
+    model.load_state_dict(state)
     model = model.eval().to(device)
 
     first = dataset[0]

@@ -4,6 +4,7 @@ film_avit_tiny params: its predictions against the JAX rollout of the same
 params from the same first window (float32; the tolerance is stated where it
 is checked), and its metrics-only mode against its own predictions.
 """
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -65,8 +66,12 @@ def run(tmp_path_factory):
         proc = subprocess.run(
             [sys.executable, str(REPO / "scripts" / "inference_torch.py"), "--ckpt", str(ckpt),
              "--data", data, "--model-cfg", "film_avit_tiny", "--data-cfg", "singlebubble",
-             "--steps", str(STEPS), "--start-time", str(START), "--save-dir", str(out), *extra],
+             "--steps", str(STEPS), "--start-time", str(START), "--save-dir", str(out),
+             "--device", "cpu", *extra],
             capture_output=True, text=True, timeout=300, cwd=tmp,
+            # The two runs are compared bit for bit: MKL must not pick its
+            # thread count from the machine's load (which reorders sums).
+            env=dict(os.environ, MKL_DYNAMIC="FALSE", OMP_DYNAMIC="FALSE"),
         )
         assert proc.returncode == 0, proc.stderr[-3000:]
         return proc.stdout, out

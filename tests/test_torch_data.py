@@ -91,3 +91,43 @@ def test_losses_and_metrics_match_jax():
     )
     with pytest.raises(ValueError, match="reduction"):
         tlosses.LpLoss(reductions=["max"])
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+def test_loader_matches_jax_loader(samples, shuffle):
+    """Batches of the port's ``DataLoader`` — seeded per-epoch permutation,
+    full batches only — equal the JAX package's on the same dataset, the
+    validation set normalized with the training set's constants."""
+    from bubbleformer_tpu.data import DataLoader as JaxLoader
+    from bubbleformer_tpu_torch.data import DataLoader
+
+    kw = dict(input_fields=FIELDS, output_fields=FIELDS, norm="std", time_window=3,
+              start_time=2, return_fluid_params=True)
+    train, jtrain = BubbleForecast(samples[:1], **kw), JaxForecast(samples[:1], **kw)
+    consts = train.normalize()
+    assert consts == jtrain.normalize()
+    val, jval = BubbleForecast(samples[1:], **kw), JaxForecast(samples[1:], **kw)
+    val.normalize(*consts)
+    jval.normalize(*consts)
+    loader = DataLoader(val, batch_size=4, shuffle=shuffle, seed=7, num_workers=2)
+    jloader = JaxLoader(jval, batch_size=4, shuffle=shuffle, seed=7, num_workers=2)
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        jloader.set_epoch(epoch)
+        got, want = list(loader), list(jloader)
+        assert len(got) == len(want) == len(loader) == len(val) // 4
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+
+
+def test_synthetic_batches_match_jax():
+    from bubbleformer_tpu.data import synthetic_batch as jax_synthetic_batch
+    from bubbleformer_tpu_torch.data import SyntheticLoader, synthetic_batch
+
+    for got, want in zip(synthetic_batch(2, 3, 4, 8, 8, 9, seed=5),
+                         jax_synthetic_batch(2, 3, 4, 8, 8, 9, seed=5)):
+        np.testing.assert_array_equal(got, want)
+    loader = SyntheticLoader(2, 2, 3, 4, 8, seed=5)
+    assert len(loader) == 2
+    np.testing.assert_array_equal(list(loader)[1][0], synthetic_batch(2, 3, 4, 8, 8, seed=6)[0])
