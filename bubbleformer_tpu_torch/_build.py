@@ -40,6 +40,12 @@ _SIGNATURES = {
     # scale, stats1, ao, stats2, work, sums, dqkv, dx, din1, dwqkv, dbqkv, dln,
     # din2, dwout, dbout, dbias, dscale, B, T, N, C, heads, stream
     "bf_temporal_block_bwd": [_I] + [_P] * 28 + [_I] * 5 + [_P],
+    # dtype, xn, wqkv, bqkv, ln, bias, scale, qkv (or null), ao, B, T, N, C,
+    # heads, stream
+    "bf_core_temporal_fwd": [_I] + [_P] * 8 + [_I] * 5 + [_P],
+    # dtype, xn, dao, qkv, wqkv_t, ln, bias, scale, dqkv, dx, dwqkv, dbqkv,
+    # dln, dbias, dscale, B, T, N, C, heads, stream
+    "bf_core_temporal_bwd": [_I] + [_P] * 14 + [_I] * 5 + [_P],
     # dtype, qkv, ln, bias_x, bias_y, scale, row_out, out, BT, H, W, C, heads,
     # stream
     "bf_axial_attention_fwd": [_I] + [_P] * 7 + [_I] * 5 + [_P],

@@ -1,5 +1,6 @@
 // K1: the whole temporal-attention branch, forward, hand-written for Hopper
-// (sm_90a).
+// (sm_90a); and K3, its streamed core, whose forward is launch (b) alone
+// (bf_core_temporal_fwd, at the end).
 //
 // Replaces bubbleformer_tpu/ops/temporal_block_mega.py:_fwd_kernel (built by
 // _make_temporal_block, entry mega_temporal_block): InstanceNorm1 -> QKV
@@ -97,14 +98,18 @@ __global__ void plane_stats_kernel(const T* __restrict__ x, int N, int C,
   }
 }
 
-// (b): grid (N / kP, heads, B).  GEMM rows are m = t * kP + p.
-template <typename T>
+// (b): grid (N / kP, heads, B).  GEMM rows are m = t * kP + p.  kNorm:
+// the rows of x are normalised by IN1 while staged (K1); without it x is
+// already the IN1 output and is read as it is (K3).  ao is written in O:
+// float32 for K1's IN2, the activation dtype for K3.  qkv may be null (no
+// backward will read it).
+template <typename T, typename O, bool kNorm>
 __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
     const T* __restrict__ x, const float* __restrict__ mean1, const float* __restrict__ rstd1,
     const float* __restrict__ in1_w, const float* __restrict__ in1_b,
     const T* __restrict__ wqkv, const float* __restrict__ bqkv, const float* __restrict__ ln,
     const float* __restrict__ bias, const float* __restrict__ scale, T* __restrict__ qkv,
-    float* __restrict__ ao, int steps, int N, int C) {
+    O* __restrict__ ao, int steps, int N, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n0 = blockIdx.x * kP, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -112,9 +117,10 @@ __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
 
   auto aload = [&](int m, int k) -> T {
     const int g = b * steps + m / kP;
-    const float v = to_f32(x[((size_t)g * N + n0 + m % kP) * C + k]);
+    const T v = x[((size_t)g * N + n0 + m % kP) * C + k];
+    if constexpr (!kNorm) return v;
     const int s = g * C + k;
-    return from_f32<T>((v - mean1[s]) * rstd1[s] * in1_w[k] + in1_b[k]);
+    return from_f32<T>((to_f32(v) - mean1[s]) * rstd1[s] * in1_w[k] + in1_b[k]);
   };
   const T* w = wqkv + (size_t)h * kBN * C;
   auto bload = [&](int n, int k) -> T { return w[(size_t)n * C + k]; };
@@ -127,7 +133,8 @@ __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
     const int m = e / kBN, j = e % kBN;
     const float v = round_to<T>(Cs[m * kLDC + j] + bqkv[h * kBN + j]);
     Cs[m * kLDC + j] = v;
-    qkv[((size_t)(b * steps + m / kP) * N + n0 + m % kP) * 3 * C + h * kBN + j] = from_f32<T>(v);
+    if (qkv)
+      qkv[((size_t)(b * steps + m / kP) * N + n0 + m % kP) * 3 * C + h * kBN + j] = from_f32<T>(v);
   }
   __syncthreads();
 
@@ -184,9 +191,9 @@ __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
           m1 += v[lane + 32];
         }
       }
-      float* dst = ao + ((size_t)(b * steps + i) * N + n0 + p) * C + h * kD;
-      dst[lane] = s_h * o0 + (1.f - s_h) * (m0 * inv_t);
-      dst[lane + 32] = s_h * o1 + (1.f - s_h) * (m1 * inv_t);
+      O* dst = ao + ((size_t)(b * steps + i) * N + n0 + p) * C + h * kD;
+      dst[lane] = from_f32<O>(s_h * o0 + (1.f - s_h) * (m0 * inv_t));
+      dst[lane + 32] = from_f32<O>(s_h * o1 + (1.f - s_h) * (m1 * inv_t));
     }
   }
 }
@@ -235,11 +242,11 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   const size_t smem_b = gemm_smem_bytes<T>(steps);
-  if ((e = cudaFuncSetAttribute(qkv_attention_kernel<T>,
+  if ((e = cudaFuncSetAttribute(qkv_attention_kernel<T, float, true>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b)) !=
       cudaSuccess)
     return e;
-  qkv_attention_kernel<T><<<dim3(N / kP, heads, B), kThreads, smem_b, stream>>>(
+  qkv_attention_kernel<T, float, true><<<dim3(N / kP, heads, B), kThreads, smem_b, stream>>>(
       static_cast<const T*>(x), stats1, stats1 + (size_t)G * C, in1_w, in1_b,
       static_cast<const T*>(wqkv), bqkv, ln, bias, scale, static_cast<T*>(qkv), ao, steps, N,
       C);
@@ -258,6 +265,23 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
                        kThreads, smem_d, stream>>>(ao, stats2, stats2 + (size_t)G * C, in2_w,
                                                    in2_b, static_cast<const T*>(wout), bout,
                                                    static_cast<T*>(out), rows, N, C);
+  return cudaGetLastError();
+}
+
+// K3: qkv_attention_kernel alone, on the IN1 output, ao in dtype.
+template <typename T>
+int run_core_temporal(const void* xn, const void* wqkv, const float* bqkv, const float* ln,
+                      const float* bias, const float* scale, void* qkv, void* ao, int B,
+                      int steps, int N, int C, int heads, cudaStream_t stream) {
+  const size_t smem_b = gemm_smem_bytes<T>(steps);
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(qkv_attention_kernel<T, T, false>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b)) !=
+      cudaSuccess)
+    return e;
+  qkv_attention_kernel<T, T, false><<<dim3(N / kP, heads, B), kThreads, smem_b, stream>>>(
+      static_cast<const T*>(xn), nullptr, nullptr, nullptr, nullptr, static_cast<const T*>(wqkv),
+      bqkv, ln, bias, scale, static_cast<T*>(qkv), static_cast<T*>(ao), steps, N, C);
   return cudaGetLastError();
 }
 
@@ -286,6 +310,36 @@ extern "C" int bf_temporal_block_fwd(int dtype, const void* x, const float* in1_
     return bft::run_temporal_block<__nv_bfloat16>(x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b,
                                                   wout, bout, bias, scale, stats1, qkv, ao,
                                                   stats2, out, B, steps, N, C, heads, s);
+  return cudaErrorInvalidValue;
+}
+
+// K3, the streamed temporal core (replaces
+// bubbleformer_tpu/ops/temporal_block_mega.py:_core_fwd_kernel, built by
+// _make_temporal_core, entry core_temporal_attention): the QKV projection of
+// the IN1 output xn, qk-LN and the T x T attention, one launch of (b) above
+// without IN1, writing ao (B, T, N, C) in dtype, and the rounded raw qkv
+// (B*T*N, 3C) for the backward unless qkv is null.  xn in dtype; wqkv
+// (3C, C) in dtype; ln, bias and scale as for bf_temporal_block_fwd.
+//
+// What bounds it at AViT-big's training shape (B=8, T=5, 32x32 tokens,
+// C=768, 12 heads): the QKV product, 2*R*C*3C = 145 GFLOP for R = 40960
+// tokens, against ~63 MB of xn and ao and 189 MB of qkv in bf16: the tensor
+// cores, 0.15 ms at the bf16 peak.  This first version is far from it: each
+// of a tile's 12 head blocks stages the same 768-wide xn rows through
+// shared memory with plain loads and runs WMMA 16x16x16, without cp.async,
+// TMA or wgmma.  Its tile is K-chunked (kKC), so its shared memory does not
+// grow with C.  Returns a cudaError_t.
+extern "C" int bf_core_temporal_fwd(int dtype, const void* xn, const void* wqkv, const float* bqkv,
+                                    const float* ln, const float* bias, const float* scale,
+                                    void* qkv, void* ao, int B, int steps, int N, int C,
+                                    int heads, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == bft::kF32)
+    return bft::run_core_temporal<float>(xn, wqkv, bqkv, ln, bias, scale, qkv, ao, B, steps, N,
+                                         C, heads, s);
+  if (dtype == bft::kBF16)
+    return bft::run_core_temporal<__nv_bfloat16>(xn, wqkv, bqkv, ln, bias, scale, qkv, ao, B,
+                                                 steps, N, C, heads, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,5 +1,6 @@
 // K1: the whole temporal-attention branch, backward, hand-written for Hopper
-// (sm_90a).
+// (sm_90a); and K3's backward, launches (5)-(8) alone (bf_core_temporal_bwd,
+// at the end).
 //
 // Replaces bubbleformer_tpu/ops/temporal_block_mega.py:_bwd_kernel (built by
 // _make_temporal_block, custom VJP fused_bwd): every gradient of the branch
@@ -69,11 +70,12 @@ constexpr float kEps = 1e-5f;
 constexpr float kScaling = 0.125f;  // kD ** -0.5
 
 // (1), (8): out[r, n] = sum_k A[r, k] * Bt[n, k]; A (M, K), Bt (Nc, K) in T,
-// out (M, Nc) float32.  Grid (ceil(M / 64), ceil(Nc / 192)).
-template <typename T>
+// out (M, Nc) in O (float32 for K1's scratch, the activation dtype for K3's
+// dxn).  Grid (ceil(M / 64), ceil(Nc / 192)).
+template <typename T, typename O>
 __global__ void __launch_bounds__(kThreads) gemm_nt_kernel(const T* __restrict__ A,
                                                            const T* __restrict__ Bt,
-                                                           float* __restrict__ out, int M, int Nc,
+                                                           O* __restrict__ out, int M, int Nc,
                                                            int K) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int r0 = blockIdx.x * kTileM, n0 = blockIdx.y * kBN;
@@ -89,7 +91,7 @@ __global__ void __launch_bounds__(kThreads) gemm_nt_kernel(const T* __restrict__
   const int cols = 16 * n_tiles;
   for (int e = threadIdx.x; e < kTileM * cols; e += kThreads) {
     const int m = e / cols, j = e % cols, r = r0 + m;
-    if (r < M) out[(size_t)r * Nc + n0 + j] = Cs[m * kLDC + j];
+    if (r < M) out[(size_t)r * Nc + n0 + j] = from_f32<O>(Cs[m * kLDC + j]);
   }
 }
 
@@ -97,8 +99,10 @@ __global__ void __launch_bounds__(kThreads) gemm_nt_kernel(const T* __restrict__
 // norm(v) = T((v - mean[g, n]) * rstd[g, n] * w[n] + b[n]), g = r / N: the
 // forward's rounded IN output recomputed while it is staged.  D (R, M) in T,
 // src (R, Nc) in S, dW (M, Nc) float32.  Grid (ceil(M / 64), ceil(Nc / 192),
-// ceil(R / chunk)); chunk a multiple of kKC.
-template <typename T, typename S>
+// ceil(R / chunk)); chunk a multiple of kKC.  Without kNorm, src is read as
+// it is (K3: it already is the rounded IN output) and mean, rstd, w, b are
+// unused.
+template <typename T, typename S, bool kNorm>
 __global__ void __launch_bounds__(kThreads) wgrad_kernel(
     const T* __restrict__ D, int M, const S* __restrict__ src, const float* __restrict__ mean,
     const float* __restrict__ rstd, const float* __restrict__ w, const float* __restrict__ b,
@@ -114,8 +118,10 @@ __global__ void __launch_bounds__(kThreads) wgrad_kernel(
   auto bload = [&](int n, int k) -> T {
     const int r = k0 + k, c = n0 + n;
     if (r >= R) return from_f32<T>(0.f);
+    const float v = to_f32(src[(size_t)r * Nc + c]);
+    if constexpr (!kNorm) return from_f32<T>(v);
     const int s = (r / N) * Nc + c;
-    return from_f32<T>((to_f32(src[(size_t)r * Nc + c]) - mean[s]) * rstd[s] * w[c] + b[c]);
+    return from_f32<T>((v - mean[s]) * rstd[s] * w[c] + b[c]);
   };
   block_gemm<T, true>(m_tiles, n_tiles, K, aload, bload, smem);
   const float* Cs = gemm_out<T>(smem, m_tiles);
@@ -178,13 +184,17 @@ struct Pair {
 __device__ __forceinline__ float dot64(Pair x, Pair y) { return warp_sum(x.a * y.a + x.b * y.b); }
 
 // (5): grid (N / kP, heads, B), kThreads threads, kP * steps * kLDC floats of
-// dynamic shared memory; tile rows m = t * kP + p.
-template <typename T>
+// dynamic shared memory; tile rows m = t * kP + p.  kDirect: dao is read
+// from dao_in (K3, the output gradient in dtype) instead of being the IN2
+// backward of dy2 (K1; dy2, ao, mean2, rstd2, in2_w and sums2 are then
+// unused).
+template <typename T, bool kDirect>
 __global__ void __launch_bounds__(kThreads) attention_bwd_kernel(
     const T* __restrict__ qkv, const float* __restrict__ ln, const float* __restrict__ bias,
     const float* __restrict__ scale, const float* __restrict__ dy2, const float* __restrict__ ao,
     const float* __restrict__ mean2, const float* __restrict__ rstd2,
-    const float* __restrict__ in2_w, const float* __restrict__ sums2, T* __restrict__ dqkv,
+    const float* __restrict__ in2_w, const float* __restrict__ sums2,
+    const T* __restrict__ dao_in, T* __restrict__ dqkv,
     float* __restrict__ dln, float* __restrict__ dbias, float* __restrict__ dscale, int steps,
     int N, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -238,17 +248,22 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_kernel(
         q[t] = layer_norm(r, 0, xh, inv);
         k[t] = layer_norm(r + kD, 1, xh, inv);
         v[t] = {r[2 * kD + lane], r[2 * kD + lane + 32]};
-        // dao = IN2 backward of dy2 at this token, rounded.
+        // dao = IN2 backward of dy2 at this token, rounded (K1), or as given (K3).
         const int g = b * steps + t;
         const size_t row = (size_t)g * N + n0 + p;
         float dv2[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int c = h * kD + lane + 32 * u;
-          const int s = g * C + c;
-          const float xh2 = (ao[row * C + c] - mean2[s]) * rstd2[s];
-          dv2[u] = round_to<T>(rstd2[s] * in2_w[c] *
-                               (dy2[row * C + c] - sums2[s] / N - xh2 * (sums2[(size_t)G * C + s] / N)));
+          if constexpr (kDirect) {
+            dv2[u] = to_f32(dao_in[row * C + c]);
+          } else {
+            const int s = g * C + c;
+            const float xh2 = (ao[row * C + c] - mean2[s]) * rstd2[s];
+            dv2[u] = round_to<T>(rstd2[s] * in2_w[c] *
+                                 (dy2[row * C + c] - sums2[s] / N -
+                                  xh2 * (sums2[(size_t)G * C + s] / N)));
+          }
         }
         dao[t] = {dv2[0], dv2[1]};
         bsum.a += (1.f - s_h) * dao[t].a * inv_t;
@@ -386,31 +401,33 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
 #define BFT_CHECK()                                      \
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
-  if ((e = cudaFuncSetAttribute(gemm_nt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem_tile)) != cudaSuccess)
-    return e;
-  if ((e = cudaFuncSetAttribute(wgrad_kernel<T, float>,
+  if ((e = cudaFuncSetAttribute(gemm_nt_kernel<T, float>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tile)) !=
       cudaSuccess)
     return e;
-  if ((e = cudaFuncSetAttribute(wgrad_kernel<T, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem_tile)) != cudaSuccess)
+  if ((e = cudaFuncSetAttribute(wgrad_kernel<T, float, true>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tile)) !=
+      cudaSuccess)
+    return e;
+  if ((e = cudaFuncSetAttribute(wgrad_kernel<T, T, true>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tile)) !=
+      cudaSuccess)
     return e;
   const size_t smem_att = sizeof(float) * kP * steps * kLDC;
-  if ((e = cudaFuncSetAttribute(attention_bwd_kernel<T>,
+  if ((e = cudaFuncSetAttribute(attention_bwd_kernel<T, false>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_att)) !=
       cudaSuccess)
     return e;
 
   // (1) dy2 = do . W_out
-  gemm_nt_kernel<T><<<dim3((R + kTileM - 1) / kTileM, (C + kBN - 1) / kBN), kThreads, smem_tile,
-                      stream>>>(dout, wout_t, work, R, C, C);
+  gemm_nt_kernel<T, float><<<dim3((R + kTileM - 1) / kTileM, (C + kBN - 1) / kBN), kThreads,
+                             smem_tile, stream>>>(dout, wout_t, work, R, C, C);
   BFT_CHECK();
   // (2) dW_out += do^T . IN2(ao)
-  wgrad_kernel<T, float><<<dim3((C + kTileM - 1) / kTileM, (C + kBN - 1) / kBN,
-                                (R + chunk - 1) / chunk),
-                           kThreads, smem_tile, stream>>>(dout, C, ao, mean2, rstd2, in2_w, in2_b,
-                                                          C, R, N, chunk, dwout);
+  wgrad_kernel<T, float, true><<<dim3((C + kTileM - 1) / kTileM, (C + kBN - 1) / kBN,
+                                      (R + chunk - 1) / chunk),
+                                 kThreads, smem_tile, stream>>>(dout, C, ao, mean2, rstd2, in2_w,
+                                                                in2_b, C, R, N, chunk, dwout);
   BFT_CHECK();
   // (3) db_out
   plane_sums_kernel<T, float><<<dim3((C + 31) / 32, G), sblock, 0, stream>>>(
@@ -421,23 +438,23 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
       work, ao, mean2, rstd2, N, C, sums, din2, din2 + C);
   BFT_CHECK();
   // (5) attention backward -> dqkv, dln, dbias, dscale
-  attention_bwd_kernel<T><<<dim3(N / kP, heads, B), kThreads, smem_att, stream>>>(
-      qkv, ln, bias, scale, work, ao, mean2, rstd2, in2_w, sums, dqkv, dln, dbias, dscale, steps,
-      N, C);
+  attention_bwd_kernel<T, false><<<dim3(N / kP, heads, B), kThreads, smem_att, stream>>>(
+      qkv, ln, bias, scale, work, ao, mean2, rstd2, in2_w, sums, nullptr, dqkv, dln, dbias,
+      dscale, steps, N, C);
   BFT_CHECK();
   // (6) dW_qkv += dqkv^T . IN1(x)
-  wgrad_kernel<T, T><<<dim3((3 * C + kTileM - 1) / kTileM, (C + kBN - 1) / kBN,
-                            (R + chunk - 1) / chunk),
-                       kThreads, smem_tile, stream>>>(dqkv, 3 * C, x, mean1, rstd1, in1_w, in1_b,
-                                                      C, R, N, chunk, dwqkv);
+  wgrad_kernel<T, T, true><<<dim3((3 * C + kTileM - 1) / kTileM, (C + kBN - 1) / kBN,
+                                  (R + chunk - 1) / chunk),
+                             kThreads, smem_tile, stream>>>(dqkv, 3 * C, x, mean1, rstd1, in1_w,
+                                                            in1_b, C, R, N, chunk, dwqkv);
   BFT_CHECK();
   // (7) db_qkv
   plane_sums_kernel<T, float><<<dim3((3 * C + 31) / 32, G), sblock, 0, stream>>>(
       dqkv, nullptr, nullptr, nullptr, N, 3 * C, nullptr, nullptr, dbqkv);
   BFT_CHECK();
   // (8) dxn = dqkv . W_qkv (into the dy2 scratch, dead since (5))
-  gemm_nt_kernel<T><<<dim3((R + kTileM - 1) / kTileM, (C + kBN - 1) / kBN), kThreads, smem_tile,
-                      stream>>>(dqkv, wqkv_t, work, R, C, 3 * C);
+  gemm_nt_kernel<T, float><<<dim3((R + kTileM - 1) / kTileM, (C + kBN - 1) / kBN), kThreads,
+                             smem_tile, stream>>>(dqkv, wqkv_t, work, R, C, 3 * C);
   BFT_CHECK();
   // (9) IN1 backward sums; d(in1 scale, bias)
   plane_sums_kernel<float, T><<<dim3((C + 31) / 32, G), sblock, 0, stream>>>(
@@ -448,6 +465,52 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
   BFT_CHECK();
 #undef BFT_CHECK
   return cudaSuccess;
+}
+
+// K3's backward: launches (5)-(8) of K1's backward, with dao read as it is
+// instead of IN2's backward, xn read as it is instead of IN1 recomputed, and
+// dxn written rounded to T as dx.
+template <typename T>
+int run_core_temporal_bwd(const T* xn, const T* dao, const T* qkv, const T* wqkv_t,
+                          const float* ln, const float* bias, const float* scale, T* dqkv, T* dx,
+                          float* dwqkv, float* dbqkv, float* dln, float* dbias, float* dscale,
+                          int B, int steps, int N, int C, int heads, cudaStream_t stream) {
+  const int G = B * steps, R = G * N;
+  const int chunk = std::max(kKC, ((R + 31) / 32 + kKC - 1) / kKC * kKC);  // ~32 chunks of tokens
+  const size_t smem_tile = gemm_smem_bytes<T>(kTileM / 16);
+  const size_t smem_att = sizeof(float) * kP * steps * kLDC;
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(attention_bwd_kernel<T, true>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_att)) !=
+      cudaSuccess)
+    return e;
+  if ((e = cudaFuncSetAttribute(wgrad_kernel<T, T, false>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_tile)) !=
+      cudaSuccess)
+    return e;
+  if ((e = cudaFuncSetAttribute(gemm_nt_kernel<T, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem_tile)) != cudaSuccess)
+    return e;
+  // (5) attention backward -> dqkv, dln, dbias, dscale
+  attention_bwd_kernel<T, true><<<dim3(N / kP, heads, B), kThreads, smem_att, stream>>>(
+      qkv, ln, bias, scale, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, dao, dqkv, dln,
+      dbias, dscale, steps, N, C);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  // (6) dW_qkv += dqkv^T . xn
+  wgrad_kernel<T, T, false><<<dim3((3 * C + kTileM - 1) / kTileM, (C + kBN - 1) / kBN,
+                                   (R + chunk - 1) / chunk),
+                              kThreads, smem_tile, stream>>>(dqkv, 3 * C, xn, nullptr, nullptr,
+                                                             nullptr, nullptr, C, R, N, chunk,
+                                                             dwqkv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  // (7) db_qkv
+  plane_sums_kernel<T, float><<<dim3((3 * C + 31) / 32, G), dim3(32, 8), 0, stream>>>(
+      dqkv, nullptr, nullptr, nullptr, N, 3 * C, nullptr, nullptr, dbqkv);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  // (8) dx = T(dqkv . W_qkv)
+  gemm_nt_kernel<T, T><<<dim3((R + kTileM - 1) / kTileM, (C + kBN - 1) / kBN), kThreads,
+                         smem_tile, stream>>>(dqkv, wqkv_t, dx, R, C, 3 * C);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -481,6 +544,43 @@ extern "C" int bf_temporal_block_bwd(int dtype, const void* x, const void* dout,
       dbias, dscale, B, steps, N, C, heads, s
   if (dtype == bft::kF32) return bft::run_temporal_block_bwd<float>(BFT_ARGS(float));
   if (dtype == bft::kBF16) return bft::run_temporal_block_bwd<__nv_bfloat16>(BFT_ARGS(__nv_bfloat16));
+#undef BFT_ARGS
+  return cudaErrorInvalidValue;
+}
+
+// K3's backward (replaces bubbleformer_tpu/ops/temporal_block_mega.py:
+// _core_bwd_kernel and fused_bwd of _make_temporal_core): every gradient of
+// bf_core_temporal_fwd from the output gradient dao, in four launches of
+// the kernels above — the attention backward reading dao as it is and the
+// forward's rounded raw qkv (the TPU kernel recomputes the projection: the
+// same values), dW_qkv += dqkv^T . xn, db_qkv = sum dqkv, and
+// dx = dtype(dqkv . W_qkv).  Rounding as the TPU kernel's (:538, :574-595):
+// s*dao and the raw dqkv in dtype, dx in dtype, the rest float32.
+//
+// What bounds it at AViT-big's training shape (B=8, T=5, 32x32 tokens,
+// C=768): two products of 2*R*C*3C = 145 GFLOP each (dW_qkv, dx) for
+// R = 40960 tokens: the tensor cores, 0.29 ms at the bf16 peak.  The weight
+// gradient stages the token-major dqkv and xn with scalar, transposed
+// loads and adds ~32 token chunks per tile with float32 atomics, as K1's
+// does; it is left slow here.
+//
+// xn, dao, dx: (B, T, N, C) in dtype; qkv (B*T*N, 3C) from
+// bf_core_temporal_fwd; wqkv_t (C, 3C) in dtype; ln (4, 64); bias (heads,
+// T, T); scale (heads,); dqkv (B*T*N, 3C) dtype scratch.  Outputs, float32
+// and zeroed by the caller except dx: dwqkv (3C, C), dbqkv (3C), dln
+// (4, 64), dbias (heads, T, T), dscale (heads).  Returns a cudaError_t.
+extern "C" int bf_core_temporal_bwd(int dtype, const void* xn, const void* dao, const void* qkv,
+                                    const void* wqkv_t, const float* ln, const float* bias,
+                                    const float* scale, void* dqkv, void* dx, float* dwqkv,
+                                    float* dbqkv, float* dln, float* dbias, float* dscale, int B,
+                                    int steps, int N, int C, int heads, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define BFT_ARGS(T)                                                                            \
+  static_cast<const T*>(xn), static_cast<const T*>(dao), static_cast<const T*>(qkv),           \
+      static_cast<const T*>(wqkv_t), ln, bias, scale, static_cast<T*>(dqkv), static_cast<T*>(dx), \
+      dwqkv, dbqkv, dln, dbias, dscale, B, steps, N, C, heads, s
+  if (dtype == bft::kF32) return bft::run_core_temporal_bwd<float>(BFT_ARGS(float));
+  if (dtype == bft::kBF16) return bft::run_core_temporal_bwd<__nv_bfloat16>(BFT_ARGS(__nv_bfloat16));
 #undef BFT_ARGS
   return cudaErrorInvalidValue;
 }

@@ -1,13 +1,18 @@
 """Temporal and axial-spatial attention blocks (channels-last).
 
 Counterpart of ``bubbleformer_tpu/layers/attention.py`` on the routes the
-JAX package takes on a TPU at the flagship shape
-(``_resolve_attn_impl``: temporal -> mega, axial -> lane):
+JAX package takes on a TPU (``_resolve_attn_impl``: temporal -> mega or
+core, axial -> lane):
 
-* :class:`TemporalAttentionBlock` is the mega route (``:208-244``): the whole
-  branch in :func:`~bubbleformer_tpu_torch.ops.temporal_block_mega.
-  mega_temporal_block`, LayerScale gamma folded into the output projection,
-  residual outside;
+* :class:`TemporalAttentionBlock` takes the mega route (``:208-244``), the
+  whole branch in :func:`~bubbleformer_tpu_torch.ops.temporal_block_mega.
+  mega_temporal_block` with LayerScale gamma folded into the output
+  projection, or the core route (``:246,255-277``): InstanceNorm1,
+  :func:`~bubbleformer_tpu_torch.ops.temporal_block_mega.
+  core_temporal_attention` (K3), InstanceNorm2, the output projection and
+  gamma in the activation dtype.  The residual is added outside either.
+  ``attn_impl="auto"`` resolves as the JAX package does on a TPU
+  (:func:`resolve_temporal_impl`);
 * :class:`AxialAttentionBlock` is the lane route (``:446-465``): InstanceNorm1,
   :func:`~bubbleformer_tpu_torch.ops.axial_lane.lane_axial_attention_from_x`,
   InstanceNorm2, the output projection, then ``_epilogue`` (``:596-626``).
@@ -28,7 +33,29 @@ from bubbleformer_tpu_torch.layers.norm import InstanceNorm, LayerNorm, accumula
 from bubbleformer_tpu_torch.layers.positional import RelativePositionBias
 from bubbleformer_tpu_torch.layers.stochastic import drop_path
 from bubbleformer_tpu_torch.ops.axial_lane import lane_axial_attention_from_x
-from bubbleformer_tpu_torch.ops.temporal_block_mega import mega_temporal_block
+from bubbleformer_tpu_torch.ops.temporal_block_mega import (
+    core_temporal_attention,
+    core_temporal_supported,
+    mega_temporal_block,
+    mega_temporal_supported,
+)
+
+TEMPORAL_IMPLS = ("auto", "mega", "core")
+
+
+def resolve_temporal_impl(impl: str, t: int, h: int, w: int, c: int) -> str:
+    """``"mega"`` or ``"core"`` for the temporal branch of a ``(B, T, H, W,
+    C)`` input.  ``"auto"`` resolves as the JAX package does on a TPU
+    (``layers/attention.py:92-107``): mega where
+    :func:`mega_temporal_supported` holds, else core where
+    :func:`core_temporal_supported` holds.  Outside both gates the JAX
+    package takes its XLA ``unrolled`` route; the port keeps the mega route
+    there (the same function in float32)."""
+    if impl != "auto":
+        return impl
+    if mega_temporal_supported(t, h, w, c):
+        return "mega"
+    return "core" if core_temporal_supported(t, h, w, c) else "mega"
 
 
 def _head(cin: int, cout: int) -> nn.Conv2d:
@@ -42,10 +69,13 @@ class TemporalAttentionBlock(nn.Module):
 
     def __init__(self, embed_dim: int = 768, num_heads: int = 12,
                  layer_scale_init_value: float = 1e-6, attn_scale: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 attn_impl: str = "auto", dtype: Optional[torch.dtype] = None):
         super().__init__()
         c, d = embed_dim, embed_dim // num_heads
+        if attn_impl not in TEMPORAL_IMPLS:
+            raise ValueError(f"attn_impl must be one of {TEMPORAL_IMPLS}, not {attn_impl!r}")
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.dtype = dtype
         self.norm1 = InstanceNorm(c)
         self.norm2 = InstanceNorm(c)
@@ -64,6 +94,19 @@ class TemporalAttentionBlock(nn.Module):
         b, t, h, w, c = x.shape
         heads = self.num_heads
         scale = None if self.attn_scale_factor is None else self.attn_scale_factor.reshape(heads)
+        if resolve_temporal_impl(self.attn_impl, t, h, w, c) == "core":
+            # The parameters are the mega route's, so checkpoints interchange.
+            xn = self.norm1(x)
+            out = core_temporal_attention(
+                xn if self.dtype is None else xn.to(self.dtype),
+                self.input_head.weight.reshape(3 * c, c), self.input_head.bias,
+                self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias,
+                self.rel_pos_bias(t, t), scale, heads=heads,
+            )
+            out = dense(self.norm2(out), self.output_head.weight.reshape(c, c),
+                        self.output_head.bias, self.dtype)
+            branch = out * self.gamma.to(out.dtype)
+            return drop_path(branch, drop_path_rate, generator, self.training) + x
         # LayerScale folds into the output projection exactly:
         # gamma * (W y + b) == (gamma W) y + gamma b.
         acc = accumulation_dtype(self.gamma.dtype)

@@ -4,9 +4,12 @@ Counterpart of ``bubbleformer_tpu/models/axial_vit.py``, unrolled:
 ``HMLPEmbed -> N SpaceTimeBlocks (drop-path rates linear 0 -> drop_path) ->
 HMLPDebed``, with FiLM modulation after the embed for :class:`FiLMAViT`.
 The public layout is ``(B, T, C, H, W)``; activations between embed and
-debed are channels-last ``(B, T, h, w, E)``.  The JAX package's TPU options
-(the ``carry="cm"`` layout, ``scan_blocks``, remat, ``spatial_shard_axis``)
-have no counterpart here.
+debed are channels-last ``(B, T, h, w, E)``.  ``attn_impl`` (``"auto"``,
+``"mega"``, ``"core"``) picks the route of every temporal branch, as the
+JAX models' field of that name does (``layers/attention.py:
+resolve_temporal_impl``); the axial branch always takes the lane route.
+The JAX package's TPU options (the ``carry="cm"`` layout, ``scan_blocks``,
+remat, ``spatial_shard_axis``) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -29,10 +32,10 @@ class SpaceTimeBlock(nn.Module):
 
     def __init__(self, embed_dim: int = 768, num_heads: int = 12, attn_scale: bool = True,
                  feat_scale: bool = True, layer_scale_init_value: float = 1e-6,
-                 dtype: Optional[torch.dtype] = None):
+                 attn_impl: str = "auto", dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.temporal = TemporalAttentionBlock(
-            embed_dim, num_heads, layer_scale_init_value, attn_scale, dtype=dtype
+            embed_dim, num_heads, layer_scale_init_value, attn_scale, attn_impl, dtype=dtype
         )
         self.spatial = AxialAttentionBlock(
             embed_dim, num_heads, layer_scale_init_value, attn_scale, feat_scale, dtype=dtype
@@ -53,7 +56,8 @@ class AViT(nn.Module):
     def __init__(self, input_fields: int = 3, output_fields: int = 3, time_window: int = 12,
                  patch_size: int = 16, embed_dim: int = 768, num_heads: int = 12,
                  processor_blocks: int = 12, drop_path: float = 0.2, attn_scale: bool = True,
-                 feat_scale: bool = True, dtype: Optional[torch.dtype] = None):
+                 feat_scale: bool = True, attn_impl: str = "auto",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if patch_size < 2:
             raise ValueError("patch_size must be >= 2")
@@ -62,7 +66,8 @@ class AViT(nn.Module):
         self.dtype = dtype
         self.embed = HMLPEmbed(patch_size, input_fields, embed_dim, dtype=dtype)
         self.blocks = nn.ModuleList(
-            SpaceTimeBlock(embed_dim, num_heads, attn_scale, feat_scale, dtype=dtype)
+            SpaceTimeBlock(embed_dim, num_heads, attn_scale, feat_scale, attn_impl=attn_impl,
+                           dtype=dtype)
             for _ in range(processor_blocks)
         )
         self.debed = HMLPDebed(patch_size, output_fields, embed_dim, dtype=dtype)

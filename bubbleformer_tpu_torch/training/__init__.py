@@ -8,6 +8,7 @@ from bubbleformer_tpu_torch.training.checkpoint import (
 from bubbleformer_tpu_torch.training.module import (
     ConditionedForecastModule,
     ForecastModule,
+    module_class,
     resolve_device,
 )
 from bubbleformer_tpu_torch.training.optim import Lion, make_optimizer
@@ -20,6 +21,7 @@ __all__ = [
     "save_checkpoint",
     "ConditionedForecastModule",
     "ForecastModule",
+    "module_class",
     "resolve_device",
     "Lion",
     "make_optimizer",

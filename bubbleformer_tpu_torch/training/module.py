@@ -14,6 +14,12 @@ The learning rate of the update made at step ``t`` (counting from 0) is
 first update has lr 0.  The channels-last loss (``loss_layout="nhwc"``) and
 the Pallas loss kernel (K10, ``BUBBLEFORMER_LOSS_KERNEL``) are not ported:
 only the ``nchw`` criterion exists here.
+
+:func:`module_class` picks the module by the model: a data config that
+returns fluid parameters to a model without FiLM (``poolboiling_saturated``
+with ``avit_big``, the README's pairing) gets the unconditioned module,
+which reads ``(inp, tgt)`` and leaves the rest of the batch alone, as the
+JAX ``ForecastModule`` does.
 """
 from __future__ import annotations
 
@@ -119,3 +125,15 @@ class ConditionedForecastModule(ForecastModule):
 
     def inputs(self, batch: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         return (batch[0], batch[2])
+
+
+def module_class(model_cfg: Dict[str, Any], data_cfg: Dict[str, Any]):
+    """The forecast module for a model and a data config: the conditioned
+    one for a FiLM model (which needs the data's fluid parameters, else
+    this raises), the unconditioned one for any other model."""
+    if model_cfg["name"].lower() != "filmavit":
+        return ForecastModule
+    if not data_cfg["return_fluid_params"]:
+        raise ValueError(f"model {model_cfg['name']!r} is conditioned on fluid parameters, "
+                         f"but data config {data_cfg['dataset']!r} returns none")
+    return ConditionedForecastModule

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / H100 port on one CUDA card.
 
-Drives the port's two paths on FiLMAViT-small (patch 16, embed 384, 6 heads,
-12 blocks) on 512x512 windows of 5 frames, 4 fields and 9 fluid parameters,
-with random weights drawn from a seed: the serving path (the autoregressive
-rollout) and the training path (``Trainer.fit`` with Lion and cosine
-warmup), and checks the hand-written kernels on the way, each at both shapes
-its paths give it — the rollout's (batch 1) and the training step's
-(batch 8):
+Drives the port's paths on two models at full width and depth, on 512x512
+windows of 5 frames and 4 fields, with random weights drawn from a seed:
+FiLMAViT-small (patch 16, embed 384, 6 heads, 12 blocks, 9 fluid parameters;
+its temporal branch on K1, the mega route) and AViT-big (embed 768, 12
+heads; its temporal branch on K3, the core route).  For each, the serving
+path (the autoregressive rollout) and the training path (``Trainer.fit``:
+Lion for FiLMAViT-small, AdamW for AViT-big, both with cosine warmup); and
+the hand-written kernels on the way, each at the shapes its paths give it —
+the rollout's (batch 1) and the training step's (batch 8):
 
 1. environment: torch, CUDA, the card, ``nvidia-smi`` name and power limit;
 2. build: compile ``bubbleformer_tpu_torch/csrc/*.cu`` with nvcc (timed);
@@ -37,11 +39,30 @@ its paths give it — the rollout's (batch 1) and the training step's
    2-step cosine warmup: every loss finite, each of the four kernels
    launched 12 times per step, every parameter with a gradient moved, the
    checkpoint written and resumed; ms/step, samples/s and peak memory
-   after one warm-up step.
+   after one warm-up step;
+11. K3 forward (``core_temporal_attention``) and backward against
+   ``core_temporal_plain`` and ``core_temporal_bwd_plain``, every gradient,
+   float32 and bfloat16, at AViT-big's rollout shape (1, 5, 32, 32, 768),
+   its training shape (8, 5, 32, 32, 768) and FiLMAViT-small 1024x1024's
+   (2, 5, 64, 64, 384), which routes to the core too; with the times of
+   both and of cuBLAS's QKV product alone (a partial yardstick);
+12. K2 forward and backward at AViT-big's 12 heads, qkv (5, 32, 32, 2304)
+   and (40, 32, 32, 2304);
+13. one float32 AViT-big window on the card (kernels) against the CPU (plain
+   versions), all 12 blocks;
+14. a 20-window bfloat16 AViT-big rollout: finite, K3 and K2 forward each
+   launched 12 x 20 times and K1 never; frames/s;
+15. ``Trainer.fit`` on AViT-big in bfloat16 at batch 8 with AdamW and a
+   2-step cosine warmup, on synthetic batches that carry fluid parameters
+   the model ignores (``poolboiling_saturated``'s): every loss finite, K3
+   and K2 forward and backward each launched 12 times per step and K1
+   never, every parameter with a gradient moved; ms/step, samples/s and
+   peak memory.
 
-Prints a JSON line of the kernels at the training step's shapes (with each
-one's least possible time on the card from its bytes and operations there),
-the card's name and power limit, and as the last line
+Prints a JSON line of the kernels at the training step's shapes of the path
+that launches them (with each one's least possible time on the card from its
+bytes and operations there), the card's name and power limit, and as the
+last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero at the first failed
 phase, without a CUDA card, or without the repository beside it.
 
@@ -66,6 +87,7 @@ FIELDS = 4
 WINDOWS = 20
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
+BIG_TRAIN_STEPS = 4
 # H100 SXM peaks (NVIDIA's data sheet): bf16 dense tensor cores, float32
 # outside them, HBM3.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -289,6 +311,10 @@ def kernel_work(key: str, shape, dtype: str):
     input read once, every output written once; the weights in the
     activation dtype, the other parameters and their gradients float32.
 
+    K3 (xn of (B, T, H, W, C)): the QKV product and the attention; it reads
+    xn and W_qkv and writes ao and the rounded qkv (R, 3C) for the backward.
+    Its backward does two products (dW_qkv, dxn) and the T x T contractions;
+    it reads dao, xn and qkv and writes dxn and the float32 dW_qkv.
     K1 (x of (B, T, H, W, C), R = B*T*H*W tokens): the QKV product 2R*C*3C,
     the output product 2R*C*C, the attention 4R*T*C; it reads x and writes
     the output and, for the backward, the rounded qkv (R, 3C) and the
@@ -298,6 +324,14 @@ def kernel_work(key: str, shape, dtype: str):
     per direction, logits and values 4R*L*C forward, and five L x L
     contractions 10R*L*C backward, with L = W for rows and H for columns."""
     e = 2 if dtype == "bfloat16" else 4
+    if key.startswith("K3"):
+        b, t, h, w, c = shape
+        r = b * t * h * w
+        params = e * 3 * c * c + 4 * (3 * c + 4 * 64)
+        if key == "K3":
+            return 2 * r * c * 3 * c + 4 * r * t * c, 2 * e * r * c + e * r * 3 * c + params
+        return (2 * r * c * 3 * c * 2 + 10 * r * t * c,
+                3 * e * r * c + e * r * 3 * c + params + 4 * 3 * c * c)
     if key.startswith("K1"):
         b, t, h, w, c = shape
         r = b * t * h * w
@@ -339,7 +373,13 @@ def main() -> None:
         lane_axial_attention_bwd,
     )
     from bubbleformer_tpu_torch.ops.temporal_block_mega import (
+        CORE_PARAM_NAMES,
         PARAM_NAMES,
+        core_temporal_attention,
+        core_temporal_attention_bwd,
+        core_temporal_attention_fwd,
+        core_temporal_bwd_plain,
+        core_temporal_plain,
         mega_temporal_block,
         mega_temporal_block_bwd,
         mega_temporal_block_fwd,
@@ -349,6 +389,7 @@ def main() -> None:
     from bubbleformer_tpu_torch.training import (
         ConditionedForecastModule,
         Trainer,
+        module_class,
         restore_checkpoint,
     )
 
@@ -647,6 +688,222 @@ def main() -> None:
     del module, resumed, trainer
     shutil.rmtree(log_dir, ignore_errors=True)
 
+    # ---- AViT-big (C=768): the temporal branch on the core route (K3).
+    c_big = 768
+    heads_big = c_big // 64
+    shapes["K3"] = {"rollout": (1, t, grid, grid, c_big),
+                    "training": (TRAIN_BATCH, t, grid, grid, c_big),
+                    "grid_1024": (2, t, 2 * grid, 2 * grid, c)}
+    shapes["K2 big"] = {"rollout": (t, grid, grid, 3 * c_big),
+                        "training": (TRAIN_BATCH * t, grid, grid, 3 * c_big)}
+    rng_big = np.random.default_rng(SEED + 3)
+
+    def randn_big(*shape, scale=1.0, offset=0.0):
+        return torch.from_numpy(
+            (offset + scale * rng_big.standard_normal(shape)).astype(np.float32))
+
+    print(f"== phase 11: K3 core_temporal_attention forward and backward vs plain, xn "
+          f"{', '.join(str(v) for v in shapes['K3'].values())}", flush=True)
+    for where, shape in shapes["K3"].items():
+        cc = shape[-1]
+        hh, dd = cc // 64, 64
+        k3 = dict(
+            wqkv=randn_big(3 * cc, cc, scale=cc**-0.5), bqkv=randn_big(3 * cc, scale=0.1),
+            qn_scale=randn_big(dd, scale=0.1, offset=1.0), qn_bias=randn_big(dd, scale=0.1),
+            kn_scale=randn_big(dd, scale=0.1, offset=1.0), kn_bias=randn_big(dd, scale=0.1),
+            bias=randn_big(hh, t, t),
+            scale_factor=torch.from_numpy(rng_big.uniform(0.5, 1.5, hh).astype(np.float32)),
+        )
+        k3 = {k: v.to(dev) for k, v in k3.items()}
+        xn32, dao32 = randn_big(*shape).to(dev), randn_big(*shape).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            args = dict(xn=xn32.to(dt), **k3)
+            params = [args[k] for k in CORE_PARAM_NAMES]
+            got = core_temporal_attention(**args, heads=hh)
+            ref = core_temporal_plain(**args, heads=hh)
+            torch.cuda.synchronize()
+            err = compare(f"K3 {name} {where}", got, ref, KERNEL_RTOL[name])
+            del got, ref
+            ms = cuda_ms(lambda: core_temporal_attention(**args, heads=hh))
+            plain_ms = cuda_ms(lambda: core_temporal_plain(**args, heads=hh))
+            x2, w2 = args["xn"].reshape(-1, cc), k3["wqkv"].to(dt)
+            gemm_ms = cuda_ms(lambda: torch.matmul(x2, w2.t()))
+            print(f"  K3 {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                  f"cuBLAS QKV product alone (partial yardstick) {gemm_ms:.4f} ms", flush=True)
+            results[("K3", name, where)] = (err, ms, plain_ms)
+            results[("K3 gemm", name, where)] = gemm_ms
+
+            dao = dao32.to(dt)
+            _, qkv_res = core_temporal_attention_fwd(args["xn"], *params, heads=hh)
+            got = core_temporal_attention_bwd(dao, args["xn"], *params, heads=hh, qkv=qkv_res)
+            ref = core_temporal_bwd_plain(dao, **args, heads=hh)
+            torch.cuda.synchronize()
+            err = compare_grads(f"K3 bwd {name} {where}", ("xn",) + CORE_PARAM_NAMES, got, ref,
+                                KERNEL_RTOL[name])
+            del got, ref
+            ms = cuda_ms(lambda: core_temporal_attention_bwd(dao, args["xn"], *params,
+                                                             heads=hh, qkv=qkv_res))
+            plain_ms = cuda_ms(lambda: core_temporal_bwd_plain(dao, **args, heads=hh))
+            print(f"  K3 bwd {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+                  flush=True)
+            results[("K3 bwd", name, where)] = (err, ms, plain_ms)
+            del qkv_res, args, params, dao
+        del k3, xn32, dao32
+
+    print(f"== phase 12: K2 at {heads_big} heads vs plain, forward and backward, qkv "
+          f"{shapes['K2 big']['rollout']} and {shapes['K2 big']['training']}", flush=True)
+    k2b = dict(
+        qn_scale=randn_big(64, scale=0.1, offset=1.0), qn_bias=randn_big(64, scale=0.1),
+        kn_scale=randn_big(64, scale=0.1, offset=1.0), kn_bias=randn_big(64, scale=0.1),
+        bias_x=randn_big(heads_big, grid, grid), bias_y=randn_big(heads_big, grid, grid),
+        scale_x=torch.from_numpy(rng_big.uniform(0.5, 1.5, heads_big).astype(np.float32)),
+        scale_y=torch.from_numpy(rng_big.uniform(0.5, 1.5, heads_big).astype(np.float32)),
+    )
+    k2b = {k: v.to(dev) for k, v in k2b.items()}
+    for where, shape in shapes["K2 big"].items():
+        qkv32, do32 = randn_big(*shape).to(dev), randn_big(*shape[:-1], c_big).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            args = dict(qkv=qkv32.to(dt), **k2b)
+            got = lane_axial_attention(**args, heads=heads_big)
+            ref = axial_attention_plain(**args, heads=heads_big)
+            torch.cuda.synchronize()
+            err_f = compare(f"K2 {name} {where} C={c_big}", got, ref, KERNEL_RTOL[name])
+            del got, ref
+            do = do32.to(dt)
+            got = lane_axial_attention_bwd(do, *args.values(), heads=heads_big)
+            ref = axial_attention_bwd_plain(do, **args, heads=heads_big)
+            torch.cuda.synchronize()
+            err_b = compare_grads(f"K2 bwd {name} {where} C={c_big}", tuple(args), got, ref,
+                                  KERNEL_RTOL[name])
+            del got, ref
+            ms_f = cuda_ms(lambda: lane_axial_attention(**args, heads=heads_big))
+            ms_b = cuda_ms(lambda: lane_axial_attention_bwd(do, *args.values(), heads=heads_big))
+            print(f"  K2 C={c_big} {name} {where}: forward {ms_f:.4f} ms, backward "
+                  f"{ms_b:.4f} ms", flush=True)
+            results[("K2 big", name, where)] = (err_f, ms_f, err_b, ms_b)
+            del args, do
+        del qkv32, do32
+
+    print(f"== phase 13: one float32 window, card vs CPU, AViT-big at {IMAGE}^2", flush=True)
+    big_cfg = load_config(["model_cfg=avit_big", "optim_cfg=adamw",
+                           "data_cfg=poolboiling_saturated", "scheduler_cfg.params.warmup_iters=2"])
+    big_train_cfgs = (big_cfg["model_cfg"], big_cfg["data_cfg"], big_cfg["optim_cfg"],
+                      big_cfg["scheduler_cfg"])
+    if big_cfg["model_cfg"]["params"]["embed_dim"] != c_big:
+        fail("model_cfg/avit_big.yaml is not AViT-big")
+    big_cpu = build_model(big_cfg["model_cfg"], data_cfg).eval()
+    big_weights = random_state_dict(big_cpu, SEED + 4)
+    big_cpu.load_state_dict(big_weights)
+    big_gpu = build_model(big_cfg["model_cfg"], data_cfg).eval().to(dev)
+    big_gpu.load_state_dict(big_weights)
+    xb = randn_big(1, TIME_WINDOW, FIELDS, IMAGE, IMAGE)
+    for fn in counters + (core_temporal_attention, core_temporal_attention_bwd):
+        fn.launches = 0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        yb_gpu = big_gpu(xb.to(dev))
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        yb_cpu = big_cpu(xb)
+        t_cpu = time.perf_counter() - t0
+    if (core_temporal_attention.launches, mega_temporal_block.launches) != (12, 0):
+        fail(f"the AViT-big window launched K3 {core_temporal_attention.launches} and K1 "
+             f"{mega_temporal_block.launches} times, expected 12 and 0")
+    print(f"  card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s, 12 of 12 blocks on both")
+    compare("AViT-big window f32 card vs CPU", yb_gpu.cpu(), yb_cpu, WINDOW_RTOL)
+    del big_cpu, yb_cpu, big_gpu
+
+    print(f"== phase 14: {WINDOWS}-window bfloat16 AViT-big rollout", flush=True)
+    big = build_model(big_cfg["model_cfg"], data_cfg, compute_dtype="bfloat16").eval().to(dev)
+    big.load_state_dict(big_weights)
+    init_b = xb.to(dev)
+    warm_b = make_rollout_fn(big, 1)(init_b)
+    torch.cuda.synchronize()
+    rel_l2_b = ((warm_b[0].float() - yb_gpu).norm() / yb_gpu.norm()).item()
+    print(f"  warm-up window: bf16 vs f32 relative L2 {rel_l2_b:.4f}")
+    rollout = make_rollout_fn(big, WINDOWS)
+    for fn in counters + (core_temporal_attention, core_temporal_attention_bwd):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = rollout(init_b)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    big_launches = {"K3": core_temporal_attention.launches, "K2": lane_axial_attention.launches,
+                    "K1": mega_temporal_block.launches}
+    if tuple(preds.shape) != (WINDOWS, 1, TIME_WINDOW, FIELDS, IMAGE, IMAGE):
+        fail(f"AViT-big rollout shape {tuple(preds.shape)}")
+    if not torch.isfinite(preds).all():
+        fail("the AViT-big rollout produced non-finite values")
+    want = {"K3": 12 * WINDOWS, "K2": 12 * WINDOWS, "K1": 0}
+    if big_launches != want:
+        fail(f"AViT-big rollout launches {big_launches}, expected {want}")
+    print(f"  {frames} frames in {seconds:.3f} s: {frames / seconds:.2f} frames/s, "
+          f"{1000 * seconds / WINDOWS:.2f} ms/window ({card}); launches {big_launches}",
+          flush=True)
+    if rel_l2_b > 0.25:
+        fail(f"AViT-big bf16 window is {rel_l2_b:.3f} (relative L2) from the f32 window")
+    del big, preds, warm_b, yb_gpu
+
+    print(f"== phase 15: Trainer.fit AViT-big, bfloat16, batch {TRAIN_BATCH} at {IMAGE}^2, "
+          f"AdamW, {BIG_TRAIN_STEPS} steps after 1 warm-up step", flush=True)
+    log_dir = repo / "build" / "chip_smoke_train_big"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    cls = module_class(big_cfg["model_cfg"], big_cfg["data_cfg"])
+    if cls.conditioned:
+        fail("AViT-big got the conditioned module")
+    torch.cuda.reset_peak_memory_stats()
+    module = cls(*big_train_cfgs, total_steps=BIG_TRAIN_STEPS + 1, compute_dtype="bfloat16",
+                 device="cuda", seed=SEED)
+    trainer = Trainer(module, log_dir=str(log_dir), limit_train_batches=BIG_TRAIN_STEPS,
+                      seed=SEED, log_every=1)
+    warm = synthetic_batch(TRAIN_BATCH, TIME_WINDOW, FIELDS, IMAGE, IMAGE, 9, seed=SEED + 5)
+    module.train_step(tuple(torch.from_numpy(a).to(dev) for a in warm),
+                      torch.Generator(device=dev).manual_seed(SEED))
+    before = {n: p.detach().clone() for n, p in module.model.named_parameters()}
+    big_counters = counters + (core_temporal_attention, core_temporal_attention_bwd)
+    for fn in big_counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    trainer.fit(SyntheticLoader(BIG_TRAIN_STEPS, TRAIN_BATCH, TIME_WINDOW, FIELDS, IMAGE, 9,
+                                seed=SEED + 6), max_epochs=1)
+    torch.cuda.synchronize()
+    big_train_launches = {fn.__name__: fn.launches for fn in big_counters}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seconds = trainer.last_epoch_seconds
+    with open(log_dir / "metrics.csv") as f:
+        losses = [float(row.split(",")[3]) for row in f.read().splitlines()[1:]]
+    print(f"  losses {losses}")
+    if len(losses) != BIG_TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"expected {BIG_TRAIN_STEPS} finite AViT-big losses, got {losses}")
+    for fn_name, n in big_train_launches.items():
+        expected = 0 if fn_name.startswith("mega_") else 12 * BIG_TRAIN_STEPS
+        if n != expected:
+            fail(f"{fn_name} launched {n} times in {BIG_TRAIN_STEPS} AViT-big steps, "
+                 f"expected {expected}")
+    unmoved = [(n, p) for n, p in module.model.named_parameters() if torch.equal(before[n], p)]
+    stuck = [n for n, p in unmoved if p.grad is not None and bool(p.grad.any())]
+    if stuck:
+        fail(f"{len(stuck)} AViT-big parameters with a gradient did not move: {stuck[:5]}")
+    print(f"  {BIG_TRAIN_STEPS} steps in {seconds:.3f} s: "
+          f"{1000 * seconds / BIG_TRAIN_STEPS:.1f} ms/step, "
+          f"{TRAIN_BATCH * BIG_TRAIN_STEPS / seconds:.2f} samples/s; peak memory {peak_gb:.2f} GB; "
+          f"{len(before) - len(unmoved)}/{len(before)} parameters moved ({card}); "
+          f"launches {big_train_launches}", flush=True)
+    del module, trainer
+    shutil.rmtree(log_dir, ignore_errors=True)
+
+    for where, shape in shapes["K2 big"].items():
+        for dt in ("float32", "bfloat16"):
+            _, ms_f, _, ms_b = results[("K2 big", dt, where)]
+            b_f = bound(*kernel_work("K2", shape, dt), dt)[0]
+            b_b = bound(*kernel_work("K2 bwd", shape, dt), dt)[0]
+            print(f"  lane_axial_attention C={c_big} {where} {shape} {dt}: forward {ms_f:.4f} ms "
+                  f"(bound {b_f:.5f}), backward {ms_b:.4f} ms (bound {b_b:.5f})")
+
     kernels = []
     for key, name, source, replaces in (
         ("K1", "mega_temporal_block", "bubbleformer_tpu_torch/csrc/temporal_block.cu",
@@ -658,24 +915,36 @@ def main() -> None:
          "bubbleformer_tpu/ops/temporal_block_mega.py:269"),
         ("K2 bwd", "lane_axial_attention_bwd", "bubbleformer_tpu_torch/csrc/axial_attention.cu",
          "bubbleformer_tpu/ops/axial_lane.py:370"),
+        ("K3", "core_temporal_attention", "bubbleformer_tpu_torch/csrc/temporal_block.cu",
+         "bubbleformer_tpu/ops/temporal_block_mega.py:452"),
+        ("K3 bwd", "core_temporal_attention_bwd",
+         "bubbleformer_tpu_torch/csrc/temporal_block_bwd.cu",
+         "bubbleformer_tpu/ops/temporal_block_mega.py:476"),
     ):
-        # The launches are the training run's, so every number beside them is
-        # taken at the training step's shape.
+        # The launches are the training run of the path that launches the
+        # kernel (FiLMAViT-small for K1 and K2, AViT-big for K3), so every
+        # number beside them is taken at that step's shape.
+        on_big = key.startswith("K3")
         shape = shapes[key[:2]]["training"]
+        run_launches, steps = ((big_train_launches, BIG_TRAIN_STEPS) if on_big
+                               else (train_launches, TRAIN_STEPS))
+        window_launches = big_launches if on_big else launches
         err, ms, plain_ms = results[(key, "bfloat16", "training")]
         bound_ms, bound_by = bound(*kernel_work(key, shape, "bfloat16"), "bfloat16")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": train_launches[name], "max_abs_err": err, "ms": ms,
+                        "launches": run_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
-        for where in ("rollout", "training"):
+        for where in shapes[key[:2]]:
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, shapes[key[:2]][where], dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
+                extra = (f", cuBLAS QKV product alone {results[('K3 gemm', dt, where)]:.4f} ms"
+                         if key == "K3" else "")
                 print(f"  {name} {where} {shapes[key[:2]][where]} {dt}: kernel {k_ms:.4f} ms, "
-                      f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        print(f"  {name}: launches per rollout window {launches.get(key, 0) // WINDOWS}, "
-              f"per training step {train_launches[name] // TRAIN_STEPS}")
+                      f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
+        print(f"  {name}: launches per rollout window {window_launches.get(key, 0) // WINDOWS}, "
+              f"per training step {run_launches[name] // steps}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

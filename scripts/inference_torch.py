@@ -36,7 +36,7 @@ from bubbleformer_tpu_torch.inference import (
     rollout_targets,
 )
 from bubbleformer_tpu_torch.models import build_model
-from bubbleformer_tpu_torch.training import load_checkpoint, resolve_device
+from bubbleformer_tpu_torch.training import load_checkpoint, module_class, resolve_device
 from bubbleformer_tpu_torch.utils.losses import LpLoss
 from bubbleformer_tpu_torch.utils.metrics import (
     eikonal_residual_per_step,
@@ -88,7 +88,9 @@ def main(argv=None) -> None:
         state = state["model"]
     tw = dataset.time_window
     num_windows = args.steps // tw
-    conditioned = data_cfg["return_fluid_params"]
+    # The model decides: fluid parameters the data return to a model
+    # without FiLM are left unused, as in training.
+    conditioned = module_class(cfg["model_cfg"], data_cfg).conditioned
 
     model = build_model(cfg["model_cfg"], data_cfg)
     model.load_state_dict(state)

@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Where one training step of the PyTorch port spends its time, on one card.
 
-Builds the default composition's training module — FiLMAViT-small, Lion,
-cosine warmup, bfloat16 activations with float32 parameters — at ``--batch``
-on synthetic 512x512 batches already on the card, runs warm-up steps, times
-``--steps`` steps with CUDA events (ms/step, samples/s, peak memory), then
-traces ``--profile-steps`` more with ``torch.profiler`` and sums the device
-time of every kernel by part: the forward and backward kernels of K1 and
-K2, matrix products (cuBLAS), the optimizer's foreach kernels, and the
-rest (elementwise, reductions, copies).  The idle share is one minus the
-summed kernel time over the host-clock wall time of the traced steps.
+Builds the training module of a composition — by default the default one,
+FiLMAViT-small with Lion and cosine warmup; ``--model-cfg`` and
+``--optim-cfg`` pick other config groups (``avit_big`` and ``adamw`` for the
+README's quick-start) — with bfloat16 activations and float32 parameters at
+``--batch`` on synthetic 512x512 batches already on the card, runs warm-up
+steps, times ``--steps`` steps with CUDA events (ms/step, samples/s, peak
+memory), then traces ``--profile-steps`` more with ``torch.profiler`` and
+sums the device time of every kernel by part: the forward and backward
+kernels of the temporal branch (K1, or K3 where the branch takes the core
+route: both build on the same kernels) and of K2, matrix products
+(cuBLAS), the optimizer's foreach kernels, and the rest (elementwise,
+reductions, copies).  The idle share is one minus the summed kernel time
+over the host-clock wall time of the traced steps.
 
 Prints one JSON object (and writes it to ``--out`` if given).  Needs a
 CUDA card.
 
     python scripts/profile_train_torch.py --batch 8 --steps 5 --profile-steps 2
+    python scripts/profile_train_torch.py --model-cfg avit_big --optim-cfg adamw --batch 8
 """
 from __future__ import annotations
 
@@ -32,13 +37,14 @@ import torch
 
 from bubbleformer_tpu_torch.config import load_config
 from bubbleformer_tpu_torch.data import synthetic_batch
-from bubbleformer_tpu_torch.training import ConditionedForecastModule
+from bubbleformer_tpu_torch.training import module_class
 
 # Kernel-name fragments of each part, checked in this order.
 PARTS = (
-    ("K1 backward", ("gemm_nt_kernel", "wgrad_kernel", "plane_sums_kernel",
-                     "attention_bwd_kernel", "in_apply_kernel")),
-    ("K1 forward", ("qkv_attention_kernel", "out_proj_kernel", "plane_stats_kernel")),
+    ("temporal backward (K1 or K3)", ("gemm_nt_kernel", "wgrad_kernel", "plane_sums_kernel",
+                                      "attention_bwd_kernel", "in_apply_kernel")),
+    ("temporal forward (K1 or K3)", ("qkv_attention_kernel", "out_proj_kernel",
+                                     "plane_stats_kernel")),
     ("K2 backward", ("axial_line_bwd_kernel",)),
     ("K2 forward", ("axial_line_kernel",)),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
@@ -58,6 +64,8 @@ def part_of(name: str) -> str:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model-cfg", default=None, help="model config group (default: the default's)")
+    ap.add_argument("--optim-cfg", default=None, help="optimizer config group")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--warmup", type=int, default=2)
@@ -72,14 +80,16 @@ def main(argv=None) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
 
-    cfg = load_config([])
-    module = ConditionedForecastModule(
+    cfg = load_config([f"{group}={name}" for group, name in (
+        ("model_cfg", args.model_cfg), ("optim_cfg", args.optim_cfg)) if name])
+    module = module_class(cfg["model_cfg"], cfg["data_cfg"])(
         cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"],
         total_steps=10_000, compute_dtype="bfloat16", device="cuda", seed=args.seed)
     module.step = 2 * cfg["scheduler_cfg"]["params"]["warmup_iters"]  # lr > 0: every update moves
     batch = tuple(torch.from_numpy(a).to(dev) for a in synthetic_batch(
         args.batch, cfg["data_cfg"]["time_window"], len(cfg["data_cfg"]["input_fields"]),
-        args.size, args.size, cfg["model_cfg"]["params"]["num_fluid_params"], seed=args.seed))
+        args.size, args.size, cfg["model_cfg"]["params"].get("num_fluid_params", 9),
+        seed=args.seed))
     gen = torch.Generator(device=dev)
 
     def step(i):
@@ -114,7 +124,9 @@ def main(argv=None) -> None:
     busy_ms = sum(per_part.values())
     n = args.profile_steps
     out = {
-        "card": card, "batch": args.batch, "size": args.size,
+        "card": card, "model": cfg["model_cfg"]["name"],
+        "embed_dim": cfg["model_cfg"]["params"]["embed_dim"], "optimizer": cfg["optim_cfg"]["name"],
+        "batch": args.batch, "size": args.size,
         "ms_per_step": ms, "samples_per_s": 1e3 * args.batch / ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profiled_wall_ms_per_step": wall_ms / n,

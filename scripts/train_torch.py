@@ -6,6 +6,8 @@ Counterpart of ``scripts/train.py`` on ``bubbleformer_tpu_torch``: the same
 ``mesh_cfg`` group is ignored: the port has no mesh), the sliding-window
 datasets with train normalization constants applied to validation, the
 (conditioned) forecast module and the trainer with preemption checkpoints.
+The module follows the model: a data config that returns fluid parameters
+to a model without FiLM trains the unconditioned module, which ignores them.
 
 Overrides the JAX script does not have:
 
@@ -16,6 +18,8 @@ Overrides the JAX script does not have:
   validation), where no data are at hand.
 
     python scripts/train_torch.py data_cfg=poolboiling_saturated max_epochs=400
+    python scripts/train_torch.py model_cfg=avit_big optim_cfg=adamw batch_size=8 \\
+        synthetic_batches=6 limit_train_batches=6 scheduler_cfg.params.warmup_iters=2
     python scripts/train_torch.py synthetic_batches=6 limit_train_batches=6 \\
         scheduler_cfg.params.warmup_iters=2 log_dir=/tmp/logs
 """
@@ -32,9 +36,8 @@ import numpy as np
 from bubbleformer_tpu_torch.config import load_config
 from bubbleformer_tpu_torch.data import BubbleForecast, DataLoader, SyntheticLoader
 from bubbleformer_tpu_torch.training import (
-    ConditionedForecastModule,
-    ForecastModule,
     Trainer,
+    module_class,
     next_preempt_ckpt_path,
     resolve_device,
 )
@@ -59,9 +62,10 @@ def main(argv=None) -> None:
         os.makedirs(log_dir, exist_ok=True)
 
     synthetic = cfg.get("synthetic_batches")
-    conditioned = data_cfg["return_fluid_params"]
+    module_cls = module_class(model_cfg, data_cfg)
+    with_fluid = data_cfg["return_fluid_params"]
     if synthetic:
-        fluid = model_cfg["params"].get("num_fluid_params", 9) if conditioned else None
+        fluid = model_cfg["params"].get("num_fluid_params", 9) if with_fluid else None
         train_loader = SyntheticLoader(
             int(synthetic), cfg["batch_size"], data_cfg["time_window"],
             len(data_cfg["input_fields"]), SYNTHETIC_SIZE, fluid,
@@ -72,7 +76,7 @@ def main(argv=None) -> None:
             input_fields=data_cfg["input_fields"], output_fields=data_cfg["output_fields"],
             norm=data_cfg["normalize"], downsample_factor=data_cfg["downsample_factor"],
             time_window=data_cfg["time_window"], start_time=data_cfg["start_time"],
-            return_fluid_params=conditioned,
+            return_fluid_params=with_fluid,
         )
         train_dataset = BubbleForecast(filenames=data_cfg["train_paths"], **common)
         normalization_constants = train_dataset.normalize()
@@ -87,7 +91,6 @@ def main(argv=None) -> None:
     print(f"{len(train_loader)} train batches/epoch, batch {cfg['batch_size']}, "
           f"device {device}", flush=True)
 
-    module_cls = ConditionedForecastModule if conditioned else ForecastModule
     module = module_cls(
         model_cfg=model_cfg, data_cfg=data_cfg, optim_cfg=cfg["optim_cfg"],
         scheduler_cfg=cfg["scheduler_cfg"], total_steps=total_steps,
