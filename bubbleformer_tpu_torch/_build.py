@@ -46,12 +46,12 @@ _SIGNATURES = {
     # dtype, xn, dao, qkv, wqkv_t, ln, bias, scale, dqkv, dx, dwqkv, dbqkv,
     # dln, dbias, dscale, B, T, N, C, heads, stream
     "bf_core_temporal_bwd": [_I] + [_P] * 14 + [_I] * 5 + [_P],
-    # dtype, qkv, ln, bias_x, bias_y, scale, row_out, out, BT, H, W, C, heads,
-    # stream
-    "bf_axial_attention_fwd": [_I] + [_P] * 7 + [_I] * 5 + [_P],
-    # dtype, qkv, do, ln, bias_x, bias_y, scale, dqkv, dln, dbias_x, dbias_y,
-    # dscale, BT, H, W, C, heads, stream
-    "bf_axial_attention_bwd": [_I] + [_P] * 11 + [_I] * 5 + [_P],
+    # dtype, head_dim, fused, qkv, ln, bias_x, bias_y, scale, row_out, out,
+    # BT, H, W, C, heads, stream
+    "bf_axial_attention_fwd": [_I] * 3 + [_P] * 7 + [_I] * 5 + [_P],
+    # dtype, head_dim, fused, qkv, do, ln, bias_x, bias_y, scale, dqkv, dacc,
+    # stats, dln, dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
+    "bf_axial_attention_bwd": [_I] * 3 + [_P] * 13 + [_I] * 5 + [_P],
 }
 
 

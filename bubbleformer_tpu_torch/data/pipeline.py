@@ -104,13 +104,15 @@ def synthetic_batch(batch_size: int, time_window: int, channels: int, height: in
 
 
 class SyntheticLoader:
-    """``num_batches`` synthetic batches, batch ``i`` drawn from seed
-    ``seed + i`` once, when the loader is made (set-up, not step time), and
-    served again every epoch."""
+    """``num_batches`` synthetic batches of ``size`` x ``width`` frames
+    (``width`` defaults to ``size``), batch ``i`` drawn from seed ``seed +
+    i`` once, when the loader is made (set-up, not step time), and served
+    again every epoch."""
 
     def __init__(self, num_batches: int, batch_size: int, time_window: int, channels: int,
-                 size: int, num_fluid_params: Optional[int] = None, seed: int = 0):
-        self.batches = [synthetic_batch(batch_size, time_window, channels, size, size,
+                 size: int, num_fluid_params: Optional[int] = None, seed: int = 0,
+                 width: Optional[int] = None):
+        self.batches = [synthetic_batch(batch_size, time_window, channels, size, width or size,
                                         num_fluid_params, seed=seed + i)
                         for i in range(num_batches)]
 

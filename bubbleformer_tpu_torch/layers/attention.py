@@ -1,25 +1,38 @@
 """Temporal and axial-spatial attention blocks (channels-last).
 
 Counterpart of ``bubbleformer_tpu/layers/attention.py`` on the routes the
-JAX package takes on a TPU (``_resolve_attn_impl``: temporal -> mega or
-core, axial -> lane):
+JAX package takes on a TPU.  Both blocks take the models' ``attn_impl``
+and resolve ``"auto"`` as ``_resolve_attn_impl`` does there (``:57-128``,
+with ``memory_lean=False``: the port has no ``scan_blocks``):
 
-* :class:`TemporalAttentionBlock` takes the mega route (``:208-244``), the
-  whole branch in :func:`~bubbleformer_tpu_torch.ops.temporal_block_mega.
-  mega_temporal_block` with LayerScale gamma folded into the output
-  projection, or the core route (``:246,255-277``): InstanceNorm1,
+* :class:`TemporalAttentionBlock`: ``mega`` (``:208-244``), the whole branch
+  in :func:`~bubbleformer_tpu_torch.ops.temporal_block_mega.
+  mega_temporal_block` (K1) with LayerScale gamma folded into the output
+  projection; ``core`` (``:246,255-277``): InstanceNorm1,
   :func:`~bubbleformer_tpu_torch.ops.temporal_block_mega.
   core_temporal_attention` (K3), InstanceNorm2, the output projection and
-  gamma in the activation dtype.  The residual is added outside either.
-  ``attn_impl="auto"`` resolves as the JAX package does on a TPU
-  (:func:`resolve_temporal_impl`);
-* :class:`AxialAttentionBlock` is the lane route (``:446-465``): InstanceNorm1,
-  :func:`~bubbleformer_tpu_torch.ops.axial_lane.lane_axial_attention_from_x`,
-  InstanceNorm2, the output projection, then ``_epilogue`` (``:596-626``).
+  gamma in the activation dtype; ``unrolled`` and ``plain`` (and every name
+  that falls through there), the XLA route (``:279-322``): InstanceNorm1,
+  the QKV Dense in the activation dtype, qk-LayerNorm cast back,
+  :func:`~bubbleformer_tpu_torch.ops.attention.xla_axis_attention`,
+  InstanceNorm2, the output Dense and gamma.  The residual is added outside
+  any of them.
+* :class:`AxialAttentionBlock`: ``lane`` (``:446-465``): InstanceNorm1,
+  :func:`~bubbleformer_tpu_torch.ops.axial_lane.lane_axial_attention_from_x`
+  (K2), InstanceNorm2, the output projection, then ``_epilogue``
+  (``:596-626``); ``fused_block`` (``:467-489``): the QKV Dense in the
+  activation dtype and :func:`~bubbleformer_tpu_torch.ops.axial_fused_block.
+  fused_block_attention` (K4) in its place; ``unrolled``, ``plain`` and every
+  name that falls through there, the XLA route (``:467-547``).
 
-Parameters carry the reference torch model's names and shapes: the QKV and
-output heads are 1x1-conv weights ``(O, I, 1, 1)``, attn scales
-``(1, heads, 1, 1)``, the T5 table ``rel_pos_bias.relative_attention_bias``.
+Names whose JAX route is a Pallas kernel not yet ported raise
+``NotImplementedError`` naming its row of ``ROADMAP.md`` Queue 2.  The XLA
+routes are not fallbacks: they are what the JAX package computes there.
+
+Parameters carry the reference torch model's names and shapes on every
+route, so checkpoints interchange: the QKV and output heads are 1x1-conv
+weights ``(O, I, 1, 1)``, attn scales ``(1, heads, 1, 1)``, the T5 table
+``rel_pos_bias.relative_attention_bias``.
 """
 from __future__ import annotations
 
@@ -32,7 +45,18 @@ from bubbleformer_tpu_torch.layers.linear import GeluMLP, dense
 from bubbleformer_tpu_torch.layers.norm import InstanceNorm, LayerNorm, accumulation_dtype
 from bubbleformer_tpu_torch.layers.positional import RelativePositionBias
 from bubbleformer_tpu_torch.layers.stochastic import drop_path
-from bubbleformer_tpu_torch.ops.axial_lane import lane_axial_attention_from_x
+from bubbleformer_tpu_torch.ops.attention import (
+    from_cols,
+    qk_layer_norm,
+    to_cols,
+    to_rows,
+    xla_axis_attention,
+)
+from bubbleformer_tpu_torch.ops.axial_fused_block import fused_block_attention
+from bubbleformer_tpu_torch.ops.axial_lane import (
+    lane_axial_attention_from_x,
+    lane_axial_supported,
+)
 from bubbleformer_tpu_torch.ops.temporal_block_mega import (
     core_temporal_attention,
     core_temporal_supported,
@@ -40,22 +64,51 @@ from bubbleformer_tpu_torch.ops.temporal_block_mega import (
     mega_temporal_supported,
 )
 
-TEMPORAL_IMPLS = ("auto", "mega", "core")
+# Routes whose JAX kernel is a Pallas kernel the port does not have yet:
+# route -> its row of ROADMAP.md Queue 2.  Keyed by branch, since "mega" is
+# K1 in the temporal branch and K5 in the axial one.
+UNPORTED = {
+    "temporal": {"flash": "K8"},
+    "axial": {"mega": "K5", "fused_packed": "K6", "fused": "K7", "flash": "K8"},
+}
+
+
+def _check_ported(branch: str, impl: str) -> None:
+    row = UNPORTED[branch].get(impl)
+    if row is not None:
+        raise NotImplementedError(
+            f"attn_impl={impl!r} runs the Pallas kernel {row} in the {branch} branch of the JAX "
+            f"package, which the port does not have yet (ROADMAP.md, Queue 2, row {row})"
+        )
 
 
 def resolve_temporal_impl(impl: str, t: int, h: int, w: int, c: int) -> str:
-    """``"mega"`` or ``"core"`` for the temporal branch of a ``(B, T, H, W,
-    C)`` input.  ``"auto"`` resolves as the JAX package does on a TPU
-    (``layers/attention.py:92-107``): mega where
+    """The route of the temporal branch of a ``(B, T, H, W, C)`` input.
+    ``"auto"`` resolves as the JAX package does on a TPU
+    (``layers/attention.py:92-110``): mega where
     :func:`mega_temporal_supported` holds, else core where
-    :func:`core_temporal_supported` holds.  Outside both gates the JAX
-    package takes its XLA ``unrolled`` route; the port keeps the mega route
-    there (the same function in float32)."""
+    :func:`core_temporal_supported` holds, else unrolled for T <= 8, flash
+    for T >= 64 and plain between.  Any other name is kept."""
     if impl != "auto":
         return impl
     if mega_temporal_supported(t, h, w, c):
         return "mega"
-    return "core" if core_temporal_supported(t, h, w, c) else "mega"
+    if core_temporal_supported(t, h, w, c):
+        return "core"
+    if t <= 8:
+        return "unrolled"
+    return "flash" if t >= 64 else "plain"
+
+
+def resolve_axial_impl(impl: str, h: int, w: int, c: int, heads: int) -> str:
+    """The route of the axial branch of a ``(BT, H, W, C)`` input.
+    ``"auto"`` resolves as the JAX package does on a TPU without
+    ``scan_blocks`` (``layers/attention.py:111-127``): lane where
+    :func:`lane_axial_supported` holds, else fused_block.  Any other name is
+    kept."""
+    if impl != "auto":
+        return impl
+    return "lane" if lane_axial_supported(h, w, c, heads) else "fused_block"
 
 
 def _head(cin: int, cout: int) -> nn.Conv2d:
@@ -72,8 +125,6 @@ class TemporalAttentionBlock(nn.Module):
                  attn_impl: str = "auto", dtype: Optional[torch.dtype] = None):
         super().__init__()
         c, d = embed_dim, embed_dim // num_heads
-        if attn_impl not in TEMPORAL_IMPLS:
-            raise ValueError(f"attn_impl must be one of {TEMPORAL_IMPLS}, not {attn_impl!r}")
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.dtype = dtype
@@ -94,34 +145,53 @@ class TemporalAttentionBlock(nn.Module):
         b, t, h, w, c = x.shape
         heads = self.num_heads
         scale = None if self.attn_scale_factor is None else self.attn_scale_factor.reshape(heads)
-        if resolve_temporal_impl(self.attn_impl, t, h, w, c) == "core":
-            # The parameters are the mega route's, so checkpoints interchange.
-            xn = self.norm1(x)
+        impl = resolve_temporal_impl(self.attn_impl, t, h, w, c)
+        _check_ported("temporal", impl)
+        if impl == "mega":
+            return drop_path(self._mega_branch(x, scale), drop_path_rate, generator,
+                             self.training) + x
+        # The parameters are the mega route's on every route, so checkpoints
+        # interchange.
+        xn = self.norm1(x)
+        if impl == "core":
             out = core_temporal_attention(
                 xn if self.dtype is None else xn.to(self.dtype),
                 self.input_head.weight.reshape(3 * c, c), self.input_head.bias,
                 self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias,
                 self.rel_pos_bias(t, t), scale, heads=heads,
             )
-            out = dense(self.norm2(out), self.output_head.weight.reshape(c, c),
-                        self.output_head.bias, self.dtype)
-            branch = out * self.gamma.to(out.dtype)
-            return drop_path(branch, drop_path_rate, generator, self.training) + x
-        # LayerScale folds into the output projection exactly:
-        # gamma * (W y + b) == (gamma W) y + gamma b.
+        else:
+            qkv = dense(xn, self.input_head.weight.reshape(3 * c, c), self.input_head.bias,
+                        self.dtype).reshape(b, t, h, w, heads, 3, c // heads)
+            q, k = qk_layer_norm(qkv[..., 0, :], qkv[..., 1, :], self.qnorm, self.knorm)
+
+            def seq(a):  # (b, t, h, w, heads, d) -> (b, h, w, heads, t, d)
+                return a.permute(0, 2, 3, 4, 1, 5)
+
+            out = xla_axis_attention(seq(q), seq(k), seq(qkv[..., 2, :]), self.rel_pos_bias(t, t),
+                                     scale, unrolled=impl == "unrolled")
+            out = out.permute(0, 4, 1, 2, 3, 5).reshape(b, t, h, w, c)
+        out = dense(self.norm2(out), self.output_head.weight.reshape(c, c),
+                    self.output_head.bias, self.dtype)
+        branch = out * self.gamma.to(out.dtype)
+        return drop_path(branch, drop_path_rate, generator, self.training) + x
+
+    def _mega_branch(self, x, scale):
+        """K1 with LayerScale folded into the output projection exactly:
+        gamma * (W y + b) == (gamma W) y + gamma b."""
+        t, c = x.shape[1], x.shape[-1]
         acc = accumulation_dtype(self.gamma.dtype)
         gamma = self.gamma.to(acc)
         wout = self.output_head.weight.reshape(c, c).to(acc) * gamma[:, None]
         bout = self.output_head.bias.to(acc) * gamma
         xin = x if self.dtype is None else x.to(self.dtype)
-        branch = mega_temporal_block(
+        return mega_temporal_block(
             xin, self.norm1.weight, self.norm1.bias,
             self.input_head.weight.reshape(3 * c, c), self.input_head.bias,
             self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias,
             self.norm2.weight, self.norm2.bias, wout, bout,
-            self.rel_pos_bias(t, t), scale, heads=heads,
+            self.rel_pos_bias(t, t), scale, heads=self.num_heads,
         )
-        return drop_path(branch, drop_path_rate, generator, self.training) + x
 
 
 class AxialAttentionBlock(nn.Module):
@@ -130,10 +200,12 @@ class AxialAttentionBlock(nn.Module):
 
     def __init__(self, embed_dim: int = 768, num_heads: int = 12,
                  layer_scale_init_value: float = 1e-6, attn_scale: bool = True,
-                 feat_scale: bool = True, dtype: Optional[torch.dtype] = None):
+                 feat_scale: bool = True, attn_impl: str = "auto",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         c, d = embed_dim, embed_dim // num_heads
         self.num_heads = num_heads
+        self.attn_impl = attn_impl
         self.dtype = dtype
         self.norm1 = InstanceNorm(c)
         self.norm2 = InstanceNorm(c)
@@ -161,22 +233,47 @@ class AxialAttentionBlock(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, c = x.shape
         heads = self.num_heads
+        impl = resolve_axial_impl(self.attn_impl, h, w, c, heads)
+        _check_ported("axial", impl)
         inp = x
 
         def scale(p):
             return None if p is None else p.reshape(heads)
 
+        tables = (self.rel_pos_bias(w, w), self.rel_pos_bias(h, h),
+                  scale(self.attn_scale_factor_x), scale(self.attn_scale_factor_y))
+        lnp = (self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias)
         x = self.norm1(x)
-        xin = x if self.dtype is None else x.to(self.dtype)
-        x = lane_axial_attention_from_x(
-            xin, self.input_head.weight.reshape(3 * c, c), self.input_head.bias,
-            self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias,
-            self.rel_pos_bias(w, w), self.rel_pos_bias(h, h),
-            scale(self.attn_scale_factor_x), scale(self.attn_scale_factor_y), heads=heads,
-        )
+        wqkv = self.input_head.weight.reshape(3 * c, c)
+        if impl == "lane":
+            x = lane_axial_attention_from_x(x if self.dtype is None else x.to(self.dtype), wqkv,
+                                            self.input_head.bias, *lnp, *tables, heads=heads)
+        elif impl == "fused_block":
+            qkv = dense(x, wqkv, self.input_head.bias, self.dtype)
+            x = fused_block_attention(qkv, *lnp, *tables, heads=heads)
+        else:
+            x = self._xla_attention(dense(x, wqkv, self.input_head.bias, self.dtype), tables,
+                                    unrolled=impl == "unrolled")
         x = self.norm2(x)
         x = dense(x, self.output_head.weight.reshape(c, c), self.output_head.bias, self.dtype)
         return self._epilogue(x, inp, drop_path_rate, generator)
+
+    def _xla_attention(self, qkv, tables, unrolled):
+        """The JAX package's XLA route (``layers/attention.py:467-547``): qk-LN
+        cast back, rows and columns by :func:`xla_axis_attention`, their
+        mean in the activation dtype."""
+        b, h, w, c3 = qkv.shape
+        heads = self.num_heads
+        c = c3 // 3
+        q5 = qkv.reshape(b, h, w, heads, 3, c // heads)
+        q, k = qk_layer_norm(q5[..., 0, :], q5[..., 1, :], self.qnorm, self.knorm)
+        v = q5[..., 2, :]
+        bias_x, bias_y, scale_x, scale_y = tables
+        xx = to_rows(xla_axis_attention(to_rows(q), to_rows(k), to_rows(v), bias_x, scale_x,
+                                        unrolled))
+        xy = from_cols(xla_axis_attention(to_cols(q), to_cols(k), to_cols(v), bias_y, scale_y,
+                                          unrolled))
+        return ((xx + xy) * 0.5).reshape(b, h, w, c)
 
     def _epilogue(self, x, inp, drop_path_rate, generator):
         """feat_scale, LayerScale + DropPath residual, and the MLP sub-block."""

@@ -4,10 +4,10 @@ Counterpart of ``bubbleformer_tpu/models/axial_vit.py``, unrolled:
 ``HMLPEmbed -> N SpaceTimeBlocks (drop-path rates linear 0 -> drop_path) ->
 HMLPDebed``, with FiLM modulation after the embed for :class:`FiLMAViT`.
 The public layout is ``(B, T, C, H, W)``; activations between embed and
-debed are channels-last ``(B, T, h, w, E)``.  ``attn_impl`` (``"auto"``,
-``"mega"``, ``"core"``) picks the route of every temporal branch, as the
-JAX models' field of that name does (``layers/attention.py:
-resolve_temporal_impl``); the axial branch always takes the lane route.
+debed are channels-last ``(B, T, h, w, E)``.  ``attn_impl`` picks the
+route of every temporal and every axial branch, as the JAX models' field of
+that name does (``layers/attention.py:resolve_temporal_impl``,
+``resolve_axial_impl``).
 The JAX package's TPU options (the ``carry="cm"`` layout, ``scan_blocks``,
 remat, ``spatial_shard_axis``) have no counterpart here.
 """
@@ -38,7 +38,8 @@ class SpaceTimeBlock(nn.Module):
             embed_dim, num_heads, layer_scale_init_value, attn_scale, attn_impl, dtype=dtype
         )
         self.spatial = AxialAttentionBlock(
-            embed_dim, num_heads, layer_scale_init_value, attn_scale, feat_scale, dtype=dtype
+            embed_dim, num_heads, layer_scale_init_value, attn_scale, feat_scale, attn_impl,
+            dtype=dtype,
         )
 
     def forward(self, x: torch.Tensor, drop_path_rate: float = 0.0,

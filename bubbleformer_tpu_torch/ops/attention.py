@@ -1,4 +1,4 @@
-"""Plain attention math shared by the plain versions of both kernels.
+"""Plain attention math: the plain versions of the kernels and the XLA routes.
 
 Counterpart of ``bubbleformer_tpu/ops/attention.py``.  The reference's
 attn_scale decomposition (uniform low-frequency part plus a learned scale of
@@ -15,9 +15,11 @@ points, and the plain versions must round where their kernel does:
   to the activation dtype and then multiplies by ``v``
   (``axial_lane.py:_axis_fwd``): ``fold_dtype=<activation dtype>``.
 
-In float32 both are the same function.  The plain versions accumulate in
-float32, or in float64 for float64 inputs (:func:`accumulation_dtype`), so
-that the tests can hold their gradients against float64 autograd.
+In float32 both are the same function, and so are the JAX package's XLA
+routes (:func:`xla_axis_attention`), which round where XLA rounds.  The
+plain versions accumulate in float32, or in float64 for float64 inputs
+(:func:`accumulation_dtype`), so that the tests can hold their gradients
+against float64 autograd.
 """
 from __future__ import annotations
 
@@ -26,6 +28,23 @@ from typing import Optional
 import torch
 
 from bubbleformer_tpu_torch.layers.norm import accumulation_dtype
+
+
+# The axial layouts: per-head tokens (bt, h, w, heads, d) as lines of a
+# sequence axis for the attention functions below.
+def to_rows(a: torch.Tensor) -> torch.Tensor:
+    """(bt, h, w, heads, d) <-> (bt, h, heads, w, d): its own inverse."""
+    return a.permute(0, 1, 3, 2, 4)
+
+
+def to_cols(a: torch.Tensor) -> torch.Tensor:
+    """(bt, h, w, heads, d) -> (bt, w, heads, h, d)."""
+    return a.permute(0, 2, 3, 1, 4)
+
+
+def from_cols(a: torch.Tensor) -> torch.Tensor:
+    """(bt, w, heads, h, d) -> (bt, h, w, heads, d): the inverse of :func:`to_cols`."""
+    return a.permute(0, 3, 1, 2, 4)
 
 
 def axis_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -55,3 +74,48 @@ def axis_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = e * (1.0 / z)
     return s * torch.matmul(p, vf) + (1.0 - s) * vf.mean(dim=-2, keepdim=True)
 
+
+
+def xla_axis_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias: Optional[torch.Tensor], scale: Optional[torch.Tensor],
+                       unrolled: bool = False) -> torch.Tensor:
+    """Attention over the sequence axis of ``(batch..., heads, L, d)`` tensors
+    in the activation dtype, rounding where the JAX package's XLA routes
+    round: ``axis_attention`` (``bubbleformer_tpu/ops/attention.py:191``, the
+    ``plain`` route) with ``unrolled=False``, ``unrolled_axis_attention``
+    (``:140``, the ``unrolled`` route) with ``unrolled=True``.
+
+    Both take float32 logits and softmax and round the probabilities to
+    ``v.dtype``; ``plain`` accumulates their product with ``v`` in float32
+    and rounds it once, ``unrolled`` rounds each product ``dtype(P_ij) *
+    v_j`` before the float32 sum.  The attn_scale blend ``s * out + (1 - s)
+    * mean(v)`` then runs in ``v.dtype`` (the mean accumulated in float32).
+    These are XLA in the JAX package, not Pallas kernels: plain PyTorch is
+    their port on every device.  Returns ``(batch..., heads, L, d)`` in
+    ``v.dtype``.
+    """
+    heads, d = q.shape[-3], q.shape[-1]
+    dt, acc = v.dtype, accumulation_dtype(v.dtype)
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * d**-0.5
+    if bias is not None:
+        logits = logits + bias.to(acc)
+    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(dt)
+    if unrolled:
+        out = (p.unsqueeze(-1) * v.unsqueeze(-3)).to(acc).sum(dim=-2).to(dt)
+    else:
+        out = torch.matmul(p.to(acc), v.to(acc)).to(dt)
+    if scale is None:
+        return out
+    s = scale.reshape(heads, 1, 1)
+    v_mean = v.to(acc).mean(dim=-2, keepdim=True).to(dt)
+    # unrolled: 1 - s after the cast (``:185-187``); plain: before (``:249``).
+    one_minus = 1.0 - s.to(dt) if unrolled else (1.0 - s).to(dt)
+    return s.to(dt) * out + one_minus * v_mean
+
+
+def qk_layer_norm(q: torch.Tensor, k: torch.Tensor, qnorm, knorm):
+    """The XLA routes' qk-LayerNorm (``bubbleformer_tpu/layers/
+    attention.py:284-285, 477-478``): float32 statistics and affine, cast
+    back to the activation dtype."""
+    return qnorm(q).to(q.dtype), knorm(k).to(k.dtype)

@@ -10,9 +10,14 @@ probabilities, and the mean of the two directions.
 
 :func:`lane_axial_attention` is a ``torch.autograd.Function``.  On CUDA
 tensors its forward and backward run the hand-written kernels of
-``csrc/axial_attention.cu`` (:func:`lane_axial_attention_bwd`); on CPU
-tensors :func:`axial_attention_plain` and :func:`axial_attention_bwd_plain`;
-on any other device they raise.
+``csrc/axial_attention.cu`` in their lane flavour
+(:func:`lane_axial_attention_bwd`); on CPU tensors
+:func:`axial_attention_plain` and :func:`axial_attention_bwd_plain`; on any
+other device they raise.  The kernels take head dims 16 and 64 and lines of
+up to 512 tokens (the JAX lane gate's limit, :func:`lane_axial_supported`);
+any other shape raises on the card.  The same kernels in their fused_block
+flavour are K4 (``ops/axial_fused_block.py``), launched through
+:func:`line_attention_fwd_cuda` and :func:`line_attention_bwd_cuda`.
 
 Both round where the lane kernel rounds: qkv, q/k (after LN), the blended
 probabilities and each direction's output in the activation dtype
@@ -26,6 +31,7 @@ the TPU package projected once per direction.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -37,22 +43,16 @@ from bubbleformer_tpu_torch.layers.norm import (
     layer_norm_f32,
     row_xhat,
 )
-from bubbleformer_tpu_torch.ops.attention import axis_attention
+from bubbleformer_tpu_torch.ops.attention import axis_attention, from_cols, to_cols, to_rows
 
-HEAD_DIM = 64  # the kernels' compile-time head dim
-MAX_LINE = 64  # longest row or column the kernels stage in shared memory
-
-
-def _rows(a):  # (bt, h, w, heads, d) <-> (bt, h, heads, w, d): its own inverse
-    return a.permute(0, 1, 3, 2, 4)
-
-
-def _cols(a):  # (bt, h, w, heads, d) -> (bt, w, heads, h, d)
-    return a.permute(0, 2, 3, 1, 4)
-
-
-def _uncols(a):
-    return a.permute(0, 3, 1, 2, 4)
+HEAD_DIMS = (16, 64)  # the kernels' compile-time head dims
+MAX_LINE = 512  # longest row or column the kernels take
+LINE_TILE = 64  # tokens per query or key tile (csrc/axial_attention.cu kTile)
+# The JAX lane gate's defaults: its chunk-lane target (BUBBLEFORMER_LANE_CHUNK
+# unset, bubbleformer_tpu/ops/axial_lane.py:123) and its grid-step budget
+# (BUBBLEFORMER_LANE_GRID unset, :92).  The port reads no environment knob.
+LANE_CHUNK_TARGET = 256
+LANE_GRID_BUDGET = int(60e6)
 
 
 def axial_attention_plain(
@@ -72,10 +72,10 @@ def axial_attention_plain(
     q = layer_norm_f32(q5[..., 0, :], qn_scale, qn_bias).to(dt)
     k = layer_norm_f32(q5[..., 1, :], kn_scale, kn_bias).to(dt)
     v = q5[..., 2, :]
-    o_r = axis_attention(_rows(q), _rows(k), _rows(v), bias_x, scale_x, fold_dtype=dt).to(dt)
-    o_r = _rows(o_r).reshape(bt, h, w, c)
-    o_c = axis_attention(_cols(q), _cols(k), _cols(v), bias_y, scale_y, fold_dtype=dt).to(dt)
-    o_c = _uncols(o_c).reshape(bt, h, w, c)
+    o_r = axis_attention(to_rows(q), to_rows(k), to_rows(v), bias_x, scale_x, fold_dtype=dt).to(dt)
+    o_r = to_rows(o_r).reshape(bt, h, w, c)
+    o_c = axis_attention(to_cols(q), to_cols(k), to_cols(v), bias_y, scale_y, fold_dtype=dt).to(dt)
+    o_c = from_cols(o_c).reshape(bt, h, w, c)
     return (0.5 * (o_r.to(acc) + o_c.to(acc))).to(dt)
 
 
@@ -133,8 +133,8 @@ def axial_attention_bwd_plain(
         dqkv = torch.stack([dqr.to(dt), dkr.to(dt), dv.to(dt)], dim=-2)
         return dqkv, torch.stack([dgq, dbq, dgk, dbk]), dlog.sum(dim=batch), dscale
 
-    dqkv_r, dln_r, dbx, dsx = direction(_rows, _rows, bias_x, scale_x, w)
-    dqkv_c, dln_c, dby, dsy = direction(_cols, _uncols, bias_y, scale_y, h)
+    dqkv_r, dln_r, dbx, dsx = direction(to_rows, to_rows, bias_x, scale_x, w)
+    dqkv_c, dln_c, dby, dsy = direction(to_cols, from_cols, bias_y, scale_y, h)
     dqkv = (dqkv_r.to(acc) + dqkv_c.to(acc)).to(dt).reshape(bt, h, w, c3)
     dln = dln_r + dln_c
     return (dqkv, dln[0], dln[1], dln[2], dln[3],
@@ -142,16 +142,70 @@ def axial_attention_bwd_plain(
             None if scale_x is None else dsx, None if scale_y is None else dsy)
 
 
-def _kernel_params(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y,
-                   heads, what):
+def lane_axial_supported(h: int, w: int, c: int, heads: int) -> bool:
+    """The JAX package's shape gate for routing ``attn_impl="auto"`` to K2
+    (``bubbleformer_tpu/ops/axial_lane.py:129-162``), copied: token count a
+    multiple of 128, head dim a multiple of 8, lines of at most 512 tokens,
+    and the TPU kernel's per-grid-step VMEM working set within its budget.
+    The JAX module reads its chunk-lane target and a grid-step cap from
+    ``BUBBLEFORMER_LANE_CHUNK`` and ``BUBBLEFORMER_LANE_GRID``; the port reads
+    no environment knob and keeps their defaults (``LANE_CHUNK_TARGET``, no
+    cap)."""
+    n = h * w
+    d = c // heads
+    if c % heads or n % 128 or d % 8:
+        return False
+    if max(h, w) > 512:
+        return False
+    gch = _grid_chunk(h, w, c, n)
+    ch_r = _pick_chunk(w, gch)
+    ch_c = _pick_chunk(h, gch)
+    table_bytes = 8 * heads * (ch_r * ch_r + ch_c * ch_c)
+    return 86 * c * gch + table_bytes <= int(100e6)
+
+
+def _pick_chunk(blk: int, n: int) -> int:
+    """A multiple of the window ``blk`` near ``LANE_CHUNK_TARGET`` lanes
+    dividing ``n`` (``axial_lane.py:69-83``)."""
+    nb = n // blk
+    kk = min(max(1, LANE_CHUNK_TARGET // blk), nb)
+    while nb % kk:
+        kk -= 1
+    return blk * kk
+
+
+def _lcm(a: int, b: int) -> int:
+    return a * b // math.gcd(a, b)
+
+
+def _grid_chunk(h: int, w: int, c: int, n: int) -> int:
+    """Lanes per grid step of the TPU kernel (``axial_lane.py:92-115``, no
+    cap): whole rows and whole columns, 128-aligned, within
+    ``LANE_GRID_BUDGET``."""
+    align = _lcm(_lcm(h, w), 128)
+    if align >= n or n % align:
+        return n
+    nk = n // align
+    k = max(1, min(nk, LANE_GRID_BUDGET // (86 * c * align)))
+    while nk % k:
+        k -= 1
+    return align * k
+
+
+def kernel_params(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y,
+                  heads, what):
+    """The float32 parameter tensors of the line kernels (absent tables
+    zero, absent scales one), after checking the kernels' envelope: head dim
+    16 or 64, lines of at most ``MAX_LINE`` tokens."""
     bt, h, w, c3 = qkv.shape
     c = c3 // 3
+    d = c // heads
     if qkv.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, not {qkv.dtype}")
-    if c3 != 3 * c or c != heads * HEAD_DIM or max(h, w) > MAX_LINE:
+    if c3 != 3 * c or c != heads * d or d not in HEAD_DIMS or max(h, w) > MAX_LINE:
         raise ValueError(
-            f"{what} kernel needs head_dim {HEAD_DIM} and max(H, W) <= {MAX_LINE}; "
-            f"got {h}x{w}, C={c}, heads={heads}"
+            f"{what} kernel takes head_dim in {HEAD_DIMS} and lines of at most {MAX_LINE} "
+            f"tokens; got qkv {tuple(qkv.shape)} ({h}x{w} tokens, C={c}, heads={heads})"
         )
     dev = qkv.device
 
@@ -166,28 +220,64 @@ def _kernel_params(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, sc
         scale=torch.stack([ones if scale_x is None else f32(scale_x),
                            ones if scale_y is None else f32(scale_y)], dim=1).contiguous(),
     )
-    _build.check_shapes(what, ln=(p["ln"], (4, HEAD_DIM)), bias_x=(p["bias_x"], (heads, w, w)),
+    _build.check_shapes(what, ln=(p["ln"], (4, d)), bias_x=(p["bias_x"], (heads, w, w)),
                         bias_y=(p["bias_y"], (heads, h, h)), scale=(p["scale"], (heads, 2)))
     return p
 
 
-def _axial_fwd_cuda(qkv, *params, heads):
+def line_attention_fwd_cuda(qkv: torch.Tensor, *params, heads: int, fused: bool,
+                            what: str) -> torch.Tensor:
+    """Launch the forward of ``csrc/axial_attention.cu`` (rows, then columns)
+    in the lane (K2) or the fused_block (K4) flavour; ``(BT, H, W, C)``."""
     bt, h, w, c3 = qkv.shape
     c = c3 // 3
-    p = _kernel_params(qkv, *params, heads, "lane_axial_attention")
+    p = kernel_params(qkv, *params, heads, what)
     dev = qkv.device
     qkv = qkv.contiguous()
     row_out = torch.empty(bt, h, w, c, device=dev)
     out = torch.empty(bt, h, w, c, device=dev, dtype=qkv.dtype)
     lib = _build.library()
     err = lib.bf_axial_attention_fwd(
-        _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(), p["ln"].data_ptr(),
-        p["bias_x"].data_ptr(), p["bias_y"].data_ptr(), p["scale"].data_ptr(),
-        row_out.data_ptr(), out.data_ptr(), bt, h, w, c, heads, _build.stream_handle(dev),
+        _build.DTYPE_CODES[qkv.dtype], c // heads, int(fused), qkv.data_ptr(),
+        p["ln"].data_ptr(), p["bias_x"].data_ptr(), p["bias_y"].data_ptr(),
+        p["scale"].data_ptr(), row_out.data_ptr(), out.data_ptr(), bt, h, w, c, heads,
+        _build.stream_handle(dev),
     )
-    _build.check(lib, err, "bf_axial_attention_fwd")
-    lane_axial_attention.launches += 1
+    _build.check(lib, err, f"{what} (bf_axial_attention_fwd)")
     return out
+
+
+def line_attention_bwd_cuda(do: torch.Tensor, qkv: torch.Tensor, *params, heads: int,
+                            fused: bool, what: str) -> tuple:
+    """Launch the backward of ``csrc/axial_attention.cu`` in either flavour:
+    the gradients of ``(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x,
+    bias_y, scale_x, scale_y)``, None where the argument is absent."""
+    bt, h, w, c3 = qkv.shape
+    c = c3 // 3
+    p = kernel_params(qkv, *params, heads, what)
+    _build.check_shapes(what, do=(do, (bt, h, w, c)))
+    dev = qkv.device
+    dqkv = torch.empty(bt, h, w, c3, device=dev, dtype=qkv.dtype)
+    dacc = torch.empty(bt, h, w, c3, device=dev) if fused else None
+    stats = torch.empty(bt, heads, h * w, 3, device=dev) if max(h, w) > LINE_TILE else None
+    dln = torch.zeros(4, c // heads, device=dev)
+    dbx = torch.zeros(heads, w, w, device=dev)
+    dby = torch.zeros(heads, h, h, device=dev)
+    dscale = torch.zeros(heads, 2, device=dev)
+    qkv, do = qkv.contiguous(), do.to(qkv.dtype).contiguous()  # held until queued
+    lib = _build.library()
+    err = lib.bf_axial_attention_bwd(
+        _build.DTYPE_CODES[qkv.dtype], c // heads, int(fused), qkv.data_ptr(), do.data_ptr(),
+        p["ln"].data_ptr(), p["bias_x"].data_ptr(), p["bias_y"].data_ptr(),
+        p["scale"].data_ptr(), dqkv.data_ptr(), None if dacc is None else dacc.data_ptr(),
+        None if stats is None else stats.data_ptr(), dln.data_ptr(), dbx.data_ptr(),
+        dby.data_ptr(), dscale.data_ptr(), bt, h, w, c, heads, _build.stream_handle(dev),
+    )
+    _build.check(lib, err, f"{what} (bf_axial_attention_bwd)")
+    bias_x, bias_y, scale_x, scale_y = params[4:]
+    return (dqkv, dln[0], dln[1], dln[2], dln[3],
+            None if bias_x is None else dbx, None if bias_y is None else dby,
+            None if scale_x is None else dscale[:, 0], None if scale_y is None else dscale[:, 1])
 
 
 def lane_axial_attention_bwd(do: torch.Tensor, qkv: torch.Tensor, *params,
@@ -195,63 +285,53 @@ def lane_axial_attention_bwd(do: torch.Tensor, qkv: torch.Tensor, *params,
     """K2's backward: the gradients :func:`axial_attention_bwd_plain` returns.
 
     CPU tensors take :func:`axial_attention_bwd_plain`; CUDA tensors launch
-    ``csrc/axial_attention.cu``'s backward (row pass, then the column pass
-    adding into the row pass's ``dqkv``, on one stream) and count
-    ``lane_axial_attention_bwd.launches``.  The parameter gradients are sums
-    over all lines, accumulated with float32 atomics: their last bits vary
-    from run to run."""
+    ``csrc/axial_attention.cu``'s backward in the lane flavour (per
+    direction one launch for lines of at most 64 tokens, two for longer
+    ones; the column pass adds into the row pass's ``dqkv``, on one stream)
+    and count ``lane_axial_attention_bwd.launches``.  The parameter
+    gradients are sums over all lines, accumulated with float32 atomics:
+    their last bits vary from run to run."""
     if qkv.device.type == "cpu":
         return axial_attention_bwd_plain(do, qkv, *params, heads=heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"lane_axial_attention_bwd: unsupported device {qkv.device}")
-    bt, h, w, c3 = qkv.shape
-    p = _kernel_params(qkv, *params, heads, "lane_axial_attention_bwd")
-    _build.check_shapes("lane_axial_attention_bwd", do=(do, (bt, h, w, c3 // 3)))
-    dev = qkv.device
-    dqkv = torch.empty(bt, h, w, c3, device=dev, dtype=qkv.dtype)
-    dln = torch.zeros(4, HEAD_DIM, device=dev)
-    dbx = torch.zeros(heads, w, w, device=dev)
-    dby = torch.zeros(heads, h, h, device=dev)
-    dscale = torch.zeros(heads, 2, device=dev)
-    qkv, do = qkv.contiguous(), do.to(qkv.dtype).contiguous()  # held until queued
-    lib = _build.library()
-    err = lib.bf_axial_attention_bwd(
-        _build.DTYPE_CODES[qkv.dtype], qkv.data_ptr(), do.data_ptr(),
-        p["ln"].data_ptr(), p["bias_x"].data_ptr(), p["bias_y"].data_ptr(),
-        p["scale"].data_ptr(), dqkv.data_ptr(), dln.data_ptr(), dbx.data_ptr(),
-        dby.data_ptr(), dscale.data_ptr(), bt, h, w, c3 // 3, heads,
-        _build.stream_handle(dev),
-    )
-    _build.check(lib, err, "bf_axial_attention_bwd")
+    grads = line_attention_bwd_cuda(do, qkv, *params, heads=heads, fused=False,
+                                    what="lane_axial_attention_bwd")
     lane_axial_attention_bwd.launches += 1
-    bias_x, bias_y, scale_x, scale_y = params[4:]
-    return (dqkv, dln[0], dln[1], dln[2], dln[3],
-            None if bias_x is None else dbx, None if bias_y is None else dby,
-            None if scale_x is None else dscale[:, 0], None if scale_y is None else dscale[:, 1])
+    return grads
 
 
-class _AxialAttention(torch.autograd.Function):
+def _lane_fwd(qkv, *params, heads):
+    if qkv.device.type == "cpu":
+        return axial_attention_plain(qkv, *params, heads=heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"lane_axial_attention: unsupported device {qkv.device}")
+    out = line_attention_fwd_cuda(qkv, *params, heads=heads, fused=False,
+                                  what="lane_axial_attention")
+    lane_axial_attention.launches += 1
+    return out
+
+
+class LineAttention(torch.autograd.Function):
+    """One flavour of the line kernels as an autograd Function: ``fwd(qkv,
+    *params, heads)`` and ``bwd(do, qkv, *params, heads)`` take the plain
+    version on CPU tensors and launch the kernel on CUDA tensors."""
+
     @staticmethod
-    def forward(ctx, heads, qkv, *params):
-        if qkv.device.type == "cpu":
-            out = axial_attention_plain(qkv, *params, heads=heads)
-        elif qkv.device.type == "cuda":
-            out = _axial_fwd_cuda(qkv, *params, heads=heads)
-        else:
-            raise ValueError(f"lane_axial_attention: unsupported device {qkv.device}")
-        ctx.heads = heads
+    def forward(ctx, fwd, bwd, heads, qkv, *params):
+        ctx.bwd, ctx.heads = bwd, heads
         ctx.absent = tuple(a is None for a in params)
         ctx.save_for_backward(qkv, *(a for a in params if a is not None))
-        return out
+        return fwd(qkv, *params, heads=heads)
 
     @staticmethod
     def backward(ctx, do):
         saved = list(ctx.saved_tensors)
         qkv = saved.pop(0)
         params = [None if absent else saved.pop(0) for absent in ctx.absent]
-        grads = lane_axial_attention_bwd(do, qkv, *params, heads=ctx.heads)
-        return (None, *(None if g is None else g.to(a.dtype)
-                        for g, a in zip(grads, [qkv] + params)))
+        grads = ctx.bwd(do, qkv, *params, heads=ctx.heads)
+        return (None, None, None, *(None if g is None else g.to(a.dtype)
+                                    for g, a in zip(grads, [qkv] + params)))
 
 
 def lane_axial_attention(
@@ -271,8 +351,8 @@ def lane_axial_attention(
     (``lane_axial_attention.launches`` and ``lane_axial_attention_bwd.launches``
     count them).
     """
-    return _AxialAttention.apply(heads, qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x,
-                                 bias_y, scale_x, scale_y)
+    return LineAttention.apply(_lane_fwd, lane_axial_attention_bwd, heads, qkv, qn_scale,
+                               qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y)
 
 
 lane_axial_attention.launches = 0

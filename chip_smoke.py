@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / H100 port on one CUDA card.
 
-Drives the port's paths on two models at full width and depth, on 512x512
-windows of 5 frames and 4 fields, with random weights drawn from a seed:
-FiLMAViT-small (patch 16, embed 384, 6 heads, 12 blocks, 9 fluid parameters;
-its temporal branch on K1, the mega route) and AViT-big (embed 768, 12
-heads; its temporal branch on K3, the core route).  For each, the serving
-path (the autoregressive rollout) and the training path (``Trainer.fit``:
-Lion for FiLMAViT-small, AdamW for AViT-big, both with cosine warmup); and
-the hand-written kernels on the way, each at the shapes its paths give it —
-the rollout's (batch 1) and the training step's (batch 8):
+Drives the port's paths at full width and depth, on windows of 5 frames and
+4 fields, with random weights drawn from a seed: FiLMAViT-small at 512x512
+(patch 16, embed 384, 6 heads, 12 blocks, 9 fluid parameters; its temporal
+branch on K1, the mega route), AViT-big at 512x512 (embed 768, 12 heads;
+its temporal branch on K3, the core route), AViT-small on the 512x2048
+flow-boiling frames (K3 and K2 with rows of 128 tokens), AViT-small at
+512x512 with ``attn_impl=fused_block`` (K4) and AViT-tiny on the make-demo
+grid (K4 at head dim 16).  The serving path (the autoregressive rollout)
+and the training path (``Trainer.fit``: Lion, or AdamW where the config
+says, with cosine warmup); and the hand-written kernels on the way, each at
+the shapes its paths give it — the rollout's (batch 1) and the training
+step's:
 
 1. environment: torch, CUDA, the card, ``nvidia-smi`` name and power limit;
 2. build: compile ``bubbleformer_tpu_torch/csrc/*.cu`` with nvcc (timed);
@@ -57,7 +60,25 @@ the rollout's (batch 1) and the training step's (batch 8):
    the model ignores (``poolboiling_saturated``'s): every loss finite, K3
    and K2 forward and backward each launched 12 times per step and K1
    never, every parameter with a gradient moved; ms/step, samples/s and
-   peak memory.
+   peak memory;
+16. K2 on long lines and at head dim 16 (``LINE_SHAPES``: the 32x128 grid at
+   batch 1 and 4, lines of 512 both ways, AViT-tiny's 6 heads of 16), and
+17. K4 (``fused_block_attention``) at its paths' shapes, forward and every
+   gradient against the plain versions (``LINE_RTOL``), with both times;
+18. one float32 AViT-small window at 512x2048 on the card against the CPU;
+19. a 20-window bfloat16 rollout of it: finite, K3 and K2 forward each
+   launched 12 x 20 times, K1 never; frames/s;
+20. ``Trainer.fit`` on it in bfloat16 at batch 4 with Lion and a 2-step
+   warmup: every loss finite, K3 and K2 forward and backward 12 per step, no
+   other kernel, every parameter with a gradient moved; ms/step, samples/s,
+   peak memory;
+21. AViT-small at 512x512 with ``attn_impl=fused_block``: one float32 window
+   card vs CPU, and ``Trainer.fit`` in bfloat16 at batch 8: K4 forward and
+   backward 12 per step, K1, K2 and K3 never (the temporal branch on the
+   JAX package's XLA plain route, plain PyTorch);
+22. AViT-tiny at 64x64 through ``auto`` (temporal unrolled, axial K4 at head
+   dim 16): ``Trainer.fit`` at batch 8 with AdamW and a 5-window rollout, K4
+   in each of the 4 blocks and no temporal kernel.
 
 Prints a JSON line of the kernels at the training step's shapes of the path
 that launches them (with each one's least possible time on the card from its
@@ -320,9 +341,10 @@ def kernel_work(key: str, shape, dtype: str):
     the output and, for the backward, the rounded qkv (R, 3C) and the
     float32 ao (R, C).  The backward does four products (dy2, dW_out, dxn,
     dW_qkv) and five T x T contractions; it reads do, x, qkv and ao and
-    writes dx and the float32 weight gradients.  K2 (qkv of (BT, H, W, 3C)):
-    per direction, logits and values 4R*L*C forward, and five L x L
-    contractions 10R*L*C backward, with L = W for rows and H for columns."""
+    writes dx and the float32 weight gradients.  K2 and K4 (qkv of (BT, H,
+    W, 3C)): per direction, logits and values 4R*L*C forward, and five L x L
+    contractions 10R*L*C backward, with L = W for rows and H for columns;
+    they read qkv (and dout) and write out (dqkv)."""
     e = 2 if dtype == "bfloat16" else 4
     if key.startswith("K3"):
         b, t, h, w, c = shape
@@ -344,9 +366,352 @@ def kernel_work(key: str, shape, dtype: str):
     bt, h, w, c3 = shape
     c = c3 // 3
     r = bt * h * w
-    if key == "K2":
+    if not key.endswith("bwd"):
         return 4 * r * (h + w) * c, e * r * (c3 + c)
     return 10 * r * (h + w) * c, e * r * (2 * c3 + c)
+
+# The line kernels on the new paths (phases 16 and 17) against their plain
+# versions: float32 against the plain version in float64 on the same inputs
+# (so that the bound is the kernel's own float32 error, not the sum of two),
+# within 2e-5 of each output's or gradient's largest magnitude; bfloat16
+# against the plain version in bfloat16 (the same rounding points), within
+# 1e-2: single-ulp flips where reassociated float32 sums straddle a rounding
+# edge.  The k-LayerNorm bias's gradient is zero up to rounding and is held
+# against a hundredth of the largest gradient of the call, as above.
+LINE_RTOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# Whole float32 windows of the new paths, card (kernels) vs CPU (plain
+# versions): 1e-4 of max|out| (the AViT-big window of phase 13 reads ~4.5e-6).
+NEW_WINDOW_RTOL = 1e-4
+FLOW_HEIGHT, FLOW_WIDTH = 512, 2048  # flowboiling_chf frames (scripts/bench_matrix.py:44)
+FLOW_TRAIN_BATCH = 4
+FLOW_TRAIN_STEPS = 4
+FUSED_TRAIN_STEPS = 4
+DEMO_SIZE, DEMO_BATCH, DEMO_STEPS, DEMO_WINDOWS = 64, 8, 4, 5  # the make-demo run, cut
+
+
+def line_kernel_phase(key: str, cases: dict, dev, results: dict) -> None:
+    """K2 (``key="K2 long"``) or K4 (``key="K4"``) forward and backward at
+    each ``cases`` shape ``(BT, H, W, 3C)`` (6 heads), float32 and
+    bfloat16, against the plain versions (``LINE_RTOL``); times of the
+    kernels and of the plain versions in the kernel's dtype."""
+    import torch
+    from bubbleformer_tpu_torch.ops.axial_fused_block import (
+        fused_block_attention,
+        fused_block_attention_bwd,
+        fused_block_bwd_plain,
+        fused_block_plain,
+    )
+    from bubbleformer_tpu_torch.ops.axial_lane import (
+        axial_attention_bwd_plain,
+        axial_attention_plain,
+        lane_axial_attention,
+        lane_axial_attention_bwd,
+    )
+
+    fwd, bwd, plain, bwd_plain = (
+        (fused_block_attention, fused_block_attention_bwd, fused_block_plain,
+         fused_block_bwd_plain) if key == "K4" else
+        (lane_axial_attention, lane_axial_attention_bwd, axial_attention_plain,
+         axial_attention_bwd_plain))
+    heads = 6
+    for i, (where, shape) in enumerate(cases.items()):
+        bt, h, w, c3 = shape
+        d = c3 // 3 // heads
+        rng = np.random.default_rng(SEED + 20 + i)
+
+        def n(*s, scale=1.0, offset=0.0):
+            return torch.from_numpy((offset + scale * rng.standard_normal(s)).astype(np.float32))
+
+        base = dict(qkv=n(*shape), qn_scale=n(d, scale=0.1, offset=1.0), qn_bias=n(d, scale=0.1),
+                    kn_scale=n(d, scale=0.1, offset=1.0), kn_bias=n(d, scale=0.1),
+                    bias_x=n(heads, w, w), bias_y=n(heads, h, h),
+                    scale_x=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)),
+                    scale_y=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)))
+        base = {k: v.to(dev) for k, v in base.items()}
+        do32 = n(bt, h, w, c3 // 3).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            args = dict(base, qkv=base["qkv"].to(dt))
+            do = do32.to(dt)
+            ref_args, ref_do = ((args, do) if dt == torch.bfloat16 else
+                                ({k: v.double() for k, v in args.items()}, do.double()))
+            got = fwd(**args, heads=heads)
+            ref = plain(**ref_args, heads=heads)
+            torch.cuda.synchronize()
+            err_f = compare(f"{key} {name} {where} {shape}", got, ref, LINE_RTOL[name])
+            del got, ref
+            got = bwd(do, *args.values(), heads=heads)
+            ref = bwd_plain(ref_do, **ref_args, heads=heads)
+            torch.cuda.synchronize()
+            err_b = compare_grads(f"{key} bwd {name} {where}", tuple(args), got, ref,
+                                  LINE_RTOL[name])
+            del got, ref, ref_args, ref_do
+            ms_f = cuda_ms(lambda: fwd(**args, heads=heads))
+            plain_f = cuda_ms(lambda: plain(**args, heads=heads))
+            ms_b = cuda_ms(lambda: bwd(do, *args.values(), heads=heads))
+            plain_b = cuda_ms(lambda: bwd_plain(do, **args, heads=heads))
+            print(f"  {key} {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), "
+                  f"backward {ms_b:.4f} ms (plain {plain_b:.4f})", flush=True)
+            results[(key, name, where)] = (err_f, ms_f, plain_f)
+            results[(key + " bwd", name, where)] = (err_b, ms_b, plain_b)
+        del base, do32
+
+
+def all_counters():
+    """Every kernel wrapper's launch counter, by the wrapper's name."""
+    from bubbleformer_tpu_torch.ops.axial_fused_block import (
+        fused_block_attention,
+        fused_block_attention_bwd,
+    )
+    from bubbleformer_tpu_torch.ops.axial_lane import lane_axial_attention, lane_axial_attention_bwd
+    from bubbleformer_tpu_torch.ops.temporal_block_mega import (
+        core_temporal_attention,
+        core_temporal_attention_bwd,
+        mega_temporal_block,
+        mega_temporal_block_bwd,
+    )
+
+    return (mega_temporal_block, mega_temporal_block_bwd, lane_axial_attention,
+            lane_axial_attention_bwd, core_temporal_attention, core_temporal_attention_bwd,
+            fused_block_attention, fused_block_attention_bwd)
+
+
+def zero_counters() -> None:
+    for fn in all_counters():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {fn.__name__: fn.launches for fn in all_counters()}
+
+
+def check_launches(what: str, got: dict, per: dict, times: int) -> None:
+    """Each kernel in ``per`` launched ``per[name] * times`` times, every
+    other one never."""
+    want = {name: per.get(name, 0) * times for name in got}
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+
+
+def window_phase(label: str, model_cfg, data_cfg, weights, x, dev, per_window: dict):
+    """One float32 window of a model on the card (kernels) against the same
+    model on the CPU (plain versions); returns the card's output."""
+    import torch
+    from bubbleformer_tpu_torch.models import build_model
+
+    cpu = build_model(model_cfg, data_cfg).eval()
+    cpu.load_state_dict(weights)
+    gpu = build_model(model_cfg, data_cfg).eval().to(dev)
+    gpu.load_state_dict(weights)
+    zero_counters()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        y_gpu = gpu(x.to(dev))
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        launches = read_counters()
+        t0 = time.perf_counter()
+        y_cpu = cpu(x)
+        t_cpu = time.perf_counter() - t0
+    check_launches(f"{label} window", launches, per_window, 1)
+    if tuple(y_gpu.shape) != tuple(x.shape):
+        fail(f"{label} window output shape {tuple(y_gpu.shape)}")
+    print(f"  card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s; launches {launches}")
+    compare(f"{label} window f32 card vs CPU", y_gpu.cpu(), y_cpu, NEW_WINDOW_RTOL)
+    return y_gpu
+
+
+def rollout_phase(label: str, model, init, windows: int, per_window: dict, card: str,
+                  reference=None) -> float:
+    """A bfloat16 rollout of ``windows`` windows after one warm-up window:
+    finite, the right shape and launches; returns frames/s."""
+    import torch
+    from bubbleformer_tpu_torch.inference import make_rollout_fn
+
+    warm = make_rollout_fn(model, 1)(init)
+    torch.cuda.synchronize()
+    if reference is not None:
+        rel_l2 = ((warm[0].float() - reference).norm() / reference.norm()).item()
+        print(f"  warm-up window: bf16 vs f32 relative L2 {rel_l2:.4f}")
+        if rel_l2 > 0.25:
+            fail(f"{label}: bf16 window is {rel_l2:.3f} (relative L2) from the f32 window")
+    rollout = make_rollout_fn(model, windows)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    preds = rollout(init)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counters()
+    if tuple(preds.shape) != (windows, *init.shape):
+        fail(f"{label} rollout shape {tuple(preds.shape)}")
+    if not torch.isfinite(preds).all():
+        fail(f"{label} rollout produced non-finite values")
+    check_launches(f"{label} rollout", launches, per_window, windows)
+    frames = windows * init.shape[1] * init.shape[0]
+    print(f"  {frames} frames in {seconds:.3f} s: {frames / seconds:.2f} frames/s, "
+          f"{1000 * seconds / windows:.2f} ms/window ({card}); launches {launches}", flush=True)
+    return frames / seconds
+
+
+def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: dict,
+              log_dir: Path, dev, card: str, fluid=None) -> dict:
+    """``Trainer.fit`` in bfloat16 on ``steps`` synthetic batches of
+    ``frame`` = (H, W) pixels (with ``fluid`` fluid parameters, which an
+    unconditioned model ignores) after one warm-up step: every loss finite,
+    the launches ``per_step``, every parameter with a gradient moved.  The
+    peak memory covers the steady steps (its statistics reset after the
+    warm-up step).  Returns ms/step, samples/s, peak GB and the launches."""
+    import torch
+    from bubbleformer_tpu_torch.data import SyntheticLoader, synthetic_batch
+    from bubbleformer_tpu_torch.training import Trainer, module_class
+
+    shutil.rmtree(log_dir, ignore_errors=True)
+    model_cfg, data_cfg = train_cfgs[:2]
+    module = module_class(model_cfg, data_cfg)(*train_cfgs, total_steps=steps + 1,
+                                               compute_dtype="bfloat16", device=dev.type,
+                                               seed=SEED)
+    trainer = Trainer(module, log_dir=str(log_dir), limit_train_batches=steps, seed=SEED,
+                      log_every=1)
+    t, fields = data_cfg["time_window"], len(data_cfg["input_fields"])
+    warm = synthetic_batch(batch, t, fields, *frame, fluid, seed=SEED + 30)
+    module.train_step(tuple(torch.from_numpy(a).to(dev) for a in warm),
+                      torch.Generator(device=dev).manual_seed(SEED))
+    before = {n: p.detach().clone() for n, p in module.model.named_parameters()}
+    zero_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(SyntheticLoader(steps, batch, t, fields, frame[0], fluid, seed=SEED + 31,
+                                width=frame[1]), max_epochs=1)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    seconds = trainer.last_epoch_seconds
+    with open(log_dir / "metrics.csv") as f:
+        losses = [float(row.split(",")[3]) for row in f.read().splitlines()[1:]]
+    print(f"  losses {losses}")
+    if len(losses) != steps or not np.all(np.isfinite(losses)):
+        fail(f"{label}: expected {steps} finite losses, got {losses}")
+    check_launches(f"{label} Trainer.fit", launches, per_step, steps)
+    unmoved = [(n, p) for n, p in module.model.named_parameters() if torch.equal(before[n], p)]
+    stuck = [n for n, p in unmoved if p.grad is not None and bool(p.grad.any())]
+    if stuck:
+        fail(f"{label}: {len(stuck)} parameters with a gradient did not move: {stuck[:5]}")
+    out = {"ms_per_step": 1000 * seconds / steps, "samples_per_s": batch * steps / seconds,
+           "peak_gb": peak_gb, "launches": launches, "steps": steps}
+    print(f"  {steps} steps at batch {batch} in {seconds:.3f} s: {out['ms_per_step']:.1f} ms/step, "
+          f"{out['samples_per_s']:.2f} samples/s; peak memory {peak_gb:.2f} GB; "
+          f"{len(before) - len(unmoved)}/{len(before)} parameters moved ({card}); "
+          f"launches {launches}", flush=True)
+    del module, trainer
+    shutil.rmtree(log_dir, ignore_errors=True)
+    return out
+
+
+def new_path_phases(repo: Path, dev, card: str, results: dict) -> dict:
+    """Phases 16-22: the line kernels at the new paths' shapes, the
+    flow-boiling path (A: AViT-small at 512x2048, K3 and K2 with rows of
+    128 tokens) and the fused_block path (B: AViT-small at 512^2 with
+    ``attn_impl=fused_block``, and AViT-tiny on the make-demo grid through
+    ``auto``).  Returns the training runs' numbers by path."""
+    import torch
+    from bubbleformer_tpu_torch.config import load_config
+    from bubbleformer_tpu_torch.models import build_model
+
+    t = TIME_WINDOW
+    print("== phase 16: K2 on long lines and at head dim 16 vs plain, forward and backward",
+          flush=True)
+    line_kernel_phase("K2 long", LINE_SHAPES["K2 long"], dev, results)
+    print("== phase 17: K4 fused_block_attention vs plain, forward and backward", flush=True)
+    line_kernel_phase("K4", LINE_SHAPES["K4"], dev, results)
+
+    runs = {}
+    flow_cfg = load_config(["model_cfg=avit_small", "data_cfg=flowboiling_chf",
+                            "scheduler_cfg.params.warmup_iters=2"])
+    flow_train = (flow_cfg["model_cfg"], flow_cfg["data_cfg"], flow_cfg["optim_cfg"],
+                  flow_cfg["scheduler_cfg"])
+    if (flow_cfg["model_cfg"]["params"]["embed_dim"], flow_cfg["optim_cfg"]["name"]) != (384,
+                                                                                         "lion"):
+        fail("model_cfg/avit_small.yaml with the default optimizer is not AViT-small with Lion")
+    data_cfg = flow_cfg["data_cfg"]
+    blocks = flow_cfg["model_cfg"]["params"]["processor_blocks"]
+    model = build_model(flow_cfg["model_cfg"], data_cfg)
+    weights = random_state_dict(model, SEED + 40)
+    del model
+    x = torch.from_numpy(np.random.default_rng(SEED + 41).standard_normal(
+        (1, t, FIELDS, FLOW_HEIGHT, FLOW_WIDTH)).astype(np.float32))
+    fwd_a = {"core_temporal_attention": blocks, "lane_axial_attention": blocks}
+    print(f"== phase 18: one float32 window, card vs CPU, AViT-small at "
+          f"{FLOW_HEIGHT}x{FLOW_WIDTH}", flush=True)
+    y_flow = window_phase("AViT-small 512x2048", flow_cfg["model_cfg"], data_cfg, weights, x,
+                          dev, fwd_a)
+    print(f"== phase 19: {WINDOWS}-window bfloat16 rollout, AViT-small at "
+          f"{FLOW_HEIGHT}x{FLOW_WIDTH}", flush=True)
+    bf = build_model(flow_cfg["model_cfg"], data_cfg, compute_dtype="bfloat16").eval().to(dev)
+    bf.load_state_dict(weights)
+    runs["A rollout"] = rollout_phase("AViT-small 512x2048", bf, x.to(dev), WINDOWS, fwd_a, card,
+                                      reference=y_flow)
+    del bf, y_flow
+    print(f"== phase 20: Trainer.fit AViT-small at {FLOW_HEIGHT}x{FLOW_WIDTH}, bfloat16, batch "
+          f"{FLOW_TRAIN_BATCH}, Lion, {FLOW_TRAIN_STEPS} steps after 1 warm-up step", flush=True)
+    per_step_a = dict(fwd_a, core_temporal_attention_bwd=blocks, lane_axial_attention_bwd=blocks)
+    runs["A"] = fit_phase("AViT-small 512x2048", flow_train, FLOW_TRAIN_BATCH, FLOW_TRAIN_STEPS,
+                          (FLOW_HEIGHT, FLOW_WIDTH), per_step_a, repo / "build" / "smoke_flow",
+                          dev, card)
+
+    fb_cfg = load_config(["model_cfg=avit_small", "model_cfg.params.attn_impl=fused_block",
+                          "scheduler_cfg.params.warmup_iters=2"])
+    fb_train = (fb_cfg["model_cfg"], fb_cfg["data_cfg"], fb_cfg["optim_cfg"],
+                fb_cfg["scheduler_cfg"])
+    model = build_model(fb_cfg["model_cfg"], fb_cfg["data_cfg"])
+    weights = random_state_dict(model, SEED + 42)
+    del model
+    x = torch.from_numpy(np.random.default_rng(SEED + 43).standard_normal(
+        (1, t, FIELDS, IMAGE, IMAGE)).astype(np.float32))
+    print(f"== phase 21: AViT-small at {IMAGE}^2 with attn_impl=fused_block: one float32 "
+          f"window card vs CPU, Trainer.fit bfloat16 batch {TRAIN_BATCH}", flush=True)
+    window_phase("AViT-small fused_block", fb_cfg["model_cfg"], fb_cfg["data_cfg"], weights, x,
+                 dev, {"fused_block_attention": blocks})
+    runs["B"] = fit_phase("AViT-small fused_block", fb_train, TRAIN_BATCH, FUSED_TRAIN_STEPS,
+                          (IMAGE, IMAGE), {"fused_block_attention": blocks,
+                                           "fused_block_attention_bwd": blocks},
+                          repo / "build" / "smoke_fused_block", dev, card)
+
+    demo_cfg = load_config(["model_cfg=avit_tiny", "optim_cfg=adamw", "data_cfg=samples_smoke",
+                            "scheduler_cfg.params.warmup_iters=2"])
+    demo_train = (demo_cfg["model_cfg"], demo_cfg["data_cfg"], demo_cfg["optim_cfg"],
+                  demo_cfg["scheduler_cfg"])
+    tiny_blocks = demo_cfg["model_cfg"]["params"]["processor_blocks"]
+    print(f"== phase 22: the make-demo grid, AViT-tiny at {DEMO_SIZE}^2 through auto (temporal "
+          f"unrolled, axial fused_block at head dim 16): Trainer.fit bfloat16 batch {DEMO_BATCH}, "
+          f"AdamW, and a {DEMO_WINDOWS}-window rollout", flush=True)
+    per_demo = {"fused_block_attention": tiny_blocks, "fused_block_attention_bwd": tiny_blocks}
+    runs["demo"] = fit_phase("AViT-tiny demo", demo_train, DEMO_BATCH, DEMO_STEPS,
+                             (DEMO_SIZE, DEMO_SIZE), per_demo, repo / "build" / "smoke_demo", dev,
+                             card)
+    tiny = build_model(demo_cfg["model_cfg"], demo_cfg["data_cfg"],
+                       compute_dtype="bfloat16").eval().to(dev)
+    tiny.load_state_dict(random_state_dict(tiny, SEED + 44))
+    x = torch.from_numpy(np.random.default_rng(SEED + 45).standard_normal(
+        (1, t, len(demo_cfg["data_cfg"]["input_fields"]), DEMO_SIZE, DEMO_SIZE))
+        .astype(np.float32)).to(dev)
+    runs["demo rollout"] = rollout_phase("AViT-tiny demo", tiny, x, DEMO_WINDOWS,
+                                         {"fused_block_attention": tiny_blocks}, card)
+    return runs
+
+
+# The line kernels' cases: K2 on path A (the 32x128 flow-boiling grid at the
+# rollout's batch 1 and the training step's batch 4), lines of 512 both ways
+# and head dim 16; K4 on path B (FiLMAViT-small's grid at batch 1 and 8,
+# 384^2 px at patch 16, the make-demo grid at head dim 16, batch 2).
+LINE_SHAPES = {
+    "K2 long": {"rollout": (TIME_WINDOW, 32, 128, 1152),
+                "training": (FLOW_TRAIN_BATCH * TIME_WINDOW, 32, 128, 1152),
+                "rows_512": (1, 16, 512, 1152), "cols_512": (1, 512, 16, 1152),
+                "d16": (TIME_WINDOW, 64, 64, 288)},
+    "K4": {"rollout": (TIME_WINDOW, 32, 32, 1152), "training": (8 * TIME_WINDOW, 32, 32, 1152),
+           "grid_24": (TIME_WINDOW, 24, 24, 1152), "demo_d16": (2 * TIME_WINDOW, 8, 8, 288)},
+}
 
 
 def main() -> None:
@@ -850,51 +1215,13 @@ def main() -> None:
 
     print(f"== phase 15: Trainer.fit AViT-big, bfloat16, batch {TRAIN_BATCH} at {IMAGE}^2, "
           f"AdamW, {BIG_TRAIN_STEPS} steps after 1 warm-up step", flush=True)
-    log_dir = repo / "build" / "chip_smoke_train_big"
-    shutil.rmtree(log_dir, ignore_errors=True)
-    cls = module_class(big_cfg["model_cfg"], big_cfg["data_cfg"])
-    if cls.conditioned:
+    if module_class(big_cfg["model_cfg"], big_cfg["data_cfg"]).conditioned:
         fail("AViT-big got the conditioned module")
-    torch.cuda.reset_peak_memory_stats()
-    module = cls(*big_train_cfgs, total_steps=BIG_TRAIN_STEPS + 1, compute_dtype="bfloat16",
-                 device="cuda", seed=SEED)
-    trainer = Trainer(module, log_dir=str(log_dir), limit_train_batches=BIG_TRAIN_STEPS,
-                      seed=SEED, log_every=1)
-    warm = synthetic_batch(TRAIN_BATCH, TIME_WINDOW, FIELDS, IMAGE, IMAGE, 9, seed=SEED + 5)
-    module.train_step(tuple(torch.from_numpy(a).to(dev) for a in warm),
-                      torch.Generator(device=dev).manual_seed(SEED))
-    before = {n: p.detach().clone() for n, p in module.model.named_parameters()}
-    big_counters = counters + (core_temporal_attention, core_temporal_attention_bwd)
-    for fn in big_counters:
-        fn.launches = 0
-    torch.cuda.synchronize()
-    trainer.fit(SyntheticLoader(BIG_TRAIN_STEPS, TRAIN_BATCH, TIME_WINDOW, FIELDS, IMAGE, 9,
-                                seed=SEED + 6), max_epochs=1)
-    torch.cuda.synchronize()
-    big_train_launches = {fn.__name__: fn.launches for fn in big_counters}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    seconds = trainer.last_epoch_seconds
-    with open(log_dir / "metrics.csv") as f:
-        losses = [float(row.split(",")[3]) for row in f.read().splitlines()[1:]]
-    print(f"  losses {losses}")
-    if len(losses) != BIG_TRAIN_STEPS or not np.all(np.isfinite(losses)):
-        fail(f"expected {BIG_TRAIN_STEPS} finite AViT-big losses, got {losses}")
-    for fn_name, n in big_train_launches.items():
-        expected = 0 if fn_name.startswith("mega_") else 12 * BIG_TRAIN_STEPS
-        if n != expected:
-            fail(f"{fn_name} launched {n} times in {BIG_TRAIN_STEPS} AViT-big steps, "
-                 f"expected {expected}")
-    unmoved = [(n, p) for n, p in module.model.named_parameters() if torch.equal(before[n], p)]
-    stuck = [n for n, p in unmoved if p.grad is not None and bool(p.grad.any())]
-    if stuck:
-        fail(f"{len(stuck)} AViT-big parameters with a gradient did not move: {stuck[:5]}")
-    print(f"  {BIG_TRAIN_STEPS} steps in {seconds:.3f} s: "
-          f"{1000 * seconds / BIG_TRAIN_STEPS:.1f} ms/step, "
-          f"{TRAIN_BATCH * BIG_TRAIN_STEPS / seconds:.2f} samples/s; peak memory {peak_gb:.2f} GB; "
-          f"{len(before) - len(unmoved)}/{len(before)} parameters moved ({card}); "
-          f"launches {big_train_launches}", flush=True)
-    del module, trainer
-    shutil.rmtree(log_dir, ignore_errors=True)
+    big_run = fit_phase("AViT-big", big_train_cfgs, TRAIN_BATCH, BIG_TRAIN_STEPS, (IMAGE, IMAGE),
+                        {"core_temporal_attention": 12, "core_temporal_attention_bwd": 12,
+                         "lane_axial_attention": 12, "lane_axial_attention_bwd": 12},
+                        repo / "build" / "chip_smoke_train_big", dev, card, fluid=9)
+    big_train_launches = big_run["launches"]
 
     for where, shape in shapes["K2 big"].items():
         for dt in ("float32", "bfloat16"):
@@ -904,46 +1231,65 @@ def main() -> None:
             print(f"  lane_axial_attention C={c_big} {where} {shape} {dt}: forward {ms_f:.4f} ms "
                   f"(bound {b_f:.5f}), backward {ms_b:.4f} ms (bound {b_b:.5f})")
 
+    runs = new_path_phases(repo, dev, card, results)
+
+    for key in ("K2 long", "K2 long bwd"):
+        for where, shape in LINE_SHAPES["K2 long"].items():
+            for dt in ("float32", "bfloat16"):
+                b_ms, b_by = bound(*kernel_work(key, shape, dt), dt)
+                _, k_ms, p_ms = results[(key, dt, where)]
+                print(f"  {key} {where} {shape} {dt}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                      f"bound {b_ms:.5f} ms ({b_by})")
+    print(f"  lane_axial_attention at 512x2048: launches per rollout window 12, per training "
+          f"step {runs['A']['launches']['lane_axial_attention'] // runs['A']['steps']}")
+
     kernels = []
+    axial_cu = "bubbleformer_tpu_torch/csrc/axial_attention.cu"
     for key, name, source, replaces in (
         ("K1", "mega_temporal_block", "bubbleformer_tpu_torch/csrc/temporal_block.cu",
          "bubbleformer_tpu/ops/temporal_block_mega.py:238"),
-        ("K2", "lane_axial_attention", "bubbleformer_tpu_torch/csrc/axial_attention.cu",
-         "bubbleformer_tpu/ops/axial_lane.py:236"),
+        ("K2", "lane_axial_attention", axial_cu, "bubbleformer_tpu/ops/axial_lane.py:236"),
         ("K1 bwd", "mega_temporal_block_bwd",
          "bubbleformer_tpu_torch/csrc/temporal_block_bwd.cu",
          "bubbleformer_tpu/ops/temporal_block_mega.py:269"),
-        ("K2 bwd", "lane_axial_attention_bwd", "bubbleformer_tpu_torch/csrc/axial_attention.cu",
-         "bubbleformer_tpu/ops/axial_lane.py:370"),
+        ("K2 bwd", "lane_axial_attention_bwd", axial_cu, "bubbleformer_tpu/ops/axial_lane.py:370"),
         ("K3", "core_temporal_attention", "bubbleformer_tpu_torch/csrc/temporal_block.cu",
          "bubbleformer_tpu/ops/temporal_block_mega.py:452"),
         ("K3 bwd", "core_temporal_attention_bwd",
          "bubbleformer_tpu_torch/csrc/temporal_block_bwd.cu",
          "bubbleformer_tpu/ops/temporal_block_mega.py:476"),
+        ("K4", "fused_block_attention", axial_cu, "bubbleformer_tpu/ops/axial_fused_block.py:85"),
+        ("K4 bwd", "fused_block_attention_bwd", axial_cu,
+         "bubbleformer_tpu/ops/axial_fused_block.py:138"),
     ):
         # The launches are the training run of the path that launches the
-        # kernel (FiLMAViT-small for K1 and K2, AViT-big for K3), so every
-        # number beside them is taken at that step's shape.
-        on_big = key.startswith("K3")
-        shape = shapes[key[:2]]["training"]
-        run_launches, steps = ((big_train_launches, BIG_TRAIN_STEPS) if on_big
-                               else (train_launches, TRAIN_STEPS))
-        window_launches = big_launches if on_big else launches
+        # kernel (FiLMAViT-small for K1 and K2, AViT-big for K3, AViT-small
+        # with attn_impl=fused_block for K4), so every number beside them is
+        # taken at that step's shape.
+        if key.startswith("K4"):
+            cases, run_launches, steps, per_window = LINE_SHAPES["K4"], runs["B"]["launches"], \
+                runs["B"]["steps"], "none (path B has no rollout; 4 on AViT-tiny's)"
+        else:
+            on_big = key.startswith("K3")
+            cases = shapes[key[:2]]
+            run_launches, steps = ((big_train_launches, BIG_TRAIN_STEPS) if on_big
+                                   else (train_launches, TRAIN_STEPS))
+            per_window = (big_launches if on_big else launches).get(key, 0) // WINDOWS
         err, ms, plain_ms = results[(key, "bfloat16", "training")]
-        bound_ms, bound_by = bound(*kernel_work(key, shape, "bfloat16"), "bfloat16")
+        bound_ms, bound_by = bound(*kernel_work(key, cases["training"], "bfloat16"), "bfloat16")
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": run_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
-        for where in shapes[key[:2]]:
+        for where in cases:
             for dt in ("float32", "bfloat16"):
-                b_ms, b_by = bound(*kernel_work(key, shapes[key[:2]][where], dt), dt)
+                b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
                 extra = (f", cuBLAS QKV product alone {results[('K3 gemm', dt, where)]:.4f} ms"
                          if key == "K3" else "")
-                print(f"  {name} {where} {shapes[key[:2]][where]} {dt}: kernel {k_ms:.4f} ms, "
+                print(f"  {name} {where} {cases[where]} {dt}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
-        print(f"  {name}: launches per rollout window {window_launches.get(key, 0) // WINDOWS}, "
+        print(f"  {name}: launches per rollout window {per_window}, "
               f"per training step {run_launches[name] // steps}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,22 +4,29 @@
 Builds the training module of a composition — by default the default one,
 FiLMAViT-small with Lion and cosine warmup; ``--model-cfg`` and
 ``--optim-cfg`` pick other config groups (``avit_big`` and ``adamw`` for the
-README's quick-start) — with bfloat16 activations and float32 parameters at
-``--batch`` on synthetic 512x512 batches already on the card, runs warm-up
-steps, times ``--steps`` steps with CUDA events (ms/step, samples/s, peak
-memory), then traces ``--profile-steps`` more with ``torch.profiler`` and
-sums the device time of every kernel by part: the forward and backward
-kernels of the temporal branch (K1, or K3 where the branch takes the core
-route: both build on the same kernels) and of K2, matrix products
-(cuBLAS), the optimizer's foreach kernels, and the rest (elementwise,
-reductions, copies).  The idle share is one minus the summed kernel time
-over the host-clock wall time of the traced steps.
+README's quick-start) and further ``key=value`` overrides follow as
+arguments (``data_cfg=flowboiling_chf`` for the README's flow-boiling
+command) — with bfloat16 activations and float32 parameters at ``--batch``
+on synthetic batches already on the card, of ``--height`` x ``--width``
+pixels (``--size`` for square frames, 512 by default), runs warm-up steps,
+times ``--steps`` steps with CUDA events (ms/step, samples/s, peak memory),
+then traces ``--profile-steps`` more with ``torch.profiler`` and sums the
+device time of every kernel by part: the forward and backward kernels of
+the temporal branch (K1, or K3 where the branch takes the core route: both
+build on the same kernels) and of the axial branch (K2 or K4: one kernel
+family), matrix products (cuBLAS), the optimizer's foreach kernels, and the
+rest (elementwise, reductions, copies).  The idle share is one minus the
+summed kernel time over the host-clock wall time of the traced steps.
 
 Prints one JSON object (and writes it to ``--out`` if given).  Needs a
 CUDA card.
 
     python scripts/profile_train_torch.py --batch 8 --steps 5 --profile-steps 2
     python scripts/profile_train_torch.py --model-cfg avit_big --optim-cfg adamw --batch 8
+    python scripts/profile_train_torch.py --model-cfg avit_small --height 512 --width 2048 \
+        --batch 4 data_cfg=flowboiling_chf
+    python scripts/profile_train_torch.py --model-cfg avit_small \
+        model_cfg.params.attn_impl=fused_block --batch 8
 """
 from __future__ import annotations
 
@@ -45,8 +52,8 @@ PARTS = (
                                       "attention_bwd_kernel", "in_apply_kernel")),
     ("temporal forward (K1 or K3)", ("qkv_attention_kernel", "out_proj_kernel",
                                      "plane_stats_kernel")),
-    ("K2 backward", ("axial_line_bwd_kernel",)),
-    ("K2 forward", ("axial_line_kernel",)),
+    ("axial backward (K2 or K4)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
+    ("axial forward (K2 or K4)", ("line_fwd_kernel", "line_short_fwd_kernel")),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel", "Reduce")),
@@ -67,7 +74,10 @@ def main(argv=None) -> None:
     ap.add_argument("--model-cfg", default=None, help="model config group (default: the default's)")
     ap.add_argument("--optim-cfg", default=None, help="optimizer config group")
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--size", type=int, default=512, help="square frames of this many pixels")
+    ap.add_argument("--height", type=int, default=None, help="frame height (default --size)")
+    ap.add_argument("--width", type=int, default=None, help="frame width (default --size)")
+    ap.add_argument("overrides", nargs="*", help="further config overrides, key=value")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--profile-steps", type=int, default=2)
@@ -80,15 +90,16 @@ def main(argv=None) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
 
+    height, width = args.height or args.size, args.width or args.size
     cfg = load_config([f"{group}={name}" for group, name in (
-        ("model_cfg", args.model_cfg), ("optim_cfg", args.optim_cfg)) if name])
+        ("model_cfg", args.model_cfg), ("optim_cfg", args.optim_cfg)) if name] + args.overrides)
     module = module_class(cfg["model_cfg"], cfg["data_cfg"])(
         cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"],
         total_steps=10_000, compute_dtype="bfloat16", device="cuda", seed=args.seed)
     module.step = 2 * cfg["scheduler_cfg"]["params"]["warmup_iters"]  # lr > 0: every update moves
     batch = tuple(torch.from_numpy(a).to(dev) for a in synthetic_batch(
         args.batch, cfg["data_cfg"]["time_window"], len(cfg["data_cfg"]["input_fields"]),
-        args.size, args.size, cfg["model_cfg"]["params"].get("num_fluid_params", 9),
+        height, width, cfg["model_cfg"]["params"].get("num_fluid_params", 9),
         seed=args.seed))
     gen = torch.Generator(device=dev)
 
@@ -126,7 +137,8 @@ def main(argv=None) -> None:
     out = {
         "card": card, "model": cfg["model_cfg"]["name"],
         "embed_dim": cfg["model_cfg"]["params"]["embed_dim"], "optimizer": cfg["optim_cfg"]["name"],
-        "batch": args.batch, "size": args.size,
+        "attn_impl": cfg["model_cfg"]["params"].get("attn_impl", "auto"),
+        "batch": args.batch, "height": height, "width": width,
         "ms_per_step": ms, "samples_per_s": 1e3 * args.batch / ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profiled_wall_ms_per_step": wall_ms / n,

@@ -84,14 +84,17 @@ def _randomize(params, seed):
 
 @pytest.mark.parametrize("grid", [(8, 8), (6, 10)], ids=["square", "nonsquare"])
 def test_block_matches_jax_plain_route(grid):
-    """Whole block: InstanceNorm1, the K2 path, InstanceNorm2, the output
-    projection and the epilogue (feature scales, LayerScale, MLP)."""
+    """Whole block on the lane route (``auto`` takes fused_block on these
+    grids, whose token counts are not multiples of 128): InstanceNorm1, the
+    QKV projection and K2's autograd Function (its plain version on the
+    CPU), InstanceNorm2, the output projection and the epilogue (feature
+    scales, LayerScale, MLP)."""
     x = np.random.default_rng(5).standard_normal((2, *grid, C)).astype(np.float32)
     ref = JaxAxial(embed_dim=C, num_heads=HEADS, attn_impl="plain")
     params = _randomize(ref.init(jax.random.key(0), jnp.asarray(x)), 6)
     sd = {}
     _attention_block(sd, "blk", params["params"])
-    port = AxialAttentionBlock(C, HEADS).eval()
+    port = AxialAttentionBlock(C, HEADS, attn_impl="lane").eval()
     port.load_state_dict({k[len("blk."):]: v for k, v in sd.items()})
     with torch.no_grad():
         got = port(torch.from_numpy(x))

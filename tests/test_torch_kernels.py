@@ -3,7 +3,9 @@ count no launch; on a CUDA card (tests marked ``cuda``, skipped without one)
 each kernel is held against its plain version at the shapes of the
 rollout (batch 1) and of the training step (batch 8), and at smaller ones:
 K1 and K2 at FiLMAViT-small's width (C=384), K3 and K2 at AViT-big's
-(C=768), K3 also at FiLMAViT-small's 1024x1024 token grid.
+(C=768), K3 also at FiLMAViT-small's 1024x1024 token grid; K2 and K4 on
+lines longer than one 64-token tile (the 32x128 flow-boiling grid, lines of
+512 and ragged tiles) and at head dim 16 (AViT-tiny).
 
 This file imports no JAX, so the ``cuda`` tests also run where JAX is not
 installed:
@@ -21,9 +23,16 @@ import pytest
 import torch
 
 from bubbleformer_tpu_torch import _build
+from bubbleformer_tpu_torch.ops.axial_fused_block import (
+    fused_block_attention,
+    fused_block_attention_bwd,
+    fused_block_bwd_plain,
+    fused_block_plain,
+)
 from bubbleformer_tpu_torch.ops.axial_lane import (
     axial_attention_bwd_plain,
     axial_attention_plain,
+    kernel_params,
     lane_axial_attention,
     lane_axial_attention_bwd,
 )
@@ -103,6 +112,31 @@ def test_k2_wrapper_takes_plain_version_on_cpu():
     torch.testing.assert_close(got, axial_attention_plain(**args, heads=2), rtol=0, atol=0)
 
 
+def test_k4_wrapper_takes_plain_version_on_cpu():
+    args = _k2_args(2, 4, 6, 16, 2, 1)
+    before = (fused_block_attention.launches, fused_block_attention_bwd.launches)
+    got = fused_block_attention(**args, heads=2)
+    do = torch.ones_like(got)
+    grads = fused_block_attention_bwd(do, *args.values(), heads=2)
+    assert (fused_block_attention.launches, fused_block_attention_bwd.launches) == before
+    torch.testing.assert_close(got, fused_block_plain(**args, heads=2), rtol=0, atol=0)
+    for g, w in zip(grads, fused_block_bwd_plain(do, **args, heads=2)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("grid,c,heads,why", [
+    ((2, 8, 8), 64, 2, "head_dim in"),    # d = 32
+    ((1, 8, 600), 128, 2, "at most 512"),  # a row of 600 tokens
+], ids=["head_dim_32", "line_600"])
+def test_line_kernels_reject_shapes_outside_their_envelope(grid, c, heads, why):
+    """The line kernels' envelope (head dim 16 or 64, lines of at most 512
+    tokens) is checked before any launch; a miss names the shape."""
+    args = list(_k2_args(*grid, c, heads, 4).values())
+    with pytest.raises(ValueError, match=why) as err:
+        kernel_params(*args, heads, "fused_block_attention")
+    assert str(tuple(args[0].shape)) in str(err.value)
+
+
 def test_k3_wrapper_takes_plain_version_on_cpu():
     args = _k3_args((1, 3, 4, 8, 16), 2, 0)
     before = core_temporal_attention.launches
@@ -121,6 +155,8 @@ def test_wrappers_raise_on_other_devices():
     k2 = {k: v.to("meta") for k, v in _k2_args(2, 4, 6, 16, 2, 1).items()}
     with pytest.raises(ValueError, match="unsupported device"):
         lane_axial_attention(**k2, heads=2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_block_attention(**k2, heads=2)
 
 
 def test_check_shapes_rejects_a_wrong_shape():
@@ -311,3 +347,75 @@ def test_k3_autograd_function_launches_both_kernels_on_card(cuda_device):
     _, qkv = core_temporal_attention_fwd(*(v.detach() for v in args.values()), heads=2,
                                          keep_qkv=False)
     assert qkv is None
+
+
+# The line kernels beyond one 64-token tile and at head dim 16: the 32x128
+# flow-boiling grid at the rollout's and the training step's batch, lines of
+# 512 tokens both ways, ragged last tiles (100 = 64 + 36, 72 = 64 + 8), and
+# AViT-tiny's 6 heads of 16 at 64x64 tokens; for K4 also its own paths'
+# shapes: FiLMAViT-small's grid at batch 1 and 8, 24x24 tokens (384^2 px at
+# patch 16), h != w, and the make-demo grid (8x8 tokens, 6 heads of 16).
+LONG_CASES = [((5, 32, 128), 384, 6), ((20, 32, 128), 384, 6), ((1, 16, 512), 384, 6),
+              ((1, 512, 16), 384, 6), ((2, 100, 72), 128, 2), ((5, 64, 64), 96, 6)]
+LONG_IDS = ["flow", "flow_training", "row_512", "col_512", "ragged", "d16"]
+K4_CASES = [((5, 32, 32), 384, 6), ((40, 32, 32), 384, 6), ((5, 24, 24), 384, 6),
+            ((2, 16, 40), 384, 6), ((10, 8, 8), 96, 6)] + LONG_CASES[:1] + LONG_CASES[2:]
+K4_IDS = ["slice", "training", "grid_24", "wide", "demo_d16", "flow", "row_512", "col_512",
+          "ragged", "d16"]
+FLAVOURS = {
+    "lane": (lane_axial_attention, lane_axial_attention_bwd, axial_attention_plain,
+             axial_attention_bwd_plain),
+    "fused_block": (fused_block_attention, fused_block_attention_bwd, fused_block_plain,
+                    fused_block_bwd_plain),
+}
+
+
+def _line_case(flavour, grid, c, heads, dtype, device, seed):
+    fwd, bwd, plain, bwd_plain = FLAVOURS[flavour]
+    args = _k2_args(*grid, c, heads, seed, dtype, device)
+    do = torch.randn(*grid, c, generator=torch.Generator().manual_seed(seed + 1))
+    return fwd, bwd, plain, bwd_plain, args, do.to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("flavour,grid,c,heads", [("lane", *k) for k in LONG_CASES]
+                         + [("fused_block", *k) for k in K4_CASES],
+                         ids=[f"lane-{i}" for i in LONG_IDS] + [f"k4-{i}" for i in K4_IDS])
+def test_line_kernels_match_plain_on_card(cuda_device, flavour, grid, c, heads, dtype):
+    """K2 on long lines and at head dim 16, and K4 at its paths' shapes:
+    forward and every gradient against the plain versions."""
+    fwd, bwd, plain, bwd_plain, args, do = _line_case(flavour, grid, c, heads, dtype,
+                                                      cuda_device, 18)
+    before = (fwd.launches, bwd.launches)
+    got = fwd(**args, heads=heads)
+    grads = bwd(do, *args.values(), heads=heads)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and grads[0].dtype == dtype
+    _close(got, plain(**args, heads=heads), dtype)
+    want = bwd_plain(do, **args, heads=heads)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    check_grads(list(args), [g.cpu() for g in grads], [w.float().cpu().numpy() for w in want],
+                TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_k4_autograd_function_launches_both_kernels_on_card(cuda_device):
+    args = {k: v.requires_grad_() for k, v in _k2_args(2, 8, 8, 96, 6, 19,
+                                                       device=cuda_device).items()}
+    counts = (fused_block_attention.launches, fused_block_attention_bwd.launches)
+    fused_block_attention(**args, heads=6).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (fused_block_attention.launches,
+            fused_block_attention_bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    assert all(torch.isfinite(v.grad).all() for v in args.values())
+
+
+@pytest.mark.cuda
+def test_line_kernels_raise_outside_their_envelope_on_card(cuda_device):
+    args = _k2_args(2, 8, 8, 64, 2, 20, device=cuda_device)  # head dim 32
+    with pytest.raises(ValueError, match=r"\(2, 8, 8, 192\)"):
+        fused_block_attention(**args, heads=2)
+    with pytest.raises(ValueError, match=r"\(2, 8, 8, 192\)"):
+        lane_axial_attention(**args, heads=2)

@@ -6,7 +6,8 @@ and T5 tables included, since the init gammas of 1e-6 would make every block
 near-identity — goes through the JAX model (whose ``auto`` routes are the
 plain/unrolled ones on the CPU, pinned equal to the mega and lane kernels by
 the JAX package's golden tests) and through the port, with the same numpy
-inputs.
+inputs, on 64x64 frames (the XLA unrolled and fused_block routes) and on
+64x128 (the mega and lane routes).
 """
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ import torch
 from bubbleformer_tpu.config import load_config as jax_load_config
 from bubbleformer_tpu.models import get_model as jax_get_model
 from bubbleformer_tpu_torch.config import FILM_AVIT_SMALL, load_config
+from bubbleformer_tpu_torch.layers.attention import resolve_axial_impl, resolve_temporal_impl
 from bubbleformer_tpu_torch.models import build_model
 from bubbleformer_tpu_torch.utils.convert import jax_params_to_state_dict
 
@@ -89,6 +91,34 @@ def test_film_avit_tiny_matches_jax():
     assert got.shape == want.shape == x.shape
     # Float32 rounding carried through 4 blocks of O(1)-gamma residuals and
     # ~30 InstanceNorms, summed in other orders: measured 2e-6 of max|out|.
+    err = np.abs(got.numpy() - want).max()
+    assert err <= 2e-5 * np.abs(want).max(), err
+
+
+def test_film_avit_tiny_on_the_kernel_routes_matches_jax():
+    """film_avit_tiny on 64x128 frames: an 8x16 token grid (128 tokens)
+    inside the megakernel's and the lane kernel's gates, so ``auto`` takes
+    the mega route (K1's plain version) and the lane route (K2's) in every
+    block, as FiLMAViT-small does at 512x512; the 64x64 frames of
+    ``test_film_avit_tiny_matches_jax`` (8x8 tokens) take the XLA unrolled
+    route and fused_block (K4) instead.  The JAX model on the CPU takes its
+    XLA routes: the same function in float32."""
+    cfg = jax_load_config(["model_cfg=film_avit_tiny"])["model_cfg"]
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((1, 5, 4, 64, 128)).astype(np.float32)
+    cond = rng.standard_normal((1, 9)).astype(np.float32)
+    ref = jax_get_model(cfg["name"], **cfg["params"], input_fields=4, output_fields=4,
+                        time_window=5)
+    params = randomize(ref.init(jax.random.key(0), jnp.asarray(x), jnp.asarray(cond)), 4)
+    want = np.asarray(jax.jit(ref.apply)(params, jnp.asarray(x), jnp.asarray(cond)))
+    port = build_model(cfg, DATA_CFG).eval()
+    port.load_state_dict(jax_params_to_state_dict(params))
+    block = port.blocks[0]
+    assert resolve_temporal_impl(block.temporal.attn_impl, 5, 8, 16, 96) == "mega"
+    assert resolve_axial_impl(block.spatial.attn_impl, 8, 16, 96, 6) == "lane"
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(cond))
+    # The float32 bound of test_film_avit_tiny_matches_jax.
     err = np.abs(got.numpy() - want).max()
     assert err <= 2e-5 * np.abs(want).max(), err
 

@@ -25,6 +25,7 @@ from bubbleformer_tpu.training.optim import make_optimizer as jax_make_optimizer
 from bubbleformer_tpu.utils.losses import LpLoss as JaxLpLoss
 from bubbleformer_tpu.utils.schedulers import make_schedule as jax_make_schedule
 from bubbleformer_tpu_torch.data import synthetic_batch
+from bubbleformer_tpu_torch.layers.attention import resolve_axial_impl, resolve_temporal_impl
 from bubbleformer_tpu_torch.layers.stochastic import drop_path
 from bubbleformer_tpu_torch.training import (
     ConditionedForecastModule,
@@ -127,21 +128,13 @@ def test_drop_path_takes_the_masks_it_is_given():
     assert torch.equal(drop_path(torch.ones(4, 2), rate, None, False), torch.ones(4, 2))
 
 
-def test_three_train_steps_match_jax():
-    """Three AdamW steps of a tiny FiLMAViT (O(1) gammas and scales) from
-    the same bridged weights on the same batches, against the JAX
-    ``ConditionedForecastModule`` train step (plain routes on the CPU).
-    Losses 1e-5 relative: float32 through 2 blocks and ~20 InstanceNorms.
-    Parameters within 2e-6 + 1e-5 relative.  AdamW's first updates are
-    ``lr * g / (|g| + eps)``: some gradients are zero up to rounding noise
-    (the v part of the QKV bias: the InstanceNorm2 backward sums to zero
-    over each plane), and with the default eps of 1e-8 AdamW would scale
-    that noise to whole units of ``lr`` on both sides; eps 1e-3 keeps noise
-    of 1e-6 below 1e-3 ``lr`` and leaves the real gradients' updates near
-    ``lr``."""
-    batches = [synthetic_batch(2, 2, 4, 16, 16, num_fluid_params=9, seed=i) for i in range(3)]
+def _three_train_steps_match_jax(model_cfg, frame):
+    """Three AdamW steps of ``model_cfg`` on ``frame``-pixel batches, the
+    port against the JAX ``ConditionedForecastModule`` train step, with the
+    tolerances of :func:`test_three_train_steps_match_jax`."""
+    batches = [synthetic_batch(2, 2, 4, *frame, num_fluid_params=9, seed=i) for i in range(3)]
     adamw = {"name": "adamw", "params": dict(ADAMW["params"], eps=1e-3)}
-    ref = JaxConditionedModule(TINY, DATA_CFG, adamw, SCHED, total_steps=10)
+    ref = JaxConditionedModule(model_cfg, DATA_CFG, adamw, SCHED, total_steps=10)
     state = ref.init_state(jax.random.key(0), batches[0])
     params = randomize({"params": state.params}, 4)["params"]
     state = state.replace(params=params, opt_state=ref.optimizer.init(params))
@@ -152,7 +145,8 @@ def test_three_train_steps_match_jax():
         want_losses.append(float(m["loss"]))
         want_lrs.append(float(m["learning_rate"]))
 
-    port = ConditionedForecastModule(TINY, DATA_CFG, adamw, SCHED, total_steps=10, device="cpu")
+    port = ConditionedForecastModule(model_cfg, DATA_CFG, adamw, SCHED, total_steps=10,
+                                     device="cpu")
     port.model.load_state_dict(jax_params_to_state_dict({"params": params}))
     got = [port.train_step(tuple(torch.from_numpy(a) for a in b), None) for b in batches]
     np.testing.assert_allclose([float(m["loss"]) for m in got], want_losses, rtol=1e-5)
@@ -167,6 +161,37 @@ def test_three_train_steps_match_jax():
         moved += int(not np.array_equal(want[name].numpy(),
                                         jax_params_to_state_dict({"params": params})[name]))
     assert moved > 0.9 * len(want)
+    return port
+
+
+def test_three_train_steps_match_jax():
+    """Three AdamW steps of a tiny FiLMAViT (O(1) gammas and scales) from
+    the same bridged weights on the same batches, against the JAX
+    ``ConditionedForecastModule`` train step (plain routes on the CPU), on
+    16x16 frames: 4x4 tokens, so ``auto`` takes the XLA unrolled route and
+    fused_block (K4's plain version).
+    Losses 1e-5 relative: float32 through 2 blocks and ~20 InstanceNorms.
+    Parameters within 2e-6 + 1e-5 relative.  AdamW's first updates are
+    ``lr * g / (|g| + eps)``: some gradients are zero up to rounding noise
+    (the v part of the QKV bias: the InstanceNorm2 backward sums to zero
+    over each plane), and with the default eps of 1e-8 AdamW would scale
+    that noise to whole units of ``lr`` on both sides; eps 1e-3 keeps noise
+    of 1e-6 below 1e-3 ``lr`` and leaves the real gradients' updates near
+    ``lr``."""
+    _three_train_steps_match_jax(TINY, (16, 16))
+
+
+def test_three_train_steps_on_the_kernel_routes_match_jax():
+    """The same three steps on 32x64 frames, an 8x16 token grid (128 tokens)
+    with head dim 8: inside the megakernel's and the lane kernel's gates, so
+    ``auto`` takes the mega and lane routes, and the forward and backward of
+    K1's and K2's autograd Functions (their plain versions on the CPU) are
+    held against JAX's train step.  Same tolerances."""
+    cfg = {"name": "filmavit", "params": dict(TINY["params"], embed_dim=32)}
+    port = _three_train_steps_match_jax(cfg, (32, 64))
+    block = port.model.blocks[0]
+    assert resolve_temporal_impl(block.temporal.attn_impl, 2, 8, 16, 32) == "mega"
+    assert resolve_axial_impl(block.spatial.attn_impl, 8, 16, 32, 4) == "lane"
 
 
 class ListLoader:
