@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` — one process per
-source, all started together — and links the objects into one shared
+source, all started together (the shared kernels live in ``csrc/*.cuh``
+headers that each source includes) — and links the objects into one shared
 library with a plain C interface, under ``build/bubbleformer_tpu_torch/`` at
 the root of the checkout.  The library's name carries a hash of the sources and the
 flags, so an edit to a kernel builds anew and an unchanged tree reuses its
@@ -33,25 +34,41 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # dtype, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout, bout, bias,
-    # scale, stats1, qkv, ao, stats2, out, B, T, N, C, heads, stream
-    "bf_temporal_block_fwd": [_I] + [_P] * 17 + [_I] * 5 + [_P],
-    # dtype, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b, wout_t, bias,
-    # scale, stats1, ao, stats2, work, sums, dqkv, dx, din1, dwqkv, dbqkv, dln,
-    # din2, dwout, dbout, dbias, dscale, B, T, N, C, heads, stream
-    "bf_temporal_block_bwd": [_I] + [_P] * 28 + [_I] * 5 + [_P],
-    # dtype, xn, wqkv, bqkv, ln, bias, scale, qkv (or null), ao, B, T, N, C,
-    # heads, stream
-    "bf_core_temporal_fwd": [_I] + [_P] * 8 + [_I] * 5 + [_P],
-    # dtype, xn, dao, qkv, wqkv_t, ln, bias, scale, dqkv, dx, dwqkv, dbqkv,
-    # dln, dbias, dscale, B, T, N, C, heads, stream
-    "bf_core_temporal_bwd": [_I] + [_P] * 14 + [_I] * 5 + [_P],
+    # dtype, head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout,
+    # bout, bias, scale, stats1, qkv, ao, stats2, out, B, T, N, C, heads, stream
+    "bf_temporal_block_fwd": [_I] * 2 + [_P] * 17 + [_I] * 5 + [_P],
+    # dtype, head_dim, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b,
+    # wout_t, bias, scale, stats1, ao, stats2, work, sums, dqkv, dx, din1,
+    # dwqkv, dbqkv, dln, din2, dwout, dbout, dbias, dscale, B, T, N, C, heads,
+    # stream
+    "bf_temporal_block_bwd": [_I] * 2 + [_P] * 28 + [_I] * 5 + [_P],
+    # dtype, head_dim, xn, wqkv, bqkv, ln, bias, scale, qkv (or null), ao, B,
+    # T, N, C, heads, stream
+    "bf_core_temporal_fwd": [_I] * 2 + [_P] * 8 + [_I] * 5 + [_P],
+    # dtype, head_dim, xn, dao, qkv, wqkv_t, ln, bias, scale, dqkv, dx, dwqkv,
+    # dbqkv, dln, dbias, dscale, B, T, N, C, heads, stream
+    "bf_core_temporal_bwd": [_I] * 2 + [_P] * 14 + [_I] * 5 + [_P],
     # dtype, head_dim, fused, qkv, ln, bias_x, bias_y, scale, row_out, out,
     # BT, H, W, C, heads, stream
     "bf_axial_attention_fwd": [_I] * 3 + [_P] * 7 + [_I] * 5 + [_P],
     # dtype, head_dim, fused, qkv, do, ln, bias_x, bias_y, scale, dqkv, dacc,
     # stats, dln, dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
     "bf_axial_attention_bwd": [_I] * 3 + [_P] * 13 + [_I] * 5 + [_P],
+    # dtype, head_dim, packed, qkv3, bias_x, bias_y, scale, row_out, out, BT,
+    # H, W, C, heads, stream
+    "bf_axial_fused_fwd": [_I] * 3 + [_P] * 6 + [_I] * 5 + [_P],
+    # dtype, head_dim, packed, qkv3, do, bias_x, bias_y, scale, dqkv3, dacc,
+    # stats, dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
+    "bf_axial_fused_bwd": [_I] * 3 + [_P] * 11 + [_I] * 5 + [_P],
+    # dtype, head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout,
+    # bout, bias_x, bias_y, scale, stats1, qkv, ao, ao_r, stats2, out, BT, H,
+    # W, C, heads, stream
+    "bf_axial_block_mega_fwd": [_I] * 2 + [_P] * 19 + [_I] * 5 + [_P],
+    # dtype, head_dim, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b,
+    # wout_t, bias_x, bias_y, scale, stats1, ao_r, stats2, work, sums, dao,
+    # dqkv, dacc, lstats, dx, din1, dwqkv, dbqkv, dln, din2, dwout, dbout,
+    # dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
+    "bf_axial_block_mega_bwd": [_I] * 2 + [_P] * 33 + [_I] * 5 + [_P],
 }
 
 

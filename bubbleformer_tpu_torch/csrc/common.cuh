@@ -42,4 +42,31 @@ __device__ __forceinline__ float warp_max(float v) {
 // shared-memory region aligned for WMMA's 32-byte rule).
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
+// The epsilon of every InstanceNorm and LayerNorm of the models.
+constexpr float kNormEps = 1e-5f;
+
+// The head dims of the repo's configs: 64 (every model but the tiny ones) and
+// 16 (avit_tiny, film_avit_tiny: 6 heads of 16).
+template <int D>
+__host__ __device__ constexpr float head_scaling() {
+  static_assert(D == 16 || D == 64, "head dim 16 or 64");
+  return D == 64 ? 0.125f : 0.25f;  // D ** -0.5
+}
+
+// Lanes d = lane + 32 u of a head row of D values, held by one warp: u < kPer.
+template <int D>
+struct HeadRow {
+  static constexpr int kPer = (D + 31) / 32;
+  float v[kPer];
+};
+
+// sum_d x_d y_d over a head row held by a warp (lanes beyond D hold 0).
+template <int D>
+__device__ __forceinline__ float row_dot(const HeadRow<D>& x, const HeadRow<D>& y) {
+  float a = 0.f;
+#pragma unroll
+  for (int u = 0; u < HeadRow<D>::kPer; ++u) a += x.v[u] * y.v[u];
+  return warp_sum(a);
+}
+
 }  // namespace bft

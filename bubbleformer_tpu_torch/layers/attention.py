@@ -17,16 +17,22 @@ with ``memory_lean=False``: the port has no ``scan_blocks``):
   :func:`~bubbleformer_tpu_torch.ops.attention.xla_axis_attention`,
   InstanceNorm2, the output Dense and gamma.  The residual is added outside
   any of them.
-* :class:`AxialAttentionBlock`: ``lane`` (``:446-465``): InstanceNorm1,
-  :func:`~bubbleformer_tpu_torch.ops.axial_lane.lane_axial_attention_from_x`
-  (K2), InstanceNorm2, the output projection, then ``_epilogue``
-  (``:596-626``); ``fused_block`` (``:467-489``): the QKV Dense in the
+* :class:`AxialAttentionBlock`: ``mega`` (``:425-444``): the whole branch
+  in :func:`~bubbleformer_tpu_torch.ops.axial_block_mega.mega_axial_block`
+  (K5), then ``_epilogue`` (``:596-626``); ``lane`` (``:446-465``):
+  InstanceNorm1, :func:`~bubbleformer_tpu_torch.ops.axial_lane.
+  lane_axial_attention_from_x` (K2), InstanceNorm2, the output projection,
+  then ``_epilogue``; ``fused_block`` (``:467-489``): the QKV Dense in the
   activation dtype and :func:`~bubbleformer_tpu_torch.ops.axial_fused_block.
-  fused_block_attention` (K4) in its place; ``unrolled``, ``plain`` and every
+  fused_block_attention` (K4) in its place; ``fused_packed`` and ``fused``
+  (``:490-502``): the QKV Dense in the activation dtype, qk-LayerNorm cast
+  back, then :func:`~bubbleformer_tpu_torch.ops.axial_fused_packed.
+  fused_axial_attention_packed` (K6) or :func:`~bubbleformer_tpu_torch.ops.
+  axial_fused.fused_axial_attention` (K7); ``unrolled``, ``plain`` and every
   name that falls through there, the XLA route (``:467-547``).
 
-Names whose JAX route is a Pallas kernel not yet ported raise
-``NotImplementedError`` naming its row of ``ROADMAP.md`` Queue 2.  The XLA
+Names whose JAX route is a Pallas kernel not yet ported (``flash``, K8)
+raise ``NotImplementedError`` naming its row of ``ROADMAP.md`` Queue 2.  The XLA
 routes are not fallbacks: they are what the JAX package computes there.
 
 Parameters carry the reference torch model's names and shapes on every
@@ -52,7 +58,10 @@ from bubbleformer_tpu_torch.ops.attention import (
     to_rows,
     xla_axis_attention,
 )
+from bubbleformer_tpu_torch.ops.axial_block_mega import mega_axial_block
+from bubbleformer_tpu_torch.ops.axial_fused import fused_axial_attention
 from bubbleformer_tpu_torch.ops.axial_fused_block import fused_block_attention
+from bubbleformer_tpu_torch.ops.axial_fused_packed import fused_axial_attention_packed
 from bubbleformer_tpu_torch.ops.axial_lane import (
     lane_axial_attention_from_x,
     lane_axial_supported,
@@ -65,12 +74,14 @@ from bubbleformer_tpu_torch.ops.temporal_block_mega import (
 )
 
 # Routes whose JAX kernel is a Pallas kernel the port does not have yet:
-# route -> its row of ROADMAP.md Queue 2.  Keyed by branch, since "mega" is
-# K1 in the temporal branch and K5 in the axial one.
+# route -> its row of ROADMAP.md Queue 2, by branch.
 UNPORTED = {
     "temporal": {"flash": "K8"},
-    "axial": {"mega": "K5", "fused_packed": "K6", "fused": "K7", "flash": "K8"},
+    "axial": {"flash": "K8"},
 }
+# The axial routes of K6 and K7, which take q, k, v after the block's
+# qk-LayerNorm.
+_SPLIT_KERNELS = {"fused_packed": fused_axial_attention_packed, "fused": fused_axial_attention}
 
 
 def _check_ported(branch: str, impl: str) -> None:
@@ -243,14 +254,26 @@ class AxialAttentionBlock(nn.Module):
         tables = (self.rel_pos_bias(w, w), self.rel_pos_bias(h, h),
                   scale(self.attn_scale_factor_x), scale(self.attn_scale_factor_y))
         lnp = (self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias)
-        x = self.norm1(x)
         wqkv = self.input_head.weight.reshape(3 * c, c)
+        if impl == "mega":
+            x = mega_axial_block(
+                x if self.dtype is None else x.to(self.dtype), self.norm1.weight,
+                self.norm1.bias, wqkv, self.input_head.bias, *lnp, self.norm2.weight,
+                self.norm2.bias, self.output_head.weight.reshape(c, c), self.output_head.bias,
+                *tables, heads=heads)
+            return self._epilogue(x, inp, drop_path_rate, generator)
+        x = self.norm1(x)
         if impl == "lane":
             x = lane_axial_attention_from_x(x if self.dtype is None else x.to(self.dtype), wqkv,
                                             self.input_head.bias, *lnp, *tables, heads=heads)
         elif impl == "fused_block":
             qkv = dense(x, wqkv, self.input_head.bias, self.dtype)
             x = fused_block_attention(qkv, *lnp, *tables, heads=heads)
+        elif impl in _SPLIT_KERNELS:
+            q5 = dense(x, wqkv, self.input_head.bias, self.dtype).reshape(b, h, w, heads, 3,
+                                                                          c // heads)
+            q, k = qk_layer_norm(q5[..., 0, :], q5[..., 1, :], self.qnorm, self.knorm)
+            x = _SPLIT_KERNELS[impl](q, k, q5[..., 2, :], *tables).reshape(b, h, w, c)
         else:
             x = self._xla_attention(dense(x, wqkv, self.input_head.bias, self.dtype), tables,
                                     unrolled=impl == "unrolled")

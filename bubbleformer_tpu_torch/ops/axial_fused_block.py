@@ -12,11 +12,12 @@ per direction
     o = s * (dtype(P) @ v) + (1 - s) * mean(v)
 
 with ``pv``, the window mean of ``v`` and ``o`` in float32, and the output
-``dtype(0.5 * o_rows + 0.5 * o_cols)`` summed in float32.  Its backward
-(``_bwd_chunk``, ``axial_fused_packed.py:192``, and the in-kernel LayerNorm
-backward, ``axial_fused_block.py:217-250``) keeps each direction's ``dq``,
-``dk`` and ``dv`` in float32, sums the two directions, runs the qk-LN
-backward on the sum and rounds ``dqkv`` once.
+``dtype(0.5 * o_rows + 0.5 * o_cols)`` summed in float32: K6's attention
+(``ops/axial_fused_packed.py``) after an in-kernel qk-LayerNorm.  Its
+backward (``_bwd_chunk``, ``axial_fused_packed.py:192``, and the in-kernel
+LayerNorm backward, ``axial_fused_block.py:217-250``) keeps each direction's
+``dq``, ``dk`` and ``dv`` in float32, sums the two directions, runs the
+qk-LN backward on the sum and rounds ``dqkv`` once.
 
 :func:`fused_block_attention` is a ``torch.autograd.Function``.  On CUDA
 tensors its forward and backward launch ``csrc/axial_attention.cu`` in its
@@ -36,7 +37,11 @@ from bubbleformer_tpu_torch.layers.norm import (
     layer_norm_f32,
     row_xhat,
 )
-from bubbleformer_tpu_torch.ops.attention import from_cols, to_cols, to_rows
+from bubbleformer_tpu_torch.ops.axial_fused_packed import (
+    absent_as_none,
+    packed_attention_bwd,
+    packed_attention_f32,
+)
 from bubbleformer_tpu_torch.ops.axial_lane import (
     LineAttention,
     line_attention_bwd_cuda,
@@ -44,19 +49,20 @@ from bubbleformer_tpu_torch.ops.axial_lane import (
 )
 
 
-def _direction_fwd(q, k, v, bias, scale, dt):
-    """One direction on ``(batch..., heads, L, d)`` float32 (float64) q, k, v:
-    ``s * (dtype(P) @ v) + (1 - s) * mean(v)``."""
-    heads, seq, d = q.shape[-3], q.shape[-2], q.shape[-1]
-    logits = q @ k.transpose(-1, -2) * d**-0.5
-    if bias is not None:
-        logits = logits + bias.to(q.dtype)
-    e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
-    pv = p.to(dt).to(q.dtype) @ v
-    s = (torch.ones(heads, device=q.device, dtype=q.dtype) if scale is None
-         else scale.to(q.dtype)).reshape(heads, 1, 1)
-    return s * pv + (1.0 - s) * v.mean(dim=-2, keepdim=True)
+def fused_block_f32(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x=None, bias_y=None,
+                    scale_x=None, scale_y=None, *, heads: int) -> torch.Tensor:
+    """K4's forward before its one rounding: ``0.5 * o_rows + 0.5 * o_cols``
+    ``(BT, H, W, C)`` in the accumulation dtype (K5 keeps it so, as ``ao``)."""
+    bt, h, w, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    dt, acc = qkv.dtype, accumulation_dtype(qkv.dtype)
+    q5 = qkv.reshape(bt, h, w, heads, 3, d)
+    q = layer_norm_f32(q5[..., 0, :], qn_scale, qn_bias).to(dt).to(acc)
+    k = layer_norm_f32(q5[..., 1, :], kn_scale, kn_bias).to(dt).to(acc)
+    v = q5[..., 2, :].to(acc)
+    out = packed_attention_f32(q, k, v, bias_x, bias_y, scale_x, scale_y, dt)
+    return out.reshape(bt, h, w, c)
 
 
 def fused_block_plain(
@@ -68,17 +74,8 @@ def fused_block_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version of K4's forward; the arguments of
     :func:`fused_block_attention`."""
-    bt, h, w, c3 = qkv.shape
-    c = c3 // 3
-    d = c // heads
-    dt, acc = qkv.dtype, accumulation_dtype(qkv.dtype)
-    q5 = qkv.reshape(bt, h, w, heads, 3, d)
-    q = layer_norm_f32(q5[..., 0, :], qn_scale, qn_bias).to(dt).to(acc)
-    k = layer_norm_f32(q5[..., 1, :], kn_scale, kn_bias).to(dt).to(acc)
-    v = q5[..., 2, :].to(acc)
-    o_r = to_rows(_direction_fwd(to_rows(q), to_rows(k), to_rows(v), bias_x, scale_x, dt))
-    o_c = from_cols(_direction_fwd(to_cols(q), to_cols(k), to_cols(v), bias_y, scale_y, dt))
-    return (0.5 * o_r + 0.5 * o_c).reshape(bt, h, w, c).to(dt)
+    return fused_block_f32(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x,
+                           scale_y, heads=heads).to(qkv.dtype)
 
 
 def fused_block_bwd_plain(
@@ -93,53 +90,26 @@ def fused_block_bwd_plain(
     Returns the gradients of ``(qkv, qn_scale, qn_bias, kn_scale, kn_bias,
     bias_x, bias_y, scale_x, scale_y)`` for the output gradient ``do``:
     ``dqkv`` in ``qkv.dtype``, the rest float32 (None where the argument is
-    absent).  Per direction, with ``dao = dtype(0.5 do)`` and ``G = dao
-    v^T``: ``dscale = sum (P - 1/L) G``, ``dS = P * (s G - rowsum(s G P))``
-    (the T5 table's gradient), ``dq = dtype(dS) k / sqrt(d)``, ``dk =
-    dtype(dS)^T q / sqrt(d)``, ``dv = dtype(P)^T dtype(s dao) + (1 - s)
-    sum_i dao_i / L``; the two directions' ``dq``, ``dk``, ``dv`` summed in
-    float32, then the qk-LN backward and one rounding.
+    absent).  The attention's backward is K6's
+    (:func:`~bubbleformer_tpu_torch.ops.axial_fused_packed.packed_attention_bwd`):
+    the two directions' ``dq``, ``dk``, ``dv`` summed in float32, then the
+    qk-LN backward and one rounding.
     """
     bt, h, w, c3 = qkv.shape
     c = c3 // 3
-    d, dt, dev = c // heads, qkv.dtype, qkv.device
+    d, dt = c // heads, qkv.dtype
     acc = accumulation_dtype(dt)
     q5 = qkv.to(acc).reshape(bt, h, w, heads, 3, d)
     qhat, qrstd = row_xhat(q5[..., 0, :])
     khat, krstd = row_xhat(q5[..., 1, :])
     q = (qhat * qn_scale.to(acc) + qn_bias.to(acc)).to(dt).to(acc)
     k = (khat * kn_scale.to(acc) + kn_bias.to(acc)).to(dt).to(acc)
-    v = q5[..., 2, :]
-    dao = (0.5 * do.to(acc)).to(dt).to(acc).reshape(bt, h, w, heads, d)
-    ones = torch.ones(heads, device=dev, dtype=acc)
-
-    def direction(fold, unfold, bias, scale, length):
-        qs, ks, vs, ds = fold(q), fold(k), fold(v), fold(dao)
-        logits = qs @ ks.transpose(-1, -2) * d**-0.5
-        if bias is not None:
-            logits = logits + bias.to(acc)
-        e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-        p = e / e.sum(dim=-1, keepdim=True)
-        s = (ones if scale is None else scale.to(acc)).reshape(heads, 1, 1)
-        g = ds @ vs.transpose(-1, -2)
-        dscale = ((p - 1.0 / length) * g).sum(dim=(0, 1, 3, 4))
-        dp = s * g
-        dlog = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-        dlog_r = dlog.to(dt).to(acc)
-        dq = unfold((dlog_r @ ks) * d**-0.5)
-        dk = unfold((dlog_r.transpose(-1, -2) @ qs) * d**-0.5)
-        dv = (p.to(dt).to(acc).transpose(-1, -2) @ (s * ds).to(dt).to(acc)
-              + ((1.0 - s) * ds).sum(dim=-2, keepdim=True) / length)
-        return dq, dk, unfold(dv), dlog.sum(dim=(0, 1)), dscale
-
-    dq_r, dk_r, dv_r, dbx, dsx = direction(to_rows, to_rows, bias_x, scale_x, w)
-    dq_c, dk_c, dv_c, dby, dsy = direction(to_cols, from_cols, bias_y, scale_y, h)
-    dqr, dgq, dbq = layer_norm_bwd(dq_r + dq_c, qhat, qrstd, qn_scale)
-    dkr, dgk, dbk = layer_norm_bwd(dk_r + dk_c, khat, krstd, kn_scale)
-    dqkv = torch.stack([dqr, dkr, dv_r + dv_c], dim=-2).to(dt).reshape(bt, h, w, c3)
-    return (dqkv, dgq, dbq, dgk, dbk,
-            None if bias_x is None else dbx, None if bias_y is None else dby,
-            None if scale_x is None else dsx, None if scale_y is None else dsy)
+    tables = (bias_x, bias_y, scale_x, scale_y)
+    dq, dk, dv, *grads = packed_attention_bwd(do, q, k, q5[..., 2, :], *tables, dt)
+    dqr, dgq, dbq = layer_norm_bwd(dq, qhat, qrstd, qn_scale)
+    dkr, dgk, dbk = layer_norm_bwd(dk, khat, krstd, kn_scale)
+    dqkv = torch.stack([dqr, dkr, dv], dim=-2).to(dt).reshape(bt, h, w, c3)
+    return (dqkv, dgq, dbq, dgk, dbk, *absent_as_none(grads, tables))
 
 
 def _fused_block_fwd(qkv, *params, heads):
@@ -187,8 +157,8 @@ def fused_block_attention(
     CPU tensors take the plain versions; CUDA tensors launch the kernels
     (``fused_block_attention.launches`` and
     ``fused_block_attention_bwd.launches`` count them)."""
-    return LineAttention.apply(_fused_block_fwd, fused_block_attention_bwd, heads, qkv,
-                               qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x,
+    return LineAttention.apply(_fused_block_fwd, fused_block_attention_bwd, {"heads": heads},
+                               qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x,
                                scale_y)
 
 

@@ -192,37 +192,56 @@ def _grid_chunk(h: int, w: int, c: int, n: int) -> int:
     return align * k
 
 
-def kernel_params(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y,
-                  heads, what):
-    """The float32 parameter tensors of the line kernels (absent tables
-    zero, absent scales one), after checking the kernels' envelope: head dim
-    16 or 64, lines of at most ``MAX_LINE`` tokens."""
-    bt, h, w, c3 = qkv.shape
-    c = c3 // 3
+def check_line_shape(what: str, shape, dtype, h: int, w: int, c: int, heads: int) -> int:
+    """Raise unless the line kernels take this input (float32 or bfloat16,
+    head dim 16 or 64, lines of at most ``MAX_LINE`` tokens), naming its
+    shape; returns the head dim."""
     d = c // heads
-    if qkv.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"{what} kernel takes float32 or bfloat16, not {qkv.dtype}")
-    if c3 != 3 * c or c != heads * d or d not in HEAD_DIMS or max(h, w) > MAX_LINE:
+    if dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, not {dtype}")
+    if c != heads * d or d not in HEAD_DIMS or max(h, w) > MAX_LINE:
         raise ValueError(
             f"{what} kernel takes head_dim in {HEAD_DIMS} and lines of at most {MAX_LINE} "
-            f"tokens; got qkv {tuple(qkv.shape)} ({h}x{w} tokens, C={c}, heads={heads})"
+            f"tokens; got {tuple(shape)} ({h}x{w} tokens, C={c}, heads={heads})"
         )
-    dev = qkv.device
+    return d
+
+
+def line_tables(bias_x, bias_y, scale_x, scale_y, heads: int, h: int, w: int, dev, what: str):
+    """The line kernels' float32 tables and scales: ``bias_x`` ``(heads, W,
+    W)``, ``bias_y`` ``(heads, H, H)`` (absent: zero) and ``scale`` ``(heads,
+    2)`` = ``[s_x, s_y]`` (absent: one)."""
 
     def f32(a):
         return a.detach().to(device=dev, dtype=torch.float32).contiguous()
 
     ones = torch.ones(heads, device=dev)
     p = dict(
-        ln=torch.stack([f32(qn_scale), f32(qn_bias), f32(kn_scale), f32(kn_bias)]),
         bias_x=torch.zeros(heads, w, w, device=dev) if bias_x is None else f32(bias_x),
         bias_y=torch.zeros(heads, h, h, device=dev) if bias_y is None else f32(bias_y),
         scale=torch.stack([ones if scale_x is None else f32(scale_x),
                            ones if scale_y is None else f32(scale_y)], dim=1).contiguous(),
     )
-    _build.check_shapes(what, ln=(p["ln"], (4, d)), bias_x=(p["bias_x"], (heads, w, w)),
+    _build.check_shapes(what, bias_x=(p["bias_x"], (heads, w, w)),
                         bias_y=(p["bias_y"], (heads, h, h)), scale=(p["scale"], (heads, 2)))
     return p
+
+
+def kernel_params(qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y,
+                  heads, what):
+    """The float32 parameter tensors of the line kernels (absent tables
+    zero, absent scales one), after checking the kernels' envelope: head dim
+    16 or 64, lines of at most ``MAX_LINE`` tokens."""
+    bt, h, w, c3 = qkv.shape
+    if c3 % 3:
+        raise ValueError(f"{what}: qkv {tuple(qkv.shape)} is not (BT, H, W, 3C)")
+    d = check_line_shape(what, qkv.shape, qkv.dtype, h, w, c3 // 3, heads)
+    dev = qkv.device
+    ln = torch.stack([a.detach().to(device=dev, dtype=torch.float32)
+                      for a in (qn_scale, qn_bias, kn_scale, kn_bias)])
+    _build.check_shapes(what, ln=(ln, (4, d)))
+    return dict(ln=ln.contiguous(), **line_tables(bias_x, bias_y, scale_x, scale_y, heads, h, w,
+                                                  dev, what))
 
 
 def line_attention_fwd_cuda(qkv: torch.Tensor, *params, heads: int, fused: bool,
@@ -313,25 +332,25 @@ def _lane_fwd(qkv, *params, heads):
 
 
 class LineAttention(torch.autograd.Function):
-    """One flavour of the line kernels as an autograd Function: ``fwd(qkv,
-    *params, heads)`` and ``bwd(do, qkv, *params, heads)`` take the plain
-    version on CPU tensors and launch the kernel on CUDA tensors."""
+    """One flavour of the line kernels (K2, K4, K6, K7) as an autograd
+    Function: ``fwd(*args, **kwargs)`` and ``bwd(do, *args, **kwargs)`` take
+    the plain version on CPU tensors and launch the kernel on CUDA tensors;
+    absent (None) arguments get no gradient."""
 
     @staticmethod
-    def forward(ctx, fwd, bwd, heads, qkv, *params):
-        ctx.bwd, ctx.heads = bwd, heads
-        ctx.absent = tuple(a is None for a in params)
-        ctx.save_for_backward(qkv, *(a for a in params if a is not None))
-        return fwd(qkv, *params, heads=heads)
+    def forward(ctx, fwd, bwd, kwargs, *args):
+        ctx.bwd, ctx.kwargs = bwd, kwargs
+        ctx.absent = tuple(a is None for a in args)
+        ctx.save_for_backward(*(a for a in args if a is not None))
+        return fwd(*args, **kwargs)
 
     @staticmethod
     def backward(ctx, do):
         saved = list(ctx.saved_tensors)
-        qkv = saved.pop(0)
-        params = [None if absent else saved.pop(0) for absent in ctx.absent]
-        grads = ctx.bwd(do, qkv, *params, heads=ctx.heads)
+        args = [None if absent else saved.pop(0) for absent in ctx.absent]
+        grads = ctx.bwd(do, *args, **ctx.kwargs)
         return (None, None, None, *(None if g is None else g.to(a.dtype)
-                                    for g, a in zip(grads, [qkv] + params)))
+                                    for g, a in zip(grads, args)))
 
 
 def lane_axial_attention(
@@ -351,8 +370,9 @@ def lane_axial_attention(
     (``lane_axial_attention.launches`` and ``lane_axial_attention_bwd.launches``
     count them).
     """
-    return LineAttention.apply(_lane_fwd, lane_axial_attention_bwd, heads, qkv, qn_scale,
-                               qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y)
+    return LineAttention.apply(_lane_fwd, lane_axial_attention_bwd, {"heads": heads}, qkv,
+                               qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x,
+                               scale_y)
 
 
 lane_axial_attention.launches = 0

@@ -11,9 +11,11 @@ residual added outside.
 :func:`mega_temporal_block` is a ``torch.autograd.Function``.  On CUDA
 tensors its forward runs the hand-written kernel ``csrc/temporal_block.cu``
 (:func:`mega_temporal_block_fwd`) and its backward the one in
-``csrc/temporal_block_bwd.cu`` (:func:`mega_temporal_block_bwd`); on CPU
-tensors they take :func:`temporal_branch_plain` and
-:func:`temporal_branch_bwd_plain`, and on any other device they raise.
+``csrc/temporal_block_bwd.cu`` (:func:`mega_temporal_block_bwd`), at head
+dims 16 (heads in groups of three) and 64 (:func:`_check_kernel_shapes`
+raises on any other shape); on CPU tensors they take
+:func:`temporal_branch_plain` and :func:`temporal_branch_bwd_plain`, at any
+head dim, and on any other device they raise.
 
 Rounding follows the TPU kernel (``temporal_block_mega.py:246-266`` forward,
 ``:324-449`` backward): xn, qkv, q/k/v, y2 and out in the activation dtype;
@@ -63,7 +65,10 @@ from bubbleformer_tpu_torch.layers.norm import (
 from bubbleformer_tpu_torch.ops.attention import axis_attention
 
 _EPS = 1e-5
-HEAD_DIM = 64  # the kernels' compile-time head dim
+HEAD_DIMS = (16, 64)  # the kernels' compile-time head dims
+# Heads per attention block of the kernels (csrc/temporal_block.cu,
+# HeadGroup): the group's q|k|v columns are one GEMM tile.
+HEAD_GROUP = {16: 3, 64: 1}
 MAX_T = 8
 
 # Argument names after ``x``, in the order every function here takes them.
@@ -71,7 +76,7 @@ PARAM_NAMES = ("in1_scale", "in1_bias", "wqkv", "bqkv", "qn_scale", "qn_bias", "
                "kn_bias", "in2_scale", "in2_bias", "wout", "bout", "bias", "scale_factor")
 
 
-def _plane_xhat(x: torch.Tensor):
+def plane_xhat(x: torch.Tensor):
     """``(xhat, rstd)`` of float32 ``(B, T, N, C)`` normalized over N with
     single-pass statistics, the TPU kernel's ``_in_fwd_t``."""
     mu = x.mean(dim=2, keepdim=True)
@@ -80,7 +85,7 @@ def _plane_xhat(x: torch.Tensor):
     return (x - mu) * rstd, rstd
 
 
-def _plane_norm_bwd(dy, xhat, rstd, weight):
+def plane_norm_bwd(dy, xhat, rstd, weight):
     """InstanceNorm over N backward in the kernel's form:
     ``dx = rstd * w * (dy - mean(dy) - xhat * mean(dy * xhat))``; returns
     ``(dx, dweight, dbias)`` in ``dy``'s dtype."""
@@ -132,11 +137,11 @@ def temporal_branch_plain(
     :func:`mega_temporal_block`."""
     b, t, h, w, c = x.shape
     dt, acc = x.dtype, accumulation_dtype(x.dtype)
-    xhat1, _ = _plane_xhat(x.to(acc).reshape(b, t, h * w, c))
+    xhat1, _ = plane_xhat(x.to(acc).reshape(b, t, h * w, c))
     xn = (xhat1 * in1_scale.to(acc) + in1_bias.to(acc)).to(dt)
     ao = _qkv_attention(xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias,
                         scale_factor, heads)
-    xhat2, _ = _plane_xhat(ao)
+    xhat2, _ = plane_xhat(ao)
     y2 = (xhat2 * in2_scale.to(acc) + in2_bias.to(acc)).to(dt)
     out = torch.matmul(y2.to(acc), wout.to(dt).to(acc).t()) + bout.to(acc)
     return out.to(dt).reshape(b, t, h, w, c)
@@ -226,11 +231,11 @@ def temporal_branch_bwd_plain(
     n, dt, acc = hh * ww, x.dtype, accumulation_dtype(x.dtype)
 
     # ---- recompute the forward at its rounding points
-    xhat1, rstd1 = _plane_xhat(x.to(acc).reshape(b, t, n, c))
+    xhat1, rstd1 = plane_xhat(x.to(acc).reshape(b, t, n, c))
     xn = (xhat1 * in1_scale.to(acc) + in1_bias.to(acc)).to(dt).to(acc)
     r = _attention_recompute(xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias,
                              scale_factor, heads, dt)
-    xhat2, rstd2 = _plane_xhat(r["ao"])
+    xhat2, rstd2 = plane_xhat(r["ao"])
     y2 = (xhat2 * in2_scale.to(acc) + in2_bias.to(acc)).to(dt).to(acc)
 
     # ---- output projection and InstanceNorm2
@@ -238,26 +243,32 @@ def temporal_branch_bwd_plain(
     dwout = dof.reshape(-1, c).t() @ y2.reshape(-1, c)
     dbout = dof.sum(dim=(0, 1, 2))
     dy2 = dof @ wout.to(dt).to(acc)
-    dao, din2_scale, din2_bias = _plane_norm_bwd(dy2, xhat2, rstd2, in2_scale)
+    dao, din2_scale, din2_bias = plane_norm_bwd(dy2, xhat2, rstd2, in2_scale)
 
     # ---- attention, qk-LayerNorm, QKV projection, then InstanceNorm1
     dxn, dwqkv, dbqkv, dqn_scale, dqn_bias, dkn_scale, dkn_bias, dbias, dscale = _attention_bwd(
         r, dao.to(dt).to(acc), xn, qn_scale, kn_scale, heads, dt)
-    dx, din1_scale, din1_bias = _plane_norm_bwd(dxn, xhat1, rstd1, in1_scale)
+    dx, din1_scale, din1_bias = plane_norm_bwd(dxn, xhat1, rstd1, in1_scale)
     return (dx.to(dt).reshape(x.shape), din1_scale, din1_bias, dwqkv, dbqkv,
             dqn_scale, dqn_bias, dkn_scale, dkn_bias, din2_scale, din2_bias, dwout, dbout,
             None if bias is None else dbias, None if scale_factor is None else dscale)
 
 
 def _check_kernel_shapes(what, x, heads):
+    """The kernels' envelope: head dim 16 (heads a multiple of 3) or 64,
+    T <= 8, H*W % 16 == 0, C % 32 == 0; returns the head dim."""
     b, t, h, w, c = x.shape
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, not {x.dtype}")
-    if c != heads * HEAD_DIM or t > MAX_T or (h * w) % 16 or c % 32:
+    d = c // heads
+    if (c != heads * d or d not in HEAD_DIMS or heads % HEAD_GROUP[d] or t > MAX_T
+            or (h * w) % 16 or c % 32):
         raise ValueError(
-            f"{what} kernel needs head_dim {HEAD_DIM}, T <= {MAX_T}, H*W % 16 == 0 and "
-            f"C % 32 == 0; got T={t}, H*W={h * w}, C={c}, heads={heads}"
+            f"{what} kernel needs head_dim in {HEAD_DIMS} (heads a multiple of "
+            f"{HEAD_GROUP[16]} at 16), T <= {MAX_T}, H*W % 16 == 0 and C % 32 == 0; got x "
+            f"{tuple(x.shape)} (T={t}, H*W={h * w}, C={c}, heads={heads})"
         )
+    return d
 
 
 def _f32(a, dev):
@@ -278,7 +289,7 @@ def _core_params(xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias, sca
         scale=torch.ones(heads, device=dev) if scale_factor is None else _f32(scale_factor, dev),
     )
     _build.check_shapes(what, wqkv=(p["wqkv"], (3 * c, c)), bqkv=(p["bqkv"], (3 * c,)),
-                        ln=(p["ln"], (4, HEAD_DIM)), bias=(p["bias"], (heads, t, t)),
+                        ln=(p["ln"], (4, c // heads)), bias=(p["bias"], (heads, t, t)),
                         scale_factor=(p["scale"], (heads,)))
     return p
 
@@ -314,7 +325,7 @@ def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int):
     ``mega_temporal_block.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"mega_temporal_block_fwd: the kernel needs a CUDA tensor, not {x.device}")
-    _check_kernel_shapes("mega_temporal_block", x, heads)
+    d = _check_kernel_shapes("mega_temporal_block", x, heads)
     b, t, h, w, c = x.shape
     n, dev, dt = h * w, x.device, x.dtype
     p = _kernel_params(x, *params, heads)
@@ -326,7 +337,7 @@ def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int):
     out = torch.empty_like(x)
     lib = _build.library()
     err = lib.bf_temporal_block_fwd(
-        _build.DTYPE_CODES[dt], x.data_ptr(), *(a.data_ptr() for a in p.values()),
+        _build.DTYPE_CODES[dt], d, x.data_ptr(), *(a.data_ptr() for a in p.values()),
         stats1.data_ptr(), qkv.data_ptr(), ao.data_ptr(), stats2.data_ptr(), out.data_ptr(),
         b, t, n, c, heads, _build.stream_handle(dev),
     )
@@ -352,7 +363,7 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
         raise ValueError(f"mega_temporal_block_bwd: unsupported device {x.device}")
     if residuals is None:
         raise ValueError("mega_temporal_block_bwd on CUDA needs the forward kernel's residuals")
-    _check_kernel_shapes("mega_temporal_block_bwd", x, heads)
+    d = _check_kernel_shapes("mega_temporal_block_bwd", x, heads)
     b, t, h, w, c = x.shape
     n, g, dev, dt = h * w, b * t, x.device, x.dtype
     p = _kernel_params(x, *params, heads)
@@ -368,7 +379,7 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
 
     grads = dict(
         dx=torch.empty(x.shape, device=dev, dtype=dt), din1=zeros(2, c),
-        dwqkv=zeros(3 * c, c), dbqkv=zeros(3 * c), dln=zeros(4, HEAD_DIM), din2=zeros(2, c),
+        dwqkv=zeros(3 * c, c), dbqkv=zeros(3 * c), dln=zeros(4, d), din2=zeros(2, c),
         dwout=zeros(c, c), dbout=zeros(c), dbias=zeros(heads, t, t), dscale=zeros(heads),
     )
     # Every tensor whose pointer the kernels get is held by a name until the
@@ -381,7 +392,7 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
     dqkv = torch.empty(g * n, 3 * c, device=dev, dtype=dt)
     lib = _build.library()
     err = lib.bf_temporal_block_bwd(
-        _build.DTYPE_CODES[dt], x.data_ptr(), do.data_ptr(), qkv.data_ptr(),
+        _build.DTYPE_CODES[dt], d, x.data_ptr(), do.data_ptr(), qkv.data_ptr(),
         p["in1_w"].data_ptr(), p["in1_b"].data_ptr(), wqkv_t.data_ptr(), p["ln"].data_ptr(),
         p["in2_w"].data_ptr(), p["in2_b"].data_ptr(), wout_t.data_ptr(),
         p["bias"].data_ptr(), p["scale"].data_ptr(),
@@ -541,7 +552,7 @@ def core_temporal_attention_fwd(xn: torch.Tensor, *params, heads: int, keep_qkv:
     if xn.device.type != "cuda":
         raise ValueError(
             f"core_temporal_attention_fwd: the kernel needs a CUDA tensor, not {xn.device}")
-    _check_kernel_shapes("core_temporal_attention", xn, heads)
+    d = _check_kernel_shapes("core_temporal_attention", xn, heads)
     p = _core_params(xn, *params, heads, "core_temporal_attention")
     b, t, h, w, c = xn.shape
     dev, dt = xn.device, xn.dtype
@@ -550,7 +561,7 @@ def core_temporal_attention_fwd(xn: torch.Tensor, *params, heads: int, keep_qkv:
     ao = torch.empty_like(xn)
     lib = _build.library()
     err = lib.bf_core_temporal_fwd(
-        _build.DTYPE_CODES[dt], xn.data_ptr(), *(a.data_ptr() for a in p.values()),
+        _build.DTYPE_CODES[dt], d, xn.data_ptr(), *(a.data_ptr() for a in p.values()),
         None if qkv is None else qkv.data_ptr(), ao.data_ptr(), b, t, h * w, c, heads,
         _build.stream_handle(dev),
     )
@@ -575,7 +586,7 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, he
         raise ValueError(f"core_temporal_attention_bwd: unsupported device {xn.device}")
     if qkv is None:
         raise ValueError("core_temporal_attention_bwd on CUDA needs the forward kernel's qkv")
-    _check_kernel_shapes("core_temporal_attention_bwd", xn, heads)
+    d = _check_kernel_shapes("core_temporal_attention_bwd", xn, heads)
     p = _core_params(xn, *params, heads, "core_temporal_attention_bwd")
     b, t, h, w, c = xn.shape
     g, dev, dt = b * t * h * w, xn.device, xn.dtype
@@ -588,7 +599,7 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, he
         return torch.zeros(*shape, device=dev)
 
     grads = dict(dx=torch.empty(xn.shape, device=dev, dtype=dt), dwqkv=zeros(3 * c, c),
-                 dbqkv=zeros(3 * c), dln=zeros(4, HEAD_DIM), dbias=zeros(heads, t, t),
+                 dbqkv=zeros(3 * c), dln=zeros(4, d), dbias=zeros(heads, t, t),
                  dscale=zeros(heads))
     # Held by a name until the launches are queued (see mega_temporal_block_bwd).
     xn, dao = xn.contiguous(), dao.to(dt).contiguous()
@@ -596,7 +607,7 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, he
     dqkv = torch.empty(g, 3 * c, device=dev, dtype=dt)
     lib = _build.library()
     err = lib.bf_core_temporal_bwd(
-        _build.DTYPE_CODES[dt], xn.data_ptr(), dao.data_ptr(), qkv.data_ptr(),
+        _build.DTYPE_CODES[dt], d, xn.data_ptr(), dao.data_ptr(), qkv.data_ptr(),
         wqkv_t.data_ptr(), p["ln"].data_ptr(), p["bias"].data_ptr(), p["scale"].data_ptr(),
         dqkv.data_ptr(), *(a.data_ptr() for a in grads.values()), b, t, h * w, c, heads,
         _build.stream_handle(dev),

@@ -7,12 +7,14 @@ Drives the port's paths at full width and depth, on windows of 5 frames and
 branch on K1, the mega route), AViT-big at 512x512 (embed 768, 12 heads;
 its temporal branch on K3, the core route), AViT-small on the 512x2048
 flow-boiling frames (K3 and K2 with rows of 128 tokens), AViT-small at
-512x512 with ``attn_impl=fused_block`` (K4) and AViT-tiny on the make-demo
-grid (K4 at head dim 16).  The serving path (the autoregressive rollout)
-and the training path (``Trainer.fit``: Lion, or AdamW where the config
-says, with cosine warmup); and the hand-written kernels on the way, each at
-the shapes its paths give it — the rollout's (batch 1) and the training
-step's:
+512x512 with ``attn_impl=fused_block`` (K4), AViT-tiny on the make-demo
+grid (K4 at head dim 16), FiLMAViT-small with ``attn_impl=mega`` (K1 and
+K5), AViT-small with ``attn_impl=fused_packed`` (K6) and ``fused`` (K7),
+and AViT-tiny at 512x512 and 512x2048 (K1, K3 and K2 at head dim 16).  The
+serving path (the autoregressive rollout) and the training path
+(``Trainer.fit``: Lion, or AdamW where the config says, with cosine
+warmup); and the hand-written kernels on the way, each at the shapes its
+paths give it — the rollout's (batch 1) and the training step's:
 
 1. environment: torch, CUDA, the card, ``nvidia-smi`` name and power limit;
 2. build: compile ``bubbleformer_tpu_torch/csrc/*.cu`` with nvcc (timed);
@@ -78,7 +80,29 @@ step's:
    JAX package's XLA plain route, plain PyTorch);
 22. AViT-tiny at 64x64 through ``auto`` (temporal unrolled, axial K4 at head
    dim 16): ``Trainer.fit`` at batch 8 with AdamW and a 5-window rollout, K4
-   in each of the 4 blocks and no temporal kernel.
+   in each of the 4 blocks and no temporal kernel;
+23. K1 and K3 at head dim 16 (``BRANCH_SHAPES``: K1 at AViT-tiny's 512^2
+   training shape, K3 at its 512x2048 flow-boiling shapes), forward and
+   every gradient against the plain versions (``KERNEL_RTOL``), both times;
+24. K5 (``mega_axial_block``) likewise at FiLMAViT-small's rollout and
+   training shapes and at AViT-tiny's with ``mega`` (head dim 16), with the
+   time of cuBLAS's two projections alone (a partial yardstick);
+25. K6 (``fused_axial_attention_packed``) and K7 (``fused_axial_attention``)
+   at AViT-small's shapes, forward and every gradient (``LINE_RTOL``);
+26. path C, FiLMAViT-small at 512^2 with ``attn_impl=mega``: one float32
+   window card vs CPU, a 20-window bfloat16 rollout (K1 and K5 forward 12 x
+   20 times each, no other kernel) and ``Trainer.fit`` in bfloat16 at batch
+   8 with Lion (K1 and K5 forward and backward 12 per step, no other
+   kernel);
+27. path D, AViT-small at 512^2 with ``attn_impl=fused_packed`` and with
+   ``fused`` (the temporal branch on the XLA plain route): one float32
+   window each, card vs CPU, and ``Trainer.fit`` in bfloat16 at batch 8: the
+   route's kernel forward and backward 12 per step, no other kernel;
+28. path E, AViT-tiny through ``auto``: at 512^2 (64x64 tokens: K1 at head
+   dim 16 and the axial kernel the copied lane gate picks, asserted) one
+   float32 window card vs CPU and ``Trainer.fit`` in bfloat16 at batch 8
+   with AdamW; at 512x2048 (64x256 tokens: K3 at head dim 16)
+   ``Trainer.fit`` at batch 4.
 
 Prints a JSON line of the kernels at the training step's shapes of the path
 that launches them (with each one's least possible time on the card from its
@@ -239,10 +263,15 @@ def compare(name: str, got, ref, rtol: float):
     return err
 
 
-def compare_grads(name: str, names, got, ref, rtol: float) -> float:
+def compare_grads(name: str, names, got, ref, rtol: float, zero_noise: bool = False) -> float:
     """``compare`` for a tuple of gradients: each within ``rtol`` of its
     reference's largest magnitude, those in ``ZERO_GRADS`` within ``rtol``
-    of a hundredth of the largest of all.  Prints each gradient's error and
+    of a hundredth of the largest of all.  ``zero_noise``: where the two
+    sides' rounding noise is uncorrelated (K5 in bfloat16: its ``dao`` comes
+    out of an InstanceNorm backward whose reassociated sums flip bfloat16
+    roundings), a ``ZERO_GRADS`` gradient is held to the reference's own
+    noise instead: at most three times its largest magnitude, plus ``rtol``
+    of the floor (reported as that ratio).  Prints each gradient's error and
     scale; returns the largest absolute error."""
     import torch
 
@@ -253,7 +282,10 @@ def compare_grads(name: str, names, got, ref, rtol: float) -> float:
         if not torch.isfinite(g).all():
             fail(f"{name} {n}: non-finite gradient")
         err, scale = (g - r).abs().max().item(), r.abs().max().item()
-        rel = err / (floor if n in ZERO_GRADS else max(scale, 1e-30))
+        if zero_noise and n in ZERO_GRADS:
+            rel = rtol * g.abs().max().item() / (3 * scale + rtol * floor)
+        else:
+            rel = err / (floor if n in ZERO_GRADS else max(scale, 1e-30))
         rows.append(f"{n} {rel:.1e}/{scale:.1e}")
         if rel > rtol:
             print("  " + ", ".join(rows))
@@ -330,7 +362,8 @@ def bound(flops: float, nbytes: float, dtype: str):
 def kernel_work(key: str, shape, dtype: str):
     """(FLOPs, bytes) each kernel must do at ``shape`` in ``dtype``: every
     input read once, every output written once; the weights in the
-    activation dtype, the other parameters and their gradients float32.
+    activation dtype, the other parameters and their gradients float32.  A
+    key's " d16" suffix (head dim 16) changes only the qk-LN vectors.
 
     K3 (xn of (B, T, H, W, C)): the QKV product and the attention; it reads
     xn and W_qkv and writes ao and the rounded qkv (R, 3C) for the backward.
@@ -344,12 +377,18 @@ def kernel_work(key: str, shape, dtype: str):
     writes dx and the float32 weight gradients.  K2 and K4 (qkv of (BT, H,
     W, 3C)): per direction, logits and values 4R*L*C forward, and five L x L
     contractions 10R*L*C backward, with L = W for rows and H for columns;
-    they read qkv (and dout) and write out (dqkv)."""
+    they read qkv (and dout) and write out (dqkv).  K6 and K7 (q of (BT, H,
+    W, C)): K4's work from q, k and v.  K5 (x of (BT, H, W, C)): K1's two
+    products and K4's attention; it reads x and writes the output and, for
+    the backward, the rounded qkv (R, 3C) and ao (R, C); its backward reads
+    do, x, qkv and ao and writes dx and the float32 weight gradients."""
     e = 2 if dtype == "bfloat16" else 4
+    d = 16 if key.endswith(" d16") or key.endswith(" d16 bwd") else 64
+    key = key.replace(" d16", "")
     if key.startswith("K3"):
         b, t, h, w, c = shape
         r = b * t * h * w
-        params = e * 3 * c * c + 4 * (3 * c + 4 * 64)
+        params = e * 3 * c * c + 4 * (3 * c + 4 * d)
         if key == "K3":
             return 2 * r * c * 3 * c + 4 * r * t * c, 2 * e * r * c + e * r * 3 * c + params
         return (2 * r * c * 3 * c * 2 + 10 * r * t * c,
@@ -357,18 +396,28 @@ def kernel_work(key: str, shape, dtype: str):
     if key.startswith("K1"):
         b, t, h, w, c = shape
         r = b * t * h * w
-        params = 4 * (8 * c + 4 * 64 + 4 * c + c) + e * 4 * c * c  # vectors + W_qkv, W_out
+        params = 4 * (8 * c + 4 * d + 4 * c + c) + e * 4 * c * c  # vectors + W_qkv, W_out
         if key == "K1":
             return (2 * r * c * 4 * c + 4 * r * t * c,
                     2 * e * r * c + e * r * 3 * c + 4 * r * c + params)
         return (2 * r * c * 3 * c * 2 + 2 * r * c * c * 2 + 10 * r * t * c,
                 3 * e * r * c + e * r * 3 * c + 4 * r * c + params + 4 * 4 * c * c)
-    bt, h, w, c3 = shape
-    c = c3 // 3
+    if key.startswith("K5"):
+        bt, h, w, c = shape
+        r = bt * h * w
+        params = 4 * (8 * c + 4 * d + (h * h + w * w) * c // d) + e * 4 * c * c
+        if key == "K5":
+            return 2 * r * c * 4 * c + 4 * r * (h + w) * c, 3 * e * r * c + e * r * 3 * c + params
+        return (2 * r * c * 4 * c * 2 + 10 * r * (h + w) * c,
+                4 * e * r * c + e * r * 3 * c + params + 4 * 4 * c * c)
+    bt, h, w, c = shape
+    if key[:2] in ("K2", "K4"):
+        c //= 3
     r = bt * h * w
     if not key.endswith("bwd"):
-        return 4 * r * (h + w) * c, e * r * (c3 + c)
-    return 10 * r * (h + w) * c, e * r * (2 * c3 + c)
+        return 4 * r * (h + w) * c, e * r * 4 * c
+    return 10 * r * (h + w) * c, e * r * 7 * c
+
 
 # The line kernels on the new paths (phases 16 and 17) against their plain
 # versions: float32 against the plain version in float64 on the same inputs
@@ -459,9 +508,18 @@ def line_kernel_phase(key: str, cases: dict, dev, results: dict) -> None:
 
 def all_counters():
     """Every kernel wrapper's launch counter, by the wrapper's name."""
+    from bubbleformer_tpu_torch.ops.axial_block_mega import mega_axial_block, mega_axial_block_bwd
+    from bubbleformer_tpu_torch.ops.axial_fused import (
+        fused_axial_attention,
+        fused_axial_attention_bwd,
+    )
     from bubbleformer_tpu_torch.ops.axial_fused_block import (
         fused_block_attention,
         fused_block_attention_bwd,
+    )
+    from bubbleformer_tpu_torch.ops.axial_fused_packed import (
+        fused_axial_attention_packed,
+        fused_axial_attention_packed_bwd,
     )
     from bubbleformer_tpu_torch.ops.axial_lane import lane_axial_attention, lane_axial_attention_bwd
     from bubbleformer_tpu_torch.ops.temporal_block_mega import (
@@ -473,7 +531,9 @@ def all_counters():
 
     return (mega_temporal_block, mega_temporal_block_bwd, lane_axial_attention,
             lane_axial_attention_bwd, core_temporal_attention, core_temporal_attention_bwd,
-            fused_block_attention, fused_block_attention_bwd)
+            fused_block_attention, fused_block_attention_bwd, mega_axial_block,
+            mega_axial_block_bwd, fused_axial_attention_packed, fused_axial_attention_packed_bwd,
+            fused_axial_attention, fused_axial_attention_bwd)
 
 
 def zero_counters() -> None:
@@ -493,9 +553,11 @@ def check_launches(what: str, got: dict, per: dict, times: int) -> None:
         fail(f"{what}: launches {got}, expected {want}")
 
 
-def window_phase(label: str, model_cfg, data_cfg, weights, x, dev, per_window: dict):
+def window_phase(label: str, model_cfg, data_cfg, weights, x, dev, per_window: dict,
+                 cond=None):
     """One float32 window of a model on the card (kernels) against the same
-    model on the CPU (plain versions); returns the card's output."""
+    model on the CPU (plain versions), conditioned on ``cond`` where it is
+    given; returns the card's output."""
     import torch
     from bubbleformer_tpu_torch.models import build_model
 
@@ -505,13 +567,14 @@ def window_phase(label: str, model_cfg, data_cfg, weights, x, dev, per_window: d
     gpu.load_state_dict(weights)
     zero_counters()
     with torch.no_grad():
+        extra = () if cond is None else (cond,)
         t0 = time.perf_counter()
-        y_gpu = gpu(x.to(dev))
+        y_gpu = gpu(x.to(dev), *(a.to(dev) for a in extra))
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
         launches = read_counters()
         t0 = time.perf_counter()
-        y_cpu = cpu(x)
+        y_cpu = cpu(x, *extra)
         t_cpu = time.perf_counter() - t0
     check_launches(f"{label} window", launches, per_window, 1)
     if tuple(y_gpu.shape) != tuple(x.shape):
@@ -522,24 +585,26 @@ def window_phase(label: str, model_cfg, data_cfg, weights, x, dev, per_window: d
 
 
 def rollout_phase(label: str, model, init, windows: int, per_window: dict, card: str,
-                  reference=None) -> float:
-    """A bfloat16 rollout of ``windows`` windows after one warm-up window:
-    finite, the right shape and launches; returns frames/s."""
+                  reference=None, cond=None) -> float:
+    """A bfloat16 rollout of ``windows`` windows after one warm-up window
+    (conditioned on ``cond`` where it is given): finite, the right shape and
+    launches; returns frames/s."""
     import torch
     from bubbleformer_tpu_torch.inference import make_rollout_fn
 
-    warm = make_rollout_fn(model, 1)(init)
+    extra, conditioned = (() if cond is None else (cond,)), cond is not None
+    warm = make_rollout_fn(model, 1, conditioned)(init, *extra)
     torch.cuda.synchronize()
     if reference is not None:
         rel_l2 = ((warm[0].float() - reference).norm() / reference.norm()).item()
         print(f"  warm-up window: bf16 vs f32 relative L2 {rel_l2:.4f}")
         if rel_l2 > 0.25:
             fail(f"{label}: bf16 window is {rel_l2:.3f} (relative L2) from the f32 window")
-    rollout = make_rollout_fn(model, windows)
+    rollout = make_rollout_fn(model, windows, conditioned)
     zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    preds = rollout(init)
+    preds = rollout(init, *extra)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_counters()
@@ -712,6 +777,278 @@ LINE_SHAPES = {
     "K4": {"rollout": (TIME_WINDOW, 32, 32, 1152), "training": (8 * TIME_WINDOW, 32, 32, 1152),
            "grid_24": (TIME_WINDOW, 24, 24, 1152), "demo_d16": (2 * TIME_WINDOW, 8, 8, 288)},
 }
+
+
+# Phases 23-25: K1 and K3 at head dim 16 (AViT-tiny: 6 heads of 16; K1 at
+# its 512^2 training shape, K3 at its 512x2048 flow-boiling shapes, batch 1
+# and 4), K5 on path C (FiLMAViT-small at batch 1 and 8) and at AViT-tiny's
+# 512^2 training shape with ``mega``, K6 and K7 on path D (AViT-small's).
+BRANCH_SHAPES = {
+    "K1 d16": {"training": (TRAIN_BATCH, TIME_WINDOW, 64, 64, 96)},
+    "K3 d16": {"rollout": (1, TIME_WINDOW, 64, 256, 96),
+               "training": (4, TIME_WINDOW, 64, 256, 96)},
+    "K5": {"rollout": (TIME_WINDOW, 32, 32, 384), "training": (8 * TIME_WINDOW, 32, 32, 384),
+           "d16": (8 * TIME_WINDOW, 64, 64, 96)},
+}
+SPLIT_SHAPES = {"training": (8 * TIME_WINDOW, 32, 32, 384)}
+
+
+def branch_args(key: str, shape, heads: int, rng):
+    """Seeded float32 arguments of K1 (``"K1..."``, x of (B, T, H, W, C)), K3
+    (``"K3..."``, xn) or K5 (``"K5"``, x of (BT, H, W, C)), in the order of
+    their PARAM_NAMES, the activation first."""
+    import torch
+
+    def n(*s, scale=1.0, offset=0.0):
+        return torch.from_numpy((offset + scale * rng.standard_normal(s)).astype(np.float32))
+
+    c = shape[-1]
+    d = c // heads
+    w_qkv = dict(wqkv=n(3 * c, c, scale=c**-0.5), bqkv=n(3 * c, scale=0.1))
+    ln = dict(qn_scale=n(d, scale=0.1, offset=1.0), qn_bias=n(d, scale=0.1),
+              kn_scale=n(d, scale=0.1, offset=1.0), kn_bias=n(d, scale=0.1))
+
+    def scale():
+        return torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32))
+
+    if key.startswith("K3"):
+        return dict(xn=n(*shape), **w_qkv, **ln, bias=n(heads, shape[1], shape[1]),
+                    scale_factor=scale())
+    args = dict(x=n(*shape), in1_scale=n(c, scale=0.1, offset=1.0), in1_bias=n(c, scale=0.1),
+                **w_qkv, **ln, in2_scale=n(c, scale=0.1, offset=1.0), in2_bias=n(c, scale=0.1),
+                wout=n(c, c, scale=c**-0.5), bout=n(c, scale=0.1))
+    if key.startswith("K1"):
+        return dict(args, bias=n(heads, shape[1], shape[1]), scale_factor=scale())
+    return dict(args, bias_x=n(heads, shape[2], shape[2]), bias_y=n(heads, shape[1], shape[1]),
+                scale_x=scale(), scale_y=scale())
+
+
+def branch_kernel_phase(key: str, dev, results: dict) -> None:
+    """K1 or K3 at head dim 16, or K5: forward and every gradient at each
+    ``BRANCH_SHAPES[key]`` shape, float32 and bfloat16, against the plain
+    versions on the card (``KERNEL_RTOL``), with the times of the kernels
+    and of the plain versions (and, for K5, of cuBLAS's two projections
+    alone)."""
+    import torch
+    from bubbleformer_tpu_torch.ops import axial_block_mega as k5
+    from bubbleformer_tpu_torch.ops import temporal_block_mega as k13
+
+    fwd, bwd, plain, bwd_plain, res_name = {
+        "K1": (k13.mega_temporal_block_fwd, k13.mega_temporal_block_bwd,
+               k13.temporal_branch_plain, k13.temporal_branch_bwd_plain, "residuals"),
+        "K3": (k13.core_temporal_attention_fwd, k13.core_temporal_attention_bwd,
+               k13.core_temporal_plain, k13.core_temporal_bwd_plain, "qkv"),
+        "K5": (k5.mega_axial_block_fwd, k5.mega_axial_block_bwd, k5.mega_axial_plain,
+               k5.mega_axial_bwd_plain, "residuals"),
+    }[key[:2]]
+    for i, (where, shape) in enumerate(BRANCH_SHAPES[key].items()):
+        heads = 6
+        base = {k: v.to(dev) for k, v in branch_args(key, shape, heads,
+                                                      np.random.default_rng(SEED + 60 + i)).items()}
+        do32 = torch.from_numpy(np.random.default_rng(SEED + 70 + i).standard_normal(shape)
+                                .astype(np.float32)).to(dev)
+        first = next(iter(base))
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            args = dict(base, **{first: base[first].to(dt)})
+            params = list(args.values())[1:]
+            act, do = args[first], do32.to(dt)
+            got, res = fwd(act, *params, heads=heads)
+            ref = plain(**args, heads=heads)
+            torch.cuda.synchronize()
+            err_f = compare(f"{key} {name} {where} {shape}", got, ref, KERNEL_RTOL[name])
+            del got, ref
+            got = bwd(do, act, *params, heads=heads, **{res_name: res})
+            ref = bwd_plain(do, **args, heads=heads)
+            torch.cuda.synchronize()
+            err_b = compare_grads(f"{key} bwd {name} {where}", tuple(args), got, ref,
+                                  KERNEL_RTOL[name], zero_noise=key == "K5" and name == "bfloat16")
+            del got, ref
+            ms_f = cuda_ms(lambda: fwd(act, *params, heads=heads))
+            plain_f = cuda_ms(lambda: plain(**args, heads=heads))
+            ms_b = cuda_ms(lambda: bwd(do, act, *params, heads=heads, **{res_name: res}))
+            plain_b = cuda_ms(lambda: bwd_plain(do, **args, heads=heads))
+            extra = ""
+            if key == "K5":
+                x2 = act.reshape(-1, shape[-1])
+                w1, w2 = args["wqkv"].to(dt), args["wout"].to(dt)
+                gemm = cuda_ms(lambda: (torch.matmul(x2, w1.t()), torch.matmul(x2, w2.t())))
+                results[("K5 gemm", name, where)] = gemm
+                extra = f"; cuBLAS's two projections alone (partial yardstick) {gemm:.4f} ms"
+            print(f"  {key} {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), "
+                  f"backward {ms_b:.4f} ms (plain {plain_b:.4f}){extra}", flush=True)
+            results[(key, name, where)] = (err_f, ms_f, plain_f)
+            results[(key + " bwd", name, where)] = (err_b, ms_b, plain_b)
+            del res, args, params, act, do
+        del base, do32
+
+
+def split_kernel_phase(dev, results: dict) -> None:
+    """K6 and K7 forward and every gradient at each ``SPLIT_SHAPES`` q/k/v
+    shape (6 heads), float32 against the plain version in float64 and
+    bfloat16 against it in bfloat16 (``LINE_RTOL``), with both times."""
+    import torch
+    from bubbleformer_tpu_torch.ops import axial_fused as k7
+    from bubbleformer_tpu_torch.ops import axial_fused_packed as k6
+
+    kernels = {"K6": (k6.fused_axial_attention_packed, k6.fused_axial_attention_packed_bwd,
+                      k6.fused_packed_plain, k6.fused_packed_bwd_plain),
+               "K7": (k7.fused_axial_attention, k7.fused_axial_attention_bwd, k7.fused_plain,
+                      k7.fused_bwd_plain)}
+    heads = 6
+    for i, (where, shape) in enumerate(SPLIT_SHAPES.items()):
+        bt, h, w, c = shape
+        rng = np.random.default_rng(SEED + 80 + i)
+
+        def n(*s):
+            return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+
+        qkv5 = (bt, h, w, heads, c // heads)
+        base = dict(q=n(*qkv5), k=n(*qkv5), v=n(*qkv5), bias_x=n(heads, w, w),
+                    bias_y=n(heads, h, h),
+                    scale_x=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)),
+                    scale_y=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)))
+        base = {k: v.to(dev) for k, v in base.items()}
+        do32 = n(*qkv5)
+        for key, (fwd, bwd, plain, bwd_plain) in kernels.items():
+            for dt in (torch.float32, torch.bfloat16):
+                name = str(dt).split(".")[-1]
+                args = dict(base, **{k: base[k].to(dt) for k in "qkv"})
+                do = do32.to(dt)
+                ref_args, ref_do = ((args, do) if dt == torch.bfloat16 else
+                                    ({k: v.double() for k, v in args.items()}, do.double()))
+                got = fwd(**args)
+                ref = plain(**ref_args)
+                torch.cuda.synchronize()
+                err_f = compare(f"{key} {name} {where} {shape}", got, ref, LINE_RTOL[name])
+                del got, ref
+                got = bwd(do, *args.values())
+                ref = bwd_plain(ref_do, **ref_args)
+                torch.cuda.synchronize()
+                err_b = compare_grads(f"{key} bwd {name} {where}", tuple(args), got, ref,
+                                      LINE_RTOL[name])
+                del got, ref, ref_args, ref_do
+                ms_f = cuda_ms(lambda: fwd(**args))
+                plain_f = cuda_ms(lambda: plain(**args))
+                ms_b = cuda_ms(lambda: bwd(do, *args.values()))
+                plain_b = cuda_ms(lambda: bwd_plain(do, **args))
+                print(f"  {key} {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), "
+                      f"backward {ms_b:.4f} ms (plain {plain_b:.4f})", flush=True)
+                results[(key, name, where)] = (err_f, ms_f, plain_f)
+                results[(key + " bwd", name, where)] = (err_b, ms_b, plain_b)
+        del base, do32
+
+
+def slice5_phases(repo: Path, dev, card: str, results: dict) -> dict:
+    """Phases 23-28: the kernels at head dim 16, K5, K6 and K7 against their
+    plain versions, and paths C (FiLMAViT-small on ``mega``: K1 and K5), D
+    (AViT-small on ``fused_packed`` and ``fused``: K6, K7) and E (AViT-tiny
+    through ``auto`` at 512^2 and 512x2048: K1, K3 and the axial kernel at
+    head dim 16).  Returns the runs' numbers by path."""
+    import torch
+    from bubbleformer_tpu_torch.config import load_config
+    from bubbleformer_tpu_torch.layers.attention import resolve_axial_impl, resolve_temporal_impl
+    from bubbleformer_tpu_torch.models import build_model
+
+    t = TIME_WINDOW
+    print("== phase 23: K1 and K3 at head dim 16 vs plain, forward and backward", flush=True)
+    branch_kernel_phase("K1 d16", dev, results)
+    branch_kernel_phase("K3 d16", dev, results)
+    print("== phase 24: K5 mega_axial_block vs plain, forward and backward", flush=True)
+    branch_kernel_phase("K5", dev, results)
+    print("== phase 25: K6 and K7 vs plain, forward and backward", flush=True)
+    split_kernel_phase(dev, results)
+
+    def cfgs(*overrides):
+        cfg = load_config([*overrides, "scheduler_cfg.params.warmup_iters=2"])
+        return cfg, (cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"])
+
+    def frames(seed, height, width, fields=FIELDS):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (1, t, fields, height, width)).astype(np.float32))
+
+    runs = {}
+    cfg, train = cfgs("model_cfg.params.attn_impl=mega")
+    params = cfg["model_cfg"]["params"]
+    if (cfg["model_cfg"]["name"], params["embed_dim"], cfg["optim_cfg"]["name"]) != (
+            "filmavit", 384, "lion"):
+        fail("the default composition is not FiLMAViT-small with Lion")
+    blocks = params["processor_blocks"]
+    model = build_model(cfg["model_cfg"], cfg["data_cfg"])
+    weights = random_state_dict(model, SEED + 50)
+    del model
+    x, cond = frames(SEED + 51, IMAGE, IMAGE), torch.tensor([FLUID_PARAMS], dtype=torch.float32)
+    per_c = {"mega_temporal_block": blocks, "mega_axial_block": blocks}
+    print(f"== phase 26: path C, FiLMAViT-small at {IMAGE}^2 with attn_impl=mega: one float32 "
+          f"window card vs CPU, a {WINDOWS}-window bfloat16 rollout, Trainer.fit bfloat16 batch "
+          f"{TRAIN_BATCH}", flush=True)
+    # FiLM near identity for the card-vs-CPU window: at FiLM O(0.1) these
+    # weights put the CPU's single-pass float32 InstanceNorms (the plain K1
+    # and K5) in cancellation, where the card's shifted statistics are not
+    # (phase 9 holds that regime against float64); near identity the two
+    # agree as on the other paths.
+    y_c = window_phase("FiLMAViT-small mega", cfg["model_cfg"], cfg["data_cfg"],
+                       film_near_identity(weights, SEED + 50), x, dev, per_c, cond=cond)
+    bf = build_model(cfg["model_cfg"], cfg["data_cfg"], compute_dtype="bfloat16").eval().to(dev)
+    bf.load_state_dict(film_near_identity(weights, SEED + 50))
+    runs["C rollout"] = rollout_phase("FiLMAViT-small mega", bf, x.to(dev), WINDOWS, per_c, card,
+                                      reference=y_c, cond=cond.to(dev))
+    del bf, y_c
+    runs["C"] = fit_phase("FiLMAViT-small mega", train, TRAIN_BATCH, FUSED_TRAIN_STEPS,
+                          (IMAGE, IMAGE), dict(per_c, mega_temporal_block_bwd=blocks,
+                                               mega_axial_block_bwd=blocks),
+                          repo / "build" / "smoke_mega", dev, card, fluid=len(FLUID_PARAMS))
+
+    print(f"== phase 27: path D, AViT-small at {IMAGE}^2 with attn_impl=fused_packed and fused: "
+          f"one float32 window card vs CPU, Trainer.fit bfloat16 batch {TRAIN_BATCH}", flush=True)
+    for impl, kernel in (("fused_packed", "fused_axial_attention_packed"),
+                         ("fused", "fused_axial_attention")):
+        cfg, train = cfgs("model_cfg=avit_small", f"model_cfg.params.attn_impl={impl}")
+        model = build_model(cfg["model_cfg"], cfg["data_cfg"])
+        weights = random_state_dict(model, SEED + 52)
+        del model
+        window_phase(f"AViT-small {impl}", cfg["model_cfg"], cfg["data_cfg"], weights,
+                     frames(SEED + 53, IMAGE, IMAGE), dev, {kernel: blocks})
+        runs["D " + impl] = fit_phase(f"AViT-small {impl}", train, TRAIN_BATCH, FUSED_TRAIN_STEPS,
+                                      (IMAGE, IMAGE), {kernel: blocks, kernel + "_bwd": blocks},
+                                      repo / "build" / f"smoke_{impl}", dev, card)
+
+    cfg, train = cfgs("model_cfg=avit_tiny", "optim_cfg=adamw")
+    params = cfg["model_cfg"]["params"]
+    tiny_blocks, c, heads = params["processor_blocks"], params["embed_dim"], params["num_heads"]
+    grid = IMAGE // params["patch_size"]
+    temporal = resolve_temporal_impl("auto", t, grid, grid, c)
+    axial = resolve_axial_impl("auto", grid, grid, c, heads)
+    axial_kernel = {"lane": "lane_axial_attention", "fused_block": "fused_block_attention"}[axial]
+    print(f"== phase 28: path E, AViT-tiny through auto at {IMAGE}^2 ({grid}x{grid} tokens, "
+          f"heads of {c // heads}: temporal {temporal}, axial {axial}) and at "
+          f"{FLOW_HEIGHT}x{FLOW_WIDTH}", flush=True)
+    if temporal != "mega":
+        fail(f"AViT-tiny at {IMAGE}^2 resolves its temporal branch to {temporal}, not mega")
+    model = build_model(cfg["model_cfg"], cfg["data_cfg"])
+    weights = random_state_dict(model, SEED + 54)
+    del model
+    per_e = {"mega_temporal_block": tiny_blocks, axial_kernel: tiny_blocks}
+    window_phase("AViT-tiny 512^2", cfg["model_cfg"], cfg["data_cfg"], weights,
+                 frames(SEED + 55, IMAGE, IMAGE), dev, per_e)
+    runs["E"] = fit_phase("AViT-tiny 512^2", train, TRAIN_BATCH, FUSED_TRAIN_STEPS, (IMAGE, IMAGE),
+                          dict(per_e, mega_temporal_block_bwd=tiny_blocks,
+                               **{axial_kernel + "_bwd": tiny_blocks}),
+                          repo / "build" / "smoke_tiny", dev, card)
+    runs["E axial"] = axial_kernel
+    flow_h, flow_w = FLOW_HEIGHT // params["patch_size"], FLOW_WIDTH // params["patch_size"]
+    if resolve_temporal_impl("auto", t, flow_h, flow_w, c) != "core":
+        fail(f"AViT-tiny at {FLOW_HEIGHT}x{FLOW_WIDTH} does not resolve its temporal branch "
+             f"to core")
+    flow_axial = {"lane": "lane_axial_attention", "fused_block": "fused_block_attention"}[
+        resolve_axial_impl("auto", flow_h, flow_w, c, heads)]
+    runs["E flow"] = fit_phase(
+        f"AViT-tiny {FLOW_HEIGHT}x{FLOW_WIDTH}", train, FLOW_TRAIN_BATCH, 2,
+        (FLOW_HEIGHT, FLOW_WIDTH), {"core_temporal_attention": tiny_blocks,
+                                    "core_temporal_attention_bwd": tiny_blocks,
+                                    flow_axial: tiny_blocks, flow_axial + "_bwd": tiny_blocks},
+        repo / "build" / "smoke_tiny_flow", dev, card)
+    return runs
 
 
 def main() -> None:
@@ -1244,7 +1581,7 @@ def main() -> None:
           f"step {runs['A']['launches']['lane_axial_attention'] // runs['A']['steps']}")
 
     kernels = []
-    axial_cu = "bubbleformer_tpu_torch/csrc/axial_attention.cu"
+    axial_cu = "bubbleformer_tpu_torch/csrc/line_kernels.cuh"  # C entries: axial_attention.cu
     for key, name, source, replaces in (
         ("K1", "mega_temporal_block", "bubbleformer_tpu_torch/csrc/temporal_block.cu",
          "bubbleformer_tpu/ops/temporal_block_mega.py:238"),
@@ -1291,6 +1628,62 @@ def main() -> None:
                       f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
         print(f"  {name}: launches per rollout window {per_window}, "
               f"per training step {run_launches[name] // steps}")
+    # This slice's kernels, their launches from its paths' training runs:
+    # K5 on path C, K6 and K7 on path D, K1 and K3 at head dim 16 on path E.
+    runs5 = slice5_phases(repo, dev, card, results)
+    mega_cu = "bubbleformer_tpu_torch/csrc/axial_block_mega.cu"
+    fused_cu = "bubbleformer_tpu_torch/csrc/line_kernels.cuh"  # C entries: axial_fused.cu
+    jax_ops = "bubbleformer_tpu/ops/"
+    for key, name, counter, source, replaces, run, cases in (
+        ("K5", "mega_axial_block", "mega_axial_block", mega_cu,
+         jax_ops + "axial_block_mega.py:143", runs5["C"], BRANCH_SHAPES["K5"]),
+        ("K5 bwd", "mega_axial_block_bwd", "mega_axial_block_bwd", mega_cu,
+         jax_ops + "axial_block_mega.py:193", runs5["C"], BRANCH_SHAPES["K5"]),
+        ("K6", "fused_axial_attention_packed", "fused_axial_attention_packed", fused_cu,
+         jax_ops + "axial_fused_packed.py:133", runs5["D fused_packed"], SPLIT_SHAPES),
+        ("K6 bwd", "fused_axial_attention_packed_bwd", "fused_axial_attention_packed_bwd",
+         fused_cu, jax_ops + "axial_fused_packed.py:230", runs5["D fused_packed"], SPLIT_SHAPES),
+        ("K7", "fused_axial_attention", "fused_axial_attention", fused_cu,
+         jax_ops + "axial_fused.py:103", runs5["D fused"], SPLIT_SHAPES),
+        ("K7 bwd", "fused_axial_attention_bwd", "fused_axial_attention_bwd", fused_cu,
+         jax_ops + "axial_fused.py:179", runs5["D fused"], SPLIT_SHAPES),
+        ("K1 d16", "mega_temporal_block (head dim 16)", "mega_temporal_block",
+         "bubbleformer_tpu_torch/csrc/temporal_block.cu", jax_ops + "temporal_block_mega.py:238",
+         runs5["E"], BRANCH_SHAPES["K1 d16"]),
+        ("K1 d16 bwd", "mega_temporal_block_bwd (head dim 16)", "mega_temporal_block_bwd",
+         "bubbleformer_tpu_torch/csrc/temporal_block_bwd.cu",
+         jax_ops + "temporal_block_mega.py:269", runs5["E"], BRANCH_SHAPES["K1 d16"]),
+        ("K3 d16", "core_temporal_attention (head dim 16)", "core_temporal_attention",
+         "bubbleformer_tpu_torch/csrc/temporal_block.cu", jax_ops + "temporal_block_mega.py:452",
+         runs5["E flow"], BRANCH_SHAPES["K3 d16"]),
+        ("K3 d16 bwd", "core_temporal_attention_bwd (head dim 16)", "core_temporal_attention_bwd",
+         "bubbleformer_tpu_torch/csrc/temporal_block_bwd.cu",
+         jax_ops + "temporal_block_mega.py:476", runs5["E flow"], BRANCH_SHAPES["K3 d16"]),
+    ):
+        err, ms, plain_ms = results[(key, "bfloat16", "training")]
+        bound_ms, bound_by = bound(*kernel_work(key, cases["training"], "bfloat16"), "bfloat16")
+        launches_run = run["launches"][counter]
+        if launches_run == 0:
+            fail(f"{name} was not launched on its path")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches_run, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+        for where in cases:
+            for dt in ("float32", "bfloat16"):
+                b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)
+                _, k_ms, p_ms = results[(key, dt, where)]
+                extra = (f", cuBLAS's two projections alone {results[('K5 gemm', dt, where)]:.4f} "
+                         f"ms" if key == "K5" else "")
+                print(f"  {name} {where} {cases[where]} {dt}: kernel {k_ms:.4f} ms, "
+                      f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
+        print(f"  {name}: launches per training step {launches_run // run['steps']}")
+    print(f"  path E at {IMAGE}^2: axial branch on {runs5['E axial']}")
+    for label in ("C", "D fused_packed", "D fused", "E", "E flow"):
+        r = runs5[label]
+        print(f"  path {label} training: {r['ms_per_step']:.2f} ms/step, "
+              f"{r['samples_per_s']:.2f} samples/s, peak {r['peak_gb']:.2f} GB")
+    print(f"  path C rollout: {runs5['C rollout']:.2f} frames/s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

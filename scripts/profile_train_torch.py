@@ -11,12 +11,14 @@ on synthetic batches already on the card, of ``--height`` x ``--width``
 pixels (``--size`` for square frames, 512 by default), runs warm-up steps,
 times ``--steps`` steps with CUDA events (ms/step, samples/s, peak memory),
 then traces ``--profile-steps`` more with ``torch.profiler`` and sums the
-device time of every kernel by part: the forward and backward kernels of
-the temporal branch (K1, or K3 where the branch takes the core route: both
-build on the same kernels) and of the axial branch (K2 or K4: one kernel
-family), matrix products (cuBLAS), the optimizer's foreach kernels, and the
-rest (elementwise, reductions, copies).  The idle share is one minus the
-summed kernel time over the host-clock wall time of the traced steps.
+device time of every kernel by part: the port's hand-written kernels (the
+whole-branch kernels K1, K3 and K5 share their products and statistics
+kernels, ``csrc/block_ops.cuh``; the line kernels serve K2, K4, K5, K6 and
+K7), matrix products (cuBLAS), the optimizer's foreach kernels, and the rest
+(elementwise, reductions, copies); and by kernel wrapper (``WRAPPERS``:
+each call of a wrapper is traced as one range, whose device time is that
+of every kernel it launched).  The idle share is one minus the summed
+kernel time over the host-clock wall time of the traced steps.
 
 Prints one JSON object (and writes it to ``--out`` if given).  Needs a
 CUDA card.
@@ -27,6 +29,7 @@ CUDA card.
         --batch 4 data_cfg=flowboiling_chf
     python scripts/profile_train_torch.py --model-cfg avit_small \
         model_cfg.params.attn_impl=fused_block --batch 8
+    python scripts/profile_train_torch.py --batch 8 model_cfg.params.attn_impl=mega
 """
 from __future__ import annotations
 
@@ -48,12 +51,14 @@ from bubbleformer_tpu_torch.training import module_class
 
 # Kernel-name fragments of each part, checked in this order.
 PARTS = (
-    ("temporal backward (K1 or K3)", ("gemm_nt_kernel", "wgrad_kernel", "plane_sums_kernel",
-                                      "attention_bwd_kernel", "in_apply_kernel")),
-    ("temporal forward (K1 or K3)", ("qkv_attention_kernel", "out_proj_kernel",
-                                     "plane_stats_kernel")),
-    ("axial backward (K2 or K4)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
-    ("axial forward (K2 or K4)", ("line_fwd_kernel", "line_short_fwd_kernel")),
+    ("branch products and norms, backward (K1, K3, K5)", (
+        "gemm_nt_kernel", "wgrad_kernel", "plane_sums_kernel", "in_apply_kernel")),
+    ("temporal attention backward (K1, K3)", ("attention_bwd_kernel",)),
+    ("branch products and norms, forward (K1, K3, K5)", ("norm_proj_kernel",
+                                                         "plane_stats_kernel")),
+    ("temporal QKV and attention forward (K1, K3)", ("qkv_attention",)),
+    ("line kernels backward (K2, K4-K7)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
+    ("line kernels forward (K2, K4-K7)", ("line_fwd_kernel", "line_short_fwd_kernel")),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel", "Reduce")),
@@ -67,6 +72,44 @@ def part_of(name: str) -> str:
         if any(f in name for f in fragments):
             return part
     return "other"
+
+
+# The kernel wrappers by module: the functions a forward or a backward of
+# each kernel goes through, looked up by name when they are called, so a
+# traced range can wrap each call.
+WRAPPERS = {
+    "temporal_block_mega": {"mega_temporal_block_fwd": "K1 forward",
+                            "mega_temporal_block_bwd": "K1 backward",
+                            "core_temporal_attention_fwd": "K3 forward",
+                            "core_temporal_attention_bwd": "K3 backward"},
+    "axial_lane": {"_lane_fwd": "K2 forward", "lane_axial_attention_bwd": "K2 backward"},
+    "axial_fused_block": {"_fused_block_fwd": "K4 forward",
+                          "fused_block_attention_bwd": "K4 backward"},
+    "axial_block_mega": {"mega_axial_block_fwd": "K5 forward",
+                         "mega_axial_block_bwd": "K5 backward"},
+    "axial_fused_packed": {"_packed_fwd": "K6 forward",
+                           "fused_axial_attention_packed_bwd": "K6 backward"},
+    "axial_fused": {"_fused_fwd": "K7 forward", "fused_axial_attention_bwd": "K7 backward"},
+}
+
+
+def trace_wrappers() -> None:
+    """Wrap each function of ``WRAPPERS`` in a ``torch.profiler`` range of
+    its label (the profile's only instrumentation; the port has none)."""
+    import functools
+    import importlib
+
+    def traced(fn, label):
+        @functools.wraps(fn)  # keeps the launch counter some wrappers add to by name
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return call
+
+    for module, names in WRAPPERS.items():
+        mod = importlib.import_module(f"bubbleformer_tpu_torch.ops.{module}")
+        for name, label in names.items():
+            setattr(mod, name, traced(getattr(mod, name), label))
 
 
 def main(argv=None) -> None:
@@ -90,6 +133,7 @@ def main(argv=None) -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
 
+    trace_wrappers()
     height, width = args.height or args.size, args.width or args.size
     cfg = load_config([f"{group}={name}" for group, name in (
         ("model_cfg", args.model_cfg), ("optim_cfg", args.optim_cfg)) if name] + args.overrides)
@@ -125,9 +169,18 @@ def main(argv=None) -> None:
             step(args.warmup + args.steps + i)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    per_part, per_kernel, launches = defaultdict(float), defaultdict(float), 0
+    # The wrappers' ranges also appear on the device timeline, as annotations
+    # spanning the kernels launched inside them: not kernels themselves, but
+    # each one's span there is the wrapper's device time (its kernels run
+    # back to back on one stream).
+    labels = {label for names in WRAPPERS.values() for label in names.values()}
+    per_part, per_kernel, per_wrapper = defaultdict(float), defaultdict(float), defaultdict(float)
+    launches = 0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.name in labels:
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                per_wrapper[evt.name] += evt.time_range.elapsed_us() / 1e3
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
             us = evt.time_range.elapsed_us()
             per_part[part_of(evt.name)] += us / 1e3
             per_kernel[evt.name] += us / 1e3
@@ -147,6 +200,8 @@ def main(argv=None) -> None:
         "kernels_per_step": launches / n,
         "parts_ms_per_step": {k: v / n for k, v in sorted(per_part.items(),
                                                         key=lambda kv: -kv[1])},
+        "kernel_wrappers_ms_per_step": {k: v / n for k, v in sorted(per_wrapper.items(),
+                                                                  key=lambda kv: -kv[1])},
         "top_kernels_ms_per_step": {k[:120]: v / n for k, v in sorted(
             per_kernel.items(), key=lambda kv: -kv[1])[:25]},
     }

@@ -6,17 +6,27 @@ import torch
 ZERO_GRADS = ("kn_bias",)
 
 
-def check_grads(names, got, want, tol):
+def check_grads(names, got, want, tol, zero_noise=False):
     """Each gradient in ``got`` within ``tol`` of ``want``, relative to its
     own largest magnitude.  A gradient in ``ZERO_GRADS`` is zero up to
     rounding on both sides (the k-LayerNorm bias: a shift of every key
     leaves the softmax unchanged) and has no scale of its own: it is held
-    to a hundredth of the largest magnitude of all ``want`` gradients."""
+    to a hundredth of the largest magnitude of all ``want`` gradients.
+
+    ``zero_noise``: where the two sides' rounding noise is uncorrelated (K5
+    in bfloat16: its ``dao`` comes out of an InstanceNorm backward whose
+    reassociated sums flip bfloat16 roundings, so the zero gradient is
+    independent noise on each side), such a gradient is held to the
+    reference's own noise instead: at most three times its largest
+    magnitude, plus ``tol`` of the floor."""
     want = [np.asarray(w, np.float64) for w in want]
     floor = 1e-2 * max(np.abs(w).max() for w in want)
     for name, g, w in zip(names, got, want):
         g = np.asarray(g.detach().double() if isinstance(g, torch.Tensor) else g, np.float64)
         assert g.shape == w.shape, name
+        if zero_noise and name in ZERO_GRADS:
+            assert np.abs(g).max() <= 3 * np.abs(w).max() + tol * floor, (name, np.abs(g).max())
+            continue
         err = np.abs(g - w).max() / (floor if name in ZERO_GRADS else np.abs(w).max())
         assert err <= tol, (name, err)
 

@@ -5,7 +5,10 @@ rollout (batch 1) and of the training step (batch 8), and at smaller ones:
 K1 and K2 at FiLMAViT-small's width (C=384), K3 and K2 at AViT-big's
 (C=768), K3 also at FiLMAViT-small's 1024x1024 token grid; K2 and K4 on
 lines longer than one 64-token tile (the 32x128 flow-boiling grid, lines of
-512 and ragged tiles) and at head dim 16 (AViT-tiny).
+512 and ragged tiles) and at head dim 16 (AViT-tiny); K1 and K3 at head dim
+16 (AViT-tiny at 512x512 and 512x2048); K5 (the mega route of the axial
+block), K6 and K7 (fused_packed, fused) at their paths' shapes, at head dim
+16 and on long lines.
 
 This file imports no JAX, so the ``cuda`` tests also run where JAX is not
 installed:
@@ -23,11 +26,31 @@ import pytest
 import torch
 
 from bubbleformer_tpu_torch import _build
+from bubbleformer_tpu_torch.ops import axial_block_mega, temporal_block_mega
+from bubbleformer_tpu_torch.ops.axial_block_mega import (
+    mega_axial_block,
+    mega_axial_block_bwd,
+    mega_axial_block_fwd,
+    mega_axial_bwd_plain,
+    mega_axial_plain,
+)
+from bubbleformer_tpu_torch.ops.axial_fused import (
+    fused_axial_attention,
+    fused_axial_attention_bwd,
+    fused_bwd_plain,
+    fused_plain,
+)
 from bubbleformer_tpu_torch.ops.axial_fused_block import (
     fused_block_attention,
     fused_block_attention_bwd,
     fused_block_bwd_plain,
     fused_block_plain,
+)
+from bubbleformer_tpu_torch.ops.axial_fused_packed import (
+    fused_axial_attention_packed,
+    fused_axial_attention_packed_bwd,
+    fused_packed_bwd_plain,
+    fused_packed_plain,
 )
 from bubbleformer_tpu_torch.ops.axial_lane import (
     axial_attention_bwd_plain,
@@ -419,3 +442,210 @@ def test_line_kernels_raise_outside_their_envelope_on_card(cuda_device):
         fused_block_attention(**args, heads=2)
     with pytest.raises(ValueError, match=r"\(2, 8, 8, 192\)"):
         lane_axial_attention(**args, heads=2)
+
+
+def _k5_args(bt, h, w, c, heads, seed, dtype=torch.float32, device="cpu"):
+    k1 = _k1_args((1, 1, 1, 1, c), heads, seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def n(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+
+    args = dict(x=n(bt, h, w, c).to(dtype),
+                **{k: k1[k] for k in axial_block_mega.PARAM_NAMES[:12]},
+                bias_x=n(heads, w, w), bias_y=n(heads, h, h),
+                scale_x=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)),
+                scale_y=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)))
+    return {k: v.to(device) for k, v in args.items()}
+
+
+def _split_args(bt, h, w, heads, d, seed, dtype=torch.float32, device="cpu"):
+    rng = np.random.default_rng(seed)
+
+    def n(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+
+    args = dict(q=n(bt, h, w, heads, d).to(dtype), k=n(bt, h, w, heads, d).to(dtype),
+                v=n(bt, h, w, heads, d).to(dtype), bias_x=n(heads, w, w), bias_y=n(heads, h, h),
+                scale_x=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)),
+                scale_y=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)))
+    return {k: v.to(device) for k, v in args.items()}
+
+
+@pytest.mark.parametrize("shape,heads,why", [
+    ((1, 3, 8, 16, 64), 2, "head_dim in"),   # d = 32
+    ((1, 3, 8, 16, 64), 4, "a multiple of 3"),  # 4 heads of 16: not whole groups of three
+    ((1, 9, 8, 16, 128), 2, "T <= 8"),
+], ids=["head_dim_32", "heads_4_of_16", "t9"])
+def test_temporal_kernels_reject_shapes_outside_their_envelope(shape, heads, why):
+    """K1's and K3's envelope (head dim 16 in whole groups of three heads, or
+    64; T <= 8) is checked before any launch; a miss names the shape.  Six
+    heads of 16, AViT-tiny's, are inside."""
+    x = torch.zeros(shape)
+    with pytest.raises(ValueError, match=why) as err:
+        temporal_block_mega._check_kernel_shapes("mega_temporal_block", x, heads)
+    assert str(tuple(shape)) in str(err.value)
+    assert temporal_block_mega._check_kernel_shapes("k", torch.zeros(1, 5, 8, 16, 96), 6) == 16
+
+
+@pytest.mark.parametrize("shape,heads,why", [
+    ((2, 8, 8, 64), 2, "head_dim in"),     # d = 32
+    ((1, 8, 600, 128), 2, "at most 512"),  # a row of 600 tokens
+    ((2, 8, 8, 48), 3, "C % 32"),          # 3 heads of 16: C = 48
+], ids=["head_dim_32", "line_600", "c48"])
+def test_k5_rejects_shapes_outside_its_envelope(shape, heads, why):
+    x = torch.zeros(shape)
+    with pytest.raises(ValueError, match=why) as err:
+        axial_block_mega._check_kernel_shapes("mega_axial_block", x, heads)
+    assert str(tuple(shape)) in str(err.value)
+
+
+def test_new_wrappers_raise_on_other_devices():
+    k5 = {k: v.to("meta") for k, v in _k5_args(2, 4, 6, 32, 2, 0).items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        mega_axial_block(**k5, heads=2)
+    split = {k: v.to("meta") for k, v in _split_args(2, 4, 6, 2, 16, 1).items()}
+    for fn in (fused_axial_attention_packed, fused_axial_attention):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(**split)
+
+
+# K5 on path C (FiLMAViT-small's grid at batch 1 and 8), at head dim 16
+# (AViT-tiny's 512x512 grid), on the 32x128 flow-boiling grid (rows of 128)
+# and a small ragged one.
+K5_CASES = [((5, 32, 32), 384, 6), ((40, 32, 32), 384, 6), ((8, 64, 64), 96, 6),
+            ((2, 32, 128), 384, 6), ((2, 12, 72), 128, 2)]
+K5_IDS = ["slice", "training", "d16", "flow", "ragged"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("grid,c,heads", K5_CASES, ids=K5_IDS)
+def test_k5_kernels_match_plain_on_card(cuda_device, grid, c, heads, dtype):
+    """K5 forward and every gradient against the plain versions; one launch
+    of each wrapper.  In bfloat16 the k-LayerNorm bias's gradient, zero up
+    to rounding, is held to the plain version's own rounding noise
+    (``check_grads``'s ``zero_noise``)."""
+    args = _k5_args(*grid, c, heads, 21, dtype, cuda_device)
+    do = torch.randn(*grid, c, generator=torch.Generator().manual_seed(22)).to(cuda_device, dtype)
+    params = list(args.values())[1:]
+    before = (mega_axial_block.launches, mega_axial_block_bwd.launches)
+    got, residuals = mega_axial_block_fwd(args["x"], *params, heads=heads)
+    grads = mega_axial_block_bwd(do, args["x"], *params, heads=heads, residuals=residuals)
+    assert (mega_axial_block.launches, mega_axial_block_bwd.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    assert got.dtype == dtype and grads[0].dtype == dtype
+    _close(got, mega_axial_plain(**args, heads=heads), dtype)
+    want = mega_axial_bwd_plain(do, **args, heads=heads)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    check_grads(list(args), [g.cpu() for g in grads], [w.float().cpu().numpy() for w in want],
+                TOL[dtype], zero_noise=dtype == torch.bfloat16)
+
+
+# K6 and K7 on path D (AViT-small's grid at batch 8), at head dim 16, on
+# rows of 128 and a ragged grid.
+SPLIT_CASES = [((40, 32, 32), 6, 64), ((5, 64, 64), 6, 16), ((2, 32, 128), 6, 64),
+               ((2, 100, 72), 2, 64)]
+SPLIT_IDS = ["training", "d16", "flow", "ragged"]
+SPLIT_KERNELS = {
+    "k6": (fused_axial_attention_packed, fused_axial_attention_packed_bwd, fused_packed_plain,
+           fused_packed_bwd_plain),
+    "k7": (fused_axial_attention, fused_axial_attention_bwd, fused_plain, fused_bwd_plain),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("grid,heads,d", SPLIT_CASES, ids=SPLIT_IDS)
+@pytest.mark.parametrize("kernel", list(SPLIT_KERNELS))
+def test_k6_k7_kernels_match_plain_on_card(cuda_device, kernel, grid, heads, d, dtype):
+    fwd, bwd, plain, bwd_plain = SPLIT_KERNELS[kernel]
+    args = _split_args(*grid, heads, d, 23, dtype, cuda_device)
+    do = torch.randn(*grid, heads, d, generator=torch.Generator().manual_seed(24))
+    do = do.to(cuda_device, dtype)
+    before = (fwd.launches, bwd.launches)
+    got = fwd(**args)
+    grads = bwd(do, *args.values())
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and all(g.dtype == dtype for g in grads[:3])
+    _close(got, plain(**args), dtype)
+    want = bwd_plain(do, **args)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    check_grads(list(args), [g.cpu() for g in grads], [w.float().cpu().numpy() for w in want],
+                TOL[dtype])
+
+
+# K1 at head dim 16 (AViT-tiny at 512x512: 64x64 tokens, at batch 1 and 8)
+# and K3 (its 512x2048 frames: 64x256 tokens), and small ones.
+D16_CASES = [("k1", (1, 5, 64, 64, 96)), ("k1", (8, 5, 64, 64, 96)), ("k1", (2, 3, 8, 16, 96)),
+             ("k3", (1, 5, 64, 256, 96)), ("k3", (2, 3, 8, 16, 192))]
+D16_IDS = ["k1_slice", "k1_training", "k1_small", "k3_flow", "k3_small_12_heads"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kernel,shape", D16_CASES, ids=D16_IDS)
+def test_k1_k3_at_head_dim_16_match_plain_on_card(cuda_device, kernel, shape, dtype):
+    heads = shape[-1] // 16
+    m = temporal_block_mega
+    if kernel == "k1":
+        args = _k1_args(shape, heads, 25, dtype, cuda_device)
+        fwd, bwd, plain, bwd_plain = (m.mega_temporal_block_fwd, m.mega_temporal_block_bwd,
+                                      m.temporal_branch_plain, m.temporal_branch_bwd_plain)
+    else:
+        args = _k3_args(shape, heads, 25, dtype, cuda_device)
+        fwd, bwd, plain, bwd_plain = (m.core_temporal_attention_fwd,
+                                      m.core_temporal_attention_bwd, m.core_temporal_plain,
+                                      m.core_temporal_bwd_plain)
+    do = torch.randn(shape, generator=torch.Generator().manual_seed(26)).to(cuda_device, dtype)
+    act, params = args[next(iter(args))], list(args.values())[1:]
+    got, res = fwd(act, *params, heads=heads)
+    grads = (bwd(do, act, *params, heads=heads, residuals=res) if kernel == "k1" else
+             bwd(do, act, *params, heads=heads, qkv=res))
+    _close(got, plain(**args, heads=heads), dtype)
+    want = bwd_plain(do, **args, heads=heads)
+    torch.cuda.synchronize()
+    assert grads[0].dtype == dtype and all(torch.isfinite(g.float()).all() for g in grads)
+    check_grads(list(args), [g.cpu() for g in grads], [w.float().cpu().numpy() for w in want],
+                TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_new_autograd_functions_launch_both_kernels_on_card(cuda_device):
+    """Forward and backward through ``mega_axial_block``,
+    ``fused_axial_attention_packed`` and ``fused_axial_attention`` launch
+    one kernel each."""
+    k5 = {k: v.requires_grad_() for k, v in _k5_args(2, 8, 8, 96, 6, 27,
+                                                      device=cuda_device).items()}
+    counts = (mega_axial_block.launches, mega_axial_block_bwd.launches)
+    mega_axial_block(**k5, heads=6).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (mega_axial_block.launches, mega_axial_block_bwd.launches) == (counts[0] + 1,
+                                                                           counts[1] + 1)
+    assert all(torch.isfinite(v.grad).all() for v in k5.values())
+    for fwd, bwd, _, _ in SPLIT_KERNELS.values():
+        args = {k: v.requires_grad_() for k, v in _split_args(2, 8, 8, 6, 16, 28,
+                                                               device=cuda_device).items()}
+        counts = (fwd.launches, bwd.launches)
+        fwd(**args).square().sum().backward()
+        torch.cuda.synchronize()
+        assert (fwd.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+        assert all(torch.isfinite(v.grad).all() for v in args.values())
+
+
+@pytest.mark.cuda
+def test_new_kernels_raise_outside_their_envelope_on_card(cuda_device):
+    """Head dim 32 is outside every kernel; K1 at four heads of 16 is not
+    whole groups of three."""
+    k5 = _k5_args(2, 8, 8, 64, 2, 29, device=cuda_device)
+    with pytest.raises(ValueError, match=r"\(2, 8, 8, 64\)"):
+        mega_axial_block(**k5, heads=2)
+    split = _split_args(2, 8, 8, 2, 32, 30, device=cuda_device)
+    for fn in (fused_axial_attention_packed, fused_axial_attention):
+        with pytest.raises(ValueError, match=r"\(2, 8, 8, 2, 32\)"):
+            fn(**split)
+    k1 = _k1_args((1, 3, 8, 16, 64), 4, 31, device=cuda_device)
+    with pytest.raises(ValueError, match=r"\(1, 3, 8, 16, 64\)"):
+        mega_temporal_block(**k1, heads=4)

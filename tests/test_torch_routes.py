@@ -6,8 +6,8 @@ than one 64-token tile inside a model.
 * ``resolve_temporal_impl`` and ``resolve_axial_impl`` against the JAX
   package's ``_resolve_attn_impl`` as it resolves on a TPU (its backend
   check answered "tpu"), at the token grids of the repo's configs;
-* names whose JAX route is a Pallas kernel not yet ported raise
-  ``NotImplementedError`` naming its ROADMAP row;
+* names whose JAX route is a Pallas kernel not yet ported (``flash``, K8)
+  raise ``NotImplementedError`` naming its ROADMAP row;
 * the temporal ``unrolled`` and ``plain`` routes and the axial ``plain`` and
   ``unrolled`` routes, whole blocks in float32 and bfloat16, against the JAX
   blocks with the same ``attn_impl``;
@@ -77,12 +77,12 @@ def test_auto_resolves_as_the_jax_package_on_a_tpu(grid, monkeypatch):
 
 
 @pytest.mark.parametrize("impl,branch,row", [
-    ("mega", "axial", "K5"), ("fused_packed", "axial", "K6"), ("fused", "axial", "K7"),
     ("flash", "axial", "K8"), ("flash", "temporal", "K8"), ("auto", "temporal", "K8"),
 ])
 def test_unported_kernels_raise_naming_their_roadmap_row(impl, branch, row):
-    """``mega`` is K1 in the temporal branch but K5 in the axial one; auto
-    at T >= 64 is K8."""
+    """``flash`` runs K8 in either branch; auto at T >= 64 is K8.  The axial
+    ``mega`` (K5), ``fused_packed`` (K6) and ``fused`` (K7) routes are ported
+    (``tests/test_torch_mega_route.py``, ``tests/test_torch_fused_packed.py``)."""
     if branch == "axial":
         block, x = AxialAttentionBlock(32, 4, attn_impl=impl), torch.zeros(1, 4, 4, 32)
     else:
