@@ -35,10 +35,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # dtype, head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout,
-    # bout, bias, scale, stats1, qkv, ao, stats2, out, B, T, N, C, heads, stream
-    "bf_temporal_block_fwd": [_I] * 2 + [_P] * 17 + [_I] * 5 + [_P],
+    # bout, bias, scale, stats1, qkv, ao, ao_r, stats2, out, B, T, N, C, heads,
+    # stream
+    "bf_temporal_block_fwd": [_I] * 2 + [_P] * 18 + [_I] * 5 + [_P],
     # dtype, head_dim, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b,
-    # wout_t, bias, scale, stats1, ao, stats2, work, sums, dqkv, dx, din1,
+    # wout_t, bias, scale, stats1, ao_r, stats2, work, sums, dqkv, dx, din1,
     # dwqkv, dbqkv, dln, din2, dwout, dbout, dbias, dscale, B, T, N, C, heads,
     # stream
     "bf_temporal_block_bwd": [_I] * 2 + [_P] * 28 + [_I] * 5 + [_P],
@@ -60,6 +61,17 @@ _SIGNATURES = {
     # dtype, head_dim, packed, qkv3, do, bias_x, bias_y, scale, dqkv3, dacc,
     # stats, dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
     "bf_axial_fused_bwd": [_I] * 3 + [_P] * 11 + [_I] * 5 + [_P],
+    # dtype, head_dim, qkv3, bias, scale, out, M, n, heads, stream
+    "bf_axial_flash_fwd": [_I] * 2 + [_P] * 4 + [_I] * 3 + [_P],
+    # dtype, head_dim, qkv3, dout, bias, scale, dqkv3, stats, dbias, dscale,
+    # M, n, heads, stream
+    "bf_axial_flash_bwd": [_I] * 2 + [_P] * 8 + [_I] * 3 + [_P],
+    # n
+    "bf_lp_norm_splits": [_I],
+    # p_dtype, t_dtype, pred, tgt, partial, out, m, n, stream
+    "bf_lp_norms_fwd": [_I] * 2 + [_P] * 4 + [_I] * 2 + [_P],
+    # p_dtype, t_dtype, pred, tgt, coef, dpred, m, n, stream
+    "bf_lp_norms_bwd": [_I] * 2 + [_P] * 4 + [_I] * 2 + [_P],
     # dtype, head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout,
     # bout, bias_x, bias_y, scale, stats1, qkv, ao, ao_r, stats2, out, BT, H,
     # W, C, heads, stream

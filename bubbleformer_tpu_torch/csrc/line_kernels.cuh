@@ -11,6 +11,7 @@
 //   kFused       K7 axial_fused.py:_fwd_kernel, _bwd_chunk         axial_fused.cu
 //   kMega        K5's attention, axial_block_mega.py:_attn_chunks_fwd
 //                (its backward is kFusedBlock's)                    axial_block_mega.cu
+//   kFlash       K8 axial_pallas.py:_fwd_kernel, _bwd_kernel        axial_flash.cu
 //
 // All compute, per head, attention along each image row (over W, T5 table
 // bias_x, attn scale s_x) and along each column (over H, bias_y, s_y), and
@@ -31,6 +32,14 @@
 // masks make the packed products exactly per-line attention, which is what
 // this computes; h != w is supported and the two directions are independent
 // launches over their own lines.
+//
+// K8 (kFlash) is one direction only: M independent lines of n tokens per
+// head, read from and written to (heads, M, n, d) planes (the launchers get
+// BT = 1, H = M, W = n and run the row pass alone).  Its function is K7's
+// without the second direction: o = dtype(P_eff v) with P_eff = s P +
+// (1-s)/n in float32, rounded once (axial_pallas.py:66-79); the backward
+// takes dao = dout as it is, keeps dS and P_eff in float32 and rounds dq,
+// dk and dv once (:82-152).
 //
 // Forward, launched once per direction on one stream: pass 0 (rows) writes
 // its float32 output, pass 1 (columns) reads it and writes the result.
@@ -103,7 +112,7 @@ constexpr int kLineThreads = 256;
 constexpr int kLineWarps = kLineThreads / 32;
 constexpr int kTile = 64;  // tokens of a query or key tile
 
-enum class Flavour { kLane, kFusedBlock, kPacked, kFused, kMega };
+enum class Flavour { kLane, kFusedBlock, kPacked, kFused, kMega, kFlash };
 
 template <Flavour F>
 struct Rounding {
@@ -111,15 +120,19 @@ struct Rounding {
   static constexpr bool ln = F == Flavour::kLane || F == Flavour::kFusedBlock ||
                              F == Flavour::kMega;
   // The attn_scale blend folded into the probabilities: o = P_eff v.
-  static constexpr bool fold = F == Flavour::kLane || F == Flavour::kFused;
+  static constexpr bool fold = F == Flavour::kLane || F == Flavour::kFused ||
+                               F == Flavour::kFlash;
   // P (P_eff), dS and dao rounded to the activation dtype.
-  static constexpr bool round = F != Flavour::kFused;
+  static constexpr bool round = F != Flavour::kFused && F != Flavour::kFlash;
   // The two directions summed in float32 (output, and q, k, v gradients).
   static constexpr bool f32_sum = F == Flavour::kFusedBlock || F == Flavour::kPacked ||
                                   F == Flavour::kMega;
   // The output kept in float32, in place of the row pass's scratch (and a
   // rounded copy written).
   static constexpr bool f32_out = F == Flavour::kMega;
+  // One direction over (heads, M, n, d) planes (K8): the row pass alone
+  // writes the rounded output and its gradients, dao = dout.
+  static constexpr bool one_pass = F == Flavour::kFlash;
 };
 
 template <typename T, bool kRound>
@@ -141,9 +154,12 @@ struct Planes {
   }
 };
 
-template <typename P>
-Planes<P> make_planes(P base, bool interleaved, int D, int BT, int H, int W, int C) {
-  if (interleaved) return Planes<P>{base, D, 3 * C, 3 * D};
+// The flavour's layout: interleaved qkv (qk-LN flavours), (3, BT, H, W, C)
+// planes (K6, K7), or (3, heads, M, n, d) planes (K8: BT = 1, H = M, W = n).
+template <Flavour F, typename P>
+Planes<P> make_planes(P base, int D, int BT, int H, int W, int C) {
+  if (Rounding<F>::ln) return Planes<P>{base, D, 3 * C, 3 * D};
+  if (Rounding<F>::one_pass) return Planes<P>{base, (long long)BT * H * W * C, D, H * W * D};
   return Planes<P>{base, (long long)BT * H * W * C, C, D};
 }
 
@@ -168,6 +184,14 @@ struct LineCtx {
   }
 };
 
+// Where element d of a (token, head) row of the output, and of its gradient,
+// lies: (BT, H, W, C), or K8's (heads, M, n, d) planes.
+template <Flavour F, int D>
+__device__ __forceinline__ size_t out_at(const LineCtx& c, size_t token, int d) {
+  if (Rounding<F>::one_pass) return ((size_t)c.h * c.H * c.W + token) * D + d;
+  return token * c.C + (size_t)c.h * D + d;
+}
+
 // Rows r0 .. r0 + n of component comp into dst (row stride D + 1, float32).
 template <typename T, int D>
 __device__ void stage(float* dst, const Planes<const T*>& src, const LineCtx& c, int comp,
@@ -178,14 +202,15 @@ __device__ void stage(float* dst, const Planes<const T*>& src, const LineCtx& c,
   }
 }
 
-// dao = R(0.5 * dout) of rows r0 .. r0 + n.
-template <typename T, int D, bool kRound>
+// dao = R(0.5 * dout) of rows r0 .. r0 + n (K8: dout itself).
+template <typename T, int D, Flavour F>
 __device__ void stage_dao(float* dst, const T* __restrict__ dout, const LineCtx& c, int r0,
                           int n) {
+  using R = Rounding<F>;
   for (int e = threadIdx.x; e < n * D; e += kLineThreads) {
     const int i = e / D, j = e % D;
-    dst[i * (D + 1) + j] =
-        maybe_round<T, kRound>(0.5f * to_f32(dout[c.token(r0 + i) * c.C + c.h * D + j]));
+    const float g = to_f32(dout[out_at<F, D>(c, c.token(r0 + i), j)]);
+    dst[i * (D + 1) + j] = maybe_round<T, R::round>(R::one_pass ? g : 0.5f * g);
   }
 }
 
@@ -254,13 +279,16 @@ __device__ __forceinline__ float value_weight(float p, float s, float uniform) {
 // One output of a query token at `at`: the no-fold flavours' blend with the
 // window mean of v, then pass 0's float32 row output or, in pass 1, the mean
 // of both directions in the flavour's rounding (kMega: in place, in float32,
-// and rounded into `out`, the backward's residual).
+// and rounded into `out`, the backward's residual); K8's one pass rounds its
+// output once.
 template <typename T, Flavour F>
 __device__ __forceinline__ void emit_out(float* row_out, T* out, size_t at, float o, float s,
                                          float vmean, int pass) {
   using R = Rounding<F>;
   if (!R::fold) o = s * o + (1.f - s) * vmean;
-  if (pass == 0) {
+  if (R::one_pass) {
+    out[at] = from_f32<T>(o);
+  } else if (pass == 0) {
     row_out[at] = o;
   } else if (R::f32_out) {
     const float v = 0.5f * row_out[at] + 0.5f * o;
@@ -348,7 +376,7 @@ __global__ void __launch_bounds__(kLineThreads) line_short_fwd_kernel(
     const float* p = ps + i * ldp;
     float a = 0.f;
     for (int j = 0; j < L; ++j) a += p[j] * vs[j * LDS + d];
-    emit_out<T, F>(row_out, out, c.token(i) * C + (size_t)c.h * D + d, a, s,
+    emit_out<T, F>(row_out, out, out_at<F, D>(c, c.token(i), d), a, s,
                    R::fold ? 0.f : vsum[d] / L, pass);
   }
 }
@@ -459,7 +487,7 @@ __global__ void __launch_bounds__(kLineThreads, 4) line_fwd_kernel(
   }
   for (int e = tid; e < nq * D; e += kLineThreads) {
     const int i = e / D, d = e % D;
-    emit_out<T, F>(row_out, out, c.token(q0 + i) * C + (size_t)c.h * D + d, os[i * LDS + d], s,
+    emit_out<T, F>(row_out, out, out_at<F, D>(c, c.token(q0 + i), d), os[i * LDS + d], s,
                    R::fold ? 0.f : vsum[d] / L, pass);
   }
 }
@@ -652,7 +680,7 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_q_kernel(
     st_z[i] = st_a[i] = st_g[i] = 0.f;
   }
   stage<T, D>(R::ln ? qr : qs, src, c, 0, q0, nq);
-  stage_dao<T, D, R::round>(ds, dout, c, q0, nq);
+  stage_dao<T, D, F>(ds, dout, c, q0, nq);
   __syncthreads();
   if constexpr (R::ln) ln_rows<T, D>(qs, qr, nq, ln, ln + D);
 
@@ -820,7 +848,7 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_kv_kernel(
   for (int q0 = 0; q0 < L; q0 += kTile) {
     const int nq = min(kTile, L - q0);
     stage<T, D>(qs, src, c, 0, q0, nq);
-    stage_dao<T, D, R::round>(ds, dout, c, q0, nq);
+    stage_dao<T, D, F>(ds, dout, c, q0, nq);
     for (int e = tid; e < 3 * nq; e += kLineThreads) st[e] = sth[(size_t)q0 * 3 + e];
     __syncthreads();
     if constexpr (R::ln) {
@@ -896,8 +924,8 @@ int line_attention_fwd(const AxialArgs& a) {
                                 (int)fwd_smem_bytes<D>())) != cudaSuccess)
     return e;
   const Planes<const T*> src =
-      make_planes(static_cast<const T*>(a.qkv), R::ln, D, a.BT, a.H, a.W, a.C);
-  for (int pass = 0; pass < 2; ++pass) {
+      make_planes<F>(static_cast<const T*>(a.qkv), D, a.BT, a.H, a.W, a.C);
+  for (int pass = 0; pass < (R::one_pass ? 1 : 2); ++pass) {
     const int L = pass == 0 ? a.W : a.H, lines = pass == 0 ? a.H : a.W;
     const float* bias = pass == 0 ? a.bias_x : a.bias_y;
     T* out = static_cast<T*>(a.out);
@@ -927,11 +955,11 @@ int line_attention_bwd(const AxialArgs& a) {
                                 (int)bwd_kv_smem_bytes<D>(kTile))) != cudaSuccess)
     return e;
   const Planes<const T*> src =
-      make_planes(static_cast<const T*>(a.qkv), R::ln, D, a.BT, a.H, a.W, a.C);
-  const Planes<T*> dst = make_planes(static_cast<T*>(a.dqkv), R::ln, D, a.BT, a.H, a.W, a.C);
-  const Planes<float*> dacc = make_planes(a.dacc, R::ln, D, a.BT, a.H, a.W, a.C);
+      make_planes<F>(static_cast<const T*>(a.qkv), D, a.BT, a.H, a.W, a.C);
+  const Planes<T*> dst = make_planes<F>(static_cast<T*>(a.dqkv), D, a.BT, a.H, a.W, a.C);
+  const Planes<float*> dacc = make_planes<F>(a.dacc, D, a.BT, a.H, a.W, a.C);
   const T* dout = static_cast<const T*>(a.dout);
-  for (int pass = 0; pass < 2; ++pass) {
+  for (int pass = 0; pass < (R::one_pass ? 1 : 2); ++pass) {
     const int L = pass == 0 ? a.W : a.H, lines = pass == 0 ? a.H : a.W;
     const int tl = L < kTile ? L : kTile, nt = (L + kTile - 1) / kTile;
     const dim3 grid(lines * nt, a.heads, a.BT);

@@ -19,8 +19,10 @@
 //       steps, group of heads): normalise the x rows, multiply by the group's
 //       contiguous slice of W_qkv (HeadGroup below), add the bias, qk-LN, the
 //       T x T attention, and write the attention output `ao` in float32 (the
-//       TPU kernel's f32 ao scratch) and the rounded raw qkv, which the
-//       backward reads instead of redoing the product;
+//       TPU kernel's f32 ao scratch), a copy of it rounded to the activation
+//       dtype (the TPU kernel's ao_ref, the residual its backward recomputes
+//       IN2 from, temporal_block_mega.py:259, :325) and the rounded raw qkv,
+//       which the backward reads instead of redoing the product;
 //   (c) plane_stats_kernel over ao (IN2);
 //   (d) norm_proj_kernel (block_ops.cuh): IN2 apply, multiply by
 //       (W_out * gamma), add (b_out * gamma).
@@ -31,7 +33,8 @@
 // What bounds it at the slice shape (B=1, T=5, 32x32 tokens, C=384, 6 heads,
 // per block per window): the QKV product is ~4.5 GFLOP and the output
 // product ~1.5 GFLOP; activations are ~4 MB in bf16 (x, out) plus 7.9 MB of
-// f32 ao and 11.8 MB of bf16 qkv kept for the backward.  Both products run in
+// f32 ao scratch, and 3.9 MB of bf16 ao and 11.8 MB of bf16 qkv kept for the
+// backward.  Both products run in
 // bf16 on the tensor cores through WMMA (16x16x16, f32 accumulate) and in
 // float32 as an FMA loop; at these sizes the kernel is bound by latency and
 // the x re-reads (each head group's block of a tile normalises the same x
@@ -78,7 +81,7 @@ __global__ void __launch_bounds__(kThreads) qkv_attention64_kernel(
     const float* __restrict__ in1_w, const float* __restrict__ in1_b,
     const T* __restrict__ wqkv, const float* __restrict__ bqkv, const float* __restrict__ ln,
     const float* __restrict__ bias, const float* __restrict__ scale, T* __restrict__ qkv,
-    O* __restrict__ ao, int steps, int N, int C) {
+    O* __restrict__ ao, T* __restrict__ ao_r, int steps, int N, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n0 = blockIdx.x * kP, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -161,9 +164,15 @@ __global__ void __launch_bounds__(kThreads) qkv_attention64_kernel(
           m1 += v[lane + 32];
         }
       }
-      O* dst = ao + ((size_t)(b * steps + i) * N + n0 + p) * C + h * kD;
-      dst[lane] = from_f32<O>(s_h * o0 + (1.f - s_h) * (m0 * inv_t));
-      dst[lane + 32] = from_f32<O>(s_h * o1 + (1.f - s_h) * (m1 * inv_t));
+      const size_t at = ((size_t)(b * steps + i) * N + n0 + p) * C + h * kD;
+      const float a0 = s_h * o0 + (1.f - s_h) * (m0 * inv_t);
+      const float a1 = s_h * o1 + (1.f - s_h) * (m1 * inv_t);
+      ao[at + lane] = from_f32<O>(a0);
+      ao[at + lane + 32] = from_f32<O>(a1);
+      if constexpr (kNorm) {
+        ao_r[at + lane] = from_f32<T>(a0);
+        ao_r[at + lane + 32] = from_f32<T>(a1);
+      }
     }
   }
 }
@@ -171,15 +180,16 @@ __global__ void __launch_bounds__(kThreads) qkv_attention64_kernel(
 // (b) at head dim 16: grid (N / kP, heads / kHeads, B).  GEMM rows are m = t * kP + p.
 // kNorm: the rows of x are normalised by IN1 while staged (K1); without it x
 // is already the IN1 output and is read as it is (K3).  ao is written in O:
-// float32 for K1's IN2, the activation dtype for K3.  qkv may be null (no
-// backward will read it).
+// float32 for K1's IN2, the activation dtype for K3.  K1 (kNorm) also writes
+// ao rounded to the activation dtype into ao_r, the residual its backward
+// reads (K3 passes null).  qkv may be null (no backward will read it).
 template <typename T, typename O, bool kNorm, int D>
 __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
     const T* __restrict__ x, const float* __restrict__ mean1, const float* __restrict__ rstd1,
     const float* __restrict__ in1_w, const float* __restrict__ in1_b,
     const T* __restrict__ wqkv, const float* __restrict__ bqkv, const float* __restrict__ ln,
     const float* __restrict__ bias, const float* __restrict__ scale, T* __restrict__ qkv,
-    O* __restrict__ ao, int steps, int N, int C) {
+    O* __restrict__ ao, T* __restrict__ ao_r, int steps, int N, int C) {
   using G = HeadGroup<D>;
   constexpr int kPer = HeadRow<D>::kPer;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -285,11 +295,15 @@ __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
           }
         }
       }
-      O* dst = ao + ((size_t)(b * steps + i) * N + n0 + p) * C + h * D;
+      const size_t at = ((size_t)(b * steps + i) * N + n0 + p) * C + h * D;
 #pragma unroll
-      for (int u = 0; u < kPer; ++u)
-        if (in_row(u))
-          dst[lane + 32 * u] = from_f32<O>(s_h * o[u] + (1.f - s_h) * (mv[u] * inv_t));
+      for (int u = 0; u < kPer; ++u) {
+        if (in_row(u)) {
+          const float a = s_h * o[u] + (1.f - s_h) * (mv[u] * inv_t);
+          ao[at + lane + 32 * u] = from_f32<O>(a);
+          if constexpr (kNorm) ao_r[at + lane + 32 * u] = from_f32<T>(a);
+        }
+      }
     }
   }
 }
@@ -308,8 +322,9 @@ template <typename T, int D>
 int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, const void* wqkv,
                        const float* bqkv, const float* ln, const float* in2_w, const float* in2_b,
                        const void* wout, const float* bout, const float* bias, const float* scale,
-                       float* stats1, void* qkv, float* ao, float* stats2, void* out, int B,
-                       int steps, int N, int C, int heads, cudaStream_t stream) {
+                       float* stats1, void* qkv, float* ao, void* ao_r, float* stats2,
+                       void* out, int B, int steps, int N, int C, int heads,
+                       cudaStream_t stream) {
   const int G = B * steps;
   cudaError_t e;
   if ((e = launch_plane_stats<T>(static_cast<const T*>(x), G, N, C, stats1, stream)) !=
@@ -323,8 +338,8 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
     return e;
   kernel<<<dim3(N / kP, heads / HeadGroup<D>::kHeads, B), kThreads, smem_b, stream>>>(
       static_cast<const T*>(x), stats1, stats1 + (size_t)G * C, in1_w, in1_b,
-      static_cast<const T*>(wqkv), bqkv, ln, bias, scale, static_cast<T*>(qkv), ao, steps, N,
-      C);
+      static_cast<const T*>(wqkv), bqkv, ln, bias, scale, static_cast<T*>(qkv), ao,
+      static_cast<T*>(ao_r), steps, N, C);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   if ((e = launch_plane_stats<float>(ao, G, N, C, stats2, stream)) != cudaSuccess) return e;
@@ -345,7 +360,7 @@ int run_core_temporal(const void* xn, const void* wqkv, const float* bqkv, const
     return e;
   kernel<<<dim3(N / kP, heads / HeadGroup<D>::kHeads, B), kThreads, smem_b, stream>>>(
       static_cast<const T*>(xn), nullptr, nullptr, nullptr, nullptr, static_cast<const T*>(wqkv),
-      bqkv, ln, bias, scale, static_cast<T*>(qkv), static_cast<T*>(ao), steps, N, C);
+      bqkv, ln, bias, scale, static_cast<T*>(qkv), static_cast<T*>(ao), nullptr, steps, N, C);
   return cudaGetLastError();
 }
 
@@ -362,23 +377,24 @@ bool temporal_shape_ok(int head_dim, int steps, int N, int C, int heads) {
 
 // x, out: (B, T, N, C) in dtype; wqkv (3C, C) and wout (C, C) in dtype, torch
 // (out, in) layout; ln (4, head_dim) = [q scale; q bias; k scale; k bias];
-// bias (heads, T, T); scale (heads,).  Also written, for the backward: stats1
-// and stats2 (2, B*T, C) and ao (B*T*N, C) in float32, and the rounded raw
-// qkv (B*T*N, 3C) in dtype.  head_dim 16 (heads a multiple of 3) or 64,
+// bias (heads, T, T); scale (heads,).  Also written: the float32 scratch of
+// IN2, ao (B*T*N, C) and stats2 (2, B*T, C); and for the backward stats1 (2,
+// B*T, C) in float32, ao_r (B*T*N, C) (ao rounded) and the rounded raw qkv
+// (B*T*N, 3C) in dtype.  head_dim 16 (heads a multiple of 3) or 64,
 // T <= 8, N % 16 == 0 and C % 32 == 0.  Returns a cudaError_t.
 extern "C" int bf_temporal_block_fwd(int dtype, int head_dim, const void* x, const float* in1_w,
                                      const float* in1_b, const void* wqkv, const float* bqkv,
                                      const float* ln, const float* in2_w, const float* in2_b,
                                      const void* wout, const float* bout, const float* bias,
                                      const float* scale, float* stats1, void* qkv, float* ao,
-                                     float* stats2, void* out, int B, int steps, int N, int C,
-                                     int heads, void* stream) {
+                                     void* ao_r, float* stats2, void* out, int B, int steps,
+                                     int N, int C, int heads, void* stream) {
   if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BFT_RUN(T, D)                                                                           \
   return bft::run_temporal_block<T, D>(x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout, bout, \
-                                       bias, scale, stats1, qkv, ao, stats2, out, B, steps, N,  \
-                                       C, heads, s)
+                                       bias, scale, stats1, qkv, ao, ao_r, stats2, out, B,      \
+                                       steps, N, C, heads, s)
   if (dtype == bft::kF32 && head_dim == 64) BFT_RUN(float, 64);
   if (dtype == bft::kF32 && head_dim == 16) BFT_RUN(float, 16);
   if (dtype == bft::kBF16 && head_dim == 64) BFT_RUN(__nv_bfloat16, 64);

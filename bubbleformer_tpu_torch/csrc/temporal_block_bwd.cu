@@ -7,13 +7,14 @@
 // _make_temporal_block, custom VJP fused_bwd): every gradient of the branch
 // IN1 -> QKV -> qk-LN -> T x T attention (T5 bias, s*P + (1-s)/T) -> IN2 ->
 // output projection, from the output gradient `do` and the forward kernel's
-// residuals (the rounded raw qkv, the float32 attention output `ao` and both
-// InstanceNorms' statistics, temporal_block.cu).
+// residuals (the rounded raw qkv, the attention output `ao` rounded to the
+// activation dtype and InstanceNorm1's statistics, temporal_block.cu).
 //
 // Split.  The InstanceNorm backward needs plane-wide means of dy and
 // dy * xhat over all N tokens of a (b, t) plane, and every parameter
 // gradient is a sum over all B*T*N tokens, so the TPU kernel's one grid
-// step per image becomes ten launches on one stream:
+// step per image becomes eleven launches on one stream:
+//   (0) plane_stats:   IN2's statistics again, from the rounded ao
 //   (1) gemm_nt:       dy2 = do . W_out                       (float32 scratch)
 //   (2) wgrad:         dW_out += do^T . y2, y2 = IN2(ao) recomputed while staged
 //   (3) plane_sums:    db_out = sum do
@@ -41,11 +42,14 @@
 //
 // Rounding follows the TPU kernel (temporal_block_mega.py:324-449): dao,
 // s*dao and the raw-component dqkv in the activation dtype, dx returned in
-// it, everything else float32.  The IN2 recompute reads the float32 ao the
-// forward wrote (the TPU kernel re-reads a rounded copy), and the attention
-// pass reads the forward's rounded qkv where the TPU kernel redoes IN1 and
-// the QKV product: the same values, for 4.5 of 16.6 GFLOP less per block at
-// batch 1 and one residual of B*T*N*3C activation-dtype values more.
+// it, everything else float32.  IN2 is recomputed from ao rounded to the
+// activation dtype, as the TPU kernel recomputes it from its ao_ref (:259,
+// :325), where the forward normalised the float32 ao: in bfloat16 this
+// backward is the TPU kernel's, not exactly the gradient of the forward (as
+// K5's, axial_block_mega.cu).  The attention pass reads the forward's
+// rounded qkv where the TPU kernel redoes IN1 and the QKV product: the same
+// values, for 4.5 of 16.6 GFLOP less per block at batch 1 and one residual
+// of B*T*N*3C activation-dtype values more.
 //
 // What bounds it at the rollout shape (B=1, T=5, 32x32 tokens, C=384, 6
 // heads): ~12.1 GFLOP (dy2 and dW_out 1.5 each, dxn and dW_qkv 4.5 each)
@@ -77,12 +81,12 @@ struct HeadGroup {
 // (5): grid (N / kP, heads / kHeads, B), kThreads threads, kP * steps * kLDC
 // floats of dynamic shared memory; tile rows m = t * kP + p.  kDirect: dao is
 // read from dao_in (K3, the output gradient in dtype) instead of being the
-// IN2 backward of dy2 (K1; dy2, ao, mean2, rstd2, in2_w and sums2 are then
-// unused).
+// IN2 backward of dy2 at the rounded ao (K1; dy2, ao, mean2, rstd2, in2_w and
+// sums2 are then unused).
 template <typename T, bool kDirect, int D>
 __global__ void __launch_bounds__(kThreads) attention_bwd_kernel(
     const T* __restrict__ qkv, const float* __restrict__ ln, const float* __restrict__ bias,
-    const float* __restrict__ scale, const float* __restrict__ dy2, const float* __restrict__ ao,
+    const float* __restrict__ scale, const float* __restrict__ dy2, const T* __restrict__ ao,
     const float* __restrict__ mean2, const float* __restrict__ rstd2,
     const float* __restrict__ in2_w, const float* __restrict__ sums2,
     const T* __restrict__ dao_in, T* __restrict__ dqkv,
@@ -183,7 +187,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_kernel(
               dv2 = to_f32(dao_in[row * C + c]);
             } else {
               const int s = g * C + c;
-              const float xh2 = (ao[row * C + c] - mean2[s]) * rstd2[s];
+              const float xh2 = (to_f32(ao[row * C + c]) - mean2[s]) * rstd2[s];
               dv2 = round_to<T>(rstd2[s] * in2_w[c] *
                                 (dy2[row * C + c] - sums2[s] / N -
                                  xh2 * (sums2[(size_t)Gp * C + s] / N)));
@@ -311,7 +315,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_kernel(
 
 template <typename T, bool kDirect, int D>
 cudaError_t launch_attention_bwd(const T* qkv, const float* ln, const float* bias,
-                                 const float* scale, const float* dy2, const float* ao,
+                                 const float* scale, const float* dy2, const T* ao,
                                  const float* stats2, const float* in2_w, const float* sums2,
                                  const T* dao, T* dqkv, float* dln, float* dbias, float* dscale,
                                  int B, int steps, int N, int C, int heads, cudaStream_t stream) {
@@ -333,7 +337,7 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
                            const float* in1_b, const T* wqkv_t, const float* ln,
                            const float* in2_w, const float* in2_b, const T* wout_t,
                            const float* bias, const float* scale, const float* stats1,
-                           const float* ao, const float* stats2, float* work, float* sums,
+                           const T* ao, float* stats2, float* work, float* sums,
                            T* dqkv, T* dx, float* din1, float* dwqkv, float* dbqkv, float* dln,
                            float* din2, float* dwout, float* dbout, float* dbias, float* dscale,
                            int B, int steps, int N, int C, int heads, cudaStream_t stream) {
@@ -341,17 +345,19 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
   cudaError_t e;
 #define BFT_TRY(call) \
   if ((e = (call)) != cudaSuccess) return e
+  // (0) IN2's statistics of the rounded ao
+  BFT_TRY((launch_plane_stats<T>(ao, G, N, C, stats2, stream)));
   // (1) dy2 = do . W_out
   BFT_TRY((launch_gemm_nt<T, float>(dout, wout_t, work, R, C, C, stream)));
   // (2) dW_out += do^T . IN2(ao)
-  BFT_TRY((launch_wgrad<T, float, true>(dout, C, ao, stats2, in2_w, in2_b, C, G, N, dwout,
-                                        stream)));
+  BFT_TRY((launch_wgrad<T, T, true>(dout, C, ao, stats2, in2_w, in2_b, C, G, N, dwout,
+                                    stream)));
   // (3) db_out
   BFT_TRY((launch_plane_sums<T, float>(dout, nullptr, nullptr, G, N, C, nullptr, nullptr, dbout,
                                        stream)));
   // (4) IN2 backward sums; d(in2 scale, bias)
-  BFT_TRY((launch_plane_sums<float, float>(work, ao, stats2, G, N, C, sums, din2, din2 + C,
-                                           stream)));
+  BFT_TRY((launch_plane_sums<float, T>(work, ao, stats2, G, N, C, sums, din2, din2 + C,
+                                       stream)));
   // (5) attention backward -> dqkv, dln, dbias, dscale
   BFT_TRY((launch_attention_bwd<T, false, D>(qkv, ln, bias, scale, work, ao, stats2, in2_w, sums,
                                              nullptr, dqkv, dln, dbias, dscale, B, steps, N, C,
@@ -411,9 +417,10 @@ bool temporal_shape_ok(int head_dim, int steps, int N, int C, int heads) {
 
 // x, dout, dx: (B, T, N, C) in dtype; wqkv_t (C, 3C) and wout_t (C, C) in
 // dtype (transposes of the torch (out, in) weights); ln (4, head_dim); bias
-// (heads, T, T); scale (heads,); stats1/stats2 (2, B*T, C), qkv (B*T*N, 3C)
-// and ao (B*T*N, C) from bf_temporal_block_fwd; work (B*T*N, C) and sums (2,
-// B*T, C) float32 scratch, dqkv (B*T*N, 3C) dtype scratch.  Outputs, float32
+// (heads, T, T); scale (heads,); stats1 (2, B*T, C) and, in dtype, qkv
+// (B*T*N, 3C) and ao_r (B*T*N, C) from bf_temporal_block_fwd; work (B*T*N,
+// C), sums and stats2 (2, B*T, C) float32 scratch, dqkv (B*T*N, 3C) dtype
+// scratch.  Outputs, float32
 // and zeroed by the caller except dx: din1 (2, C) = [scale; bias], dwqkv (3C,
 // C), dbqkv (3C), dln (4, head_dim), din2 (2, C), dwout (C, C), dbout (C),
 // dbias (heads, T, T), dscale (heads).  The envelope of
@@ -422,8 +429,8 @@ extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, con
                                      const void* qkv, const float* in1_w, const float* in1_b,
                                      const void* wqkv_t, const float* ln, const float* in2_w,
                                      const float* in2_b, const void* wout_t, const float* bias,
-                                     const float* scale, const float* stats1, const float* ao,
-                                     const float* stats2, float* work, float* sums, void* dqkv,
+                                     const float* scale, const float* stats1, const void* ao_r,
+                                     float* stats2, float* work, float* sums, void* dqkv,
                                      void* dx, float* din1, float* dwqkv, float* dbqkv,
                                      float* dln, float* din2, float* dwout, float* dbout,
                                      float* dbias, float* dscale, int B, int steps, int N, int C,
@@ -433,7 +440,8 @@ extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, con
 #define BFT_ARGS(T)                                                                           \
   static_cast<const T*>(x), static_cast<const T*>(dout), static_cast<const T*>(qkv), in1_w,   \
       in1_b, static_cast<const T*>(wqkv_t), ln, in2_w, in2_b,                                 \
-      static_cast<const T*>(wout_t), bias, scale, stats1, ao, stats2, work, sums,             \
+      static_cast<const T*>(wout_t), bias, scale, stats1, static_cast<const T*>(ao_r), stats2,  \
+      work, sums,                                                                             \
       static_cast<T*>(dqkv), static_cast<T*>(dx), din1, dwqkv, dbqkv, dln, din2, dwout, dbout, \
       dbias, dscale, B, steps, N, C, heads, s
   using bf16 = __nv_bfloat16;

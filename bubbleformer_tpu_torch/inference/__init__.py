@@ -3,6 +3,7 @@ from bubbleformer_tpu_torch.inference.rollout import (
     make_rollout_fn,
     make_rollout_metrics_fn,
     rollout_targets,
+    window_relative_l2,
 )
 
 __all__ = [
@@ -10,4 +11,5 @@ __all__ = [
     "make_rollout_fn",
     "make_rollout_metrics_fn",
     "rollout_targets",
+    "window_relative_l2",
 ]

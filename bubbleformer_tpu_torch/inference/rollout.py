@@ -37,6 +37,16 @@ def make_rollout_fn(model, num_windows: int, conditioned: bool = False) -> Calla
     return rollout
 
 
+def window_relative_l2(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Relative L2 of each ``(H, W)`` plane of ``(B, T, C, H, W)`` windows,
+    in float32, averaged over the batch: ``(T, C)``.  The window metric of
+    both modes of ``scripts/inference_torch.py``, so the in-scan and the
+    post-hoc lines come from one arithmetic."""
+    diff = torch.sqrt(((pred - target).float() ** 2).sum(dim=(-2, -1)))
+    norm = torch.sqrt((target.float() ** 2).sum(dim=(-2, -1)))
+    return (diff / norm).mean(dim=0)
+
+
 def make_rollout_metrics_fn(model, num_windows: int, dfun_index: Optional[int] = None,
                             dx: float = 1.0 / 32.0, conditioned: bool = False) -> Callable:
     """Rollout that reduces each window to its metrics as it goes and keeps
@@ -50,9 +60,7 @@ def make_rollout_metrics_fn(model, num_windows: int, dfun_index: Optional[int] =
     def window_metrics(pred, target):
         ys = {}
         if target is not None:
-            diff = torch.sqrt(((pred - target).float() ** 2).sum(dim=(-2, -1)))
-            norm = torch.sqrt((target.float() ** 2).sum(dim=(-2, -1)))
-            ys["rel_l2"] = (diff / norm).mean(dim=0)
+            ys["rel_l2"] = window_relative_l2(pred, target)
         if dfun_index is not None:
             phi = pred[:, :, dfun_index]
             ys["eikonal"] = torch.stack(

@@ -11,11 +11,15 @@ with ``memory_lean=False``: the port has no ``scan_blocks``):
   projection; ``core`` (``:246,255-277``): InstanceNorm1,
   :func:`~bubbleformer_tpu_torch.ops.temporal_block_mega.
   core_temporal_attention` (K3), InstanceNorm2, the output projection and
-  gamma in the activation dtype; ``unrolled`` and ``plain`` (and every name
-  that falls through there), the XLA route (``:279-322``): InstanceNorm1,
-  the QKV Dense in the activation dtype, qk-LayerNorm cast back,
-  :func:`~bubbleformer_tpu_torch.ops.attention.xla_axis_attention`,
-  InstanceNorm2, the output Dense and gamma.  The residual is added outside
+  gamma in the activation dtype; ``flash`` and ``packed`` (``:287-300``):
+  InstanceNorm1, the QKV Dense in the activation dtype, qk-LayerNorm cast
+  back, the lines ``(heads, B*H*W, T, d)`` through :func:`~bubbleformer_tpu_torch.
+  ops.axial_pallas.flash_packed_attention` (K8) or the XLA
+  :func:`~bubbleformer_tpu_torch.ops.attention.packed_attention`,
+  InstanceNorm2, the output Dense and gamma; ``unrolled`` and ``plain`` (and
+  every name that falls through there), the XLA route (``:279-322``): the
+  same with :func:`~bubbleformer_tpu_torch.ops.attention.xla_axis_attention`
+  on the ``(B, H, W, heads, T, d)`` layout.  The residual is added outside
   any of them.
 * :class:`AxialAttentionBlock`: ``mega`` (``:425-444``): the whole branch
   in :func:`~bubbleformer_tpu_torch.ops.axial_block_mega.mega_axial_block`
@@ -28,12 +32,15 @@ with ``memory_lean=False``: the port has no ``scan_blocks``):
   (``:490-502``): the QKV Dense in the activation dtype, qk-LayerNorm cast
   back, then :func:`~bubbleformer_tpu_torch.ops.axial_fused_packed.
   fused_axial_attention_packed` (K6) or :func:`~bubbleformer_tpu_torch.ops.
-  axial_fused.fused_axial_attention` (K7); ``unrolled``, ``plain`` and every
-  name that falls through there, the XLA route (``:467-547``).
+  axial_fused.fused_axial_attention` (K7); ``flash`` and ``packed``
+  (``:506-537``): the QKV Dense, qk-LayerNorm cast back, rows ``(heads,
+  B*H, W, d)`` and columns ``(heads, B*W, H, d)`` through K8 or the XLA
+  ``packed_attention``, their mean in the activation dtype; ``unrolled``,
+  ``plain`` and every name that falls through there, the XLA route
+  (``:467-547``).
 
-Names whose JAX route is a Pallas kernel not yet ported (``flash``, K8)
-raise ``NotImplementedError`` naming its row of ``ROADMAP.md`` Queue 2.  The XLA
-routes are not fallbacks: they are what the JAX package computes there.
+The XLA routes are not fallbacks: they are what the JAX package computes
+there.
 
 Parameters carry the reference torch model's names and shapes on every
 route, so checkpoints interchange: the QKV and output heads are 1x1-conv
@@ -53,6 +60,7 @@ from bubbleformer_tpu_torch.layers.positional import RelativePositionBias
 from bubbleformer_tpu_torch.layers.stochastic import drop_path
 from bubbleformer_tpu_torch.ops.attention import (
     from_cols,
+    packed_attention,
     qk_layer_norm,
     to_cols,
     to_rows,
@@ -66,6 +74,7 @@ from bubbleformer_tpu_torch.ops.axial_lane import (
     lane_axial_attention_from_x,
     lane_axial_supported,
 )
+from bubbleformer_tpu_torch.ops.axial_pallas import flash_packed_attention
 from bubbleformer_tpu_torch.ops.temporal_block_mega import (
     core_temporal_attention,
     core_temporal_supported,
@@ -73,24 +82,12 @@ from bubbleformer_tpu_torch.ops.temporal_block_mega import (
     mega_temporal_supported,
 )
 
-# Routes whose JAX kernel is a Pallas kernel the port does not have yet:
-# route -> its row of ROADMAP.md Queue 2, by branch.
-UNPORTED = {
-    "temporal": {"flash": "K8"},
-    "axial": {"flash": "K8"},
-}
 # The axial routes of K6 and K7, which take q, k, v after the block's
 # qk-LayerNorm.
 _SPLIT_KERNELS = {"fused_packed": fused_axial_attention_packed, "fused": fused_axial_attention}
-
-
-def _check_ported(branch: str, impl: str) -> None:
-    row = UNPORTED[branch].get(impl)
-    if row is not None:
-        raise NotImplementedError(
-            f"attn_impl={impl!r} runs the Pallas kernel {row} in the {branch} branch of the JAX "
-            f"package, which the port does not have yet (ROADMAP.md, Queue 2, row {row})"
-        )
+# The routes of both branches over lines (heads, M, n, d) after qk-LayerNorm
+# (``bubbleformer_tpu/layers/attention.py:131``).
+_PACKED_IMPLS = {"packed": packed_attention, "flash": flash_packed_attention}
 
 
 def resolve_temporal_impl(impl: str, t: int, h: int, w: int, c: int) -> str:
@@ -157,7 +154,6 @@ class TemporalAttentionBlock(nn.Module):
         heads = self.num_heads
         scale = None if self.attn_scale_factor is None else self.attn_scale_factor.reshape(heads)
         impl = resolve_temporal_impl(self.attn_impl, t, h, w, c)
-        _check_ported("temporal", impl)
         if impl == "mega":
             return drop_path(self._mega_branch(x, scale), drop_path_rate, generator,
                              self.training) + x
@@ -175,13 +171,22 @@ class TemporalAttentionBlock(nn.Module):
             qkv = dense(xn, self.input_head.weight.reshape(3 * c, c), self.input_head.bias,
                         self.dtype).reshape(b, t, h, w, heads, 3, c // heads)
             q, k = qk_layer_norm(qkv[..., 0, :], qkv[..., 1, :], self.qnorm, self.knorm)
+            v, d = qkv[..., 2, :], c // heads
+            if impl in _PACKED_IMPLS:
+                def lines(a):  # (b, t, h, w, heads, d) -> (heads, b*h*w, t, d)
+                    return a.permute(4, 0, 2, 3, 1, 5).reshape(heads, b * h * w, t, d)
 
-            def seq(a):  # (b, t, h, w, heads, d) -> (b, h, w, heads, t, d)
-                return a.permute(0, 2, 3, 4, 1, 5)
+                out = _PACKED_IMPLS[impl](lines(q), lines(k), lines(v), self.rel_pos_bias(t, t),
+                                          scale)
+                out = out.reshape(heads, b, h, w, t, d).permute(1, 4, 2, 3, 0, 5)
+            else:
+                def seq(a):  # (b, t, h, w, heads, d) -> (b, h, w, heads, t, d)
+                    return a.permute(0, 2, 3, 4, 1, 5)
 
-            out = xla_axis_attention(seq(q), seq(k), seq(qkv[..., 2, :]), self.rel_pos_bias(t, t),
-                                     scale, unrolled=impl == "unrolled")
-            out = out.permute(0, 4, 1, 2, 3, 5).reshape(b, t, h, w, c)
+                out = xla_axis_attention(seq(q), seq(k), seq(v), self.rel_pos_bias(t, t), scale,
+                                         unrolled=impl == "unrolled")
+                out = out.permute(0, 4, 1, 2, 3, 5)
+            out = out.reshape(b, t, h, w, c)
         out = dense(self.norm2(out), self.output_head.weight.reshape(c, c),
                     self.output_head.bias, self.dtype)
         branch = out * self.gamma.to(out.dtype)
@@ -245,7 +250,6 @@ class AxialAttentionBlock(nn.Module):
         b, h, w, c = x.shape
         heads = self.num_heads
         impl = resolve_axial_impl(self.attn_impl, h, w, c, heads)
-        _check_ported("axial", impl)
         inp = x
 
         def scale(p):
@@ -276,26 +280,44 @@ class AxialAttentionBlock(nn.Module):
             x = _SPLIT_KERNELS[impl](q, k, q5[..., 2, :], *tables).reshape(b, h, w, c)
         else:
             x = self._xla_attention(dense(x, wqkv, self.input_head.bias, self.dtype), tables,
-                                    unrolled=impl == "unrolled")
+                                    impl)
         x = self.norm2(x)
         x = dense(x, self.output_head.weight.reshape(c, c), self.output_head.bias, self.dtype)
         return self._epilogue(x, inp, drop_path_rate, generator)
 
-    def _xla_attention(self, qkv, tables, unrolled):
-        """The JAX package's XLA route (``layers/attention.py:467-547``): qk-LN
-        cast back, rows and columns by :func:`xla_axis_attention`, their
-        mean in the activation dtype."""
+    def _xla_attention(self, qkv, tables, impl):
+        """The JAX package's routes from the QKV Dense (``layers/
+        attention.py:467-547``): qk-LN cast back, rows and columns by K8 or
+        the XLA ``packed_attention`` over ``(heads, lines, L, d)``, or by
+        :func:`xla_axis_attention` (``plain``, ``unrolled``), their mean in
+        the activation dtype."""
         b, h, w, c3 = qkv.shape
         heads = self.num_heads
         c = c3 // 3
-        q5 = qkv.reshape(b, h, w, heads, 3, c // heads)
+        d = c // heads
+        q5 = qkv.reshape(b, h, w, heads, 3, d)
         q, k = qk_layer_norm(q5[..., 0, :], q5[..., 1, :], self.qnorm, self.knorm)
         v = q5[..., 2, :]
         bias_x, bias_y, scale_x, scale_y = tables
-        xx = to_rows(xla_axis_attention(to_rows(q), to_rows(k), to_rows(v), bias_x, scale_x,
-                                        unrolled))
-        xy = from_cols(xla_axis_attention(to_cols(q), to_cols(k), to_cols(v), bias_y, scale_y,
-                                          unrolled))
+        if impl in _PACKED_IMPLS:
+            fn = _PACKED_IMPLS[impl]
+
+            def rows(a):  # (b, h, w, heads, d) -> (heads, b*h, w, d)
+                return a.permute(3, 0, 1, 2, 4).reshape(heads, b * h, w, d)
+
+            def cols(a):  # (b, h, w, heads, d) -> (heads, b*w, h, d)
+                return a.permute(3, 0, 2, 1, 4).reshape(heads, b * w, h, d)
+
+            xx = fn(rows(q), rows(k), rows(v), bias_x, scale_x)
+            xx = xx.reshape(heads, b, h, w, d).permute(1, 2, 3, 0, 4)
+            xy = fn(cols(q), cols(k), cols(v), bias_y, scale_y)
+            xy = xy.reshape(heads, b, w, h, d).permute(1, 3, 2, 0, 4)
+        else:
+            unrolled = impl == "unrolled"
+            xx = to_rows(xla_axis_attention(to_rows(q), to_rows(k), to_rows(v), bias_x, scale_x,
+                                            unrolled))
+            xy = from_cols(xla_axis_attention(to_cols(q), to_cols(k), to_cols(v), bias_y,
+                                              scale_y, unrolled))
         return ((xx + xy) * 0.5).reshape(b, h, w, c)
 
     def _epilogue(self, x, inp, drop_path_rate, generator):

@@ -75,7 +75,9 @@ class HMLPEmbed(nn.Module):
 
 class HMLPDebed(nn.Module):
     """``(B, H/p, W/p, E) -> (B, C_out, H, W)`` (channels-first output, the
-    last depth-to-space shuffle folded into the NCHW relayout)."""
+    last depth-to-space shuffle folded into the NCHW relayout), or ``(B, H,
+    W, C_out)`` with ``emit_nchw=False`` (the pyramid's own channels-last
+    layout, ``bubbleformer_tpu/layers/patching.py`` ``emit_nchw``)."""
 
     def __init__(self, patch_size: int = 16, out_channels: int = 3, embed_dim: int = 768,
                  dtype: Optional[torch.dtype] = None):
@@ -94,7 +96,7 @@ class HMLPDebed(nn.Module):
         self.num_stages = n
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, emit_nchw: bool = True) -> torch.Tensor:
         for i in range(self.num_stages):
             w = self.out_proj[3 * i].weight  # (I, O, dy, dx)
             cin, cout = w.shape[0], w.shape[1]
@@ -103,8 +105,10 @@ class HMLPDebed(nn.Module):
             y = torch.matmul(x.to(dt), k.to(dt))  # (b, h, w, (dy, dx, out))
             b, h, ww = y.shape[:3]
             y = y.reshape(b, h, ww, 2, 2, cout)
-            if i == self.num_stages - 1:
+            if i == self.num_stages - 1 and emit_nchw:
                 return y.permute(0, 5, 1, 3, 2, 4).reshape(b, cout, 2 * h, 2 * ww)
             x = y.permute(0, 1, 3, 2, 4, 5).reshape(b, 2 * h, 2 * ww, cout)
+            if i == self.num_stages - 1:
+                return x
             x = F.gelu(self.out_proj[3 * i + 1](x), approximate="none")
         return x

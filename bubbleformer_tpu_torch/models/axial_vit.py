@@ -4,9 +4,11 @@ Counterpart of ``bubbleformer_tpu/models/axial_vit.py``, unrolled:
 ``HMLPEmbed -> N SpaceTimeBlocks (drop-path rates linear 0 -> drop_path) ->
 HMLPDebed``, with FiLM modulation after the embed for :class:`FiLMAViT`.
 The public layout is ``(B, T, C, H, W)``; activations between embed and
-debed are channels-last ``(B, T, h, w, E)``.  ``attn_impl`` picks the
-route of every temporal and every axial branch, as the JAX models' field of
-that name does (``layers/attention.py:resolve_temporal_impl``,
+debed are channels-last ``(B, T, h, w, E)``, and ``output_layout="nhwc"``
+returns the debed pyramid's channels-last ``(B, T, H, W, C)`` (the
+channels-last training loss reads it, ``training/module.py``).
+``attn_impl`` picks the route of every temporal and every axial branch, as
+the JAX models' field of that name does (``layers/attention.py:resolve_temporal_impl``,
 ``resolve_axial_impl``).
 The JAX package's TPU options (the ``carry="cm"`` layout, ``scan_blocks``,
 remat, ``spatial_shard_axis``) have no counterpart here.
@@ -91,15 +93,24 @@ class AViT(nn.Module):
             x = block(x, rate, generator)
         return x
 
-    def _decode(self, x: torch.Tensor) -> torch.Tensor:
-        """``(B, T, h, w, E)`` -> ``(B, T, C_out, H, W)``."""
+    def _decode(self, x: torch.Tensor, output_layout: str = "nchw") -> torch.Tensor:
+        """``(B, T, h, w, E)`` -> ``(B, T, C_out, H, W)``, or ``(B, T, H, W,
+        C_out)`` for ``output_layout="nhwc"`` (the same parameters: the
+        output fold is a pure shuffle)."""
+        if output_layout not in ("nchw", "nhwc"):
+            raise ValueError(f"output_layout must be nchw|nhwc, got {output_layout!r}")
         b, t = x.shape[:2]
-        x = self.debed(x.reshape(b * t, x.shape[2], x.shape[3], self.embed_dim))
-        return x.reshape(b, t, self.output_fields, x.shape[2], x.shape[3])
+        x = self.debed(x.reshape(b * t, x.shape[2], x.shape[3], self.embed_dim),
+                       emit_nchw=output_layout == "nchw")
+        return x.reshape(b, t, *x.shape[1:])
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    # The forecast module checks this before asking for output_layout.
+    supports_output_layout = True
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                output_layout: str = "nchw") -> torch.Tensor:
         """``generator`` draws the drop-path masks in train mode."""
-        return self._decode(self._process(self._encode(x), generator))
+        return self._decode(self._process(self._encode(x), generator), output_layout)
 
 
 @register_model("filmavit")
@@ -112,6 +123,7 @@ class FiLMAViT(AViT):
         self.film_embed = FiLMMLP(num_fluid_params, self.embed_dim, dtype=self.dtype)
 
     def forward(self, x: torch.Tensor, fluid_params: torch.Tensor,  # type: ignore[override]
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                output_layout: str = "nchw") -> torch.Tensor:
         x = self.film_embed(self._encode(x), fluid_params)
-        return self._decode(self._process(x, generator))
+        return self._decode(self._process(x, generator), output_layout)

@@ -16,10 +16,10 @@ points, and the plain versions must round where their kernel does:
   (``axial_lane.py:_axis_fwd``): ``fold_dtype=<activation dtype>``.
 
 In float32 both are the same function, and so are the JAX package's XLA
-routes (:func:`xla_axis_attention`), which round where XLA rounds.  The
-plain versions accumulate in float32, or in float64 for float64 inputs
-(:func:`accumulation_dtype`), so that the tests can hold their gradients
-against float64 autograd.
+routes (:func:`xla_axis_attention`, :func:`packed_attention`), which round
+where XLA rounds.  The plain versions accumulate in float32, or in float64
+for float64 inputs (:func:`accumulation_dtype`), so that the tests can hold
+their gradients against float64 autograd.
 """
 from __future__ import annotations
 
@@ -112,6 +112,50 @@ def xla_axis_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # unrolled: 1 - s after the cast (``:185-187``); plain: before (``:249``).
     one_minus = 1.0 - s.to(dt) if unrolled else (1.0 - s).to(dt)
     return s.to(dt) * out + one_minus * v_mean
+
+
+def pick_group_size(num_elements: int, seq_len: int, target: int = 256) -> int:
+    """The XLA ``packed`` route's packing group: the largest G with G*n <=
+    target that divides the number of lines (``bubbleformer_tpu/ops/
+    attention.py:62``)."""
+    g = max(1, target // seq_len)
+    while g > 1 and num_elements % g:
+        g -= 1
+    return g
+
+
+def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     scale_factor: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's XLA ``packed`` route (``bubbleformer_tpu/ops/
+    attention.py:76 packed_attention``): ``q``, ``k``, ``v`` ``(heads, M,
+    n, d)``, ``bias`` ``(heads, n, n)``, ``scale_factor`` ``(heads,)``;
+    returns ``(heads, M, n, d)`` in ``v.dtype``.
+
+    JAX packs :func:`pick_group_size` lines into one super-line with a
+    block-diagonal -1e9 mask; ``exp(-1e9)`` underflows to exactly 0 in
+    float32, so each row is its own line's softmax and the masked products
+    add exact zeros: per-line attention, which is what this computes, for
+    ``G > 1`` and for the ``G <= 1`` branch through ``scaled_axial_attention``
+    alike.  It rounds where both branches round: float32 logits and softmax,
+    the probabilities rounded to ``v.dtype``, their product with ``v``
+    accumulated in float32 and rounded (:func:`xla_axis_attention`), then
+    the blend ``s * out + (1 - s) * mean(v)`` in ``v.dtype`` with ``1 - s``
+    taken after the cast (``:106-108``, ``:134-136``).  In bfloat16 this is
+    neither the ``plain`` route (``1 - s`` before the cast) nor K8 (float32
+    throughout, rounded once)."""
+    heads = q.shape[0]
+    dt, acc = v.dtype, accumulation_dtype(v.dtype)
+
+    def lines(a):  # (heads, M, n, d) -> (M, heads, n, d), a view
+        return a.transpose(0, 1)
+
+    out = xla_axis_attention(lines(q), lines(k), lines(v), bias, None).transpose(0, 1)
+    if scale_factor is None:
+        return out
+    s = scale_factor.reshape(heads, 1, 1, 1).to(dt)
+    v_mean = v.to(acc).mean(dim=-2, keepdim=True).to(dt)
+    return s * out + (1.0 - s) * v_mean
 
 
 def qk_layer_norm(q: torch.Tensor, k: torch.Tensor, qnorm, knorm):

@@ -22,14 +22,15 @@ Rounding follows the TPU kernel (``temporal_block_mega.py:246-266`` forward,
 the attention output ``ao`` and every statistic in float32.  In the backward
 ``dao``, ``s*dao`` and the raw-component ``dqkv`` are rounded to the
 activation dtype (``:344``, ``:376``, ``:412-423``) and ``dx`` is returned in
-it; every parameter gradient is float32.  Two differences from the TPU
-kernel's residuals: that kernel keeps ``ao`` in the activation dtype
-(``:259``, out_shape ``:853``) and recomputes IN2 from the rounded copy,
-while the port keeps the float32 ``ao`` its forward already wrote, so its
-backward differentiates exactly the function its forward computed; and that
-kernel redoes IN1 and the QKV product in its backward, while the port's
-forward also writes the rounded raw ``qkv`` (the same values) for its
-backward to read.
+it; every parameter gradient is float32.  As the TPU kernel does, the
+forward keeps ``ao`` rounded to the activation dtype as its residual
+(``:259``, out_shape ``:853``) and the backward recomputes InstanceNorm2
+from that copy (``:325``), where the forward normalised the float32 ``ao``:
+in bfloat16 the backward is the TPU kernel's, not exactly the gradient of
+the forward (K5 does the same, ``ops/axial_block_mega.py``).  One difference
+from the TPU kernel's residuals: it redoes IN1 and the QKV product in its
+backward, while the port's forward also writes the rounded raw ``qkv`` (the
+same values) for its backward to read.
 
 K3, :func:`core_temporal_attention`, is the counterpart of
 ``core_temporal_attention`` of the same JAX module: the middle of K1 — QKV
@@ -235,7 +236,8 @@ def temporal_branch_bwd_plain(
     xn = (xhat1 * in1_scale.to(acc) + in1_bias.to(acc)).to(dt).to(acc)
     r = _attention_recompute(xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias,
                              scale_factor, heads, dt)
-    xhat2, rstd2 = plane_xhat(r["ao"])
+    # IN2 recomputed from the rounded ao, the TPU kernel's residual.
+    xhat2, rstd2 = plane_xhat(r["ao"].to(dt).to(acc))
     y2 = (xhat2 * in2_scale.to(acc) + in2_bias.to(acc)).to(dt).to(acc)
 
     # ---- output projection and InstanceNorm2
@@ -318,10 +320,11 @@ def _kernel_params(x, in1_scale, in1_bias, wqkv, bqkv, qn_scale, qn_bias, kn_sca
 
 def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int):
     """K1's forward kernel on CUDA tensors: ``(out, residuals)`` where
-    ``residuals = (stats1, qkv, ao, stats2)`` are what the backward kernel
-    reads — the float32 IN1 statistics of ``x`` ``(2, B*T, C)`` (mean; rstd),
-    the rounded raw QKV projection ``(B*T*N, 3C)`` in ``x.dtype``, the
-    float32 attention output ``(B*T*N, C)`` and its IN2 statistics.  Counts
+    ``residuals = (stats1, qkv, ao_r)`` are what the backward kernel reads —
+    the float32 IN1 statistics of ``x`` ``(2, B*T, C)`` (mean; rstd), the
+    rounded raw QKV projection ``(B*T*N, 3C)`` and the attention output
+    ``(B*T*N, C)`` rounded, both in ``x.dtype``.  The float32 attention output
+    and its IN2 statistics are scratch, freed on return.  Counts
     ``mega_temporal_block.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"mega_temporal_block_fwd: the kernel needs a CUDA tensor, not {x.device}")
@@ -333,17 +336,18 @@ def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int):
     stats1 = torch.empty(2, b * t, c, device=dev)
     qkv = torch.empty(b * t * n, 3 * c, device=dev, dtype=dt)
     ao = torch.empty(b * t * n, c, device=dev)
+    ao_r = torch.empty(b * t * n, c, device=dev, dtype=dt)
     stats2 = torch.empty(2, b * t, c, device=dev)
     out = torch.empty_like(x)
     lib = _build.library()
     err = lib.bf_temporal_block_fwd(
         _build.DTYPE_CODES[dt], d, x.data_ptr(), *(a.data_ptr() for a in p.values()),
-        stats1.data_ptr(), qkv.data_ptr(), ao.data_ptr(), stats2.data_ptr(), out.data_ptr(),
-        b, t, n, c, heads, _build.stream_handle(dev),
+        stats1.data_ptr(), qkv.data_ptr(), ao.data_ptr(), ao_r.data_ptr(), stats2.data_ptr(),
+        out.data_ptr(), b, t, n, c, heads, _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_temporal_block_fwd")
     mega_temporal_block.launches += 1
-    return out, (stats1, qkv, ao, stats2)
+    return out, (stats1, qkv, ao_r)
 
 
 def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: int,
@@ -367,12 +371,12 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
     b, t, h, w, c = x.shape
     n, g, dev, dt = h * w, b * t, x.device, x.dtype
     p = _kernel_params(x, *params, heads)
-    stats1, qkv, ao, stats2 = residuals
+    stats1, qkv, ao_r = residuals
     _build.check_shapes("mega_temporal_block_bwd", do=(do, x.shape), qkv=(qkv, (g * n, 3 * c)),
-                        ao=(ao, (g * n, c)), stats1=(stats1, (2, g, c)),
-                        stats2=(stats2, (2, g, c)))
-    if qkv.dtype != dt:
-        raise TypeError(f"mega_temporal_block_bwd: qkv residual is {qkv.dtype}, x is {dt}")
+                        ao=(ao_r, (g * n, c)), stats1=(stats1, (2, g, c)))
+    if qkv.dtype != dt or ao_r.dtype != dt:
+        raise TypeError(f"mega_temporal_block_bwd: residuals qkv {qkv.dtype} and ao "
+                        f"{ao_r.dtype}, x is {dt}")
 
     def zeros(*shape):
         return torch.zeros(*shape, device=dev)
@@ -389,6 +393,7 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
     wqkv_t, wout_t = p["wqkv"].t().contiguous(), p["wout"].t().contiguous()
     work = torch.empty(g * n, c, device=dev)  # dy2, then dxn
     sums = torch.empty(2, g, c, device=dev)
+    stats2 = torch.empty(2, g, c, device=dev)  # IN2 of ao_r
     dqkv = torch.empty(g * n, 3 * c, device=dev, dtype=dt)
     lib = _build.library()
     err = lib.bf_temporal_block_bwd(
@@ -396,7 +401,7 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
         p["in1_w"].data_ptr(), p["in1_b"].data_ptr(), wqkv_t.data_ptr(), p["ln"].data_ptr(),
         p["in2_w"].data_ptr(), p["in2_b"].data_ptr(), wout_t.data_ptr(),
         p["bias"].data_ptr(), p["scale"].data_ptr(),
-        stats1.data_ptr(), ao.data_ptr(), stats2.data_ptr(),
+        stats1.data_ptr(), ao_r.data_ptr(), stats2.data_ptr(),
         work.data_ptr(), sums.data_ptr(), dqkv.data_ptr(),
         *(a.data_ptr() for a in grads.values()),
         b, t, n, c, heads, _build.stream_handle(dev),

@@ -11,9 +11,22 @@ count, and :meth:`ForecastModule.train_step` updates them in place.
 
 The learning rate of the update made at step ``t`` (counting from 0) is
 ``schedule(t)``, as optax applies its schedule, so ``cosine_warmup``'s
-first update has lr 0.  The channels-last loss (``loss_layout="nhwc"``) and
-the Pallas loss kernel (K10, ``BUBBLEFORMER_LOSS_KERNEL``) are not ported:
-only the ``nchw`` criterion exists here.
+first update has lr 0.
+
+Two knobs of the JAX module (``:76-104``, ``:117-153``, ``:204-230``):
+
+* ``loss_layout`` (constructor, else ``BUBBLEFORMER_LOSS_LAYOUT``, else
+  ``"nchw"``): ``"nhwc"`` has the train step ask the model for its
+  channels-last output (``output_layout="nhwc"``) and compute the same
+  criterion with its plane sums over axes (2, 3) against the target
+  relayouted once outside the gradient (:meth:`ForecastModule._loss_nhwc`);
+  a model without ``supports_output_layout`` warns and keeps ``"nchw"``.
+  The eval step stays ``"nchw"``.
+* ``BUBBLEFORMER_LOSS_KERNEL=1``: the ``nchw`` criterion of a 5-D
+  prediction on the card runs through K10
+  (:func:`~bubbleformer_tpu_torch.ops.lp_loss.training_lp_loss`), as the JAX
+  module takes its Pallas kernel on a TPU; the same function, its plane sums
+  in another order.
 
 :func:`module_class` picks the module by the model: a data config that
 returns fluid parameters to a model without FiLM (``poolboiling_saturated``
@@ -25,9 +38,13 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import os
+import warnings
+
 import torch
 
 from bubbleformer_tpu_torch.models import build_model
+from bubbleformer_tpu_torch.ops.lp_loss import training_lp_loss
 from bubbleformer_tpu_torch.training.optim import make_optimizer
 from bubbleformer_tpu_torch.utils.losses import LpLoss
 from bubbleformer_tpu_torch.utils.schedulers import make_schedule
@@ -61,6 +78,7 @@ class ForecastModule:
         compute_dtype: Optional[str] = None,
         device: str = "cuda",
         seed: int = 42,
+        loss_layout: Optional[str] = None,
     ):
         self.model_cfg = dict(model_cfg)
         self.data_cfg = dict(data_cfg)
@@ -77,6 +95,17 @@ class ForecastModule:
         self.model = model.to(self.device)
         self.criterion = LpLoss(d=2, p=2, reduce_dims=[0, 1, 2],
                                 reductions=["mean", "mean", "sum"])
+        if loss_layout is None:
+            loss_layout = os.environ.get("BUBBLEFORMER_LOSS_LAYOUT", "nchw")
+        if loss_layout not in ("nchw", "nhwc"):
+            raise ValueError(f"loss_layout must be nchw|nhwc, got {loss_layout!r}")
+        self.loss_layout = loss_layout
+        if loss_layout == "nhwc" and not getattr(self.model, "supports_output_layout", False):
+            warnings.warn(
+                f"loss_layout='nhwc' requested but model {self.model_cfg['name']!r} has no "
+                "native channels-last output path (supports_output_layout); training uses "
+                "the default NCHW loss."
+            )
 
         opt_params = dict(self.optim_cfg.get("params", {}))
         opt_params.pop("use_triton", None)  # the reference's GPU knob; nothing to select here
@@ -93,6 +122,29 @@ class ForecastModule:
     def target(self, batch: Sequence[torch.Tensor]) -> torch.Tensor:
         return batch[1]
 
+    def _loss(self, pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+        """The training criterion on ``(B, T, C, H, W)``: through K10 where
+        ``BUBBLEFORMER_LOSS_KERNEL=1`` and the prediction is on the card,
+        else ``LpLoss``."""
+        if (pred.ndim == 5 and os.environ.get("BUBBLEFORMER_LOSS_KERNEL", "0") == "1"
+                and pred.device.type == "cuda"):
+            return training_lp_loss(pred, tgt)
+        return self.criterion(pred, tgt)
+
+    @staticmethod
+    def _loss_nhwc(pred: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
+        """The training criterion on channels-last ``(B, T, H, W, C)``: the
+        relative-L2 plane sums over axes (2, 3), the same elements as
+        ``LpLoss``'s flattened (H, W), in float32."""
+        p, t = pred.float(), tgt.float()
+        diff_norm = torch.sqrt(((p - t) ** 2).sum(dim=(2, 3)))
+        ynorm = torch.sqrt((t * t).sum(dim=(2, 3)))
+        return (diff_norm / ynorm).sum(dim=-1).mean()
+
+    def _use_nhwc_loss(self) -> bool:
+        return self.loss_layout == "nhwc" and getattr(self.model, "supports_output_layout",
+                                                      False)
+
     def train_step(self, batch: Sequence[torch.Tensor],
                    generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """One update on ``batch`` (tensors on the module's device); the
@@ -103,8 +155,13 @@ class ForecastModule:
             group["lr"] = lr
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        pred = self.model(*self.inputs(batch), generator=generator)
-        loss = self.criterion(pred, self.target(batch))
+        if self._use_nhwc_loss():
+            pred = self.model(*self.inputs(batch), generator=generator, output_layout="nhwc")
+            # The target's relayout is a constant of the step, outside the gradient.
+            loss = self._loss_nhwc(pred, self.target(batch).permute(0, 1, 3, 4, 2))
+        else:
+            pred = self.model(*self.inputs(batch), generator=generator)
+            loss = self._loss(pred, self.target(batch))
         loss.backward()
         self.optimizer.step()
         self.step += 1
@@ -115,7 +172,7 @@ class ForecastModule:
         """``({"loss": loss}, prediction)`` in eval mode."""
         self.model.eval()
         pred = self.model(*self.inputs(batch))
-        return {"loss": self.criterion(pred, self.target(batch))}, pred
+        return {"loss": self._loss(pred, self.target(batch))}, pred
 
 
 class ConditionedForecastModule(ForecastModule):

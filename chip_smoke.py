@@ -10,7 +10,9 @@ flow-boiling frames (K3 and K2 with rows of 128 tokens), AViT-small at
 512x512 with ``attn_impl=fused_block`` (K4), AViT-tiny on the make-demo
 grid (K4 at head dim 16), FiLMAViT-small with ``attn_impl=mega`` (K1 and
 K5), AViT-small with ``attn_impl=fused_packed`` (K6) and ``fused`` (K7),
-and AViT-tiny at 512x512 and 512x2048 (K1, K3 and K2 at head dim 16).  The
+AViT-tiny at 512x512 and 512x2048 (K1, K3 and K2 at head dim 16), and
+FiLMAViT-small with ``attn_impl=flash`` (K8 in both branches) training on
+the loss kernel (K10).  The
 serving path (the autoregressive rollout) and the training path
 (``Trainer.fit``: Lion, or AdamW where the config says, with cosine
 warmup); and the hand-written kernels on the way, each at the shapes its
@@ -102,7 +104,29 @@ paths give it — the rollout's (batch 1) and the training step's:
    dim 16 and the axial kernel the copied lane gate picks, asserted) one
    float32 window card vs CPU and ``Trainer.fit`` in bfloat16 at batch 8
    with AdamW; at 512x2048 (64x256 tokens: K3 at head dim 16)
-   ``Trainer.fit`` at batch 4.
+   ``Trainer.fit`` at batch 4;
+29. K8 (``flash_packed_attention``) forward and every gradient against
+   ``flash_plain`` and ``flash_bwd_plain`` at path F's shapes (the temporal
+   lines (6, B*1024, 5, 64) and the axial rows and columns (6, B*5*32, 32,
+   64), B = 1 and 8), float32 against the plain version in float64 and
+   bfloat16 against it in bfloat16 (``LINE_RTOL``), with both times and
+   that of ``scaled_dot_product_attention`` with the bias as its mask,
+   forward and backward (K8 without the blend: a partial yardstick);
+30. K10 (``plane_norms``, the loss's plane sums) forward and backward
+   against the plain versions at pred and target (8, 5, 4, 512, 512), the
+   prediction in bfloat16 and in float32, the target in float32; the loss
+   through it repeats bit for bit;
+31. path F, FiLMAViT-small at 512^2 with ``attn_impl=flash``: one float32
+   window card vs CPU (FiLM near identity);
+32. a 20-window bfloat16 rollout of it: finite, K8 forward launched 36 x 20
+   times (12 temporal and 24 axial calls a window), no other kernel;
+   frames/s;
+33. ``Trainer.fit`` on it in bfloat16 at batch 8, Lion, 2-step warmup, with
+   ``BUBBLEFORMER_LOSS_KERNEL=1``: every loss finite, K8 forward and backward
+   36 each and K10 forward and backward once each per step, no other kernel,
+   every parameter with a gradient moved; ms/step, samples/s, peak memory;
+34. one float32 training step of path F on the card with
+   ``loss_layout="nhwc"`` against ``"nchw"``: the loss and every gradient.
 
 Prints a JSON line of the kernels at the training step's shapes of the path
 that launches them (with each one's least possible time on the card from its
@@ -317,14 +341,16 @@ def plain_attention():
         layers.mega_temporal_block, layers.lane_axial_attention_from_x = saved
 
 
-def train_step_grads(train_cfgs, weights, batch, where: str, dtype, plain: bool = False):
+def train_step_grads(train_cfgs, weights, batch, where: str, dtype, plain: bool = False,
+                     loss_layout: str = "nchw"):
     """``(loss, {name: gradient in float64 on the CPU}, seconds)`` of one
-    training step from ``weights`` on ``batch``; ``plain`` takes
-    :func:`plain_attention`."""
+    training step from ``weights`` on ``batch`` with the module's
+    ``loss_layout``; ``plain`` takes :func:`plain_attention`."""
     import torch
     from bubbleformer_tpu_torch.training import ConditionedForecastModule
 
-    module = ConditionedForecastModule(*train_cfgs, total_steps=8, device=where, seed=SEED)
+    module = ConditionedForecastModule(*train_cfgs, total_steps=8, device=where, seed=SEED,
+                                       loss_layout=loss_layout)
     module.model.load_state_dict(weights)
     module.model.to(dtype)
     with plain_attention() if plain else contextlib.nullcontext():
@@ -371,20 +397,37 @@ def kernel_work(key: str, shape, dtype: str):
     it reads dao, xn and qkv and writes dxn and the float32 dW_qkv.
     K1 (x of (B, T, H, W, C), R = B*T*H*W tokens): the QKV product 2R*C*3C,
     the output product 2R*C*C, the attention 4R*T*C; it reads x and writes
-    the output and, for the backward, the rounded qkv (R, 3C) and the
-    float32 ao (R, C).  The backward does four products (dy2, dW_out, dxn,
-    dW_qkv) and five T x T contractions; it reads do, x, qkv and ao and
-    writes dx and the float32 weight gradients.  K2 and K4 (qkv of (BT, H,
+    the output and, for the backward, the rounded qkv (R, 3C) and ao (R, C)
+    (its float32 ao is scratch).  The backward does four products (dy2,
+    dW_out, dxn, dW_qkv) and five T x T contractions; it reads do, x, qkv
+    and ao and writes dx and the float32 weight gradients.  K2 and K4 (qkv of (BT, H,
     W, 3C)): per direction, logits and values 4R*L*C forward, and five L x L
     contractions 10R*L*C backward, with L = W for rows and H for columns;
     they read qkv (and dout) and write out (dqkv).  K6 and K7 (q of (BT, H,
     W, C)): K4's work from q, k and v.  K5 (x of (BT, H, W, C)): K1's two
     products and K4's attention; it reads x and writes the output and, for
     the backward, the rounded qkv (R, 3C) and ao (R, C); its backward reads
-    do, x, qkv and ao and writes dx and the float32 weight gradients."""
+    do, x, qkv and ao and writes dx and the float32 weight gradients.
+    K8 (q of (heads, M, n, d)): logits and values 4*M*n*n*d per head
+    forward, five n x n contractions backward; it reads q, k, v (and dout)
+    and writes out (dq, dk, dv), the float32 tables aside.  K10 (pred of
+    (B, T, C, H, W), the target float32): ~3 operations a value forward, 2
+    backward; it reads pred and the target and writes the (m, 2) sums
+    (dpred)."""
     e = 2 if dtype == "bfloat16" else 4
     d = 16 if key.endswith(" d16") or key.endswith(" d16 bwd") else 64
     key = key.replace(" d16", "")
+    if key.startswith("K8"):
+        heads, m, n, d = shape
+        size, tables = heads * m * n * d, 4 * heads * (n * n + 1)
+        if key == "K8":
+            return 4 * heads * m * n * n * d, 4 * e * size + tables
+        return 10 * heads * m * n * n * d, 7 * e * size + 2 * tables
+    if key.startswith("K10"):
+        values, m = int(np.prod(shape)), int(np.prod(shape[:3]))
+        if key == "K10":
+            return 3 * values, (e + 4) * values + 8 * m
+        return 2 * values, (2 * e + 4) * values + 4 * m
     if key.startswith("K3"):
         b, t, h, w, c = shape
         r = b * t * h * w
@@ -399,9 +442,9 @@ def kernel_work(key: str, shape, dtype: str):
         params = 4 * (8 * c + 4 * d + 4 * c + c) + e * 4 * c * c  # vectors + W_qkv, W_out
         if key == "K1":
             return (2 * r * c * 4 * c + 4 * r * t * c,
-                    2 * e * r * c + e * r * 3 * c + 4 * r * c + params)
+                    3 * e * r * c + e * r * 3 * c + params)
         return (2 * r * c * 3 * c * 2 + 2 * r * c * c * 2 + 10 * r * t * c,
-                3 * e * r * c + e * r * 3 * c + 4 * r * c + params + 4 * 4 * c * c)
+                4 * e * r * c + e * r * 3 * c + params + 4 * 4 * c * c)
     if key.startswith("K5"):
         bt, h, w, c = shape
         r = bt * h * w
@@ -529,11 +572,18 @@ def all_counters():
         mega_temporal_block_bwd,
     )
 
+    from bubbleformer_tpu_torch.ops.axial_pallas import (
+        flash_packed_attention,
+        flash_packed_attention_bwd,
+    )
+    from bubbleformer_tpu_torch.ops.lp_loss import plane_norms, plane_norms_bwd
+
     return (mega_temporal_block, mega_temporal_block_bwd, lane_axial_attention,
             lane_axial_attention_bwd, core_temporal_attention, core_temporal_attention_bwd,
             fused_block_attention, fused_block_attention_bwd, mega_axial_block,
             mega_axial_block_bwd, fused_axial_attention_packed, fused_axial_attention_packed_bwd,
-            fused_axial_attention, fused_axial_attention_bwd)
+            fused_axial_attention, fused_axial_attention_bwd, flash_packed_attention,
+            flash_packed_attention_bwd, plane_norms, plane_norms_bwd)
 
 
 def zero_counters() -> None:
@@ -1048,6 +1098,220 @@ def slice5_phases(repo: Path, dev, card: str, results: dict) -> dict:
                                     "core_temporal_attention_bwd": tiny_blocks,
                                     flow_axial: tiny_blocks, flow_axial + "_bwd": tiny_blocks},
         repo / "build" / "smoke_tiny_flow", dev, card)
+    return runs
+
+
+# Phases 29-34: K8 at path F's shapes (FiLMAViT-small at 512^2 with
+# ``attn_impl=flash``: the temporal lines (heads, B*32*32, T, d) and the axial
+# rows and columns (heads, B*T*32, 32, d), B = 1 for the rollout and 8 for
+# the training step) and K10 at its training step's pred and target.
+FLASH_SHAPES = {"temporal rollout": (6, 32 * 32, TIME_WINDOW, 64),
+                "temporal training": (6, TRAIN_BATCH * 32 * 32, TIME_WINDOW, 64),
+                "axial rollout": (6, TIME_WINDOW * 32, 32, 64),
+                "axial training": (6, TRAIN_BATCH * TIME_WINDOW * 32, 32, 64)}
+LOSS_SHAPE = (TRAIN_BATCH, TIME_WINDOW, FIELDS, IMAGE, IMAGE)
+# K10's plane sums against float64: float32 sums of 512^2 values in blocks
+# of 8192 and a fixed order, 1e-5 of each column's largest; its gradient
+# rounds one product, as the plain version does (KERNEL_RTOL).
+LOSS_RTOL = 1e-5
+# Path F's float32 step with loss_layout="nhwc" against "nchw" on the card:
+# the same function, its plane sums in another order, and both steps' float32
+# atomic sums (K8's tables) reordered from run to run: the loss within 1e-5,
+# each gradient within 1e-4 of its largest magnitude (one that is zero up to
+# rounding, below 1e-4 of the largest of all, within 1e-4 of a hundredth of
+# the largest).
+LAYOUT_RTOL = {"loss": 1e-5, "grads": 1e-4}
+
+
+def flash_kernel_phase(dev, results: dict) -> None:
+    """K8 forward and every gradient at each ``FLASH_SHAPES`` shape, float32
+    against the plain version in float64 and bfloat16 against it in bfloat16
+    (``LINE_RTOL``), with the times of the kernels, the plain versions and
+    ``scaled_dot_product_attention`` with the bias as its mask."""
+    import torch
+    import torch.nn.functional as F
+    from bubbleformer_tpu_torch.ops import axial_pallas as k8
+
+    for i, (where, shape) in enumerate(FLASH_SHAPES.items()):
+        heads, _, n, _ = shape
+        rng = np.random.default_rng(SEED + 90 + i)
+
+        def draw(*s):
+            return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev)
+
+        base = dict(q=draw(*shape), k=draw(*shape), v=draw(*shape), bias=draw(heads, n, n),
+                    scale_factor=torch.from_numpy(rng.uniform(0.5, 1.5, heads)
+                                                  .astype(np.float32)).to(dev))
+        do32 = draw(*shape)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            args = dict(base, **{k: base[k].to(dt) for k in "qkv"})
+            do = do32.to(dt)
+            ref_args, ref_do = ((args, do) if dt == torch.bfloat16 else
+                                ({k: v.double() for k, v in args.items()}, do.double()))
+            got = k8.flash_packed_attention(**args)
+            ref = k8.flash_plain(**ref_args)
+            torch.cuda.synchronize()
+            err_f = compare(f"K8 {name} {where} {shape}", got, ref, LINE_RTOL[name])
+            del got, ref
+            got = k8.flash_packed_attention_bwd(do, *args.values())
+            ref = k8.flash_bwd_plain(ref_do, **ref_args)
+            torch.cuda.synchronize()
+            err_b = compare_grads(f"K8 bwd {name} {where}", tuple(args), got, ref,
+                                  LINE_RTOL[name])
+            del got, ref, ref_args, ref_do
+            ms_f = cuda_ms(lambda: k8.flash_packed_attention(**args))
+            plain_f = cuda_ms(lambda: k8.flash_plain(**args))
+            ms_b = cuda_ms(lambda: k8.flash_packed_attention_bwd(do, *args.values()))
+            plain_b = cuda_ms(lambda: k8.flash_bwd_plain(do, **args))
+            # The library yardstick: attention with the bias as an additive
+            # mask, without the blend; its backward through autograd (q, k, v).
+            q, k, v = (args[c].detach().requires_grad_() for c in "qkv")
+            mask = args["bias"].to(dt)[:, None].expand(*shape[:2], n, n)
+            sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+            sdpa_b = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True))
+            del q, k, v, mask, out
+            print(f"  K8 {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}, sdpa "
+                  f"{sdpa_f:.4f}), backward {ms_b:.4f} ms (plain {plain_b:.4f}, sdpa {sdpa_b:.4f})",
+                  flush=True)
+            results[("K8", name, where)] = (err_f, ms_f, plain_f)
+            results[("K8 bwd", name, where)] = (err_b, ms_b, plain_b)
+            results[("K8 sdpa", name, where)] = sdpa_f
+            results[("K8 bwd sdpa", name, where)] = sdpa_b
+            del args, do
+        del base, do32
+
+
+def loss_kernel_phase(dev, results: dict) -> None:
+    """K10 forward and backward at ``LOSS_SHAPE``, the prediction in
+    bfloat16 (as the bfloat16 step gives it) and in float32, the target in
+    float32: the plane sums against float64 (``LOSS_RTOL``), the gradient
+    against the plain version (``KERNEL_RTOL``), the loss bit for bit on a
+    second call; with both times."""
+    import torch
+    from bubbleformer_tpu_torch.ops import lp_loss as k10
+
+    rng = np.random.default_rng(SEED + 95)
+    tgt = torch.from_numpy(rng.standard_normal(LOSS_SHAPE).astype(np.float32)).to(dev)
+    pred32 = tgt + 0.3 * torch.from_numpy(rng.standard_normal(LOSS_SHAPE)
+                                          .astype(np.float32)).to(dev)
+    m = int(np.prod(LOSS_SHAPE[:3]))
+    coef = torch.from_numpy(rng.uniform(0.5, 1.5, m).astype(np.float32)).to(dev)
+    t3 = tgt.reshape(m, -1)
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        p3 = pred32.to(dt).reshape(m, -1)
+        got = k10.plane_norms(p3, t3)
+        d64, t64 = p3.double() - t3.double(), t3.double()
+        ref = torch.stack([(d64 * d64).sum(-1), (t64 * t64).sum(-1)], dim=-1)
+        rel = ((got.double() - ref).abs().max(dim=0).values / ref.abs().max(dim=0).values).max()
+        err_f = (got.double() - ref).abs().max().item()
+        print(f"  K10 {name} {LOSS_SHAPE}: plane sums rel {rel.item():.3e} against float64 "
+              f"(tol {LOSS_RTOL:.0e})", flush=True)
+        if not torch.isfinite(got).all() or rel.item() > LOSS_RTOL:
+            fail(f"K10 {name}: plane sums {rel.item():.3e} from float64")
+        del d64, t64, ref
+        got_b = k10.plane_norms_bwd(p3, t3, coef)
+        err_b = compare(f"K10 bwd {name} {LOSS_SHAPE}", got_b,
+                        k10.plane_norms_bwd_plain(p3, t3, coef), KERNEL_RTOL[name])
+        pred = pred32.to(dt)
+        if not torch.equal(k10.training_lp_loss(pred, tgt), k10.training_lp_loss(pred, tgt)):
+            fail(f"K10 {name}: the loss differs between two calls on the same inputs")
+        ms_f = cuda_ms(lambda: k10.plane_norms_fwd_cuda(p3, t3))
+        plain_f = cuda_ms(lambda: k10.plane_norms_plain(p3, t3))
+        ms_b = cuda_ms(lambda: k10.plane_norms_bwd_cuda(p3, t3, coef))
+        plain_b = cuda_ms(lambda: k10.plane_norms_bwd_plain(p3, t3, coef))
+        print(f"  K10 {name}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), backward {ms_b:.4f} "
+              f"ms (plain {plain_b:.4f}); the loss repeats bit for bit", flush=True)
+        results[("K10", name, "training")] = (err_f, ms_f, plain_f)
+        results[("K10 bwd", name, "training")] = (err_b, ms_b, plain_b)
+        del p3, pred, got, got_b
+
+
+def slice6_phases(repo: Path, dev, card: str, results: dict) -> dict:
+    """Phases 29-34: K8 and K10 against their plain versions, and path F
+    (FiLMAViT-small at 512^2 with ``attn_impl=flash``: K8 in both branches,
+    the loss through K10 in training).  Returns the runs' numbers."""
+    import os
+
+    import torch
+    from bubbleformer_tpu_torch.config import load_config
+    from bubbleformer_tpu_torch.data import synthetic_batch
+    from bubbleformer_tpu_torch.models import build_model
+
+    print("== phase 29: K8 flash_packed_attention vs plain, forward and backward", flush=True)
+    flash_kernel_phase(dev, results)
+    print(f"== phase 30: K10 plane_norms vs plain at {LOSS_SHAPE}, forward and backward",
+          flush=True)
+    loss_kernel_phase(dev, results)
+
+    cfg = load_config(["model_cfg.params.attn_impl=flash", "scheduler_cfg.params.warmup_iters=2"])
+    train = (cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"])
+    params = cfg["model_cfg"]["params"]
+    if (cfg["model_cfg"]["name"], params["embed_dim"], cfg["optim_cfg"]["name"]) != (
+            "filmavit", 384, "lion"):
+        fail("the default composition is not FiLMAViT-small with Lion")
+    blocks = params["processor_blocks"]
+    model = build_model(cfg["model_cfg"], cfg["data_cfg"])
+    weights = film_near_identity(random_state_dict(model, SEED + 56), SEED + 56)
+    del model
+    x = torch.from_numpy(np.random.default_rng(SEED + 57).standard_normal(
+        (1, TIME_WINDOW, FIELDS, IMAGE, IMAGE)).astype(np.float32))
+    cond = torch.tensor([FLUID_PARAMS], dtype=torch.float32)
+    per_f = {"flash_packed_attention": 3 * blocks}  # one temporal and two axial calls a block
+    runs = {}
+    print(f"== phase 31: path F, FiLMAViT-small at {IMAGE}^2 with attn_impl=flash: one float32 "
+          f"window card vs CPU", flush=True)
+    y_f = window_phase("FiLMAViT-small flash", cfg["model_cfg"], cfg["data_cfg"], weights, x,
+                       dev, per_f, cond=cond)
+    print(f"== phase 32: path F, {WINDOWS}-window bfloat16 rollout", flush=True)
+    bf = build_model(cfg["model_cfg"], cfg["data_cfg"], compute_dtype="bfloat16").eval().to(dev)
+    bf.load_state_dict(weights)
+    runs["F rollout"] = rollout_phase("FiLMAViT-small flash", bf, x.to(dev), WINDOWS, per_f,
+                                      card, reference=y_f, cond=cond.to(dev))
+    del bf, y_f
+    print(f"== phase 33: path F, Trainer.fit bfloat16 batch {TRAIN_BATCH}, Lion, "
+          f"{FUSED_TRAIN_STEPS} steps after 1 warm-up step, BUBBLEFORMER_LOSS_KERNEL=1",
+          flush=True)
+    saved = os.environ.get("BUBBLEFORMER_LOSS_KERNEL")
+    os.environ["BUBBLEFORMER_LOSS_KERNEL"] = "1"
+    try:
+        runs["F"] = fit_phase("FiLMAViT-small flash", train, TRAIN_BATCH, FUSED_TRAIN_STEPS,
+                              (IMAGE, IMAGE),
+                              dict(per_f, flash_packed_attention_bwd=3 * blocks, plane_norms=1,
+                                   plane_norms_bwd=1),
+                              repo / "build" / "smoke_flash", dev, card, fluid=len(FLUID_PARAMS))
+    finally:
+        if saved is None:
+            del os.environ["BUBBLEFORMER_LOSS_KERNEL"]
+        else:
+            os.environ["BUBBLEFORMER_LOSS_KERNEL"] = saved
+
+    print(f"== phase 34: path F, one float32 training step on the card, loss_layout nhwc vs "
+          f"nchw, batch 1 at {IMAGE}^2", flush=True)
+    batch = synthetic_batch(1, TIME_WINDOW, FIELDS, IMAGE, IMAGE, len(FLUID_PARAMS), seed=SEED + 58)
+    steps = {layout: train_step_grads(train, weights, batch, "cuda", torch.float32,
+                                      loss_layout=layout) for layout in ("nchw", "nhwc")}
+    (loss_c, grads_c, _), (loss_h, grads_h, _) = steps["nchw"], steps["nhwc"]
+    rel_loss = abs(loss_h - loss_c) / abs(loss_c)
+    top = max(g.abs().max().item() for g in grads_c.values())
+    worst, zero = 0.0, []
+    for n, g in grads_c.items():
+        scale = g.abs().max().item()
+        if scale <= LAYOUT_RTOL["grads"] * top:
+            zero.append(n)
+            scale = 1e-2 * top
+        err = (grads_h[n] - g).abs().max().item() / scale
+        worst = max(worst, err)
+        if not torch.isfinite(grads_h[n]).all() or err > LAYOUT_RTOL["grads"]:
+            fail(f"path F nhwc step: gradient {n} {err:.3e} from the nchw step")
+    if rel_loss > LAYOUT_RTOL["loss"]:
+        fail(f"path F nhwc step: loss {loss_h} vs {loss_c} (nchw)")
+    print(f"  loss nchw {loss_c:.7f}, nhwc {loss_h:.7f} (rel {rel_loss:.2e}); {len(grads_c)} "
+          f"gradients, worst rel {worst:.3e} (tol {LAYOUT_RTOL['grads']:.0e}; {len(zero)} zero up "
+          f"to rounding) ok", flush=True)
+    runs["F nhwc"] = {"loss_rel": rel_loss, "grads_rel": worst}
     return runs
 
 
@@ -1684,6 +1948,53 @@ def main() -> None:
         print(f"  path {label} training: {r['ms_per_step']:.2f} ms/step, "
               f"{r['samples_per_s']:.2f} samples/s, peak {r['peak_gb']:.2f} GB")
     print(f"  path C rollout: {runs5['C rollout']:.2f} frames/s")
+    # This slice's kernels: K8 at path F's temporal and axial shapes (one
+    # wrapper, so each row carries the path's launches of both), K10 at its
+    # step's pred and target; launches from path F's training run.
+    runs6 = slice6_phases(repo, dev, card, results)
+    flash_cu = "bubbleformer_tpu_torch/csrc/line_kernels.cuh"  # C entries: axial_flash.cu
+    loss_cu = "bubbleformer_tpu_torch/csrc/lp_loss.cu"
+    run_f = runs6["F"]
+    for key, name, counter, source, replaces, shape, where in (
+        ("K8", "flash_packed_attention (temporal)", "flash_packed_attention", flash_cu,
+         jax_ops + "axial_pallas.py:66", FLASH_SHAPES["temporal training"], "temporal training"),
+        ("K8", "flash_packed_attention (axial)", "flash_packed_attention", flash_cu,
+         jax_ops + "axial_pallas.py:66", FLASH_SHAPES["axial training"], "axial training"),
+        ("K8 bwd", "flash_packed_attention_bwd (temporal)", "flash_packed_attention_bwd",
+         flash_cu, jax_ops + "axial_pallas.py:82", FLASH_SHAPES["temporal training"],
+         "temporal training"),
+        ("K8 bwd", "flash_packed_attention_bwd (axial)", "flash_packed_attention_bwd", flash_cu,
+         jax_ops + "axial_pallas.py:82", FLASH_SHAPES["axial training"], "axial training"),
+        ("K10", "plane_norms", "plane_norms", loss_cu, jax_ops + "lp_loss.py:31", LOSS_SHAPE,
+         "training"),
+        ("K10 bwd", "plane_norms_bwd", "plane_norms_bwd", loss_cu, jax_ops + "lp_loss.py:44",
+         LOSS_SHAPE, "training"),
+    ):
+        err, ms, plain_ms = results[(key, "bfloat16", where)]
+        bound_ms, bound_by = bound(*kernel_work(key, shape, "bfloat16"), "bfloat16")
+        launches_run = run_f["launches"][counter]
+        if launches_run == 0:
+            fail(f"{name} was not launched on its path")
+        library = results.get((key + " sdpa", "bfloat16", where))
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches_run, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": library})
+        cases = ({w: sh for w, sh in FLASH_SHAPES.items() if w.startswith(where.split()[0])}
+                 if key.startswith("K8") else {"training": LOSS_SHAPE})
+        for w, sh in cases.items():
+            for dt in ("float32", "bfloat16"):
+                b_ms, b_by = bound(*kernel_work(key, sh, dt), dt)
+                _, k_ms, p_ms = results[(key, dt, w)]
+                lib = results.get((key + " sdpa", dt, w))
+                extra = f", sdpa with the bias (partial yardstick) {lib:.4f} ms" if lib else ""
+                print(f"  {name} {w} {sh} {dt}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                      f"bound {b_ms:.5f} ms ({b_by}){extra}")
+        print(f"  {name}: launches per training step {launches_run // run_f['steps']}")
+    print(f"  path F training: {run_f['ms_per_step']:.2f} ms/step, "
+          f"{run_f['samples_per_s']:.2f} samples/s, peak {run_f['peak_gb']:.2f} GB; rollout "
+          f"{runs6['F rollout']:.2f} frames/s; nhwc step vs nchw: loss "
+          f"{runs6['F nhwc']['loss_rel']:.2e}, gradients {runs6['F nhwc']['grads_rel']:.2e}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

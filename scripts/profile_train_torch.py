@@ -13,12 +13,15 @@ times ``--steps`` steps with CUDA events (ms/step, samples/s, peak memory),
 then traces ``--profile-steps`` more with ``torch.profiler`` and sums the
 device time of every kernel by part: the port's hand-written kernels (the
 whole-branch kernels K1, K3 and K5 share their products and statistics
-kernels, ``csrc/block_ops.cuh``; the line kernels serve K2, K4, K5, K6 and
-K7), matrix products (cuBLAS), the optimizer's foreach kernels, and the rest
-(elementwise, reductions, copies); and by kernel wrapper (``WRAPPERS``:
+kernels, ``csrc/block_ops.cuh``; the line kernels serve K2, K4, K5, K6, K7
+and K8; K10 is the loss's plane norms), matrix products (cuBLAS), the
+optimizer's foreach kernels, and the rest (elementwise, reductions,
+copies); and by kernel wrapper (``WRAPPERS``:
 each call of a wrapper is traced as one range, whose device time is that
 of every kernel it launched).  The idle share is one minus the summed
-kernel time over the host-clock wall time of the traced steps.
+kernel time over the host-clock wall time of the traced steps.  The
+training module's knobs apply: ``loss_layout=nhwc`` as an override, K10
+with ``BUBBLEFORMER_LOSS_KERNEL=1`` in the environment.
 
 Prints one JSON object (and writes it to ``--out`` if given).  Needs a
 CUDA card.
@@ -30,6 +33,10 @@ CUDA card.
     python scripts/profile_train_torch.py --model-cfg avit_small \
         model_cfg.params.attn_impl=fused_block --batch 8
     python scripts/profile_train_torch.py --batch 8 model_cfg.params.attn_impl=mega
+    BUBBLEFORMER_LOSS_KERNEL=1 python scripts/profile_train_torch.py --batch 8 \
+        model_cfg.params.attn_impl=flash
+    python scripts/profile_train_torch.py --batch 8 model_cfg.params.attn_impl=flash \
+        loss_layout=nhwc
 """
 from __future__ import annotations
 
@@ -57,8 +64,9 @@ PARTS = (
     ("branch products and norms, forward (K1, K3, K5)", ("norm_proj_kernel",
                                                          "plane_stats_kernel")),
     ("temporal QKV and attention forward (K1, K3)", ("qkv_attention",)),
-    ("line kernels backward (K2, K4-K7)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
-    ("line kernels forward (K2, K4-K7)", ("line_fwd_kernel", "line_short_fwd_kernel")),
+    ("line kernels backward (K2, K4-K8)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
+    ("line kernels forward (K2, K4-K8)", ("line_fwd_kernel", "line_short_fwd_kernel")),
+    ("loss plane norms (K10)", ("norms_partial_kernel", "norms_finish_kernel", "dpred_kernel")),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel", "Reduce")),
@@ -90,6 +98,8 @@ WRAPPERS = {
     "axial_fused_packed": {"_packed_fwd": "K6 forward",
                            "fused_axial_attention_packed_bwd": "K6 backward"},
     "axial_fused": {"_fused_fwd": "K7 forward", "fused_axial_attention_bwd": "K7 backward"},
+    "axial_pallas": {"_flash_fwd": "K8 forward", "flash_packed_attention_bwd": "K8 backward"},
+    "lp_loss": {"plane_norms_fwd_cuda": "K10 forward", "plane_norms_bwd": "K10 backward"},
 }
 
 
@@ -139,7 +149,8 @@ def main(argv=None) -> None:
         ("model_cfg", args.model_cfg), ("optim_cfg", args.optim_cfg)) if name] + args.overrides)
     module = module_class(cfg["model_cfg"], cfg["data_cfg"])(
         cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"],
-        total_steps=10_000, compute_dtype="bfloat16", device="cuda", seed=args.seed)
+        total_steps=10_000, compute_dtype="bfloat16", device="cuda", seed=args.seed,
+        loss_layout=cfg.get("loss_layout"))
     module.step = 2 * cfg["scheduler_cfg"]["params"]["warmup_iters"]  # lr > 0: every update moves
     batch = tuple(torch.from_numpy(a).to(dev) for a in synthetic_batch(
         args.batch, cfg["data_cfg"]["time_window"], len(cfg["data_cfg"]["input_fields"]),
@@ -175,11 +186,16 @@ def main(argv=None) -> None:
     # back to back on one stream).
     labels = {label for names in WRAPPERS.values() for label in names.values()}
     per_part, per_kernel, per_wrapper = defaultdict(float), defaultdict(float), defaultdict(float)
+    unlabelled = defaultdict(float)
     launches = 0
     for evt in prof.events():
         if evt.name in labels:
             if evt.device_type == torch.autograd.DeviceType.CUDA:
                 per_wrapper[evt.name] += evt.time_range.elapsed_us() / 1e3
+        elif getattr(evt, "is_user_annotation", False):
+            # A range that did not come back by its label: not a kernel.
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                unlabelled[evt.name[:60]] += evt.time_range.elapsed_us() / 1e3
         elif evt.device_type == torch.autograd.DeviceType.CUDA:
             us = evt.time_range.elapsed_us()
             per_part[part_of(evt.name)] += us / 1e3
@@ -191,6 +207,8 @@ def main(argv=None) -> None:
         "card": card, "model": cfg["model_cfg"]["name"],
         "embed_dim": cfg["model_cfg"]["params"]["embed_dim"], "optimizer": cfg["optim_cfg"]["name"],
         "attn_impl": cfg["model_cfg"]["params"].get("attn_impl", "auto"),
+        "loss_layout": module.loss_layout,
+        "loss_kernel": os.environ.get("BUBBLEFORMER_LOSS_KERNEL", "0") == "1",
         "batch": args.batch, "height": height, "width": width,
         "ms_per_step": ms, "samples_per_s": 1e3 * args.batch / ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -202,6 +220,7 @@ def main(argv=None) -> None:
                                                         key=lambda kv: -kv[1])},
         "kernel_wrappers_ms_per_step": {k: v / n for k, v in sorted(per_wrapper.items(),
                                                                   key=lambda kv: -kv[1])},
+        "unlabelled_ranges_ms_per_step": {k: v / n for k, v in unlabelled.items()},
         "top_kernels_ms_per_step": {k[:120]: v / n for k, v in sorted(
             per_kernel.items(), key=lambda kv: -kv[1])[:25]},
     }

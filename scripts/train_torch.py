@@ -96,6 +96,7 @@ def main(argv=None) -> None:
         scheduler_cfg=cfg["scheduler_cfg"], total_steps=total_steps,
         normalization_constants=normalization_constants,
         compute_dtype=cfg.get("compute_dtype"), device=str(device), seed=cfg["seed"],
+        loss_layout=cfg.get("loss_layout"),
     )
     trainer = Trainer(
         module, log_dir=log_dir, limit_train_batches=limit_train,

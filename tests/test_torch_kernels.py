@@ -8,7 +8,9 @@ lines longer than one 64-token tile (the 32x128 flow-boiling grid, lines of
 512 and ragged tiles) and at head dim 16 (AViT-tiny); K1 and K3 at head dim
 16 (AViT-tiny at 512x512 and 512x2048); K5 (the mega route of the axial
 block), K6 and K7 (fused_packed, fused) at their paths' shapes, at head dim
-16 and on long lines.
+16 and on long lines; K8 (flash) at path F's temporal lines of 5 and axial
+lines of 32, at head dims 16 and 64 and on long lines; K10 (the loss's
+plane norms) at path F's step shape and a ragged one.
 
 This file imports no JAX, so the ``cuda`` tests also run where JAX is not
 installed:
@@ -21,6 +23,8 @@ into) of the reference's largest magnitude.  The backward kernels are held
 to the same, gradient by gradient (``tests/_torch_grads.py``): their float32
 sums are also reordered by atomics from run to run.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -58,6 +62,19 @@ from bubbleformer_tpu_torch.ops.axial_lane import (
     kernel_params,
     lane_axial_attention,
     lane_axial_attention_bwd,
+)
+from bubbleformer_tpu_torch.ops.axial_pallas import (
+    flash_bwd_plain,
+    flash_packed_attention,
+    flash_packed_attention_bwd,
+    flash_plain,
+)
+from bubbleformer_tpu_torch.ops.lp_loss import (
+    plane_norms,
+    plane_norms_bwd,
+    plane_norms_bwd_plain,
+    plane_norms_plain,
+    training_lp_loss,
 )
 from bubbleformer_tpu_torch.ops.temporal_block_mega import (
     core_temporal_attention,
@@ -649,3 +666,133 @@ def test_new_kernels_raise_outside_their_envelope_on_card(cuda_device):
     k1 = _k1_args((1, 3, 8, 16, 64), 4, 31, device=cuda_device)
     with pytest.raises(ValueError, match=r"\(1, 3, 8, 16, 64\)"):
         mega_temporal_block(**k1, heads=4)
+
+
+def _flash_args(shape, seed, dtype=torch.float32, device="cpu"):
+    heads, _, n, _ = shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32))
+
+    args = dict(q=t(rng.standard_normal(shape)).to(dtype),
+                k=t(rng.standard_normal(shape)).to(dtype),
+                v=t(rng.standard_normal(shape)).to(dtype),
+                bias=t(rng.standard_normal((heads, n, n))),
+                scale_factor=t(rng.uniform(0.5, 1.5, heads)))
+    return {k: v.to(device) for k, v in args.items()}
+
+
+def _loss_args(shape, seed, dtype=torch.float32, device="cpu"):
+    rng = np.random.default_rng(seed)
+    pred, tgt = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) for _ in range(2))
+    return pred.to(device, dtype), tgt.to(device)
+
+
+def test_k8_k10_wrappers_take_plain_versions_on_cpu():
+    """K8's and K10's wrappers on CPU tensors: the plain versions, forward
+    and backward, and no launch counted."""
+    args = {k: v.requires_grad_() for k, v in _flash_args((2, 6, 5, 16), 40).items()}
+    pred, tgt = _loss_args((2, 5, 4, 8, 8), 41)
+    pred.requires_grad_()
+    counts = (flash_packed_attention.launches, flash_packed_attention_bwd.launches,
+              plane_norms.launches, plane_norms_bwd.launches)
+    out = flash_packed_attention(**args)
+    torch.testing.assert_close(out, flash_plain(**args), rtol=0, atol=0)
+    out.square().sum().backward()
+    loss = training_lp_loss(pred, tgt)
+    loss.backward()
+    assert (flash_packed_attention.launches, flash_packed_attention_bwd.launches,
+            plane_norms.launches, plane_norms_bwd.launches) == counts
+    want = flash_bwd_plain(2 * out.detach(), *(a.detach() for a in args.values()))
+    for (name, a), w in zip(args.items(), want):
+        torch.testing.assert_close(a.grad, w, rtol=0, atol=0, msg=name)
+    assert torch.isfinite(pred.grad).all()
+
+
+def test_k8_k10_wrappers_raise_on_other_devices():
+    args = {k: v.to("meta") for k, v in _flash_args((2, 6, 5, 16), 42).items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_packed_attention(**args)
+    pred, tgt = (a.to("meta") for a in _loss_args((1, 2, 2, 4, 4), 43))
+    with pytest.raises(ValueError, match="unsupported device"):
+        training_lp_loss(pred, tgt)
+
+
+# K8 on path F (FiLMAViT-small at 512^2: the temporal lines (6, B*1024, 5,
+# 64) and the axial rows and columns (6, B*5*32, 32, 64), at B = 1 and 8),
+# at head dim 16, on lines of 64 and past one 64-token tile, and a ragged one.
+K8_CASES = [(6, 1024, 5, 64), (6, 8192, 5, 64), (6, 160, 32, 64), (6, 1280, 32, 64),
+            (6, 640, 5, 16), (6, 40, 32, 16), (2, 24, 64, 64), (2, 12, 200, 64), (3, 7, 77, 16)]
+K8_IDS = ["t_slice", "t_training", "ax_slice", "ax_training", "t_d16", "ax_d16", "l64", "l200",
+          "ragged"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", K8_CASES, ids=K8_IDS)
+def test_k8_kernels_match_plain_on_card(cuda_device, shape, dtype):
+    args = _flash_args(shape, 44, dtype, cuda_device)
+    do = torch.randn(shape, generator=torch.Generator().manual_seed(45)).to(cuda_device, dtype)
+    before = (flash_packed_attention.launches, flash_packed_attention_bwd.launches)
+    got = flash_packed_attention(**args)
+    grads = flash_packed_attention_bwd(do, *args.values())
+    assert (flash_packed_attention.launches, flash_packed_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and all(g.dtype == dtype for g in grads[:3])
+    _close(got, flash_plain(**args), dtype)
+    want = flash_bwd_plain(do, **args)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    check_grads(list(args), [g.cpu() for g in grads], [w.float().cpu().numpy() for w in want],
+                TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_k8_autograd_function_launches_both_kernels_on_card(cuda_device):
+    args = {k: v.requires_grad_() for k, v in _flash_args((2, 16, 5, 64), 46,
+                                                           device=cuda_device).items()}
+    counts = (flash_packed_attention.launches, flash_packed_attention_bwd.launches)
+    flash_packed_attention(**args).square().sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_packed_attention.launches, flash_packed_attention_bwd.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert all(torch.isfinite(v.grad).all() for v in args.values())
+
+
+@pytest.mark.cuda
+def test_k8_raises_outside_its_envelope_on_card(cuda_device):
+    """Head dim 32 and lines of 513 tokens are outside K8."""
+    for shape in ((2, 4, 5, 32), (1, 2, 513, 16)):
+        args = _flash_args(shape, 47, device=cuda_device)
+        with pytest.raises(ValueError, match=re.escape(str(tuple(shape)))):
+            flash_packed_attention(**args)
+
+
+# K10 at path F's bf16 step (pred (8, 5, 4, 512, 512) in bf16 against the
+# float32 target), in float32, and a ragged plane (n % 4 != 0).
+K10_CASES = [((8, 5, 4, 512, 512), torch.bfloat16), ((8, 5, 4, 512, 512), torch.float32),
+             ((2, 3, 4, 33, 35), torch.bfloat16), ((2, 3, 4, 33, 35), torch.float32)]
+K10_IDS = ["step_bf16", "step_f32", "ragged_bf16", "ragged_f32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", K10_CASES, ids=K10_IDS)
+def test_k10_kernels_match_plain_on_card(cuda_device, shape, dtype):
+    """The plane sums 1e-5 of each column's largest (float32 sums in another
+    order), the gradient as the other kernels' (it rounds once); the loss
+    repeats bit for bit (no atomics)."""
+    pred, tgt = _loss_args(shape, 48, dtype, cuda_device)
+    m = pred.shape[0] * pred.shape[1] * pred.shape[2]
+    p3, t3 = pred.reshape(m, -1), tgt.reshape(m, -1)
+    coef = torch.rand(m, generator=torch.Generator().manual_seed(49)).to(cuda_device)
+    before = (plane_norms.launches, plane_norms_bwd.launches)
+    out = plane_norms(p3, t3)
+    dpred = plane_norms_bwd(p3, t3, coef)
+    assert (plane_norms.launches, plane_norms_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = plane_norms_plain(p3, t3)
+    err = ((out - want).abs().max(dim=0).values / want.abs().max(dim=0).values).max()
+    assert err <= 1e-5, float(err)
+    assert dpred.dtype == dtype
+    _close(dpred, plane_norms_bwd_plain(p3, t3, coef), dtype)
+    assert torch.equal(training_lp_loss(pred, tgt), training_lp_loss(pred, tgt))

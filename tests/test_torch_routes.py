@@ -6,8 +6,6 @@ than one 64-token tile inside a model.
 * ``resolve_temporal_impl`` and ``resolve_axial_impl`` against the JAX
   package's ``_resolve_attn_impl`` as it resolves on a TPU (its backend
   check answered "tpu"), at the token grids of the repo's configs;
-* names whose JAX route is a Pallas kernel not yet ported (``flash``, K8)
-  raise ``NotImplementedError`` naming its ROADMAP row;
 * the temporal ``unrolled`` and ``plain`` routes and the axial ``plain`` and
   ``unrolled`` routes, whole blocks in float32 and bfloat16, against the JAX
   blocks with the same ``attn_impl``;
@@ -71,25 +69,9 @@ def test_auto_resolves_as_the_jax_package_on_a_tpu(grid, monkeypatch):
     assert (jax_t, jax_a) == (temporal, axial)
     assert resolve_temporal_impl("auto", t, h, w, c) == temporal
     assert resolve_axial_impl("auto", h, w, c, heads) == axial
-    for name in ("mega", "core", "plain", "unrolled", "lane", "fused_block", "packed"):
+    for name in ("mega", "core", "plain", "unrolled", "lane", "fused_block", "packed", "flash"):
         assert resolve_temporal_impl(name, t, h, w, c) == name
         assert resolve_axial_impl(name, h, w, c, heads) == name
-
-
-@pytest.mark.parametrize("impl,branch,row", [
-    ("flash", "axial", "K8"), ("flash", "temporal", "K8"), ("auto", "temporal", "K8"),
-])
-def test_unported_kernels_raise_naming_their_roadmap_row(impl, branch, row):
-    """``flash`` runs K8 in either branch; auto at T >= 64 is K8.  The axial
-    ``mega`` (K5), ``fused_packed`` (K6) and ``fused`` (K7) routes are ported
-    (``tests/test_torch_mega_route.py``, ``tests/test_torch_fused_packed.py``)."""
-    if branch == "axial":
-        block, x = AxialAttentionBlock(32, 4, attn_impl=impl), torch.zeros(1, 4, 4, 32)
-    else:
-        t = 64 if impl == "auto" else 5
-        block, x = TemporalAttentionBlock(32, 4, attn_impl=impl), torch.zeros(1, t, 2, 2, 32)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 2, row {row}"):
-        block(x)
 
 
 def _randomize(params, seed):

@@ -13,11 +13,11 @@ noise):
   differentiated by hand and by the tape (measured 1e-15);
 * float32 vs JAX: 2e-5 — the same formulas in float32, summed in other
   orders (measured 9e-7);
-* bfloat16 vs JAX: 2e-2 — both round xn, qkv, q/k, y2, dao, s*dao and dqkv
-  to bfloat16 (2^-8 relative), but the port keeps the float32 ``ao`` its
-  forward wrote where the TPU kernel recomputes IN2 from a bfloat16 copy, so
-  single-ulp flips at different points propagate through two InstanceNorm
-  backwards (measured 6.5e-3, on dx).
+* bfloat16 vs JAX: 1e-2 — both round xn, qkv, q/k, y2, dao, s*dao and dqkv
+  to bfloat16 (2^-8 relative) and both recompute InstanceNorm2 from the
+  bfloat16 copy of ``ao``, but sum in other orders, so single-ulp flips at
+  different points propagate through two InstanceNorm backwards (measured
+  3.2e-3, on dx; 6.5e-3 when the port kept the float32 ``ao``).
 """
 import jax
 import jax.numpy as jnp
@@ -102,7 +102,7 @@ def _jax_grads(args, do, dtype):
     return grads
 
 
-@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 1e-2)])
 def test_plain_backward_matches_jax_megakernel(dtype, tol):
     args, do = _branch_args(1)
     want = _jax_grads(args, do, dtype)
