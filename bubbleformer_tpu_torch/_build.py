@@ -43,12 +43,12 @@ _SIGNATURES = {
     # dwqkv, dbqkv, dln, din2, dwout, dbout, dbias, dscale, B, T, N, C, heads,
     # stream
     "bf_temporal_block_bwd": [_I] * 2 + [_P] * 28 + [_I] * 5 + [_P],
-    # dtype, head_dim, xn, wqkv, bqkv, ln, bias, scale, qkv (or null), ao, B,
-    # T, N, C, heads, stream
-    "bf_core_temporal_fwd": [_I] * 2 + [_P] * 8 + [_I] * 5 + [_P],
-    # dtype, head_dim, xn, dao, qkv, wqkv_t, ln, bias, scale, dqkv, dx, dwqkv,
-    # dbqkv, dln, dbias, dscale, B, T, N, C, heads, stream
-    "bf_core_temporal_bwd": [_I] * 2 + [_P] * 14 + [_I] * 5 + [_P],
+    # dtype, head_dim, xn, wqkv, bqkv, ln, bias, scale, ao, B, T, N, C, heads,
+    # stream
+    "bf_core_temporal_fwd": [_I] * 2 + [_P] * 7 + [_I] * 5 + [_P],
+    # dtype, head_dim, xn, dao, wqkv, bqkv, wqkv_t, ln, bias, scale, qkv,
+    # dqkv, dx, dwqkv, dbqkv, dln, dbias, dscale, B, T, N, C, heads, stream
+    "bf_core_temporal_bwd": [_I] * 2 + [_P] * 16 + [_I] * 5 + [_P],
     # dtype, head_dim, fused, qkv, ln, bias_x, bias_y, scale, row_out, out,
     # BT, H, W, C, heads, stream
     "bf_axial_attention_fwd": [_I] * 3 + [_P] * 7 + [_I] * 5 + [_P],
@@ -81,6 +81,13 @@ _SIGNATURES = {
     # dqkv, dacc, lstats, dx, din1, dwqkv, dbqkv, dln, din2, dwout, dbout,
     # dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
     "bf_axial_block_mega_bwd": [_I] * 2 + [_P] * 33 + [_I] * 5 + [_P],
+    # dtype, head_dim, x, wqkv, bqkv, ln, bias_x, bias_y, scale, qkv, row_out,
+    # out, BT, H, W, C, heads, stream
+    "bf_axial_lane_px_fwd": [_I] * 2 + [_P] * 10 + [_I] * 5 + [_P],
+    # dtype, head_dim, x, dout, wqkv, wqkv_t, bqkv, ln, bias_x, bias_y, scale,
+    # qkv, dqkv, stats, dx, dwqkv, dbqkv, dln, dbias_x, dbias_y, dscale, BT, H,
+    # W, C, heads, stream
+    "bf_axial_lane_px_bwd": [_I] * 2 + [_P] * 19 + [_I] * 5 + [_P],
 }
 
 

@@ -1,5 +1,6 @@
 // The kernels around the attention of a whole-branch block, shared by K1
-// (temporal_block.cu, temporal_block_bwd.cu), K3 and K5 (axial_block_mega.cu):
+// (temporal_block.cu, temporal_block_bwd.cu), K3, K5 (axial_block_mega.cu)
+// and K9 (axial_lane_px.cu):
 // InstanceNorm statistics over the tokens of a plane, the two projections with
 // the InstanceNorm applied while the activations are staged, and the backward
 // products and sums.  Every product runs on block_gemm.cuh's tile (WMMA for
@@ -64,9 +65,11 @@ __global__ void plane_stats_kernel(const T* __restrict__ x, int N, int C,
 // float32), IN(a) = (a - mean[g, k]) * rstd[g, k] * in_w[k] + in_b[k] with
 // g = r / N, rounded to T while it is staged; w (Nout, K) in T, torch (out,
 // in) layout; bias float32.  K1's output projection of IN2(ao), K5's QKV
-// projection of IN1(x) and its output projection of IN2(ao).  Grid
-// (ceil(R / 64), ceil(Nout / kBN)); K a multiple of kKC, Nout of 16.
-template <typename T, typename S>
+// projection of IN1(x) and its output projection of IN2(ao).  Without kNorm,
+// a is staged as it is and mean, rstd, in_w, in_b are unused: K9's QKV
+// projection of x.  Grid (ceil(R / 64), ceil(Nout / kBN)); K a multiple of
+// kKC, Nout of 16.
+template <typename T, typename S, bool kNorm = true>
 __global__ void __launch_bounds__(kGemmThreads) norm_proj_kernel(
     const S* __restrict__ a, const float* __restrict__ mean, const float* __restrict__ rstd,
     const float* __restrict__ in_w, const float* __restrict__ in_b, const T* __restrict__ w,
@@ -78,6 +81,7 @@ __global__ void __launch_bounds__(kGemmThreads) norm_proj_kernel(
   auto aload = [&](int m, int k) -> T {
     const int r = r0 + m;
     if (r >= R) return from_f32<T>(0.f);
+    if constexpr (!kNorm) return from_f32<T>(to_f32(a[(size_t)r * K + k]));
     const int s = (r / N) * K + k;
     return from_f32<T>((to_f32(a[(size_t)r * K + k]) - mean[s]) * rstd[s] * in_w[k] + in_b[k]);
   };
@@ -94,9 +98,11 @@ __global__ void __launch_bounds__(kGemmThreads) norm_proj_kernel(
 }
 
 // out[r, n] = sum_k A[r, k] * Bt[n, k]; A (M, K), Bt (Nc, K) in T, out (M, Nc)
-// in O (float32 for a scratch, the activation dtype for K3's dxn).  Grid
+// in O (float32 for a scratch, the activation dtype for K3's dxn).  With
+// kAdd, out[r, n] = O(out[r, n] + O(sum)): the sum rounded, then added to
+// what out holds (K9's dx of the column pass onto the row pass's).  Grid
 // (ceil(M / 64), ceil(Nc / 192)).
-template <typename T, typename O>
+template <typename T, typename O, bool kAdd = false>
 __global__ void __launch_bounds__(kGemmThreads) gemm_nt_kernel(const T* __restrict__ A,
                                                                const T* __restrict__ Bt,
                                                                O* __restrict__ out, int M, int Nc,
@@ -115,7 +121,9 @@ __global__ void __launch_bounds__(kGemmThreads) gemm_nt_kernel(const T* __restri
   const int cols = 16 * n_tiles;
   for (int e = threadIdx.x; e < kTileM * cols; e += kGemmThreads) {
     const int m = e / cols, j = e % cols, r = r0 + m;
-    if (r < M) out[(size_t)r * Nc + n0 + j] = from_f32<O>(Cs[m * kLDC + j]);
+    if (r >= M) continue;
+    O* o = out + (size_t)r * Nc + n0 + j;
+    *o = from_f32<O>(kAdd ? to_f32(*o) + round_to<O>(Cs[m * kLDC + j]) : Cs[m * kLDC + j]);
   }
 }
 
@@ -230,34 +238,35 @@ cudaError_t launch_plane_stats(const T* x, int G, int N, int C, float* stats,
   return cudaGetLastError();
 }
 
-template <typename T, typename S>
+template <typename T, typename S, bool kNorm = true>
 cudaError_t launch_norm_proj(const S* a, const float* stats, const float* in_w,
                              const float* in_b, const T* w, const float* bias, T* out, int G,
                              int N, int K, int Nout, cudaStream_t stream) {
   const size_t smem = gemm_smem_bytes<T>(kProjMTiles);
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(norm_proj_kernel<T, S>,
+  if ((e = cudaFuncSetAttribute(norm_proj_kernel<T, S, kNorm>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
       cudaSuccess)
     return e;
   const int R = G * N;
-  norm_proj_kernel<T, S><<<dim3((R + 16 * kProjMTiles - 1) / (16 * kProjMTiles),
-                                (Nout + kBN - 1) / kBN),
-                           kGemmThreads, smem, stream>>>(a, stats, stats + (size_t)G * K, in_w,
-                                                         in_b, w, bias, out, R, N, K, Nout);
+  norm_proj_kernel<T, S, kNorm><<<dim3((R + 16 * kProjMTiles - 1) / (16 * kProjMTiles),
+                                       (Nout + kBN - 1) / kBN),
+                                  kGemmThreads, smem, stream>>>(
+      a, stats, stats ? stats + (size_t)G * K : nullptr, in_w, in_b, w, bias, out, R, N, K, Nout);
   return cudaGetLastError();
 }
 
-template <typename T, typename O>
+template <typename T, typename O, bool kAdd = false>
 cudaError_t launch_gemm_nt(const T* A, const T* Bt, O* out, int M, int Nc, int K,
                            cudaStream_t stream) {
   const size_t smem = gemm_smem_bytes<T>(kTileM / 16);
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(gemm_nt_kernel<T, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem)) != cudaSuccess)
+  if ((e = cudaFuncSetAttribute(gemm_nt_kernel<T, O, kAdd>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+      cudaSuccess)
     return e;
-  gemm_nt_kernel<T, O><<<dim3((M + kTileM - 1) / kTileM, (Nc + kBN - 1) / kBN), kGemmThreads,
-                         smem, stream>>>(A, Bt, out, M, Nc, K);
+  gemm_nt_kernel<T, O, kAdd><<<dim3((M + kTileM - 1) / kTileM, (Nc + kBN - 1) / kBN),
+                               kGemmThreads, smem, stream>>>(A, Bt, out, M, Nc, K);
   return cudaGetLastError();
 }
 

@@ -12,6 +12,8 @@
 //   kMega        K5's attention, axial_block_mega.py:_attn_chunks_fwd
 //                (its backward is kFusedBlock's)                    axial_block_mega.cu
 //   kFlash       K8 axial_pallas.py:_fwd_kernel, _bwd_kernel        axial_flash.cu
+//   kLanePx      K9's backward, axial_lane.py:_bwd_kernel_px        axial_lane_px.cu
+//                (its forward is kLane's)
 //
 // All compute, per head, attention along each image row (over W, T5 table
 // bias_x, attn scale s_x) and along each column (over H, bias_y, s_y), and
@@ -82,7 +84,10 @@
 // the LN backward in K2) is rounded to the activation dtype; the row pass
 // writes it and the column pass adds its own rounded gradient into it (K7:
 // dq_ref += dtype(dq), axial_fused.py:228; the TPU K2 projected once per
-// direction and summed the two; the port's QKV is one tensor).  K4, K6: the
+// direction and summed the two; the port's QKV is one tensor).  K9
+// (kLanePx): each pass writes its own rounded gradient over the last, and
+// the caller projects it back before the next pass (the TPU kernel's
+// per-direction dqkv, axial_lane.py:462-480).  K4, K6: the
 // row pass keeps its dq, dk (w.r.t. the LN outputs) and dv in a float32
 // scratch; the column pass adds its own, runs the LN backward on the sum (K4)
 // and rounds once (axial_fused_block.py:217-250, axial_fused_packed.py:
@@ -112,16 +117,16 @@ constexpr int kLineThreads = 256;
 constexpr int kLineWarps = kLineThreads / 32;
 constexpr int kTile = 64;  // tokens of a query or key tile
 
-enum class Flavour { kLane, kFusedBlock, kPacked, kFused, kMega, kFlash };
+enum class Flavour { kLane, kFusedBlock, kPacked, kFused, kMega, kFlash, kLanePx };
 
 template <Flavour F>
 struct Rounding {
   // q and k normalised in the kernel, from the interleaved (BT, H, W, 3C) qkv.
   static constexpr bool ln = F == Flavour::kLane || F == Flavour::kFusedBlock ||
-                             F == Flavour::kMega;
+                             F == Flavour::kMega || F == Flavour::kLanePx;
   // The attn_scale blend folded into the probabilities: o = P_eff v.
   static constexpr bool fold = F == Flavour::kLane || F == Flavour::kFused ||
-                               F == Flavour::kFlash;
+                               F == Flavour::kFlash || F == Flavour::kLanePx;
   // P (P_eff), dS and dao rounded to the activation dtype.
   static constexpr bool round = F != Flavour::kFused && F != Flavour::kFlash;
   // The two directions summed in float32 (output, and q, k, v gradients).
@@ -133,6 +138,9 @@ struct Rounding {
   // One direction over (heads, M, n, d) planes (K8): the row pass alone
   // writes the rounded output and its gradients, dao = dout.
   static constexpr bool one_pass = F == Flavour::kFlash;
+  // Each pass writes its own rounded input gradient (K9: the caller takes
+  // the row pass's before the column pass overwrites it).
+  static constexpr bool split = F == Flavour::kLanePx;
 };
 
 template <typename T, bool kRound>
@@ -497,8 +505,8 @@ __global__ void __launch_bounds__(kLineThreads, 4) line_fwd_kernel(
 // One input-gradient value v of component comp at element `j` of a (token,
 // head) row, as the flavour combines the two directions: the f32-sum
 // flavours keep pass 0's in dacc and round the sum in pass 1; the others
-// round each direction's and add pass 1's into pass 0's.  For the LN
-// flavours, q and k take ln_bwd_rows instead.
+// round each direction's and add pass 1's into pass 0's (K9: write it).  For
+// the LN flavours, q and k take ln_bwd_rows instead.
 template <typename T, Flavour F>
 __device__ __forceinline__ void emit_grad(const Planes<T*>& dst, const Planes<float*>& dacc,
                                           size_t token, int h, int comp, int j, float v,
@@ -511,7 +519,7 @@ __device__ __forceinline__ void emit_grad(const Planes<T*>& dst, const Planes<fl
     } else {
       *o = from_f32<T>(*a + v);
     }
-  } else if (pass == 0) {
+  } else if (pass == 0 || Rounding<F>::split) {
     *o = from_f32<T>(v);
   } else {
     *o = from_f32<T>(to_f32(*o) + round_to<T>(v));
@@ -577,8 +585,9 @@ __device__ void ln_bwd_rows(const float* raw, const float* dy, int n, int r0, in
       const int d = lane + 32 * u;
       if (d >= D) continue;
       const float v = inv * (gg[u] - m1 - xh[u] * m2);
-      o[d] = (R::f32_sum || c.pass == 0) ? from_f32<T>(v)
-                                         : from_f32<T>(to_f32(o[d]) + round_to<T>(v));
+      o[d] = (R::f32_sum || R::split || c.pass == 0)
+                 ? from_f32<T>(v)
+                 : from_f32<T>(to_f32(o[d]) + round_to<T>(v));
     }
   }
   if (keep) return;
@@ -942,9 +951,10 @@ int line_attention_fwd(const AxialArgs& a) {
   return cudaSuccess;
 }
 
+// One direction of the backward (pass 0 rows, 1 columns): one launch for
+// lines of at most 64 tokens, two for longer ones.
 template <typename T, int D, Flavour F>
-int line_attention_bwd(const AxialArgs& a) {
-  using R = Rounding<F>;
+int line_attention_bwd_pass(const AxialArgs& a, int pass) {
   cudaError_t e;
   auto qk = line_bwd_q_kernel<T, D, F>;
   auto kvk = line_bwd_kv_kernel<T, D, F>;
@@ -959,21 +969,28 @@ int line_attention_bwd(const AxialArgs& a) {
   const Planes<T*> dst = make_planes<F>(static_cast<T*>(a.dqkv), D, a.BT, a.H, a.W, a.C);
   const Planes<float*> dacc = make_planes<F>(a.dacc, D, a.BT, a.H, a.W, a.C);
   const T* dout = static_cast<const T*>(a.dout);
-  for (int pass = 0; pass < (R::one_pass ? 1 : 2); ++pass) {
-    const int L = pass == 0 ? a.W : a.H, lines = pass == 0 ? a.H : a.W;
-    const int tl = L < kTile ? L : kTile, nt = (L + kTile - 1) / kTile;
-    const dim3 grid(lines * nt, a.heads, a.BT);
-    const float* bias = pass == 0 ? a.bias_x : a.bias_y;
-    qk<<<grid, kLineThreads, bwd_q_smem_bytes<D>(tl), a.stream>>>(
-        src, dout, a.ln, bias, a.scale, dst, dacc, a.stats, a.dln,
-        pass == 0 ? a.dbias_x : a.dbias_y, a.dscale, a.H, a.W, a.C, a.heads, pass);
+  const int L = pass == 0 ? a.W : a.H, lines = pass == 0 ? a.H : a.W;
+  const int tl = L < kTile ? L : kTile, nt = (L + kTile - 1) / kTile;
+  const dim3 grid(lines * nt, a.heads, a.BT);
+  const float* bias = pass == 0 ? a.bias_x : a.bias_y;
+  qk<<<grid, kLineThreads, bwd_q_smem_bytes<D>(tl), a.stream>>>(
+      src, dout, a.ln, bias, a.scale, dst, dacc, a.stats, a.dln,
+      pass == 0 ? a.dbias_x : a.dbias_y, a.dscale, a.H, a.W, a.C, a.heads, pass);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (L > kTile) {
+    kvk<<<grid, kLineThreads, bwd_kv_smem_bytes<D>(tl), a.stream>>>(
+        src, dout, a.ln, bias, a.scale, a.stats, dst, dacc, a.dln, a.H, a.W, a.C, a.heads,
+        pass);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    if (L > kTile) {
-      kvk<<<grid, kLineThreads, bwd_kv_smem_bytes<D>(tl), a.stream>>>(
-          src, dout, a.ln, bias, a.scale, a.stats, dst, dacc, a.dln, a.H, a.W, a.C, a.heads,
-          pass);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    }
+  }
+  return cudaSuccess;
+}
+
+template <typename T, int D, Flavour F>
+int line_attention_bwd(const AxialArgs& a) {
+  for (int pass = 0; pass < (Rounding<F>::one_pass ? 1 : 2); ++pass) {
+    const int e = line_attention_bwd_pass<T, D, F>(a, pass);
+    if (e != cudaSuccess) return e;
   }
   return cudaSuccess;
 }

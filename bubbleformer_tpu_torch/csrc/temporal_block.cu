@@ -350,8 +350,8 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
 // K3: qkv_attention_kernel alone, on the IN1 output, ao in dtype.
 template <typename T, int D>
 int run_core_temporal(const void* xn, const void* wqkv, const float* bqkv, const float* ln,
-                      const float* bias, const float* scale, void* qkv, void* ao, int B,
-                      int steps, int N, int C, int heads, cudaStream_t stream) {
+                      const float* bias, const float* scale, void* ao, int B, int steps,
+                      int N, int C, int heads, cudaStream_t stream) {
   auto kernel = qkv_attention<T, T, false, D>();
   const size_t smem_b = gemm_smem_bytes<T>(steps);
   cudaError_t e;
@@ -360,7 +360,7 @@ int run_core_temporal(const void* xn, const void* wqkv, const float* bqkv, const
     return e;
   kernel<<<dim3(N / kP, heads / HeadGroup<D>::kHeads, B), kThreads, smem_b, stream>>>(
       static_cast<const T*>(xn), nullptr, nullptr, nullptr, nullptr, static_cast<const T*>(wqkv),
-      bqkv, ln, bias, scale, static_cast<T*>(qkv), static_cast<T*>(ao), nullptr, steps, N, C);
+      bqkv, ln, bias, scale, nullptr, static_cast<T*>(ao), nullptr, steps, N, C);
   return cudaGetLastError();
 }
 
@@ -407,27 +407,26 @@ extern "C" int bf_temporal_block_fwd(int dtype, int head_dim, const void* x, con
 // bubbleformer_tpu/ops/temporal_block_mega.py:_core_fwd_kernel, built by
 // _make_temporal_core, entry core_temporal_attention): the QKV projection of
 // the IN1 output xn, qk-LN and the T x T attention, one launch of (b) above
-// without IN1, writing ao (B, T, N, C) in dtype, and the rounded raw qkv
-// (B*T*N, 3C) for the backward unless qkv is null.  xn in dtype; wqkv
-// (3C, C) in dtype; head_dim, ln, bias and scale as for bf_temporal_block_fwd.
+// without IN1, writing ao (B, T, N, C) in dtype and nothing else: as on the
+// TPU, the backward projects again.  xn in dtype; wqkv (3C, C) in dtype;
+// head_dim, ln, bias and scale as for bf_temporal_block_fwd.
 //
 // What bounds it at AViT-big's training shape (B=8, T=5, 32x32 tokens,
 // C=768, 12 heads): the QKV product, 2*R*C*3C = 145 GFLOP for R = 40960
-// tokens, against ~63 MB of xn and ao and 189 MB of qkv in bf16: the tensor
-// cores, 0.15 ms at the bf16 peak.  This first version is far from it: each
-// of a tile's head-group blocks stages the same 768-wide xn rows through
-// shared memory with plain loads and runs WMMA 16x16x16, without cp.async,
-// TMA or wgmma.  Its tile is K-chunked (kKC), so its shared memory does not
+// tokens, against ~63 MB of xn and ao in bf16: the tensor cores, 0.15 ms
+// at the bf16 peak.  This first version is far from it: each of a tile's
+// head-group blocks stages the same 768-wide xn rows through shared memory
+// with plain loads and runs WMMA 16x16x16, without cp.async, TMA or wgmma.  Its tile is K-chunked (kKC), so its shared memory does not
 // grow with C.  Returns a cudaError_t.
 extern "C" int bf_core_temporal_fwd(int dtype, int head_dim, const void* xn, const void* wqkv,
                                     const float* bqkv, const float* ln, const float* bias,
-                                    const float* scale, void* qkv, void* ao, int B, int steps,
-                                    int N, int C, int heads, void* stream) {
+                                    const float* scale, void* ao, int B, int steps, int N,
+                                    int C, int heads, void* stream) {
   if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BFT_RUN(T, D)                                                                         \
-  return bft::run_core_temporal<T, D>(xn, wqkv, bqkv, ln, bias, scale, qkv, ao, B, steps, N, \
-                                      C, heads, s)
+  return bft::run_core_temporal<T, D>(xn, wqkv, bqkv, ln, bias, scale, ao, B, steps, N, C, \
+                                      heads, s)
   if (dtype == bft::kF32 && head_dim == 64) BFT_RUN(float, 64);
   if (dtype == bft::kF32 && head_dim == 16) BFT_RUN(float, 16);
   if (dtype == bft::kBF16 && head_dim == 64) BFT_RUN(__nv_bfloat16, 64);

@@ -378,18 +378,23 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
   return cudaSuccess;
 }
 
-// K3's backward: launches (5)-(8) of K1's backward, with dao read as it is
-// instead of IN2's backward, xn read as it is instead of IN1 recomputed, and
-// dxn written rounded to T as dx.
+// K3's backward: the forward's qkv projected again from xn, then launches
+// (5)-(8) of K1's backward, with dao read as it is instead of IN2's
+// backward, xn read as it is instead of IN1 recomputed, and dxn written
+// rounded to T as dx.
 template <typename T, int D>
-int run_core_temporal_bwd(const T* xn, const T* dao, const T* qkv, const T* wqkv_t,
-                          const float* ln, const float* bias, const float* scale, T* dqkv, T* dx,
-                          float* dwqkv, float* dbqkv, float* dln, float* dbias, float* dscale,
-                          int B, int steps, int N, int C, int heads, cudaStream_t stream) {
+int run_core_temporal_bwd(const T* xn, const T* dao, const T* wqkv, const float* bqkv,
+                          const T* wqkv_t, const float* ln, const float* bias, const float* scale,
+                          T* qkv, T* dqkv, T* dx, float* dwqkv, float* dbqkv, float* dln,
+                          float* dbias, float* dscale, int B, int steps, int N, int C, int heads,
+                          cudaStream_t stream) {
   const int G = B * steps, R = G * N;
   cudaError_t e;
 #define BFT_TRY(call) \
   if ((e = (call)) != cudaSuccess) return e
+  // (4) qkv = T(xn . W_qkv^T + b), as the forward's
+  BFT_TRY((launch_norm_proj<T, T, false>(xn, nullptr, nullptr, nullptr, wqkv, bqkv, qkv, G, N, C,
+                                         3 * C, stream)));
   // (5) attention backward -> dqkv, dln, dbias, dscale
   BFT_TRY((launch_attention_bwd<T, true, D>(qkv, ln, bias, scale, nullptr, nullptr, nullptr,
                                             nullptr, nullptr, dao, dqkv, dln, dbias, dscale, B,
@@ -459,37 +464,39 @@ extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, con
 
 // K3's backward (replaces bubbleformer_tpu/ops/temporal_block_mega.py:
 // _core_bwd_kernel and fused_bwd of _make_temporal_core): every gradient of
-// bf_core_temporal_fwd from the output gradient dao, in four launches of
-// the kernels above — the attention backward reading dao as it is and the
-// forward's rounded raw qkv (the TPU kernel recomputes the projection: the
-// same values), dW_qkv += dqkv^T . xn, db_qkv = sum dqkv, and
-// dx = dtype(dqkv . W_qkv).  Rounding as the TPU kernel's (:538, :574-595):
-// s*dao and the raw dqkv in dtype, dx in dtype, the rest float32.
+// bf_core_temporal_fwd from the output gradient dao, in five launches of
+// the kernels above — the raw qkv projected again from xn into scratch, as
+// the TPU kernel's backward does (the forward keeps nothing of its own), the
+// attention backward reading dao as it is and that qkv, dW_qkv += dqkv^T .
+// xn, db_qkv = sum dqkv, and dx = dtype(dqkv . W_qkv).  Rounding as the TPU
+// kernel's (:538, :574-595): the raw qkv, s*dao and the raw dqkv in dtype,
+// dx in dtype, the rest float32.
 //
 // What bounds it at AViT-big's training shape (B=8, T=5, 32x32 tokens,
-// C=768): two products of 2*R*C*3C = 145 GFLOP each (dW_qkv, dx) for
-// R = 40960 tokens: the tensor cores, 0.29 ms at the bf16 peak.  The weight
+// C=768): three products of 2*R*C*3C = 145 GFLOP each (qkv, dW_qkv, dx) for
+// R = 40960 tokens: the tensor cores, 0.44 ms at the bf16 peak.  The weight
 // gradient stages the token-major dqkv and xn with scalar, transposed
 // loads and adds ~32 token chunks per tile with float32 atomics, as K1's
 // does; it is left slow here.
 //
-// xn, dao, dx: (B, T, N, C) in dtype; qkv (B*T*N, 3C) from
-// bf_core_temporal_fwd; wqkv_t (C, 3C) in dtype; ln (4, head_dim); bias
-// (heads, T, T); scale (heads,); dqkv (B*T*N, 3C) dtype scratch.  Outputs,
+// xn, dao, dx: (B, T, N, C) in dtype; wqkv (3C, C) and wqkv_t (C, 3C), its
+// transpose, in dtype; bqkv (3C) float32; ln (4, head_dim); bias (heads, T,
+// T); scale (heads,); qkv and dqkv (B*T*N, 3C) dtype scratch.  Outputs,
 // float32 and zeroed by the caller except dx: dwqkv (3C, C), dbqkv (3C), dln
 // (4, head_dim), dbias (heads, T, T), dscale (heads).  Returns a cudaError_t.
 extern "C" int bf_core_temporal_bwd(int dtype, int head_dim, const void* xn, const void* dao,
-                                    const void* qkv, const void* wqkv_t, const float* ln,
-                                    const float* bias, const float* scale, void* dqkv, void* dx,
-                                    float* dwqkv, float* dbqkv, float* dln, float* dbias,
-                                    float* dscale, int B, int steps, int N, int C, int heads,
-                                    void* stream) {
+                                    const void* wqkv, const float* bqkv, const void* wqkv_t,
+                                    const float* ln, const float* bias, const float* scale,
+                                    void* qkv, void* dqkv, void* dx, float* dwqkv, float* dbqkv,
+                                    float* dln, float* dbias, float* dscale, int B, int steps,
+                                    int N, int C, int heads, void* stream) {
   if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BFT_ARGS(T)                                                                            \
-  static_cast<const T*>(xn), static_cast<const T*>(dao), static_cast<const T*>(qkv),           \
-      static_cast<const T*>(wqkv_t), ln, bias, scale, static_cast<T*>(dqkv), static_cast<T*>(dx), \
-      dwqkv, dbqkv, dln, dbias, dscale, B, steps, N, C, heads, s
+#define BFT_ARGS(T)                                                                           \
+  static_cast<const T*>(xn), static_cast<const T*>(dao), static_cast<const T*>(wqkv), bqkv,   \
+      static_cast<const T*>(wqkv_t), ln, bias, scale, static_cast<T*>(qkv),                   \
+      static_cast<T*>(dqkv), static_cast<T*>(dx), dwqkv, dbqkv, dln, dbias, dscale, B, steps, N, \
+      C, heads, s
   using bf16 = __nv_bfloat16;
   if (dtype == bft::kF32 && head_dim == 64)
     return bft::run_core_temporal_bwd<float, 64>(BFT_ARGS(float));

@@ -25,8 +25,9 @@ with ``memory_lean=False``: the port has no ``scan_blocks``):
   in :func:`~bubbleformer_tpu_torch.ops.axial_block_mega.mega_axial_block`
   (K5), then ``_epilogue`` (``:596-626``); ``lane`` (``:446-465``):
   InstanceNorm1, :func:`~bubbleformer_tpu_torch.ops.axial_lane.
-  lane_axial_attention_from_x` (K2), InstanceNorm2, the output projection,
-  then ``_epilogue``; ``fused_block`` (``:467-489``): the QKV Dense in the
+  lane_axial_attention_from_x` (K2; K9, the projection in the kernel, with
+  ``BUBBLEFORMER_LANE_PROJ=kernel`` as in the JAX package), InstanceNorm2,
+  the output projection, then ``_epilogue``; ``fused_block`` (``:467-489``): the QKV Dense in the
   activation dtype and :func:`~bubbleformer_tpu_torch.ops.axial_fused_block.
   fused_block_attention` (K4) in its place; ``fused_packed`` and ``fused``
   (``:490-502``): the QKV Dense in the activation dtype, qk-LayerNorm cast
@@ -149,14 +150,17 @@ class TemporalAttentionBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, drop_path_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``: the branch's drop-path keep mask ``(B,)``, in place of one
+        drawn from ``generator``."""
         b, t, h, w, c = x.shape
         heads = self.num_heads
         scale = None if self.attn_scale_factor is None else self.attn_scale_factor.reshape(heads)
         impl = resolve_temporal_impl(self.attn_impl, t, h, w, c)
         if impl == "mega":
             return drop_path(self._mega_branch(x, scale), drop_path_rate, generator,
-                             self.training) + x
+                             self.training, mask) + x
         # The parameters are the mega route's on every route, so checkpoints
         # interchange.
         xn = self.norm1(x)
@@ -190,7 +194,7 @@ class TemporalAttentionBlock(nn.Module):
         out = dense(self.norm2(out), self.output_head.weight.reshape(c, c),
                     self.output_head.bias, self.dtype)
         branch = out * self.gamma.to(out.dtype)
-        return drop_path(branch, drop_path_rate, generator, self.training) + x
+        return drop_path(branch, drop_path_rate, generator, self.training, mask) + x
 
     def _mega_branch(self, x, scale):
         """K1 with LayerScale folded into the output projection exactly:
@@ -246,7 +250,10 @@ class AxialAttentionBlock(nn.Module):
         self.mlp_norm = InstanceNorm(c)
 
     def forward(self, x: torch.Tensor, drop_path_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[tuple] = None) -> torch.Tensor:
+        """``masks``: the drop-path keep masks ``(B,)`` of the attention and
+        the MLP residuals, in place of two drawn from ``generator``."""
         b, h, w, c = x.shape
         heads = self.num_heads
         impl = resolve_axial_impl(self.attn_impl, h, w, c, heads)
@@ -265,7 +272,7 @@ class AxialAttentionBlock(nn.Module):
                 self.norm1.bias, wqkv, self.input_head.bias, *lnp, self.norm2.weight,
                 self.norm2.bias, self.output_head.weight.reshape(c, c), self.output_head.bias,
                 *tables, heads=heads)
-            return self._epilogue(x, inp, drop_path_rate, generator)
+            return self._epilogue(x, inp, drop_path_rate, generator, masks)
         x = self.norm1(x)
         if impl == "lane":
             x = lane_axial_attention_from_x(x if self.dtype is None else x.to(self.dtype), wqkv,
@@ -283,7 +290,7 @@ class AxialAttentionBlock(nn.Module):
                                     impl)
         x = self.norm2(x)
         x = dense(x, self.output_head.weight.reshape(c, c), self.output_head.bias, self.dtype)
-        return self._epilogue(x, inp, drop_path_rate, generator)
+        return self._epilogue(x, inp, drop_path_rate, generator, masks)
 
     def _xla_attention(self, qkv, tables, impl):
         """The JAX package's routes from the QKV Dense (``layers/
@@ -320,15 +327,16 @@ class AxialAttentionBlock(nn.Module):
                                               scale_y, unrolled))
         return ((xx + xy) * 0.5).reshape(b, h, w, c)
 
-    def _epilogue(self, x, inp, drop_path_rate, generator):
+    def _epilogue(self, x, inp, drop_path_rate, generator, masks):
         """feat_scale, LayerScale + DropPath residual, and the MLP sub-block."""
+        m_att, m_mlp = (None, None) if masks is None else masks
         if self.low_freq_scalar is not None:
             x_low = x.mean(dim=(1, 2), keepdim=True)
             x_high = x - x_low
             x = (x + x_low * self.low_freq_scalar.to(x.dtype)
                  + x_high * self.high_freq_scalar.to(x.dtype))
         x = drop_path(x * self.gamma_att.to(x.dtype), drop_path_rate, generator,
-                      self.training) + inp
+                      self.training, m_att) + inp
         y = self.mlp_norm(self.mlp(x))
         return x + drop_path(self.gamma_mlp.to(y.dtype) * y, drop_path_rate, generator,
-                             self.training)
+                             self.training, m_mlp)

@@ -13,7 +13,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bubbleformer_tpu_torch.layers import remat
 from bubbleformer_tpu_torch.layers.norm import LayerNorm
+
+
+class _Linear(torch.autograd.Function):
+    """``F.linear`` with autograd's own backward products written out, so
+    that under remat ``"dots"`` its output is kept (:func:`remat.reuse`) and
+    the block's rerun does not redo the product."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        ctx.save_for_backward(x, weight)
+        ctx.has_bias = bias is not None
+        return remat.reuse(lambda: F.linear(x, weight, bias), site=_Linear)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        dx = dy2.mm(weight).reshape(x.shape) if need_x else None
+        dweight = x.reshape(-1, x.shape[-1]).t().mm(dy2).t() if need_w else None
+        return dx, dweight, dy2.sum(0) if ctx.has_bias and need_b else None
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``F.linear(x, weight, bias)``, a 2-D product that remat ``"dots"``
+    keeps (:mod:`~bubbleformer_tpu_torch.layers.remat`)."""
+    return _Linear.apply(x, weight, bias)
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -23,7 +51,7 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     ``dtype=None`` promotes, as flax does: a bfloat16 input against float32
     parameters computes in float32."""
     dt = dtype or torch.promote_types(x.dtype, weight.dtype)
-    return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
+    return linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
 
 
 class GeluMLP(nn.Module):

@@ -10,8 +10,13 @@ channels-last training loss reads it, ``training/module.py``).
 ``attn_impl`` picks the route of every temporal and every axial branch, as
 the JAX models' field of that name does (``layers/attention.py:resolve_temporal_impl``,
 ``resolve_axial_impl``).
-The JAX package's TPU options (the ``carry="cm"`` layout, ``scan_blocks``,
-remat, ``spatial_shard_axis``) have no counterpart here.
+``remat`` (default True) and ``remat_policy`` (``"dots"``, or ``"full"``)
+checkpoint each SpaceTimeBlock as the JAX models' fields of those names do
+(``layers/remat.py``); remat applies where autograd records, not in a
+rollout under ``no_grad``.
+The JAX package's other TPU options (the ``carry="cm"`` layout,
+``scan_blocks`` and its ``lean`` boundary, ``spatial_shard_axis``) have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from bubbleformer_tpu_torch.layers import remat as remat_lib
 from bubbleformer_tpu_torch.layers.attention import AxialAttentionBlock, TemporalAttentionBlock
 from bubbleformer_tpu_torch.layers.linear import FiLMMLP
 from bubbleformer_tpu_torch.layers.patching import HMLPDebed, HMLPEmbed
@@ -45,11 +51,29 @@ class SpaceTimeBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, drop_path_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                masks: Optional[tuple] = None) -> torch.Tensor:
+        """``masks``: :meth:`draw_masks`' three keep masks, in place of masks
+        drawn from ``generator``."""
         b, t, h, w, c = x.shape
-        x = self.temporal(x, drop_path_rate, generator)
-        x = self.spatial(x.reshape(b * t, h, w, c), drop_path_rate, generator)
+        m_t, *m_s = (None, None, None) if masks is None else masks
+        x = self.temporal(x, drop_path_rate, generator, m_t)
+        x = self.spatial(x.reshape(b * t, h, w, c), drop_path_rate, generator,
+                         None if masks is None else tuple(m_s))
         return x.reshape(b, t, h, w, c)
+
+    def draw_masks(self, shape, drop_path_rate: float, generator: Optional[torch.Generator]):
+        """The drop-path keep masks of a ``(B, T, h, w, C)`` input: the temporal
+        residual's ``(B,)``, then the axial attention's and MLP's ``(B*T,)``,
+        drawn from ``generator`` as the forward would draw them; None outside
+        training or without a generator."""
+        if not self.training or generator is None:
+            return None
+        keep = 1.0 - float(drop_path_rate)
+        b, t = shape[:2]
+        return tuple(torch.rand((n,) + (1,) * nd, generator=generator,
+                                device=generator.device) < keep
+                     for n, nd in ((b, 4), (b * t, 3), (b * t, 3)))
 
 
 @register_model("avit")
@@ -59,13 +83,14 @@ class AViT(nn.Module):
     def __init__(self, input_fields: int = 3, output_fields: int = 3, time_window: int = 12,
                  patch_size: int = 16, embed_dim: int = 768, num_heads: int = 12,
                  processor_blocks: int = 12, drop_path: float = 0.2, attn_scale: bool = True,
-                 feat_scale: bool = True, attn_impl: str = "auto",
-                 dtype: Optional[torch.dtype] = None):
+                 feat_scale: bool = True, attn_impl: str = "auto", remat: bool = True,
+                 remat_policy: str = "dots", dtype: Optional[torch.dtype] = None):
         super().__init__()
         if patch_size < 2:
             raise ValueError("patch_size must be >= 2")
         self.output_fields = output_fields
         self.embed_dim = embed_dim
+        self.remat, self.remat_policy = remat, remat_policy
         self.dtype = dtype
         self.embed = HMLPEmbed(patch_size, input_fields, embed_dim, dtype=dtype)
         self.blocks = nn.ModuleList(
@@ -89,8 +114,17 @@ class AViT(nn.Module):
         return x.reshape(b, t, x.shape[1], x.shape[2], self.embed_dim)
 
     def _process(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The blocks, each checkpointed under ``remat`` where autograd
+        records; each block's drop-path masks are drawn before it, so that its
+        rerun applies the same ones."""
         for rate, block in zip(self.drop_path_rates, self.blocks):
-            x = block(x, rate, generator)
+            masks = block.draw_masks(x.shape, rate, generator)
+            if self.remat and torch.is_grad_enabled():
+                x = remat_lib.checkpoint_block(
+                    lambda y, block=block, rate=rate, masks=masks: block(y, rate, masks=masks),
+                    x, self.remat_policy)
+            else:
+                x = block(x, rate, masks=masks)
         return x
 
     def _decode(self, x: torch.Tensor, output_layout: str = "nchw") -> torch.Tensor:

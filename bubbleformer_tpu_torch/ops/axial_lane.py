@@ -2,11 +2,13 @@
 
 Counterpart of ``bubbleformer_tpu/ops/axial_lane.py:
 lane_axial_attention_from_x``: the QKV projection of the InstanceNorm1
-output (a plain ``addmm`` with autograd, as it was XLA on the TPU,
+output (a float32 ``addmm``, as it was XLA on the TPU,
 ``axial_lane.py:983-1000``), then per-head qk-LayerNorm, attention along
 each row (over W, ``bias_x``, ``scale_x``) and each column (over H,
 ``bias_y``, ``scale_y``) with the attn_scale blend folded into the
-probabilities, and the mean of the two directions.
+probabilities, and the mean of the two directions.  With ``proj="kernel"``
+(or ``BUBBLEFORMER_LANE_PROJ=kernel``, as in the JAX package) the projection
+runs inside the kernels instead: K9, ``ops/axial_lane_px.py``.
 
 :func:`lane_axial_attention` is a ``torch.autograd.Function``.  On CUDA
 tensors its forward and backward run the hand-written kernels of
@@ -32,11 +34,14 @@ the TPU package projected once per direction.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
 
 from bubbleformer_tpu_torch import _build
+from bubbleformer_tpu_torch.layers import remat
+from bubbleformer_tpu_torch.layers.linear import linear
 from bubbleformer_tpu_torch.layers.norm import (
     accumulation_dtype,
     layer_norm_bwd,
@@ -50,7 +55,8 @@ MAX_LINE = 512  # longest row or column the kernels take
 LINE_TILE = 64  # tokens per query or key tile (csrc/axial_attention.cu kTile)
 # The JAX lane gate's defaults: its chunk-lane target (BUBBLEFORMER_LANE_CHUNK
 # unset, bubbleformer_tpu/ops/axial_lane.py:123) and its grid-step budget
-# (BUBBLEFORMER_LANE_GRID unset, :92).  The port reads no environment knob.
+# (BUBBLEFORMER_LANE_GRID unset, :92).  The port reads neither knob (it reads
+# one of the module's: BUBBLEFORMER_LANE_PROJ, lane_axial_attention_from_x).
 LANE_CHUNK_TARGET = 256
 LANE_GRID_BUDGET = int(60e6)
 
@@ -95,8 +101,24 @@ def axial_attention_bwd_plain(
     ``dS = P * (s G - rowsum(s G P))`` (the T5 table's gradient),
     ``dq = dtype(dS) k / sqrt(d)``, ``dk = dtype(dS)^T q / sqrt(d)`` and
     ``dv = dtype(s P + (1-s)/L)^T dao`` (``axial_lane.py:_axis_bwd``), then
-    the qk-LN backward (``_qkln_bwd``).
+    the qk-LN backward (``_qkln_bwd``).  Each direction's ``dqkv`` is rounded
+    to ``qkv.dtype``; the two are added and rounded once more.
     """
+    dqkv_r, dqkv_c, *rest = lane_bwd_directions(
+        do, qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x, scale_y,
+        heads=heads)
+    acc = accumulation_dtype(qkv.dtype)
+    return ((dqkv_r.to(acc) + dqkv_c.to(acc)).to(qkv.dtype), *rest)
+
+
+def lane_bwd_directions(do, qkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x=None,
+                        bias_y=None, scale_x=None, scale_y=None, *, heads: int) -> tuple:
+    """K2's backward kept apart by direction: ``(dqkv_rows, dqkv_cols,
+    dqn_scale, dqn_bias, dkn_scale, dkn_bias, dbias_x, dbias_y, dscale_x,
+    dscale_y)``, each direction's ``dqkv`` rounded to ``qkv.dtype``, the
+    parameter gradients summed over both (float32, None where the argument is
+    absent).  :func:`axial_attention_bwd_plain` adds the two ``dqkv``; K9
+    projects each back on its own (``ops/axial_lane_px.py``)."""
     bt, h, w, c3 = qkv.shape
     c = c3 // 3
     d, dt, dev = c // heads, qkv.dtype, qkv.device
@@ -130,14 +152,13 @@ def axial_attention_bwd_plain(
         dv = unfold(pb.transpose(-1, -2) @ ds)
         dqr, dgq, dbq = layer_norm_bwd(dq, qhat, qrstd, qn_scale)
         dkr, dgk, dbk = layer_norm_bwd(dk, khat, krstd, kn_scale)
-        dqkv = torch.stack([dqr.to(dt), dkr.to(dt), dv.to(dt)], dim=-2)
+        dqkv = torch.stack([dqr.to(dt), dkr.to(dt), dv.to(dt)], dim=-2).reshape(bt, h, w, c3)
         return dqkv, torch.stack([dgq, dbq, dgk, dbk]), dlog.sum(dim=batch), dscale
 
     dqkv_r, dln_r, dbx, dsx = direction(to_rows, to_rows, bias_x, scale_x, w)
     dqkv_c, dln_c, dby, dsy = direction(to_cols, from_cols, bias_y, scale_y, h)
-    dqkv = (dqkv_r.to(acc) + dqkv_c.to(acc)).to(dt).reshape(bt, h, w, c3)
     dln = dln_r + dln_c
-    return (dqkv, dln[0], dln[1], dln[2], dln[3],
+    return (dqkv_r, dqkv_c, dln[0], dln[1], dln[2], dln[3],
             None if bias_x is None else dbx, None if bias_y is None else dby,
             None if scale_x is None else dsx, None if scale_y is None else dsy)
 
@@ -149,8 +170,7 @@ def lane_axial_supported(h: int, w: int, c: int, heads: int) -> bool:
     and the TPU kernel's per-grid-step VMEM working set within its budget.
     The JAX module reads its chunk-lane target and a grid-step cap from
     ``BUBBLEFORMER_LANE_CHUNK`` and ``BUBBLEFORMER_LANE_GRID``; the port reads
-    no environment knob and keeps their defaults (``LANE_CHUNK_TARGET``, no
-    cap)."""
+    neither and keeps their defaults (``LANE_CHUNK_TARGET``, no cap)."""
     n = h * w
     d = c // heads
     if c % heads or n % 128 or d % 8:
@@ -332,7 +352,7 @@ def _lane_fwd(qkv, *params, heads):
 
 
 class LineAttention(torch.autograd.Function):
-    """One flavour of the line kernels (K2, K4, K6, K7) as an autograd
+    """One flavour of the line kernels (K2, K4, K6, K7, K8, K9) as an autograd
     Function: ``fwd(*args, **kwargs)`` and ``bwd(do, *args, **kwargs)`` take
     the plain version on CPU tensors and launch the kernel on CUDA tensors;
     absent (None) arguments get no gradient."""
@@ -342,7 +362,9 @@ class LineAttention(torch.autograd.Function):
         ctx.bwd, ctx.kwargs = bwd, kwargs
         ctx.absent = tuple(a is None for a in args)
         ctx.save_for_backward(*(a for a in args if a is not None))
-        return fwd(*args, **kwargs)
+        # The JAX VJPs of these kernels keep only their inputs: remat "dots"
+        # keeps the output and the block's rerun does not launch again.
+        return remat.reuse(lambda: fwd(*args, **kwargs), site=fwd)
 
     @staticmethod
     def backward(ctx, do):
@@ -380,10 +402,12 @@ lane_axial_attention_bwd.launches = 0
 
 
 def project_qkv(x: torch.Tensor, wqkv: torch.Tensor, bqkv: torch.Tensor) -> torch.Tensor:
-    """``(x @ W^T + b)`` accumulated and biased in float32, then rounded to
-    ``x.dtype`` — the lane wrapper's XLA projection (``axial_lane.py:988-994``)."""
-    y = torch.addmm(bqkv.float(), x.reshape(-1, x.shape[-1]).float(),
-                    wqkv.to(x.dtype).float().t())
+    """``(x @ dtype(W)^T + b)`` accumulated and biased in float32 (float64 for
+    float64 input), then rounded to ``x.dtype`` — the lane wrapper's XLA
+    projection (``axial_lane.py:988-994``), one ``addmm`` that remat
+    ``"dots"`` keeps."""
+    acc = accumulation_dtype(x.dtype)
+    y = linear(x.reshape(-1, x.shape[-1]).to(acc), wqkv.to(x.dtype).to(acc), bqkv.to(acc))
     return y.reshape(*x.shape[:-1], -1).to(x.dtype)
 
 
@@ -393,11 +417,25 @@ def lane_axial_attention_from_x(
     kn_scale: torch.Tensor, kn_bias: torch.Tensor,
     bias_x: Optional[torch.Tensor] = None, bias_y: Optional[torch.Tensor] = None,
     scale_x: Optional[torch.Tensor] = None, scale_y: Optional[torch.Tensor] = None,
-    *, heads: int,
+    *, heads: int, proj: Optional[str] = None,
 ) -> torch.Tensor:
     """Axial attention from the InstanceNorm1 output ``x`` ``(BT, H, W, C)``:
     the QKV projection (``wqkv`` torch ``(3C, C)``), then
-    :func:`lane_axial_attention`."""
+    :func:`lane_axial_attention`.
+
+    ``proj``: where the projection runs; None reads
+    ``BUBBLEFORMER_LANE_PROJ`` (default ``"xla"``), as the JAX function does
+    (``axial_lane.py:932-933``).  ``"kernel"`` takes K9
+    (:func:`~bubbleformer_tpu_torch.ops.axial_lane_px.lane_px_attention`:
+    the projection inside the kernels, nothing 3C wide kept for the
+    backward); any other value this route."""
+    if proj is None:
+        proj = os.environ.get("BUBBLEFORMER_LANE_PROJ", "xla")
+    if proj == "kernel":
+        from bubbleformer_tpu_torch.ops.axial_lane_px import lane_px_attention
+
+        return lane_px_attention(x, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x,
+                                 bias_y, scale_x, scale_y, heads=heads)
     return lane_axial_attention(
         project_qkv(x, wqkv, bqkv), qn_scale, qn_bias, kn_scale, kn_bias,
         bias_x, bias_y, scale_x, scale_y, heads=heads,

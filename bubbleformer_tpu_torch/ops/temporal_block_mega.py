@@ -42,10 +42,10 @@ with the InstanceNorm taken out (``bf_core_temporal_fwd`` in
 ``csrc/temporal_block.cu``, ``bf_core_temporal_bwd`` in
 ``csrc/temporal_block_bwd.cu``); the plain versions share K1's attention
 arithmetic (:func:`_qkv_attention`, :func:`_attention_recompute`,
-:func:`_attention_bwd`).  As for K1, the forward kernel writes the rounded
-raw qkv where a backward can run and the backward kernel reads it, where
-the TPU kernel recomputes the projection (the same values, one
-2*R*C*3C-FLOP product less per call).
+:func:`_attention_bwd`).  Unlike K1, it keeps no qkv: its backward kernel
+projects ``xn`` again into scratch, as the TPU kernel does, so no 3C-wide
+tensor outlives a call (remat ``"dots"`` keeps ``ao`` and the inputs
+alone) at the cost of one 2*R*C*3C-FLOP product per backward.
 
 :func:`mega_temporal_supported` and :func:`core_temporal_supported` are the
 JAX package's routing gates, copied.
@@ -57,6 +57,7 @@ from typing import Optional
 import torch
 
 from bubbleformer_tpu_torch import _build
+from bubbleformer_tpu_torch.layers import remat
 from bubbleformer_tpu_torch.layers.norm import (
     accumulation_dtype,
     layer_norm_bwd,
@@ -548,12 +549,11 @@ def core_temporal_bwd_plain(
             None if scale_factor is None else grads[-1])
 
 
-def core_temporal_attention_fwd(xn: torch.Tensor, *params, heads: int, keep_qkv: bool = True):
+def core_temporal_attention_fwd(xn: torch.Tensor, *params, heads: int) -> torch.Tensor:
     """K3's forward kernel on CUDA tensors (``csrc/temporal_block.cu``,
-    ``bf_core_temporal_fwd``): ``(ao, qkv)``, ``ao`` in ``xn.dtype`` and,
-    when ``keep_qkv``, the rounded raw QKV projection ``(B*T*N, 3C)`` in
-    ``xn.dtype`` that the backward kernel reads (else None: no backward will
-    run).  Counts ``core_temporal_attention.launches``."""
+    ``bf_core_temporal_fwd``): ``ao`` in ``xn.dtype``, and nothing kept for
+    the backward, which projects again as the TPU kernel's does.  Counts
+    ``core_temporal_attention.launches``."""
     if xn.device.type != "cuda":
         raise ValueError(
             f"core_temporal_attention_fwd: the kernel needs a CUDA tensor, not {xn.device}")
@@ -562,43 +562,36 @@ def core_temporal_attention_fwd(xn: torch.Tensor, *params, heads: int, keep_qkv:
     b, t, h, w, c = xn.shape
     dev, dt = xn.device, xn.dtype
     xn = xn.contiguous()
-    qkv = torch.empty(b * t * h * w, 3 * c, device=dev, dtype=dt) if keep_qkv else None
     ao = torch.empty_like(xn)
     lib = _build.library()
     err = lib.bf_core_temporal_fwd(
         _build.DTYPE_CODES[dt], d, xn.data_ptr(), *(a.data_ptr() for a in p.values()),
-        None if qkv is None else qkv.data_ptr(), ao.data_ptr(), b, t, h * w, c, heads,
-        _build.stream_handle(dev),
+        ao.data_ptr(), b, t, h * w, c, heads, _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_core_temporal_fwd")
     core_temporal_attention.launches += 1
-    return ao, qkv
+    return ao
 
 
-def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, heads: int,
-                      qkv: Optional[torch.Tensor] = None) -> tuple:
+def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params,
+                                heads: int) -> tuple:
     """K3's backward: the gradients :func:`core_temporal_bwd_plain` returns.
 
-    CPU tensors take :func:`core_temporal_bwd_plain` (``qkv`` unused).  CUDA
-    tensors launch ``csrc/temporal_block_bwd.cu``'s ``bf_core_temporal_bwd``
-    on the forward kernel's ``qkv`` and count
-    ``core_temporal_attention_bwd.launches``.  The parameter gradients are
-    float32 atomic sums over all B*T*N tokens: their last bits vary from run
-    to run."""
+    CPU tensors take :func:`core_temporal_bwd_plain`.  CUDA tensors launch
+    ``csrc/temporal_block_bwd.cu``'s ``bf_core_temporal_bwd``, which projects
+    ``xn`` again into a qkv scratch, as the TPU kernel's backward does
+    (``_core_bwd_kernel``), and count ``core_temporal_attention_bwd.launches``.
+    The parameter gradients are float32 atomic sums over all B*T*N tokens:
+    their last bits vary from run to run."""
     if xn.device.type == "cpu":
         return core_temporal_bwd_plain(dao, xn, *params, heads=heads)
     if xn.device.type != "cuda":
         raise ValueError(f"core_temporal_attention_bwd: unsupported device {xn.device}")
-    if qkv is None:
-        raise ValueError("core_temporal_attention_bwd on CUDA needs the forward kernel's qkv")
     d = _check_kernel_shapes("core_temporal_attention_bwd", xn, heads)
     p = _core_params(xn, *params, heads, "core_temporal_attention_bwd")
     b, t, h, w, c = xn.shape
     g, dev, dt = b * t * h * w, xn.device, xn.dtype
-    _build.check_shapes("core_temporal_attention_bwd", dao=(dao, xn.shape),
-                        qkv=(qkv, (g, 3 * c)))
-    if qkv.dtype != dt:
-        raise TypeError(f"core_temporal_attention_bwd: qkv is {qkv.dtype}, xn is {dt}")
+    _build.check_shapes("core_temporal_attention_bwd", dao=(dao, xn.shape))
 
     def zeros(*shape):
         return torch.zeros(*shape, device=dev)
@@ -609,12 +602,14 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, he
     # Held by a name until the launches are queued (see mega_temporal_block_bwd).
     xn, dao = xn.contiguous(), dao.to(dt).contiguous()
     wqkv_t = p["wqkv"].t().contiguous()
+    qkv = torch.empty(g, 3 * c, device=dev, dtype=dt)
     dqkv = torch.empty(g, 3 * c, device=dev, dtype=dt)
     lib = _build.library()
     err = lib.bf_core_temporal_bwd(
-        _build.DTYPE_CODES[dt], d, xn.data_ptr(), dao.data_ptr(), qkv.data_ptr(),
-        wqkv_t.data_ptr(), p["ln"].data_ptr(), p["bias"].data_ptr(), p["scale"].data_ptr(),
-        dqkv.data_ptr(), *(a.data_ptr() for a in grads.values()), b, t, h * w, c, heads,
+        _build.DTYPE_CODES[dt], d, xn.data_ptr(), dao.data_ptr(), p["wqkv"].data_ptr(),
+        p["bqkv"].data_ptr(), wqkv_t.data_ptr(), p["ln"].data_ptr(), p["bias"].data_ptr(),
+        p["scale"].data_ptr(), qkv.data_ptr(), dqkv.data_ptr(),
+        *(a.data_ptr() for a in grads.values()), b, t, h * w, c, heads,
         _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_core_temporal_bwd")
@@ -628,28 +623,28 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, he
 
 class _CoreTemporal(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, heads, keep_qkv, xn, *params):
-        if xn.device.type == "cpu":
-            ao, qkv = core_temporal_plain(xn, *params, heads=heads), None
-        elif xn.device.type == "cuda":
-            ao, qkv = core_temporal_attention_fwd(xn, *params, heads=heads, keep_qkv=keep_qkv)
-        else:
+    def forward(ctx, heads, xn, *params):
+        def run():
+            if xn.device.type == "cpu":
+                return core_temporal_plain(xn, *params, heads=heads)
+            if xn.device.type == "cuda":
+                return core_temporal_attention_fwd(xn, *params, heads=heads)
             raise ValueError(f"core_temporal_attention: unsupported device {xn.device}")
+
         ctx.heads = heads
         ctx.absent = tuple(a is None for a in params)
-        ctx.save_for_backward(xn, *(a for a in params if a is not None),
-                              *(() if qkv is None else (qkv,)))
-        return ao
+        ctx.save_for_backward(xn, *(a for a in params if a is not None))
+        # The JAX VJP keeps only the inputs: remat "dots" keeps ao.
+        return remat.reuse(run, site=_CoreTemporal)
 
     @staticmethod
     def backward(ctx, dao):
         saved = list(ctx.saved_tensors)
         xn = saved.pop(0)
         params = [None if absent else saved.pop(0) for absent in ctx.absent]
-        grads = core_temporal_attention_bwd(dao, xn, *params, heads=ctx.heads,
-                                  qkv=saved[0] if saved else None)
-        return (None, None, *(None if g is None else g.to(a.dtype)
-                              for g, a in zip(grads, [xn] + params)))
+        grads = core_temporal_attention_bwd(dao, xn, *params, heads=ctx.heads)
+        return (None, *(None if g is None else g.to(a.dtype)
+                        for g, a in zip(grads, [xn] + params)))
 
 
 def core_temporal_attention(
@@ -672,12 +667,8 @@ def core_temporal_attention(
     (``core_temporal_attention.launches`` and
     ``core_temporal_attention_bwd.launches`` count them).
     """
-    args = (xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias, scale_factor)
-    # The forward kernel writes the raw qkv for the backward only where one
-    # can run: not in a rollout under no_grad.
-    keep_qkv = torch.is_grad_enabled() and any(
-        a is not None and a.requires_grad for a in args)
-    return _CoreTemporal.apply(heads, keep_qkv, *args)
+    return _CoreTemporal.apply(heads, xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias,
+                               bias, scale_factor)
 
 
 core_temporal_attention.launches = 0

@@ -44,7 +44,8 @@ paths give it — the rollout's (batch 1) and the training step's:
    CPU generator, on every side);
 10. ``Trainer.fit`` in bfloat16 at batch 8 on synthetic batches, Lion and a
    2-step cosine warmup: every loss finite, each of the four kernels
-   launched 12 times per step, every parameter with a gradient moved, the
+   launched 12 times per step (K1's forward 24: remat), every parameter
+   with a gradient moved, the
    checkpoint written and resumed; ms/step, samples/s and peak memory
    after one warm-up step;
 11. K3 forward (``core_temporal_attention``) and backward against
@@ -126,7 +127,36 @@ paths give it — the rollout's (batch 1) and the training step's:
    36 each and K10 forward and backward once each per step, no other kernel,
    every parameter with a gradient moved; ms/step, samples/s, peak memory;
 34. one float32 training step of path F on the card with
-   ``loss_layout="nhwc"`` against ``"nchw"``: the loss and every gradient.
+   ``loss_layout="nhwc"`` against ``"nchw"``: the loss and every gradient;
+35. K9 (``lane_px_attention``, the lane route with the QKV projection in the
+   kernel) forward and every gradient against ``lane_px_plain`` and
+   ``lane_px_bwd_plain`` at ``PX_SHAPES`` (FiLMAViT-small's rollout and
+   training shapes, the flow-boiling grid at batch 4 and 8, AViT-tiny at
+   512^2), float32 against the plain version in float64 and bfloat16
+   against it in bfloat16 (``LINE_RTOL``; the k-LayerNorm bias's gradient
+   in bfloat16 held to the plain version's own noise, as K5's), with both
+   times and that of cuBLAS's QKV product alone (a partial yardstick);
+36. path G, FiLMAViT-small at 512^2 (the default config) with
+   ``BUBBLEFORMER_LANE_PROJ=kernel`` (temporal K1, axial K9): one float32
+   window card vs CPU, a 20-window bfloat16 rollout (K1 and K9 forward 12 x
+   20 times, no other kernel), ``Trainer.fit`` in bfloat16 at batch 8 with
+   Lion under the default remat ``"dots"`` (K1 forward 24 and backward 12,
+   K9 forward and backward 12 a step, no other kernel), and the default
+   route (K1, K2) likewise in the same call;
+37. one float32 training step of FiLMAViT-small at batch 8 on the card with
+   ``remat=False`` (twice), ``"dots"`` and ``"full"``: the loss and every
+   gradient within 3x the spread of the repeated no-remat step; the peak
+   memory and ms/step of each, and the forward launches each makes; then
+   AViT-small at 512x2048 (K3, K9) at batch 1 with remat off (twice) and
+   ``"dots"``, held alike;
+38. AViT-small on the 512x2048 flow-boiling frames (temporal K3, axial K9)
+   in ``Trainer.fit``, bfloat16, batch 8, Lion, remat ``"dots"``: it fits on
+   the card; and batch 4 with remat off on the K2 route (PR 6's step).
+
+Every training step runs under the models' default remat ``"dots"``
+(``layers/remat.py``): K1 and K5 launch their forward kernels twice a step
+(the backward reruns them, as the JAX policy has it), every other kernel
+once (``DOTS_RERUN``).
 
 Prints a JSON line of the kernels at the training step's shapes of the path
 that launches them (with each one's least possible time on the card from its
@@ -163,6 +193,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 # scripts/make_sample_data.py:77-86, trajectory 0, in FLUID_PARAM_KEYS order.
 FLUID_PARAMS = [0.0084, 0.83, 1.0, 0.0083, 0.25, 0.063, 8.34, 0.4, 91.0]
+# Forward launches per block and training step under the models' default
+# remat ("dots", bubbleformer_tpu_torch/layers/remat.py): K1 and K5 keep
+# residuals of their own kernels' making, which the JAX policy does not save,
+# so the backward reruns their forward kernels (the JAX package's gradient
+# jaxpr has two of their forward pallas_calls a block); every other kernel's
+# VJP keeps only its inputs and its output is kept: one launch.
+DOTS_RERUN = {"mega_temporal_block": 2, "mega_axial_block": 2}
 
 # Kernel vs plain on the card.  Float32: both sides compute in float32 and
 # differ only in summation order (rtol 1e-4 of the output's max).  bfloat16:
@@ -293,7 +330,8 @@ def compare_grads(name: str, names, got, ref, rtol: float, zero_noise: bool = Fa
     of a hundredth of the largest of all.  ``zero_noise``: where the two
     sides' rounding noise is uncorrelated (K5 in bfloat16: its ``dao`` comes
     out of an InstanceNorm backward whose reassociated sums flip bfloat16
-    roundings), a ``ZERO_GRADS`` gradient is held to the reference's own
+    roundings; K9 in bfloat16: its qkv comes out of projections summed in
+    other orders), a ``ZERO_GRADS`` gradient is held to the reference's own
     noise instead: at most three times its largest magnitude, plus ``rtol``
     of the floor (reported as that ratio).  Prints each gradient's error and
     scale; returns the largest absolute error."""
@@ -392,9 +430,9 @@ def kernel_work(key: str, shape, dtype: str):
     key's " d16" suffix (head dim 16) changes only the qk-LN vectors.
 
     K3 (xn of (B, T, H, W, C)): the QKV product and the attention; it reads
-    xn and W_qkv and writes ao and the rounded qkv (R, 3C) for the backward.
-    Its backward does two products (dW_qkv, dxn) and the T x T contractions;
-    it reads dao, xn and qkv and writes dxn and the float32 dW_qkv.
+    xn and W_qkv and writes ao.  Its backward does three products (the
+    projection again, dW_qkv, dxn) and the T x T contractions; it reads dao,
+    xn and W_qkv and writes dxn and the float32 dW_qkv.
     K1 (x of (B, T, H, W, C), R = B*T*H*W tokens): the QKV product 2R*C*3C,
     the output product 2R*C*C, the attention 4R*T*C; it reads x and writes
     the output and, for the backward, the rounded qkv (R, 3C) and ao (R, C)
@@ -408,7 +446,11 @@ def kernel_work(key: str, shape, dtype: str):
     products and K4's attention; it reads x and writes the output and, for
     the backward, the rounded qkv (R, 3C) and ao (R, C); its backward reads
     do, x, qkv and ao and writes dx and the float32 weight gradients.
-    K8 (q of (heads, M, n, d)): logits and values 4*M*n*n*d per head
+    K9 (x of (BT, H, W, C)): K2's attention and the QKV product 2R*C*3C; it
+    reads x and W_qkv and writes out (the qkv is scratch).  Its backward does
+    three such products (the projection again, dW, dx) and K2's five
+    contractions; it reads x, dout and W_qkv and writes dx and the float32
+    dW_qkv.  K8 (q of (heads, M, n, d)): logits and values 4*M*n*n*d per head
     forward, five n x n contractions backward; it reads q, k, v (and dout)
     and writes out (dq, dk, dv), the float32 tables aside.  K10 (pred of
     (B, T, C, H, W), the target float32): ~3 operations a value forward, 2
@@ -423,6 +465,15 @@ def kernel_work(key: str, shape, dtype: str):
         if key == "K8":
             return 4 * heads * m * n * n * d, 4 * e * size + tables
         return 10 * heads * m * n * n * d, 7 * e * size + 2 * tables
+    if key.startswith("K9"):
+        bt, h, w, c = shape
+        r, heads = bt * h * w, c // d
+        vectors = 4 * (3 * c + 4 * d + heads * (h * h + w * w + 2))
+        proj = 2 * r * c * 3 * c
+        if key == "K9":
+            return proj + 4 * r * (h + w) * c, 2 * e * r * c + e * 3 * c * c + vectors
+        return (3 * proj + 10 * r * (h + w) * c,
+                3 * e * r * c + e * 3 * c * c + 4 * 3 * c * c + 2 * vectors)
     if key.startswith("K10"):
         values, m = int(np.prod(shape)), int(np.prod(shape[:3]))
         if key == "K10":
@@ -433,9 +484,8 @@ def kernel_work(key: str, shape, dtype: str):
         r = b * t * h * w
         params = e * 3 * c * c + 4 * (3 * c + 4 * d)
         if key == "K3":
-            return 2 * r * c * 3 * c + 4 * r * t * c, 2 * e * r * c + e * r * 3 * c + params
-        return (2 * r * c * 3 * c * 2 + 10 * r * t * c,
-                3 * e * r * c + e * r * 3 * c + params + 4 * 3 * c * c)
+            return 2 * r * c * 3 * c + 4 * r * t * c, 2 * e * r * c + params
+        return 2 * r * c * 3 * c * 3 + 10 * r * t * c, 3 * e * r * c + params + 4 * 3 * c * c
     if key.startswith("K1"):
         b, t, h, w, c = shape
         r = b * t * h * w
@@ -549,6 +599,12 @@ def line_kernel_phase(key: str, cases: dict, dev, results: dict) -> None:
         del base, do32
 
 
+def dots_step(per_window: dict) -> dict:
+    """A path's forward launches per training step under remat "dots", from
+    its launches per window (``DOTS_RERUN``)."""
+    return {name: n * DOTS_RERUN.get(name, 1) for name, n in per_window.items()}
+
+
 def all_counters():
     """Every kernel wrapper's launch counter, by the wrapper's name."""
     from bubbleformer_tpu_torch.ops.axial_block_mega import mega_axial_block, mega_axial_block_bwd
@@ -565,6 +621,7 @@ def all_counters():
         fused_axial_attention_packed_bwd,
     )
     from bubbleformer_tpu_torch.ops.axial_lane import lane_axial_attention, lane_axial_attention_bwd
+    from bubbleformer_tpu_torch.ops.axial_lane_px import lane_px_attention, lane_px_attention_bwd
     from bubbleformer_tpu_torch.ops.temporal_block_mega import (
         core_temporal_attention,
         core_temporal_attention_bwd,
@@ -583,7 +640,8 @@ def all_counters():
             fused_block_attention, fused_block_attention_bwd, mega_axial_block,
             mega_axial_block_bwd, fused_axial_attention_packed, fused_axial_attention_packed_bwd,
             fused_axial_attention, fused_axial_attention_bwd, flash_packed_attention,
-            flash_packed_attention_bwd, plane_norms, plane_norms_bwd)
+            flash_packed_attention_bwd, plane_norms, plane_norms_bwd, lane_px_attention,
+            lane_px_attention_bwd)
 
 
 def zero_counters() -> None:
@@ -883,13 +941,13 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
     from bubbleformer_tpu_torch.ops import axial_block_mega as k5
     from bubbleformer_tpu_torch.ops import temporal_block_mega as k13
 
-    fwd, bwd, plain, bwd_plain, res_name = {
+    fwd, bwd, plain, bwd_plain = {
         "K1": (k13.mega_temporal_block_fwd, k13.mega_temporal_block_bwd,
-               k13.temporal_branch_plain, k13.temporal_branch_bwd_plain, "residuals"),
+               k13.temporal_branch_plain, k13.temporal_branch_bwd_plain),
         "K3": (k13.core_temporal_attention_fwd, k13.core_temporal_attention_bwd,
-               k13.core_temporal_plain, k13.core_temporal_bwd_plain, "qkv"),
+               k13.core_temporal_plain, k13.core_temporal_bwd_plain),
         "K5": (k5.mega_axial_block_fwd, k5.mega_axial_block_bwd, k5.mega_axial_plain,
-               k5.mega_axial_bwd_plain, "residuals"),
+               k5.mega_axial_bwd_plain),
     }[key[:2]]
     for i, (where, shape) in enumerate(BRANCH_SHAPES[key].items()):
         heads = 6
@@ -903,12 +961,15 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
             args = dict(base, **{first: base[first].to(dt)})
             params = list(args.values())[1:]
             act, do = args[first], do32.to(dt)
-            got, res = fwd(act, *params, heads=heads)
+            got = fwd(act, *params, heads=heads)
+            # K1's and K5's residuals for their backward; K3 keeps none.
+            got, res = got if isinstance(got, tuple) else (got, None)
+            kept = {} if res is None else {"residuals": res}
             ref = plain(**args, heads=heads)
             torch.cuda.synchronize()
             err_f = compare(f"{key} {name} {where} {shape}", got, ref, KERNEL_RTOL[name])
             del got, ref
-            got = bwd(do, act, *params, heads=heads, **{res_name: res})
+            got = bwd(do, act, *params, heads=heads, **kept)
             ref = bwd_plain(do, **args, heads=heads)
             torch.cuda.synchronize()
             err_b = compare_grads(f"{key} bwd {name} {where}", tuple(args), got, ref,
@@ -916,7 +977,7 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
             del got, ref
             ms_f = cuda_ms(lambda: fwd(act, *params, heads=heads))
             plain_f = cuda_ms(lambda: plain(**args, heads=heads))
-            ms_b = cuda_ms(lambda: bwd(do, act, *params, heads=heads, **{res_name: res}))
+            ms_b = cuda_ms(lambda: bwd(do, act, *params, heads=heads, **kept))
             plain_b = cuda_ms(lambda: bwd_plain(do, **args, heads=heads))
             extra = ""
             if key == "K5":
@@ -929,7 +990,7 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
                   f"backward {ms_b:.4f} ms (plain {plain_b:.4f}){extra}", flush=True)
             results[(key, name, where)] = (err_f, ms_f, plain_f)
             results[(key + " bwd", name, where)] = (err_b, ms_b, plain_b)
-            del res, args, params, act, do
+            del res, kept, args, params, act, do
         del base, do32
 
 
@@ -1045,7 +1106,7 @@ def slice5_phases(repo: Path, dev, card: str, results: dict) -> dict:
                                       reference=y_c, cond=cond.to(dev))
     del bf, y_c
     runs["C"] = fit_phase("FiLMAViT-small mega", train, TRAIN_BATCH, FUSED_TRAIN_STEPS,
-                          (IMAGE, IMAGE), dict(per_c, mega_temporal_block_bwd=blocks,
+                          (IMAGE, IMAGE), dict(dots_step(per_c), mega_temporal_block_bwd=blocks,
                                                mega_axial_block_bwd=blocks),
                           repo / "build" / "smoke_mega", dev, card, fluid=len(FLUID_PARAMS))
 
@@ -1082,7 +1143,7 @@ def slice5_phases(repo: Path, dev, card: str, results: dict) -> dict:
     window_phase("AViT-tiny 512^2", cfg["model_cfg"], cfg["data_cfg"], weights,
                  frames(SEED + 55, IMAGE, IMAGE), dev, per_e)
     runs["E"] = fit_phase("AViT-tiny 512^2", train, TRAIN_BATCH, FUSED_TRAIN_STEPS, (IMAGE, IMAGE),
-                          dict(per_e, mega_temporal_block_bwd=tiny_blocks,
+                          dict(dots_step(per_e), mega_temporal_block_bwd=tiny_blocks,
                                **{axial_kernel + "_bwd": tiny_blocks}),
                           repo / "build" / "smoke_tiny", dev, card)
     runs["E axial"] = axial_kernel
@@ -1229,12 +1290,30 @@ def loss_kernel_phase(dev, results: dict) -> None:
         del p3, pred, got, got_b
 
 
+@contextlib.contextmanager
+def env_var(name: str, value):
+    """The environment variable ``name`` set to ``value`` (None: unset)
+    inside, as it was after."""
+    import os
+
+    def put(v):
+        if v is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = v
+
+    saved = os.environ.get(name)
+    put(value)
+    try:
+        yield
+    finally:
+        put(saved)
+
+
 def slice6_phases(repo: Path, dev, card: str, results: dict) -> dict:
     """Phases 29-34: K8 and K10 against their plain versions, and path F
     (FiLMAViT-small at 512^2 with ``attn_impl=flash``: K8 in both branches,
     the loss through K10 in training).  Returns the runs' numbers."""
-    import os
-
     import torch
     from bubbleformer_tpu_torch.config import load_config
     from bubbleformer_tpu_torch.data import synthetic_batch
@@ -1274,19 +1353,12 @@ def slice6_phases(repo: Path, dev, card: str, results: dict) -> dict:
     print(f"== phase 33: path F, Trainer.fit bfloat16 batch {TRAIN_BATCH}, Lion, "
           f"{FUSED_TRAIN_STEPS} steps after 1 warm-up step, BUBBLEFORMER_LOSS_KERNEL=1",
           flush=True)
-    saved = os.environ.get("BUBBLEFORMER_LOSS_KERNEL")
-    os.environ["BUBBLEFORMER_LOSS_KERNEL"] = "1"
-    try:
+    with env_var("BUBBLEFORMER_LOSS_KERNEL", "1"):
         runs["F"] = fit_phase("FiLMAViT-small flash", train, TRAIN_BATCH, FUSED_TRAIN_STEPS,
                               (IMAGE, IMAGE),
                               dict(per_f, flash_packed_attention_bwd=3 * blocks, plane_norms=1,
                                    plane_norms_bwd=1),
                               repo / "build" / "smoke_flash", dev, card, fluid=len(FLUID_PARAMS))
-    finally:
-        if saved is None:
-            del os.environ["BUBBLEFORMER_LOSS_KERNEL"]
-        else:
-            os.environ["BUBBLEFORMER_LOSS_KERNEL"] = saved
 
     print(f"== phase 34: path F, one float32 training step on the card, loss_layout nhwc vs "
           f"nchw, batch 1 at {IMAGE}^2", flush=True)
@@ -1312,6 +1384,266 @@ def slice6_phases(repo: Path, dev, card: str, results: dict) -> dict:
           f"gradients, worst rel {worst:.3e} (tol {LAYOUT_RTOL['grads']:.0e}; {len(zero)} zero up "
           f"to rounding) ok", flush=True)
     runs["F nhwc"] = {"loss_rel": rel_loss, "grads_rel": worst}
+    return runs
+
+
+# Phases 35-38: K9 at its paths' shapes (x of (BT, H, W, C), 6 heads):
+# FiLMAViT-small's rollout and training step (path G), the flow-boiling
+# 32x128 grid at batch 4 and 8, AViT-tiny's 64x64 grid at 512^2 (heads of 16).
+PX_SHAPES = {"rollout": (TIME_WINDOW, 32, 32, 384),
+             "training": (TRAIN_BATCH * TIME_WINDOW, 32, 32, 384),
+             "flow b4": (FLOW_TRAIN_BATCH * TIME_WINDOW, 32, 128, 384),
+             "flow b8": (TRAIN_BATCH * TIME_WINDOW, 32, 128, 384),
+             "tiny d16": (TRAIN_BATCH * TIME_WINDOW, 64, 64, 96)}
+# The remat steps (phase 37): each policy's loss and gradients against the
+# no-remat step's, within 3x the no-remat step's own spread (its float32
+# atomic parameter sums, K1's or K3's and K9's, reorder from run to run),
+# plus 1e-6 of each gradient's scale for a spread that happens to be nought.
+REMAT_RTOL = {"spread": 3.0, "floor": 1e-6}
+FLOW_BIG_BATCH = 8
+
+
+def px_kernel_phase(dev, results: dict) -> None:
+    """K9 forward and every gradient at each ``PX_SHAPES`` shape, float32
+    and bfloat16, against the plain versions (``LINE_RTOL``), dW unrounded in
+    bfloat16; the times of the kernels, the plain versions and cuBLAS's QKV
+    product alone.  In bfloat16 the card's and the plain version's
+    projections sum in other orders, so their qkv differ by single ulps and
+    the k-LayerNorm bias's gradient, zero up to rounding, is independent
+    noise on each side: it is held to the plain version's own noise
+    (``compare_grads``' ``zero_noise``), as K5's is."""
+    import torch
+    from bubbleformer_tpu_torch.ops import axial_lane_px as k9
+
+    heads = 6
+    for i, (where, shape) in enumerate(PX_SHAPES.items()):
+        bt, h, w, c = shape
+        d = c // heads
+        rng = np.random.default_rng(SEED + 100 + i)
+
+        def n(*s, scale=1.0, offset=0.0):
+            return torch.from_numpy((offset + scale * rng.standard_normal(s))
+                                    .astype(np.float32)).to(dev)
+
+        base = dict(x=n(*shape), wqkv=n(3 * c, c, scale=c**-0.5), bqkv=n(3 * c, scale=0.1),
+                    qn_scale=n(d, scale=0.1, offset=1.0), qn_bias=n(d, scale=0.1),
+                    kn_scale=n(d, scale=0.1, offset=1.0), kn_bias=n(d, scale=0.1),
+                    bias_x=n(heads, w, w), bias_y=n(heads, h, h),
+                    scale_x=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32))
+                    .to(dev),
+                    scale_y=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32))
+                    .to(dev))
+        do32 = n(*shape)
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            args = dict(base, x=base["x"].to(dt))
+            do = do32.to(dt)
+            ref_args, ref_do = ((args, do) if dt == torch.bfloat16 else
+                                ({k: v.double() for k, v in args.items()}, do.double()))
+            got = k9.lane_px_attention(**args, heads=heads)
+            ref = k9.lane_px_plain(**ref_args, heads=heads)
+            torch.cuda.synchronize()
+            err_f = compare(f"K9 {name} {where} {shape}", got, ref, LINE_RTOL[name])
+            del got, ref
+            got = k9.lane_px_attention_bwd(do, *args.values(), heads=heads)
+            ref = k9.lane_px_bwd_plain(ref_do, **ref_args, heads=heads)
+            torch.cuda.synchronize()
+            err_b = compare_grads(f"K9 bwd {name} {where}", tuple(args), got, ref,
+                                  LINE_RTOL[name], zero_noise=name == "bfloat16")
+            if dt == torch.bfloat16 and torch.equal(got[1], got[1].bfloat16().float()):
+                fail(f"K9 bwd {name} {where}: dW is rounded to bfloat16")
+            del got, ref, ref_args, ref_do
+            ms_f = cuda_ms(lambda: k9.lane_px_attention(**args, heads=heads))
+            plain_f = cuda_ms(lambda: k9.lane_px_plain(**args, heads=heads))
+            ms_b = cuda_ms(lambda: k9.lane_px_attention_bwd(do, *args.values(), heads=heads))
+            plain_b = cuda_ms(lambda: k9.lane_px_bwd_plain(do, **args, heads=heads))
+            x2, w2 = args["x"].reshape(-1, c), args["wqkv"].to(dt)
+            gemm = cuda_ms(lambda: torch.matmul(x2, w2.t()))
+            print(f"  K9 {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), backward "
+                  f"{ms_b:.4f} ms (plain {plain_b:.4f}); cuBLAS QKV product alone (partial "
+                  f"yardstick) {gemm:.4f} ms", flush=True)
+            results[("K9", name, where)] = (err_f, ms_f, plain_f)
+            results[("K9 bwd", name, where)] = (err_b, ms_b, plain_b)
+            results[("K9 gemm", name, where)] = gemm
+            del args, do
+        del base, do32
+
+
+def remat_phase(label: str, train_cfgs, weights, batch: int, frame, dev, card: str,
+                forwards: dict, fluid=None, timed: bool = True) -> dict:
+    """One float32 training step of ``label`` on the card at ``batch``
+    synthetic samples of ``frame`` = (H, W) pixels with remat off (twice)
+    and under each policy other than "off" in ``forwards``, from the same
+    weights: the loss and every gradient against the first no-remat step's
+    (``REMAT_RTOL``), and each step's forward launches per block
+    (``forwards[policy]``).  When ``timed``, three more steps of each for
+    ms/step and the peak memory."""
+    import torch
+    from bubbleformer_tpu_torch.data import synthetic_batch
+    from bubbleformer_tpu_torch.training import module_class
+
+    model_cfg, data_cfg = train_cfgs[:2]
+    blocks = model_cfg["params"]["processor_blocks"]
+    arrays = synthetic_batch(batch, data_cfg["time_window"], len(data_cfg["input_fields"]),
+                             *frame, fluid, seed=SEED + 110)
+    runs = {}
+    for run, policy in (("off", "off"), ("off again", "off"),
+                        *((p, p) for p in forwards if p != "off")):
+        params = dict(model_cfg["params"], remat=policy != "off",
+                      remat_policy="dots" if policy == "off" else policy)
+        cfg = dict(model_cfg, params=params)
+        module = module_class(cfg, data_cfg)(cfg, *train_cfgs[1:], total_steps=8, device="cuda",
+                                             seed=SEED)
+        module.model.load_state_dict(weights)
+        data = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        zero_counters()
+        m = module.train_step(data, torch.Generator().manual_seed(SEED))
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counters().items() if v}
+        grads = {n: p.grad.double().cpu() for n, p in module.model.named_parameters()}
+        want = {k: n * blocks for k, n in forwards[policy].items()}
+        if {k: launches.get(k) for k in want} != want:
+            fail(f"{label} remat {run}: forward launches {launches}, expected {want}")
+        runs[run] = dict(loss=loss, grads=grads, launches=launches)
+        if timed:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                module.train_step(data, torch.Generator().manual_seed(SEED))
+            torch.cuda.synchronize()
+            runs[run].update(ms_per_step=1000 * (time.perf_counter() - t0) / 3,
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        timing = (f", {runs[run]['ms_per_step']:.1f} ms/step, peak {runs[run]['peak_gb']:.2f} GB"
+                  if timed else "")
+        print(f"  {label} remat {run}: loss {loss:.7f}{timing} (batch {batch}, float32, {card}); "
+              f"launches {launches}", flush=True)
+        del module, data
+    ref = runs["off"]
+    spread_grads, _ = step_errors(ref["grads"], runs["off again"]["grads"])
+    spread = max(spread_grads.values())
+    spread_loss = abs(runs["off again"]["loss"] - ref["loss"])
+    out = {"spread": {"loss": spread_loss, "grads_rel": spread}}
+    for run in runs:
+        if run.startswith("off"):
+            continue
+        errs, zero = step_errors(ref["grads"], runs[run]["grads"])
+        worst = max(errs.values())
+        d_loss = abs(runs[run]["loss"] - ref["loss"])
+        limit = REMAT_RTOL["spread"] * spread + REMAT_RTOL["floor"]
+        print(f"  {label} remat {run} vs off: loss {d_loss:.2e} (off repeated {spread_loss:.2e}), "
+              f"worst gradient {worst:.3e} (off repeated {spread:.3e}; tol {limit:.3e}; "
+              f"{len(zero)} zero up to rounding)", flush=True)
+        if d_loss > REMAT_RTOL["spread"] * spread_loss + 1e-7 * abs(ref["loss"]):
+            fail(f"{label} remat {run}: loss {runs[run]['loss']} vs {ref['loss']} without remat")
+        if worst > limit or not all(torch.isfinite(g).all() for g in runs[run]["grads"].values()):
+            fail(f"{label} remat {run}: gradients {worst:.3e} from the no-remat step, above "
+                 f"{limit:.3e}")
+        out[run] = {"loss_diff": d_loss, "grads_rel": worst}
+    if timed:
+        out.update({run: dict(out.get(run, {}), ms_per_step=r["ms_per_step"],
+                              peak_gb=r["peak_gb"]) for run, r in runs.items()})
+    return out
+
+
+def slice7_phases(repo: Path, dev, card: str, results: dict) -> dict:
+    """Phases 35-38: K9 against its plain version, path G (FiLMAViT-small
+    with ``BUBBLEFORMER_LANE_PROJ=kernel``: K1 and K9) with the default
+    route beside it, the remat step, and AViT-small at 512x2048 at batch 8
+    under remat "dots" on K3 and K9.  Returns the runs' numbers."""
+    import torch
+    from bubbleformer_tpu_torch.config import load_config
+    from bubbleformer_tpu_torch.models import build_model
+
+    print("== phase 35: K9 lane_px_attention vs plain, forward and backward", flush=True)
+    px_kernel_phase(dev, results)
+
+    cfg = load_config(["scheduler_cfg.params.warmup_iters=2"])
+    train = (cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"])
+    params = cfg["model_cfg"]["params"]
+    if (cfg["model_cfg"]["name"], params["embed_dim"], cfg["optim_cfg"]["name"]) != (
+            "filmavit", 384, "lion"):
+        fail("the default composition is not FiLMAViT-small with Lion")
+    blocks = params["processor_blocks"]
+    model = build_model(cfg["model_cfg"], cfg["data_cfg"])
+    if not (model.remat and model.remat_policy == "dots"):
+        fail("the default model does not checkpoint its blocks under remat 'dots'")
+    weights = film_near_identity(random_state_dict(model, SEED + 120), SEED + 120)
+    del model
+    x = torch.from_numpy(np.random.default_rng(SEED + 121).standard_normal(
+        (1, TIME_WINDOW, FIELDS, IMAGE, IMAGE)).astype(np.float32))
+    cond = torch.tensor([FLUID_PARAMS], dtype=torch.float32)
+    per_g = {"mega_temporal_block": blocks, "lane_px_attention": blocks}
+    runs = {}
+    with env_var("BUBBLEFORMER_LANE_PROJ", "kernel"):
+        print(f"== phase 36: path G, FiLMAViT-small at {IMAGE}^2 with "
+              f"BUBBLEFORMER_LANE_PROJ=kernel: one float32 window card vs CPU, a {WINDOWS}-window "
+              f"bfloat16 rollout, Trainer.fit bfloat16 batch {TRAIN_BATCH} under remat 'dots'",
+              flush=True)
+        y_g = window_phase("FiLMAViT-small K9", cfg["model_cfg"], cfg["data_cfg"], weights, x,
+                           dev, per_g, cond=cond)
+        bf = build_model(cfg["model_cfg"], cfg["data_cfg"],
+                         compute_dtype="bfloat16").eval().to(dev)
+        bf.load_state_dict(weights)
+        runs["G rollout"] = rollout_phase("FiLMAViT-small K9", bf, x.to(dev), WINDOWS, per_g,
+                                          card, reference=y_g, cond=cond.to(dev))
+        del bf, y_g
+        runs["G"] = fit_phase("FiLMAViT-small K9", train, TRAIN_BATCH, FUSED_TRAIN_STEPS,
+                              (IMAGE, IMAGE), dict(dots_step(per_g), mega_temporal_block_bwd=blocks,
+                                                   lane_px_attention_bwd=blocks),
+                              repo / "build" / "smoke_px", dev, card, fluid=len(FLUID_PARAMS))
+    with env_var("BUBBLEFORMER_LANE_PROJ", None):
+        per_k2 = {"mega_temporal_block": blocks, "lane_axial_attention": blocks}
+        runs["G default"] = fit_phase(
+            "FiLMAViT-small default route", train, TRAIN_BATCH, FUSED_TRAIN_STEPS, (IMAGE, IMAGE),
+            dict(dots_step(per_k2), mega_temporal_block_bwd=blocks,
+                 lane_axial_attention_bwd=blocks),
+            repo / "build" / "smoke_default", dev, card, fluid=len(FLUID_PARAMS))
+        print(f"== phase 37: one float32 training step of FiLMAViT-small at batch {TRAIN_BATCH} "
+              f"with remat off, 'dots' and 'full'; AViT-small at {FLOW_HEIGHT}x{FLOW_WIDTH} "
+              f"(K3, K9) with remat off and 'dots'", flush=True)
+        runs["remat"] = remat_phase(
+            "FiLMAViT-small", train, weights, TRAIN_BATCH, (IMAGE, IMAGE), dev, card,
+            {"off": {"mega_temporal_block": 1, "lane_axial_attention": 1},
+             "dots": {"mega_temporal_block": 2, "lane_axial_attention": 1},
+             "full": {"mega_temporal_block": 2, "lane_axial_attention": 2}},
+            fluid=len(FLUID_PARAMS))
+    flow_cfg = load_config(["model_cfg=avit_small", "data_cfg=flowboiling_chf",
+                            "scheduler_cfg.params.warmup_iters=2"])
+    flow_train = (flow_cfg["model_cfg"], flow_cfg["data_cfg"], flow_cfg["optim_cfg"],
+                  flow_cfg["scheduler_cfg"])
+    flow_blocks = flow_cfg["model_cfg"]["params"]["processor_blocks"]
+    flow_model = build_model(flow_cfg["model_cfg"], flow_cfg["data_cfg"])
+    flow_weights = random_state_dict(flow_model, SEED + 130)
+    del flow_model
+    with env_var("BUBBLEFORMER_LANE_PROJ", "kernel"):
+        runs["remat flow"] = remat_phase(
+            f"AViT-small {FLOW_HEIGHT}x{FLOW_WIDTH} K9", flow_train, flow_weights, 1,
+            (FLOW_HEIGHT, FLOW_WIDTH), dev, card,
+            {"off": {"core_temporal_attention": 1, "lane_px_attention": 1},
+             "dots": {"core_temporal_attention": 1, "lane_px_attention": 1}}, timed=False)
+    del flow_weights
+
+    print(f"== phase 38: Trainer.fit AViT-small at {FLOW_HEIGHT}x{FLOW_WIDTH}, bfloat16, batch "
+          f"{FLOW_BIG_BATCH}, Lion, remat 'dots', BUBBLEFORMER_LANE_PROJ=kernel (K3, K9); then "
+          f"batch {FLOW_TRAIN_BATCH} with remat off on K2", flush=True)
+    with env_var("BUBBLEFORMER_LANE_PROJ", "kernel"):
+        runs["flow b8"] = fit_phase(
+            f"AViT-small {FLOW_HEIGHT}x{FLOW_WIDTH} K9 batch {FLOW_BIG_BATCH}", flow_train,
+            FLOW_BIG_BATCH, FLOW_TRAIN_STEPS, (FLOW_HEIGHT, FLOW_WIDTH),
+            {"core_temporal_attention": flow_blocks, "core_temporal_attention_bwd": flow_blocks,
+             "lane_px_attention": flow_blocks, "lane_px_attention_bwd": flow_blocks},
+            repo / "build" / "smoke_flow_px", dev, card)
+    off_cfg = dict(flow_cfg["model_cfg"], params=dict(flow_cfg["model_cfg"]["params"],
+                                                       remat=False))
+    with env_var("BUBBLEFORMER_LANE_PROJ", None):
+        runs["flow b4 off"] = fit_phase(
+            f"AViT-small {FLOW_HEIGHT}x{FLOW_WIDTH} K2 batch {FLOW_TRAIN_BATCH} remat off",
+            (off_cfg, *flow_train[1:]), FLOW_TRAIN_BATCH, FLOW_TRAIN_STEPS,
+            (FLOW_HEIGHT, FLOW_WIDTH),
+            {"core_temporal_attention": flow_blocks, "core_temporal_attention_bwd": flow_blocks,
+             "lane_axial_attention": flow_blocks, "lane_axial_attention_bwd": flow_blocks},
+            repo / "build" / "smoke_flow_off", dev, card)
     return runs
 
 
@@ -1343,7 +1675,6 @@ def main() -> None:
         PARAM_NAMES,
         core_temporal_attention,
         core_temporal_attention_bwd,
-        core_temporal_attention_fwd,
         core_temporal_bwd_plain,
         core_temporal_plain,
         mega_temporal_block,
@@ -1632,9 +1963,9 @@ def main() -> None:
     if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
         fail(f"expected {TRAIN_STEPS} finite losses, got {losses}")
     for fn_name, n in train_launches.items():
-        if n != 12 * TRAIN_STEPS:
-            fail(f"{fn_name} launched {n} times in {TRAIN_STEPS} steps, "
-                 f"expected {12 * TRAIN_STEPS}")
+        want = 12 * DOTS_RERUN.get(fn_name, 1) * TRAIN_STEPS
+        if n != want:
+            fail(f"{fn_name} launched {n} times in {TRAIN_STEPS} steps, expected {want}")
     unmoved = [(n, p) for n, p in module.model.named_parameters() if torch.equal(before[n], p)]
     stuck = [n for n, p in unmoved if p.grad is not None and bool(p.grad.any())]
     if stuck:
@@ -1701,20 +2032,19 @@ def main() -> None:
             results[("K3 gemm", name, where)] = gemm_ms
 
             dao = dao32.to(dt)
-            _, qkv_res = core_temporal_attention_fwd(args["xn"], *params, heads=hh)
-            got = core_temporal_attention_bwd(dao, args["xn"], *params, heads=hh, qkv=qkv_res)
+            got = core_temporal_attention_bwd(dao, args["xn"], *params, heads=hh)
             ref = core_temporal_bwd_plain(dao, **args, heads=hh)
             torch.cuda.synchronize()
             err = compare_grads(f"K3 bwd {name} {where}", ("xn",) + CORE_PARAM_NAMES, got, ref,
                                 KERNEL_RTOL[name])
             del got, ref
             ms = cuda_ms(lambda: core_temporal_attention_bwd(dao, args["xn"], *params,
-                                                             heads=hh, qkv=qkv_res))
+                                                             heads=hh))
             plain_ms = cuda_ms(lambda: core_temporal_bwd_plain(dao, **args, heads=hh))
             print(f"  K3 bwd {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
                   flush=True)
             results[("K3 bwd", name, where)] = (err, ms, plain_ms)
-            del qkv_res, args, params, dao
+            del args, params, dao
         del k3, xn32, dao32
 
     print(f"== phase 12: K2 at {heads_big} heads vs plain, forward and backward, qkv "
@@ -1995,6 +2325,51 @@ def main() -> None:
           f"{run_f['samples_per_s']:.2f} samples/s, peak {run_f['peak_gb']:.2f} GB; rollout "
           f"{runs6['F rollout']:.2f} frames/s; nhwc step vs nchw: loss "
           f"{runs6['F nhwc']['loss_rel']:.2e}, gradients {runs6['F nhwc']['grads_rel']:.2e}")
+    # This slice's kernel: K9 at path G's training shape, its launches from
+    # path G's training run.
+    runs7 = slice7_phases(repo, dev, card, results)
+    px_cu = "bubbleformer_tpu_torch/csrc/axial_lane_px.cu"
+    run_g = runs7["G"]
+    for key, name, replaces in (
+        ("K9", "lane_px_attention", jax_ops + "axial_lane.py:399"),
+        ("K9 bwd", "lane_px_attention_bwd", jax_ops + "axial_lane.py:426"),
+    ):
+        err, ms, plain_ms = results[(key, "bfloat16", "training")]
+        bound_ms, bound_by = bound(*kernel_work(key, PX_SHAPES["training"], "bfloat16"),
+                                   "bfloat16")
+        launches_run = run_g["launches"][name]
+        if launches_run == 0:
+            fail(f"{name} was not launched on its path")
+        kernels.append({"name": name, "route": "cuda", "source": px_cu, "replaces": replaces,
+                        "launches": launches_run, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+        for where, shape in PX_SHAPES.items():
+            k = key.replace("K9", "K9 d16") if where == "tiny d16" else key
+            for dt in ("float32", "bfloat16"):
+                b_ms, b_by = bound(*kernel_work(k, shape, dt), dt)
+                _, k_ms, p_ms = results[(key, dt, where)]
+                extra = (f", cuBLAS QKV product alone {results[('K9 gemm', dt, where)]:.4f} ms"
+                         if key == "K9" else "")
+                print(f"  {name} {where} {shape} {dt}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                      f"bound {b_ms:.5f} ms ({b_by}){extra}")
+        print(f"  {name}: launches per rollout window "
+              f"{12 if key == 'K9' else 0}, per training step {launches_run // run_g['steps']}")
+    for label in ("G", "G default", "flow b8", "flow b4 off"):
+        r = runs7[label]
+        print(f"  {label} training: {r['ms_per_step']:.2f} ms/step, "
+              f"{r['samples_per_s']:.2f} samples/s, peak {r['peak_gb']:.2f} GB")
+    print(f"  path G rollout: {runs7['G rollout']:.2f} frames/s")
+    rm = runs7["remat"]
+    print("  remat step (float32, batch 8): " + ", ".join(
+        f"{k} {rm[k]['ms_per_step']:.1f} ms/step {rm[k]['peak_gb']:.2f} GB"
+        for k in ("off", "off again", "dots", "full")) + f"; dots vs off gradients "
+        f"{rm['dots']['grads_rel']:.2e}, full {rm['full']['grads_rel']:.2e}, off repeated "
+        f"{rm['spread']['grads_rel']:.2e}")
+    rf = runs7["remat flow"]
+    print(f"  remat step (float32, AViT-small {FLOW_HEIGHT}x{FLOW_WIDTH}, K3 and K9, batch 1): "
+          f"dots vs off gradients {rf['dots']['grads_rel']:.2e}, off repeated "
+          f"{rf['spread']['grads_rel']:.2e}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,16 +12,20 @@ pixels (``--size`` for square frames, 512 by default), runs warm-up steps,
 times ``--steps`` steps with CUDA events (ms/step, samples/s, peak memory),
 then traces ``--profile-steps`` more with ``torch.profiler`` and sums the
 device time of every kernel by part: the port's hand-written kernels (the
-whole-branch kernels K1, K3 and K5 share their products and statistics
-kernels, ``csrc/block_ops.cuh``; the line kernels serve K2, K4, K5, K6, K7
-and K8; K10 is the loss's plane norms), matrix products (cuBLAS), the
+whole-branch kernels K1, K3 and K5 and the in-kernel projection of K9 share
+their products and statistics kernels, ``csrc/block_ops.cuh``; the line
+kernels serve K2, K4-K9; K10 is the loss's plane norms), matrix products (cuBLAS), the
 optimizer's foreach kernels, and the rest (elementwise, reductions,
 copies); and by kernel wrapper (``WRAPPERS``:
 each call of a wrapper is traced as one range, whose device time is that
 of every kernel it launched).  The idle share is one minus the summed
 kernel time over the host-clock wall time of the traced steps.  The
 training module's knobs apply: ``loss_layout=nhwc`` as an override, K10
-with ``BUBBLEFORMER_LOSS_KERNEL=1`` in the environment.
+with ``BUBBLEFORMER_LOSS_KERNEL=1`` in the environment; so do the model's:
+per-block activation checkpointing with ``model_cfg.params.remat=false``
+or ``model_cfg.params.remat_policy=full`` (default: on, ``"dots"``), K9 (the
+lane route's projection in the kernel) with ``BUBBLEFORMER_LANE_PROJ=kernel``.
+The JSON records each.
 
 Prints one JSON object (and writes it to ``--out`` if given).  Needs a
 CUDA card.
@@ -37,6 +41,11 @@ CUDA card.
         model_cfg.params.attn_impl=flash
     python scripts/profile_train_torch.py --batch 8 model_cfg.params.attn_impl=flash \
         loss_layout=nhwc
+    BUBBLEFORMER_LANE_PROJ=kernel python scripts/profile_train_torch.py --batch 8
+    python scripts/profile_train_torch.py --batch 8 model_cfg.params.remat=false
+    python scripts/profile_train_torch.py --batch 8 model_cfg.params.remat_policy=full
+    BUBBLEFORMER_LANE_PROJ=kernel python scripts/profile_train_torch.py --model-cfg avit_small \
+        --height 512 --width 2048 --batch 8 data_cfg=flowboiling_chf
 """
 from __future__ import annotations
 
@@ -58,14 +67,14 @@ from bubbleformer_tpu_torch.training import module_class
 
 # Kernel-name fragments of each part, checked in this order.
 PARTS = (
-    ("branch products and norms, backward (K1, K3, K5)", (
+    ("branch products and norms, backward (K1, K3, K5, K9)", (
         "gemm_nt_kernel", "wgrad_kernel", "plane_sums_kernel", "in_apply_kernel")),
     ("temporal attention backward (K1, K3)", ("attention_bwd_kernel",)),
-    ("branch products and norms, forward (K1, K3, K5)", ("norm_proj_kernel",
-                                                         "plane_stats_kernel")),
+    ("branch products and norms, forward (K1, K3, K5, K9)", ("norm_proj_kernel",
+                                                             "plane_stats_kernel")),
     ("temporal QKV and attention forward (K1, K3)", ("qkv_attention",)),
-    ("line kernels backward (K2, K4-K8)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
-    ("line kernels forward (K2, K4-K8)", ("line_fwd_kernel", "line_short_fwd_kernel")),
+    ("line kernels backward (K2, K4-K9)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
+    ("line kernels forward (K2, K4-K9)", ("line_fwd_kernel", "line_short_fwd_kernel")),
     ("loss plane norms (K10)", ("norms_partial_kernel", "norms_finish_kernel", "dpred_kernel")),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
@@ -91,6 +100,7 @@ WRAPPERS = {
                             "core_temporal_attention_fwd": "K3 forward",
                             "core_temporal_attention_bwd": "K3 backward"},
     "axial_lane": {"_lane_fwd": "K2 forward", "lane_axial_attention_bwd": "K2 backward"},
+    "axial_lane_px": {"_px_fwd": "K9 forward", "lane_px_attention_bwd": "K9 backward"},
     "axial_fused_block": {"_fused_block_fwd": "K4 forward",
                           "fused_block_attention_bwd": "K4 backward"},
     "axial_block_mega": {"mega_axial_block_fwd": "K5 forward",
@@ -209,6 +219,8 @@ def main(argv=None) -> None:
         "attn_impl": cfg["model_cfg"]["params"].get("attn_impl", "auto"),
         "loss_layout": module.loss_layout,
         "loss_kernel": os.environ.get("BUBBLEFORMER_LOSS_KERNEL", "0") == "1",
+        "lane_proj": os.environ.get("BUBBLEFORMER_LANE_PROJ", "xla"),
+        "remat": module.model.remat, "remat_policy": module.model.remat_policy,
         "batch": args.batch, "height": height, "width": width,
         "ms_per_step": ms, "samples_per_s": 1e3 * args.batch / ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,

@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
-"""Time the port's K1 and K2 kernels at FiLMAViT-small's training shapes.
+"""Time the port's K1, K2 and K3 kernels at their training steps' shapes.
 
 K1 (the temporal branch, ``mega_temporal_block``) at x (8, 5, 32, 32, 384)
 and K2 (the lane axial attention, ``lane_axial_attention``) at qkv (40, 32,
-32, 1152), forward and backward, in bfloat16 and float32, by CUDA events
-(20 calls after 3 warm-up), from the checkout given by ``--repo`` (default:
-this one), whose kernels it builds first.  Comparing two versions of the
+32, 1152), FiLMAViT-small's; K3 (the streamed temporal core,
+``core_temporal_attention``) at AViT-big's xn (8, 5, 32, 32, 768) and
+AViT-small's on the flow-boiling grid at batch 4, (4, 5, 32, 128, 384),
+through its autograd Function as a training step without remat calls it
+(the backward alone by ``torch.autograd.grad`` on a kept graph); forward
+and backward, in bfloat16 and float32, by CUDA events (20 calls after 3
+warm-up), from the checkout given by ``--repo`` (default: this one), whose
+kernels it builds first.  Comparing two versions of the
 kernels takes two processes on one card, one per checkout, in turns:
 
     python3 scripts/time_kernels_torch.py --repo build/parent --label parent
@@ -90,6 +95,22 @@ def main(argv=None) -> None:
         out[f"K2 bwd {name}"] = ms(lambda: k2.lane_axial_attention_bwd(do2, qkv, *p2,
                                                                        heads=heads))
         del res
+    for case, (shape, h) in {"avit_big": ((8, t, 32, 32, 768), 12),
+                             "flow_b4": ((4, t, 32, 128, 384), 6)}.items():
+        cc = shape[-1]
+        k3_params = [n(3 * cc, cc, scale=cc**-0.5), n(3 * cc, scale=0.1),
+                     n(d, scale=0.1, offset=1.0), n(d, scale=0.1), n(d, scale=0.1, offset=1.0),
+                     n(d, scale=0.1), n(h, t, t), n(h, scale=0.2, offset=1.0)]
+        xn32 = n(*shape)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            inputs = [xn32.to(dt).requires_grad_(), *(a.requires_grad_() for a in k3_params)]
+            y = k1.core_temporal_attention(*inputs, heads=h)
+            dao = torch.randn_like(y)
+            out[f"K3 {case} {name}"] = ms(lambda: k1.core_temporal_attention(*inputs, heads=h))
+            out[f"K3 bwd {case} {name}"] = ms(
+                lambda: torch.autograd.grad(y, inputs, dao, retain_graph=True))
+            del inputs, y, dao
     print(json.dumps(out), flush=True)
 
 

@@ -15,7 +15,8 @@ def check_grads(names, got, want, tol, zero_noise=False):
 
     ``zero_noise``: where the two sides' rounding noise is uncorrelated (K5
     in bfloat16: its ``dao`` comes out of an InstanceNorm backward whose
-    reassociated sums flip bfloat16 roundings, so the zero gradient is
+    reassociated sums flip bfloat16 roundings; K9 in bfloat16: its qkv comes
+    out of projections summed in other orders; so the zero gradient is
     independent noise on each side), such a gradient is held to the
     reference's own noise instead: at most three times its largest
     magnitude, plus ``tol`` of the floor."""

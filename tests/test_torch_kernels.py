@@ -10,7 +10,11 @@ lines longer than one 64-token tile (the 32x128 flow-boiling grid, lines of
 block), K6 and K7 (fused_packed, fused) at their paths' shapes, at head dim
 16 and on long lines; K8 (flash) at path F's temporal lines of 5 and axial
 lines of 32, at head dims 16 and 64 and on long lines; K10 (the loss's
-plane norms) at path F's step shape and a ragged one.
+plane norms) at path F's step shape and a ragged one; K9 (the lane route
+with the projection in the kernel) at FiLMAViT-small's rollout and training
+shapes, the flow-boiling grid's, AViT-tiny's at 512x512 and a small one,
+forward and every gradient, float32 against its plain version in float64
+and bfloat16 against it in bfloat16.
 
 This file imports no JAX, so the ``cuda`` tests also run where JAX is not
 installed:
@@ -63,6 +67,12 @@ from bubbleformer_tpu_torch.ops.axial_lane import (
     lane_axial_attention,
     lane_axial_attention_bwd,
 )
+from bubbleformer_tpu_torch.ops.axial_lane_px import (
+    lane_px_attention,
+    lane_px_attention_bwd,
+    lane_px_bwd_plain,
+    lane_px_plain,
+)
 from bubbleformer_tpu_torch.ops.axial_pallas import (
     flash_bwd_plain,
     flash_packed_attention,
@@ -79,7 +89,6 @@ from bubbleformer_tpu_torch.ops.lp_loss import (
 from bubbleformer_tpu_torch.ops.temporal_block_mega import (
     core_temporal_attention,
     core_temporal_attention_bwd,
-    core_temporal_attention_fwd,
     core_temporal_bwd_plain,
     core_temporal_plain,
     mega_temporal_block,
@@ -278,9 +287,8 @@ def test_k3_backward_kernel_matches_plain_on_card(cuda_device, shape, dtype):
     args = _k3_args(shape, heads, 15, dtype, cuda_device)
     dao = torch.randn(shape, generator=torch.Generator().manual_seed(16)).to(cuda_device, dtype)
     params = list(args.values())[1:]
-    _, qkv = core_temporal_attention_fwd(args["xn"], *params, heads=heads)
     before = core_temporal_attention_bwd.launches
-    got = core_temporal_attention_bwd(dao, args["xn"], *params, heads=heads, qkv=qkv)
+    got = core_temporal_attention_bwd(dao, args["xn"], *params, heads=heads)
     assert core_temporal_attention_bwd.launches == before + 1
     want = core_temporal_bwd_plain(dao, **args, heads=heads)
     torch.cuda.synchronize()
@@ -373,20 +381,21 @@ def test_autograd_functions_launch_both_kernels_on_card(cuda_device):
 @pytest.mark.cuda
 def test_k3_autograd_function_launches_both_kernels_on_card(cuda_device):
     """Forward and backward through ``core_temporal_attention`` launch one
-    kernel each; under no_grad the forward writes no qkv residual."""
+    kernel each; the autograd node keeps the arguments alone (no qkv: the
+    backward kernel projects again)."""
     args = {k: v.requires_grad_() for k, v in _k3_args((1, 3, 8, 16, 128), 2, 17,
                                                         device=cuda_device).items()}
+    saved = []
     counts = (core_temporal_attention.launches, core_temporal_attention_bwd.launches)
-    core_temporal_attention(**args, heads=2).square().sum().backward()
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t.shape) or t,
+                                                  lambda t: t):
+        out = core_temporal_attention(**args, heads=2)
+    out.square().sum().backward()
     torch.cuda.synchronize()
     assert (core_temporal_attention.launches,
             core_temporal_attention_bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    assert sorted(saved) == sorted(v.shape for v in args.values())
     assert all(torch.isfinite(v.grad).all() for v in args.values())
-    with torch.no_grad():
-        core_temporal_attention(**args, heads=2)
-    _, qkv = core_temporal_attention_fwd(*(v.detach() for v in args.values()), heads=2,
-                                         keep_qkv=False)
-    assert qkv is None
 
 
 # The line kernels beyond one 64-token tile and at head dim 16: the 32x128
@@ -618,9 +627,11 @@ def test_k1_k3_at_head_dim_16_match_plain_on_card(cuda_device, kernel, shape, dt
                                       m.core_temporal_bwd_plain)
     do = torch.randn(shape, generator=torch.Generator().manual_seed(26)).to(cuda_device, dtype)
     act, params = args[next(iter(args))], list(args.values())[1:]
-    got, res = fwd(act, *params, heads=heads)
-    grads = (bwd(do, act, *params, heads=heads, residuals=res) if kernel == "k1" else
-             bwd(do, act, *params, heads=heads, qkv=res))
+    if kernel == "k1":
+        got, res = fwd(act, *params, heads=heads)
+        grads = bwd(do, act, *params, heads=heads, residuals=res)
+    else:
+        got, grads = fwd(act, *params, heads=heads), bwd(do, act, *params, heads=heads)
     _close(got, plain(**args, heads=heads), dtype)
     want = bwd_plain(do, **args, heads=heads)
     torch.cuda.synchronize()
@@ -796,3 +807,112 @@ def test_k10_kernels_match_plain_on_card(cuda_device, shape, dtype):
     assert dpred.dtype == dtype
     _close(dpred, plane_norms_bwd_plain(p3, t3, coef), dtype)
     assert torch.equal(training_lp_loss(pred, tgt), training_lp_loss(pred, tgt))
+
+
+def _px_args(shape, heads, seed, dtype=torch.float32, device="cpu"):
+    """K9's arguments for x of ``shape`` (BT, H, W, C): x in ``dtype``, the
+    rest float32."""
+    bt, h, w, c = shape
+    rng = np.random.default_rng(seed)
+    d = c // heads
+
+    def n(*s, scale=1.0, offset=0.0):
+        return torch.from_numpy((offset + scale * rng.standard_normal(s)).astype(np.float32))
+
+    args = dict(
+        x=n(*shape).to(dtype), wqkv=n(3 * c, c, scale=c**-0.5), bqkv=n(3 * c, scale=0.2),
+        qn_scale=n(d, scale=0.2, offset=1.0), qn_bias=n(d, scale=0.2),
+        kn_scale=n(d, scale=0.2, offset=1.0), kn_bias=n(d, scale=0.2),
+        bias_x=n(heads, w, w), bias_y=n(heads, h, h),
+        scale_x=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)),
+        scale_y=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)),
+    )
+    return {k: v.to(device) for k, v in args.items()}
+
+
+def test_k9_wrappers_take_plain_versions_on_cpu():
+    args = _px_args((2, 8, 16, 64), 4, 50)
+    do = torch.randn(2, 8, 16, 64, generator=torch.Generator().manual_seed(51))
+    before = (lane_px_attention.launches, lane_px_attention_bwd.launches)
+    torch.testing.assert_close(lane_px_attention(**args, heads=4),
+                               lane_px_plain(**args, heads=4), rtol=0, atol=0)
+    for g, w in zip(lane_px_attention_bwd(do, *args.values(), heads=4),
+                    lane_px_bwd_plain(do, **args, heads=4)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert (lane_px_attention.launches, lane_px_attention_bwd.launches) == before
+
+
+# K9 at FiLMAViT-small's rollout and training shapes (6 heads of 64), the
+# flow-boiling 32x128 grid at batch 4, AViT-tiny's 64x64 grid at 512x512
+# (6 heads of 16), and a small one.
+K9_CASES = [((5, 32, 32, 384), 6), ((40, 32, 32, 384), 6), ((20, 32, 128, 384), 6),
+            ((40, 64, 64, 96), 6), ((2, 8, 16, 64), 4)]
+K9_IDS = ["slice", "training", "flow_b4", "tiny_d16", "small"]
+# chip_smoke.py's LINE_RTOL: float32 against the plain version in float64
+# (the kernels' own float32 error), bfloat16 against the plain version in
+# bfloat16, the same rounding points.  In bfloat16 the card's and the plain
+# version's projections sum in other orders, so their qkv differ by single
+# ulps before the line kernels' own flips, and the k-LayerNorm bias's
+# gradient, zero up to rounding, is independent noise on each side (on an
+# H100 it read 1.6e-2 of the floor at the training shape): it is held to the
+# plain version's own noise (check_grads' zero_noise), as K5's is.
+K9_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,heads", K9_CASES, ids=K9_IDS)
+def test_k9_kernels_match_plain_on_card(cuda_device, shape, heads, dtype):
+    """Forward and every gradient (x, W, b, the qk-LN vectors, both tables,
+    both scales); dW unrounded in bfloat16, as the plain version's."""
+    args = _px_args(shape, heads, 52, dtype, cuda_device)
+    do = torch.randn(*shape, generator=torch.Generator().manual_seed(53)).to(cuda_device, dtype)
+    ref_args, ref_do = ((args, do) if dtype == torch.bfloat16 else
+                        ({k: v.double() for k, v in args.items()}, do.double()))
+    before = (lane_px_attention.launches, lane_px_attention_bwd.launches)
+    got = lane_px_attention(**args, heads=heads)
+    grads = lane_px_attention_bwd(do, *args.values(), heads=heads)
+    assert (lane_px_attention.launches, lane_px_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == dtype and grads[0].dtype == dtype and grads[1].dtype == torch.float32
+    want = lane_px_plain(**ref_args, heads=heads)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    err = (got.double() - want.double()).abs().max().item()
+    assert err <= K9_TOL[dtype] * want.double().abs().max().item(), err
+    want = lane_px_bwd_plain(ref_do, **ref_args, heads=heads)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    check_grads(list(args), [g.cpu() for g in grads], [w.double().cpu().numpy() for w in want],
+                K9_TOL[dtype], zero_noise=dtype == torch.bfloat16)
+    if dtype == torch.bfloat16:
+        assert not torch.equal(grads[1], grads[1].bfloat16().float())
+
+
+@pytest.mark.cuda
+def test_k9_autograd_function_keeps_no_qkv_and_launches_both_kernels_on_card(cuda_device):
+    """The autograd node keeps the arguments alone (nothing 3C wide) and
+    the backward launches K9's backward once."""
+    args = {k: v.requires_grad_() for k, v in _px_args((2, 8, 16, 64), 4, 54,
+                                                       device=cuda_device).items()}
+    saved = []
+    counts = (lane_px_attention.launches, lane_px_attention_bwd.launches)
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t.shape) or t,
+                                                  lambda t: t):
+        out = lane_px_attention(**args, heads=4)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert (lane_px_attention.launches, lane_px_attention_bwd.launches) == (
+        counts[0] + 1, counts[1] + 1)
+    assert sorted(saved) == sorted(v.shape for v in args.values())
+    assert all(torch.isfinite(v.grad).all() for v in args.values())
+
+
+@pytest.mark.cuda
+def test_k9_raises_outside_its_envelope_on_card(cuda_device):
+    """Head dim 32, lines of 513 tokens and C = 48 (not a multiple of the
+    GEMM tile's 32) are outside K9."""
+    for shape, heads in (((1, 4, 8, 128), 4), ((1, 1, 513, 64), 4), ((1, 4, 8, 48), 3)):
+        args = _px_args(shape, heads, 55, device=cuda_device)
+        with pytest.raises(ValueError, match=re.escape(str(tuple(shape)))):
+            lane_px_attention(**args, heads=heads)
