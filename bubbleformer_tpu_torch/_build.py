@@ -33,6 +33,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)  # a host array of int64 (shapes, strides)
 _SIGNATURES = {
     # dtype, head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout,
     # bout, bias, scale, stats1, qkv, ao, ao_r, stats2, out, B, T, N, C, heads,
@@ -88,6 +91,28 @@ _SIGNATURES = {
     # qkv, dqkv, stats, dx, dwqkv, dbqkv, dln, dbias_x, dbias_y, dscale, BT, H,
     # W, C, heads, stream
     "bf_axial_lane_px_bwd": [_I] * 2 + [_P] * 19 + [_I] * 5 + [_P],
+    # The probes' kernels (probes/, csrc/probe_*.cu).
+    # dtype, x, o1, o2, rows, total, r1, b1, r2, b2, stream
+    "bf_probe_within_roll": [_I] + [_P] * 3 + [_I] * 6 + [_P],
+    # dtype, q, kv, bx, by, sc, row_out, out, BT, H, W, C, heads, scaling, stream
+    "bf_probe_lane_core": [_I] + [_P] * 7 + [_I] * 5 + [_F, _P],
+    # q, k, v, q_fs, kv_fs, ld, bias, mblk, sc, sc_col, scaling, s_out, out,
+    # out_bf16, out_fs, out_ld, frames, heads, d, nchunks, ch, stream
+    "bf_probe_chunk_attention": [_P] * 3 + [_L] * 2 + [_I] + [_P] * 3 + [_I, _F] + [_P] * 2
+    + [_I, _L] + [_I] * 6 + [_P],
+    # x, p, transpose_p, addend, out, rows, n, stream
+    "bf_probe_perm_product": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 2 + [_P],
+    # H, W
+    "bf_probe_stage_tiles": [_I] * 2,
+    # y, mean, inv, k, out, partial, mu, var, bt, H, W, C, F, stream
+    "bf_probe_stage": [_P] * 8 + [_I] * 5 + [_P],
+    # src_dtype, src, src_stride, dst_dtype, dst, dst_stride, shape, ndim, scale,
+    # accumulate, stream
+    "bf_probe_view_copy": [_I, _P, _LP, _I, _P, _LP, _LP, _I, _F, _I, _P],
+    # dtype, a, stride, shape, ndim, out, stream
+    "bf_probe_gram": [_I, _P, _LP, _LP, _I, _P, _P],
+    # dtype, x, out, shape, stride, axis, chunk, accumulate, stream
+    "bf_probe_chunk_gram": [_I, _P, _P, _LP, _LP] + [_I] * 3 + [_P],
 }
 
 
@@ -184,6 +209,12 @@ def check_shapes(what: str, **tensors) -> None:
     for name, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def int64_array(values) -> ctypes.Array:
+    """A host array of int64, as the C entries take shapes and strides."""
+    values = list(values)
+    return (ctypes.c_longlong * len(values))(*values)
 
 
 def stream_handle(device: torch.device) -> int:

@@ -11,6 +11,7 @@
 // operand's rows are contiguous in k, as for activations times a weight);
 // KMajor = true reads with m fastest (the operand is stored k-major, as the
 // token-major activations of a weight gradient, where k is the token).
+// BKMajor sets B's order alike; it defaults to A's.
 #pragma once
 
 #include <mma.h>
@@ -58,7 +59,7 @@ __device__ float* gemm_out(unsigned char* smem, int m_tiles) {
 
 // Must be called by all kGemmThreads threads of the block; K a multiple of
 // kKC.  The caller synchronises before reading the tile.
-template <typename T, bool KMajor, typename ALoad, typename BLoad>
+template <typename T, bool KMajor, bool BKMajor = KMajor, typename ALoad, typename BLoad>
 __device__ void block_gemm(int m_tiles, int n_tiles, int K, ALoad aload, BLoad bload,
                            unsigned char* smem) {
   constexpr int LD = Tile<T>::ld;
@@ -74,7 +75,7 @@ __device__ void block_gemm(int m_tiles, int n_tiles, int K, ALoad aload, BLoad b
       As[m * LD + kk] = aload(m, k0 + kk);
     }
     for (int e = tid; e < cols * kKC; e += kGemmThreads) {
-      const int n = KMajor ? e % cols : e / kKC, kk = KMajor ? e / cols : e % kKC;
+      const int n = BKMajor ? e % cols : e / kKC, kk = BKMajor ? e / cols : e % kKC;
       Bs[n * LD + kk] = bload(n, k0 + kk);
     }
   };

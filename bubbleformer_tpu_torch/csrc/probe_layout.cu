@@ -1,0 +1,274 @@
+// P4: the layout probes, hand-written for Hopper (sm_90a).
+//
+// Replaces the kernels that scripts/probe_mosaic.py runs through its one
+// pallas_call (_run :36), 14 bodies (:44-:310) asking whether Mosaic lowers
+// reshapes, slices, transposes and per-head views.  On Hopper a view is a
+// shape and strides, so the bodies reduce to three kernels that take any
+// strided view of up to 5 dimensions:
+//   gram_kernel       out = a . a^T in float32 for a (rows, cols) view of
+//                     float32 or bf16 (the rows are the view's leading
+//                     dimensions): reshape_col, reshape_row,
+//                     sliced_block_dot, bf16_dot;
+//   view_copy_kernel  dst = dtype(scale * src), or dtype(dst + scale * src)
+//                     with accumulate, between two views of one shape:
+//                     transpose, split, concat0, concat1,
+//                     write_strided_slice (with its read-modify-write),
+//                     transpose_full, merge_full, head_slice_bf16;
+//   chunk_gram_kernel per chunk c (rows x D) of a (B, H, W, heads, D) tensor,
+//                     o = (c . c^T) . c in float32, written as dtype(o) or
+//                     added as dtype(out + dtype(o)) (the TPU body's bf16
+//                     `+=`): head_slice_dot_bf16 (row chunks) and
+//                     chunked_ref_reads_bf16 (row chunks, then column
+//                     chunks added).
+// The probes' arrays are at most 0.8 MB: every kernel is bound by its launch.
+#include "common.cuh"
+
+namespace bft {
+namespace {
+
+constexpr int kMaxDims = 5;
+
+struct View {
+  long long shape[kMaxDims];
+  long long stride[kMaxDims];
+  int ndim;
+};
+
+// Offset of the e-th element (row-major over the shape) of a view.
+__device__ __forceinline__ long long view_offset(const View& v, long long e) {
+  long long off = 0;
+  for (int i = v.ndim - 1; i >= 0; --i) {
+    off += (e % v.shape[i]) * v.stride[i];
+    e /= v.shape[i];
+  }
+  return off;
+}
+
+template <typename S, typename D>
+__global__ void view_copy_kernel(const S* __restrict__ src, View sv, D* __restrict__ dst,
+                                 View dv, long long n, float scale, int accumulate) {
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long so = view_offset(sv, e), d_o = view_offset(dv, e);
+    float v = to_f32(src[so]) * scale;
+    if (accumulate) v = to_f32(dst[d_o]) + v;
+    dst[d_o] = from_f32<D>(v);
+  }
+}
+
+// Grid (ceil(rows / 32), ceil(rows / 32)), 256 threads: a 32 x 32 tile of
+// out[i, j] = sum_k a(i, k) a(j, k), a(r, k) the view's element r * cols + k.
+template <typename T>
+__global__ void __launch_bounds__(256) gram_kernel(const T* __restrict__ a, View v, int rows,
+                                                   int cols, float* __restrict__ out) {
+  __shared__ float As[32][33];
+  __shared__ float Bs[32][33];
+  const int i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k0 = 0; k0 < cols; k0 += 32) {
+    for (int e = threadIdx.x; e < 32 * 32; e += 256) {
+      const int r = e / 32, kk = e % 32, k = k0 + kk;
+      As[r][kk] = i0 + r < rows && k < cols ? to_f32(a[view_offset(v, (long long)(i0 + r) * cols + k)]) : 0.f;
+      Bs[r][kk] = j0 + r < rows && k < cols ? to_f32(a[view_offset(v, (long long)(j0 + r) * cols + k)]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < 32; ++kk) {
+      const float b = Bs[tx][kk];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] += As[ty + 8 * u][kk] * b;
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int i = i0 + ty + 8 * u, j = j0 + tx;
+    if (i < rows && j < rows) out[(size_t)i * rows + j] = acc[u];
+  }
+}
+
+// One chunk of R rows of D values: the chunk's element (r, dd) lies at
+// base + r1 * s1 + r2 * s2 + dd * sd, r = r1 * n2 + r2, in x and in out alike.
+struct Chunks {
+  int n1, n2, D;
+  long long s1, s2, sd;
+  long long chunk_stride;  // between chunks
+  long long b_stride, h_stride;
+  int heads;
+};
+
+constexpr int kGramRowTile = 32;
+
+__host__ __device__ size_t chunk_gram_smem(int R, int D) {
+  return sizeof(float) * ((size_t)R * (D + 1) + (size_t)kGramRowTile * R);
+}
+
+// Grid (ceil(R / 32), chunks, B * heads), 256 threads: rows [32 t, 32 t + 32)
+// of o = (c . c^T) . c for one chunk; the whole chunk c (float32) and the 32
+// rows of s = c . c^T in shared memory.
+template <typename T>
+__global__ void __launch_bounds__(256) chunk_gram_kernel(const T* __restrict__ x,
+                                                         T* __restrict__ out, Chunks g,
+                                                         int accumulate) {
+  extern __shared__ float sm[];
+  const int R = g.n1 * g.n2, D = g.D, DP = D + 1;
+  const int i0 = blockIdx.x * kGramRowTile;
+  const int b = blockIdx.z / g.heads, h = blockIdx.z % g.heads;
+  const long long base = blockIdx.y * g.chunk_stride + b * g.b_stride + h * g.h_stride;
+  auto at = [&](int r, int dd) {
+    return base + (long long)(r / g.n2) * g.s1 + (long long)(r % g.n2) * g.s2 + dd * g.sd;
+  };
+  float* c = sm;
+  float* s = sm + (size_t)R * DP;
+  for (int e = threadIdx.x; e < R * D; e += blockDim.x) {
+    const int r = e / D, dd = e % D;
+    c[r * DP + dd] = to_f32(x[at(r, dd)]);
+  }
+  __syncthreads();
+  const int tr = min(kGramRowTile, R - i0);
+  for (int j = threadIdx.x; j < R; j += blockDim.x)
+    for (int ii = 0; ii < tr; ++ii) {
+      float acc = 0.f;
+      for (int dd = 0; dd < D; ++dd) acc += c[(i0 + ii) * DP + dd] * c[j * DP + dd];
+      s[ii * R + j] = acc;
+    }
+  __syncthreads();
+  for (int e = threadIdx.x; e < tr * D; e += blockDim.x) {
+    const int ii = e / D, dd = e % D;
+    float acc = 0.f;
+    for (int j = 0; j < R; ++j) acc += s[ii * R + j] * c[j * DP + dd];
+    const long long o = at(i0 + ii, dd);
+    out[o] = accumulate ? from_f32<T>(to_f32(out[o]) + round_to<T>(acc)) : from_f32<T>(acc);
+  }
+}
+
+View make_view(const long long* shape, const long long* stride, int ndim) {
+  View v{};
+  v.ndim = ndim;
+  for (int i = 0; i < ndim; ++i) {
+    v.shape[i] = shape[i];
+    v.stride[i] = stride[i];
+  }
+  return v;
+}
+
+int grid_for(long long n) {
+  const long long blocks = (n + 255) / 256;
+  return static_cast<int>(blocks < 65535 ? blocks : 65535);
+}
+
+template <typename S, typename D>
+int run_view_copy(const void* src, const View& sv, void* dst, const View& dv, long long n,
+                  float scale, int accumulate, cudaStream_t stream) {
+  view_copy_kernel<S, D><<<grid_for(n), 256, 0, stream>>>(
+      static_cast<const S*>(src), sv, static_cast<D*>(dst), dv, n, scale, accumulate);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace bft
+
+// dst = dst_dtype(scale * src), or dst_dtype(dst + scale * src) with
+// accumulate, over views of one shape (ndim <= 5; shape and the two stride
+// lists in elements, host arrays; src and dst point at the views' first
+// elements).  Returns a cudaError_t.
+extern "C" int bf_probe_view_copy(int src_dtype, const void* src, const long long* src_stride,
+                                  int dst_dtype, void* dst, const long long* dst_stride,
+                                  const long long* shape, int ndim, float scale, int accumulate,
+                                  void* stream) {
+  using namespace bft;
+  if (ndim < 1 || ndim > kMaxDims) return cudaErrorInvalidValue;
+  long long n = 1;
+  for (int i = 0; i < ndim; ++i) n *= shape[i];
+  if (n < 1) return cudaErrorInvalidValue;
+  const View sv = make_view(shape, src_stride, ndim), dv = make_view(shape, dst_stride, ndim);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+  if (src_dtype == kF32 && dst_dtype == kF32)
+    return run_view_copy<float, float>(src, sv, dst, dv, n, scale, accumulate, s);
+  if (src_dtype == kF32 && dst_dtype == kBF16)
+    return run_view_copy<float, bf16>(src, sv, dst, dv, n, scale, accumulate, s);
+  if (src_dtype == kBF16 && dst_dtype == kF32)
+    return run_view_copy<bf16, float>(src, sv, dst, dv, n, scale, accumulate, s);
+  if (src_dtype == kBF16 && dst_dtype == kBF16)
+    return run_view_copy<bf16, bf16>(src, sv, dst, dv, n, scale, accumulate, s);
+  return cudaErrorInvalidValue;
+}
+
+// out (rows, rows) float32 = a . a^T for the view a (shape and strides as for
+// bf_probe_view_copy; its last dimension is the contraction, the others are
+// the rows).  Returns a cudaError_t.
+extern "C" int bf_probe_gram(int dtype, const void* a, const long long* stride,
+                             const long long* shape, int ndim, float* out, void* stream) {
+  using namespace bft;
+  if (ndim < 2 || ndim > kMaxDims) return cudaErrorInvalidValue;
+  long long rows = 1;
+  for (int i = 0; i < ndim - 1; ++i) rows *= shape[i];
+  const long long cols = shape[ndim - 1];
+  if (rows < 1 || cols < 1 || rows > 65535LL * 32 || cols > 2147483647LL)
+    return cudaErrorInvalidValue;
+  const View v = make_view(shape, stride, ndim);
+  const dim3 grid((rows + 31) / 32, (rows + 31) / 32);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    gram_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(a), v, (int)rows,
+                                            (int)cols, out);
+  else if (dtype == kBF16)
+    gram_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(a), v,
+                                                    (int)rows, (int)cols, out);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// x and out (B, H, W, heads, D) in dtype with the same strides (stride, host
+// array of 5): for each (b, head) and each of the nchunks chunks of `chunk`
+// rows (axis 1) or columns (axis 2), o = (c . c^T) . c in float32 over the
+// chunk's rows (its (row, column) positions in raster order), written as
+// dtype(o) or, with accumulate, dtype(out + dtype(o)).  A chunk's c and 32
+// rows of c . c^T must fit in 227 KB of shared memory.  Returns a
+// cudaError_t.
+extern "C" int bf_probe_chunk_gram(int dtype, const void* x, void* out, const long long* shape,
+                                   const long long* stride, int axis, int chunk, int accumulate,
+                                   void* stream) {
+  using namespace bft;
+  if ((axis != 1 && axis != 2) || chunk < 1 || shape[axis] % chunk) return cudaErrorInvalidValue;
+  Chunks g{};
+  g.n1 = axis == 1 ? chunk : (int)shape[1];
+  g.n2 = axis == 1 ? (int)shape[2] : chunk;
+  g.D = (int)shape[4];
+  g.s1 = stride[1];
+  g.s2 = stride[2];
+  g.sd = stride[4];
+  g.chunk_stride = chunk * stride[axis];
+  g.b_stride = stride[0];
+  g.h_stride = stride[3];
+  g.heads = (int)shape[3];
+  const int R = g.n1 * g.n2;
+  const long long groups = shape[0] * shape[3], nchunks = shape[axis] / chunk;
+  const size_t smem = chunk_gram_smem(R, g.D);
+  if (R < 1 || g.D < 1 || groups < 1 || groups > 65535 || nchunks > 65535 || smem > 232448)
+    return cudaErrorInvalidValue;
+  const dim3 grid((R + kGramRowTile - 1) / kGramRowTile, (unsigned)nchunks, (unsigned)groups);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == kF32) {
+    if ((e = cudaFuncSetAttribute(chunk_gram_kernel<float>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return e;
+    chunk_gram_kernel<float><<<grid, 256, smem, s>>>(static_cast<const float*>(x),
+                                                     static_cast<float*>(out), g, accumulate);
+  } else if (dtype == kBF16) {
+    if ((e = cudaFuncSetAttribute(chunk_gram_kernel<__nv_bfloat16>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return e;
+    chunk_gram_kernel<__nv_bfloat16><<<grid, 256, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), g, accumulate);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}

@@ -1,0 +1,355 @@
+"""P4: the layout probes on the port's kernels.
+
+Counterpart of ``scripts/probe_mosaic.py``, whose 14 kernel bodies
+(``:44-:310``) run through one ``pallas_call`` (``_run :36``) to ask whether
+Mosaic lowers in-kernel reshapes, slices, transposes and per-head views.  On
+Hopper a view is a shape and strides, so the bodies run on three kernels of
+``csrc/probe_layout.cu`` that take strided views:
+
+- :func:`gram` — ``a . a^T`` in float32 of a (rows, cols) view;
+- :func:`view_copy` — ``dst = dtype(scale * src)``, or added to ``dst``;
+- :func:`chunk_gram_apply` — per chunk ``(c . c^T) . c`` over row or column
+  chunks of a (B, H, W, heads, D) tensor, written or added in its dtype;
+
+each with its plain version.  ``BODIES`` holds the 14 bodies on them and
+the ``probe_*`` functions (the JAX names) check each against its reference
+on a device, returning ``(ok, detail)`` with the JAX probe's bounds.  Two
+JAX references stack the heads on axis 2 and then transpose
+(``probe_mosaic.py:254``, ``:304``), which does not match the (1, H, W,
+heads, D) the kernels write: they raise there, so those two kernels were
+never checked.  The references here keep the kernels' layout, without the
+transpose.  :func:`main` is the command line of
+``scripts/probe_mosaic_torch.py``.
+"""
+from __future__ import annotations
+
+import argparse
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from bubbleformer_tpu_torch import _build
+from bubbleformer_tpu_torch.probes import announce, build_seconds, check_device
+
+H, W, D = 32, 32, 64
+WC = 8
+HEADS = 6
+CHUNK = 8  # rows (or columns) a chunk of the per-head bodies
+MAX_DIMS = 5
+
+
+def _dtype_code(what, t):
+    if t.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes float32 or bfloat16, not {t.dtype}")
+    return _build.DTYPE_CODES[t.dtype]
+
+
+def gram_plain(a: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the Gram bodies: ``a . a^T`` in float32 of
+    ``a`` seen as (rows, cols), its last dimension the contraction."""
+    a2 = a.reshape(-1, a.shape[-1]).float()
+    return a2 @ a2.t()
+
+
+def gram(a: torch.Tensor) -> torch.Tensor:
+    """:func:`gram_plain` on the CPU; on a card ``gram_kernel`` reading the
+    view in place (counted in ``gram.launches``)."""
+    if not check_device("gram", a):
+        return gram_plain(a)
+    if not 2 <= a.dim() <= MAX_DIMS:
+        raise ValueError(f"gram: a view of 2 to {MAX_DIMS} dimensions, not {tuple(a.shape)}")
+    rows = a.numel() // a.shape[-1]
+    out = torch.empty(rows, rows, device=a.device)
+    lib = _build.library()
+    err = lib.bf_probe_gram(_dtype_code("gram", a), a.data_ptr(), _build.int64_array(a.stride()),
+                            _build.int64_array(a.shape), a.dim(), out.data_ptr(),
+                            _build.stream_handle(a.device))
+    _build.check(lib, err, f"gram at {tuple(a.shape)} (bf_probe_gram)")
+    gram.launches += 1
+    return out
+
+
+def view_copy_plain(src: torch.Tensor, dst: torch.Tensor, scale: float = 1.0,
+                    accumulate: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the copy bodies: ``dst = dtype(scale * src)``
+    or, with ``accumulate``, ``dtype(dst + scale * src)``, in float32, in
+    place; returns ``dst``."""
+    v = src.float() * scale
+    if accumulate:
+        v = dst.float() + v
+    return dst.copy_(v)
+
+
+def view_copy(src: torch.Tensor, dst: torch.Tensor, scale: float = 1.0,
+              accumulate: bool = False) -> torch.Tensor:
+    """:func:`view_copy_plain` on the CPU; on a card ``view_copy_kernel``
+    between the two views in place (counted in ``view_copy.launches``)."""
+    if not check_device("view_copy", src):
+        return view_copy_plain(src, dst, scale, accumulate)
+    if src.shape != dst.shape or not 1 <= src.dim() <= MAX_DIMS or dst.device != src.device:
+        raise ValueError(f"view_copy: views of one shape of 1 to {MAX_DIMS} dimensions on one "
+                         f"device, not {tuple(src.shape)}, {tuple(dst.shape)}")
+    lib = _build.library()
+    err = lib.bf_probe_view_copy(_dtype_code("view_copy", src), src.data_ptr(),
+                                 _build.int64_array(src.stride()), _dtype_code("view_copy", dst),
+                                 dst.data_ptr(), _build.int64_array(dst.stride()),
+                                 _build.int64_array(src.shape), src.dim(), scale, int(accumulate),
+                                 _build.stream_handle(src.device))
+    _build.check(lib, err, f"view_copy at {tuple(src.shape)} (bf_probe_view_copy)")
+    view_copy.launches += 1
+    return dst
+
+
+def _chunk(t: torch.Tensor, axis: int, ci: int, chunk: int) -> torch.Tensor:
+    sl = slice(ci * chunk, (ci + 1) * chunk)
+    return t[:, sl] if axis == 1 else t[:, :, sl]
+
+
+def chunk_gram_apply_plain(x: torch.Tensor, out: torch.Tensor, axis: int, chunk: int,
+                           accumulate: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the per-head chunk bodies: for x and out (B,
+    H, W, heads, D), per (b, head) and chunk c of ``chunk`` rows (axis 1) or
+    columns (axis 2), its (row, column) positions in raster order, o = (c .
+    c^T) . c in float32, written as dtype(o) or added as dtype(out +
+    dtype(o)); in place, returns ``out``."""
+    b, _, _, heads, d = x.shape
+    for ci in range(x.shape[axis] // chunk):
+        c = _chunk(x, axis, ci, chunk)
+        n1, n2 = c.shape[1], c.shape[2]
+        cf = c.permute(0, 3, 1, 2, 4).reshape(b, heads, n1 * n2, d).float()
+        o = (cf @ cf.transpose(-1, -2)) @ cf
+        o = o.reshape(b, heads, n1, n2, d).permute(0, 2, 3, 1, 4)
+        dst = _chunk(out, axis, ci, chunk)
+        dst.copy_(dst.float() + o.to(out.dtype).float() if accumulate else o)
+    return out
+
+
+def chunk_gram_apply(x: torch.Tensor, out: torch.Tensor, axis: int, chunk: int,
+                     accumulate: bool = False) -> torch.Tensor:
+    """:func:`chunk_gram_apply_plain` on the CPU; on a card one launch of
+    ``chunk_gram_kernel`` over every chunk (counted in
+    ``chunk_gram_apply.launches``).  x and out contiguous alike."""
+    if not check_device("chunk_gram_apply", x):
+        return chunk_gram_apply_plain(x, out, axis, chunk, accumulate)
+    what = f"chunk_gram_apply at {tuple(x.shape)}, axis {axis}, chunk {chunk}"
+    if (x.dim() != 5 or out.shape != x.shape or out.dtype != x.dtype or axis not in (1, 2)
+            or x.shape[axis] % chunk or not (x.is_contiguous() and out.is_contiguous())):
+        raise ValueError(f"{what}: x and out (B, H, W, heads, D) contiguous alike, chunks "
+                         f"dividing axis 1 or 2")
+    lib = _build.library()
+    err = lib.bf_probe_chunk_gram(_dtype_code(what, x), x.data_ptr(), out.data_ptr(),
+                                  _build.int64_array(x.shape), _build.int64_array(x.stride()),
+                                  axis, chunk, int(accumulate), _build.stream_handle(x.device))
+    _build.check(lib, err, f"{what} (bf_probe_chunk_gram)")
+    chunk_gram_apply.launches += 1
+    return out
+
+
+gram.launches = 0
+view_copy.launches = 0
+chunk_gram_apply.launches = 0
+
+
+KERNELS = SimpleNamespace(gram=gram, view_copy=view_copy, chunk_gram_apply=chunk_gram_apply)
+PLAIN = SimpleNamespace(gram=gram_plain, view_copy=view_copy_plain,
+                        chunk_gram_apply=chunk_gram_apply_plain)
+
+
+def _like(shape, x):
+    return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+
+def _concat(x, ops, scales, axis):
+    out = _like(tuple(s * len(scales) if i == axis else s for i, s in enumerate(x.shape)), x)
+    n = x.shape[axis]
+    for i, scale in enumerate(scales):
+        ops.view_copy(x, out.narrow(axis, i * n, n), scale)
+    return out
+
+
+def _write_strided_slice(x, ops):
+    out = _concat(x, ops, (1.0, 2.0, 3.0, 4.0), 1)
+    ops.view_copy(x, out[:, 0:WC], 1.0, accumulate=True)
+    return out
+
+
+def _head_slices(x, ops):
+    out = torch.empty_like(x)
+    for hd in range(x.shape[3]):
+        ops.view_copy(x[0, :, :, hd, :], out[0, :, :, hd, :], hd + 1.0)
+    return out
+
+
+def _head_slice_dot(x, ops):
+    return ops.chunk_gram_apply(x, torch.empty_like(x), 1, CHUNK)
+
+
+def _chunked_ref_reads(x, ops):
+    out = ops.chunk_gram_apply(x, torch.empty_like(x), 1, CHUNK)
+    return ops.chunk_gram_apply(x, out, 2, CHUNK, accumulate=True)
+
+
+# The 14 bodies in the JAX probe's order: name -> (its printed label, the
+# input's seed, shape and dtype, the body: f(x, ops) on ``KERNELS`` (the
+# wrappers) or ``PLAIN`` (the plain versions on any device)).
+BODIES = {
+    "reshape_col": ("reshape_col (H,Wc,d)->(H*Wc,d) + dot", 0, (H, WC, D), torch.float32,
+                    lambda x, ops: ops.gram(x.reshape(H * WC, D))),
+    "reshape_row": ("reshape_row (Gr,W,d)->(Gr*W,d) + dot", 1, (8, W, D), torch.float32,
+                    lambda x, ops: ops.gram(x.reshape(8 * W, D))),
+    "transpose": ("transpose (H,Wc,d)->(Wc,H,d)", 2, (H, WC, D), torch.float32,
+                  lambda x, ops: ops.view_copy(x.permute(1, 0, 2), _like((WC, H, D), x))),
+    "sliced_block_dot": ("sliced 5D block -> 2D dot", 3, (1, H, WC, 1, D), torch.float32,
+                         lambda x, ops: ops.gram(x[0, :, :, 0, :])),
+    "bf16_dot": ("bf16 in, f32 dot", 4, (256, D), torch.bfloat16, lambda x, ops: ops.gram(x)),
+    "split_reshape": ("split (128,64)->(4,32,64)", 5, (128, 64), torch.float32,
+                      lambda x, ops: ops.view_copy(x.reshape(4, 32, 64), _like((4, 32, 64), x),
+                                                   2.0)),
+    "concat0": ("concat axis0 3D", 6, (4, 32, 64), torch.float32,
+                lambda x, ops: _concat(x, ops, (1.0, 2.0), 0)),
+    "concat1": ("concat axis1 3D", 7, (32, 8, 64), torch.float32,
+                lambda x, ops: _concat(x, ops, (1.0, 2.0, 3.0, 4.0), 1)),
+    "write_strided_slice": ("write strided slices + rmw", 8, (32, 8, 64), torch.float32,
+                            _write_strided_slice),
+    "transpose_full": ("transpose (32,32,64) maj", 9, (32, 32, 64), torch.float32,
+                       lambda x, ops: ops.view_copy(x.permute(1, 0, 2), _like((32, 32, 64), x))),
+    "merge_full": ("merge (32,32,64)->(1024,64)", 10, (32, 32, 64), torch.float32,
+                   lambda x, ops: ops.view_copy(x.reshape(1024, 64), _like((1024, 64), x), 2.0)),
+    "head_slice_bf16": ("per-head slice r/w bf16 5D", 11, (1, H, W, HEADS, D), torch.bfloat16,
+                        _head_slices),
+    "head_slice_dot_bf16": ("per-head slice+dot+concat bf16", 12, (1, H, W, HEADS, D),
+                            torch.bfloat16, _head_slice_dot),
+    "chunked_ref_reads_bf16": ("chunked ref reads/writes bf16 (v3)", 13, (1, H, W, HEADS, D),
+                               torch.bfloat16, _chunked_ref_reads),
+}
+# The kernel each body runs on.
+BODY_KERNEL = {name: ("gram" if name in ("reshape_col", "reshape_row", "sliced_block_dot",
+                                         "bf16_dot")
+                      else "chunk_gram_apply" if name in ("head_slice_dot_bf16",
+                                                          "chunked_ref_reads_bf16")
+                      else "view_copy") for name in BODIES}
+
+
+def run_body(name: str, x: torch.Tensor, ops=KERNELS) -> torch.Tensor:
+    """A body on x with ``ops``: the kernels' wrappers (default) or
+    ``PLAIN``."""
+    return BODIES[name][4](x, ops)
+
+
+def body_input(name: str) -> torch.Tensor:
+    """The body's input as the JAX probe draws it (``default_rng(seed)``,
+    float64 normals converted to the body's dtype), on the CPU."""
+    _, seed, shape, dtype, _ = BODIES[name]
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape)).to(dtype)
+
+
+def _chunk_products(a, axis):
+    """Per chunk (c . c^T) . c of a (H, W, D) head slice, float32, in place
+    of the chunk: the JAX references' loops."""
+    parts = []
+    for ci in range(a.shape[axis] // CHUNK):
+        c = a.narrow(axis, ci * CHUNK, CHUNK)
+        c2 = c.reshape(-1, D)
+        parts.append(((c2 @ c2.t()) @ c2).reshape(c.shape))
+    return torch.cat(parts, dim=axis)
+
+
+def reference(name: str, x: torch.Tensor):
+    """The JAX probe's reference for a body (float32 on the CPU, as its
+    ``jnp`` reference runs there) and its bound: (ref, bound, relative).
+    The two per-head dot references keep the kernels' (1, H, W, heads, D)
+    layout: the JAX ones transpose it away (``probe_mosaic.py:254``,
+    ``:304``)."""
+    x = x.cpu()
+    xf = x.float()
+    if name in ("reshape_col", "reshape_row", "sliced_block_dot"):
+        a = xf.reshape(-1, D)
+        return a @ a.t(), 1e-3, False
+    if name == "bf16_dot":
+        return xf @ xf.t(), 1e-1, False
+    if name in ("transpose", "transpose_full"):
+        return xf.permute(1, 0, 2), 1e-3 if name == "transpose" else 1e-6, False
+    if name == "split_reshape":
+        return xf.reshape(4, 32, 64) * 2.0, 1e-6, False
+    if name == "merge_full":
+        return xf.reshape(1024, 64) * 2.0, 1e-6, False
+    if name == "concat0":
+        return torch.cat([xf, xf * 2.0], 0), 1e-6, False
+    if name == "concat1":
+        return torch.cat([xf, xf * 2.0, xf * 3.0, xf * 4.0], 1), 1e-6, False
+    if name == "write_strided_slice":
+        return torch.cat([xf * 2.0, xf * 2.0, xf * 3.0, xf * 4.0], 1), 1e-6, False
+    scale = torch.arange(1, HEADS + 1, dtype=torch.float32)[None, None, None, :, None]
+    if name == "head_slice_bf16":
+        return (xf * scale).to(torch.bfloat16).float(), 1e-2, False
+    heads = [xf[0, :, :, hd, :] for hd in range(HEADS)]
+    if name == "head_slice_dot_bf16":
+        outs = [_chunk_products(a, 0) for a in heads]
+        return torch.stack(outs, dim=2)[None].to(torch.bfloat16).float(), 2e-2, True
+    assert name == "chunked_ref_reads_bf16", name
+    outs = [_chunk_products(a, 0).to(torch.bfloat16).float() + _chunk_products(a, 1)
+            for a in heads]
+    return torch.stack(outs, dim=2)[None].to(torch.bfloat16).float(), 5e-2, True
+
+
+def check(name: str, device) -> tuple:
+    """Run a body on ``device`` and hold it to its reference: (ok, detail),
+    as the JAX probe words it."""
+    x = body_input(name)
+    out = run_body(name, x.to(device))
+    ref, bound, relative = reference(name, x)
+    err = (out.float().cpu() - ref).abs().max().item()
+    if relative:
+        rel = err / (ref.abs().max().item() + 1e-9)
+        return rel < bound, f"rel={rel:.2e}"
+    return err < bound, f"max_err={err:.2e}"
+
+
+def _probe(name: str):
+    def run(device="cuda") -> tuple:
+        return check(name, device)
+
+    run.__name__ = run.__qualname__ = f"probe_{name}"
+    run.__doc__ = f"``probe_mosaic.probe_{name}`` on ``device``: (ok, detail)."
+    return run
+
+
+probe_reshape_col = _probe("reshape_col")
+probe_reshape_row = _probe("reshape_row")
+probe_transpose = _probe("transpose")
+probe_sliced_block_dot = _probe("sliced_block_dot")
+probe_bf16_dot = _probe("bf16_dot")
+probe_split_reshape = _probe("split_reshape")
+probe_concat0 = _probe("concat0")
+probe_concat1 = _probe("concat1")
+probe_write_strided_slice = _probe("write_strided_slice")
+probe_transpose_full = _probe("transpose_full")
+probe_merge_full = _probe("merge_full")
+probe_head_slice_bf16 = _probe("head_slice_bf16")
+probe_head_slice_dot_bf16 = _probe("head_slice_dot_bf16")
+probe_chunked_ref_reads_bf16 = _probe("chunked_ref_reads_bf16")
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description="P4, the layout probes")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; without a CUDA card, pass --device cpu")
+    return ap
+
+
+def main(argv=None) -> dict:
+    """Every body, in the JAX probe's order, one line each as it prints
+    them.  Returns {name: (ok, detail)}."""
+    from bubbleformer_tpu_torch.training.module import resolve_device
+
+    args = parser().parse_args(argv)
+    dev = resolve_device(args.device)
+    announce(dev)
+    build_seconds(dev)
+    results = {}
+    for name, (label, *_) in BODIES.items():
+        ok, detail = check(name, dev)
+        print(f"{label}: {'OK' if ok else 'MISMATCH'} {detail}", flush=True)
+        results[name] = (ok, detail)
+    return results

@@ -12,7 +12,8 @@ grid (K4 at head dim 16), FiLMAViT-small with ``attn_impl=mega`` (K1 and
 K5), AViT-small with ``attn_impl=fused_packed`` (K6) and ``fused`` (K7),
 AViT-tiny at 512x512 and 512x2048 (K1, K3 and K2 at head dim 16), and
 FiLMAViT-small with ``attn_impl=flash`` (K8 in both branches) training on
-the loss kernel (K10).  The
+the loss kernel (K10), and the four measurement probes (P1-P4,
+``scripts/probe_*_torch.py``) at their default shapes.  The
 serving path (the autoregressive rollout) and the training path
 (``Trainer.fit``: Lion, or AdamW where the config says, with cosine
 warmup); and the hand-written kernels on the way, each at the shapes its
@@ -151,7 +152,22 @@ paths give it — the rollout's (batch 1) and the training step's:
    ``"dots"``, held alike;
 38. AViT-small on the 512x2048 flow-boiling frames (temporal K3, axial K9)
    in ``Trainer.fit``, bfloat16, batch 8, Lion, remat ``"dots"``: it fits on
-   the card; and batch 4 with remat off on the K2 route (PR 6's step).
+   the card; and batch 4 with remat off on the K2 route (PR 6's step);
+39. the probes' kernels (``bubbleformer_tpu_torch/probes/``,
+   ``csrc/probe_*.cu``) against their plain versions at each probe's default
+   shape: P1a ``within_roll`` (float32 and bfloat16) and P1b ``lane_core``
+   (q (20, 384, 1024)), P2a ``dot_combos``, P2b ``perm_product`` and P2c
+   ``chunk_core`` (FiLMAViT-small's width, 32x32 tokens, chunks of 128), P3
+   ``stage`` (the embed pyramid's second stage, (20, 256, 256, 96)), and
+   P4's ``gram``, ``view_copy`` and ``chunk_gram_apply`` under all 14 layout
+   bodies; the rolls, the permutation product and the copies bit-exact,
+   the rest within ``KERNEL_RTOL``; with the times of both and of the one
+   PyTorch call that computes the same function where there is one
+   (``torch.roll``, ``torch.matmul``, ``permute().contiguous()``);
+40. the four probe CLIs through their ``main`` at their default flags, each
+   with the counters set to 0 before and read after: every check OK, a
+   card time in each JSON line, each of the probe's kernels launched and no
+   other.
 
 Every training step runs under the models' default remat ``"dots"``
 (``layers/remat.py``): K1 and K5 launch their forward kernels twice a step
@@ -457,6 +473,8 @@ def kernel_work(key: str, shape, dtype: str):
     backward; it reads pred and the target and writes the (m, 2) sums
     (dpred)."""
     e = 2 if dtype == "bfloat16" else 4
+    if key.startswith("P"):
+        return probe_work(key, shape, e)
     d = 16 if key.endswith(" d16") or key.endswith(" d16 bwd") else 64
     key = key.replace(" d16", "")
     if key.startswith("K8"):
@@ -510,6 +528,59 @@ def kernel_work(key: str, shape, dtype: str):
     if not key.endswith("bwd"):
         return 4 * r * (h + w) * c, e * r * 4 * c
     return 10 * r * (h + w) * c, e * r * 7 * c
+
+
+def probe_work(key: str, shape, e: int):
+    """(FLOPs, bytes) of the probes' kernels (P1-P4), ``e`` bytes a value of
+    the kernel's dtype, tables and statistics float32; every input read
+    once, every output written once.
+
+    P1a (x of (rows, total)): reads x, writes two rolls; no arithmetic.
+    P1b ((BT, C, H, W, heads)): per axis, logits and values 4*L*C a token
+    (L the line); reads q, kv and both (L*heads, N) tables, writes out.
+    P2a ((d, ch)): S and pv, 4*d*ch^2; reads the three (d, ch) slices,
+    writes S and pv in float32.  P2b ((rows, n)): the product 2*rows*n^2
+    with P read as the dense operand the kernel takes; reads x and P, writes
+    out.  P2c ((BT, C, N, heads, ch)): per frame the four relayout products
+    (q, kv, o_col: 4C rows of 2*N^2) and both passes' chunk products
+    (8*C*ch*N); reads q, kv, P and the tables, writes out.  P3 ((bt, H, W,
+    C, F)): the stage product 2*(H/2)(W/2)*4C*F an image; reads y0, the
+    statistics and k, writes out, mu and var.  P4 gram ((rows, cols)):
+    2*rows^2*cols; reads a, writes the float32 Gram.  P4 view_copy ((n,
+    accumulate)): one multiply a value; reads src (and dst when it adds),
+    writes dst.  P4 chunk_gram ((numel, R, accumulate)): 4*R*numel for
+    chunks of R rows; reads x (and out when it adds), writes out."""
+    if key == "P1a":
+        rows, total = shape
+        return 0, 3 * e * rows * total
+    if key == "P1b":
+        bt, c, h, w, heads = shape
+        n = h * w
+        return 4 * bt * n * (h + w) * c, 4 * e * bt * c * n + 4 * heads * (h + w) * n + 8 * c
+    if key == "P2a":
+        d, ch = shape
+        return 4 * d * ch * ch, 3 * e * d * ch + 4 * (ch * ch + d * ch)
+    if key == "P2b":
+        rows, n = shape
+        return 2 * rows * n * n, e * (2 * rows * n + n * n)
+    if key == "P2c":
+        bt, c, n, heads, ch = shape
+        return (bt * (8 * c * n * n + 8 * c * ch * n),
+                e * (4 * bt * c * n + n * n) + 4 * (2 * heads * ch * ch + 2 * ch * ch + 2 * heads))
+    if key == "P3":
+        bt, h, w, c, f = shape
+        pix = bt * (h // 2) * (w // 2)
+        return 2 * pix * 4 * c * f, e * (bt * h * w * c + pix * f + 4 * c * f) + 8 * bt * (c + f)
+    if key == "P4 gram":
+        rows, cols = shape
+        return 2 * rows * rows * cols, e * rows * cols + 4 * rows * rows
+    if key == "P4 view_copy":
+        n, accumulate = shape
+        return n, e * n * (3 if accumulate else 2)
+    if key == "P4 chunk_gram":
+        numel, r, accumulate = shape
+        return 4 * r * numel, e * numel * (3 if accumulate else 2)
+    raise KeyError(key)
 
 
 # The line kernels on the new paths (phases 16 and 17) against their plain
@@ -635,13 +706,23 @@ def all_counters():
     )
     from bubbleformer_tpu_torch.ops.lp_loss import plane_norms, plane_norms_bwd
 
-    return (mega_temporal_block, mega_temporal_block_bwd, lane_axial_attention,
+    return (*probe_counters(), mega_temporal_block, mega_temporal_block_bwd, lane_axial_attention,
             lane_axial_attention_bwd, core_temporal_attention, core_temporal_attention_bwd,
             fused_block_attention, fused_block_attention_bwd, mega_axial_block,
             mega_axial_block_bwd, fused_axial_attention_packed, fused_axial_attention_packed_bwd,
             fused_axial_attention, fused_axial_attention_bwd, flash_packed_attention,
             flash_packed_attention_bwd, plane_norms, plane_norms_bwd, lane_px_attention,
             lane_px_attention_bwd)
+
+
+def probe_counters():
+    """The probes' kernel wrappers (P1-P4), whose counters count launches
+    like the others'."""
+    from bubbleformer_tpu_torch.probes import chunk_axial, lane_axial, mosaic, pyramid
+
+    return (lane_axial.within_roll, lane_axial.lane_core, chunk_axial.dot_combos,
+            chunk_axial.perm_product, chunk_axial.chunk_core, pyramid.stage, mosaic.gram,
+            mosaic.view_copy, mosaic.chunk_gram_apply)
 
 
 def zero_counters() -> None:
@@ -1647,6 +1728,196 @@ def slice7_phases(repo: Path, dev, card: str, results: dict) -> dict:
     return runs
 
 
+# Phases 39-40: the probes' kernels (P1-P4, csrc/probe_*.cu) at each probe's
+# default shape: FiLMAViT-small's width (B = 4, T = 5, a 32x32 token grid, C =
+# 384, 6 heads of 64) for P1 and P2, the second stage of its embed pyramid
+# (20, 256, 256, 96) for P3, the layout bodies' own for P4.  Each is held to
+# its plain version on the same card tensors: bit-exact where the probe asks
+# for exactness (P2b) and for every P4 copy and P1a roll, else KERNEL_RTOL
+# by the output's working type (P2a's S, P3's statistics and P4's Gram are
+# float32 sums of exact products: 1e-4).
+PROBE_ROWS = (
+    # key, counter, source, the TPU kernel, dtype of the kernels-line row
+    ("P1a", "within_roll", "probe_lane_axial.cu", "scripts/probe_lane_axial.py:86", "bfloat16"),
+    ("P1b", "lane_core", "probe_lane_axial.cu", "scripts/probe_lane_axial.py:193", "bfloat16"),
+    ("P2a", "dot_combos", "probe_chunk_axial.cu", "scripts/probe_chunk_axial.py:83", "bfloat16"),
+    ("P2b", "perm_product", "probe_chunk_axial.cu", "scripts/probe_chunk_axial.py:124",
+     "bfloat16"),
+    ("P2c", "chunk_core", "probe_chunk_axial.cu", "scripts/probe_chunk_axial.py:260",
+     "bfloat16"),
+    ("P3", "stage", "probe_pyramid.cu", "scripts/probe_pyramid_pallas.py:103", "bfloat16"),
+    ("P4 gram", "gram", "probe_layout.cu", "scripts/probe_mosaic.py:36", "float32"),
+    ("P4 view_copy", "view_copy", "probe_layout.cu", "scripts/probe_mosaic.py:36", "float32"),
+    ("P4 chunk_gram", "chunk_gram_apply", "probe_layout.cu", "scripts/probe_mosaic.py:36",
+     "bfloat16"),
+)
+# The P4 body each P4 kernel is timed at (one call of the kernel each).
+PROBE_TIMED_BODY = {"P4 gram": "reshape_col", "P4 view_copy": "transpose_full",
+                    "P4 chunk_gram": "head_slice_dot_bf16"}
+
+
+def probe_kernel_phase(dev, results: dict) -> dict:
+    """Every probe kernel against its plain version on the card, with the
+    times of both and of the one PyTorch call that computes the same
+    function where there is one; ``results[(key, dtype)] = (max_abs_err, ms,
+    plain_ms, library_ms)``.  Returns each row's work shape."""
+    import torch
+    from bubbleformer_tpu_torch.probes import chunk_axial, lane_axial, mosaic, pyramid
+
+    def card(inputs):
+        return {k: v.to(dev) if torch.is_tensor(v) else v for k, v in inputs.items()}
+
+    def record(key, dtype, err, kernel, plain, library=None):
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        lib_ms = cuda_ms(library) if library is not None else None
+        results[(key, dtype)] = (err, ms, plain_ms, lib_ms)
+        print(f"  {key} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+              + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""), flush=True)
+
+    shapes = {}
+    rs = lane_axial.ROLL_SHAPE
+    rolls = (5, rs.W, 3 * rs.W, rs.H * rs.W)
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt).split(".")[-1]
+        x = lane_axial.within_roll_input(dt).to(dev)
+        got = lane_axial.within_roll(x, *rolls)
+
+        def plain(x=x):
+            return (lane_axial.within_roll_plain(x, *rolls[:2]),
+                    lane_axial.within_roll_plain(x, *rolls[2:]))
+
+        torch.cuda.synchronize()
+        err = max(compare(f"P1a within_roll {name} {tuple(x.shape)} roll {i}", g, r, 0.0)
+                  for i, (g, r) in enumerate(zip(got, plain())))
+        x1, x2 = x.view(rs.C, rs.T * rs.H, rs.W), x.view(rs.C, rs.T, rs.H * rs.W)
+        record("P1a", name, err, lambda x=x: lane_axial.within_roll(x, *rolls), plain,
+               lambda x1=x1, x2=x2: (torch.roll(x1, -5, 2), torch.roll(x2, -3 * rs.W, 2)))
+    shapes["P1a"] = tuple(x.shape)
+
+    args = lane_axial.parser().parse_args([])
+    inp = card(lane_axial.make_inputs(args))
+    got = lane_axial.lane_core(**inp)
+    ref = lane_axial.lane_core_plain(**inp)
+    torch.cuda.synchronize()
+    err = compare(f"P1b lane_core bfloat16 q {tuple(inp['q'].shape)}", got, ref,
+                  KERNEL_RTOL["bfloat16"])
+    record("P1b", "bfloat16", err, lambda: lane_axial.lane_core(**inp),
+           lambda: lane_axial.lane_core_plain(**inp))
+    bt, c, _ = inp["q"].shape
+    shapes["P1b"] = (bt, c, inp["h"], inp["w"], inp["heads"])
+    del inp, got, ref
+
+    x, y = (t.to(dev) for t in chunk_axial.dot_combos_input())
+    (s, pv), (s_ref, pv_ref) = chunk_axial.dot_combos(x, y), chunk_axial.dot_combos_plain(x, y)
+    torch.cuda.synchronize()
+    err = max(compare("P2a dot_combos S", s, s_ref, KERNEL_RTOL["float32"]),
+              compare("P2a dot_combos pv", pv, pv_ref, KERNEL_RTOL["bfloat16"]))
+    record("P2a", "bfloat16", err, lambda: chunk_axial.dot_combos(x, y),
+           lambda: chunk_axial.dot_combos_plain(x, y))
+    shapes["P2a"] = (chunk_axial.DOT_D, chunk_axial.DOT_CH)
+
+    x, p = (t.to(dev) for t in chunk_axial.perm_input())
+    err = compare(f"P2b perm_product {tuple(x.shape)}", chunk_axial.perm_product(x, p),
+                  chunk_axial.perm_product_plain(x, p), 0.0)
+    record("P2b", "bfloat16", err, lambda: chunk_axial.perm_product(x, p),
+           lambda: chunk_axial.perm_product_plain(x, p), lambda: torch.matmul(x, p))
+    shapes["P2b"] = tuple(x.shape)
+
+    args = chunk_axial.parser().parse_args([])
+    inp = card(chunk_axial.make_inputs(args))
+    got = chunk_axial.chunk_core(**inp)
+    ref = chunk_axial.chunk_core_plain(**inp)
+    torch.cuda.synchronize()
+    err = compare(f"P2c chunk_core bfloat16 q {tuple(inp['q'].shape)}", got, ref,
+                  KERNEL_RTOL["bfloat16"])
+    record("P2c", "bfloat16", err, lambda: chunk_axial.chunk_core(**inp),
+           lambda: chunk_axial.chunk_core_plain(**inp))
+    bt, c, n = inp["q"].shape
+    shapes["P2c"] = (bt, c, n, inp["heads"], inp["ch"])
+    del inp, got, ref
+
+    args = pyramid.parser().parse_args([])
+    inp = card(pyramid.make_inputs(args))
+    got, ref = pyramid.stage(**inp), pyramid.stage_plain(**inp)
+    torch.cuda.synchronize()
+    err = max(compare(f"P3 stage out {tuple(got[0].shape)}", got[0], ref[0],
+                      KERNEL_RTOL["bfloat16"]),
+              compare("P3 stage mu", got[1], ref[1], KERNEL_RTOL["float32"]),
+              compare("P3 stage var", got[2], ref[2], KERNEL_RTOL["float32"]))
+    record("P3", "bfloat16", err, lambda: pyramid.stage(**inp),
+           lambda: pyramid.stage_plain(**inp))
+    shapes["P3"] = (*inp["y0"].shape, inp["k"].shape[-1])
+    del inp, got, ref
+
+    errs = {}
+    for name, (_, _, shape, dt, _) in mosaic.BODIES.items():
+        key = "P4 " + mosaic.BODY_KERNEL[name].replace("_apply", "")
+        x = mosaic.body_input(name).to(dev)
+        got = mosaic.run_body(name, x)
+        ref = mosaic.run_body(name, x, mosaic.PLAIN)
+        torch.cuda.synchronize()
+        rtol = 0.0 if key == "P4 view_copy" else KERNEL_RTOL[
+            "float32" if key == "P4 gram" else str(dt).split(".")[-1]]
+        errs[key] = max(errs.get(key, 0.0),
+                        compare(f"{key} {name} {tuple(shape)}", got, ref, rtol))
+    for key, name in PROBE_TIMED_BODY.items():
+        x = mosaic.body_input(name).to(dev)
+        library = {"P4 gram": lambda x=x: torch.matmul(x.view(-1, mosaic.D), x.view(-1, mosaic.D).t()),
+                   "P4 view_copy": lambda x=x: x.permute(1, 0, 2).contiguous()}.get(key)
+        record(key, str(x.dtype).split(".")[-1], errs[key],
+               lambda x=x, name=name: mosaic.run_body(name, x),
+               lambda x=x, name=name: mosaic.run_body(name, x, mosaic.PLAIN), library)
+        shapes[key] = {"P4 gram": (x.numel() // mosaic.D, mosaic.D),
+                       "P4 view_copy": (x.numel(), False),
+                       "P4 chunk_gram": (x.numel(), mosaic.CHUNK * mosaic.W, False)}[key]
+    return shapes
+
+
+def probe_cli_phase() -> dict:
+    """The four probe CLIs through their ``main`` on the card at their
+    default flags, each run with every launch counter set to 0 just before
+    and read just after: each probe's checks pass and each of its kernels
+    launched, no other.  Returns the launches by counter."""
+    from bubbleformer_tpu_torch.probes import chunk_axial, lane_axial, mosaic, pyramid
+
+    launches = {}
+    for module, kernels in ((lane_axial, ("within_roll", "lane_core")),
+                            (chunk_axial, ("dot_combos", "perm_product", "chunk_core")),
+                            (pyramid, ("stage",)),
+                            (mosaic, ("gram", "view_copy", "chunk_gram_apply"))):
+        label = module.__name__.rsplit(".", 1)[-1]
+        print(f"  -- scripts/probe_{label}_torch.py (probes/{label}.py main)", flush=True)
+        zero_counters()
+        out = module.main([])
+        got = read_counters()
+        if module is mosaic:
+            failed = [n for n, (ok, _) in out.items() if not ok]
+        else:  # the pyramid probe asserts its agreement itself
+            failed = [n for n, ok in out.items() if module is not pyramid and n != "bench"
+                      and not ok]
+            line = out if module is pyramid else out["bench"]
+            ms = [v for k, v in line.items() if k.endswith("ms_per_call") or k.endswith("_fwd_ms")]
+            if not ms or not all(isinstance(v, float) and v > 0 for v in ms):
+                fail(f"probe {label}: no card time in its JSON line {line}")
+        if failed:
+            fail(f"probe {label}: {failed} failed")
+        if any(got[k] == 0 for k in kernels) or any(v for k, v in got.items() if k not in kernels):
+            fail(f"probe {label}: launches {got}, expected each of {kernels} and nothing else")
+        launches.update({k: got[k] for k in kernels})
+        print(f"  probe {label}: launches {({k: got[k] for k in kernels})}", flush=True)
+    return launches
+
+
+def slice8_phases(dev, results: dict) -> tuple:
+    """Phases 39-40: the probes' kernels against their plain versions, then
+    the four probe CLIs on the card.  Returns (work shapes, launches)."""
+    print("== phase 39: the probes' kernels (P1-P4) vs plain at the probes' default shapes",
+          flush=True)
+    shapes = probe_kernel_phase(dev, results)
+    print("== phase 40: the probe CLIs on the card (scripts/probe_*_torch.py)", flush=True)
+    return shapes, probe_cli_phase()
+
+
 def main() -> None:
     try:
         import torch
@@ -2370,6 +2641,23 @@ def main() -> None:
     print(f"  remat step (float32, AViT-small {FLOW_HEIGHT}x{FLOW_WIDTH}, K3 and K9, batch 1): "
           f"dots vs off gradients {rf['dots']['grads_rel']:.2e}, off repeated "
           f"{rf['spread']['grads_rel']:.2e}")
+    # This slice's kernels: the probes' (P1-P4), their launches from the
+    # four probe CLIs' runs.
+    t0 = time.perf_counter()
+    probe_shapes, probe_launches = slice8_phases(dev, results)
+    for key, counter, source, replaces, dt in PROBE_ROWS:
+        err, ms, plain_ms, lib_ms = results[(key, dt)]
+        bound_ms, bound_by = bound(*kernel_work(key, probe_shapes[key], dt), dt)
+        kernels.append({"name": counter, "route": "cuda",
+                        "source": "bubbleformer_tpu_torch/csrc/" + source, "replaces": replaces,
+                        "launches": probe_launches[counter], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": lib_ms})
+        print(f"  {counter} ({key}) {probe_shapes[key]} {dt}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})"
+              + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
+              + f"; launches in its probe's run {probe_launches[counter]}")
+    print(f"  phases 39-40 took {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

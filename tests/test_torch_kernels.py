@@ -28,6 +28,7 @@ to the same, gradient by gradient (``tests/_torch_grads.py``): their float32
 sums are also reordered by atomics from run to run.
 """
 import re
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -97,6 +98,7 @@ from bubbleformer_tpu_torch.ops.temporal_block_mega import (
     temporal_branch_bwd_plain,
     temporal_branch_plain,
 )
+from bubbleformer_tpu_torch.probes import chunk_axial, lane_axial, mosaic, pyramid
 from tests._torch_grads import check_grads
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -916,3 +918,227 @@ def test_k9_raises_outside_its_envelope_on_card(cuda_device):
         args = _px_args(shape, heads, 55, device=cuda_device)
         with pytest.raises(ValueError, match=re.escape(str(tuple(shape)))):
             lane_px_attention(**args, heads=heads)
+
+
+# ------------------------------------------------------ the probes (P1-P4)
+# Each probe kernel against its plain version: on the CPU the wrapper is the
+# plain version and counts nothing; on the card at the probe's default shape
+# and at a small or ragged one.  Rolls, the 0/1 permutation product and
+# every P4 copy are bit-exact; the float32 Gram and statistics within 1e-4
+# (summation order), bfloat16 outputs within 2e-2 (TOL).
+
+
+def _probe_small_inputs(seed):
+    """Small inputs of every probe kernel (float32, CPU)."""
+    rng = np.random.default_rng(seed)
+
+    def n(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(np.float32))
+
+    heads, d, h, w, bt, ch = 2, 16, 8, 12, 3, 32
+    c = heads * d
+    lane = dict(q=n(bt, c, h * w), kv=n(bt, 2 * c, h * w), bx=n(w * heads, h * w, scale=0.1),
+                by=n(h * heads, h * w, scale=0.1),
+                sc=torch.from_numpy(rng.uniform(0.5, 1.5, (c, 2)).astype(np.float32)),
+                heads=heads, h=h, w=w)
+    args = SimpleNamespace(batch=1, tw=bt, grid=8, embed_dim=c, heads=heads, chunk=ch)
+    chunk = {k: (v.float() if torch.is_tensor(v) else v)
+             for k, v in chunk_axial.make_inputs(args).items()}
+    stage = dict(y0=n(bt, 10, 14, 8), mean=n(bt, 8, scale=0.1),
+                 inv=torch.from_numpy(rng.uniform(0.8, 1.2, (bt, 8)).astype(np.float32)),
+                 k=n(2, 2, 8, 24, scale=0.05))
+    perm = torch.from_numpy(np.eye(200, dtype=np.float32)[rng.permutation(200)])
+    return lane, chunk, stage, (n(100, 200), perm)
+
+
+def test_probe_wrappers_take_plain_versions_on_cpu():
+    lane, chunk, stage, (x, p) = _probe_small_inputs(60)
+    counters = (lane_axial.within_roll, lane_axial.lane_core, chunk_axial.dot_combos,
+                chunk_axial.perm_product, chunk_axial.chunk_core, pyramid.stage, mosaic.gram,
+                mosaic.view_copy, mosaic.chunk_gram_apply)
+    before = [f.launches for f in counters]
+    r = lane_axial.within_roll(lane["q"][0], 5, 12, 24, 96)
+    assert torch.equal(r[1], lane_axial.within_roll_plain(lane["q"][0], 24, 96))
+    torch.testing.assert_close(lane_axial.lane_core(**lane), lane_axial.lane_core_plain(**lane),
+                               rtol=0, atol=0)
+    xs = chunk_axial.dot_combos_input()
+    for g, want in zip(chunk_axial.dot_combos(*xs), chunk_axial.dot_combos_plain(*xs)):
+        assert torch.equal(g, want)
+    assert torch.equal(chunk_axial.perm_product(x, p), chunk_axial.perm_product_plain(x, p))
+    assert torch.equal(chunk_axial.chunk_core(**chunk), chunk_axial.chunk_core_plain(**chunk))
+    for g, want in zip(pyramid.stage(**stage), pyramid.stage_plain(**stage)):
+        assert torch.equal(g, want)
+    for name in mosaic.BODIES:
+        xb = mosaic.body_input(name)
+        assert torch.equal(mosaic.run_body(name, xb), mosaic.run_body(name, xb, mosaic.PLAIN))
+    assert [f.launches for f in counters] == before
+
+
+def test_probe_wrappers_raise_on_other_devices():
+    lane, chunk, stage, (x, p) = _probe_small_inputs(61)
+    meta = {k: v.to("meta") if torch.is_tensor(v) else v for k, v in lane.items()}
+    with pytest.raises(ValueError, match="unsupported device"):
+        lane_axial.lane_core(**meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        chunk_axial.perm_product(x.to("meta"), p.to("meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        pyramid.stage(**{k: v.to("meta") for k, v in stage.items()})
+    with pytest.raises(ValueError, match="unsupported device"):
+        mosaic.gram(x.to("meta"))
+
+
+def _card(inputs, dev, dtype=None, slabs=()):
+    return {k: (v.to(dev, dtype) if torch.is_tensor(v) and k in slabs else
+                v.to(dev) if torch.is_tensor(v) else v) for k, v in inputs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_p1a_within_roll_is_exact_on_card(cuda_device, dtype):
+    """The probe's slab and a ragged one (rows 7 of 3 x 40 lanes)."""
+    s = lane_axial.ROLL_SHAPE
+    cases = [(lane_axial.within_roll_input(dtype), (5, s.W, 3 * s.W, s.H * s.W)),
+             (torch.randn(7, 120, generator=torch.Generator().manual_seed(62)).to(dtype),
+              (7, 40, 0, 120))]
+    for x, rolls in cases:
+        x = x.to(cuda_device)
+        before = lane_axial.within_roll.launches
+        got = lane_axial.within_roll(x, *rolls)
+        assert lane_axial.within_roll.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], lane_axial.within_roll_plain(x, *rolls[:2]))
+        assert torch.equal(got[1], lane_axial.within_roll_plain(x, *rolls[2:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "small_f32", "small_bf16"])
+def test_p1b_lane_core_matches_plain_on_card(cuda_device, case):
+    """The probe's default inputs (bf16, 20 frames of 32x32 tokens, C =
+    384) and an 8x12 grid with 2 heads of 16 in both types."""
+    if case == "default":
+        inp = _card(lane_axial.make_inputs(lane_axial.parser().parse_args([])), cuda_device)
+        dtype = torch.bfloat16
+    else:
+        dtype = torch.float32 if case == "small_f32" else torch.bfloat16
+        inp = _card(_probe_small_inputs(63)[0], cuda_device, dtype, ("q", "kv"))
+    before = lane_axial.lane_core.launches
+    got = lane_axial.lane_core(**inp)
+    assert lane_axial.lane_core.launches == before + 1 and got.dtype == dtype
+    _close(got, lane_axial.lane_core_plain(**inp), dtype)
+
+
+@pytest.mark.cuda
+def test_p2a_dot_combos_matches_plain_on_card(cuda_device):
+    """The probe's slabs, and slices of d = 16, 32 tokens of (40, 64) slabs."""
+    g = torch.Generator().manual_seed(64)
+    for (x, y), d, ch in ((chunk_axial.dot_combos_input(), 64, 128),
+                          ((torch.randn(40, 64, generator=g).bfloat16(),
+                            torch.randn(40, 64, generator=g).bfloat16()), 16, 32)):
+        x, y = x.to(cuda_device), y.to(cuda_device)
+        s, pv = chunk_axial.dot_combos(x, y, d, ch)
+        s_ref, pv_ref = chunk_axial.dot_combos_plain(x, y, d, ch)
+        _close(s, s_ref, torch.float32)
+        _close(pv, pv_ref, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_p2b_perm_product_is_exact_on_card(cuda_device):
+    """The probe's (384, 1024) slab and 32x32 grid permutation, and a random
+    0/1 permutation of 200 lanes on 100 rows (ragged tiles)."""
+    _, _, _, (x, p) = _probe_small_inputs(65)
+    for x, p in (chunk_axial.perm_input(), (x.bfloat16(), p.bfloat16())):
+        x, p = x.to(cuda_device), p.to(cuda_device)
+        before = chunk_axial.perm_product.launches
+        got = chunk_axial.perm_product(x, p)
+        assert chunk_axial.perm_product.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, chunk_axial.perm_product_plain(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "small"])
+def test_p2c_chunk_core_matches_plain_on_card(cuda_device, case):
+    """The probe's default inputs, and 2 heads of 16 on an 8x8 grid with
+    chunks of 32 (bf16: the kernels take bf16 only)."""
+    if case == "default":
+        inp = _card(chunk_axial.make_inputs(chunk_axial.parser().parse_args([])), cuda_device)
+    else:
+        inp = _card(_probe_small_inputs(66)[1], cuda_device, torch.bfloat16, ("q", "kv", "perm"))
+    before = chunk_axial.chunk_core.launches
+    got = chunk_axial.chunk_core(**inp)
+    assert chunk_axial.chunk_core.launches == before + 1
+    _close(got, chunk_axial.chunk_core_plain(**inp), torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "ragged"])
+def test_p3_stage_matches_plain_on_card(cuda_device, case):
+    """The probe's (20, 256, 256, 96) stage, and 3 images of 10x14 pixels,
+    8 channels in and 24 out (a ragged last tile)."""
+    if case == "default":
+        inp = _card(pyramid.make_inputs(pyramid.parser().parse_args([])), cuda_device)
+    else:
+        inp = _card(_probe_small_inputs(67)[2], cuda_device, torch.bfloat16, ("y0", "k"))
+    before = pyramid.stage.launches
+    got = pyramid.stage(**inp)
+    assert pyramid.stage.launches == before + 1
+    want = pyramid.stage_plain(**inp)
+    _close(got[0], want[0], torch.bfloat16)
+    _close(got[1], want[1], torch.float32)
+    _close(got[2], want[2], torch.float32)
+    again = pyramid.stage(**inp)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])  # fixed order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(mosaic.BODIES))
+def test_p4_bodies_match_plain_on_card(cuda_device, name):
+    x = mosaic.body_input(name).to(cuda_device)
+    got = mosaic.run_body(name, x)
+    want = mosaic.run_body(name, x, mosaic.PLAIN)
+    torch.cuda.synchronize()
+    kernel = mosaic.BODY_KERNEL[name]
+    if kernel == "view_copy":
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, torch.float32 if kernel == "gram" else x.dtype)
+    assert getattr(mosaic, f"probe_{name}")(cuda_device)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_p4_kernels_take_strided_ragged_views_on_card(cuda_device, dtype):
+    """A Gram of a (70, 40) column slice of a transposed tensor, an
+    accumulating copy between two strided views, and the per-chunk products
+    over (2, 8, 12, 3, 16) by rows and by columns."""
+    g = torch.Generator().manual_seed(68)
+    big = torch.randn(50, 90, generator=g).to(cuda_device, dtype)
+    a = big.t()[:70, 5:45]
+    assert not a.is_contiguous()
+    _close(mosaic.gram(a), mosaic.gram_plain(a), torch.float32)
+    src = torch.randn(6, 7, 5, generator=g).to(cuda_device, dtype).permute(2, 0, 1)
+    dst = torch.randn(5, 12, 7, generator=g).to(cuda_device, dtype)[:, ::2]
+    want = mosaic.view_copy_plain(src, dst.clone(), 1.5, accumulate=True)
+    assert torch.equal(mosaic.view_copy(src, dst, 1.5, accumulate=True), want)
+    x = torch.randn(2, 8, 12, 3, 16, generator=g).to(cuda_device, dtype)
+    for axis, chunk in ((1, 4), (2, 6)):
+        got = mosaic.chunk_gram_apply(x, torch.ones_like(x), axis, chunk, accumulate=True)
+        want = mosaic.chunk_gram_apply_plain(x, torch.ones_like(x), axis, chunk, accumulate=True)
+        _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_probe_kernels_raise_outside_their_envelope_on_card(cuda_device):
+    lane, chunk, stage, _ = _probe_small_inputs(69)
+    long = dict(_card(lane, cuda_device), q=torch.zeros(1, 32, 130 * 2, device=cuda_device),
+                kv=torch.zeros(1, 64, 260, device=cuda_device),
+                bx=torch.zeros(260, 260, device=cuda_device),
+                by=torch.zeros(4, 260, device=cuda_device), h=2, w=130)
+    with pytest.raises(ValueError, match="lines of at most"):
+        lane_axial.lane_core(**long)
+    with pytest.raises(TypeError, match="bfloat16"):
+        chunk_axial.chunk_core(**_card(chunk, cuda_device))  # float32
+    with pytest.raises(ValueError, match="output channels"):
+        pyramid.stage(**dict(_card(stage, cuda_device, torch.bfloat16, ("y0", "k")),
+                             k=torch.zeros(2, 2, 8, 200, device=cuda_device,
+                                           dtype=torch.bfloat16)))
