@@ -36,16 +36,20 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _LP = ctypes.POINTER(ctypes.c_longlong)  # a host array of int64 (shapes, strides)
+_IP = ctypes.POINTER(ctypes.c_int)  # a host array of int32 (split-K token bounds)
+_FP = ctypes.POINTER(ctypes.c_float)  # a host array of float32 (per-launch milliseconds)
 _SIGNATURES = {
     # dtype, head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout,
-    # bout, bias, scale, stats1, qkv, ao, ao_r, stats2, out, B, T, N, C, heads,
-    # stream
-    "bf_temporal_block_fwd": [_I] * 2 + [_P] * 18 + [_I] * 5 + [_P],
+    # bout, bias, scale, stats1, qkv, ao, ao_r, stats2, out, xs, launch_ms, B,
+    # T, N, C, heads, stream
+    "bf_temporal_block_fwd": [_I] * 2 + [_P] * 19 + [_FP] + [_I] * 5 + [_P],
     # dtype, head_dim, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b,
     # wout_t, bias, scale, stats1, ao_r, stats2, work, sums, dqkv, dx, din1,
-    # dwqkv, dbqkv, dln, din2, dwout, dbout, dbias, dscale, B, T, N, C, heads,
-    # stream
-    "bf_temporal_block_bwd": [_I] * 2 + [_P] * 28 + [_I] * 5 + [_P],
+    # dwqkv, dbqkv, dln, din2, dwout, dbout, dbias, dscale, xs, part, plan_out,
+    # splits_out, plan_qkv, splits_qkv, launch_ms, B, T, N, C, heads, stream
+    "bf_temporal_block_bwd": [_I] * 2 + [_P] * 30 + [_IP, _I, _IP, _I, _FP] + [_I] * 5 + [_P],
+    # tn, epilogue, a, b, out, bias, part, M, N, K, bounds, splits, stream
+    "bf_hopper_gemm": [_I] * 2 + [_P] * 5 + [_I] * 3 + [_IP, _I, _P],
     # dtype, head_dim, xn, wqkv, bqkv, ln, bias, scale, ao, B, T, N, C, heads,
     # stream
     "bf_core_temporal_fwd": [_I] * 2 + [_P] * 7 + [_I] * 5 + [_P],
@@ -209,6 +213,27 @@ def check_shapes(what: str, **tensors) -> None:
     for name, (t, shape) in tensors.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def check_tma(what: str, **tensors) -> None:
+    """Raise unless each named tensor can be a source of the Hopper GEMM's
+    TMA loads (or of the 16-byte vector loads beside them): contiguous, its
+    base 16-byte aligned and its rows a multiple of 16 bytes."""
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} of shape {tuple(t.shape)} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} starts at {t.data_ptr():#x}, which is not "
+                             "16-byte aligned (TMA needs it)")
+        if t.shape[-1] * t.element_size() % 16:
+            raise ValueError(f"{what}: {name} has rows of {t.shape[-1] * t.element_size()} "
+                             "bytes, not a multiple of 16 (TMA needs it)")
+
+
+def int32_array(values) -> ctypes.Array:
+    """A host array of int32, as the C entries take split-K token bounds."""
+    values = list(values)
+    return (ctypes.c_int * len(values))(*values)
 
 
 def int64_array(values) -> ctypes.Array:

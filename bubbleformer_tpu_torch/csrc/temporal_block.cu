@@ -12,7 +12,24 @@
 //
 // Split.  The TPU kernel held a whole (C, T*N) image slab in VMEM; the
 // InstanceNorm statistics span all N tokens of a (b, t) plane, which no SM
-// can hold, so the branch runs as four launches:
+// can hold, so the branch runs as a chain of launches.
+//
+// bf16 (the training dtype) runs K1's math on Hopper's own units
+// (run_temporal_block_hopper): IN1's statistics (plane_stats_kernel), xn =
+// bf16(IN1(x)) written once (in_norm_kernel, temporal_hopper.cuh), the QKV
+// product on the hand-written TMA + wgmma GEMM (hopper_gemm.cuh) with the
+// bias added and the rounded qkv stored (the backward's residual), the
+// attention pass (temporal_attention_kernel: qk-LN, T x T softmax with the
+// T5 bias and the blend, writing ao in float32 and rounded), IN2's
+// statistics of the float32 ao, y2 = bf16(IN2(ao)), and the output product
+// on the GEMM with (gamma W_out, gamma b_out).  What bounds it at
+// FiLMAViT-small's training shape (B=8, T=5, 32x32 tokens, C=384): 48.3
+// GFLOP of products (0.05 ms at the bf16 peak) against ~0.63 GB of traffic
+// (0.19 ms): bytes.  The products run at a quarter to a half of the tensor
+// cores' peak; the passes around them at about a third of the memory rate.
+//
+// float32 keeps the first version's four launches (run_temporal_block),
+// its products on block_gemm.cuh's FMA tile (no TF32):
 //   (a) plane_stats_kernel (block_ops.cuh): per-(b, t, c) mean and rstd of x
 //       over N (IN1);
 //   (b) qkv_attention_kernel: one block per (16 spatial positions x all T
@@ -26,26 +43,15 @@
 //   (c) plane_stats_kernel over ao (IN2);
 //   (d) norm_proj_kernel (block_ops.cuh): IN2 apply, multiply by
 //       (W_out * gamma), add (b_out * gamma).
-// Rounding follows the TPU kernel (temporal_block_mega.py:246-266): xn, qkv,
-// q/k (after LN) and v, y2 and out are rounded to the activation dtype; ao
-// and every statistic stay float32.
-//
-// What bounds it at the slice shape (B=1, T=5, 32x32 tokens, C=384, 6 heads,
-// per block per window): the QKV product is ~4.5 GFLOP and the output
-// product ~1.5 GFLOP; activations are ~4 MB in bf16 (x, out) plus 7.9 MB of
-// f32 ao scratch, and 3.9 MB of bf16 ao and 11.8 MB of bf16 qkv kept for the
-// backward.  Both products run in
-// bf16 on the tensor cores through WMMA (16x16x16, f32 accumulate) and in
-// float32 as an FMA loop; at these sizes the kernel is bound by latency and
-// the x re-reads (each head group's block of a tile normalises the same x
-// rows), not by either roofline.  Left for later: wgmma/TMA pipelining, one
-// block for all heads of a tile (x read once), keeping ao on chip (a
-// thread-block cluster holding a whole plane) instead of its f32 round trip
-// through device memory.
+// Rounding follows the TPU kernel (temporal_block_mega.py:246-266) in both:
+// xn, qkv, q/k (after LN) and v, y2 and out are rounded to the activation
+// dtype; ao and every statistic stay float32.
 #include <cmath>
 
 #include "block_ops.cuh"
 #include "common.cuh"
+#include "hopper_gemm.cuh"
+#include "temporal_hopper.cuh"
 
 namespace bft {
 namespace {
@@ -347,6 +353,45 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
                                     static_cast<T*>(out), G, N, C, C, stream);
 }
 
+// K1's bf16 forward as a chain of launches, its two products on the Hopper
+// GEMM (hopper_gemm.cuh), rounding where the TPU kernel rounds:
+//   (a)  plane_stats: IN1's statistics of x;
+//   (a') in_norm: xn = bf16(IN1(x)) into the scratch xs;
+//   (b1) gemm_nt: qkv = bf16(xn . W_qkv^T + b_qkv), the backward's residual;
+//   (b2) temporal_attention: qk-LN, T x T softmax, blend: ao (float32) and
+//        ao_r (bf16);
+//   (c)  plane_stats: IN2's statistics of the float32 ao;
+//   (d') in_norm: y2 = bf16(IN2(ao)) into xs;
+//   (d)  gemm_nt: out = bf16(y2 . (gamma W_out)^T + gamma b_out).
+// launch_ms, when given, receives each launch's device time (LaunchTimer).
+template <int D>
+int run_temporal_block_hopper(const __nv_bfloat16* x, const float* in1_w, const float* in1_b,
+                              const __nv_bfloat16* wqkv, const float* bqkv, const float* ln,
+                              const float* in2_w, const float* in2_b, const __nv_bfloat16* wout,
+                              const float* bout, const float* bias, const float* scale,
+                              float* stats1, __nv_bfloat16* qkv, float* ao, __nv_bfloat16* ao_r,
+                              float* stats2, __nv_bfloat16* out, __nv_bfloat16* xs, int B,
+                              int steps, int N, int C, int heads, cudaStream_t stream,
+                              float* launch_ms) {
+  const int G = B * steps, R = G * N;
+  LaunchTimer timer(launch_ms, stream);
+  cudaError_t e;
+#define BFT_TRY(call)                           \
+  if ((e = (call)) != cudaSuccess) return e;    \
+  timer.mark()
+  BFT_TRY(launch_plane_stats<__nv_bfloat16>(x, G, N, C, stats1, stream));
+  BFT_TRY(launch_in_norm(x, stats1, in1_w, in1_b, xs, G, N, C, stream));
+  BFT_TRY(hg::gemm_nt<hg::kBiasRound>(xs, C, wqkv, C, R, 3 * C, C, qkv, 3 * C, bqkv, stream));
+  BFT_TRY(launch_temporal_attention<D>(qkv, ln, bias, scale, ao, ao_r, B, steps, N, C, heads,
+                                       stream));
+  BFT_TRY(launch_plane_stats<float>(ao, G, N, C, stats2, stream));
+  BFT_TRY(launch_in_norm(static_cast<const float*>(ao), stats2, in2_w, in2_b, xs, G, N, C,
+                         stream));
+  BFT_TRY(hg::gemm_nt<hg::kBiasRound>(xs, C, wout, C, R, C, C, out, C, bout, stream));
+#undef BFT_TRY
+  return timer.finish();
+}
+
 // K3: qkv_attention_kernel alone, on the IN1 output, ao in dtype.
 template <typename T, int D>
 int run_core_temporal(const void* xn, const void* wqkv, const float* bqkv, const float* ln,
@@ -380,25 +425,40 @@ bool temporal_shape_ok(int head_dim, int steps, int N, int C, int heads) {
 // bias (heads, T, T); scale (heads,).  Also written: the float32 scratch of
 // IN2, ao (B*T*N, C) and stats2 (2, B*T, C); and for the backward stats1 (2,
 // B*T, C) in float32, ao_r (B*T*N, C) (ao rounded) and the rounded raw qkv
-// (B*T*N, 3C) in dtype.  head_dim 16 (heads a multiple of 3) or 64,
-// T <= 8, N % 16 == 0 and C % 32 == 0.  Returns a cudaError_t.
+// (B*T*N, 3C) in dtype.  bf16 runs the launch chain above (xs: a (B*T*N, C)
+// bf16 scratch; every base 16-byte aligned); float32 runs launches (a)-(d)
+// on block_gemm.cuh's FMA tile (xs unused; launch_ms must be null).
+// launch_ms: null, or a host array of 7 floats for the bf16 chain's
+// per-launch milliseconds (the call then waits for the card).  head_dim 16
+// (heads a multiple of 3) or 64, T <= 8, N % 16 == 0 and C % 32 == 0.
+// Returns a cudaError_t.
 extern "C" int bf_temporal_block_fwd(int dtype, int head_dim, const void* x, const float* in1_w,
                                      const float* in1_b, const void* wqkv, const float* bqkv,
                                      const float* ln, const float* in2_w, const float* in2_b,
                                      const void* wout, const float* bout, const float* bias,
                                      const float* scale, float* stats1, void* qkv, float* ao,
-                                     void* ao_r, float* stats2, void* out, int B, int steps,
-                                     int N, int C, int heads, void* stream) {
+                                     void* ao_r, float* stats2, void* out, void* xs,
+                                     float* launch_ms, int B, int steps, int N, int C, int heads,
+                                     void* stream) {
   if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
+#define BFT_RUN(D)                                                                              \
+  return bft::run_temporal_block_hopper<D>(                                                     \
+      static_cast<const bf16*>(x), in1_w, in1_b, static_cast<const bf16*>(wqkv), bqkv, ln,      \
+      in2_w, in2_b, static_cast<const bf16*>(wout), bout, bias, scale, stats1,                  \
+      static_cast<bf16*>(qkv), ao, static_cast<bf16*>(ao_r), stats2, static_cast<bf16*>(out),   \
+      static_cast<bf16*>(xs), B, steps, N, C, heads, s, launch_ms)
+  if (dtype == bft::kBF16 && head_dim == 64) BFT_RUN(64);
+  if (dtype == bft::kBF16 && head_dim == 16) BFT_RUN(16);
+#undef BFT_RUN
+  if (launch_ms != nullptr) return cudaErrorInvalidValue;
 #define BFT_RUN(T, D)                                                                           \
   return bft::run_temporal_block<T, D>(x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout, bout, \
                                        bias, scale, stats1, qkv, ao, ao_r, stats2, out, B,      \
                                        steps, N, C, heads, s)
   if (dtype == bft::kF32 && head_dim == 64) BFT_RUN(float, 64);
   if (dtype == bft::kF32 && head_dim == 16) BFT_RUN(float, 16);
-  if (dtype == bft::kBF16 && head_dim == 64) BFT_RUN(__nv_bfloat16, 64);
-  if (dtype == bft::kBF16 && head_dim == 16) BFT_RUN(__nv_bfloat16, 16);
 #undef BFT_RUN
   return cudaErrorInvalidValue;
 }

@@ -13,7 +13,13 @@
 // Split.  The InstanceNorm backward needs plane-wide means of dy and
 // dy * xhat over all N tokens of a (b, t) plane, and every parameter
 // gradient is a sum over all B*T*N tokens, so the TPU kernel's one grid
-// step per image becomes eleven launches on one stream:
+// step per image becomes a chain of launches on one stream.  bf16 (the
+// training dtype) runs run_temporal_block_bwd_hopper below: its four
+// products on the hand-written TMA + wgmma GEMM (hopper_gemm.cuh), the
+// weight gradients split over tokens and their partials added in a fixed
+// order (bit for bit from run to run), the attention pass one (position,
+// head) per lane group (temporal_hopper.cuh).  float32 keeps the first
+// version's eleven launches:
 //   (0) plane_stats:   IN2's statistics again, from the rounded ao
 //   (1) gemm_nt:       dy2 = do . W_out                       (float32 scratch)
 //   (2) wgrad:         dW_out += do^T . y2, y2 = IN2(ao) recomputed while staged
@@ -32,13 +38,11 @@
 //   (8) gemm_nt:       dxn = dqkv . W_qkv                     (float32 scratch)
 //   (9) plane_sums:    per plane sum dxn and sum dxn * xhat1; d(in1 scale, bias)
 //   (10) in_apply:     dx = rstd1 * w1 * (dxn - mean(dxn) - xhat1 mean(dxn xhat1))
-// The four products the TPU kernel computes in VMEM (dy2, dW_out, dxn,
-// dW_qkv) run on block_gemm.cuh's tile: WMMA for bf16, FMA for float32; they
-// and the sums are block_ops.cuh's, which K5 shares.
-// Reductions across blocks are float32 atomicAdd into zeroed outputs (the
-// weight gradients split the token axis into ~32 chunks per tile), so their
-// last bits vary from run to run; a second, ordered pass would fix them at
-// the price of a partial buffer per chunk.
+// There the four products run on block_gemm.cuh's FMA tile; they and the
+// sums are block_ops.cuh's, which K3 and K5 share.  Reductions across blocks
+// are float32 atomicAdd into zeroed outputs (the weight gradients split the
+// token axis into ~32 chunks per tile), so their last bits vary from run to
+// run.
 //
 // Rounding follows the TPU kernel (temporal_block_mega.py:324-449): dao,
 // s*dao and the raw-component dqkv in the activation dtype, dx returned in
@@ -51,16 +55,18 @@
 // values, for 4.5 of 16.6 GFLOP less per block at batch 1 and one residual
 // of B*T*N*3C activation-dtype values more.
 //
-// What bounds it at the rollout shape (B=1, T=5, 32x32 tokens, C=384, 6
-// heads): ~12.1 GFLOP (dy2 and dW_out 1.5 each, dxn and dW_qkv 4.5 each)
-// against ~35 MB of bf16/f32 traffic, so the tensor cores bound it; this
-// first version is bound by its simple staging (no cp.async or wgmma,
-// transposed loads for the weight gradients) and the float32 dy2/dxn round
-// trips.
+// What bounds it at FiLMAViT-small's training shape (B=8, T=5, 32x32
+// tokens, C=384, 6 heads): 96.6 GFLOP of products (dy2 and dW_out 12.1
+// each, dxn and dW_qkv 36.2 each; 0.10 ms at the bf16 peak) against ~1.3 GB
+// that the bf16 chain's launches move (0.39 ms at 3.35 TB/s): bytes.  The
+// attention pass is its largest launch, then the products and the float32
+// dy2/dxn round trips.
 #include <cmath>
 
 #include "block_ops.cuh"
 #include "common.cuh"
+#include "hopper_gemm.cuh"
+#include "temporal_hopper.cuh"
 
 namespace bft {
 namespace {
@@ -378,6 +384,71 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
   return cudaSuccess;
 }
 
+// K1's bf16 backward: the launches of run_temporal_block_bwd with its four
+// products on the Hopper GEMM (hopper_gemm.cuh) and the normalised operand
+// of each weight gradient written once in bf16 before it, as the forward
+// rounded it:
+//   (0)  plane_stats:   IN2's statistics of the rounded ao
+//   (1)  gemm_nt:       dy2 = do . W_out                    (float32 work)
+//   (2)  in_norm:       y2 = bf16(IN2(ao)) into the scratch xs
+//   (3)  gemm_tn:       dW_out = do^T . y2, split-K over tokens (plan_out),
+//                       partials added in range order
+//   (4)  plane_sums:    db_out
+//   (5)  plane_sums:    IN2 backward sums; d(in2 scale, bias)
+//   (6)  temporal_attention_bwd (temporal_hopper.cuh): dqkv, dln, dbias,
+//        dscale, from the IN2 backward of dy2 at the rounded ao
+//   (7)  in_norm:       xn = bf16(IN1(x)) into xs
+//   (8)  gemm_tn:       dW_qkv = dqkv^T . xn, split-K (plan_qkv)
+//   (9)  plane_sums:    db_qkv
+//   (10) gemm_nt:       dxn = dqkv . W_qkv                  (float32 work)
+//   (11) plane_sums:    IN1 backward sums; d(in1 scale, bias)
+//   (12) in_apply:      dx
+// The weight gradients repeat bit for bit from run to run; the bias, norm,
+// table and scale gradients are float32 atomic sums as before.  launch_ms,
+// when given, receives each launch's device time.
+template <int D>
+int run_temporal_block_bwd_hopper(
+    const __nv_bfloat16* x, const __nv_bfloat16* dout, const __nv_bfloat16* qkv,
+    const float* in1_w, const float* in1_b, const __nv_bfloat16* wqkv_t, const float* ln,
+    const float* in2_w, const float* in2_b, const __nv_bfloat16* wout_t, const float* bias,
+    const float* scale, const float* stats1, const __nv_bfloat16* ao, float* stats2,
+    float* work, float* sums, __nv_bfloat16* dqkv, __nv_bfloat16* dx, float* din1, float* dwqkv,
+    float* dbqkv, float* dln, float* din2, float* dwout, float* dbout, float* dbias,
+    float* dscale, __nv_bfloat16* xs, float* part, const int* plan_out, int splits_out,
+    const int* plan_qkv, int splits_qkv, int B, int steps, int N, int C, int heads,
+    cudaStream_t stream, float* launch_ms) {
+  using bf16 = __nv_bfloat16;
+  const int G = B * steps, R = G * N;
+  LaunchTimer timer(launch_ms, stream);
+  cudaError_t e;
+#define BFT_TRY(call)                        \
+  if ((e = (call)) != cudaSuccess) return e; \
+  timer.mark()
+  BFT_TRY((launch_plane_stats<bf16>(ao, G, N, C, stats2, stream)));
+  BFT_TRY((hg::gemm_nt<hg::kStoreF32>(dout, C, wout_t, C, R, C, C, work, C, nullptr, stream)));
+  BFT_TRY((launch_in_norm(ao, stats2, in2_w, in2_b, xs, G, N, C, stream)));
+  BFT_TRY((hg::gemm_tn_splitk(dout, xs, R, C, C, plan_out, splits_out, part, dwout, stream)));
+  BFT_TRY((launch_plane_sums<bf16, float>(dout, nullptr, nullptr, G, N, C, nullptr, nullptr,
+                                          dbout, stream)));
+  BFT_TRY((launch_plane_sums<float, bf16>(work, ao, stats2, G, N, C, sums, din2, din2 + C,
+                                          stream)));
+  BFT_TRY((launch_temporal_attention_bwd<D>(qkv, ln, bias, scale, work, ao, stats2, in2_w, sums,
+                                            dqkv, dln, dbias, dscale, B, steps, N, C, heads,
+                                            stream)));
+  BFT_TRY((launch_in_norm(x, stats1, in1_w, in1_b, xs, G, N, C, stream)));
+  BFT_TRY((hg::gemm_tn_splitk(dqkv, xs, R, 3 * C, C, plan_qkv, splits_qkv, part, dwqkv,
+                              stream)));
+  BFT_TRY((launch_plane_sums<bf16, float>(dqkv, nullptr, nullptr, G, N, 3 * C, nullptr, nullptr,
+                                          dbqkv, stream)));
+  BFT_TRY((hg::gemm_nt<hg::kStoreF32>(dqkv, 3 * C, wqkv_t, 3 * C, R, C, 3 * C, work, C, nullptr,
+                                      stream)));
+  BFT_TRY((launch_plane_sums<float, bf16>(work, x, stats1, G, N, C, sums, din1, din1 + C,
+                                          stream)));
+  BFT_TRY((launch_in_apply<bf16, bf16>(work, x, stats1, in1_w, sums, dx, G, N, C, stream)));
+#undef BFT_TRY
+  return timer.finish();
+}
+
 // K3's backward: the forward's qkv projected again from xn, then launches
 // (5)-(8) of K1's backward, with dao read as it is instead of IN2's
 // backward, xn read as it is instead of IN1 recomputed, and dxn written
@@ -425,11 +496,16 @@ bool temporal_shape_ok(int head_dim, int steps, int N, int C, int heads) {
 // (heads, T, T); scale (heads,); stats1 (2, B*T, C) and, in dtype, qkv
 // (B*T*N, 3C) and ao_r (B*T*N, C) from bf_temporal_block_fwd; work (B*T*N,
 // C), sums and stats2 (2, B*T, C) float32 scratch, dqkv (B*T*N, 3C) dtype
-// scratch.  Outputs, float32
-// and zeroed by the caller except dx: din1 (2, C) = [scale; bias], dwqkv (3C,
-// C), dbqkv (3C), dln (4, head_dim), din2 (2, C), dwout (C, C), dbout (C),
-// dbias (heads, T, T), dscale (heads).  The envelope of
-// bf_temporal_block_fwd.  Returns a cudaError_t.
+// scratch.  Outputs, float32 and zeroed by the caller except dx: din1 (2, C)
+// = [scale; bias], dwqkv (3C, C), dbqkv (3C), dln (4, head_dim), din2 (2, C),
+// dwout (C, C), dbout (C), dbias (heads, T, T), dscale (heads).  bf16 runs
+// the launch chain above: xs a (B*T*N, C) bf16 scratch, part a float32
+// scratch of max(splits_out * C, splits_qkv * 3C) * C values, plan_out and
+// plan_qkv host arrays of splits + 1 token bounds (0, multiples of 64, B*T*N)
+// for dW_out and dW_qkv, launch_ms null or a host array of 13 floats; every
+// base 16-byte aligned.  float32 runs the launches of
+// run_temporal_block_bwd (those five unused; launch_ms must be null).  The
+// envelope of bf_temporal_block_fwd.  Returns a cudaError_t.
 extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, const void* dout,
                                      const void* qkv, const float* in1_w, const float* in1_b,
                                      const void* wqkv_t, const float* ln, const float* in2_w,
@@ -438,8 +514,10 @@ extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, con
                                      float* stats2, float* work, float* sums, void* dqkv,
                                      void* dx, float* din1, float* dwqkv, float* dbqkv,
                                      float* dln, float* din2, float* dwout, float* dbout,
-                                     float* dbias, float* dscale, int B, int steps, int N, int C,
-                                     int heads, void* stream) {
+                                     float* dbias, float* dscale, void* xs, float* part,
+                                     const int* plan_out, int splits_out, const int* plan_qkv,
+                                     int splits_qkv, float* launch_ms, int B, int steps, int N,
+                                     int C, int heads, void* stream) {
   if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BFT_ARGS(T)                                                                           \
@@ -448,16 +526,20 @@ extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, con
       static_cast<const T*>(wout_t), bias, scale, stats1, static_cast<const T*>(ao_r), stats2,  \
       work, sums,                                                                             \
       static_cast<T*>(dqkv), static_cast<T*>(dx), din1, dwqkv, dbqkv, dln, din2, dwout, dbout, \
-      dbias, dscale, B, steps, N, C, heads, s
+      dbias, dscale
   using bf16 = __nv_bfloat16;
+#define BFT_HOPPER(D)                                                                         \
+  return bft::run_temporal_block_bwd_hopper<D>(BFT_ARGS(bf16), static_cast<bf16*>(xs), part,  \
+                                               plan_out, splits_out, plan_qkv, splits_qkv, B, \
+                                               steps, N, C, heads, s, launch_ms)
+  if (dtype == bft::kBF16 && head_dim == 64) BFT_HOPPER(64);
+  if (dtype == bft::kBF16 && head_dim == 16) BFT_HOPPER(16);
+#undef BFT_HOPPER
+  if (launch_ms != nullptr) return cudaErrorInvalidValue;
   if (dtype == bft::kF32 && head_dim == 64)
-    return bft::run_temporal_block_bwd<float, 64>(BFT_ARGS(float));
+    return bft::run_temporal_block_bwd<float, 64>(BFT_ARGS(float), B, steps, N, C, heads, s);
   if (dtype == bft::kF32 && head_dim == 16)
-    return bft::run_temporal_block_bwd<float, 16>(BFT_ARGS(float));
-  if (dtype == bft::kBF16 && head_dim == 64)
-    return bft::run_temporal_block_bwd<bf16, 64>(BFT_ARGS(bf16));
-  if (dtype == bft::kBF16 && head_dim == 16)
-    return bft::run_temporal_block_bwd<bf16, 16>(BFT_ARGS(bf16));
+    return bft::run_temporal_block_bwd<float, 16>(BFT_ARGS(float), B, steps, N, C, heads, s);
 #undef BFT_ARGS
   return cudaErrorInvalidValue;
 }

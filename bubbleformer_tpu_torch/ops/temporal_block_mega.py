@@ -15,7 +15,14 @@ tensors its forward runs the hand-written kernel ``csrc/temporal_block.cu``
 dims 16 (heads in groups of three) and 64 (:func:`_check_kernel_shapes`
 raises on any other shape); on CPU tensors they take
 :func:`temporal_branch_plain` and :func:`temporal_branch_bwd_plain`, at any
-head dim, and on any other device they raise.
+head dim, and on any other device they raise.  In bfloat16 the kernels are
+chains of launches whose products run on the hand-written Hopper GEMM
+(``csrc/hopper_gemm.cuh``, TMA + wgmma; :mod:`~bubbleformer_tpu_torch.ops.
+hopper_gemm`), the weight gradients split over token ranges that this
+wrapper plans (:func:`~bubbleformer_tpu_torch.ops.hopper_gemm.split_k_plan`)
+and added in a fixed order; the wrappers check the 16-byte alignment TMA
+needs and raise, naming the tensor.  In float32 the products stay on the
+first version's FMA tile (``csrc/block_gemm.cuh``).
 
 Rounding follows the TPU kernel (``temporal_block_mega.py:246-266`` forward,
 ``:324-449`` backward): xn, qkv, q/k/v, y2 and out in the activation dtype;
@@ -52,6 +59,7 @@ JAX package's routing gates, copied.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -64,6 +72,7 @@ from bubbleformer_tpu_torch.layers.norm import (
     layer_norm_f32,
     row_xhat,
 )
+from bubbleformer_tpu_torch.ops import hopper_gemm
 from bubbleformer_tpu_torch.ops.attention import axis_attention
 
 _EPS = 1e-5
@@ -319,14 +328,32 @@ def _kernel_params(x, in1_scale, in1_bias, wqkv, bqkv, qn_scale, qn_bias, kn_sca
     return p
 
 
-def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int):
+# The launches of K1's bf16 chains (csrc/temporal_block.cu,
+# csrc/temporal_block_bwd.cu), in order: the names of the per-launch times
+# that ``launch_ms`` receives.
+FWD_LAUNCHES = ("IN1 statistics", "IN1 apply (xn)", "QKV GEMM", "attention", "IN2 statistics",
+                "IN2 apply (y2)", "output GEMM")
+BWD_LAUNCHES = ("IN2 statistics", "dy2 GEMM", "IN2 apply (y2)", "dW_out split-K GEMM + sum",
+                "db_out", "IN2 backward sums", "attention backward", "IN1 apply (xn)",
+                "dW_qkv split-K GEMM + sum", "db_qkv", "dxn GEMM", "IN1 backward sums", "dx")
+
+
+def _launch_times(launch_ms, names):
+    """A host float array for the C entry's per-launch times when
+    ``launch_ms`` is a dict to fill, else None."""
+    return None if launch_ms is None else (ctypes.c_float * len(names))()
+
+
+def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int, launch_ms=None):
     """K1's forward kernel on CUDA tensors: ``(out, residuals)`` where
     ``residuals = (stats1, qkv, ao_r)`` are what the backward kernel reads —
     the float32 IN1 statistics of ``x`` ``(2, B*T, C)`` (mean; rstd), the
     rounded raw QKV projection ``(B*T*N, 3C)`` and the attention output
-    ``(B*T*N, C)`` rounded, both in ``x.dtype``.  The float32 attention output
-    and its IN2 statistics are scratch, freed on return.  Counts
-    ``mega_temporal_block.launches``."""
+    ``(B*T*N, C)`` rounded, both in ``x.dtype``.  The float32 attention output,
+    its IN2 statistics and (bf16) the normalised operand of each product are
+    scratch, freed on return.  In bf16, ``launch_ms``, a dict, receives the
+    device milliseconds of each launch (:data:`FWD_LAUNCHES`; the call then
+    waits for the card).  Counts ``mega_temporal_block.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"mega_temporal_block_fwd: the kernel needs a CUDA tensor, not {x.device}")
     d = _check_kernel_shapes("mega_temporal_block", x, heads)
@@ -334,34 +361,50 @@ def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int):
     n, dev, dt = h * w, x.device, x.dtype
     p = _kernel_params(x, *params, heads)
     x = x.contiguous()
+    hopper = dt == torch.bfloat16
+    if hopper:
+        _build.check_tma("mega_temporal_block", x=x, wqkv=p["wqkv"], wout=p["wout"],
+                         in1_scale=p["in1_w"], in1_bias=p["in1_b"], in2_scale=p["in2_w"],
+                         in2_bias=p["in2_b"])
+    elif launch_ms is not None:
+        raise ValueError("mega_temporal_block_fwd: per-launch times are the bf16 chain's")
     stats1 = torch.empty(2, b * t, c, device=dev)
     qkv = torch.empty(b * t * n, 3 * c, device=dev, dtype=dt)
     ao = torch.empty(b * t * n, c, device=dev)
     ao_r = torch.empty(b * t * n, c, device=dev, dtype=dt)
     stats2 = torch.empty(2, b * t, c, device=dev)
     out = torch.empty_like(x)
+    xs = torch.empty(b * t * n, c, device=dev, dtype=dt) if hopper else None  # xn, then y2
+    times = _launch_times(launch_ms, FWD_LAUNCHES)
     lib = _build.library()
     err = lib.bf_temporal_block_fwd(
         _build.DTYPE_CODES[dt], d, x.data_ptr(), *(a.data_ptr() for a in p.values()),
         stats1.data_ptr(), qkv.data_ptr(), ao.data_ptr(), ao_r.data_ptr(), stats2.data_ptr(),
-        out.data_ptr(), b, t, n, c, heads, _build.stream_handle(dev),
+        out.data_ptr(), None if xs is None else xs.data_ptr(), times, b, t, n, c, heads,
+        _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_temporal_block_fwd")
     mega_temporal_block.launches += 1
+    if times is not None:
+        launch_ms.update(zip(FWD_LAUNCHES, times))
     return out, (stats1, qkv, ao_r)
 
 
 def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: int,
-                            residuals=None) -> tuple:
+                            residuals=None, launch_ms=None) -> tuple:
     """K1's backward: the gradients of ``(x, *PARAM_NAMES)``, as
     :func:`temporal_branch_bwd_plain` returns them.
 
     CPU tensors take :func:`temporal_branch_bwd_plain` (``residuals``
     unused).  CUDA tensors launch ``csrc/temporal_block_bwd.cu`` on the
     ``residuals`` of :func:`mega_temporal_block_fwd` and count
-    ``mega_temporal_block_bwd.launches``.  The parameter gradients are sums
-    over all B*T*N tokens, accumulated with float32 atomics: their last bits
-    vary from run to run."""
+    ``mega_temporal_block_bwd.launches``.  In bf16 the weight gradients are
+    split-K sums over token ranges (:func:`~bubbleformer_tpu_torch.ops.
+    hopper_gemm.split_k_plan`) added in a fixed order, so they repeat bit for
+    bit, and ``launch_ms``, a dict, receives each launch's device
+    milliseconds (:data:`BWD_LAUNCHES`).  The other parameter gradients (and
+    in float32 all of them) are float32 atomic sums over all B*T*N tokens,
+    whose last bits vary from run to run."""
     if x.device.type == "cpu":
         return temporal_branch_bwd_plain(do, x, *params, heads=heads)
     if x.device.type != "cuda":
@@ -378,6 +421,9 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
     if qkv.dtype != dt or ao_r.dtype != dt:
         raise TypeError(f"mega_temporal_block_bwd: residuals qkv {qkv.dtype} and ao "
                         f"{ao_r.dtype}, x is {dt}")
+    hopper = dt == torch.bfloat16
+    if not hopper and launch_ms is not None:
+        raise ValueError("mega_temporal_block_bwd: per-launch times are the bf16 chain's")
 
     def zeros(*shape):
         return torch.zeros(*shape, device=dev)
@@ -396,6 +442,19 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
     sums = torch.empty(2, g, c, device=dev)
     stats2 = torch.empty(2, g, c, device=dev)  # IN2 of ao_r
     dqkv = torch.empty(g * n, 3 * c, device=dev, dtype=dt)
+    xs = part = plan_out = plan_qkv = None
+    splits_out = splits_qkv = 0
+    if hopper:
+        _build.check_tma("mega_temporal_block_bwd", do=do, x=x, ao=ao_r, qkv=qkv,
+                         in1_scale=p["in1_w"], in1_bias=p["in1_b"], in2_scale=p["in2_w"],
+                         in2_bias=p["in2_b"])
+        bounds_out = hopper_gemm.split_k_plan(g * n, c, c)
+        bounds_qkv = hopper_gemm.split_k_plan(g * n, 3 * c, c)
+        splits_out, splits_qkv = len(bounds_out) - 1, len(bounds_qkv) - 1
+        plan_out, plan_qkv = _build.int32_array(bounds_out), _build.int32_array(bounds_qkv)
+        xs = torch.empty(g * n, c, device=dev, dtype=dt)  # y2, then xn
+        part = torch.empty(max(splits_out * c, splits_qkv * 3 * c) * c, device=dev)
+    times = _launch_times(launch_ms, BWD_LAUNCHES)
     lib = _build.library()
     err = lib.bf_temporal_block_bwd(
         _build.DTYPE_CODES[dt], d, x.data_ptr(), do.data_ptr(), qkv.data_ptr(),
@@ -405,10 +464,14 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
         stats1.data_ptr(), ao_r.data_ptr(), stats2.data_ptr(),
         work.data_ptr(), sums.data_ptr(), dqkv.data_ptr(),
         *(a.data_ptr() for a in grads.values()),
+        None if xs is None else xs.data_ptr(), None if part is None else part.data_ptr(),
+        plan_out, splits_out, plan_qkv, splits_qkv, times,
         b, t, n, c, heads, _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_temporal_block_bwd")
     mega_temporal_block_bwd.launches += 1
+    if times is not None:
+        launch_ms.update(zip(BWD_LAUNCHES, times))
     gr = grads
     bias, scale_factor = params[-2], params[-1]
     return (gr["dx"], gr["din1"][0], gr["din1"][1], gr["dwqkv"], gr["dbqkv"],

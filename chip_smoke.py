@@ -23,7 +23,9 @@ paths give it — the rollout's (batch 1) and the training step's:
 2. build: compile ``bubbleformer_tpu_torch/csrc/*.cu`` with nvcc (timed);
 3. K1 forward (``mega_temporal_block``) against ``temporal_branch_plain``,
    x (1, 5, 32, 32, 384) and (8, 5, 32, 32, 384), float32 and bfloat16,
-   with both times;
+   with both times and that of cuBLAS's two products alone (a partial
+   yardstick; bf16 K1 runs its products on the hand-written Hopper GEMM,
+   ``csrc/hopper_gemm.cuh``);
 4. K2 forward (``lane_axial_attention``) against ``axial_attention_plain``,
    qkv (5, 32, 32, 1152) and (40, 32, 32, 1152), likewise;
 5. one float32 window of the whole model on the card (kernels) against the
@@ -33,7 +35,9 @@ paths give it — the rollout's (batch 1) and the training step's:
    window;
 7. K1 backward (``mega_temporal_block_bwd``) against
    ``temporal_branch_bwd_plain`` at phase 3's two shapes, every gradient,
-   float32 and bfloat16, with both times;
+   float32 and bfloat16, with both times and that of cuBLAS's four products
+   alone; then the device time of each launch of K1's bf16 forward and
+   backward chains at the training shape (CUDA events around each launch);
 8. K2 backward (``lane_axial_attention_bwd``) against
    ``axial_attention_bwd_plain`` at phase 4's two shapes, likewise;
 9. one float32 training step, batch 1, against the same step in float64 on
@@ -87,7 +91,8 @@ paths give it — the rollout's (batch 1) and the training step's:
    in each of the 4 blocks and no temporal kernel;
 23. K1 and K3 at head dim 16 (``BRANCH_SHAPES``: K1 at AViT-tiny's 512^2
    training shape, K3 at its 512x2048 flow-boiling shapes), forward and
-   every gradient against the plain versions (``KERNEL_RTOL``), both times;
+   every gradient against the plain versions (``KERNEL_RTOL``), both times
+   (K1's with cuBLAS's products alone and its per-launch times);
 24. K5 (``mega_axial_block``) likewise at FiLMAViT-small's rollout and
    training shapes and at AViT-tiny's with ``mega`` (head dim 16), with the
    time of cuBLAS's two projections alone (a partial yardstick);
@@ -319,6 +324,47 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def k1_gemm_ms(x, wqkv, wout, do=None, qkv=None) -> float:
+    """cuBLAS (``torch.matmul``) on K1's products alone at x's shape, a
+    partial yardstick: the forward's two (xn W_qkv^T, y2 W_out^T; x stands
+    in for xn and y2), or with the output gradient ``do`` and a (R, 3C)
+    tensor ``qkv`` standing in for dqkv, the backward's four (do W_out,
+    do^T y2, dqkv W_qkv, dqkv^T xn)."""
+    import torch
+
+    x2 = x.reshape(-1, x.shape[-1])
+    if do is None:
+        return cuda_ms(lambda: (torch.matmul(x2, wqkv.t()), torch.matmul(x2, wout.t())))
+    d2 = do.reshape(x2.shape)
+    return cuda_ms(lambda: (torch.matmul(d2, wout), torch.matmul(d2.t(), x2),
+                            torch.matmul(qkv, wqkv), torch.matmul(qkv.t(), x2)))
+
+
+def k1_launch_line(label: str, args: dict, do, heads: int) -> None:
+    """Prints each launch's device time (CUDA events around each launch of
+    the C entries, the mean of 5 calls after one warm-up) of K1's bf16
+    forward and backward chains on ``args``."""
+    from bubbleformer_tpu_torch.ops.temporal_block_mega import (
+        PARAM_NAMES,
+        mega_temporal_block_bwd,
+        mega_temporal_block_fwd,
+    )
+
+    params = [args[k] for k in PARAM_NAMES]
+    fwd, bwd = {}, {}
+    for i in range(6):
+        lf, lb = {}, {}
+        _, res = mega_temporal_block_fwd(args["x"], *params, heads=heads, launch_ms=lf)
+        mega_temporal_block_bwd(do, args["x"], *params, heads=heads, residuals=res, launch_ms=lb)
+        for acc, one in ((fwd, lf), (bwd, lb)):
+            for k, v in one.items():
+                acc[k] = acc.get(k, 0.0) + (v / 5 if i else 0.0)
+    for what, acc in (("forward", fwd), ("backward", bwd)):
+        print(f"  {label} {tuple(args['x'].shape)} per-launch ms ({what}, CUDA events, sum "
+              f"{sum(acc.values()):.4f}): " + json.dumps({k: round(v, 4) for k, v in acc.items()}),
+              flush=True)
 
 
 def compare(name: str, got, ref, rtol: float):
@@ -1061,6 +1107,14 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
             ms_b = cuda_ms(lambda: bwd(do, act, *params, heads=heads, **kept))
             plain_b = cuda_ms(lambda: bwd_plain(do, **args, heads=heads))
             extra = ""
+            if key.startswith("K1"):
+                w1, w2 = args["wqkv"].to(dt), args["wout"].to(dt)
+                gemm_f = k1_gemm_ms(act, w1, w2)
+                gemm_b = k1_gemm_ms(act, w1, w2, do, res[1])
+                results[(key + " gemm", name, where)] = gemm_f
+                results[(key + " bwd gemm", name, where)] = gemm_b
+                extra = (f"; cuBLAS's products alone (partial yardstick) forward {gemm_f:.4f}, "
+                         f"backward {gemm_b:.4f} ms")
             if key == "K5":
                 x2 = act.reshape(-1, shape[-1])
                 w1, w2 = args["wqkv"].to(dt), args["wout"].to(dt)
@@ -1071,6 +1125,8 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
                   f"backward {ms_b:.4f} ms (plain {plain_b:.4f}){extra}", flush=True)
             results[(key, name, where)] = (err_f, ms_f, plain_f)
             results[(key + " bwd", name, where)] = (err_b, ms_b, plain_b)
+            if key.startswith("K1") and dt == torch.bfloat16 and where == "training":
+                k1_launch_line(f"{key} bf16 {where}", args, do, heads)
             del res, kept, args, params, act, do
         del base, do32
 
@@ -2031,8 +2087,11 @@ def main() -> None:
             del got, ref
             ms = cuda_ms(lambda: mega_temporal_block(**args, heads=heads))
             plain_ms = cuda_ms(lambda: temporal_branch_plain(**args, heads=heads))
-            print(f"  K1 {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+            gemm = k1_gemm_ms(args["x"], k1["wqkv"].to(dt), k1["wout"].to(dt))
+            print(f"  K1 {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; cuBLAS's two "
+                  f"products alone (partial yardstick) {gemm:.4f} ms", flush=True)
             results[("K1", name, where)] = (err, ms, plain_ms)
+            results[("K1 gemm", name, where)] = gemm
 
     print(f"== phase 4: K2 lane_axial_attention vs plain, qkv {shapes['K2']['rollout']} and "
           f"{shapes['K2']['training']}", flush=True)
@@ -2134,11 +2193,15 @@ def main() -> None:
             ms = cuda_ms(lambda: mega_temporal_block_bwd(do, args["x"], *params, heads=heads,
                                                          residuals=res))
             plain_ms = cuda_ms(lambda: temporal_branch_bwd_plain(do, **args, heads=heads))
-            print(f"  K1 bwd {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-                  flush=True)
+            gemm = k1_gemm_ms(args["x"], args["wqkv"].to(dt), args["wout"].to(dt), do, res[1])
+            print(f"  K1 bwd {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                  f"cuBLAS's four products alone (partial yardstick) {gemm:.4f} ms", flush=True)
             results[("K1 bwd", name, where)] = (err, ms, plain_ms)
+            results[("K1 bwd gemm", name, where)] = gemm
             del res
-    del k1_x, k1_do
+    args = dict(x=k1_x["training"].to(torch.bfloat16), **k1)
+    k1_launch_line("K1 bf16 training", args, k1_do["training"].to(dev, torch.bfloat16), heads)
+    del k1_x, k1_do, args
 
     print(f"== phase 8: K2 backward vs plain, qkv {shapes['K2']['rollout']} and "
           f"{shapes['K2']['training']}", flush=True)
@@ -2479,16 +2542,20 @@ def main() -> None:
             per_window = (big_launches if on_big else launches).get(key, 0) // WINDOWS
         err, ms, plain_ms = results[(key, "bfloat16", "training")]
         bound_ms, bound_by = bound(*kernel_work(key, cases["training"], "bfloat16"), "bfloat16")
+        # K1: cuBLAS on its products alone (partial yardstick).
+        library = results.get((key + " gemm", "bfloat16", "training"))
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": run_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": library if key.startswith("K1") else None})
         for where in cases:
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
                 extra = (f", cuBLAS QKV product alone {results[('K3 gemm', dt, where)]:.4f} ms"
-                         if key == "K3" else "")
+                         if key == "K3" else
+                         f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
+                         if key.startswith("K1") else "")
                 print(f"  {name} {where} {cases[where]} {dt}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
         print(f"  {name}: launches per rollout window {per_window}, "
@@ -2533,13 +2600,16 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches_run, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": results.get((key + " gemm", "bfloat16", "training"))
+                        if key.startswith("K1") else None})
         for where in cases:
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
                 extra = (f", cuBLAS's two projections alone {results[('K5 gemm', dt, where)]:.4f} "
-                         f"ms" if key == "K5" else "")
+                         f"ms" if key == "K5" else
+                         f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
+                         if key.startswith("K1") else "")
                 print(f"  {name} {where} {cases[where]} {dt}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
         print(f"  {name}: launches per training step {launches_run // run['steps']}")

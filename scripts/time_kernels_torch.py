@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Time the port's K1, K2 and K3 kernels at their training steps' shapes.
+"""Time the port's whole-branch and projection kernels at their training
+steps' shapes, to compare two checkouts on one card.
 
-K1 (the temporal branch, ``mega_temporal_block``) at x (8, 5, 32, 32, 384)
-and K2 (the lane axial attention, ``lane_axial_attention``) at qkv (40, 32,
-32, 1152), FiLMAViT-small's; K3 (the streamed temporal core,
-``core_temporal_attention``) at AViT-big's xn (8, 5, 32, 32, 768) and
-AViT-small's on the flow-boiling grid at batch 4, (4, 5, 32, 128, 384),
-through its autograd Function as a training step without remat calls it
-(the backward alone by ``torch.autograd.grad`` on a kept graph); forward
-and backward, in bfloat16 and float32, by CUDA events (20 calls after 3
+K1 (the temporal branch, ``mega_temporal_block``) at x (8, 5, 32, 32, 384),
+FiLMAViT-small's, and at head dim 16, x (8, 5, 64, 64, 96), AViT-tiny's at
+512x512; K2 (the lane axial attention, ``lane_axial_attention``) at qkv (40,
+32, 32, 1152); K3 (the streamed temporal core, ``core_temporal_attention``)
+at AViT-big's xn (8, 5, 32, 32, 768) and AViT-small's on the flow-boiling
+grid at batch 4, (4, 5, 32, 128, 384), through its autograd Function as a
+training step without remat calls it (the backward alone by
+``torch.autograd.grad`` on a kept graph); K5 (the mega axial block,
+``mega_axial_block``) and K9 (the lane route with the projection in the
+kernel, ``lane_px_attention``) at x (40, 32, 32, 384).  Forward and
+backward, in bfloat16 and float32, by CUDA events (20 calls after 3
 warm-up), from the checkout given by ``--repo`` (default: this one), whose
-kernels it builds first.  Comparing two versions of the
-kernels takes two processes on one card, one per checkout, in turns:
+kernels it builds first.  Then, in bfloat16 at K1's first shape, the device
+time of each kernel one K1 forward and one backward launch, by
+``torch.profiler`` (the mean of 5 traced calls; names shortened), which
+reads any checkout alike.  Comparing two versions of the kernels takes two
+processes on one card, one per checkout, in turns:
 
     python3 scripts/time_kernels_torch.py --repo build/parent --label parent
     python3 scripts/time_kernels_torch.py --label change
@@ -23,8 +30,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -42,7 +51,9 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("time_kernels_torch.py needs a CUDA card")
     from bubbleformer_tpu_torch import _build
+    from bubbleformer_tpu_torch.ops import axial_block_mega as k5
     from bubbleformer_tpu_torch.ops import axial_lane as k2
+    from bubbleformer_tpu_torch.ops import axial_lane_px as k9
     from bubbleformer_tpu_torch.ops import temporal_block_mega as k1
 
     _build.library()
@@ -55,18 +66,30 @@ def main(argv=None) -> None:
         return torch.from_numpy((offset + scale * rng.standard_normal(s)).astype(np.float32)).to(
             dev)
 
+    def ln(d):
+        return [n(d, scale=0.1, offset=1.0), n(d, scale=0.1), n(d, scale=0.1, offset=1.0),
+                n(d, scale=0.1)]
+
+    def branch(shape, heads):
+        """K1's arguments at x of (B, T, H, W, C), or K5's at x of (BT, H, W, C)."""
+        c, d = shape[-1], shape[-1] // heads
+        p = [n(c, scale=0.1, offset=1.0), n(c, scale=0.1), n(3 * c, c, scale=c**-0.5),
+             n(3 * c, scale=0.1), *ln(d), n(c, scale=0.1, offset=1.0), n(c, scale=0.1),
+             n(c, c, scale=c**-0.5), n(c, scale=0.1)]
+        if len(shape) == 5:
+            return n(*shape), p + [n(heads, shape[1], shape[1]), n(heads, scale=0.2, offset=1.0)]
+        return n(*shape), p + [n(heads, shape[2], shape[2]), n(heads, shape[1], shape[1]),
+                               n(heads, scale=0.2, offset=1.0), n(heads, scale=0.2, offset=1.0)]
+
     heads, c, d, t = 6, 384, 64, 5
-    k1_args = dict(x=n(8, t, 32, 32, c), in1_scale=n(c, scale=0.1, offset=1.0),
-                   in1_bias=n(c, scale=0.1), wqkv=n(3 * c, c, scale=c**-0.5),
-                   bqkv=n(3 * c, scale=0.1), qn_scale=n(d, scale=0.1, offset=1.0),
-                   qn_bias=n(d, scale=0.1), kn_scale=n(d, scale=0.1, offset=1.0),
-                   kn_bias=n(d, scale=0.1), in2_scale=n(c, scale=0.1, offset=1.0),
-                   in2_bias=n(c, scale=0.1), wout=n(c, c, scale=c**-0.5), bout=n(c, scale=0.1),
-                   bias=n(heads, t, t), scale_factor=n(heads, scale=0.2, offset=1.0))
     k2_args = dict(qkv=n(40, 32, 32, 3 * c), qn_scale=n(d, scale=0.1, offset=1.0),
                    qn_bias=n(d, scale=0.1), kn_scale=n(d, scale=0.1, offset=1.0),
                    kn_bias=n(d, scale=0.1), bias_x=n(heads, 32, 32), bias_y=n(heads, 32, 32),
                    scale_x=n(heads, scale=0.2, offset=1.0), scale_y=n(heads, scale=0.2, offset=1.0))
+    k9_x, k9_params = n(40, 32, 32, c), [n(3 * c, c, scale=c**-0.5), n(3 * c, scale=0.1), *ln(d),
+                                         n(heads, 32, 32), n(heads, 32, 32),
+                                         n(heads, scale=0.2, offset=1.0),
+                                         n(heads, scale=0.2, offset=1.0)]
 
     def ms(fn):
         for _ in range(3):
@@ -81,26 +104,37 @@ def main(argv=None) -> None:
         return start.elapsed_time(end) / args.iters
 
     out = {"label": args.label, "repo": args.repo, "card": card}
+    branches = {"K1": ((8, t, 32, 32, c), 6, k1.mega_temporal_block_fwd,
+                       k1.mega_temporal_block_bwd),
+                "K1 d16": ((8, t, 64, 64, 96), 6, k1.mega_temporal_block_fwd,
+                           k1.mega_temporal_block_bwd),
+                "K5": ((40, 32, 32, c), 6, k5.mega_axial_block_fwd, k5.mega_axial_block_bwd)}
+    for key, (shape, h, fwd, bwd) in branches.items():
+        x32, params = branch(shape, h)
+        do32 = n(*shape)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            x, do = x32.to(dt), do32.to(dt)
+            _, res = fwd(x, *params, heads=h)
+            out[f"{key} {name}"] = ms(lambda: fwd(x, *params, heads=h))
+            out[f"{key} bwd {name}"] = ms(lambda: bwd(do, x, *params, heads=h, residuals=res))
+            del res
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[-1]
-        x, p1 = k1_args["x"].to(dt), list(k1_args.values())[1:]
-        do1 = torch.randn_like(x)
-        _, res = k1.mega_temporal_block_fwd(x, *p1, heads=heads)
-        out[f"K1 {name}"] = ms(lambda: k1.mega_temporal_block_fwd(x, *p1, heads=heads))
-        out[f"K1 bwd {name}"] = ms(lambda: k1.mega_temporal_block_bwd(do1, x, *p1, heads=heads,
-                                                                      residuals=res))
         qkv, p2 = k2_args["qkv"].to(dt), list(k2_args.values())[1:]
         do2 = torch.randn(40, 32, 32, c, device=dev, dtype=dt)
         out[f"K2 {name}"] = ms(lambda: k2.lane_axial_attention(qkv, *p2, heads=heads))
         out[f"K2 bwd {name}"] = ms(lambda: k2.lane_axial_attention_bwd(do2, qkv, *p2,
                                                                        heads=heads))
-        del res
+        x9 = k9_x.to(dt)
+        out[f"K9 {name}"] = ms(lambda: k9.lane_px_attention(x9, *k9_params, heads=heads))
+        out[f"K9 bwd {name}"] = ms(lambda: k9.lane_px_attention_bwd(do2, x9, *k9_params,
+                                                                    heads=heads))
     for case, (shape, h) in {"avit_big": ((8, t, 32, 32, 768), 12),
                              "flow_b4": ((4, t, 32, 128, 384), 6)}.items():
         cc = shape[-1]
-        k3_params = [n(3 * cc, cc, scale=cc**-0.5), n(3 * cc, scale=0.1),
-                     n(d, scale=0.1, offset=1.0), n(d, scale=0.1), n(d, scale=0.1, offset=1.0),
-                     n(d, scale=0.1), n(h, t, t), n(h, scale=0.2, offset=1.0)]
+        k3_params = [n(3 * cc, cc, scale=cc**-0.5), n(3 * cc, scale=0.1), *ln(d),
+                     n(h, t, t), n(h, scale=0.2, offset=1.0)]
         xn32 = n(*shape)
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).split(".")[-1]
@@ -111,6 +145,27 @@ def main(argv=None) -> None:
             out[f"K3 bwd {case} {name}"] = ms(
                 lambda: torch.autograd.grad(y, inputs, dao, retain_graph=True))
             del inputs, y, dao
+
+    # K1's kernels, one forward and one backward call each, by device time.
+    x32, params = branch(branches["K1"][0], 6)
+    x, do = x32.to(torch.bfloat16), n(*x32.shape).to(torch.bfloat16)
+    _, res = k1.mega_temporal_block_fwd(x, *params, heads=6)
+    calls = {"fwd": lambda: k1.mega_temporal_block_fwd(x, *params, heads=6),
+             "bwd": lambda: k1.mega_temporal_block_bwd(do, x, *params, heads=6, residuals=res)}
+    for what, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        per = defaultdict(float)
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                short = re.sub(r"\(.*", "", re.sub(r"^void |bft::|\(anonymous namespace\)::", "",
+                                                   evt.name))[:70]
+                per[short] += evt.time_range.elapsed_us() / 1e3 / 5
+        out[f"K1 bfloat16 {what} kernels"] = {k: round(v, 4) for k, v in per.items()}
     print(json.dumps(out), flush=True)
 
 

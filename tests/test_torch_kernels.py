@@ -25,7 +25,10 @@ Card tolerances, as in ``chip_smoke.py``: 1e-4 (float32, summation order
 only) and 2e-2 (bfloat16, single-ulp rounding flips and what they propagate
 into) of the reference's largest magnitude.  The backward kernels are held
 to the same, gradient by gradient (``tests/_torch_grads.py``): their float32
-sums are also reordered by atomics from run to run.
+sums are also reordered by atomics from run to run (but K1's bf16 weight
+gradients, split-K sums added in a fixed order, repeat bit for bit).  The
+Hopper GEMM of K1's products, in both operand layouts, is held against
+``torch.matmul`` in float32 at K1's shapes and ragged ones.
 """
 import re
 from types import SimpleNamespace
@@ -35,7 +38,7 @@ import pytest
 import torch
 
 from bubbleformer_tpu_torch import _build
-from bubbleformer_tpu_torch.ops import axial_block_mega, temporal_block_mega
+from bubbleformer_tpu_torch.ops import axial_block_mega, hopper_gemm, temporal_block_mega
 from bubbleformer_tpu_torch.ops.axial_block_mega import (
     mega_axial_block,
     mega_axial_block_bwd,
@@ -1142,3 +1145,181 @@ def test_probe_kernels_raise_outside_their_envelope_on_card(cuda_device):
         pyramid.stage(**dict(_card(stage, cuda_device, torch.bfloat16, ("y0", "k")),
                              k=torch.zeros(2, 2, 8, 200, device=cuda_device,
                                            dtype=torch.bfloat16)))
+
+
+# ---------------------------------------------------------------------------
+# The Hopper GEMM of K1's products (csrc/hopper_gemm.cuh, ops/hopper_gemm.py)
+# and K1's bf16 launch chains on it.
+
+# Split-K weight gradients of K1: dW_qkv and dW_out at FiLMAViT-small's
+# training and rollout token counts, AViT-tiny's (head dim 16) at 512x512,
+# and ragged token counts (not a multiple of the 64-token stage).
+SPLIT_CASES = [(40960, 1152, 384), (40960, 384, 384), (5120, 1152, 384), (163840, 288, 96),
+               (163840, 96, 96), (777, 136, 200), (65, 8, 8), (1, 1152, 384)]
+SPLIT_IDS = ["training_qkv", "training_out", "rollout_qkv", "d16_qkv", "d16_out", "ragged",
+             "ragged_small", "one_token"]
+
+
+@pytest.mark.parametrize("tokens,m,n", SPLIT_CASES, ids=SPLIT_IDS)
+def test_split_k_plan_covers_every_token_once(tokens, m, n):
+    """The token ranges the wrapper hands the split-K GEMM: from 0 to the
+    last token, none empty, every inner bound on a 64-token stage, at most
+    the kernel's 64 ranges; together they cover each token exactly once."""
+    bounds = hopper_gemm.split_k_plan(tokens, m, n)
+    assert bounds[0] == 0 and bounds[-1] == tokens
+    assert 1 <= len(bounds) - 1 <= hopper_gemm.MAX_SPLITS
+    assert all(a < b for a, b in zip(bounds, bounds[1:]))
+    assert all(b % hopper_gemm.BLOCK_K == 0 for b in bounds[1:-1])
+    covered = np.concatenate([np.arange(a, b) for a, b in zip(bounds, bounds[1:])])
+    np.testing.assert_array_equal(covered, np.arange(tokens))
+
+
+def test_split_k_plan_fills_the_card_at_the_training_shape():
+    """dW_qkv at the training shape: 27 output tiles of 128 x 128, so about
+    ten token ranges bring the blocks near two a streaming multiprocessor."""
+    bounds = hopper_gemm.split_k_plan(40960, 1152, 384)
+    assert len(bounds) - 1 == 10
+    assert abs(27 * (len(bounds) - 1) - hopper_gemm.TARGET_BLOCKS) < 27
+
+
+def test_hopper_gemm_wrappers_take_plain_versions_on_cpu():
+    g = torch.Generator().manual_seed(40)
+    a, b = torch.randn(7, 24, generator=g), torch.randn(16, 24, generator=g)
+    bias = torch.randn(16, generator=g)
+    before = (hopper_gemm.gemm_nt.launches, hopper_gemm.gemm_tn.launches)
+    torch.testing.assert_close(hopper_gemm.gemm_nt(a, b), a @ b.t(), rtol=0, atol=0)
+    torch.testing.assert_close(hopper_gemm.gemm_nt(a, b, bias, torch.bfloat16),
+                               (a @ b.t() + bias).to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(hopper_gemm.gemm_tn(a, a[:, :8]), a.t() @ a[:, :8], rtol=0, atol=0)
+    assert (hopper_gemm.gemm_nt.launches, hopper_gemm.gemm_tn.launches) == before
+
+
+def test_check_tma_names_what_the_kernels_do_not_take():
+    """The TMA loads need 16-byte aligned bases and rows: a view one element
+    in, a row of 6 bf16 values and a transposed view each raise, naming the
+    tensor."""
+    flat = torch.zeros(8 + 4 * 64, dtype=torch.bfloat16)
+    _build.check_tma("k", ok=flat[8:].view(4, 64))
+    with pytest.raises(ValueError, match="k: do starts at .* not 16-byte aligned"):
+        _build.check_tma("k", do=flat[1:257].view(4, 64))
+    with pytest.raises(ValueError, match="k: w has rows of 12 bytes"):
+        _build.check_tma("k", w=torch.zeros(4, 6, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="k: x of shape \\(64, 4\\) is not contiguous"):
+        _build.check_tma("k", x=flat[8:].view(4, 64).t())
+
+
+def _bf16(shape, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(device, torch.bfloat16)
+
+
+# NT: (M, N, K) at K1's QKV product (training shape), its output product at
+# the rollout, and ragged ones (M not a multiple of 128, N and K not of 64).
+NT_CASES = [(40960, 1152, 384), (5120, 384, 384), (300, 96, 96), (1000, 136, 1160), (130, 8, 72)]
+NT_IDS = ["qkv_training", "out_rollout", "ragged_d16", "ragged_wide", "ragged_thin"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", NT_CASES, ids=NT_IDS)
+def test_hopper_gemm_nt_matches_matmul_on_card(cuda_device, m, n, k):
+    """``a @ b^T`` of bf16 values against ``torch.matmul`` in float32 (no
+    TF32): float32 out within 1e-5 of its largest value (summation order),
+    and bf16(sum + bias) within one bf16 rounding of each value (2^-8 of
+    it) plus that summation-order bound."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = _bf16((m, k), 41, cuda_device), _bf16((n, k), 42, cuda_device)
+    bias = torch.randn(n, generator=torch.Generator().manual_seed(43)).to(cuda_device)
+    want = torch.matmul(a.float(), b.float().t())
+    before = hopper_gemm.gemm_nt.launches
+    got = hopper_gemm.gemm_nt(a, b)
+    got_b = hopper_gemm.gemm_nt(a, b, bias, torch.bfloat16)
+    assert hopper_gemm.gemm_nt.launches == before + 2
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    ref_b = want + bias
+    bound = 2.0**-8 * ref_b.abs() + 1e-5 * ref_b.abs().max()
+    assert ((got_b.float() - ref_b).abs() <= bound).all()
+
+
+# TN: (R tokens, M, N, bounds or None for the wrapper's plan): K1's dW_qkv
+# and dW_out at the training shape, AViT-tiny's dW_qkv, and ragged ones (R
+# not a multiple of the ranges, M and N not of 128).
+TN_CASES = [(40960, 1152, 384, None), (40960, 384, 384, None), (163840, 288, 96, None),
+            (5000, 136, 200, None), (777, 136, 200, [0, 128, 512, 777]), (100, 8, 16, [0, 100])]
+TN_IDS = ["qkv_training", "out_training", "d16", "ragged", "ragged_bounds", "one_range"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,m,n,bounds", TN_CASES, ids=TN_IDS)
+def test_hopper_gemm_tn_matches_matmul_on_card(cuda_device, r, m, n, bounds):
+    """``d^T @ s`` over R tokens, split-K, against ``torch.matmul`` in
+    float32 (no TF32), within 1e-5 of its largest value; a second call
+    gives the same bits (the partials are added in a fixed order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    d, s = _bf16((r, m), 44, cuda_device), _bf16((r, n), 45, cuda_device)
+    want = torch.matmul(d.float().t(), s.float())
+    before = hopper_gemm.gemm_tn.launches
+    got = hopper_gemm.gemm_tn(d, s, bounds)
+    again = hopper_gemm.gemm_tn(d, s, bounds)
+    assert hopper_gemm.gemm_tn.launches == before + 2
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 5, 32, 32, 384), (2, 5, 64, 64, 96)],
+                         ids=["training", "d16"])
+def test_k1_weight_gradients_repeat_bit_for_bit_on_card(cuda_device, shape):
+    """In bf16 K1's weight gradients are split-K sums added in a fixed
+    order: two backward calls on the same inputs give the same bits."""
+    heads = 6
+    args = _k1_args(shape, heads, 46, torch.bfloat16, cuda_device)
+    do = _bf16(shape, 47, cuda_device)
+    params = list(args.values())[1:]
+    _, res = mega_temporal_block_fwd(args["x"], *params, heads=heads)
+    first = mega_temporal_block_bwd(do, args["x"], *params, heads=heads, residuals=res)
+    second = mega_temporal_block_bwd(do, args["x"], *params, heads=heads, residuals=res)
+    torch.cuda.synchronize()
+    names = ("x",) + temporal_block_mega.PARAM_NAMES
+    for name in ("wqkv", "wout"):
+        i = names.index(name)
+        assert torch.equal(first[i], second[i]), name
+
+
+@pytest.mark.cuda
+def test_k1_wrappers_raise_on_a_misaligned_view_on_card(cuda_device):
+    """A bf16 output gradient one element into its storage cannot be a TMA
+    source: the backward raises, naming it, before any launch; so does the
+    forward for a misaligned weight."""
+    shape, heads = (1, 3, 8, 16, 128), 2
+    args = _k1_args(shape, heads, 48, torch.bfloat16, cuda_device)
+    params = list(args.values())[1:]
+    _, res = mega_temporal_block_fwd(args["x"], *params, heads=heads)
+    flat = torch.zeros(1 + int(np.prod(shape)), device=cuda_device, dtype=torch.bfloat16)
+    do = flat[1:].view(shape)
+    before = mega_temporal_block_bwd.launches
+    with pytest.raises(ValueError, match="do starts at .* not 16-byte aligned"):
+        mega_temporal_block_bwd(do, args["x"], *params, heads=heads, residuals=res)
+    assert mega_temporal_block_bwd.launches == before
+    wflat = torch.zeros(1 + 3 * 128 * 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="wqkv starts at"):
+        mega_temporal_block(**dict(args, wqkv=wflat[1:].view(3 * 128, 128)), heads=heads)
+
+
+@pytest.mark.cuda
+def test_k1_per_launch_times_on_card(cuda_device):
+    """In bf16 the wrappers report each launch's device time by CUDA events,
+    in chain order; float32 has no chain to time and raises."""
+    shape, heads = (2, 5, 32, 32, 384), 6
+    args = _k1_args(shape, heads, 49, torch.bfloat16, cuda_device)
+    params = list(args.values())[1:]
+    fwd, bwd = {}, {}
+    _, res = mega_temporal_block_fwd(args["x"], *params, heads=heads, launch_ms=fwd)
+    mega_temporal_block_bwd(_bf16(shape, 50, cuda_device), args["x"], *params, heads=heads,
+                            residuals=res, launch_ms=bwd)
+    assert tuple(fwd) == temporal_block_mega.FWD_LAUNCHES
+    assert tuple(bwd) == temporal_block_mega.BWD_LAUNCHES
+    assert all(0 < v < 1e3 for v in (*fwd.values(), *bwd.values()))
+    with pytest.raises(ValueError, match="bf16 chain"):
+        mega_temporal_block_fwd(args["x"].float(), *params, heads=heads, launch_ms={})
