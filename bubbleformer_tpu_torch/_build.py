@@ -50,12 +50,13 @@ _SIGNATURES = {
     "bf_temporal_block_bwd": [_I] * 2 + [_P] * 30 + [_IP, _I, _IP, _I, _FP] + [_I] * 5 + [_P],
     # tn, epilogue, a, b, out, bias, part, M, N, K, bounds, splits, stream
     "bf_hopper_gemm": [_I] * 2 + [_P] * 5 + [_I] * 3 + [_IP, _I, _P],
-    # dtype, head_dim, xn, wqkv, bqkv, ln, bias, scale, ao, B, T, N, C, heads,
-    # stream
-    "bf_core_temporal_fwd": [_I] * 2 + [_P] * 7 + [_I] * 5 + [_P],
+    # dtype, head_dim, xn, wqkv, bqkv, ln, bias, scale, qkv, ao, launch_ms, B,
+    # T, N, C, heads, stream
+    "bf_core_temporal_fwd": [_I] * 2 + [_P] * 8 + [_FP] + [_I] * 5 + [_P],
     # dtype, head_dim, xn, dao, wqkv, bqkv, wqkv_t, ln, bias, scale, qkv,
-    # dqkv, dx, dwqkv, dbqkv, dln, dbias, dscale, B, T, N, C, heads, stream
-    "bf_core_temporal_bwd": [_I] * 2 + [_P] * 16 + [_I] * 5 + [_P],
+    # dqkv, dx, dwqkv, dbqkv, dln, dbias, dscale, part, plan, splits,
+    # launch_ms, B, T, N, C, heads, stream
+    "bf_core_temporal_bwd": [_I] * 2 + [_P] * 17 + [_IP, _I, _FP] + [_I] * 5 + [_P],
     # dtype, head_dim, fused, qkv, ln, bias_x, bias_y, scale, row_out, out,
     # BT, H, W, C, heads, stream
     "bf_axial_attention_fwd": [_I] * 3 + [_P] * 7 + [_I] * 5 + [_P],

@@ -1,14 +1,15 @@
 // The Hopper GEMM of hopper_gemm.cuh on its own, for the tests and the
-// measurements (bubbleformer_tpu_torch/ops/hopper_gemm.py); K1 launches it
-// from temporal_block.cu and temporal_block_bwd.cu.
+// measurements (bubbleformer_tpu_torch/ops/hopper_gemm.py); K1 and K3
+// launch it from temporal_block.cu and temporal_block_bwd.cu.
 #include "hopper_gemm.cuh"
 
 // tn = 0: out(M, N) = a(M, K) . b(N, K)^T, out bf16 = bf16(sum + bias)
-// (epilogue 0) or float32 (epilogue 1).  tn = 1: out(M, N) float32 = sum_r
-// a(r, m) b(r, n) over K = R tokens, a (R, M) and b (R, N), split at the
-// host array bounds[0..splits] into the float32 scratch part (splits * M *
-// N) and added in range order.  bf16 operands, row-major, every base and row
-// 16-byte aligned.  Returns a cudaError_t.
+// (epilogue 0), float32 (epilogue 1) or bf16 = bf16(sum) (epilogue 3).
+// tn = 1: out(M, N) float32 = sum_r a(r, m) b(r, n) over K = R tokens, a
+// (R, M) and b (R, N), split at the host array bounds[0..splits] into the
+// float32 scratch part (splits * M * N) and added in range order.  bf16
+// operands, row-major, every base and row 16-byte aligned.  Returns a
+// cudaError_t.
 extern "C" int bf_hopper_gemm(int tn, int epilogue, const void* a, const void* b, void* out,
                               const float* bias, float* part, int M, int N, int K,
                               const int* bounds, int splits, void* stream) {
@@ -27,5 +28,7 @@ extern "C" int bf_hopper_gemm(int tn, int epilogue, const void* a, const void* b
     return hg::gemm_nt<hg::kBiasRound>(A, K, B, K, M, N, K, out, N, bias, s);
   if (epilogue == hg::kStoreF32)
     return hg::gemm_nt<hg::kStoreF32>(A, K, B, K, M, N, K, out, N, nullptr, s);
+  if (epilogue == hg::kRound)
+    return hg::gemm_nt<hg::kRound>(A, K, B, K, M, N, K, out, N, nullptr, s);
   return cudaErrorInvalidValue;
 }

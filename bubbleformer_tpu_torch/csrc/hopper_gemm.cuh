@@ -2,7 +2,7 @@
 // shared-memory stages, each guarded by a pair of mbarriers, one producer
 // warp that keeps the loads in flight, and two consumer warpgroups that
 // multiply with wgmma.mma_async (m64n128k16, float32 accumulators in
-// registers).  K1's products run on it (temporal_block.cu,
+// registers).  K1's and K3's bf16 products run on it (temporal_block.cu,
 // temporal_block_bwd.cu); hopper_gemm.cu exposes it alone for the tests.
 //
 // Two operand layouts, both row-major bf16 in device memory:
@@ -17,9 +17,9 @@
 //       partial tile, and splitk_sum_kernel adds the partials in range order,
 //       so the sum repeats bit for bit from run to run (no atomics).
 // Epilogues: float32 bias added and the sum rounded to bf16 (kBiasRound),
-// float32 stored (kStoreF32), float32 partial of a token range
-// (kPartialF32).  Rows and columns beyond M, N are masked; the ragged end of
-// K is zero-filled by TMA.
+// the sum rounded to bf16 without a bias (kRound), float32 stored
+// (kStoreF32), float32 partial of a token range (kPartialF32).  Rows and
+// columns beyond M, N are masked; the ragged end of K is zero-filled by TMA.
 //
 // Tile 128 x 128 x 64, three stages of 32 KB: two blocks fit one SM, so one
 // block's epilogue overlaps the other's loads.  Tensor maps are encoded on
@@ -52,7 +52,7 @@ constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // +
 constexpr int kMaxSplits = 64;
 static_assert(kBN == kBM, "one operand stage size for A and B");
 
-enum Epilogue { kBiasRound = 0, kStoreF32 = 1, kPartialF32 = 2 };
+enum Epilogue { kBiasRound = 0, kStoreF32 = 1, kPartialF32 = 2, kRound = 3 };
 
 // Token ranges of a split-K product: range z is [begin[z], begin[z + 1]),
 // every begin but the last a multiple of kBK.  One range [0, K) for NT.
@@ -62,7 +62,7 @@ struct SplitPlan {
 };
 
 struct EpilogueArgs {
-  void* out;          // bf16 (kBiasRound) or float32; partials at out + z * M * N
+  void* out;          // bf16 (kBiasRound, kRound) or float32; partials at out + z * M * N
   const float* bias;  // kBiasRound only
   int ldo;            // row stride of out, elements
 };
@@ -261,9 +261,11 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (row >= M) continue;
         const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
         const size_t at = static_cast<size_t>(row) * ep.ldo + col;
-        if constexpr (kEpi == kBiasRound) {
+        if constexpr (kEpi == kBiasRound || kEpi == kRound) {
+          const float b0 = kEpi == kBiasRound ? ep.bias[col] : 0.f;
+          const float b1 = kEpi == kBiasRound ? ep.bias[col + 1] : 0.f;
           *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(ep.out) + at) =
-              __floats2bfloat162_rn(v0 + ep.bias[col], v1 + ep.bias[col + 1]);
+              __floats2bfloat162_rn(v0 + b0, v1 + b1);
         } else {
           float* o = static_cast<float*>(ep.out);
           if constexpr (kEpi == kPartialF32) o += static_cast<size_t>(blockIdx.z) * M * N;
@@ -337,7 +339,8 @@ cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N,
 }
 
 // out(M, N) = A(M, K) . B(N, K)^T with epilogue kEpi (kBiasRound: out bf16,
-// out = bf16(sum + bias); kStoreF32: out float32).  A, B bf16 with row
+// out = bf16(sum + bias); kRound: out = bf16(sum), bias unused; kStoreF32:
+// out float32).  A, B bf16 with row
 // strides lda, ldb; every base and row stride 16-byte aligned (the callers
 // check), N even.
 template <int kEpi>

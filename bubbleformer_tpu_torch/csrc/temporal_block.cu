@@ -1,6 +1,7 @@
 // K1: the whole temporal-attention branch, forward, hand-written for Hopper
-// (sm_90a); and K3, its streamed core, whose forward is launch (b) alone
-// (bf_core_temporal_fwd, at the end).  Head dims 16 and 64 (template D).
+// (sm_90a); and K3, its streamed core (bf_core_temporal_fwd, at the end): in
+// bf16 the QKV product and the attention pass of K1's bf16 chain, in float32
+// launch (b) alone.  Head dims 16 and 64 (template D).
 //
 // Replaces bubbleformer_tpu/ops/temporal_block_mega.py:_fwd_kernel (built by
 // _make_temporal_block, entry mega_temporal_block): InstanceNorm1 -> QKV
@@ -77,9 +78,9 @@ struct HeadGroup {
 };
 
 // (b) at head dim 64, one head per block (grid (N / kP, heads, B)).  The
-// head-group kernel below computes the same at d = 64, but ran K3's bf16
-// forward 10% slower at AViT-big's width (the same work, scheduled otherwise
-// by ptxas), so d = 64 keeps its own kernel.
+// head-group kernel below computes the same at d = 64, but ran K3's forward
+// 10% slower at AViT-big's width (the same work, scheduled otherwise by
+// ptxas), so d = 64 keeps its own kernel.
 constexpr int kD = 64;
 template <typename T, typename O, bool kNorm>
 __global__ void __launch_bounds__(kThreads) qkv_attention64_kernel(
@@ -392,7 +393,7 @@ int run_temporal_block_hopper(const __nv_bfloat16* x, const float* in1_w, const 
   return timer.finish();
 }
 
-// K3: qkv_attention_kernel alone, on the IN1 output, ao in dtype.
+// K3 in float32: qkv_attention_kernel alone, on the IN1 output, ao in dtype.
 template <typename T, int D>
 int run_core_temporal(const void* xn, const void* wqkv, const float* bqkv, const float* ln,
                       const float* bias, const float* scale, void* ao, int B, int steps,
@@ -407,6 +408,31 @@ int run_core_temporal(const void* xn, const void* wqkv, const float* bqkv, const
       static_cast<const T*>(xn), nullptr, nullptr, nullptr, nullptr, static_cast<const T*>(wqkv),
       bqkv, ln, bias, scale, nullptr, static_cast<T*>(ao), nullptr, steps, N, C);
   return cudaGetLastError();
+}
+
+// K3's bf16 forward as K1's middle launches, rounding where the TPU kernel
+// rounds:
+//   (1) gemm_nt: qkv = bf16(xn . W_qkv^T + b_qkv) into the scratch qkv;
+//   (2) temporal_attention: qk-LN, T x T softmax, blend; ao rounded to bf16
+//       straight into the output (no float32 copy: K3 has no IN2).
+// launch_ms, when given, receives each launch's device time (LaunchTimer).
+template <int D>
+int run_core_temporal_hopper(const __nv_bfloat16* xn, const __nv_bfloat16* wqkv,
+                             const float* bqkv, const float* ln, const float* bias,
+                             const float* scale, __nv_bfloat16* qkv, __nv_bfloat16* ao, int B,
+                             int steps, int N, int C, int heads, cudaStream_t stream,
+                             float* launch_ms) {
+  const int R = B * steps * N;
+  LaunchTimer timer(launch_ms, stream);
+  cudaError_t e;
+#define BFT_TRY(call)                        \
+  if ((e = (call)) != cudaSuccess) return e; \
+  timer.mark()
+  BFT_TRY(hg::gemm_nt<hg::kBiasRound>(xn, C, wqkv, C, R, 3 * C, C, qkv, 3 * C, bqkv, stream));
+  BFT_TRY(launch_temporal_attention<D>(qkv, ln, bias, scale, nullptr, ao, B, steps, N, C, heads,
+                                       stream));
+#undef BFT_TRY
+  return timer.finish();
 }
 
 // The kernels' envelope, checked again here (the wrappers check it first):
@@ -466,31 +492,42 @@ extern "C" int bf_temporal_block_fwd(int dtype, int head_dim, const void* x, con
 // K3, the streamed temporal core (replaces
 // bubbleformer_tpu/ops/temporal_block_mega.py:_core_fwd_kernel, built by
 // _make_temporal_core, entry core_temporal_attention): the QKV projection of
-// the IN1 output xn, qk-LN and the T x T attention, one launch of (b) above
-// without IN1, writing ao (B, T, N, C) in dtype and nothing else: as on the
-// TPU, the backward projects again.  xn in dtype; wqkv (3C, C) in dtype;
-// head_dim, ln, bias and scale as for bf_temporal_block_fwd.
+// the IN1 output xn, qk-LN and the T x T attention, writing ao (B, T, N, C)
+// in dtype and nothing else: as on the TPU, the backward projects again.  xn
+// in dtype; wqkv (3C, C) in dtype; head_dim, ln, bias and scale as for
+// bf_temporal_block_fwd.
 //
 // What bounds it at AViT-big's training shape (B=8, T=5, 32x32 tokens,
 // C=768, 12 heads): the QKV product, 2*R*C*3C = 145 GFLOP for R = 40960
 // tokens, against ~63 MB of xn and ao in bf16: the tensor cores, 0.15 ms
-// at the bf16 peak.  This first version is far from it: each of a tile's
-// head-group blocks stages the same 768-wide xn rows through shared memory
-// with plain loads and runs WMMA 16x16x16, without cp.async, TMA or wgmma.  Its tile is K-chunked (kKC), so its shared memory does not
-// grow with C.  Returns a cudaError_t.
+// at the bf16 peak.  bf16 runs run_core_temporal_hopper: the product on the
+// Hopper GEMM into qkv, a (B*T*N, 3C) bf16 scratch (189 MB there, written
+// once and read once by the attention pass, ~0.11 ms of traffic), then the
+// attention pass.  float32 runs launch (b) above without IN1, its product on
+// block_gemm.cuh's FMA tile (qkv unused; launch_ms must be null).
+// launch_ms: null, or a host array of 2 floats for the bf16 chain's
+// per-launch milliseconds (the call then waits for the card).  Every base
+// 16-byte aligned.  Returns a cudaError_t.
 extern "C" int bf_core_temporal_fwd(int dtype, int head_dim, const void* xn, const void* wqkv,
                                     const float* bqkv, const float* ln, const float* bias,
-                                    const float* scale, void* ao, int B, int steps, int N,
-                                    int C, int heads, void* stream) {
+                                    const float* scale, void* qkv, void* ao, float* launch_ms,
+                                    int B, int steps, int N, int C, int heads, void* stream) {
   if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BFT_RUN(T, D)                                                                         \
-  return bft::run_core_temporal<T, D>(xn, wqkv, bqkv, ln, bias, scale, ao, B, steps, N, C, \
-                                      heads, s)
-  if (dtype == bft::kF32 && head_dim == 64) BFT_RUN(float, 64);
-  if (dtype == bft::kF32 && head_dim == 16) BFT_RUN(float, 16);
-  if (dtype == bft::kBF16 && head_dim == 64) BFT_RUN(__nv_bfloat16, 64);
-  if (dtype == bft::kBF16 && head_dim == 16) BFT_RUN(__nv_bfloat16, 16);
+  using bf16 = __nv_bfloat16;
+#define BFT_RUN(D)                                                                             \
+  return bft::run_core_temporal_hopper<D>(                                                     \
+      static_cast<const bf16*>(xn), static_cast<const bf16*>(wqkv), bqkv, ln, bias, scale,     \
+      static_cast<bf16*>(qkv), static_cast<bf16*>(ao), B, steps, N, C, heads, s, launch_ms)
+  if (dtype == bft::kBF16 && head_dim == 64) BFT_RUN(64);
+  if (dtype == bft::kBF16 && head_dim == 16) BFT_RUN(16);
+#undef BFT_RUN
+  if (launch_ms != nullptr) return cudaErrorInvalidValue;
+#define BFT_RUN(D)                                                                            \
+  return bft::run_core_temporal<float, D>(xn, wqkv, bqkv, ln, bias, scale, ao, B, steps, N, C, \
+                                          heads, s)
+  if (dtype == bft::kF32 && head_dim == 64) BFT_RUN(64);
+  if (dtype == bft::kF32 && head_dim == 16) BFT_RUN(16);
 #undef BFT_RUN
   return cudaErrorInvalidValue;
 }

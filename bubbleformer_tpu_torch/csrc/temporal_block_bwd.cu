@@ -1,7 +1,8 @@
 // K1: the whole temporal-attention branch, backward, hand-written for Hopper
-// (sm_90a); and K3's backward, launches (5)-(8) alone (bf_core_temporal_bwd,
-// at the end).  Head dims 16 and 64 (template D), heads in the forward's
-// groups (temporal_block.cu, HeadGroup).
+// (sm_90a); and K3's backward (bf_core_temporal_bwd, at the end): in bf16
+// the projection again and the middle of K1's bf16 chain, in float32
+// launches (5)-(8) below alone.  Head dims 16 and 64 (template D), heads in
+// the forward's groups (temporal_block.cu, HeadGroup).
 //
 // Replaces bubbleformer_tpu/ops/temporal_block_mega.py:_bwd_kernel (built by
 // _make_temporal_block, custom VJP fused_bwd): every gradient of the branch
@@ -432,9 +433,9 @@ int run_temporal_block_bwd_hopper(
                                           dbout, stream)));
   BFT_TRY((launch_plane_sums<float, bf16>(work, ao, stats2, G, N, C, sums, din2, din2 + C,
                                           stream)));
-  BFT_TRY((launch_temporal_attention_bwd<D>(qkv, ln, bias, scale, work, ao, stats2, in2_w, sums,
-                                            dqkv, dln, dbias, dscale, B, steps, N, C, heads,
-                                            stream)));
+  BFT_TRY((launch_temporal_attention_bwd<D, false>(qkv, ln, bias, scale, nullptr, work, ao,
+                                                   stats2, in2_w, sums, dqkv, dln, dbias, dscale,
+                                                   B, steps, N, C, heads, stream)));
   BFT_TRY((launch_in_norm(x, stats1, in1_w, in1_b, xs, G, N, C, stream)));
   BFT_TRY((hg::gemm_tn_splitk(dqkv, xs, R, 3 * C, C, plan_qkv, splits_qkv, part, dwqkv,
                               stream)));
@@ -449,8 +450,8 @@ int run_temporal_block_bwd_hopper(
   return timer.finish();
 }
 
-// K3's backward: the forward's qkv projected again from xn, then launches
-// (5)-(8) of K1's backward, with dao read as it is instead of IN2's
+// K3's float32 backward: the forward's qkv projected again from xn, then
+// launches (5)-(8) of K1's backward, with dao read as it is instead of IN2's
 // backward, xn read as it is instead of IN1 recomputed, and dxn written
 // rounded to T as dx.
 template <typename T, int D>
@@ -480,6 +481,48 @@ int run_core_temporal_bwd(const T* xn, const T* dao, const T* wqkv, const float*
   BFT_TRY((launch_gemm_nt<T, T>(dqkv, wqkv_t, dx, R, C, 3 * C, stream)));
 #undef BFT_TRY
   return cudaSuccess;
+}
+
+// K3's bf16 backward on the Hopper GEMM and K1's attention pass, rounding
+// where the TPU kernel rounds (temporal_block_mega.py:538, :574-595):
+//   (1) gemm_nt:                qkv = bf16(xn . W_qkv^T + b_qkv), the
+//                               forward's, into the scratch qkv;
+//   (2) temporal_attention_bwd: the direct-dao flavour: dqkv (bf16; s*dao
+//                               rounded), dln, dbias, dscale;
+//   (3) gemm_tn:                dW_qkv = dqkv^T . xn, split-K over token
+//                               ranges (plan), partials added in range order;
+//   (4) plane_sums:             db_qkv = sum dqkv;
+//   (5) gemm_nt:                dx = bf16(dqkv . W_qkv) (wqkv_t: (C, 3C)).
+// dW_qkv repeats bit for bit from run to run; db_qkv, d(qk-LN), the table
+// and scale gradients are float32 atomic sums.  launch_ms, when given,
+// receives each launch's device time.
+template <int D>
+int run_core_temporal_bwd_hopper(const __nv_bfloat16* xn, const __nv_bfloat16* dao,
+                                 const __nv_bfloat16* wqkv, const float* bqkv,
+                                 const __nv_bfloat16* wqkv_t, const float* ln, const float* bias,
+                                 const float* scale, __nv_bfloat16* qkv, __nv_bfloat16* dqkv,
+                                 __nv_bfloat16* dx, float* dwqkv, float* dbqkv, float* dln,
+                                 float* dbias, float* dscale, float* part, const int* plan,
+                                 int splits, int B, int steps, int N, int C, int heads,
+                                 cudaStream_t stream, float* launch_ms) {
+  using bf16 = __nv_bfloat16;
+  const int G = B * steps, R = G * N;
+  LaunchTimer timer(launch_ms, stream);
+  cudaError_t e;
+#define BFT_TRY(call)                        \
+  if ((e = (call)) != cudaSuccess) return e; \
+  timer.mark()
+  BFT_TRY((hg::gemm_nt<hg::kBiasRound>(xn, C, wqkv, C, R, 3 * C, C, qkv, 3 * C, bqkv, stream)));
+  BFT_TRY((launch_temporal_attention_bwd<D, true>(qkv, ln, bias, scale, dao, nullptr, nullptr,
+                                                  nullptr, nullptr, nullptr, dqkv, dln, dbias,
+                                                  dscale, B, steps, N, C, heads, stream)));
+  BFT_TRY((hg::gemm_tn_splitk(dqkv, xn, R, 3 * C, C, plan, splits, part, dwqkv, stream)));
+  BFT_TRY((launch_plane_sums<bf16, float>(dqkv, nullptr, nullptr, G, N, 3 * C, nullptr, nullptr,
+                                          dbqkv, stream)));
+  BFT_TRY((hg::gemm_nt<hg::kRound>(dqkv, 3 * C, wqkv_t, 3 * C, R, C, 3 * C, dx, C, nullptr,
+                                   stream)));
+#undef BFT_TRY
+  return timer.finish();
 }
 
 bool temporal_shape_ok(int head_dim, int steps, int N, int C, int heads) {
@@ -546,48 +589,56 @@ extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, con
 
 // K3's backward (replaces bubbleformer_tpu/ops/temporal_block_mega.py:
 // _core_bwd_kernel and fused_bwd of _make_temporal_core): every gradient of
-// bf_core_temporal_fwd from the output gradient dao, in five launches of
-// the kernels above — the raw qkv projected again from xn into scratch, as
-// the TPU kernel's backward does (the forward keeps nothing of its own), the
-// attention backward reading dao as it is and that qkv, dW_qkv += dqkv^T .
-// xn, db_qkv = sum dqkv, and dx = dtype(dqkv . W_qkv).  Rounding as the TPU
-// kernel's (:538, :574-595): the raw qkv, s*dao and the raw dqkv in dtype,
-// dx in dtype, the rest float32.
+// bf_core_temporal_fwd from the output gradient dao.  As the TPU kernel's
+// backward does, it projects xn again into the scratch qkv (the forward
+// keeps nothing of its own), then runs the attention backward reading dao
+// as it is, dW_qkv = dqkv^T . xn, db_qkv = sum dqkv and dx = dtype(dqkv .
+// W_qkv).  Rounding as the TPU kernel's (:538, :574-595): the raw qkv,
+// s*dao and the raw dqkv in dtype, dx in dtype, the rest float32.
 //
 // What bounds it at AViT-big's training shape (B=8, T=5, 32x32 tokens,
 // C=768): three products of 2*R*C*3C = 145 GFLOP each (qkv, dW_qkv, dx) for
-// R = 40960 tokens: the tensor cores, 0.44 ms at the bf16 peak.  The weight
-// gradient stages the token-major dqkv and xn with scalar, transposed
-// loads and adds ~32 token chunks per tile with float32 atomics, as K1's
-// does; it is left slow here.
+// R = 40960 tokens: the tensor cores, 0.44 ms at the bf16 peak.  bf16 runs
+// run_core_temporal_bwd_hopper above (the products on the Hopper GEMM, the
+// attention pass of K1's chain in its direct-dao flavour); float32 keeps
+// the first version's launches, its products on block_gemm.cuh's FMA tile
+// and its weight gradient by float32 atomics (last bits vary from run to
+// run).
 //
 // xn, dao, dx: (B, T, N, C) in dtype; wqkv (3C, C) and wqkv_t (C, 3C), its
 // transpose, in dtype; bqkv (3C) float32; ln (4, head_dim); bias (heads, T,
 // T); scale (heads,); qkv and dqkv (B*T*N, 3C) dtype scratch.  Outputs,
 // float32 and zeroed by the caller except dx: dwqkv (3C, C), dbqkv (3C), dln
-// (4, head_dim), dbias (heads, T, T), dscale (heads).  Returns a cudaError_t.
+// (4, head_dim), dbias (heads, T, T), dscale (heads).  bf16 only: part a
+// float32 scratch of splits * 3C * C values, plan a host array of splits + 1
+// token bounds (0, multiples of 64, B*T*N), launch_ms null or a host array
+// of 5 floats; every base 16-byte aligned.  float32: those unused, launch_ms
+// null.  Returns a cudaError_t.
 extern "C" int bf_core_temporal_bwd(int dtype, int head_dim, const void* xn, const void* dao,
                                     const void* wqkv, const float* bqkv, const void* wqkv_t,
                                     const float* ln, const float* bias, const float* scale,
                                     void* qkv, void* dqkv, void* dx, float* dwqkv, float* dbqkv,
-                                    float* dln, float* dbias, float* dscale, int B, int steps,
-                                    int N, int C, int heads, void* stream) {
+                                    float* dln, float* dbias, float* dscale, float* part,
+                                    const int* plan, int splits, float* launch_ms, int B,
+                                    int steps, int N, int C, int heads, void* stream) {
   if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BFT_ARGS(T)                                                                           \
   static_cast<const T*>(xn), static_cast<const T*>(dao), static_cast<const T*>(wqkv), bqkv,   \
       static_cast<const T*>(wqkv_t), ln, bias, scale, static_cast<T*>(qkv),                   \
-      static_cast<T*>(dqkv), static_cast<T*>(dx), dwqkv, dbqkv, dln, dbias, dscale, B, steps, N, \
-      C, heads, s
+      static_cast<T*>(dqkv), static_cast<T*>(dx), dwqkv, dbqkv, dln, dbias, dscale
   using bf16 = __nv_bfloat16;
-  if (dtype == bft::kF32 && head_dim == 64)
-    return bft::run_core_temporal_bwd<float, 64>(BFT_ARGS(float));
-  if (dtype == bft::kF32 && head_dim == 16)
-    return bft::run_core_temporal_bwd<float, 16>(BFT_ARGS(float));
   if (dtype == bft::kBF16 && head_dim == 64)
-    return bft::run_core_temporal_bwd<bf16, 64>(BFT_ARGS(bf16));
+    return bft::run_core_temporal_bwd_hopper<64>(BFT_ARGS(bf16), part, plan, splits, B, steps,
+                                                 N, C, heads, s, launch_ms);
   if (dtype == bft::kBF16 && head_dim == 16)
-    return bft::run_core_temporal_bwd<bf16, 16>(BFT_ARGS(bf16));
+    return bft::run_core_temporal_bwd_hopper<16>(BFT_ARGS(bf16), part, plan, splits, B, steps,
+                                                 N, C, heads, s, launch_ms);
+  if (launch_ms != nullptr) return cudaErrorInvalidValue;
+  if (dtype == bft::kF32 && head_dim == 64)
+    return bft::run_core_temporal_bwd<float, 64>(BFT_ARGS(float), B, steps, N, C, heads, s);
+  if (dtype == bft::kF32 && head_dim == 16)
+    return bft::run_core_temporal_bwd<float, 16>(BFT_ARGS(float), B, steps, N, C, heads, s);
 #undef BFT_ARGS
   return cudaErrorInvalidValue;
 }

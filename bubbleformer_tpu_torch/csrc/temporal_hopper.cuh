@@ -1,9 +1,10 @@
-// The passes around K1's products in its bf16 launch chain (temporal_block.cu,
-// temporal_block_bwd.cu), where the products run on hopper_gemm.cuh: the
-// InstanceNorm apply that writes a normalised activation in bf16 for a GEMM
-// to load by TMA, the T x T attention of the forward and of the backward,
-// and a timer that records a CUDA event after each launch of a chain.  Included by each .cu
-// that launches them (internal linkage).
+// The passes around K1's and K3's products in their bf16 launch chains
+// (temporal_block.cu, temporal_block_bwd.cu), where the products run on
+// hopper_gemm.cuh: the InstanceNorm apply that writes a normalised activation
+// in bf16 for a GEMM to load by TMA (K1), the T x T attention of the forward
+// and of the backward (both), and a timer that records a CUDA event after
+// each launch of a chain.  Included by each .cu that launches them (internal
+// linkage).
 #pragma once
 
 #include <algorithm>
@@ -77,11 +78,12 @@ cudaError_t launch_in_norm(const S* x, const float* stats, const float* w, const
 // heads-major [q|k|v]: per (position, head), the qk-LayerNorm of each step
 // (ln rows: q scale, q bias, k scale, k bias; q and k rounded to bf16 after
 // it), the T x T softmax with the T5 bias (heads, T, T), and the blend
-// s*P@V + (1-s)*mean_t V; writes ao in float32 (IN2's input) and rounded to
-// bf16 (the backward's residual).  A (position, head) is a group of D / 2
-// lanes, two adjacent channels each (one per warp at D = 64, four at D = 16);
-// its kT steps of k and v stay in registers, q_i for its own step.  Bound by
-// bytes: it reads the qkv once and writes ao twice.
+// s*P@V + (1-s)*mean_t V; writes ao rounded to bf16 into ao_r (K1's
+// backward residual, K3's output) and, unless ao is null (K3), in float32
+// (K1's IN2 input).  A (position, head) is a group of D / 2 lanes, two
+// adjacent channels each (one per warp at D = 64, four at D = 16); its kT
+// steps of k and v stay in registers, q_i for its own step.  Bound by bytes:
+// it reads the qkv once and writes ao once or twice.
 template <int D, int kT>
 __global__ void __launch_bounds__(256) temporal_attention_kernel(
     const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ ln,
@@ -155,13 +157,13 @@ __global__ void __launch_bounds__(256) temporal_attention_kernel(
     const float a1 = s_h * o1 + (1.f - s_h) * (m1 * inv_t);
     if (live) {
       const size_t at = (static_cast<size_t>(b * kT + i) * N + n) * C + h * D + e;
-      *reinterpret_cast<float2*>(ao + at) = make_float2(a0, a1);
+      if (ao) *reinterpret_cast<float2*>(ao + at) = make_float2(a0, a1);
       *reinterpret_cast<__nv_bfloat162*>(ao_r + at) = __floats2bfloat162_rn(a0, a1);
     }
   }
 }
 
-// The kernels below are compiled for each T of K1's envelope (1-8): their
+// The kernels below are compiled for each T of K1's and K3's envelope (1-8): their
 // per-step arrays then hold exactly T entries.
 #define BFT_FOR_EACH_T(X) X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8)
 
@@ -186,10 +188,12 @@ cudaError_t launch_temporal_attention(const __nv_bfloat16* qkv, const float* ln,
   return cudaGetLastError();
 }
 
-// The backward's attention pass, K1's launch (6) in bf16: per (position,
-// head), dao = bf16(IN2 backward of dy2) at the rounded ao (stats2 = [mean;
-// rstd] of ao_r, sums2 = [sum dy2; sum dy2 * xhat2], both (2, B*T, C)), then
-// the TPU kernel's row algebra (temporal_block_mega.py:354-388; the same
+// The backward's attention pass, K1's launch (6) and K3's launch (2) in
+// bf16: per (position, head), dao = bf16(IN2 backward of dy2) at the rounded
+// ao (K1: stats2 = [mean; rstd] of ao_r, sums2 = [sum dy2; sum dy2 * xhat2],
+// both (2, B*T, C)), or read as it is from dao_in (kDirect, K3: the output
+// gradient in bf16; dy2, ao, stats2, in2_w and sums2 unused), then the TPU
+// kernel's row algebra (temporal_block_mega.py:354-388; the same
 // formulas as temporal_block_bwd.cu's attention_bwd_kernel): w_ij = dao_i .
 // v_j, dp = s w, dl = p (dp - sum p dp), dq_i = sum_j dl k_j / sqrt(d), dk_j
 // += dl q_i / sqrt(d), dv_j += p bf16(s dao_i) + (1-s)/T sum_i dao_i; the
@@ -199,12 +203,13 @@ cudaError_t launch_temporal_attention(const __nv_bfloat16* qkv, const float* ln,
 // the dk, dv sums for all kT steps.  d(T5 table), d(attn scale) and d(qk-LN)
 // are summed in registers (the table's T x T entries spread over the lanes
 // of a group), then in the block, then added atomically once a block: few
-// blocks, so few same-address atomics.  Bound by bytes: it reads qkv, dy2
-// (float32) and ao once and writes dqkv.
-template <int D, int kT>
+// blocks, so few same-address atomics.  Bound by bytes: it reads qkv and
+// either dy2 (float32) and ao (K1) or dao (K3) once, and writes dqkv.
+template <int D, int kT, bool kDirect>
 __global__ void __launch_bounds__(256, 2) temporal_attention_bwd_kernel(
     const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ ln,
     const float* __restrict__ bias, const float* __restrict__ scale,
+    const __nv_bfloat16* __restrict__ dao_in,
     const float* __restrict__ dy2, const __nv_bfloat16* __restrict__ ao,
     const float* __restrict__ stats2, const float* __restrict__ in2_w,
     const float* __restrict__ sums2, __nv_bfloat16* __restrict__ dqkv, float* __restrict__ dln,
@@ -293,19 +298,25 @@ __global__ void __launch_bounds__(256, 2) temporal_attention_bwd_kernel(
       float2 qhat;
       float qinv;
       const float2 q = layer_norm(load2(qkv + row * 3 * C + h * 3 * D + e), 0, qhat, qinv);
-      // dao_i: the IN2 backward of dy2 at this token, rounded.
-      const size_t st = static_cast<size_t>(b * kT + i) * C + c;
-      const float2 dy = *reinterpret_cast<const float2*>(dy2 + row * C + c);
-      const float2 ar = load2(ao + row * C + c);
-      const float2 mean = *reinterpret_cast<const float2*>(stats2 + st);
-      const float2 rstd = *reinterpret_cast<const float2*>(stats2 + GC + st);
-      const float2 s0 = *reinterpret_cast<const float2*>(sums2 + st);
-      const float2 s1 = *reinterpret_cast<const float2*>(sums2 + GC + st);
-      const float xh0 = (ar.x - mean.x) * rstd.x, xh1 = (ar.y - mean.y) * rstd.y;
-      const float2 dao = make_float2(
-          round_to<__nv_bfloat16>(rstd.x * in2_w[c] * (dy.x - s0.x * inv_n - xh0 * (s1.x * inv_n))),
-          round_to<__nv_bfloat16>(rstd.y * in2_w[c + 1] *
-                                  (dy.y - s0.y * inv_n - xh1 * (s1.y * inv_n))));
+      // dao_i: as given (K3), or the IN2 backward of dy2 at this token,
+      // rounded (K1).
+      float2 dao;
+      if constexpr (kDirect) {
+        dao = load2(dao_in + row * C + c);
+      } else {
+        const size_t st = static_cast<size_t>(b * kT + i) * C + c;
+        const float2 dy = *reinterpret_cast<const float2*>(dy2 + row * C + c);
+        const float2 ar = load2(ao + row * C + c);
+        const float2 mean = *reinterpret_cast<const float2*>(stats2 + st);
+        const float2 rstd = *reinterpret_cast<const float2*>(stats2 + GC + st);
+        const float2 s0 = *reinterpret_cast<const float2*>(sums2 + st);
+        const float2 s1 = *reinterpret_cast<const float2*>(sums2 + GC + st);
+        const float xh0 = (ar.x - mean.x) * rstd.x, xh1 = (ar.y - mean.y) * rstd.y;
+        dao = make_float2(round_to<__nv_bfloat16>(rstd.x * in2_w[c] *
+                                                  (dy.x - s0.x * inv_n - xh0 * (s1.x * inv_n))),
+                          round_to<__nv_bfloat16>(rstd.y * in2_w[c + 1] *
+                                                  (dy.y - s0.y * inv_n - xh1 * (s1.y * inv_n))));
+      }
       bsum.x += (1.f - s_h) * dao.x * inv_t, bsum.y += (1.f - s_h) * dao.y * inv_t;
       float pr[kT], wv[kT];
       float mx = -INFINITY;
@@ -384,14 +395,16 @@ __global__ void __launch_bounds__(256, 2) temporal_attention_bwd_kernel(
   if (tid == 0) atomicAdd(&dscale[h], dscale_s);
 }
 
-template <int D>
+// kDirect: K3's flavour (dao_in given; dy2, ao, stats2, in2_w, sums2 null).
+template <int D, bool kDirect>
 cudaError_t launch_temporal_attention_bwd(const __nv_bfloat16* qkv, const float* ln,
                                           const float* bias, const float* scale,
-                                          const float* dy2, const __nv_bfloat16* ao,
-                                          const float* stats2, const float* in2_w,
-                                          const float* sums2, __nv_bfloat16* dqkv, float* dln,
-                                          float* dbias, float* dscale, int B, int steps, int N,
-                                          int C, int heads, cudaStream_t stream) {
+                                          const __nv_bfloat16* dao_in, const float* dy2,
+                                          const __nv_bfloat16* ao, const float* stats2,
+                                          const float* in2_w, const float* sums2,
+                                          __nv_bfloat16* dqkv, float* dln, float* dbias,
+                                          float* dscale, int B, int steps, int N, int C,
+                                          int heads, cudaStream_t stream) {
   constexpr int kPerBlock = 8 * (32 / (D / 2));  // positions a block a stride
   const int positions = B * N;
   // About four blocks an SM of an H100 (132), each striding over positions.
@@ -399,11 +412,11 @@ cudaError_t launch_temporal_attention_bwd(const __nv_bfloat16* qkv, const float*
                                        (4 * 132 + heads - 1) / heads)),
                   heads);
   switch (steps) {
-#define BFT_CASE(T)                                                                       \
-  case T:                                                                                 \
-    temporal_attention_bwd_kernel<D, T><<<grid, 256, 0, stream>>>(                        \
-        qkv, ln, bias, scale, dy2, ao, stats2, in2_w, sums2, dqkv, dln, dbias, dscale, N, \
-        C, positions);                                                                    \
+#define BFT_CASE(T)                                                                      \
+  case T:                                                                                \
+    temporal_attention_bwd_kernel<D, T, kDirect><<<grid, 256, 0, stream>>>(              \
+        qkv, ln, bias, scale, dao_in, dy2, ao, stats2, in2_w, sums2, dqkv, dln, dbias,   \
+        dscale, N, C, positions);                                                        \
     break;
     BFT_FOR_EACH_T(BFT_CASE)
 #undef BFT_CASE

@@ -1,13 +1,14 @@
-"""The Hopper GEMM of K1's products (``csrc/hopper_gemm.cuh``), on its own.
+"""The Hopper GEMM of K1's and K3's products (``csrc/hopper_gemm.cuh``), on
+its own.
 
-K1 (:mod:`bubbleformer_tpu_torch.ops.temporal_block_mega`) launches the GEMM
-from its C entries; this module exposes it to the tests and measurements,
-and holds the split-K plan of K1's weight gradients, which the wrapper
-computes on the host and hands to the kernel:
+K1 and K3 (:mod:`bubbleformer_tpu_torch.ops.temporal_block_mega`) launch the
+GEMM from their C entries; this module exposes it to the tests and
+measurements, and holds the split-K plan of their weight gradients, which
+the wrappers compute on the host and hand to the kernel:
 
 * :func:`gemm_nt`: ``a (M, K) @ b (N, K)^T`` in bf16 with a float32
-  accumulator, stored in float32 or, with a float32 bias added, rounded to
-  bf16;
+  accumulator, stored in float32 or rounded to bf16, with or without a
+  float32 bias added first;
 * :func:`gemm_tn`: ``d (R, M)^T @ s (R, N)`` over R tokens in float32, split
   over token ranges (:func:`split_k_plan`) whose partial products are added
   in range order, so the sum repeats bit for bit.
@@ -74,9 +75,9 @@ def _check(what, **tensors):
 
 def gemm_nt(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = None,
             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``a (M, K) @ b (N, K)^T``: float32 (``out_dtype`` float32, no bias)
+    """``a (M, K) @ b (N, K)^T``: float32 (``out_dtype`` float32, no bias),
     or ``bf16(sum + bias)`` (``out_dtype`` bfloat16, a float32 ``bias`` of
-    N)."""
+    N) or ``bf16(sum)`` (``out_dtype`` bfloat16, no bias: K3's dx)."""
     if a.device.type == "cpu":
         return gemm_nt_plain(a, b, bias, out_dtype)
     _check("gemm_nt", a=a, b=b)
@@ -84,13 +85,16 @@ def gemm_nt(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor] = Non
     if b.shape[1] != k or n % 8:
         raise ValueError(f"gemm_nt: a {tuple(a.shape)} and b {tuple(b.shape)} (N a multiple "
                          "of 8)")
-    if (out_dtype == torch.bfloat16) != (bias is not None) or out_dtype not in (
-            torch.bfloat16, torch.float32):
-        raise ValueError("gemm_nt: a bias with a bfloat16 output, or neither with float32")
+    if out_dtype not in (torch.bfloat16, torch.float32) or (
+            out_dtype == torch.float32 and bias is not None):
+        raise ValueError("gemm_nt: a bfloat16 output with or without a bias, or float32 "
+                         "without one")
     bias = None if bias is None else bias.detach().float().contiguous()
     out = torch.empty(m, n, device=a.device, dtype=out_dtype)
+    # csrc/hopper_gemm.cuh's epilogues: kBiasRound, kStoreF32, kRound.
+    epilogue = 1 if out_dtype == torch.float32 else 0 if bias is not None else 3
     lib = _build.library()
-    err = lib.bf_hopper_gemm(0, 0 if bias is not None else 1, a.data_ptr(), b.data_ptr(),
+    err = lib.bf_hopper_gemm(0, epilogue, a.data_ptr(), b.data_ptr(),
                              out.data_ptr(), None if bias is None else bias.data_ptr(), None,
                              m, n, k, None, 1, _build.stream_handle(a.device))
     _build.check(lib, err, "bf_hopper_gemm (NT)")

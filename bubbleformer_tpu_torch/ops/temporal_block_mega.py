@@ -47,8 +47,12 @@ the caller.  It rounds ``ao`` to the activation dtype and its backward
 returns ``dxn = dtype(W^T dqkv)``.  Its kernels are K1's middle launches
 with the InstanceNorm taken out (``bf_core_temporal_fwd`` in
 ``csrc/temporal_block.cu``, ``bf_core_temporal_bwd`` in
-``csrc/temporal_block_bwd.cu``); the plain versions share K1's attention
-arithmetic (:func:`_qkv_attention`, :func:`_attention_recompute`,
+``csrc/temporal_block_bwd.cu``): in bfloat16 the products of K1's bf16
+chain on the Hopper GEMM (the weight gradient split-K in a fixed order, so
+it repeats bit for bit) and its attention passes, the backward's in a
+flavour that reads ``dao`` as it is; in float32 the first version's FMA
+tile.  The plain versions share K1's attention arithmetic
+(:func:`_qkv_attention`, :func:`_attention_recompute`,
 :func:`_attention_bwd`).  Unlike K1, it keeps no qkv: its backward kernel
 projects ``xn`` again into scratch, as the TPU kernel does, so no 3C-wide
 tensor outlives a call (remat ``"dots"`` keeps ``ao`` and the inputs
@@ -336,6 +340,10 @@ FWD_LAUNCHES = ("IN1 statistics", "IN1 apply (xn)", "QKV GEMM", "attention", "IN
 BWD_LAUNCHES = ("IN2 statistics", "dy2 GEMM", "IN2 apply (y2)", "dW_out split-K GEMM + sum",
                 "db_out", "IN2 backward sums", "attention backward", "IN1 apply (xn)",
                 "dW_qkv split-K GEMM + sum", "db_qkv", "dxn GEMM", "IN1 backward sums", "dx")
+# Likewise K3's bf16 chains (the same files, run_core_temporal*_hopper).
+CORE_FWD_LAUNCHES = ("QKV GEMM", "attention")
+CORE_BWD_LAUNCHES = ("QKV GEMM", "attention backward", "dW_qkv split-K GEMM + sum", "db_qkv",
+                     "dx GEMM")
 
 
 def _launch_times(launch_ms, names):
@@ -612,11 +620,27 @@ def core_temporal_bwd_plain(
             None if scale_factor is None else grads[-1])
 
 
-def core_temporal_attention_fwd(xn: torch.Tensor, *params, heads: int) -> torch.Tensor:
+def _check_core_launch_ms(what, xn, launch_ms):
+    """Per-launch times exist only for K3's bf16 chains on the card: raise
+    for ``launch_ms`` with a float32 or a CPU ``xn``."""
+    if launch_ms is None:
+        return
+    if xn.dtype != torch.bfloat16:
+        raise ValueError(f"{what}: per-launch times are the bf16 chain's, xn is {xn.dtype}")
+    if xn.device.type != "cuda":
+        raise ValueError(f"{what}: per-launch times are the card's, xn is on {xn.device}")
+
+
+def core_temporal_attention_fwd(xn: torch.Tensor, *params, heads: int,
+                                launch_ms=None) -> torch.Tensor:
     """K3's forward kernel on CUDA tensors (``csrc/temporal_block.cu``,
     ``bf_core_temporal_fwd``): ``ao`` in ``xn.dtype``, and nothing kept for
-    the backward, which projects again as the TPU kernel's does.  Counts
+    the backward, which projects again as the TPU kernel's does.  In bf16
+    the raw qkv is a ``(B*T*N, 3C)`` scratch freed on return, and
+    ``launch_ms``, a dict, receives the device milliseconds of each launch
+    (:data:`CORE_FWD_LAUNCHES`; the call then waits for the card).  Counts
     ``core_temporal_attention.launches``."""
+    _check_core_launch_ms("core_temporal_attention_fwd", xn, launch_ms)
     if xn.device.type != "cuda":
         raise ValueError(
             f"core_temporal_attention_fwd: the kernel needs a CUDA tensor, not {xn.device}")
@@ -625,27 +649,41 @@ def core_temporal_attention_fwd(xn: torch.Tensor, *params, heads: int) -> torch.
     b, t, h, w, c = xn.shape
     dev, dt = xn.device, xn.dtype
     xn = xn.contiguous()
+    qkv = None
+    if dt == torch.bfloat16:
+        _build.check_tma("core_temporal_attention", xn=xn, wqkv=p["wqkv"])
+        qkv = torch.empty(b * t * h * w, 3 * c, device=dev, dtype=dt)
     ao = torch.empty_like(xn)
+    times = _launch_times(launch_ms, CORE_FWD_LAUNCHES)
     lib = _build.library()
     err = lib.bf_core_temporal_fwd(
         _build.DTYPE_CODES[dt], d, xn.data_ptr(), *(a.data_ptr() for a in p.values()),
-        ao.data_ptr(), b, t, h * w, c, heads, _build.stream_handle(dev),
+        None if qkv is None else qkv.data_ptr(), ao.data_ptr(), times, b, t, h * w, c, heads,
+        _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_core_temporal_fwd")
     core_temporal_attention.launches += 1
+    if times is not None:
+        launch_ms.update(zip(CORE_FWD_LAUNCHES, times))
     return ao
 
 
-def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params,
-                                heads: int) -> tuple:
+def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, heads: int,
+                                launch_ms=None) -> tuple:
     """K3's backward: the gradients :func:`core_temporal_bwd_plain` returns.
 
     CPU tensors take :func:`core_temporal_bwd_plain`.  CUDA tensors launch
     ``csrc/temporal_block_bwd.cu``'s ``bf_core_temporal_bwd``, which projects
     ``xn`` again into a qkv scratch, as the TPU kernel's backward does
     (``_core_bwd_kernel``), and count ``core_temporal_attention_bwd.launches``.
-    The parameter gradients are float32 atomic sums over all B*T*N tokens:
-    their last bits vary from run to run."""
+    In bf16 dW_qkv is a split-K sum over token ranges
+    (:func:`~bubbleformer_tpu_torch.ops.hopper_gemm.split_k_plan`) added in a
+    fixed order, so it repeats bit for bit, and ``launch_ms``, a dict,
+    receives each launch's device milliseconds (:data:`CORE_BWD_LAUNCHES`).
+    The other parameter gradients (and in float32 all of them) are float32
+    atomic sums over all B*T*N tokens: their last bits vary from run to
+    run."""
+    _check_core_launch_ms("core_temporal_attention_bwd", xn, launch_ms)
     if xn.device.type == "cpu":
         return core_temporal_bwd_plain(dao, xn, *params, heads=heads)
     if xn.device.type != "cuda":
@@ -655,6 +693,7 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params,
     b, t, h, w, c = xn.shape
     g, dev, dt = b * t * h * w, xn.device, xn.dtype
     _build.check_shapes("core_temporal_attention_bwd", dao=(dao, xn.shape))
+    hopper = dt == torch.bfloat16
 
     def zeros(*shape):
         return torch.zeros(*shape, device=dev)
@@ -667,16 +706,26 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params,
     wqkv_t = p["wqkv"].t().contiguous()
     qkv = torch.empty(g, 3 * c, device=dev, dtype=dt)
     dqkv = torch.empty(g, 3 * c, device=dev, dtype=dt)
+    part = plan = None
+    splits = 0
+    if hopper:
+        _build.check_tma("core_temporal_attention_bwd", xn=xn, dao=dao, wqkv=p["wqkv"])
+        bounds = hopper_gemm.split_k_plan(g, 3 * c, c)
+        splits, plan = len(bounds) - 1, _build.int32_array(bounds)
+        part = torch.empty(splits * 3 * c * c, device=dev)
+    times = _launch_times(launch_ms, CORE_BWD_LAUNCHES)
     lib = _build.library()
     err = lib.bf_core_temporal_bwd(
         _build.DTYPE_CODES[dt], d, xn.data_ptr(), dao.data_ptr(), p["wqkv"].data_ptr(),
         p["bqkv"].data_ptr(), wqkv_t.data_ptr(), p["ln"].data_ptr(), p["bias"].data_ptr(),
         p["scale"].data_ptr(), qkv.data_ptr(), dqkv.data_ptr(),
-        *(a.data_ptr() for a in grads.values()), b, t, h * w, c, heads,
-        _build.stream_handle(dev),
+        *(a.data_ptr() for a in grads.values()), None if part is None else part.data_ptr(),
+        plan, splits, times, b, t, h * w, c, heads, _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_core_temporal_bwd")
     core_temporal_attention_bwd.launches += 1
+    if times is not None:
+        launch_ms.update(zip(CORE_BWD_LAUNCHES, times))
     gr = grads
     bias, scale_factor = params[-2], params[-1]
     return (gr["dx"], gr["dwqkv"], gr["dbqkv"], gr["dln"][0], gr["dln"][1], gr["dln"][2],

@@ -58,7 +58,9 @@ paths give it — the rollout's (batch 1) and the training step's:
    float32 and bfloat16, at AViT-big's rollout shape (1, 5, 32, 32, 768),
    its training shape (8, 5, 32, 32, 768) and FiLMAViT-small 1024x1024's
    (2, 5, 64, 64, 384), which routes to the core too; with the times of
-   both and of cuBLAS's QKV product alone (a partial yardstick);
+   both and of cuBLAS's products alone (a partial yardstick: the QKV
+   product forward, three products backward; bf16 K3 runs its products on
+   the Hopper GEMM) and, at the training shape in bf16, each launch's time;
 12. K2 forward and backward at AViT-big's 12 heads, qkv (5, 32, 32, 2304)
    and (40, 32, 32, 2304);
 13. one float32 AViT-big window on the card (kernels) against the CPU (plain
@@ -92,7 +94,7 @@ paths give it — the rollout's (batch 1) and the training step's:
 23. K1 and K3 at head dim 16 (``BRANCH_SHAPES``: K1 at AViT-tiny's 512^2
    training shape, K3 at its 512x2048 flow-boiling shapes), forward and
    every gradient against the plain versions (``KERNEL_RTOL``), both times
-   (K1's with cuBLAS's products alone and its per-launch times);
+   (each with cuBLAS's products alone and its per-launch times);
 24. K5 (``mega_axial_block``) likewise at FiLMAViT-small's rollout and
    training shapes and at AViT-tiny's with ``mega`` (head dim 16), with the
    time of cuBLAS's two projections alone (a partial yardstick);
@@ -342,27 +344,46 @@ def k1_gemm_ms(x, wqkv, wout, do=None, qkv=None) -> float:
                             torch.matmul(qkv, wqkv), torch.matmul(qkv.t(), x2)))
 
 
-def k1_launch_line(label: str, args: dict, do, heads: int) -> None:
-    """Prints each launch's device time (CUDA events around each launch of
-    the C entries, the mean of 5 calls after one warm-up) of K1's bf16
-    forward and backward chains on ``args``."""
-    from bubbleformer_tpu_torch.ops.temporal_block_mega import (
-        PARAM_NAMES,
-        mega_temporal_block_bwd,
-        mega_temporal_block_fwd,
-    )
+def k3_gemm_ms(xn, wqkv, dqkv=None) -> float:
+    """cuBLAS (``torch.matmul``) on K3's products alone at xn's shape, a
+    partial yardstick: the forward's one (xn W_qkv^T), or with a (R, 3C)
+    tensor ``dqkv`` standing in for the raw qkv gradient, the backward's
+    three (xn W_qkv^T again, dqkv^T xn, dqkv W_qkv)."""
+    import torch
 
-    params = [args[k] for k in PARAM_NAMES]
-    fwd, bwd = {}, {}
+    x2 = xn.reshape(-1, xn.shape[-1])
+    if dqkv is None:
+        return cuda_ms(lambda: torch.matmul(x2, wqkv.t()))
+    return cuda_ms(lambda: (torch.matmul(x2, wqkv.t()), torch.matmul(dqkv.t(), x2),
+                            torch.matmul(dqkv, wqkv)))
+
+
+def launch_line(label: str, args: dict, do, heads: int) -> None:
+    """Prints each launch's device time (CUDA events around each launch of
+    the C entries, the mean of 5 calls after one warm-up) of the bf16
+    forward and backward chains of K1 (``args`` has ``x``) or K3 (``xn``)
+    on ``args``."""
+    from bubbleformer_tpu_torch.ops import temporal_block_mega as k13
+
+    if "x" in args:
+        names, fwd, bwd = k13.PARAM_NAMES, k13.mega_temporal_block_fwd, k13.mega_temporal_block_bwd
+    else:
+        names, fwd = k13.CORE_PARAM_NAMES, k13.core_temporal_attention_fwd
+        bwd = k13.core_temporal_attention_bwd
+    act = args["x"] if "x" in args else args["xn"]
+    params = [args[k] for k in names]
+    acc_f, acc_b = {}, {}
     for i in range(6):
         lf, lb = {}, {}
-        _, res = mega_temporal_block_fwd(args["x"], *params, heads=heads, launch_ms=lf)
-        mega_temporal_block_bwd(do, args["x"], *params, heads=heads, residuals=res, launch_ms=lb)
-        for acc, one in ((fwd, lf), (bwd, lb)):
+        out = fwd(act, *params, heads=heads, launch_ms=lf)
+        # K1's forward returns its residuals for the backward; K3's keeps none.
+        kept = {"residuals": out[1]} if isinstance(out, tuple) else {}
+        bwd(do, act, *params, heads=heads, launch_ms=lb, **kept)
+        for acc, one in ((acc_f, lf), (acc_b, lb)):
             for k, v in one.items():
                 acc[k] = acc.get(k, 0.0) + (v / 5 if i else 0.0)
-    for what, acc in (("forward", fwd), ("backward", bwd)):
-        print(f"  {label} {tuple(args['x'].shape)} per-launch ms ({what}, CUDA events, sum "
+    for what, acc in (("forward", acc_f), ("backward", acc_b)):
+        print(f"  {label} {tuple(act.shape)} per-launch ms ({what}, CUDA events, sum "
               f"{sum(acc.values()):.4f}): " + json.dumps({k: round(v, 4) for k, v in acc.items()}),
               flush=True)
 
@@ -1115,6 +1136,16 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
                 results[(key + " bwd gemm", name, where)] = gemm_b
                 extra = (f"; cuBLAS's products alone (partial yardstick) forward {gemm_f:.4f}, "
                          f"backward {gemm_b:.4f} ms")
+            if key.startswith("K3"):
+                w1 = args["wqkv"].to(dt)
+                gemm_f = k3_gemm_ms(act, w1)
+                stand_in = torch.matmul(act.reshape(-1, shape[-1]), w1.t())  # a (R, 3C) dqkv
+                gemm_b = k3_gemm_ms(act, w1, stand_in)
+                del stand_in
+                results[(key + " gemm", name, where)] = gemm_f
+                results[(key + " bwd gemm", name, where)] = gemm_b
+                extra = (f"; cuBLAS's products alone (partial yardstick) forward {gemm_f:.4f}, "
+                         f"backward {gemm_b:.4f} ms")
             if key == "K5":
                 x2 = act.reshape(-1, shape[-1])
                 w1, w2 = args["wqkv"].to(dt), args["wout"].to(dt)
@@ -1125,8 +1156,8 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
                   f"backward {ms_b:.4f} ms (plain {plain_b:.4f}){extra}", flush=True)
             results[(key, name, where)] = (err_f, ms_f, plain_f)
             results[(key + " bwd", name, where)] = (err_b, ms_b, plain_b)
-            if key.startswith("K1") and dt == torch.bfloat16 and where == "training":
-                k1_launch_line(f"{key} bf16 {where}", args, do, heads)
+            if key[:2] in ("K1", "K3") and dt == torch.bfloat16 and where == "training":
+                launch_line(f"{key} bf16 {where}", args, do, heads)
             del res, kept, args, params, act, do
         del base, do32
 
@@ -2200,7 +2231,7 @@ def main() -> None:
             results[("K1 bwd gemm", name, where)] = gemm
             del res
     args = dict(x=k1_x["training"].to(torch.bfloat16), **k1)
-    k1_launch_line("K1 bf16 training", args, k1_do["training"].to(dev, torch.bfloat16), heads)
+    launch_line("K1 bf16 training", args, k1_do["training"].to(dev, torch.bfloat16), heads)
     del k1_x, k1_do, args
 
     print(f"== phase 8: K2 backward vs plain, qkv {shapes['K2']['rollout']} and "
@@ -2358,8 +2389,8 @@ def main() -> None:
             del got, ref
             ms = cuda_ms(lambda: core_temporal_attention(**args, heads=hh))
             plain_ms = cuda_ms(lambda: core_temporal_plain(**args, heads=hh))
-            x2, w2 = args["xn"].reshape(-1, cc), k3["wqkv"].to(dt)
-            gemm_ms = cuda_ms(lambda: torch.matmul(x2, w2.t()))
+            w2 = k3["wqkv"].to(dt)
+            gemm_ms = k3_gemm_ms(args["xn"], w2)
             print(f"  K3 {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
                   f"cuBLAS QKV product alone (partial yardstick) {gemm_ms:.4f} ms", flush=True)
             results[("K3", name, where)] = (err, ms, plain_ms)
@@ -2375,10 +2406,17 @@ def main() -> None:
             ms = cuda_ms(lambda: core_temporal_attention_bwd(dao, args["xn"], *params,
                                                              heads=hh))
             plain_ms = cuda_ms(lambda: core_temporal_bwd_plain(dao, **args, heads=hh))
-            print(f"  K3 bwd {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+            stand_in = torch.matmul(args["xn"].reshape(-1, cc), w2.t())  # a (R, 3C) dqkv
+            gemm_ms = k3_gemm_ms(args["xn"], w2, stand_in)
+            del stand_in
+            print(f"  K3 bwd {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                  f"cuBLAS's three products alone (partial yardstick) {gemm_ms:.4f} ms",
                   flush=True)
             results[("K3 bwd", name, where)] = (err, ms, plain_ms)
-            del args, params, dao
+            results[("K3 bwd gemm", name, where)] = gemm_ms
+            if dt == torch.bfloat16 and where == "training":
+                launch_line(f"K3 bf16 {where}", args, dao, hh)
+            del args, params, dao, w2
         del k3, xn32, dao32
 
     print(f"== phase 12: K2 at {heads_big} heads vs plain, forward and backward, qkv "
@@ -2542,20 +2580,18 @@ def main() -> None:
             per_window = (big_launches if on_big else launches).get(key, 0) // WINDOWS
         err, ms, plain_ms = results[(key, "bfloat16", "training")]
         bound_ms, bound_by = bound(*kernel_work(key, cases["training"], "bfloat16"), "bfloat16")
-        # K1: cuBLAS on its products alone (partial yardstick).
+        # K1 and K3: cuBLAS on their products alone (partial yardstick).
         library = results.get((key + " gemm", "bfloat16", "training"))
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": run_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library if key.startswith("K1") else None})
+                        "library_ms": library if key[:2] in ("K1", "K3") else None})
         for where in cases:
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
-                extra = (f", cuBLAS QKV product alone {results[('K3 gemm', dt, where)]:.4f} ms"
-                         if key == "K3" else
-                         f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
-                         if key.startswith("K1") else "")
+                extra = (f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
+                         if key[:2] in ("K1", "K3") else "")
                 print(f"  {name} {where} {cases[where]} {dt}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
         print(f"  {name}: launches per rollout window {per_window}, "
@@ -2601,7 +2637,7 @@ def main() -> None:
                         "launches": launches_run, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": results.get((key + " gemm", "bfloat16", "training"))
-                        if key.startswith("K1") else None})
+                        if key[:2] in ("K1", "K3") else None})
         for where in cases:
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)
@@ -2609,7 +2645,7 @@ def main() -> None:
                 extra = (f", cuBLAS's two projections alone {results[('K5 gemm', dt, where)]:.4f} "
                          f"ms" if key == "K5" else
                          f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
-                         if key.startswith("K1") else "")
+                         if key[:2] in ("K1", "K3") else "")
                 print(f"  {name} {where} {cases[where]} {dt}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
         print(f"  {name}: launches per training step {launches_run // run['steps']}")

@@ -12,11 +12,11 @@ pixels (``--size`` for square frames, 512 by default), runs warm-up steps,
 times ``--steps`` steps with CUDA events (ms/step, samples/s, peak memory),
 then traces ``--profile-steps`` more with ``torch.profiler`` and sums the
 device time of every kernel by part: the port's hand-written kernels (K1's
-bf16 chain runs its products on the Hopper GEMM, ``csrc/hopper_gemm.cuh``;
-the whole-branch kernels K1 (in float32), K3 and K5 and the in-kernel
-projection of K9 share their products and statistics kernels,
-``csrc/block_ops.cuh``; the line
-kernels serve K2, K4-K9; K10 is the loss's plane norms), matrix products (cuBLAS), the
+and K3's bf16 chains run their products on the Hopper GEMM,
+``csrc/hopper_gemm.cuh``; the whole-branch kernels K1 and K3 (in float32)
+and K5 and the in-kernel projection of K9 share their products and
+statistics kernels, ``csrc/block_ops.cuh``; the line kernels serve K2,
+K4-K9; K10 is the loss's plane norms), matrix products (cuBLAS), the
 optimizer's foreach kernels, and the rest (elementwise, reductions,
 copies); and by kernel wrapper (``WRAPPERS``:
 each call of a wrapper is traced as one range, whose device time is that
@@ -69,14 +69,14 @@ from bubbleformer_tpu_torch.training import module_class
 
 # Kernel-name fragments of each part, checked in this order.
 PARTS = (
-    ("K1 bf16 products (Hopper GEMM)", ("hg::gemm_kernel", "splitk_sum_kernel")),
-    ("K1 bf16 attention and norm apply", ("temporal_attention", "in_norm_kernel")),
+    ("K1, K3 bf16 products (Hopper GEMM)", ("hg::gemm_kernel", "splitk_sum_kernel")),
+    ("K1, K3 bf16 attention passes and norm apply", ("temporal_attention", "in_norm_kernel")),
     ("branch products and norms, backward (K1, K3, K5, K9)", (
         "gemm_nt_kernel", "wgrad_kernel", "plane_sums_kernel", "in_apply_kernel")),
-    ("temporal attention backward (K1, K3)", ("attention_bwd_kernel",)),
+    ("temporal attention backward (K1, K3 float32)", ("attention_bwd_kernel",)),
     ("branch products and norms, forward (K1, K3, K5, K9)", ("norm_proj_kernel",
                                                              "plane_stats_kernel")),
-    ("temporal QKV and attention forward (K1, K3)", ("qkv_attention",)),
+    ("temporal QKV and attention forward (K1, K3 float32)", ("qkv_attention",)),
     ("line kernels backward (K2, K4-K9)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
     ("line kernels forward (K2, K4-K9)", ("line_fwd_kernel", "line_short_fwd_kernel")),
     ("loss plane norms (K10)", ("norms_partial_kernel", "norms_finish_kernel", "dpred_kernel")),

@@ -6,19 +6,20 @@ K1 (the temporal branch, ``mega_temporal_block``) at x (8, 5, 32, 32, 384),
 FiLMAViT-small's, and at head dim 16, x (8, 5, 64, 64, 96), AViT-tiny's at
 512x512; K2 (the lane axial attention, ``lane_axial_attention``) at qkv (40,
 32, 32, 1152); K3 (the streamed temporal core, ``core_temporal_attention``)
-at AViT-big's xn (8, 5, 32, 32, 768) and AViT-small's on the flow-boiling
-grid at batch 4, (4, 5, 32, 128, 384), through its autograd Function as a
-training step without remat calls it (the backward alone by
+at AViT-big's xn (8, 5, 32, 32, 768), AViT-small's on the flow-boiling grid
+at batch 4 and 8, (4, 5, 32, 128, 384) and (8, 5, 32, 128, 384), and
+AViT-tiny's there at head dim 16, (4, 5, 64, 256, 96), through its autograd
+Function as a training step without remat calls it (the backward alone by
 ``torch.autograd.grad`` on a kept graph); K5 (the mega axial block,
 ``mega_axial_block``) and K9 (the lane route with the projection in the
 kernel, ``lane_px_attention``) at x (40, 32, 32, 384).  Forward and
-backward, in bfloat16 and float32, by CUDA events (20 calls after 3
-warm-up), from the checkout given by ``--repo`` (default: this one), whose
-kernels it builds first.  Then, in bfloat16 at K1's first shape, the device
-time of each kernel one K1 forward and one backward launch, by
-``torch.profiler`` (the mean of 5 traced calls; names shortened), which
-reads any checkout alike.  Comparing two versions of the kernels takes two
-processes on one card, one per checkout, in turns:
+backward, in bfloat16 and float32, by CUDA events (20 calls after at least
+``WARMUP_S`` seconds of warm-up calls), from the checkout given by
+``--repo`` (default: this one), whose kernels it builds first.  Then, in bfloat16 at K1's first shape and at
+K3's AViT-big shape, the device time of each kernel one forward and one
+backward launch, by ``torch.profiler`` (the mean of 5 traced calls; names
+shortened), which reads any checkout alike.  Comparing two versions of the
+kernels takes two processes on one card, one per checkout, in turns:
 
     python3 scripts/time_kernels_torch.py --repo build/parent --label parent
     python3 scripts/time_kernels_torch.py --label change
@@ -33,10 +34,16 @@ import json
 import re
 import subprocess
 import sys
+import time
 from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
+
+# Seconds of warm-up calls before each timing.  Three calls alone left a
+# float32 kernel's time dependent on the load that ran before it: the same
+# SASS read 3% apart after three calls and within 0.4% after one second.
+WARMUP_S = 1.0
 
 
 def main(argv=None) -> None:
@@ -95,6 +102,10 @@ def main(argv=None) -> None:
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < WARMUP_S:
+            fn()
+            torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(args.iters):
@@ -130,11 +141,16 @@ def main(argv=None) -> None:
         out[f"K9 {name}"] = ms(lambda: k9.lane_px_attention(x9, *k9_params, heads=heads))
         out[f"K9 bwd {name}"] = ms(lambda: k9.lane_px_attention_bwd(do2, x9, *k9_params,
                                                                     heads=heads))
-    for case, (shape, h) in {"avit_big": ((8, t, 32, 32, 768), 12),
-                             "flow_b4": ((4, t, 32, 128, 384), 6)}.items():
+    k3_cases = {"avit_big": ((8, t, 32, 32, 768), 12), "flow_b4": ((4, t, 32, 128, 384), 6),
+                "flow_b8": ((8, t, 32, 128, 384), 6), "flow_d16": ((4, t, 64, 256, 96), 6)}
+
+    def k3_args(shape, h):
         cc = shape[-1]
-        k3_params = [n(3 * cc, cc, scale=cc**-0.5), n(3 * cc, scale=0.1), *ln(d),
-                     n(h, t, t), n(h, scale=0.2, offset=1.0)]
+        return [n(3 * cc, cc, scale=cc**-0.5), n(3 * cc, scale=0.1), *ln(cc // h), n(h, t, t),
+                n(h, scale=0.2, offset=1.0)]
+
+    for case, (shape, h) in k3_cases.items():
+        k3_params = k3_args(shape, h)
         xn32 = n(*shape)
         for dt in (torch.bfloat16, torch.float32):
             name = str(dt).split(".")[-1]
@@ -146,12 +162,20 @@ def main(argv=None) -> None:
                 lambda: torch.autograd.grad(y, inputs, dao, retain_graph=True))
             del inputs, y, dao
 
-    # K1's kernels, one forward and one backward call each, by device time.
+    # K1's and K3's kernels, one forward and one backward call each, by
+    # device time.
     x32, params = branch(branches["K1"][0], 6)
     x, do = x32.to(torch.bfloat16), n(*x32.shape).to(torch.bfloat16)
     _, res = k1.mega_temporal_block_fwd(x, *params, heads=6)
-    calls = {"fwd": lambda: k1.mega_temporal_block_fwd(x, *params, heads=6),
-             "bwd": lambda: k1.mega_temporal_block_bwd(do, x, *params, heads=6, residuals=res)}
+    shape3, h3 = k3_cases["avit_big"]
+    xn, p3, dao = n(*shape3).to(torch.bfloat16), k3_args(shape3, h3), n(*shape3).to(torch.bfloat16)
+    calls = {"K1 bfloat16 fwd": lambda: k1.mega_temporal_block_fwd(x, *params, heads=6),
+             "K1 bfloat16 bwd": lambda: k1.mega_temporal_block_bwd(do, x, *params, heads=6,
+                                                                   residuals=res),
+             "K3 avit_big bfloat16 fwd": lambda: k1.core_temporal_attention_fwd(xn, *p3,
+                                                                                heads=h3),
+             "K3 avit_big bfloat16 bwd": lambda: k1.core_temporal_attention_bwd(dao, xn, *p3,
+                                                                                heads=h3)}
     for what, fn in calls.items():
         fn()
         torch.cuda.synchronize()
@@ -165,7 +189,7 @@ def main(argv=None) -> None:
                 short = re.sub(r"\(.*", "", re.sub(r"^void |bft::|\(anonymous namespace\)::", "",
                                                    evt.name))[:70]
                 per[short] += evt.time_range.elapsed_us() / 1e3 / 5
-        out[f"K1 bfloat16 {what} kernels"] = {k: round(v, 4) for k, v in per.items()}
+        out[f"{what} kernels"] = {k: round(v, 4) for k, v in per.items()}
     print(json.dumps(out), flush=True)
 
 

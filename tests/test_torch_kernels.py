@@ -26,9 +26,10 @@ only) and 2e-2 (bfloat16, single-ulp rounding flips and what they propagate
 into) of the reference's largest magnitude.  The backward kernels are held
 to the same, gradient by gradient (``tests/_torch_grads.py``): their float32
 sums are also reordered by atomics from run to run (but K1's bf16 weight
-gradients, split-K sums added in a fixed order, repeat bit for bit).  The
-Hopper GEMM of K1's products, in both operand layouts, is held against
-``torch.matmul`` in float32 at K1's shapes and ragged ones.
+gradients, split-K sums added in a fixed order, repeat bit for bit, and so
+does K3's bf16 dW_qkv).  The Hopper GEMM of K1's and K3's products, in both
+operand layouts and with each epilogue, is held against ``torch.matmul`` in
+float32 at their shapes and ragged ones.
 """
 import re
 from types import SimpleNamespace
@@ -1155,9 +1156,11 @@ def test_probe_kernels_raise_outside_their_envelope_on_card(cuda_device):
 # training and rollout token counts, AViT-tiny's (head dim 16) at 512x512,
 # and ragged token counts (not a multiple of the 64-token stage).
 SPLIT_CASES = [(40960, 1152, 384), (40960, 384, 384), (5120, 1152, 384), (163840, 288, 96),
-               (163840, 96, 96), (777, 136, 200), (65, 8, 8), (1, 1152, 384)]
+               (163840, 96, 96), (777, 136, 200), (65, 8, 8), (1, 1152, 384),
+               (40960, 2304, 768), (163840, 1152, 384), (327680, 288, 96)]
 SPLIT_IDS = ["training_qkv", "training_out", "rollout_qkv", "d16_qkv", "d16_out", "ragged",
-             "ragged_small", "one_token"]
+             "ragged_small", "one_token", "k3_avit_big_qkv", "k3_flow_b8_qkv",
+             "k3_flow_d16_qkv"]
 
 
 @pytest.mark.parametrize("tokens,m,n", SPLIT_CASES, ids=SPLIT_IDS)
@@ -1180,6 +1183,55 @@ def test_split_k_plan_fills_the_card_at_the_training_shape():
     bounds = hopper_gemm.split_k_plan(40960, 1152, 384)
     assert len(bounds) - 1 == 10
     assert abs(27 * (len(bounds) - 1) - hopper_gemm.TARGET_BLOCKS) < 27
+
+
+def test_split_k_plan_fills_the_card_at_avit_big_shape():
+    """K3's dW_qkv at AViT-big's training shape: 18 x 6 = 108 output tiles,
+    so two token ranges bring the blocks nearest two a streaming
+    multiprocessor, and each partial is 3C x C float32 (14 MB for both)."""
+    bounds = hopper_gemm.split_k_plan(40960, 2304, 768)
+    assert bounds == [0, 20480, 40960]
+    assert abs(108 * (len(bounds) - 1) - hopper_gemm.TARGET_BLOCKS) < 108
+
+
+def test_hopper_gemm_nt_rounds_without_a_bias_on_cpu():
+    """The no-bias rounding form (K3's dx): ``bf16(a @ b^T)`` from the
+    plain version, no launch; float32 with a bias is no form of the GEMM."""
+    g = torch.Generator().manual_seed(51)
+    a = torch.randn(7, 24, generator=g).to(torch.bfloat16)
+    b = torch.randn(16, 24, generator=g).to(torch.bfloat16)
+    before = hopper_gemm.gemm_nt.launches
+    got = hopper_gemm.gemm_nt(a, b, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and hopper_gemm.gemm_nt.launches == before
+    torch.testing.assert_close(got, (a.float() @ b.float().t()).to(torch.bfloat16), rtol=0,
+                               atol=0)
+    torch.testing.assert_close(got, hopper_gemm.gemm_nt_plain(a, b, out_dtype=torch.bfloat16),
+                               rtol=0, atol=0)
+
+
+def test_k3_wrappers_raise_on_launch_ms_in_float32_and_off_the_card():
+    """Per-launch times are the bf16 chains' on the card: both K3 wrappers
+    raise for ``launch_ms`` with a float32 ``xn``, and for one on the CPU;
+    without it the forward still raises on a CPU or meta tensor, and the
+    backward takes its plain version on the CPU and raises on meta."""
+    args = _k3_args((1, 3, 4, 8, 16), 2, 52)
+    params, dao = list(args.values())[1:], torch.randn(1, 3, 4, 8, 16)
+    for xn in (args["xn"], args["xn"].to(torch.bfloat16)):
+        why = "bf16 chain's" if xn.dtype == torch.float32 else "the card's"
+        with pytest.raises(ValueError, match=why):
+            temporal_block_mega.core_temporal_attention_fwd(xn, *params, heads=2, launch_ms={})
+        with pytest.raises(ValueError, match=why):
+            core_temporal_attention_bwd(dao, xn, *params, heads=2, launch_ms={})
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        temporal_block_mega.core_temporal_attention_fwd(args["xn"], *params, heads=2)
+    got = core_temporal_attention_bwd(dao, args["xn"], *params, heads=2)
+    want = core_temporal_bwd_plain(dao, **args, heads=2)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    meta = [a.to("meta") for a in args.values()]
+    with pytest.raises(ValueError, match="CUDA tensor, not meta"):
+        temporal_block_mega.core_temporal_attention_fwd(*meta, heads=2)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        core_temporal_attention_bwd(dao.to("meta"), *meta, heads=2)
 
 
 def test_hopper_gemm_wrappers_take_plain_versions_on_cpu():
@@ -1239,6 +1291,31 @@ def test_hopper_gemm_nt_matches_matmul_on_card(cuda_device, m, n, k):
     ref_b = want + bias
     bound = 2.0**-8 * ref_b.abs() + 1e-5 * ref_b.abs().max()
     assert ((got_b.float() - ref_b).abs() <= bound).all()
+
+
+# bf16(a @ b^T) without a bias, K3's dx: at AViT-big's (dqkv (R, 3C) times
+# W_qkv^T), AViT-tiny's on the flow-boiling grid (K of 288, N of 96), and
+# ragged ones.
+ROUND_CASES = [(40960, 768, 2304), (163840, 384, 1152), (20480, 96, 288), (300, 96, 288),
+               (130, 8, 72)]
+ROUND_IDS = ["k3_avit_big_dx", "k3_flow_b8_dx", "k3_d16_dx", "ragged_d16", "ragged_thin"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", ROUND_CASES, ids=ROUND_IDS)
+def test_hopper_gemm_nt_rounds_without_a_bias_on_card(cuda_device, m, n, k):
+    """``bf16(a @ b^T)`` against ``torch.matmul`` in float32 (no TF32),
+    within one bf16 rounding of each value plus 1e-5 of the largest
+    (summation order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = _bf16((m, k), 53, cuda_device), _bf16((n, k), 54, cuda_device)
+    want = torch.matmul(a.float(), b.float().t())
+    before = hopper_gemm.gemm_nt.launches
+    got = hopper_gemm.gemm_nt(a, b, out_dtype=torch.bfloat16)
+    assert hopper_gemm.gemm_nt.launches == before + 1 and got.dtype == torch.bfloat16
+    torch.cuda.synchronize()
+    bound = 2.0**-8 * want.abs() + 1e-5 * want.abs().max()
+    assert ((got.float() - want).abs() <= bound).all()
 
 
 # TN: (R tokens, M, N, bounds or None for the wrapper's plan): K1's dW_qkv
@@ -1323,3 +1400,61 @@ def test_k1_per_launch_times_on_card(cuda_device):
     assert all(0 < v < 1e3 for v in (*fwd.values(), *bwd.values()))
     with pytest.raises(ValueError, match="bf16 chain"):
         mega_temporal_block_fwd(args["x"].float(), *params, heads=heads, launch_ms={})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,heads", [((8, 5, 32, 32, 768), 12), ((1, 5, 64, 256, 96), 6)],
+                         ids=["d64", "d16"])
+def test_k3_weight_gradients_repeat_bit_for_bit_on_card(cuda_device, shape, heads):
+    """In bf16 K3's dW_qkv is a split-K sum added in a fixed order: two
+    backward calls on the same inputs give the same bits, at AViT-big's
+    training shape and at AViT-tiny's on the flow-boiling grid."""
+    args = _k3_args(shape, heads, 55, torch.bfloat16, cuda_device)
+    dao = _bf16(shape, 56, cuda_device)
+    params = list(args.values())[1:]
+    first = core_temporal_attention_bwd(dao, args["xn"], *params, heads=heads)
+    second = core_temporal_attention_bwd(dao, args["xn"], *params, heads=heads)
+    torch.cuda.synchronize()
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(first[0], second[0])  # dx: the same dqkv through the same GEMM
+
+
+@pytest.mark.cuda
+def test_k3_wrappers_raise_on_a_misaligned_view_on_card(cuda_device):
+    """A bf16 output gradient one element into its storage cannot be a TMA
+    source: K3's backward raises, naming it, before any launch; so does the
+    forward for a misaligned weight and for a misaligned xn."""
+    shape, heads = (1, 3, 8, 16, 128), 2
+    args = _k3_args(shape, heads, 57, torch.bfloat16, cuda_device)
+    params = list(args.values())[1:]
+    flat = torch.zeros(1 + int(np.prod(shape)), device=cuda_device, dtype=torch.bfloat16)
+    before = (core_temporal_attention.launches, core_temporal_attention_bwd.launches)
+    with pytest.raises(ValueError, match="dao starts at .* not 16-byte aligned"):
+        core_temporal_attention_bwd(flat[1:].view(shape), args["xn"], *params, heads=heads)
+    with pytest.raises(ValueError, match="xn starts at .* not 16-byte aligned"):
+        core_temporal_attention(**dict(args, xn=flat[1:].view(shape)), heads=heads)
+    wflat = torch.zeros(1 + 3 * 128 * 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="wqkv starts at"):
+        core_temporal_attention(**dict(args, wqkv=wflat[1:].view(3 * 128, 128)), heads=heads)
+    assert (core_temporal_attention.launches, core_temporal_attention_bwd.launches) == before
+
+
+@pytest.mark.cuda
+def test_k3_per_launch_times_on_card(cuda_device):
+    """In bf16 K3's wrappers report each launch's device time by CUDA
+    events, in chain order; float32 keeps the first version's launches and
+    raises."""
+    shape, heads = (2, 5, 32, 32, 768), 12
+    args = _k3_args(shape, heads, 58, torch.bfloat16, cuda_device)
+    params = list(args.values())[1:]
+    fwd, bwd = {}, {}
+    temporal_block_mega.core_temporal_attention_fwd(args["xn"], *params, heads=heads,
+                                                    launch_ms=fwd)
+    core_temporal_attention_bwd(_bf16(shape, 59, cuda_device), args["xn"], *params, heads=heads,
+                                launch_ms=bwd)
+    assert tuple(fwd) == temporal_block_mega.CORE_FWD_LAUNCHES
+    assert tuple(bwd) == temporal_block_mega.CORE_BWD_LAUNCHES
+    assert all(0 < v < 1e3 for v in (*fwd.values(), *bwd.values()))
+    with pytest.raises(ValueError, match="bf16 chain"):
+        temporal_block_mega.core_temporal_attention_fwd(args["xn"].float(), *params, heads=heads,
+                                                        launch_ms={})
