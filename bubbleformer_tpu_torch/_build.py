@@ -63,6 +63,16 @@ _SIGNATURES = {
     # dtype, head_dim, fused, qkv, do, ln, bias_x, bias_y, scale, dqkv, dacc,
     # stats, dln, dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
     "bf_axial_attention_bwd": [_I] * 3 + [_P] * 13 + [_I] * 5 + [_P],
+    # head_dim, qkv, ln, bias_x, bias_y, scale, row_out, out, BT, H, W, C,
+    # heads, stream
+    "bf_lane_hopper_fwd": [_I] + [_P] * 7 + [_I] * 5 + [_P],
+    # head_dim, qkv, dout, ln, bias_x, bias_y, scale, dqkv, part_bias_r,
+    # part_bias_c, part_scale_r, part_scale_c, part_ln_r, part_ln_c, dln,
+    # dbias_x, dbias_y, dscale, BT, H, W, C, heads, groups_r, per_r, groups_c,
+    # per_c, stream
+    "bf_lane_hopper_bwd": [_I] + [_P] * 17 + [_I] * 9 + [_P],
+    # head_dim, L, blocks (int out)
+    "bf_lane_hopper_bwd_resident": [_I, _I, _IP],
     # dtype, head_dim, packed, qkv3, bias_x, bias_y, scale, row_out, out, BT,
     # H, W, C, heads, stream
     "bf_axial_fused_fwd": [_I] * 3 + [_P] * 6 + [_I] * 5 + [_P],

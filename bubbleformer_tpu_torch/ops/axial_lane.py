@@ -11,14 +11,22 @@ probabilities, and the mean of the two directions.  With ``proj="kernel"``
 runs inside the kernels instead: K9, ``ops/axial_lane_px.py``.
 
 :func:`lane_axial_attention` is a ``torch.autograd.Function``.  On CUDA
-tensors its forward and backward run the hand-written kernels of
-``csrc/axial_attention.cu`` in their lane flavour
-(:func:`lane_axial_attention_bwd`); on CPU tensors
+tensors its forward and backward launch hand-written kernels, chosen by
+dtype in one place (:func:`lane_kernels`): bfloat16 runs the Hopper kernels
+of ``csrc/lane_hopper.cuh`` (C entries ``csrc/axial_lane_hopper.cu``:
+q, k and v staged in bf16, every product on the tensor cores, the row
+pass's output in a bf16 scratch, one backward launch a direction and the
+parameter gradients summed from per-block partials in a fixed order, so
+they repeat bit for bit; :func:`lane_hopper_fwd`, :func:`lane_hopper_bwd`,
+the blocks' lines planned by :func:`lane_bwd_plan`); float32 runs the line
+kernels of ``csrc/axial_attention.cu`` in their lane flavour
+(:func:`lane_line_fwd`, :func:`lane_line_bwd`).  On CPU tensors they take
 :func:`axial_attention_plain` and :func:`axial_attention_bwd_plain`; on any
-other device they raise.  The kernels take head dims 16 and 64 and lines of
-up to 512 tokens (the JAX lane gate's limit, :func:`lane_axial_supported`);
-any other shape raises on the card.  The same kernels in their fused_block
-flavour are K4 (``ops/axial_fused_block.py``), launched through
+other device they raise.  Both kernel paths take head dims 16 and 64 and
+lines of up to 512 tokens (the JAX lane gate's limit,
+:func:`lane_axial_supported`); any other shape raises on the card, naming
+it.  The line kernels in their fused_block flavour are K4
+(``ops/axial_fused_block.py``), launched through
 :func:`line_attention_fwd_cuda` and :func:`line_attention_bwd_cuda`.
 
 Both round where the lane kernel rounds: qkv, q/k (after LN), the blended
@@ -33,6 +41,8 @@ the TPU package projected once per direction.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 import os
 from typing import Optional
@@ -319,23 +329,146 @@ def line_attention_bwd_cuda(do: torch.Tensor, qkv: torch.Tensor, *params, heads:
             None if scale_x is None else dscale[:, 0], None if scale_y is None else dscale[:, 1])
 
 
+def lane_bwd_plan(lines: int, heads: int, resident: int) -> tuple:
+    """``(groups, per)``: which block of K2's bf16 backward owns which lines
+    of one direction.  Block ``g`` of a head takes the lines ``g * per`` to
+    ``min((g + 1) * per, lines)``, one after another, and writes one partial
+    of the table, scale and LN gradients; the partials are then added in
+    block order.  At most one wave of the ``resident`` blocks the card holds
+    at once (:func:`_resident_blocks`) and at least one block a head, every
+    line in exactly one block and no block idle."""
+    groups = max(1, min(lines, resident // heads))
+    per = -(-lines // groups)
+    return -(-lines // per), per
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(index: int, head_dim: int, length: int) -> int:
+    """Blocks of K2's bf16 backward kernel for lines of ``length`` tokens
+    that card ``index`` holds at once: its multiprocessors times the blocks
+    one of them holds, as the CUDA runtime reads the kernel's registers,
+    shared memory and block size (C entry ``bf_lane_hopper_bwd_resident``)."""
+    lib = _build.library()
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.bf_lane_hopper_bwd_resident(head_dim, length, ctypes.byref(per_sm))
+    _build.check(lib, err, "lane_axial_attention_bwd (bf_lane_hopper_bwd_resident)")
+    return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm.value)
+
+
+def lane_hopper_fwd(qkv: torch.Tensor, *params, heads: int) -> torch.Tensor:
+    """K2's bf16 forward on the Hopper kernels (``csrc/lane_hopper.cuh``,
+    C entry ``bf_lane_hopper_fwd``): rows, then columns; the row pass's
+    output in a bf16 scratch, where the TPU kernel rounds it.  Counts
+    ``lane_hopper_fwd.launches``."""
+    bt, h, w, c3 = qkv.shape
+    c = c3 // 3
+    what = "lane_axial_attention (bf_lane_hopper_fwd)"
+    p = kernel_params(qkv, *params, heads, what)
+    qkv = qkv.contiguous()
+    row_out = torch.empty(bt, h, w, c, device=qkv.device, dtype=qkv.dtype)
+    out = torch.empty_like(row_out)
+    _build.check_tma(what, qkv=qkv, row_out=row_out, out=out)
+    lib = _build.library()
+    err = lib.bf_lane_hopper_fwd(
+        c // heads, qkv.data_ptr(), p["ln"].data_ptr(), p["bias_x"].data_ptr(),
+        p["bias_y"].data_ptr(), p["scale"].data_ptr(), row_out.data_ptr(), out.data_ptr(), bt, h,
+        w, c, heads, _build.stream_handle(qkv.device))
+    _build.check(lib, err, what)
+    lane_hopper_fwd.launches += 1
+    return out
+
+
+def lane_hopper_bwd(do: torch.Tensor, qkv: torch.Tensor, *params, heads: int) -> tuple:
+    """K2's bf16 backward on the Hopper kernels (C entry
+    ``bf_lane_hopper_bwd``): one launch a direction, then one that adds the
+    blocks' partials (:func:`lane_bwd_plan`) in a fixed order, so the table,
+    scale and LN gradients repeat bit for bit.  The gradients
+    :func:`axial_attention_bwd_plain` returns; counts
+    ``lane_hopper_bwd.launches``."""
+    bt, h, w, c3 = qkv.shape
+    c = c3 // 3
+    d = c // heads
+    what = "lane_axial_attention_bwd (bf_lane_hopper_bwd)"
+    p = kernel_params(qkv, *params, heads, what)
+    _build.check_shapes(what, do=(do, (bt, h, w, c)))
+    dev = qkv.device
+    qkv, do = qkv.contiguous(), do.to(qkv.dtype).contiguous()
+    dqkv = torch.empty_like(qkv)
+    _build.check_tma(what, qkv=qkv, do=do, dqkv=dqkv)
+    gr, pr = lane_bwd_plan(bt * h, heads, _resident_blocks(dev.index, d, w))
+    gc, pc = lane_bwd_plan(bt * w, heads, _resident_blocks(dev.index, d, h))
+    f32 = dict(device=dev, dtype=torch.float32)
+    part_bias = (torch.empty(gr, heads, w, w, **f32), torch.empty(gc, heads, h, h, **f32))
+    part_scale = (torch.empty(gr, heads, **f32), torch.empty(gc, heads, **f32))
+    part_ln = (torch.empty(gr, heads, 4, d, **f32), torch.empty(gc, heads, 4, d, **f32))
+    dln = torch.empty(4, d, **f32)
+    dbx, dby = torch.empty(heads, w, w, **f32), torch.empty(heads, h, h, **f32)
+    dscale = torch.empty(heads, 2, **f32)
+    lib = _build.library()
+    err = lib.bf_lane_hopper_bwd(
+        d, qkv.data_ptr(), do.data_ptr(), p["ln"].data_ptr(), p["bias_x"].data_ptr(),
+        p["bias_y"].data_ptr(), p["scale"].data_ptr(), dqkv.data_ptr(),
+        *(t.data_ptr() for t in (*part_bias, *part_scale, *part_ln)), dln.data_ptr(),
+        dbx.data_ptr(), dby.data_ptr(), dscale.data_ptr(), bt, h, w, c, heads, gr, pr, gc, pc,
+        _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    lane_hopper_bwd.launches += 1
+    bias_x, bias_y, scale_x, scale_y = params[4:]
+    return (dqkv, dln[0], dln[1], dln[2], dln[3],
+            None if bias_x is None else dbx, None if bias_y is None else dby,
+            None if scale_x is None else dscale[:, 0], None if scale_y is None else dscale[:, 1])
+
+
+def lane_line_fwd(qkv: torch.Tensor, *params, heads: int) -> torch.Tensor:
+    """K2's float32 forward on the line kernels (lane flavour of
+    ``csrc/line_kernels.cuh``); counts ``lane_line_fwd.launches``."""
+    out = line_attention_fwd_cuda(qkv, *params, heads=heads, fused=False,
+                                  what="lane_axial_attention")
+    lane_line_fwd.launches += 1
+    return out
+
+
+def lane_line_bwd(do: torch.Tensor, qkv: torch.Tensor, *params, heads: int) -> tuple:
+    """K2's float32 backward on the line kernels (per direction one launch
+    for lines of at most 64 tokens, two for longer ones; the parameter
+    gradients summed with float32 atomics, whose last bits vary from run to
+    run); counts ``lane_line_bwd.launches``."""
+    grads = line_attention_bwd_cuda(do, qkv, *params, heads=heads, fused=False,
+                                    what="lane_axial_attention_bwd")
+    lane_line_bwd.launches += 1
+    return grads
+
+
+lane_hopper_fwd.launches = lane_hopper_bwd.launches = 0
+lane_line_fwd.launches = lane_line_bwd.launches = 0
+
+
+def lane_kernels(dtype: torch.dtype) -> tuple:
+    """K2's ``(forward, backward)`` kernels on the card for ``dtype``: the
+    Hopper kernels for bfloat16, the line kernels for float32; any other
+    dtype raises."""
+    if dtype == torch.bfloat16:
+        return lane_hopper_fwd, lane_hopper_bwd
+    if dtype == torch.float32:
+        return lane_line_fwd, lane_line_bwd
+    raise TypeError(f"lane_axial_attention kernel takes float32 or bfloat16, not {dtype}")
+
+
 def lane_axial_attention_bwd(do: torch.Tensor, qkv: torch.Tensor, *params,
                              heads: int) -> tuple:
     """K2's backward: the gradients :func:`axial_attention_bwd_plain` returns.
 
-    CPU tensors take :func:`axial_attention_bwd_plain`; CUDA tensors launch
-    ``csrc/axial_attention.cu``'s backward in the lane flavour (per
-    direction one launch for lines of at most 64 tokens, two for longer
-    ones; the column pass adds into the row pass's ``dqkv``, on one stream)
-    and count ``lane_axial_attention_bwd.launches``.  The parameter
-    gradients are sums over all lines, accumulated with float32 atomics:
-    their last bits vary from run to run."""
+    CPU tensors take :func:`axial_attention_bwd_plain`; CUDA tensors the
+    kernels :func:`lane_kernels` picks by dtype (bfloat16
+    :func:`lane_hopper_bwd`, whose parameter gradients repeat bit for bit;
+    float32 :func:`lane_line_bwd`), and count
+    ``lane_axial_attention_bwd.launches``."""
     if qkv.device.type == "cpu":
         return axial_attention_bwd_plain(do, qkv, *params, heads=heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"lane_axial_attention_bwd: unsupported device {qkv.device}")
-    grads = line_attention_bwd_cuda(do, qkv, *params, heads=heads, fused=False,
-                                    what="lane_axial_attention_bwd")
+    grads = lane_kernels(qkv.dtype)[1](do, qkv, *params, heads=heads)
     lane_axial_attention_bwd.launches += 1
     return grads
 
@@ -345,8 +478,7 @@ def _lane_fwd(qkv, *params, heads):
         return axial_attention_plain(qkv, *params, heads=heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"lane_axial_attention: unsupported device {qkv.device}")
-    out = line_attention_fwd_cuda(qkv, *params, heads=heads, fused=False,
-                                  what="lane_axial_attention")
+    out = lane_kernels(qkv.dtype)[0](qkv, *params, heads=heads)
     lane_axial_attention.launches += 1
     return out
 
@@ -389,8 +521,9 @@ def lane_axial_attention(
     ``bias_x`` ``(heads, W, W)`` / ``bias_y`` ``(heads, H, H)``: the T5
     tables; ``scale_x`` / ``scale_y`` ``(heads,)``: per-axis attn_scale.
     CPU tensors take the plain versions; CUDA tensors launch the kernels
-    (``lane_axial_attention.launches`` and ``lane_axial_attention_bwd.launches``
-    count them).
+    of :func:`lane_kernels` (``lane_axial_attention.launches`` and
+    ``lane_axial_attention_bwd.launches`` count every call on the card; each
+    path's own counters count its launches).
     """
     return LineAttention.apply(_lane_fwd, lane_axial_attention_bwd, {"heads": heads}, qkv,
                                qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias_y, scale_x,

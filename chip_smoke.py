@@ -27,7 +27,11 @@ paths give it — the rollout's (batch 1) and the training step's:
    yardstick; bf16 K1 runs its products on the hand-written Hopper GEMM,
    ``csrc/hopper_gemm.cuh``);
 4. K2 forward (``lane_axial_attention``) against ``axial_attention_plain``,
-   qkv (5, 32, 32, 1152) and (40, 32, 32, 1152), likewise;
+   qkv (5, 32, 32, 1152) and (40, 32, 32, 1152), likewise (bf16 on the
+   Hopper kernels of ``csrc/lane_hopper.cuh``, float32 on the line kernels),
+   with ``scaled_dot_product_attention`` over both directions, the tables as
+   masks, forward and backward, at the training shape (a partial yardstick
+   for K2, K4, K6 and K7);
 5. one float32 window of the whole model on the card (kernels) against the
    same model on the CPU (plain versions);
 6. a 20-window bfloat16 rollout through ``inference/rollout.py``: finite, and
@@ -62,7 +66,7 @@ paths give it — the rollout's (batch 1) and the training step's:
    product forward, three products backward; bf16 K3 runs its products on
    the Hopper GEMM) and, at the training shape in bf16, each launch's time;
 12. K2 forward and backward at AViT-big's 12 heads, qkv (5, 32, 32, 2304)
-   and (40, 32, 32, 2304);
+   and (40, 32, 32, 2304), with sdpa over both directions at the second;
 13. one float32 AViT-big window on the card (kernels) against the CPU (plain
    versions), all 12 blocks;
 14. a 20-window bfloat16 AViT-big rollout: finite, K3 and K2 forward each
@@ -74,7 +78,10 @@ paths give it — the rollout's (batch 1) and the training step's:
    never, every parameter with a gradient moved; ms/step, samples/s and
    peak memory;
 16. K2 on long lines and at head dim 16 (``LINE_SHAPES``: the 32x128 grid at
-   batch 1 and 4, lines of 512 both ways, AViT-tiny's 6 heads of 16), and
+   batch 1 and 4, lines of 512 both ways, AViT-tiny's 6 heads of 16 on a
+   64x64 grid and on path E's 64x256 training grid, whose rows of 256 take
+   the long-line backward), with sdpa over both directions at batch 4 and
+   at head dim 16, and
 17. K4 (``fused_block_attention``) at its paths' shapes, forward and every
    gradient against the plain versions (``LINE_RTOL``), with both times;
 18. one float32 AViT-small window at 512x2048 on the card against the CPU;
@@ -176,6 +183,13 @@ paths give it — the rollout's (batch 1) and the training step's:
    card time in each JSON line, each of the probe's kernels launched and no
    other.
 
+K2's wrappers count every call on the card (``lane_axial_attention``,
+``_bwd``) and each dtype's kernels their own launches (``lane_hopper_fwd``,
+``_bwd`` for bfloat16; ``lane_line_fwd``, ``_bwd`` for float32): every bf16
+rollout and training run holds K2 to the Hopper kernels and every float32
+window and step to the line kernels.  Times are CUDA events around 20 calls
+after half a second of warm-up calls (``WARMUP_S``).
+
 Every training step runs under the models' default remat ``"dots"``
 (``layers/remat.py``): K1 and K5 launch their forward kernels twice a step
 (the backward reruns them, as the JAX policy has it), every other kernel
@@ -214,6 +228,12 @@ BIG_TRAIN_STEPS = 4
 # outside them, HBM3.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# Seconds of warm-up calls before each kernel's timing (``cuda_ms``).  Three
+# calls alone left a float32 kernel's time dependent on the load before it
+# (3.0-3.9% after slow calls, scripts/time_kernels_torch.py, which warms up
+# for 1 s); half a second keeps the whole run within its time limit.  The
+# plain versions and library calls keep three warm-up calls (``ref_ms``).
+WARMUP_S = 0.5
 # scripts/make_sample_data.py:77-86, trajectory 0, in FLUID_PARAM_KEYS order.
 FLUID_PARAMS = [0.0084, 0.83, 1.0, 0.0083, 0.25, 0.063, 8.34, 0.4, 91.0]
 # Forward launches per block and training step under the models' default
@@ -312,13 +332,18 @@ def film_near_identity(weights, seed: int):
     return out
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call, by CUDA events around ``iters`` calls."""
+def cuda_ms(fn, iters: int = 20, warmup_s: float = WARMUP_S) -> float:
+    """Mean milliseconds per call, by CUDA events around ``iters`` calls,
+    after at least three calls and ``warmup_s`` seconds of warm-up calls."""
     import torch
 
-    for _ in range(warmup):
+    for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warmup_s:
+        fn()
+        torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
@@ -326,6 +351,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ref_ms(fn) -> float:
+    """:func:`cuda_ms` for a plain version or a library call: three warm-up
+    calls and no timed warm-up, which was added for the kernels' times."""
+    return cuda_ms(fn, warmup_s=0.0)
 
 
 def k1_gemm_ms(x, wqkv, wout, do=None, qkv=None) -> float:
@@ -338,9 +369,9 @@ def k1_gemm_ms(x, wqkv, wout, do=None, qkv=None) -> float:
 
     x2 = x.reshape(-1, x.shape[-1])
     if do is None:
-        return cuda_ms(lambda: (torch.matmul(x2, wqkv.t()), torch.matmul(x2, wout.t())))
+        return ref_ms(lambda: (torch.matmul(x2, wqkv.t()), torch.matmul(x2, wout.t())))
     d2 = do.reshape(x2.shape)
-    return cuda_ms(lambda: (torch.matmul(d2, wout), torch.matmul(d2.t(), x2),
+    return ref_ms(lambda: (torch.matmul(d2, wout), torch.matmul(d2.t(), x2),
                             torch.matmul(qkv, wqkv), torch.matmul(qkv.t(), x2)))
 
 
@@ -353,9 +384,37 @@ def k3_gemm_ms(xn, wqkv, dqkv=None) -> float:
 
     x2 = xn.reshape(-1, xn.shape[-1])
     if dqkv is None:
-        return cuda_ms(lambda: torch.matmul(x2, wqkv.t()))
-    return cuda_ms(lambda: (torch.matmul(x2, wqkv.t()), torch.matmul(dqkv.t(), x2),
+        return ref_ms(lambda: torch.matmul(x2, wqkv.t()))
+    return ref_ms(lambda: (torch.matmul(x2, wqkv.t()), torch.matmul(dqkv.t(), x2),
                             torch.matmul(dqkv, wqkv)))
+
+
+def lane_sdpa_ms(qkv, bias_x, bias_y, heads: int):
+    """(forward ms, backward ms) of ``scaled_dot_product_attention`` over
+    K2's two directions at qkv's shape (BT, H, W, 3C): once over the rows
+    (table ``bias_x`` as an additive mask) and once over the columns
+    (``bias_y``), the two times summed; the backward by autograd to q, k and
+    v.  A partial yardstick (no qk-LN, no blend, no table gradient) for K2,
+    K4, K6 and K7, which compute the same two-direction attention; the port
+    never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    bt, h, w, c3 = qkv.shape
+    d = c3 // 3 // heads
+    q5 = qkv.detach().reshape(bt, h, w, heads, 3, d)
+    fwd = bwd = 0.0
+    for perm, bias in (((0, 1, 3, 2, 4), bias_x), ((0, 2, 3, 1, 4), bias_y)):
+        q, k, v = (q5[..., i, :].permute(*perm).contiguous() for i in range(3))
+        q, k, v = (x.reshape(-1, *x.shape[2:]).requires_grad_() for x in (q, k, v))
+        n = q.shape[-2]
+        mask = bias.to(qkv.dtype)[None].expand(q.shape[0], heads, n, n)
+        fwd += ref_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        grad = torch.randn_like(out)
+        bwd += ref_ms(lambda: torch.autograd.grad(out, (q, k, v), grad, retain_graph=True))
+        del q, k, v, mask, out, grad
+    return fwd, bwd
 
 
 def launch_line(label: str, args: dict, do, heads: int) -> None:
@@ -672,7 +731,7 @@ DEMO_SIZE, DEMO_BATCH, DEMO_STEPS, DEMO_WINDOWS = 64, 8, 4, 5  # the make-demo r
 def line_kernel_phase(key: str, cases: dict, dev, results: dict) -> None:
     """K2 (``key="K2 long"``) or K4 (``key="K4"``) forward and backward at
     each ``cases`` shape ``(BT, H, W, 3C)`` (6 heads), float32 and
-    bfloat16, against the plain versions (``LINE_RTOL``); times of the
+    bfloat16 (bfloat16 alone for ``LINE_BF16_ONLY``), against the plain versions (``LINE_RTOL``); times of the
     kernels and of the plain versions in the kernel's dtype."""
     import torch
     from bubbleformer_tpu_torch.ops.axial_fused_block import (
@@ -709,7 +768,8 @@ def line_kernel_phase(key: str, cases: dict, dev, results: dict) -> None:
                     scale_y=torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32)))
         base = {k: v.to(dev) for k, v in base.items()}
         do32 = n(bt, h, w, c3 // 3).to(dev)
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in ((torch.bfloat16,) if where in LINE_BF16_ONLY else
+                   (torch.float32, torch.bfloat16)):
             name = str(dt).split(".")[-1]
             args = dict(base, qkv=base["qkv"].to(dt))
             do = do32.to(dt)
@@ -727,13 +787,19 @@ def line_kernel_phase(key: str, cases: dict, dev, results: dict) -> None:
                                   LINE_RTOL[name])
             del got, ref, ref_args, ref_do
             ms_f = cuda_ms(lambda: fwd(**args, heads=heads))
-            plain_f = cuda_ms(lambda: plain(**args, heads=heads))
+            plain_f = ref_ms(lambda: plain(**args, heads=heads))
             ms_b = cuda_ms(lambda: bwd(do, *args.values(), heads=heads))
-            plain_b = cuda_ms(lambda: bwd_plain(do, **args, heads=heads))
+            plain_b = ref_ms(lambda: bwd_plain(do, **args, heads=heads))
             print(f"  {key} {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), "
                   f"backward {ms_b:.4f} ms (plain {plain_b:.4f})", flush=True)
             results[(key, name, where)] = (err_f, ms_f, plain_f)
             results[(key + " bwd", name, where)] = (err_b, ms_b, plain_b)
+            if key == "K2 long" and where in ("training", "d16", "d16_flow"):
+                lib = lane_sdpa_ms(args["qkv"], args["bias_x"], args["bias_y"], heads)
+                results[(key + " sdpa", name, where)] = lib[0]
+                results[(key + " bwd sdpa", name, where)] = lib[1]
+                print(f"  {key} {name} {where}: sdpa over both directions (partial yardstick) "
+                      f"forward {lib[0]:.4f} ms, backward {lib[1]:.4f} ms", flush=True)
         del base, do32
 
 
@@ -758,7 +824,14 @@ def all_counters():
         fused_axial_attention_packed,
         fused_axial_attention_packed_bwd,
     )
-    from bubbleformer_tpu_torch.ops.axial_lane import lane_axial_attention, lane_axial_attention_bwd
+    from bubbleformer_tpu_torch.ops.axial_lane import (
+        lane_axial_attention,
+        lane_axial_attention_bwd,
+        lane_hopper_bwd,
+        lane_hopper_fwd,
+        lane_line_bwd,
+        lane_line_fwd,
+    )
     from bubbleformer_tpu_torch.ops.axial_lane_px import lane_px_attention, lane_px_attention_bwd
     from bubbleformer_tpu_torch.ops.temporal_block_mega import (
         core_temporal_attention,
@@ -779,7 +852,7 @@ def all_counters():
             mega_axial_block_bwd, fused_axial_attention_packed, fused_axial_attention_packed_bwd,
             fused_axial_attention, fused_axial_attention_bwd, flash_packed_attention,
             flash_packed_attention_bwd, plane_norms, plane_norms_bwd, lane_px_attention,
-            lane_px_attention_bwd)
+            lane_px_attention_bwd, lane_hopper_fwd, lane_hopper_bwd, lane_line_fwd, lane_line_bwd)
 
 
 def probe_counters():
@@ -799,6 +872,18 @@ def zero_counters() -> None:
 
 def read_counters() -> dict:
     return {fn.__name__: fn.launches for fn in all_counters()}
+
+
+def with_lane_paths(per: dict, dtype: str) -> dict:
+    """``per`` with K2's per-path counters: every call of K2's wrappers in
+    ``dtype`` goes to that dtype's kernels (``ops/axial_lane.py:lane_kernels``:
+    bfloat16 the Hopper kernels, float32 the line kernels), the other path's
+    never."""
+    fwd, bwd = (("lane_hopper_fwd", "lane_hopper_bwd") if dtype == "bfloat16"
+                else ("lane_line_fwd", "lane_line_bwd"))
+    return dict(per, **{path: per[name] for path, name in
+                        ((fwd, "lane_axial_attention"), (bwd, "lane_axial_attention_bwd"))
+                        if name in per})
 
 
 def check_launches(what: str, got: dict, per: dict, times: int) -> None:
@@ -832,7 +917,7 @@ def window_phase(label: str, model_cfg, data_cfg, weights, x, dev, per_window: d
         t0 = time.perf_counter()
         y_cpu = cpu(x, *extra)
         t_cpu = time.perf_counter() - t0
-    check_launches(f"{label} window", launches, per_window, 1)
+    check_launches(f"{label} window", launches, with_lane_paths(per_window, "float32"), 1)
     if tuple(y_gpu.shape) != tuple(x.shape):
         fail(f"{label} window output shape {tuple(y_gpu.shape)}")
     print(f"  card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s; launches {launches}")
@@ -868,7 +953,7 @@ def rollout_phase(label: str, model, init, windows: int, per_window: dict, card:
         fail(f"{label} rollout shape {tuple(preds.shape)}")
     if not torch.isfinite(preds).all():
         fail(f"{label} rollout produced non-finite values")
-    check_launches(f"{label} rollout", launches, per_window, windows)
+    check_launches(f"{label} rollout", launches, with_lane_paths(per_window, "bfloat16"), windows)
     frames = windows * init.shape[1] * init.shape[0]
     print(f"  {frames} frames in {seconds:.3f} s: {frames / seconds:.2f} frames/s, "
           f"{1000 * seconds / windows:.2f} ms/window ({card}); launches {launches}", flush=True)
@@ -913,7 +998,7 @@ def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: d
     print(f"  losses {losses}")
     if len(losses) != steps or not np.all(np.isfinite(losses)):
         fail(f"{label}: expected {steps} finite losses, got {losses}")
-    check_launches(f"{label} Trainer.fit", launches, per_step, steps)
+    check_launches(f"{label} Trainer.fit", launches, with_lane_paths(per_step, "bfloat16"), steps)
     unmoved = [(n, p) for n, p in module.model.named_parameters() if torch.equal(before[n], p)]
     stuck = [n for n, p in unmoved if p.grad is not None and bool(p.grad.any())]
     if stuck:
@@ -1023,13 +1108,22 @@ def new_path_phases(repo: Path, dev, card: str, results: dict) -> dict:
 
 # The line kernels' cases: K2 on path A (the 32x128 flow-boiling grid at the
 # rollout's batch 1 and the training step's batch 4), lines of 512 both ways
-# and head dim 16; K4 on path B (FiLMAViT-small's grid at batch 1 and 8,
+# and head dim 16 (a 64x64 grid, and path E's AViT-tiny training step at
+# 512x2048, 64x256 tokens at batch 4); K4 on path B (FiLMAViT-small's grid at batch 1 and 8,
 # 384^2 px at patch 16, the make-demo grid at head dim 16, batch 2).
+# Cases held in bfloat16 alone, the dtype their path runs there: path E's
+# training step at 512x2048 is bfloat16.  In float32 the line kernels' sum
+# of the k-LN bias gradient (zero up to rounding, ``ZERO_GRADS``) over its
+# 20 x 64 x 256 tokens and 6 heads came out 2.3e-5 of the floor against
+# the float64 reference, above LINE_RTOL's 2e-5 (NVIDIA H100 80GB HBM3,
+# 700.00 W; ROADMAP Queue 3).
+LINE_BF16_ONLY = ("d16_flow",)
 LINE_SHAPES = {
     "K2 long": {"rollout": (TIME_WINDOW, 32, 128, 1152),
                 "training": (FLOW_TRAIN_BATCH * TIME_WINDOW, 32, 128, 1152),
                 "rows_512": (1, 16, 512, 1152), "cols_512": (1, 512, 16, 1152),
-                "d16": (TIME_WINDOW, 64, 64, 288)},
+                "d16": (TIME_WINDOW, 64, 64, 288),
+                "d16_flow": (FLOW_TRAIN_BATCH * TIME_WINDOW, 64, 256, 288)},
     "K4": {"rollout": (TIME_WINDOW, 32, 32, 1152), "training": (8 * TIME_WINDOW, 32, 32, 1152),
            "grid_24": (TIME_WINDOW, 24, 24, 1152), "demo_d16": (2 * TIME_WINDOW, 8, 8, 288)},
 }
@@ -1124,9 +1218,9 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
                                   KERNEL_RTOL[name], zero_noise=key == "K5" and name == "bfloat16")
             del got, ref
             ms_f = cuda_ms(lambda: fwd(act, *params, heads=heads))
-            plain_f = cuda_ms(lambda: plain(**args, heads=heads))
+            plain_f = ref_ms(lambda: plain(**args, heads=heads))
             ms_b = cuda_ms(lambda: bwd(do, act, *params, heads=heads, **kept))
-            plain_b = cuda_ms(lambda: bwd_plain(do, **args, heads=heads))
+            plain_b = ref_ms(lambda: bwd_plain(do, **args, heads=heads))
             extra = ""
             if key.startswith("K1"):
                 w1, w2 = args["wqkv"].to(dt), args["wout"].to(dt)
@@ -1149,7 +1243,7 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
             if key == "K5":
                 x2 = act.reshape(-1, shape[-1])
                 w1, w2 = args["wqkv"].to(dt), args["wout"].to(dt)
-                gemm = cuda_ms(lambda: (torch.matmul(x2, w1.t()), torch.matmul(x2, w2.t())))
+                gemm = ref_ms(lambda: (torch.matmul(x2, w1.t()), torch.matmul(x2, w2.t())))
                 results[("K5 gemm", name, where)] = gemm
                 extra = f"; cuBLAS's two projections alone (partial yardstick) {gemm:.4f} ms"
             print(f"  {key} {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), "
@@ -1208,9 +1302,9 @@ def split_kernel_phase(dev, results: dict) -> None:
                                       LINE_RTOL[name])
                 del got, ref, ref_args, ref_do
                 ms_f = cuda_ms(lambda: fwd(**args))
-                plain_f = cuda_ms(lambda: plain(**args))
+                plain_f = ref_ms(lambda: plain(**args))
                 ms_b = cuda_ms(lambda: bwd(do, *args.values()))
-                plain_b = cuda_ms(lambda: bwd_plain(do, **args))
+                plain_b = ref_ms(lambda: bwd_plain(do, **args))
                 print(f"  {key} {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), "
                       f"backward {ms_b:.4f} ms (plain {plain_b:.4f})", flush=True)
                 results[(key, name, where)] = (err_f, ms_f, plain_f)
@@ -1390,16 +1484,16 @@ def flash_kernel_phase(dev, results: dict) -> None:
                                   LINE_RTOL[name])
             del got, ref, ref_args, ref_do
             ms_f = cuda_ms(lambda: k8.flash_packed_attention(**args))
-            plain_f = cuda_ms(lambda: k8.flash_plain(**args))
+            plain_f = ref_ms(lambda: k8.flash_plain(**args))
             ms_b = cuda_ms(lambda: k8.flash_packed_attention_bwd(do, *args.values()))
-            plain_b = cuda_ms(lambda: k8.flash_bwd_plain(do, **args))
+            plain_b = ref_ms(lambda: k8.flash_bwd_plain(do, **args))
             # The library yardstick: attention with the bias as an additive
             # mask, without the blend; its backward through autograd (q, k, v).
             q, k, v = (args[c].detach().requires_grad_() for c in "qkv")
             mask = args["bias"].to(dt)[:, None].expand(*shape[:2], n, n)
-            sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            sdpa_f = ref_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
             out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-            sdpa_b = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True))
+            sdpa_b = ref_ms(lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True))
             del q, k, v, mask, out
             print(f"  K8 {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}, sdpa "
                   f"{sdpa_f:.4f}), backward {ms_b:.4f} ms (plain {plain_b:.4f}, sdpa {sdpa_b:.4f})",
@@ -1448,9 +1542,9 @@ def loss_kernel_phase(dev, results: dict) -> None:
         if not torch.equal(k10.training_lp_loss(pred, tgt), k10.training_lp_loss(pred, tgt)):
             fail(f"K10 {name}: the loss differs between two calls on the same inputs")
         ms_f = cuda_ms(lambda: k10.plane_norms_fwd_cuda(p3, t3))
-        plain_f = cuda_ms(lambda: k10.plane_norms_plain(p3, t3))
+        plain_f = ref_ms(lambda: k10.plane_norms_plain(p3, t3))
         ms_b = cuda_ms(lambda: k10.plane_norms_bwd_cuda(p3, t3, coef))
-        plain_b = cuda_ms(lambda: k10.plane_norms_bwd_plain(p3, t3, coef))
+        plain_b = ref_ms(lambda: k10.plane_norms_bwd_plain(p3, t3, coef))
         print(f"  K10 {name}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), backward {ms_b:.4f} "
               f"ms (plain {plain_b:.4f}); the loss repeats bit for bit", flush=True)
         results[("K10", name, "training")] = (err_f, ms_f, plain_f)
@@ -1622,11 +1716,11 @@ def px_kernel_phase(dev, results: dict) -> None:
                 fail(f"K9 bwd {name} {where}: dW is rounded to bfloat16")
             del got, ref, ref_args, ref_do
             ms_f = cuda_ms(lambda: k9.lane_px_attention(**args, heads=heads))
-            plain_f = cuda_ms(lambda: k9.lane_px_plain(**args, heads=heads))
+            plain_f = ref_ms(lambda: k9.lane_px_plain(**args, heads=heads))
             ms_b = cuda_ms(lambda: k9.lane_px_attention_bwd(do, *args.values(), heads=heads))
-            plain_b = cuda_ms(lambda: k9.lane_px_bwd_plain(do, **args, heads=heads))
+            plain_b = ref_ms(lambda: k9.lane_px_bwd_plain(do, **args, heads=heads))
             x2, w2 = args["x"].reshape(-1, c), args["wqkv"].to(dt)
-            gemm = cuda_ms(lambda: torch.matmul(x2, w2.t()))
+            gemm = ref_ms(lambda: torch.matmul(x2, w2.t()))
             print(f"  K9 {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), backward "
                   f"{ms_b:.4f} ms (plain {plain_b:.4f}); cuBLAS QKV product alone (partial "
                   f"yardstick) {gemm:.4f} ms", flush=True)
@@ -1855,8 +1949,8 @@ def probe_kernel_phase(dev, results: dict) -> dict:
         return {k: v.to(dev) if torch.is_tensor(v) else v for k, v in inputs.items()}
 
     def record(key, dtype, err, kernel, plain, library=None):
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        lib_ms = cuda_ms(library) if library is not None else None
+        ms, plain_ms = cuda_ms(kernel), ref_ms(plain)
+        lib_ms = ref_ms(library) if library is not None else None
         results[(key, dtype)] = (err, ms, plain_ms, lib_ms)
         print(f"  {key} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else ""), flush=True)
@@ -2027,6 +2121,10 @@ def main() -> None:
         axial_attention_plain,
         lane_axial_attention,
         lane_axial_attention_bwd,
+        lane_hopper_bwd,
+        lane_hopper_fwd,
+        lane_line_bwd,
+        lane_line_fwd,
     )
     from bubbleformer_tpu_torch.ops.temporal_block_mega import (
         CORE_PARAM_NAMES,
@@ -2117,7 +2215,7 @@ def main() -> None:
             err = compare(f"K1 {name} {where}", got, ref, KERNEL_RTOL[name])
             del got, ref
             ms = cuda_ms(lambda: mega_temporal_block(**args, heads=heads))
-            plain_ms = cuda_ms(lambda: temporal_branch_plain(**args, heads=heads))
+            plain_ms = ref_ms(lambda: temporal_branch_plain(**args, heads=heads))
             gemm = k1_gemm_ms(args["x"], k1["wqkv"].to(dt), k1["wout"].to(dt))
             print(f"  K1 {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; cuBLAS's two "
                   f"products alone (partial yardstick) {gemm:.4f} ms", flush=True)
@@ -2145,9 +2243,14 @@ def main() -> None:
             err = compare(f"K2 {name} {where}", got, ref, KERNEL_RTOL[name])
             del got, ref
             ms = cuda_ms(lambda: lane_axial_attention(**args, heads=heads))
-            plain_ms = cuda_ms(lambda: axial_attention_plain(**args, heads=heads))
+            plain_ms = ref_ms(lambda: axial_attention_plain(**args, heads=heads))
             print(f"  K2 {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
             results[("K2", name, where)] = (err, ms, plain_ms)
+            if where == "training":
+                lib = lane_sdpa_ms(args["qkv"], args["bias_x"], args["bias_y"], heads)
+                results[("K2 sdpa", name, where)], results[("K2 bwd sdpa", name, where)] = lib
+                print(f"  K2 {name} {where}: sdpa over both directions (partial yardstick) "
+                      f"forward {lib[0]:.4f} ms, backward {lib[1]:.4f} ms", flush=True)
 
     print(f"== phase 5: one float32 window, card vs CPU, FiLMAViT-small at {IMAGE}^2", flush=True)
     data_cfg = {"input_fields": ["f"] * FIELDS, "output_fields": ["f"] * FIELDS,
@@ -2182,14 +2285,16 @@ def main() -> None:
     rel_l2 = ((warm[0].float() - y_gpu).norm() / y_gpu.norm()).item()
     print(f"  warm-up window: bf16 vs f32 relative L2 {rel_l2:.4f}")
     rollout = make_rollout_fn(model, WINDOWS, conditioned=True)
-    mega_temporal_block.launches = 0
-    lane_axial_attention.launches = 0
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     preds = rollout(init, cond)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"K1": mega_temporal_block.launches, "K2": lane_axial_attention.launches}
+    launches = {"K1": mega_temporal_block.launches, "K2": lane_axial_attention.launches,
+                "K2 Hopper": lane_hopper_fwd.launches}
+    if lane_line_fwd.launches:
+        fail(f"the bf16 rollout launched K2's line kernels {lane_line_fwd.launches} times")
     if tuple(preds.shape) != (WINDOWS, 1, TIME_WINDOW, FIELDS, IMAGE, IMAGE):
         fail(f"rollout shape {tuple(preds.shape)}")
     if not torch.isfinite(preds).all():
@@ -2223,7 +2328,7 @@ def main() -> None:
             del got, ref
             ms = cuda_ms(lambda: mega_temporal_block_bwd(do, args["x"], *params, heads=heads,
                                                          residuals=res))
-            plain_ms = cuda_ms(lambda: temporal_branch_bwd_plain(do, **args, heads=heads))
+            plain_ms = ref_ms(lambda: temporal_branch_bwd_plain(do, **args, heads=heads))
             gemm = k1_gemm_ms(args["x"], args["wqkv"].to(dt), args["wout"].to(dt), do, res[1])
             print(f"  K1 bwd {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
                   f"cuBLAS's four products alone (partial yardstick) {gemm:.4f} ms", flush=True)
@@ -2250,7 +2355,7 @@ def main() -> None:
                                 KERNEL_RTOL[name])
             del got, ref
             ms = cuda_ms(lambda: lane_axial_attention_bwd(do, *args.values(), heads=heads))
-            plain_ms = cuda_ms(lambda: axial_attention_bwd_plain(do, **args, heads=heads))
+            plain_ms = ref_ms(lambda: axial_attention_bwd_plain(do, **args, heads=heads))
             print(f"  K2 bwd {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
                   flush=True)
             results[("K2 bwd", name, where)] = (err, ms, plain_ms)
@@ -2264,6 +2369,8 @@ def main() -> None:
     batch = synthetic_batch(1, TIME_WINDOW, FIELDS, IMAGE, IMAGE, 9, seed=SEED)
     counters = (mega_temporal_block, mega_temporal_block_bwd, lane_axial_attention,
                 lane_axial_attention_bwd)
+    # K2's path in float32: the line kernels (their counters move with K2's).
+    step_counters = counters + (lane_line_fwd, lane_line_bwd)
     sides = (("card", "cuda", False), ("card plain", "cuda", True), ("CPU", "cpu", False))
     for case, case_weights in (("FiLM near identity", film_near_identity(weights, SEED)),
                                ("FiLM at O(0.1)", weights)):
@@ -2272,10 +2379,10 @@ def main() -> None:
         print(f"  {case}: CPU float64 step {t64:.2f} s, loss {ref_loss:.7f}")
         worst = {}
         for side, where, plain in sides:
-            counts = [fn.launches for fn in counters]
+            counts = [fn.launches for fn in step_counters]
             loss, grads, secs = train_step_grads(train_cfgs, case_weights, batch, where,
                                                  torch.float32, plain)
-            launched = [fn.launches - n for fn, n in zip(counters, counts)]
+            launched = [fn.launches - n for fn, n in zip(step_counters, counts)]
             if where == "cuda" and (any(launched) if plain else not all(launched)):
                 fail(f"{case}, {side}: kernel launches {launched}")
             if not np.isfinite(loss) or abs(loss - ref_loss) > STEP_RTOL["loss"] * abs(ref_loss):
@@ -2312,14 +2419,16 @@ def main() -> None:
     module.train_step(tuple(torch.from_numpy(a).to(dev) for a in warm),
                       torch.Generator(device=dev).manual_seed(SEED))
     before = {n: p.detach().clone() for n, p in module.model.named_parameters()}
-    for fn in counters:
-        fn.launches = 0
+    # K2's path in bfloat16: the Hopper kernels, every call (the line
+    # kernels never).
+    fit_counters = counters + (lane_hopper_fwd, lane_hopper_bwd, lane_line_fwd, lane_line_bwd)
+    zero_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trainer.fit(SyntheticLoader(TRAIN_STEPS, TRAIN_BATCH, TIME_WINDOW, FIELDS, IMAGE, 9,
                                 seed=SEED + 2), max_epochs=1)
     torch.cuda.synchronize()
-    train_launches = {fn.__name__: fn.launches for fn in counters}
+    train_launches = {fn.__name__: fn.launches for fn in fit_counters}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     seconds = trainer.last_epoch_seconds
     with open(log_dir / "metrics.csv") as f:
@@ -2328,7 +2437,8 @@ def main() -> None:
     if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
         fail(f"expected {TRAIN_STEPS} finite losses, got {losses}")
     for fn_name, n in train_launches.items():
-        want = 12 * DOTS_RERUN.get(fn_name, 1) * TRAIN_STEPS
+        per_step = 0 if fn_name.startswith("lane_line") else 12 * DOTS_RERUN.get(fn_name, 1)
+        want = per_step * TRAIN_STEPS
         if n != want:
             fail(f"{fn_name} launched {n} times in {TRAIN_STEPS} steps, expected {want}")
     unmoved = [(n, p) for n, p in module.model.named_parameters() if torch.equal(before[n], p)]
@@ -2388,7 +2498,7 @@ def main() -> None:
             err = compare(f"K3 {name} {where}", got, ref, KERNEL_RTOL[name])
             del got, ref
             ms = cuda_ms(lambda: core_temporal_attention(**args, heads=hh))
-            plain_ms = cuda_ms(lambda: core_temporal_plain(**args, heads=hh))
+            plain_ms = ref_ms(lambda: core_temporal_plain(**args, heads=hh))
             w2 = k3["wqkv"].to(dt)
             gemm_ms = k3_gemm_ms(args["xn"], w2)
             print(f"  K3 {name} {where}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
@@ -2405,7 +2515,7 @@ def main() -> None:
             del got, ref
             ms = cuda_ms(lambda: core_temporal_attention_bwd(dao, args["xn"], *params,
                                                              heads=hh))
-            plain_ms = cuda_ms(lambda: core_temporal_bwd_plain(dao, **args, heads=hh))
+            plain_ms = ref_ms(lambda: core_temporal_bwd_plain(dao, **args, heads=hh))
             stand_in = torch.matmul(args["xn"].reshape(-1, cc), w2.t())  # a (R, 3C) dqkv
             gemm_ms = k3_gemm_ms(args["xn"], w2, stand_in)
             del stand_in
@@ -2451,6 +2561,9 @@ def main() -> None:
             print(f"  K2 C={c_big} {name} {where}: forward {ms_f:.4f} ms, backward "
                   f"{ms_b:.4f} ms", flush=True)
             results[("K2 big", name, where)] = (err_f, ms_f, err_b, ms_b)
+            if where == "training":
+                results[("K2 big sdpa", name, where)] = lane_sdpa_ms(
+                    args["qkv"], args["bias_x"], args["bias_y"], heads_big)
             del args, do
         del qkv32, do32
 
@@ -2493,20 +2606,21 @@ def main() -> None:
     rel_l2_b = ((warm_b[0].float() - yb_gpu).norm() / yb_gpu.norm()).item()
     print(f"  warm-up window: bf16 vs f32 relative L2 {rel_l2_b:.4f}")
     rollout = make_rollout_fn(big, WINDOWS)
-    for fn in counters + (core_temporal_attention, core_temporal_attention_bwd):
-        fn.launches = 0
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     preds = rollout(init_b)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     big_launches = {"K3": core_temporal_attention.launches, "K2": lane_axial_attention.launches,
+                    "K2 Hopper": lane_hopper_fwd.launches, "K2 line": lane_line_fwd.launches,
                     "K1": mega_temporal_block.launches}
     if tuple(preds.shape) != (WINDOWS, 1, TIME_WINDOW, FIELDS, IMAGE, IMAGE):
         fail(f"AViT-big rollout shape {tuple(preds.shape)}")
     if not torch.isfinite(preds).all():
         fail("the AViT-big rollout produced non-finite values")
-    want = {"K3": 12 * WINDOWS, "K2": 12 * WINDOWS, "K1": 0}
+    want = {"K3": 12 * WINDOWS, "K2": 12 * WINDOWS, "K2 Hopper": 12 * WINDOWS, "K2 line": 0,
+            "K1": 0}
     if big_launches != want:
         fail(f"AViT-big rollout launches {big_launches}, expected {want}")
     print(f"  {frames} frames in {seconds:.3f} s: {frames / seconds:.2f} frames/s, "
@@ -2531,31 +2645,45 @@ def main() -> None:
             _, ms_f, _, ms_b = results[("K2 big", dt, where)]
             b_f = bound(*kernel_work("K2", shape, dt), dt)[0]
             b_b = bound(*kernel_work("K2 bwd", shape, dt), dt)[0]
+            lib = results.get(("K2 big sdpa", dt, where))
+            extra = (f"; sdpa over both directions (partial yardstick) {lib[0]:.4f} / "
+                     f"{lib[1]:.4f} ms" if lib else "")
             print(f"  lane_axial_attention C={c_big} {where} {shape} {dt}: forward {ms_f:.4f} ms "
-                  f"(bound {b_f:.5f}), backward {ms_b:.4f} ms (bound {b_b:.5f})")
+                  f"(bound {b_f:.5f}), backward {ms_b:.4f} ms (bound {b_b:.5f}){extra}")
 
     runs = new_path_phases(repo, dev, card, results)
 
     for key in ("K2 long", "K2 long bwd"):
         for where, shape in LINE_SHAPES["K2 long"].items():
-            for dt in ("float32", "bfloat16"):
+            for dt in ("bfloat16",) if where in LINE_BF16_ONLY else ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, shape, dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
+                lib = results.get((key + " sdpa", dt, where))
+                extra = f", sdpa (partial yardstick) {lib:.4f} ms" if lib else ""
                 print(f"  {key} {where} {shape} {dt}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                      f"bound {b_ms:.5f} ms ({b_by})")
+                      f"bound {b_ms:.5f} ms ({b_by}){extra}")
     print(f"  lane_axial_attention at 512x2048: launches per rollout window 12, per training "
           f"step {runs['A']['launches']['lane_axial_attention'] // runs['A']['steps']}")
 
     kernels = []
     axial_cu = "bubbleformer_tpu_torch/csrc/line_kernels.cuh"  # C entries: axial_attention.cu
+    # K2 in bf16: the Hopper kernels (C entries: axial_lane_hopper.cu).
+    lane_cu = "bubbleformer_tpu_torch/csrc/lane_hopper.cuh"
+    # K2's launches on the main path are its bf16 path's (lane_kernels).
+    counter_of = {"lane_axial_attention": "lane_hopper_fwd",
+                  "lane_axial_attention_bwd": "lane_hopper_bwd"}
+    # K2, K4, K6 and K7 compute the same two-direction attention at these
+    # training shapes: one sdpa yardstick (phase 4) for all four.
+    k2_sdpa = {"fwd": results[("K2 sdpa", "bfloat16", "training")],
+               "bwd": results[("K2 bwd sdpa", "bfloat16", "training")]}
     for key, name, source, replaces in (
         ("K1", "mega_temporal_block", "bubbleformer_tpu_torch/csrc/temporal_block.cu",
          "bubbleformer_tpu/ops/temporal_block_mega.py:238"),
-        ("K2", "lane_axial_attention", axial_cu, "bubbleformer_tpu/ops/axial_lane.py:236"),
+        ("K2", "lane_axial_attention", lane_cu, "bubbleformer_tpu/ops/axial_lane.py:236"),
         ("K1 bwd", "mega_temporal_block_bwd",
          "bubbleformer_tpu_torch/csrc/temporal_block_bwd.cu",
          "bubbleformer_tpu/ops/temporal_block_mega.py:269"),
-        ("K2 bwd", "lane_axial_attention_bwd", axial_cu, "bubbleformer_tpu/ops/axial_lane.py:370"),
+        ("K2 bwd", "lane_axial_attention_bwd", lane_cu, "bubbleformer_tpu/ops/axial_lane.py:370"),
         ("K3", "core_temporal_attention", "bubbleformer_tpu_torch/csrc/temporal_block.cu",
          "bubbleformer_tpu/ops/temporal_block_mega.py:452"),
         ("K3 bwd", "core_temporal_attention_bwd",
@@ -2580,22 +2708,27 @@ def main() -> None:
             per_window = (big_launches if on_big else launches).get(key, 0) // WINDOWS
         err, ms, plain_ms = results[(key, "bfloat16", "training")]
         bound_ms, bound_by = bound(*kernel_work(key, cases["training"], "bfloat16"), "bfloat16")
-        # K1 and K3: cuBLAS on their products alone (partial yardstick).
-        library = results.get((key + " gemm", "bfloat16", "training"))
+        # K1 and K3: cuBLAS on their products alone; K2 and K4: sdpa over
+        # both directions (partial yardsticks).
+        library = (results.get((key + " gemm", "bfloat16", "training")) if key[:2] in ("K1", "K3")
+                   else k2_sdpa["bwd" if key.endswith("bwd") else "fwd"])
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": run_launches[name], "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": library if key[:2] in ("K1", "K3") else None})
+                        "launches": run_launches[counter_of.get(name, name)], "max_abs_err": err,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": library})
         for where in cases:
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
+                sdpa = results.get((key[:2] + (" bwd" if key.endswith("bwd") else "") + " sdpa",
+                                    dt, where))
                 extra = (f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
-                         if key[:2] in ("K1", "K3") else "")
+                         if key[:2] in ("K1", "K3") else
+                         f", sdpa (partial yardstick) {sdpa:.4f} ms" if sdpa else "")
                 print(f"  {name} {where} {cases[where]} {dt}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
         print(f"  {name}: launches per rollout window {per_window}, "
-              f"per training step {run_launches[name] // steps}")
+              f"per training step {run_launches[counter_of.get(name, name)] // steps}")
     # This slice's kernels, their launches from its paths' training runs:
     # K5 on path C, K6 and K7 on path D, K1 and K3 at head dim 16 on path E.
     runs5 = slice5_phases(repo, dev, card, results)
@@ -2633,11 +2766,13 @@ def main() -> None:
         launches_run = run["launches"][counter]
         if launches_run == 0:
             fail(f"{name} was not launched on its path")
+        library = (results.get((key + " gemm", "bfloat16", "training")) if key[:2] in ("K1", "K3")
+                   else k2_sdpa["bwd" if key.endswith("bwd") else "fwd"]
+                   if key[:2] in ("K6", "K7") else None)
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches_run, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": results.get((key + " gemm", "bfloat16", "training"))
-                        if key[:2] in ("K1", "K3") else None})
+                        "library_ms": library})
         for where in cases:
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)

@@ -15,8 +15,9 @@ device time of every kernel by part: the port's hand-written kernels (K1's
 and K3's bf16 chains run their products on the Hopper GEMM,
 ``csrc/hopper_gemm.cuh``; the whole-branch kernels K1 and K3 (in float32)
 and K5 and the in-kernel projection of K9 share their products and
-statistics kernels, ``csrc/block_ops.cuh``; the line kernels serve K2,
-K4-K9; K10 is the loss's plane norms), matrix products (cuBLAS), the
+statistics kernels, ``csrc/block_ops.cuh``; K2's bf16 path runs on its
+Hopper kernels, ``csrc/lane_hopper.cuh``; the line kernels serve K2 in
+float32 and K4-K9; K10 is the loss's plane norms), matrix products (cuBLAS), the
 optimizer's foreach kernels, and the rest (elementwise, reductions,
 copies); and by kernel wrapper (``WRAPPERS``:
 each call of a wrapper is traced as one range, whose device time is that
@@ -77,8 +78,10 @@ PARTS = (
     ("branch products and norms, forward (K1, K3, K5, K9)", ("norm_proj_kernel",
                                                              "plane_stats_kernel")),
     ("temporal QKV and attention forward (K1, K3 float32)", ("qkv_attention",)),
-    ("line kernels backward (K2, K4-K9)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
-    ("line kernels forward (K2, K4-K9)", ("line_fwd_kernel", "line_short_fwd_kernel")),
+    ("K2 bf16 lane kernels (Hopper)", ("lane_fwd_kernel", "lane_bwd_short_kernel",
+                                        "lane_bwd_long_kernel", "lane_param_sum_kernel")),
+    ("line kernels backward (K2 f32, K4-K9)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
+    ("line kernels forward (K2 f32, K4-K9)", ("line_fwd_kernel", "line_short_fwd_kernel")),
     ("loss plane norms (K10)", ("norms_partial_kernel", "norms_finish_kernel", "dpred_kernel")),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),

@@ -5,7 +5,13 @@ steps' shapes, to compare two checkouts on one card.
 K1 (the temporal branch, ``mega_temporal_block``) at x (8, 5, 32, 32, 384),
 FiLMAViT-small's, and at head dim 16, x (8, 5, 64, 64, 96), AViT-tiny's at
 512x512; K2 (the lane axial attention, ``lane_axial_attention``) at qkv (40,
-32, 32, 1152); K3 (the streamed temporal core, ``core_temporal_attention``)
+32, 32, 1152), FiLMAViT-small's, AViT-big's (40, 32, 32, 2304) at 12 heads,
+the flow-boiling grid's at batch 4 and 8, (20, 32, 128, 1152) and (40, 32,
+128, 1152), and AViT-tiny's at 512x2048 at head dim 16, (20, 64, 256, 288),
+and at the bf16 rollouts' batch 1 (BT = 5): FiLMAViT-small's (5, 32, 32,
+1152), AViT-big's (5, 32, 32, 2304) and AViT-small's at 512x2048 (5, 32,
+128, 1152);
+K3 (the streamed temporal core, ``core_temporal_attention``)
 at AViT-big's xn (8, 5, 32, 32, 768), AViT-small's on the flow-boiling grid
 at batch 4 and 8, (4, 5, 32, 128, 384) and (8, 5, 32, 128, 384), and
 AViT-tiny's there at head dim 16, (4, 5, 64, 256, 96), through its autograd
@@ -15,8 +21,9 @@ Function as a training step without remat calls it (the backward alone by
 kernel, ``lane_px_attention``) at x (40, 32, 32, 384).  Forward and
 backward, in bfloat16 and float32, by CUDA events (20 calls after at least
 ``WARMUP_S`` seconds of warm-up calls), from the checkout given by
-``--repo`` (default: this one), whose kernels it builds first.  Then, in bfloat16 at K1's first shape and at
-K3's AViT-big shape, the device time of each kernel one forward and one
+``--repo`` (default: this one), whose kernels it builds first.  Then, in
+bfloat16 at K1's first shape and at K3's AViT-big shape, and K2's at
+FiLMAViT-small's and the flow-boiling grid's at batch 4, the device time of each kernel one forward and one
 backward launch, by ``torch.profiler`` (the mean of 5 traced calls; names
 shortened), which reads any checkout alike.  Comparing two versions of the
 kernels takes two processes on one card, one per checkout, in turns:
@@ -24,6 +31,7 @@ kernels takes two processes on one card, one per checkout, in turns:
     python3 scripts/time_kernels_torch.py --repo build/parent --label parent
     python3 scripts/time_kernels_torch.py --label change
 
+``--only K2`` times only the entries whose key starts with a given prefix.
 Prints one JSON line with the card's name and power limit.  Needs a CUDA
 card.
 """
@@ -51,6 +59,7 @@ def main(argv=None) -> None:
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--only", default="", help="time only the keys with this prefix")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
@@ -98,6 +107,9 @@ def main(argv=None) -> None:
                                          n(heads, scale=0.2, offset=1.0),
                                          n(heads, scale=0.2, offset=1.0)]
 
+    def wanted(key):
+        return key.startswith(args.only)
+
     def ms(fn):
         for _ in range(3):
             fn()
@@ -121,6 +133,8 @@ def main(argv=None) -> None:
                            k1.mega_temporal_block_bwd),
                 "K5": ((40, 32, 32, c), 6, k5.mega_axial_block_fwd, k5.mega_axial_block_bwd)}
     for key, (shape, h, fwd, bwd) in branches.items():
+        if not wanted(key):
+            continue
         x32, params = branch(shape, h)
         do32 = n(*shape)
         for dt in (torch.bfloat16, torch.float32):
@@ -134,13 +148,33 @@ def main(argv=None) -> None:
         name = str(dt).split(".")[-1]
         qkv, p2 = k2_args["qkv"].to(dt), list(k2_args.values())[1:]
         do2 = torch.randn(40, 32, 32, c, device=dev, dtype=dt)
-        out[f"K2 {name}"] = ms(lambda: k2.lane_axial_attention(qkv, *p2, heads=heads))
-        out[f"K2 bwd {name}"] = ms(lambda: k2.lane_axial_attention_bwd(do2, qkv, *p2,
-                                                                       heads=heads))
-        x9 = k9_x.to(dt)
-        out[f"K9 {name}"] = ms(lambda: k9.lane_px_attention(x9, *k9_params, heads=heads))
-        out[f"K9 bwd {name}"] = ms(lambda: k9.lane_px_attention_bwd(do2, x9, *k9_params,
-                                                                    heads=heads))
+        if wanted("K2"):
+            out[f"K2 {name}"] = ms(lambda: k2.lane_axial_attention(qkv, *p2, heads=heads))
+            out[f"K2 bwd {name}"] = ms(lambda: k2.lane_axial_attention_bwd(do2, qkv, *p2,
+                                                                           heads=heads))
+        if wanted("K9"):
+            x9 = k9_x.to(dt)
+            out[f"K9 {name}"] = ms(lambda: k9.lane_px_attention(x9, *k9_params, heads=heads))
+            out[f"K9 bwd {name}"] = ms(lambda: k9.lane_px_attention_bwd(do2, x9, *k9_params,
+                                                                        heads=heads))
+    # K2 at the other paths' shapes: qkv (BT, H, W, 3C) and heads.
+    k2_cases = {"avit_big": ((40, 32, 32, 2304), 12), "flow_b4": ((20, 32, 128, 1152), 6),
+                "flow_b8": ((40, 32, 128, 1152), 6), "d16": ((20, 64, 256, 288), 6),
+                "rollout": ((5, 32, 32, 1152), 6), "big_rollout": ((5, 32, 32, 2304), 12),
+                "flow_rollout": ((5, 32, 128, 1152), 6)}
+    for case, (shape, h) in k2_cases.items() if wanted("K2") else ():
+        dd, (_, hh, ww, c3) = shape[-1] // 3 // h, shape
+        p2 = [*ln(dd), n(h, ww, ww), n(h, hh, hh), n(h, scale=0.2, offset=1.0),
+              n(h, scale=0.2, offset=1.0)]
+        qkv32, do32 = n(*shape), n(*shape[:-1], c3 // 3)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            qkv, do2 = qkv32.to(dt), do32.to(dt)
+            out[f"K2 {case} {name}"] = ms(lambda: k2.lane_axial_attention(qkv, *p2, heads=h))
+            out[f"K2 bwd {case} {name}"] = ms(lambda: k2.lane_axial_attention_bwd(do2, qkv, *p2,
+                                                                                  heads=h))
+            del qkv, do2
+        del qkv32, do32
     k3_cases = {"avit_big": ((8, t, 32, 32, 768), 12), "flow_b4": ((4, t, 32, 128, 384), 6),
                 "flow_b8": ((8, t, 32, 128, 384), 6), "flow_d16": ((4, t, 64, 256, 96), 6)}
 
@@ -149,7 +183,7 @@ def main(argv=None) -> None:
         return [n(3 * cc, cc, scale=cc**-0.5), n(3 * cc, scale=0.1), *ln(cc // h), n(h, t, t),
                 n(h, scale=0.2, offset=1.0)]
 
-    for case, (shape, h) in k3_cases.items():
+    for case, (shape, h) in k3_cases.items() if wanted("K3") else ():
         k3_params = k3_args(shape, h)
         xn32 = n(*shape)
         for dt in (torch.bfloat16, torch.float32):
@@ -176,7 +210,22 @@ def main(argv=None) -> None:
                                                                                 heads=h3),
              "K3 avit_big bfloat16 bwd": lambda: k1.core_temporal_attention_bwd(dao, xn, *p3,
                                                                                 heads=h3)}
+    qkv2, p2 = k2_args["qkv"].to(torch.bfloat16), list(k2_args.values())[1:]
+    do2 = n(*qkv2.shape[:-1], c).to(torch.bfloat16)
+    shape_f = k2_cases["flow_b4"][0]
+    qkv_f = n(*shape_f).to(torch.bfloat16)
+    do_f = n(*shape_f[:-1], shape_f[-1] // 3).to(torch.bfloat16)
+    p_f = [*ln(d), n(heads, 128, 128), n(heads, 32, 32), n(heads, scale=0.2, offset=1.0),
+           n(heads, scale=0.2, offset=1.0)]
+    calls.update({
+        "K2 bfloat16 fwd": lambda: k2.lane_axial_attention(qkv2, *p2, heads=heads),
+        "K2 bfloat16 bwd": lambda: k2.lane_axial_attention_bwd(do2, qkv2, *p2, heads=heads),
+        "K2 flow_b4 bfloat16 fwd": lambda: k2.lane_axial_attention(qkv_f, *p_f, heads=heads),
+        "K2 flow_b4 bfloat16 bwd": lambda: k2.lane_axial_attention_bwd(do_f, qkv_f, *p_f,
+                                                                       heads=heads)})
     for what, fn in calls.items():
+        if not wanted(what):
+            continue
         fn()
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:

@@ -1,7 +1,8 @@
 """K2, the axial row + column attention: the port's plain version against the
 JAX lane kernel (run in interpret mode, as the JAX package's own tests run it
-on the CPU), on a square and a non-square token grid, and the port's axial
-block against the JAX block's plain route.
+on the CPU), on a square and a non-square token grid and on rows of 128
+tokens at head dim 16, and the port's axial block against the JAX block's
+plain route.
 
 Float32 tolerance 1e-5 for the attention core: the same formula on both
 sides, summed in another order (the block test states its own).  bfloat16
@@ -28,10 +29,10 @@ from bubbleformer_tpu_torch.utils.convert import _attention_block
 C, HEADS = 32, 4
 
 
-def _args(bt, h, w, seed):
+def _args(bt, h, w, seed, heads=HEADS):
     """Numpy inputs of the lane entry in the JAX argument order."""
     rng = np.random.default_rng(seed)
-    d = C // HEADS
+    d = C // heads
 
     def n(*s, scale=1.0, offset=0.0):
         return (offset + scale * rng.standard_normal(s)).astype(np.float32)
@@ -40,24 +41,31 @@ def _args(bt, h, w, seed):
         x=n(bt, h, w, C), wqkv=n(C, 3 * C, scale=C**-0.5), bqkv=n(3 * C, scale=0.2),
         qn_scale=n(d, scale=0.2, offset=1.0), qn_bias=n(d, scale=0.2),
         kn_scale=n(d, scale=0.2, offset=1.0), kn_bias=n(d, scale=0.2),
-        bias_x=n(HEADS, w, w), bias_y=n(HEADS, h, h),
-        scale_x=rng.uniform(0.5, 1.5, HEADS).astype(np.float32),
-        scale_y=rng.uniform(0.5, 1.5, HEADS).astype(np.float32),
+        bias_x=n(heads, w, w), bias_y=n(heads, h, h),
+        scale_x=rng.uniform(0.5, 1.5, heads).astype(np.float32),
+        scale_y=rng.uniform(0.5, 1.5, heads).astype(np.float32),
     )
 
 
+# A square and a non-square grid of 4 heads of 8, and rows of 128 tokens
+# (longer than the line kernels' 64-token tile and than one 32-token chunk of
+# the bf16 Hopper kernels) at 2 heads of 16.
+GRIDS = [((8, 8), 3, HEADS), ((8, 16), 3, HEADS), ((4, 128), 2, 2)]
+GRID_IDS = ["square", "nonsquare", "long_lines"]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("grid", [(8, 8), (8, 16)], ids=["square", "nonsquare"])
-def test_from_x_plain_matches_jax_lane_kernel(grid, dtype):
-    a = _args(3, *grid, seed=grid[1])
+@pytest.mark.parametrize("grid,bt,heads", GRIDS, ids=GRID_IDS)
+def test_from_x_plain_matches_jax_lane_kernel(grid, bt, heads, dtype):
+    a = _args(bt, *grid, seed=grid[1], heads=heads)
     ja = {k: jnp.asarray(v) for k, v in a.items()}
     ja["x"] = ja["x"].astype(dtype)
-    want = np.asarray(jax_lane(**ja, heads=HEADS, interpret=True).astype(jnp.float32))
+    want = np.asarray(jax_lane(**ja, heads=heads, interpret=True).astype(jnp.float32))
     ta = {k: torch.from_numpy(v) for k, v in a.items()}
     ta["x"] = ta["x"].to(getattr(torch, dtype))
     ta["wqkv"] = ta["wqkv"].t().contiguous()  # torch (out, in)
-    got = lane_axial_attention_from_x(**ta, heads=HEADS)
-    assert got.dtype == getattr(torch, dtype) and got.shape == (3, *grid, C)
+    got = lane_axial_attention_from_x(**ta, heads=heads)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (bt, *grid, C)
     if dtype == "float32":
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     else:

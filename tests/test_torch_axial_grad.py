@@ -3,7 +3,8 @@ computes) against float64 autograd of the plain forward, and the port's
 ``lane_axial_attention_from_x`` differentiated end to end (the QKV ``addmm``
 by autograd, the attention core by the plain backward) against ``jax.grad``
 through the JAX lane kernel run in interpret mode, on a square and an 8x16
-token grid.  Every parameter and ``x``.
+token grid (4 heads of 8) and on rows of 128 tokens (a 4x128 grid, 2 heads
+of 16).  Every parameter and ``x``.
 
 Tolerances, relative to each gradient's largest magnitude as
 ``tests/_torch_grads.py`` says:
@@ -38,11 +39,11 @@ CORE = ("qkv", "qn_scale", "qn_bias", "kn_scale", "kn_bias", "bias_x", "bias_y",
 FROM_X = ("x", "wqkv", "bqkv") + CORE[1:]
 
 
-def _args(bt, h, w, seed):
+def _args(bt, h, w, seed, heads=HEADS):
     """Numpy inputs of the lane entry (torch (out, in) ``wqkv``), the raw QKV
     of the core, and an output gradient."""
     rng = np.random.default_rng(seed)
-    d = C // HEADS
+    d = C // heads
 
     def n(*s, scale=1.0, offset=0.0):
         return (offset + scale * rng.standard_normal(s)).astype(np.float32)
@@ -51,9 +52,9 @@ def _args(bt, h, w, seed):
         x=n(bt, h, w, C), wqkv=n(3 * C, C, scale=C**-0.5), bqkv=n(3 * C, scale=0.2),
         qkv=n(bt, h, w, 3 * C), qn_scale=n(d, scale=0.2, offset=1.0), qn_bias=n(d, scale=0.2),
         kn_scale=n(d, scale=0.2, offset=1.0), kn_bias=n(d, scale=0.2),
-        bias_x=n(HEADS, w, w), bias_y=n(HEADS, h, h),
-        scale_x=rng.uniform(0.5, 1.5, HEADS).astype(np.float32),
-        scale_y=rng.uniform(0.5, 1.5, HEADS).astype(np.float32),
+        bias_x=n(heads, w, w), bias_y=n(heads, h, h),
+        scale_x=rng.uniform(0.5, 1.5, heads).astype(np.float32),
+        scale_y=rng.uniform(0.5, 1.5, heads).astype(np.float32),
     )
     return a, n(bt, h, w, C)
 
@@ -70,15 +71,17 @@ def test_plain_backward_matches_float64_autograd(grid):
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("grid", [(8, 8), (8, 16)], ids=["square", "nonsquare"])
-def test_from_x_gradients_match_jax_lane_kernel(grid, dtype, tol):
-    a, do = _args(3, *grid, seed=grid[1] + 1)
+@pytest.mark.parametrize("grid,bt,heads", [((8, 8), 3, HEADS), ((8, 16), 3, HEADS),
+                                           ((4, 128), 2, 2)],
+                         ids=["square", "nonsquare", "long_lines"])
+def test_from_x_gradients_match_jax_lane_kernel(grid, bt, heads, dtype, tol):
+    a, do = _args(bt, *grid, seed=grid[1] + 1, heads=heads)
     ja = {k: jnp.asarray(a[k]) for k in FROM_X}
     ja["wqkv"] = ja["wqkv"].T  # flax (in, out)
     ja["x"] = ja["x"].astype(dtype)
 
     def loss(*vals):
-        out = jax_lane(**dict(zip(FROM_X, vals)), heads=HEADS, interpret=True)
+        out = jax_lane(**dict(zip(FROM_X, vals)), heads=heads, interpret=True)
         return jnp.sum(out.astype(jnp.float32) * jnp.asarray(do))
 
     jg = jax.grad(loss, argnums=tuple(range(len(FROM_X))))(*(ja[k] for k in FROM_X))
@@ -87,7 +90,7 @@ def test_from_x_gradients_match_jax_lane_kernel(grid, dtype, tol):
 
     ta = {k: torch.from_numpy(a[k]).requires_grad_() for k in FROM_X}
     xin = ta["x"].to(getattr(torch, dtype))
-    out = lane_axial_attention_from_x(xin, *(ta[k] for k in FROM_X[1:]), heads=HEADS)
+    out = lane_axial_attention_from_x(xin, *(ta[k] for k in FROM_X[1:]), heads=heads)
     assert out.dtype == getattr(torch, dtype)
     got = torch.autograd.grad(out.float(), list(ta.values()), torch.from_numpy(do))
     check_grads(FROM_X, got, want, tol)

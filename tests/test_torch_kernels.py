@@ -27,7 +27,10 @@ into) of the reference's largest magnitude.  The backward kernels are held
 to the same, gradient by gradient (``tests/_torch_grads.py``): their float32
 sums are also reordered by atomics from run to run (but K1's bf16 weight
 gradients, split-K sums added in a fixed order, repeat bit for bit, and so
-does K3's bf16 dW_qkv).  The Hopper GEMM of K1's and K3's products, in both
+do K3's bf16 dW_qkv and K2's bf16 table, scale and qk-LN gradients, which
+its Hopper kernels sum from per-block partials in a fixed order; those are
+also held to chip_smoke.py's 1e-2 at every K2 shape, long lines and head
+dim 16 included).  The Hopper GEMM of K1's and K3's products, in both
 operand layouts and with each epilogue, is held against ``torch.matmul`` in
 float32 at their shapes and ragged ones.
 """
@@ -71,6 +74,12 @@ from bubbleformer_tpu_torch.ops.axial_lane import (
     kernel_params,
     lane_axial_attention,
     lane_axial_attention_bwd,
+    lane_bwd_plan,
+    lane_hopper_bwd,
+    lane_hopper_fwd,
+    lane_kernels,
+    lane_line_bwd,
+    lane_line_fwd,
 )
 from bubbleformer_tpu_torch.ops.axial_lane_px import (
     lane_px_attention,
@@ -474,6 +483,123 @@ def test_line_kernels_raise_outside_their_envelope_on_card(cuda_device):
         fused_block_attention(**args, heads=2)
     with pytest.raises(ValueError, match=r"\(2, 8, 8, 192\)"):
         lane_axial_attention(**args, heads=2)
+
+
+def test_k2_kernels_are_chosen_by_dtype():
+    """bfloat16 takes the Hopper kernels, float32 the line kernels; any other
+    dtype has no kernel."""
+    assert lane_kernels(torch.bfloat16) == (lane_hopper_fwd, lane_hopper_bwd)
+    assert lane_kernels(torch.float32) == (lane_line_fwd, lane_line_bwd)
+    with pytest.raises(TypeError, match="float16"):
+        lane_kernels(torch.float16)
+
+
+# (lines of a direction, heads, blocks resident on the card): FiLMAViT-small's
+# rows (and columns) at the training and rollout batch, AViT-big's 12 heads,
+# the flow-boiling grid's rows of 128 and columns of 32 at batch 4,
+# AViT-tiny's rows of 256 at 512x2048, lines of 512, a few lines of 8, and a
+# wave narrower than the heads.  Residents: 132 SMs times 1 to 8 blocks.
+PLAN_CASES = [(1280, 6, 528), (160, 6, 528), (1280, 12, 528), (640, 6, 132), (2560, 6, 528),
+              (1280, 6, 264), (16, 6, 132), (3, 6, 1056), (40, 6, 4)]
+
+
+@pytest.mark.parametrize("lines,heads,resident", PLAN_CASES,
+                         ids=["training", "rollout", "big", "flow_rows", "flow_cols", "d16_rows",
+                              "rows_512", "three", "narrow"])
+def test_k2_backward_plan_gives_every_line_to_one_block(lines, heads, resident):
+    """Block g of a head takes lines g * per .. (g + 1) * per: every line
+    once, no block without a line, at least one block a head and at most
+    one wave of the resident blocks."""
+    groups, per = lane_bwd_plan(lines, heads, resident)
+    owned = [li for g in range(groups) for li in range(g * per, min((g + 1) * per, lines))]
+    assert owned == list(range(lines))
+    assert (groups - 1) * per < lines
+    assert groups * heads <= max(resident, heads)
+    if lines * heads >= 2 * resident:  # enough lines: the wave is mostly filled
+        assert groups * heads >= resident // 2, (groups, per)
+
+
+# K2's bfloat16 Hopper kernels (csrc/lane_hopper.cuh) at every K2_CASES shape,
+# the flow-boiling 32x128 grid, lines of 512 both ways (the long-line
+# backward), AViT-tiny's 6 heads of 16 at 64x64 and at 64x256 tokens (rows of
+# 256), and ragged lines of 100 and 72: forward and every gradient against
+# the plain versions in bfloat16, held to chip_smoke.py's LINE_RTOL (1e-2 of
+# each output's or gradient's largest magnitude; single-ulp bf16 flips where
+# reordered float32 sums straddle a rounding edge).
+HOPPER_CASES = [(grid, c, c // 64) for grid, c in K2_CASES] + [
+    ((4, 32, 128), 384, 6), ((1, 16, 512), 384, 6), ((1, 512, 16), 384, 6),
+    ((5, 64, 64), 96, 6), ((2, 64, 256), 96, 6), ((2, 100, 72), 128, 2)]
+HOPPER_IDS = K2_IDS + ["flow", "rows_512", "cols_512", "d16", "d16_rows_256", "ragged"]
+LINE_RTOL_BF16 = 1e-2
+
+
+def _hopper_counts():
+    return (lane_hopper_fwd.launches, lane_hopper_bwd.launches, lane_line_fwd.launches,
+            lane_line_bwd.launches, lane_axial_attention.launches,
+            lane_axial_attention_bwd.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,c,heads", HOPPER_CASES, ids=HOPPER_IDS)
+def test_k2_hopper_kernels_match_plain_on_card(cuda_device, grid, c, heads):
+    args = _k2_args(*grid, c, heads, 60, torch.bfloat16, cuda_device)
+    do = torch.randn(*grid, c, generator=torch.Generator().manual_seed(61))
+    do = do.to(cuda_device, torch.bfloat16)
+    before = _hopper_counts()
+    got = lane_axial_attention(**args, heads=heads)
+    grads = lane_axial_attention_bwd(do, *args.values(), heads=heads)
+    assert _hopper_counts() == tuple(n + k for n, k in zip(before, (1, 1, 0, 0, 1, 1)))
+    assert got.dtype == torch.bfloat16 and grads[0].dtype == torch.bfloat16
+    want = axial_attention_plain(**args, heads=heads)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= LINE_RTOL_BF16 * want.float().abs().max().item(), err
+    want = axial_attention_bwd_plain(do, **args, heads=heads)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    check_grads(list(args), [g.cpu() for g in grads], [w.float().cpu().numpy() for w in want],
+                LINE_RTOL_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,c,heads", [((40, 32, 32), 384, 6), ((4, 32, 128), 384, 6),
+                                          ((1, 16, 512), 384, 6), ((2, 64, 256), 96, 6)],
+                         ids=["training", "flow", "rows_512", "d16_rows_256"])
+def test_k2_hopper_parameter_gradients_repeat_bit_for_bit_on_card(cuda_device, grid, c, heads):
+    """The table, scale and qk-LN gradients are per-block partials added in
+    a fixed order: two calls give the same bits (and so does dqkv)."""
+    args = _k2_args(*grid, c, heads, 62, torch.bfloat16, cuda_device)
+    do = torch.randn(*grid, c, generator=torch.Generator().manual_seed(63))
+    do = do.to(cuda_device, torch.bfloat16)
+    first = lane_axial_attention_bwd(do, *args.values(), heads=heads)
+    first = [g.clone() for g in first]
+    second = lane_axial_attention_bwd(do, *args.values(), heads=heads)
+    torch.cuda.synchronize()
+    for name, a, b in zip(args, first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_k2_float32_takes_the_line_kernels_on_card(cuda_device):
+    """float32 stays on the line kernels: their counters move, the Hopper
+    kernels' do not; a bfloat16 shape outside the envelope raises, naming
+    it, with no kernel launched."""
+    args = _k2_args(2, 8, 16, 128, 2, 64, device=cuda_device)
+    do = torch.randn(2, 8, 16, 128, generator=torch.Generator().manual_seed(65)).to(cuda_device)
+    before = _hopper_counts()
+    lane_axial_attention(**args, heads=2)
+    lane_axial_attention_bwd(do, *args.values(), heads=2)
+    torch.cuda.synchronize()
+    assert _hopper_counts() == tuple(n + k for n, k in zip(before, (0, 0, 1, 1, 1, 1)))
+    bad = _k2_args(2, 8, 8, 64, 2, 66, torch.bfloat16, cuda_device)  # head dim 32
+    before = _hopper_counts()
+    with pytest.raises(ValueError, match=r"\(2, 8, 8, 192\)"):
+        lane_axial_attention(**bad, heads=2)
+    with pytest.raises(ValueError, match=r"\(2, 8, 8, 192\)"):
+        lane_axial_attention_bwd(torch.zeros(2, 8, 8, 64, device=cuda_device,
+                                             dtype=torch.bfloat16), *bad.values(), heads=2)
+    assert _hopper_counts() == before
 
 
 def _k5_args(bt, h, w, c, heads, seed, dtype=torch.float32, device="cpu"):
