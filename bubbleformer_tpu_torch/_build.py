@@ -61,51 +61,73 @@ _SIGNATURES = {
     # BT, H, W, C, heads, stream
     "bf_axial_attention_fwd": [_I] * 3 + [_P] * 7 + [_I] * 5 + [_P],
     # dtype, head_dim, fused, qkv, do, ln, bias_x, bias_y, scale, dqkv, dacc,
-    # stats, dln, dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
-    "bf_axial_attention_bwd": [_I] * 3 + [_P] * 13 + [_I] * 5 + [_P],
+    # stats, dln, dbias_x, dbias_y, dscale, part, groups_r, per_r, groups_c,
+    # per_c, BT, H, W, C, heads, stream
+    "bf_axial_attention_bwd": [_I] * 3 + [_P] * 14 + [_I] * 9 + [_P],
     # head_dim, qkv, ln, bias_x, bias_y, scale, row_out, out, BT, H, W, C,
     # heads, stream
     "bf_lane_hopper_fwd": [_I] + [_P] * 7 + [_I] * 5 + [_P],
-    # head_dim, qkv, dout, ln, bias_x, bias_y, scale, dqkv, part_bias_r,
-    # part_bias_c, part_scale_r, part_scale_c, part_ln_r, part_ln_c, dln,
+    # head_dim, qkv, dout, ln, bias_x, bias_y, scale, dqkv, lane_part, dln,
     # dbias_x, dbias_y, dscale, BT, H, W, C, heads, groups_r, per_r, groups_c,
     # per_c, stream
-    "bf_lane_hopper_bwd": [_I] + [_P] * 17 + [_I] * 9 + [_P],
-    # head_dim, L, blocks (int out)
-    "bf_lane_hopper_bwd_resident": [_I, _I, _IP],
+    "bf_lane_hopper_bwd": [_I] + [_P] * 12 + [_I] * 9 + [_P],
+    # mode, head_dim, L, blocks (int out)
+    "bf_lane_bwd_resident": [_I, _I, _I, _IP],
     # dtype, head_dim, packed, qkv3, bias_x, bias_y, scale, row_out, out, BT,
     # H, W, C, heads, stream
     "bf_axial_fused_fwd": [_I] * 3 + [_P] * 6 + [_I] * 5 + [_P],
     # dtype, head_dim, packed, qkv3, do, bias_x, bias_y, scale, dqkv3, dacc,
-    # stats, dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
-    "bf_axial_fused_bwd": [_I] * 3 + [_P] * 11 + [_I] * 5 + [_P],
+    # stats, dbias_x, dbias_y, dscale, part, groups_r, per_r, groups_c, per_c,
+    # BT, H, W, C, heads, stream
+    "bf_axial_fused_bwd": [_I] * 3 + [_P] * 12 + [_I] * 9 + [_P],
     # dtype, head_dim, qkv3, bias, scale, out, M, n, heads, stream
     "bf_axial_flash_fwd": [_I] * 2 + [_P] * 4 + [_I] * 3 + [_P],
     # dtype, head_dim, qkv3, dout, bias, scale, dqkv3, stats, dbias, dscale,
-    # M, n, heads, stream
-    "bf_axial_flash_bwd": [_I] * 2 + [_P] * 8 + [_I] * 3 + [_P],
+    # part, groups, per, M, n, heads, stream
+    "bf_axial_flash_bwd": [_I] * 2 + [_P] * 9 + [_I] * 5 + [_P],
     # n
     "bf_lp_norm_splits": [_I],
     # p_dtype, t_dtype, pred, tgt, partial, out, m, n, stream
     "bf_lp_norms_fwd": [_I] * 2 + [_P] * 4 + [_I] * 2 + [_P],
     # p_dtype, t_dtype, pred, tgt, coef, dpred, m, n, stream
     "bf_lp_norms_bwd": [_I] * 2 + [_P] * 4 + [_I] * 2 + [_P],
-    # dtype, head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout,
-    # bout, bias_x, bias_y, scale, stats1, qkv, ao, ao_r, stats2, out, BT, H,
-    # W, C, heads, stream
-    "bf_axial_block_mega_fwd": [_I] * 2 + [_P] * 19 + [_I] * 5 + [_P],
-    # dtype, head_dim, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b,
-    # wout_t, bias_x, bias_y, scale, stats1, ao_r, stats2, work, sums, dao,
-    # dqkv, dacc, lstats, dx, din1, dwqkv, dbqkv, dln, din2, dwout, dbout,
-    # dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream
-    "bf_axial_block_mega_bwd": [_I] * 2 + [_P] * 33 + [_I] * 5 + [_P],
-    # dtype, head_dim, x, wqkv, bqkv, ln, bias_x, bias_y, scale, qkv, row_out,
-    # out, BT, H, W, C, heads, stream
-    "bf_axial_lane_px_fwd": [_I] * 2 + [_P] * 10 + [_I] * 5 + [_P],
-    # dtype, head_dim, x, dout, wqkv, wqkv_t, bqkv, ln, bias_x, bias_y, scale,
-    # qkv, dqkv, stats, dx, dwqkv, dbqkv, dln, dbias_x, dbias_y, dscale, BT, H,
-    # W, C, heads, stream
-    "bf_axial_lane_px_bwd": [_I] * 2 + [_P] * 19 + [_I] * 5 + [_P],
+    # head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout, bout,
+    # bias_x, bias_y, scale, stats1, qkv, ao, ao_r, stats2, out, BT, H, W, C,
+    # heads, stream (float32)
+    "bf_axial_block_mega_fwd": [_I] + [_P] * 19 + [_I] * 5 + [_P],
+    # head_dim, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b, wout_t,
+    # bias_x, bias_y, scale, stats1, ao_r, stats2, work, sums, dao, dqkv, dacc,
+    # lstats, part, groups_r, per_r, groups_c, per_c, dx, din1, dwqkv, dbqkv,
+    # dln, din2, dwout, dbout, dbias_x, dbias_y, dscale, BT, H, W, C, heads,
+    # stream (float32)
+    "bf_axial_block_mega_bwd": [_I] + [_P] * 23 + [_I] * 4 + [_P] * 11 + [_I] * 5 + [_P],
+    # head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout, bout,
+    # bias_x, bias_y, scale, stats1, qkv, ao, ao_r, stats2, xs, out, BT, H, W,
+    # C, heads, stream (bf16)
+    "bf_mega_hopper_fwd": [_I] + [_P] * 20 + [_I] * 5 + [_P],
+    # head_dim, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b, wout_t,
+    # bias_x, bias_y, scale, stats1, ao_r, stats2, work, sums, dao, dqkv, dacc,
+    # xs, part_w, bounds_out, splits_out, bounds_qkv, splits_qkv, lane_part,
+    # groups_r, per_r, groups_c, per_c, dx, din1, dwqkv, dbqkv, dln, din2,
+    # dwout, dbout, dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream (bf16)
+    "bf_mega_hopper_bwd": [_I] + [_P] * 23 + [_IP, _I, _IP, _I, _P] + [_I] * 4 + [_P] * 11
+    + [_I] * 5 + [_P],
+    # head_dim, x, wqkv, bqkv, ln, bias_x, bias_y, scale, qkv, row_out, out,
+    # BT, H, W, C, heads, stream (float32)
+    "bf_axial_lane_px_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_P],
+    # head_dim, x, dout, wqkv, wqkv_t, bqkv, ln, bias_x, bias_y, scale, qkv,
+    # dqkv, stats, part, groups_r, per_r, groups_c, per_c, dx, dwqkv, dbqkv,
+    # dln, dbias_x, dbias_y, dscale, BT, H, W, C, heads, stream (float32)
+    "bf_axial_lane_px_bwd": [_I] + [_P] * 13 + [_I] * 4 + [_P] * 7 + [_I] * 5 + [_P],
+    # head_dim, x, wqkv, bqkv, ln, bias_x, bias_y, scale, qkv, row_out, out,
+    # BT, H, W, C, heads, stream (bf16)
+    "bf_lane_px_hopper_fwd": [_I] + [_P] * 10 + [_I] * 5 + [_P],
+    # head_dim, x, dout, wqkv, wqkv_t, bqkv, ln, bias_x, bias_y, scale, qkv,
+    # dqkv2, sums, part_w, bounds, splits, lane_part, groups_r, per_r,
+    # groups_c, per_c, dx, dwqkv, dbqkv, dln, dbias_x, dbias_y, dscale, BT, H,
+    # W, C, heads, stream (bf16)
+    "bf_lane_px_hopper_bwd": [_I] + [_P] * 13 + [_IP, _I, _P] + [_I] * 4 + [_P] * 7 + [_I] * 5
+    + [_P],
     # The probes' kernels (probes/, csrc/probe_*.cu).
     # dtype, x, o1, o2, rows, total, r1, b1, r2, b2, stream
     "bf_probe_within_roll": [_I] + [_P] * 3 + [_I] * 6 + [_P],

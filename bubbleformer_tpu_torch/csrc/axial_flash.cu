@@ -16,8 +16,9 @@
 // with a block-diagonal -1e9 mask and a segment-mean matrix, to fill its
 // 128x128 matrix unit; exp(-1e9) is exactly 0 in float32, so that is
 // per-line attention, which is what this computes, with no G*n x G*n
-// logits.  The bias and scale gradients are float32 atomic sums over the
-// M lines: their last bits vary from run to run.
+// logits.  The bias and scale gradients are sums over the M lines in a
+// fixed order (per-block partials, line_kernels.cuh): they repeat bit for
+// bit.
 //
 // What bounds it at FiLMAViT-small's training shapes (temporal: 6 heads,
 // M = 8192 lines of 5 tokens; rows and columns: M = 1280 lines of 32, d =
@@ -87,14 +88,15 @@ extern "C" int bf_axial_flash_fwd(int dtype, int head_dim, const void* qkv3, con
 
 // qkv3 (3, heads, M, n, head_dim) and dout (heads, M, n, head_dim) in dtype;
 // bias, scale as for bf_axial_flash_fwd.  Outputs: dqkv3 (3, heads, M, n,
-// head_dim) in dtype; float32 and zeroed by the caller: dbias (heads, n, n)
-// and dscale (heads, 2), the scale's gradient in column 0.  Scratch: stats
-// float32 (heads, M, n, 3) where n > 64 (else unused).  Returns a
-// cudaError_t.
+// head_dim) in dtype; float32, written whole: dbias (heads, n, n) and dscale
+// (heads, 2), the scale's gradient in column 0 (column 1 zero).  Scratch:
+// stats float32 (heads, M, n, 3) where n > 64 (else unused), part the
+// partials of the plan (groups, per) for the M lines (line_kernels.cuh:
+// line_bwd_plans, one pass).  Returns a cudaError_t.
 extern "C" int bf_axial_flash_bwd(int dtype, int head_dim, const void* qkv3, const void* dout,
                                   const float* bias, const float* scale, void* dqkv3,
-                                  float* stats, float* dbias, float* dscale, int M, int n,
-                                  int heads, void* stream) {
+                                  float* stats, float* dbias, float* dscale, float* part,
+                                  int groups, int per, int M, int n, int heads, void* stream) {
   if (!bft::flash_shape_ok(head_dim, M, n, heads)) return cudaErrorInvalidValue;
   bft::AxialArgs a = bft::flash_args(qkv3, bias, scale, M, n, head_dim, heads, stream);
   a.dout = dout;
@@ -103,6 +105,9 @@ extern "C" int bf_axial_flash_bwd(int dtype, int head_dim, const void* qkv3, con
   a.dbias_x = dbias;
   a.dbias_y = dbias;
   a.dscale = dscale;
+  a.part = part;
+  a.groups[0] = groups;
+  a.per[0] = per;
   if (dtype == bft::kF32) return bft::flash_bwd<float>(head_dim, a);
   if (dtype == bft::kBF16) return bft::flash_bwd<__nv_bfloat16>(head_dim, a);
   return cudaErrorInvalidValue;

@@ -74,15 +74,17 @@ extern "C" int bf_axial_fused_fwd(int dtype, int head_dim, int packed, const voi
 
 // qkv3 (3, BT, H, W, C) and dout (BT, H, W, C) in dtype; bias_x, bias_y,
 // scale, packed, head_dim as for bf_axial_fused_fwd.  Outputs: dqkv3 (3, BT,
-// H, W, C) in dtype; float32 and zeroed by the caller: dbias_x (heads, W, W),
-// dbias_y (heads, H, H), dscale (heads, 2).  Scratch: dacc float32 (3, BT, H,
-// W, C) for K6 (else unused), stats float32 (BT, heads, H, W, 3) where
-// max(H, W) > 64 (else unused).  Returns a cudaError_t.
+// H, W, C) in dtype; float32, written whole: dbias_x (heads, W, W), dbias_y
+// (heads, H, H), dscale (heads, 2).  Scratch: dacc float32 (3, BT, H, W, C)
+// for K6 (else unused), stats float32 (BT, heads, H, W, 3) where max(H, W) >
+// 64 (else unused), part and the plan as for bf_axial_attention_bwd.
+// Returns a cudaError_t.
 extern "C" int bf_axial_fused_bwd(int dtype, int head_dim, int packed, const void* qkv3,
                                   const void* dout, const float* bias_x, const float* bias_y,
                                   const float* scale, void* dqkv3, float* dacc, float* stats,
-                                  float* dbias_x, float* dbias_y, float* dscale, int BT, int H,
-                                  int W, int C, int heads, void* stream) {
+                                  float* dbias_x, float* dbias_y, float* dscale, float* part,
+                                  int groups_r, int per_r, int groups_c, int per_c, int BT,
+                                  int H, int W, int C, int heads, void* stream) {
   bft::AxialArgs a{};
   a.qkv = qkv3;
   a.dout = dout;
@@ -95,6 +97,11 @@ extern "C" int bf_axial_fused_bwd(int dtype, int head_dim, int packed, const voi
   a.dbias_x = dbias_x;
   a.dbias_y = dbias_y;
   a.dscale = dscale;
+  a.part = part;
+  a.groups[0] = groups_r;
+  a.per[0] = per_r;
+  a.groups[1] = groups_c;
+  a.per[1] = per_c;
   a.BT = BT;
   a.H = H;
   a.W = W;

@@ -21,13 +21,6 @@ bool lane_shape_ok(int head_dim, int H, int W, int C, int heads) {
          C == heads * head_dim;
 }
 
-// Every line of a pass in exactly one block: groups * per >= lines and no
-// block without a line.
-bool plan_ok(int lines, int groups, int per) {
-  return groups >= 1 && per >= 1 && (long long)groups * per >= lines &&
-         (long long)(groups - 1) * per < lines;
-}
-
 }  // namespace
 
 // qkv: (BT, H, W, 3C) bf16, heads-major [q|k|v] columns; ln (4, head_dim) =
@@ -53,28 +46,24 @@ extern "C" int bf_lane_hopper_fwd(int head_dim, const void* qkv, const float* ln
   a.C = C;
   a.heads = heads;
   const auto st = static_cast<cudaStream_t>(stream);
-  return head_dim == 64 ? bft::lane::lane_fwd<64>(a, BT, st) : bft::lane::lane_fwd<16>(a, BT, st);
+  using bft::lane::Mode;
+  return head_dim == 64 ? bft::lane::lane_fwd<64, Mode::kLane>(a, BT, st)
+                        : bft::lane::lane_fwd<16, Mode::kLane>(a, BT, st);
 }
 
 // qkv as for bf_lane_hopper_fwd; dout (BT, H, W, C) bf16.  Outputs: dqkv (BT,
 // H, W, 3C) bf16; float32 dln (4, head_dim), dbias_x (heads, W, W), dbias_y
-// (heads, H, H), dscale (heads, 2), all written whole.  Scratch (float32):
-// part_bias_r (groups_r, heads, W, W), part_bias_c (groups_c, heads, H, H),
-// part_scale_r/_c (groups, heads), part_ln_r/_c (groups, heads, 4,
-// head_dim).  The row pass's BT * H lines go to groups_r blocks of per_r
-// lines a head, the column pass's BT * W lines to groups_c of per_c.
+// (heads, H, H), dscale (heads, 2), all written whole.  Scratch: lane_part
+// float32 (lane_hopper.cuh: carve_partials, for the plan (groups_r, per_r)
+// of the BT * H rows and (groups_c, per_c) of the BT * W columns).
 // Returns a cudaError_t.
 extern "C" int bf_lane_hopper_bwd(int head_dim, const void* qkv, const void* dout,
                                   const float* ln, const float* bias_x, const float* bias_y,
-                                  const float* scale, void* dqkv, float* part_bias_r,
-                                  float* part_bias_c, float* part_scale_r, float* part_scale_c,
-                                  float* part_ln_r, float* part_ln_c, float* dln,
+                                  const float* scale, void* dqkv, float* lane_part, float* dln,
                                   float* dbias_x, float* dbias_y, float* dscale, int BT, int H,
                                   int W, int C, int heads, int groups_r, int per_r,
                                   int groups_c, int per_c, void* stream) {
-  if (!lane_shape_ok(head_dim, H, W, C, heads) || BT < 1 ||
-      !plan_ok(BT * H, groups_r, per_r) || !plan_ok(BT * W, groups_c, per_c))
-    return cudaErrorInvalidValue;
+  if (!lane_shape_ok(head_dim, H, W, C, heads) || BT < 1) return cudaErrorInvalidValue;
   bft::lane::BwdArgs a{};
   a.qkv = static_cast<const __nv_bfloat16*>(qkv);
   a.dout = static_cast<const __nv_bfloat16*>(dout);
@@ -88,23 +77,34 @@ extern "C" int bf_lane_hopper_bwd(int head_dim, const void* qkv, const void* dou
   a.C = C;
   a.heads = heads;
   const int groups[2] = {groups_r, groups_c}, per[2] = {per_r, per_c};
-  float* const pb[2] = {part_bias_r, part_bias_c};
-  float* const ps[2] = {part_scale_r, part_scale_c};
-  float* const pl[2] = {part_ln_r, part_ln_c};
+  const bft::lane::Partials part =
+      bft::lane::carve_partials(lane_part, groups, heads, H, W, head_dim);
   const auto st = static_cast<cudaStream_t>(stream);
-  return head_dim == 64
-             ? bft::lane::lane_bwd<64>(a, BT, groups, per, pb, ps, pl, dbias_x, dbias_y, dscale,
-                                       dln, st)
-             : bft::lane::lane_bwd<16>(a, BT, groups, per, pb, ps, pl, dbias_x, dbias_y, dscale,
-                                       dln, st);
+  using bft::lane::Mode;
+  return head_dim == 64 ? bft::lane::lane_bwd<64, Mode::kLane>(a, BT, groups, per, part, dbias_x,
+                                                               dbias_y, dscale, dln, st)
+                        : bft::lane::lane_bwd<16, Mode::kLane>(a, BT, groups, per, part, dbias_x,
+                                                               dbias_y, dscale, dln, st);
 }
 
-// Blocks of bf_lane_hopper_bwd's kernel for lines of L tokens (1 to 512) at
-// head_dim 16 or 64 that one multiprocessor of the current device holds at
-// once, into *blocks: the host plans one wave of them (ops/axial_lane.py:
-// lane_bwd_plan).  Returns a cudaError_t.
-extern "C" int bf_lane_hopper_bwd_resident(int head_dim, int L, int* blocks) {
-  if ((head_dim != 16 && head_dim != 64) || L < 1 || L > 512) return cudaErrorInvalidValue;
-  return head_dim == 64 ? bft::lane::lane_bwd_resident<64>(L, blocks)
-                        : bft::lane::lane_bwd_resident<16>(L, blocks);
+int bft::lane::resident_lane(int head_dim, int L, int* blocks) {
+  return bwd_resident<Mode::kLane>(head_dim, L, blocks);
+}
+
+// Blocks of a bf16 backward kernel of lane_hopper.cuh for lines of L tokens
+// (1 to 512) at head_dim 16 or 64 that one multiprocessor of the current
+// device holds at once, into *blocks: the host plans one wave of them
+// (ops/axial_lane.py:lane_bwd_plan).  mode: 0 K2's kernel (Mode::kLane), 1
+// K9's (kLanePx), 2 K5's (kMega).  Returns a cudaError_t.
+extern "C" int bf_lane_bwd_resident(int mode, int head_dim, int L, int* blocks) {
+  switch (mode) {
+    case 0:
+      return bft::lane::resident_lane(head_dim, L, blocks);
+    case 1:
+      return bft::lane::resident_lane_px(head_dim, L, blocks);
+    case 2:
+      return bft::lane::resident_mega(head_dim, L, blocks);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -2,8 +2,9 @@
 // shared-memory stages, each guarded by a pair of mbarriers, one producer
 // warp that keeps the loads in flight, and two consumer warpgroups that
 // multiply with wgmma.mma_async (m64n128k16, float32 accumulators in
-// registers).  K1's and K3's bf16 products run on it (temporal_block.cu,
-// temporal_block_bwd.cu); hopper_gemm.cu exposes it alone for the tests.
+// registers).  K1's, K3's, K5's and K9's bf16 products run on it
+// (temporal_block.cu, temporal_block_bwd.cu, axial_block_mega.cu,
+// axial_lane_px.cu); hopper_gemm.cu exposes it alone for the tests.
 //
 // Two operand layouts, both row-major bf16 in device memory:
 //   NT  out(M, N) = A(M, K) . B(N, K)^T: activations times a torch (out, in)
@@ -16,8 +17,11 @@
 //       (SplitPlan, computed by the caller): each range writes its float32
 //       partial tile, and splitk_sum_kernel adds the partials in range order,
 //       so the sum repeats bit for bit from run to run (no atomics).
+//       K9 runs tn_partials once per direction into consecutive partials
+//       and adds both directions' ranges in one splitk_sum.
 // Epilogues: float32 bias added and the sum rounded to bf16 (kBiasRound),
-// the sum rounded to bf16 without a bias (kRound), float32 stored
+// the sum rounded to bf16 without a bias (kRound), the sum rounded to bf16
+// and added to the bf16 output in bf16 (kRoundAdd), float32 stored
 // (kStoreF32), float32 partial of a token range (kPartialF32).  Rows and
 // columns beyond M, N are masked; the ragged end of K is zero-filled by TMA.
 //
@@ -52,7 +56,7 @@ constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // +
 constexpr int kMaxSplits = 64;
 static_assert(kBN == kBM, "one operand stage size for A and B");
 
-enum Epilogue { kBiasRound = 0, kStoreF32 = 1, kPartialF32 = 2, kRound = 3 };
+enum Epilogue { kBiasRound = 0, kStoreF32 = 1, kPartialF32 = 2, kRound = 3, kRoundAdd = 4 };
 
 // Token ranges of a split-K product: range z is [begin[z], begin[z + 1]),
 // every begin but the last a multiple of kBK.  One range [0, K) for NT.
@@ -62,7 +66,8 @@ struct SplitPlan {
 };
 
 struct EpilogueArgs {
-  void* out;          // bf16 (kBiasRound, kRound) or float32; partials at out + z * M * N
+  void* out;          // bf16 (kBiasRound, kRound, kRoundAdd) or float32; partials at
+                      // out + z * M * N
   const float* bias;  // kBiasRound only
   int ldo;            // row stride of out, elements
 };
@@ -261,7 +266,12 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (row >= M) continue;
         const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
         const size_t at = static_cast<size_t>(row) * ep.ldo + col;
-        if constexpr (kEpi == kBiasRound || kEpi == kRound) {
+        if constexpr (kEpi == kRoundAdd) {
+          auto* o = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(ep.out) + at);
+          const float2 old = __bfloat1622float2(*o);
+          const float2 add = __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
+          *o = __floats2bfloat162_rn(old.x + add.x, old.y + add.y);
+        } else if constexpr (kEpi == kBiasRound || kEpi == kRound) {
           const float b0 = kEpi == kBiasRound ? ep.bias[col] : 0.f;
           const float b1 = kEpi == kBiasRound ? ep.bias[col + 1] : 0.f;
           *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(ep.out) + at) =
@@ -339,8 +349,8 @@ cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N,
 }
 
 // out(M, N) = A(M, K) . B(N, K)^T with epilogue kEpi (kBiasRound: out bf16,
-// out = bf16(sum + bias); kRound: out = bf16(sum), bias unused; kStoreF32:
-// out float32).  A, B bf16 with row
+// out = bf16(sum + bias); kRound: out = bf16(sum), bias unused; kRoundAdd:
+// out = bf16(out + bf16(sum)), bias unused; kStoreF32: out float32).  A, B bf16 with row
 // strides lda, ldb; every base and row stride 16-byte aligned (the callers
 // check), N even.
 template <int kEpi>
@@ -357,6 +367,38 @@ cudaError_t gemm_nt(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int
   return launch<false, kEpi>(ta, tb, M, N, plan, EpilogueArgs{out, bias, ldo}, stream);
 }
 
+// The split plan of token bounds[0..splits] (bounds[0] = 0, bounds[splits]
+// = R, the inner ones increasing multiples of kBK); false if it is not one.
+inline bool make_plan(const int* bounds, int splits, int R, SplitPlan* plan) {
+  if (splits < 1 || splits > kMaxSplits || bounds[0] != 0 || bounds[splits] != R) return false;
+  *plan = SplitPlan{};
+  plan->splits = splits;
+  for (int z = 0; z <= splits; ++z) {
+    plan->begin[z] = bounds[z];
+    if (z > 0 && (bounds[z] <= bounds[z - 1] || (z < splits && bounds[z] % kBK))) return false;
+  }
+  return true;
+}
+
+// The float32 partials of D^T S over the plan's token ranges into part.
+cudaError_t tn_partials(const __nv_bfloat16* D, const __nv_bfloat16* S, int R, int M, int N,
+                        const SplitPlan& plan, float* part, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  cudaError_t e;
+  if ((e = encode_map(&ta, D, R, M, M, 64, kBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&tb, S, R, N, N, 64, kBK)) != cudaSuccess) return e;
+  return launch<true, kPartialF32>(ta, tb, M, N, plan, EpilogueArgs{part, nullptr, N}, stream);
+}
+
+cudaError_t splitk_sum(const float* part, float* dW, int M, int N, int splits,
+                       cudaStream_t stream) {
+  const int n4 = M * N / 4;
+  splitk_sum_kernel<<<(n4 + 255) / 256, 256, 0, stream>>>(reinterpret_cast<const float4*>(part),
+                                                         reinterpret_cast<float4*>(dW), n4,
+                                                         splits);
+  return cudaGetLastError();
+}
+
 // dW(M, N) = sum_{r < R} D(r, m) S(r, n), by token ranges: bounds[0..splits]
 // (bounds[0] = 0, bounds[splits] = R, the inner ones multiples of kBK).
 // D (R, M) and S (R, N) bf16 row-major; part holds splits * M * N floats; M,
@@ -364,27 +406,11 @@ cudaError_t gemm_nt(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int
 cudaError_t gemm_tn_splitk(const __nv_bfloat16* D, const __nv_bfloat16* S, int R, int M, int N,
                            const int* bounds, int splits, float* part, float* dW,
                            cudaStream_t stream) {
-  if (splits < 1 || splits > kMaxSplits || bounds[0] != 0 || bounds[splits] != R)
-    return cudaErrorInvalidValue;
-  SplitPlan plan{};
-  plan.splits = splits;
-  for (int z = 0; z <= splits; ++z) {
-    plan.begin[z] = bounds[z];
-    if (z > 0 && (bounds[z] <= bounds[z - 1] || (z < splits && bounds[z] % kBK)))
-      return cudaErrorInvalidValue;
-  }
-  CUtensorMap ta, tb;
+  SplitPlan plan;
+  if (!make_plan(bounds, splits, R, &plan)) return cudaErrorInvalidValue;
   cudaError_t e;
-  if ((e = encode_map(&ta, D, R, M, M, 64, kBK)) != cudaSuccess) return e;
-  if ((e = encode_map(&tb, S, R, N, N, 64, kBK)) != cudaSuccess) return e;
-  if ((e = launch<true, kPartialF32>(ta, tb, M, N, plan, EpilogueArgs{part, nullptr, N},
-                                     stream)) != cudaSuccess)
-    return e;
-  const int n4 = M * N / 4;
-  splitk_sum_kernel<<<(n4 + 255) / 256, 256, 0, stream>>>(reinterpret_cast<const float4*>(part),
-                                                         reinterpret_cast<float4*>(dW), n4,
-                                                         splits);
-  return cudaGetLastError();
+  if ((e = tn_partials(D, S, R, M, N, plan, part, stream)) != cudaSuccess) return e;
+  return splitk_sum(part, dW, M, N, splits, stream);
 }
 
 }  // namespace hg

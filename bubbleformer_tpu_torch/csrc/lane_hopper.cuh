@@ -5,7 +5,20 @@
 // :676 forward, :690 backward; bodies _fwd_kernel :236 with _axis_fwd :198,
 // _bwd_kernel :370 with _axis_bwd :254 and _qkln_bwd :320), entry
 // lane_axial_attention_from_x :852, for bf16 activations.  K2's float32 path
-// and the other line-kernel flavours (K4-K9) stay on line_kernels.cuh.
+// and the line-kernel flavours of K4, K6, K7 and K8 stay on line_kernels.cuh.
+// Two more bf16 kernels run these kernels in their own rounding (Mode):
+//   kLanePx  K9's backward (axial_lane.py:_bwd_kernel_px :426): each pass
+//            writes its own rounded dqkv (the TPU kernel's bm=True,
+//            :462-470), which the caller projects back before the next pass
+//            (axial_lane_px.cu); its forward is K2's;
+//   kMega    K5's attention (axial_block_mega.py:_attn_chunks_fwd :108):
+//            P itself rounded as the operand of P v, o = s pv + (1 - s)
+//            mean(v) and the directions' sum 0.5 o_r + 0.5 o_c in float32
+//            (the float32 ao, and ao rounded: K5's residual); its backward
+//            is K4's (axial_fused_block.py:116-135): dv = R(P)^T R(s dao) +
+//            (1 - s)/L sum_i dao_i, the row pass's d(q, k, v) before the
+//            qk-LN kept in a float32 scratch, the column pass adding its own,
+//            running the qk-LN backward once and rounding dqkv once.
 //
 // What it computes, per head and direction (rows: L = W, table bias_x, scale
 // s_x; columns: L = H, bias_y, s_y), R rounding to bf16:
@@ -63,12 +76,16 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "param_sums.cuh"
 
 namespace bft {
 namespace lane {
 namespace {
 
 using bf16 = __nv_bfloat16;
+
+// The rounding a kernel follows (file comment).
+enum class Mode { kLane, kLanePx, kMega };
 
 constexpr int kMaxWarps = 8;
 constexpr int kChunk = 32;        // keys (query passes) or queries (key pass) a chunk
@@ -219,11 +236,19 @@ __device__ __forceinline__ void rows_product(float (&out)[4][4], const uint32_t 
   }
 }
 
+// Each of a register's two bf16 values times s, rounded again.
+__device__ __forceinline__ uint32_t scale_pair(uint32_t w, float s) {
+  const float2 f = unpack(w);
+  return pack(s * f.x, s * f.y);
+}
+
 // acc (16 x D) += R(x) (16 x 32, accumulator layout) times the rows r0 ..
-// r0 + 31 of `tile` (k = token, n = D): P V, dS K, dS^T Q, P^T dao.
-template <int D>
+// r0 + 31 of `tile` (k = token, n = D): P V, dS K, dS^T Q, P^T dao; with
+// kScaleB, times R(bs tile) (kMega's R(P)^T R(s dao)).
+template <int D, bool kScaleB = false>
 __device__ __forceinline__ void chunk_product(float (&acc)[D / 8][4], const float (&x)[4][4],
-                                              const bf16* tile, int r0, int lane) {
+                                              const bf16* tile, int r0, int lane,
+                                              float bs = 1.f) {
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
     uint32_t a[4];
@@ -232,6 +257,10 @@ __device__ __forceinline__ void chunk_product(float (&acc)[D / 8][4], const floa
     for (int np = 0; np < D / 16; ++np) {
       uint32_t b[4];
       load_b_cols<D>(b, tile, r0 + 16 * m, np * 16, lane);
+      if constexpr (kScaleB) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) b[e] = scale_pair(b[e], bs);
+      }
       mma(acc[2 * np], a, b[0], b[1]);
       mma(acc[2 * np + 1], a, b[2], b[3]);
     }
@@ -426,21 +455,36 @@ struct FwdArgs {
   const float* bias_x; // (heads, W, W)
   const float* bias_y; // (heads, H, H)
   const float* scale;  // (heads, 2): s_x, s_y
-  bf16* row_out;       // (BT, H, W, C): the row pass's rounded output
-  bf16* out;           // (BT, H, W, C)
+  bf16* row_out;       // (BT, H, W, C): the row pass's rounded output (K2)
+  bf16* out;           // (BT, H, W, C); kMega: ao rounded
+  float* ao;           // kMega: (BT, H, W, C) float32, 0.5 o_r + 0.5 o_c
   int H, W, C, heads;
 };
 
-template <int D>
+template <int D, Mode M>
 size_t fwd_smem_bytes(int L) {
-  return (size_t)3 * staged_rows(L) * D * sizeof(bf16);
+  return (size_t)3 * staged_rows(L) * D * sizeof(bf16) + (M == Mode::kMega ? D * 4 : 0);
+}
+
+// kMega: sum_j v_j over the line's L staged tokens into vsum (D floats), a
+// thread a column (a block of one warp, lines of up to 16 tokens, takes two
+// at D = 64).
+template <int D>
+__device__ __forceinline__ void line_column_sum(float* vsum, const bf16* vs, int L) {
+  for (int c = threadIdx.x; c < D; c += blockDim.x) {
+    float a = 0.f;
+    for (int r = 0; r < L; ++r) a += __bfloat162float(vs[sw<D>(r, c)]);
+    vsum[c] = a;
+  }
 }
 
 // One line of one head a block (blockIdx.x = head + heads * line), a warp a
 // 16-query tile: the exact P over the key chunks (max and sum, then P), its
 // blend R(s P + (1 - s)/L) times v, rounded; pass 0 writes it to row_out,
-// pass 1 the mean of both directions to out.
-template <int D>
+// pass 1 the mean of both directions to out.  kMega: R(P) times v, blended
+// with the window mean in float32; pass 0 writes half of it to ao, pass 1
+// adds its half and writes ao and ao rounded (out).
+template <int D, Mode M>
 __global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int pass) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x % a.heads;
@@ -449,8 +493,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + rows * D;
   bf16* vs = ks + rows * D;
+  float* vsum = reinterpret_cast<float*>(vs + rows * D);  // kMega: (D)
   stage_qkv<D>(qs, ks, vs, a.qkv, line, h, 3 * a.C, a.ln, rows);
   __syncthreads();
+  if constexpr (M == Mode::kMega) {
+    line_column_sum<D>(vsum, vs, L);
+    __syncthreads();
+  }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const float s = a.scale[h * 2 + pass], uniform = (1.f - s) * (1.f / L);
@@ -474,7 +523,8 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, j = c * kChunk + nt * 8 + 2 * t + (e & 1);
-          sc[nt][e] = j < L ? s * (expf(sc[nt][e] - m[r]) / z[r]) + uniform : 0.f;
+          const float p = expf(sc[nt][e] - m[r]) / z[r];
+          sc[nt][e] = j >= L ? 0.f : M == Mode::kMega ? p : s * p + uniform;
         }
       }
       chunk_product<D>(o, sc, vs, c * kChunk, lane);
@@ -486,6 +536,21 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int
       const size_t at = line.token(i) * a.C + (size_t)h * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
+        if constexpr (M == Mode::kMega) {
+          const int col = n * 8 + 2 * t;
+          const float o0 = s * o[n][2 * r] + (1.f - s) * (vsum[col] / L);
+          const float o1 = s * o[n][2 * r + 1] + (1.f - s) * (vsum[col + 1] / L);
+          float2* f = reinterpret_cast<float2*>(a.ao + at + n * 8);
+          if (pass == 0) {
+            *f = make_float2(0.5f * o0, 0.5f * o1);
+          } else {
+            const float2 rw = *f;
+            const float2 v = make_float2(rw.x + 0.5f * o0, rw.y + 0.5f * o1);
+            *f = v;
+            *reinterpret_cast<uint32_t*>(a.out + at + n * 8) = pack(v.x, v.y);
+          }
+          continue;
+        }
         const uint32_t o_r = pack(o[n][2 * r], o[n][2 * r + 1]);
         if (pass == 0) {
           *reinterpret_cast<uint32_t*>(a.row_out + at + n * 8) = o_r;
@@ -510,33 +575,63 @@ struct BwdArgs {
   const float* bias_y;
   const float* scale;
   bf16* dqkv;          // (BT, H, W, 3C)
+  float* dacc;         // kMega: (BT, H, W, 3C) float32, the row pass's d(q, k, v)
   float* part_bias;    // (groups, heads, L, L): dS summed over each block's lines
-  float* part_scale;   // (groups, heads)
-  float* part_ln;      // (groups, heads, 4, D): (dy xhat, dy) of q, then k
+  float* part_scale;   // (heads, groups)
+  float* part_ln;      // (4, D, groups, heads): (dy xhat, dy) of q, then k
   int H, W, C, heads;
   int lines, per;      // lines of the pass (BT x H or BT x W); lines a block
 };
 
-template <int D>
+template <int D, Mode M>
 size_t bwd_long_smem_bytes(int L) {
   const int rows = staged_rows(L), nw = line_warps(L);
   return (size_t)(3 * rows + kLongDaoRows) * D * sizeof(bf16) + (size_t)3 * rows * 4 +
-         (size_t)nw * 4 * D * 4 + kMaxWarps * 4;
+         (size_t)nw * 4 * D * 4 + kMaxWarps * 4 + (M == Mode::kMega ? D * 4 : 0);
 }
 
-// A 16-row tile's gradient w.r.t. the LN'd q (comp 0) or k (comp 1), `y` in
-// the accumulator layout: the qk-LN backward of the raw rows, rounded into
-// dqkv (pass 0 writes it; pass 1 adds its rounded gradient to the row pass's
-// and rounds again), and (y xhat, y) summed over the tile into the warp's LN
-// slots.  A row's D values lie on one quad: its sums are quad sums.
-template <int D>
-__device__ __forceinline__ void emit_ln_grad(const float (&y)[D / 8][4], int r0, int comp,
+// A 16-row tile's gradient w.r.t. the LN'd q (comp 0) or k (comp 1), `y_in`
+// in the accumulator layout: the qk-LN backward of the raw rows, rounded into
+// dqkv (K2: pass 0 writes it, pass 1 adds its rounded gradient to the row
+// pass's and rounds again; kLanePx: each pass writes its own), and (y xhat,
+// y) summed over the tile into the warp's LN slots.  kMega: pass 0 keeps
+// y_in in dacc (float32) and does nothing else; pass 1 adds it to its own
+// and runs the rest on the sum, writing dqkv.  A row's D values lie on one
+// quad: its sums are quad sums.
+template <int D, Mode M>
+__device__ __forceinline__ void emit_ln_grad(const float (&y_in)[D / 8][4], int r0, int comp,
                                              const Line& line, int h, int C3,
                                              const bf16* __restrict__ qkv,
                                              const float* __restrict__ ln,
-                                             bf16* __restrict__ dqkv, float* wslot, int pass,
-                                             int lane) {
+                                             bf16* __restrict__ dqkv, float* __restrict__ dacc,
+                                             float* wslot, int pass, int lane) {
   const int g = lane >> 2, t = lane & 3;
+  float y[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[n][e] = y_in[n][e];
+  }
+  if constexpr (M == Mode::kMega) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = r0 + g + 8 * r;
+      if (i >= line.L) continue;
+      float* f = dacc + line.token(i) * C3 + (size_t)h * 3 * D + comp * D + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float2* v = reinterpret_cast<float2*>(f + n * 8);
+        if (pass == 0) {
+          *v = make_float2(y[n][2 * r], y[n][2 * r + 1]);
+        } else {
+          const float2 kept = *v;
+          y[n][2 * r] += kept.x;
+          y[n][2 * r + 1] += kept.y;
+        }
+      }
+    }
+    if (pass == 0) return;
+  }
   const float* gam = ln + comp * 2 * D;
   float dg[D / 8][2], db[D / 8][2];
 #pragma unroll
@@ -578,7 +673,7 @@ __device__ __forceinline__ void emit_ln_grad(const float (&y)[D / 8][4], int r0,
       uint32_t* o = reinterpret_cast<uint32_t*>(dqkv + off + n * 8);
       const uint32_t v = pack(inv * (gg[n][0] - m1 - x[n][0] * m2),
                               inv * (gg[n][1] - m1 - x[n][1] * m2));
-      if (pass == 0) {
+      if (pass == 0 || M != Mode::kLane) {
         *o = v;
       } else {
         const float2 old = unpack(*o), add = unpack(v);
@@ -608,11 +703,12 @@ __device__ __forceinline__ void emit_ln_grad(const float (&y)[D / 8][4], int r0,
   }
 }
 
-// A 16-row tile's v gradient into dqkv, rounded as emit_ln_grad rounds.
-template <int D>
+// A 16-row tile's v gradient into dqkv, rounded as emit_ln_grad rounds
+// (kMega: pass 0 keeps it in dacc, pass 1 rounds the sum).
+template <int D, Mode M>
 __device__ __forceinline__ void emit_v_grad(const float (&y)[D / 8][4], int r0, const Line& line,
-                                            int h, int C3, bf16* __restrict__ dqkv, int pass,
-                                            int lane) {
+                                            int h, int C3, bf16* __restrict__ dqkv,
+                                            float* __restrict__ dacc, int pass, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -622,8 +718,18 @@ __device__ __forceinline__ void emit_v_grad(const float (&y)[D / 8][4], int r0, 
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       uint32_t* o = reinterpret_cast<uint32_t*>(dqkv + off + n * 8);
+      if constexpr (M == Mode::kMega) {
+        float2* f = reinterpret_cast<float2*>(dacc + off + n * 8);
+        if (pass == 0) {
+          *f = make_float2(y[n][2 * r], y[n][2 * r + 1]);
+        } else {
+          const float2 kept = *f;
+          *o = pack(y[n][2 * r] + kept.x, y[n][2 * r + 1] + kept.y);
+        }
+        continue;
+      }
       const uint32_t v = pack(y[n][2 * r], y[n][2 * r + 1]);
-      if (pass == 0) {
+      if (pass == 0 || M == Mode::kLanePx) {
         *o = v;
       } else {
         const float2 old = unpack(*o), add = unpack(v);
@@ -638,8 +744,9 @@ __device__ __forceinline__ void emit_v_grad(const float (&y)[D / 8][4], int r0, 
 // slot already), the scale sum (the threads' `dsc`) and the LN sums (the
 // warps' slots).
 template <int D>
-__device__ void write_partials(const BwdArgs& a, int unit, int L, const float* accb, int ldb,
-                               float* slot, float dsc, const float* wln, float* red) {
+__device__ void write_partials(const BwdArgs& a, int grp, int h, int L, const float* accb,
+                               int ldb, float* slot, float dsc, const float* wln, float* red) {
+  const int groups = (a.lines + a.per - 1) / a.per;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   __syncthreads();
   if (accb != nullptr) {
@@ -651,12 +758,24 @@ __device__ void write_partials(const BwdArgs& a, int unit, int L, const float* a
   if (threadIdx.x == 0) {
     float v = 0.f;
     for (int w = 0; w < nw; ++w) v += red[w];
-    a.part_scale[unit] = v;
+    a.part_scale[(size_t)h * groups + grp] = v;
   }
   for (int e = threadIdx.x; e < 4 * D; e += blockDim.x) {
     float v = 0.f;
     for (int w = 0; w < nw; ++w) v += wln[w * 4 * D + e];
-    a.part_ln[(size_t)unit * 4 * D + e] = v;
+    a.part_ln[(size_t)e * groups * a.heads + grp * a.heads + h] = v;
+  }
+}
+
+// kMega's dv: y (16 x D, accumulator layout) += u * dsum[column].
+template <int D>
+__device__ __forceinline__ void add_mean_grad(float (&y)[D / 8][4], const float* dsum, float u,
+                                              int lane) {
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[n][e] += u * dsum[n * 8 + 2 * t + (e & 1)];
   }
 }
 
@@ -673,8 +792,10 @@ __device__ void write_partials(const BwdArgs& a, int unit, int L, const float* a
 //      dQ += R(dS) k; the q part through the qk-LN backward.
 // dao is staged kLongDaoRows rows at a time; dS is summed in the block's own
 // slot of the partials.  At the end the block writes its other partials:
-// the scale sum and the LN sums, each added in a fixed order.
-template <int D, int kMinBlocks>
+// the scale sum and the LN sums, each added in a fixed order.  kMega also
+// sums dao over the line in pass 1 (each window is staged once there, in
+// order) for dv's (1 - s)/L sum_i dao_i.
+template <int D, Mode M, int kMinBlocks>
 __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kernel(BwdArgs a,
                                                                                  int pass) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -692,6 +813,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
   float* st_d = st_z + rows;
   float* wln = st_d + rows;          // (nw, 4, D)
   float* red = wln + nw * 4 * D;     // (kMaxWarps)
+  float* dsum = red + kMaxWarps;     // kMega: (D) sum_i dao_i of the line
   float* slot = a.part_bias + (size_t)(grp * a.heads + h) * L * L;  // dS summed over the lines
   float* wslot = wln + warp * 4 * D;
   const float s = a.scale[h * 2 + pass], uniform = (1.f - s) * (1.f / L), inv_l = 1.f / L;
@@ -704,6 +826,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
     const Line line = make_line(pass, a.H, a.W, li);
     const bool first = li == l0;
     __syncthreads();  // the last line's reads of shared memory are done
+    if (M == Mode::kMega && threadIdx.x < D) dsum[threadIdx.x] = 0.f;
     stage_qkv<D>(qs, ks, vs, a.qkv, line, h, C3, a.ln, rows);
     int dao0 = -1;
     // Every thread calls it with the same row: dao rows [r0, r0 + drows)
@@ -720,6 +843,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
     // 1. m, z and D_i per query.
     for (int q00 = 0; q00 < L; q00 += span) {
       ensure_dao(q00);
+      if (M == Mode::kMega && threadIdx.x < D) {
+        float acc = 0.f;
+        for (int r = 0; r < min(drows, L - q00); ++r)
+          acc += __bfloat162float(ds[sw<D>(r, threadIdx.x)]);
+        dsum[threadIdx.x] += acc;
+      }
       const int q0 = q00 + warp * 16;
       if (q0 >= L) continue;
       uint32_t qa[D / 16][4], da[D / 16][4];
@@ -775,13 +904,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
               if (i < L && j < L) {
                 const float l = sc[nt][e] * head_scaling<D>() + bias[(size_t)i * ldt + j];
                 const float p = expf(l - st_m[i]) / st_z[i];
-                x = which == 0 ? p * (s * gm[nt][e] - st_d[i]) : s * p + uniform;
+                x = which == 0 ? p * (s * gm[nt][e] - st_d[i])
+                               : M == Mode::kMega ? p : s * p + uniform;
               }
-              sc[nt][e] = x;  // dS, or the blended probability
+              sc[nt][e] = x;  // dS, or the value weight
             }
           }
           if (which == 0) {
             chunk_product<D>(acc, sc, qs, c * kChunk, lane);
+          } else if constexpr (M == Mode::kMega) {
+            chunk_product<D, true>(acc, sc, ds, c * kChunk - dao0, lane, s);
           } else {
             chunk_product<D>(acc, sc, ds, c * kChunk - dao0, lane);
           }
@@ -793,9 +925,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[n][e] *= head_scaling<D>();
           }
-          emit_ln_grad<D>(acc, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, wslot, pass, lane);
+          emit_ln_grad<D, M>(acc, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
+                             lane);
         } else {
-          emit_v_grad<D>(acc, k0, line, h, C3, a.dqkv, pass, lane);
+          if constexpr (M == Mode::kMega) add_mean_grad<D>(acc, dsum, (1.f - s) / L, lane);
+          emit_v_grad<D, M>(acc, k0, line, h, C3, a.dqkv, a.dacc, pass, lane);
         }
       }
     }
@@ -846,11 +980,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
 #pragma unroll
         for (int e = 0; e < 4; ++e) dq[n][e] *= head_scaling<D>();
       }
-      emit_ln_grad<D>(dq, q0, 0, line, h, C3, a.qkv, a.ln, a.dqkv, wslot, pass, lane);
+      emit_ln_grad<D, M>(dq, q0, 0, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
+                         lane);
     }
   }
 
-  write_partials<D>(a, grp * a.heads + h, L, nullptr, 0, slot, dsc, wln, red);
+  write_partials<D>(a, grp, h, L, nullptr, 0, slot, dsc, wln, red);
 }
 
 // Lines of at most kShortMax tokens: the line's q, k, v, dao and, once
@@ -863,16 +998,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
 //      part of dqkv through the qk-LN backward;
 //   2. key tiles: dK = R(dS)^T q and dV = R(P_eff)^T dao from shared memory;
 //      the k part through the qk-LN backward, the v part.
-template <int D>
+template <int D, Mode M>
 size_t bwd_short_smem_bytes(int L) {
   const int rows = staged_rows(L), nw = line_warps(L);
   size_t b = (size_t)4 * rows * D * sizeof(bf16) + (size_t)2 * rows * (rows + 8) * sizeof(bf16) +
-             (size_t)nw * 4 * D * 4 + kMaxWarps * 4;
+             (size_t)nw * 4 * D * 4 + kMaxWarps * 4 + (M == Mode::kMega ? D * 4 : 0);
   if (L <= kSmemBiasMax) b += ((size_t)nw * 16 * (rows + 8) + (size_t)L * (L + 1)) * 4;
   return b;
 }
 
-template <int D>
+template <int D, Mode M>
 __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs a, int pass) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x % a.heads, grp = blockIdx.x / a.heads;
@@ -887,9 +1022,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
   bf16* p_pe = p_ds + rows * ldp;   // (rows, rows + 8): R(P_eff)
   float* wln = reinterpret_cast<float*>(p_pe + rows * ldp);  // (nw, 4, D)
   float* red = wln + nw * 4 * D;                              // (kMaxWarps)
+  float* dsum = red + kMaxWarps;     // kMega: (D) sum_i dao_i of the line
   const bool smem_acc = L <= kSmemBiasMax;  // the table and its gradient sum in shared memory
   const int ldb = rows + 8;
-  float* accb = red + kMaxWarps;     // (nw * 16, rows + 8): dS summed over the lines
+  float* accb = dsum + (M == Mode::kMega ? D : 0);  // (nw * 16, rows + 8): dS over the lines
   float* tbs = accb + span * ldb;    // (L, L + 1): the table
   float* slot = a.part_bias + (size_t)(grp * a.heads + h) * L * L;
   float* wslot = wln + warp * 4 * D;
@@ -911,6 +1047,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
     stage_qkv<D>(qs, ks, vs, a.qkv, line, h, C3, a.ln, rows);
     stage_dao<D>(ds, a.dout, line, h, a.C, 0, rows);
     __syncthreads();
+    if constexpr (M == Mode::kMega) line_column_sum<D>(dsum, ds, L);  // read after step 1
 
     // 1. Query tiles.
     const int q0 = warp * 16;
@@ -941,7 +1078,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
             if (i < L && j < L) {
               const float p = expf(sc[nt][e] - m[r]) / z[r];
               dS = p * (s * gm[nt][e] - dr[r]);
-              pe = s * p + uniform;
+              pe = M == Mode::kMega ? p : s * p + uniform;
               dsc += (p - inv_l) * gm[nt][e];
               float* cell = smem_acc ? accb + i * ldb + j : slot + (size_t)i * L + j;
               *cell = (first && !smem_acc) ? dS : *cell + dS;
@@ -963,11 +1100,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
 #pragma unroll
         for (int e = 0; e < 4; ++e) dq[n][e] *= head_scaling<D>();
       }
-      emit_ln_grad<D>(dq, q0, 0, line, h, C3, a.qkv, a.ln, a.dqkv, wslot, pass, lane);
+      emit_ln_grad<D, M>(dq, q0, 0, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
+                         lane);
     }
     __syncthreads();
 
-    // 2. Key tiles: dK and dV from the line's R(dS) and R(P_eff).
+    // 2. Key tiles: dK and dV from the line's R(dS) and R(P_eff) (kMega:
+    // R(P) and R(s dao)).
     const int k0 = warp * 16;
     if (k0 < L) {
       float dk[D / 8][4] = {}, dv[D / 8][4] = {};
@@ -984,6 +1123,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
           mma(dk[2 * np], a_ds, b[0], b[1]);
           mma(dk[2 * np + 1], a_ds, b[2], b[3]);
           load_b_cols<D>(b, ds, i0, np * 16, lane);
+          if constexpr (M == Mode::kMega) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) b[e] = scale_pair(b[e], s);
+          }
           mma(dv[2 * np], a_pe, b[0], b[1]);
           mma(dv[2 * np + 1], a_pe, b[2], b[3]);
         }
@@ -993,84 +1136,27 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
 #pragma unroll
         for (int e = 0; e < 4; ++e) dk[n][e] *= head_scaling<D>();
       }
-      emit_ln_grad<D>(dk, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, wslot, pass, lane);
-      emit_v_grad<D>(dv, k0, line, h, C3, a.dqkv, pass, lane);
+      emit_ln_grad<D, M>(dk, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
+                         lane);
+      if constexpr (M == Mode::kMega) add_mean_grad<D>(dv, dsum, (1.f - s) / L, lane);
+      emit_v_grad<D, M>(dv, k0, line, h, C3, a.dqkv, a.dacc, pass, lane);
     }
   }
-  write_partials<D>(a, grp * a.heads + h, L, smem_acc ? accb : nullptr, ldb, slot, dsc, wln,
-                    red);
-}
-
-// The parameter gradients from both passes' partials: dbias_x, dbias_y,
-// dscale (heads, 2) and dln (4, D) = rows + columns, each summed in a fixed
-// order.
-struct SumArgs {
-  const float* part_bias[2];
-  const float* part_scale[2];
-  const float* part_ln[2];
-  int groups[2];
-  float* dbias[2];
-  float* dscale;
-  float* dln;
-  int H, W, heads, D;
-};
-
-// A thread an element of the tables (its blocks' partials in block order); a
-// warp an element of dscale or dln: each lane sums a fixed stride of the
-// partials (block, then head), then the lanes' sums are added in a fixed
-// tree.
-__global__ void lane_param_sum_kernel(SumArgs a) {
-  const int nb0 = a.heads * a.W * a.W, nb1 = a.heads * a.H * a.H, ns = 2 * a.heads,
-            nl = 4 * a.D;
-  const int table_blocks = (nb0 + nb1 + 255) / 256;
-  if ((int)blockIdx.x < table_blocks) {
-    const int e = blockIdx.x * 256 + threadIdx.x;
-    if (e >= nb0 + nb1) return;
-    const int p = e < nb0 ? 0 : 1, nb = p ? nb1 : nb0, x = p ? e - nb0 : e;
-    float v = 0.f;
-    for (int g = 0; g < a.groups[p]; ++g) v += a.part_bias[p][(size_t)g * nb + x];
-    a.dbias[p][x] = v;
-    return;
-  }
-  const int w = ((int)blockIdx.x - table_blocks) * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (w >= ns + nl) return;
-  float v[2] = {0.f, 0.f};
-  if (w < ns) {
-    const int hd = w / 2, p = w % 2;
-    for (int g = lane; g < a.groups[p]; g += 32) v[0] += a.part_scale[p][(size_t)g * a.heads + hd];
-  } else {
-    const int x = w - ns;
-    for (int p = 0; p < 2; ++p) {
-      const int n = a.groups[p] * a.heads;
-      for (int u = lane; u < n; u += 32) v[p] += a.part_ln[p][(size_t)u * nl + x];
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
-    v[1] += __shfl_xor_sync(0xffffffffu, v[1], o);
-  }
-  if (lane == 0) {
-    if (w < ns) {
-      a.dscale[w] = v[0];
-    } else {
-      a.dln[w - ns] = v[0] + v[1];
-    }
-  }
+  write_partials<D>(a, grp, h, L, smem_acc ? accb : nullptr, ldb, slot, dsc, wln, red);
 }
 
 // ------------------------------------------------------------- launchers
 
-template <int D>
+template <int D, Mode M>
 int lane_fwd(const FwdArgs& a, int BT, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(lane_fwd_kernel<D>,
+  cudaError_t e = cudaFuncSetAttribute(lane_fwd_kernel<D, M>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)fwd_smem_bytes<D>(512));
+                                       (int)fwd_smem_bytes<D, M>(512));
   if (e != cudaSuccess) return e;
   for (int pass = 0; pass < 2; ++pass) {
     const int L = pass == 0 ? a.W : a.H, lines = BT * (pass == 0 ? a.H : a.W);
-    lane_fwd_kernel<D><<<lines * a.heads, line_warps(L) * 32, fwd_smem_bytes<D>(L), stream>>>(
-        a, pass);
+    lane_fwd_kernel<D, M><<<lines * a.heads, line_warps(L) * 32, fwd_smem_bytes<D, M>(L),
+                            stream>>>(a, pass);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   return cudaSuccess;
@@ -1081,78 +1167,134 @@ using BwdKernel = void (*)(BwdArgs, int);
 // The backward kernel for lines of L tokens and its dynamic shared memory,
 // each kernel's shared-memory limit set for its longest line.  The launches
 // and the host's plan of blocks (lane_bwd_resident) both take it from here.
-template <int D>
+template <int D, Mode M>
 cudaError_t bwd_kernel(int L, BwdKernel* kernel, size_t* smem) {
   // At head dim 64 the backward needs more registers than two blocks of 8
   // warps an SM leave: capped at 128 they spilled and ran ~1.6x slower (both
   // kernels; NVIDIA H100 80GB HBM3, 700.00 W).  At head dim 16 the cap costs
   // the long kernel nothing and doubles its blocks.
-  const BwdKernel long_kernel = lane_bwd_long_kernel<D, D == 64 ? 1 : 2>;
-  const BwdKernel short_kernel = lane_bwd_short_kernel<D>;
+  const BwdKernel long_kernel = lane_bwd_long_kernel<D, M, D == 64 ? 1 : 2>;
+  const BwdKernel short_kernel = lane_bwd_short_kernel<D, M>;
   cudaError_t e = cudaFuncSetAttribute(long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bwd_long_smem_bytes<D>(512));
+                                       (int)bwd_long_smem_bytes<D, M>(512));
   if (e != cudaSuccess) return e;
   e = cudaFuncSetAttribute(short_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)bwd_short_smem_bytes<D>(kShortMax));
+                           (int)bwd_short_smem_bytes<D, M>(kShortMax));
   if (e != cudaSuccess) return e;
   *kernel = L <= kShortMax ? short_kernel : long_kernel;
-  *smem = L <= kShortMax ? bwd_short_smem_bytes<D>(L) : bwd_long_smem_bytes<D>(L);
+  *smem = L <= kShortMax ? bwd_short_smem_bytes<D, M>(L) : bwd_long_smem_bytes<D, M>(L);
   return cudaSuccess;
 }
 
 // Blocks of the backward kernel for lines of L tokens that one SM of the
 // current device holds at once (its registers, shared memory and block size).
-template <int D>
+template <int D, Mode M>
 int lane_bwd_resident(int L, int* blocks) {
   BwdKernel kernel;
   size_t smem;
-  const cudaError_t e = bwd_kernel<D>(L, &kernel, &smem);
+  const cudaError_t e = bwd_kernel<D, M>(L, &kernel, &smem);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, line_warps(L) * 32, smem);
 }
 
-// Both passes (groups[p] blocks of per[p] lines a head), then the sums.
-template <int D>
-int lane_bwd(const BwdArgs& base, int BT, const int (&groups)[2], const int (&per)[2],
-             float* const (&part_bias)[2], float* const (&part_scale)[2],
-             float* const (&part_ln)[2], float* dbias_x, float* dbias_y, float* dscale,
-             float* dln, cudaStream_t stream) {
+// lane_bwd_resident at head_dim 16 or 64 and lines of 1 to 512 tokens.
+template <Mode M>
+int bwd_resident(int head_dim, int L, int* blocks) {
+  if ((head_dim != 16 && head_dim != 64) || L < 1 || L > 512) return cudaErrorInvalidValue;
+  return head_dim == 64 ? lane_bwd_resident<64, M>(L, blocks)
+                        : lane_bwd_resident<16, M>(L, blocks);
+}
+
+// The partials of both passes: pass p's (groups[p], heads, L, L) table sums,
+// (heads, groups[p]) scale sums and (4, D, groups[p], heads) LN sums.
+struct Partials {
+  float* bias[2];
+  float* scale[2];
+  float* ln[2];
+};
+
+// The partials carved from one float32 buffer, pass 0 then pass 1, each
+// pass's table, scale and LN sums in that order (the layout
+// ops/axial_lane.py:lane_bwd_scratch allocates); lines of L_p = W, H.
+inline Partials carve_partials(float* part, const int (&groups)[2], int heads, int H, int W,
+                               int D) {
+  Partials p{};
   for (int pass = 0; pass < 2; ++pass) {
-    BwdArgs a = base;
-    const int L = pass == 0 ? a.W : a.H;
-    a.lines = BT * (pass == 0 ? a.H : a.W);
-    a.per = per[pass];
-    a.part_bias = part_bias[pass];
-    a.part_scale = part_scale[pass];
-    a.part_ln = part_ln[pass];
-    BwdKernel kernel;
-    size_t smem;
-    cudaError_t e = bwd_kernel<D>(L, &kernel, &smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<groups[pass] * a.heads, line_warps(L) * 32, smem, stream>>>(a, pass);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    const int L = pass == 0 ? W : H;
+    p.bias[pass] = part;
+    part += (size_t)groups[pass] * heads * L * L;
+    p.scale[pass] = part;
+    part += (size_t)groups[pass] * heads;
+    p.ln[pass] = part;
+    part += (size_t)groups[pass] * heads * 4 * D;
   }
-  SumArgs s{};
-  for (int p = 0; p < 2; ++p) {
-    s.part_bias[p] = part_bias[p];
-    s.part_scale[p] = part_scale[p];
-    s.part_ln[p] = part_ln[p];
-    s.groups[p] = groups[p];
+  return p;
+}
+
+// One pass (groups blocks of per lines a head) into its partials.
+template <int D, Mode M>
+int lane_bwd_pass(const BwdArgs& base, int BT, int pass, int groups, int per,
+                  const Partials& part, cudaStream_t stream) {
+  BwdArgs a = base;
+  const int L = pass == 0 ? a.W : a.H;
+  a.lines = BT * (pass == 0 ? a.H : a.W);
+  if (!plan_ok(a.lines, groups, per)) return cudaErrorInvalidValue;
+  a.per = per;
+  a.part_bias = part.bias[pass];
+  a.part_scale = part.scale[pass];
+  a.part_ln = part.ln[pass];
+  BwdKernel kernel;
+  size_t smem;
+  cudaError_t e = bwd_kernel<D, M>(L, &kernel, &smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<groups * a.heads, line_warps(L) * 32, smem, stream>>>(a, pass);
+  return cudaGetLastError();
+}
+
+// The sums of both passes' partials into dbias_x, dbias_y, dscale and dln,
+// written whole.
+template <int D>
+cudaError_t lane_bwd_sum(const BwdArgs& base, const int (&groups)[2], const Partials& part,
+                         float* dbias_x, float* dbias_y, float* dscale, float* dln,
+                         cudaStream_t stream) {
+  ParamSumArgs s{};
+  for (int pass = 0; pass < 2; ++pass) {
+    s.part_bias[pass] = part.bias[pass];
+    s.part_scale[pass] = part.scale[pass];
+    s.part_ln[pass] = part.ln[pass];
+    s.bias_groups[pass] = s.scale_units[pass] = groups[pass];
+    s.ln_units[pass] = groups[pass] * base.heads;
+    s.L[pass] = pass == 0 ? base.W : base.H;
   }
   s.dbias[0] = dbias_x;
   s.dbias[1] = dbias_y;
   s.dscale = dscale;
   s.dln = dln;
-  s.H = base.H;
-  s.W = base.W;
   s.heads = base.heads;
   s.D = D;
-  const int tables = base.heads * (base.H * base.H + base.W * base.W);
-  const int warps = 2 * base.heads + 4 * D;
-  lane_param_sum_kernel<<<(tables + 255) / 256 + (warps + 7) / 8, 256, 0, stream>>>(s);
-  return cudaGetLastError();
+  return launch_param_sum(s, stream);
+}
+
+// Both passes (groups[p] blocks of per[p] lines a head), then the sums.
+template <int D, Mode M>
+int lane_bwd(const BwdArgs& base, int BT, const int (&groups)[2], const int (&per)[2],
+             const Partials& part, float* dbias_x, float* dbias_y, float* dscale, float* dln,
+             cudaStream_t stream) {
+  for (int pass = 0; pass < 2; ++pass) {
+    const int e = lane_bwd_pass<D, M>(base, BT, pass, groups[pass], per[pass], part, stream);
+    if (e != cudaSuccess) return e;
+  }
+  return lane_bwd_sum<D>(base, groups, part, dbias_x, dbias_y, dscale, dln, stream);
 }
 
 }  // namespace
+
+// bwd_resident of each mode, defined by the source that launches that mode's
+// kernels, so that no kernel is built twice; the one C entry,
+// bf_lane_bwd_resident (axial_lane_hopper.cu), takes the mode.
+int resident_lane(int head_dim, int L, int* blocks);     // axial_lane_hopper.cu
+int resident_lane_px(int head_dim, int L, int* blocks);  // axial_lane_px.cu
+int resident_mega(int head_dim, int L, int* blocks);     // axial_block_mega.cu
+
 }  // namespace lane
 }  // namespace bft

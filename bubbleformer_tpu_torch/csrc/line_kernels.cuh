@@ -14,6 +14,8 @@
 //   kFlash       K8 axial_pallas.py:_fwd_kernel, _bwd_kernel        axial_flash.cu
 //   kLanePx      K9's backward, axial_lane.py:_bwd_kernel_px        axial_lane_px.cu
 //                (its forward is kLane's)
+// kLane, kMega and kLanePx are built in float32 alone: K2, K5 and K9 run
+// in bf16 on lane_hopper.cuh.
 //
 // All compute, per head, attention along each image row (over W, T5 table
 // bias_x, attn scale s_x) and along each column (over H, bias_y, s_y), and
@@ -73,13 +75,13 @@
 //                                                  (axial_fused_packed.py:192)
 // then, where the kernel normalises q and k, the qk-LN backward (flax
 // LayerNorm, fast variance).
-//   line_bwd_q_kernel, one block per query tile: over the key tiles, m, z and
-//     sum_j e_ij G_ij (rescaled like z) give D_i and dscale in one pass; a
-//     second pass forms dS (table gradient by float32 atomics) and dq.  A line
-//     of one tile also takes dk and dv here, so short lines need one launch
-//     per direction; longer lines save (m, z, D) per query for
-//   line_bwd_kv_kernel, one block per key tile: over the query tiles, dk and
-//     dv.
+//   line_bwd_q_kernel, one block per query tile of a line: over the key
+//     tiles, m, z and sum_j e_ij G_ij (rescaled like z) give D_i and dscale
+//     in one pass; a second pass forms dS (the table gradient) and dq.  A
+//     line of one tile also takes dk and dv here, so short lines need no
+//     second kernel; longer lines save (m, z, D) per query for
+//   line_bwd_kv_kernel, one block per key tile of a line: over the query
+//     tiles, dk and dv.
 // Rounding of the input gradients.  K2, K7: each direction's gradient (after
 // the LN backward in K2) is rounded to the activation dtype; the row pass
 // writes it and the column pass adds its own rounded gradient into it (K7:
@@ -93,8 +95,18 @@
 // and rounds once (axial_fused_block.py:217-250, axial_fused_packed.py:
 // 292-300).  Each (token, head) belongs to one block per launch, and launches
 // run in order on one stream, so there is no race.  The table, scale and LN
-// gradients are sums over all lines, added with float32 atomics: their last
-// bits vary from run to run.
+// gradients are sums over all lines, in a fixed order: the lines of a pass
+// fall into groups of consecutive runs (the host's plan, ops/axial_lane.py:
+// line_bwd_scratch), launch k takes the k-th line of every run, and a block
+// writes (k = 0) or adds its dS into its group's slot of a partial table, and
+// its dscale and LN sums (per warp in shared memory, then in warp order) into
+// its group's unit; a last launch adds the partials in group order
+// (param_sums.cuh), so every parameter gradient repeats bit for bit from run
+// to run.  The kernels stay one line a block: a block looping over its run
+// took 170-242 registers a thread where one line takes 64-128 (ptxas,
+// sm_90a; the compiler kept each line's index math live across the loop) and
+// ran the float32 K4 backward at half its speed (NVIDIA H100 80GB HBM3,
+// 700.00 W).
 //
 // What bounds them.  At FiLMAViT-small's training shape (BT = 40, 32x32
 // tokens, C = 384) ~1.3 GFLOP forward and ~3.2 backward against ~38 MB read
@@ -109,6 +121,7 @@
 #include <cmath>
 
 #include "common.cuh"
+#include "param_sums.cuh"
 
 namespace bft {
 namespace {
@@ -184,6 +197,16 @@ struct LineCtx {
     ntile = (L + kTile - 1) / kTile;
     line = blockIdx.x / ntile;
     tile = blockIdx.x % ntile;
+    tl = L < kTile ? L : kTile;
+  }
+  // Line li (= bt * lines + line) of the pass, tile `tile_`, head `h_`.
+  __device__ LineCtx(int H_, int W_, int C_, int pass_, int li, int tile_, int h_)
+      : pass(pass_), h(h_), H(H_), W(W_), C(C_), tile(tile_) {
+    L = pass == 0 ? W : H;
+    lines = pass == 0 ? H : W;
+    ntile = (L + kTile - 1) / kTile;
+    bt = li / lines;
+    line = li % lines;
     tl = L < kTile ? L : kTile;
   }
   // Token index of sequence position i of this line.
@@ -529,13 +552,14 @@ __device__ __forceinline__ void emit_grad(const Planes<T*>& dst, const Planes<fl
 // The gradients of n rows of component comp (0 q, 1 k) from r0, one warp per
 // row, from `dy`, their gradients w.r.t. the attention's q or k (stride
 // D + 1).  LN flavours: the qk-LN backward of the raw rows `raw` (stride
-// D + 1) into dqkv as the flavour says, adding (dy xhat, dy) into dln_s[2
-// comp], dln_s[2 comp + 1]; the K4 flavour's row pass only keeps dy in dacc.
+// D + 1) into dqkv as the flavour says, adding (dy xhat, dy) into the
+// warp's LN sums dln_w[warp][2 comp], dln_w[warp][2 comp + 1]; the K4
+// flavour's row pass only keeps dy in dacc.
 // The others: dy is the gradient itself (emit_grad).
 template <typename T, int D, Flavour F>
 __device__ void ln_bwd_rows(const float* raw, const float* dy, int n, int r0, int comp,
                             const float* __restrict__ ln, const LineCtx& c,
-                            const Planes<T*>& dst, const Planes<float*>& dacc, float* dln_s) {
+                            const Planes<T*>& dst, const Planes<float*>& dacc, float* dln_w) {
   using R = Rounding<F>;
   constexpr int kPer = (D + 31) / 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -591,12 +615,56 @@ __device__ void ln_bwd_rows(const float* raw, const float* dy, int n, int r0, in
     }
   }
   if (keep) return;
+  float* slot = dln_w + warp * 4 * D;
 #pragma unroll
   for (int u = 0; u < kPer; ++u) {
     const int d = lane + 32 * u;
     if (d < D) {
-      atomicAdd(&dln_s[2 * comp * D + d], dg[u]);
-      atomicAdd(&dln_s[(2 * comp + 1) * D + d], db[u]);
+      slot[2 * comp * D + d] += dg[u];
+      slot[(2 * comp + 1) * D + d] += db[u];
+    }
+  }
+}
+
+// Where a backward block's line and partials lie, for one pass: launch k's
+// block (blockIdx.x = grp * tiles + tile, blockIdx.y = head) takes tile
+// `tile` of line grp * per + k of the pass (line li = bt * lines-per-image +
+// line), if that line is below min((grp + 1) * per, lines); launches 0 to
+// per - 1 run in order, so group grp's lines are summed in line order.
+struct BwdPlan {
+  int groups, per, lines;
+  int scale_units, ln_units;  // tiles * groups; kernels * tiles * groups * heads
+  float* part_bias;   // (groups, heads, L, L): dS summed over the group's lines
+  float* part_scale;  // (heads, scale_units): the query blocks' dscale
+  float* part_ln;     // (4 D, ln_units): LN flavours
+};
+
+// The end of a backward block: its LN sums (the warps' in warp order) into
+// column `unit` of the LN partials and, with `with_scale`, its dscale (the
+// threads' `dsc`, a fixed tree) into column `su` of head h's scale partials,
+// each written (`first`, the run's first line) or added.
+template <int D, bool kLn>
+__device__ void line_partials(const BwdPlan& plan, int su, int h, int unit, bool first,
+                              bool with_scale, float dsc, const float* dln_w, float* red) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  __syncthreads();
+  if (with_scale) {
+    dsc = warp_sum(dsc);
+    if (lane == 0) red[warp] = dsc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float v = 0.f;
+      for (int w = 0; w < kLineWarps; ++w) v += red[w];
+      float* o = plan.part_scale + (size_t)h * plan.scale_units + su;
+      *o = first ? v : *o + v;
+    }
+  }
+  if constexpr (kLn) {
+    for (int e = threadIdx.x; e < 4 * D; e += kLineThreads) {
+      float v = 0.f;
+      for (int w = 0; w < kLineWarps; ++w) v += dln_w[w * 4 * D + e];
+      float* o = plan.part_ln + (size_t)e * plan.ln_units + unit;
+      *o = first ? v : *o + v;
     }
   }
 }
@@ -645,25 +713,44 @@ size_t bwd_kv_smem_bytes(int tl) {
   return sizeof(float) * (5 * tl * (D + 1) + 2 * tl * (tl + 1) + 3 * tl + D);
 }
 
-// grid (lines * tiles, heads, BT).  stats: (BT, heads, lines, L, 3) = (m, z,
-// D) per query, written only when the line has more than one tile.
+// Blocks an SM must hold of the query kernel and of the key kernel: the
+// register budgets the kernels of PR 4-11 compiled to (64 and 128 a thread
+// at head dim 64; 64-100 and 64-80 at 16), which the partials' bookkeeping
+// otherwise pushes to 80-100 and up to 175: a block fewer an SM, and K6's,
+// K7's and K8's backward 13-56% slower (NVIDIA H100 80GB HBM3, 700.00 W).
+template <int D>
+constexpr int kQBlocks = D == 64 ? 4 : 3;
+template <int D>
+constexpr int kKvBlocks = D == 64 ? 2 : 3;
+
+// grid (tiles * groups, heads): the plan's blocks.  stats: (BT, heads, lines,
+// L, 3) = (m, z, D) per query, written only when the line has more than one
+// tile.
 template <typename T, int D, Flavour F>
-__global__ void __launch_bounds__(kLineThreads) line_bwd_q_kernel(
+__global__ void __launch_bounds__(kLineThreads, kQBlocks<D>) line_bwd_q_kernel(
     Planes<const T*> src, const T* __restrict__ dout, const float* __restrict__ ln,
     const float* __restrict__ bias, const float* __restrict__ scale, Planes<T*> dst,
-    Planes<float*> dacc, float* __restrict__ stats, float* __restrict__ dln,
-    float* __restrict__ dbias, float* __restrict__ dscale, int H, int W, int C, int heads,
-    int pass) {
+    Planes<float*> dacc, float* __restrict__ stats, BwdPlan plan, int H, int W, int C,
+    int heads, int pass, int k) {
   using R = Rounding<F>;
   constexpr int LDS = D + 1;
   extern __shared__ float sm[];
-  __shared__ float dln_s[4 * D];
-  __shared__ float dscale_s;
-  const LineCtx c(H, W, C, pass);
-  const int L = c.L, tl = c.tl, ldp = tl + 1;
-  const int q0 = c.tile * kTile, nq = min(kTile, L - q0);
-  const bool one = L <= kTile;
+  __shared__ float dln_w[kLineWarps * 4 * D];  // each warp's LN sums
+  __shared__ float red[kLineWarps];
+  const int nt = ((pass == 0 ? W : H) + kTile - 1) / kTile;
+  const int tile = blockIdx.x % nt, grp = blockIdx.x / nt, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float s = scale[h * 2 + pass];
+
+  const int li = grp * plan.per + k;
+  if (li >= min((grp + 1) * plan.per, plan.lines)) return;  // the run has no k-th line
+  const bool first = k == 0;
+  for (int e = tid; e < kLineWarps * 4 * D; e += kLineThreads) dln_w[e] = 0.f;
+  float dsc = 0.f;  // this thread's queries' d(attn scale)
+  const int L = pass == 0 ? W : H;
+  const int tl = L < kTile ? L : kTile, ldp = tl + 1;
+  const int q0 = tile * kTile, nq = min(kTile, L - q0);
+  const bool one = L <= kTile;
   float* qr = sm;               // raw q (tl, D + 1)
   float* qs = qr + tl * LDS;    // q after LN, rounded (LN flavours; else q)
   float* ds = qs + tl * LDS;    // dao; later dk (one-tile lines)
@@ -677,13 +764,10 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_q_kernel(
   float* st_a = st_z + tl;      // sum e G, then D
   float* st_g = st_a + tl;      // sum G
   float* dsum = st_g + tl;      // (D) sum (1-s) dao (no-fold flavours)
-  const float* bh = bias + (size_t)c.h * L * L + (size_t)q0 * L;
-  float* dbh = dbias + (size_t)c.h * L * L + (size_t)q0 * L;
-  const float s = scale[c.h * 2 + pass];
+  const float* bh = bias + (size_t)h * L * L + (size_t)q0 * L;
+  float* slot = plan.part_bias + ((size_t)(grp * heads + h) * L + q0) * L;  // rows q0 ..
   const float uniform = (1.f - s) * (1.f / L);
-
-  for (int e = tid; e < 4 * D; e += kLineThreads) dln_s[e] = 0.f;
-  if (tid == 0) dscale_s = 0.f;
+  const LineCtx c(H, W, C, pass, li, tile, h);
   for (int i = tid; i < tl; i += kLineThreads) {
     st_m[i] = -INFINITY;
     st_z[i] = st_a[i] = st_g[i] = 0.f;
@@ -714,11 +798,11 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_q_kernel(
       const float* r = ps + i * ldp;
       const float* gr = gs + i * ldp;
       const bool in0 = lane < nk, in1 = lane + 32 < nk;
-      const float l0 = in0 ? r[lane] : -INFINITY, l1 = in1 ? r[lane + 32] : -INFINITY;
+      const float l0v = in0 ? r[lane] : -INFINITY, l1v = in1 ? r[lane + 32] : -INFINITY;
       const float g0 = in0 ? gr[lane] : 0.f, g1 = in1 ? gr[lane + 32] : 0.f;
       const float m_old = st_m[i];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(l0, l1)));
-      const float e0 = in0 ? expf(l0 - m_new) : 0.f, e1 = in1 ? expf(l1 - m_new) : 0.f;
+      const float m_new = fmaxf(m_old, warp_max(fmaxf(l0v, l1v)));
+      const float e0 = in0 ? expf(l0v - m_new) : 0.f, e1 = in1 ? expf(l1v - m_new) : 0.f;
       const float zt = warp_sum(e0 + e1);
       const float at = warp_sum(e0 * g0 + e1 * g1);
       const float gt = warp_sum(g0 + g1);
@@ -736,9 +820,9 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_q_kernel(
   for (int i = tid; i < nq; i += kLineThreads) {
     const float pg = st_a[i] / st_z[i];
     st_a[i] = s * pg;
-    atomicAdd(&dscale_s, pg - st_g[i] * (1.f / L));
+    dsc += pg - st_g[i] * (1.f / L);
     if (!one) {
-      float* o = stats + ((((size_t)c.bt * heads + c.h) * c.lines + c.line) * L + q0 + i) * 3;
+      float* o = stats + ((((size_t)c.bt * heads + h) * c.lines + c.line) * L + q0 + i) * 3;
       o[0] = st_m[i];
       o[1] = st_z[i];
       o[2] = st_a[i];
@@ -746,8 +830,8 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_q_kernel(
   }
   __syncthreads();
 
-  // 2. dS (the table gradient), then dq: a longer line adds dq up over its
-  // key tiles in kr (free there: its keys' LN runs in place in ks).
+  // 2. dS (into the block's table sum), then dq: a longer line adds dq up
+  // over its key tiles in kr (free there: its keys' LN runs in place in ks).
   for (int k0 = 0; k0 < L; k0 += kTile) {
     const int nk = min(kTile, L - k0);
     if (!one) load_keys(k0, nk);
@@ -758,7 +842,14 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_q_kernel(
       for (int j = lane; j < nk; j += 32) {
         const float p = expf(r[j] - m) / z;
         const float dS = p * (s * gr[j] - dd);
-        atomicAdd(&dbh[(size_t)i * L + k0 + j], dS);
+        // The block's own cell, one thread's in every line: a store,
+        // then reductions that need no load and apply in program order.
+        float* cell = slot + (size_t)i * L + k0 + j;
+        if (first) {
+          *cell = dS;
+        } else {
+          atomicAdd(cell, dS);
+        }
         gr[j] = maybe_round<T, R::round>(dS);
         if (one) r[j] = value_weight<T, F>(p, s, uniform);
       }
@@ -794,7 +885,7 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_q_kernel(
         av += ps[r * ldp + i] * (R::fold ? a : round_to<T>(s * a));
       }
       vs[i * LDS + d] = aq * head_scaling<D>();
-      emit_grad<T, F>(dst, dacc, c.token(i), c.h, 2, d, R::fold ? av : av + dsum[d] / L, pass);
+      emit_grad<T, F>(dst, dacc, c.token(i), h, 2, d, R::fold ? av : av + dsum[d] / L, pass);
     }
     __syncthreads();
     for (int e = tid; e < nq * D; e += kLineThreads) {
@@ -804,34 +895,40 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_q_kernel(
       ds[j * LDS + d] = a * head_scaling<D>();
     }
     __syncthreads();
-    ln_bwd_rows<T, D, F>(qr, vs, nq, 0, 0, ln, c, dst, dacc, dln_s);
-    ln_bwd_rows<T, D, F>(kr, ds, nq, 0, 1, ln, c, dst, dacc, dln_s);
+    ln_bwd_rows<T, D, F>(qr, vs, nq, 0, 0, ln, c, dst, dacc, dln_w);
+    ln_bwd_rows<T, D, F>(kr, ds, nq, 0, 1, ln, c, dst, dacc, dln_w);
   } else {
-    ln_bwd_rows<T, D, F>(qr, kr, nq, q0, 0, ln, c, dst, dacc, dln_s);
+    ln_bwd_rows<T, D, F>(qr, kr, nq, q0, 0, ln, c, dst, dacc, dln_w);
   }
-  __syncthreads();
-  if (R::ln && !(R::f32_sum && pass == 0)) {
-    for (int e = tid; e < 4 * D; e += kLineThreads) atomicAdd(&dln[e], dln_s[e]);
-  }
-  if (tid == 0) atomicAdd(&dscale[c.h * 2 + pass], dscale_s);
+  line_partials<D, R::ln>(plan, tile * plan.groups + grp, h,
+                          (tile * plan.groups + grp) * heads + h, first, true, dsc, dln_w, red);
 }
 
-// grid (lines * tiles, heads, BT), lines of more than one tile only.
+// grid (tiles * groups, heads), lines of more than one tile only: the key
+// tiles of the plan's lines; its LN partials follow the query blocks'.
 template <typename T, int D, Flavour F>
-__global__ void __launch_bounds__(kLineThreads) line_bwd_kv_kernel(
+__global__ void __launch_bounds__(kLineThreads, kKvBlocks<D>) line_bwd_kv_kernel(
     Planes<const T*> src, const T* __restrict__ dout, const float* __restrict__ ln,
     const float* __restrict__ bias, const float* __restrict__ scale,
-    const float* __restrict__ stats, Planes<T*> dst, Planes<float*> dacc,
-    float* __restrict__ dln, int H, int W, int C, int heads, int pass) {
+    const float* __restrict__ stats, Planes<T*> dst, Planes<float*> dacc, BwdPlan plan, int H,
+    int W, int C, int heads, int pass, int k) {
   using R = Rounding<F>;
   constexpr int LDS = D + 1;
   constexpr int kAcc = kTile * D / kLineThreads;
   extern __shared__ float sm[];
-  __shared__ float dln_s[4 * D];
-  const LineCtx c(H, W, C, pass);
-  const int L = c.L, tl = c.tl, ldp = tl + 1;
-  const int k0 = c.tile * kTile, nk = min(kTile, L - k0);
+  __shared__ float dln_w[kLineWarps * 4 * D];
+  __shared__ float red[kLineWarps];
+  const int nt = ((pass == 0 ? W : H) + kTile - 1) / kTile;
+  const int tile = blockIdx.x % nt, grp = blockIdx.x / nt, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float s = scale[h * 2 + pass];
+
+  const int li = grp * plan.per + k;
+  if (li >= min((grp + 1) * plan.per, plan.lines)) return;  // the run has no k-th line
+  for (int e = tid; e < kLineWarps * 4 * D; e += kLineThreads) dln_w[e] = 0.f;
+  const int L = pass == 0 ? W : H;
+  const int tl = L < kTile ? L : kTile, ldp = tl + 1;
+  const int k0 = tile * kTile, nk = min(kTile, L - k0);
   float* kr = sm;             // raw k
   float* ks = kr + tl * LDS;  // k after LN, rounded (LN flavours; else k); later dk
   float* vs = ks + tl * LDS;
@@ -841,12 +938,10 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_kv_kernel(
   float* gs = ps + tl * ldp;
   float* st = gs + tl * ldp;  // (tl, 3): m, z, D of the query tile
   float* dsum = st + 3 * tl;
-  const float* bh = bias + (size_t)c.h * L * L + k0;
-  const float* sth = stats + (((size_t)c.bt * heads + c.h) * c.lines + c.line) * L * 3;
-  const float s = scale[c.h * 2 + pass];
+  const float* bh = bias + (size_t)h * L * L + k0;
   const float uniform = (1.f - s) * (1.f / L);
-
-  for (int e = tid; e < 4 * D; e += kLineThreads) dln_s[e] = 0.f;
+  const LineCtx c(H, W, C, pass, li, tile, h);
+  const float* sth = stats + (((size_t)c.bt * heads + h) * c.lines + c.line) * L * 3;
   for (int d = tid; d < D; d += kLineThreads) dsum[d] = 0.f;
   stage<T, D>(R::ln ? kr : ks, src, c, 1, k0, nk);
   stage<T, D>(vs, src, c, 2, k0, nk);
@@ -888,14 +983,12 @@ __global__ void __launch_bounds__(kLineThreads) line_bwd_kv_kernel(
     if (j >= nk) continue;
     ks[j * LDS + d] = dk[u] * head_scaling<D>();
     const float v = R::fold ? dv[u] : dv[u] + dsum[d] / L;
-    emit_grad<T, F>(dst, dacc, c.token(k0 + j), c.h, 2, d, v, pass);
+    emit_grad<T, F>(dst, dacc, c.token(k0 + j), h, 2, d, v, pass);
   }
   __syncthreads();
-  ln_bwd_rows<T, D, F>(kr, ks, nk, k0, 1, ln, c, dst, dacc, dln_s);
-  __syncthreads();
-  if (R::ln && !(R::f32_sum && pass == 0)) {
-    for (int e = tid; e < 4 * D; e += kLineThreads) atomicAdd(&dln[e], dln_s[e]);
-  }
+  ln_bwd_rows<T, D, F>(kr, ks, nk, k0, 1, ln, c, dst, dacc, dln_w);
+  line_partials<D, R::ln>(plan, 0, h, (plan.groups * nt + tile * plan.groups + grp) * heads + h,
+                          k == 0, false, 0.f, dln_w, red);
 }
 
 // ------------------------------------------------------------- launchers
@@ -916,6 +1009,11 @@ struct AxialArgs {
   float* dbias_x;
   float* dbias_y;
   float* dscale;
+  // The backward's plan and partials: pass p's BT x (H or W) lines go to
+  // groups[p] blocks of per[p] lines a head and tile; part holds both
+  // passes' partials (line_bwd_plans).
+  float* part;
+  int groups[2], per[2];
   int BT, H, W, C, heads;
   cudaStream_t stream;
 };
@@ -951,10 +1049,55 @@ int line_attention_fwd(const AxialArgs& a) {
   return cudaSuccess;
 }
 
-// One direction of the backward (pass 0 rows, 1 columns): one launch for
-// lines of at most 64 tokens, two for longer ones.
+// Both passes' plans, carved from a.part in this order for each pass: the
+// table partials (groups, heads, L, L), the scale partials (heads, tiles *
+// groups) and, for the LN flavours, the LN partials (4 D, kernels * tiles *
+// groups * heads), kernels 2 for lines of more than one tile, else 1 (the
+// layout ops/axial_lane.py:line_bwd_scratch allocates); and the sum's
+// arguments.  False if a plan does not give every line to one block.
+template <Flavour F>
+bool line_bwd_plans(const AxialArgs& a, int D, BwdPlan (&plan)[2], ParamSumArgs& sum) {
+  using R = Rounding<F>;
+  sum = ParamSumArgs{};
+  float* at = a.part;
+  for (int p = 0; p < 2; ++p) {
+    plan[p] = BwdPlan{};
+    if (p == 1 && R::one_pass) break;
+    const int L = p == 0 ? a.W : a.H, lines = a.BT * (p == 0 ? a.H : a.W);
+    const int nt = (L + kTile - 1) / kTile, kernels = L > kTile ? 2 : 1;
+    const int g = a.groups[p];
+    if (!plan_ok(lines, g, a.per[p])) return false;
+    plan[p] = BwdPlan{g, a.per[p], lines, nt * g, R::ln ? kernels * nt * g * a.heads : 0, at,
+                      nullptr, nullptr};
+    at += (size_t)g * a.heads * L * L;
+    plan[p].part_scale = at;
+    at += (size_t)nt * g * a.heads;
+    if (R::ln) {
+      plan[p].part_ln = at;
+      at += (size_t)kernels * nt * g * a.heads * 4 * D;
+    }
+    sum.part_bias[p] = plan[p].part_bias;
+    sum.part_scale[p] = plan[p].part_scale;
+    sum.part_ln[p] = plan[p].part_ln;
+    sum.bias_groups[p] = g;
+    sum.scale_units[p] = plan[p].scale_units;
+    sum.ln_units[p] = plan[p].ln_units;
+    sum.L[p] = L;
+  }
+  sum.dbias[0] = a.dbias_x;
+  sum.dbias[1] = a.dbias_y;
+  sum.dscale = a.dscale;
+  sum.dln = R::ln ? a.dln : nullptr;
+  sum.heads = a.heads;
+  sum.D = D;
+  return true;
+}
+
+// One direction of the backward (pass 0 rows, 1 columns) on its plan: per
+// launches of the query kernel (a line of each group's run each), and as many
+// of the key kernel for lines of more than 64 tokens.
 template <typename T, int D, Flavour F>
-int line_attention_bwd_pass(const AxialArgs& a, int pass) {
+int line_attention_bwd_pass(const AxialArgs& a, const BwdPlan& plan, int pass) {
   cudaError_t e;
   auto qk = line_bwd_q_kernel<T, D, F>;
   auto kvk = line_bwd_kv_kernel<T, D, F>;
@@ -969,30 +1112,37 @@ int line_attention_bwd_pass(const AxialArgs& a, int pass) {
   const Planes<T*> dst = make_planes<F>(static_cast<T*>(a.dqkv), D, a.BT, a.H, a.W, a.C);
   const Planes<float*> dacc = make_planes<F>(a.dacc, D, a.BT, a.H, a.W, a.C);
   const T* dout = static_cast<const T*>(a.dout);
-  const int L = pass == 0 ? a.W : a.H, lines = pass == 0 ? a.H : a.W;
+  const int L = pass == 0 ? a.W : a.H;
   const int tl = L < kTile ? L : kTile, nt = (L + kTile - 1) / kTile;
-  const dim3 grid(lines * nt, a.heads, a.BT);
+  const dim3 grid(nt * plan.groups, a.heads);
   const float* bias = pass == 0 ? a.bias_x : a.bias_y;
-  qk<<<grid, kLineThreads, bwd_q_smem_bytes<D>(tl), a.stream>>>(
-      src, dout, a.ln, bias, a.scale, dst, dacc, a.stats, a.dln,
-      pass == 0 ? a.dbias_x : a.dbias_y, a.dscale, a.H, a.W, a.C, a.heads, pass);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  if (L > kTile) {
+  for (int k = 0; k < plan.per; ++k) {
+    qk<<<grid, kLineThreads, bwd_q_smem_bytes<D>(tl), a.stream>>>(
+        src, dout, a.ln, bias, a.scale, dst, dacc, a.stats, plan, a.H, a.W, a.C, a.heads, pass,
+        k);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  for (int k = 0; L > kTile && k < plan.per; ++k) {
     kvk<<<grid, kLineThreads, bwd_kv_smem_bytes<D>(tl), a.stream>>>(
-        src, dout, a.ln, bias, a.scale, a.stats, dst, dacc, a.dln, a.H, a.W, a.C, a.heads,
-        pass);
+        src, dout, a.ln, bias, a.scale, a.stats, dst, dacc, plan, a.H, a.W, a.C, a.heads, pass,
+        k);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
   }
   return cudaSuccess;
 }
 
+// Both directions (K8: one), then the fixed-order sum of their partials
+// into dbias_x, dbias_y, dscale and dln, written whole.
 template <typename T, int D, Flavour F>
 int line_attention_bwd(const AxialArgs& a) {
+  BwdPlan plan[2];
+  ParamSumArgs sum;
+  if (!line_bwd_plans<F>(a, D, plan, sum)) return cudaErrorInvalidValue;
   for (int pass = 0; pass < (Rounding<F>::one_pass ? 1 : 2); ++pass) {
-    const int e = line_attention_bwd_pass<T, D, F>(a, pass);
+    const int e = line_attention_bwd_pass<T, D, F>(a, plan[pass], pass);
     if (e != cudaSuccess) return e;
   }
-  return cudaSuccess;
+  return launch_param_sum(sum, a.stream);
 }
 
 // The line kernels' envelope: head dim 16 or 64, lines of at most 512 tokens.

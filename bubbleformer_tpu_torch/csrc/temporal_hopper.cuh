@@ -1,10 +1,12 @@
-// The passes around K1's and K3's products in their bf16 launch chains
-// (temporal_block.cu, temporal_block_bwd.cu), where the products run on
-// hopper_gemm.cuh: the InstanceNorm apply that writes a normalised activation
-// in bf16 for a GEMM to load by TMA (K1), the T x T attention of the forward
-// and of the backward (both), and a timer that records a CUDA event after
-// each launch of a chain.  Included by each .cu that launches them (internal
-// linkage).
+// The passes around K1's, K3's, K5's and K9's products in their bf16 launch
+// chains (temporal_block.cu, temporal_block_bwd.cu, axial_block_mega.cu,
+// axial_lane_px.cu), where the products run on hopper_gemm.cuh: the
+// InstanceNorm apply that writes a normalised activation in bf16 for a GEMM
+// to load by TMA (K1, K5), K5's InstanceNorm backward, the fixed-order totals of per-plane sums (K5's
+// and K9's bias and InstanceNorm gradients), the T x T attention of the
+// forward and of the backward (K1, K3), and a timer that records a CUDA
+// event after each launch of a chain.  Included by each .cu that launches
+// them (internal linkage).
 #pragma once
 
 #include <algorithm>
@@ -71,6 +73,77 @@ cudaError_t launch_in_norm(const S* x, const float* stats, const float* w, const
   if (n8 >= (size_t{1} << 32)) return cudaErrorInvalidValue;
   const int blocks = static_cast<int>(std::min<size_t>((n8 + 255) / 256, 132 * 16));
   in_norm_kernel<S><<<blocks, 256, 0, stream>>>(x, stats, w, b, out, G, N, C);
+  return cudaGetLastError();
+}
+
+// The InstanceNorm backward of a (G, N, C) plane stack, eight channels a
+// thread (16-byte loads and stores): dx = bf16(rstd w (dy - s0 / N - xhat
+// s1 / N)), xhat = (x - mean) rstd, from the float32 dy, the bf16 x, stats =
+// [mean; rstd] and sums = [s0; s1] (2, G, C) of plane_sums_kernel (K5's bf16
+// chain: dao and dx; C a multiple of 8, bases 16-byte aligned).
+__global__ void __launch_bounds__(256) in_apply8_kernel(const float* __restrict__ dy,
+                                                        const __nv_bfloat16* __restrict__ x,
+                                                        const float* __restrict__ stats,
+                                                        const float* __restrict__ w,
+                                                        const float* __restrict__ sums,
+                                                        __nv_bfloat16* __restrict__ dx, int G,
+                                                        int N, int C) {
+  const uint32_t c8 = C / 8, n8 = static_cast<uint32_t>(G) * N * c8;
+  const float* rstd = stats + static_cast<size_t>(G) * C;
+  const float* s1 = sums + static_cast<size_t>(G) * C;
+  for (uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; i < n8; i += gridDim.x * blockDim.x) {
+    const uint32_t row = i / c8, c = (i - row * c8) * 8;
+    const size_t s = static_cast<size_t>(row / N) * C + c;
+    float v[8], xv[8], mu[8], rs[8], ww[8], a0[8], a1[8];
+    load8(dy + static_cast<size_t>(i) * 8, v);
+    load8(x + static_cast<size_t>(i) * 8, xv);
+    load8(stats + s, mu);
+    load8(rstd + s, rs);
+    load8(w + c, ww);
+    load8(sums + s, a0);
+    load8(s1 + s, a1);
+    __align__(16) __nv_bfloat16 o[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float xh = (xv[u] - mu[u]) * rs[u];
+      o[u] = __float2bfloat16(rs[u] * ww[u] * (v[u] - a0[u] / N - xh * (a1[u] / N)));
+    }
+    *reinterpret_cast<uint4*>(dx + static_cast<size_t>(i) * 8) =
+        *reinterpret_cast<const uint4*>(o);
+  }
+}
+
+inline cudaError_t launch_in_apply8(const float* dy, const __nv_bfloat16* x, const float* stats,
+                                    const float* w, const float* sums, __nv_bfloat16* dx, int G,
+                                    int N, int C, cudaStream_t stream) {
+  const size_t n8 = static_cast<size_t>(G) * N * C / 8;
+  if (n8 >= (size_t{1} << 32)) return cudaErrorInvalidValue;
+  const int blocks = static_cast<int>(std::min<size_t>((n8 + 255) / 256, 132 * 16));
+  in_apply8_kernel<<<blocks, 256, 0, stream>>>(dy, x, stats, w, sums, dx, G, N, C);
+  return cudaGetLastError();
+}
+
+// out0[c] = sum_g sums[g, c] and out1[c] = sum_g sums[G + g, c] over the G
+// planes of (2, G, C) per-plane sums (block_ops.cuh: plane_sums_kernel), in
+// plane order, each written when given: a Dense's bias gradient, or an
+// InstanceNorm's bias (out0) and scale (out1) gradients, with no atomics, so
+// they repeat bit for bit.
+__global__ void plane_totals_kernel(const float* __restrict__ sums, int G, int C,
+                                    float* __restrict__ out0, float* __restrict__ out1) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float a = 0.f, b = 0.f;
+  for (int g = 0; g < G; ++g) {
+    a += sums[(size_t)g * C + c];
+    b += sums[(size_t)(G + g) * C + c];
+  }
+  if (out0) out0[c] = a;
+  if (out1) out1[c] = b;
+}
+
+inline cudaError_t launch_plane_totals(const float* sums, int G, int C, float* out0, float* out1,
+                                       cudaStream_t stream) {
+  plane_totals_kernel<<<(C + 255) / 256, 256, 0, stream>>>(sums, G, C, out0, out1);
   return cudaGetLastError();
 }
 

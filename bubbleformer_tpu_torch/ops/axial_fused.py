@@ -120,8 +120,9 @@ def fused_axial_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor
     CPU tensors take :func:`fused_bwd_plain`; CUDA tensors launch
     ``csrc/axial_fused.cu``'s backward in the kFused flavour (the row pass
     writes its rounded gradients, the column pass adds its own) and count
-    ``fused_axial_attention_bwd.launches``.  The table and scale gradients are
-    float32 atomic sums: their last bits vary from run to run."""
+    ``fused_axial_attention_bwd.launches``.  The table and scale gradients
+    come from per-block partials added in a fixed order: they repeat bit for
+    bit."""
     if q.device.type == "cpu":
         return fused_bwd_plain(do, q, k, v, *tables)
     if q.device.type != "cuda":

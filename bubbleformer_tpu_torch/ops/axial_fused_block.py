@@ -131,8 +131,9 @@ def fused_block_attention_bwd(do: torch.Tensor, qkv: torch.Tensor, *params,
     ``csrc/axial_attention.cu``'s backward in the fused_block flavour (the
     row pass keeps float32 gradients, the column pass adds its own, runs the
     qk-LN backward and rounds) and count
-    ``fused_block_attention_bwd.launches``.  The parameter gradients are
-    float32 atomic sums: their last bits vary from run to run."""
+    ``fused_block_attention_bwd.launches``.  The parameter gradients come
+    from per-block partials added in a fixed order: they repeat bit for
+    bit."""
     if qkv.device.type == "cpu":
         return fused_block_bwd_plain(do, qkv, *params, heads=heads)
     if qkv.device.type != "cuda":

@@ -44,6 +44,7 @@ from bubbleformer_tpu_torch.ops.axial_lane import (
     LINE_TILE,
     LineAttention,
     check_line_shape,
+    line_bwd_scratch,
     line_tables,
 )
 
@@ -191,16 +192,17 @@ def split_bwd_cuda(do, q, k, v, bias_x, bias_y, scale_x, scale_y, *, packed: boo
     dqkv3 = torch.empty(3, bt, h, w, c, device=dev, dtype=dt)
     dacc = torch.empty(3, bt, h, w, c, device=dev) if packed else None
     stats = torch.empty(bt, heads, h * w, 3, device=dev) if max(h, w) > LINE_TILE else None
-    dbx = torch.zeros(heads, w, w, device=dev)
-    dby = torch.zeros(heads, h, h, device=dev)
-    dscale = torch.zeros(heads, 2, device=dev)
+    dbx = torch.empty(heads, w, w, device=dev)
+    dby = torch.empty(heads, h, h, device=dev)
+    dscale = torch.empty(heads, 2, device=dev)
+    part, plan = line_bwd_scratch(bt, h, w, heads, d, dev, ln=False)
     lib = _build.library()
     err = lib.bf_axial_fused_bwd(
         _build.DTYPE_CODES[dt], d, int(packed), qkv3.data_ptr(), do.data_ptr(),
         p["bias_x"].data_ptr(), p["bias_y"].data_ptr(), p["scale"].data_ptr(), dqkv3.data_ptr(),
         None if dacc is None else dacc.data_ptr(), None if stats is None else stats.data_ptr(),
-        dbx.data_ptr(), dby.data_ptr(), dscale.data_ptr(), bt, h, w, c, heads,
-        _build.stream_handle(dev),
+        dbx.data_ptr(), dby.data_ptr(), dscale.data_ptr(), part.data_ptr(), *plan, bt, h, w, c,
+        heads, _build.stream_handle(dev),
     )
     _build.check(lib, err, f"{what} (bf_axial_fused_bwd)")
     dq, dk, dv = (g.reshape(q.shape) for g in dqkv3)
@@ -225,8 +227,8 @@ def fused_axial_attention_packed_bwd(do: torch.Tensor, q: torch.Tensor, k: torch
     ``csrc/axial_fused.cu``'s backward in the kPacked flavour (the row pass
     keeps float32 gradients, the column pass adds its own and rounds) and
     count ``fused_axial_attention_packed_bwd.launches``.  The table and scale
-    gradients are float32 atomic sums: their last bits vary from run to
-    run."""
+    gradients come from per-block partials added in a fixed order: they
+    repeat bit for bit."""
     if q.device.type == "cpu":
         return fused_packed_bwd_plain(do, q, k, v, *tables)
     if q.device.type != "cuda":

@@ -63,12 +63,19 @@ from bubbleformer_tpu_torch.ops.attention import axis_attention, from_cols, to_c
 HEAD_DIMS = (16, 64)  # the kernels' compile-time head dims
 MAX_LINE = 512  # longest row or column the kernels take
 LINE_TILE = 64  # tokens per query or key tile (csrc/axial_attention.cu kTile)
+# At most this many floats of the line kernels' backward table partials a
+# pass (128 MB): long lines take fewer, longer runs of lines, and so more
+# launches.
+LINE_PARTIAL_FLOATS = 1 << 25
 # The JAX lane gate's defaults: its chunk-lane target (BUBBLEFORMER_LANE_CHUNK
 # unset, bubbleformer_tpu/ops/axial_lane.py:123) and its grid-step budget
 # (BUBBLEFORMER_LANE_GRID unset, :92).  The port reads neither knob (it reads
 # one of the module's: BUBBLEFORMER_LANE_PROJ, lane_axial_attention_from_x).
 LANE_CHUNK_TARGET = 256
 LANE_GRID_BUDGET = int(60e6)
+# The modes of csrc/lane_hopper.cuh's bf16 backward kernel (its enum Mode), as
+# the C entry bf_lane_bwd_resident takes them: K2's, K9's and K5's.
+MODE_LANE, MODE_LANE_PX, MODE_MEGA = 0, 1, 2
 
 
 def axial_attention_plain(
@@ -309,10 +316,11 @@ def line_attention_bwd_cuda(do: torch.Tensor, qkv: torch.Tensor, *params, heads:
     dqkv = torch.empty(bt, h, w, c3, device=dev, dtype=qkv.dtype)
     dacc = torch.empty(bt, h, w, c3, device=dev) if fused else None
     stats = torch.empty(bt, heads, h * w, 3, device=dev) if max(h, w) > LINE_TILE else None
-    dln = torch.zeros(4, c // heads, device=dev)
-    dbx = torch.zeros(heads, w, w, device=dev)
-    dby = torch.zeros(heads, h, h, device=dev)
-    dscale = torch.zeros(heads, 2, device=dev)
+    dln = torch.empty(4, c // heads, device=dev)
+    dbx = torch.empty(heads, w, w, device=dev)
+    dby = torch.empty(heads, h, h, device=dev)
+    dscale = torch.empty(heads, 2, device=dev)
+    part, plan = line_bwd_scratch(bt, h, w, heads, c // heads, dev)
     qkv, do = qkv.contiguous(), do.to(qkv.dtype).contiguous()  # held until queued
     lib = _build.library()
     err = lib.bf_axial_attention_bwd(
@@ -320,13 +328,54 @@ def line_attention_bwd_cuda(do: torch.Tensor, qkv: torch.Tensor, *params, heads:
         p["ln"].data_ptr(), p["bias_x"].data_ptr(), p["bias_y"].data_ptr(),
         p["scale"].data_ptr(), dqkv.data_ptr(), None if dacc is None else dacc.data_ptr(),
         None if stats is None else stats.data_ptr(), dln.data_ptr(), dbx.data_ptr(),
-        dby.data_ptr(), dscale.data_ptr(), bt, h, w, c, heads, _build.stream_handle(dev),
+        dby.data_ptr(), dscale.data_ptr(), part.data_ptr(), *plan, bt, h, w, c, heads,
+        _build.stream_handle(dev),
     )
     _build.check(lib, err, f"{what} (bf_axial_attention_bwd)")
     bias_x, bias_y, scale_x, scale_y = params[4:]
     return (dqkv, dln[0], dln[1], dln[2], dln[3],
             None if bias_x is None else dbx, None if bias_y is None else dby,
             None if scale_x is None else dscale[:, 0], None if scale_y is None else dscale[:, 1])
+
+
+def line_bwd_scratch(bt: int, h: int, w: int, heads: int, d: int, dev, *, ln: bool = True,
+                     passes: int = 2) -> tuple:
+    """``(part, plan)`` of the line kernels' backward (``csrc/line_kernels.cuh:
+    line_bwd_plans``): pass p's ``bt * (h or w)`` lines fall into ``groups``
+    runs of ``per`` lines (:func:`lane_bwd_plan`), the kernels launched
+    ``per`` times, a line of each run a launch, at most
+    :func:`line_bwd_resident` blocks a launch and ``LINE_PARTIAL_FLOATS`` of
+    table partials; ``plan`` = ``[groups_r, per_r, groups_c, per_c]``;
+    ``part`` is the float32 buffer of the runs' partials, pass by pass: the
+    table sums ``(groups, heads, L, L)``, the scale sums ``(heads, tiles *
+    groups)`` and, where the kernels normalise q and k (``ln``), the LN sums
+    ``(4 d, kernels * tiles * groups * heads)`` (two kernels for lines longer
+    than a tile).  K8 runs one pass (``passes=1``: ``bt = 1``, its M lines of
+    n tokens as ``h`` and ``w``)."""
+    resident = line_bwd_resident(dev)
+    size, plan = 0, []
+    for length, lines in ((w, bt * h), (h, bt * w))[:passes]:
+        tiles = -(-length // LINE_TILE)
+        most = max(1, LINE_PARTIAL_FLOATS // (heads * length * length))  # groups' tables
+        groups, per = lane_bwd_plan(lines, heads * tiles, min(resident, most * heads * tiles))
+        kernels = 2 if length > LINE_TILE else 1
+        size += groups * heads * (length * length + tiles
+                                  + (kernels * tiles * 4 * d if ln else 0))
+        plan += [groups, per]
+    plan += [0, 0] * (2 - passes)
+    return torch.empty(size, device=dev), plan
+
+
+def line_bwd_resident(dev) -> int:
+    """Blocks a launch of the line kernels' backward may have on card
+    ``dev``: 128 a multiprocessor, so that the runs of lines are short (a
+    line each at FiLMAViT-small's and AViT-big's training shapes, as the
+    kernels of one launch a pass had it) and each launch's last wave leaves
+    little of the card idle: each further launch adds a partly idle wave
+    (planned at 64 a multiprocessor, two launches a pass, the float32 K2
+    backward at AViT-big's shape read 6.8% above the kernels of one launch a
+    pass; NVIDIA H100 80GB HBM3, 700.00 W)."""
+    return 128 * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def lane_bwd_plan(lines: int, heads: int, resident: int) -> tuple:
@@ -343,17 +392,34 @@ def lane_bwd_plan(lines: int, heads: int, resident: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(index: int, head_dim: int, length: int) -> int:
-    """Blocks of K2's bf16 backward kernel for lines of ``length`` tokens
-    that card ``index`` holds at once: its multiprocessors times the blocks
-    one of them holds, as the CUDA runtime reads the kernel's registers,
-    shared memory and block size (C entry ``bf_lane_hopper_bwd_resident``)."""
+def _resident_blocks(index: int, head_dim: int, length: int, mode: int) -> int:
+    """Blocks of the bf16 Hopper backward kernel of ``mode`` (``MODE_LANE``,
+    ``MODE_LANE_PX`` or ``MODE_MEGA``) for lines of ``length`` tokens that
+    card ``index`` holds at once: its multiprocessors times the blocks one of
+    them holds, as the CUDA runtime reads the kernel's registers, shared
+    memory and block size (C entry ``bf_lane_bwd_resident``)."""
     lib = _build.library()
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(index):
-        err = lib.bf_lane_hopper_bwd_resident(head_dim, length, ctypes.byref(per_sm))
-    _build.check(lib, err, "lane_axial_attention_bwd (bf_lane_hopper_bwd_resident)")
+        err = lib.bf_lane_bwd_resident(mode, head_dim, length, ctypes.byref(per_sm))
+    _build.check(lib, err, "bf_lane_bwd_resident")
     return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm.value)
+
+
+def lane_bwd_scratch(bt: int, h: int, w: int, heads: int, d: int, dev, mode: int) -> tuple:
+    """``(part, plan)`` of a bf16 Hopper backward of the lane kernels' family
+    (K2's, K9's and K5's attention, ``csrc/lane_hopper.cuh: carve_partials``):
+    the rows' and the columns' plans (:func:`lane_bwd_plan` over the blocks
+    the kernel of ``mode`` keeps resident), ``plan`` = ``[groups_r, per_r,
+    groups_c, per_c]``, and one float32 buffer of both passes' partials, each
+    pass's table ``(groups, heads, L, L)``, scale ``(heads, groups)`` and LN
+    ``(4, d, groups, heads)`` sums in that order."""
+    size, plan = 0, []
+    for length, lines in ((w, bt * h), (h, bt * w)):
+        groups, per = lane_bwd_plan(lines, heads, _resident_blocks(dev.index, d, length, mode))
+        size += groups * heads * (length * length + 1 + 4 * d)
+        plan += [groups, per]
+    return torch.empty(size, device=dev), plan
 
 
 def lane_hopper_fwd(qkv: torch.Tensor, *params, heads: int) -> torch.Tensor:
@@ -396,22 +462,17 @@ def lane_hopper_bwd(do: torch.Tensor, qkv: torch.Tensor, *params, heads: int) ->
     qkv, do = qkv.contiguous(), do.to(qkv.dtype).contiguous()
     dqkv = torch.empty_like(qkv)
     _build.check_tma(what, qkv=qkv, do=do, dqkv=dqkv)
-    gr, pr = lane_bwd_plan(bt * h, heads, _resident_blocks(dev.index, d, w))
-    gc, pc = lane_bwd_plan(bt * w, heads, _resident_blocks(dev.index, d, h))
+    part, plan = lane_bwd_scratch(bt, h, w, heads, d, dev, MODE_LANE)
     f32 = dict(device=dev, dtype=torch.float32)
-    part_bias = (torch.empty(gr, heads, w, w, **f32), torch.empty(gc, heads, h, h, **f32))
-    part_scale = (torch.empty(gr, heads, **f32), torch.empty(gc, heads, **f32))
-    part_ln = (torch.empty(gr, heads, 4, d, **f32), torch.empty(gc, heads, 4, d, **f32))
     dln = torch.empty(4, d, **f32)
     dbx, dby = torch.empty(heads, w, w, **f32), torch.empty(heads, h, h, **f32)
     dscale = torch.empty(heads, 2, **f32)
     lib = _build.library()
     err = lib.bf_lane_hopper_bwd(
         d, qkv.data_ptr(), do.data_ptr(), p["ln"].data_ptr(), p["bias_x"].data_ptr(),
-        p["bias_y"].data_ptr(), p["scale"].data_ptr(), dqkv.data_ptr(),
-        *(t.data_ptr() for t in (*part_bias, *part_scale, *part_ln)), dln.data_ptr(),
-        dbx.data_ptr(), dby.data_ptr(), dscale.data_ptr(), bt, h, w, c, heads, gr, pr, gc, pc,
-        _build.stream_handle(dev))
+        p["bias_y"].data_ptr(), p["scale"].data_ptr(), dqkv.data_ptr(), part.data_ptr(),
+        dln.data_ptr(), dbx.data_ptr(), dby.data_ptr(), dscale.data_ptr(), bt, h, w, c, heads,
+        *plan, _build.stream_handle(dev))
     _build.check(lib, err, what)
     lane_hopper_bwd.launches += 1
     bias_x, bias_y, scale_x, scale_y = params[4:]
@@ -420,9 +481,18 @@ def lane_hopper_bwd(do: torch.Tensor, qkv: torch.Tensor, *params, heads: int) ->
             None if scale_x is None else dscale[:, 0], None if scale_y is None else dscale[:, 1])
 
 
+def _float32_only(qkv: torch.Tensor, what: str) -> None:
+    """The line kernels' lane flavour is built in float32 alone: bfloat16 K2
+    runs the Hopper kernels (:func:`lane_kernels`)."""
+    if qkv.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 (bfloat16 runs lane_hopper_fwd and "
+                        f"lane_hopper_bwd), not {qkv.dtype}")
+
+
 def lane_line_fwd(qkv: torch.Tensor, *params, heads: int) -> torch.Tensor:
     """K2's float32 forward on the line kernels (lane flavour of
     ``csrc/line_kernels.cuh``); counts ``lane_line_fwd.launches``."""
+    _float32_only(qkv, "lane_line_fwd")
     out = line_attention_fwd_cuda(qkv, *params, heads=heads, fused=False,
                                   what="lane_axial_attention")
     lane_line_fwd.launches += 1
@@ -432,8 +502,9 @@ def lane_line_fwd(qkv: torch.Tensor, *params, heads: int) -> torch.Tensor:
 def lane_line_bwd(do: torch.Tensor, qkv: torch.Tensor, *params, heads: int) -> tuple:
     """K2's float32 backward on the line kernels (per direction one launch
     for lines of at most 64 tokens, two for longer ones; the parameter
-    gradients summed with float32 atomics, whose last bits vary from run to
-    run); counts ``lane_line_bwd.launches``."""
+    gradients from per-block partials added in a fixed order, so they repeat
+    bit for bit); counts ``lane_line_bwd.launches``."""
+    _float32_only(qkv, "lane_line_bwd")
     grads = line_attention_bwd_cuda(do, qkv, *params, heads=heads, fused=False,
                                     what="lane_axial_attention_bwd")
     lane_line_bwd.launches += 1

@@ -26,10 +26,19 @@ backward:
 
 :func:`lane_px_attention` is a ``torch.autograd.Function``: CPU tensors take
 :func:`lane_px_plain` and :func:`lane_px_bwd_plain`, CUDA tensors launch
-``csrc/axial_lane_px.cu`` (``lane_px_attention.launches`` and
-``lane_px_attention_bwd.launches`` count them), any other device raises.
-The kernels take K2's envelope (head dims 16 and 64, lines of at most 512
-tokens) and C a multiple of 32; any other shape raises on the card.
+``csrc/axial_lane_px.cu``'s kernels, chosen by dtype in one place
+(:func:`px_kernels`), any other device raises.  bfloat16 runs on Hopper's
+own units (:func:`px_hopper_fwd`, :func:`px_hopper_bwd`): every product on
+the TMA + wgmma GEMM (``csrc/hopper_gemm.cuh``), the attention on K2's
+tensor-core kernels (``csrc/lane_hopper.cuh``, its backward in the kLanePx
+rounding), dW over both directions in one fixed-order split-K sum and every
+parameter gradient repeating bit for bit; float32 keeps the first chain
+(:func:`px_line_fwd`, :func:`px_line_bwd`: block_gemm.cuh's FMA tile and the
+line kernels).  ``lane_px_attention.launches`` and
+``lane_px_attention_bwd.launches`` count every call on the card, each path's
+functions their own launches.  Both take K2's envelope (head dims 16 and
+64, lines of at most 512 tokens) and C a multiple of 32; any other shape
+raises on the card.
 """
 from __future__ import annotations
 
@@ -42,14 +51,18 @@ from bubbleformer_tpu_torch.layers.norm import accumulation_dtype
 from bubbleformer_tpu_torch.ops.axial_lane import (
     LINE_TILE,
     LineAttention,
+    MODE_LANE_PX,
     axial_attention_plain,
     check_line_shape,
     lane_bwd_directions,
+    lane_bwd_scratch,
+    line_bwd_scratch,
     line_tables,
     project_qkv,
 )
+from bubbleformer_tpu_torch.ops.hopper_gemm import split_k_plan
 
-GEMM_K_CHUNK = 32  # the GEMM tile's K chunk (csrc/block_gemm.cuh kKC): C a multiple of it
+GEMM_K_CHUNK = 32  # the FMA tile's K chunk (csrc/block_gemm.cuh kKC): C a multiple of it
 
 
 def lane_px_plain(
@@ -123,61 +136,14 @@ def _px_params(x, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias_x, bias
     return p
 
 
-def lane_px_fwd_cuda(x: torch.Tensor, *params, heads: int) -> torch.Tensor:
-    """Launch ``bf_axial_lane_px_fwd``: the projection into a qkv scratch,
-    then K2's lane flavour, rows then columns; ``(BT, H, W, C)``."""
-    what = "lane_px_attention"
-    d = _check_shape(what, x, heads)
-    p = _px_params(x, *params, heads, what)
-    bt, h, w, c = x.shape
-    dev, dt = x.device, x.dtype
-    x = x.contiguous()  # held by a name until the launches are queued
-    qkv = torch.empty(bt * h * w, 3 * c, device=dev, dtype=dt)
-    row_out = torch.empty(bt * h * w, c, device=dev)
-    out = torch.empty(bt, h, w, c, device=dev, dtype=dt)
-    lib = _build.library()
-    err = lib.bf_axial_lane_px_fwd(
-        _build.DTYPE_CODES[dt], d, x.data_ptr(), p["wqkv"].data_ptr(), p["bqkv"].data_ptr(),
-        p["ln"].data_ptr(), p["bias_x"].data_ptr(), p["bias_y"].data_ptr(),
-        p["scale"].data_ptr(), qkv.data_ptr(), row_out.data_ptr(), out.data_ptr(), bt, h, w, c,
-        heads, _build.stream_handle(dev),
-    )
-    _build.check(lib, err, f"{what} (bf_axial_lane_px_fwd)")
-    return out
+def _tables(p) -> tuple:
+    return p["bqkv"].data_ptr(), p["ln"].data_ptr(), p["bias_x"].data_ptr(), \
+        p["bias_y"].data_ptr(), p["scale"].data_ptr()
 
 
-def lane_px_bwd_cuda(do: torch.Tensor, x: torch.Tensor, *params, heads: int) -> tuple:
-    """Launch ``bf_axial_lane_px_bwd``: the gradients :func:`lane_px_bwd_plain`
-    returns, None where the argument is absent."""
-    what = "lane_px_attention_bwd"
-    d = _check_shape(what, x, heads)
-    p = _px_params(x, *params, heads, what)
-    bt, h, w, c = x.shape
-    _build.check_shapes(what, do=(do, x.shape))
-    dev, dt = x.device, x.dtype
-    r = bt * h * w
-
-    def zeros(*shape):
-        return torch.zeros(*shape, device=dev)
-
-    grads = dict(dx=torch.empty(bt, h, w, c, device=dev, dtype=dt), dwqkv=zeros(3 * c, c),
-                 dbqkv=zeros(3 * c), dln=zeros(4, d), dbias_x=zeros(heads, w, w),
-                 dbias_y=zeros(heads, h, h), dscale=zeros(heads, 2))
-    x, do = x.contiguous(), do.to(dt).contiguous()  # held until the launches are queued
-    wqkv_t = p["wqkv"].t().contiguous()
-    qkv = torch.empty(r, 3 * c, device=dev, dtype=dt)
-    dqkv = torch.empty(r, 3 * c, device=dev, dtype=dt)
-    stats = torch.empty(bt, heads, h * w, 3, device=dev) if max(h, w) > LINE_TILE else None
-    lib = _build.library()
-    err = lib.bf_axial_lane_px_bwd(
-        _build.DTYPE_CODES[dt], d, x.data_ptr(), do.data_ptr(), p["wqkv"].data_ptr(),
-        wqkv_t.data_ptr(), p["bqkv"].data_ptr(), p["ln"].data_ptr(), p["bias_x"].data_ptr(),
-        p["bias_y"].data_ptr(), p["scale"].data_ptr(), qkv.data_ptr(), dqkv.data_ptr(),
-        None if stats is None else stats.data_ptr(),
-        *(g.data_ptr() for g in grads.values()), bt, h, w, c, heads, _build.stream_handle(dev),
-    )
-    _build.check(lib, err, f"{what} (bf_axial_lane_px_bwd)")
-    g = grads
+def _grads(g: dict, params) -> tuple:
+    """The backward's outputs in the order of :func:`lane_px_bwd_plain`, None
+    where the argument is absent."""
     bias_x, bias_y, scale_x, scale_y = params[-4:]
     return (g["dx"], g["dwqkv"], g["dbqkv"], g["dln"][0], g["dln"][1], g["dln"][2], g["dln"][3],
             None if bias_x is None else g["dbias_x"], None if bias_y is None else g["dbias_y"],
@@ -185,17 +151,155 @@ def lane_px_bwd_cuda(do: torch.Tensor, x: torch.Tensor, *params, heads: int) -> 
             None if scale_y is None else g["dscale"][:, 1])
 
 
+def _param_grads(dev, c: int, d: int, heads: int, h: int, w: int, zero: bool) -> dict:
+    """The float32 parameter gradients' buffers (zeroed where the kernels
+    add into them)."""
+    new = torch.zeros if zero else torch.empty
+    f32 = dict(device=dev, dtype=torch.float32)
+    return dict(dwqkv=new(3 * c, c, **f32), dbqkv=new(3 * c, **f32),
+                dln=torch.empty(4, d, **f32), dbias_x=torch.empty(heads, w, w, **f32),
+                dbias_y=torch.empty(heads, h, h, **f32), dscale=torch.empty(heads, 2, **f32))
+
+
+def px_line_fwd(x: torch.Tensor, *params, heads: int) -> torch.Tensor:
+    """K9's float32 forward (``bf_axial_lane_px_fwd``): the projection on
+    block_gemm.cuh's tile into a qkv scratch, then the line kernels in K2's
+    lane flavour; counts ``px_line_fwd.launches``."""
+    what = "lane_px_attention (bf_axial_lane_px_fwd)"
+    d = _check_shape(what, x, heads)
+    p = _px_params(x, *params, heads, what)
+    bt, h, w, c = x.shape
+    dev = x.device
+    x = x.contiguous()  # held by a name until the launches are queued
+    qkv = torch.empty(bt * h * w, 3 * c, device=dev)
+    row_out = torch.empty(bt * h * w, c, device=dev)
+    out = torch.empty(bt, h, w, c, device=dev)
+    lib = _build.library()
+    err = lib.bf_axial_lane_px_fwd(d, x.data_ptr(), p["wqkv"].data_ptr(), *_tables(p),
+                                   qkv.data_ptr(), row_out.data_ptr(), out.data_ptr(), bt, h, w,
+                                   c, heads, _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    px_line_fwd.launches += 1
+    return out
+
+
+def px_line_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: int) -> tuple:
+    """K9's float32 backward (``bf_axial_lane_px_bwd``): the projection
+    again, then per direction the line kernels' kLanePx backward and its
+    products on block_gemm.cuh's tile (dW and db float32 atomic sums, whose
+    last bits vary from run to run; the table, scale and LN gradients the line
+    kernels' fixed-order sums); counts ``px_line_bwd.launches``."""
+    what = "lane_px_attention_bwd (bf_axial_lane_px_bwd)"
+    d = _check_shape(what, x, heads)
+    p = _px_params(x, *params, heads, what)
+    bt, h, w, c = x.shape
+    _build.check_shapes(what, do=(do, x.shape))
+    dev = x.device
+    r = bt * h * w
+    g = dict(dx=torch.empty(bt, h, w, c, device=dev), **_param_grads(dev, c, d, heads, h, w, True))
+    x, do = x.contiguous(), do.to(x.dtype).contiguous()  # held until the launches are queued
+    wqkv_t = p["wqkv"].t().contiguous()
+    qkv = torch.empty(r, 3 * c, device=dev)
+    dqkv = torch.empty(r, 3 * c, device=dev)
+    stats = torch.empty(bt, heads, h * w, 3, device=dev) if max(h, w) > LINE_TILE else None
+    part, plan = line_bwd_scratch(bt, h, w, heads, d, dev)
+    lib = _build.library()
+    err = lib.bf_axial_lane_px_bwd(
+        d, x.data_ptr(), do.data_ptr(), p["wqkv"].data_ptr(), wqkv_t.data_ptr(), *_tables(p),
+        qkv.data_ptr(), dqkv.data_ptr(), None if stats is None else stats.data_ptr(),
+        part.data_ptr(), *plan, *(t.data_ptr() for t in g.values()), bt, h, w, c, heads,
+        _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    px_line_bwd.launches += 1
+    return _grads(g, params)
+
+
+def px_hopper_fwd(x: torch.Tensor, *params, heads: int) -> torch.Tensor:
+    """K9's bf16 forward (``bf_lane_px_hopper_fwd``): the QKV product on the
+    Hopper GEMM into a bf16 scratch, then K2's Hopper forward; counts
+    ``px_hopper_fwd.launches``."""
+    what = "lane_px_attention (bf_lane_px_hopper_fwd)"
+    d = _check_shape(what, x, heads)
+    p = _px_params(x, *params, heads, what)
+    bt, h, w, c = x.shape
+    dev, dt = x.device, x.dtype
+    x = x.contiguous()  # held by a name until the launches are queued
+    qkv = torch.empty(bt * h * w, 3 * c, device=dev, dtype=dt)
+    row_out = torch.empty(bt * h * w, c, device=dev, dtype=dt)
+    out = torch.empty(bt, h, w, c, device=dev, dtype=dt)
+    _build.check_tma(what, x=x, wqkv=p["wqkv"], qkv=qkv, row_out=row_out, out=out)
+    lib = _build.library()
+    err = lib.bf_lane_px_hopper_fwd(d, x.data_ptr(), p["wqkv"].data_ptr(), *_tables(p),
+                                    qkv.data_ptr(), row_out.data_ptr(), out.data_ptr(), bt, h, w,
+                                    c, heads, _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    px_hopper_fwd.launches += 1
+    return out
+
+
+def px_hopper_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: int) -> tuple:
+    """K9's bf16 backward (``bf_lane_px_hopper_bwd``): the product again, K2's
+    Hopper backward a direction at a time, each direction's dqkv rounded on
+    its own and projected back before the next: dW over both directions'
+    split-K ranges (:func:`~bubbleformer_tpu_torch.ops.hopper_gemm.
+    split_k_plan`) added in one fixed order, db from per-plane sums in a
+    fixed order, dx as two rounded products added in bf16.  Every parameter
+    gradient repeats bit for bit; counts ``px_hopper_bwd.launches``."""
+    what = "lane_px_attention_bwd (bf_lane_px_hopper_bwd)"
+    d = _check_shape(what, x, heads)
+    p = _px_params(x, *params, heads, what)
+    bt, h, w, c = x.shape
+    _build.check_shapes(what, do=(do, x.shape))
+    dev, dt = x.device, x.dtype
+    r = bt * h * w
+    g = dict(dx=torch.empty(bt, h, w, c, device=dev, dtype=dt),
+             **_param_grads(dev, c, d, heads, h, w, False))
+    x, do = x.contiguous(), do.to(dt).contiguous()  # held until the launches are queued
+    wqkv_t = p["wqkv"].t().contiguous()
+    qkv = torch.empty(r, 3 * c, device=dev, dtype=dt)
+    dqkv = torch.empty(r, 3 * c, device=dev, dtype=dt)
+    sums = torch.empty(2, 2 * bt, 3 * c, device=dev)
+    bounds = split_k_plan(r, 3 * c, c)
+    part_w = torch.empty(2 * (len(bounds) - 1) * 3 * c * c, device=dev)
+    _build.check_tma(what, x=x, do=do, wqkv=p["wqkv"], wqkv_t=wqkv_t, qkv=qkv, dqkv=dqkv,
+                     dx=g["dx"])
+    lane_part, plan = lane_bwd_scratch(bt, h, w, heads, d, dev, MODE_LANE_PX)
+    lib = _build.library()
+    err = lib.bf_lane_px_hopper_bwd(
+        d, x.data_ptr(), do.data_ptr(), p["wqkv"].data_ptr(), wqkv_t.data_ptr(), *_tables(p),
+        qkv.data_ptr(), dqkv.data_ptr(), sums.data_ptr(), part_w.data_ptr(),
+        _build.int32_array(bounds), len(bounds) - 1, lane_part.data_ptr(), *plan,
+        *(t.data_ptr() for t in g.values()), bt, h, w, c, heads, _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    px_hopper_bwd.launches += 1
+    return _grads(g, params)
+
+
+px_line_fwd.launches = px_line_bwd.launches = 0
+px_hopper_fwd.launches = px_hopper_bwd.launches = 0
+
+
+def px_kernels(dtype: torch.dtype) -> tuple:
+    """K9's ``(forward, backward)`` kernels on the card for ``dtype``: the
+    Hopper chain for bfloat16, the first chain for float32; any other dtype
+    raises."""
+    if dtype == torch.bfloat16:
+        return px_hopper_fwd, px_hopper_bwd
+    if dtype == torch.float32:
+        return px_line_fwd, px_line_bwd
+    raise TypeError(f"lane_px_attention kernel takes float32 or bfloat16, not {dtype}")
+
+
 def lane_px_attention_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: int) -> tuple:
     """K9's backward: the gradients :func:`lane_px_bwd_plain` returns.  CPU
-    tensors take the plain version; CUDA tensors launch
-    ``bf_axial_lane_px_bwd`` and count ``lane_px_attention_bwd.launches``.  The
-    parameter gradients are float32 atomic sums: their last bits vary from
-    run to run."""
+    tensors take the plain version; CUDA tensors the kernels
+    :func:`px_kernels` picks by dtype, and count
+    ``lane_px_attention_bwd.launches``."""
     if x.device.type == "cpu":
         return lane_px_bwd_plain(do, x, *params, heads=heads)
     if x.device.type != "cuda":
         raise ValueError(f"lane_px_attention_bwd: unsupported device {x.device}")
-    grads = lane_px_bwd_cuda(do, x, *params, heads=heads)
+    grads = px_kernels(x.dtype)[1](do, x, *params, heads=heads)
     lane_px_attention_bwd.launches += 1
     return grads
 
@@ -205,7 +309,7 @@ def _px_fwd(x, *params, heads):
         return lane_px_plain(x, *params, heads=heads)
     if x.device.type != "cuda":
         raise ValueError(f"lane_px_attention: unsupported device {x.device}")
-    out = lane_px_fwd_cuda(x, *params, heads=heads)
+    out = px_kernels(x.dtype)[0](x, *params, heads=heads)
     lane_px_attention.launches += 1
     return out
 

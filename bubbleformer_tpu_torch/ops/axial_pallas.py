@@ -37,7 +37,13 @@ import torch
 
 from bubbleformer_tpu_torch import _build
 from bubbleformer_tpu_torch.layers.norm import accumulation_dtype
-from bubbleformer_tpu_torch.ops.axial_lane import HEAD_DIMS, LINE_TILE, MAX_LINE, LineAttention
+from bubbleformer_tpu_torch.ops.axial_lane import (
+    HEAD_DIMS,
+    LINE_TILE,
+    MAX_LINE,
+    LineAttention,
+    line_bwd_scratch,
+)
 
 
 def pick_flash_group(m: int, n: int, cap: int = 512) -> int:
@@ -160,13 +166,15 @@ def flash_bwd_cuda(do, q, k, v, bias=None, scale_factor=None) -> tuple:
     qkv3, do = torch.stack([q, k, v]).contiguous(), do.to(dt).contiguous()
     dqkv3 = torch.empty(3, heads, m, n, d, device=dev, dtype=dt)
     stats = torch.empty(heads, m, n, 3, device=dev) if n > LINE_TILE else None
-    dbias = torch.zeros(heads, n, n, device=dev)
-    dscale = torch.zeros(heads, 2, device=dev)
+    dbias = torch.empty(heads, n, n, device=dev)
+    dscale = torch.empty(heads, 2, device=dev)
+    part, plan = line_bwd_scratch(1, m, n, heads, d, dev, ln=False, passes=1)
     lib = _build.library()
     err = lib.bf_axial_flash_bwd(
         _build.DTYPE_CODES[dt], d, qkv3.data_ptr(), do.data_ptr(), p["bias"].data_ptr(),
         p["scale"].data_ptr(), dqkv3.data_ptr(), None if stats is None else stats.data_ptr(),
-        dbias.data_ptr(), dscale.data_ptr(), m, n, heads, _build.stream_handle(dev),
+        dbias.data_ptr(), dscale.data_ptr(), part.data_ptr(), *plan[:2], m, n, heads,
+        _build.stream_handle(dev),
     )
     _build.check(lib, err, f"{what} (bf_axial_flash_bwd)")
     return (dqkv3[0], dqkv3[1], dqkv3[2], None if bias is None else dbias,
@@ -191,8 +199,8 @@ def flash_packed_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tenso
     CPU tensors take :func:`flash_bwd_plain`; CUDA tensors launch
     ``csrc/axial_flash.cu``'s backward and count
     ``flash_packed_attention_bwd.launches``.  The bias and scale gradients
-    are float32 atomic sums over the lines: their last bits vary from run to
-    run."""
+    are sums over the lines from per-block partials added in a fixed order:
+    they repeat bit for bit."""
     if q.device.type == "cpu":
         return flash_bwd_plain(do, q, k, v, bias, scale_factor)
     if q.device.type != "cuda":

@@ -66,7 +66,8 @@ paths give it — the rollout's (batch 1) and the training step's:
    product forward, three products backward; bf16 K3 runs its products on
    the Hopper GEMM) and, at the training shape in bf16, each launch's time;
 12. K2 forward and backward at AViT-big's 12 heads, qkv (5, 32, 32, 2304)
-   and (40, 32, 32, 2304), with sdpa over both directions at the second;
+   and (40, 32, 32, 2304), with the plain versions' times and sdpa over both
+   directions at the second;
 13. one float32 AViT-big window on the card (kernels) against the CPU (plain
    versions), all 12 blocks;
 14. a 20-window bfloat16 AViT-big rollout: finite, K3 and K2 forward each
@@ -103,8 +104,11 @@ paths give it — the rollout's (batch 1) and the training step's:
    every gradient against the plain versions (``KERNEL_RTOL``), both times
    (each with cuBLAS's products alone and its per-launch times);
 24. K5 (``mega_axial_block``) likewise at FiLMAViT-small's rollout and
-   training shapes and at AViT-tiny's with ``mega`` (head dim 16), with the
-   time of cuBLAS's two projections alone (a partial yardstick);
+   training shapes and at AViT-tiny's with ``mega`` (head dim 16), bf16 on
+   its Hopper chain (the products on the TMA + wgmma GEMM, the attention on
+   ``csrc/lane_hopper.cuh``), with the time of cuBLAS's products alone (a
+   partial yardstick: the two projections forward, K1's four products
+   backward);
 25. K6 (``fused_axial_attention_packed``) and K7 (``fused_axial_attention``)
    at AViT-small's shapes, forward and every gradient (``LINE_RTOL``);
 26. path C, FiLMAViT-small at 512^2 with ``attn_impl=mega``: one float32
@@ -149,8 +153,10 @@ paths give it — the rollout's (batch 1) and the training step's:
    training shapes, the flow-boiling grid at batch 4 and 8, AViT-tiny at
    512^2), float32 against the plain version in float64 and bfloat16
    against it in bfloat16 (``LINE_RTOL``; the k-LayerNorm bias's gradient
-   in bfloat16 held to the plain version's own noise, as K5's), with both
-   times and that of cuBLAS's QKV product alone (a partial yardstick);
+   in bfloat16 held to the plain version's own noise, as K5's), bf16 on its
+   Hopper chain, with both times and that of cuBLAS's products alone (a
+   partial yardstick: the QKV product forward; the recompute, both
+   directions' dW and dx products backward);
 36. path G, FiLMAViT-small at 512^2 (the default config) with
    ``BUBBLEFORMER_LANE_PROJ=kernel`` (temporal K1, axial K9): one float32
    window card vs CPU, a 20-window bfloat16 rollout (K1 and K9 forward 12 x
@@ -183,11 +189,14 @@ paths give it — the rollout's (batch 1) and the training step's:
    card time in each JSON line, each of the probe's kernels launched and no
    other.
 
-K2's wrappers count every call on the card (``lane_axial_attention``,
-``_bwd``) and each dtype's kernels their own launches (``lane_hopper_fwd``,
-``_bwd`` for bfloat16; ``lane_line_fwd``, ``_bwd`` for float32): every bf16
-rollout and training run holds K2 to the Hopper kernels and every float32
-window and step to the line kernels.  Times are CUDA events around 20 calls
+K2's, K5's and K9's wrappers count every call on the card
+(``lane_axial_attention``, ``mega_axial_block``, ``lane_px_attention`` and
+their ``_bwd``) and each dtype's kernels their own launches (bfloat16:
+``lane_hopper_fwd``, ``mega_hopper_fwd``, ``px_hopper_fwd`` and their
+``_bwd``; float32: ``lane_line_fwd``, ``mega_line_fwd``, ``px_line_fwd``
+and theirs; ``DTYPE_PATHS``): every bf16 rollout and training run holds
+them to the Hopper kernels and every float32 window and step to the first
+chains.  Times are CUDA events around 20 calls
 after half a second of warm-up calls (``WARMUP_S``).
 
 Every training step runs under the models' default remat ``"dots"``
@@ -811,7 +820,14 @@ def dots_step(per_window: dict) -> dict:
 
 def all_counters():
     """Every kernel wrapper's launch counter, by the wrapper's name."""
-    from bubbleformer_tpu_torch.ops.axial_block_mega import mega_axial_block, mega_axial_block_bwd
+    from bubbleformer_tpu_torch.ops.axial_block_mega import (
+        mega_axial_block,
+        mega_axial_block_bwd,
+        mega_hopper_bwd,
+        mega_hopper_fwd,
+        mega_line_bwd,
+        mega_line_fwd,
+    )
     from bubbleformer_tpu_torch.ops.axial_fused import (
         fused_axial_attention,
         fused_axial_attention_bwd,
@@ -832,7 +848,14 @@ def all_counters():
         lane_line_bwd,
         lane_line_fwd,
     )
-    from bubbleformer_tpu_torch.ops.axial_lane_px import lane_px_attention, lane_px_attention_bwd
+    from bubbleformer_tpu_torch.ops.axial_lane_px import (
+        lane_px_attention,
+        lane_px_attention_bwd,
+        px_hopper_bwd,
+        px_hopper_fwd,
+        px_line_bwd,
+        px_line_fwd,
+    )
     from bubbleformer_tpu_torch.ops.temporal_block_mega import (
         core_temporal_attention,
         core_temporal_attention_bwd,
@@ -852,7 +875,9 @@ def all_counters():
             mega_axial_block_bwd, fused_axial_attention_packed, fused_axial_attention_packed_bwd,
             fused_axial_attention, fused_axial_attention_bwd, flash_packed_attention,
             flash_packed_attention_bwd, plane_norms, plane_norms_bwd, lane_px_attention,
-            lane_px_attention_bwd, lane_hopper_fwd, lane_hopper_bwd, lane_line_fwd, lane_line_bwd)
+            lane_px_attention_bwd, lane_hopper_fwd, lane_hopper_bwd, lane_line_fwd, lane_line_bwd,
+            mega_hopper_fwd, mega_hopper_bwd, mega_line_fwd, mega_line_bwd, px_hopper_fwd,
+            px_hopper_bwd, px_line_fwd, px_line_bwd)
 
 
 def probe_counters():
@@ -874,15 +899,24 @@ def read_counters() -> dict:
     return {fn.__name__: fn.launches for fn in all_counters()}
 
 
-def with_lane_paths(per: dict, dtype: str) -> dict:
-    """``per`` with K2's per-path counters: every call of K2's wrappers in
-    ``dtype`` goes to that dtype's kernels (``ops/axial_lane.py:lane_kernels``:
-    bfloat16 the Hopper kernels, float32 the line kernels), the other path's
-    never."""
-    fwd, bwd = (("lane_hopper_fwd", "lane_hopper_bwd") if dtype == "bfloat16"
-                else ("lane_line_fwd", "lane_line_bwd"))
-    return dict(per, **{path: per[name] for path, name in
-                        ((fwd, "lane_axial_attention"), (bwd, "lane_axial_attention_bwd"))
+# The wrappers whose calls on the card go to one chain a dtype (K2:
+# ``ops/axial_lane.py:lane_kernels``, K5: ``ops/axial_block_mega.py:
+# mega_kernels``, K9: ``ops/axial_lane_px.py:px_kernels``): bfloat16 the
+# Hopper kernels, float32 the first chain.
+DTYPE_PATHS = {"lane_axial_attention": ("lane_hopper_fwd", "lane_line_fwd"),
+               "lane_axial_attention_bwd": ("lane_hopper_bwd", "lane_line_bwd"),
+               "mega_axial_block": ("mega_hopper_fwd", "mega_line_fwd"),
+               "mega_axial_block_bwd": ("mega_hopper_bwd", "mega_line_bwd"),
+               "lane_px_attention": ("px_hopper_fwd", "px_line_fwd"),
+               "lane_px_attention_bwd": ("px_hopper_bwd", "px_line_bwd")}
+
+
+def with_dtype_paths(per: dict, dtype: str) -> dict:
+    """``per`` with K2's, K5's and K9's per-path counters: every call of their
+    wrappers in ``dtype`` goes to that dtype's kernels (``DTYPE_PATHS``), the
+    other path's never."""
+    at = 0 if dtype == "bfloat16" else 1
+    return dict(per, **{paths[at]: per[name] for name, paths in DTYPE_PATHS.items()
                         if name in per})
 
 
@@ -917,7 +951,7 @@ def window_phase(label: str, model_cfg, data_cfg, weights, x, dev, per_window: d
         t0 = time.perf_counter()
         y_cpu = cpu(x, *extra)
         t_cpu = time.perf_counter() - t0
-    check_launches(f"{label} window", launches, with_lane_paths(per_window, "float32"), 1)
+    check_launches(f"{label} window", launches, with_dtype_paths(per_window, "float32"), 1)
     if tuple(y_gpu.shape) != tuple(x.shape):
         fail(f"{label} window output shape {tuple(y_gpu.shape)}")
     print(f"  card {t_gpu:.2f} s (first call), CPU {t_cpu:.2f} s; launches {launches}")
@@ -953,7 +987,7 @@ def rollout_phase(label: str, model, init, windows: int, per_window: dict, card:
         fail(f"{label} rollout shape {tuple(preds.shape)}")
     if not torch.isfinite(preds).all():
         fail(f"{label} rollout produced non-finite values")
-    check_launches(f"{label} rollout", launches, with_lane_paths(per_window, "bfloat16"), windows)
+    check_launches(f"{label} rollout", launches, with_dtype_paths(per_window, "bfloat16"), windows)
     frames = windows * init.shape[1] * init.shape[0]
     print(f"  {frames} frames in {seconds:.3f} s: {frames / seconds:.2f} frames/s, "
           f"{1000 * seconds / windows:.2f} ms/window ({card}); launches {launches}", flush=True)
@@ -998,7 +1032,7 @@ def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: d
     print(f"  losses {losses}")
     if len(losses) != steps or not np.all(np.isfinite(losses)):
         fail(f"{label}: expected {steps} finite losses, got {losses}")
-    check_launches(f"{label} Trainer.fit", launches, with_lane_paths(per_step, "bfloat16"), steps)
+    check_launches(f"{label} Trainer.fit", launches, with_dtype_paths(per_step, "bfloat16"), steps)
     unmoved = [(n, p) for n, p in module.model.named_parameters() if torch.equal(before[n], p)]
     stuck = [n for n, p in unmoved if p.grad is not None and bool(p.grad.any())]
     if stuck:
@@ -1111,13 +1145,14 @@ def new_path_phases(repo: Path, dev, card: str, results: dict) -> dict:
 # and head dim 16 (a 64x64 grid, and path E's AViT-tiny training step at
 # 512x2048, 64x256 tokens at batch 4); K4 on path B (FiLMAViT-small's grid at batch 1 and 8,
 # 384^2 px at patch 16, the make-demo grid at head dim 16, batch 2).
-# Cases held in bfloat16 alone, the dtype their path runs there: path E's
-# training step at 512x2048 is bfloat16.  In float32 the line kernels' sum
-# of the k-LN bias gradient (zero up to rounding, ``ZERO_GRADS``) over its
-# 20 x 64 x 256 tokens and 6 heads came out 2.3e-5 of the floor against
-# the float64 reference, above LINE_RTOL's 2e-5 (NVIDIA H100 80GB HBM3,
-# 700.00 W; ROADMAP Queue 3).
-LINE_BF16_ONLY = ("d16_flow",)
+# Cases held in bfloat16 alone: none.  Path E's training step at 512x2048
+# (``d16_flow``) is bfloat16, and is held in float32 too: there the k-LN bias
+# gradient (zero up to rounding, ``ZERO_GRADS``) sums over 20 x 64 x 256
+# tokens and 6 heads; while the line kernels added it with float32 atomics
+# it came out 2.3e-5 of the floor against the float64 reference, above
+# LINE_RTOL's 2e-5, and summed in a fixed order it reads below it (NVIDIA
+# H100 80GB HBM3, 700.00 W; ROADMAP Queue 3).
+LINE_BF16_ONLY = ()
 LINE_SHAPES = {
     "K2 long": {"rollout": (TIME_WINDOW, 32, 128, 1152),
                 "training": (FLOW_TRAIN_BATCH * TIME_WINDOW, 32, 128, 1152),
@@ -1241,11 +1276,16 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
                 extra = (f"; cuBLAS's products alone (partial yardstick) forward {gemm_f:.4f}, "
                          f"backward {gemm_b:.4f} ms")
             if key == "K5":
-                x2 = act.reshape(-1, shape[-1])
+                # K1's products: the two projections forward, dy2, dW_out,
+                # dxn and dW_qkv backward (the qkv residual standing in for
+                # dqkv).
                 w1, w2 = args["wqkv"].to(dt), args["wout"].to(dt)
-                gemm = ref_ms(lambda: (torch.matmul(x2, w1.t()), torch.matmul(x2, w2.t())))
-                results[("K5 gemm", name, where)] = gemm
-                extra = f"; cuBLAS's two projections alone (partial yardstick) {gemm:.4f} ms"
+                gemm_f = k1_gemm_ms(act, w1, w2)
+                gemm_b = k1_gemm_ms(act, w1, w2, do, res[1])
+                results[("K5 gemm", name, where)] = gemm_f
+                results[("K5 bwd gemm", name, where)] = gemm_b
+                extra = (f"; cuBLAS's products alone (partial yardstick) forward {gemm_f:.4f}, "
+                         f"backward {gemm_b:.4f} ms")
             print(f"  {key} {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), "
                   f"backward {ms_b:.4f} ms (plain {plain_b:.4f}){extra}", flush=True)
             results[(key, name, where)] = (err_f, ms_f, plain_f)
@@ -1721,12 +1761,21 @@ def px_kernel_phase(dev, results: dict) -> None:
             plain_b = ref_ms(lambda: k9.lane_px_bwd_plain(do, **args, heads=heads))
             x2, w2 = args["x"].reshape(-1, c), args["wqkv"].to(dt)
             gemm = ref_ms(lambda: torch.matmul(x2, w2.t()))
+            # The backward's products: the recompute, both directions' dW
+            # and dx (two (R, 3C) stand-ins for the directions' dqkv).
+            g_r = torch.matmul(x2, w2.t())
+            g_c = torch.flip(g_r, (0,))
+            gemm_b = ref_ms(lambda: (torch.matmul(x2, w2.t()), torch.matmul(g_r.t(), x2),
+                                     torch.matmul(g_c.t(), x2), torch.matmul(g_r, w2),
+                                     torch.matmul(g_c, w2)))
+            del g_r, g_c
             print(f"  K9 {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), backward "
-                  f"{ms_b:.4f} ms (plain {plain_b:.4f}); cuBLAS QKV product alone (partial "
-                  f"yardstick) {gemm:.4f} ms", flush=True)
+                  f"{ms_b:.4f} ms (plain {plain_b:.4f}); cuBLAS's products alone (partial "
+                  f"yardstick) forward {gemm:.4f}, backward {gemm_b:.4f} ms", flush=True)
             results[("K9", name, where)] = (err_f, ms_f, plain_f)
             results[("K9 bwd", name, where)] = (err_b, ms_b, plain_b)
             results[("K9 gemm", name, where)] = gemm
+            results[("K9 bwd gemm", name, where)] = gemm_b
             del args, do
         del base, do32
 
@@ -2558,9 +2607,12 @@ def main() -> None:
             del got, ref
             ms_f = cuda_ms(lambda: lane_axial_attention(**args, heads=heads_big))
             ms_b = cuda_ms(lambda: lane_axial_attention_bwd(do, *args.values(), heads=heads_big))
-            print(f"  K2 C={c_big} {name} {where}: forward {ms_f:.4f} ms, backward "
-                  f"{ms_b:.4f} ms", flush=True)
+            plain_f = ref_ms(lambda: axial_attention_plain(**args, heads=heads_big))
+            plain_b = ref_ms(lambda: axial_attention_bwd_plain(do, **args, heads=heads_big))
+            print(f"  K2 C={c_big} {name} {where}: forward {ms_f:.4f} ms (plain {plain_f:.4f}), "
+                  f"backward {ms_b:.4f} ms (plain {plain_b:.4f})", flush=True)
             results[("K2 big", name, where)] = (err_f, ms_f, err_b, ms_b)
+            results[("K2 big plain", name, where)] = (plain_f, plain_b)
             if where == "training":
                 results[("K2 big sdpa", name, where)] = lane_sdpa_ms(
                     args["qkv"], args["bias_x"], args["bias_y"], heads_big)
@@ -2648,8 +2700,10 @@ def main() -> None:
             lib = results.get(("K2 big sdpa", dt, where))
             extra = (f"; sdpa over both directions (partial yardstick) {lib[0]:.4f} / "
                      f"{lib[1]:.4f} ms" if lib else "")
+            p_f, p_b = results[("K2 big plain", dt, where)]
             print(f"  lane_axial_attention C={c_big} {where} {shape} {dt}: forward {ms_f:.4f} ms "
-                  f"(bound {b_f:.5f}), backward {ms_b:.4f} ms (bound {b_b:.5f}){extra}")
+                  f"(plain {p_f:.4f}, bound {b_f:.5f}), backward {ms_b:.4f} ms (plain "
+                  f"{p_b:.4f}, bound {b_b:.5f}){extra}")
 
     runs = new_path_phases(repo, dev, card, results)
 
@@ -2766,9 +2820,9 @@ def main() -> None:
         launches_run = run["launches"][counter]
         if launches_run == 0:
             fail(f"{name} was not launched on its path")
-        library = (results.get((key + " gemm", "bfloat16", "training")) if key[:2] in ("K1", "K3")
-                   else k2_sdpa["bwd" if key.endswith("bwd") else "fwd"]
-                   if key[:2] in ("K6", "K7") else None)
+        library = (results.get((key + " gemm", "bfloat16", "training"))
+                   if key[:2] in ("K1", "K3", "K5")
+                   else k2_sdpa["bwd" if key.endswith("bwd") else "fwd"])
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches_run, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2777,10 +2831,8 @@ def main() -> None:
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
-                extra = (f", cuBLAS's two projections alone {results[('K5 gemm', dt, where)]:.4f} "
-                         f"ms" if key == "K5" else
-                         f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
-                         if key[:2] in ("K1", "K3") else "")
+                extra = (f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
+                         if key[:2] in ("K1", "K3", "K5") else "")
                 print(f"  {name} {where} {cases[where]} {dt}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
         print(f"  {name}: launches per training step {launches_run // run['steps']}")
@@ -2855,14 +2907,13 @@ def main() -> None:
         kernels.append({"name": name, "route": "cuda", "source": px_cu, "replaces": replaces,
                         "launches": launches_run, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": results[(key + " gemm", "bfloat16", "training")]})
         for where, shape in PX_SHAPES.items():
             k = key.replace("K9", "K9 d16") if where == "tiny d16" else key
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(k, shape, dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
-                extra = (f", cuBLAS QKV product alone {results[('K9 gemm', dt, where)]:.4f} ms"
-                         if key == "K9" else "")
+                extra = f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
                 print(f"  {name} {where} {shape} {dt}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                       f"bound {b_ms:.5f} ms ({b_by}){extra}")
         print(f"  {name}: launches per rollout window "

@@ -16,8 +16,10 @@ and K3's bf16 chains run their products on the Hopper GEMM,
 ``csrc/hopper_gemm.cuh``; the whole-branch kernels K1 and K3 (in float32)
 and K5 and the in-kernel projection of K9 share their products and
 statistics kernels, ``csrc/block_ops.cuh``; K2's bf16 path runs on its
-Hopper kernels, ``csrc/lane_hopper.cuh``; the line kernels serve K2 in
-float32 and K4-K9; K10 is the loss's plane norms), matrix products (cuBLAS), the
+Hopper kernels, ``csrc/lane_hopper.cuh``, and so do K5's and K9's bf16
+attention, their products on the Hopper GEMM; the line kernels serve K2,
+K5 and K9 in float32 and K4, K6-K8; K10 is the loss's plane norms), matrix
+products (cuBLAS), the
 optimizer's foreach kernels, and the rest (elementwise, reductions,
 copies); and by kernel wrapper (``WRAPPERS``:
 each call of a wrapper is traced as one range, whose device time is that
@@ -70,16 +72,18 @@ from bubbleformer_tpu_torch.training import module_class
 
 # Kernel-name fragments of each part, checked in this order.
 PARTS = (
-    ("K1, K3 bf16 products (Hopper GEMM)", ("hg::gemm_kernel", "splitk_sum_kernel")),
-    ("K1, K3 bf16 attention passes and norm apply", ("temporal_attention", "in_norm_kernel")),
+    ("K1, K3, K5, K9 bf16 products (Hopper GEMM)", ("hg::gemm_kernel", "splitk_sum_kernel")),
+    ("K1, K3 bf16 attention passes; norm apply and plane totals (K1, K5)", (
+        "temporal_attention", "in_norm_kernel", "plane_totals_kernel")),
     ("branch products and norms, backward (K1, K3, K5, K9)", (
         "gemm_nt_kernel", "wgrad_kernel", "plane_sums_kernel", "in_apply_kernel")),
     ("temporal attention backward (K1, K3 float32)", ("attention_bwd_kernel",)),
     ("branch products and norms, forward (K1, K3, K5, K9)", ("norm_proj_kernel",
                                                              "plane_stats_kernel")),
     ("temporal QKV and attention forward (K1, K3 float32)", ("qkv_attention",)),
-    ("K2 bf16 lane kernels (Hopper)", ("lane_fwd_kernel", "lane_bwd_short_kernel",
-                                        "lane_bwd_long_kernel", "lane_param_sum_kernel")),
+    ("K2, K5, K9 bf16 lane kernels (Hopper)", ("lane_fwd_kernel", "lane_bwd_short_kernel",
+                                                "lane_bwd_long_kernel")),
+    ("attention parameter sums, fixed order (K2, K4-K9)", ("param_sum_kernel",)),
     ("line kernels backward (K2 f32, K4-K9)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
     ("line kernels forward (K2 f32, K4-K9)", ("line_fwd_kernel", "line_short_fwd_kernel")),
     ("loss plane norms (K10)", ("norms_partial_kernel", "norms_finish_kernel", "dpred_kernel")),

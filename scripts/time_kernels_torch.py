@@ -18,12 +18,22 @@ AViT-tiny's there at head dim 16, (4, 5, 64, 256, 96), through its autograd
 Function as a training step without remat calls it (the backward alone by
 ``torch.autograd.grad`` on a kept graph); K5 (the mega axial block,
 ``mega_axial_block``) and K9 (the lane route with the projection in the
-kernel, ``lane_px_attention``) at x (40, 32, 32, 384).  Forward and
+kernel, ``lane_px_attention``) at x (40, 32, 32, 384), and at the other
+shapes chip_smoke.py holds them at: K5 at the rollout's (5, 32, 32, 384)
+and AViT-tiny's (40, 64, 64, 96), K9 at the rollout's, the flow-boiling
+grid's at batch 4 and 8, (20, 32, 128, 384) and (40, 32, 128, 384), and
+AViT-tiny's; and the other line-kernel routes at their training steps'
+shapes: K4 (``fused_block_attention``) at qkv (40, 32, 32, 1152), K6 and K7
+(``fused_axial_attention_packed``, ``fused_axial_attention``) at q (40, 32,
+32, 6, 64), K8 (``flash_packed_attention``) at the axial lines (6, 1280,
+32, 64) and the temporal ones (6, 8192, 5, 64).  Forward and
 backward, in bfloat16 and float32, by CUDA events (20 calls after at least
 ``WARMUP_S`` seconds of warm-up calls), from the checkout given by
 ``--repo`` (default: this one), whose kernels it builds first.  Then, in
-bfloat16 at K1's first shape and at K3's AViT-big shape, and K2's at
-FiLMAViT-small's and the flow-boiling grid's at batch 4, the device time of each kernel one forward and one
+bfloat16 at K1's first shape and at K3's AViT-big shape, K2's at
+FiLMAViT-small's and the flow-boiling grid's at batch 4, K5's and K9's at x
+(40, 32, 32, 384), and in float32 K4's and K8's temporal backward, the
+device time of each kernel one forward and one
 backward launch, by ``torch.profiler`` (the mean of 5 traced calls; names
 shortened), which reads any checkout alike.  Comparing two versions of the
 kernels takes two processes on one card, one per checkout, in turns:
@@ -31,7 +41,8 @@ kernels takes two processes on one card, one per checkout, in turns:
     python3 scripts/time_kernels_torch.py --repo build/parent --label parent
     python3 scripts/time_kernels_torch.py --label change
 
-``--only K2`` times only the entries whose key starts with a given prefix.
+``--only K2`` times only the entries whose key starts with a given prefix
+(``--only K5`` and ``--only K9`` time K5 and K9 at all their shapes).
 Prints one JSON line with the card's name and power limit.  Needs a CUDA
 card.
 """
@@ -68,6 +79,10 @@ def main(argv=None) -> None:
         sys.exit("time_kernels_torch.py needs a CUDA card")
     from bubbleformer_tpu_torch import _build
     from bubbleformer_tpu_torch.ops import axial_block_mega as k5
+    from bubbleformer_tpu_torch.ops import axial_fused as k7
+    from bubbleformer_tpu_torch.ops import axial_fused_block as k4
+    from bubbleformer_tpu_torch.ops import axial_fused_packed as k6
+    from bubbleformer_tpu_torch.ops import axial_pallas as k8
     from bubbleformer_tpu_torch.ops import axial_lane as k2
     from bubbleformer_tpu_torch.ops import axial_lane_px as k9
     from bubbleformer_tpu_torch.ops import temporal_block_mega as k1
@@ -110,6 +125,13 @@ def main(argv=None) -> None:
     def wanted(key):
         return key.startswith(args.only)
 
+    def k9_args(shape, h):
+        """K9's arguments after x of (BT, H, W, C)."""
+        cc, hh, ww = shape[-1], shape[1], shape[2]
+        return [n(3 * cc, cc, scale=cc**-0.5), n(3 * cc, scale=0.1), *ln(cc // h),
+                n(h, ww, ww), n(h, hh, hh), n(h, scale=0.2, offset=1.0),
+                n(h, scale=0.2, offset=1.0)]
+
     def ms(fn):
         for _ in range(3):
             fn()
@@ -131,7 +153,11 @@ def main(argv=None) -> None:
                        k1.mega_temporal_block_bwd),
                 "K1 d16": ((8, t, 64, 64, 96), 6, k1.mega_temporal_block_fwd,
                            k1.mega_temporal_block_bwd),
-                "K5": ((40, 32, 32, c), 6, k5.mega_axial_block_fwd, k5.mega_axial_block_bwd)}
+                "K5": ((40, 32, 32, c), 6, k5.mega_axial_block_fwd, k5.mega_axial_block_bwd),
+                "K5 rollout": ((5, 32, 32, c), 6, k5.mega_axial_block_fwd,
+                               k5.mega_axial_block_bwd),
+                "K5 d16": ((40, 64, 64, 96), 6, k5.mega_axial_block_fwd,
+                           k5.mega_axial_block_bwd)}
     for key, (shape, h, fwd, bwd) in branches.items():
         if not wanted(key):
             continue
@@ -157,6 +183,49 @@ def main(argv=None) -> None:
             out[f"K9 {name}"] = ms(lambda: k9.lane_px_attention(x9, *k9_params, heads=heads))
             out[f"K9 bwd {name}"] = ms(lambda: k9.lane_px_attention_bwd(do2, x9, *k9_params,
                                                                         heads=heads))
+    # K9 at the other paths' shapes: x (BT, H, W, C), 6 heads.
+    k9_cases = {"rollout": (5, 32, 32, c), "flow_b4": (20, 32, 128, c),
+                "flow_b8": (40, 32, 128, c), "d16": (40, 64, 64, 96)}
+    for case, shape in k9_cases.items() if wanted("K9") else ():
+        p9 = k9_args(shape, heads)
+        x32, do32 = n(*shape), n(*shape)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            x9, do9 = x32.to(dt), do32.to(dt)
+            out[f"K9 {case} {name}"] = ms(lambda: k9.lane_px_attention(x9, *p9, heads=heads))
+            out[f"K9 bwd {case} {name}"] = ms(lambda: k9.lane_px_attention_bwd(do9, x9, *p9,
+                                                                               heads=heads))
+            del x9, do9
+        del x32, do32
+    # K4, K6, K7 and K8 (the line kernels' other flavours).
+    tables = [n(heads, 32, 32), n(heads, 32, 32), n(heads, scale=0.2, offset=1.0),
+              n(heads, scale=0.2, offset=1.0)]
+    line_cases = {"K4": (k4.fused_block_attention, k4.fused_block_attention_bwd,
+                         [(40, 32, 32, 3 * c)], [*ln(d), *tables], (40, 32, 32, c), True),
+                  "K6": (k6.fused_axial_attention_packed, k6.fused_axial_attention_packed_bwd,
+                         [(40, 32, 32, heads, d)] * 3, tables, (40, 32, 32, heads, d), False),
+                  "K7": (k7.fused_axial_attention, k7.fused_axial_attention_bwd,
+                         [(40, 32, 32, heads, d)] * 3, tables, (40, 32, 32, heads, d), False),
+                  "K8 axial": (k8.flash_packed_attention, k8.flash_packed_attention_bwd,
+                               [(heads, 1280, 32, d)] * 3,
+                               [n(heads, 32, 32), n(heads, scale=0.2, offset=1.0)],
+                               (heads, 1280, 32, d), False),
+                  "K8 temporal": (k8.flash_packed_attention, k8.flash_packed_attention_bwd,
+                                  [(heads, 8192, t, d)] * 3,
+                                  [n(heads, t, t), n(heads, scale=0.2, offset=1.0)],
+                                  (heads, 8192, t, d), False)}
+    for key, (fwd, bwd, shapes, rest, out_shape, with_heads) in line_cases.items():
+        if not wanted(key):
+            continue
+        acts32, do32 = [n(*sh) for sh in shapes], n(*out_shape)
+        kw = {"heads": heads} if with_heads else {}
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            acts, dol = [a.to(dt) for a in acts32], do32.to(dt)
+            out[f"{key} {name}"] = ms(lambda: fwd(*acts, *rest, **kw))
+            out[f"{key} bwd {name}"] = ms(lambda: bwd(dol, *acts, *rest, **kw))
+            del acts, dol
+        del acts32, do32
     # K2 at the other paths' shapes: qkv (BT, H, W, 3C) and heads.
     k2_cases = {"avit_big": ((40, 32, 32, 2304), 12), "flow_b4": ((20, 32, 128, 1152), 6),
                 "flow_b8": ((40, 32, 128, 1152), 6), "d16": ((20, 64, 256, 288), 6),
@@ -223,6 +292,25 @@ def main(argv=None) -> None:
         "K2 flow_b4 bfloat16 fwd": lambda: k2.lane_axial_attention(qkv_f, *p_f, heads=heads),
         "K2 flow_b4 bfloat16 bwd": lambda: k2.lane_axial_attention_bwd(do_f, qkv_f, *p_f,
                                                                        heads=heads)})
+    x5, p5 = branch(branches["K5"][0], 6)
+    x5, do5 = x5.to(torch.bfloat16), n(*x5.shape).to(torch.bfloat16)
+    _, res5 = k5.mega_axial_block_fwd(x5, *p5, heads=6)
+    x9, do9 = k9_x.to(torch.bfloat16), n(*k9_x.shape).to(torch.bfloat16)
+    calls.update({
+        "K5 bfloat16 fwd": lambda: k5.mega_axial_block_fwd(x5, *p5, heads=6),
+        "K5 bfloat16 bwd": lambda: k5.mega_axial_block_bwd(do5, x5, *p5, heads=6,
+                                                           residuals=res5),
+        "K9 bfloat16 fwd": lambda: k9.lane_px_attention(x9, *k9_params, heads=heads),
+        "K9 bfloat16 bwd": lambda: k9.lane_px_attention_bwd(do9, x9, *k9_params, heads=heads)})
+    # The line kernels' float32 backward (K4 and K8's temporal lines at their
+    # training shapes).
+    fwd4, bwd4, shapes4, rest4, out4, _ = line_cases["K4"]
+    acts4, do4 = [n(*sh) for sh in shapes4], n(*out4)
+    fwd8, bwd8, shapes8, rest8, out8, _ = line_cases["K8 temporal"]
+    acts8, do8 = [n(*sh) for sh in shapes8], n(*out8)
+    calls.update({
+        "K4 float32 bwd": lambda: bwd4(do4, *acts4, *rest4, heads=heads),
+        "K8 temporal float32 bwd": lambda: bwd8(do8, *acts8, *rest8)})
     for what, fn in calls.items():
         if not wanted(what):
             continue

@@ -49,6 +49,11 @@ from bubbleformer_tpu_torch.ops.axial_block_mega import (
     mega_axial_block_fwd,
     mega_axial_bwd_plain,
     mega_axial_plain,
+    mega_hopper_bwd,
+    mega_hopper_fwd,
+    mega_kernels,
+    mega_line_bwd,
+    mega_line_fwd,
 )
 from bubbleformer_tpu_torch.ops.axial_fused import (
     fused_axial_attention,
@@ -86,6 +91,11 @@ from bubbleformer_tpu_torch.ops.axial_lane_px import (
     lane_px_attention_bwd,
     lane_px_bwd_plain,
     lane_px_plain,
+    px_hopper_bwd,
+    px_hopper_fwd,
+    px_kernels,
+    px_line_bwd,
+    px_line_fwd,
 )
 from bubbleformer_tpu_torch.ops.axial_pallas import (
     flash_bwd_plain,
@@ -494,6 +504,19 @@ def test_k2_kernels_are_chosen_by_dtype():
         lane_kernels(torch.float16)
 
 
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_k2_line_kernels_take_float32_alone(kernel):
+    """The line kernels' lane flavour is built in float32 alone: a bfloat16
+    call raises before it reaches a card, naming the Hopper kernels."""
+    args = _k2_args(1, 4, 4, 32, 2, 21, dtype=torch.bfloat16)
+    qkv, params = args.pop("qkv"), tuple(args.values())
+    with pytest.raises(TypeError, match="lane_hopper"):
+        if kernel == "fwd":
+            lane_line_fwd(qkv, *params, heads=2)
+        else:
+            lane_line_bwd(torch.zeros(1, 4, 4, 32, dtype=torch.bfloat16), qkv, *params, heads=2)
+
+
 # (lines of a direction, heads, blocks resident on the card): FiLMAViT-small's
 # rows (and columns) at the training and rollout batch, AViT-big's 12 heads,
 # the flow-boiling grid's rows of 128 and columns of 32 at batch 4,
@@ -669,11 +692,28 @@ def test_new_wrappers_raise_on_other_devices():
 
 
 # K5 on path C (FiLMAViT-small's grid at batch 1 and 8), at head dim 16
-# (AViT-tiny's 512x512 grid), on the 32x128 flow-boiling grid (rows of 128)
-# and a small ragged one.
+# (AViT-tiny's 512x512 grid, at batch 8 as chip_smoke.py's BRANCH_SHAPES and
+# a smaller one), on the 32x128 flow-boiling grid (rows of 128), lines of
+# 512 both ways (the bf16 attention's long-line backward) and a small ragged
+# grid.
 K5_CASES = [((5, 32, 32), 384, 6), ((40, 32, 32), 384, 6), ((8, 64, 64), 96, 6),
-            ((2, 32, 128), 384, 6), ((2, 12, 72), 128, 2)]
-K5_IDS = ["slice", "training", "d16", "flow", "ragged"]
+            ((40, 64, 64), 96, 6), ((2, 32, 128), 384, 6), ((1, 16, 512), 384, 6),
+            ((1, 512, 16), 384, 6), ((2, 12, 72), 128, 2)]
+K5_IDS = ["slice", "training", "d16", "d16_training", "flow", "rows_512", "cols_512", "ragged"]
+
+
+def _k5_k9_counts():
+    return (mega_hopper_fwd.launches, mega_hopper_bwd.launches, mega_line_fwd.launches,
+            mega_line_bwd.launches, px_hopper_fwd.launches, px_hopper_bwd.launches,
+            px_line_fwd.launches, px_line_bwd.launches)
+
+
+def _path_step(kernel, dtype):
+    """The counters a K5 or K9 forward and backward on the card moves: its
+    dtype's chain (``_k5_k9_counts`` order), once each."""
+    at = {("k5", torch.bfloat16): 0, ("k5", torch.float32): 2, ("k9", torch.bfloat16): 4,
+          ("k9", torch.float32): 6}[kernel, dtype]
+    return tuple(1 if i in (at, at + 1) else 0 for i in range(8))
 
 
 @pytest.mark.cuda
@@ -688,10 +728,12 @@ def test_k5_kernels_match_plain_on_card(cuda_device, grid, c, heads, dtype):
     do = torch.randn(*grid, c, generator=torch.Generator().manual_seed(22)).to(cuda_device, dtype)
     params = list(args.values())[1:]
     before = (mega_axial_block.launches, mega_axial_block_bwd.launches)
+    paths = _k5_k9_counts()
     got, residuals = mega_axial_block_fwd(args["x"], *params, heads=heads)
     grads = mega_axial_block_bwd(do, args["x"], *params, heads=heads, residuals=residuals)
     assert (mega_axial_block.launches, mega_axial_block_bwd.launches) == (before[0] + 1,
                                                                            before[1] + 1)
+    assert _k5_k9_counts() == tuple(a + b for a, b in zip(paths, _path_step("k5", dtype)))
     assert got.dtype == dtype and grads[0].dtype == dtype
     _close(got, mega_axial_plain(**args, heads=heads), dtype)
     want = mega_axial_bwd_plain(do, **args, heads=heads)
@@ -978,8 +1020,9 @@ def test_k9_wrappers_take_plain_versions_on_cpu():
 # flow-boiling 32x128 grid at batch 4, AViT-tiny's 64x64 grid at 512x512
 # (6 heads of 16), and a small one.
 K9_CASES = [((5, 32, 32, 384), 6), ((40, 32, 32, 384), 6), ((20, 32, 128, 384), 6),
-            ((40, 64, 64, 96), 6), ((2, 8, 16, 64), 4)]
-K9_IDS = ["slice", "training", "flow_b4", "tiny_d16", "small"]
+            ((40, 32, 128, 384), 6), ((40, 64, 64, 96), 6), ((1, 16, 512, 384), 6),
+            ((2, 8, 16, 64), 4)]
+K9_IDS = ["slice", "training", "flow_b4", "flow_b8", "tiny_d16", "rows_512", "small"]
 # chip_smoke.py's LINE_RTOL: float32 against the plain version in float64
 # (the kernels' own float32 error), bfloat16 against the plain version in
 # bfloat16, the same rounding points.  In bfloat16 the card's and the plain
@@ -1002,10 +1045,12 @@ def test_k9_kernels_match_plain_on_card(cuda_device, shape, heads, dtype):
     ref_args, ref_do = ((args, do) if dtype == torch.bfloat16 else
                         ({k: v.double() for k, v in args.items()}, do.double()))
     before = (lane_px_attention.launches, lane_px_attention_bwd.launches)
+    paths = _k5_k9_counts()
     got = lane_px_attention(**args, heads=heads)
     grads = lane_px_attention_bwd(do, *args.values(), heads=heads)
     assert (lane_px_attention.launches, lane_px_attention_bwd.launches) == (
         before[0] + 1, before[1] + 1)
+    assert _k5_k9_counts() == tuple(a + b for a, b in zip(paths, _path_step("k9", dtype)))
     assert got.dtype == dtype and grads[0].dtype == dtype and grads[1].dtype == torch.float32
     want = lane_px_plain(**ref_args, heads=heads)
     torch.cuda.synchronize()
@@ -1048,6 +1093,138 @@ def test_k9_raises_outside_its_envelope_on_card(cuda_device):
         args = _px_args(shape, heads, 55, device=cuda_device)
         with pytest.raises(ValueError, match=re.escape(str(tuple(shape)))):
             lane_px_attention(**args, heads=heads)
+
+
+@pytest.mark.parametrize("chooser,hopper,line", [
+    (mega_kernels, (mega_hopper_fwd, mega_hopper_bwd), (mega_line_fwd, mega_line_bwd)),
+    (px_kernels, (px_hopper_fwd, px_hopper_bwd), (px_line_fwd, px_line_bwd)),
+], ids=["k5", "k9"])
+def test_k5_k9_kernels_are_chosen_by_dtype(chooser, hopper, line):
+    """bfloat16 takes the Hopper chain, float32 the first chain; any other
+    dtype has no kernel."""
+    assert chooser(torch.bfloat16) == hopper
+    assert chooser(torch.float32) == line
+    with pytest.raises(TypeError, match="float16"):
+        chooser(torch.float16)
+
+
+def _misaligned(shape, dtype=torch.bfloat16):
+    """A contiguous tensor of ``shape`` one element into its storage: no TMA
+    source."""
+    return torch.zeros(1 + int(np.prod(shape)), dtype=dtype)[1:].view(shape)
+
+
+def _mega_residuals(bt, h, w, c):
+    r = bt * h * w
+    return (torch.zeros(2, bt, c), torch.zeros(r, 3 * c, dtype=torch.bfloat16),
+            torch.zeros(r, c, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("case,name", [("k5_fwd", "x"), ("k5_bwd", "do"), ("k9_fwd", "wqkv"),
+                                       ("k9_bwd", "do")])
+def test_k5_k9_hopper_chains_name_a_misaligned_view(case, name):
+    """A bf16 operand one element into its storage cannot be a TMA source:
+    K5's and K9's Hopper chains raise, naming it, before anything reaches the
+    card (the check runs on the host, here on CPU tensors)."""
+    shape, heads = (2, 8, 16, 64), 4
+    if case.startswith("k5"):
+        args = _k5_args(*shape[:3], 64, heads, 70, torch.bfloat16)
+        params = list(args.values())[1:]
+        if case == "k5_fwd":
+            call = lambda: mega_hopper_fwd(_misaligned(shape), *params, heads=heads)  # noqa: E731
+        else:
+            call = lambda: mega_hopper_bwd(_misaligned(shape), args["x"], *params,  # noqa: E731
+                                           heads=heads, residuals=_mega_residuals(2, 8, 16, 64))
+    else:
+        args = _px_args(shape, heads, 71, torch.bfloat16)
+        params = list(args.values())[1:]
+        if case == "k9_fwd":
+            wqkv = _misaligned((3 * 64, 64))
+            call = lambda: px_hopper_fwd(args["x"], wqkv, *params[1:], heads=heads)  # noqa: E731
+        else:
+            call = lambda: px_hopper_bwd(_misaligned(shape), args["x"], *params,  # noqa: E731
+                                         heads=heads)
+    counts = _k5_k9_counts()
+    with pytest.raises(ValueError, match=f": {name} starts at .* not 16-byte aligned"):
+        call()
+    assert _k5_k9_counts() == counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,dtype", [("k5", torch.float32), ("k9", torch.float32)],
+                         ids=["k5_f32", "k9_f32"])
+def test_k5_k9_float32_take_the_first_chains_on_card(cuda_device, kernel, dtype):
+    """float32 stays on the first chains (block_gemm.cuh's tile and the line
+    kernels): their counters move, the Hopper chains' do not."""
+    shape, heads = (2, 8, 16, 64), 4
+    before = _k5_k9_counts()
+    if kernel == "k5":
+        args = _k5_args(*shape[:3], 64, heads, 72, dtype, cuda_device)
+        params = list(args.values())[1:]
+        _, res = mega_axial_block_fwd(args["x"], *params, heads=heads)
+        mega_axial_block_bwd(torch.ones_like(args["x"]), args["x"], *params, heads=heads,
+                             residuals=res)
+    else:
+        args = _px_args(shape, heads, 73, dtype, cuda_device)
+        lane_px_attention(**args, heads=heads)
+        lane_px_attention_bwd(torch.ones_like(args["x"]), *args.values(), heads=heads)
+    torch.cuda.synchronize()
+    assert _k5_k9_counts() == tuple(a + b for a, b in zip(before, _path_step(kernel, dtype)))
+
+
+def _repeat_case(kernel, device):
+    """(backward call, argument names, the indices of its parameter
+    gradients) of a kernel at its path's training shape."""
+    if kernel in ("k5", "k9"):
+        dtype = torch.bfloat16
+    else:
+        dtype = torch.float32
+    if kernel == "k5":
+        args = _k5_args(40, 32, 32, 384, 6, 74, dtype, device)
+        params = list(args.values())[1:]
+        _, res = mega_axial_block_fwd(args["x"], *params, heads=6)
+        do = _bf16(args["x"].shape, 75, device)
+        return (lambda: mega_axial_block_bwd(do, args["x"], *params, heads=6, residuals=res),
+                list(args), range(1, len(args)))
+    if kernel == "k9":
+        args = _px_args((40, 32, 32, 384), 6, 76, dtype, device)
+        do = _bf16(args["x"].shape, 77, device)
+        return (lambda: lane_px_attention_bwd(do, *args.values(), heads=6), list(args),
+                range(1, len(args)))
+    if kernel in ("k2", "k4"):
+        grid, c = ((20, 64, 256), 96) if kernel == "k2" else ((40, 32, 32), 384)
+        args = _k2_args(*grid, c, 6, 78, dtype, device)
+        do = torch.randn(*grid, c, generator=torch.Generator().manual_seed(79)).to(device)
+        bwd = lane_axial_attention_bwd if kernel == "k2" else fused_block_attention_bwd
+        return (lambda: bwd(do, *args.values(), heads=6), list(args), range(1, len(args)))
+    if kernel in ("k6", "k7"):
+        args = _split_args(40, 32, 32, 6, 64, 80, dtype, device)
+        do = torch.randn(40, 32, 32, 6, 64, generator=torch.Generator().manual_seed(81))
+        do = do.to(device)
+        bwd = fused_axial_attention_packed_bwd if kernel == "k6" else fused_axial_attention_bwd
+        return lambda: bwd(do, *args.values()), list(args), range(3, len(args))
+    args = _flash_args((6, 1280, 32, 64), 82, dtype, device)
+    do = torch.randn(6, 1280, 32, 64, generator=torch.Generator().manual_seed(83)).to(device)
+    return lambda: flash_packed_attention_bwd(do, *args.values()), list(args), range(3, len(args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["k5", "k9", "k2", "k4", "k6", "k7", "k8"],
+                         ids=["k5_bf16", "k9_bf16", "k2_f32_d16_flow", "k4_f32", "k6_f32",
+                              "k7_f32", "k8_f32"])
+def test_parameter_gradients_repeat_bit_for_bit_on_card(cuda_device, kernel):
+    """K5's and K9's bf16 parameter gradients (split-K weight gradients,
+    per-plane bias and InstanceNorm sums, per-block table, scale and LN
+    partials, each added in a fixed order) and the line kernels' float32
+    table, scale and LN gradients (K2 at AViT-tiny's 512x2048 training grid,
+    K4, K6, K7, K8) give the same bits over two calls."""
+    call, names, which = _repeat_case(kernel, cuda_device)
+    first = [None if g is None else g.clone() for g in call()]
+    second = call()
+    torch.cuda.synchronize()
+    for i in which:
+        if first[i] is not None:
+            assert torch.equal(first[i], second[i]), names[i]
 
 
 # ------------------------------------------------------ the probes (P1-P4)
