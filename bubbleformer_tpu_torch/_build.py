@@ -85,6 +85,20 @@ _SIGNATURES = {
     # dtype, head_dim, qkv3, dout, bias, scale, dqkv3, stats, dbias, dscale,
     # part, groups, per, M, n, heads, stream
     "bf_axial_flash_bwd": [_I] * 2 + [_P] * 9 + [_I] * 5 + [_P],
+    # head_dim, q, k, v, bias, scale, out, M, n, heads, stream (bf16)
+    "bf_flash_hopper_fwd": [_I] + [_P] * 6 + [_I] * 3 + [_P],
+    # head_dim, q, k, v, dout, bias, scale, dq, dk, dv, part, dbias, dscale,
+    # groups, per, M, n, heads, stream (bf16)
+    "bf_flash_hopper_bwd": [_I] + [_P] * 12 + [_I] * 5 + [_P],
+    # head_dim, n, blocks (int out)
+    "bf_flash_hopper_resident": [_I, _I, _IP],
+    # head_dim, qkv, ln, bias_x, bias_y, scale, half, out, BT, H, W, C, heads,
+    # stream (bf16)
+    "bf_fused_block_hopper_fwd": [_I] + [_P] * 7 + [_I] * 5 + [_P],
+    # head_dim, qkv, dout, ln, bias_x, bias_y, scale, dqkv, dacc, lane_part,
+    # dln, dbias_x, dbias_y, dscale, BT, H, W, C, heads, groups_r, per_r,
+    # groups_c, per_c, stream (bf16)
+    "bf_fused_block_hopper_bwd": [_I] + [_P] * 13 + [_I] * 9 + [_P],
     # n
     "bf_lp_norm_splits": [_I],
     # p_dtype, t_dtype, pred, tgt, partial, out, m, n, stream

@@ -1,8 +1,9 @@
-// K2 and K4: the axial row + column attention core from the interleaved QKV
-// tensor, forward and backward, hand-written for Hopper (sm_90a): the line
-// kernels of line_kernels.cuh in their lane (K2, float32 only: bf16 K2 runs
-// on lane_hopper.cuh, axial_lane_hopper.cu) and fused_block (K4, both
-// dtypes) flavours, head dims 16 and 64.
+// K2 and K4 in float32: the axial row + column attention core from the
+// interleaved QKV tensor, forward and backward, hand-written for Hopper
+// (sm_90a): the line kernels of line_kernels.cuh in their lane (K2) and
+// fused_block (K4) flavours, head dims 16 and 64.  Both run in bf16 on
+// lane_hopper.cuh (axial_lane_hopper.cu), so the line kernels are built in
+// float32 alone.
 //
 // Replaces bubbleformer_tpu/ops/axial_lane.py:_fwd_kernel and _bwd_kernel
 // (built by _make_lane_axial, entry lane_axial_attention_from_x) and
@@ -18,32 +19,32 @@
 namespace bft {
 namespace {
 
-// The flavour's kernels at the head dim: fused_block in either dtype, lane
-// in float32 alone (no route launches it in bf16).
+// The flavour's kernels at the head dim, in float32 alone (no route
+// launches them in bf16).
 template <typename T>
 int axial_fwd(int head_dim, int fused, const AxialArgs& a) {
-  if (!fused) {
-    if constexpr (std::is_same_v<T, float>) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (!fused) {
       return head_dim == 64 ? line_attention_fwd<T, 64, Flavour::kLane>(a)
                             : line_attention_fwd<T, 16, Flavour::kLane>(a);
     }
-    return cudaErrorInvalidValue;
+    return head_dim == 64 ? line_attention_fwd<T, 64, Flavour::kFusedBlock>(a)
+                          : line_attention_fwd<T, 16, Flavour::kFusedBlock>(a);
   }
-  return head_dim == 64 ? line_attention_fwd<T, 64, Flavour::kFusedBlock>(a)
-                        : line_attention_fwd<T, 16, Flavour::kFusedBlock>(a);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
 int axial_bwd(int head_dim, int fused, const AxialArgs& a) {
-  if (!fused) {
-    if constexpr (std::is_same_v<T, float>) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (!fused) {
       return head_dim == 64 ? line_attention_bwd<T, 64, Flavour::kLane>(a)
                             : line_attention_bwd<T, 16, Flavour::kLane>(a);
     }
-    return cudaErrorInvalidValue;
+    return head_dim == 64 ? line_attention_bwd<T, 64, Flavour::kFusedBlock>(a)
+                          : line_attention_bwd<T, 16, Flavour::kFusedBlock>(a);
   }
-  return head_dim == 64 ? line_attention_bwd<T, 64, Flavour::kFusedBlock>(a)
-                        : line_attention_bwd<T, 16, Flavour::kFusedBlock>(a);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -52,9 +53,9 @@ int axial_bwd(int head_dim, int fused, const AxialArgs& a) {
 // qkv: (BT, H, W, 3C) in dtype, heads-major [q|k|v] columns; ln (4, head_dim)
 // = q scale, q bias, k scale, k bias; bias_x (heads, W, W), bias_y (heads, H,
 // H); scale (heads, 2) = [s_x, s_y]; row_out (BT, H, W, C) float32 scratch;
-// out (BT, H, W, C) in dtype.  fused: 0 the lane flavour (K2, float32
-// only), 1 the fused_block flavour (K4).  head_dim 16 or 64, H and W at
-// most 512.
+// out (BT, H, W, C) in dtype.  fused: 0 the lane flavour (K2), 1 the
+// fused_block flavour (K4); dtype float32 (bf16 returns an error: both run
+// in bf16 on lane_hopper.cuh).  head_dim 16 or 64, H and W at most 512.
 // Returns a cudaError_t.
 extern "C" int bf_axial_attention_fwd(int dtype, int head_dim, int fused, const void* qkv,
                                       const float* ln, const float* bias_x, const float* bias_y,

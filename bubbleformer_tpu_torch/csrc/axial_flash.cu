@@ -1,7 +1,10 @@
 // K8: attention over M independent short lines per head with a bias table
 // and the attn_scale blend, forward and backward, hand-written for Hopper
 // (sm_90a): the line kernels of line_kernels.cuh in their kFlash flavour,
-// head dims 16 and 64, lines of up to 512 tokens.
+// head dims 16 and 64, lines of up to 512 tokens.  They run K8 in float32;
+// in bf16 the forward and most backward calls run on flash_hopper.cuh
+// (axial_flash_hopper.cu), and this bf16 backward takes the lines it does
+// not stage (head dim 64, more than 256 tokens).
 //
 // Replaces bubbleformer_tpu/ops/axial_pallas.py:_fwd_kernel and _bwd_kernel
 // (built by _make_flash, custom VJP :195-208, entry flash_packed_attention),

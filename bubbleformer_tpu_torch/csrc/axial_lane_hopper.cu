@@ -1,4 +1,5 @@
-// K2 in bfloat16 on Hopper: the C entries of lane_hopper.cuh's kernels.
+// K2 and K4 in bfloat16 on Hopper: the C entries of lane_hopper.cuh's
+// kernels in K2's rounding (Mode::kLane) and in K4's (Mode::kFusedBlock).
 //
 // Replaces bubbleformer_tpu/ops/axial_lane.py:_make_lane_axial (_fwd_kernel
 // :236, _bwd_kernel :370; entry lane_axial_attention_from_x :852) for bf16
@@ -91,11 +92,86 @@ int bft::lane::resident_lane(int head_dim, int L, int* blocks) {
   return bwd_resident<Mode::kLane>(head_dim, L, blocks);
 }
 
+// K4 (replaces bubbleformer_tpu/ops/axial_fused_block.py:_make_fused_block,
+// pl.pallas_call :275; _fwd_kernel :85, _bwd_kernel :138; entry
+// fused_block_attention :361) for bf16 activations: K2's kernels in K5's
+// rounding (lane_hopper.cuh, Mode::kFusedBlock).  It moves K2's bytes plus
+// the row pass's float32 half of the output (forward) and the row pass's
+// float32 d(q, k, v) (backward): at AViT-small's training shape (qkv (40,
+// 32, 32, 1152)) 346 MB and 722 MB, 0.10 and 0.22 ms at 3.35 TB/s.
+//
+// qkv, ln, bias_x, bias_y, scale as for bf_lane_hopper_fwd; half (BT, H, W,
+// C) float32 scratch (the row pass's half of the output); out (BT, H, W, C)
+// bf16, dtype(0.5 o_rows + 0.5 o_cols).  Returns a cudaError_t.
+extern "C" int bf_fused_block_hopper_fwd(int head_dim, const void* qkv, const float* ln,
+                                         const float* bias_x, const float* bias_y,
+                                         const float* scale, float* half, void* out, int BT,
+                                         int H, int W, int C, int heads, void* stream) {
+  if (!lane_shape_ok(head_dim, H, W, C, heads) || BT < 1) return cudaErrorInvalidValue;
+  bft::lane::FwdArgs a{};
+  a.qkv = static_cast<const __nv_bfloat16*>(qkv);
+  a.ln = ln;
+  a.bias_x = bias_x;
+  a.bias_y = bias_y;
+  a.scale = scale;
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.ao = half;
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.heads = heads;
+  const auto st = static_cast<cudaStream_t>(stream);
+  using bft::lane::Mode;
+  return head_dim == 64 ? bft::lane::lane_fwd<64, Mode::kFusedBlock>(a, BT, st)
+                        : bft::lane::lane_fwd<16, Mode::kFusedBlock>(a, BT, st);
+}
+
+// K4's backward: as bf_lane_hopper_bwd, with dacc (BT, H, W, 3C) float32
+// scratch (the row pass's d(q, k, v)); dqkv rounded once.  Returns a
+// cudaError_t.
+extern "C" int bf_fused_block_hopper_bwd(int head_dim, const void* qkv, const void* dout,
+                                         const float* ln, const float* bias_x,
+                                         const float* bias_y, const float* scale, void* dqkv,
+                                         float* dacc, float* lane_part, float* dln,
+                                         float* dbias_x, float* dbias_y, float* dscale, int BT,
+                                         int H, int W, int C, int heads, int groups_r, int per_r,
+                                         int groups_c, int per_c, void* stream) {
+  if (!lane_shape_ok(head_dim, H, W, C, heads) || BT < 1) return cudaErrorInvalidValue;
+  bft::lane::BwdArgs a{};
+  a.qkv = static_cast<const __nv_bfloat16*>(qkv);
+  a.dout = static_cast<const __nv_bfloat16*>(dout);
+  a.ln = ln;
+  a.bias_x = bias_x;
+  a.bias_y = bias_y;
+  a.scale = scale;
+  a.dqkv = static_cast<__nv_bfloat16*>(dqkv);
+  a.dacc = dacc;
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.heads = heads;
+  const int groups[2] = {groups_r, groups_c}, per[2] = {per_r, per_c};
+  const bft::lane::Partials part =
+      bft::lane::carve_partials(lane_part, groups, heads, H, W, head_dim);
+  const auto st = static_cast<cudaStream_t>(stream);
+  using bft::lane::Mode;
+  return head_dim == 64
+             ? bft::lane::lane_bwd<64, Mode::kFusedBlock>(a, BT, groups, per, part, dbias_x,
+                                                          dbias_y, dscale, dln, st)
+             : bft::lane::lane_bwd<16, Mode::kFusedBlock>(a, BT, groups, per, part, dbias_x,
+                                                          dbias_y, dscale, dln, st);
+}
+
+int bft::lane::resident_fused_block(int head_dim, int L, int* blocks) {
+  return bwd_resident<Mode::kFusedBlock>(head_dim, L, blocks);
+}
+
 // Blocks of a bf16 backward kernel of lane_hopper.cuh for lines of L tokens
 // (1 to 512) at head_dim 16 or 64 that one multiprocessor of the current
 // device holds at once, into *blocks: the host plans one wave of them
 // (ops/axial_lane.py:lane_bwd_plan).  mode: 0 K2's kernel (Mode::kLane), 1
-// K9's (kLanePx), 2 K5's (kMega).  Returns a cudaError_t.
+// K9's (kLanePx), 2 K5's (kMega), 3 K4's (kFusedBlock).  Returns a
+// cudaError_t.
 extern "C" int bf_lane_bwd_resident(int mode, int head_dim, int L, int* blocks) {
   switch (mode) {
     case 0:
@@ -104,6 +180,8 @@ extern "C" int bf_lane_bwd_resident(int mode, int head_dim, int L, int* blocks) 
       return bft::lane::resident_lane_px(head_dim, L, blocks);
     case 2:
       return bft::lane::resident_mega(head_dim, L, blocks);
+    case 3:
+      return bft::lane::resident_fused_block(head_dim, L, blocks);
     default:
       return cudaErrorInvalidValue;
   }

@@ -5,8 +5,9 @@
 // :676 forward, :690 backward; bodies _fwd_kernel :236 with _axis_fwd :198,
 // _bwd_kernel :370 with _axis_bwd :254 and _qkln_bwd :320), entry
 // lane_axial_attention_from_x :852, for bf16 activations.  K2's float32 path
-// and the line-kernel flavours of K4, K6, K7 and K8 stay on line_kernels.cuh.
-// Two more bf16 kernels run these kernels in their own rounding (Mode):
+// and the line-kernel flavours of K6 and K7, and K4's and K8's float32
+// paths, stay on line_kernels.cuh.  Three more bf16 kernels run these
+// kernels in their own rounding (Mode):
 //   kLanePx  K9's backward (axial_lane.py:_bwd_kernel_px :426): each pass
 //            writes its own rounded dqkv (the TPU kernel's bm=True,
 //            :462-470), which the caller projects back before the next pass
@@ -18,7 +19,12 @@
 //            is K4's (axial_fused_block.py:116-135): dv = R(P)^T R(s dao) +
 //            (1 - s)/L sum_i dao_i, the row pass's d(q, k, v) before the
 //            qk-LN kept in a float32 scratch, the column pass adding its own,
-//            running the qk-LN backward once and rounding dqkv once.
+//            running the qk-LN backward once and rounding dqkv once;
+//   kFusedBlock  K4 (axial_fused_block.py:_fwd_kernel :85, _bwd_kernel :138):
+//            kMega's rounding from the qkv the block's Dense wrote, its
+//            output 0.5 o_r + 0.5 o_c rounded once and not kept in float32
+//            (the row pass's half in a float32 scratch); its backward is
+//            kMega's.
 //
 // What it computes, per head and direction (rows: L = W, table bias_x, scale
 // s_x; columns: L = H, bias_y, s_y), R rounding to bf16:
@@ -85,7 +91,14 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // The rounding a kernel follows (file comment).
-enum class Mode { kLane, kLanePx, kMega };
+enum class Mode { kLane, kLanePx, kMega, kFusedBlock };
+
+// K5's and K4's rounding: R(P) as the operand of P v, the window mean and
+// the directions' sum in float32, and the row pass's d(q, k, v) in a float32
+// scratch (file comment).
+__host__ __device__ constexpr bool sums_f32(Mode M) {
+  return M == Mode::kMega || M == Mode::kFusedBlock;
+}
 
 constexpr int kMaxWarps = 8;
 constexpr int kChunk = 32;        // keys (query passes) or queries (key pass) a chunk
@@ -457,13 +470,14 @@ struct FwdArgs {
   const float* scale;  // (heads, 2): s_x, s_y
   bf16* row_out;       // (BT, H, W, C): the row pass's rounded output (K2)
   bf16* out;           // (BT, H, W, C); kMega: ao rounded
-  float* ao;           // kMega: (BT, H, W, C) float32, 0.5 o_r + 0.5 o_c
+  float* ao;           // kMega: (BT, H, W, C) float32, 0.5 o_r + 0.5 o_c;
+                       // kFusedBlock: the row pass's half alone (scratch)
   int H, W, C, heads;
 };
 
 template <int D, Mode M>
 size_t fwd_smem_bytes(int L) {
-  return (size_t)3 * staged_rows(L) * D * sizeof(bf16) + (M == Mode::kMega ? D * 4 : 0);
+  return (size_t)3 * staged_rows(L) * D * sizeof(bf16) + (sums_f32(M) ? D * 4 : 0);
 }
 
 // kMega: sum_j v_j over the line's L staged tokens into vsum (D floats), a
@@ -496,7 +510,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int
   float* vsum = reinterpret_cast<float*>(vs + rows * D);  // kMega: (D)
   stage_qkv<D>(qs, ks, vs, a.qkv, line, h, 3 * a.C, a.ln, rows);
   __syncthreads();
-  if constexpr (M == Mode::kMega) {
+  if constexpr (sums_f32(M)) {
     line_column_sum<D>(vsum, vs, L);
     __syncthreads();
   }
@@ -524,7 +538,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, j = c * kChunk + nt * 8 + 2 * t + (e & 1);
           const float p = expf(sc[nt][e] - m[r]) / z[r];
-          sc[nt][e] = j >= L ? 0.f : M == Mode::kMega ? p : s * p + uniform;
+          sc[nt][e] = j >= L ? 0.f : sums_f32(M) ? p : s * p + uniform;
         }
       }
       chunk_product<D>(o, sc, vs, c * kChunk, lane);
@@ -536,7 +550,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int
       const size_t at = line.token(i) * a.C + (size_t)h * D + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
-        if constexpr (M == Mode::kMega) {
+        if constexpr (sums_f32(M)) {
           const int col = n * 8 + 2 * t;
           const float o0 = s * o[n][2 * r] + (1.f - s) * (vsum[col] / L);
           const float o1 = s * o[n][2 * r + 1] + (1.f - s) * (vsum[col + 1] / L);
@@ -546,7 +560,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int
           } else {
             const float2 rw = *f;
             const float2 v = make_float2(rw.x + 0.5f * o0, rw.y + 0.5f * o1);
-            *f = v;
+            if constexpr (M == Mode::kMega) *f = v;
             *reinterpret_cast<uint32_t*>(a.out + at + n * 8) = pack(v.x, v.y);
           }
           continue;
@@ -587,7 +601,7 @@ template <int D, Mode M>
 size_t bwd_long_smem_bytes(int L) {
   const int rows = staged_rows(L), nw = line_warps(L);
   return (size_t)(3 * rows + kLongDaoRows) * D * sizeof(bf16) + (size_t)3 * rows * 4 +
-         (size_t)nw * 4 * D * 4 + kMaxWarps * 4 + (M == Mode::kMega ? D * 4 : 0);
+         (size_t)nw * 4 * D * 4 + kMaxWarps * 4 + (sums_f32(M) ? D * 4 : 0);
 }
 
 // A 16-row tile's gradient w.r.t. the LN'd q (comp 0) or k (comp 1), `y_in`
@@ -612,7 +626,7 @@ __device__ __forceinline__ void emit_ln_grad(const float (&y_in)[D / 8][4], int 
 #pragma unroll
     for (int e = 0; e < 4; ++e) y[n][e] = y_in[n][e];
   }
-  if constexpr (M == Mode::kMega) {
+  if constexpr (sums_f32(M)) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int i = r0 + g + 8 * r;
@@ -718,7 +732,7 @@ __device__ __forceinline__ void emit_v_grad(const float (&y)[D / 8][4], int r0, 
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       uint32_t* o = reinterpret_cast<uint32_t*>(dqkv + off + n * 8);
-      if constexpr (M == Mode::kMega) {
+      if constexpr (sums_f32(M)) {
         float2* f = reinterpret_cast<float2*>(dacc + off + n * 8);
         if (pass == 0) {
           *f = make_float2(y[n][2 * r], y[n][2 * r + 1]);
@@ -826,7 +840,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
     const Line line = make_line(pass, a.H, a.W, li);
     const bool first = li == l0;
     __syncthreads();  // the last line's reads of shared memory are done
-    if (M == Mode::kMega && threadIdx.x < D) dsum[threadIdx.x] = 0.f;
+    if (sums_f32(M) && threadIdx.x < D) dsum[threadIdx.x] = 0.f;
     stage_qkv<D>(qs, ks, vs, a.qkv, line, h, C3, a.ln, rows);
     int dao0 = -1;
     // Every thread calls it with the same row: dao rows [r0, r0 + drows)
@@ -843,7 +857,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
     // 1. m, z and D_i per query.
     for (int q00 = 0; q00 < L; q00 += span) {
       ensure_dao(q00);
-      if (M == Mode::kMega && threadIdx.x < D) {
+      if (sums_f32(M) && threadIdx.x < D) {
         float acc = 0.f;
         for (int r = 0; r < min(drows, L - q00); ++r)
           acc += __bfloat162float(ds[sw<D>(r, threadIdx.x)]);
@@ -905,14 +919,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
                 const float l = sc[nt][e] * head_scaling<D>() + bias[(size_t)i * ldt + j];
                 const float p = expf(l - st_m[i]) / st_z[i];
                 x = which == 0 ? p * (s * gm[nt][e] - st_d[i])
-                               : M == Mode::kMega ? p : s * p + uniform;
+                               : sums_f32(M) ? p : s * p + uniform;
               }
               sc[nt][e] = x;  // dS, or the value weight
             }
           }
           if (which == 0) {
             chunk_product<D>(acc, sc, qs, c * kChunk, lane);
-          } else if constexpr (M == Mode::kMega) {
+          } else if constexpr (sums_f32(M)) {
             chunk_product<D, true>(acc, sc, ds, c * kChunk - dao0, lane, s);
           } else {
             chunk_product<D>(acc, sc, ds, c * kChunk - dao0, lane);
@@ -928,7 +942,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
           emit_ln_grad<D, M>(acc, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
                              lane);
         } else {
-          if constexpr (M == Mode::kMega) add_mean_grad<D>(acc, dsum, (1.f - s) / L, lane);
+          if constexpr (sums_f32(M)) add_mean_grad<D>(acc, dsum, (1.f - s) / L, lane);
           emit_v_grad<D, M>(acc, k0, line, h, C3, a.dqkv, a.dacc, pass, lane);
         }
       }
@@ -1002,7 +1016,7 @@ template <int D, Mode M>
 size_t bwd_short_smem_bytes(int L) {
   const int rows = staged_rows(L), nw = line_warps(L);
   size_t b = (size_t)4 * rows * D * sizeof(bf16) + (size_t)2 * rows * (rows + 8) * sizeof(bf16) +
-             (size_t)nw * 4 * D * 4 + kMaxWarps * 4 + (M == Mode::kMega ? D * 4 : 0);
+             (size_t)nw * 4 * D * 4 + kMaxWarps * 4 + (sums_f32(M) ? D * 4 : 0);
   if (L <= kSmemBiasMax) b += ((size_t)nw * 16 * (rows + 8) + (size_t)L * (L + 1)) * 4;
   return b;
 }
@@ -1025,7 +1039,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
   float* dsum = red + kMaxWarps;     // kMega: (D) sum_i dao_i of the line
   const bool smem_acc = L <= kSmemBiasMax;  // the table and its gradient sum in shared memory
   const int ldb = rows + 8;
-  float* accb = dsum + (M == Mode::kMega ? D : 0);  // (nw * 16, rows + 8): dS over the lines
+  float* accb = dsum + (sums_f32(M) ? D : 0);  // (nw * 16, rows + 8): dS over the lines
   float* tbs = accb + span * ldb;    // (L, L + 1): the table
   float* slot = a.part_bias + (size_t)(grp * a.heads + h) * L * L;
   float* wslot = wln + warp * 4 * D;
@@ -1047,7 +1061,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
     stage_qkv<D>(qs, ks, vs, a.qkv, line, h, C3, a.ln, rows);
     stage_dao<D>(ds, a.dout, line, h, a.C, 0, rows);
     __syncthreads();
-    if constexpr (M == Mode::kMega) line_column_sum<D>(dsum, ds, L);  // read after step 1
+    if constexpr (sums_f32(M)) line_column_sum<D>(dsum, ds, L);  // read after step 1
 
     // 1. Query tiles.
     const int q0 = warp * 16;
@@ -1078,7 +1092,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
             if (i < L && j < L) {
               const float p = expf(sc[nt][e] - m[r]) / z[r];
               dS = p * (s * gm[nt][e] - dr[r]);
-              pe = M == Mode::kMega ? p : s * p + uniform;
+              pe = sums_f32(M) ? p : s * p + uniform;
               dsc += (p - inv_l) * gm[nt][e];
               float* cell = smem_acc ? accb + i * ldb + j : slot + (size_t)i * L + j;
               *cell = (first && !smem_acc) ? dS : *cell + dS;
@@ -1123,7 +1137,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
           mma(dk[2 * np], a_ds, b[0], b[1]);
           mma(dk[2 * np + 1], a_ds, b[2], b[3]);
           load_b_cols<D>(b, ds, i0, np * 16, lane);
-          if constexpr (M == Mode::kMega) {
+          if constexpr (sums_f32(M)) {
 #pragma unroll
             for (int e = 0; e < 4; ++e) b[e] = scale_pair(b[e], s);
           }
@@ -1138,7 +1152,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
       }
       emit_ln_grad<D, M>(dk, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
                          lane);
-      if constexpr (M == Mode::kMega) add_mean_grad<D>(dv, dsum, (1.f - s) / L, lane);
+      if constexpr (sums_f32(M)) add_mean_grad<D>(dv, dsum, (1.f - s) / L, lane);
       emit_v_grad<D, M>(dv, k0, line, h, C3, a.dqkv, a.dacc, pass, lane);
     }
   }
@@ -1295,6 +1309,7 @@ int lane_bwd(const BwdArgs& base, int BT, const int (&groups)[2], const int (&pe
 int resident_lane(int head_dim, int L, int* blocks);     // axial_lane_hopper.cu
 int resident_lane_px(int head_dim, int L, int* blocks);  // axial_lane_px.cu
 int resident_mega(int head_dim, int L, int* blocks);     // axial_block_mega.cu
+int resident_fused_block(int head_dim, int L, int* blocks);  // axial_lane_hopper.cu
 
 }  // namespace lane
 }  // namespace bft

@@ -14,8 +14,10 @@
 //   kFlash       K8 axial_pallas.py:_fwd_kernel, _bwd_kernel        axial_flash.cu
 //   kLanePx      K9's backward, axial_lane.py:_bwd_kernel_px        axial_lane_px.cu
 //                (its forward is kLane's)
-// kLane, kMega and kLanePx are built in float32 alone: K2, K5 and K9 run
-// in bf16 on lane_hopper.cuh.
+// kLane, kMega, kLanePx and kFusedBlock are built in float32 alone: K2, K5,
+// K9 and K4 run in bf16 on lane_hopper.cuh; K8 runs in bf16 on
+// flash_hopper.cuh but for its backward on lines that kernel does not stage
+// (head dim 64, more than 256 tokens), which stays here.
 //
 // All compute, per head, attention along each image row (over W, T5 table
 // bias_x, attn scale s_x) and along each column (over H, bias_y, s_y), and

@@ -1,8 +1,10 @@
 // The fixed-order sum of the attention kernels' parameter gradients: the
 // backward blocks of the line kernels (line_kernels.cuh) and of the bf16
-// Hopper kernels (lane_hopper.cuh) each own a fixed set of lines and write
-// one partial of the T5 tables', the attn scales' and the qk-LN vectors'
-// gradients; this last launch adds the partials in block order.  No global
+// Hopper kernels (lane_hopper.cuh, flash_hopper.cuh) each own a fixed set
+// of lines and write one partial of the T5 tables', the attn scales' and
+// the qk-LN vectors' gradients (the Hopper kernels' blocks sum a run of
+// lines in shared memory first); this last launch adds the partials in
+// block order.  No global
 // atomic touches a parameter gradient, so every one of them repeats bit for
 // bit from run to run.  Included by each .cu that launches it (internal
 // linkage).

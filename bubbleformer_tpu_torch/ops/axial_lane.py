@@ -25,9 +25,10 @@ kernels of ``csrc/axial_attention.cu`` in their lane flavour
 other device they raise.  Both kernel paths take head dims 16 and 64 and
 lines of up to 512 tokens (the JAX lane gate's limit,
 :func:`lane_axial_supported`); any other shape raises on the card, naming
-it.  The line kernels in their fused_block flavour are K4
+it.  The line kernels in their fused_block flavour are K4 in float32
 (``ops/axial_fused_block.py``), launched through
-:func:`line_attention_fwd_cuda` and :func:`line_attention_bwd_cuda`.
+:func:`line_attention_fwd_cuda` and :func:`line_attention_bwd_cuda`; K4 in
+bfloat16 runs these Hopper kernels in its own rounding.
 
 Both round where the lane kernel rounds: qkv, q/k (after LN), the blended
 probabilities and each direction's output in the activation dtype
@@ -67,6 +68,9 @@ LINE_TILE = 64  # tokens per query or key tile (csrc/axial_attention.cu kTile)
 # pass (128 MB): long lines take fewer, longer runs of lines, and so more
 # launches.
 LINE_PARTIAL_FLOATS = 1 << 25
+# Blocks of the line kernels' backward planned a multiprocessor
+# (line_bwd_resident).
+LINE_BLOCKS_PER_SM = 128
 # The JAX lane gate's defaults: its chunk-lane target (BUBBLEFORMER_LANE_CHUNK
 # unset, bubbleformer_tpu/ops/axial_lane.py:123) and its grid-step budget
 # (BUBBLEFORMER_LANE_GRID unset, :92).  The port reads neither knob (it reads
@@ -74,8 +78,8 @@ LINE_PARTIAL_FLOATS = 1 << 25
 LANE_CHUNK_TARGET = 256
 LANE_GRID_BUDGET = int(60e6)
 # The modes of csrc/lane_hopper.cuh's bf16 backward kernel (its enum Mode), as
-# the C entry bf_lane_bwd_resident takes them: K2's, K9's and K5's.
-MODE_LANE, MODE_LANE_PX, MODE_MEGA = 0, 1, 2
+# the C entry bf_lane_bwd_resident takes them: K2's, K9's, K5's and K4's.
+MODE_LANE, MODE_LANE_PX, MODE_MEGA, MODE_FUSED_BLOCK = 0, 1, 2, 3
 
 
 def axial_attention_plain(
@@ -338,21 +342,20 @@ def line_attention_bwd_cuda(do: torch.Tensor, qkv: torch.Tensor, *params, heads:
             None if scale_x is None else dscale[:, 0], None if scale_y is None else dscale[:, 1])
 
 
-def line_bwd_scratch(bt: int, h: int, w: int, heads: int, d: int, dev, *, ln: bool = True,
-                     passes: int = 2) -> tuple:
-    """``(part, plan)`` of the line kernels' backward (``csrc/line_kernels.cuh:
-    line_bwd_plans``): pass p's ``bt * (h or w)`` lines fall into ``groups``
-    runs of ``per`` lines (:func:`lane_bwd_plan`), the kernels launched
-    ``per`` times, a line of each run a launch, at most
-    :func:`line_bwd_resident` blocks a launch and ``LINE_PARTIAL_FLOATS`` of
-    table partials; ``plan`` = ``[groups_r, per_r, groups_c, per_c]``;
-    ``part`` is the float32 buffer of the runs' partials, pass by pass: the
-    table sums ``(groups, heads, L, L)``, the scale sums ``(heads, tiles *
-    groups)`` and, where the kernels normalise q and k (``ln``), the LN sums
-    ``(4 d, kernels * tiles * groups * heads)`` (two kernels for lines longer
-    than a tile).  K8 runs one pass (``passes=1``: ``bt = 1``, its M lines of
-    n tokens as ``h`` and ``w``)."""
-    resident = line_bwd_resident(dev)
+def line_bwd_plan(bt: int, h: int, w: int, heads: int, d: int, resident: int, *,
+                  ln: bool = True, passes: int = 2) -> tuple:
+    """``(floats, plan)`` of the line kernels' backward (``csrc/line_kernels.cuh:
+    line_bwd_plans``) for a launch of at most ``resident`` blocks: pass p's
+    ``bt * (h or w)`` lines fall into ``groups`` runs of ``per`` lines
+    (:func:`lane_bwd_plan`), the kernels launched ``per`` times, a line of
+    each run a launch, at most ``LINE_PARTIAL_FLOATS`` of table partials;
+    ``plan`` = ``[groups_r, per_r, groups_c, per_c]``; ``floats`` is the size
+    of the float32 buffer of the runs' partials, pass by pass: the table sums
+    ``(groups, heads, L, L)``, the scale sums ``(heads, tiles * groups)`` and,
+    where the kernels normalise q and k (``ln``), the LN sums ``(4 d, kernels
+    * tiles * groups * heads)`` (two kernels for lines longer than a tile).
+    K8 runs one pass (``passes=1``: ``bt = 1``, its M lines of n tokens as
+    ``h`` and ``w``)."""
     size, plan = 0, []
     for length, lines in ((w, bt * h), (h, bt * w))[:passes]:
         tiles = -(-length // LINE_TILE)
@@ -362,20 +365,29 @@ def line_bwd_scratch(bt: int, h: int, w: int, heads: int, d: int, dev, *, ln: bo
         size += groups * heads * (length * length + tiles
                                   + (kernels * tiles * 4 * d if ln else 0))
         plan += [groups, per]
-    plan += [0, 0] * (2 - passes)
+    return size, plan + [0, 0] * (2 - passes)
+
+
+def line_bwd_scratch(bt: int, h: int, w: int, heads: int, d: int, dev, *, ln: bool = True,
+                     passes: int = 2) -> tuple:
+    """``(part, plan)``: :func:`line_bwd_plan` on card ``dev``
+    (:func:`line_bwd_resident`), its partials' buffer allocated."""
+    size, plan = line_bwd_plan(bt, h, w, heads, d, line_bwd_resident(dev), ln=ln, passes=passes)
     return torch.empty(size, device=dev), plan
 
 
 def line_bwd_resident(dev) -> int:
     """Blocks a launch of the line kernels' backward may have on card
-    ``dev``: 128 a multiprocessor, so that the runs of lines are short (a
-    line each at FiLMAViT-small's and AViT-big's training shapes, as the
-    kernels of one launch a pass had it) and each launch's last wave leaves
-    little of the card idle: each further launch adds a partly idle wave
-    (planned at 64 a multiprocessor, two launches a pass, the float32 K2
-    backward at AViT-big's shape read 6.8% above the kernels of one launch a
-    pass; NVIDIA H100 80GB HBM3, 700.00 W)."""
-    return 128 * torch.cuda.get_device_properties(dev).multi_processor_count
+    ``dev``: ``LINE_BLOCKS_PER_SM`` a multiprocessor, so that the runs of
+    lines are short (a line each at FiLMAViT-small's and AViT-big's training
+    shapes, as the kernels of one launch a pass had it) and each launch's
+    last wave leaves little of the card idle: each further launch adds a
+    partly idle wave (planned at 64 a multiprocessor, two launches a pass,
+    the float32 K2 backward at AViT-big's shape read 6.8% above the kernels
+    of one launch a pass; NVIDIA H100 80GB HBM3, 700.00 W).  A first level
+    of the parameter sums inside the launch, over thread-block clusters or
+    over runs of lines a block, read slower still (``PERF.md`` §6, PR 13)."""
+    return LINE_BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def lane_bwd_plan(lines: int, heads: int, resident: int) -> tuple:
@@ -394,10 +406,11 @@ def lane_bwd_plan(lines: int, heads: int, resident: int) -> tuple:
 @functools.lru_cache(maxsize=None)
 def _resident_blocks(index: int, head_dim: int, length: int, mode: int) -> int:
     """Blocks of the bf16 Hopper backward kernel of ``mode`` (``MODE_LANE``,
-    ``MODE_LANE_PX`` or ``MODE_MEGA``) for lines of ``length`` tokens that
-    card ``index`` holds at once: its multiprocessors times the blocks one of
-    them holds, as the CUDA runtime reads the kernel's registers, shared
-    memory and block size (C entry ``bf_lane_bwd_resident``)."""
+    ``MODE_LANE_PX``, ``MODE_MEGA`` or ``MODE_FUSED_BLOCK``) for lines of
+    ``length`` tokens that card ``index`` holds at once: its multiprocessors
+    times the blocks one of them holds, as the CUDA runtime reads the
+    kernel's registers, shared memory and block size (C entry
+    ``bf_lane_bwd_resident``)."""
     lib = _build.library()
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(index):
@@ -406,19 +419,29 @@ def _resident_blocks(index: int, head_dim: int, length: int, mode: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm.value)
 
 
-def lane_bwd_scratch(bt: int, h: int, w: int, heads: int, d: int, dev, mode: int) -> tuple:
-    """``(part, plan)`` of a bf16 Hopper backward of the lane kernels' family
-    (K2's, K9's and K5's attention, ``csrc/lane_hopper.cuh: carve_partials``):
-    the rows' and the columns' plans (:func:`lane_bwd_plan` over the blocks
-    the kernel of ``mode`` keeps resident), ``plan`` = ``[groups_r, per_r,
-    groups_c, per_c]``, and one float32 buffer of both passes' partials, each
-    pass's table ``(groups, heads, L, L)``, scale ``(heads, groups)`` and LN
-    ``(4, d, groups, heads)`` sums in that order."""
+def lane_bwd_layout(bt: int, h: int, w: int, heads: int, d: int, residents) -> tuple:
+    """``(floats, plan)`` of a bf16 Hopper backward of the lane kernels'
+    family (K2's, K9's, K5's and K4's attention, ``csrc/lane_hopper.cuh:
+    carve_partials``) whose kernels keep ``residents`` = (rows', columns')
+    blocks on the card: the rows' and the columns' plans
+    (:func:`lane_bwd_plan`), ``plan`` = ``[groups_r, per_r, groups_c,
+    per_c]``, and the size of one float32 buffer of both passes' partials,
+    each pass's table ``(groups, heads, L, L)``, scale ``(heads, groups)`` and
+    LN ``(4, d, groups, heads)`` sums in that order."""
     size, plan = 0, []
-    for length, lines in ((w, bt * h), (h, bt * w)):
-        groups, per = lane_bwd_plan(lines, heads, _resident_blocks(dev.index, d, length, mode))
+    for (length, lines), resident in zip(((w, bt * h), (h, bt * w)), residents):
+        groups, per = lane_bwd_plan(lines, heads, resident)
         size += groups * heads * (length * length + 1 + 4 * d)
         plan += [groups, per]
+    return size, plan
+
+
+def lane_bwd_scratch(bt: int, h: int, w: int, heads: int, d: int, dev, mode: int) -> tuple:
+    """``(part, plan)``: :func:`lane_bwd_layout` over the blocks the kernel of
+    ``mode`` keeps resident on card ``dev`` (:func:`_resident_blocks`), its
+    partials' buffer allocated."""
+    size, plan = lane_bwd_layout(bt, h, w, heads, d,
+                                 [_resident_blocks(dev.index, d, n, mode) for n in (w, h)])
     return torch.empty(size, device=dev), plan
 
 

@@ -24,13 +24,26 @@ rounds the probabilities to the activation dtype before their product with
 ``v`` and blends in that dtype, so in bfloat16 the two differ.
 
 :func:`flash_packed_attention` is a ``torch.autograd.Function``.  On CUDA
-tensors its forward and backward launch ``csrc/axial_flash.cu`` (the line
-kernels in their kFlash flavour: head dims 16 and 64, lines of up to 512
-tokens; any other shape raises); on CPU tensors :func:`flash_plain` and
+tensors its forward and backward launch hand-written kernels, chosen by
+dtype in one place (:func:`flash_kernels`): bfloat16 runs the Hopper kernels
+of ``csrc/flash_hopper.cuh`` (C entries ``csrc/axial_flash_hopper.cu``:
+rows staged in bf16, every product on the tensor cores with ``P_eff`` and
+``dS`` split into bf16 pairs, lines of at most 16 tokens packed into 16-row
+tiles; :func:`flash_hopper_fwd`, :func:`flash_hopper_bwd`, the blocks'
+segments planned by :func:`flash_bwd_plan`); float32 runs the line kernels
+of ``csrc/axial_flash.cu`` in their kFlash flavour (:func:`flash_line_fwd`,
+:func:`flash_line_bwd`), and so does a bfloat16 backward whose lines the
+Hopper backward does not stage (head dim 64, more than 256 tokens).  Both
+take head dims 16 and 64 and lines of up to 512 tokens; any other shape
+raises.  The bias and scale gradients are sums over the lines in a fixed
+order (a first level inside the launch, ``csrc/param_sums.cuh``): they
+repeat bit for bit.  On CPU tensors :func:`flash_plain` and
 :func:`flash_bwd_plain`; on any other device they raise.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -42,8 +55,14 @@ from bubbleformer_tpu_torch.ops.axial_lane import (
     LINE_TILE,
     MAX_LINE,
     LineAttention,
+    lane_bwd_plan,
     line_bwd_scratch,
 )
+
+# The Hopper backward stages four (rows, d) bf16 tiles of a segment and takes
+# the lines whose tiles fit in this many bytes (csrc/flash_hopper.cuh:
+# kBwdStageBytes): every line at head dim 16, up to 256 tokens at 64.
+FLASH_BWD_STAGE_BYTES = 128 << 10
 
 
 def pick_flash_group(m: int, n: int, cap: int = 512) -> int:
@@ -138,8 +157,118 @@ def _cuda_args(q, k, v, bias, scale_factor, what):
     return tables
 
 
-def flash_fwd_cuda(q, k, v, bias=None, scale_factor=None) -> torch.Tensor:
-    """Launch ``csrc/axial_flash.cu``'s forward: ``(heads, M, n, d)``."""
+def flash_geometry(n: int) -> dict:
+    """How the bf16 Hopper kernels stage lines of ``n`` tokens
+    (``csrc/flash_hopper.cuh: Geo``): units of ``ru`` rows (a key chunk of 32
+    or more), ``units`` of them a block; ``n <= 16`` puts ``lp16 = 16 // n``
+    lines in each 16-row tile, two tiles a unit; longer lines a line a unit;
+    a segment is the ``lps`` lines a block stages at once, ``rows`` rows."""
+    lp16 = 16 // n if n <= 16 else 0
+    ru = 32 if n <= 16 else -(-n // 32) * 32
+    units = 1 if ru >= 128 else 128 // ru
+    lpu = 2 * lp16 if n <= 16 else 1
+    return dict(lp16=lp16, ru=ru, units=units, lps=units * lpu, rows=units * ru)
+
+
+def flash_rows(m: int, n: int, seg: int) -> list:
+    """``(line, position)`` of each staged row of segment ``seg`` of M lines
+    of ``n`` tokens (None: an empty row), as ``Geo::line_of`` and
+    ``seg_rows`` place them."""
+    g = flash_geometry(n)
+    out = []
+    for r in range(g["rows"]):
+        u, rr = divmod(r, g["ru"])
+        if g["lp16"]:
+            a, pos = divmod(rr % 16, n)
+            li = None if a >= g["lp16"] else u * 2 * g["lp16"] + rr // 16 * g["lp16"] + a
+        else:
+            li, pos = (u, rr) if rr < n else (None, 0)
+        line = None if li is None else seg * g["lps"] + li
+        out.append(None if line is None or line >= m else (line, pos))
+    return out
+
+
+def flash_hopper_bwd_fits(n: int, d: int) -> bool:
+    """Whether the Hopper backward stages lines of ``n`` tokens at head dim
+    ``d`` (its four bf16 tiles within ``FLASH_BWD_STAGE_BYTES``)."""
+    return 1 <= n <= MAX_LINE and 8 * (-(-n // 32) * 32) * d <= FLASH_BWD_STAGE_BYTES
+
+
+def flash_bwd_plan(m: int, n: int, heads: int, resident: int) -> tuple:
+    """``(floats, groups, per)`` of the bf16 Hopper backward: block ``g`` of
+    a head owns the segments ``g * per`` to ``(g + 1) * per`` of the M lines
+    (:func:`flash_geometry`; :func:`lane_bwd_plan` over one wave of the
+    ``resident`` blocks) and sums the table's and the scale's gradients over
+    them into one partial; ``floats`` is the size of the float32 buffer of
+    the partials, the tables ``(groups, heads, n, n)`` then the scales
+    ``(heads, groups)``."""
+    segments = -(-m // flash_geometry(n)["lps"])
+    groups, per = lane_bwd_plan(segments, heads, resident)
+    return groups * heads * (n * n + 1), groups, per
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_resident(index: int, head_dim: int, n: int) -> int:
+    """Blocks of the Hopper backward for lines of ``n`` tokens that card
+    ``index`` holds at once (C entry ``bf_flash_hopper_resident``)."""
+    lib = _build.library()
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.bf_flash_hopper_resident(head_dim, n, ctypes.byref(per_sm))
+    _build.check(lib, err, "bf_flash_hopper_resident")
+    return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm.value)
+
+
+def flash_hopper_fwd(q, k, v, bias=None, scale_factor=None) -> torch.Tensor:
+    """K8's bf16 forward on the Hopper kernels (``csrc/flash_hopper.cuh``, C
+    entry ``bf_flash_hopper_fwd``); counts ``flash_hopper_fwd.launches``."""
+    heads, m, n, d = q.shape
+    what = "flash_packed_attention (bf_flash_hopper_fwd)"
+    p = _cuda_args(q, k, v, bias, scale_factor, what)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
+    _build.check_tma(what, q=q, k=k, v=v, out=out)
+    lib = _build.library()
+    err = lib.bf_flash_hopper_fwd(d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                  p["bias"].data_ptr(), p["scale"].data_ptr(), out.data_ptr(), m,
+                                  n, heads, _build.stream_handle(q.device))
+    _build.check(lib, err, what)
+    flash_hopper_fwd.launches += 1
+    return out
+
+
+def flash_hopper_bwd(do, q, k, v, bias=None, scale_factor=None) -> tuple:
+    """K8's bf16 backward on the Hopper kernels (C entry
+    ``bf_flash_hopper_bwd``): one launch, then one that adds the blocks'
+    partials (:func:`flash_bwd_plan`) in a fixed order.  The gradients
+    :func:`flash_bwd_plain` returns; counts ``flash_hopper_bwd.launches``."""
+    heads, m, n, d = q.shape
+    what = "flash_packed_attention_bwd (bf_flash_hopper_bwd)"
+    p = _cuda_args(q, k, v, bias, scale_factor, what)
+    _build.check_shapes(what, do=(do, q.shape))
+    dev, dt = q.device, q.dtype
+    q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.to(dt).contiguous()
+    dqkv3 = torch.empty(3, heads, m, n, d, device=dev, dtype=dt)
+    _build.check_tma(what, q=q, k=k, v=v, do=do, dqkv3=dqkv3)
+    floats, groups, per = flash_bwd_plan(m, n, heads, _flash_resident(dev.index, d, n))
+    part = torch.empty(floats, device=dev)
+    dbias = torch.empty(heads, n, n, device=dev)
+    dscale = torch.empty(heads, 2, device=dev)
+    lib = _build.library()
+    err = lib.bf_flash_hopper_bwd(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), p["bias"].data_ptr(),
+        p["scale"].data_ptr(), dqkv3[0].data_ptr(), dqkv3[1].data_ptr(), dqkv3[2].data_ptr(),
+        part.data_ptr(), dbias.data_ptr(), dscale.data_ptr(), groups, per, m, n, heads,
+        _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    flash_hopper_bwd.launches += 1
+    return (dqkv3[0], dqkv3[1], dqkv3[2], None if bias is None else dbias,
+            None if scale_factor is None else dscale[:, 0])
+
+
+def flash_line_fwd(q, k, v, bias=None, scale_factor=None) -> torch.Tensor:
+    """K8's forward on the line kernels (``csrc/axial_flash.cu``, kFlash),
+    float32; counts ``flash_line_fwd.launches``."""
     heads, m, n, d = q.shape
     what = "flash_packed_attention"
     p = _cuda_args(q, k, v, bias, scale_factor, what)
@@ -151,12 +280,15 @@ def flash_fwd_cuda(q, k, v, bias=None, scale_factor=None) -> torch.Tensor:
         p["scale"].data_ptr(), out.data_ptr(), m, n, heads, _build.stream_handle(q.device),
     )
     _build.check(lib, err, f"{what} (bf_axial_flash_fwd)")
+    flash_line_fwd.launches += 1
     return out
 
 
-def flash_bwd_cuda(do, q, k, v, bias=None, scale_factor=None) -> tuple:
-    """Launch ``csrc/axial_flash.cu``'s backward: the gradients
-    :func:`flash_bwd_plain` returns."""
+def flash_line_bwd(do, q, k, v, bias=None, scale_factor=None) -> tuple:
+    """K8's backward on the line kernels (``csrc/axial_flash.cu``, kFlash):
+    float32, and bfloat16 lines the Hopper backward does not stage; the
+    gradients :func:`flash_bwd_plain` returns; counts
+    ``flash_line_bwd.launches``."""
     heads, m, n, d = q.shape
     what = "flash_packed_attention_bwd"
     p = _cuda_args(q, k, v, bias, scale_factor, what)
@@ -177,8 +309,26 @@ def flash_bwd_cuda(do, q, k, v, bias=None, scale_factor=None) -> tuple:
         _build.stream_handle(dev),
     )
     _build.check(lib, err, f"{what} (bf_axial_flash_bwd)")
+    flash_line_bwd.launches += 1
     return (dqkv3[0], dqkv3[1], dqkv3[2], None if bias is None else dbias,
             None if scale_factor is None else dscale[:, 0])
+
+
+flash_hopper_fwd.launches = flash_hopper_bwd.launches = 0
+flash_line_fwd.launches = flash_line_bwd.launches = 0
+
+
+def flash_kernels(dtype: torch.dtype, n: int = 1, d: int = 64) -> tuple:
+    """K8's ``(forward, backward)`` kernels on the card for ``dtype`` and
+    lines of ``n`` tokens at head dim ``d``: the Hopper kernels for bfloat16
+    (its backward while :func:`flash_hopper_bwd_fits`, else the line
+    kernels'), the line kernels for float32; any other dtype raises."""
+    if dtype == torch.bfloat16:
+        return flash_hopper_fwd, (flash_hopper_bwd if flash_hopper_bwd_fits(n, d)
+                                  else flash_line_bwd)
+    if dtype == torch.float32:
+        return flash_line_fwd, flash_line_bwd
+    raise TypeError(f"flash_packed_attention kernel takes float32 or bfloat16, not {dtype}")
 
 
 def _flash_fwd(q, k, v, bias, scale_factor):
@@ -186,7 +336,7 @@ def _flash_fwd(q, k, v, bias, scale_factor):
         return flash_plain(q, k, v, bias, scale_factor)
     if q.device.type != "cuda":
         raise ValueError(f"flash_packed_attention: unsupported device {q.device}")
-    out = flash_fwd_cuda(q, k, v, bias, scale_factor)
+    out = flash_kernels(q.dtype)[0](q, k, v, bias, scale_factor)
     flash_packed_attention.launches += 1
     return out
 
@@ -196,16 +346,16 @@ def flash_packed_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tenso
                                scale_factor: Optional[torch.Tensor] = None) -> tuple:
     """K8's backward: the gradients :func:`flash_bwd_plain` returns.
 
-    CPU tensors take :func:`flash_bwd_plain`; CUDA tensors launch
-    ``csrc/axial_flash.cu``'s backward and count
-    ``flash_packed_attention_bwd.launches``.  The bias and scale gradients
-    are sums over the lines from per-block partials added in a fixed order:
-    they repeat bit for bit."""
+    CPU tensors take :func:`flash_bwd_plain`; CUDA tensors the kernels
+    :func:`flash_kernels` picks (bfloat16 :func:`flash_hopper_bwd`, float32
+    :func:`flash_line_bwd`) and count ``flash_packed_attention_bwd.launches``.
+    The bias and scale gradients are sums over the lines from partials added
+    in a fixed order: they repeat bit for bit."""
     if q.device.type == "cpu":
         return flash_bwd_plain(do, q, k, v, bias, scale_factor)
     if q.device.type != "cuda":
         raise ValueError(f"flash_packed_attention_bwd: unsupported device {q.device}")
-    grads = flash_bwd_cuda(do, q, k, v, bias, scale_factor)
+    grads = flash_kernels(q.dtype, q.shape[2], q.shape[3])[1](do, q, k, v, bias, scale_factor)
     flash_packed_attention_bwd.launches += 1
     return grads
 

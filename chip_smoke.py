@@ -84,7 +84,9 @@ paths give it — the rollout's (batch 1) and the training step's:
    the long-line backward), with sdpa over both directions at batch 4 and
    at head dim 16, and
 17. K4 (``fused_block_attention``) at its paths' shapes, forward and every
-   gradient against the plain versions (``LINE_RTOL``), with both times;
+   gradient against the plain versions (``LINE_RTOL``), with both times
+   (bfloat16 on the Hopper kernels, float32 on the line kernels); the
+   parameter gradients of both phases repeat bit for bit over two calls;
 18. one float32 AViT-small window at 512x2048 on the card against the CPU;
 19. a 20-window bfloat16 rollout of it: finite, K3 and K2 forward each
    launched 12 x 20 times, K1 never; frames/s;
@@ -128,8 +130,10 @@ paths give it — the rollout's (batch 1) and the training step's:
 29. K8 (``flash_packed_attention``) forward and every gradient against
    ``flash_plain`` and ``flash_bwd_plain`` at path F's shapes (the temporal
    lines (6, B*1024, 5, 64) and the axial rows and columns (6, B*5*32, 32,
-   64), B = 1 and 8), float32 against the plain version in float64 and
-   bfloat16 against it in bfloat16 (``LINE_RTOL``), with both times and
+   64), B = 1 and 8) and at AViT-tiny's (6, 8*5*64, 64, 16), float32
+   against the plain version in float64 (the line kernels) and bfloat16
+   against it in bfloat16 (the Hopper kernels; ``LINE_RTOL``), the bias and
+   scale gradients repeating bit for bit over two calls, with both times and
    that of ``scaled_dot_product_attention`` with the bias as its mask,
    forward and backward (K8 without the blend: a partial yardstick);
 30. K10 (``plane_norms``, the loss's plane sums) forward and backward
@@ -189,14 +193,16 @@ paths give it — the rollout's (batch 1) and the training step's:
    card time in each JSON line, each of the probe's kernels launched and no
    other.
 
-K2's, K5's and K9's wrappers count every call on the card
-(``lane_axial_attention``, ``mega_axial_block``, ``lane_px_attention`` and
-their ``_bwd``) and each dtype's kernels their own launches (bfloat16:
-``lane_hopper_fwd``, ``mega_hopper_fwd``, ``px_hopper_fwd`` and their
-``_bwd``; float32: ``lane_line_fwd``, ``mega_line_fwd``, ``px_line_fwd``
-and theirs; ``DTYPE_PATHS``): every bf16 rollout and training run holds
-them to the Hopper kernels and every float32 window and step to the first
-chains.  Times are CUDA events around 20 calls
+K2's, K4's, K5's, K8's and K9's wrappers count every call on the card
+(``lane_axial_attention``, ``fused_block_attention``, ``mega_axial_block``,
+``flash_packed_attention``, ``lane_px_attention`` and their ``_bwd``) and
+each dtype's kernels their own launches (bfloat16: ``lane_hopper_fwd``,
+``fused_block_hopper_fwd``, ``mega_hopper_fwd``, ``flash_hopper_fwd``,
+``px_hopper_fwd`` and their ``_bwd``; float32: ``lane_line_fwd``,
+``fused_block_line_fwd``, ``mega_line_fwd``, ``flash_line_fwd``,
+``px_line_fwd`` and theirs; ``DTYPE_PATHS``): every bf16 rollout and
+training run holds them to the Hopper kernels and every float32 window and
+step to the first chains.  Times are CUDA events around 20 calls
 after half a second of warm-up calls (``WARMUP_S``).
 
 Every training step runs under the models' default remat ``"dots"``
@@ -509,6 +515,18 @@ def compare_grads(name: str, names, got, ref, rtol: float, zero_noise: bool = Fa
     return worst
 
 
+def check_repeat(name: str, names, first, again, params: int) -> None:
+    """The parameter gradients (from index ``params`` on) of two backward
+    calls on the same inputs carry the same bits: they are sums in a fixed
+    order (``csrc/param_sums.cuh``)."""
+    import torch
+
+    for n, a, b in list(zip(names, first, again))[params:]:
+        if a is not None and not torch.equal(a, b):
+            fail(f"{name}: the gradient of {n} differs between two calls")
+    print(f"  {name}: parameter gradients repeat bit for bit", flush=True)
+
+
 @contextlib.contextmanager
 def plain_attention():
     """Route the model's two attention branches through their plain PyTorch
@@ -794,6 +812,8 @@ def line_kernel_phase(key: str, cases: dict, dev, results: dict) -> None:
             torch.cuda.synchronize()
             err_b = compare_grads(f"{key} bwd {name} {where}", tuple(args), got, ref,
                                   LINE_RTOL[name])
+            check_repeat(f"{key} bwd {name} {where}", tuple(args), got,
+                         bwd(do, *args.values(), heads=heads), 1)
             del got, ref, ref_args, ref_do
             ms_f = cuda_ms(lambda: fwd(**args, heads=heads))
             plain_f = ref_ms(lambda: plain(**args, heads=heads))
@@ -835,6 +855,10 @@ def all_counters():
     from bubbleformer_tpu_torch.ops.axial_fused_block import (
         fused_block_attention,
         fused_block_attention_bwd,
+        fused_block_hopper_bwd,
+        fused_block_hopper_fwd,
+        fused_block_line_bwd,
+        fused_block_line_fwd,
     )
     from bubbleformer_tpu_torch.ops.axial_fused_packed import (
         fused_axial_attention_packed,
@@ -864,6 +888,10 @@ def all_counters():
     )
 
     from bubbleformer_tpu_torch.ops.axial_pallas import (
+        flash_hopper_bwd,
+        flash_hopper_fwd,
+        flash_line_bwd,
+        flash_line_fwd,
         flash_packed_attention,
         flash_packed_attention_bwd,
     )
@@ -877,7 +905,9 @@ def all_counters():
             flash_packed_attention_bwd, plane_norms, plane_norms_bwd, lane_px_attention,
             lane_px_attention_bwd, lane_hopper_fwd, lane_hopper_bwd, lane_line_fwd, lane_line_bwd,
             mega_hopper_fwd, mega_hopper_bwd, mega_line_fwd, mega_line_bwd, px_hopper_fwd,
-            px_hopper_bwd, px_line_fwd, px_line_bwd)
+            px_hopper_bwd, px_line_fwd, px_line_bwd, fused_block_hopper_fwd,
+            fused_block_hopper_bwd, fused_block_line_fwd, fused_block_line_bwd,
+            flash_hopper_fwd, flash_hopper_bwd, flash_line_fwd, flash_line_bwd)
 
 
 def probe_counters():
@@ -900,11 +930,18 @@ def read_counters() -> dict:
 
 
 # The wrappers whose calls on the card go to one chain a dtype (K2:
-# ``ops/axial_lane.py:lane_kernels``, K5: ``ops/axial_block_mega.py:
-# mega_kernels``, K9: ``ops/axial_lane_px.py:px_kernels``): bfloat16 the
-# Hopper kernels, float32 the first chain.
+# ``ops/axial_lane.py:lane_kernels``, K4: ``ops/axial_fused_block.py:
+# fused_block_kernels``, K5: ``ops/axial_block_mega.py:mega_kernels``, K8:
+# ``ops/axial_pallas.py:flash_kernels``, K9: ``ops/axial_lane_px.py:
+# px_kernels``): bfloat16 the Hopper kernels, float32 the first chain (K8's
+# bfloat16 backward too on lines the Hopper backward does not stage: none
+# on these paths).
 DTYPE_PATHS = {"lane_axial_attention": ("lane_hopper_fwd", "lane_line_fwd"),
                "lane_axial_attention_bwd": ("lane_hopper_bwd", "lane_line_bwd"),
+               "fused_block_attention": ("fused_block_hopper_fwd", "fused_block_line_fwd"),
+               "fused_block_attention_bwd": ("fused_block_hopper_bwd", "fused_block_line_bwd"),
+               "flash_packed_attention": ("flash_hopper_fwd", "flash_line_fwd"),
+               "flash_packed_attention_bwd": ("flash_hopper_bwd", "flash_line_bwd"),
                "mega_axial_block": ("mega_hopper_fwd", "mega_line_fwd"),
                "mega_axial_block_bwd": ("mega_hopper_bwd", "mega_line_bwd"),
                "lane_px_attention": ("px_hopper_fwd", "px_line_fwd"),
@@ -912,7 +949,7 @@ DTYPE_PATHS = {"lane_axial_attention": ("lane_hopper_fwd", "lane_line_fwd"),
 
 
 def with_dtype_paths(per: dict, dtype: str) -> dict:
-    """``per`` with K2's, K5's and K9's per-path counters: every call of their
+    """``per`` with K2's, K4's, K5's, K8's and K9's per-path counters: every call of their
     wrappers in ``dtype`` goes to that dtype's kernels (``DTYPE_PATHS``), the
     other path's never."""
     at = 0 if dtype == "bfloat16" else 1
@@ -1467,11 +1504,14 @@ def slice5_phases(repo: Path, dev, card: str, results: dict) -> dict:
 # Phases 29-34: K8 at path F's shapes (FiLMAViT-small at 512^2 with
 # ``attn_impl=flash``: the temporal lines (heads, B*32*32, T, d) and the axial
 # rows and columns (heads, B*T*32, 32, d), B = 1 for the rollout and 8 for
-# the training step) and K10 at its training step's pred and target.
+# the training step), at AViT-tiny's on that route (the axial lines of its
+# 64x64 grid at 512^2, head dim 16, batch 8) and K10 at its training step's
+# pred and target.
 FLASH_SHAPES = {"temporal rollout": (6, 32 * 32, TIME_WINDOW, 64),
                 "temporal training": (6, TRAIN_BATCH * 32 * 32, TIME_WINDOW, 64),
                 "axial rollout": (6, TIME_WINDOW * 32, 32, 64),
-                "axial training": (6, TRAIN_BATCH * TIME_WINDOW * 32, 32, 64)}
+                "axial training": (6, TRAIN_BATCH * TIME_WINDOW * 32, 32, 64),
+                "axial d16": (6, TRAIN_BATCH * TIME_WINDOW * 64, 64, 16)}
 LOSS_SHAPE = (TRAIN_BATCH, TIME_WINDOW, FIELDS, IMAGE, IMAGE)
 # K10's plane sums against float64: float32 sums of 512^2 values in blocks
 # of 8192 and a fixed order, 1e-5 of each column's largest; its gradient
@@ -1522,6 +1562,8 @@ def flash_kernel_phase(dev, results: dict) -> None:
             torch.cuda.synchronize()
             err_b = compare_grads(f"K8 bwd {name} {where}", tuple(args), got, ref,
                                   LINE_RTOL[name])
+            check_repeat(f"K8 bwd {name} {where}", tuple(args), got,
+                         k8.flash_packed_attention_bwd(do, *args.values()), 3)
             del got, ref, ref_args, ref_do
             ms_f = cuda_ms(lambda: k8.flash_packed_attention(**args))
             plain_f = ref_ms(lambda: k8.flash_plain(**args))
@@ -2720,12 +2762,14 @@ def main() -> None:
           f"step {runs['A']['launches']['lane_axial_attention'] // runs['A']['steps']}")
 
     kernels = []
-    axial_cu = "bubbleformer_tpu_torch/csrc/line_kernels.cuh"  # C entries: axial_attention.cu
     # K2 in bf16: the Hopper kernels (C entries: axial_lane_hopper.cu).
     lane_cu = "bubbleformer_tpu_torch/csrc/lane_hopper.cuh"
-    # K2's launches on the main path are its bf16 path's (lane_kernels).
+    # K2's and K4's launches on their paths are their bf16 kernels'
+    # (lane_kernels, fused_block_kernels).
     counter_of = {"lane_axial_attention": "lane_hopper_fwd",
-                  "lane_axial_attention_bwd": "lane_hopper_bwd"}
+                  "lane_axial_attention_bwd": "lane_hopper_bwd",
+                  "fused_block_attention": "fused_block_hopper_fwd",
+                  "fused_block_attention_bwd": "fused_block_hopper_bwd"}
     # K2, K4, K6 and K7 compute the same two-direction attention at these
     # training shapes: one sdpa yardstick (phase 4) for all four.
     k2_sdpa = {"fwd": results[("K2 sdpa", "bfloat16", "training")],
@@ -2743,8 +2787,8 @@ def main() -> None:
         ("K3 bwd", "core_temporal_attention_bwd",
          "bubbleformer_tpu_torch/csrc/temporal_block_bwd.cu",
          "bubbleformer_tpu/ops/temporal_block_mega.py:476"),
-        ("K4", "fused_block_attention", axial_cu, "bubbleformer_tpu/ops/axial_fused_block.py:85"),
-        ("K4 bwd", "fused_block_attention_bwd", axial_cu,
+        ("K4", "fused_block_attention", lane_cu, "bubbleformer_tpu/ops/axial_fused_block.py:85"),
+        ("K4 bwd", "fused_block_attention_bwd", lane_cu,
          "bubbleformer_tpu/ops/axial_fused_block.py:138"),
     ):
         # The launches are the training run of the path that launches the
@@ -2846,18 +2890,19 @@ def main() -> None:
     # wrapper, so each row carries the path's launches of both), K10 at its
     # step's pred and target; launches from path F's training run.
     runs6 = slice6_phases(repo, dev, card, results)
-    flash_cu = "bubbleformer_tpu_torch/csrc/line_kernels.cuh"  # C entries: axial_flash.cu
+    # K8 in bf16: the Hopper kernels (C entries: axial_flash_hopper.cu).
+    flash_cu = "bubbleformer_tpu_torch/csrc/flash_hopper.cuh"
     loss_cu = "bubbleformer_tpu_torch/csrc/lp_loss.cu"
     run_f = runs6["F"]
     for key, name, counter, source, replaces, shape, where in (
-        ("K8", "flash_packed_attention (temporal)", "flash_packed_attention", flash_cu,
+        ("K8", "flash_packed_attention (temporal)", "flash_hopper_fwd", flash_cu,
          jax_ops + "axial_pallas.py:66", FLASH_SHAPES["temporal training"], "temporal training"),
-        ("K8", "flash_packed_attention (axial)", "flash_packed_attention", flash_cu,
+        ("K8", "flash_packed_attention (axial)", "flash_hopper_fwd", flash_cu,
          jax_ops + "axial_pallas.py:66", FLASH_SHAPES["axial training"], "axial training"),
-        ("K8 bwd", "flash_packed_attention_bwd (temporal)", "flash_packed_attention_bwd",
+        ("K8 bwd", "flash_packed_attention_bwd (temporal)", "flash_hopper_bwd",
          flash_cu, jax_ops + "axial_pallas.py:82", FLASH_SHAPES["temporal training"],
          "temporal training"),
-        ("K8 bwd", "flash_packed_attention_bwd (axial)", "flash_packed_attention_bwd", flash_cu,
+        ("K8 bwd", "flash_packed_attention_bwd (axial)", "flash_hopper_bwd", flash_cu,
          jax_ops + "axial_pallas.py:82", FLASH_SHAPES["axial training"], "axial training"),
         ("K10", "plane_norms", "plane_norms", loss_cu, jax_ops + "lp_loss.py:31", LOSS_SHAPE,
          "training"),

@@ -16,9 +16,10 @@ and K3's bf16 chains run their products on the Hopper GEMM,
 ``csrc/hopper_gemm.cuh``; the whole-branch kernels K1 and K3 (in float32)
 and K5 and the in-kernel projection of K9 share their products and
 statistics kernels, ``csrc/block_ops.cuh``; K2's bf16 path runs on its
-Hopper kernels, ``csrc/lane_hopper.cuh``, and so do K5's and K9's bf16
-attention, their products on the Hopper GEMM; the line kernels serve K2,
-K5 and K9 in float32 and K4, K6-K8; K10 is the loss's plane norms), matrix
+Hopper kernels, ``csrc/lane_hopper.cuh``, and so do K4's and K5's and K9's
+bf16 attention, K5's and K9's products on the Hopper GEMM; K8's bf16 path
+runs on ``csrc/flash_hopper.cuh``; the line kernels serve K2, K4, K5, K8
+and K9 in float32 and K6, K7; K10 is the loss's plane norms), matrix
 products (cuBLAS), the
 optimizer's foreach kernels, and the rest (elementwise, reductions,
 copies); and by kernel wrapper (``WRAPPERS``:
@@ -81,11 +82,14 @@ PARTS = (
     ("branch products and norms, forward (K1, K3, K5, K9)", ("norm_proj_kernel",
                                                              "plane_stats_kernel")),
     ("temporal QKV and attention forward (K1, K3 float32)", ("qkv_attention",)),
-    ("K2, K5, K9 bf16 lane kernels (Hopper)", ("lane_fwd_kernel", "lane_bwd_short_kernel",
-                                                "lane_bwd_long_kernel")),
+    ("K2, K4, K5, K9 bf16 lane kernels (Hopper)", ("lane_fwd_kernel", "lane_bwd_short_kernel",
+                                                    "lane_bwd_long_kernel")),
+    ("K8 bf16 flash kernels (Hopper)", ("flash_fwd_kernel", "flash_bwd_kernel")),
     ("attention parameter sums, fixed order (K2, K4-K9)", ("param_sum_kernel",)),
-    ("line kernels backward (K2 f32, K4-K9)", ("line_bwd_q_kernel", "line_bwd_kv_kernel")),
-    ("line kernels forward (K2 f32, K4-K9)", ("line_fwd_kernel", "line_short_fwd_kernel")),
+    ("line kernels backward (f32 K2, K4, K5, K8, K9; K6, K7)", ("line_bwd_q_kernel",
+                                                               "line_bwd_kv_kernel")),
+    ("line kernels forward (f32 K2, K4, K5, K8, K9; K6, K7)", ("line_fwd_kernel",
+                                                              "line_short_fwd_kernel")),
     ("loss plane norms (K10)", ("norms_partial_kernel", "norms_finish_kernel", "dpred_kernel")),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),

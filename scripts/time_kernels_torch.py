@@ -26,16 +26,19 @@ AViT-tiny's; and the other line-kernel routes at their training steps'
 shapes: K4 (``fused_block_attention``) at qkv (40, 32, 32, 1152), K6 and K7
 (``fused_axial_attention_packed``, ``fused_axial_attention``) at q (40, 32,
 32, 6, 64), K8 (``flash_packed_attention``) at the axial lines (6, 1280,
-32, 64) and the temporal ones (6, 8192, 5, 64).  Forward and
+32, 64) and the temporal ones (6, 8192, 5, 64), and K4 and K8 at the other
+shapes of chip_smoke.py's phases 17 and 29 (K4 at qkv (5, 32, 32, 1152),
+(5, 24, 24, 1152) and (10, 8, 8, 288); K8 at (6, 160, 32, 64), (6, 1024,
+5, 64) and (6, 2560, 64, 16)).  Forward and
 backward, in bfloat16 and float32, by CUDA events (20 calls after at least
 ``WARMUP_S`` seconds of warm-up calls), from the checkout given by
 ``--repo`` (default: this one), whose kernels it builds first.  Then, in
 bfloat16 at K1's first shape and at K3's AViT-big shape, K2's at
 FiLMAViT-small's and the flow-boiling grid's at batch 4, K5's and K9's at x
-(40, 32, 32, 384), and in float32 K4's and K8's temporal backward, the
-device time of each kernel one forward and one
-backward launch, by ``torch.profiler`` (the mean of 5 traced calls; names
-shortened), which reads any checkout alike.  Comparing two versions of the
+(40, 32, 32, 384), K4's and K8's (axial and temporal) at their training
+shapes, and in float32 K4's and K8's temporal backward, the device time of
+each kernel one forward and one backward launch, by ``torch.profiler`` (the
+mean of 5 traced calls; names shortened), which reads any checkout alike.  Comparing two versions of the
 kernels takes two processes on one card, one per checkout, in turns:
 
     python3 scripts/time_kernels_torch.py --repo build/parent --label parent
@@ -214,6 +217,25 @@ def main(argv=None) -> None:
                                   [(heads, 8192, t, d)] * 3,
                                   [n(heads, t, t), n(heads, scale=0.2, offset=1.0)],
                                   (heads, 8192, t, d), False)}
+    # K4 and K8 at the other shapes chip_smoke.py holds them at (phases 17 and
+    # 29): K4 at the rollout's batch, the 24x24 grid and the make-demo grid
+    # (head dim 16); K8 at the rollout's lines and AViT-tiny's axial lines.
+    for case, (qkv_shape, h4) in {"rollout": ((t, 32, 32, 3 * c), heads),
+                                  "grid_24": ((t, 24, 24, 3 * c), heads),
+                                  "demo_d16": ((2 * t, 8, 8, 288), heads)}.items():
+        d4, hh, ww = qkv_shape[-1] // 3 // h4, qkv_shape[1], qkv_shape[2]
+        line_cases[f"K4 {case}"] = (k4.fused_block_attention, k4.fused_block_attention_bwd,
+                                    [qkv_shape], [*ln(d4), n(h4, ww, ww), n(h4, hh, hh),
+                                                  n(h4, scale=0.2, offset=1.0),
+                                                  n(h4, scale=0.2, offset=1.0)],
+                                    (*qkv_shape[:-1], qkv_shape[-1] // 3), True)
+    for case, shape8 in {"axial rollout": (heads, t * 32, 32, d),
+                         "temporal rollout": (heads, 32 * 32, t, d),
+                         "axial d16": (heads, 8 * t * 64, 64, 16)}.items():
+        line_cases[f"K8 {case}"] = (k8.flash_packed_attention, k8.flash_packed_attention_bwd,
+                                    [shape8] * 3, [n(heads, shape8[2], shape8[2]),
+                                                   n(heads, scale=0.2, offset=1.0)],
+                                    shape8, False)
     for key, (fwd, bwd, shapes, rest, out_shape, with_heads) in line_cases.items():
         if not wanted(key):
             continue
@@ -308,9 +330,19 @@ def main(argv=None) -> None:
     acts4, do4 = [n(*sh) for sh in shapes4], n(*out4)
     fwd8, bwd8, shapes8, rest8, out8, _ = line_cases["K8 temporal"]
     acts8, do8 = [n(*sh) for sh in shapes8], n(*out8)
+    acts4h, do4h = [a.to(torch.bfloat16) for a in acts4], do4.to(torch.bfloat16)
+    acts8h, do8h = [a.to(torch.bfloat16) for a in acts8], do8.to(torch.bfloat16)
+    _, _, shapes8a, rest8a, out8a, _ = line_cases["K8 axial"]
+    acts8a, do8a = [n(*sh).to(torch.bfloat16) for sh in shapes8a], n(*out8a).to(torch.bfloat16)
     calls.update({
         "K4 float32 bwd": lambda: bwd4(do4, *acts4, *rest4, heads=heads),
-        "K8 temporal float32 bwd": lambda: bwd8(do8, *acts8, *rest8)})
+        "K8 temporal float32 bwd": lambda: bwd8(do8, *acts8, *rest8),
+        "K4 bfloat16 fwd": lambda: fwd4(*acts4h, *rest4, heads=heads),
+        "K4 bfloat16 bwd": lambda: bwd4(do4h, *acts4h, *rest4, heads=heads),
+        "K8 axial bfloat16 fwd": lambda: fwd8(*acts8a, *rest8a),
+        "K8 axial bfloat16 bwd": lambda: bwd8(do8a, *acts8a, *rest8a),
+        "K8 temporal bfloat16 fwd": lambda: fwd8(*acts8h, *rest8),
+        "K8 temporal bfloat16 bwd": lambda: bwd8(do8h, *acts8h, *rest8)})
     for what, fn in calls.items():
         if not wanted(what):
             continue

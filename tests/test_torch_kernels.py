@@ -65,6 +65,10 @@ from bubbleformer_tpu_torch.ops.axial_fused_block import (
     fused_block_attention,
     fused_block_attention_bwd,
     fused_block_bwd_plain,
+    fused_block_hopper_bwd,
+    fused_block_hopper_fwd,
+    fused_block_line_bwd,
+    fused_block_line_fwd,
     fused_block_plain,
 )
 from bubbleformer_tpu_torch.ops.axial_fused_packed import (
@@ -99,6 +103,10 @@ from bubbleformer_tpu_torch.ops.axial_lane_px import (
 )
 from bubbleformer_tpu_torch.ops.axial_pallas import (
     flash_bwd_plain,
+    flash_hopper_bwd,
+    flash_hopper_fwd,
+    flash_line_bwd,
+    flash_line_fwd,
     flash_packed_attention,
     flash_packed_attention_bwd,
     flash_plain,
@@ -954,6 +962,85 @@ def test_k8_raises_outside_its_envelope_on_card(cuda_device):
             flash_packed_attention(**args)
 
 
+# K8's and K4's bf16 Hopper kernels (csrc/flash_hopper.cuh; lane_hopper.cuh
+# in K4's rounding) where their packing and staging change: K8's lines of 5
+# and 8 with M not a multiple of a segment's lines (24 and 16), lines of 13
+# (one a tile), of 20, 40 and 64 (one or two a unit), of 100 (a unit of
+# 128), of 300 at head dim 16 (the backward on the Hopper kernels) and at 64
+# (its backward on the line kernels); K4 at the make-demo grid (8x8 tokens,
+# head dim 16) and FiLMAViT-small's: forward and every gradient against the
+# plain versions in bfloat16, held to chip_smoke.py's LINE_RTOL (1e-2), the
+# launches counted on the path each takes.
+K8_HOPPER_CASES = [(6, 1027, 5, 64), (2, 37, 8, 16), (2, 10, 13, 64), (2, 9, 20, 16),
+                   (2, 5, 40, 64), (2, 6, 64, 16), (2, 3, 100, 64), (1, 2, 300, 16),
+                   (1, 2, 300, 64)]
+K8_HOPPER_IDS = ["t_ragged", "demo_ragged", "n13", "n20_d16", "n40", "n64_d16", "n100",
+                 "n300_d16", "n300_line_bwd"]
+
+
+def _flash_counts():
+    return (flash_hopper_fwd.launches, flash_hopper_bwd.launches, flash_line_fwd.launches,
+            flash_line_bwd.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K8_HOPPER_CASES, ids=K8_HOPPER_IDS)
+def test_k8_hopper_kernels_match_plain_on_card(cuda_device, shape):
+    args = _flash_args(shape, 48, torch.bfloat16, cuda_device)
+    do = torch.randn(shape, generator=torch.Generator().manual_seed(49))
+    do = do.to(cuda_device, torch.bfloat16)
+    before = _flash_counts()
+    got = flash_packed_attention(**args)
+    grads = flash_packed_attention_bwd(do, *args.values())
+    hopper_bwd = shape[2] <= 256 or shape[3] == 16
+    assert _flash_counts() == tuple(a + b for a, b in zip(
+        before, (1, int(hopper_bwd), 0, int(not hopper_bwd))))
+    _close(got, flash_plain(**args), torch.bfloat16)
+    want = flash_bwd_plain(do, **args)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    check_grads(list(args), [g.cpu() for g in grads], [w.float().cpu().numpy() for w in want],
+                LINE_RTOL_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,c", [((10, 8, 8), 96), ((40, 32, 32), 384)],
+                         ids=["demo_d16", "training"])
+def test_k4_hopper_kernels_match_plain_on_card(cuda_device, grid, c):
+    args = _k2_args(*grid, c, 6, 50, torch.bfloat16, cuda_device)
+    do = torch.randn(*grid, c, generator=torch.Generator().manual_seed(51))
+    do = do.to(cuda_device, torch.bfloat16)
+    before = (fused_block_hopper_fwd.launches, fused_block_hopper_bwd.launches,
+              fused_block_line_fwd.launches, fused_block_line_bwd.launches)
+    got = fused_block_attention(**args, heads=6)
+    grads = fused_block_attention_bwd(do, *args.values(), heads=6)
+    assert (fused_block_hopper_fwd.launches, fused_block_hopper_bwd.launches,
+            fused_block_line_fwd.launches, fused_block_line_bwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    _close(got, fused_block_plain(**args, heads=6), torch.bfloat16)
+    want = fused_block_bwd_plain(do, **args, heads=6)
+    torch.cuda.synchronize()
+    check_grads(list(args), [g.cpu() for g in grads], [w.float().cpu().numpy() for w in want],
+                LINE_RTOL_BF16)
+
+
+@pytest.mark.cuda
+def test_k4_k8_float32_take_the_line_kernels_on_card(cuda_device):
+    args = _k2_args(2, 8, 8, 96, 6, 52, torch.float32, cuda_device)
+    before = (fused_block_line_fwd.launches, fused_block_line_bwd.launches)
+    fused_block_attention_bwd(torch.ones(2, 8, 8, 96, device=cuda_device), *args.values(),
+                              heads=6)
+    fused_block_attention(**args, heads=6)
+    flash = _flash_args((2, 6, 5, 16), 53, torch.float32, cuda_device)
+    counts = _flash_counts()
+    flash_packed_attention(**flash)
+    flash_packed_attention_bwd(torch.ones(2, 6, 5, 16, device=cuda_device), *flash.values())
+    torch.cuda.synchronize()
+    assert (fused_block_line_fwd.launches, fused_block_line_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _flash_counts() == (counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+
+
 # K10 at path F's bf16 step (pred (8, 5, 4, 512, 512) in bf16 against the
 # float32 target), in float32, and a ragged plane (n % 4 != 0).
 K10_CASES = [((8, 5, 4, 512, 512), torch.bfloat16), ((8, 5, 4, 512, 512), torch.float32),
@@ -1175,10 +1262,8 @@ def test_k5_k9_float32_take_the_first_chains_on_card(cuda_device, kernel, dtype)
 def _repeat_case(kernel, device):
     """(backward call, argument names, the indices of its parameter
     gradients) of a kernel at its path's training shape."""
-    if kernel in ("k5", "k9"):
-        dtype = torch.bfloat16
-    else:
-        dtype = torch.float32
+    dtype = torch.bfloat16 if kernel in ("k5", "k9") or kernel.endswith("_bf16") else torch.float32
+    kernel = kernel.removesuffix("_bf16")
     if kernel == "k5":
         args = _k5_args(40, 32, 32, 384, 6, 74, dtype, device)
         params = list(args.values())[1:]
@@ -1203,21 +1288,26 @@ def _repeat_case(kernel, device):
         do = do.to(device)
         bwd = fused_axial_attention_packed_bwd if kernel == "k6" else fused_axial_attention_bwd
         return lambda: bwd(do, *args.values()), list(args), range(3, len(args))
-    args = _flash_args((6, 1280, 32, 64), 82, dtype, device)
-    do = torch.randn(6, 1280, 32, 64, generator=torch.Generator().manual_seed(83)).to(device)
+    shape = {"k8": (6, 1280, 32, 64), "k8_t": (6, 8192, 5, 64), "k8_d16": (6, 2560, 64, 16)}[kernel]
+    args = _flash_args(shape, 82, dtype, device)
+    do = torch.randn(shape, generator=torch.Generator().manual_seed(83)).to(device, dtype)
     return lambda: flash_packed_attention_bwd(do, *args.values()), list(args), range(3, len(args))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["k5", "k9", "k2", "k4", "k6", "k7", "k8"],
+@pytest.mark.parametrize("kernel", ["k5", "k9", "k2", "k4", "k6", "k7", "k8", "k4_bf16",
+                                    "k8_bf16", "k8_t_bf16", "k8_d16_bf16"],
                          ids=["k5_bf16", "k9_bf16", "k2_f32_d16_flow", "k4_f32", "k6_f32",
-                              "k7_f32", "k8_f32"])
+                              "k7_f32", "k8_f32", "k4_bf16", "k8_bf16", "k8_temporal_bf16",
+                              "k8_d16_bf16"])
 def test_parameter_gradients_repeat_bit_for_bit_on_card(cuda_device, kernel):
     """K5's and K9's bf16 parameter gradients (split-K weight gradients,
     per-plane bias and InstanceNorm sums, per-block table, scale and LN
-    partials, each added in a fixed order) and the line kernels' float32
+    partials, each added in a fixed order), the line kernels' float32
     table, scale and LN gradients (K2 at AViT-tiny's 512x2048 training grid,
-    K4, K6, K7, K8) give the same bits over two calls."""
+    K4, K6, K7, K8: per-cluster partials) and K4's and K8's bf16 ones (the
+    Hopper kernels' per-block partials; K8 at its axial, temporal and head
+    dim 16 lines) give the same bits over two calls."""
     call, names, which = _repeat_case(kernel, cuda_device)
     first = [None if g is None else g.clone() for g in call()]
     second = call()
