@@ -99,6 +99,22 @@ _SIGNATURES = {
     # dln, dbias_x, dbias_y, dscale, BT, H, W, C, heads, groups_r, per_r,
     # groups_c, per_c, stream (bf16)
     "bf_fused_block_hopper_bwd": [_I] + [_P] * 13 + [_I] * 9 + [_P],
+    # head_dim, q, k, v, strides, bias_x, bias_y, scale, half, out, BT, H, W,
+    # C, heads, stream (bf16)
+    "bf_fused_packed_hopper_fwd": [_I] + [_P] * 3 + [_LP] + [_P] * 5 + [_I] * 5 + [_P],
+    # head_dim, q, k, v, dout, strides, bias_x, bias_y, scale, dq, dk, dv,
+    # dacc, lane_part, dbias_x, dbias_y, dscale, BT, H, W, C, heads, groups_r,
+    # per_r, groups_c, per_c, stream (bf16)
+    "bf_fused_packed_hopper_bwd": [_I] + [_P] * 4 + [_LP] + [_P] * 11 + [_I] * 9 + [_P],
+    # head_dim, q, k, v, strides, bias_x, bias_y, scale, half, out, BT, H, W,
+    # C, heads, stream (bf16)
+    "bf_fused_hopper_fwd": [_I] + [_P] * 3 + [_LP] + [_P] * 5 + [_I] * 5 + [_P],
+    # head_dim, q, k, v, dout, strides, bias_x, bias_y, scale, dq, dk, dv,
+    # part, dbias_x, dbias_y, dscale, BT, H, W, C, heads, groups_r, per_r,
+    # groups_c, per_c, stream (bf16)
+    "bf_fused_hopper_bwd": [_I] + [_P] * 4 + [_LP] + [_P] * 10 + [_I] * 9 + [_P],
+    # head_dim, n, blocks (int out)
+    "bf_fused_hopper_resident": [_I, _I, _IP],
     # n
     "bf_lp_norm_splits": [_I],
     # p_dtype, t_dtype, pred, tgt, partial, out, m, n, stream
@@ -275,6 +291,36 @@ def check_tma(what: str, **tensors) -> None:
         if t.shape[-1] * t.element_size() % 16:
             raise ValueError(f"{what}: {name} has rows of {t.shape[-1] * t.element_size()} "
                              "bytes, not a multiple of 16 (TMA needs it)")
+
+
+def in_place_strides(what: str, **tensors) -> list:
+    """Raise unless each named ``(BT, H, W, heads, d)`` tensor can be read in
+    place by 16-byte loads, as the bf16 kernels of K6 and K7 read q, k, v
+    and the output gradient: its last dim contiguous, its base 16-byte
+    aligned, its tokens one fixed stride apart over (BT, H, W), and its
+    token and head strides multiples of 16 bytes.  Returns each tensor's
+    ``(token stride, head stride)`` in elements, in the order given, as one
+    list."""
+    out = []
+    for name, t in tensors.items():
+        bt, h, w, heads, d = t.shape
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} of shape {tuple(t.shape)} and strides {t.stride()} "
+                             "is not contiguous in its last dim")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} starts at {t.data_ptr():#x}, which is not "
+                             "16-byte aligned (its 16-byte loads need it)")
+        try:
+            flat = t.view(bt * h * w, heads, d)
+        except RuntimeError:
+            raise ValueError(f"{what}: {name} of shape {tuple(t.shape)} and strides {t.stride()} "
+                             "has no one token stride over (BT, H, W)") from None
+        strides = [flat.stride(0), flat.stride(1)]
+        if any(s < 0 or s * t.element_size() % 16 for s in strides):
+            raise ValueError(f"{what}: {name}'s token and head strides {tuple(strides)} (elements) "
+                             "are not multiples of 16 bytes (its 16-byte loads need them)")
+        out += strides
+    return out
 
 
 def int32_array(values) -> ctypes.Array:

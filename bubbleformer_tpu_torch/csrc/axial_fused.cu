@@ -1,7 +1,11 @@
-// K6 and K7: the axial row + column attention of the fused_packed and fused
-// routes, from q, k and v already qk-normalised, forward and backward,
-// hand-written for Hopper (sm_90a): the line kernels of line_kernels.cuh in
-// their kPacked (K6) and kFused (K7) flavours, head dims 16 and 64.
+// K6 and K7 in float32: the axial row + column attention of the
+// fused_packed and fused routes, from q, k and v already qk-normalised,
+// forward and backward, hand-written for Hopper (sm_90a): the line kernels
+// of line_kernels.cuh in their kPacked (K6) and kFused (K7) flavours, head
+// dims 16 and 64.  bfloat16 K6 and K7 run lane_hopper.cuh and
+// flash_hopper.cuh (axial_lane_hopper.cu, axial_flash_hopper.cu), but for
+// K7's bf16 backward on lines those do not stage (head dim 64, more than 256
+// tokens), which is this file's kFused backward in bf16.
 //
 // Replaces bubbleformer_tpu/ops/axial_fused_packed.py:_fwd_kernel,
 // _bwd_chunk and _bwd_kernel (built by _make_fused_packed, entry
@@ -23,32 +27,30 @@
 namespace bft {
 namespace {
 
-template <typename T>
 int fused_fwd(int head_dim, int packed, const AxialArgs& a) {
   if (head_dim == 64)
-    return packed ? line_attention_fwd<T, 64, Flavour::kPacked>(a)
-                  : line_attention_fwd<T, 64, Flavour::kFused>(a);
-  return packed ? line_attention_fwd<T, 16, Flavour::kPacked>(a)
-                : line_attention_fwd<T, 16, Flavour::kFused>(a);
+    return packed ? line_attention_fwd<float, 64, Flavour::kPacked>(a)
+                  : line_attention_fwd<float, 64, Flavour::kFused>(a);
+  return packed ? line_attention_fwd<float, 16, Flavour::kPacked>(a)
+                : line_attention_fwd<float, 16, Flavour::kFused>(a);
 }
 
-template <typename T>
 int fused_bwd(int head_dim, int packed, const AxialArgs& a) {
   if (head_dim == 64)
-    return packed ? line_attention_bwd<T, 64, Flavour::kPacked>(a)
-                  : line_attention_bwd<T, 64, Flavour::kFused>(a);
-  return packed ? line_attention_bwd<T, 16, Flavour::kPacked>(a)
-                : line_attention_bwd<T, 16, Flavour::kFused>(a);
+    return packed ? line_attention_bwd<float, 64, Flavour::kPacked>(a)
+                  : line_attention_bwd<float, 64, Flavour::kFused>(a);
+  return packed ? line_attention_bwd<float, 16, Flavour::kPacked>(a)
+                : line_attention_bwd<float, 16, Flavour::kFused>(a);
 }
 
 }  // namespace
 }  // namespace bft
 
-// qkv3: (3, BT, H, W, C) in dtype = q, k, v (per head d contiguous values);
+// qkv3: (3, BT, H, W, C) float32 = q, k, v (per head d contiguous values);
 // bias_x (heads, W, W), bias_y (heads, H, H); scale (heads, 2) = [s_x, s_y];
-// row_out (BT, H, W, C) float32 scratch; out (BT, H, W, C) in dtype.  packed:
-// 1 K6, 0 K7.  head_dim 16 or 64, H and W at most 512.  Returns a
-// cudaError_t.
+// row_out (BT, H, W, C) float32 scratch; out (BT, H, W, C) float32.  dtype:
+// float32 alone.  packed: 1 K6, 0 K7.  head_dim 16 or 64, H and W at most
+// 512.  Returns a cudaError_t.
 extern "C" int bf_axial_fused_fwd(int dtype, int head_dim, int packed, const void* qkv3,
                                   const float* bias_x, const float* bias_y, const float* scale,
                                   float* row_out, void* out, int BT, int H, int W, int C,
@@ -66,14 +68,13 @@ extern "C" int bf_axial_fused_fwd(int dtype, int head_dim, int packed, const voi
   a.C = C;
   a.heads = heads;
   a.stream = static_cast<cudaStream_t>(stream);
-  if (!bft::line_shape_ok(head_dim, a)) return cudaErrorInvalidValue;
-  if (dtype == bft::kF32) return bft::fused_fwd<float>(head_dim, packed, a);
-  if (dtype == bft::kBF16) return bft::fused_fwd<__nv_bfloat16>(head_dim, packed, a);
-  return cudaErrorInvalidValue;
+  if (!bft::line_shape_ok(head_dim, a) || dtype != bft::kF32) return cudaErrorInvalidValue;
+  return bft::fused_fwd(head_dim, packed, a);
 }
 
-// qkv3 (3, BT, H, W, C) and dout (BT, H, W, C) in dtype; bias_x, bias_y,
-// scale, packed, head_dim as for bf_axial_fused_fwd.  Outputs: dqkv3 (3, BT,
+// qkv3 (3, BT, H, W, C) and dout (BT, H, W, C) in dtype (float32; bfloat16
+// for K7 at head_dim 64 alone); bias_x, bias_y, scale, packed, head_dim as
+// for bf_axial_fused_fwd.  Outputs: dqkv3 (3, BT,
 // H, W, C) in dtype; float32, written whole: dbias_x (heads, W, W), dbias_y
 // (heads, H, H), dscale (heads, 2).  Scratch: dacc float32 (3, BT, H, W, C)
 // for K6 (else unused), stats float32 (BT, heads, H, W, 3) where max(H, W) >
@@ -109,7 +110,8 @@ extern "C" int bf_axial_fused_bwd(int dtype, int head_dim, int packed, const voi
   a.heads = heads;
   a.stream = static_cast<cudaStream_t>(stream);
   if (!bft::line_shape_ok(head_dim, a)) return cudaErrorInvalidValue;
-  if (dtype == bft::kF32) return bft::fused_bwd<float>(head_dim, packed, a);
-  if (dtype == bft::kBF16) return bft::fused_bwd<__nv_bfloat16>(head_dim, packed, a);
+  if (dtype == bft::kF32) return bft::fused_bwd(head_dim, packed, a);
+  if (dtype == bft::kBF16 && head_dim == 64 && !packed)
+    return bft::line_attention_bwd<__nv_bfloat16, 64, bft::Flavour::kFused>(a);
   return cudaErrorInvalidValue;
 }

@@ -52,7 +52,24 @@
 //     for bit.
 // Lines of 1 to 512 tokens forward; the backward stages four (rows, d) tiles
 // and takes lines while they fit in 128 KB (d = 16: all; d = 64: n <= 256).
+//
+// K7 in bfloat16 (kPlane; replaces bubbleformer_tpu/ops/axial_fused.py:
+// _make_fused, pl.pallas_call :273 forward, :284 backward; _attn_chunk :92,
+// _bwd_chunk :150) is K8 over the rows and then the columns of q, k, v
+// (BT, H, W, heads, d), read in place: a line is a row (tokens 1 apart) or a
+// column (tokens W apart) of the plane, so a staged row's token comes from
+// seg_rows' offset function and its head's d values are one 16-byte-aligned
+// run wherever the tensor's strides put it (v is a strided view of the
+// Dense's output).  Each direction keeps K8's rounding (P_eff and dS in
+// float32, split into bf16 pairs) at its own table and scale; the row pass
+// writes R(0.5 P_eff v), the column pass adds its own R(0.5 P_eff v) and
+// rounds the sum (axial_fused.py:134, :147).  The backward runs K8's on
+// dao = 0.5 dout (exact in bf16) a direction at a time; each direction's
+// dq, dk, dv is rounded, and the column pass adds its own to the row
+// pass's and rounds again (:210-233).
 #pragma once
+
+#include <type_traits>
 
 #include "lane_hopper.cuh"
 
@@ -111,6 +128,27 @@ struct FlashArgs {
   int M, n, heads, groups, per;
 };
 
+// K7's (kPlane; q, k, v and dout unused): pass 0 the BT H rows (n = W),
+// pass 1 the BT W columns (n = H) of (BT, H, W, heads, D) planes; q, k, v
+// (src) and dout (tdo, hdo) read in place; out, half, dq, dk, dv (BT, H, W,
+// C) written.  Its own type, so that K8's kernels keep their argument
+// layout, on which their register counts depend.
+struct PlaneArgs : FlashArgs {
+  Src3 src;
+  size_t tdo, hdo;
+  bf16* half;         // forward: the row pass's R(0.5 P_eff v)
+  int pass, H, W, C;
+};
+
+template <bool kPlane>
+using FlashArgsOf = std::conditional_t<kPlane, PlaneArgs, FlashArgs>;
+
+// K7: the token of position pos of line `line` of the pass (a row, or a
+// column of its frame).
+__device__ __forceinline__ int plane_token(const PlaneArgs& a, int line, int pos) {
+  return a.pass == 0 ? line * a.W + pos : (line / a.W) * a.H * a.W + pos * a.W + line % a.W;
+}
+
 // Rows of segment `seg`: rl[r] the line within the segment (-1: an empty
 // row, or a line at or past M), rp[r] its position, ro[r] the element offset
 // of its token in the head's (M, n, D) plane (-1: none).
@@ -150,6 +188,65 @@ __device__ void stage_plane(bf16* dst, const bf16* __restrict__ src, const int* 
       if (e < total) *reinterpret_cast<uint4*>(dst + sw<D>(e / kV, (e % kV) * 8)) = raw[u];
     }
   }
+}
+
+// K7: segment seg's rows as seg_rows places them, each one's offset then
+// turned into its token in the (BT, H, W) grid (plane_token).
+template <int D>
+__device__ void plane_rows(const Geo& g, int seg, int* rl, int* rp, int* ro, const PlaneArgs& a) {
+  seg_rows<D>(g, seg, rl, rp, ro);
+  for (int r = threadIdx.x; r < g.rows; r += blockDim.x) {  // the rows this thread placed
+    if (ro[r] < 0) continue;
+    const int i = ro[r] / D;
+    ro[r] = plane_token(a, i / g.n, i % g.n);
+  }
+}
+
+// K7: stage_plane of a tensor read in place, ro holding tokens `ts`
+// elements apart in src (src at the head's first value); kHalf: each value
+// halved (dao = 0.5 dout, exact in bf16).  stage_plane's twin, kept apart so
+// that K8's code stays as it was.
+template <int D, bool kHalf>
+__device__ void stage_plane_at(bf16* dst, const bf16* __restrict__ src, size_t ts, const int* ro,
+                               int rows) {
+  constexpr int kV = D / 8;
+  const int total = rows * kV;
+  for (int e0 = threadIdx.x; e0 < total; e0 += blockDim.x * kStageBatch) {
+    uint4 raw[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * blockDim.x;
+      raw[u] = make_uint4(0, 0, 0, 0);
+      if (e < total) {
+        const int o = ro[e / kV];
+        if (o >= 0) raw[u] = ldg16(src + (size_t)o * ts + (e % kV) * 8);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e >= total) continue;
+      if constexpr (kHalf) {
+        float x[8];
+        unpack8(raw[u], x);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[i] *= 0.5f;
+        raw[u] = pack8(x);
+      }
+      *reinterpret_cast<uint4*>(dst + sw<D>(e / kV, (e % kV) * 8)) = raw[u];
+    }
+  }
+}
+
+// K7: a segment's q, k and v (and, backward, dao = 0.5 dout) of head h, read
+// in place.
+template <int D>
+__device__ void stage_plane_qkv(bf16* qs, bf16* ks, bf16* vs, bf16* ds, const PlaneArgs& a,
+                                int h, const int* ro, int rows) {
+  stage_plane_at<D, false>(qs, a.src.q + h * a.src.hq, a.src.tq, ro, rows);
+  stage_plane_at<D, false>(ks, a.src.k + h * a.src.hk, a.src.tk, ro, rows);
+  stage_plane_at<D, false>(vs, a.src.v + h * a.src.hv, a.src.tv, ro, rows);
+  if (ds != nullptr) stage_plane_at<D, true>(ds, a.dout + h * a.hdo, a.tdo, ro, rows);
 }
 
 // The table of head h where the kernels read it: lines of at most
@@ -240,6 +337,44 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[D / 8][
   }
 }
 
+// K7: the tile's rows r0 + g, r0 + g + 8 of acc times mul, rounded, into
+// (BT, H, W, C) dst at the rows' tokens and head h (none where ro is -1);
+// with prev (which may be dst), each added to prev's value there and the
+// sum rounded again.  prev's values are all loaded before the first store:
+// interleaved, a store could alias the next load, and each load would wait
+// out the last one's latency.
+template <int D>
+__device__ __forceinline__ void store_plane(bf16* dst, const bf16* prev,
+                                            const float (&acc)[D / 8][4], int r0, const int* ro,
+                                            int h, int C, float mul, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  size_t at[2];
+  uint32_t old[2][D / 8];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int o = ro[r0 + g + 8 * r];
+    at[r] = o < 0 ? 0 : (size_t)o * C + (size_t)h * D + 2 * t;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      old[r][n8] = prev != nullptr && o >= 0
+                       ? *reinterpret_cast<const uint32_t*>(prev + at[r] + n8 * 8) : 0u;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (ro[r0 + g + 8 * r] < 0) continue;
+#pragma unroll
+    for (int n8 = 0; n8 < D / 8; ++n8) {
+      uint32_t v = pack(mul * acc[n8][2 * r], mul * acc[n8][2 * r + 1]);
+      if (prev != nullptr) {
+        const float2 x = unpack(old[r][n8]), y = unpack(v);
+        v = pack(x.x + y.x, x.y + y.y);
+      }
+      *reinterpret_cast<uint32_t*>(dst + at[r] + n8 * 8) = v;
+    }
+  }
+}
+
 // ---------------------------------------------------------------- forward
 
 template <int D>
@@ -251,9 +386,10 @@ size_t flash_fwd_smem(int n) {
 
 // One segment of one head a block (blockIdx.x = head + heads * segment), a
 // warp a 16-query tile at a time: the exact P over its unit's key chunks
-// (max and sum, then P), P_eff split and times v, rounded once.
-template <int D>
-__global__ void __launch_bounds__(kMaxWarps * 32) flash_fwd_kernel(FlashArgs a) {
+// (max and sum, then P), P_eff split and times v, rounded once (kPlane:
+// half of it, into half or added to half's into out).
+template <int D, bool kPlane>
+__global__ void __launch_bounds__(kMaxWarps * 32) flash_fwd_kernel(FlashArgsOf<kPlane> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Geo geo(a.n, a.M);
   const int h = blockIdx.x % a.heads, seg = blockIdx.x / a.heads, rows = geo.rows, n = a.n;
@@ -265,13 +401,21 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_fwd_kernel(FlashArgs a) 
   int* ro = rp + rows;
   float* tb = reinterpret_cast<float*>(ro + rows);
   const size_t hb = (size_t)h * a.M * n * D;
-  seg_rows<D>(geo, seg, rl, rp, ro);
+  if constexpr (kPlane) {
+    plane_rows<D>(geo, seg, rl, rp, ro, a);
+  } else {
+    seg_rows<D>(geo, seg, rl, rp, ro);
+  }
   int ldt;
   const float* bias = stage_table(a.bias, h, n, tb, &ldt);
   __syncthreads();
-  stage_plane<D>(qs, a.q + hb, ro, rows);
-  stage_plane<D>(ks, a.k + hb, ro, rows);
-  stage_plane<D>(vs, a.v + hb, ro, rows);
+  if constexpr (kPlane) {
+    stage_plane_qkv<D>(qs, ks, vs, nullptr, a, h, ro, rows);
+  } else {
+    stage_plane<D>(qs, a.q + hb, ro, rows);
+    stage_plane<D>(ks, a.k + hb, ro, rows);
+    stage_plane<D>(vs, a.v + hb, ro, rows);
+  }
   __syncthreads();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
   const int nchunk = geo.ru / kChunk;
@@ -301,7 +445,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_fwd_kernel(FlashArgs a) 
       }
       split_product<D>(o, sc, vs, kb + c * kChunk, lane);
     }
-    store_rows<D>(a.out + hb, o, q0, ro, 1.f, lane);
+    if constexpr (kPlane) {
+      store_plane<D>(a.pass == 0 ? a.half : a.out, a.pass == 0 ? nullptr : a.half, o, q0, ro, h,
+                     a.C, 0.5f, lane);
+    } else {
+      store_rows<D>(a.out + hb, o, q0, ro, 1.f, lane);
+    }
   }
 }
 
@@ -339,9 +488,10 @@ __host__ __device__ bool flash_bwd_fits(int n) {
 //      dv = R(P_eff^T dout).
 // At the end the block writes its partials: the table sum (the warps' slots
 // added in warp order, or already in its global slot) and dscale (a shuffle
-// tree a warp, then the warps in order).
-template <int D>
-__global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_kernel(FlashArgs a) {
+// tree a warp, then the warps in order).  kPlane: dao = 0.5 dout, and the
+// column pass adds its rounded dq, dk, dv to the row pass's.
+template <int D, bool kPlane>
+__global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_kernel(FlashArgsOf<kPlane> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Geo geo(a.n, a.M);
   const int h = blockIdx.x % a.heads, grp = blockIdx.x / a.heads, rows = geo.rows, n = a.n;
@@ -376,12 +526,20 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_kernel(FlashArgs a) 
   for (int seg = s0; seg < s1; ++seg) {
     const bool first = seg == s0;
     __syncthreads();  // the last segment's reads of shared memory are done
-    seg_rows<D>(geo, seg, rl, rp, ro);
+    if constexpr (kPlane) {
+      plane_rows<D>(geo, seg, rl, rp, ro, a);
+    } else {
+      seg_rows<D>(geo, seg, rl, rp, ro);
+    }
     __syncthreads();
-    stage_plane<D>(qs, a.q + hb, ro, rows);
-    stage_plane<D>(ks, a.k + hb, ro, rows);
-    stage_plane<D>(vs, a.v + hb, ro, rows);
-    stage_plane<D>(ds, a.dout + hb, ro, rows);
+    if constexpr (kPlane) {
+      stage_plane_qkv<D>(qs, ks, vs, ds, a, h, ro, rows);
+    } else {
+      stage_plane<D>(qs, a.q + hb, ro, rows);
+      stage_plane<D>(ks, a.k + hb, ro, rows);
+      stage_plane<D>(vs, a.v + hb, ro, rows);
+      stage_plane<D>(ds, a.dout + hb, ro, rows);
+    }
     __syncthreads();
 
     // 1. Query tiles.
@@ -453,7 +611,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_kernel(FlashArgs a) 
         }
         split_product<D>(dq, sc, ks, k0, lane);
       }
-      store_rows<D>(a.dq + hb, dq, q0, ro, head_scaling<D>(), lane);
+      if constexpr (kPlane) {
+        store_plane<D>(a.dq, a.pass == 0 ? nullptr : a.dq, dq, q0, ro, h, a.C,
+                       head_scaling<D>(), lane);
+      } else {
+        store_rows<D>(a.dq + hb, dq, q0, ro, head_scaling<D>(), lane);
+      }
     }
     __syncthreads();
 
@@ -493,7 +656,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_kernel(FlashArgs a) 
           }
           split_product<D>(acc, sc, which == 0 ? qs : ds, i0, lane);
         }
-        if (which == 0) {
+        if constexpr (kPlane) {
+          bf16* dst = which == 0 ? a.dk : a.dv;
+          store_plane<D>(dst, a.pass == 0 ? nullptr : dst, acc, k0, ro, h, a.C,
+                         which == 0 ? head_scaling<D>() : 1.f, lane);
+        } else if (which == 0) {
           store_rows<D>(a.dk + hb, acc, k0, ro, head_scaling<D>(), lane);
         } else {
           store_rows<D>(a.dv + hb, acc, k0, ro, 1.f, lane);
@@ -531,17 +698,17 @@ __global__ void __launch_bounds__(kMaxWarps * 32) flash_bwd_kernel(FlashArgs a) 
 
 template <int D>
 int flash_fwd(const FlashArgs& a, cudaStream_t stream) {
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, false>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)flash_fwd_smem<D>(kMaxRows));
   if (e != cudaSuccess) return e;
   const Geo geo(a.n, a.M);
-  flash_fwd_kernel<D><<<geo.segments() * a.heads, geo.warps() * 32, flash_fwd_smem<D>(a.n),
-                        stream>>>(a);
+  flash_fwd_kernel<D, false><<<geo.segments() * a.heads, geo.warps() * 32,
+                               flash_fwd_smem<D>(a.n), stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kPlane>
 cudaError_t flash_bwd_attr() {
   int most = 1;
   for (int n = 1; n <= kMaxRows; ++n) {
@@ -549,17 +716,18 @@ cudaError_t flash_bwd_attr() {
   }
   size_t top = 0;
   for (int n = 1; n <= most; ++n) top = flash_bwd_smem<D>(n) > top ? flash_bwd_smem<D>(n) : top;
-  return cudaFuncSetAttribute(flash_bwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)top);
+  return cudaFuncSetAttribute(flash_bwd_kernel<D, kPlane>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)top);
 }
 
-// Blocks of the backward for lines of n tokens one SM holds at once.
-template <int D>
+// Blocks of the backward (K8's, or kPlane K7's) for lines of n tokens one
+// SM holds at once.
+template <int D, bool kPlane = false>
 int flash_bwd_resident(int n, int* blocks) {
   if (!flash_bwd_fits<D>(n)) return cudaErrorInvalidValue;
-  const cudaError_t e = flash_bwd_attr<D>();
+  const cudaError_t e = flash_bwd_attr<D, kPlane>();
   if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_kernel<D>,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_bwd_kernel<D, kPlane>,
                                                        Geo(n, 1).warps() * 32,
                                                        flash_bwd_smem<D>(n));
 }
@@ -573,12 +741,12 @@ int flash_bwd(FlashArgs a, float* part, float* dbias, float* dscale, cudaStream_
   const Geo geo(a.n, a.M);
   if (!flash_bwd_fits<D>(a.n) || !plan_ok(geo.segments(), a.groups, a.per))
     return cudaErrorInvalidValue;
-  cudaError_t e = flash_bwd_attr<D>();
+  cudaError_t e = flash_bwd_attr<D, false>();
   if (e != cudaSuccess) return e;
   a.part_bias = part;
   a.part_scale = part + (size_t)a.groups * a.heads * a.n * a.n;
-  flash_bwd_kernel<D><<<a.groups * a.heads, geo.warps() * 32, flash_bwd_smem<D>(a.n),
-                        stream>>>(a);
+  flash_bwd_kernel<D, false><<<a.groups * a.heads, geo.warps() * 32, flash_bwd_smem<D>(a.n),
+                               stream>>>(a);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   ParamSumArgs sum{};
   sum.part_bias[0] = a.part_bias;
@@ -586,6 +754,73 @@ int flash_bwd(FlashArgs a, float* part, float* dbias, float* dscale, cudaStream_
   sum.bias_groups[0] = sum.scale_units[0] = a.groups;
   sum.L[0] = a.n;
   sum.dbias[0] = dbias;
+  sum.dscale = dscale;
+  sum.heads = a.heads;
+  sum.D = D;
+  return launch_param_sum(sum, stream);
+}
+
+// K7's pass p (0 rows, 1 columns) of BT frames: its lines, its table and
+// its scale column (the kernels read column 0 of (heads, 2) from `scale`).
+inline void plane_pass(PlaneArgs* a, int pass, int BT, const float* bias_x, const float* bias_y,
+                       const float* scale) {
+  a->pass = pass;
+  a->n = pass == 0 ? a->W : a->H;
+  a->M = BT * (pass == 0 ? a->H : a->W);
+  a->bias = pass == 0 ? bias_x : bias_y;
+  a->scale = scale + pass;
+}
+
+// K7's forward: the rows into a.half, then the columns into a.out.
+template <int D>
+int plane_fwd(PlaneArgs a, int BT, const float* bias_x, const float* bias_y, const float* scale,
+              cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D, true>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)flash_fwd_smem<D>(kMaxRows));
+  if (e != cudaSuccess) return e;
+  for (int pass = 0; pass < 2; ++pass) {
+    plane_pass(&a, pass, BT, bias_x, bias_y, scale);
+    const Geo geo(a.n, a.M);
+    flash_fwd_kernel<D, true><<<geo.segments() * a.heads, geo.warps() * 32,
+                                flash_fwd_smem<D>(a.n), stream>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+// K7's backward: the rows, then the columns (pass p's blocks groups[p] of
+// per[p] segments a head, its partials carved from `part` in turn: the
+// (groups, heads, n, n) table sums, then the (heads, groups) scale sums),
+// then the fixed-order sum of both passes' partials into dbias_x, dbias_y
+// and dscale (heads, 2).
+template <int D>
+int plane_bwd(PlaneArgs a, int BT, const float* bias_x, const float* bias_y, const float* scale,
+              const int (&groups)[2], const int (&per)[2], float* part, float* dbias_x,
+              float* dbias_y, float* dscale, cudaStream_t stream) {
+  cudaError_t e = flash_bwd_attr<D, true>();
+  if (e != cudaSuccess) return e;
+  ParamSumArgs sum{};
+  for (int pass = 0; pass < 2; ++pass) {
+    plane_pass(&a, pass, BT, bias_x, bias_y, scale);
+    const Geo geo(a.n, a.M);
+    if (!flash_bwd_fits<D>(a.n) || !plan_ok(geo.segments(), groups[pass], per[pass]))
+      return cudaErrorInvalidValue;
+    a.groups = groups[pass];
+    a.per = per[pass];
+    a.part_bias = part;
+    a.part_scale = part + (size_t)a.groups * a.heads * a.n * a.n;
+    part = a.part_scale + (size_t)a.heads * a.groups;
+    flash_bwd_kernel<D, true><<<a.groups * a.heads, geo.warps() * 32, flash_bwd_smem<D>(a.n),
+                                stream>>>(a);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    sum.part_bias[pass] = a.part_bias;
+    sum.part_scale[pass] = a.part_scale;
+    sum.bias_groups[pass] = sum.scale_units[pass] = a.groups;
+    sum.L[pass] = a.n;
+  }
+  sum.dbias[0] = dbias_x;
+  sum.dbias[1] = dbias_y;
   sum.dscale = dscale;
   sum.heads = a.heads;
   sum.D = D;

@@ -24,7 +24,19 @@
 //            kMega's rounding from the qkv the block's Dense wrote, its
 //            output 0.5 o_r + 0.5 o_c rounded once and not kept in float32
 //            (the row pass's half in a float32 scratch); its backward is
-//            kMega's.
+//            kMega's;
+//   kFusedPacked  K6 (axial_fused_packed.py:_fwd_kernel :133, _bwd_chunk
+//            :192, _bwd_kernel :230): kFusedBlock without the qk-LN, from q,
+//            k and v already normalised, each read in place with its own
+//            token and head strides (Src3: v is a strided view of the
+//            Dense's output); its backward writes the two directions'
+//            d(q, k, v), summed in float32, rounded once into three
+//            (BT, H, W, C) tensors, and no LN partials.  Its code is apart
+//            from the other modes' (if constexpr) and its kernels take
+//            arguments of their own (PackedFwdArgs, PackedBwdArgs): the
+//            other modes' kernels keep their code and their argument
+//            layout, on which their register counts depend (a field added
+//            to FwdArgs and BwdArgs moved them by up to 23).
 //
 // What it computes, per head and direction (rows: L = W, table bias_x, scale
 // s_x; columns: L = H, bias_y, s_y), R rounding to bf16:
@@ -80,6 +92,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 #include "param_sums.cuh"
@@ -91,13 +104,13 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 // The rounding a kernel follows (file comment).
-enum class Mode { kLane, kLanePx, kMega, kFusedBlock };
+enum class Mode { kLane, kLanePx, kMega, kFusedBlock, kFusedPacked };
 
-// K5's and K4's rounding: R(P) as the operand of P v, the window mean and
-// the directions' sum in float32, and the row pass's d(q, k, v) in a float32
-// scratch (file comment).
+// K5's, K4's and K6's rounding: R(P) as the operand of P v, the window mean
+// and the directions' sum in float32, and the row pass's d(q, k, v) in a
+// float32 scratch (file comment).
 __host__ __device__ constexpr bool sums_f32(Mode M) {
-  return M == Mode::kMega || M == Mode::kFusedBlock;
+  return M == Mode::kMega || M == Mode::kFusedBlock || M == Mode::kFusedPacked;
 }
 
 constexpr int kMaxWarps = 8;
@@ -381,6 +394,103 @@ __device__ void stage_qkv(bf16* qs, bf16* ks, bf16* vs, const bf16* __restrict__
   }
 }
 
+// K6's q, k and v, read in place: each tensor's head h of a token at
+// token * t + h * hd elements (its D values contiguous, 16-byte aligned).
+struct Src3 {
+  const bf16 *q, *k, *v;
+  size_t tq, tk, tv, hq, hk, hv;
+};
+
+// A tensor read in place by 16-byte loads: its base and both strides (in
+// bf16 elements) multiples of 16 bytes.
+inline bool in_place_ok(const void* p, long long token_stride, long long head_stride) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && token_stride >= 0 && token_stride % 8 == 0 &&
+         head_stride >= 0 && head_stride % 8 == 0;
+}
+
+// q, k and v with their strides (q's token and head strides, then k's,
+// then v's), checked.
+inline bool make_src3(Src3* s, const void* q, const void* k, const void* v,
+                      const long long* strides) {
+  const void* p[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    if (!in_place_ok(p[i], strides[2 * i], strides[2 * i + 1])) return false;
+  }
+  s->q = static_cast<const bf16*>(q);
+  s->k = static_cast<const bf16*>(k);
+  s->v = static_cast<const bf16*>(v);
+  s->tq = strides[0];
+  s->hq = strides[1];
+  s->tk = strides[2];
+  s->hk = strides[3];
+  s->tv = strides[4];
+  s->hv = strides[5];
+  return true;
+}
+
+// kFusedPacked: q, k and v of the `rows` positions of a line for head h into
+// swizzled tiles as they are (already normalised); positions at or beyond L
+// are zero.  A thread a 16-byte vector of one of the three, kStageBatch
+// loads in flight, as stage_qkv.
+template <int D>
+__device__ void stage_qkv3(bf16* qs, bf16* ks, bf16* vs, const Src3& s, const Line& line, int h,
+                           int rows) {
+  constexpr int kVpc = D / 8, kVpt = 3 * kVpc;
+  const int tpi = blockDim.x / kVpt;  // tokens an iteration
+  const int tin = threadIdx.x / kVpt, vec = threadIdx.x % kVpt;
+  const int comp = vec / kVpc, col = (vec % kVpc) * 8;
+  const bool on = tin < tpi;
+  bf16* dst = comp == 0 ? qs : comp == 1 ? ks : vs;
+  const bf16* src = (comp == 0 ? s.q + h * s.hq : comp == 1 ? s.k + h * s.hk : s.v + h * s.hv) +
+                    col;
+  const size_t ts = comp == 0 ? s.tq : comp == 1 ? s.tk : s.tv;
+  for (int t0 = 0; t0 < rows; t0 += tpi * kStageBatch) {
+    uint4 raw[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int tok = t0 + u * tpi + tin;
+      raw[u] = make_uint4(0, 0, 0, 0);
+      if (on && tok < line.L) raw[u] = ldg16(src + line.token(tok) * ts);
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int tok = t0 + u * tpi + tin;
+      if (on && tok < rows) *reinterpret_cast<uint4*>(dst + sw<D>(tok, col)) = raw[u];
+    }
+  }
+}
+
+// kFusedPacked: dao = R(0.5 dout) of the positions r0 .. r0 + n of a line
+// for head h into a swizzled tile, dout read in place (`head`: its head h of
+// token 0, a token's values `ts` elements after the last's).  stage_dao's
+// twin, kept apart so that the other modes' code stays as it was.
+template <int D>
+__device__ void stage_dao_at(bf16* ds, const bf16* __restrict__ head, size_t ts,
+                             const Line& line, int r0, int n) {
+  constexpr int kVpr = D / 8;
+  const int rpi = blockDim.x / kVpr, rin = threadIdx.x / kVpr, col = (threadIdx.x % kVpr) * 8;
+  const bf16* src = head + col;
+  for (int t0 = 0; t0 < n; t0 += rpi * kStageBatch) {
+    uint4 raw[kStageBatch];
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int r = t0 + u * rpi + rin;
+      raw[u] = make_uint4(0, 0, 0, 0);
+      if (r < n && r0 + r < line.L) raw[u] = ldg16(src + line.token(r0 + r) * ts);
+    }
+#pragma unroll
+    for (int u = 0; u < kStageBatch; ++u) {
+      const int r = t0 + u * rpi + rin;
+      if (r >= n) continue;
+      float x[8];
+      unpack8(raw[u], x);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] *= 0.5f;
+      *reinterpret_cast<uint4*>(ds + sw<D>(r, col)) = pack8(x);
+    }
+  }
+}
+
 // dao = R(0.5 dout) of the positions r0 .. r0 + n of a line for head h into
 // a swizzled tile; positions at or beyond L are zero.  kStageBatch loads in
 // flight a thread, as stage_qkv.
@@ -471,9 +581,19 @@ struct FwdArgs {
   bf16* row_out;       // (BT, H, W, C): the row pass's rounded output (K2)
   bf16* out;           // (BT, H, W, C); kMega: ao rounded
   float* ao;           // kMega: (BT, H, W, C) float32, 0.5 o_r + 0.5 o_c;
-                       // kFusedBlock: the row pass's half alone (scratch)
+                       // kFusedBlock, kFusedPacked: the row pass's half alone (scratch)
   int H, W, C, heads;
 };
+
+// kFusedPacked's forward: q, k, v (BT, H, W, heads, D) read in place (qkv
+// and ln unused).
+struct PackedFwdArgs : FwdArgs {
+  Src3 src;
+};
+
+// The arguments of a mode's forward kernel.
+template <Mode M>
+using FwdArgsOf = std::conditional_t<M == Mode::kFusedPacked, PackedFwdArgs, FwdArgs>;
 
 template <int D, Mode M>
 size_t fwd_smem_bytes(int L) {
@@ -499,7 +619,7 @@ __device__ __forceinline__ void line_column_sum(float* vsum, const bf16* vs, int
 // with the window mean in float32; pass 0 writes half of it to ao, pass 1
 // adds its half and writes ao and ao rounded (out).
 template <int D, Mode M>
-__global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int pass) {
+__global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgsOf<M> a, int pass) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x % a.heads;
   const Line line = make_line(pass, a.H, a.W, blockIdx.x / a.heads);
@@ -508,7 +628,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_fwd_kernel(FwdArgs a, int
   bf16* ks = qs + rows * D;
   bf16* vs = ks + rows * D;
   float* vsum = reinterpret_cast<float*>(vs + rows * D);  // kMega: (D)
-  stage_qkv<D>(qs, ks, vs, a.qkv, line, h, 3 * a.C, a.ln, rows);
+  if constexpr (M == Mode::kFusedPacked) {
+    stage_qkv3<D>(qs, ks, vs, a.src, line, h, rows);
+  } else {
+    stage_qkv<D>(qs, ks, vs, a.qkv, line, h, 3 * a.C, a.ln, rows);
+  }
   __syncthreads();
   if constexpr (sums_f32(M)) {
     line_column_sum<D>(vsum, vs, L);
@@ -596,6 +720,18 @@ struct BwdArgs {
   int H, W, C, heads;
   int lines, per;      // lines of the pass (BT x H or BT x W); lines a block
 };
+
+// kFusedPacked's backward (qkv, ln, dqkv and part_ln unused): q, k, v and
+// dout (tdo, hdo) read in place; dq, dk, dv (BT, H, W, C) each.
+struct PackedBwdArgs : BwdArgs {
+  Src3 src;
+  size_t tdo, hdo;
+  bf16 *dq, *dk, *dv;
+};
+
+// The arguments of a mode's backward kernels.
+template <Mode M>
+using BwdArgsOf = std::conditional_t<M == Mode::kFusedPacked, PackedBwdArgs, BwdArgs>;
 
 template <int D, Mode M>
 size_t bwd_long_smem_bytes(int L) {
@@ -753,11 +889,42 @@ __device__ __forceinline__ void emit_v_grad(const float (&y)[D / 8][4], int r0, 
   }
 }
 
+// kFusedPacked: a 16-row tile's gradient of q, k or v (comp 0, 1, 2), y in
+// the accumulator layout: pass 0 keeps it in dacc (float32, (BT, H, W, 3C));
+// pass 1 adds it to its own and writes the sum, rounded once, into out (dq,
+// dk or dv, (BT, H, W, C)).
+template <int D>
+__device__ __forceinline__ void emit_packed_grad(const float (&y)[D / 8][4], int r0, int comp,
+                                                 const Line& line, int h, const PackedBwdArgs& a,
+                                                 int pass, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  bf16* out = comp == 0 ? a.dq : comp == 1 ? a.dk : a.dv;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = r0 + g + 8 * r;
+    if (i >= line.L) continue;
+    const size_t tok = line.token(i);
+    float* f = a.dacc + tok * 3 * a.C + (size_t)h * 3 * D + comp * D + 2 * t;
+    bf16* o = out + tok * a.C + (size_t)h * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      float2* v = reinterpret_cast<float2*>(f + n * 8);
+      if (pass == 0) {
+        *v = make_float2(y[n][2 * r], y[n][2 * r + 1]);
+      } else {
+        const float2 kept = *v;
+        *reinterpret_cast<uint32_t*>(o + n * 8) = pack(y[n][2 * r] + kept.x,
+                                                       y[n][2 * r + 1] + kept.y);
+      }
+    }
+  }
+}
+
 // The end of a backward block: its partials, each summed in a fixed order —
 // the table sum (from shared memory when `accb` is given; else it is in the
-// slot already), the scale sum (the threads' `dsc`) and the LN sums (the
-// warps' slots).
-template <int D>
+// slot already), the scale sum (the threads' `dsc`) and, kLn, the LN sums
+// (the warps' slots).
+template <int D, bool kLn = true>
 __device__ void write_partials(const BwdArgs& a, int grp, int h, int L, const float* accb,
                                int ldb, float* slot, float dsc, const float* wln, float* red) {
   const int groups = (a.lines + a.per - 1) / a.per;
@@ -774,10 +941,12 @@ __device__ void write_partials(const BwdArgs& a, int grp, int h, int L, const fl
     for (int w = 0; w < nw; ++w) v += red[w];
     a.part_scale[(size_t)h * groups + grp] = v;
   }
-  for (int e = threadIdx.x; e < 4 * D; e += blockDim.x) {
-    float v = 0.f;
-    for (int w = 0; w < nw; ++w) v += wln[w * 4 * D + e];
-    a.part_ln[(size_t)e * groups * a.heads + grp * a.heads + h] = v;
+  if constexpr (kLn) {
+    for (int e = threadIdx.x; e < 4 * D; e += blockDim.x) {
+      float v = 0.f;
+      for (int w = 0; w < nw; ++w) v += wln[w * 4 * D + e];
+      a.part_ln[(size_t)e * groups * a.heads + grp * a.heads + h] = v;
+    }
   }
 }
 
@@ -810,8 +979,8 @@ __device__ __forceinline__ void add_mean_grad(float (&y)[D / 8][4], const float*
 // sums dao over the line in pass 1 (each window is staged once there, in
 // order) for dv's (1 - s)/L sum_i dao_i.
 template <int D, Mode M, int kMinBlocks>
-__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kernel(BwdArgs a,
-                                                                                 int pass) {
+__global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kernel(
+    BwdArgsOf<M> a, int pass) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x % a.heads, grp = blockIdx.x / a.heads;
   const int L = pass == 0 ? a.W : a.H, rows = staged_rows(L), drows = kLongDaoRows;
@@ -841,7 +1010,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
     const bool first = li == l0;
     __syncthreads();  // the last line's reads of shared memory are done
     if (sums_f32(M) && threadIdx.x < D) dsum[threadIdx.x] = 0.f;
-    stage_qkv<D>(qs, ks, vs, a.qkv, line, h, C3, a.ln, rows);
+    if constexpr (M == Mode::kFusedPacked) {
+      stage_qkv3<D>(qs, ks, vs, a.src, line, h, rows);
+    } else {
+      stage_qkv<D>(qs, ks, vs, a.qkv, line, h, C3, a.ln, rows);
+    }
     int dao0 = -1;
     // Every thread calls it with the same row: dao rows [r0, r0 + drows)
     // held, r0 the multiple of drows at or below `row`.
@@ -849,7 +1022,11 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
       const int r0 = row / drows * drows;
       if (r0 == dao0) return;
       __syncthreads();
-      stage_dao<D>(ds, a.dout, line, h, a.C, r0, drows);
+      if constexpr (M == Mode::kFusedPacked) {
+        stage_dao_at<D>(ds, a.dout + h * a.hdo, a.tdo, line, r0, drows);
+      } else {
+        stage_dao<D>(ds, a.dout, line, h, a.C, r0, drows);
+      }
       __syncthreads();
       dao0 = r0;
     };
@@ -939,11 +1116,19 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[n][e] *= head_scaling<D>();
           }
-          emit_ln_grad<D, M>(acc, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
-                             lane);
+          if constexpr (M == Mode::kFusedPacked) {
+            emit_packed_grad<D>(acc, k0, 1, line, h, a, pass, lane);
+          } else {
+            emit_ln_grad<D, M>(acc, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
+                               lane);
+          }
         } else {
           if constexpr (sums_f32(M)) add_mean_grad<D>(acc, dsum, (1.f - s) / L, lane);
-          emit_v_grad<D, M>(acc, k0, line, h, C3, a.dqkv, a.dacc, pass, lane);
+          if constexpr (M == Mode::kFusedPacked) {
+            emit_packed_grad<D>(acc, k0, 2, line, h, a, pass, lane);
+          } else {
+            emit_v_grad<D, M>(acc, k0, line, h, C3, a.dqkv, a.dacc, pass, lane);
+          }
         }
       }
     }
@@ -994,12 +1179,20 @@ __global__ void __launch_bounds__(kMaxWarps * 32, kMinBlocks) lane_bwd_long_kern
 #pragma unroll
         for (int e = 0; e < 4; ++e) dq[n][e] *= head_scaling<D>();
       }
-      emit_ln_grad<D, M>(dq, q0, 0, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
-                         lane);
+      if constexpr (M == Mode::kFusedPacked) {
+        emit_packed_grad<D>(dq, q0, 0, line, h, a, pass, lane);
+      } else {
+        emit_ln_grad<D, M>(dq, q0, 0, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
+                           lane);
+      }
     }
   }
 
-  write_partials<D>(a, grp, h, L, nullptr, 0, slot, dsc, wln, red);
+  if constexpr (M == Mode::kFusedPacked) {
+    write_partials<D, false>(a, grp, h, L, nullptr, 0, slot, dsc, wln, red);
+  } else {
+    write_partials<D>(a, grp, h, L, nullptr, 0, slot, dsc, wln, red);
+  }
 }
 
 // Lines of at most kShortMax tokens: the line's q, k, v, dao and, once
@@ -1022,7 +1215,8 @@ size_t bwd_short_smem_bytes(int L) {
 }
 
 template <int D, Mode M>
-__global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs a, int pass) {
+__global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgsOf<M> a,
+                                                                        int pass) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x % a.heads, grp = blockIdx.x / a.heads;
   const int L = pass == 0 ? a.W : a.H, rows = staged_rows(L), nchunk = rows / kChunk;
@@ -1058,8 +1252,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
     const Line line = make_line(pass, a.H, a.W, li);
     const bool first = li == l0;
     __syncthreads();  // the last line's reads of shared memory are done
-    stage_qkv<D>(qs, ks, vs, a.qkv, line, h, C3, a.ln, rows);
-    stage_dao<D>(ds, a.dout, line, h, a.C, 0, rows);
+    if constexpr (M == Mode::kFusedPacked) {
+      stage_qkv3<D>(qs, ks, vs, a.src, line, h, rows);
+      stage_dao_at<D>(ds, a.dout + h * a.hdo, a.tdo, line, 0, rows);
+    } else {
+      stage_qkv<D>(qs, ks, vs, a.qkv, line, h, C3, a.ln, rows);
+      stage_dao<D>(ds, a.dout, line, h, a.C, 0, rows);
+    }
     __syncthreads();
     if constexpr (sums_f32(M)) line_column_sum<D>(dsum, ds, L);  // read after step 1
 
@@ -1114,8 +1313,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
 #pragma unroll
         for (int e = 0; e < 4; ++e) dq[n][e] *= head_scaling<D>();
       }
-      emit_ln_grad<D, M>(dq, q0, 0, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
-                         lane);
+      if constexpr (M == Mode::kFusedPacked) {
+        emit_packed_grad<D>(dq, q0, 0, line, h, a, pass, lane);
+      } else {
+        emit_ln_grad<D, M>(dq, q0, 0, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
+                           lane);
+      }
     }
     __syncthreads();
 
@@ -1150,19 +1353,31 @@ __global__ void __launch_bounds__(kMaxWarps * 32) lane_bwd_short_kernel(BwdArgs 
 #pragma unroll
         for (int e = 0; e < 4; ++e) dk[n][e] *= head_scaling<D>();
       }
-      emit_ln_grad<D, M>(dk, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
-                         lane);
+      if constexpr (M == Mode::kFusedPacked) {
+        emit_packed_grad<D>(dk, k0, 1, line, h, a, pass, lane);
+      } else {
+        emit_ln_grad<D, M>(dk, k0, 1, line, h, C3, a.qkv, a.ln, a.dqkv, a.dacc, wslot, pass,
+                           lane);
+      }
       if constexpr (sums_f32(M)) add_mean_grad<D>(dv, dsum, (1.f - s) / L, lane);
-      emit_v_grad<D, M>(dv, k0, line, h, C3, a.dqkv, a.dacc, pass, lane);
+      if constexpr (M == Mode::kFusedPacked) {
+        emit_packed_grad<D>(dv, k0, 2, line, h, a, pass, lane);
+      } else {
+        emit_v_grad<D, M>(dv, k0, line, h, C3, a.dqkv, a.dacc, pass, lane);
+      }
     }
   }
-  write_partials<D>(a, grp, h, L, smem_acc ? accb : nullptr, ldb, slot, dsc, wln, red);
+  if constexpr (M == Mode::kFusedPacked) {
+    write_partials<D, false>(a, grp, h, L, smem_acc ? accb : nullptr, ldb, slot, dsc, wln, red);
+  } else {
+    write_partials<D>(a, grp, h, L, smem_acc ? accb : nullptr, ldb, slot, dsc, wln, red);
+  }
 }
 
 // ------------------------------------------------------------- launchers
 
 template <int D, Mode M>
-int lane_fwd(const FwdArgs& a, int BT, cudaStream_t stream) {
+int lane_fwd(const FwdArgsOf<M>& a, int BT, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(lane_fwd_kernel<D, M>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)fwd_smem_bytes<D, M>(512));
@@ -1176,19 +1391,20 @@ int lane_fwd(const FwdArgs& a, int BT, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-using BwdKernel = void (*)(BwdArgs, int);
+template <Mode M>
+using BwdKernel = void (*)(BwdArgsOf<M>, int);
 
 // The backward kernel for lines of L tokens and its dynamic shared memory,
 // each kernel's shared-memory limit set for its longest line.  The launches
 // and the host's plan of blocks (lane_bwd_resident) both take it from here.
 template <int D, Mode M>
-cudaError_t bwd_kernel(int L, BwdKernel* kernel, size_t* smem) {
+cudaError_t bwd_kernel(int L, BwdKernel<M>* kernel, size_t* smem) {
   // At head dim 64 the backward needs more registers than two blocks of 8
   // warps an SM leave: capped at 128 they spilled and ran ~1.6x slower (both
   // kernels; NVIDIA H100 80GB HBM3, 700.00 W).  At head dim 16 the cap costs
   // the long kernel nothing and doubles its blocks.
-  const BwdKernel long_kernel = lane_bwd_long_kernel<D, M, D == 64 ? 1 : 2>;
-  const BwdKernel short_kernel = lane_bwd_short_kernel<D, M>;
+  const BwdKernel<M> long_kernel = lane_bwd_long_kernel<D, M, D == 64 ? 1 : 2>;
+  const BwdKernel<M> short_kernel = lane_bwd_short_kernel<D, M>;
   cudaError_t e = cudaFuncSetAttribute(long_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)bwd_long_smem_bytes<D, M>(512));
   if (e != cudaSuccess) return e;
@@ -1204,7 +1420,7 @@ cudaError_t bwd_kernel(int L, BwdKernel* kernel, size_t* smem) {
 // current device holds at once (its registers, shared memory and block size).
 template <int D, Mode M>
 int lane_bwd_resident(int L, int* blocks) {
-  BwdKernel kernel;
+  BwdKernel<M> kernel;
   size_t smem;
   const cudaError_t e = bwd_kernel<D, M>(L, &kernel, &smem);
   if (e != cudaSuccess) return e;
@@ -1247,9 +1463,9 @@ inline Partials carve_partials(float* part, const int (&groups)[2], int heads, i
 
 // One pass (groups blocks of per lines a head) into its partials.
 template <int D, Mode M>
-int lane_bwd_pass(const BwdArgs& base, int BT, int pass, int groups, int per,
+int lane_bwd_pass(const BwdArgsOf<M>& base, int BT, int pass, int groups, int per,
                   const Partials& part, cudaStream_t stream) {
-  BwdArgs a = base;
+  BwdArgsOf<M> a = base;
   const int L = pass == 0 ? a.W : a.H;
   a.lines = BT * (pass == 0 ? a.H : a.W);
   if (!plan_ok(a.lines, groups, per)) return cudaErrorInvalidValue;
@@ -1257,7 +1473,7 @@ int lane_bwd_pass(const BwdArgs& base, int BT, int pass, int groups, int per,
   a.part_bias = part.bias[pass];
   a.part_scale = part.scale[pass];
   a.part_ln = part.ln[pass];
-  BwdKernel kernel;
+  BwdKernel<M> kernel;
   size_t smem;
   cudaError_t e = bwd_kernel<D, M>(L, &kernel, &smem);
   if (e != cudaSuccess) return e;
@@ -1291,7 +1507,7 @@ cudaError_t lane_bwd_sum(const BwdArgs& base, const int (&groups)[2], const Part
 
 // Both passes (groups[p] blocks of per[p] lines a head), then the sums.
 template <int D, Mode M>
-int lane_bwd(const BwdArgs& base, int BT, const int (&groups)[2], const int (&per)[2],
+int lane_bwd(const BwdArgsOf<M>& base, int BT, const int (&groups)[2], const int (&per)[2],
              const Partials& part, float* dbias_x, float* dbias_y, float* dscale, float* dln,
              cudaStream_t stream) {
   for (int pass = 0; pass < 2; ++pass) {
@@ -1310,6 +1526,7 @@ int resident_lane(int head_dim, int L, int* blocks);     // axial_lane_hopper.cu
 int resident_lane_px(int head_dim, int L, int* blocks);  // axial_lane_px.cu
 int resident_mega(int head_dim, int L, int* blocks);     // axial_block_mega.cu
 int resident_fused_block(int head_dim, int L, int* blocks);  // axial_lane_hopper.cu
+int resident_fused_packed(int head_dim, int L, int* blocks);  // axial_lane_hopper.cu
 
 }  // namespace lane
 }  // namespace bft

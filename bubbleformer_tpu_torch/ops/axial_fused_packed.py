@@ -25,11 +25,30 @@ This is K4's attention without its in-kernel LayerNorm: K4
 kernels import this module's helpers.
 
 :func:`fused_axial_attention_packed` is a ``torch.autograd.Function``.  On
-CUDA tensors its forward and backward launch ``csrc/axial_fused.cu`` (the
-line kernels in their kPacked flavour: head dims 16 and 64, lines of up to
-512 tokens; any other shape raises); on CPU tensors
-:func:`fused_packed_plain` and :func:`fused_packed_bwd_plain`; on any other
-device they raise.
+CUDA tensors its forward and backward launch hand-written kernels, chosen by
+dtype in one place (:func:`fused_packed_kernels`): bfloat16 runs K4's Hopper
+kernels without the qk-LN (``csrc/lane_hopper.cuh``, ``Mode::kFusedPacked``;
+C entries ``csrc/axial_lane_hopper.cu``: q, k and v read in place with their
+own strides, as the block's views hand them over, every product on the
+tensor cores, the row pass's half of the output and its ``d(q, k, v)`` in
+float32 scratches; :func:`fused_packed_hopper_fwd`,
+:func:`fused_packed_hopper_bwd`); float32 runs the line kernels of
+``csrc/axial_fused.cu`` in their kPacked flavour
+(:func:`fused_packed_line_fwd`, :func:`fused_packed_line_bwd`; K7 takes
+them in its kFused flavour, ``ops/axial_fused.py``).  Both take head dims
+16 and 64 and lines of up to 512 tokens (any other shape raises) and sum
+the table and scale gradients in a fixed order: they repeat bit for bit.
+On CPU tensors :func:`fused_packed_plain` and :func:`fused_packed_bwd_plain`;
+on any other device they raise.
+
+The line kernels read one ``(3, BT, H, W, C)`` tensor of q, k and v, so
+their wrappers (:func:`split_fwd_cuda`, :func:`split_bwd_cuda`) stack the
+three into one copy, and copy ``do``, before each launch: the float32
+paths pay that copy (94 MB written and read at the training shape), and so
+does K7's bfloat16 backward on lines its Hopper backward does not stage.
+The bfloat16 Hopper paths read the views in place (a view the kernels
+cannot read, :func:`~bubbleformer_tpu_torch._build.in_place_strides`,
+raises, naming it) and copy nothing.
 """
 from __future__ import annotations
 
@@ -42,8 +61,10 @@ from bubbleformer_tpu_torch.layers.norm import accumulation_dtype
 from bubbleformer_tpu_torch.ops.attention import from_cols, to_cols, to_rows
 from bubbleformer_tpu_torch.ops.axial_lane import (
     LINE_TILE,
+    MODE_FUSED_PACKED,
     LineAttention,
     check_line_shape,
+    lane_bwd_scratch,
     line_bwd_scratch,
     line_tables,
 )
@@ -148,18 +169,28 @@ def fused_packed_bwd_plain(
     return (dq.to(dt), dk.to(dt), dv.to(dt), *absent_as_none(grads, tables))
 
 
+def split_args(q, k, v, tables, what: str, **more) -> tuple:
+    """The envelope of K6 and K7 checked (q, k, v and ``more``, e.g. ``do``,
+    of q's shape ``(BT, H, W, heads, d)``; q, k, v of one dtype; head dim 16
+    or 64, lines of at most ``MAX_LINE`` tokens), and their float32 tables
+    (:func:`~bubbleformer_tpu_torch.ops.axial_lane.line_tables`):
+    ``(params, (bt, h, w, heads, d, c))``."""
+    bt, h, w, heads, d = q.shape
+    c = heads * d
+    _build.check_shapes(what, k=(k, q.shape), v=(v, q.shape),
+                        **{name: (t, q.shape) for name, t in more.items()})
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"{what}: q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
+    check_line_shape(what, q.shape, q.dtype, h, w, c, heads)
+    return line_tables(*tables, heads, h, w, q.device, what), (bt, h, w, heads, d, c)
+
+
 def split_fwd_cuda(q, k, v, bias_x, bias_y, scale_x, scale_y, *, packed: bool,
                    what: str) -> torch.Tensor:
     """Launch the forward of ``csrc/axial_fused.cu`` (rows, then columns) in
     the kPacked (K6) or the kFused (K7) flavour: ``(BT, H, W, heads, d)``."""
-    bt, h, w, heads, d = q.shape
-    c = heads * d
-    _build.check_shapes(what, k=(k, q.shape), v=(v, q.shape))
-    if not q.dtype == k.dtype == v.dtype:
-        raise TypeError(f"{what}: q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
-    check_line_shape(what, q.shape, q.dtype, h, w, c, heads)
+    p, (bt, h, w, heads, d, c) = split_args(q, k, v, (bias_x, bias_y, scale_x, scale_y), what)
     dev = q.device
-    p = line_tables(bias_x, bias_y, scale_x, scale_y, heads, h, w, dev, what)
     qkv3 = torch.stack([q, k, v]).contiguous()
     row_out = torch.empty(bt, h, w, c, device=dev)
     out = torch.empty(bt, h, w, c, device=dev, dtype=q.dtype)
@@ -178,15 +209,9 @@ def split_bwd_cuda(do, q, k, v, bias_x, bias_y, scale_x, scale_y, *, packed: boo
     """Launch the backward of ``csrc/axial_fused.cu`` in either flavour: the
     gradients of ``(q, k, v, bias_x, bias_y, scale_x, scale_y)``, None where
     the argument is absent."""
-    bt, h, w, heads, d = q.shape
-    c = heads * d
-    _build.check_shapes(what, k=(k, q.shape), v=(v, q.shape), do=(do, q.shape))
-    if not q.dtype == k.dtype == v.dtype:
-        raise TypeError(f"{what}: q, k, v are {q.dtype}, {k.dtype}, {v.dtype}")
-    check_line_shape(what, q.shape, q.dtype, h, w, c, heads)
-    dev, dt = q.device, q.dtype
     tables = (bias_x, bias_y, scale_x, scale_y)
-    p = line_tables(*tables, heads, h, w, dev, what)
+    p, (bt, h, w, heads, d, c) = split_args(q, k, v, tables, what, do=do)
+    dev, dt = q.device, q.dtype
     # Held by a name until the launches are queued.
     qkv3, do = torch.stack([q, k, v]).contiguous(), do.to(dt).contiguous()
     dqkv3 = torch.empty(3, bt, h, w, c, device=dev, dtype=dt)
@@ -209,12 +234,121 @@ def split_bwd_cuda(do, q, k, v, bias_x, bias_y, scale_x, scale_y, *, packed: boo
     return (dq, dk, dv, *absent_as_none((dbx, dby, dscale[:, 0], dscale[:, 1]), tables))
 
 
+def hopper_args(q, k, v, tables, what: str, do=None) -> tuple:
+    """The bf16 Hopper kernels' arguments of K6 and K7: the envelope and
+    tables of :func:`split_args`, q, k, v (then ``do``) read in place
+    (:func:`~bubbleformer_tpu_torch._build.in_place_strides`, checked before
+    anything reaches a card), and their strides as the C entries take them:
+    ``(params, strides, (bt, h, w, heads, d, c))``."""
+    more = {} if do is None else {"do": do}
+    p, dims = split_args(q, k, v, tables, what, **more)
+    if q.dtype != torch.bfloat16 or (do is not None and do.dtype != torch.bfloat16):
+        raise TypeError(f"{what} takes bfloat16 q, k, v and do, not {q.dtype}"
+                        + ("" if do is None else f" and {do.dtype}"))
+    strides = _build.in_place_strides(what, q=q, k=k, v=v, **more)
+    return p, _build.int64_array(strides), dims
+
+
+def fused_packed_hopper_fwd(q, k, v, *tables) -> torch.Tensor:
+    """K6's bf16 forward on the Hopper kernels (``csrc/lane_hopper.cuh``,
+    ``Mode::kFusedPacked``; C entry ``bf_fused_packed_hopper_fwd``): q, k and
+    v read in place, rows, then columns, the row pass's half of the output
+    in a float32 scratch and the sum rounded once.  Counts
+    ``fused_packed_hopper_fwd.launches``."""
+    what = "fused_axial_attention_packed (bf_fused_packed_hopper_fwd)"
+    p, strides, (bt, h, w, heads, d, c) = hopper_args(q, k, v, tables, what)
+    dev = q.device
+    half = torch.empty(bt, h, w, c, device=dev)
+    out = torch.empty(bt, h, w, c, device=dev, dtype=q.dtype)
+    lib = _build.library()
+    err = lib.bf_fused_packed_hopper_fwd(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, p["bias_x"].data_ptr(),
+        p["bias_y"].data_ptr(), p["scale"].data_ptr(), half.data_ptr(), out.data_ptr(), bt, h, w,
+        c, heads, _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    fused_packed_hopper_fwd.launches += 1
+    return out.reshape(q.shape)
+
+
+def fused_packed_hopper_bwd(do, q, k, v, *tables) -> tuple:
+    """K6's bf16 backward on the Hopper kernels (C entry
+    ``bf_fused_packed_hopper_bwd``): q, k, v and ``do`` read in place, one
+    launch a direction, the row pass's ``d(q, k, v)`` in a float32 scratch,
+    the column pass adding its own and rounding ``dq``, ``dk``, ``dv`` once;
+    then one launch that adds the blocks' table and scale partials in a
+    fixed order.  The gradients :func:`fused_packed_bwd_plain` returns;
+    counts ``fused_packed_hopper_bwd.launches``."""
+    what = "fused_axial_attention_packed_bwd (bf_fused_packed_hopper_bwd)"
+    p, strides, (bt, h, w, heads, d, c) = hopper_args(q, k, v, tables, what, do=do)
+    dev = q.device
+    dqkv3 = torch.empty(3, bt, h, w, c, device=dev, dtype=q.dtype)
+    dacc = torch.empty(bt, h, w, 3 * c, device=dev)
+    part, plan = lane_bwd_scratch(bt, h, w, heads, d, dev, MODE_FUSED_PACKED)
+    dbx, dby = torch.empty(heads, w, w, device=dev), torch.empty(heads, h, h, device=dev)
+    dscale = torch.empty(heads, 2, device=dev)
+    lib = _build.library()
+    err = lib.bf_fused_packed_hopper_bwd(
+        d, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), strides,
+        p["bias_x"].data_ptr(), p["bias_y"].data_ptr(), p["scale"].data_ptr(),
+        dqkv3[0].data_ptr(), dqkv3[1].data_ptr(), dqkv3[2].data_ptr(), dacc.data_ptr(),
+        part.data_ptr(), dbx.data_ptr(), dby.data_ptr(), dscale.data_ptr(), bt, h, w, c, heads,
+        *plan, _build.stream_handle(dev))
+    _build.check(lib, err, what)
+    fused_packed_hopper_bwd.launches += 1
+    dq, dk, dv = (g.reshape(q.shape) for g in dqkv3)
+    return (dq, dk, dv, *absent_as_none((dbx, dby, dscale[:, 0], dscale[:, 1]), tables))
+
+
+def float32_only(q: torch.Tensor, what: str, hopper: str) -> None:
+    """The float32 paths of K6 and K7 on the line kernels: bfloat16 runs the
+    Hopper kernels ``hopper`` (``_fwd``/``_bwd``)."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 (bfloat16 runs {hopper}_fwd and {hopper}_bwd), "
+                        f"not {q.dtype}")
+
+
+def fused_packed_line_fwd(q, k, v, *tables) -> torch.Tensor:
+    """K6's float32 forward on the line kernels (``csrc/axial_fused.cu``,
+    kPacked); counts ``fused_packed_line_fwd.launches``."""
+    float32_only(q, "fused_packed_line_fwd", "fused_packed_hopper")
+    out = split_fwd_cuda(q, k, v, *tables, packed=True, what="fused_axial_attention_packed")
+    fused_packed_line_fwd.launches += 1
+    return out
+
+
+def fused_packed_line_bwd(do, q, k, v, *tables) -> tuple:
+    """K6's float32 backward on the line kernels (the row pass keeps float32
+    gradients, the column pass adds its own and rounds; the table and scale
+    gradients from per-line partials added in a fixed order); counts
+    ``fused_packed_line_bwd.launches``."""
+    float32_only(q, "fused_packed_line_bwd", "fused_packed_hopper")
+    grads = split_bwd_cuda(do, q, k, v, *tables, packed=True,
+                           what="fused_axial_attention_packed_bwd")
+    fused_packed_line_bwd.launches += 1
+    return grads
+
+
+fused_packed_hopper_fwd.launches = fused_packed_hopper_bwd.launches = 0
+fused_packed_line_fwd.launches = fused_packed_line_bwd.launches = 0
+
+
+def fused_packed_kernels(dtype: torch.dtype) -> tuple:
+    """K6's ``(forward, backward)`` kernels on the card for ``dtype``: the
+    Hopper kernels for bfloat16, the line kernels for float32; any other
+    dtype raises."""
+    if dtype == torch.bfloat16:
+        return fused_packed_hopper_fwd, fused_packed_hopper_bwd
+    if dtype == torch.float32:
+        return fused_packed_line_fwd, fused_packed_line_bwd
+    raise TypeError(f"fused_axial_attention_packed kernel takes float32 or bfloat16, not {dtype}")
+
+
 def _packed_fwd(q, k, v, *tables):
     if q.device.type == "cpu":
         return fused_packed_plain(q, k, v, *tables)
     if q.device.type != "cuda":
         raise ValueError(f"fused_axial_attention_packed: unsupported device {q.device}")
-    out = split_fwd_cuda(q, k, v, *tables, packed=True, what="fused_axial_attention_packed")
+    out = fused_packed_kernels(q.dtype)[0](q, k, v, *tables)
     fused_axial_attention_packed.launches += 1
     return out
 
@@ -223,18 +357,17 @@ def fused_axial_attention_packed_bwd(do: torch.Tensor, q: torch.Tensor, k: torch
                                      v: torch.Tensor, *tables) -> tuple:
     """K6's backward: the gradients :func:`fused_packed_bwd_plain` returns.
 
-    CPU tensors take :func:`fused_packed_bwd_plain`; CUDA tensors launch
-    ``csrc/axial_fused.cu``'s backward in the kPacked flavour (the row pass
-    keeps float32 gradients, the column pass adds its own and rounds) and
-    count ``fused_axial_attention_packed_bwd.launches``.  The table and scale
-    gradients come from per-block partials added in a fixed order: they
-    repeat bit for bit."""
+    CPU tensors take :func:`fused_packed_bwd_plain`; CUDA tensors the kernels
+    :func:`fused_packed_kernels` picks by dtype (bfloat16
+    :func:`fused_packed_hopper_bwd`, float32 :func:`fused_packed_line_bwd`)
+    and count ``fused_axial_attention_packed_bwd.launches``.  The table and
+    scale gradients come from per-block partials added in a fixed order:
+    they repeat bit for bit."""
     if q.device.type == "cpu":
         return fused_packed_bwd_plain(do, q, k, v, *tables)
     if q.device.type != "cuda":
         raise ValueError(f"fused_axial_attention_packed_bwd: unsupported device {q.device}")
-    grads = split_bwd_cuda(do, q, k, v, *tables, packed=True,
-                           what="fused_axial_attention_packed_bwd")
+    grads = fused_packed_kernels(q.dtype)[1](do.to(q.dtype), q, k, v, *tables)
     fused_axial_attention_packed_bwd.launches += 1
     return grads
 

@@ -78,8 +78,8 @@ LINE_BLOCKS_PER_SM = 128
 LANE_CHUNK_TARGET = 256
 LANE_GRID_BUDGET = int(60e6)
 # The modes of csrc/lane_hopper.cuh's bf16 backward kernel (its enum Mode), as
-# the C entry bf_lane_bwd_resident takes them: K2's, K9's, K5's and K4's.
-MODE_LANE, MODE_LANE_PX, MODE_MEGA, MODE_FUSED_BLOCK = 0, 1, 2, 3
+# the C entry bf_lane_bwd_resident takes them: K2's, K9's, K5's, K4's and K6's.
+MODE_LANE, MODE_LANE_PX, MODE_MEGA, MODE_FUSED_BLOCK, MODE_FUSED_PACKED = 0, 1, 2, 3, 4
 
 
 def axial_attention_plain(
@@ -406,7 +406,8 @@ def lane_bwd_plan(lines: int, heads: int, resident: int) -> tuple:
 @functools.lru_cache(maxsize=None)
 def _resident_blocks(index: int, head_dim: int, length: int, mode: int) -> int:
     """Blocks of the bf16 Hopper backward kernel of ``mode`` (``MODE_LANE``,
-    ``MODE_LANE_PX``, ``MODE_MEGA`` or ``MODE_FUSED_BLOCK``) for lines of
+    ``MODE_LANE_PX``, ``MODE_MEGA``, ``MODE_FUSED_BLOCK`` or
+    ``MODE_FUSED_PACKED``) for lines of
     ``length`` tokens that card ``index`` holds at once: its multiprocessors
     times the blocks one of them holds, as the CUDA runtime reads the
     kernel's registers, shared memory and block size (C entry
@@ -419,19 +420,21 @@ def _resident_blocks(index: int, head_dim: int, length: int, mode: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count * max(1, per_sm.value)
 
 
-def lane_bwd_layout(bt: int, h: int, w: int, heads: int, d: int, residents) -> tuple:
+def lane_bwd_layout(bt: int, h: int, w: int, heads: int, d: int, residents, *,
+                    ln: bool = True) -> tuple:
     """``(floats, plan)`` of a bf16 Hopper backward of the lane kernels'
-    family (K2's, K9's, K5's and K4's attention, ``csrc/lane_hopper.cuh:
+    family (K2's, K9's, K5's, K4's and K6's attention, ``csrc/lane_hopper.cuh:
     carve_partials``) whose kernels keep ``residents`` = (rows', columns')
     blocks on the card: the rows' and the columns' plans
     (:func:`lane_bwd_plan`), ``plan`` = ``[groups_r, per_r, groups_c,
     per_c]``, and the size of one float32 buffer of both passes' partials,
-    each pass's table ``(groups, heads, L, L)``, scale ``(heads, groups)`` and
-    LN ``(4, d, groups, heads)`` sums in that order."""
+    each pass's table ``(groups, heads, L, L)``, scale ``(heads, groups)`` and,
+    where the kernels normalise q and k (``ln``; not K6), LN ``(4, d, groups,
+    heads)`` sums in that order."""
     size, plan = 0, []
     for (length, lines), resident in zip(((w, bt * h), (h, bt * w)), residents):
         groups, per = lane_bwd_plan(lines, heads, resident)
-        size += groups * heads * (length * length + 1 + 4 * d)
+        size += groups * heads * (length * length + 1 + (4 * d if ln else 0))
         plan += [groups, per]
     return size, plan
 
@@ -441,7 +444,8 @@ def lane_bwd_scratch(bt: int, h: int, w: int, heads: int, d: int, dev, mode: int
     ``mode`` keeps resident on card ``dev`` (:func:`_resident_blocks`), its
     partials' buffer allocated."""
     size, plan = lane_bwd_layout(bt, h, w, heads, d,
-                                 [_resident_blocks(dev.index, d, n, mode) for n in (w, h)])
+                                 [_resident_blocks(dev.index, d, n, mode) for n in (w, h)],
+                                 ln=mode != MODE_FUSED_PACKED)
     return torch.empty(size, device=dev), plan
 
 

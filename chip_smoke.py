@@ -112,7 +112,16 @@ paths give it — the rollout's (batch 1) and the training step's:
    partial yardstick: the two projections forward, K1's four products
    backward);
 25. K6 (``fused_axial_attention_packed``) and K7 (``fused_axial_attention``)
-   at AViT-small's shapes, forward and every gradient (``LINE_RTOL``);
+   at ``SPLIT_SHAPES`` (path D's training shape, the rollout's batch,
+   AViT-tiny's head dim 16 grid, the 32x128 flow grid at batch 4 and rows
+   of 512 tokens), forward and every gradient (``LINE_RTOL``; bfloat16 on
+   the Hopper kernels, ``csrc/lane_hopper.cuh``'s ``kFusedPacked`` and
+   ``csrc/flash_hopper.cuh`` over rows and columns, K7's backward on rows
+   of 512 on the line kernels, each launch counted on the path its shape
+   chooses; float32 on the line kernels), with both times and sdpa over
+   both directions (the partial yardstick); the bf16 table and scale
+   gradients repeat bit for bit over two calls, and a strided ``v`` view
+   (the layer's) gives the bits of its contiguous copy;
 26. path C, FiLMAViT-small at 512^2 with ``attn_impl=mega``: one float32
    window card vs CPU, a 20-window bfloat16 rollout (K1 and K5 forward 12 x
    20 times each, no other kernel) and ``Trainer.fit`` in bfloat16 at batch
@@ -120,8 +129,9 @@ paths give it — the rollout's (batch 1) and the training step's:
    kernel);
 27. path D, AViT-small at 512^2 with ``attn_impl=fused_packed`` and with
    ``fused`` (the temporal branch on the XLA plain route): one float32
-   window each, card vs CPU, and ``Trainer.fit`` in bfloat16 at batch 8: the
-   route's kernel forward and backward 12 per step, no other kernel;
+   window each, card vs CPU (the line kernels), and ``Trainer.fit`` in
+   bfloat16 at batch 8: the route's Hopper kernels forward and backward 12
+   per step, no other kernel;
 28. path E, AViT-tiny through ``auto``: at 512^2 (64x64 tokens: K1 at head
    dim 16 and the axial kernel the copied lane gate picks, asserted) one
    float32 window card vs CPU and ``Trainer.fit`` in bfloat16 at batch 8
@@ -193,14 +203,17 @@ paths give it — the rollout's (batch 1) and the training step's:
    card time in each JSON line, each of the probe's kernels launched and no
    other.
 
-K2's, K4's, K5's, K8's and K9's wrappers count every call on the card
-(``lane_axial_attention``, ``fused_block_attention``, ``mega_axial_block``,
-``flash_packed_attention``, ``lane_px_attention`` and their ``_bwd``) and
-each dtype's kernels their own launches (bfloat16: ``lane_hopper_fwd``,
-``fused_block_hopper_fwd``, ``mega_hopper_fwd``, ``flash_hopper_fwd``,
+K2's, K4's, K5's, K6's, K7's, K8's and K9's wrappers count every call on
+the card (``lane_axial_attention``, ``fused_block_attention``,
+``mega_axial_block``, ``fused_axial_attention_packed``,
+``fused_axial_attention``, ``flash_packed_attention``, ``lane_px_attention``
+and their ``_bwd``) and each dtype's kernels their own launches (bfloat16:
+``lane_hopper_fwd``, ``fused_block_hopper_fwd``, ``mega_hopper_fwd``,
+``fused_packed_hopper_fwd``, ``fused_hopper_fwd``, ``flash_hopper_fwd``,
 ``px_hopper_fwd`` and their ``_bwd``; float32: ``lane_line_fwd``,
-``fused_block_line_fwd``, ``mega_line_fwd``, ``flash_line_fwd``,
-``px_line_fwd`` and theirs; ``DTYPE_PATHS``): every bf16 rollout and
+``fused_block_line_fwd``, ``mega_line_fwd``, ``fused_packed_line_fwd``,
+``fused_line_fwd``, ``flash_line_fwd``, ``px_line_fwd`` and theirs;
+``DTYPE_PATHS``): every bf16 rollout and
 training run holds them to the Hopper kernels and every float32 window and
 step to the first chains.  Times are CUDA events around 20 calls
 after half a second of warm-up calls (``WARMUP_S``).
@@ -210,10 +223,10 @@ Every training step runs under the models' default remat ``"dots"``
 (the backward reruns them, as the JAX policy has it), every other kernel
 once (``DOTS_RERUN``).
 
-Prints a JSON line of the kernels at the training step's shapes of the path
-that launches them (with each one's least possible time on the card from its
-bytes and operations there), the card's name and power limit, and as the
-last line
+Prints the run's seconds, a JSON line of the kernels at the training
+step's shapes of the path that launches them (with each one's least
+possible time on the card from its bytes and operations there), the card's
+name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits non-zero at the first failed
 phase, without a CUDA card, or without the repository beside it.
 
@@ -851,6 +864,10 @@ def all_counters():
     from bubbleformer_tpu_torch.ops.axial_fused import (
         fused_axial_attention,
         fused_axial_attention_bwd,
+        fused_hopper_bwd,
+        fused_hopper_fwd,
+        fused_line_bwd,
+        fused_line_fwd,
     )
     from bubbleformer_tpu_torch.ops.axial_fused_block import (
         fused_block_attention,
@@ -863,6 +880,10 @@ def all_counters():
     from bubbleformer_tpu_torch.ops.axial_fused_packed import (
         fused_axial_attention_packed,
         fused_axial_attention_packed_bwd,
+        fused_packed_hopper_bwd,
+        fused_packed_hopper_fwd,
+        fused_packed_line_bwd,
+        fused_packed_line_fwd,
     )
     from bubbleformer_tpu_torch.ops.axial_lane import (
         lane_axial_attention,
@@ -907,7 +928,10 @@ def all_counters():
             mega_hopper_fwd, mega_hopper_bwd, mega_line_fwd, mega_line_bwd, px_hopper_fwd,
             px_hopper_bwd, px_line_fwd, px_line_bwd, fused_block_hopper_fwd,
             fused_block_hopper_bwd, fused_block_line_fwd, fused_block_line_bwd,
-            flash_hopper_fwd, flash_hopper_bwd, flash_line_fwd, flash_line_bwd)
+            flash_hopper_fwd, flash_hopper_bwd, flash_line_fwd, flash_line_bwd,
+            fused_packed_hopper_fwd, fused_packed_hopper_bwd, fused_packed_line_fwd,
+            fused_packed_line_bwd, fused_hopper_fwd, fused_hopper_bwd, fused_line_fwd,
+            fused_line_bwd)
 
 
 def probe_counters():
@@ -931,15 +955,22 @@ def read_counters() -> dict:
 
 # The wrappers whose calls on the card go to one chain a dtype (K2:
 # ``ops/axial_lane.py:lane_kernels``, K4: ``ops/axial_fused_block.py:
-# fused_block_kernels``, K5: ``ops/axial_block_mega.py:mega_kernels``, K8:
-# ``ops/axial_pallas.py:flash_kernels``, K9: ``ops/axial_lane_px.py:
-# px_kernels``): bfloat16 the Hopper kernels, float32 the first chain (K8's
-# bfloat16 backward too on lines the Hopper backward does not stage: none
-# on these paths).
+# fused_block_kernels``, K5: ``ops/axial_block_mega.py:mega_kernels``, K6:
+# ``ops/axial_fused_packed.py:fused_packed_kernels``, K7: ``ops/
+# axial_fused.py:fused_kernels``, K8: ``ops/axial_pallas.py:flash_kernels``,
+# K9: ``ops/axial_lane_px.py:px_kernels``): bfloat16 the Hopper kernels,
+# float32 the first chain (K7's and K8's bfloat16 backward too on lines the
+# Hopper backward does not stage: none on these paths).
 DTYPE_PATHS = {"lane_axial_attention": ("lane_hopper_fwd", "lane_line_fwd"),
                "lane_axial_attention_bwd": ("lane_hopper_bwd", "lane_line_bwd"),
                "fused_block_attention": ("fused_block_hopper_fwd", "fused_block_line_fwd"),
                "fused_block_attention_bwd": ("fused_block_hopper_bwd", "fused_block_line_bwd"),
+               "fused_axial_attention_packed": ("fused_packed_hopper_fwd",
+                                                "fused_packed_line_fwd"),
+               "fused_axial_attention_packed_bwd": ("fused_packed_hopper_bwd",
+                                                    "fused_packed_line_bwd"),
+               "fused_axial_attention": ("fused_hopper_fwd", "fused_line_fwd"),
+               "fused_axial_attention_bwd": ("fused_hopper_bwd", "fused_line_bwd"),
                "flash_packed_attention": ("flash_hopper_fwd", "flash_line_fwd"),
                "flash_packed_attention_bwd": ("flash_hopper_bwd", "flash_line_bwd"),
                "mega_axial_block": ("mega_hopper_fwd", "mega_line_fwd"),
@@ -949,7 +980,7 @@ DTYPE_PATHS = {"lane_axial_attention": ("lane_hopper_fwd", "lane_line_fwd"),
 
 
 def with_dtype_paths(per: dict, dtype: str) -> dict:
-    """``per`` with K2's, K4's, K5's, K8's and K9's per-path counters: every call of their
+    """``per`` with K2's, K4's to K9's per-path counters: every call of their
     wrappers in ``dtype`` goes to that dtype's kernels (``DTYPE_PATHS``), the
     other path's never."""
     at = 0 if dtype == "bfloat16" else 1
@@ -1212,7 +1243,14 @@ BRANCH_SHAPES = {
     "K5": {"rollout": (TIME_WINDOW, 32, 32, 384), "training": (8 * TIME_WINDOW, 32, 32, 384),
            "d16": (8 * TIME_WINDOW, 64, 64, 96)},
 }
-SPLIT_SHAPES = {"training": (8 * TIME_WINDOW, 32, 32, 384)}
+# K6 and K7 (6 heads): path D's training shape, the rollout's batch,
+# AViT-tiny's 64x64 grid at head dim 16, the 32x128 flow grid at batch 4 and
+# rows of 512 tokens at head dim 64 (as phase 16's; K7's bf16 backward there
+# on the line kernels).
+SPLIT_SHAPES = {"training": (8 * TIME_WINDOW, 32, 32, 384), "rollout": (TIME_WINDOW, 32, 32, 384),
+                "d16": (8 * TIME_WINDOW, 64, 64, 96),
+                "flow": (FLOW_TRAIN_BATCH * TIME_WINDOW, 32, 128, 384),
+                "rows_512": (2, 8, 512, 384)}
 
 
 def branch_args(key: str, shape, heads: int, rng):
@@ -1336,7 +1374,13 @@ def branch_kernel_phase(key: str, dev, results: dict) -> None:
 def split_kernel_phase(dev, results: dict) -> None:
     """K6 and K7 forward and every gradient at each ``SPLIT_SHAPES`` q/k/v
     shape (6 heads), float32 against the plain version in float64 and
-    bfloat16 against it in bfloat16 (``LINE_RTOL``), with both times."""
+    bfloat16 against it in bfloat16 (``LINE_RTOL``), each call's launches
+    held to the kernels its dtype and shape choose, with both times and, in
+    bfloat16, sdpa over both directions (the partial yardstick); at the
+    training shape the bf16 table and scale gradients repeat bit for bit
+    over two calls, and the layer's strided ``v`` view (of the Dense's
+    ``(BT, H, W, heads, 3, d)`` output) gives the bits of its contiguous
+    copy."""
     import torch
     from bubbleformer_tpu_torch.ops import axial_fused as k7
     from bubbleformer_tpu_torch.ops import axial_fused_packed as k6
@@ -1345,6 +1389,12 @@ def split_kernel_phase(dev, results: dict) -> None:
                       k6.fused_packed_plain, k6.fused_packed_bwd_plain),
                "K7": (k7.fused_axial_attention, k7.fused_axial_attention_bwd, k7.fused_plain,
                       k7.fused_bwd_plain)}
+    # Each kernel's (Hopper forward, Hopper backward, line forward, line
+    # backward) counters.
+    paths = {"K6": (k6.fused_packed_hopper_fwd, k6.fused_packed_hopper_bwd,
+                    k6.fused_packed_line_fwd, k6.fused_packed_line_bwd),
+             "K7": (k7.fused_hopper_fwd, k7.fused_hopper_bwd, k7.fused_line_fwd,
+                    k7.fused_line_bwd)}
     heads = 6
     for i, (where, shape) in enumerate(SPLIT_SHAPES.items()):
         bt, h, w, c = shape
@@ -1367,17 +1417,43 @@ def split_kernel_phase(dev, results: dict) -> None:
                 do = do32.to(dt)
                 ref_args, ref_do = ((args, do) if dt == torch.bfloat16 else
                                     ({k: v.double() for k, v in args.items()}, do.double()))
+                before = [fn.launches for fn in paths[key]]
                 got = fwd(**args)
                 ref = plain(**ref_args)
                 torch.cuda.synchronize()
                 err_f = compare(f"{key} {name} {where} {shape}", got, ref, LINE_RTOL[name])
                 del got, ref
                 got = bwd(do, *args.values())
+                # bf16: the Hopper kernels, K7's backward on the line kernels
+                # past the Hopper backward's lines (head dim 64, > 256
+                # tokens); float32: the line kernels.
+                hopper = (dt == torch.bfloat16, dt == torch.bfloat16 and (
+                    key == "K6" or c // heads == 16 or max(h, w) <= 256))
+                want = [1 if hopper[0] else 0, 1 if hopper[1] else 0, 0 if hopper[0] else 1,
+                        0 if hopper[1] else 1]
+                moved = [fn.launches - b for fn, b in zip(paths[key], before)]
+                if moved != want:
+                    fail(f"{key} {name} {where}: launches {moved} of (Hopper fwd, Hopper bwd, "
+                         f"line fwd, line bwd), expected {want}")
                 ref = bwd_plain(ref_do, **ref_args)
                 torch.cuda.synchronize()
                 err_b = compare_grads(f"{key} bwd {name} {where}", tuple(args), got, ref,
                                       LINE_RTOL[name])
-                del got, ref, ref_args, ref_do
+                del ref, ref_args, ref_do
+                if dt == torch.bfloat16 and where == "training":
+                    check_repeat(f"{key} bwd {name} {where}", tuple(args), got,
+                                 bwd(do, *args.values()), 3)
+                    dense = torch.stack([args[k] for k in "qkv"], dim=-2)
+                    strided = dict(args, v=dense[..., 2, :])
+                    if strided["v"].is_contiguous() or not all(
+                            torch.equal(a, b) for a, b in zip(
+                                (fwd(**args), *got[:3]),
+                                (fwd(**strided), *bwd(do, *strided.values())[:3]))):
+                        fail(f"{key} {name}: the strided v view reads other bits than v")
+                    print(f"  {key} {name} {where}: the strided v view of a (BT, H, W, heads, "
+                          "3, d) tensor gives v's bits, forward and backward", flush=True)
+                    del dense, strided
+                del got
                 ms_f = cuda_ms(lambda: fwd(**args))
                 plain_f = ref_ms(lambda: plain(**args))
                 ms_b = cuda_ms(lambda: bwd(do, *args.values()))
@@ -1386,6 +1462,15 @@ def split_kernel_phase(dev, results: dict) -> None:
                       f"backward {ms_b:.4f} ms (plain {plain_b:.4f})", flush=True)
                 results[(key, name, where)] = (err_f, ms_f, plain_f)
                 results[(key + " bwd", name, where)] = (err_b, ms_b, plain_b)
+        qkv = torch.stack([base[k] for k in "qkv"], dim=-2).to(torch.bfloat16).reshape(
+            bt, h, w, 3 * c)
+        lib = lane_sdpa_ms(qkv, base["bias_x"], base["bias_y"], heads)
+        del qkv
+        for key in kernels:
+            results[(key + " sdpa", "bfloat16", where)] = lib[0]
+            results[(key + " bwd sdpa", "bfloat16", where)] = lib[1]
+        print(f"  K6, K7 bfloat16 {where}: sdpa over both directions (partial yardstick) "
+              f"forward {lib[0]:.4f} ms, backward {lib[1]:.4f} ms", flush=True)
         del base, do32
 
 
@@ -2191,6 +2276,7 @@ def slice8_phases(dev, results: dict) -> tuple:
 
 
 def main() -> None:
+    t_run = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -2770,8 +2856,8 @@ def main() -> None:
                   "lane_axial_attention_bwd": "lane_hopper_bwd",
                   "fused_block_attention": "fused_block_hopper_fwd",
                   "fused_block_attention_bwd": "fused_block_hopper_bwd"}
-    # K2, K4, K6 and K7 compute the same two-direction attention at these
-    # training shapes: one sdpa yardstick (phase 4) for all four.
+    # K2 and K4 compute the same two-direction attention at these training
+    # shapes: one sdpa yardstick (phase 4) for both (K6 and K7: phase 25's).
     k2_sdpa = {"fwd": results[("K2 sdpa", "bfloat16", "training")],
                "bwd": results[("K2 bwd sdpa", "bfloat16", "training")]}
     for key, name, source, replaces in (
@@ -2828,23 +2914,25 @@ def main() -> None:
         print(f"  {name}: launches per rollout window {per_window}, "
               f"per training step {run_launches[counter_of.get(name, name)] // steps}")
     # This slice's kernels, their launches from its paths' training runs:
-    # K5 on path C, K6 and K7 on path D, K1 and K3 at head dim 16 on path E.
+    # K5 on path C, K6 and K7 on path D (their bf16 Hopper kernels: K6 on
+    # lane_hopper.cuh, C entries axial_lane_hopper.cu; K7 on flash_hopper.cuh,
+    # C entries axial_flash_hopper.cu), K1 and K3 at head dim 16 on path E.
     runs5 = slice5_phases(repo, dev, card, results)
     mega_cu = "bubbleformer_tpu_torch/csrc/axial_block_mega.cu"
-    fused_cu = "bubbleformer_tpu_torch/csrc/line_kernels.cuh"  # C entries: axial_fused.cu
+    flash_cu = "bubbleformer_tpu_torch/csrc/flash_hopper.cuh"
     jax_ops = "bubbleformer_tpu/ops/"
     for key, name, counter, source, replaces, run, cases in (
         ("K5", "mega_axial_block", "mega_axial_block", mega_cu,
          jax_ops + "axial_block_mega.py:143", runs5["C"], BRANCH_SHAPES["K5"]),
         ("K5 bwd", "mega_axial_block_bwd", "mega_axial_block_bwd", mega_cu,
          jax_ops + "axial_block_mega.py:193", runs5["C"], BRANCH_SHAPES["K5"]),
-        ("K6", "fused_axial_attention_packed", "fused_axial_attention_packed", fused_cu,
+        ("K6", "fused_axial_attention_packed", "fused_packed_hopper_fwd", lane_cu,
          jax_ops + "axial_fused_packed.py:133", runs5["D fused_packed"], SPLIT_SHAPES),
-        ("K6 bwd", "fused_axial_attention_packed_bwd", "fused_axial_attention_packed_bwd",
-         fused_cu, jax_ops + "axial_fused_packed.py:230", runs5["D fused_packed"], SPLIT_SHAPES),
-        ("K7", "fused_axial_attention", "fused_axial_attention", fused_cu,
+        ("K6 bwd", "fused_axial_attention_packed_bwd", "fused_packed_hopper_bwd",
+         lane_cu, jax_ops + "axial_fused_packed.py:230", runs5["D fused_packed"], SPLIT_SHAPES),
+        ("K7", "fused_axial_attention", "fused_hopper_fwd", flash_cu,
          jax_ops + "axial_fused.py:103", runs5["D fused"], SPLIT_SHAPES),
-        ("K7 bwd", "fused_axial_attention_bwd", "fused_axial_attention_bwd", fused_cu,
+        ("K7 bwd", "fused_axial_attention_bwd", "fused_hopper_bwd", flash_cu,
          jax_ops + "axial_fused.py:179", runs5["D fused"], SPLIT_SHAPES),
         ("K1 d16", "mega_temporal_block (head dim 16)", "mega_temporal_block",
          "bubbleformer_tpu_torch/csrc/temporal_block.cu", jax_ops + "temporal_block_mega.py:238",
@@ -2864,9 +2952,10 @@ def main() -> None:
         launches_run = run["launches"][counter]
         if launches_run == 0:
             fail(f"{name} was not launched on its path")
-        library = (results.get((key + " gemm", "bfloat16", "training"))
-                   if key[:2] in ("K1", "K3", "K5")
-                   else k2_sdpa["bwd" if key.endswith("bwd") else "fwd"])
+        # K1, K3, K5: cuBLAS's products alone; K6, K7: sdpa over both
+        # directions, phase 25 (partial yardsticks).
+        yardstick = " gemm" if key[:2] in ("K1", "K3", "K5") else " sdpa"
+        library = results.get((key + yardstick, "bfloat16", "training"))
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches_run, "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2875,8 +2964,10 @@ def main() -> None:
             for dt in ("float32", "bfloat16"):
                 b_ms, b_by = bound(*kernel_work(key, cases[where], dt), dt)
                 _, k_ms, p_ms = results[(key, dt, where)]
-                extra = (f", cuBLAS's products alone {results[(key + ' gemm', dt, where)]:.4f} ms"
-                         if key[:2] in ("K1", "K3", "K5") else "")
+                lib = results.get((key + yardstick, dt, where))
+                extra = ("" if lib is None else
+                         f", cuBLAS's products alone {lib:.4f} ms" if yardstick == " gemm" else
+                         f", sdpa (partial yardstick) {lib:.4f} ms")
                 print(f"  {name} {where} {cases[where]} {dt}: kernel {k_ms:.4f} ms, "
                       f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}){extra}")
         print(f"  {name}: launches per training step {launches_run // run['steps']}")
@@ -2995,6 +3086,7 @@ def main() -> None:
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
               + f"; launches in its probe's run {probe_launches[counter]}")
     print(f"  phases 39-40 took {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"  the run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

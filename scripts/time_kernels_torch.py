@@ -29,16 +29,21 @@ shapes: K4 (``fused_block_attention``) at qkv (40, 32, 32, 1152), K6 and K7
 32, 64) and the temporal ones (6, 8192, 5, 64), and K4 and K8 at the other
 shapes of chip_smoke.py's phases 17 and 29 (K4 at qkv (5, 32, 32, 1152),
 (5, 24, 24, 1152) and (10, 8, 8, 288); K8 at (6, 160, 32, 64), (6, 1024,
-5, 64) and (6, 2560, 64, 16)).  Forward and
+5, 64) and (6, 2560, 64, 16); K6 and K7 at AViT-tiny's (40, 64, 64, 6, 16)
+and the flow grid's (20, 32, 128, 6, 64), and in bfloat16 at their training
+shape on the q, k, v the block hands over, v a strided view, beside sdpa
+over both directions there).  Forward and
 backward, in bfloat16 and float32, by CUDA events (20 calls after at least
 ``WARMUP_S`` seconds of warm-up calls), from the checkout given by
 ``--repo`` (default: this one), whose kernels it builds first.  Then, in
 bfloat16 at K1's first shape and at K3's AViT-big shape, K2's at
 FiLMAViT-small's and the flow-boiling grid's at batch 4, K5's and K9's at x
-(40, 32, 32, 384), K4's and K8's (axial and temporal) at their training
-shapes, and in float32 K4's and K8's temporal backward, the device time of
-each kernel one forward and one backward launch, by ``torch.profiler`` (the
-mean of 5 traced calls; names shortened), which reads any checkout alike.  Comparing two versions of the
+(40, 32, 32, 384), K4's, K6's, K7's and K8's (axial and temporal) at their
+training shapes, and in float32 K4's and K8's temporal backward, the device
+time of each kernel one forward and one backward launch, by
+``torch.profiler`` (the mean of 5 traced calls; names shortened, a kernel
+launched more than once a call numbered by its place), which reads any
+checkout alike.  Comparing two versions of the
 kernels takes two processes on one card, one per checkout, in turns:
 
     python3 scripts/time_kernels_torch.py --repo build/parent --label parent
@@ -217,6 +222,16 @@ def main(argv=None) -> None:
                                   [(heads, 8192, t, d)] * 3,
                                   [n(heads, t, t), n(heads, scale=0.2, offset=1.0)],
                                   (heads, 8192, t, d), False)}
+    # K6 and K7 at the other shapes of chip_smoke.py's phase 25 (AViT-tiny's
+    # head dim 16 grid, the 32x128 flow grid at batch 4).
+    for case, shape6 in {"d16": (40, 64, 64, heads, 16), "flow": (20, 32, 128, heads, d)}.items():
+        tables6 = [n(heads, shape6[2], shape6[2]), n(heads, shape6[1], shape6[1]),
+                   n(heads, scale=0.2, offset=1.0), n(heads, scale=0.2, offset=1.0)]
+        for key, (f6, b6) in {"K6": (k6.fused_axial_attention_packed,
+                                     k6.fused_axial_attention_packed_bwd),
+                              "K7": (k7.fused_axial_attention,
+                                     k7.fused_axial_attention_bwd)}.items():
+            line_cases[f"{key} {case}"] = (f6, b6, [shape6] * 3, tables6, shape6, False)
     # K4 and K8 at the other shapes chip_smoke.py holds them at (phases 17 and
     # 29): K4 at the rollout's batch, the 24x24 grid and the make-demo grid
     # (head dim 16); K8 at the rollout's lines and AViT-tiny's axial lines.
@@ -248,6 +263,37 @@ def main(argv=None) -> None:
             out[f"{key} bwd {name}"] = ms(lambda: bwd(dol, *acts, *rest, **kw))
             del acts, dol
         del acts32, do32
+    # K6 and K7 in bf16 on the q, k, v the block hands over (v a strided view
+    # of the Dense's (BT, H, W, heads, 3, d) output), and sdpa over both
+    # directions with the tables as masks at that shape (a partial
+    # yardstick: no blend, no table gradient; the port never calls it).
+    shape6 = (40, 32, 32, heads, d)
+    dense = n(*shape6[:-1], 3, d).to(torch.bfloat16)
+    q6, k6_, v6 = dense[..., 0, :].contiguous(), dense[..., 1, :].contiguous(), dense[..., 2, :]
+    do6 = n(*shape6).to(torch.bfloat16)
+    for key, (f6, b6) in {"K6 layer": (k6.fused_axial_attention_packed,
+                                       k6.fused_axial_attention_packed_bwd),
+                          "K7 layer": (k7.fused_axial_attention,
+                                       k7.fused_axial_attention_bwd)}.items():
+        if wanted(key):
+            out[f"{key} bfloat16"] = ms(lambda: f6(q6, k6_, v6, *tables))
+            out[f"{key} bwd bfloat16"] = ms(lambda: b6(do6, q6, k6_, v6, *tables))
+    if wanted("sdpa"):
+        import torch.nn.functional as F
+
+        for dt in (torch.bfloat16, torch.float32):
+            fwd_ms = bwd_ms = 0.0
+            for perm, bias in (((0, 1, 3, 2, 4), tables[0]), ((0, 2, 3, 1, 4), tables[1])):
+                qs, ks, vs = (x.to(dt).permute(*perm).contiguous() for x in (q6, k6_, v6))
+                qs, ks, vs = (x.reshape(-1, *x.shape[2:]).requires_grad_() for x in (qs, ks, vs))
+                mask = bias.to(dt)[None].expand(qs.shape[0], heads, 32, 32)
+                fwd_ms += ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+                o6 = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+                g6 = torch.randn_like(o6)
+                bwd_ms += ms(lambda: torch.autograd.grad(o6, (qs, ks, vs), g6, retain_graph=True))
+                del qs, ks, vs, mask, o6, g6
+            name = str(dt).split(".")[-1]
+            out[f"sdpa K6 K7 {name}"], out[f"sdpa K6 K7 bwd {name}"] = fwd_ms, bwd_ms
     # K2 at the other paths' shapes: qkv (BT, H, W, 3C) and heads.
     k2_cases = {"avit_big": ((40, 32, 32, 2304), 12), "flow_b4": ((20, 32, 128, 1152), 6),
                 "flow_b8": ((40, 32, 128, 1152), 6), "d16": ((20, 64, 256, 288), 6),
@@ -343,6 +389,12 @@ def main(argv=None) -> None:
         "K8 axial bfloat16 bwd": lambda: bwd8(do8a, *acts8a, *rest8a),
         "K8 temporal bfloat16 fwd": lambda: fwd8(*acts8h, *rest8),
         "K8 temporal bfloat16 bwd": lambda: bwd8(do8h, *acts8h, *rest8)})
+    # K6 and K7 in bf16 at the training shape, on the layer's views.
+    calls.update({
+        "K6 bfloat16 fwd": lambda: k6.fused_axial_attention_packed(q6, k6_, v6, *tables),
+        "K6 bfloat16 bwd": lambda: k6.fused_axial_attention_packed_bwd(do6, q6, k6_, v6, *tables),
+        "K7 bfloat16 fwd": lambda: k7.fused_axial_attention(q6, k6_, v6, *tables),
+        "K7 bfloat16 bwd": lambda: k7.fused_axial_attention_bwd(do6, q6, k6_, v6, *tables)})
     for what, fn in calls.items():
         if not wanted(what):
             continue
@@ -352,12 +404,21 @@ def main(argv=None) -> None:
             for _ in range(5):
                 fn()
             torch.cuda.synchronize()
+        evts = sorted((e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        names = [re.sub(r"\(.*", "", re.sub(r"^void |bft::|\(anonymous namespace\)::", "",
+                                            e.name))[:70] for e in evts]
+        # A kernel launched more than once a call (a pass a direction) gets
+        # its launch's place in the call, [0] first.
+        calls_n = 5 if len(evts) % 5 == 0 else 1
+        one = names[:len(names) // calls_n]
         per = defaultdict(float)
-        for evt in prof.events():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
-                short = re.sub(r"\(.*", "", re.sub(r"^void |bft::|\(anonymous namespace\)::", "",
-                                                   evt.name))[:70]
-                per[short] += evt.time_range.elapsed_us() / 1e3 / 5
+        for i, (name, evt) in enumerate(zip(names, evts)):
+            j = i % len(one)
+            if calls_n == 5 and one.count(name) > 1:
+                name = f"{name} [{one[:j].count(name)}]"
+            per[name] += evt.time_range.elapsed_us() / 1e3 / 5
         out[f"{what} kernels"] = {k: round(v, 4) for k, v in per.items()}
     print(json.dumps(out), flush=True)
 

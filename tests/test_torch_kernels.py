@@ -59,6 +59,11 @@ from bubbleformer_tpu_torch.ops.axial_fused import (
     fused_axial_attention,
     fused_axial_attention_bwd,
     fused_bwd_plain,
+    fused_hopper_bwd,
+    fused_hopper_fwd,
+    fused_kernels,
+    fused_line_bwd,
+    fused_line_fwd,
     fused_plain,
 )
 from bubbleformer_tpu_torch.ops.axial_fused_block import (
@@ -75,6 +80,11 @@ from bubbleformer_tpu_torch.ops.axial_fused_packed import (
     fused_axial_attention_packed,
     fused_axial_attention_packed_bwd,
     fused_packed_bwd_plain,
+    fused_packed_hopper_bwd,
+    fused_packed_hopper_fwd,
+    fused_packed_kernels,
+    fused_packed_line_bwd,
+    fused_packed_line_fwd,
     fused_packed_plain,
 )
 from bubbleformer_tpu_torch.ops.axial_lane import (
@@ -239,6 +249,36 @@ def test_wrappers_raise_on_other_devices():
         lane_axial_attention(**k2, heads=2)
     with pytest.raises(ValueError, match="unsupported device"):
         fused_block_attention(**k2, heads=2)
+
+
+def _c_entries():
+    """Each C entry of ``csrc/*.cu``: its name and its parameters' kinds
+    (``P`` a pointer, ``L`` a long long, ``F`` a float, ``I`` an int)."""
+    entries = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        text = re.sub(r"//.*", "", src.read_text())
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            kinds = []
+            for p in (p.strip() for p in params.split(",") if p.strip()):
+                kinds.append("P" if "*" in p else "L" if "long long" in p else
+                             "F" if p.startswith("float") else "I")
+            entries[name] = kinds
+    return entries
+
+
+def test_c_signatures_match_the_c_entries():
+    """Every C signature the library is loaded with (``_build._SIGNATURES``)
+    has its C entry's parameters, one for one: a missing or extra one would
+    shift every argument after it."""
+    import ctypes
+
+    kinds = {_build._P: "P", _build._LP: "P", _build._IP: "P", _build._FP: "P",
+             _build._L: "L", _build._F: "F", _build._I: "I"}
+    entries = _c_entries()
+    for name, argtypes in _build._SIGNATURES.items():
+        assert name in entries, name
+        assert [kinds[t] for t in argtypes] == entries[name], name
+    assert ctypes.sizeof(ctypes.c_longlong) == 8
 
 
 def test_check_shapes_rejects_a_wrong_shape():
@@ -1041,6 +1081,132 @@ def test_k4_k8_float32_take_the_line_kernels_on_card(cuda_device):
     assert _flash_counts() == (counts[0], counts[1], counts[2] + 1, counts[3] + 1)
 
 
+# K6's and K7's bf16 Hopper kernels (csrc/lane_hopper.cuh's kFusedPacked;
+# csrc/flash_hopper.cuh over rows and columns) at path D's training shape,
+# AViT-tiny's head dim 16, the 32x128 flow-boiling grid at batch 4 and rows
+# of 512 tokens (K7's backward there on the line kernels, chosen by shape):
+# forward and every gradient against the plain versions in bfloat16, held
+# to chip_smoke.py's LINE_RTOL (1e-2), the launches counted on the path
+# each takes.
+SPLIT_HOPPER_CASES = [((40, 32, 32), 6, 64), ((40, 64, 64), 6, 16), ((20, 32, 128), 6, 64),
+                      ((2, 8, 512), 6, 64)]
+SPLIT_HOPPER_IDS = ["training", "d16", "flow", "rows_512"]
+SPLIT_PATHS = {"k6": (fused_packed_hopper_fwd, fused_packed_hopper_bwd, fused_packed_line_fwd,
+                      fused_packed_line_bwd),
+               "k7": (fused_hopper_fwd, fused_hopper_bwd, fused_line_fwd, fused_line_bwd)}
+
+
+def _split_counts(kernel):
+    return tuple(fn.launches for fn in SPLIT_PATHS[kernel])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,heads,d", SPLIT_HOPPER_CASES, ids=SPLIT_HOPPER_IDS)
+@pytest.mark.parametrize("kernel", list(SPLIT_KERNELS))
+def test_k6_k7_hopper_kernels_match_plain_on_card(cuda_device, kernel, grid, heads, d):
+    fwd, bwd, plain, bwd_plain = SPLIT_KERNELS[kernel]
+    args = _split_args(*grid, heads, d, 84, torch.bfloat16, cuda_device)
+    do = torch.randn(*grid, heads, d, generator=torch.Generator().manual_seed(85))
+    do = do.to(cuda_device, torch.bfloat16)
+    before = _split_counts(kernel)
+    got = fwd(**args)
+    grads = bwd(do, *args.values())
+    hopper_bwd = kernel == "k6" or max(grid[1:]) <= 256 or d == 16
+    assert _split_counts(kernel) == tuple(a + b for a, b in zip(
+        before, (1, int(hopper_bwd), 0, int(not hopper_bwd))))
+    _close(got, plain(**args), torch.bfloat16)
+    want = bwd_plain(do, **args)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    check_grads(list(args), [g.cpu() for g in grads], [w.float().cpu().numpy() for w in want],
+                LINE_RTOL_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", list(SPLIT_KERNELS))
+def test_k6_k7_float32_take_the_line_kernels_on_card(cuda_device, kernel):
+    fwd, bwd, _, _ = SPLIT_KERNELS[kernel]
+    args = _split_args(2, 8, 8, 6, 16, 86, torch.float32, cuda_device)
+    before = _split_counts(kernel)
+    fwd(**args)
+    bwd(torch.ones(2, 8, 8, 6, 16, device=cuda_device), *args.values())
+    torch.cuda.synchronize()
+    assert _split_counts(kernel) == (before[0], before[1], before[2] + 1, before[3] + 1)
+
+
+def _layer_views(bt, h, w, heads, d, seed, device):
+    """q, k and v as the block hands them to K6 and K7: contiguous q and k,
+    and v a strided view of the Dense's (BT, H, W, heads, 3, d) output."""
+    rng = np.random.default_rng(seed)
+    dense = torch.from_numpy(rng.standard_normal((bt, h, w, heads, 3, d)).astype(np.float32))
+    dense = dense.to(device, torch.bfloat16)
+    return dense[..., 0, :].contiguous(), dense[..., 1, :].contiguous(), dense[..., 2, :]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", list(SPLIT_KERNELS))
+def test_k6_k7_read_a_strided_v_as_its_contiguous_copy_on_card(cuda_device, kernel):
+    """The strided ``v`` view of a Dense output gives the same bits as its
+    contiguous copy, forward and backward: the kernels read it in place."""
+    fwd, bwd, _, _ = SPLIT_KERNELS[kernel]
+    bt, h, w, heads, d = 40, 32, 32, 6, 64
+    q, k, v = _layer_views(bt, h, w, heads, d, 87, cuda_device)
+    assert not v.is_contiguous()
+    tables = list(_split_args(1, h, w, heads, d, 88, device=cuda_device).values())[3:]
+    do = torch.randn(bt, h, w, heads, d, generator=torch.Generator().manual_seed(89))
+    do = do.to(cuda_device, torch.bfloat16)
+    strided = (fwd(q, k, v, *tables), *bwd(do, q, k, v, *tables))
+    copied = (fwd(q, k, v.contiguous(), *tables), *bwd(do, q, k, v.contiguous(), *tables))
+    torch.cuda.synchronize()
+    for a, b in zip(strided, copied):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("fault", ["misaligned", "strided_last_dim"])
+@pytest.mark.parametrize("name", ["q", "k", "v", "do"])
+@pytest.mark.parametrize("kernel", list(SPLIT_PATHS))
+def test_k6_k7_hopper_kernels_name_a_view_they_cannot_read(kernel, name, fault):
+    """A bf16 q, k, v or do one element into its storage, or whose last dim
+    is not contiguous, cannot be read by 16-byte loads: K6's and K7's Hopper
+    kernels raise, naming it, before anything reaches the card (the check
+    runs on the host, here on CPU tensors), and copy nothing."""
+    hopper_fwd, hopper_bwd = SPLIT_PATHS[kernel][:2]
+    shape = (2, 4, 8, 2, 16)
+    args = _split_args(*shape[:3], 2, 16, 90, torch.bfloat16)
+    tensors = dict(args, do=torch.zeros(shape, dtype=torch.bfloat16))
+    if fault == "misaligned":
+        tensors[name] = _misaligned(shape)
+        message = f": {name} starts at .* not 16-byte aligned"
+    else:
+        tensors[name] = torch.zeros(*shape[:-1], 2 * shape[-1], dtype=torch.bfloat16)[..., ::2]
+        message = f": {name} of shape .* is not contiguous in its last dim"
+    qkv = [tensors[n] for n in "qkv"]
+    tables = list(args.values())[3:]
+    counts = _split_counts(kernel)
+    with pytest.raises(ValueError, match=message):
+        if name == "do":
+            hopper_bwd(tensors["do"], *qkv, *tables)
+        else:
+            hopper_fwd(*qkv, *tables)
+    assert _split_counts(kernel) == counts
+
+
+@pytest.mark.parametrize("kernel", ["k6_fwd", "k6_bwd", "k7_fwd", "k7_bwd"])
+def test_k6_k7_line_kernels_refuse_bfloat16(kernel):
+    """K6's and K7's line-kernel paths are their float32 paths: a bfloat16
+    call raises before it reaches a card, naming the Hopper kernels (K7's
+    backward takes bfloat16 only on lines its Hopper backward does not
+    stage)."""
+    args = list(_split_args(1, 4, 8, 2, 16, 91, torch.bfloat16).values())
+    _, _, line_fwd, line_bwd = SPLIT_PATHS[kernel[:2]]
+    with pytest.raises(TypeError, match=kernel[:2].replace("k6", "fused_packed_hopper")
+                       .replace("k7", "fused_hopper")):
+        if kernel.endswith("fwd"):
+            line_fwd(*args)
+        else:
+            line_bwd(torch.zeros(1, 4, 8, 2, 16, dtype=torch.bfloat16), *args)
+
+
 # K10 at path F's bf16 step (pred (8, 5, 4, 512, 512) in bf16 against the
 # float32 target), in float32, and a ragged plane (n % 4 != 0).
 K10_CASES = [((8, 5, 4, 512, 512), torch.bfloat16), ((8, 5, 4, 512, 512), torch.float32),
@@ -1283,7 +1449,7 @@ def _repeat_case(kernel, device):
         bwd = lane_axial_attention_bwd if kernel == "k2" else fused_block_attention_bwd
         return (lambda: bwd(do, *args.values(), heads=6), list(args), range(1, len(args)))
     if kernel in ("k6", "k7"):
-        args = _split_args(40, 32, 32, 6, 64, 80, dtype, device)
+        args = _split_args(40, 32, 32, 6, 64, 80, dtype, device)  # float32 and bfloat16
         do = torch.randn(40, 32, 32, 6, 64, generator=torch.Generator().manual_seed(81))
         do = do.to(device)
         bwd = fused_axial_attention_packed_bwd if kernel == "k6" else fused_axial_attention_bwd
@@ -1296,18 +1462,18 @@ def _repeat_case(kernel, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["k5", "k9", "k2", "k4", "k6", "k7", "k8", "k4_bf16",
-                                    "k8_bf16", "k8_t_bf16", "k8_d16_bf16"],
+                                    "k8_bf16", "k8_t_bf16", "k8_d16_bf16", "k6_bf16", "k7_bf16"],
                          ids=["k5_bf16", "k9_bf16", "k2_f32_d16_flow", "k4_f32", "k6_f32",
                               "k7_f32", "k8_f32", "k4_bf16", "k8_bf16", "k8_temporal_bf16",
-                              "k8_d16_bf16"])
+                              "k8_d16_bf16", "k6_bf16", "k7_bf16"])
 def test_parameter_gradients_repeat_bit_for_bit_on_card(cuda_device, kernel):
     """K5's and K9's bf16 parameter gradients (split-K weight gradients,
     per-plane bias and InstanceNorm sums, per-block table, scale and LN
     partials, each added in a fixed order), the line kernels' float32
     table, scale and LN gradients (K2 at AViT-tiny's 512x2048 training grid,
-    K4, K6, K7, K8: per-cluster partials) and K4's and K8's bf16 ones (the
-    Hopper kernels' per-block partials; K8 at its axial, temporal and head
-    dim 16 lines) give the same bits over two calls."""
+    K4, K6, K7, K8: per-cluster partials) and K4's, K6's, K7's and K8's bf16
+    ones (the Hopper kernels' per-block partials; K8 at its axial, temporal
+    and head dim 16 lines) give the same bits over two calls."""
     call, names, which = _repeat_case(kernel, cuda_device)
     first = [None if g is None else g.clone() for g in call()]
     second = call()

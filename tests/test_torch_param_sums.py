@@ -8,10 +8,12 @@ gradients a line and tile; the bf16 Hopper kernels of K4
 (``lane_bwd_layout``) and K8 (``ops/axial_pallas.py:flash_bwd_plan``) give
 a block a run of lines (K8: of segments of packed lines), sum the gradients
 over them inside the launch and write one partial a block.  Held here: the
-line kernels' partials take 79 MB at FiLMAViT-small's training shape, K4's
-and K8's bf16 paths write at least 4x fewer bytes than the line kernels
-wrote for them, every line lies in exactly one block, and K8's packing
-places every token of the M lines in exactly one staged row.
+line kernels' partials take 79 MB at FiLMAViT-small's training shape, K4's,
+K6's, K7's and K8's bf16 paths write at least 4x fewer bytes than the line
+kernels wrote for them, every line lies in exactly one block, K8's packing
+places every token of the M lines in exactly one staged row, and K7's rows
+and columns place every token of a ``(BT, H, W)`` grid in exactly one
+staged row a direction.
 
 The residents are an H100's: 132 multiprocessors, ``LINE_BLOCKS_PER_SM``
 blocks each for the line kernels (``line_bwd_resident``), 2 for the Hopper
@@ -20,12 +22,28 @@ backward kernels at head dim 64.
 import pytest
 import torch
 
+from bubbleformer_tpu_torch.ops.axial_fused import (
+    fused_bwd_layout,
+    fused_hopper_bwd,
+    fused_hopper_fwd,
+    fused_kernels,
+    fused_line_bwd,
+    fused_line_fwd,
+    fused_rows,
+)
 from bubbleformer_tpu_torch.ops.axial_fused_block import (
     fused_block_hopper_bwd,
     fused_block_hopper_fwd,
     fused_block_kernels,
     fused_block_line_bwd,
     fused_block_line_fwd,
+)
+from bubbleformer_tpu_torch.ops.axial_fused_packed import (
+    fused_packed_hopper_bwd,
+    fused_packed_hopper_fwd,
+    fused_packed_kernels,
+    fused_packed_line_bwd,
+    fused_packed_line_fwd,
 )
 from bubbleformer_tpu_torch.ops.axial_lane import (
     LINE_BLOCKS_PER_SM,
@@ -203,3 +221,75 @@ def test_fused_block_line_kernels_take_float32_alone(kernel):
         else:
             fused_block_line_bwd(torch.zeros(1, 4, 4, 32, dtype=torch.bfloat16), qkv, *params,
                                  heads=2)
+
+
+def test_fused_packed_partials_fall_fourfold():
+    """K6's bf16 backward (K4's Hopper kernels without the qk-LN, so no LN
+    partials) at its training shape: one partial a block of a wave, at least
+    4x fewer bytes than its line kernels wrote."""
+    size, plan = lane_bwd_layout(40, 32, 32, 6, 64, (HOPPER_RESIDENT, HOPPER_RESIDENT), ln=False)
+    before, _ = _per_line(40, 32, 32, 6, 64, ln=False)
+    assert 4 * size <= before, (size, before)
+    assert size == sum(g * 6 * (32 * 32 + 1) for g in plan[::2])
+
+
+def test_fused_partials_fall_fourfold():
+    """K7's bf16 backward (K8's kernels over the rows and the columns) at its
+    training shape: one partial a block of a wave a direction, at least 4x
+    fewer bytes than its line kernels wrote."""
+    size, plan = fused_bwd_layout(40, 32, 32, 6, (HOPPER_RESIDENT, HOPPER_RESIDENT))
+    before, _ = _per_line(40, 32, 32, 6, 64, ln=False)
+    assert 4 * size <= before, (size, before)
+    assert plan[::2] == [flash_bwd_plan(1280, 32, 6, HOPPER_RESIDENT)[1]] * 2
+
+
+# K7's grids: path D's training grid, AViT-tiny's 64x64 (head dim 16), the
+# 32x128 flow-boiling grid, rows of 512, a ragged grid and the make-demo
+# grid (lines of 8, packed two to a tile).
+PLANE_CASES = [(40, 32, 32), (40, 64, 64), (20, 32, 128), (2, 8, 512), (2, 100, 72), (5, 8, 8)]
+
+
+@pytest.mark.parametrize("direction", [0, 1], ids=["rows", "columns"])
+@pytest.mark.parametrize("bt,h,w", PLANE_CASES, ids=["training", "d16", "flow", "rows_512",
+                                                     "ragged", "demo"])
+def test_fused_plane_covers_every_token_once(bt, h, w, direction):
+    """Over its segments, each direction of K7 stages every token of the
+    (BT, H, W) grid exactly once, each where K8's packing puts its (line,
+    position): a row's tokens are a row of one frame, a column's a column."""
+    m, n = (bt * h, w) if direction == 0 else (bt * w, h)
+    seen = []
+    for seg in range(-(-m // flash_geometry(n)["lps"])):
+        for tok, cell in zip(fused_rows(bt, h, w, direction, seg), flash_rows(m, n, seg)):
+            assert (tok is None) == (cell is None)
+            if tok is None:
+                continue
+            frame, y, x = tok // (h * w), tok // w % h, tok % w
+            line, pos = cell
+            assert (frame * h + y, x) == (line, pos) if direction == 0 else (
+                (frame * w + x, y) == (line, pos))
+            seen.append(tok)
+    assert sorted(seen) == list(range(bt * h * w))
+
+
+def test_fused_packed_kernels_are_chosen_by_dtype():
+    """bfloat16 K6 takes the Hopper kernels, float32 the line kernels; any
+    other dtype has no kernel."""
+    assert fused_packed_kernels(torch.bfloat16) == (fused_packed_hopper_fwd,
+                                                    fused_packed_hopper_bwd)
+    assert fused_packed_kernels(torch.float32) == (fused_packed_line_fwd, fused_packed_line_bwd)
+    with pytest.raises(TypeError, match="float16"):
+        fused_packed_kernels(torch.float16)
+
+
+def test_fused_kernels_are_chosen_by_dtype_and_line():
+    """bfloat16 K7 takes the Hopper kernels, its backward while K8's Hopper
+    backward stages the longer direction's lines (every line at head dim 16,
+    up to 256 tokens at 64; longer ones the line kernels' kFused flavour),
+    float32 the line kernels; any other dtype has no kernel."""
+    assert fused_kernels(torch.bfloat16, 32, 64) == (fused_hopper_fwd, fused_hopper_bwd)
+    assert fused_kernels(torch.bfloat16, 256, 64) == (fused_hopper_fwd, fused_hopper_bwd)
+    assert fused_kernels(torch.bfloat16, 512, 64) == (fused_hopper_fwd, fused_line_bwd)
+    assert fused_kernels(torch.bfloat16, 512, 16) == (fused_hopper_fwd, fused_hopper_bwd)
+    assert fused_kernels(torch.float32, 32, 64) == (fused_line_fwd, fused_line_bwd)
+    with pytest.raises(TypeError, match="float16"):
+        fused_kernels(torch.float16)
