@@ -48,7 +48,7 @@ _SIGNATURES = {
     # dwqkv, dbqkv, dln, din2, dwout, dbout, dbias, dscale, xs, part, plan_out,
     # splits_out, plan_qkv, splits_qkv, launch_ms, B, T, N, C, heads, stream
     "bf_temporal_block_bwd": [_I] * 2 + [_P] * 30 + [_IP, _I, _IP, _I, _FP] + [_I] * 5 + [_P],
-    # tn, epilogue, a, b, out, bias, part, M, N, K, bounds, splits, stream
+    # layout, epilogue, a, b, out, bias, part, M, N, K, bounds, splits, stream
     "bf_hopper_gemm": [_I] * 2 + [_P] * 5 + [_I] * 3 + [_IP, _I, _P],
     # dtype, head_dim, xn, wqkv, bqkv, ln, bias, scale, qkv, ao, launch_ms, B,
     # T, N, C, heads, stream
@@ -173,9 +173,8 @@ _SIGNATURES = {
     "bf_probe_stage_tiles": [_I] * 2,
     # y, mean, inv, k, out, partial, mu, var, bt, H, W, C, F, stream
     "bf_probe_stage": [_P] * 8 + [_I] * 5 + [_P],
-    # src_dtype, src, src_stride, dst_dtype, dst, dst_stride, shape, ndim, scale,
-    # accumulate, stream
-    "bf_probe_view_copy": [_I, _P, _LP, _I, _P, _LP, _LP, _I, _F, _I, _P],
+    # desc (a packed CopyDesc), src, dst, stream
+    "bf_probe_view_copy": [_P] * 4,
     # dtype, a, stride, shape, ndim, out, stream
     "bf_probe_gram": [_I, _P, _LP, _LP, _I, _P, _P],
     # dtype, x, out, shape, stride, axis, chunk, accumulate, stream
@@ -283,14 +282,15 @@ def check_tma(what: str, **tensors) -> None:
     TMA loads (or of the 16-byte vector loads beside them): contiguous, its
     base 16-byte aligned and its rows a multiple of 16 bytes."""
     for name, t in tensors.items():
+        if t.is_contiguous() and not t.data_ptr() % 16 and not t.shape[-1] * t.element_size() % 16:
+            continue
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} of shape {tuple(t.shape)} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} starts at {t.data_ptr():#x}, which is not "
                              "16-byte aligned (TMA needs it)")
-        if t.shape[-1] * t.element_size() % 16:
-            raise ValueError(f"{what}: {name} has rows of {t.shape[-1] * t.element_size()} "
-                             "bytes, not a multiple of 16 (TMA needs it)")
+        raise ValueError(f"{what}: {name} has rows of {t.shape[-1] * t.element_size()} "
+                         "bytes, not a multiple of 16 (TMA needs it)")
 
 
 def in_place_strides(what: str, **tensors) -> list:
@@ -336,5 +336,8 @@ def int64_array(values) -> ctypes.Array:
 
 
 def stream_handle(device: torch.device) -> int:
-    """PyTorch's current CUDA stream on ``device``, as the C entries take it."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """PyTorch's current CUDA stream on ``device``, as the C entries take it
+    (read without making a ``torch.cuda.Stream``, as Triton's launcher
+    reads it)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

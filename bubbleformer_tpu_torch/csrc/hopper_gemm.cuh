@@ -4,9 +4,10 @@
 // multiply with wgmma.mma_async (m64n128k16, float32 accumulators in
 // registers).  K1's, K3's, K5's and K9's bf16 products run on it
 // (temporal_block.cu, temporal_block_bwd.cu, axial_block_mega.cu,
-// axial_lane_px.cu); hopper_gemm.cu exposes it alone for the tests.
+// axial_lane_px.cu), and so does the permutation product of the P2 probe
+// (probe_chunk_axial.cu); hopper_gemm.cu exposes it alone for the tests.
 //
-// Two operand layouts, both row-major bf16 in device memory:
+// Three operand layouts, all row-major bf16 in device memory:
 //   NT  out(M, N) = A(M, K) . B(N, K)^T: activations times a torch (out, in)
 //       weight, both K-major.  TMA boxes of 64 K x 128 rows, 128-byte
 //       swizzle, read by wgmma as K-major operands.
@@ -19,10 +20,16 @@
 //       so the sum repeats bit for bit from run to run (no atomics).
 //       K9 runs tn_partials once per direction into consecutive partials
 //       and adds both directions' ranges in one splitk_sum.
+//   NN  out(M, N) = A(M, K) . B(K, N): A K-major as NT reads it, B stored
+//       (K, N) and read as TN reads its S operand (boxes of 64 columns x
+//       64 K rows, MN-major).  Tiles of 128 or 64 rows (kWG, the consumer
+//       warpgroups): 64-row tiles put twice the blocks on the card where
+//       128-row ones leave SMs idle.
 // Epilogues: float32 bias added and the sum rounded to bf16 (kBiasRound),
 // the sum rounded to bf16 without a bias (kRound), the sum rounded to bf16
 // and added to the bf16 output in bf16 (kRoundAdd), float32 stored
-// (kStoreF32), float32 partial of a token range (kPartialF32).  Rows and
+// (kStoreF32), float32 partial of a token range (kPartialF32), the mean
+// of a float32 addend and the sum rounded to bf16 (kHalfAdd).  Rows and
 // columns beyond M, N are masked; the ragged end of K is zero-filled by TMA.
 //
 // Tile 128 x 128 x 64, three stages of 32 KB: two blocks fit one SM, so one
@@ -36,6 +43,7 @@
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 
+#include <atomic>
 #include <cstdint>
 
 #include "common.cuh"
@@ -56,7 +64,15 @@ constexpr int kSmemBytes = kStages * kStageBytes + 2 * kStages * 8 + 1024;  // +
 constexpr int kMaxSplits = 64;
 static_assert(kBN == kBM, "one operand stage size for A and B");
 
-enum Epilogue { kBiasRound = 0, kStoreF32 = 1, kPartialF32 = 2, kRound = 3, kRoundAdd = 4 };
+enum Epilogue {
+  kBiasRound = 0,
+  kStoreF32 = 1,
+  kPartialF32 = 2,
+  kRound = 3,
+  kRoundAdd = 4,
+  kHalfAdd = 5
+};
+enum Layout { kNT = 0, kTN = 1, kNN = 2 };
 
 // Token ranges of a split-K product: range z is [begin[z], begin[z + 1]),
 // every begin but the last a multiple of kBK.  One range [0, K) for NT.
@@ -68,7 +84,8 @@ struct SplitPlan {
 struct EpilogueArgs {
   void* out;          // bf16 (kBiasRound, kRound, kRoundAdd) or float32; partials at
                       // out + z * M * N
-  const float* bias;  // kBiasRound only
+  const float* bias;  // kBiasRound: the bias (N); kHalfAdd: the float32 addend,
+                      // row stride ldo
   int ldo;            // row stride of out, elements
 };
 
@@ -145,8 +162,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d(64 x 128) += A(64 x 16) . B(16 x 128); kTrans: both operands MN-major.
-template <int kTrans>
+// d(64 x 128) += A(64 x 16) . B(16 x 128); kTransA, kTransB: the operand
+// is MN-major.
+template <int kTransA, int kTransB = kTransA>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -155,7 +173,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, %67, %67;\n}\n"
+      " %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
@@ -167,52 +185,76 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1), "n"(kTrans));
+      : "l"(da), "l"(db), "r"(1), "n"(kTransA), "n"(kTransB));
 }
 
-// Grid (ceil(N / kBN), ceil(M / kBM), plan.splits), kThreads threads,
-// kSmemBytes of dynamic shared memory.  Warps 0-7 (two warpgroups) compute
-// rows [64 w, 64 w + 64) of the tile; warp 8 lane 0 issues the loads.
-template <bool kTN, int kEpi>
-__global__ void __launch_bounds__(kThreads, 2)
+// A tile of kWG consumer warpgroups: its rows, the bytes of A and of the
+// whole stage (A, then B's 128 columns), threads and dynamic shared memory.
+// kWG = 2 is the kBM x kBN tile of the constants above.
+template <int kWG>
+struct WgTile {
+  static constexpr int kRows = 64 * kWG;
+  static constexpr int kABytes = kRows * kBK * 2;
+  static constexpr int kStage = kABytes + kOperandBytes;
+  static constexpr int kThreads = 128 * kWG + 32;
+  static constexpr int kSmem = kStages * kStage + 2 * kStages * 8 + 1024;
+};
+static_assert(WgTile<2>::kStage == kStageBytes && WgTile<2>::kSmem == kSmemBytes &&
+                  WgTile<2>::kThreads == kThreads,
+              "kWG = 2 is the 128 x 128 tile");
+
+// Grid (ceil(N / kBN), ceil(M / (64 kWG)), plan.splits), WgTile<kWG>::kThreads
+// threads, WgTile<kWG>::kSmem bytes of dynamic shared memory.  Warps 0 to 4
+// kWG - 1 (kWG warpgroups) compute rows [64 w, 64 w + 64) of the tile; the
+// next warp's lane 0 issues the loads.
+template <int kLayout, int kEpi, int kWG = 2>
+__global__ void __launch_bounds__(WgTile<kWG>::kThreads, 2)
     gemm_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                 int M, int N, const __grid_constant__ SplitPlan plan, EpilogueArgs ep) {
+  using T = WgTile<kWG>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the 128-byte swizzle repeats every 1 KB
-  const uint32_t bars = base + kStages * kStageBytes;
+  const uint32_t bars = base + kStages * T::kStage;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (kStages + s); };
   const int tid = threadIdx.x, warp = tid / 32;
-  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * T::kRows;
   const int k_begin = plan.begin[blockIdx.z], k_end = plan.begin[blockIdx.z + 1];
   const int nk = (k_end - k_begin + kBK - 1) / kBK;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 2);  // one arrival per consumer warpgroup
+      mbar_init(empty(s), kWG);  // one arrival per consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == kConsumers / 32) {
+  if (warp == 4 * kWG) {
     // Producer: keeps up to kStages stages of loads in flight.  A box that
     // lies wholly beyond M or N is not loaded (its rows or columns of the
     // product are masked in the epilogue); the ragged end of K is zero-filled.
     if (tid % 32 == 0) {
-      const bool a1 = m0 + 64 < M, b1 = n0 + 64 < N;  // TN: the tile's second 64-wide box
-      const uint32_t tx = kTN ? (2 + a1 + b1) * (kOperandBytes / 2) : kStageBytes;
+      // TN, NN: the tile's second 64-wide box of an MN-major operand.
+      const bool a1 = m0 + 64 < M, b1 = n0 + 64 < N;
+      const uint32_t tx = kLayout == kTN   ? (2 + a1 + b1) * (kOperandBytes / 2)
+                          : kLayout == kNN ? T::kABytes + (1 + b1) * (kOperandBytes / 2)
+                                           : T::kStage;
       for (int kb = 0; kb < nk; ++kb) {
         const int s = kb % kStages;
         mbar_wait(empty(s), ((kb / kStages) & 1) ^ 1);
         mbar_expect_tx(full(s), tx);
-        const uint32_t a = base + s * kStageBytes, b = a + kOperandBytes;
+        const uint32_t a = base + s * T::kStage, b = a + T::kABytes;
         const int k = k_begin + kb * kBK;
-        if constexpr (kTN) {
+        if constexpr (kLayout == kTN) {
           tma_load_2d(a, &ta, full(s), m0, k);
           if (a1) tma_load_2d(a + kOperandBytes / 2, &ta, full(s), m0 + 64, k);
+          tma_load_2d(b, &tb, full(s), n0, k);
+          if (b1) tma_load_2d(b + kOperandBytes / 2, &tb, full(s), n0 + 64, k);
+        } else if constexpr (kLayout == kNN) {
+          tma_load_2d(a, &ta, full(s), k, m0);
           tma_load_2d(b, &tb, full(s), n0, k);
           if (b1) tma_load_2d(b + kOperandBytes / 2, &tb, full(s), n0 + 64, k);
         } else {
@@ -229,16 +271,20 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int kb = 0; kb < nk; ++kb) {
       const int s = kb % kStages;
       mbar_wait(full(s), (kb / kStages) & 1);
-      const uint32_t a = base + s * kStageBytes, b = a + kOperandBytes;
+      const uint32_t a = base + s * T::kStage, b = a + T::kABytes;
       fence_acc(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        if constexpr (kTN) {
+        if constexpr (kLayout == kTN) {
           // 16 tokens = 16 swizzled rows of 128 bytes; B's two 64-wide
           // column blocks are kOperandBytes / 2 apart.
           wgmma_m64n128k16<1>(acc, sw128_desc(a + wg * (kOperandBytes / 2) + kk * 2048, 8192, 1024),
                               sw128_desc(b + kk * 2048, kOperandBytes / 2, 1024));
+        } else if constexpr (kLayout == kNN) {
+          // A as NT reads it, B as TN reads it.
+          wgmma_m64n128k16<0, 1>(acc, sw128_desc(a + wg * 64 * 128 + kk * 32, 16, 1024),
+                                 sw128_desc(b + kk * 2048, kOperandBytes / 2, 1024));
         } else {
           // 16 K values = 32 bytes along each swizzled row.
           wgmma_m64n128k16<0>(acc, sw128_desc(a + wg * 64 * 128 + kk * 32, 16, 1024),
@@ -266,7 +312,11 @@ __global__ void __launch_bounds__(kThreads, 2)
         if (row >= M) continue;
         const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
         const size_t at = static_cast<size_t>(row) * ep.ldo + col;
-        if constexpr (kEpi == kRoundAdd) {
+        if constexpr (kEpi == kHalfAdd) {
+          const float2 add = *reinterpret_cast<const float2*>(ep.bias + at);
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(ep.out) + at) =
+              __floats2bfloat162_rn(0.5f * (add.x + v0), 0.5f * (add.y + v1));
+        } else if constexpr (kEpi == kRoundAdd) {
           auto* o = reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(ep.out) + at);
           const float2 old = __bfloat1622float2(*o);
           const float2 add = __bfloat1622float2(__floats2bfloat162_rn(v0, v1));
@@ -335,22 +385,33 @@ cudaError_t encode_map(CUtensorMap* map, const void* ptr, int rows, int cols, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <bool kTN, int kEpi>
+template <int kLayout, int kEpi, int kWG = 2>
 cudaError_t launch(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N,
                    const SplitPlan& plan, EpilogueArgs ep, cudaStream_t stream) {
-  auto kernel = gemm_kernel<kTN, kEpi>;
+  using T = WgTile<kWG>;
+  auto kernel = gemm_kernel<kLayout, kEpi, kWG>;
+  // The kernel's shared-memory opt-in, made once per device (a bit per
+  // device ordinal below 64): a runtime call a launch need not repeat.
+  static std::atomic<uint64_t> opted{0};
+  int dev = 0;
   cudaError_t e;
-  if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kSmemBytes)) != cudaSuccess)
-    return e;
-  kernel<<<dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, plan.splits), kThreads, kSmemBytes,
-           stream>>>(ta, tb, M, N, plan, ep);
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? 1ull << dev : 0;
+  if (!(opted.load(std::memory_order_relaxed) & bit)) {
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  T::kSmem)) != cudaSuccess)
+      return e;
+    opted.fetch_or(bit, std::memory_order_relaxed);
+  }
+  kernel<<<dim3((N + kBN - 1) / kBN, (M + T::kRows - 1) / T::kRows, plan.splits), T::kThreads,
+           T::kSmem, stream>>>(ta, tb, M, N, plan, ep);
   return cudaGetLastError();
 }
 
 // out(M, N) = A(M, K) . B(N, K)^T with epilogue kEpi (kBiasRound: out bf16,
 // out = bf16(sum + bias); kRound: out = bf16(sum), bias unused; kRoundAdd:
-// out = bf16(out + bf16(sum)), bias unused; kStoreF32: out float32).  A, B bf16 with row
+// out = bf16(out + bf16(sum)), bias unused; kHalfAdd: out = bf16(0.5 (bias +
+// sum)), bias the float32 addend (M, ldo); kStoreF32: out float32).  A, B bf16 with row
 // strides lda, ldb; every base and row stride 16-byte aligned (the callers
 // check), N even.
 template <int kEpi>
@@ -364,7 +425,52 @@ cudaError_t gemm_nt(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int
   SplitPlan plan{};
   plan.splits = 1;
   plan.begin[1] = K;
-  return launch<false, kEpi>(ta, tb, M, N, plan, EpilogueArgs{out, bias, ldo}, stream);
+  return launch<kNT, kEpi>(ta, tb, M, N, plan, EpilogueArgs{out, bias, ldo}, stream);
+}
+
+// out(M, N) = A(M, K) . B(K, N) with epilogue kEpi (as gemm_nt's) on tiles
+// of 64 kWG rows; B row-major with row stride ldb.  Every base and row
+// stride 16-byte aligned (the callers check), N even.
+template <int kEpi, int kWG>
+cudaError_t gemm_nn(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb, int M,
+                    int N, int K, void* out, int ldo, const float* bias, cudaStream_t stream) {
+  static_assert(kEpi != kPartialF32, "NN runs over all of K");
+  CUtensorMap ta, tb;
+  cudaError_t e;
+  if ((e = encode_map(&ta, A, M, K, lda, kBK, WgTile<kWG>::kRows)) != cudaSuccess) return e;
+  if ((e = encode_map(&tb, B, K, N, ldb, 64, kBK)) != cudaSuccess) return e;
+  SplitPlan plan{};
+  plan.splits = 1;
+  plan.begin[1] = K;
+  return launch<kNN, kEpi, kWG>(ta, tb, M, N, plan, EpilogueArgs{out, bias, ldo}, stream);
+}
+
+// Consumer warpgroups of an NN product's tile: 64-row tiles (1) where
+// 128-row ones would give the current card's SMs fewer blocks than it has,
+// else 2 (the SM count read once per device ordinal below 64).
+inline cudaError_t nn_warpgroups(int M, int N, int* wg) {
+  static std::atomic<int> sms_of[64];  // zero: not read yet
+  int dev = 0, sms = 0;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+  if (dev >= 64 || (sms = sms_of[dev].load(std::memory_order_relaxed)) == 0) {
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return e;
+    if (dev < 64) sms_of[dev].store(sms, std::memory_order_relaxed);
+  }
+  *wg = static_cast<long long>((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN) < sms ? 1 : 2;
+  return cudaSuccess;
+}
+
+// gemm_nn on the tile nn_warpgroups picks for (M, N).
+template <int kEpi>
+cudaError_t gemm_nn_fit(const __nv_bfloat16* A, int lda, const __nv_bfloat16* B, int ldb, int M,
+                        int N, int K, void* out, int ldo, const float* bias, cudaStream_t stream) {
+  int wg = 2;
+  const cudaError_t e = nn_warpgroups(M, N, &wg);
+  if (e != cudaSuccess) return e;
+  return wg == 1 ? gemm_nn<kEpi, 1>(A, lda, B, ldb, M, N, K, out, ldo, bias, stream)
+                 : gemm_nn<kEpi, 2>(A, lda, B, ldb, M, N, K, out, ldo, bias, stream);
 }
 
 // The split plan of token bounds[0..splits] (bounds[0] = 0, bounds[splits]
@@ -387,7 +493,7 @@ cudaError_t tn_partials(const __nv_bfloat16* D, const __nv_bfloat16* S, int R, i
   cudaError_t e;
   if ((e = encode_map(&ta, D, R, M, M, 64, kBK)) != cudaSuccess) return e;
   if ((e = encode_map(&tb, S, R, N, N, 64, kBK)) != cudaSuccess) return e;
-  return launch<true, kPartialF32>(ta, tb, M, N, plan, EpilogueArgs{part, nullptr, N}, stream);
+  return launch<kTN, kPartialF32>(ta, tb, M, N, plan, EpilogueArgs{part, nullptr, N}, stream);
 }
 
 cudaError_t splitk_sum(const float* part, float* dW, int M, int N, int splits,

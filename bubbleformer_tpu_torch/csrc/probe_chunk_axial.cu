@@ -18,19 +18,26 @@
 //       on block_gemm.cuh's WMMA tile, the softmax and the blend in between
 //       from shared memory ((a) is one block of it, with no scale, bias or
 //       blend, writing S as well);
-//   perm_product_kernel, a 128 x 128 output tile a block on the same tile:
-//       out = bf16(x . P), or bf16((addend + x . P^T) / 2) for (c)'s last
-//       product (o_row added in the epilogue).  P stays an input read as a
-//       dense operand: no gather.  One nonzero term a sum makes it exact.
+//   the permutation product on hopper_gemm.cuh (TMA + wgmma): out = bf16(x .
+//       P) as its NN layout (P stored (K, N), read MN-major), on 64-row tiles
+//       where 128-row ones would leave SMs idle (the probe's 384 rows: 48
+//       blocks, not 24); or bf16((addend + x . P^T) / 2) for (c)'s last
+//       product as its NT layout (P is P^T read K-major) with the kHalfAdd
+//       epilogue (o_row added in float32).  P stays an input read as a
+//       dense operand: no gather.  One nonzero term a sum makes it exact in
+//       any order of the float32 sum.
+// Bound at (b)'s shape ((384, 1024) . (1024, 1024)): its 3.7 MB of operands
+// and output, 0.0011 ms at 3.35 TB/s, above its 0.8 GFLOP (0.0008 ms).
 // Bound at (c)'s shape (BT = 20, C = 384, 32 x 32 tokens, ch = 128), counting
 // P as the dense operand it is: the four relayout products (2*384*1024^2
 // FLOP each per frame, the kv one twice as tall) and the chunk products,
 // 72 GFLOP, on the tensor cores: 0.073 ms at 989 TFLOP/s, above its 65 MB of
-// slabs (0.020 ms).  The WMMA tile runs far below that peak; wgmma tiles and
-// the relayouts folded into the chunk kernel's staging are left for later.
+// slabs (0.020 ms).  The chunk kernel's WMMA tile runs far below that peak;
+// the relayouts folded into its staging are left for later.
 #include <cmath>
 
 #include "block_gemm.cuh"
+#include "hopper_gemm.cuh"
 
 namespace bft {
 namespace {
@@ -145,34 +152,6 @@ __global__ void __launch_bounds__(kGemmThreads) chunk_attention_kernel(ChunkArgs
   }
 }
 
-// Grid (ceil(rows / 128), ceil(n / 128)): out[r, c] = bf16(sum_l x[r, l] P[l, c])
-// or, kTransB, bf16((addend[r, c] + sum_l x[r, l] P[c, l]) / 2).
-template <bool kTransB>
-__global__ void __launch_bounds__(kGemmThreads) perm_product_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ p, const float* __restrict__ addend,
-    bf16* __restrict__ out, int rows, int n) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int r0 = blockIdx.x * 128, c0 = blockIdx.y * 128;
-  auto aload = [&](int m, int l) {
-    return r0 + m < rows && l < n ? x[(size_t)(r0 + m) * n + l] : bf_zero();
-  };
-  auto bload = [&](int c, int l) {
-    if (c0 + c >= n || l >= n) return bf_zero();
-    return kTransB ? p[(size_t)(c0 + c) * n + l] : p[(size_t)l * n + c0 + c];
-  };
-  // A is k-fastest; B is too as P^T, and column-fastest as P.
-  block_gemm<bf16, false, !kTransB>(8, 8, round32(n), aload, bload, smem);
-  __syncthreads();
-  const float* acc = gemm_out<bf16>(smem, 8);
-  for (int e = threadIdx.x; e < 128 * 128; e += kGemmThreads) {
-    const int m = e / 128, c = e % 128;
-    if (r0 + m >= rows || c0 + c >= n) continue;
-    const size_t o = (size_t)(r0 + m) * n + c0 + c;
-    const float val = acc[m * kLDC + c];
-    out[o] = __float2bfloat16(kTransB ? 0.5f * (addend[o] + val) : val);
-  }
-}
-
 bool chunk_shape_ok(int frames, int heads, int d, int nchunks, int ch) {
   return frames >= 1 && frames <= 65535 && heads >= 1 && heads <= 65535 && d >= 1 && d <= 128 &&
          ch >= 32 && ch <= 128 && ch % 32 == 0 && nchunks >= 1;
@@ -208,36 +187,20 @@ extern "C" int bf_probe_chunk_attention(const void* q, const void* k, const void
   return cudaGetLastError();
 }
 
-// x (rows, n) and p (n, n) bf16, contiguous; out (rows, n) bf16 = bf16(x . P),
-// or with transpose_p bf16((addend + x . P^T) / 2), addend (rows, n) float32.
-// Returns a cudaError_t.
+// x (rows, n) and p (n, n) bf16, row-major, every base 16-byte aligned and
+// n a multiple of 8 (TMA's rule; the wrapper checks); out (rows, n) bf16 =
+// bf16(x . P), or with transpose_p bf16((addend + x . P^T) / 2), addend
+// (rows, n) float32.  Returns a cudaError_t.
 extern "C" int bf_probe_perm_product(const void* x, const void* p, int transpose_p,
                                      const float* addend, void* out, int rows, int n,
                                      void* stream) {
-  using namespace bft;
-  if (rows < 1 || n < 1 || (n + 127) / 128 > 65535 ||
-      (transpose_p && !addend))
+  namespace hg = bft::hg;
+  using bf16 = __nv_bfloat16;
+  if (rows < 1 || rows > 65535 * 64 || n < 8 || n % 8 || (transpose_p && !addend))
     return cudaErrorInvalidValue;
-  const size_t smem = gemm_smem_bytes<bf16>(8);
-  const dim3 grid((rows + 127) / 128, (n + 127) / 128);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* pb = static_cast<const bf16*>(p);
-  cudaError_t e;
-  if (transpose_p) {
-    if ((e = cudaFuncSetAttribute(perm_product_kernel<true>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-        cudaSuccess)
-      return e;
-    perm_product_kernel<true><<<grid, kGemmThreads, smem, s>>>(xb, pb, addend,
-                                                               static_cast<bf16*>(out), rows, n);
-  } else {
-    if ((e = cudaFuncSetAttribute(perm_product_kernel<false>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-        cudaSuccess)
-      return e;
-    perm_product_kernel<false><<<grid, kGemmThreads, smem, s>>>(xb, pb, nullptr,
-                                                                static_cast<bf16*>(out), rows, n);
-  }
-  return cudaGetLastError();
+  if (transpose_p) return hg::gemm_nt<hg::kHalfAdd>(xb, n, pb, n, rows, n, n, out, n, addend, s);
+  return hg::gemm_nn_fit<hg::kRound>(xb, n, pb, n, rows, n, n, out, n, nullptr, s);
 }

@@ -13,7 +13,11 @@
 //                     with accumulate, between two views of one shape:
 //                     transpose, split, concat0, concat1,
 //                     write_strided_slice (with its read-modify-write),
-//                     transpose_full, merge_full, head_slice_bf16;
+//                     transpose_full, merge_full, head_slice_bf16.  The
+//                     wrapper folds the views (probes/mosaic.py:
+//                     fold_views) and hands over one packed descriptor;
+//                     a thread moves 16 bytes of the innermost run where
+//                     both views allow it, else one element;
 //   chunk_gram_kernel per chunk c (rows x D) of a (B, H, W, heads, D) tensor,
 //                     o = (c . c^T) . c in float32, written as dtype(o) or
 //                     added as dtype(out + dtype(o)) (the TPU body's bf16
@@ -21,6 +25,8 @@
 //                     chunked_ref_reads_bf16 (row chunks, then column
 //                     chunks added).
 // The probes' arrays are at most 0.8 MB: every kernel is bound by its launch.
+#include <climits>
+
 #include "common.cuh"
 
 namespace bft {
@@ -44,15 +50,59 @@ __device__ __forceinline__ long long view_offset(const View& v, long long e) {
   return off;
 }
 
-template <typename S, typename D>
-__global__ void view_copy_kernel(const S* __restrict__ src, View sv, D* __restrict__ dst,
-                                 View dv, long long n, float scale, int accumulate) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
-       e += (long long)gridDim.x * blockDim.x) {
-    const long long so = view_offset(sv, e), d_o = view_offset(dv, e);
-    float v = to_f32(src[so]) * scale;
-    if (accumulate) v = to_f32(dst[d_o]) + v;
-    dst[d_o] = from_f32<D>(v);
+// A copy between two folded views of one shape, as probes/mosaic.py packs
+// it (copy_descriptor): no dimension of size 1, no two adjacent dimensions
+// contiguous in both views; every offset below 2^31 elements.
+struct CopyDesc {
+  int ndim;  // 1 to kMaxDims
+  int vec;   // elements a thread moves: 16 bytes of the wider type, or 1
+  int src_dtype, dst_dtype;
+  int accumulate;
+  float scale;
+  int shape[kMaxDims];  // shape[ndim - 1] a multiple of vec
+  int sstride[kMaxDims], dstride[kMaxDims];  // elements; the innermost 1 where vec > 1
+};
+
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T v[N];
+};
+
+// n vectors of kVec elements: thread e moves vector e % inner of the
+// innermost run, whose outer index e / inner is split over the outer
+// dimensions by 32-bit divisions by the launch's shapes.  The product and
+// sum are rounded one at a time (no fused multiply-add), as the plain
+// version's float32 operations are.
+template <typename S, typename D, int kVec>
+__global__ void __launch_bounds__(256) view_copy_kernel(const S* __restrict__ src,
+                                                        D* __restrict__ dst,
+                                                        const __grid_constant__ CopyDesc c,
+                                                        int n) {
+  const int last = c.ndim - 1, inner = c.shape[last] / kVec;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n; e += gridDim.x * blockDim.x) {
+    int o = e / inner;
+    const int i = (e - o * inner) * kVec;
+    int so = i * c.sstride[last], d_o = i * c.dstride[last];
+#pragma unroll
+    for (int k = kMaxDims - 2; k >= 0; --k) {
+      if (k < last) {
+        const int q = o / c.shape[k];
+        const int idx = o - q * c.shape[k];
+        so += idx * c.sstride[k];
+        d_o += idx * c.dstride[k];
+        o = q;
+      }
+    }
+    const Pack<S, kVec> a = *reinterpret_cast<const Pack<S, kVec>*>(src + so);
+    Pack<D, kVec> r;
+    if (c.accumulate) r = *reinterpret_cast<const Pack<D, kVec>*>(dst + d_o);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      float v = __fmul_rn(to_f32(a.v[j]), c.scale);
+      if (c.accumulate) v = __fadd_rn(to_f32(r.v[j]), v);
+      r.v[j] = from_f32<D>(v);
+    }
+    *reinterpret_cast<Pack<D, kVec>*>(dst + d_o) = r;
   }
 }
 
@@ -159,10 +209,16 @@ int grid_for(long long n) {
 }
 
 template <typename S, typename D>
-int run_view_copy(const void* src, const View& sv, void* dst, const View& dv, long long n,
-                  float scale, int accumulate, cudaStream_t stream) {
-  view_copy_kernel<S, D><<<grid_for(n), 256, 0, stream>>>(
-      static_cast<const S*>(src), sv, static_cast<D*>(dst), dv, n, scale, accumulate);
+int run_view_copy(const CopyDesc& c, const void* src, void* dst, int n, cudaStream_t stream) {
+  constexpr int kWide = 16 / (sizeof(S) > sizeof(D) ? sizeof(S) : sizeof(D));
+  const S* s = static_cast<const S*>(src);
+  D* d = static_cast<D*>(dst);
+  if (c.vec == kWide)
+    view_copy_kernel<S, D, kWide><<<grid_for(n), 256, 0, stream>>>(s, d, c, n);
+  else if (c.vec == 1)
+    view_copy_kernel<S, D, 1><<<grid_for(n), 256, 0, stream>>>(s, d, c, n);
+  else
+    return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 
@@ -170,29 +226,27 @@ int run_view_copy(const void* src, const View& sv, void* dst, const View& dv, lo
 }  // namespace bft
 
 // dst = dst_dtype(scale * src), or dst_dtype(dst + scale * src) with
-// accumulate, over views of one shape (ndim <= 5; shape and the two stride
-// lists in elements, host arrays; src and dst point at the views' first
-// elements).  Returns a cudaError_t.
-extern "C" int bf_probe_view_copy(int src_dtype, const void* src, const long long* src_stride,
-                                  int dst_dtype, void* dst, const long long* dst_stride,
-                                  const long long* shape, int ndim, float scale, int accumulate,
-                                  void* stream) {
+// accumulate, over two views of one shape described by desc, a host
+// CopyDesc (src and dst point at the views' first elements, each aligned to
+// the desc's vectors).  Returns a cudaError_t.
+extern "C" int bf_probe_view_copy(const void* desc, const void* src, void* dst, void* stream) {
   using namespace bft;
-  if (ndim < 1 || ndim > kMaxDims) return cudaErrorInvalidValue;
+  const CopyDesc& c = *static_cast<const CopyDesc*>(desc);
+  if (c.ndim < 1 || c.ndim > kMaxDims || c.vec < 1) return cudaErrorInvalidValue;
   long long n = 1;
-  for (int i = 0; i < ndim; ++i) n *= shape[i];
-  if (n < 1) return cudaErrorInvalidValue;
-  const View sv = make_view(shape, src_stride, ndim), dv = make_view(shape, dst_stride, ndim);
+  for (int i = 0; i < c.ndim; ++i) n *= c.shape[i];
+  if (n < 1 || n > INT_MAX || c.shape[c.ndim - 1] % c.vec) return cudaErrorInvalidValue;
+  const int nv = static_cast<int>(n / c.vec);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
-  if (src_dtype == kF32 && dst_dtype == kF32)
-    return run_view_copy<float, float>(src, sv, dst, dv, n, scale, accumulate, s);
-  if (src_dtype == kF32 && dst_dtype == kBF16)
-    return run_view_copy<float, bf16>(src, sv, dst, dv, n, scale, accumulate, s);
-  if (src_dtype == kBF16 && dst_dtype == kF32)
-    return run_view_copy<bf16, float>(src, sv, dst, dv, n, scale, accumulate, s);
-  if (src_dtype == kBF16 && dst_dtype == kBF16)
-    return run_view_copy<bf16, bf16>(src, sv, dst, dv, n, scale, accumulate, s);
+  if (c.src_dtype == kF32 && c.dst_dtype == kF32)
+    return run_view_copy<float, float>(c, src, dst, nv, s);
+  if (c.src_dtype == kF32 && c.dst_dtype == kBF16)
+    return run_view_copy<float, bf16>(c, src, dst, nv, s);
+  if (c.src_dtype == kBF16 && c.dst_dtype == kF32)
+    return run_view_copy<bf16, float>(c, src, dst, nv, s);
+  if (c.src_dtype == kBF16 && c.dst_dtype == kBF16)
+    return run_view_copy<bf16, bf16>(c, src, dst, nv, s);
   return cudaErrorInvalidValue;
 }
 

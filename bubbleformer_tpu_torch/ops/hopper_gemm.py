@@ -11,12 +11,17 @@ the wrappers compute on the host and hand to the kernel:
   float32 bias added first;
 * :func:`gemm_tn`: ``d (R, M)^T @ s (R, N)`` over R tokens in float32, split
   over token ranges (:func:`split_k_plan`) whose partial products are added
-  in range order, so the sum repeats bit for bit.
+  in range order, so the sum repeats bit for bit;
+* :func:`gemm_nn`: ``a (M, K) @ b (K, N)`` rounded to bf16, ``b`` read
+  MN-major, on tiles of 64 rows where 128-row ones would leave SMs idle
+  (the layout of the P2 probe's permutation product,
+  ``probes/chunk_axial.py:perm_product``).
 
-On CPU tensors both take their plain versions (:func:`gemm_nt_plain`,
-:func:`gemm_tn_plain`); on CUDA tensors they launch the kernel, count
-``gemm_nt.launches`` / ``gemm_tn.launches``, and raise on what the kernel
-does not take (16-byte alignment of every base and row, N a multiple of 8).
+On CPU tensors they take their plain versions (:func:`gemm_nt_plain`,
+:func:`gemm_tn_plain`, :func:`gemm_nn_plain`); on CUDA tensors they launch
+the kernel, count ``gemm_nt.launches`` / ``gemm_tn.launches`` /
+``gemm_nn.launches``, and raise on what the kernel does not take (16-byte
+alignment of every base and row, N a multiple of 8).
 """
 from __future__ import annotations
 
@@ -63,6 +68,11 @@ def gemm_nt_plain(a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor]
 def gemm_tn_plain(d: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """``d^T @ s`` of bf16 values in float32."""
     return d.float().t() @ s.float()
+
+
+def gemm_nn_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of bf16 values accumulated in float32, rounded to bf16."""
+    return (a.float() @ b.float()).to(torch.bfloat16)
 
 
 def _check(what, **tensors):
@@ -124,5 +134,25 @@ def gemm_tn(d: torch.Tensor, s: torch.Tensor, bounds: Optional[List[int]] = None
     return out
 
 
+def gemm_nn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``bf16(a (M, K) @ b (K, N))``."""
+    if a.device.type == "cpu":
+        return gemm_nn_plain(a, b)
+    _check("gemm_nn", a=a, b=b)
+    (m, k), n = a.shape, b.shape[1]
+    if b.shape[0] != k or n % 8:
+        raise ValueError(f"gemm_nn: a {tuple(a.shape)} and b {tuple(b.shape)} (N a multiple "
+                         "of 8)")
+    out = torch.empty(m, n, device=a.device, dtype=torch.bfloat16)
+    lib = _build.library()
+    # Layout 2 (NN), epilogue kRound.
+    err = lib.bf_hopper_gemm(2, 3, a.data_ptr(), b.data_ptr(), out.data_ptr(), None, None, m, n,
+                             k, None, 1, _build.stream_handle(a.device))
+    _build.check(lib, err, "bf_hopper_gemm (NN)")
+    gemm_nn.launches += 1
+    return out
+
+
 gemm_nt.launches = 0
 gemm_tn.launches = 0
+gemm_nn.launches = 0

@@ -33,7 +33,7 @@ def log(*a) -> None:
 def check_device(what: str, t: torch.Tensor) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU one (take
     the plain version); raises for any other device."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
     if t.device.type == "cpu":
         return False

@@ -6,7 +6,9 @@ Counterpart of ``scripts/probe_chunk_axial.py``: its three Pallas kernels as
 - :func:`dot_combos` — ``probe_dot_combos``' kernel (``:83``): S = q^T k over
   slab rows, pv = v . bf16(softmax(S))^T;
 - :func:`perm_product` — ``probe_perm_matmul``'s kernel (``:124``): bf16(x .
-  P) for a 0/1 permutation P, bit-exact;
+  P) for a 0/1 permutation P, bit-exact, on the Hopper GEMM
+  (``csrc/hopper_gemm.cuh``, whose TMA loads need 16-byte aligned operands
+  with rows a multiple of 16 bytes: :func:`perm_operands` checks them);
 - :func:`chunk_core` — ``bench_core``'s kernel (``:260``, bodies
   ``_core_kernel :176``, ``_axis_pass :140``): per (head, chunk) attention
   on the slabs (rows) and on their P-relayouts (columns), averaged;
@@ -97,14 +99,16 @@ def _chunk_attention(q, k, v, frames, heads, d, nchunks, ch, q_fs, kv_fs, ld, ou
 
 
 def _perm_product(x, p, out, addend=None):
-    """Launch ``perm_product_kernel``: out = bf16(x . P), or with ``addend``
-    bf16((addend + x . P^T) / 2); x, out, addend (rows, n) contiguous."""
+    """Launch the permutation product on the Hopper GEMM: out = bf16(x . P),
+    or with ``addend`` bf16((addend + x . P^T) / 2); x, out, addend (rows,
+    n) contiguous, x and p as :func:`perm_operands` passes them."""
     rows, n = x.shape
     lib = _build.library()
     err = lib.bf_probe_perm_product(x.data_ptr(), p.data_ptr(), int(addend is not None),
                                     None if addend is None else addend.data_ptr(),
                                     out.data_ptr(), rows, n, _build.stream_handle(x.device))
-    _build.check(lib, err, "bf_probe_perm_product")
+    if err:
+        _build.check(lib, err, "bf_probe_perm_product")
 
 
 def _need_bf16(what, *ts):
@@ -131,20 +135,34 @@ def dot_combos(x: torch.Tensor, y: torch.Tensor, d: int = DOT_D, ch: int = DOT_C
     return s, pv
 
 
+def perm_operands(what: str, x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Raise unless x (..., n) and P (n, n) can be the Hopper GEMM's
+    operands: bfloat16, P of x's width, each contiguous with its base
+    16-byte aligned and its rows a multiple of 16 bytes (n a multiple of 8),
+    as its TMA loads need (``_build.check_tma``, which names the tensor that
+    fails).  Returns x as (rows, n)."""
+    n = x.shape[-1]
+    if x.dtype != torch.bfloat16 or p.dtype != torch.bfloat16:
+        _need_bf16(what, x, p)
+    if p.shape != (n, n):
+        _build.check_shapes(what, p=(p, (n, n)))
+    x2 = x if x.dim() == 2 else x.reshape(-1, n)
+    _build.check_tma(what, x=x2, p=p)
+    return x2
+
+
 def perm_product(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """``probe_perm_matmul``'s kernel, bf16(x . P) for x (..., n) and P (n,
-    n) bfloat16: the plain version on the CPU, ``perm_product_kernel`` on a
-    card (counted in ``perm_product.launches``)."""
+    n) bfloat16: the plain version on the CPU; on a card the Hopper GEMM's
+    NN layout (counted in ``perm_product.launches``), on operands that
+    :func:`perm_operands` passes."""
     if not check_device("perm_product", x):
         return perm_product_plain(x, p)
-    _need_bf16("perm_product", x, p)
-    n = x.shape[-1]
-    _build.check_shapes("perm_product", p=(p, (n, n)))
-    x2 = x.reshape(-1, n).contiguous()
+    x2 = perm_operands("perm_product", x, p)
     out = torch.empty_like(x2)
-    _perm_product(x2, p.contiguous(), out)
+    _perm_product(x2, p, out)
     perm_product.launches += 1
-    return out.reshape(x.shape)
+    return out if x2 is x else out.view(x.shape)
 
 
 def chunk_core(q, kv, br, bc, mrs, mcs, perm, sc, heads: int, ch: int) -> torch.Tensor:
@@ -152,7 +170,8 @@ def chunk_core(q, kv, br, bc, mrs, mcs, perm, sc, heads: int, ch: int) -> torch.
     (bfloat16) five launches, counted once in ``chunk_core.launches``: the
     row pass (``chunk_attention_kernel`` into float32 o_row), the relayouts
     bf16(q . P) and bf16(kv . P), the column pass (bf16 o_col_t), and
-    bf16((o_row + o_col_t . P^T) / 2)."""
+    bf16((o_row + o_col_t . P^T) / 2), the last three products on the Hopper
+    GEMM (q, kv and P as :func:`perm_operands` passes them)."""
     if not check_device("chunk_core", q):
         return chunk_core_plain(q, kv, br, bc, mrs, mcs, perm, sc, heads, ch)
     bt, c, n = q.shape
@@ -165,7 +184,9 @@ def chunk_core(q, kv, br, bc, mrs, mcs, perm, sc, heads: int, ch: int) -> torch.
     _build.check_shapes(what, kv=(kv, (bt, 2 * c, n)), br=(br, (heads * ch, ch)),
                         bc=(bc, (heads * ch, ch)), mrs=(mrs, (ch, ch)), mcs=(mcs, (ch, ch)),
                         perm=(perm, (n, n)), sc=(sc, (heads, 2)))
-    q, kv, perm = q.contiguous(), kv.contiguous(), perm.contiguous()
+    q, kv = q.contiguous(), kv.contiguous()
+    perm_operands(what, q, perm)
+    perm_operands(what, kv, perm)
     br, bc, mrs, mcs, sc = (t.float().contiguous() for t in (br, bc, mrs, mcs, sc))
     scaling = d**-0.5
     common = dict(frames=bt, heads=heads, d=d, nchunks=n // ch, ch=ch, ld=n, out_ld=n,

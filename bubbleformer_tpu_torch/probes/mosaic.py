@@ -7,7 +7,10 @@ Hopper a view is a shape and strides, so the bodies run on three kernels of
 ``csrc/probe_layout.cu`` that take strided views:
 
 - :func:`gram` — ``a . a^T`` in float32 of a (rows, cols) view;
-- :func:`view_copy` — ``dst = dtype(scale * src)``, or added to ``dst``;
+- :func:`view_copy` — ``dst = dtype(scale * src)``, or added to ``dst``,
+  between the views as :func:`fold_views` folds them, 16 bytes a thread
+  where both allow it (:func:`copy_vector`), described to the kernel by one
+  packed descriptor (:func:`copy_descriptor`);
 - :func:`chunk_gram_apply` — per chunk ``(c . c^T) . c`` over row or column
   chunks of a (B, H, W, heads, D) tensor, written or added in its dtype;
 
@@ -24,6 +27,8 @@ transpose.  :func:`main` is the command line of
 from __future__ import annotations
 
 import argparse
+import functools
+import struct
 from types import SimpleNamespace
 
 import numpy as np
@@ -37,6 +42,10 @@ WC = 8
 HEADS = 6
 CHUNK = 8  # rows (or columns) a chunk of the per-head bodies
 MAX_DIMS = 5
+# Bytes a thread of view_copy_kernel moves where both views allow it.
+VECTOR_BYTES = 16
+# The offsets of view_copy_kernel are 32-bit.
+MAX_OFFSET = 2**31 - 1
 
 
 def _dtype_code(what, t):
@@ -81,22 +90,90 @@ def view_copy_plain(src: torch.Tensor, dst: torch.Tensor, scale: float = 1.0,
     return dst.copy_(v)
 
 
+def fold_views(shape, src_stride, dst_stride) -> tuple:
+    """The fewest dimensions that address the same elements of two views of
+    one shape in the same order: dimensions of size 1 dropped, and each
+    dimension merged into the one before it where that one's stride is its
+    size times its stride in both views.  Returns (shape, src_stride,
+    dst_stride) as tuples of at least one dimension."""
+    dims = [[n, s, d] for n, s, d in zip(shape, src_stride, dst_stride) if n != 1]
+    folded = dims[:1] or [[1, 1, 1]]
+    for n, s, d in dims[1:]:
+        outer = folded[-1]
+        if outer[1] == n * s and outer[2] == n * d:
+            outer[:] = [outer[0] * n, s, d]
+        else:
+            folded.append([n, s, d])
+    return tuple(map(tuple, zip(*folded)))
+
+
+def copy_vector(shape, src_stride, dst_stride, src_size: int, dst_size: int,
+                src_offset: int = 0, dst_offset: int = 0) -> int:
+    """Elements a thread of ``view_copy_kernel`` moves over folded views:
+    :data:`VECTOR_BYTES` of the wider element type where the innermost run
+    is contiguous in both views, its length and every outer stride are
+    multiples of that many elements, and both bases (``*_offset``, their
+    addresses modulo 16) are aligned to a vector; else 1."""
+    vec = VECTOR_BYTES // max(src_size, dst_size)
+    if src_stride[-1] != 1 or dst_stride[-1] != 1 or shape[-1] % vec:
+        return 1
+    if any(s % vec for s in src_stride[:-1] + dst_stride[:-1]):
+        return 1
+    return 1 if src_offset % (vec * src_size) or dst_offset % (vec * dst_size) else vec
+
+
+@functools.lru_cache(maxsize=256)
+def copy_descriptor(shape, src_stride, dst_stride, src_dtype, dst_dtype, src_offset: int,
+                    dst_offset: int, scale: float, accumulate: bool) -> bytes:
+    """The packed ``CopyDesc`` of ``csrc/probe_layout.cu`` for a copy between
+    views of ``shape`` with the given strides (elements), element types and
+    base addresses modulo 16: folded (:func:`fold_views`), with its vector
+    (:func:`copy_vector`).  Raises past :data:`MAX_DIMS` dimensions, for
+    other element types than float32 and bfloat16, and past 32-bit offsets.
+    Cached: a probe body repeats its views."""
+    what = f"view_copy at {tuple(shape)}"
+    if not 1 <= len(shape) <= MAX_DIMS or len(src_stride) != len(shape) or (
+            len(dst_stride) != len(shape)):
+        raise ValueError(f"{what}: views of one shape of 1 to {MAX_DIMS} dimensions")
+    codes = [_build.DTYPE_CODES.get(t) for t in (src_dtype, dst_dtype)]
+    if None in codes:
+        raise TypeError(f"{what}: the kernel takes float32 or bfloat16, not {src_dtype}, "
+                        f"{dst_dtype}")
+    numel = 1
+    for n in shape:
+        numel *= n
+    if numel == 0:
+        raise ValueError(f"{what}: no elements")
+    for strides in (src_stride, dst_stride):
+        if numel > MAX_OFFSET or sum((n - 1) * abs(s) for n, s in zip(shape, strides)) > (
+                MAX_OFFSET):
+            raise ValueError(f"{what}: past 2^31 elements (the kernel's offsets are 32-bit)")
+    fshape, fs, fd = fold_views(shape, src_stride, dst_stride)
+    vec = copy_vector(fshape, fs, fd, src_dtype.itemsize, dst_dtype.itemsize, src_offset,
+                      dst_offset)
+    pad = (0,) * (MAX_DIMS - len(fshape))
+    return struct.pack(f"<5if{3 * MAX_DIMS}i", len(fshape), vec, *codes, int(accumulate),
+                       scale, *fshape, *pad, *fs, *pad, *fd, *pad)
+
+
 def view_copy(src: torch.Tensor, dst: torch.Tensor, scale: float = 1.0,
               accumulate: bool = False) -> torch.Tensor:
     """:func:`view_copy_plain` on the CPU; on a card ``view_copy_kernel``
-    between the two views in place (counted in ``view_copy.launches``)."""
+    between the two views in place (counted in ``view_copy.launches``),
+    both on one card."""
     if not check_device("view_copy", src):
         return view_copy_plain(src, dst, scale, accumulate)
-    if src.shape != dst.shape or not 1 <= src.dim() <= MAX_DIMS or dst.device != src.device:
-        raise ValueError(f"view_copy: views of one shape of 1 to {MAX_DIMS} dimensions on one "
-                         f"device, not {tuple(src.shape)}, {tuple(dst.shape)}")
+    index = src.get_device()
+    if dst.get_device() != index or src.shape != dst.shape:
+        raise ValueError(f"view_copy: views of one shape on one card, not {tuple(src.shape)} "
+                         f"on {src.device}, {tuple(dst.shape)} on {dst.device}")
+    sp, dp = src.data_ptr(), dst.data_ptr()
+    desc = copy_descriptor(src.shape, src.stride(), dst.stride(), src.dtype, dst.dtype, sp % 16,
+                           dp % 16, scale, accumulate)
     lib = _build.library()
-    err = lib.bf_probe_view_copy(_dtype_code("view_copy", src), src.data_ptr(),
-                                 _build.int64_array(src.stride()), _dtype_code("view_copy", dst),
-                                 dst.data_ptr(), _build.int64_array(dst.stride()),
-                                 _build.int64_array(src.shape), src.dim(), scale, int(accumulate),
-                                 _build.stream_handle(src.device))
-    _build.check(lib, err, f"view_copy at {tuple(src.shape)} (bf_probe_view_copy)")
+    err = lib.bf_probe_view_copy(desc, sp, dp, _build.stream_handle(src.device))
+    if err:
+        _build.check(lib, err, f"view_copy at {tuple(src.shape)} (bf_probe_view_copy)")
     view_copy.launches += 1
     return dst
 
@@ -157,7 +234,7 @@ PLAIN = SimpleNamespace(gram=gram_plain, view_copy=view_copy_plain,
 
 
 def _like(shape, x):
-    return torch.empty(shape, dtype=x.dtype, device=x.device)
+    return x.new_empty(shape)
 
 
 def _concat(x, ops, scales, axis):

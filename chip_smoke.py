@@ -2098,7 +2098,7 @@ PROBE_ROWS = (
     ("P1a", "within_roll", "probe_lane_axial.cu", "scripts/probe_lane_axial.py:86", "bfloat16"),
     ("P1b", "lane_core", "probe_lane_axial.cu", "scripts/probe_lane_axial.py:193", "bfloat16"),
     ("P2a", "dot_combos", "probe_chunk_axial.cu", "scripts/probe_chunk_axial.py:83", "bfloat16"),
-    ("P2b", "perm_product", "probe_chunk_axial.cu", "scripts/probe_chunk_axial.py:124",
+    ("P2b", "perm_product", "hopper_gemm.cuh", "scripts/probe_chunk_axial.py:124",
      "bfloat16"),
     ("P2c", "chunk_core", "probe_chunk_axial.cu", "scripts/probe_chunk_axial.py:260",
      "bfloat16"),

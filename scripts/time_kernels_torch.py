@@ -43,7 +43,17 @@ training shapes, and in float32 K4's and K8's temporal backward, the device
 time of each kernel one forward and one backward launch, by
 ``torch.profiler`` (the mean of 5 traced calls; names shortened, a kernel
 launched more than once a call numbered by its place), which reads any
-checkout alike.  Comparing two versions of the
+checkout alike.  The probes' kernels on the Hopper GEMM and the view copy, under keys
+starting with ``P`` (``--only P``): P2b (``perm_product``) at the probe's
+(384, 1024) and at P2c's relayouts (7680 and 15360 rows), beside
+``torch.matmul``; P2c
+(``chunk_core``) at the probe's default inputs; P4's copy bodies
+``transpose_full`` (float32, beside ``permute().contiguous()``) and
+``head_slice_bf16`` (CUDA events over ``P_ITERS`` calls, these calls
+being host-bound), each also as host microseconds to enqueue one call
+(a host clock around 1000 calls with no synchronise), with each host step of
+the ``transpose_full`` body timed alone (``P4 host steps``); each with its
+``torch.profiler`` breakdown.  Comparing two versions of the
 kernels takes two processes on one card, one per checkout, in turns:
 
     python3 scripts/time_kernels_torch.py --repo build/parent --label parent
@@ -67,6 +77,10 @@ from pathlib import Path
 
 import numpy as np
 
+# Calls a probe kernel's CUDA-event time is taken over: a call at the probes'
+# shapes is host-bound (~10-20 us of launch work), and 20 calls of it read
+# up to 10% apart between runs.
+P_ITERS = 200
 # Seconds of warm-up calls before each timing.  Three calls alone left a
 # float32 kernel's time dependent on the load that ran before it: the same
 # SASS read 3% apart after three calls and within 0.4% after one second.
@@ -140,7 +154,7 @@ def main(argv=None) -> None:
                 n(h, ww, ww), n(h, hh, hh), n(h, scale=0.2, offset=1.0),
                 n(h, scale=0.2, offset=1.0)]
 
-    def ms(fn):
+    def ms(fn, iters=None):
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -149,12 +163,13 @@ def main(argv=None) -> None:
             fn()
             torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        iters = iters or args.iters
         start.record()
-        for _ in range(args.iters):
+        for _ in range(iters):
             fn()
         end.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(end) / args.iters
+        return start.elapsed_time(end) / iters
 
     out = {"label": args.label, "repo": args.repo, "card": card}
     branches = {"K1": ((8, t, 32, 32, c), 6, k1.mega_temporal_block_fwd,
@@ -333,6 +348,97 @@ def main(argv=None) -> None:
                 lambda: torch.autograd.grad(y, inputs, dao, retain_graph=True))
             del inputs, y, dao
 
+    # The probes' kernels (P2b, P2c, P4 copy): the calls timed here, and
+    # their profiler breakdowns below.
+    probe_calls = {}
+    if wanted("P"):
+        from bubbleformer_tpu_torch import probes
+        from bubbleformer_tpu_torch.probes import chunk_axial, mosaic
+
+        def host_us(fn, calls=1000):
+            """Host microseconds to enqueue one call (no synchronise)."""
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            return (t1 - t0) / calls * 1e6
+
+        perm = chunk_axial.permutation(32, 32, torch.bfloat16).to(dev)
+        xb, _ = chunk_axial.perm_input()
+        xb = xb.to(dev)
+        probe_calls["P2b"] = lambda: chunk_axial.perm_product(xb, perm)
+        out["P2b bfloat16"] = ms(probe_calls["P2b"], P_ITERS)
+        out["P2b matmul bfloat16"] = ms(lambda: torch.matmul(xb, perm), P_ITERS)
+        out["P2b host_us"] = host_us(probe_calls["P2b"])
+        out["P2b matmul host_us"] = host_us(lambda: torch.matmul(xb, perm))
+        relayouts = {"P2b q relayout": n(7680, 1024).to(torch.bfloat16),
+                     "P2b kv relayout": n(15360, 1024).to(torch.bfloat16)}
+        for key, xr in relayouts.items():
+            out[f"{key} bfloat16"] = ms(lambda: chunk_axial.perm_product(xr, perm), P_ITERS)
+            out[f"{key} matmul bfloat16"] = ms(lambda: torch.matmul(xr, perm), P_ITERS)
+        # Each host step of a P2b call, alone.
+        lib = _build.library()
+        pout = torch.empty_like(xb)
+        handle = _build.stream_handle(xb.device)
+        steps = {"torch.empty_like": lambda: torch.empty_like(xb),
+                 "stream_handle": lambda: _build.stream_handle(xb.device),
+                 "C call (launch)": lambda: lib.bf_probe_perm_product(
+                     xb.data_ptr(), perm.data_ptr(), 0, None, pout.data_ptr(), 384, 1024,
+                     handle)}
+        if hasattr(chunk_axial, "perm_operands"):
+            steps["perm_operands"] = lambda: chunk_axial.perm_operands("perm_product", xb, perm)
+        steps["perm_product wrapper"] = probe_calls["P2b"]
+        steps["torch.matmul"] = lambda: torch.matmul(xb, perm)
+        out["P2b host steps"] = {k: round(host_us(f), 3) for k, f in steps.items()}
+        inp_c = {k: v.to(dev) if torch.is_tensor(v) else v
+                 for k, v in chunk_axial.make_inputs(chunk_axial.parser().parse_args([])).items()}
+        probe_calls["P2c"] = lambda: chunk_axial.chunk_core(**inp_c)
+        out["P2c bfloat16"] = ms(probe_calls["P2c"], P_ITERS)
+        for body in ("transpose_full", "head_slice_bf16"):
+            xm = mosaic.body_input(body).to(dev)
+            name = str(xm.dtype).split(".")[-1]
+            probe_calls[f"P4 {body}"] = lambda xm=xm, body=body: mosaic.run_body(body, xm)
+            out[f"P4 copy {body} {name}"] = ms(probe_calls[f"P4 {body}"], P_ITERS)
+            out[f"P4 copy {body} host_us"] = host_us(probe_calls[f"P4 {body}"])
+        xm = mosaic.body_input("transpose_full").to(dev)
+        library = lambda: xm.permute(1, 0, 2).contiguous()  # noqa: E731
+        out["P4 copy transpose_full library float32"] = ms(library, P_ITERS)
+        out["P4 copy transpose_full library host_us"] = host_us(library)
+        # Each host step of the transpose_full body, alone.
+        v, dst = xm.permute(1, 0, 2), torch.empty(32, 32, 64, device=dev)
+        lib = _build.library()
+        steps = {"torch.empty": lambda: torch.empty((32, 32, 64), dtype=xm.dtype,
+                                                    device=xm.device),
+                 "permute": lambda: xm.permute(1, 0, 2),
+                 "check_device": lambda: probes.check_device("view_copy", v),
+                 "data_ptr x2": lambda: (v.data_ptr(), dst.data_ptr()),
+                 "stream_handle": lambda: _build.stream_handle(v.device),
+                 "int64_array x3": lambda: (_build.int64_array(v.stride()),
+                                            _build.int64_array(dst.stride()),
+                                            _build.int64_array(v.shape))}
+        handle = _build.stream_handle(v.device)
+        if hasattr(mosaic, "copy_descriptor"):
+            desc = mosaic.copy_descriptor(v.shape, v.stride(), dst.stride(), v.dtype, dst.dtype,
+                                          v.data_ptr() % 16, dst.data_ptr() % 16, 1.0, False)
+            steps.update({
+                "copy_descriptor (cached)": lambda: mosaic.copy_descriptor(
+                    v.shape, v.stride(), dst.stride(), v.dtype, dst.dtype, v.data_ptr() % 16,
+                    dst.data_ptr() % 16, 1.0, False),
+                "C call (launch)": lambda: lib.bf_probe_view_copy(desc, v.data_ptr(),
+                                                                  dst.data_ptr(), handle)})
+        else:
+            arrays = (_build.int64_array(v.stride()), _build.int64_array(dst.stride()),
+                      _build.int64_array(v.shape))
+            steps["C call (launch)"] = lambda: lib.bf_probe_view_copy(
+                0, v.data_ptr(), arrays[0], 0, dst.data_ptr(), arrays[1], arrays[2], 3, 1.0, 0,
+                handle)
+        steps["view_copy wrapper"] = lambda: mosaic.view_copy(v, dst)
+        out["P4 host steps"] = {k: round(host_us(f), 3) for k, f in steps.items()}
+
     # K1's and K3's kernels, one forward and one backward call each, by
     # device time.
     x32, params = branch(branches["K1"][0], 6)
@@ -395,6 +501,7 @@ def main(argv=None) -> None:
         "K6 bfloat16 bwd": lambda: k6.fused_axial_attention_packed_bwd(do6, q6, k6_, v6, *tables),
         "K7 bfloat16 fwd": lambda: k7.fused_axial_attention(q6, k6_, v6, *tables),
         "K7 bfloat16 bwd": lambda: k7.fused_axial_attention_bwd(do6, q6, k6_, v6, *tables)})
+    calls.update({f"{key} bfloat16": fn for key, fn in probe_calls.items()})
     for what, fn in calls.items():
         if not wanted(what):
             continue

@@ -1619,6 +1619,54 @@ def test_p2b_perm_product_is_exact_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [7680, 15360], ids=["q", "kv"])
+def test_p2b_perm_product_is_exact_at_p2c_relayout_shapes_on_card(cuda_device, rows):
+    """bf16(x . P) at P2c's relayouts, q (20 frames x 384 channels) and kv
+    (x 768) of 1024 tokens: the GEMM's 128-row tiles, bit for bit."""
+    x = _bf16((rows, 1024), 70, cuda_device)
+    p = chunk_axial.permutation(32, 32, torch.bfloat16).to(cuda_device)
+    before = chunk_axial.perm_product.launches
+    got = chunk_axial.perm_product(x, p)
+    assert chunk_axial.perm_product.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, chunk_axial.perm_product_plain(x, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(7680, 1024), (384, 1024), (100, 200), (48, 64)],
+                         ids=["p2c", "probe", "ragged", "p2c_small"])
+def test_p2b_transposed_product_with_addend_is_exact_on_card(cuda_device, rows, n):
+    """P2c's last product, bf16((addend + x . P^T) / 2) with a float32
+    addend, bit for bit against its plain form (the GEMM's NT layout and its
+    kHalfAdd epilogue)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(71)
+    x = _bf16((rows, n), 72, cuda_device)
+    p = torch.eye(n)[torch.randperm(n, generator=g)].to(cuda_device, torch.bfloat16)
+    addend = torch.randn(rows, n, generator=g).to(cuda_device)
+    out = torch.empty_like(x)
+    chunk_axial._perm_product(x, p, out, addend=addend)
+    want = (0.5 * (addend + x.float() @ p.float().t())).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_p2b_raises_where_tma_cannot_read_on_card(cuda_device):
+    """n not a multiple of 8 (rows of 24 bytes) and an x one element into
+    its storage raise before any launch, naming the tensor."""
+    before = chunk_axial.perm_product.launches
+    with pytest.raises(ValueError, match="x has rows of 24 bytes"):
+        chunk_axial.perm_product(torch.zeros(4, 12, device=cuda_device, dtype=torch.bfloat16),
+                                 torch.zeros(12, 12, device=cuda_device, dtype=torch.bfloat16))
+    flat = torch.zeros(4 * 64 + 1, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="x starts at .* not 16-byte aligned"):
+        chunk_axial.perm_product(flat[1:].view(4, 64),
+                                 torch.zeros(64, 64, device=cuda_device, dtype=torch.bfloat16))
+    assert chunk_axial.perm_product.launches == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["default", "small"])
 def test_p2c_chunk_core_matches_plain_on_card(cuda_device, case):
     """The probe's default inputs, and 2 heads of 16 on an 8x8 grid with
@@ -1688,6 +1736,33 @@ def test_p4_kernels_take_strided_ragged_views_on_card(cuda_device, dtype):
         got = mosaic.chunk_gram_apply(x, torch.ones_like(x), axis, chunk, accumulate=True)
         want = mosaic.chunk_gram_apply_plain(x, torch.ones_like(x), axis, chunk, accumulate=True)
         _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_dtype,dst_dtype", [(torch.float32, torch.float32),
+                                                 (torch.bfloat16, torch.bfloat16),
+                                                 (torch.float32, torch.bfloat16)],
+                         ids=["f32", "bf16", "f32_to_bf16"])
+def test_p4_view_copy_is_exact_on_vector_and_unaligned_views_on_card(cuda_device, src_dtype,
+                                                                    dst_dtype):
+    """An accumulating copy from rows of 64 values whose run starts one
+    element into its storage (no 16-byte vectors: one element a thread) and
+    from the same rows aligned (16 bytes a thread), each bit for bit; the
+    wrapper counts both launches."""
+    g = torch.Generator().manual_seed(73)
+    base = torch.randn(32 * 64 + 8, generator=g).to(cuda_device, src_dtype)
+    dst = torch.randn(32, 64, generator=g).to(cuda_device, dst_dtype)
+    before = mosaic.view_copy.launches
+    for src, vec in ((base[1:1 + 32 * 64].view(32, 64), 1),
+                     (base[8:].view(32, 64), 16 // base.element_size())):
+        shape, fs, fd = mosaic.fold_views(src.shape, src.stride(), dst.stride())
+        assert mosaic.copy_vector(shape, fs, fd, src.element_size(), dst.element_size(),
+                                  src.data_ptr() % 16, dst.data_ptr() % 16) == vec
+        want = mosaic.view_copy_plain(src, dst.clone(), 1.5, accumulate=True)
+        got = mosaic.view_copy(src, dst.clone(), 1.5, accumulate=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert mosaic.view_copy.launches == before + 2
 
 
 @pytest.mark.cuda
@@ -1805,6 +1880,15 @@ def test_hopper_gemm_wrappers_take_plain_versions_on_cpu():
     assert (hopper_gemm.gemm_nt.launches, hopper_gemm.gemm_tn.launches) == before
 
 
+def test_hopper_gemm_nn_takes_its_plain_version_on_cpu():
+    g = torch.Generator().manual_seed(76)
+    a, b = torch.randn(7, 24, generator=g), torch.randn(24, 16, generator=g)
+    before = hopper_gemm.gemm_nn.launches
+    torch.testing.assert_close(hopper_gemm.gemm_nn(a, b), (a @ b).to(torch.bfloat16), rtol=0,
+                               atol=0)
+    assert hopper_gemm.gemm_nn.launches == before
+
+
 def test_check_tma_names_what_the_kernels_do_not_take():
     """The TMA loads need 16-byte aligned bases and rows: a view one element
     in, a row of 6 bf16 values and a transposed view each raise, naming the
@@ -1901,6 +1985,32 @@ def test_hopper_gemm_tn_matches_matmul_on_card(cuda_device, r, m, n, bounds):
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
     assert torch.equal(got, again)
+
+
+# NN: (M, N, K) at the P2 probe's permutation product, P2c's q relayout and
+# ragged ones (M not a multiple of 64, N and K not of 128).  On a card of
+# 132 SMs the probe's and the two thin ones run on 64-row tiles (fewer
+# 128-row blocks than SMs), P2c's and ragged_wide on 128-row tiles.
+NN_CASES = [(384, 1024, 1024), (7680, 1024, 1024), (100, 200, 200), (65, 136, 72),
+            (2000, 1096, 72)]
+NN_IDS = ["probe", "p2c_q", "ragged", "ragged_thin", "ragged_wide"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k", NN_CASES, ids=NN_IDS)
+def test_hopper_gemm_nn_matches_matmul_on_card(cuda_device, m, n, k):
+    """``bf16(a @ b)``, b read MN-major, on the tile height its shape gets,
+    against ``torch.matmul`` in float32 (no TF32), within one bf16 rounding
+    of each value plus 1e-5 of the largest (summation order)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b = _bf16((m, k), 74, cuda_device), _bf16((k, n), 75, cuda_device)
+    want = torch.matmul(a.float(), b.float())
+    before = hopper_gemm.gemm_nn.launches
+    got = hopper_gemm.gemm_nn(a, b)
+    assert hopper_gemm.gemm_nn.launches == before + 1 and got.dtype == torch.bfloat16
+    torch.cuda.synchronize()
+    bound = 2.0**-8 * want.abs() + 1e-5 * want.abs().max()
+    assert ((got.float() - want).abs() <= bound).all()
 
 
 @pytest.mark.cuda
