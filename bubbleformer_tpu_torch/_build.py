@@ -169,10 +169,10 @@ _SIGNATURES = {
     + [_I, _L] + [_I] * 6 + [_P],
     # x, p, transpose_p, addend, out, rows, n, stream
     "bf_probe_perm_product": [_P] * 2 + [_I] + [_P] * 2 + [_I] * 2 + [_P],
-    # H, W
-    "bf_probe_stage_tiles": [_I] * 2,
-    # y, mean, inv, k, out, partial, mu, var, bt, H, W, C, F, stream
-    "bf_probe_stage": [_P] * 8 + [_I] * 5 + [_P],
+    # (none): the most input channels the stage takes
+    "bf_probe_stage_max_channels": [],
+    # y, mean, inv, k, out, partial, mu, var, bt, H, W, C, F, bx, by, stream
+    "bf_probe_stage": [_P] * 8 + [_I] * 7 + [_P],
     # desc (a packed CopyDesc), src, dst, stream
     "bf_probe_view_copy": [_P] * 4,
     # dtype, a, stride, shape, ndim, out, stream

@@ -19,9 +19,11 @@ CUDA tensors (counting the launch) and raises on any other device.
 """
 from __future__ import annotations
 
+import re
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import torch
 
@@ -75,6 +77,33 @@ def cuda_ms(fn, steps: int, dev: torch.device, warmup: int = 3):
     end.record()
     torch.cuda.synchronize(dev)
     return start.elapsed_time(end) / steps
+
+
+def launch_ms(fn, calls: int = 5) -> dict:
+    """Device milliseconds of each kernel launch in one call of ``fn``, by
+    ``torch.profiler`` over ``calls`` calls after one untraced call.  Names
+    lose ``void``, the port's namespaces and the argument list, and keep 70
+    characters; a kernel launched more than once a call gets its place
+    among them ([0] first).  Where the launches do not split evenly into
+    ``calls`` calls, each name holds its time over all of them / ``calls``."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evts = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    names = [re.sub(r"\(.*", "", re.sub(r"^void |bft::|\(anonymous namespace\)::", "",
+                                        e.name))[:70] for e in evts]
+    even = len(evts) % calls == 0
+    one = names[:len(names) // calls] if even else names
+    per = defaultdict(float)
+    for i, (name, evt) in enumerate(zip(names, evts)):
+        if even and one.count(name) > 1:
+            name = f"{name} [{one[:i % len(one)].count(name)}]"
+        per[name] += evt.time_range.elapsed_us() / 1e3 / calls
+    return dict(per)
 
 
 def announce(dev: torch.device) -> None:

@@ -86,7 +86,9 @@ def chunk_core_plain(q, kv, br, bc, mrs, mcs, perm, sc, heads: int, ch: int) -> 
 def _chunk_attention(q, k, v, frames, heads, d, nchunks, ch, q_fs, kv_fs, ld, out, out_fs,
                      out_ld, bias=None, mblk=None, sc=None, sc_col=0, scaling=1.0, s_out=None):
     """Launch ``chunk_attention_kernel`` (bf16 views given by their first
-    elements and strides)."""
+    elements and strides, which TMA reads as 4-D views (tokens, d, heads,
+    frames): every base 16-byte aligned, ld and the frame strides multiples
+    of 8, as the callers' checks ensure); with ``s_out`` its P2a form."""
     def ptr(t):
         return None if t is None else t.data_ptr()
 
@@ -119,7 +121,10 @@ def _need_bf16(what, *ts):
 def dot_combos(x: torch.Tensor, y: torch.Tensor, d: int = DOT_D, ch: int = DOT_CH):
     """``probe_dot_combos``' kernel on slabs x, y (rows, n): the plain version
     on the CPU; on a card one block of ``chunk_attention_kernel`` reading the
-    slices in place (counted in ``dot_combos.launches``)."""
+    slices in place by TMA (counted in ``dot_combos.launches``): x and y are
+    made contiguous, and where TMA still cannot read them (rows not a
+    multiple of 16 bytes, a base not 16-byte aligned) it raises naming the
+    slab (``_build.check_tma``)."""
     if not check_device("dot_combos", x):
         return dot_combos_plain(x, y, d, ch)
     _need_bf16("dot_combos", x, y)
@@ -128,6 +133,7 @@ def dot_combos(x: torch.Tensor, y: torch.Tensor, d: int = DOT_D, ch: int = DOT_C
         raise ValueError(f"dot_combos: slabs {tuple(x.shape)}, {tuple(y.shape)} with d {d}, "
                          f"chunk {ch} (a multiple of 32 up to 128)")
     x, y = x.contiguous(), y.contiguous()
+    _build.check_tma("dot_combos", x=x, y=y)
     s = torch.empty(ch, ch, device=x.device)
     pv = torch.empty(d, ch, device=x.device)
     _chunk_attention(x, y, y[d:], 1, 1, d, 1, ch, 0, 0, n, pv, 0, ch, s_out=s)
@@ -165,13 +171,24 @@ def perm_product(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return out if x2 is x else out.view(x.shape)
 
 
+def table_operands(what: str, **tables) -> None:
+    """Raise unless each contiguous float32 table of the chunk kernel (the
+    bias and Mblk tables, which it reads 16 bytes at a time) starts 16-byte
+    aligned; the message names the table that fails."""
+    for name, t in tables.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} starts at {t.data_ptr():#x}, which is not "
+                             "16-byte aligned (the kernel reads it 16 bytes at a time)")
+
+
 def chunk_core(q, kv, br, bc, mrs, mcs, perm, sc, heads: int, ch: int) -> torch.Tensor:
     """``bench_core``'s kernel: :func:`chunk_core_plain` on the CPU; on a card
     (bfloat16) five launches, counted once in ``chunk_core.launches``: the
-    row pass (``chunk_attention_kernel`` into float32 o_row), the relayouts
-    bf16(q . P) and bf16(kv . P), the column pass (bf16 o_col_t), and
-    bf16((o_row + o_col_t . P^T) / 2), the last three products on the Hopper
-    GEMM (q, kv and P as :func:`perm_operands` passes them)."""
+    row pass (``chunk_attention_kernel``, TMA and ``wgmma``, into float32
+    o_row), the relayouts bf16(q . P) and bf16(kv . P), the column pass
+    (bf16 o_col_t), and bf16((o_row + o_col_t . P^T) / 2), the three
+    products on the Hopper GEMM (q, kv and P as :func:`perm_operands` passes
+    them, the tables as :func:`table_operands` does)."""
     if not check_device("chunk_core", q):
         return chunk_core_plain(q, kv, br, bc, mrs, mcs, perm, sc, heads, ch)
     bt, c, n = q.shape
@@ -188,6 +205,7 @@ def chunk_core(q, kv, br, bc, mrs, mcs, perm, sc, heads: int, ch: int) -> torch.
     perm_operands(what, q, perm)
     perm_operands(what, kv, perm)
     br, bc, mrs, mcs, sc = (t.float().contiguous() for t in (br, bc, mrs, mcs, sc))
+    table_operands(what, br=br, bc=bc, mrs=mrs, mcs=mcs)
     scaling = d**-0.5
     common = dict(frames=bt, heads=heads, d=d, nchunks=n // ch, ch=ch, ld=n, out_ld=n,
                   scaling=scaling)

@@ -8,7 +8,9 @@ statistics, tanh-GELU, rounded, the 2x2 space-to-depth fold, the stage
 product (float32 sums, bf16 out) and the new stage's statistics.
 
 - :func:`stage_plain` — the PyTorch form of ``stage_xla`` (``:135``);
-- :func:`stage` — the kernel wrapper (``stage_pallas``'s counterpart);
+- :func:`stage` — the kernel wrapper (``stage_pallas``'s counterpart), on
+  operands :func:`stage_operands` passes and tiles :func:`stage_tiles`
+  picks;
 
 with the probe's inputs (:func:`make_inputs`) and its command line
 (:func:`main`, run by ``scripts/probe_pyramid_torch.py``).  tanh-GELU is the
@@ -27,7 +29,8 @@ import torch
 from bubbleformer_tpu_torch import _build
 from bubbleformer_tpu_torch.probes import announce, build_seconds, check_device, cuda_ms, log
 
-MAX_OUT_CHANNELS = 192  # the product tile's width
+MAX_OUT_CHANNELS = 192  # two 128-wide product tiles, F a multiple of 8
+TILE_PIXELS = 128  # output pixels a tile: two wgmma warpgroups of 64 rows
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -49,11 +52,38 @@ def stage_plain(y0, mean, inv, k):
     return out.to(y0.dtype), mu, var
 
 
+def stage_tiles(h: int, w: int) -> tuple:
+    """The kernel's tile of (h/2, w/2) output pixels: ``(bx, by, tiles)``,
+    bx pixels of a row by by rows (bx by at most :data:`TILE_PIXELS`, by > 1
+    where a row is narrower than a tile, neither past the image) and the
+    tiles an image takes.  A tile is one TMA box of ``y0`` per 64 channels:
+    its rows are read once, and the pixels past the image are zero fill."""
+    ho, wo = h // 2, w // 2
+    bx = min(wo, TILE_PIXELS)
+    by = min(TILE_PIXELS // bx, ho)
+    return bx, by, -(-wo // bx) * -(-ho // by)
+
+
+def stage_operands(what: str, y0: torch.Tensor, k: torch.Tensor) -> None:
+    """Raise unless y0 (bt, h, w, c) and k (2, 2, c, f) can be the stage
+    kernel's TMA sources: each contiguous with a 16-byte aligned base, and
+    their rows a multiple of 16 bytes, the 2c channels of a pixel pair of y0
+    (c a multiple of 4) and the f of k (f a multiple of 8).  The message
+    names the tensor that fails (``_build.check_tma``)."""
+    c, f = y0.shape[-1], k.shape[-1]
+    _build.check_tma(what, y0=y0.view(-1, 2 * c) if y0.is_contiguous() else y0,
+                     k=k.view(-1, f) if k.is_contiguous() else k)
+
+
 def stage(y0, mean, inv, k):
     """The stage: :func:`stage_plain` on the CPU; on a card (bfloat16)
-    ``csrc/probe_pyramid.cu``, one launch of the fused stage and one that
-    adds the tiles' statistics in a fixed order, counted once in
-    ``stage.launches``."""
+    ``csrc/probe_pyramid.cu``, one launch of the fused stage (TMA and
+    ``wgmma`` on the tiles of :func:`stage_tiles`) and one that adds the
+    tiles' statistics in a fixed order, counted once in ``stage.launches``.
+    y0 and k are made contiguous; where TMA still cannot read them
+    (:func:`stage_operands`), or y0 has more channels than the kernel's
+    shared memory stages statistics for (``bf_probe_stage_max_channels``),
+    it raises naming the tensor."""
     if not check_device("stage", y0):
         return stage_plain(y0, mean, inv, k)
     bt, h, w, c = y0.shape
@@ -67,14 +97,20 @@ def stage(y0, mean, inv, k):
     _build.check_shapes(what, mean=(mean, (bt, c)), inv=(inv, (bt, c)), k=(k, (2, 2, c, f)))
     dev = y0.device
     y0, k = y0.contiguous(), k.contiguous()
+    stage_operands(what, y0, k)
     mean, inv = mean.float().contiguous(), inv.float().contiguous()
+    bx, by, tiles = stage_tiles(h, w)
     lib = _build.library()
-    partial = torch.empty(bt, lib.bf_probe_stage_tiles(h, w), 2, f, device=dev)
+    most = lib.bf_probe_stage_max_channels()
+    if c > most:
+        raise ValueError(f"{what}: y0 has {c} channels, more than the {most} whose statistics "
+                         "a block stages")
+    partial = torch.empty(bt, tiles, 2, f, device=dev)
     out = torch.empty(bt, h // 2, w // 2, f, device=dev, dtype=y0.dtype)
     mu, var = torch.empty(bt, f, device=dev), torch.empty(bt, f, device=dev)
     err = lib.bf_probe_stage(y0.data_ptr(), mean.data_ptr(), inv.data_ptr(), k.data_ptr(),
                              out.data_ptr(), partial.data_ptr(), mu.data_ptr(), var.data_ptr(),
-                             bt, h, w, c, f, _build.stream_handle(dev))
+                             bt, h, w, c, f, bx, by, _build.stream_handle(dev))
     _build.check(lib, err, f"{what} (bf_probe_stage)")
     stage.launches += 1
     return out, mu, var
@@ -106,7 +142,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=30)
     ap.add_argument("--hb", type=int, default=32,
                     help="the TPU kernel's output rows a grid step; the CUDA kernel's tile is "
-                         "128 output pixels whatever it is (kept so the JAX command lines run)")
+                         "stage_tiles' choice whatever --hb is (kept so the JAX command lines run)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device; without a CUDA card, pass --device cpu")

@@ -195,9 +195,11 @@ paths give it — the rollout's (batch 1) and the training step's:
    ``stage`` (the embed pyramid's second stage, (20, 256, 256, 96)), and
    P4's ``gram``, ``view_copy`` and ``chunk_gram_apply`` under all 14 layout
    bodies; the rolls, the permutation product and the copies bit-exact,
-   the rest within ``KERNEL_RTOL``; with the times of both and of the one
+   the rest within ``KERNEL_RTOL``, P3's statistics the same bits on a
+   second call; with the times of both and of the one
    PyTorch call that computes the same function where there is one
-   (``torch.roll``, ``torch.matmul``, ``permute().contiguous()``);
+   (``torch.roll``, ``torch.matmul``, ``permute().contiguous()``), and the
+   device time of each of P2c's launches (the chunk kernel's two passes);
 40. the four probe CLIs through their ``main`` at their default flags, each
    with the counters set to 0 before and read after: every check OK, a
    card time in each JSON line, each of the probe's kernels launched and no
@@ -2119,6 +2121,7 @@ def probe_kernel_phase(dev, results: dict) -> dict:
     function where there is one; ``results[(key, dtype)] = (max_abs_err, ms,
     plain_ms, library_ms)``.  Returns each row's work shape."""
     import torch
+    from bubbleformer_tpu_torch import probes
     from bubbleformer_tpu_torch.probes import chunk_axial, lane_axial, mosaic, pyramid
 
     def card(inputs):
@@ -2189,6 +2192,9 @@ def probe_kernel_phase(dev, results: dict) -> dict:
                   KERNEL_RTOL["bfloat16"])
     record("P2c", "bfloat16", err, lambda: chunk_axial.chunk_core(**inp),
            lambda: chunk_axial.chunk_core_plain(**inp))
+    launches = probes.launch_ms(lambda: chunk_axial.chunk_core(**inp))
+    print("  P2c device ms a launch (torch.profiler, 5 calls): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in launches.items()), flush=True)
     bt, c, n = inp["q"].shape
     shapes["P2c"] = (bt, c, n, inp["heads"], inp["ch"])
     del inp, got, ref
@@ -2201,6 +2207,12 @@ def probe_kernel_phase(dev, results: dict) -> dict:
                       KERNEL_RTOL["bfloat16"]),
               compare("P3 stage mu", got[1], ref[1], KERNEL_RTOL["float32"]),
               compare("P3 stage var", got[2], ref[2], KERNEL_RTOL["float32"]))
+    again = pyramid.stage(**inp)
+    torch.cuda.synchronize()
+    if not (torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])):
+        raise RuntimeError("P3 stage: mu and var differ between two calls (the tiles' "
+                           "statistics are summed in a fixed order)")
+    print("  P3 stage mu and var repeat bit for bit", flush=True)
     record("P3", "bfloat16", err, lambda: pyramid.stage(**inp),
            lambda: pyramid.stage_plain(**inp))
     shapes["P3"] = (*inp["y0"].shape, inp["k"].shape[-1])

@@ -43,17 +43,23 @@ training shapes, and in float32 K4's and K8's temporal backward, the device
 time of each kernel one forward and one backward launch, by
 ``torch.profiler`` (the mean of 5 traced calls; names shortened, a kernel
 launched more than once a call numbered by its place), which reads any
-checkout alike.  The probes' kernels on the Hopper GEMM and the view copy, under keys
+checkout alike.  The probes' kernels, under keys
 starting with ``P`` (``--only P``): P2b (``perm_product``) at the probe's
 (384, 1024) and at P2c's relayouts (7680 and 15360 rows), beside
 ``torch.matmul``; P2c
-(``chunk_core``) at the probe's default inputs; P4's copy bodies
+(``chunk_core``), P2a (``dot_combos``) and P3 (``stage``) at their probes'
+default inputs; P1a (``within_roll``, both dtypes) beside its two
+``torch.roll`` calls and P4's Gram (the ``reshape_col`` body) beside
+``torch.matmul``; P4's copy bodies
 ``transpose_full`` (float32, beside ``permute().contiguous()``) and
 ``head_slice_bf16`` (CUDA events over ``P_ITERS`` calls, these calls
 being host-bound), each also as host microseconds to enqueue one call
 (a host clock around 1000 calls with no synchronise), with each host step of
 the ``transpose_full`` body timed alone (``P4 host steps``); each with its
-``torch.profiler`` breakdown.  Comparing two versions of the
+``torch.profiler`` breakdown.  The JSON line also carries the ``ptxas``
+registers and spill bytes of every Hopper GEMM instantiation and of the
+probes' chunk and stage kernels in the checkout's build (``ptxas``).
+Comparing two versions of the
 kernels takes two processes on one card, one per checkout, in turns:
 
     python3 scripts/time_kernels_torch.py --repo build/parent --label parent
@@ -67,12 +73,12 @@ card.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import re
 import subprocess
 import sys
 import time
-from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -87,6 +93,40 @@ P_ITERS = 200
 WARMUP_S = 1.0
 
 
+def ptxas_registers(log: Path) -> dict:
+    """Registers, stack frame and spill bytes (stores, loads) of every
+    kernel of the Hopper GEMM and of the probes' chunk and stage kernels,
+    from the ``-Xptxas -v`` output kept beside the library; keyed by mangled
+    name with each anonymous namespace's per-build hash cut out, so two
+    builds' keys match."""
+    out, name, spill = {}, None, (0, 0, 0)
+    for line in log.read_text().splitlines() if log.exists() else []:
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_(\d+_\w+?_cu)_[0-9a-f]{8}", r"_GLOBAL__N_\1",
+                          m.group(1))
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            spill = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and re.search(r"gemm_kernel|chunk_attention|stage_kernel", name):
+            out[name] = [int(m.group(1)), *spill]
+    return out
+
+
+def own_probes():
+    """This checkout's ``bubbleformer_tpu_torch.probes`` (its timing helpers),
+    loaded under a name of its own: the package ``--repo`` names still
+    imports as itself, and every checkout's launches are broken down by the
+    same code."""
+    path = Path(__file__).resolve().parents[1] / "bubbleformer_tpu_torch" / "probes" / "__init__.py"
+    spec = importlib.util.spec_from_file_location("_time_kernels_probes", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parents[1]))
@@ -94,6 +134,7 @@ def main(argv=None) -> None:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--only", default="", help="time only the keys with this prefix")
     args = ap.parse_args(argv)
+    own = own_probes()
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
 
@@ -171,7 +212,8 @@ def main(argv=None) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    out = {"label": args.label, "repo": args.repo, "card": card}
+    out = {"label": args.label, "repo": args.repo, "card": card,
+           "ptxas": ptxas_registers(_build.library_path().with_suffix(".log"))}
     branches = {"K1": ((8, t, 32, 32, c), 6, k1.mega_temporal_block_fwd,
                        k1.mega_temporal_block_bwd),
                 "K1 d16": ((8, t, 64, 64, 96), 6, k1.mega_temporal_block_fwd,
@@ -353,7 +395,7 @@ def main(argv=None) -> None:
     probe_calls = {}
     if wanted("P"):
         from bubbleformer_tpu_torch import probes
-        from bubbleformer_tpu_torch.probes import chunk_axial, mosaic
+        from bubbleformer_tpu_torch.probes import chunk_axial, lane_axial, mosaic, pyramid
 
         def host_us(fn, calls=1000):
             """Host microseconds to enqueue one call (no synchronise)."""
@@ -398,6 +440,29 @@ def main(argv=None) -> None:
                  for k, v in chunk_axial.make_inputs(chunk_axial.parser().parse_args([])).items()}
         probe_calls["P2c"] = lambda: chunk_axial.chunk_core(**inp_c)
         out["P2c bfloat16"] = ms(probe_calls["P2c"], P_ITERS)
+        # P2a (one block of the chunk kernel), P3 (the fused stage), and
+        # P1a and P4's Gram beside their PyTorch calls.
+        xd, yd = (t.to(dev) for t in chunk_axial.dot_combos_input())
+        probe_calls["P2a"] = lambda: chunk_axial.dot_combos(xd, yd)
+        out["P2a bfloat16"] = ms(probe_calls["P2a"], P_ITERS)
+        inp_s = {k: v.to(dev) for k, v in
+                 pyramid.make_inputs(pyramid.parser().parse_args([])).items()}
+        probe_calls["P3"] = lambda: pyramid.stage(**inp_s)
+        out["P3 bfloat16"] = ms(probe_calls["P3"], P_ITERS)
+        rs = lane_axial.ROLL_SHAPE
+        rolls = (5, rs.W, 3 * rs.W, rs.H * rs.W)
+        for dt in (torch.bfloat16, torch.float32):
+            name = str(dt).split(".")[-1]
+            xr = lane_axial.within_roll_input(dt).to(dev)
+            x1, x2 = xr.view(rs.C, rs.T * rs.H, rs.W), xr.view(rs.C, rs.T, rs.H * rs.W)
+            out[f"P1a {name}"] = ms(lambda xr=xr: lane_axial.within_roll(xr, *rolls), P_ITERS)
+            out[f"P1a torch.roll {name}"] = ms(
+                lambda x1=x1, x2=x2: (torch.roll(x1, -5, 2), torch.roll(x2, -3 * rs.W, 2)),
+                P_ITERS)
+        xg = mosaic.body_input("reshape_col").to(dev)
+        xg2 = xg.view(-1, mosaic.D)
+        out["P4 gram float32"] = ms(lambda: mosaic.run_body("reshape_col", xg), P_ITERS)
+        out["P4 gram matmul float32"] = ms(lambda: torch.matmul(xg2, xg2.t()), P_ITERS)
         for body in ("transpose_full", "head_slice_bf16"):
             xm = mosaic.body_input(body).to(dev)
             name = str(xm.dtype).split(".")[-1]
@@ -505,27 +570,7 @@ def main(argv=None) -> None:
     for what, fn in calls.items():
         if not wanted(what):
             continue
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                fn()
-            torch.cuda.synchronize()
-        evts = sorted((e for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
-                      key=lambda e: e.time_range.start)
-        names = [re.sub(r"\(.*", "", re.sub(r"^void |bft::|\(anonymous namespace\)::", "",
-                                            e.name))[:70] for e in evts]
-        # A kernel launched more than once a call (a pass a direction) gets
-        # its launch's place in the call, [0] first.
-        calls_n = 5 if len(evts) % 5 == 0 else 1
-        one = names[:len(names) // calls_n]
-        per = defaultdict(float)
-        for i, (name, evt) in enumerate(zip(names, evts)):
-            j = i % len(one)
-            if calls_n == 5 and one.count(name) > 1:
-                name = f"{name} [{one[:j].count(name)}]"
-            per[name] += evt.time_range.elapsed_us() / 1e3 / 5
+        per = own.launch_ms(fn)
         out[f"{what} kernels"] = {k: round(v, 4) for k, v in per.items()}
     print(json.dumps(out), flush=True)
 

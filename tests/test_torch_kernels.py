@@ -1605,6 +1605,63 @@ def test_p2a_dot_combos_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["probe", "small"])
+def test_p2a_dot_combos_repeats_bit_for_bit_on_card(cuda_device, case):
+    """P2a at both of its shapes (the probe's d = 64, chunk 128 slices and
+    d = 16, chunk 32 of (40, 64) slabs): one launch a call, counted, and S
+    and pv the same bits on a second call."""
+    g = torch.Generator().manual_seed(74)
+    if case == "probe":
+        x, y = chunk_axial.dot_combos_input()
+    else:
+        x, y = (torch.randn(40, 64, generator=g).bfloat16() for _ in range(2))
+    d, ch = (64, 128) if case == "probe" else (16, 32)
+    x, y = x.to(cuda_device), y.to(cuda_device)
+    before = chunk_axial.dot_combos.launches
+    first = chunk_axial.dot_combos(x, y, d, ch)
+    again = chunk_axial.dot_combos(x, y, d, ch)
+    assert chunk_axial.dot_combos.launches == before + 2
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    assert first[0].shape == (ch, ch) and first[1].shape == (d, ch)
+
+
+# The chunk attention kernel alone (both of P2c's passes): head dim 64 at
+# every chunk the kernel takes, a head dim it pads (24 -> 32), the largest
+# (128) and the small cards' d = 16.
+CHUNK_CASES = [(64, 32), (64, 64), (64, 96), (64, 128), (24, 64), (128, 128), (16, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,ch", CHUNK_CASES, ids=[f"d{d}_ch{ch}" for d, ch in CHUNK_CASES])
+def test_p2_chunk_attention_matches_plain_on_card(cuda_device, d, ch):
+    """One pass of ``chunk_attention_kernel`` over 3 frames of 2 heads and
+    3 chunks, held to ``_axis_pass_plain`` within the bf16 tolerance (pb is
+    rounded to bf16, so a term that rounds the other way moves a float32 sum
+    by a bf16 step of one term): float32 out as the row pass writes it,
+    the same bits on a second call, and bf16 out as the column pass."""
+    heads, bt, nch = 2, 3, 3
+    c, n = heads * d, nch * ch
+    g = torch.Generator().manual_seed(75)
+    q = torch.randn(bt, c, n, generator=g).to(cuda_device, torch.bfloat16)
+    kv = torch.randn(bt, 2 * c, n, generator=g).to(cuda_device, torch.bfloat16)
+    bias = (0.1 * torch.randn(heads * ch, ch, generator=g)).to(cuda_device)
+    mblk = torch.rand(ch, ch, generator=g).to(cuda_device)
+    sc = (0.5 + torch.rand(heads, 2, generator=g)).to(cuda_device)
+    common = dict(frames=bt, heads=heads, d=d, nchunks=nch, ch=ch, q_fs=c * n, kv_fs=2 * c * n,
+                  ld=n, out_fs=c * n, out_ld=n, bias=bias, mblk=mblk, sc=sc, scaling=d**-0.5)
+    want = chunk_axial._axis_pass_plain(q, kv[:, :c], kv[:, c:], bias, mblk, sc[:, 1], heads, ch)
+    outs = []
+    for dtype in (torch.float32, torch.float32, torch.bfloat16):
+        out = torch.empty(bt, c, n, device=cuda_device, dtype=dtype)
+        chunk_axial._chunk_attention(q, kv, kv[:, c:], out=out, sc_col=1, **common)
+        outs.append(out)
+    _close(outs[0], want, torch.bfloat16)
+    assert torch.equal(outs[0], outs[1])
+    _close(outs[2], want.to(torch.bfloat16), torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_p2b_perm_product_is_exact_on_card(cuda_device):
     """The probe's (384, 1024) slab and 32x32 grid permutation, and a random
     0/1 permutation of 200 lanes on 100 rows (ragged tiles)."""
@@ -1681,15 +1738,42 @@ def test_p2c_chunk_core_matches_plain_on_card(cuda_device, case):
     _close(got, chunk_axial.chunk_core_plain(**inp), torch.bfloat16)
 
 
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["default", "ragged"])
+@pytest.mark.parametrize("name", ["br", "bc", "mrs", "mcs"])
+def test_p2c_raises_for_a_misaligned_table_on_card(cuda_device, name):
+    """A contiguous bias or Mblk table one float off a 16-byte boundary (the
+    kernel reads the tables 16 bytes at a time) raises before any launch,
+    naming the table, where the kernel would fault."""
+    inp = _card(_probe_small_inputs(66)[1], cuda_device, torch.bfloat16, ("q", "kv", "perm"))
+    t = inp[name].float()
+    flat = torch.zeros(t.numel() + 4, device=cuda_device)
+    inp[name] = flat[1:1 + t.numel()].view(t.shape).copy_(t)
+    before = chunk_axial.chunk_core.launches
+    with pytest.raises(ValueError, match=f"{name} starts at .* not 16-byte aligned"):
+        chunk_axial.chunk_core(**inp)
+    assert chunk_axial.chunk_core.launches == before
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["default", "ragged", "rows", "wide"])
 def test_p3_stage_matches_plain_on_card(cuda_device, case):
-    """The probe's (20, 256, 256, 96) stage, and 3 images of 10x14 pixels,
-    8 channels in and 24 out (a ragged last tile)."""
+    """The probe's (20, 256, 256, 96) stage, 3 images of 10x14 pixels, 8
+    channels in and 24 out (a ragged tile of 5 rows of 7), (2, 64, 64, 96)
+    -> 96 (rows of 32 pixels, four a tile), and (2, 14, 40, 36) -> 192 (2C
+    = 72 over two 64-column stages, two output-channel tiles, the second of
+    64 columns; tiles of 6 rows of 20 pixels, the second ragged)."""
     if case == "default":
         inp = _card(pyramid.make_inputs(pyramid.parser().parse_args([])), cuda_device)
-    else:
+    elif case == "ragged":
         inp = _card(_probe_small_inputs(67)[2], cuda_device, torch.bfloat16, ("y0", "k"))
+    else:
+        bt, hw, c, f = (2, (64, 64), 96, 96) if case == "rows" else (2, (14, 40), 36, 192)
+        args = SimpleNamespace(bt=bt, size=hw[0], cin=c, cout=f)
+        inp = pyramid.make_inputs(args)
+        if case == "wide":
+            g = torch.Generator().manual_seed(76)
+            inp["y0"] = torch.randn(bt, *hw, c, generator=g).bfloat16()
+        inp = _card(inp, cuda_device)
     before = pyramid.stage.launches
     got = pyramid.stage(**inp)
     assert pyramid.stage.launches == before + 1
@@ -1700,6 +1784,47 @@ def test_p3_stage_matches_plain_on_card(cuda_device, case):
     again = pyramid.stage(**inp)
     assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])  # fixed order
 
+
+@pytest.mark.cuda
+def test_p3_stage_raises_where_tma_cannot_read_on_card(cuda_device):
+    """C = 6 (a pixel pair's 12 channels are 24 bytes) and F = 12 (rows of
+    k of 24 bytes) raise before any launch, naming the tensor."""
+    y0 = torch.zeros(1, 4, 4, 6, device=cuda_device, dtype=torch.bfloat16)
+    stats = torch.zeros(1, 6, device=cuda_device)
+    before = pyramid.stage.launches
+    with pytest.raises(ValueError, match="y0 has rows of 24 bytes"):
+        pyramid.stage(y0, stats, stats, torch.zeros(2, 2, 6, 8, device=cuda_device,
+                                                     dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="k has rows of 24 bytes"):
+        pyramid.stage(torch.zeros(1, 4, 4, 8, device=cuda_device, dtype=torch.bfloat16),
+                      torch.zeros(1, 8, device=cuda_device), torch.zeros(1, 8, device=cuda_device),
+                      torch.zeros(2, 2, 8, 12, device=cuda_device, dtype=torch.bfloat16))
+    assert pyramid.stage.launches == before
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", [0, 4], ids=["most", "past"])
+def test_p3_stage_channel_limit_on_card(cuda_device, past):
+    """The most input channels the kernel's shared memory stages statistics
+    for (``bf_probe_stage_max_channels``, from the kernel's own sizes): at
+    that C a 4 x 4 image matches the plain version; 4 channels more raise
+    before any launch, naming y0."""
+    from bubbleformer_tpu_torch import _build
+
+    c = _build.library().bf_probe_stage_max_channels() + past
+    inp = _card(pyramid.make_inputs(SimpleNamespace(bt=1, size=4, cin=c, cout=8)), cuda_device)
+    before = pyramid.stage.launches
+    if past:
+        with pytest.raises(ValueError, match=f"y0 has {c} channels"):
+            pyramid.stage(**inp)
+        assert pyramid.stage.launches == before
+        return
+    got = pyramid.stage(**inp)
+    assert pyramid.stage.launches == before + 1
+    want = pyramid.stage_plain(**inp)
+    for g, w, dtype in zip(got, want, (torch.bfloat16, torch.float32, torch.float32)):
+        _close(g, w, dtype)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(mosaic.BODIES))

@@ -10,7 +10,13 @@ address) for the views of each of the eight copy bodies, as the bodies
 hand them to the wrapper, and for the ragged strided views of the card
 test.  P2b's ``perm_product`` runs on the Hopper GEMM, whose TMA loads need
 16-byte aligned operands with rows a multiple of 16 bytes:
-``chunk_axial.perm_operands`` raises for an operand that fails, naming it.
+``chunk_axial.perm_operands`` raises for an operand that fails, naming it,
+and ``table_operands`` for a bias or Mblk table the chunk kernel cannot
+read 16 bytes at a time.
+P3's ``stage`` reads its tiles as TMA boxes of bx pixels of a row by by rows
+(``probes/pyramid.py:stage_tiles``): the tiles must cover every output
+pixel once, and ``stage_operands`` raises, naming the tensor, where TMA
+cannot read y0 or k.
 """
 import struct
 from types import SimpleNamespace
@@ -18,7 +24,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from bubbleformer_tpu_torch.probes import chunk_axial, mosaic
+from bubbleformer_tpu_torch.probes import chunk_axial, mosaic, pyramid
 
 COPY_BODIES = [name for name, kernel in mosaic.BODY_KERNEL.items() if kernel == "view_copy"]
 
@@ -173,3 +179,86 @@ def test_perm_operands_name_the_tensor_tma_cannot_read():
         chunk_axial.perm_operands("perm_product", flat[:4 * n].view(4, n), p[:8, :8])
     with pytest.raises(TypeError, match="bfloat16"):
         chunk_axial.perm_operands("perm_product", torch.zeros(4, n), p)
+
+
+
+CHUNK_TABLES = ["br", "bc", "mrs", "mcs"]
+
+
+def chunk_tables(ch=32, heads=2):
+    """Contiguous float32 bias and Mblk tables as ``chunk_core`` passes them."""
+    return dict(br=torch.zeros(heads * ch, ch), bc=torch.zeros(heads * ch, ch),
+                mrs=torch.zeros(ch, ch), mcs=torch.zeros(ch, ch))
+
+
+def test_table_operands_pass_aligned_tables():
+    chunk_axial.table_operands("chunk_core", **chunk_tables())
+
+
+@pytest.mark.parametrize("name", CHUNK_TABLES)
+def test_table_operands_name_a_misaligned_table(name):
+    """The chunk kernel reads the bias and Mblk tables 16 bytes at a time: a
+    contiguous table one float off a 16-byte boundary raises, naming it,
+    where the kernel would fault."""
+    tables = chunk_tables()
+    t = tables[name]
+    flat = torch.zeros(t.numel() + 4)
+    assert flat.data_ptr() % 16 == 0
+    tables[name] = flat[1:1 + t.numel()].view(t.shape)
+    with pytest.raises(ValueError, match=f"chunk_core: {name} starts at .* not 16-byte aligned"):
+        chunk_axial.table_operands("chunk_core", **tables)
+
+# (h, w) of y0 -> (bx, by, tiles): the probe's stage, a row narrower than a
+# tile (several rows a tile), the card test's ragged 10 x 14, rows of two
+# tiles, one pixel, and a wide image of three output rows.
+STAGE_TILES = [((256, 256), (128, 1, 128)), ((64, 64), (32, 4, 8)), ((10, 14), (7, 5, 1)),
+               ((512, 512), (128, 1, 512)), ((2, 2), (1, 1, 1)), ((6, 300), (128, 1, 6)),
+               ((14, 40), (20, 6, 2))]
+
+
+@pytest.mark.parametrize("hw, want", STAGE_TILES,
+                         ids=["probe", "rows", "ragged", "wide", "one", "short", "ragged_rows"])
+def test_stage_tiles_cover_every_output_pixel_once(hw, want):
+    """The tiles as the kernel walks them (tile t at ((t % tiles_x) bx, (t //
+    tiles_x) by), pixel m of a tile at (m // bx, m % bx) from there, m < bx
+    by, kept where it lies in the image): each of the (h/2)(w/2) pixels
+    exactly once, in boxes TMA can take (at most 128 pixels, by > 1 only
+    where a row is narrower than a tile)."""
+    h, w = hw
+    bx, by, tiles = pyramid.stage_tiles(h, w)
+    assert (bx, by, tiles) == want
+    ho, wo = h // 2, w // 2
+    assert bx * by <= pyramid.TILE_PIXELS and bx <= wo and by <= ho
+    assert by == 1 or wo < pyramid.TILE_PIXELS
+    tiles_x = -(-wo // bx)
+    seen = torch.zeros(ho, wo, dtype=torch.int64)
+    for t in range(tiles):
+        oy0, ox0 = (t // tiles_x) * by, (t % tiles_x) * bx
+        for m in range(bx * by):
+            oy, ox = oy0 + m // bx, ox0 + m % bx
+            if oy < ho and ox < wo:
+                seen[oy, ox] += 1
+    assert torch.equal(seen, torch.ones(ho, wo, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("c, f", [(96, 96), (8, 24), (36, 192), (4, 8)],
+                         ids=["probe", "ragged", "wide", "least"])
+def test_stage_operands_pass_what_tma_reads(c, f):
+    pyramid.stage_operands("stage", torch.zeros(2, 4, 6, c, dtype=torch.bfloat16),
+                           torch.zeros(2, 2, c, f, dtype=torch.bfloat16))
+
+
+def test_stage_operands_name_the_tensor_tma_cannot_read():
+    y0 = torch.zeros(2, 4, 6, 8, dtype=torch.bfloat16)
+    k = torch.zeros(2, 2, 8, 24, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="stage: y0 has rows of 24 bytes"):
+        pyramid.stage_operands("stage", torch.zeros(2, 4, 6, 6, dtype=torch.bfloat16),
+                               torch.zeros(2, 2, 6, 24, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="stage: k has rows of 24 bytes"):
+        pyramid.stage_operands("stage", y0, torch.zeros(2, 2, 8, 12, dtype=torch.bfloat16))
+    flat = torch.zeros(y0.numel() + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="stage: y0 starts at .* not 16-byte aligned"):
+        pyramid.stage_operands("stage", flat[1:1 + y0.numel()].view(y0.shape), k)
+    with pytest.raises(ValueError, match="stage: k of shape .* is not contiguous"):
+        pyramid.stage_operands("stage", y0, torch.zeros(2, 2, 24, 8, dtype=torch.bfloat16)
+                               .transpose(2, 3))
