@@ -161,8 +161,12 @@ _SIGNATURES = {
     # The probes' kernels (probes/, csrc/probe_*.cu).
     # dtype, x, o1, o2, rows, total, r1, b1, r2, b2, stream
     "bf_probe_within_roll": [_I] + [_P] * 3 + [_I] * 6 + [_P],
-    # dtype, q, kv, bx, by, sc, row_out, out, BT, H, W, C, heads, scaling, stream
-    "bf_probe_lane_core": [_I] + [_P] * 7 + [_I] * 5 + [_F, _P],
+    # q, kv, bx, by, sc, row_out, out, BT, H, W, C, heads, scaling, stream
+    # (float32)
+    "bf_probe_lane_core": [_P] * 7 + [_I] * 5 + [_F, _P],
+    # head_dim, q, kv, bx, by, sc, row_out, out, BT, H, W, C, heads, stream
+    # (bf16)
+    "bf_probe_lane_core_hopper": [_I] + [_P] * 7 + [_I] * 5 + [_P],
     # q, k, v, q_fs, kv_fs, ld, bias, mblk, sc, sc_col, scaling, s_out, out,
     # out_bf16, out_fs, out_ld, frames, heads, d, nchunks, ch, stream
     "bf_probe_chunk_attention": [_P] * 3 + [_L] * 2 + [_I] + [_P] * 3 + [_I, _F] + [_P] * 2
@@ -177,8 +181,10 @@ _SIGNATURES = {
     "bf_probe_view_copy": [_P] * 4,
     # dtype, a, stride, shape, ndim, out, stream
     "bf_probe_gram": [_I, _P, _LP, _LP, _I, _P, _P],
-    # dtype, x, out, shape, stride, axis, chunk, accumulate, stream
-    "bf_probe_chunk_gram": [_I, _P, _P, _LP, _LP] + [_I] * 3 + [_P],
+    # x, out, shape, stride, axis, chunk, accumulate, stream (float32)
+    "bf_probe_chunk_gram": [_P, _P, _LP, _LP] + [_I] * 3 + [_P],
+    # head_dim, x, out, shape, stride, axis, chunk, accumulate, stream (bf16)
+    "bf_probe_chunk_gram_hopper": [_I, _P, _P, _LP, _LP] + [_I] * 3 + [_P],
 }
 
 

@@ -18,16 +18,26 @@
 //                     fold_views) and hands over one packed descriptor;
 //                     a thread moves 16 bytes of the innermost run where
 //                     both views allow it, else one element;
-//   chunk_gram_kernel per chunk c (rows x D) of a (B, H, W, heads, D) tensor,
+//   chunk_gram_hopper_kernel (bf16) and chunk_gram_kernel (float32) per
+//                     chunk c (rows x D) of a (B, H, W, heads, D) tensor,
 //                     o = (c . c^T) . c in float32, written as dtype(o) or
 //                     added as dtype(out + dtype(o)) (the TPU body's bf16
 //                     `+=`): head_slice_dot_bf16 (row chunks) and
 //                     chunked_ref_reads_bf16 (row chunks, then column
-//                     chunks added).
+//                     chunks added).  The bf16 kernel stages its chunk once
+//                     a block, in bf16 with 16-byte loads (a token's D
+//                     values are one run), into lane_hopper.cuh's swizzled
+//                     tiles; a warp takes 16 rows: S = c_tile . c^T on the
+//                     tensor cores (exact products, float32 sums) a 32-row
+//                     chunk at a time, then S . c with S split into a bf16
+//                     pair (flash::split_product, within ~2^-16 of float32),
+//                     so S never leaves registers.  The float32 kernel
+//                     stages the chunk again for each block of 32 rows, as
+//                     float32, with scalar products.
 // The probes' arrays are at most 0.8 MB: every kernel is bound by its launch.
 #include <climits>
 
-#include "common.cuh"
+#include "flash_hopper.cuh"
 
 namespace bft {
 namespace {
@@ -193,6 +203,100 @@ __global__ void __launch_bounds__(256) chunk_gram_kernel(const T* __restrict__ x
   }
 }
 
+constexpr int kGramWarps = 4;  // 16-row tiles a block of chunk_gram_hopper_kernel
+
+// Grid (ceil(R / 64), chunks, B * heads), kGramWarps warps: the chunk (R
+// rows of D, zero past R) staged once into a swizzled bf16 tile; warp w
+// takes rows 16 (4 blockIdx.x + w) .. + 15 of o = (c . c^T) . c, S a 32-row
+// chunk at a time on the tensor cores, S . c with S as a bf16 pair; o
+// written as bf16(o) or added as bf16(out + bf16(o)).  vec: 16-byte loads
+// and 4-byte stores (x and out aligned, every stride a multiple of 8).
+template <int D>
+__global__ void __launch_bounds__(kGramWarps * 32) chunk_gram_hopper_kernel(
+    const __nv_bfloat16* __restrict__ x, __nv_bfloat16* __restrict__ out, Chunks g,
+    int accumulate, int vec) {
+  using lane::bf16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* cs = reinterpret_cast<bf16*>(smem);
+  const int R = g.n1 * g.n2, rows = lane::staged_rows(R);
+  const int b = blockIdx.z / g.heads, h = blockIdx.z % g.heads;
+  const long long base = blockIdx.y * g.chunk_stride + b * g.b_stride + h * g.h_stride;
+  auto at = [&](int r, int dd) {
+    return base + (long long)(r / g.n2) * g.s1 + (long long)(r % g.n2) * g.s2 + dd * g.sd;
+  };
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (D / 8); e += blockDim.x) {
+      const int r = e / (D / 8), c8 = e % (D / 8) * 8;
+      *reinterpret_cast<uint4*>(cs + lane::sw<D>(r, c8)) =
+          r < R ? lane::ldg16(x + at(r, c8)) : make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * D; e += blockDim.x) {
+      const int r = e / D, dd = e % D;
+      cs[lane::sw<D>(r, dd)] = r < R ? x[at(r, dd)] : __float2bfloat16(0.f);
+    }
+  }
+  __syncthreads();
+  const int lane_id = threadIdx.x & 31, i0 = (blockIdx.x * kGramWarps + (threadIdx.x >> 5)) * 16;
+  if (i0 >= R) return;
+  uint32_t a[D / 16][4];
+  lane::load_a_rows<D>(a, cs, i0, lane_id);
+  float o[D / 8][4] = {};
+  for (int k0 = 0; k0 < rows; k0 += lane::kChunk) {
+    float s[4][4];
+    lane::rows_product<D>(s, a, cs, k0, lane_id);
+    flash::split_product<D>(o, s, cs, k0, lane_id);
+  }
+  const int gr = lane_id >> 2, t = lane_id & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = i0 + gr + 8 * r;
+    if (i >= R) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const long long off = at(i, n * 8 + 2 * t);
+      float v0 = o[n][2 * r], v1 = o[n][2 * r + 1];
+      if (vec) {
+        uint32_t* p = reinterpret_cast<uint32_t*>(out + off);
+        if (accumulate) {
+          const float2 old = lane::unpack(*p), add = lane::unpack(lane::pack(v0, v1));
+          v0 = old.x + add.x;
+          v1 = old.y + add.y;
+        }
+        *p = lane::pack(v0, v1);
+      } else {
+        __nv_bfloat16* p0 = out + off;
+        __nv_bfloat16* p1 = out + off + g.sd;
+        if (accumulate) {
+          v0 = __bfloat162float(*p0) + round_to<__nv_bfloat16>(v0);
+          v1 = __bfloat162float(*p1) + round_to<__nv_bfloat16>(v1);
+        }
+        *p0 = __float2bfloat16(v0);
+        *p1 = __float2bfloat16(v1);
+      }
+    }
+  }
+}
+
+// The chunks of bf_probe_chunk_gram's arguments; false where they do not
+// describe chunks (axis 1 or 2, a chunk length dividing that axis).
+bool make_chunks(const long long* shape, const long long* stride, int axis, int chunk,
+                 Chunks* g) {
+  if ((axis != 1 && axis != 2) || chunk < 1 || shape[axis] % chunk) return false;
+  g->n1 = axis == 1 ? chunk : (int)shape[1];
+  g->n2 = axis == 1 ? (int)shape[2] : chunk;
+  g->D = (int)shape[4];
+  g->s1 = stride[1];
+  g->s2 = stride[2];
+  g->sd = stride[4];
+  g->chunk_stride = chunk * stride[axis];
+  g->b_stride = stride[0];
+  g->h_stride = stride[3];
+  g->heads = (int)shape[3];
+  const long long groups = shape[0] * shape[3], nchunks = shape[axis] / chunk;
+  return g->n1 * g->n2 >= 1 && g->D >= 1 && groups >= 1 && groups <= 65535 && nchunks <= 65535;
+}
+
 View make_view(const long long* shape, const long long* stride, int ndim) {
   View v{};
   v.ndim = ndim;
@@ -276,53 +380,59 @@ extern "C" int bf_probe_gram(int dtype, const void* a, const long long* stride,
   return cudaGetLastError();
 }
 
-// x and out (B, H, W, heads, D) in dtype with the same strides (stride, host
-// array of 5): for each (b, head) and each of the nchunks chunks of `chunk`
-// rows (axis 1) or columns (axis 2), o = (c . c^T) . c in float32 over the
-// chunk's rows (its (row, column) positions in raster order), written as
-// dtype(o) or, with accumulate, dtype(out + dtype(o)).  A chunk's c and 32
-// rows of c . c^T must fit in 227 KB of shared memory.  Returns a
+// float32 (chunk_gram_kernel): x and out (B, H, W, heads, D) with the same
+// strides (stride, host array of 5): for each (b, head) and each of the
+// nchunks chunks of `chunk` rows (axis 1) or columns (axis 2), o = (c . c^T)
+// . c in float32 over the chunk's rows (its (row, column) positions in
+// raster order), written as o or, with accumulate, added to out.  A chunk's
+// c and 32 rows of c . c^T must fit in 227 KB of shared memory.  Returns a
 // cudaError_t.
-extern "C" int bf_probe_chunk_gram(int dtype, const void* x, void* out, const long long* shape,
+extern "C" int bf_probe_chunk_gram(const float* x, float* out, const long long* shape,
                                    const long long* stride, int axis, int chunk, int accumulate,
                                    void* stream) {
   using namespace bft;
-  if ((axis != 1 && axis != 2) || chunk < 1 || shape[axis] % chunk) return cudaErrorInvalidValue;
   Chunks g{};
-  g.n1 = axis == 1 ? chunk : (int)shape[1];
-  g.n2 = axis == 1 ? (int)shape[2] : chunk;
-  g.D = (int)shape[4];
-  g.s1 = stride[1];
-  g.s2 = stride[2];
-  g.sd = stride[4];
-  g.chunk_stride = chunk * stride[axis];
-  g.b_stride = stride[0];
-  g.h_stride = stride[3];
-  g.heads = (int)shape[3];
+  if (!make_chunks(shape, stride, axis, chunk, &g)) return cudaErrorInvalidValue;
   const int R = g.n1 * g.n2;
-  const long long groups = shape[0] * shape[3], nchunks = shape[axis] / chunk;
   const size_t smem = chunk_gram_smem(R, g.D);
-  if (R < 1 || g.D < 1 || groups < 1 || groups > 65535 || nchunks > 65535 || smem > 232448)
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const dim3 grid((R + kGramRowTile - 1) / kGramRowTile, (unsigned)(shape[axis] / chunk),
+                  (unsigned)(shape[0] * shape[3]));
+  cudaError_t e = cudaFuncSetAttribute(chunk_gram_kernel<float>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  chunk_gram_kernel<float><<<grid, 256, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, out, g, accumulate);
+  return cudaGetLastError();
+}
+
+// bf16 (chunk_gram_hopper_kernel): as bf_probe_chunk_gram, x and out bf16,
+// o written as bf16(o) or added as bf16(out + bf16(o)).  head_dim (the last
+// dim) 16 or 64, a chunk's rows (rounded up to 32) within 227 KB of shared
+// memory.  Returns a cudaError_t.
+extern "C" int bf_probe_chunk_gram_hopper(int head_dim, const void* x, void* out,
+                                          const long long* shape, const long long* stride,
+                                          int axis, int chunk, int accumulate, void* stream) {
+  using namespace bft;
+  Chunks g{};
+  if ((head_dim != 16 && head_dim != 64) || shape[4] != head_dim ||
+      !make_chunks(shape, stride, axis, chunk, &g))
     return cudaErrorInvalidValue;
-  const dim3 grid((R + kGramRowTile - 1) / kGramRowTile, (unsigned)nchunks, (unsigned)groups);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == kF32) {
-    if ((e = cudaFuncSetAttribute(chunk_gram_kernel<float>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-        cudaSuccess)
-      return e;
-    chunk_gram_kernel<float><<<grid, 256, smem, s>>>(static_cast<const float*>(x),
-                                                     static_cast<float*>(out), g, accumulate);
-  } else if (dtype == kBF16) {
-    if ((e = cudaFuncSetAttribute(chunk_gram_kernel<__nv_bfloat16>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
-        cudaSuccess)
-      return e;
-    chunk_gram_kernel<__nv_bfloat16><<<grid, 256, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), g, accumulate);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  const int R = g.n1 * g.n2;
+  const size_t smem = (size_t)lane::staged_rows(R) * head_dim * sizeof(__nv_bfloat16);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out);
+  const int vec = ptrs % 16 == 0 && g.sd == 1 && g.s1 % 8 == 0 && g.s2 % 8 == 0 &&
+                  g.chunk_stride % 8 == 0 && g.b_stride % 8 == 0 && g.h_stride % 8 == 0;
+  const dim3 grid((R + 16 * kGramWarps - 1) / (16 * kGramWarps), (unsigned)(shape[axis] / chunk),
+                  (unsigned)(shape[0] * shape[3]));
+  const auto kernel =
+      head_dim == 64 ? chunk_gram_hopper_kernel<64> : chunk_gram_hopper_kernel<16>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kGramWarps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), g, accumulate,
+      vec);
   return cudaGetLastError();
 }

@@ -7,7 +7,10 @@ Counterpart of ``scripts/probe_lane_axial.py``: its two Pallas kernels as
   ``_within_roll :62``): circular rolls within blocks of lanes, two at once;
 - :func:`lane_core` — ``bench_core``'s kernel (``:193``, body
   ``_core_kernel :104``): the row and column attention over every circular
-  offset of channel-major slabs, averaged and rounded once;
+  offset of channel-major slabs, averaged and rounded once; bfloat16 on
+  ``core_kernel`` (:func:`lane_core_hopper`, tensor cores, a band of lines a
+  block, each line's table slice staged by :func:`line_table`'s map),
+  float32 on ``lane_core_kernel`` (:func:`lane_core_line`);
 
 with their plain versions, the probe's inputs (:func:`make_inputs`,
 :func:`within_roll_input`) and its command line (:func:`main`, run by
@@ -26,6 +29,7 @@ from bubbleformer_tpu_torch import _build
 from bubbleformer_tpu_torch.probes import announce, build_seconds, check_device, cuda_ms, log
 
 MAX_LINE = 128  # tokens a line (lane_core keeps a line's q, k, v on chip)
+HOPPER_HEAD_DIMS = (16, 64)  # head dims of the bfloat16 kernel (core_kernel)
 
 
 def _roll_index(r: int, block: int, total: int, device) -> torch.Tensor:
@@ -104,13 +108,27 @@ def lane_core_plain(q, kv, bx, by, sc, heads: int, h: int, w: int) -> torch.Tens
     return out.to(q.dtype)
 
 
-def lane_core(q, kv, bx, by, sc, heads: int, h: int, w: int) -> torch.Tensor:
-    """``bench_core``'s kernel: :func:`lane_core_plain` on the CPU; on a card
-    ``csrc/probe_lane_axial.cu`` (a row pass into float32 scratch, a column
-    pass that adds it and rounds), counted in ``lane_core.launches``.  q and
-    kv float32 or bfloat16, lines of at most ``MAX_LINE`` tokens."""
-    if not check_device("lane_core", q):
-        return lane_core_plain(q, kv, bx, by, sc, heads, h, w)
+def line_table(table: torch.Tensor, heads: int, head: int, h: int, w: int, axis: int,
+               line: int) -> torch.Tensor:
+    """The (L, L) bias of one line of one head, as ``core_kernel`` stages it
+    from the (L*heads, N) offset table (bx for rows, axis 0, L = w; by for
+    columns, axis 1, L = h): entry (i, j), query i and key j of the line, is
+    ``table[((j - i) mod L) * heads + head, pos(i)]``, pos(i) the query's
+    position (``line * w + i`` on a row, ``i * w + line`` on a column) —
+    the TPU kernel adds ``table[r * heads + head, p]`` to the logit of the
+    query at p and the key r offsets on."""
+    n = h * w
+    length = w if axis == 0 else h
+    i = torch.arange(length, device=table.device)
+    pos = line * w + i if axis == 0 else i * w + line
+    r = (i[None, :] - i[:, None]) % length
+    return table.view(length, heads, n)[r, head, pos[:, None]]
+
+
+def lane_core_operands(q, kv, bx, by, sc, heads: int, h: int, w: int) -> str:
+    """Raise unless :func:`lane_core`'s kernels take these operands (the
+    shapes, both types, the lines, the bfloat16 kernel's head dims), naming
+    the tensor or the shape; returns the call's label."""
     bt, c, n = q.shape
     what = f"lane_core at q {tuple(q.shape)}, heads {heads}, grid {h}x{w}"
     if c % heads or n != h * w or max(h, w) > MAX_LINE:
@@ -120,21 +138,74 @@ def lane_core(q, kv, bx, by, sc, heads: int, h: int, w: int) -> torch.Tensor:
         raise TypeError(f"{what}: q and kv float32 or bfloat16 alike, not {q.dtype}, {kv.dtype}")
     _build.check_shapes(what, kv=(kv, (bt, 2 * c, n)), bx=(bx, (w * heads, n)),
                         by=(by, (h * heads, n)), sc=(sc, (c, 2)))
+    if q.dtype == torch.bfloat16 and c // heads not in HOPPER_HEAD_DIMS:
+        raise ValueError(f"{what}: the bfloat16 kernel takes head dims {HOPPER_HEAD_DIMS}, "
+                         f"not {c // heads}")
+    return what
+
+
+def _lane_core_call(entry: str, q, kv, bx, by, sc, heads: int, h: int, w: int, lead=(),
+                    tail=()) -> torch.Tensor:
+    """One call of a C entry of ``csrc/probe_lane_axial.cu``: one direction
+    into a float32 scratch of the output's size, the other adding it and
+    rounding once into the output."""
+    bt, c, n = q.shape
+    what = lane_core_operands(q, kv, bx, by, sc, heads, h, w)
     q, kv = q.contiguous(), kv.contiguous()
     bx, by, sc = (t.float().contiguous() for t in (bx, by, sc))
-    row_out = torch.empty(bt, c, n, device=q.device)
+    scratch = torch.empty(bt, c, n, device=q.device)
     out = torch.empty_like(q)
     lib = _build.library()
-    err = lib.bf_probe_lane_core(_build.DTYPE_CODES[q.dtype], q.data_ptr(), kv.data_ptr(),
-                                 bx.data_ptr(), by.data_ptr(), sc.data_ptr(), row_out.data_ptr(),
-                                 out.data_ptr(), bt, h, w, c, heads, (c // heads)**-0.5,
-                                 _build.stream_handle(q.device))
-    _build.check(lib, err, f"{what} (bf_probe_lane_core)")
+    err = getattr(lib, entry)(*lead, q.data_ptr(), kv.data_ptr(), bx.data_ptr(), by.data_ptr(),
+                              sc.data_ptr(), scratch.data_ptr(), out.data_ptr(), bt, h, w, c,
+                              heads, *tail, _build.stream_handle(q.device))
+    _build.check(lib, err, f"{what} ({entry})")
+    return out
+
+
+def lane_core_hopper(q, kv, bx, by, sc, heads: int, h: int, w: int) -> torch.Tensor:
+    """bfloat16 ``bench_core`` on ``core_kernel`` (C entry
+    ``bf_probe_lane_core_hopper``; the column pass, then the row pass): head
+    dims 16 and 64; counts ``lane_core_hopper.launches``."""
+    out = _lane_core_call("bf_probe_lane_core_hopper", q, kv, bx, by, sc, heads, h, w,
+                          lead=(q.shape[1] // heads,))
+    lane_core_hopper.launches += 1
+    return out
+
+
+def lane_core_line(q, kv, bx, by, sc, heads: int, h: int, w: int) -> torch.Tensor:
+    """float32 ``bench_core`` on ``lane_core_kernel`` (C entry
+    ``bf_probe_lane_core``); counts ``lane_core_line.launches``."""
+    out = _lane_core_call("bf_probe_lane_core", q, kv, bx, by, sc, heads, h, w,
+                          tail=((q.shape[1] // heads)**-0.5,))
+    lane_core_line.launches += 1
+    return out
+
+
+def lane_core_kernels(dtype: torch.dtype):
+    """:func:`lane_core`'s kernel on the card for ``dtype``: bfloat16
+    :func:`lane_core_hopper`, float32 :func:`lane_core_line`."""
+    if dtype == torch.bfloat16:
+        return lane_core_hopper
+    if dtype == torch.float32:
+        return lane_core_line
+    raise TypeError(f"lane_core kernel takes float32 or bfloat16, not {dtype}")
+
+
+def lane_core(q, kv, bx, by, sc, heads: int, h: int, w: int) -> torch.Tensor:
+    """``bench_core``'s kernel: :func:`lane_core_plain` on the CPU; on a card
+    the kernel :func:`lane_core_kernels` picks by dtype (one direction into
+    a float32 scratch, the other adding it and rounding once), counted in
+    ``lane_core.launches``.  q and kv float32 or bfloat16, lines of at most
+    ``MAX_LINE`` tokens (:func:`lane_core_operands`)."""
+    if not check_device("lane_core", q):
+        return lane_core_plain(q, kv, bx, by, sc, heads, h, w)
+    out = lane_core_kernels(q.dtype)(q, kv, bx, by, sc, heads, h, w)
     lane_core.launches += 1
     return out
 
 
-lane_core.launches = 0
+lane_core.launches = lane_core_hopper.launches = lane_core_line.launches = 0
 
 # probe_within_roll's slab: C lanes rows of T frames of H x W tokens.
 ROLL_SHAPE = SimpleNamespace(C=16, H=8, W=32, T=2)

@@ -12,7 +12,10 @@ Hopper a view is a shape and strides, so the bodies run on three kernels of
   where both allow it (:func:`copy_vector`), described to the kernel by one
   packed descriptor (:func:`copy_descriptor`);
 - :func:`chunk_gram_apply` — per chunk ``(c . c^T) . c`` over row or column
-  chunks of a (B, H, W, heads, D) tensor, written or added in its dtype;
+  chunks of a (B, H, W, heads, D) tensor, written or added in its dtype:
+  bfloat16 on ``chunk_gram_hopper_kernel`` (:func:`chunk_gram_hopper`, the
+  chunk staged once a block, both products on the tensor cores), float32
+  on ``chunk_gram_kernel`` (:func:`chunk_gram_line`);
 
 each with its plain version.  ``BODIES`` holds the 14 bodies on them and
 the ``probe_*`` functions (the JAX names) check each against its reference
@@ -41,6 +44,11 @@ H, W, D = 32, 32, 64
 WC = 8
 HEADS = 6
 CHUNK = 8  # rows (or columns) a chunk of the per-head bodies
+HOPPER_HEAD_DIMS = (16, 64)  # head dims of the bfloat16 chunk kernel
+# Shared memory a block of the chunk kernels may take, and the rows the
+# bfloat16 one stages a chunk in (a multiple of its 32-row key chunks).
+SMEM_MAX = 232448
+STAGE_ROWS = 32
 MAX_DIMS = 5
 # Bytes a thread of view_copy_kernel moves where both views allow it.
 VECTOR_BYTES = 16
@@ -202,30 +210,90 @@ def chunk_gram_apply_plain(x: torch.Tensor, out: torch.Tensor, axis: int, chunk:
     return out
 
 
+def chunk_gram_operands(x: torch.Tensor, out: torch.Tensor, axis: int, chunk: int) -> str:
+    """Raise unless :func:`chunk_gram_apply`'s kernels take these operands:
+    x and out (B, H, W, heads, D) contiguous alike, chunks dividing axis 1
+    or 2, for bfloat16 head dims 16 and 64 and a chunk's staged rows within
+    a block's shared memory; names the tensor or the shape.  Returns the
+    call's label."""
+    what = f"chunk_gram_apply at {tuple(x.shape)}, axis {axis}, chunk {chunk}"
+    if x.dim() != 5 or axis not in (1, 2) or chunk < 1 or x.shape[axis] % chunk:
+        raise ValueError(f"{what}: x (B, H, W, heads, D), chunks dividing axis 1 or 2")
+    if out.shape != x.shape or out.dtype != x.dtype:
+        raise ValueError(f"{what}: out is {tuple(out.shape)} {out.dtype}, not x's shape and "
+                         f"dtype ({x.dtype})")
+    for name, t in (("x", x), ("out", out)):
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} of strides {t.stride()} is not contiguous")
+    _dtype_code(what, x)
+    if x.dtype == torch.bfloat16:
+        d = x.shape[4]
+        rows = -(-(x.shape[1] * x.shape[2] // x.shape[axis] * chunk) // STAGE_ROWS) * STAGE_ROWS
+        if d not in HOPPER_HEAD_DIMS:
+            raise ValueError(f"{what}: the bfloat16 kernel takes head dims {HOPPER_HEAD_DIMS}, "
+                             f"not {d}")
+        if rows * d * x.element_size() > SMEM_MAX:
+            raise ValueError(f"{what}: a chunk of {rows} staged rows of {d} does not fit a "
+                             f"block's {SMEM_MAX} bytes of shared memory")
+    return what
+
+
+def _chunk_gram_call(entry: str, x, out, axis: int, chunk: int, accumulate: bool,
+                     lead=()) -> torch.Tensor:
+    what = chunk_gram_operands(x, out, axis, chunk)
+    lib = _build.library()
+    err = getattr(lib, entry)(*lead, x.data_ptr(), out.data_ptr(), _build.int64_array(x.shape),
+                              _build.int64_array(x.stride()), axis, chunk, int(accumulate),
+                              _build.stream_handle(x.device))
+    _build.check(lib, err, f"{what} ({entry})")
+    return out
+
+
+def chunk_gram_hopper(x: torch.Tensor, out: torch.Tensor, axis: int, chunk: int,
+                      accumulate: bool = False) -> torch.Tensor:
+    """bfloat16 chunk products on ``chunk_gram_hopper_kernel`` (C entry
+    ``bf_probe_chunk_gram_hopper``); counts ``chunk_gram_hopper.launches``."""
+    _chunk_gram_call("bf_probe_chunk_gram_hopper", x, out, axis, chunk, accumulate,
+                     lead=(x.shape[-1],))
+    chunk_gram_hopper.launches += 1
+    return out
+
+
+def chunk_gram_line(x: torch.Tensor, out: torch.Tensor, axis: int, chunk: int,
+                    accumulate: bool = False) -> torch.Tensor:
+    """float32 chunk products on ``chunk_gram_kernel`` (C entry
+    ``bf_probe_chunk_gram``); counts ``chunk_gram_line.launches``."""
+    _chunk_gram_call("bf_probe_chunk_gram", x, out, axis, chunk, accumulate)
+    chunk_gram_line.launches += 1
+    return out
+
+
+def chunk_gram_kernels(dtype: torch.dtype):
+    """:func:`chunk_gram_apply`'s kernel on the card for ``dtype``: bfloat16
+    :func:`chunk_gram_hopper`, float32 :func:`chunk_gram_line`."""
+    if dtype == torch.bfloat16:
+        return chunk_gram_hopper
+    if dtype == torch.float32:
+        return chunk_gram_line
+    raise TypeError(f"chunk_gram_apply kernel takes float32 or bfloat16, not {dtype}")
+
+
 def chunk_gram_apply(x: torch.Tensor, out: torch.Tensor, axis: int, chunk: int,
                      accumulate: bool = False) -> torch.Tensor:
-    """:func:`chunk_gram_apply_plain` on the CPU; on a card one launch of
-    ``chunk_gram_kernel`` over every chunk (counted in
-    ``chunk_gram_apply.launches``).  x and out contiguous alike."""
+    """:func:`chunk_gram_apply_plain` on the CPU; on a card one launch over
+    every chunk of the kernel :func:`chunk_gram_kernels` picks by dtype
+    (counted in ``chunk_gram_apply.launches``).  x and out contiguous alike
+    (:func:`chunk_gram_operands`)."""
     if not check_device("chunk_gram_apply", x):
         return chunk_gram_apply_plain(x, out, axis, chunk, accumulate)
-    what = f"chunk_gram_apply at {tuple(x.shape)}, axis {axis}, chunk {chunk}"
-    if (x.dim() != 5 or out.shape != x.shape or out.dtype != x.dtype or axis not in (1, 2)
-            or x.shape[axis] % chunk or not (x.is_contiguous() and out.is_contiguous())):
-        raise ValueError(f"{what}: x and out (B, H, W, heads, D) contiguous alike, chunks "
-                         f"dividing axis 1 or 2")
-    lib = _build.library()
-    err = lib.bf_probe_chunk_gram(_dtype_code(what, x), x.data_ptr(), out.data_ptr(),
-                                  _build.int64_array(x.shape), _build.int64_array(x.stride()),
-                                  axis, chunk, int(accumulate), _build.stream_handle(x.device))
-    _build.check(lib, err, f"{what} (bf_probe_chunk_gram)")
+    chunk_gram_kernels(x.dtype)(x, out, axis, chunk, accumulate)
     chunk_gram_apply.launches += 1
     return out
 
 
 gram.launches = 0
 view_copy.launches = 0
-chunk_gram_apply.launches = 0
+chunk_gram_apply.launches = chunk_gram_hopper.launches = chunk_gram_line.launches = 0
 
 
 KERNELS = SimpleNamespace(gram=gram, view_copy=view_copy, chunk_gram_apply=chunk_gram_apply)

@@ -199,11 +199,15 @@ paths give it — the rollout's (batch 1) and the training step's:
    second call; with the times of both and of the one
    PyTorch call that computes the same function where there is one
    (``torch.roll``, ``torch.matmul``, ``permute().contiguous()``), and the
-   device time of each of P2c's launches (the chunk kernel's two passes);
+   device time of each launch of P2c (the chunk kernel's two passes), P1b
+   (``core_kernel``'s column and row passes) and P4's chunk products (both
+   ``chunked_ref_reads_bf16`` launches);
 40. the four probe CLIs through their ``main`` at their default flags, each
    with the counters set to 0 before and read after: every check OK, a
    card time in each JSON line, each of the probe's kernels launched and no
-   other.
+   other, every bfloat16 ``lane_core`` and ``chunk_gram_apply`` call on its
+   Hopper kernel (``lane_core_hopper``, ``chunk_gram_hopper``; the float32
+   ones, ``lane_core_line`` and ``chunk_gram_line``, never).
 
 K2's, K4's, K5's, K6's, K7's, K8's and K9's wrappers count every call on
 the card (``lane_axial_attention``, ``fused_block_attention``,
@@ -941,9 +945,10 @@ def probe_counters():
     like the others'."""
     from bubbleformer_tpu_torch.probes import chunk_axial, lane_axial, mosaic, pyramid
 
-    return (lane_axial.within_roll, lane_axial.lane_core, chunk_axial.dot_combos,
-            chunk_axial.perm_product, chunk_axial.chunk_core, pyramid.stage, mosaic.gram,
-            mosaic.view_copy, mosaic.chunk_gram_apply)
+    return (lane_axial.within_roll, lane_axial.lane_core, lane_axial.lane_core_hopper,
+            lane_axial.lane_core_line, chunk_axial.dot_combos, chunk_axial.perm_product,
+            chunk_axial.chunk_core, pyramid.stage, mosaic.gram, mosaic.view_copy,
+            mosaic.chunk_gram_apply, mosaic.chunk_gram_hopper, mosaic.chunk_gram_line)
 
 
 def zero_counters() -> None:
@@ -2163,6 +2168,9 @@ def probe_kernel_phase(dev, results: dict) -> dict:
                   KERNEL_RTOL["bfloat16"])
     record("P1b", "bfloat16", err, lambda: lane_axial.lane_core(**inp),
            lambda: lane_axial.lane_core_plain(**inp))
+    launches = probes.launch_ms(lambda: lane_axial.lane_core(**inp))
+    print("  P1b device ms a launch (torch.profiler, 5 calls): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in launches.items()), flush=True)
     bt, c, _ = inp["q"].shape
     shapes["P1b"] = (bt, c, inp["h"], inp["w"], inp["heads"])
     del inp, got, ref
@@ -2239,6 +2247,10 @@ def probe_kernel_phase(dev, results: dict) -> dict:
         shapes[key] = {"P4 gram": (x.numel() // mosaic.D, mosaic.D),
                        "P4 view_copy": (x.numel(), False),
                        "P4 chunk_gram": (x.numel(), mosaic.CHUNK * mosaic.W, False)}[key]
+    x = mosaic.body_input("chunked_ref_reads_bf16").to(dev)
+    launches = probes.launch_ms(lambda: mosaic.run_body("chunked_ref_reads_bf16", x))
+    print("  P4 chunk_gram device ms a launch at chunked_ref_reads_bf16 (torch.profiler, 5 "
+          "calls): " + ", ".join(f"{k} {v:.4f}" for k, v in launches.items()), flush=True)
     return shapes
 
 
@@ -2250,10 +2262,13 @@ def probe_cli_phase() -> dict:
     from bubbleformer_tpu_torch.probes import chunk_axial, lane_axial, mosaic, pyramid
 
     launches = {}
-    for module, kernels in ((lane_axial, ("within_roll", "lane_core")),
+    # The bfloat16 path counter that must match each wrapper's count.
+    hopper = {"lane_core": "lane_core_hopper", "chunk_gram_apply": "chunk_gram_hopper"}
+    for module, kernels in ((lane_axial, ("within_roll", "lane_core", "lane_core_hopper")),
                             (chunk_axial, ("dot_combos", "perm_product", "chunk_core")),
                             (pyramid, ("stage",)),
-                            (mosaic, ("gram", "view_copy", "chunk_gram_apply"))):
+                            (mosaic, ("gram", "view_copy", "chunk_gram_apply",
+                                      "chunk_gram_hopper"))):
         label = module.__name__.rsplit(".", 1)[-1]
         print(f"  -- scripts/probe_{label}_torch.py (probes/{label}.py main)", flush=True)
         zero_counters()
@@ -2272,6 +2287,8 @@ def probe_cli_phase() -> dict:
             fail(f"probe {label}: {failed} failed")
         if any(got[k] == 0 for k in kernels) or any(v for k, v in got.items() if k not in kernels):
             fail(f"probe {label}: launches {got}, expected each of {kernels} and nothing else")
+        if any(got[w] != got[p] for w, p in hopper.items() if w in kernels):
+            fail(f"probe {label}: launches {got}, every bfloat16 call on its Hopper kernel")
         launches.update({k: got[k] for k in kernels})
         print(f"  probe {label}: launches {({k: got[k] for k in kernels})}", flush=True)
     return launches

@@ -56,9 +56,15 @@ default inputs; P1a (``within_roll``, both dtypes) beside its two
 being host-bound), each also as host microseconds to enqueue one call
 (a host clock around 1000 calls with no synchronise), with each host step of
 the ``transpose_full`` body timed alone (``P4 host steps``); each with its
-``torch.profiler`` breakdown.  The JSON line also carries the ``ptxas``
-registers and spill bytes of every Hopper GEMM instantiation and of the
-probes' chunk and stage kernels in the checkout's build (``ptxas``).
+``torch.profiler`` breakdown; P1b (``lane_core``, bfloat16) at its probe's
+default inputs and P4's chunk products (``chunk_gram_apply``) at the
+``head_slice_dot_bf16`` and ``chunked_ref_reads_bf16`` bodies, each with
+its host microseconds to enqueue one call and its ``torch.profiler``
+breakdown (the device time of each launch).  The JSON line also carries
+the ``ptxas`` registers and spill bytes of every Hopper GEMM
+instantiation, of every kernel of ``lane_hopper.cuh`` and
+``flash_hopper.cuh`` and of the probes' chunk, stage, P1b and chunk-Gram
+kernels in the checkout's build (``ptxas``).
 Comparing two versions of the
 kernels takes two processes on one card, one per checkout, in turns:
 
@@ -95,8 +101,10 @@ WARMUP_S = 1.0
 
 def ptxas_registers(log: Path) -> dict:
     """Registers, stack frame and spill bytes (stores, loads) of every
-    kernel of the Hopper GEMM and of the probes' chunk and stage kernels,
-    from the ``-Xptxas -v`` output kept beside the library; keyed by mangled
+    kernel of the Hopper GEMM, of lane_hopper.cuh and flash_hopper.cuh (in
+    every source that builds them) and of the probes' chunk, stage, P1b
+    core and chunk-Gram kernels, from the ``-Xptxas -v`` output kept beside
+    the library; keyed by mangled
     name with each anonymous namespace's per-build hash cut out, so two
     builds' keys match."""
     out, name, spill = {}, None, (0, 0, 0)
@@ -110,7 +118,8 @@ def ptxas_registers(log: Path) -> dict:
         if m:
             spill = tuple(int(v) for v in m.groups())
         m = re.search(r"Used (\d+) registers", line)
-        if m and name and re.search(r"gemm_kernel|chunk_attention|stage_kernel", name):
+        if m and name and re.search(r"gemm_kernel|chunk_attention|stage_kernel|lane_fwd|lane_bwd|"
+                                    r"flash_fwd|flash_bwd|core_kernel|chunk_gram", name):
             out[name] = [int(m.group(1)), *spill]
     return out
 
@@ -503,6 +512,17 @@ def main(argv=None) -> None:
                 handle)
         steps["view_copy wrapper"] = lambda: mosaic.view_copy(v, dst)
         out["P4 host steps"] = {k: round(host_us(f), 3) for k, f in steps.items()}
+        # P1b at its probe's inputs, P4's chunk products at their two bodies.
+        inp_l = {k: v.to(dev) if torch.is_tensor(v) else v
+                 for k, v in lane_axial.make_inputs(lane_axial.parser().parse_args([])).items()}
+        probe_calls["P1b"] = lambda: lane_axial.lane_core(**inp_l)
+        out["P1b bfloat16"] = ms(probe_calls["P1b"], P_ITERS)
+        out["P1b host_us"] = host_us(probe_calls["P1b"], 200)
+        for body in ("head_slice_dot_bf16", "chunked_ref_reads_bf16"):
+            xm = mosaic.body_input(body).to(dev)
+            probe_calls[f"P4 {body}"] = lambda xm=xm, body=body: mosaic.run_body(body, xm)
+            out[f"P4 chunk {body} bfloat16"] = ms(probe_calls[f"P4 {body}"], P_ITERS)
+            out[f"P4 chunk {body} host_us"] = host_us(probe_calls[f"P4 {body}"])
 
     # K1's and K3's kernels, one forward and one backward call each, by
     # device time.

@@ -1550,6 +1550,62 @@ def test_probe_wrappers_raise_on_other_devices():
         mosaic.gram(x.to("meta"))
 
 
+def test_lane_core_operands_name_what_the_kernels_do_not_take():
+    """lane_core's checks run before any launch: on meta tensors each names
+    the tensor or the shape it refuses."""
+    ok = {k: v.to("meta") if torch.is_tensor(v) else v
+          for k, v in _lane_inputs(76, 2, 16, 8, 12, bt=1).items()}
+    assert lane_axial.lane_core_operands(**ok).startswith("lane_core at q (1, 32, 96)")
+    bad = [(dict(kv=ok["kv"][:, :40]), ValueError, "kv has shape"),
+           (dict(bx=ok["bx"][:20]), ValueError, "bx has shape"),
+           (dict(by=ok["by"][:, :50]), ValueError, "by has shape"),
+           (dict(sc=ok["sc"][:, :1]), ValueError, "sc has shape"),
+           (dict(kv=ok["kv"].float()), TypeError, "q and kv"),
+           (dict(q=torch.zeros(1, 31, 96, device="meta", dtype=torch.bfloat16)), ValueError,
+            "C a multiple"),
+           (dict(h=6), ValueError, "N = h"),
+           (dict(q=ok["q"].repeat(1, 2, 1), kv=ok["kv"].repeat(1, 2, 1),
+                 sc=ok["sc"].repeat(2, 1)), ValueError, "head dims")]
+    for change, error, match in bad:
+        with pytest.raises(error, match=match):
+            lane_axial.lane_core_operands(**dict(ok, **change))
+
+
+def test_lane_core_kernels_by_dtype():
+    assert lane_axial.lane_core_kernels(torch.bfloat16) is lane_axial.lane_core_hopper
+    assert lane_axial.lane_core_kernels(torch.float32) is lane_axial.lane_core_line
+    with pytest.raises(TypeError, match="float16"):
+        lane_axial.lane_core_kernels(torch.float16)
+
+
+@pytest.mark.parametrize("change,match", [
+    (dict(axis=3), "chunks dividing"), (dict(chunk=5), "chunks dividing"),
+    (dict(out=torch.empty(1, 32, 32, 6, 32, dtype=torch.bfloat16)), "out is"),
+    (dict(out=torch.empty(1, 32, 32, 6, 64)), "out is"),
+    (dict(x=torch.empty(1, 32, 32, 64, 6, dtype=torch.bfloat16).transpose(3, 4)),
+     "x of strides"),
+    (dict(x=torch.empty(1, 32, 32, 6, 32, dtype=torch.bfloat16),
+          out=torch.empty(1, 32, 32, 6, 32, dtype=torch.bfloat16)), "head dims"),
+    (dict(x=torch.empty(1, 64, 32, 1, 64, dtype=torch.bfloat16),
+          out=torch.empty(1, 64, 32, 1, 64, dtype=torch.bfloat16), chunk=64), "does not fit"),
+], ids=["axis", "chunk", "out_shape", "out_dtype", "strided_x", "d32", "too_long"])
+def test_chunk_gram_operands_name_what_the_kernels_do_not_take(change, match):
+    """chunk_gram_apply's checks run before any launch (CPU tensors)."""
+    x = torch.empty(1, 32, 32, 6, 64, dtype=torch.bfloat16)
+    args = dict(dict(x=x, out=torch.empty_like(x), axis=1, chunk=8), **change)
+    assert mosaic.chunk_gram_operands(x, torch.empty_like(x), 1, 8).startswith(
+        "chunk_gram_apply at (1, 32, 32, 6, 64)")
+    with pytest.raises(ValueError, match=match):
+        mosaic.chunk_gram_operands(**args)
+
+
+def test_chunk_gram_kernels_by_dtype():
+    assert mosaic.chunk_gram_kernels(torch.bfloat16) is mosaic.chunk_gram_hopper
+    assert mosaic.chunk_gram_kernels(torch.float32) is mosaic.chunk_gram_line
+    with pytest.raises(TypeError, match="float16"):
+        mosaic.chunk_gram_kernels(torch.float16)
+
+
 def _card(inputs, dev, dtype=None, slabs=()):
     return {k: (v.to(dev, dtype) if torch.is_tensor(v) and k in slabs else
                 v.to(dev) if torch.is_tensor(v) else v) for k, v in inputs.items()}
@@ -1588,6 +1644,68 @@ def test_p1b_lane_core_matches_plain_on_card(cuda_device, case):
     got = lane_axial.lane_core(**inp)
     assert lane_axial.lane_core.launches == before + 1 and got.dtype == dtype
     _close(got, lane_axial.lane_core_plain(**inp), dtype)
+
+
+def _lane_inputs(seed, heads, d, h, w, bt=2, dtype=torch.bfloat16):
+    """lane_core's inputs for ``heads`` heads of ``d`` on an h x w grid
+    (q, kv in ``dtype``, the tables and scales float32), on the CPU."""
+    rng = np.random.default_rng(seed)
+    c, n = heads * d, h * w
+
+    def r(*s, scale=1.0):
+        return torch.from_numpy((scale * rng.standard_normal(s)).astype(np.float32))
+
+    return dict(q=r(bt, c, n).to(dtype), kv=r(bt, 2 * c, n).to(dtype),
+                bx=r(w * heads, n, scale=0.1), by=r(h * heads, n, scale=0.1),
+                sc=torch.from_numpy(rng.uniform(0.5, 1.5, (c, 2)).astype(np.float32)),
+                heads=heads, h=h, w=w)
+
+
+# (heads, d, h, w): P1b's bf16 kernel at head dims 16 and 64 on ragged lines
+# (not a multiple of 16, W not a multiple of 8: one element a thread), on
+# bands of 8 columns read by 16-byte loads (W a multiple of 8) with a short
+# last row band, and on lines of MAX_LINE = 128 (two lines a block).
+P1B_HOPPER_CASES = {"d16_ragged": (2, 16, 12, 20), "d64_ragged": (1, 64, 20, 12),
+                    "d64_vector": (2, 64, 12, 24), "d16_rows128": (1, 16, 4, 128),
+                    "d64_cols128": (1, 64, 128, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(P1B_HOPPER_CASES))
+def test_p1b_hopper_kernel_matches_plain_on_card(cuda_device, case):
+    heads, d, h, w = P1B_HOPPER_CASES[case]
+    inp = _card(_lane_inputs(70, heads, d, h, w), cuda_device)
+    counts = [f.launches for f in (lane_axial.lane_core, lane_axial.lane_core_hopper,
+                                   lane_axial.lane_core_line)]
+    got = lane_axial.lane_core(**inp)
+    assert [f.launches for f in (lane_axial.lane_core, lane_axial.lane_core_hopper,
+                                 lane_axial.lane_core_line)] == [counts[0] + 1, counts[1] + 1,
+                                                                 counts[2]]
+    assert got.dtype == torch.bfloat16 and got.shape == inp["q"].shape
+    _close(got, lane_axial.lane_core_plain(**inp), torch.bfloat16)
+    assert torch.equal(got, lane_axial.lane_core(**inp))
+
+
+@pytest.mark.cuda
+def test_p1b_float32_stays_on_the_line_kernel_on_card(cuda_device):
+    inp = _card(_lane_inputs(71, 2, 16, 8, 12, dtype=torch.float32), cuda_device)
+    before = (lane_axial.lane_core_hopper.launches, lane_axial.lane_core_line.launches)
+    _close(lane_axial.lane_core(**inp), lane_axial.lane_core_plain(**inp), torch.float32)
+    assert (lane_axial.lane_core_hopper.launches,
+            lane_axial.lane_core_line.launches) == (before[0], before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,d,h,w,match", [(1, 32, 8, 8, "head dims"),
+                                               (2, 16, 4, 130, "lines of at most")],
+                         ids=["d32", "line130"])
+def test_p1b_hopper_kernel_raises_outside_its_shapes_on_card(cuda_device, heads, d, h, w,
+                                                             match):
+    inp = _card(_lane_inputs(72, heads, d, h, w, bt=1), cuda_device)
+    before = lane_axial.lane_core_hopper.launches
+    with pytest.raises(ValueError, match=match):
+        lane_axial.lane_core(**inp)
+    assert lane_axial.lane_core_hopper.launches == before
 
 
 @pytest.mark.cuda
@@ -1861,6 +1979,40 @@ def test_p4_kernels_take_strided_ragged_views_on_card(cuda_device, dtype):
         got = mosaic.chunk_gram_apply(x, torch.ones_like(x), axis, chunk, accumulate=True)
         want = mosaic.chunk_gram_apply_plain(x, torch.ones_like(x), axis, chunk, accumulate=True)
         _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accumulate", [False, True], ids=["write", "add"])
+@pytest.mark.parametrize("axis", [1, 2], ids=["rows", "cols"])
+@pytest.mark.parametrize("shape,chunk", [((1, 32, 32, 6, 64), 8), ((2, 8, 12, 3, 16), 4)],
+                         ids=["probe", "d16"])
+def test_p4_chunk_gram_hopper_repeats_bit_for_bit_on_card(cuda_device, shape, chunk, axis,
+                                                         accumulate):
+    """The bf16 chunk kernel over row and column chunks, writing and adding:
+    within 2e-2 of the plain version, the same bits in two runs, one launch
+    of the Hopper kernel a call."""
+    g = torch.Generator().manual_seed(74)
+    x = torch.randn(*shape, generator=g).to(cuda_device, torch.bfloat16)
+    base = torch.randn(*shape, generator=g).to(cuda_device, torch.bfloat16)
+    counts = (mosaic.chunk_gram_apply.launches, mosaic.chunk_gram_hopper.launches,
+              mosaic.chunk_gram_line.launches)
+    runs = [mosaic.chunk_gram_apply(x, base.clone(), axis, chunk, accumulate) for _ in range(2)]
+    assert (mosaic.chunk_gram_apply.launches, mosaic.chunk_gram_hopper.launches,
+            mosaic.chunk_gram_line.launches) == (counts[0] + 2, counts[1] + 2, counts[2])
+    want = mosaic.chunk_gram_apply_plain(x, base.clone(), axis, chunk, accumulate)
+    _close(runs[0], want, torch.bfloat16)
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.cuda
+def test_p4_chunk_gram_float32_stays_on_the_line_kernel_on_card(cuda_device):
+    g = torch.Generator().manual_seed(75)
+    x = torch.randn(2, 8, 12, 3, 16, generator=g).to(cuda_device)
+    before = (mosaic.chunk_gram_hopper.launches, mosaic.chunk_gram_line.launches)
+    got = mosaic.chunk_gram_apply(x, torch.empty_like(x), 2, 6)
+    _close(got, mosaic.chunk_gram_apply_plain(x, torch.empty_like(x), 2, 6), torch.float32)
+    assert (mosaic.chunk_gram_hopper.launches,
+            mosaic.chunk_gram_line.launches) == (before[0], before[1] + 1)
 
 
 @pytest.mark.cuda

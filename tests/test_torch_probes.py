@@ -192,6 +192,98 @@ def test_lane_make_inputs_are_the_jax_probes_draws(lane, monkeypatch):
         np.testing.assert_array_equal(ours[k].float().numpy(), _np(loc[k]), err_msg=k)
 
 
+# P1b's bf16 kernel (core_kernel) at its shape families: head dims 16 and
+# 64, H != W, lines that are not a multiple of 16 (12 and 20 tokens) and a
+# grid whose width is a multiple of 8 (its 16-byte loads): (heads, d, h, w).
+HOPPER_SHAPES = {"d16_ragged": (2, 16, 12, 20), "d64_ragged": (1, 64, 20, 12),
+                 "d64_vector": (1, 64, 12, 24)}
+
+
+def _lane_arrays(seed, heads, d, h, w, bt=2):
+    c, n = heads * d, h * w
+    rng = np.random.default_rng(seed)
+    arrs = dict(q=rng.standard_normal((bt, c, n)), kv=rng.standard_normal((bt, 2 * c, n)),
+                bx=0.1 * rng.standard_normal((w * heads, n)),
+                by=0.1 * rng.standard_normal((h * heads, n)),
+                sc=rng.uniform(0.5, 1.5, (c, 2)))
+    return {k: v.astype(np.float32) for k, v in arrs.items()}
+
+
+def _lane_core_by_lines(q, kv, bx, by, sc, heads, h, w):
+    """``bench_core`` as the bf16 kernel computes it: per line, dense
+    attention with the line's (query, key) table from ``line_table``, o =
+    s_c P v + (1 - s_c) mean(v), the directions averaged (float32)."""
+    bt, c, n = q.shape
+    d = c // heads
+    k, v = kv[:, :c].float(), kv[:, c:].float()
+    out = torch.zeros(bt, c, n)
+    for axis, length, lines, table in ((0, w, h, bx), (1, h, w, by)):
+        for line in range(lines):
+            i = torch.arange(length)
+            pos = line * w + i if axis == 0 else i * w + line
+            for hd in range(heads):
+                ch = slice(hd * d, (hd + 1) * d)
+                ql, kl, vl = (t[:, ch][:, :, pos].transpose(1, 2) for t in (q.float(), k, v))
+                logits = ql @ kl.transpose(1, 2) * d**-0.5 + lane_axial.line_table(
+                    table, heads, hd, h, w, axis, line)
+                o = torch.softmax(logits, -1) @ vl
+                s_c = sc[ch, axis]
+                o = s_c * o + (1 - s_c) * vl.mean(1, keepdim=True)
+                out[:, ch, pos] += 0.5 * o.transpose(1, 2)
+    return out
+
+
+@pytest.mark.parametrize("case", list(HOPPER_SHAPES))
+def test_lane_core_matches_the_jax_kernel_at_the_hopper_shapes(lane, case):
+    """``_core_kernel`` in interpret mode, bf16, against ``lane_core_plain``
+    (what the wrapper runs on the CPU) within 2e-2, and against the bf16
+    kernel's own formulation, line by line through ``line_table``, before
+    rounding (float32 sums reordered: 1e-5)."""
+    heads, d, h, w = HOPPER_SHAPES[case]
+    arrs = _lane_arrays(4, heads, d, h, w)
+    jx = {k: jnp.asarray(v, jnp.bfloat16 if k in ("q", "kv") else jnp.float32)
+          for k, v in arrs.items()}
+    want = _lane_core_jax(lane, **jx, heads=heads, h=h, w=w)
+    tx = {k: _t(v, torch.bfloat16 if k in ("q", "kv") else torch.float32) for k, v in jx.items()}
+    got = lane_axial.lane_core(**tx, heads=heads, h=h, w=w)
+    assert got.dtype == torch.bfloat16
+    _close(got, _np(want), TOL["bfloat16"])
+    jf = {k: jnp.asarray(_np(v)) for k, v in jx.items()}
+    want32 = _lane_core_jax(lane, **jf, heads=heads, h=h, w=w)
+    by_lines = _lane_core_by_lines(**{k: v.float() for k, v in tx.items()}, heads=heads, h=h,
+                                   w=w)
+    _close(by_lines, _np(want32), TOL["float32"])
+
+
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "cols"])
+@pytest.mark.parametrize("heads,h,w", [(2, 12, 20), (3, 8, 8), (1, 6, 40)],
+                         ids=["12x20", "8x8", "6x40"])
+def test_line_table_is_the_jax_kernels_offset_map(lane, axis, heads, h, w):
+    """The TPU kernel adds ``table[r * heads + head, p]`` to the logit of the
+    query at p and the key ``_within_roll`` brings to p at offset r (rows:
+    stride 1 in blocks of w; columns: stride w over the frame): ``line_table``
+    puts that entry at (query, key) of the query's line, for every line,
+    head and offset."""
+    n = h * w
+    length, lines = (w, h) if axis == 0 else (h, w)
+    table = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (length * heads, n)).astype(np.float32))
+    idx = jnp.arange(n, dtype=jnp.float32)[None]
+    p = np.arange(n)
+    line, i = (p // w, p % w) if axis == 0 else (p % w, p // w)
+    want = np.full((heads, lines, length, length), np.nan, np.float32)
+    for r in range(length):
+        keys = np.asarray(lane._within_roll(idx, r * (1 if axis == 0 else w),
+                                            w if axis == 0 else n, n))[0].astype(int)
+        j = keys % w if axis == 0 else keys // w
+        for head in range(heads):
+            want[head, line, i, j] = table[r * heads + head].numpy()
+    for head in range(heads):
+        for ln in range(lines):
+            got = lane_axial.line_table(table, heads, head, h, w, axis, ln)
+            np.testing.assert_array_equal(got.numpy(), want[head, ln])
+
+
 # ----------------------------------------------------------------- P2
 
 
