@@ -159,8 +159,8 @@ _SIGNATURES = {
     "bf_lane_px_hopper_bwd": [_I] + [_P] * 13 + [_IP, _I, _P] + [_I] * 4 + [_P] * 7 + [_I] * 5
     + [_P],
     # The probes' kernels (probes/, csrc/probe_*.cu).
-    # dtype, x, o1, o2, rows, total, r1, b1, r2, b2, stream
-    "bf_probe_within_roll": [_I] + [_P] * 3 + [_I] * 6 + [_P],
+    # desc (a packed RollDesc), x, out, stream
+    "bf_probe_within_roll": [_P] * 4,
     # q, kv, bx, by, sc, row_out, out, BT, H, W, C, heads, scaling, stream
     # (float32)
     "bf_probe_lane_core": [_P] * 7 + [_I] * 5 + [_F, _P],
@@ -179,8 +179,10 @@ _SIGNATURES = {
     "bf_probe_stage": [_P] * 8 + [_I] * 7 + [_P],
     # desc (a packed CopyDesc), src, dst, stream
     "bf_probe_view_copy": [_P] * 4,
-    # dtype, a, stride, shape, ndim, out, stream
-    "bf_probe_gram": [_I, _P, _LP, _LP, _I, _P, _P],
+    # dtype, a, rows, cols, row_stride, col_stride, vec, out, stream
+    "bf_probe_gram": [_I, _P, _I, _I, _L, _L, _I, _P, _P],
+    # dtype, a, shape, stride, ndim, out, stream
+    "bf_probe_gram_view": [_I, _P, _LP, _LP, _I, _P, _P],
     # x, out, shape, stride, axis, chunk, accumulate, stream (float32)
     "bf_probe_chunk_gram": [_P, _P, _LP, _LP] + [_I] * 3 + [_P],
     # head_dim, x, out, shape, stride, axis, chunk, accumulate, stream (bf16)

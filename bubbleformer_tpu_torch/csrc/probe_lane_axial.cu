@@ -4,10 +4,20 @@
 //   (a) probe_within_roll's kernel (pallas_call :86, helper _within_roll :62):
 //       a circular roll by r within each block of lanes of a (rows, total)
 //       slab, rows (block W, r = 5) and columns (block H*W, r = 3W) into two
-//       outputs.  Here one gather launch writes both:
-//         o[.., g*block + w] = x[.., g*block + (w + r) % block].
-//       Bound by its bytes (one read, two writes); at the probe's (16, 512)
-//       slab the launch itself is the cost.
+//       outputs, o[.., g*block + w] = x[.., g*block + (w + r) % block].
+//       Bound by its bytes (one read, two writes; 48 KB at the probe's (16,
+//       512) float32 slab, 0.0000147 ms in bf16): the launch and one load's
+//       latency are the cost.  One launch writes both rolls, into one (2,
+//       rows, total) buffer.  within_roll_vec_kernel: a block takes a run of
+//       rows, stages each once into shared memory by 16-byte cp.async copies,
+//       then writes both rolls from there, 16 bytes a thread and output; a
+//       vector's source lanes come from one % (its first lane's place in its
+//       block, or a mask where the block is a power of two), the next lanes
+//       by a wrap test, so any block size b dividing total and any 0 <= r <
+//       b.  Rows that are not a multiple of 16 bytes, misaligned bases and
+//       rows past 48 KB (probes/lane_axial.py:within_roll_operands) take
+//       within_roll_kernel: one element a thread of both outputs, read from
+//       device memory.
 //   (b) bench_core's kernel (pallas_call :193, body _core_kernel :104): per
 //       frame of channel-major q (BT, C, N) and kv (BT, 2C, N), N = H*W, the
 //       row and the column attention over all W (H) circular offsets of a
@@ -62,17 +72,99 @@ namespace {
 
 constexpr int kLaneThreads = 256;
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(lane::smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Both rolls of a P1a call, as probes/lane_axial.py:within_roll_plan packs
+// them: x (rows, total) of dtype; roll i by r_i in blocks of b_i lanes; vec
+// 1 for within_roll_vec_kernel, 0 for within_roll_kernel.
+struct RollDesc {
+  int dtype, rows, total, r1, b1, r2, b2, vec;
+};
+
+// Bytes of x a block of within_roll_vec_kernel stages at most.
+constexpr int kRollSmem = 48 * 1024;
+constexpr int kRollThreads = 256;
+
 template <typename T>
-__global__ void within_roll_kernel(const T* __restrict__ x, T* __restrict__ o1,
-                                   T* __restrict__ o2, long long n, int total, int r1, int b1,
-                                   int r2, int b2) {
+struct alignas(16) Vec16 {
+  T v[16 / sizeof(T)];
+};
+
+// Lane l's place in its block of b lanes.
+__device__ __forceinline__ int roll_place(int l, int b) {
+  return (b & (b - 1)) == 0 ? l & (b - 1) : l % b;
+}
+
+// One element a thread: o1 = out[0], o2 = out[1] (rows * total apart).
+template <typename T>
+__global__ void within_roll_kernel(const T* __restrict__ x, T* __restrict__ out, long long n,
+                                   int total, int r1, int b1, int r2, int b2) {
   for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < n;
        e += (long long)gridDim.x * blockDim.x) {
-    const int lane = static_cast<int>(e % total);
-    const long long row = e - lane;
-    const int w1 = lane % b1, w2 = lane % b2;
-    o1[e] = x[row + lane - w1 + (w1 + r1) % b1];
-    o2[e] = x[row + lane - w2 + (w2 + r2) % b2];
+    const int l = static_cast<int>(e % total);
+    const long long row = e - l;
+    int w = roll_place(l, b1), s = w + r1;
+    out[e] = x[row + l - w + (s >= b1 ? s - b1 : s)];
+    w = roll_place(l, b2);
+    s = w + r2;
+    out[n + e] = x[row + l - w + (s >= b2 ? s - b2 : s)];
+  }
+}
+
+// The 16 bytes of lanes l, l + 1, .. of one roll of a staged row xr.
+template <typename T>
+__device__ __forceinline__ Vec16<T> roll_vector(const T* xr, int l, int r, int b) {
+  int w = roll_place(l, b), g = l - w, s = w + r;
+  if (s >= b) s -= b;
+  Vec16<T> p;
+#pragma unroll
+  for (int i = 0; i < 16 / static_cast<int>(sizeof(T)); ++i) {
+    p.v[i] = xr[g + s];
+    if (++w == b) {  // the next lane starts the next block
+      w = 0;
+      g += b;
+      s = r;
+    } else if (++s == b) {
+      s = 0;
+    }
+  }
+  return p;
+}
+
+// Grid (ceil(rows / rpb)), kRollThreads threads, rpb * total * sizeof(T)
+// bytes of shared memory: rows rpb b .. of x, each staged once, then both
+// rolls written from shared memory, a 16-byte vector a thread and output.
+// total a multiple of 16 bytes, x and out 16-byte aligned.
+template <typename T>
+__global__ void __launch_bounds__(kRollThreads) within_roll_vec_kernel(
+    const T* __restrict__ x, T* __restrict__ out, int rows, int total, int rpb, int r1, int b1,
+    int r2, int b2) {
+  constexpr int kV = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char roll_smem[];
+  T* xs = reinterpret_cast<T*>(roll_smem);
+  const int row0 = blockIdx.x * rpb, nv = total / kV;
+  const int n = min(rpb, rows - row0) * nv;  // vectors of the block's rows
+  const size_t base = (size_t)row0 * total;
+  for (int e = threadIdx.x; e < n; e += kRollThreads)
+    cp_async16(xs + e * kV, x + base + (size_t)e * kV);
+  cp_async_wait_all();
+  __syncthreads();
+  Vec16<T>* o1 = reinterpret_cast<Vec16<T>*>(out + base);
+  Vec16<T>* o2 = reinterpret_cast<Vec16<T>*>(out + (size_t)rows * total + base);
+  for (int e = threadIdx.x; e < n; e += kRollThreads) {
+    const int row = e / nv, l = (e - row * nv) * kV;
+    const T* xr = xs + row * total;
+    o1[e] = roll_vector(xr, l, r1, b1);
+    o2[e] = roll_vector(xr, l, r2, b2);
   }
 }
 
@@ -148,12 +240,25 @@ __global__ void __launch_bounds__(kLaneThreads) lane_core_kernel(
 size_t lane_core_smem(int d, int L) { return sizeof(float) * (3 * (size_t)d * L + (size_t)L * (L + 1)); }
 
 template <typename T>
-int run_within_roll(const void* x, void* o1, void* o2, int rows, int total, int r1, int b1,
-                    int r2, int b2, cudaStream_t stream) {
-  const long long n = (long long)rows * total;
-  const int blocks = static_cast<int>(std::min<long long>((n + 255) / 256, 65535));
-  within_roll_kernel<T><<<blocks, 256, 0, stream>>>(static_cast<const T*>(x), static_cast<T*>(o1),
-                                                    static_cast<T*>(o2), n, total, r1, b1, r2, b2);
+int run_within_roll(const RollDesc& d, const void* x, void* out, cudaStream_t stream) {
+  const T* xp = static_cast<const T*>(x);
+  T* op = static_cast<T*>(out);
+  if (d.vec) {
+    constexpr int kV = 16 / sizeof(T);
+    if (d.total % kV || (long long)d.total * sizeof(T) > kRollSmem ||
+        (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) % 16)
+      return cudaErrorInvalidValue;
+    const int row_bytes = d.total * static_cast<int>(sizeof(T));
+    const int rpb =
+        std::max(1, std::min({d.rows, kRollThreads / (d.total / kV), kRollSmem / row_bytes}));
+    within_roll_vec_kernel<T><<<(d.rows + rpb - 1) / rpb, kRollThreads, (size_t)rpb * row_bytes,
+                                stream>>>(xp, op, d.rows, d.total, rpb, d.r1, d.b1, d.r2, d.b2);
+  } else {
+    const long long n = (long long)d.rows * d.total;
+    const int blocks = static_cast<int>(std::min<long long>((n + 255) / 256, 65535));
+    within_roll_kernel<T><<<blocks, 256, 0, stream>>>(xp, op, n, d.total, d.r1, d.b1, d.r2,
+                                                       d.b2);
+  }
   return cudaGetLastError();
 }
 
@@ -292,17 +397,6 @@ __device__ __forceinline__ void core_pv(float (&o)[D / 8][4], const float (&p)[4
       lane::mma(o[2 * np + 1], al, b[2], b[3]);
     }
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(lane::smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Grid (bands, heads, G), band * ceil(L / 16) warps: the lines l0 .. l0 +
@@ -594,18 +688,20 @@ int run_core(CoreArgs a, const float* bx, const float* by, cudaStream_t stream) 
 }  // namespace core
 }  // namespace bft
 
-// x (rows, total) in dtype, contiguous; o1, o2 alike: o_i = within-block roll
-// of x by r_i in blocks of b_i lanes (total % b_i == 0, 0 <= r_i < b_i).
-// Returns a cudaError_t.
-extern "C" int bf_probe_within_roll(int dtype, const void* x, void* o1, void* o2, int rows,
-                                    int total, int r1, int b1, int r2, int b2, void* stream) {
-  if (rows < 1 || total < 1 || b1 < 1 || b2 < 1 || total % b1 || total % b2 || r1 < 0 ||
-      r1 >= b1 || r2 < 0 || r2 >= b2)
+// Both rolls of x (rows, total) in dtype, contiguous, into out (2, rows,
+// total) alike: out[i] = within-block roll of x by r_i in blocks of b_i
+// lanes (total % b_i == 0, 0 <= r_i < b_i), as desc (a host RollDesc,
+// probes/lane_axial.py:within_roll_plan) describes them.  vec: the staged
+// 16-byte path, refused unless total is a multiple of 16 bytes of at most
+// 48 KB and x and out are 16-byte aligned.  Returns a cudaError_t.
+extern "C" int bf_probe_within_roll(const void* desc, const void* x, void* out, void* stream) {
+  const bft::RollDesc& d = *static_cast<const bft::RollDesc*>(desc);
+  if (d.rows < 1 || d.total < 1 || d.b1 < 1 || d.b2 < 1 || d.total % d.b1 || d.total % d.b2 ||
+      d.r1 < 0 || d.r1 >= d.b1 || d.r2 < 0 || d.r2 >= d.b2)
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == bft::kF32) return bft::run_within_roll<float>(x, o1, o2, rows, total, r1, b1, r2, b2, s);
-  if (dtype == bft::kBF16)
-    return bft::run_within_roll<__nv_bfloat16>(x, o1, o2, rows, total, r1, b1, r2, b2, s);
+  if (d.dtype == bft::kF32) return bft::run_within_roll<float>(d, x, out, s);
+  if (d.dtype == bft::kBF16) return bft::run_within_roll<__nv_bfloat16>(d, x, out, s);
   return cudaErrorInvalidValue;
 }
 

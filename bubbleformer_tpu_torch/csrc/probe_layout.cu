@@ -5,10 +5,38 @@
 // reshapes, slices, transposes and per-head views.  On Hopper a view is a
 // shape and strides, so the bodies reduce to three kernels that take any
 // strided view of up to 5 dimensions:
-//   gram_kernel       out = a . a^T in float32 for a (rows, cols) view of
+//   gram_tc_kernel    out = a . a^T in float32 for a (rows, cols) view of
 //                     float32 or bf16 (the rows are the view's leading
 //                     dimensions): reshape_col, reshape_row,
-//                     sliced_block_dot, bf16_dot;
+//                     sliced_block_dot, bf16_dot.  out is symmetric, so a
+//                     block computes one 32 x 32 tile (i, j) with i <= j
+//                     and writes it to out[i, j] and, transposed, to
+//                     out[j, i] from the same sums (a diagonal tile writes
+//                     each pair from the one at or above its diagonal):
+//                     out equals out^T bit for bit, and at 256 rows 36
+//                     blocks run where 64 tiles exist.  32-row tiles, not
+//                     64: at the probes' (256, 64) the call is its launch
+//                     and its loads' latency, and 36 blocks of a quarter
+//                     of the work each finish sooner than 10 big ones.
+//                     The products run on the tensor cores (mma.sync),
+//                     four warps a block, each a 16 x 16 quarter of the
+//                     tile, in a fixed order (repeated calls agree bit for
+//                     bit):
+//                     - bf16: m16n8k16 with float32 sums, the exact
+//                       products of the JAX body's
+//                       preferred_element_type=f32, on lane_hopper.cuh's
+//                       swizzled tiles and ldmatrix fragments;
+//                     - float32: 3xTF32, a = hi + lo with hi = tf32(a) and
+//                       lo = tf32(a - hi) (round to nearest, ties away:
+//                       probes/mosaic.py:tf32_round), and a . a^T as
+//                       lo . hi^T + hi . lo^T + hi . hi^T on m16n8k8 .tf32,
+//                       within ~2^-21 of float32 where one TF32 pass
+//                       (~2^-11) misses the JAX probe's 1e-3 at D = 64.
+//                     A view whose rows fold to one stride with a
+//                     contiguous contraction (probes/mosaic.py:
+//                     gram_operands; all four bodies: (256, 64), stride 64)
+//                     is staged by 16-byte cp.async copies, 64 columns at a
+//                     time; any other view one element a thread;
 //   view_copy_kernel  dst = dtype(scale * src), or dtype(dst + scale * src)
 //                     with accumulate, between two views of one shape:
 //                     transpose, split, concat0, concat1,
@@ -44,20 +72,13 @@ namespace {
 
 constexpr int kMaxDims = 5;
 
-struct View {
-  long long shape[kMaxDims];
-  long long stride[kMaxDims];
-  int ndim;
-};
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(lane::smem_u32(dst)),
+               "l"(src));
+}
 
-// Offset of the e-th element (row-major over the shape) of a view.
-__device__ __forceinline__ long long view_offset(const View& v, long long e) {
-  long long off = 0;
-  for (int i = v.ndim - 1; i >= 0; --i) {
-    off += (e % v.shape[i]) * v.stride[i];
-    e /= v.shape[i];
-  }
-  return off;
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // A copy between two folded views of one shape, as probes/mosaic.py packs
@@ -116,35 +137,207 @@ __global__ void __launch_bounds__(256) view_copy_kernel(const S* __restrict__ sr
   }
 }
 
-// Grid (ceil(rows / 32), ceil(rows / 32)), 256 threads: a 32 x 32 tile of
-// out[i, j] = sum_k a(i, k) a(j, k), a(r, k) the view's element r * cols + k.
-template <typename T>
-__global__ void __launch_bounds__(256) gram_kernel(const T* __restrict__ a, View v, int rows,
-                                                   int cols, float* __restrict__ out) {
-  __shared__ float As[32][33];
-  __shared__ float Bs[32][33];
-  const int i0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k0 = 0; k0 < cols; k0 += 32) {
-    for (int e = threadIdx.x; e < 32 * 32; e += 256) {
-      const int r = e / 32, kk = e % 32, k = k0 + kk;
-      As[r][kk] = i0 + r < rows && k < cols ? to_f32(a[view_offset(v, (long long)(i0 + r) * cols + k)]) : 0.f;
-      Bs[r][kk] = j0 + r < rows && k < cols ? to_f32(a[view_offset(v, (long long)(j0 + r) * cols + k)]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < 32; ++kk) {
-      const float b = Bs[tx][kk];
+// ------------------------------------------------------------------ gram
+
+constexpr int kGramTile = 32;     // rows (and columns) of an output tile
+constexpr int kGramCols = 64;     // columns of a staged chunk of the operands
+constexpr int kGramThreads = 128;  // 4 warps: a 16 x 16 quarter of the tile each
+constexpr int kGramRowDims = kMaxDims - 1;
+// The most rows a launch takes (as the first kernel's grid allowed).
+constexpr int kMaxGramRows = 65535 * 32;
+
+// A Gram operand: element (r, k) at row_offset(r) + k * col_stride, the row
+// index r split over row_dims dimensions (row-major; one for a view whose
+// rows fold to one stride).
+struct GramView {
+  int rows, cols, row_dims;
+  int row_shape[kGramRowDims];
+  long long row_stride[kGramRowDims];
+  long long col_stride;
+};
+
+__device__ __forceinline__ long long gram_row_offset(const GramView& v, int r) {
+  if (v.row_dims == 1) return r * v.row_stride[0];
+  long long off = 0;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) acc[u] += As[ty + 8 * u][kk] * b;
+  for (int i = kGramRowDims - 1; i >= 0; --i) {  // unrolled: v stays in parameter space
+    if (i < v.row_dims) {
+      const int q = r / v.row_shape[i];
+      off += (r - q * v.row_shape[i]) * v.row_stride[i];
+      r = q;
     }
-    __syncthreads();
   }
+  return off;
+}
+
+// A staged operand tile: kGramTile rows of kGramCols columns.  float32 rows
+// are padded to 68 values, so the 8 rows x 4 columns of a TF32 fragment hit
+// 32 different banks; bf16 rows are lane_hopper.cuh's swizzled 64-wide rows
+// (ldmatrix conflict-free).
+template <typename T>
+struct GramTile;
+template <>
+struct GramTile<float> {
+  static constexpr int kStride = kGramCols + 4;
+  static constexpr int kElems = kGramTile * kStride;
+  __device__ static int at(int r, int c) { return r * kStride + c; }
+};
+template <>
+struct GramTile<__nv_bfloat16> {
+  static constexpr int kElems = kGramTile * kGramCols;
+  __device__ static int at(int r, int c) { return lane::sw<kGramCols>(r, c); }
+};
+
+// Rows r0 .. r0 + 31 and columns k0 .. k0 + 63 of the operand into a tile,
+// zero past its rows and columns: 16-byte cp.async copies with kVec (a row
+// stride and cols multiples of 16 bytes, col_stride 1, a aligned), else one
+// element a thread.  The caller waits for the copies.
+template <typename T, bool kVec>
+__device__ __forceinline__ void gram_stage(T* tile, const T* __restrict__ a, const GramView& v,
+                                           int r0, int k0) {
+  if constexpr (kVec) {
+    constexpr int kV = 16 / sizeof(T), kChunks = kGramCols / kV;
+    for (int e = threadIdx.x; e < kGramTile * kChunks; e += kGramThreads) {
+      const int r = e / kChunks, c = (e % kChunks) * kV;
+      T* dst = tile + GramTile<T>::at(r, c);
+      if (r0 + r < v.rows && k0 + c < v.cols)
+        cp_async16(dst, a + (long long)(r0 + r) * v.row_stride[0] + k0 + c);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kGramTile * kGramCols; e += kGramThreads) {
+      const int r = e / kGramCols, c = e % kGramCols;
+      const bool in = r0 + r < v.rows && k0 + c < v.cols;
+      tile[GramTile<T>::at(r, c)] =
+          in ? a[gram_row_offset(v, r0 + r) + (k0 + c) * v.col_stride] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// x rounded to TF32 (10 mantissa bits) to nearest, ties away from zero
+// (cvt.rna's rounding; probes/mosaic.py:tf32_round), as a float32 bit
+// pattern whose 13 low bits are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo + O(2^-22 |x|), hi and lo TF32.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a b on the tensor cores: a 16x8 TF32 (row), b 8x8 TF32 (col), c f32.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[nt] (rows r0 .. r0 + 15 of tile A, columns n0 + 8 nt .. + 7: rows of
+// tile B) += over the chunk's 64 columns.  float32: per 8-deep step the
+// small products first, lo . hi^T, hi . lo^T, then hi . hi^T.
+__device__ __forceinline__ void gram_products(float (&acc)[2][4], const float* As,
+                                              const float* Bs, int r0, int n0, int lane_id) {
+  constexpr int S = GramTile<float>::kStride;
+  const int g = lane_id >> 2, t = lane_id & 3;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int i = i0 + ty + 8 * u, j = j0 + tx;
-    if (i < rows && j < rows) out[(size_t)i * rows + j] = acc[u];
+  for (int k = 0; k < kGramCols; k += 8) {
+    uint32_t ah[4], al[4];
+    const float* ar = As + (r0 + g) * S + k + t;
+    tf32_split(ar[0], ah[0], al[0]);
+    tf32_split(ar[8 * S], ah[1], al[1]);
+    tf32_split(ar[4], ah[2], al[2]);
+    tf32_split(ar[8 * S + 4], ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float* br = Bs + (n0 + 8 * nt + g) * S + k + t;
+      uint32_t bh0, bl0, bh1, bl1;
+      tf32_split(br[0], bh0, bl0);
+      tf32_split(br[4], bh1, bl1);
+      mma_tf32(acc[nt], al, bh0, bh1);
+      mma_tf32(acc[nt], ah, bl0, bl1);
+      mma_tf32(acc[nt], ah, bh0, bh1);
+    }
+  }
+}
+
+__device__ __forceinline__ void gram_products(float (&acc)[2][4], const __nv_bfloat16* As,
+                                              const __nv_bfloat16* Bs, int r0, int n0,
+                                              int lane_id) {
+  uint32_t a[kGramCols / 16][4];
+  lane::load_a_rows<kGramCols>(a, As, r0, lane_id);
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    uint32_t b[kGramCols / 16][2];
+    lane::load_b_rows<kGramCols>(b, Bs, n0 + 8 * nt, lane_id);
+#pragma unroll
+    for (int k = 0; k < kGramCols / 16; ++k) lane::mma(acc[nt], a[k], b[k][0], b[k][1]);
+  }
+}
+
+// Grid (T (T + 1) / 2), T = ceil(rows / 32), kGramThreads threads: block p
+// the tile (ti, tj), ti <= tj, p = tj (tj + 1) / 2 + ti, of out[i, j] =
+// sum_k a(i, k) a(j, k).  The operands' 32-row tiles are staged 64 columns
+// at a time (a diagonal tile stages one); warp w sums rows 16 (w / 2) and
+// columns 16 (w % 2) of the tile (on a diagonal tile the warp below the
+// diagonal idles); the sums go through shared memory to coalesced stores of
+// out[i, j] and out[j, i].
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kGramThreads) gram_tc_kernel(const T* __restrict__ a,
+                                                               const GramView v,
+                                                               float* __restrict__ out) {
+  constexpr int kOut = kGramTile + 1;  // floats a row of the staged sums
+  constexpr size_t kBytes = 2 * GramTile<T>::kElems * sizeof(T) > kGramTile * kOut * 4
+                                ? 2 * GramTile<T>::kElems * sizeof(T)
+                                : kGramTile * kOut * 4;
+  __shared__ __align__(16) unsigned char smem[kBytes];
+  T* As = reinterpret_cast<T*>(smem);
+  T* Bs = As + GramTile<T>::kElems;
+  float* Cs = reinterpret_cast<float*>(smem);
+  const long long p = blockIdx.x;
+  long long tj = static_cast<long long>((sqrtf(8.f * p + 1.f) - 1.f) * 0.5f);
+  while (tj * (tj + 1) / 2 > p) --tj;
+  while ((tj + 1) * (tj + 2) / 2 <= p) ++tj;
+  const int ti = static_cast<int>(p - tj * (tj + 1) / 2);
+  const bool diag = ti == tj;
+  const int i0 = ti * kGramTile, j0 = static_cast<int>(tj) * kGramTile;
+  const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
+  const bool active = !(diag && wm > wn);
+  float acc[2][4] = {};
+  for (int k0 = 0; k0 < v.cols; k0 += kGramCols) {
+    if (k0) __syncthreads();  // the previous chunk's fragments are read
+    gram_stage<T, kVec>(As, a, v, i0, k0);
+    if (!diag) gram_stage<T, kVec>(Bs, a, v, j0, k0);
+    if constexpr (kVec) cp_async_wait_all();
+    __syncthreads();
+    if (active) gram_products(acc, As, diag ? As : Bs, 16 * wm, 16 * wn, lane_id);
+  }
+  __syncthreads();  // Cs reuses the operands' shared memory
+  if (active) {
+    const int g = lane_id >> 2, t = lane_id & 3;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        Cs[(16 * wm + g + 8 * (e >> 1)) * kOut + 16 * wn + 8 * nt + 2 * t + (e & 1)] = acc[nt][e];
+  }
+  __syncthreads();
+  const int rows = v.rows;
+  for (int e = threadIdx.x; e < kGramTile * kGramTile; e += kGramThreads) {
+    const int r = e / kGramTile, c = e % kGramTile;
+    if (diag) {
+      if (i0 + r < rows && i0 + c < rows)
+        out[(size_t)(i0 + r) * rows + i0 + c] = r <= c ? Cs[r * kOut + c] : Cs[c * kOut + r];
+      continue;
+    }
+    if (i0 + r < rows && j0 + c < rows) out[(size_t)(i0 + r) * rows + j0 + c] = Cs[r * kOut + c];
+    if (j0 + r < rows && i0 + c < rows) out[(size_t)(j0 + r) * rows + i0 + c] = Cs[c * kOut + r];
   }
 }
 
@@ -297,14 +490,24 @@ bool make_chunks(const long long* shape, const long long* stride, int axis, int 
   return g->n1 * g->n2 >= 1 && g->D >= 1 && groups >= 1 && groups <= 65535 && nchunks <= 65535;
 }
 
-View make_view(const long long* shape, const long long* stride, int ndim) {
-  View v{};
-  v.ndim = ndim;
-  for (int i = 0; i < ndim; ++i) {
-    v.shape[i] = shape[i];
-    v.stride[i] = stride[i];
-  }
-  return v;
+template <typename T>
+int run_gram(const void* a, const GramView& v, bool vec, float* out, cudaStream_t stream) {
+  const long long tiles = (v.rows + kGramTile - 1) / kGramTile;
+  const unsigned blocks = static_cast<unsigned>(tiles * (tiles + 1) / 2);
+  const T* x = static_cast<const T*>(a);
+  if (vec)
+    gram_tc_kernel<T, true><<<blocks, kGramThreads, 0, stream>>>(x, v, out);
+  else
+    gram_tc_kernel<T, false><<<blocks, kGramThreads, 0, stream>>>(x, v, out);
+  return cudaGetLastError();
+}
+
+int launch_gram(int dtype, const void* a, const GramView& v, bool vec, float* out, void* stream) {
+  if (v.rows < 1 || v.cols < 1 || v.rows > kMaxGramRows) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) return run_gram<float>(a, v, vec, out, s);
+  if (dtype == kBF16) return run_gram<__nv_bfloat16>(a, v, vec, out, s);
+  return cudaErrorInvalidValue;
 }
 
 int grid_for(long long n) {
@@ -354,30 +557,49 @@ extern "C" int bf_probe_view_copy(const void* desc, const void* src, void* dst, 
   return cudaErrorInvalidValue;
 }
 
-// out (rows, rows) float32 = a . a^T for the view a (shape and strides as for
-// bf_probe_view_copy; its last dimension is the contraction, the others are
-// the rows).  Returns a cudaError_t.
-extern "C" int bf_probe_gram(int dtype, const void* a, const long long* stride,
-                             const long long* shape, int ndim, float* out, void* stream) {
+// out (rows, rows) float32 = a . a^T for the 2-D view a whose element (r,
+// k) lies at a + r * row_stride + k * col_stride (elements).  vec: 16-byte
+// copies (probes/mosaic.py:gram_operands), refused unless col_stride is 1,
+// cols and row_stride are multiples of 16 bytes and a is 16-byte aligned.
+// Returns a cudaError_t.
+extern "C" int bf_probe_gram(int dtype, const void* a, int rows, int cols, long long row_stride,
+                             long long col_stride, int vec, float* out, void* stream) {
+  using namespace bft;
+  GramView v{};
+  v.rows = rows;
+  v.cols = cols;
+  v.row_dims = 1;
+  v.row_shape[0] = rows;
+  v.row_stride[0] = row_stride;
+  v.col_stride = col_stride;
+  if (vec) {
+    const int kv = 16 / (dtype == kF32 ? 4 : 2);
+    if (col_stride != 1 || cols % kv || row_stride % kv || reinterpret_cast<uintptr_t>(a) % 16)
+      return cudaErrorInvalidValue;
+  }
+  return launch_gram(dtype, a, v, vec != 0, out, stream);
+}
+
+// As bf_probe_gram for any view of 2 to 5 dimensions (shape and strides in
+// elements, host arrays of ndim; the last dimension is the contraction, the
+// others the rows), one element a thread.  Returns a cudaError_t.
+extern "C" int bf_probe_gram_view(int dtype, const void* a, const long long* shape,
+                                  const long long* stride, int ndim, float* out, void* stream) {
   using namespace bft;
   if (ndim < 2 || ndim > kMaxDims) return cudaErrorInvalidValue;
+  GramView v{};
   long long rows = 1;
-  for (int i = 0; i < ndim - 1; ++i) rows *= shape[i];
-  const long long cols = shape[ndim - 1];
-  if (rows < 1 || cols < 1 || rows > 65535LL * 32 || cols > 2147483647LL)
-    return cudaErrorInvalidValue;
-  const View v = make_view(shape, stride, ndim);
-  const dim3 grid((rows + 31) / 32, (rows + 31) / 32);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    gram_kernel<float><<<grid, 256, 0, s>>>(static_cast<const float*>(a), v, (int)rows,
-                                            (int)cols, out);
-  else if (dtype == kBF16)
-    gram_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(static_cast<const __nv_bfloat16*>(a), v,
-                                                    (int)rows, (int)cols, out);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  for (int i = 0; i < ndim - 1; ++i) {
+    rows *= shape[i];
+    v.row_shape[i] = static_cast<int>(shape[i]);
+    v.row_stride[i] = stride[i];
+  }
+  if (rows > kMaxGramRows || shape[ndim - 1] > INT_MAX) return cudaErrorInvalidValue;
+  v.rows = static_cast<int>(rows);
+  v.cols = static_cast<int>(shape[ndim - 1]);
+  v.row_dims = ndim - 1;
+  v.col_stride = stride[ndim - 1];
+  return launch_gram(dtype, a, v, false, out, stream);
 }
 
 // float32 (chunk_gram_kernel): x and out (B, H, W, heads, D) with the same

@@ -4,7 +4,9 @@ Counterpart of ``scripts/probe_lane_axial.py``: its two Pallas kernels as
 ``csrc/probe_lane_axial.cu``,
 
 - :func:`within_roll` — ``probe_within_roll``'s kernel (``:86``, helper
-  ``_within_roll :62``): circular rolls within blocks of lanes, two at once;
+  ``_within_roll :62``): circular rolls within blocks of lanes, two at once
+  into one buffer, each row of x staged once by 16-byte copies where
+  :func:`within_roll_operands` allows;
 - :func:`lane_core` — ``bench_core``'s kernel (``:193``, body
   ``_core_kernel :104``): the row and column attention over every circular
   offset of channel-major slabs, averaged and rounded once; bfloat16 on
@@ -19,7 +21,9 @@ with their plain versions, the probe's inputs (:func:`make_inputs`,
 from __future__ import annotations
 
 import argparse
+import functools
 import json
+import struct
 from types import SimpleNamespace
 
 import numpy as np
@@ -29,6 +33,10 @@ from bubbleformer_tpu_torch import _build
 from bubbleformer_tpu_torch.probes import announce, build_seconds, check_device, cuda_ms, log
 
 MAX_LINE = 128  # tokens a line (lane_core keeps a line's q, k, v on chip)
+# Bytes of a row the staged roll kernel takes (csrc/probe_lane_axial.cu:
+# kRollSmem).
+ROLL_SMEM = 48 * 1024
+MAX_INT = 2**31 - 1
 HOPPER_HEAD_DIMS = (16, 64)  # head dims of the bfloat16 kernel (core_kernel)
 
 
@@ -44,29 +52,66 @@ def within_roll_plain(x: torch.Tensor, r: int, block: int) -> torch.Tensor:
     return x[..., _roll_index(r, block, x.shape[-1], x.device)]
 
 
-def within_roll(x: torch.Tensor, r1: int, block1: int, r2: int, block2: int):
-    """Both rolls of ``probe_within_roll``'s kernel, ``(within_roll_plain(x,
-    r1, block1), within_roll_plain(x, r2, block2))``, for x (rows, total)
-    float32 or bfloat16: one launch of ``csrc/probe_lane_axial.cu`` on a card
-    (counted in ``within_roll.launches``), the plain version on the CPU."""
-    if not check_device("within_roll", x):
-        return within_roll_plain(x, r1, block1), within_roll_plain(x, r2, block2)
-    rows, total = x.shape
+@functools.lru_cache(maxsize=64)
+def within_roll_plan(shape, dtype, offset: int, r1: int, block1: int, r2: int,
+                     block2: int) -> tuple:
+    """How :func:`within_roll`'s kernels take a contiguous x of ``shape``
+    (rows, total) and ``dtype`` whose base address is ``offset`` modulo 16,
+    and the two rolls (each ``0 <= r < block``, ``block`` dividing
+    ``total``): (vec, desc).  vec is the elements a thread moves, 16 bytes'
+    worth (``within_roll_vec_kernel``: each row staged once) where a row is
+    a multiple of 16 bytes of at most ``ROLL_SMEM`` and x is aligned, else 1
+    (``within_roll_kernel``, one element a thread); desc the packed
+    ``RollDesc`` of ``csrc/probe_lane_axial.cu``.  Raises, naming the shape
+    or the roll, for what the kernels do not take.  Cached: a probe repeats
+    its call."""
+    what = f"within_roll at {tuple(shape)}"
+    if len(shape) != 2 or not all(1 <= n <= MAX_INT for n in shape):
+        raise ValueError(f"{what}: x (rows, total), each from 1 to 2^31 - 1")
+    if dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what}: the kernel takes float32 or bfloat16, not {dtype}")
+    rows, total = shape
     for r, b in ((r1, block1), (r2, block2)):
         if b < 1 or total % b or not 0 <= r < b:
-            raise ValueError(f"within_roll: roll {r} in blocks of {b} does not fit lanes of "
-                             f"{tuple(x.shape)}")
-    if x.dtype not in _build.DTYPE_CODES:
-        raise TypeError(f"within_roll kernel takes float32 or bfloat16, not {x.dtype}")
-    x = x.contiguous()
-    o1, o2 = torch.empty_like(x), torch.empty_like(x)
+            raise ValueError(f"{what}: roll {r} in blocks of {b} does not fit lanes of "
+                             f"{total}")
+    vec = 16 // dtype.itemsize
+    if total % vec or total * dtype.itemsize > ROLL_SMEM or offset % 16:
+        vec = 1
+    return vec, struct.pack("<8i", _build.DTYPE_CODES[dtype], rows, total, r1, block1, r2,
+                            block2, int(vec > 1))
+
+
+def within_roll_operands(x: torch.Tensor, r1: int, block1: int, r2: int, block2: int) -> int:
+    """Raise unless :func:`within_roll`'s kernels take x, contiguous, and the
+    rolls (:func:`within_roll_plan`); returns the elements a thread moves."""
+    if not x.is_contiguous():
+        raise ValueError(f"within_roll at {tuple(x.shape)}: x of strides {x.stride()} is not "
+                         "contiguous")
+    return within_roll_plan(x.shape, x.dtype, x.data_ptr() % 16, r1, block1, r2, block2)[0]
+
+
+def within_roll(x: torch.Tensor, r1: int, block1: int, r2: int, block2: int):
+    """Both rolls of ``probe_within_roll``'s kernel, ``(within_roll_plain(x,
+    r1, block1), within_roll_plain(x, r2, block2))``, as the two halves of
+    one (2, rows, total) buffer, for x (rows, total) float32 or bfloat16: one
+    launch of ``csrc/probe_lane_axial.cu`` on a card, as
+    :func:`within_roll_plan` plans it (counted in ``within_roll.launches``),
+    the plain version on the CPU."""
+    if not check_device("within_roll", x):
+        return torch.stack((within_roll_plain(x, r1, block1),
+                            within_roll_plain(x, r2, block2))).unbind()
+    if not x.is_contiguous():
+        x = x.contiguous()
+    _, desc = within_roll_plan(x.shape, x.dtype, x.data_ptr() % 16, r1, block1, r2, block2)
+    out = x.new_empty((2, *x.shape))
     lib = _build.library()
-    err = lib.bf_probe_within_roll(_build.DTYPE_CODES[x.dtype], x.data_ptr(), o1.data_ptr(),
-                                   o2.data_ptr(), rows, total, r1, block1, r2, block2,
+    err = lib.bf_probe_within_roll(desc, x.data_ptr(), out.data_ptr(),
                                    _build.stream_handle(x.device))
-    _build.check(lib, err, "within_roll (bf_probe_within_roll)")
+    if err:
+        _build.check(lib, err, f"within_roll at {tuple(x.shape)} (bf_probe_within_roll)")
     within_roll.launches += 1
-    return o1, o2
+    return out.unbind()
 
 
 within_roll.launches = 0

@@ -6,7 +6,13 @@ Mosaic lowers in-kernel reshapes, slices, transposes and per-head views.  On
 Hopper a view is a shape and strides, so the bodies run on three kernels of
 ``csrc/probe_layout.cu`` that take strided views:
 
-- :func:`gram` — ``a . a^T`` in float32 of a (rows, cols) view;
+- :func:`gram` — ``a . a^T`` in float32 of a (rows, cols) view, on
+  ``gram_tc_kernel``: one triangle of 32 x 32 tiles, each written to both
+  places; bfloat16 products on the tensor cores with float32 sums, float32
+  ones as three TF32 products of the split a = hi + lo
+  (:func:`tf32_round`); the view folded to 2-D where its rows allow
+  (:func:`gram_operands`) and staged by 16-byte copies where it is
+  aligned;
 - :func:`view_copy` — ``dst = dtype(scale * src)``, or added to ``dst``,
   between the views as :func:`fold_views` folds them, 16 bytes a thread
   where both allow it (:func:`copy_vector`), described to the kernel by one
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import math
 import struct
 from types import SimpleNamespace
 
@@ -54,6 +61,8 @@ MAX_DIMS = 5
 VECTOR_BYTES = 16
 # The offsets of view_copy_kernel are 32-bit.
 MAX_OFFSET = 2**31 - 1
+# The most rows a Gram launch takes (csrc/probe_layout.cu: kMaxGramRows).
+MAX_GRAM_ROWS = 65535 * 32
 
 
 def _dtype_code(what, t):
@@ -69,20 +78,77 @@ def gram_plain(a: torch.Tensor) -> torch.Tensor:
     return a2 @ a2.t()
 
 
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as float32: half a TF32 unit added to the bits and the
+    13 low bits cleared (``cvt.rna.tf32.f32``'s rounding).  The float32
+    Gram kernel splits a into hi = tf32_round(a) and lo = tf32_round(a -
+    hi) and sums ``lo . hi^T + hi . lo^T + hi . hi^T`` on TF32 tensor
+    cores: within ~2^-21 of a . a^T, where hi . hi^T alone is ~2^-11."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+@functools.lru_cache(maxsize=256)
+def gram_plan(shape, stride, dtype, offset: int) -> tuple:
+    """How ``gram_tc_kernel`` takes a view of ``shape`` and ``stride``
+    (elements) of ``dtype`` whose base address is ``offset`` modulo 16:
+    (rows, cols, row_stride, col_stride, vec), the last dimension the
+    contraction.  The rows (the other dimensions) are folded
+    (:func:`fold_views`); where they fold to one stride, ``row_stride`` is
+    it (0 for one row) and ``vec`` says whether 16-byte copies stage it
+    (col_stride 1, cols and row_stride multiples of 16 bytes, the base
+    aligned), else one element a thread of the 2-D view; where they do not,
+    ``row_stride`` is None: one element a thread over the view's own shape
+    and strides (``bf_probe_gram_view``).  Raises for other types than
+    float32 and bfloat16, outside 2 to 5 dimensions, for no elements and
+    past ``MAX_GRAM_ROWS`` rows or 2^31 columns.  Cached: a probe body
+    repeats its view."""
+    what = f"gram at {tuple(shape)}"
+    if not 2 <= len(shape) <= MAX_DIMS:
+        raise ValueError(f"{what}: a view of 2 to {MAX_DIMS} dimensions")
+    if dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what}: the kernel takes float32 or bfloat16, not {dtype}")
+    rows, cols, col_stride = math.prod(shape[:-1]), shape[-1], stride[-1]
+    if rows == 0 or cols == 0:
+        raise ValueError(f"{what}: no elements")
+    if rows > MAX_GRAM_ROWS or cols > MAX_OFFSET:
+        raise ValueError(f"{what}: past {MAX_GRAM_ROWS} rows or 2^31 columns")
+    fshape, fstride, _ = fold_views(shape[:-1], stride[:-1], stride[:-1])
+    if len(fshape) > 1:
+        return rows, cols, None, col_stride, False
+    row_stride = fstride[0] if rows > 1 else 0
+    vec = VECTOR_BYTES // dtype.itemsize
+    return rows, cols, row_stride, col_stride, (
+        col_stride == 1 and not cols % vec and not row_stride % vec and not offset % 16)
+
+
+def gram_operands(a: torch.Tensor) -> tuple:
+    """:func:`gram_plan` of the view ``a``."""
+    return gram_plan(tuple(a.shape), a.stride(), a.dtype, a.data_ptr() % 16)
+
+
 def gram(a: torch.Tensor) -> torch.Tensor:
-    """:func:`gram_plain` on the CPU; on a card ``gram_kernel`` reading the
-    view in place (counted in ``gram.launches``)."""
+    """:func:`gram_plain` on the CPU; on a card ``gram_tc_kernel`` reading the
+    view in place, as :func:`gram_operands` plans it (counted in
+    ``gram.launches``)."""
     if not check_device("gram", a):
         return gram_plain(a)
-    if not 2 <= a.dim() <= MAX_DIMS:
-        raise ValueError(f"gram: a view of 2 to {MAX_DIMS} dimensions, not {tuple(a.shape)}")
-    rows = a.numel() // a.shape[-1]
-    out = torch.empty(rows, rows, device=a.device)
+    rows, cols, row_stride, col_stride, vec = gram_operands(a)
+    out = torch.empty((rows, rows), device=a.device)
     lib = _build.library()
-    err = lib.bf_probe_gram(_dtype_code("gram", a), a.data_ptr(), _build.int64_array(a.stride()),
-                            _build.int64_array(a.shape), a.dim(), out.data_ptr(),
-                            _build.stream_handle(a.device))
-    _build.check(lib, err, f"gram at {tuple(a.shape)} (bf_probe_gram)")
+    code, ptr, stream = _build.DTYPE_CODES[a.dtype], a.data_ptr(), _build.stream_handle(a.device)
+    if row_stride is None:
+        entry = "bf_probe_gram_view"
+        err = lib.bf_probe_gram_view(code, ptr, _build.int64_array(a.shape),
+                                     _build.int64_array(a.stride()), a.dim(), out.data_ptr(),
+                                     stream)
+    else:
+        entry = "bf_probe_gram"
+        err = lib.bf_probe_gram(code, ptr, rows, cols, row_stride, col_stride, vec,
+                                out.data_ptr(), stream)
+    if err:
+        _build.check(lib, err, f"gram at {tuple(a.shape)} ({entry})")
     gram.launches += 1
     return out
 

@@ -198,10 +198,12 @@ paths give it — the rollout's (batch 1) and the training step's:
    the rest within ``KERNEL_RTOL``, P3's statistics the same bits on a
    second call; with the times of both and of the one
    PyTorch call that computes the same function where there is one
-   (``torch.roll``, ``torch.matmul``, ``permute().contiguous()``), and the
-   device time of each launch of P2c (the chunk kernel's two passes), P1b
-   (``core_kernel``'s column and row passes) and P4's chunk products (both
-   ``chunked_ref_reads_bf16`` launches);
+   (``torch.roll``, ``torch.matmul``, ``permute().contiguous()``; the Gram
+   also in bfloat16 at ``bf16_dot`` beside ``torch.mm`` with a float32
+   output), and the device time of each launch of P1a (both dtypes), P2c
+   (the chunk kernel's two passes), P1b (``core_kernel``'s column and row
+   passes), the Gram (``reshape_col``, ``bf16_dot``) and P4's chunk
+   products (both ``chunked_ref_reads_bf16`` launches);
 40. the four probe CLIs through their ``main`` at their default flags, each
    with the counters set to 0 before and read after: every check OK, a
    card time in each JSON line, each of the probe's kernels launched and no
@@ -2157,6 +2159,9 @@ def probe_kernel_phase(dev, results: dict) -> dict:
         x1, x2 = x.view(rs.C, rs.T * rs.H, rs.W), x.view(rs.C, rs.T, rs.H * rs.W)
         record("P1a", name, err, lambda x=x: lane_axial.within_roll(x, *rolls), plain,
                lambda x1=x1, x2=x2: (torch.roll(x1, -5, 2), torch.roll(x2, -3 * rs.W, 2)))
+        launches = probes.launch_ms(lambda x=x: lane_axial.within_roll(x, *rolls))
+        print(f"  P1a {name} device ms a launch (torch.profiler, 5 calls): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in launches.items()), flush=True)
     shapes["P1a"] = tuple(x.shape)
 
     args = lane_axial.parser().parse_args([])
@@ -2247,6 +2252,27 @@ def probe_kernel_phase(dev, results: dict) -> dict:
         shapes[key] = {"P4 gram": (x.numel() // mosaic.D, mosaic.D),
                        "P4 view_copy": (x.numel(), False),
                        "P4 chunk_gram": (x.numel(), mosaic.CHUNK * mosaic.W, False)}[key]
+    # The Gram in bfloat16 (bf16_dot) beside torch.mm with a float32 output
+    # where this torch takes out_dtype (else the bf16 torch.matmul, whose
+    # output is rounded to bf16: a partial yardstick), and each Gram body's
+    # launch.
+    x = mosaic.body_input("bf16_dot").to(dev)
+    try:
+        torch.mm(x, x.t(), out_dtype=torch.float32)
+        library, lib_name = (lambda: torch.mm(x, x.t(), out_dtype=torch.float32),
+                             "torch.mm(out_dtype=float32)")
+    except (TypeError, RuntimeError):
+        library, lib_name = lambda: torch.matmul(x, x.t()), "torch.matmul in bf16 (partial)"
+    record("P4 gram", "bfloat16", errs["P4 gram"], lambda: mosaic.run_body("bf16_dot", x),
+           lambda: mosaic.run_body("bf16_dot", x, mosaic.PLAIN), library)
+    bf_ms, bf_by = bound(*kernel_work("P4 gram", shapes["P4 gram"], "bfloat16"), "bfloat16")
+    print(f"  P4 gram bfloat16 (bf16_dot): bound {bf_ms:.6f} ms ({bf_by}); library "
+          f"{lib_name}", flush=True)
+    for name in ("reshape_col", "bf16_dot"):
+        x = mosaic.body_input(name).to(dev)
+        launches = probes.launch_ms(lambda x=x, name=name: mosaic.run_body(name, x))
+        print(f"  P4 gram device ms a launch at {name} (torch.profiler, 5 calls): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in launches.items()), flush=True)
     x = mosaic.body_input("chunked_ref_reads_bf16").to(dev)
     launches = probes.launch_ms(lambda: mosaic.run_body("chunked_ref_reads_bf16", x))
     print("  P4 chunk_gram device ms a launch at chunked_ref_reads_bf16 (torch.profiler, 5 "

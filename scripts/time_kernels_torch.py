@@ -49,8 +49,12 @@ starting with ``P`` (``--only P``): P2b (``perm_product``) at the probe's
 ``torch.matmul``; P2c
 (``chunk_core``), P2a (``dot_combos``) and P3 (``stage``) at their probes'
 default inputs; P1a (``within_roll``, both dtypes) beside its two
-``torch.roll`` calls and P4's Gram (the ``reshape_col`` body) beside
-``torch.matmul``; P4's copy bodies
+``torch.roll`` calls and P4's Gram at the ``reshape_col`` body (float32)
+beside ``torch.matmul`` and at ``bf16_dot`` beside ``torch.mm`` with a
+float32 output (``out_dtype``, or the bf16 ``torch.matmul`` where this
+torch lacks it), each with its host microseconds to enqueue one call and
+its ``torch.profiler`` breakdown, and each host step of a float32 Gram and
+P1a call alone (``P4 gram and P1a host steps``); P4's copy bodies
 ``transpose_full`` (float32, beside ``permute().contiguous()``) and
 ``head_slice_bf16`` (CUDA events over ``P_ITERS`` calls, these calls
 being host-bound), each also as host microseconds to enqueue one call
@@ -63,8 +67,8 @@ its host microseconds to enqueue one call and its ``torch.profiler``
 breakdown (the device time of each launch).  The JSON line also carries
 the ``ptxas`` registers and spill bytes of every Hopper GEMM
 instantiation, of every kernel of ``lane_hopper.cuh`` and
-``flash_hopper.cuh`` and of the probes' chunk, stage, P1b and chunk-Gram
-kernels in the checkout's build (``ptxas``).
+``flash_hopper.cuh`` and of the probes' chunk, stage, P1b, chunk-Gram, Gram
+and roll kernels in the checkout's build (``ptxas``).
 Comparing two versions of the
 kernels takes two processes on one card, one per checkout, in turns:
 
@@ -103,7 +107,8 @@ def ptxas_registers(log: Path) -> dict:
     """Registers, stack frame and spill bytes (stores, loads) of every
     kernel of the Hopper GEMM, of lane_hopper.cuh and flash_hopper.cuh (in
     every source that builds them) and of the probes' chunk, stage, P1b
-    core and chunk-Gram kernels, from the ``-Xptxas -v`` output kept beside
+    core, chunk-Gram, Gram and roll kernels, from the ``-Xptxas -v`` output
+    kept beside
     the library; keyed by mangled
     name with each anonymous namespace's per-build hash cut out, so two
     builds' keys match."""
@@ -119,7 +124,8 @@ def ptxas_registers(log: Path) -> dict:
             spill = tuple(int(v) for v in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name and re.search(r"gemm_kernel|chunk_attention|stage_kernel|lane_fwd|lane_bwd|"
-                                    r"flash_fwd|flash_bwd|core_kernel|chunk_gram", name):
+                                    r"flash_fwd|flash_bwd|core_kernel|chunk_gram|gram_tc|"
+                                    r"within_roll", name):
             out[name] = [int(m.group(1)), *spill]
     return out
 
@@ -464,14 +470,64 @@ def main(argv=None) -> None:
             name = str(dt).split(".")[-1]
             xr = lane_axial.within_roll_input(dt).to(dev)
             x1, x2 = xr.view(rs.C, rs.T * rs.H, rs.W), xr.view(rs.C, rs.T, rs.H * rs.W)
-            out[f"P1a {name}"] = ms(lambda xr=xr: lane_axial.within_roll(xr, *rolls), P_ITERS)
-            out[f"P1a torch.roll {name}"] = ms(
-                lambda x1=x1, x2=x2: (torch.roll(x1, -5, 2), torch.roll(x2, -3 * rs.W, 2)),
-                P_ITERS)
-        xg = mosaic.body_input("reshape_col").to(dev)
-        xg2 = xg.view(-1, mosaic.D)
-        out["P4 gram float32"] = ms(lambda: mosaic.run_body("reshape_col", xg), P_ITERS)
-        out["P4 gram matmul float32"] = ms(lambda: torch.matmul(xg2, xg2.t()), P_ITERS)
+            probe_calls[f"P1a {name}"] = lambda xr=xr: lane_axial.within_roll(xr, *rolls)
+            two_rolls = lambda x1=x1, x2=x2: (torch.roll(x1, -5, 2),  # noqa: E731
+                                              torch.roll(x2, -3 * rs.W, 2))
+            out[f"P1a {name}"] = ms(probe_calls[f"P1a {name}"], P_ITERS)
+            out[f"P1a torch.roll {name}"] = ms(two_rolls, P_ITERS)
+            out[f"P1a {name} host_us"] = host_us(probe_calls[f"P1a {name}"])
+            out[f"P1a torch.roll {name} host_us"] = host_us(two_rolls)
+        # P4's Gram at reshape_col (float32) beside torch.matmul, and at
+        # bf16_dot beside torch.mm with a float32 output where this torch
+        # takes out_dtype (else the bf16 torch.matmul: a partial yardstick,
+        # its output rounded to bf16).
+        for body in ("reshape_col", "bf16_dot"):
+            xg = mosaic.body_input(body).to(dev)
+            xg2 = xg.view(-1, mosaic.D)
+            name = str(xg.dtype).split(".")[-1]
+            library = lambda xg2=xg2: torch.matmul(xg2, xg2.t())  # noqa: E731
+            lib_name = "matmul"
+            if xg.dtype == torch.bfloat16:
+                try:
+                    torch.mm(xg2, xg2.t(), out_dtype=torch.float32)
+                    library = lambda xg2=xg2: torch.mm(xg2, xg2.t(),  # noqa: E731
+                                                       out_dtype=torch.float32)
+                    lib_name = "mm out_dtype=float32"
+                except (TypeError, RuntimeError):
+                    lib_name = "matmul bf16 (partial)"
+            probe_calls[f"P4 gram {name}"] = lambda xg=xg, body=body: mosaic.run_body(body, xg)
+            out[f"P4 gram {name}"] = ms(probe_calls[f"P4 gram {name}"], P_ITERS)
+            out[f"P4 gram {lib_name} {name}"] = ms(library, P_ITERS)
+            out[f"P4 gram {name} host_us"] = host_us(probe_calls[f"P4 gram {name}"])
+            out[f"P4 gram {lib_name} {name} host_us"] = host_us(library)
+        # Each host step of a float32 Gram call and of a float32 P1a call,
+        # alone.
+        xg = mosaic.body_input("reshape_col").to(dev).view(-1, mosaic.D)
+        gout = torch.empty(256, 256, device=dev)
+        lib = _build.library()
+        handle = _build.stream_handle(xg.device)
+        steps = {"torch.empty": lambda: torch.empty((256, 256), device=xg.device),
+                 "stream_handle": lambda: _build.stream_handle(xg.device)}
+        if hasattr(mosaic, "gram_operands"):
+            steps["gram_operands (cached)"] = lambda: mosaic.gram_operands(xg)
+            steps["C call (launch)"] = lambda: lib.bf_probe_gram(
+                0, xg.data_ptr(), 256, 64, 64, 1, 1, gout.data_ptr(), handle)
+        else:
+            steps["int64_array x2"] = lambda: (_build.int64_array(xg.stride()),
+                                               _build.int64_array(xg.shape))
+        steps["gram wrapper"] = lambda: mosaic.gram(xg)
+        xr = lane_axial.within_roll_input(torch.float32).to(dev)
+        steps["P1a new_empty (2, 16, 512)"] = lambda: xr.new_empty((2, 16, 512))
+        if hasattr(lane_axial, "within_roll_plan"):
+            rout = torch.empty((2, 16, 512), device=dev)
+            plan = lambda: lane_axial.within_roll_plan(  # noqa: E731
+                xr.shape, xr.dtype, xr.data_ptr() % 16, *rolls)
+            rdesc = plan()[1]
+            steps["P1a within_roll_plan (cached)"] = plan
+            steps["P1a C call (launch)"] = lambda: lib.bf_probe_within_roll(
+                rdesc, xr.data_ptr(), rout.data_ptr(), handle)
+        steps["P1a wrapper"] = lambda: lane_axial.within_roll(xr, *rolls)
+        out["P4 gram and P1a host steps"] = {k: round(host_us(f), 3) for k, f in steps.items()}
         for body in ("transpose_full", "head_slice_bf16"):
             xm = mosaic.body_input(body).to(dev)
             name = str(xm.dtype).split(".")[-1]
@@ -586,7 +642,8 @@ def main(argv=None) -> None:
         "K6 bfloat16 bwd": lambda: k6.fused_axial_attention_packed_bwd(do6, q6, k6_, v6, *tables),
         "K7 bfloat16 fwd": lambda: k7.fused_axial_attention(q6, k6_, v6, *tables),
         "K7 bfloat16 bwd": lambda: k7.fused_axial_attention_bwd(do6, q6, k6_, v6, *tables)})
-    calls.update({f"{key} bfloat16": fn for key, fn in probe_calls.items()})
+    calls.update({key if key.endswith(("float32", "bfloat16")) else f"{key} bfloat16": fn
+                  for key, fn in probe_calls.items()})
     for what, fn in calls.items():
         if not wanted(what):
             continue

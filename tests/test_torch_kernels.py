@@ -1614,19 +1614,32 @@ def _card(inputs, dev, dtype=None, slabs=()):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_p1a_within_roll_is_exact_on_card(cuda_device, dtype):
-    """The probe's slab and a ragged one (rows 7 of 3 x 40 lanes)."""
+    """The probe's slab and a ragged one (rows 7 of 3 x 40 lanes) on the
+    staged 16-byte path; rows of 30 lanes (blocks of 10 and 15) and a
+    misaligned slab on the element path: bit for bit, the two rolls the
+    halves of one buffer, one launch a call."""
     s = lane_axial.ROLL_SHAPE
-    cases = [(lane_axial.within_roll_input(dtype), (5, s.W, 3 * s.W, s.H * s.W)),
-             (torch.randn(7, 120, generator=torch.Generator().manual_seed(62)).to(dtype),
-              (7, 40, 0, 120))]
-    for x, rolls in cases:
+    g = torch.Generator().manual_seed(62)
+    base = torch.randn(16 * 512 + 1, generator=g).to(dtype)
+    cases = [(lane_axial.within_roll_input(dtype), (5, s.W, 3 * s.W, s.H * s.W), True),
+             (torch.randn(7, 120, generator=g).to(dtype), (7, 40, 0, 120), True),
+             (torch.randn(5, 30, generator=g).to(dtype), (4, 10, 14, 15), False)]
+    for x, rolls, vec in cases:
         x = x.to(cuda_device)
-        before = lane_axial.within_roll.launches
-        got = lane_axial.within_roll(x, *rolls)
-        assert lane_axial.within_roll.launches == before + 1
-        torch.cuda.synchronize()
-        assert torch.equal(got[0], lane_axial.within_roll_plain(x, *rolls[:2]))
-        assert torch.equal(got[1], lane_axial.within_roll_plain(x, *rolls[2:]))
+        assert (lane_axial.within_roll_operands(x, *rolls) > 1) == vec
+        cases_x = [x]
+        if vec:  # the same slab one element into its storage
+            off = base.to(cuda_device)[1:1 + x.numel()].view(x.shape).copy_(x)
+            assert lane_axial.within_roll_operands(off, *rolls) == 1
+            cases_x.append(off)
+        for xx in cases_x:
+            before = lane_axial.within_roll.launches
+            got = lane_axial.within_roll(xx, *rolls)
+            assert lane_axial.within_roll.launches == before + 1
+            torch.cuda.synchronize()
+            assert got[1].data_ptr() == got[0].data_ptr() + xx.numel() * xx.element_size()
+            assert torch.equal(got[0], lane_axial.within_roll_plain(xx, *rolls[:2]))
+            assert torch.equal(got[1], lane_axial.within_roll_plain(xx, *rolls[2:]))
 
 
 @pytest.mark.cuda
@@ -1979,6 +1992,42 @@ def test_p4_kernels_take_strided_ragged_views_on_card(cuda_device, dtype):
         got = mosaic.chunk_gram_apply(x, torch.ones_like(x), axis, chunk, accumulate=True)
         want = mosaic.chunk_gram_apply_plain(x, torch.ones_like(x), axis, chunk, accumulate=True)
         _close(got, want, dtype)
+
+
+def _gram_views(dev):
+    """Each Gram body's view (16-byte path), the ragged transposed slice
+    (element path, 2-D), rows that fold to no one stride (element path over
+    the view) and a bf16 view of 3 column chunks and ragged rows."""
+    views = {}
+    for name in mosaic.BODIES:
+        if mosaic.BODY_KERNEL[name] == "gram":
+            x = mosaic.body_input(name).to(dev)
+            ops = SimpleNamespace(gram=lambda a, name=name: views.setdefault(name, a))
+            mosaic.run_body(name, x, ops)
+    g = torch.Generator().manual_seed(77)
+    views["ragged_t"] = torch.randn(50, 90, generator=g).to(dev).t()[:70, 5:45]
+    views["unfolded"] = torch.randn(8, 12, 40, generator=g).to(dev)[:, :10]
+    views["wide_bf16"] = torch.randn(70, 136, generator=g).to(dev, torch.bfloat16)
+    return views
+
+
+@pytest.mark.cuda
+def test_p4_gram_is_exactly_symmetric_and_repeats_on_card(cuda_device):
+    """Every Gram view within TOL (1e-4 of the largest magnitude) of
+    gram_plain, its planned path as named, out equal to out^T bit for bit
+    (one triangle of tiles, each written to both places) and two calls
+    equal bit for bit (fixed-order sums), one launch a call."""
+    paths = {"ragged_t": False, "unfolded": None, "wide_bf16": True}
+    for name, a in _gram_views(cuda_device).items():
+        rows, cols, row_stride, _, vec = mosaic.gram_operands(a)
+        assert (None if row_stride is None else vec) == paths.get(name, True), name
+        before = mosaic.gram.launches
+        runs = [mosaic.gram(a) for _ in range(2)]
+        assert mosaic.gram.launches == before + 2
+        _close(runs[0], mosaic.gram_plain(a), torch.float32)
+        assert runs[0].shape == (rows, rows)
+        assert torch.equal(runs[0], runs[0].t()), name
+        assert torch.equal(runs[0], runs[1]), name
 
 
 @pytest.mark.cuda

@@ -17,6 +17,13 @@ P3's ``stage`` reads its tiles as TMA boxes of bx pixels of a row by by rows
 (``probes/pyramid.py:stage_tiles``): the tiles must cover every output
 pixel once, and ``stage_operands`` raises, naming the tensor, where TMA
 cannot read y0 or k.
+P4's ``gram`` folds its view's rows before the launch
+(``mosaic.gram_operands``): every Gram body reaches the kernel as a (256,
+64) view of row stride 64 staged by 16-byte copies; other views take one
+element a thread, of a 2-D view or of the view's own shape and strides.
+P1a's ``within_roll`` stages each row of x once by 16-byte copies where its
+rows are a multiple of 16 bytes (``lane_axial.within_roll_operands``), for
+any block size, else takes one element a thread.
 """
 import struct
 from types import SimpleNamespace
@@ -24,9 +31,10 @@ from types import SimpleNamespace
 import pytest
 import torch
 
-from bubbleformer_tpu_torch.probes import chunk_axial, mosaic, pyramid
+from bubbleformer_tpu_torch.probes import chunk_axial, lane_axial, mosaic, pyramid
 
 COPY_BODIES = [name for name, kernel in mosaic.BODY_KERNEL.items() if kernel == "view_copy"]
+GRAM_BODIES = [name for name, kernel in mosaic.BODY_KERNEL.items() if kernel == "gram"]
 
 
 def _addresses(shape, stride, offset, size):
@@ -262,3 +270,89 @@ def test_stage_operands_name_the_tensor_tma_cannot_read():
     with pytest.raises(ValueError, match="stage: k of shape .* is not contiguous"):
         pyramid.stage_operands("stage", y0, torch.zeros(2, 2, 24, 8, dtype=torch.bfloat16)
                                .transpose(2, 3))
+
+
+def _gram_view(name):
+    """The view a Gram body hands to ``gram``."""
+    views = []
+    ops = SimpleNamespace(gram=lambda a: views.append(a) or mosaic.gram_plain(a))
+    mosaic.run_body(name, mosaic.body_input(name), ops)
+    (view,) = views
+    return view
+
+
+@pytest.mark.parametrize("name", GRAM_BODIES)
+def test_every_gram_body_folds_to_one_16_byte_view(name):
+    """(rows, cols, row stride, col stride, 16-byte copies) of each body's
+    view, and the folded view addresses its elements in the same order."""
+    a = _gram_view(name)
+    assert mosaic.gram_operands(a) == (256, 64, 64, 1, True)
+    size = a.untyped_storage().nbytes() // a.element_size()
+    assert torch.equal(_addresses((256, 64), (64, 1), a.storage_offset(), size),
+                       _addresses(a.shape, a.stride(), a.storage_offset(), size))
+
+
+def test_gram_operands_take_other_views_one_element_a_thread():
+    """The card test's ragged transposed slice (a 2-D view, contraction
+    stride 90), a misaligned contiguous view, rows that do not fold to one
+    stride, and one row."""
+    big = torch.randn(50, 90)
+    assert mosaic.gram_operands(big.t()[:70, 5:45]) == (70, 40, 1, 90, False)
+    base = torch.zeros(256 * 64 + 4)
+    assert mosaic.gram_operands(base[1:1 + 256 * 64].view(256, 64)) == (256, 64, 64, 1, False)
+    assert mosaic.gram_operands(base[4:].view(256, 64)) == (256, 64, 64, 1, True)
+    assert mosaic.gram_operands(torch.zeros(8, 12, 40)[:, :10]) == (80, 40, None, 1, False)
+    assert mosaic.gram_operands(torch.zeros(8, 12, 40)[:, :, :36]) == (96, 36, 40, 1, True)
+    assert mosaic.gram_operands(torch.zeros(12, 40, dtype=torch.bfloat16)[:, :36]) == (
+        12, 36, 40, 1, False)  # 36 bf16 columns: not a multiple of 16 bytes
+    assert mosaic.gram_operands(torch.zeros(1, 1, 64)) == (1, 64, 0, 1, True)
+
+
+@pytest.mark.parametrize("a,error,match", [
+    (torch.zeros(64), ValueError, "2 to 5 dimensions"),
+    (torch.zeros((1,) * 6), ValueError, "2 to 5 dimensions"),
+    (torch.zeros(4, 8, dtype=torch.float16), TypeError, "float32 or bfloat16"),
+    (torch.zeros(0, 8), ValueError, "no elements"),
+    (torch.zeros(4, 0), ValueError, "no elements"),
+    (torch.empty(mosaic.MAX_GRAM_ROWS + 1, 1, device="meta"), ValueError, "rows"),
+], ids=["1d", "6d", "float16", "no_rows", "no_cols", "too_many_rows"])
+def test_gram_operands_raise_outside_the_kernels_envelope(a, error, match):
+    with pytest.raises(error, match=match):
+        mosaic.gram_operands(a)
+
+
+@pytest.mark.parametrize("rows,total,dtype,rolls,offset,want", [
+    (16, 512, torch.float32, (5, 32, 96, 256), 0, 4),
+    (16, 512, torch.bfloat16, (5, 32, 96, 256), 0, 8),
+    (7, 120, torch.float32, (7, 40, 0, 120), 0, 4),
+    (7, 120, torch.bfloat16, (7, 40, 23, 24), 0, 8),
+    (5, 36, torch.float32, (5, 12, 8, 9), 0, 4),
+    (5, 36, torch.bfloat16, (5, 12, 8, 9), 0, 1),
+    (5, 30, torch.float32, (4, 10, 14, 15), 0, 1),
+    (16, 512, torch.float32, (5, 32, 96, 256), 1, 1),
+    (2, 12800, torch.float32, (5, 32, 96, 256), 0, 1),
+], ids=["probe_f32", "probe_bf16", "b40", "b24_bf16", "row36_f32", "row36_bf16", "row30",
+        "misaligned", "past_smem"])
+def test_within_roll_operands_pick_vectors_where_rows_allow(rows, total, dtype, rolls, offset,
+                                                           want):
+    """16 bytes a thread for any block size (40, 24, 12 and 9 are not
+    powers of two) where a row is a multiple of 16 bytes of at most 48 KB
+    and x is aligned; else one element a thread."""
+    x = torch.zeros(rows * total + offset, dtype=dtype)[offset:].view(rows, total)
+    assert lane_axial.within_roll_operands(x, *rolls) == want
+    o1, o2 = lane_axial.within_roll(x.normal_(generator=torch.Generator().manual_seed(0)),
+                                    *rolls)
+    assert torch.equal(o1, lane_axial.within_roll_plain(x, *rolls[:2]))
+    assert torch.equal(o2, lane_axial.within_roll_plain(x, *rolls[2:]))
+
+
+@pytest.mark.parametrize("x,rolls,error,match", [
+    (torch.zeros(2, 4, 8), (1, 8, 0, 8), ValueError, "x \\(rows, total\\)"),
+    (torch.zeros(2, 8, dtype=torch.float16), (1, 8, 0, 8), TypeError, "float32 or bfloat16"),
+    (torch.zeros(8, 2).t(), (1, 8, 0, 8), ValueError, "not contiguous"),
+    (torch.zeros(2, 8), (8, 8, 0, 8), ValueError, "roll 8 in blocks of 8"),
+    (torch.zeros(2, 8), (1, 8, 0, 3), ValueError, "roll 0 in blocks of 3"),
+], ids=["3d", "float16", "strided", "r_past_block", "block_not_dividing"])
+def test_within_roll_operands_name_what_the_kernels_do_not_take(x, rolls, error, match):
+    with pytest.raises(error, match=match):
+        lane_axial.within_roll_operands(x, *rolls)

@@ -124,7 +124,8 @@ SMALL = dict(batch=1, tw=2, grid=8, embed_dim=16, heads=2, chunk=32, steps=1)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_within_roll_matches_the_jax_kernel(lane, dtype, monkeypatch):
     """``probe_within_roll``'s kernel (both rolls, the probe's slab) and the
-    port's rolls on its input: equal, and the probe's own check passes."""
+    port's rolls on its input: equal, the two halves of one (2, rows,
+    total) buffer, and the probe's own check passes."""
     records = []
     monkeypatch.setattr(lane, "pl", _recording_pl(records))
     ok, _ = lane.probe_within_roll(DTYPES[dtype][0])
@@ -134,6 +135,8 @@ def test_within_roll_matches_the_jax_kernel(lane, dtype, monkeypatch):
     assert torch.equal(xt, lane_axial.within_roll_input(DTYPES[dtype][1]))
     s = lane_axial.ROLL_SHAPE
     got = lane_axial.within_roll(xt, 5, s.W, 3 * s.W, s.H * s.W)
+    assert got[0].data_ptr() == got[0].untyped_storage().data_ptr()
+    assert got[1].data_ptr() == got[0].data_ptr() + xt.numel() * xt.element_size()
     for g, want in zip(got, (o1, o2)):
         assert g.dtype == xt.dtype
         np.testing.assert_array_equal(g.float().numpy(), _np(want))

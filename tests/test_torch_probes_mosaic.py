@@ -11,7 +11,9 @@ Gram products (summation order) and 2e-2 for the bf16 per-head products
 edge).  The two per-head dot bodies' JAX references raise (they stack the
 heads on axis 2 and then transpose, ``probe_mosaic.py:254``, ``:304``); the
 JAX kernels' outputs are held to the port's references, which keep the
-kernels' layout, within the probe's own bounds.
+kernels' layout, within the probe's own bounds.  The float32 Gram kernel's
+3xTF32 split, emulated with ``mosaic.tf32_round``, meets the JAX probe's
+absolute 1e-3 on each Gram body where one TF32 pass does not.
 """
 import contextlib
 import importlib.util
@@ -29,6 +31,7 @@ from bubbleformer_tpu_torch.probes import mosaic
 
 REPO = Path(__file__).resolve().parents[1]
 BROKEN = ("head_slice_dot_bf16", "chunked_ref_reads_bf16")
+GRAM_BODIES = [name for name, kernel in mosaic.BODY_KERNEL.items() if kernel == "gram"]
 
 
 @pytest.fixture(scope="module")
@@ -103,6 +106,42 @@ def test_the_broken_probes_kernels_compute_the_corrected_reference(recorded, nam
     assert np.abs(want - ref.numpy()).max() / np.abs(ref.numpy()).max() < bound
     ok, detail = getattr(mosaic, f"probe_{name}")("cpu")
     assert ok, detail
+
+
+@pytest.mark.parametrize("name", GRAM_BODIES)
+def test_three_tf32_products_meet_the_jax_probes_bound_and_one_does_not(recorded, name):
+    """a = hi + lo, hi = tf32(a), lo = tf32(a - hi): lo . hi^T + hi . lo^T +
+    hi . hi^T (the float32 kernel's three TF32 products, each exact in
+    float32) within the probe's 1e-3 of the JAX body's output and 1e-4 of
+    its largest magnitude (the card tests' bound); hi . hi^T alone misses
+    1e-3 on the float32 bodies.  bfloat16 values are TF32 values: lo is 0
+    (the bfloat16 kernel takes them as they are)."""
+    records, _ = recorded
+    x, want = records[name]
+    a = torch.from_numpy(x).reshape(-1, mosaic.D)
+    hi = mosaic.tf32_round(a)
+    lo = mosaic.tf32_round(a - hi)
+    assert torch.equal(mosaic.tf32_round(hi), hi) and torch.equal(mosaic.tf32_round(lo), lo)
+    three = (lo @ hi.t() + hi @ lo.t() + hi @ hi.t()).numpy()
+    one = (hi @ hi.t()).numpy()
+    err3, err1 = np.abs(three - want).max(), np.abs(one - want).max()
+    assert err3 < 1e-3 and err3 <= 1e-4 * np.abs(want).max(), err3
+    if mosaic.BODIES[name][3] == torch.bfloat16:
+        assert torch.equal(hi, a) and not lo.any()
+    else:
+        assert err1 > 1e-3, err1
+
+
+def test_tf32_round_rounds_to_nearest_ties_away():
+    """10 mantissa bits: 1 + 2^-12 down, the tie 1 + 2^-11 away from zero
+    (either sign), 1 + 3 * 2^-12 up; zero, infinities and exact values
+    kept."""
+    ulp = 2.0**-10
+    x = torch.tensor([1 + 2.0**-12, 1 + 2.0**-11, -(1 + 2.0**-11), 1 + 3 * 2.0**-12, 0.0,
+                      float("inf"), -float("inf"), 3 * ulp, -1.5])
+    want = torch.tensor([1.0, 1 + ulp, -(1 + ulp), 1 + ulp, 0.0, float("inf"), -float("inf"),
+                         3 * ulp, -1.5])
+    assert torch.equal(mosaic.tf32_round(x), want)
 
 
 def test_probe_cli_runs_on_the_cpu(capsys):
