@@ -6,6 +6,7 @@ from bubbleformer_tpu_torch.models._api import (
     register_model,
 )
 from bubbleformer_tpu_torch.models.axial_vit import AViT, FiLMAViT, SpaceTimeBlock
+from bubbleformer_tpu_torch.models.unets import ClassicUnet, ModernUnet
 
 __all__ = [
     "MODELS",
@@ -16,4 +17,6 @@ __all__ = [
     "AViT",
     "FiLMAViT",
     "SpaceTimeBlock",
+    "ClassicUnet",
+    "ModernUnet",
 ]

@@ -28,6 +28,14 @@ Two knobs of the JAX module (``:76-104``, ``:117-153``, ``:204-230``):
   module takes its Pallas kernel on a TPU; the same function, its plane sums
   in another order.
 
+The U-Nets train through the unconditioned module: :meth:`ForecastModule.
+train_step` runs the model in train mode (ClassicUnet's BatchNorms
+normalise with the batch's statistics and update their running ones, as the
+JAX step's ``mutable=["batch_stats"]``), :meth:`ForecastModule.eval_step` in
+eval mode (the running statistics); their 5-D output takes K10 under
+``BUBBLEFORMER_LOSS_KERNEL=1`` on the card, and ``loss_layout="nhwc"``
+warns and keeps NCHW (they have no channels-last output).
+
 :func:`module_class` picks the module by the model: a data config that
 returns fluid parameters to a model without FiLM (``poolboiling_saturated``
 with ``avit_big``, the README's pairing) gets the unconditioned module,

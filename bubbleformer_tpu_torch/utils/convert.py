@@ -1,6 +1,9 @@
-"""Weight bridge: JAX (flax) AViT / FiLMAViT params -> the port's state_dict.
+"""Weight bridge: JAX (flax) params -> the port's state_dict.
 
-The exact inverse of ``bubbleformer_tpu/utils/convert.py:
+AViT / FiLMAViT (:func:`jax_params_to_state_dict`) and the U-Nets
+(:func:`unet_params_to_state_dict`).  For the AViTs the bridge is
+
+the exact inverse of ``bubbleformer_tpu/utils/convert.py:
 convert_avit_state_dict`` (``:125-155``), whose keys are the reference torch
 model's and therefore the port's:
 
@@ -14,11 +17,25 @@ model's and therefore the port's:
   ``(1, heads, 1, 1)``.
 
 ``tests/test_torch_bridge.py`` checks the round trip leaf by leaf.
+
+The U-Nets' submodules carry the flax modules' names, so their map is
+mechanical: a path's modules joined by ``.``, and per leaf
+
+* Conv kernel ``(kh, kw, I, O)`` -> Conv2d weight ``(O, I, kh, kw)``;
+* ConvTranspose kernel (``transpose_kernel=True``, ``(kh, kw, O, I)``:
+  ModernUnet's ``up{i}.conv``, ClassicUnet's ``upconv{i}``) ->
+  ConvTranspose2d weight ``(I, O, kh, kw)``, the inverse of the JAX
+  package's ``w.transpose(2, 3, 1, 0)`` (``convert.py:9-12``): the same
+  axes permutation as a Conv's, with no spatial flip;
+* GroupNorm / BatchNorm ``scale``/``bias`` -> ``weight``/``bias``;
+* ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+
+``tests/test_torch_unets.py`` checks that round trip leaf by leaf.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -90,3 +107,39 @@ def jax_params_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tenso
         _norm(out, "film_embed.film_net.0", params["film_embed"]["norm"])
         _linear(out, "film_embed.film_net.1", params["film_embed"]["proj"])
     return out
+
+
+def _walk(tree: Mapping, prefix: str = ""):
+    """``(path, leaf module dict)`` for every dict of ``tree`` holding arrays."""
+    for name, node in tree.items():
+        path = f"{prefix}.{name}" if prefix else name
+        if any(isinstance(v, Mapping) for v in node.values()):
+            yield from _walk(node, path)
+        else:
+            yield path, node
+
+
+def unet_params_to_state_dict(params: Mapping[str, Any],
+                              batch_stats: Optional[Mapping[str, Any]] = None
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX ModernUnet / ClassicUnet params (numpy or jax leaves; the
+    ``{"params": ..., "batch_stats": ...}`` variables are accepted too) ->
+    the port's state_dict, with ClassicUnet's running statistics from
+    ``batch_stats``."""
+    if "params" in params:
+        batch_stats = params.get("batch_stats", batch_stats)
+        params = params["params"]
+    out: Dict[str, torch.Tensor] = {}
+    for path, p in _walk(params):
+        if "kernel" in p:
+            # Conv (kh, kw, I, O) and transposed (kh, kw, O, I) alike.
+            out[f"{path}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+            if "bias" in p:
+                out[f"{path}.bias"] = _t(p["bias"])
+        else:
+            _norm(out, path, p)
+    for path, s in _walk(batch_stats or {}):
+        out[f"{path}.running_mean"] = _t(s["mean"])
+        out[f"{path}.running_var"] = _t(s["var"])
+    return out
+

@@ -12,8 +12,10 @@ grid (K4 at head dim 16), FiLMAViT-small with ``attn_impl=mega`` (K1 and
 K5), AViT-small with ``attn_impl=fused_packed`` (K6) and ``fused`` (K7),
 AViT-tiny at 512x512 and 512x2048 (K1, K3 and K2 at head dim 16), and
 FiLMAViT-small with ``attn_impl=flash`` (K8 in both branches) training on
-the loss kernel (K10), and the four measurement probes (P1-P4,
-``scripts/probe_*_torch.py``) at their default shapes.  The
+the loss kernel (K10), the four measurement probes (P1-P4,
+``scripts/probe_*_torch.py``) at their default shapes, and the U-Net
+baselines at their configs' full width (ModernUnet, 566.7M parameters;
+ClassicUnet with its BatchNorm running statistics) training on K10.  The
 serving path (the autoregressive rollout) and the training path
 (``Trainer.fit``: Lion, or AdamW where the config says, with cosine
 warmup); and the hand-written kernels on the way, each at the shapes its
@@ -209,7 +211,26 @@ paths give it — the rollout's (batch 1) and the training step's:
    card time in each JSON line, each of the probe's kernels launched and no
    other, every bfloat16 ``lane_core`` and ``chunk_gram_apply`` call on its
    Hopper kernel (``lane_core_hopper``, ``chunk_gram_hopper``; the float32
-   ones, ``lane_core_line`` and ``chunk_gram_line``, never).
+   ones, ``lane_core_line`` and ``chunk_gram_line``, never);
+41. for ClassicUnet (``model_cfg/unet_classic.yaml``) and then ModernUnet
+   (``unet_modern.yaml``), with weights from a seed: one float32 window card
+   vs CPU in eval mode (the running statistics), ClassicUnet at 512^2 and
+   ModernUnet on 128x128 frames (its widths do not depend on the frame),
+   no kernel launched;
+42. a 20-window bfloat16 rollout of each at 512^2, batch 1: finite, no
+   kernel launched, frames/s after one warm-up window; then the heat flux
+   of its 100 frames (``utils/heatflux.py:heatflux_torch``, channel 0 the
+   distance function, channel 1 the temperature) and the per-field
+   relative L2 (``utils/metrics.py:relative_l2_per_field``) against the
+   same rollout in float32, both finite;
+43. ``Trainer.fit`` of each in bfloat16 at batch 8 at 512^2, Lion, a 2-step
+   cosine warmup, ``BUBBLEFORMER_LOSS_KERNEL=1``: every loss finite, K10
+   forward and backward once a step and no other kernel, every parameter
+   with a gradient moved, ClassicUnet's running statistics moved, and
+   ``last.pt`` restored into a fresh module with the step and every tensor
+   (the statistics too) equal; ms/step, samples/s, peak memory and each
+   phase's seconds.  K10's entries in the kernels line count these
+   launches with path F's.
 
 K2's, K4's, K5's, K6's, K7's, K8's and K9's wrappers count every call on
 the card (``lane_axial_attention``, ``fused_block_attention``,
@@ -1037,10 +1058,11 @@ def window_phase(label: str, model_cfg, data_cfg, weights, x, dev, per_window: d
 
 
 def rollout_phase(label: str, model, init, windows: int, per_window: dict, card: str,
-                  reference=None, cond=None) -> float:
+                  reference=None, cond=None, on_preds=None) -> float:
     """A bfloat16 rollout of ``windows`` windows after one warm-up window
     (conditioned on ``cond`` where it is given): finite, the right shape and
-    launches; returns frames/s."""
+    launches; ``on_preds`` is then called with the predictions.  Returns
+    frames/s."""
     import torch
     from bubbleformer_tpu_torch.inference import make_rollout_fn
 
@@ -1068,17 +1090,20 @@ def rollout_phase(label: str, model, init, windows: int, per_window: dict, card:
     frames = windows * init.shape[1] * init.shape[0]
     print(f"  {frames} frames in {seconds:.3f} s: {frames / seconds:.2f} frames/s, "
           f"{1000 * seconds / windows:.2f} ms/window ({card}); launches {launches}", flush=True)
+    if on_preds is not None:
+        on_preds(preds)
     return frames / seconds
 
 
 def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: dict,
-              log_dir: Path, dev, card: str, fluid=None) -> dict:
+              log_dir: Path, dev, card: str, fluid=None, on_module=None) -> dict:
     """``Trainer.fit`` in bfloat16 on ``steps`` synthetic batches of
     ``frame`` = (H, W) pixels (with ``fluid`` fluid parameters, which an
     unconditioned model ignores) after one warm-up step: every loss finite,
-    the launches ``per_step``, every parameter with a gradient moved.  The
-    peak memory covers the steady steps (its statistics reset after the
-    warm-up step).  Returns ms/step, samples/s, peak GB and the launches."""
+    the launches ``per_step``, every parameter with a gradient moved; then
+    ``on_module(module, log_dir)`` where it is given.  The peak memory covers
+    the steady steps (its statistics reset after the warm-up step).  Returns
+    ms/step, samples/s, peak GB and the launches."""
     import torch
     from bubbleformer_tpu_torch.data import SyntheticLoader, synthetic_batch
     from bubbleformer_tpu_torch.training import Trainer, module_class
@@ -1120,6 +1145,8 @@ def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: d
           f"{out['samples_per_s']:.2f} samples/s; peak memory {peak_gb:.2f} GB; "
           f"{len(before) - len(unmoved)}/{len(before)} parameters moved ({card}); "
           f"launches {launches}", flush=True)
+    if on_module is not None:
+        on_module(module, log_dir)
     del module, trainer
     shutil.rmtree(log_dir, ignore_errors=True)
     return out
@@ -2330,6 +2357,166 @@ def slice8_phases(dev, results: dict) -> tuple:
     return shapes, probe_cli_phase()
 
 
+# Phases 41-43: the U-Nets at their configs' full width (``model_cfg/
+# unet_modern.yaml``: hidden 32, ch_mults (1, 2, 2, 4, 4), widths up to 2048
+# at 32x32, 566,747,956 parameters; ``unet_classic.yaml``: hidden 32, a
+# 512-channel bottleneck, 7,768,564 parameters and BatchNorm running
+# statistics).  No hand-written kernel lies on their forward (convolutions,
+# norms and GELU are plain PyTorch, as they are XLA in the JAX package); their
+# training step runs the loss through K10 under BUBBLEFORMER_LOSS_KERNEL=1.
+UNETS = ("unet_classic", "unet_modern")
+# ModernUnet's float32 window is held card against CPU on 128x128 frames
+# (its widths do not depend on the frame; the CPU side stays short).
+UNET_WINDOW_FRAME = {"unet_classic": IMAGE, "unet_modern": 128}
+UNET_TRAIN_BATCH, UNET_TRAIN_STEPS = 8, 3
+# The rollout's heat flux reads channel 0 as the distance function and
+# channel 1 as the temperature (the data configs' field order: dfun,
+# temperature, velx, vely), with the heater at 1 in the windows' units.
+UNET_HEATER_TEMP = 1.0
+
+
+def unet_state_dict(model, seed: int):
+    """A U-Net's weights from a seed (torch's generator on the CPU, fast at
+    566M parameters): convolutions lecun-normal (fan-in: input channels times
+    the kernel's area), biases 0.1 N, norm weights 1 + 0.1 N; running means
+    0.1 N and variances U(0.5, 1.5)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    # (I, O, kh, kw) weights: the input channels lead.
+    transposed = {f"{n}.weight" for n, m in model.named_modules()
+                  if isinstance(m, torch.nn.ConvTranspose2d)}
+    out = {}
+    for name, p in model.state_dict().items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "running_var":
+            out[name] = 0.5 + torch.rand(p.shape, generator=gen)
+            continue
+        a = torch.randn(p.shape, generator=gen)
+        if p.ndim == 4:
+            a /= (p.shape[0 if name in transposed else 1] * p.shape[2] * p.shape[3]) ** 0.5
+        elif leaf == "weight":
+            a = 1.0 + 0.1 * a
+        else:
+            a *= 0.1
+        out[name] = a
+    return out
+
+
+def running_stats(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def unet_phases(repo: Path, dev, card: str) -> dict:
+    """Phases 41-43, for ClassicUnet then ModernUnet: one float32 window card
+    vs CPU, a 20-window bfloat16 rollout at 512^2 with its heat flux and its
+    per-field relative L2 against the same rollout in float32, and
+    ``Trainer.fit`` in bfloat16 at batch 8 with Lion, a 2-step warmup and
+    ``BUBBLEFORMER_LOSS_KERNEL=1``: K10 forward and backward once a step and
+    no other kernel, the running statistics moved, the checkpoint resumed
+    with them equal.  Returns each model's numbers and each phase's
+    seconds."""
+    import torch
+    from bubbleformer_tpu_torch.config import load_config
+    from bubbleformer_tpu_torch.inference import make_rollout_fn
+    from bubbleformer_tpu_torch.models import build_model
+    from bubbleformer_tpu_torch.training import module_class, restore_checkpoint
+    from bubbleformer_tpu_torch.utils.heatflux import heatflux_torch
+    from bubbleformer_tpu_torch.utils.metrics import relative_l2_per_field
+
+    runs = {}
+    for i, name in enumerate(UNETS):
+        cfg = load_config([f"model_cfg={name}", "scheduler_cfg.params.warmup_iters=2"])
+        model_cfg, data_cfg = cfg["model_cfg"], cfg["data_cfg"]
+        train = (model_cfg, data_cfg, cfg["optim_cfg"], cfg["scheduler_cfg"])
+        if cfg["optim_cfg"]["name"] != "lion" or data_cfg["input_fields"][:2] != [
+                "dfun", "temperature"]:
+            fail("the default composition is not Lion on (dfun, temperature, ...) fields")
+        model = build_model(model_cfg, data_cfg)
+        count = sum(p.numel() for p in model.parameters())
+        weights = unet_state_dict(model, SEED + 80 + i)
+        del model
+        run = {"parameters": count}
+        frame = UNET_WINDOW_FRAME[name]
+        x = torch.from_numpy(np.random.default_rng(SEED + 90 + i).standard_normal(
+            (1, TIME_WINDOW, FIELDS, frame, frame)).astype(np.float32))
+        t0 = time.perf_counter()
+        print(f"== phase 41: {name} ({count:,} parameters), one float32 window at {frame}^2, "
+              f"card vs CPU (eval mode: running statistics)", flush=True)
+        y_f32 = window_phase(name, model_cfg, data_cfg, weights, x, dev, {})
+        run["window_s"] = time.perf_counter() - t0
+        if frame != IMAGE:
+            x = torch.from_numpy(np.random.default_rng(SEED + 90 + i).standard_normal(
+                (1, TIME_WINDOW, FIELDS, IMAGE, IMAGE)).astype(np.float32))
+            y_f32 = None
+
+        t0 = time.perf_counter()
+        print(f"== phase 42: {name}, {WINDOWS}-window bfloat16 rollout at {IMAGE}^2, its heat "
+              f"flux and its relative L2 against the float32 rollout", flush=True)
+        f32 = build_model(model_cfg, data_cfg).eval().to(dev)
+        f32.load_state_dict(weights)
+        init = x.to(dev)
+        want = make_rollout_fn(f32, WINDOWS)(init)
+        del f32
+        bf = build_model(model_cfg, data_cfg, compute_dtype="bfloat16").eval().to(dev)
+        bf.load_state_dict(weights)
+
+        def physics(preds, want=want, run=run, name=name):
+            frames = preds[:, 0].reshape(-1, *preds.shape[3:])  # (windows * T, C, H, W)
+            mean, peak = heatflux_torch(frames[:, 0], frames[:, 1], UNET_HEATER_TEMP)
+            rel = relative_l2_per_field(frames.float(), want[:, 0].reshape(frames.shape))
+            if not (torch.isfinite(mean) and torch.isfinite(peak) and torch.isfinite(rel).all()):
+                fail(f"{name} rollout: non-finite heat flux or relative L2")
+            run["heatflux"] = (mean.item(), peak.item())
+            run["rel_l2_first_last"] = (rel[:TIME_WINDOW].mean().item(),
+                                        rel[-TIME_WINDOW:].mean().item())
+            print(f"  heat flux (channels 0 dfun, 1 temperature, heater {UNET_HEATER_TEMP}): "
+                  f"mean {run['heatflux'][0]:.6g}, max {run['heatflux'][1]:.6g}; relative L2 of "
+                  f"the bf16 rollout against the f32 one, per field {tuple(rel.shape)}: first "
+                  f"window {run['rel_l2_first_last'][0]:.4f}, last "
+                  f"{run['rel_l2_first_last'][1]:.4f}", flush=True)
+
+        run["rollout_fps"] = rollout_phase(name, bf, init, WINDOWS, {}, card, reference=y_f32,
+                                           on_preds=physics)
+        del bf, want, y_f32
+        run["rollout_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        print(f"== phase 43: {name}, Trainer.fit bfloat16 batch {UNET_TRAIN_BATCH} at {IMAGE}^2, "
+              f"Lion, {UNET_TRAIN_STEPS} steps after 1 warm-up step, BUBBLEFORMER_LOSS_KERNEL=1",
+              flush=True)
+
+        def resumed(module, log_dir, name=name):
+            stats = running_stats(module.model)
+            if name == "unet_classic":
+                still = [k for k, v in stats.items() if torch.equal(
+                    v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v))]
+                if not stats or still:
+                    fail(f"{name}: running statistics did not move: {still[:4]}")
+            fresh = module_class(model_cfg, data_cfg)(*train, total_steps=UNET_TRAIN_STEPS + 1,
+                                                      compute_dtype="bfloat16", device=dev.type,
+                                                      seed=SEED + 1)
+            restore_checkpoint(str(log_dir / "last.pt"), fresh)
+            state, own = fresh.model.state_dict(), module.model.state_dict()
+            differ = [k for k in own if not torch.equal(state[k], own[k])]
+            if fresh.step != module.step or differ:
+                fail(f"{name}: resumed step {fresh.step} (want {module.step}), "
+                     f"{len(differ)} tensors differ: {differ[:4]}")
+            print(f"  last.pt resumed: step {fresh.step}, {len(own)} tensors equal, of which "
+                  f"{len(stats)} running statistics", flush=True)
+
+        with env_var("BUBBLEFORMER_LOSS_KERNEL", "1"):
+            run.update(fit_phase(name, train, UNET_TRAIN_BATCH, UNET_TRAIN_STEPS, (IMAGE, IMAGE),
+                                 {"plane_norms": 1, "plane_norms_bwd": 1},
+                                 repo / "build" / f"smoke_{name}", dev, card,
+                                 on_module=resumed))
+        run["fit_s"] = time.perf_counter() - t0
+        runs[name] = run
+        torch.cuda.empty_cache()
+    return runs
+
+
 def main() -> None:
     t_run = time.perf_counter()
     try:
@@ -3141,6 +3328,18 @@ def main() -> None:
               + (f", library {lib_ms:.4f} ms" if lib_ms is not None else "")
               + f"; launches in its probe's run {probe_launches[counter]}")
     print(f"  phases 39-40 took {time.perf_counter() - t0:.1f} s", flush=True)
+    # This slice's path: the U-Nets, whose training steps add K10's launches.
+    unets = unet_phases(repo, dev, card)
+    for entry in kernels:
+        if entry["name"] in ("plane_norms", "plane_norms_bwd"):
+            entry["launches"] += sum(r["launches"][entry["name"]] for r in unets.values())
+    for name, r in unets.items():
+        print(f"  {name} ({r['parameters']:,} parameters): rollout {r['rollout_fps']:.2f} "
+              f"frames/s; training {r['ms_per_step']:.2f} ms/step, {r['samples_per_s']:.2f} "
+              f"samples/s, peak {r['peak_gb']:.2f} GB (batch {UNET_TRAIN_BATCH}); K10 "
+              f"{r['launches']['plane_norms']} + {r['launches']['plane_norms_bwd']} launches; "
+              f"phases 41 / 42 / 43 took {r['window_s']:.1f} / {r['rollout_s']:.1f} / "
+              f"{r['fit_s']:.1f} s", flush=True)
     print(f"  the run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

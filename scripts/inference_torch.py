@@ -14,8 +14,13 @@ are then normalized by, as ``scripts/inference.py`` does) or a bare
 from JAX params (Orbax checkpoints cannot be read without JAX); a bare state
 dict carries no constants, so the data are read unnormalized.
 
+The model rolls out in eval mode (ClassicUnet's BatchNorms read their
+running statistics).
+
     python scripts/inference_torch.py --ckpt logs/run/last.pt --data test.hdf5 \
         --model-cfg film_avit_small --steps 500 --save-dir out/
+    python scripts/inference_torch.py --ckpt logs/unet/last.pt --data test.hdf5 \
+        --model-cfg unet_classic --steps 500 --save-dir out/
 """
 from __future__ import annotations
 

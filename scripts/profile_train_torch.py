@@ -52,6 +52,15 @@ CUDA card.
     python scripts/profile_train_torch.py --batch 8 model_cfg.params.remat_policy=full
     BUBBLEFORMER_LANE_PROJ=kernel python scripts/profile_train_torch.py --model-cfg avit_small \
         --height 512 --width 2048 --batch 8 data_cfg=flowboiling_chf
+    BUBBLEFORMER_LOSS_KERNEL=1 python scripts/profile_train_torch.py --model-cfg unet_modern \
+        --batch 8
+    BUBBLEFORMER_LOSS_KERNEL=1 python scripts/profile_train_torch.py --model-cfg unet_classic \
+        --batch 8
+
+The U-Nets have no attention, embedding or remat: their JSON has
+``embed_dim``, ``attn_impl``, ``lane_proj``, ``remat`` and ``remat_policy``
+null and names the absent fields in ``fields_absent``; their convolutions
+(cuDNN) are a part of their own.
 """
 from __future__ import annotations
 
@@ -91,12 +100,18 @@ PARTS = (
     ("line kernels forward (f32 K2, K4, K5, K8, K9; K6, K7)", ("line_fwd_kernel",
                                                               "line_short_fwd_kernel")),
     ("loss plane norms (K10)", ("norms_partial_kernel", "norms_finish_kernel", "dpred_kernel")),
+    ("convolutions (cuDNN)", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "nchwToNhwc",
+                              "nhwcToNchw")),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "sgemm")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("reductions", ("reduce_kernel", "Reduce")),
     ("elementwise and copies", ("elementwise", "Elementwise", "copy", "Copy", "memcpy",
                                 "Memcpy", "memset", "Memset", "fill", "Fill", "cat", "index")),
 )
+
+
+# The JSON's fields only the AViTs have (null for the U-Nets).
+VIT_FIELDS = ("embed_dim", "attn_impl", "lane_proj", "remat", "remat_policy")
 
 
 def part_of(name: str) -> str:
@@ -177,6 +192,7 @@ def main(argv=None) -> None:
         total_steps=10_000, compute_dtype="bfloat16", device="cuda", seed=args.seed,
         loss_layout=cfg.get("loss_layout"))
     module.step = 2 * cfg["scheduler_cfg"]["params"]["warmup_iters"]  # lr > 0: every update moves
+    is_vit = hasattr(module.model, "blocks")  # an AViT: attention routes and remat
     batch = tuple(torch.from_numpy(a).to(dev) for a in synthetic_batch(
         args.batch, cfg["data_cfg"]["time_window"], len(cfg["data_cfg"]["input_fields"]),
         height, width, cfg["model_cfg"]["params"].get("num_fluid_params", 9),
@@ -230,12 +246,15 @@ def main(argv=None) -> None:
     n = args.profile_steps
     out = {
         "card": card, "model": cfg["model_cfg"]["name"],
-        "embed_dim": cfg["model_cfg"]["params"]["embed_dim"], "optimizer": cfg["optim_cfg"]["name"],
-        "attn_impl": cfg["model_cfg"]["params"].get("attn_impl", "auto"),
+        "embed_dim": module.model.embed_dim if is_vit else None,
+        "optimizer": cfg["optim_cfg"]["name"],
+        "attn_impl": cfg["model_cfg"]["params"].get("attn_impl", "auto") if is_vit else None,
         "loss_layout": module.loss_layout,
         "loss_kernel": os.environ.get("BUBBLEFORMER_LOSS_KERNEL", "0") == "1",
-        "lane_proj": os.environ.get("BUBBLEFORMER_LANE_PROJ", "xla"),
-        "remat": module.model.remat, "remat_policy": module.model.remat_policy,
+        "lane_proj": os.environ.get("BUBBLEFORMER_LANE_PROJ", "xla") if is_vit else None,
+        "remat": module.model.remat if is_vit else None,
+        "remat_policy": module.model.remat_policy if is_vit else None,
+        "fields_absent": [] if is_vit else list(VIT_FIELDS),
         "batch": args.batch, "height": height, "width": width,
         "ms_per_step": ms, "samples_per_s": 1e3 * args.batch / ms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,

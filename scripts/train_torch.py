@@ -22,6 +22,9 @@ Overrides the JAX script does not have:
         synthetic_batches=6 limit_train_batches=6 scheduler_cfg.params.warmup_iters=2
     python scripts/train_torch.py synthetic_batches=6 limit_train_batches=6 \\
         scheduler_cfg.params.warmup_iters=2 log_dir=/tmp/logs
+    BUBBLEFORMER_LOSS_KERNEL=1 python scripts/train_torch.py model_cfg=unet_modern \\
+        batch_size=8 synthetic_batches=6 limit_train_batches=6 \\
+        scheduler_cfg.params.warmup_iters=2
 """
 from __future__ import annotations
 
