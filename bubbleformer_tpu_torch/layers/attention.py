@@ -43,10 +43,18 @@ with ``memory_lean=False``: the port has no ``scan_blocks``):
 The XLA routes are not fallbacks: they are what the JAX package computes
 there.
 
+Both blocks take ``bias_type`` (``layers/positional.py:make_bias_module``):
+``"rel"`` (the T5 table), ``"continuous"`` (the MLP's ``(heads, n, n)``
+table, whose gradient the kernels return and autograd carries into the MLP)
+or ``"none"`` (every route gets None for its tables and returns no table
+gradient).  The axial block evaluates its one bias module at ``(W, W)`` and
+``(H, H)``, as the JAX block does (``:411-418``).
+
 Parameters carry the reference torch model's names and shapes on every
 route, so checkpoints interchange: the QKV and output heads are 1x1-conv
-weights ``(O, I, 1, 1)``, attn scales ``(1, heads, 1, 1)``, the T5 table
-``rel_pos_bias.relative_attention_bias``.
+weights ``(O, I, 1, 1)``, attn scales ``(1, heads, 1, 1)``, the bias module
+``rel_pos_bias`` (``relative_attention_bias`` for ``"rel"``, ``cpb_mlp`` for
+``"continuous"``, absent for ``"none"``).
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ from torch import nn
 
 from bubbleformer_tpu_torch.layers.linear import GeluMLP, dense
 from bubbleformer_tpu_torch.layers.norm import InstanceNorm, LayerNorm, accumulation_dtype
-from bubbleformer_tpu_torch.layers.positional import RelativePositionBias
+from bubbleformer_tpu_torch.layers.positional import make_bias_module
 from bubbleformer_tpu_torch.layers.stochastic import drop_path
 from bubbleformer_tpu_torch.ops.attention import (
     from_cols,
@@ -120,6 +128,12 @@ def resolve_axial_impl(impl: str, h: int, w: int, c: int, heads: int) -> str:
     return "lane" if lane_axial_supported(h, w, c, heads) else "fused_block"
 
 
+def _table(bias_module: Optional[nn.Module], n: int) -> Optional[torch.Tensor]:
+    """The ``(heads, n, n)`` bias table of a block's bias module; None for
+    ``bias_type="none"``, which has no module."""
+    return None if bias_module is None else bias_module(n, n)
+
+
 def _head(cin: int, cout: int) -> nn.Conv2d:
     """A 1x1-conv weight container: ``weight (cout, cin, 1, 1)``, ``bias (cout,)``."""
     return nn.Conv2d(cin, cout, 1)
@@ -131,7 +145,8 @@ class TemporalAttentionBlock(nn.Module):
 
     def __init__(self, embed_dim: int = 768, num_heads: int = 12,
                  layer_scale_init_value: float = 1e-6, attn_scale: bool = True,
-                 attn_impl: str = "auto", dtype: Optional[torch.dtype] = None):
+                 attn_impl: str = "auto", dtype: Optional[torch.dtype] = None,
+                 bias_type: str = "rel"):
         super().__init__()
         c, d = embed_dim, embed_dim // num_heads
         self.num_heads = num_heads
@@ -143,7 +158,7 @@ class TemporalAttentionBlock(nn.Module):
         self.output_head = _head(c, c)
         self.qnorm = LayerNorm(d)
         self.knorm = LayerNorm(d)
-        self.rel_pos_bias = RelativePositionBias(num_heads)
+        self.rel_pos_bias = make_bias_module(bias_type, num_heads)
         self.gamma = nn.Parameter(torch.full((c,), layer_scale_init_value))
         self.attn_scale_factor = (
             nn.Parameter(torch.ones(1, num_heads, 1, 1)) if attn_scale else None
@@ -157,9 +172,10 @@ class TemporalAttentionBlock(nn.Module):
         b, t, h, w, c = x.shape
         heads = self.num_heads
         scale = None if self.attn_scale_factor is None else self.attn_scale_factor.reshape(heads)
+        bias = _table(self.rel_pos_bias, t)
         impl = resolve_temporal_impl(self.attn_impl, t, h, w, c)
         if impl == "mega":
-            return drop_path(self._mega_branch(x, scale), drop_path_rate, generator,
+            return drop_path(self._mega_branch(x, bias, scale), drop_path_rate, generator,
                              self.training, mask) + x
         # The parameters are the mega route's on every route, so checkpoints
         # interchange.
@@ -169,7 +185,7 @@ class TemporalAttentionBlock(nn.Module):
                 xn if self.dtype is None else xn.to(self.dtype),
                 self.input_head.weight.reshape(3 * c, c), self.input_head.bias,
                 self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias,
-                self.rel_pos_bias(t, t), scale, heads=heads,
+                bias, scale, heads=heads,
             )
         else:
             qkv = dense(xn, self.input_head.weight.reshape(3 * c, c), self.input_head.bias,
@@ -180,14 +196,13 @@ class TemporalAttentionBlock(nn.Module):
                 def lines(a):  # (b, t, h, w, heads, d) -> (heads, b*h*w, t, d)
                     return a.permute(4, 0, 2, 3, 1, 5).reshape(heads, b * h * w, t, d)
 
-                out = _PACKED_IMPLS[impl](lines(q), lines(k), lines(v), self.rel_pos_bias(t, t),
-                                          scale)
+                out = _PACKED_IMPLS[impl](lines(q), lines(k), lines(v), bias, scale)
                 out = out.reshape(heads, b, h, w, t, d).permute(1, 4, 2, 3, 0, 5)
             else:
                 def seq(a):  # (b, t, h, w, heads, d) -> (b, h, w, heads, t, d)
                     return a.permute(0, 2, 3, 4, 1, 5)
 
-                out = xla_axis_attention(seq(q), seq(k), seq(v), self.rel_pos_bias(t, t), scale,
+                out = xla_axis_attention(seq(q), seq(k), seq(v), bias, scale,
                                          unrolled=impl == "unrolled")
                 out = out.permute(0, 4, 1, 2, 3, 5)
             out = out.reshape(b, t, h, w, c)
@@ -196,10 +211,10 @@ class TemporalAttentionBlock(nn.Module):
         branch = out * self.gamma.to(out.dtype)
         return drop_path(branch, drop_path_rate, generator, self.training, mask) + x
 
-    def _mega_branch(self, x, scale):
+    def _mega_branch(self, x, bias, scale):
         """K1 with LayerScale folded into the output projection exactly:
         gamma * (W y + b) == (gamma W) y + gamma b."""
-        t, c = x.shape[1], x.shape[-1]
+        c = x.shape[-1]
         acc = accumulation_dtype(self.gamma.dtype)
         gamma = self.gamma.to(acc)
         wout = self.output_head.weight.reshape(c, c).to(acc) * gamma[:, None]
@@ -210,7 +225,7 @@ class TemporalAttentionBlock(nn.Module):
             self.input_head.weight.reshape(3 * c, c), self.input_head.bias,
             self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias,
             self.norm2.weight, self.norm2.bias, wout, bout,
-            self.rel_pos_bias(t, t), scale, heads=self.num_heads,
+            bias, scale, heads=self.num_heads,
         )
 
 
@@ -221,7 +236,7 @@ class AxialAttentionBlock(nn.Module):
     def __init__(self, embed_dim: int = 768, num_heads: int = 12,
                  layer_scale_init_value: float = 1e-6, attn_scale: bool = True,
                  feat_scale: bool = True, attn_impl: str = "auto",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, bias_type: str = "rel"):
         super().__init__()
         c, d = embed_dim, embed_dim // num_heads
         self.num_heads = num_heads
@@ -233,7 +248,7 @@ class AxialAttentionBlock(nn.Module):
         self.output_head = _head(c, c)
         self.qnorm = LayerNorm(d)
         self.knorm = LayerNorm(d)
-        self.rel_pos_bias = RelativePositionBias(num_heads)
+        self.rel_pos_bias = make_bias_module(bias_type, num_heads)
         self.gamma_att = nn.Parameter(torch.full((c,), layer_scale_init_value))
         self.gamma_mlp = nn.Parameter(torch.full((c,), layer_scale_init_value))
         if attn_scale:
@@ -262,7 +277,7 @@ class AxialAttentionBlock(nn.Module):
         def scale(p):
             return None if p is None else p.reshape(heads)
 
-        tables = (self.rel_pos_bias(w, w), self.rel_pos_bias(h, h),
+        tables = (_table(self.rel_pos_bias, w), _table(self.rel_pos_bias, h),
                   scale(self.attn_scale_factor_x), scale(self.attn_scale_factor_y))
         lnp = (self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias)
         wqkv = self.input_head.weight.reshape(3 * c, c)

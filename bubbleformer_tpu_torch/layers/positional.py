@@ -1,14 +1,18 @@
-"""T5 bucketed relative position bias.
+"""Relative position biases of the attention blocks, chosen by ``bias_type``.
 
-Counterpart of ``bubbleformer_tpu/layers/positional.py`` (``bias_type="rel"``
-only; ``ContinuousPositionBias1D`` is not ported yet).  The bucket table is
-computed in numpy from static sequence lengths and gathers rows of a learned
-``(num_buckets, heads)`` embedding.
+Counterpart of ``bubbleformer_tpu/layers/positional.py``:
+
+* ``"rel"``: :class:`RelativePositionBias`, the T5 bucketed bias.  The
+  bucket table is computed in numpy from static sequence lengths and
+  gathers rows of a learned ``(num_buckets, heads)`` embedding.
+* ``"continuous"``: :class:`ContinuousPositionBias1D`, an MLP over the
+  normalised relative offsets.
+* ``"none"``: no module, no table (:func:`make_bias_module` returns None).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,3 +90,53 @@ class RelativePositionBias(nn.Module):
                                   self.num_buckets, self.max_distance)
             self._buckets[key] = torch.as_tensor(ids, device=table.device)
         return table[self._buckets[key]].permute(2, 0, 1).to(accumulation_dtype(table.dtype))
+
+
+class ContinuousPositionBias1D(nn.Module):
+    """Continuous MLP relative position bias, ``(heads, n, n)``, computed in
+    the parameters' float32 (float64 for float64 weights) whatever the
+    model's compute dtype.
+
+    The 2n-1 offsets ``-(n-1) .. n-1`` divided by ``max(n-1, 1)`` go through
+    ``Linear(1, hidden)``, ReLU and ``Linear(hidden, heads, bias=False)``, then
+    ``16 * sigmoid``; entry ``[h, i, j]`` is the MLP's value at offset
+    ``j - i`` (``bubbleformer_tpu/layers/positional.py:122-146``).  The MLP is
+    ``cpb_mlp``, so its parameters carry the reference's keys
+    ``cpb_mlp.0.weight``, ``cpb_mlp.0.bias`` and ``cpb_mlp.2.weight``.  One
+    instance per attention block is evaluated at every length the block
+    needs, so an axial block's MLP gradient sums both axes'.
+    """
+
+    def __init__(self, num_heads: int, hidden: int = 512):
+        super().__init__()
+        self.cpb_mlp = nn.Sequential(nn.Linear(1, hidden), nn.ReLU(),
+                                     nn.Linear(hidden, num_heads, bias=False))
+        # Offsets and gather index per (n, device): static, so built once.
+        self._grids: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def forward(self, qlen: int, klen: int) -> torch.Tensor:
+        if qlen != klen:
+            raise ValueError(f"continuous bias is defined for square attention, got "
+                             f"{qlen}x{klen}")
+        n = qlen
+        w1 = self.cpb_mlp[0].weight
+        key = (n, w1.device)
+        if key not in self._grids:
+            rel = torch.arange(-(n - 1), n, dtype=torch.float32, device=w1.device) / max(n - 1, 1)
+            coords = torch.arange(n, device=w1.device)
+            self._grids[key] = (rel[:, None], coords[None, :] - coords[:, None] + (n - 1))
+        rel, idx = self._grids[key]
+        values = 16.0 * torch.sigmoid(self.cpb_mlp(rel.to(w1.dtype)))  # (2n-1, heads)
+        return values[idx].permute(2, 0, 1).to(accumulation_dtype(w1.dtype))  # (heads, n, n)
+
+
+def make_bias_module(bias_type: str, num_heads: int) -> Optional[nn.Module]:
+    """The bias module of ``bias_type``, as the reference's switch picks it:
+    None for ``"none"``; an unknown type raises."""
+    if bias_type == "none":
+        return None
+    if bias_type == "continuous":
+        return ContinuousPositionBias1D(num_heads)
+    if bias_type == "rel":
+        return RelativePositionBias(num_heads)
+    raise ValueError(f"Unknown bias_type: {bias_type}")

@@ -14,6 +14,9 @@ the JAX models' field of that name does (``layers/attention.py:resolve_temporal_
 checkpoint each SpaceTimeBlock as the JAX models' fields of those names do
 (``layers/remat.py``); remat applies where autograd records, not in a
 rollout under ``no_grad``.
+``bias_type`` (default ``"rel"``; ``"continuous"`` or ``"none"``) picks
+every attention block's position bias, as the JAX models' field of that
+name does (``layers/positional.py:make_bias_module``).
 The JAX package's other TPU options (the ``carry="cm"`` layout,
 ``scan_blocks`` and its ``lean`` boundary, ``spatial_shard_axis``) have no
 counterpart here.
@@ -40,14 +43,16 @@ class SpaceTimeBlock(nn.Module):
 
     def __init__(self, embed_dim: int = 768, num_heads: int = 12, attn_scale: bool = True,
                  feat_scale: bool = True, layer_scale_init_value: float = 1e-6,
-                 attn_impl: str = "auto", dtype: Optional[torch.dtype] = None):
+                 attn_impl: str = "auto", dtype: Optional[torch.dtype] = None,
+                 bias_type: str = "rel"):
         super().__init__()
         self.temporal = TemporalAttentionBlock(
-            embed_dim, num_heads, layer_scale_init_value, attn_scale, attn_impl, dtype=dtype
+            embed_dim, num_heads, layer_scale_init_value, attn_scale, attn_impl, dtype=dtype,
+            bias_type=bias_type,
         )
         self.spatial = AxialAttentionBlock(
             embed_dim, num_heads, layer_scale_init_value, attn_scale, feat_scale, attn_impl,
-            dtype=dtype,
+            dtype=dtype, bias_type=bias_type,
         )
 
     def forward(self, x: torch.Tensor, drop_path_rate: float = 0.0,
@@ -84,7 +89,8 @@ class AViT(nn.Module):
                  patch_size: int = 16, embed_dim: int = 768, num_heads: int = 12,
                  processor_blocks: int = 12, drop_path: float = 0.2, attn_scale: bool = True,
                  feat_scale: bool = True, attn_impl: str = "auto", remat: bool = True,
-                 remat_policy: str = "dots", dtype: Optional[torch.dtype] = None):
+                 remat_policy: str = "dots", dtype: Optional[torch.dtype] = None,
+                 bias_type: str = "rel"):
         super().__init__()
         if patch_size < 2:
             raise ValueError("patch_size must be >= 2")
@@ -95,7 +101,7 @@ class AViT(nn.Module):
         self.embed = HMLPEmbed(patch_size, input_fields, embed_dim, dtype=dtype)
         self.blocks = nn.ModuleList(
             SpaceTimeBlock(embed_dim, num_heads, attn_scale, feat_scale, attn_impl=attn_impl,
-                           dtype=dtype)
+                           dtype=dtype, bias_type=bias_type)
             for _ in range(processor_blocks)
         )
         self.debed = HMLPDebed(patch_size, output_fields, embed_dim, dtype=dtype)

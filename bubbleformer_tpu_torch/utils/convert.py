@@ -15,6 +15,10 @@ model's and therefore the port's:
   ConvTranspose2d weight ``(I, O, 2, 2)``, flipped back.
 * norm ``scale``/``bias`` -> ``weight``/``bias``; attn scales ``(heads,)`` ->
   ``(1, heads, 1, 1)``.
+* the bias module by ``bias_type``: ``RelativePositionBias_0/embedding`` ->
+  ``rel_pos_bias.relative_attention_bias.weight``;
+  ``ContinuousPositionBias1D_0/{fc1,fc2}`` -> ``rel_pos_bias.cpb_mlp.{0,2}``
+  (Linears, fc2 without a bias); nothing for ``"none"``.
 
 ``tests/test_torch_bridge.py`` checks the round trip leaf by leaf.
 
@@ -31,11 +35,20 @@ mechanical: a path's modules joined by ``.``, and per leaf
 * ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
 
 ``tests/test_torch_unets.py`` checks that round trip leaf by leaf.
+
+The reference's own Lightning checkpoints (its model zoo) already carry the
+port's keys under a ``model.`` prefix: :func:`load_reference_checkpoint`
+reads one (as ``scripts/convert_reference_checkpoint.py:42-57`` does for
+the JAX package), :func:`reference_model_cfg` reads the AViT's config off
+its weights, and ``scripts/convert_reference_checkpoint_torch.py`` writes
+the port's checkpoint from both.
 """
 from __future__ import annotations
 
+import math
+import pickle
 import re
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,9 +78,14 @@ def _attention_block(out: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> N
         _norm(out, f"{prefix}.{name}", p[name])
     _conv1x1(out, f"{prefix}.input_head", p["input_head"])
     _conv1x1(out, f"{prefix}.output_head", p["output_head"])
-    out[f"{prefix}.rel_pos_bias.relative_attention_bias.weight"] = _t(
-        p["RelativePositionBias_0"]["embedding"]
-    )
+    if "RelativePositionBias_0" in p:
+        out[f"{prefix}.rel_pos_bias.relative_attention_bias.weight"] = _t(
+            p["RelativePositionBias_0"]["embedding"]
+        )
+    if "ContinuousPositionBias1D_0" in p:
+        mlp = p["ContinuousPositionBias1D_0"]
+        _linear(out, f"{prefix}.rel_pos_bias.cpb_mlp.0", mlp["fc1"])
+        out[f"{prefix}.rel_pos_bias.cpb_mlp.2.weight"] = _t(np.asarray(mlp["fc2"]["kernel"]).T)
     for name in ("gamma", "gamma_att", "gamma_mlp", "low_freq_scalar", "high_freq_scalar"):
         if name in p:
             out[f"{prefix}.{name}"] = _t(p[name])
@@ -143,3 +161,70 @@ def unet_params_to_state_dict(params: Mapping[str, Any],
         out[f"{path}.running_var"] = _t(s["var"])
     return out
 
+
+
+def bias_type_of(state_dict: Mapping[str, Any]) -> str:
+    """The ``bias_type`` an AViT's state dict was built with: ``"rel"``
+    (T5 tables), ``"continuous"`` (``cpb_mlp`` weights) or ``"none"``."""
+    if any(k.endswith("rel_pos_bias.relative_attention_bias.weight") for k in state_dict):
+        return "rel"
+    if any(".rel_pos_bias.cpb_mlp." in k for k in state_dict):
+        return "continuous"
+    return "none"
+
+
+def reference_model_cfg(state_dict: Mapping[str, Any], patch_size: int = 16,
+                        blocks: int = 12) -> Dict[str, Any]:
+    """The model config (``{"name", "params"}``, field counts included) of
+    an AViT / FiLMAViT state dict with the port's (the reference's) keys:
+    widths, heads, fields, fluid parameters, ``attn_scale``, ``feat_scale``
+    and ``bias_type`` read off the weights; ``patch_size`` and ``blocks``
+    as given, so a state dict of another depth or patch fails to load
+    strictly, naming its keys."""
+    sd = state_dict
+    embed_dim = sd["blocks.0.temporal.gamma"].shape[0]
+    last_debed = 3 * (int(math.log2(patch_size)) - 1)
+    params = dict(
+        patch_size=patch_size, processor_blocks=blocks, embed_dim=embed_dim,
+        num_heads=embed_dim // sd["blocks.0.temporal.qnorm.weight"].shape[0],
+        input_fields=sd["embed.in_proj.0.weight"].shape[1],
+        output_fields=sd[f"debed.out_proj.{last_debed}.weight"].shape[1],
+        attn_scale="blocks.0.temporal.attn_scale_factor" in sd,
+        feat_scale="blocks.0.spatial.low_freq_scalar" in sd,
+        bias_type=bias_type_of(sd),
+    )
+    if "film_embed.film_net.1.weight" not in sd:
+        return {"name": "avit", "params": params}
+    params["num_fluid_params"] = sd["film_embed.film_net.1.weight"].shape[1]
+    return {"name": "filmavit", "params": params}
+
+
+def load_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                                  Optional[Tuple[Dict, Dict]], int]:
+    """``(state_dict, normalization_constants, global_step)`` of a reference
+    Lightning ``.ckpt`` (or a bare state dict): the model's tensors with the
+    ``model.`` prefix stripped, the ``(diff, div)`` constants from
+    ``hyper_parameters["normalization_constants"]`` (None where it has
+    none) and ``global_step`` (0 where it has none), as
+    ``scripts/convert_reference_checkpoint.py:42-57`` reads them.
+
+    A Lightning checkpoint pickles its hyper-parameters and loop state,
+    which may hold objects (a config class, numpy scalars) that torch's
+    weights-only unpickler refuses.  Such a file is read again with
+    ``weights_only=False``, which runs the pickle's code: read only
+    checkpoints from a source you trust.  This function is the port's one
+    place that does so."""
+    try:
+        data = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        data = torch.load(path, map_location="cpu", weights_only=False)
+    state = data["state_dict"] if "state_dict" in data else data
+    state_dict = {(k[len("model."):] if k.startswith("model.") else k): v
+                  for k, v in state.items()}
+    hp = data.get("hyper_parameters") or {}
+    norm = None
+    if hp.get("normalization_constants"):
+        diff, div = hp["normalization_constants"]
+        norm = ({k: float(v) for k, v in dict(diff).items()},
+                {k: float(v) for k, v in dict(div).items()})
+    return state_dict, norm, int(data.get("global_step", 0))

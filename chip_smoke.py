@@ -15,7 +15,9 @@ FiLMAViT-small with ``attn_impl=flash`` (K8 in both branches) training on
 the loss kernel (K10), the four measurement probes (P1-P4,
 ``scripts/probe_*_torch.py``) at their default shapes, and the U-Net
 baselines at their configs' full width (ModernUnet, 566.7M parameters;
-ClassicUnet with its BatchNorm running statistics) training on K10.  The
+ClassicUnet with its BatchNorm running statistics) training on K10, every
+model-path kernel with continuous tables and with none, FiLMAViT-small with
+``bias_type=continuous`` and a converted reference checkpoint.  The
 serving path (the autoregressive rollout) and the training path
 (``Trainer.fit``: Lion, or AdamW where the config says, with cosine
 warmup); and the hand-written kernels on the way, each at the shapes its
@@ -230,7 +232,32 @@ paths give it — the rollout's (batch 1) and the training step's:
    ``last.pt`` restored into a fresh module with the step and every tensor
    (the statistics too) equal; ms/step, samples/s, peak memory and each
    phase's seconds.  K10's entries in the kernels line count these
-   launches with path F's.
+   launches with path F's;
+44. K1-K9 once more at their training shapes (``TABLE_SHAPES``) in
+   bfloat16, forward and every gradient against the plain versions
+   (``KERNEL_RTOL``): with tables from a seeded ``ContinuousPositionBias1D``
+   (values about 0.3 to 15.7, ``CPB_DRAW``) and with none, where every
+   table gradient must come back None;
+45. FiLMAViT-small at 512^2 with ``bias_type=continuous`` on the default
+   route (K1, K2), seeded weights (the MLPs as phase 44 draws them, FiLM
+   near identity): one float32 window and one float32 training step at
+   batch 1, the card's kernels against the plain route on the card (the
+   window within ``NEW_WINDOW_RTOL``, the loss and every gradient, the 72
+   ``cpb_mlp`` ones among them, within ``SLICE_STEP_RTOL``);
+   ``Trainer.fit`` in bfloat16 at batch 8 under remat "dots" for 4 steps
+   and a validation batch, with ``transfer_dtype=bfloat16``, a profiler
+   window over steps (1, 3) whose trace must name K1's and K2's kernels and
+   no other step, ``use_wandb`` with ``wandb`` kept from importing where
+   it is installed (no run may reach a network; the CSV must still be
+   written) and the validation panels where ``matplotlib`` imports
+   (printed which); launches as phase 10's plus a validation
+   window's; then a 20-window bfloat16 rollout, frames/s;
+46. a Lightning-style ``.ckpt`` of AViT-small at full width (seeded
+   weights under ``model.``, ``hyper_parameters.normalization_constants``,
+   ``global_step``) through ``scripts/convert_reference_checkpoint_torch.py``
+   in a subprocess; the result restored into a training module (every
+   tensor, both constant tables and the step equal to what went in) and
+   rolled out for 10 windows in bfloat16 on K1 and K2.
 
 K2's, K4's, K5's, K6's, K7's, K8's and K9's wrappers count every call on
 the card (``lane_axial_attention``, ``fused_block_attention``,
@@ -1096,12 +1123,15 @@ def rollout_phase(label: str, model, init, windows: int, per_window: dict, card:
 
 
 def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: dict,
-              log_dir: Path, dev, card: str, fluid=None, on_module=None) -> dict:
+              log_dir: Path, dev, card: str, fluid=None, on_module=None, trainer_kw=None,
+              val_launches=None) -> dict:
     """``Trainer.fit`` in bfloat16 on ``steps`` synthetic batches of
     ``frame`` = (H, W) pixels (with ``fluid`` fluid parameters, which an
     unconditioned model ignores) after one warm-up step: every loss finite,
     the launches ``per_step``, every parameter with a gradient moved; then
-    ``on_module(module, log_dir)`` where it is given.  The peak memory covers
+    ``on_module(module, log_dir)`` where it is given.  ``trainer_kw`` goes to
+    the ``Trainer``; with ``val_launches`` (a validation batch's launches)
+    the run also validates on one synthetic batch.  The peak memory covers
     the steady steps (its statistics reset after the warm-up step).  Returns
     ms/step, samples/s, peak GB and the launches."""
     import torch
@@ -1114,7 +1144,7 @@ def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: d
                                                compute_dtype="bfloat16", device=dev.type,
                                                seed=SEED)
     trainer = Trainer(module, log_dir=str(log_dir), limit_train_batches=steps, seed=SEED,
-                      log_every=1)
+                      log_every=1, **(trainer_kw or {}))
     t, fields = data_cfg["time_window"], len(data_cfg["input_fields"])
     warm = synthetic_batch(batch, t, fields, *frame, fluid, seed=SEED + 30)
     module.train_step(tuple(torch.from_numpy(a).to(dev) for a in warm),
@@ -1123,18 +1153,25 @@ def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: d
     zero_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    val = None if val_launches is None else SyntheticLoader(
+        1, batch, t, fields, frame[0], fluid, seed=SEED + 41, width=frame[1])
     trainer.fit(SyntheticLoader(steps, batch, t, fields, frame[0], fluid, seed=SEED + 31,
-                                width=frame[1]), max_epochs=1)
+                                width=frame[1]), val, max_epochs=1)
     torch.cuda.synchronize()
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     seconds = trainer.last_epoch_seconds
     with open(log_dir / "metrics.csv") as f:
-        losses = [float(row.split(",")[3]) for row in f.read().splitlines()[1:]]
-    print(f"  losses {losses}")
+        rows = [row.split(",") for row in f.read().splitlines()[1:]]
+    losses = [float(r[3]) for r in rows if r[2] == "train"]
+    print(f"  losses {losses}" + ("" if val is None else
+                                  f", validation {[float(r[3]) for r in rows if r[2] == 'val']}"))
     if len(losses) != steps or not np.all(np.isfinite(losses)):
         fail(f"{label}: expected {steps} finite losses, got {losses}")
-    check_launches(f"{label} Trainer.fit", launches, with_dtype_paths(per_step, "bfloat16"), steps)
+    val_launches = val_launches or {}
+    want = {k: per_step.get(k, 0) * steps + val_launches.get(k, 0)
+            for k in set(per_step) | set(val_launches)}
+    check_launches(f"{label} Trainer.fit", launches, with_dtype_paths(want, "bfloat16"), 1)
     unmoved = [(n, p) for n, p in module.model.named_parameters() if torch.equal(before[n], p)]
     stuck = [n for n, p in unmoved if p.grad is not None and bool(p.grad.any())]
     if stuck:
@@ -2517,6 +2554,398 @@ def unet_phases(repo: Path, dev, card: str) -> dict:
     return runs
 
 
+# Phases 44-46: ``bias_type``.  Phase 44 runs each model-path kernel once
+# more at its training shape in bfloat16, forward and backward against its
+# plain version (``KERNEL_RTOL``): with a table from a seeded
+# ``ContinuousPositionBias1D`` (values in (0, 16), up to 16 added to the
+# logits where the T5 tables of ``branch_args`` add N(0, 1)), and with no
+# table, where the table gradient must come back None.  The shapes are those
+# of the training paths that launch each kernel: K1 and K2 FiLMAViT-small's,
+# K3 AViT-big's (12 heads), K4-K7 and K9 AViT-small's or FiLMAViT-small's
+# (6 heads on 32x32 tokens, batch 8), K8 path F's temporal and axial lines.
+TABLE_SHAPES = {"K1": (TRAIN_BATCH, TIME_WINDOW, 32, 32, 384),
+                "K2": (TRAIN_BATCH * TIME_WINDOW, 32, 32, 1152),
+                "K3": (TRAIN_BATCH, TIME_WINDOW, 32, 32, 768),
+                "K4": (TRAIN_BATCH * TIME_WINDOW, 32, 32, 1152),
+                "K5": (TRAIN_BATCH * TIME_WINDOW, 32, 32, 384),
+                "K6": (TRAIN_BATCH * TIME_WINDOW, 32, 32, 6, 64),
+                "K7": (TRAIN_BATCH * TIME_WINDOW, 32, 32, 6, 64),
+                "K8 temporal": FLASH_SHAPES["temporal training"],
+                "K8 axial": FLASH_SHAPES["axial training"],
+                "K9": PX_SHAPES["training"]}
+# The continuous MLP's draw: fc1 N(0, 2^2) with N(0, 1) biases and fc2
+# N(0, 1.5^2 / 512), so its logits spread over about a unit either way and
+# the tables over most of (0, 16), about 0.7 to 15.2 (the module's own init
+# leaves them near 8, a constant that no softmax sees).
+CPB_DRAW = {"fc1": 2.0, "fc2": 1.5}
+# The kernels' activation arguments, cast to bfloat16 (the rest, parameters
+# and tables, stay float32 as the layers pass them).
+ACTIVATIONS = ("x", "xn", "qkv", "q", "k", "v")
+
+
+def seeded_continuous_bias(heads: int, seed: int, dev):
+    """A ``ContinuousPositionBias1D`` of ``heads`` on ``dev`` with weights
+    drawn from ``seed`` (``CPB_DRAW``)."""
+    import torch
+    from bubbleformer_tpu_torch.layers.positional import ContinuousPositionBias1D
+
+    rng = np.random.default_rng(seed)
+    cpb = ContinuousPositionBias1D(heads)
+    fc1, fc2 = cpb.cpb_mlp[0], cpb.cpb_mlp[2]
+    with torch.no_grad():
+        for p, scale in ((fc1.weight, CPB_DRAW["fc1"]), (fc1.bias, 1.0),
+                         (fc2.weight, CPB_DRAW["fc2"] / fc2.weight.shape[1] ** 0.5)):
+            p.copy_(torch.from_numpy((scale * rng.standard_normal(p.shape)).astype(np.float32)))
+    return cpb.to(dev)
+
+
+def table_kernel_args(key: str, rng, dev):
+    """``(fwd, bwd, plain, bwd_plain, args, heads, tables, zero_noise)`` of a
+    model-path kernel at ``TABLE_SHAPES[key]``: its entry points (the
+    forward returning residuals for K1 and K5), float32 arguments in call
+    order (the activation first), the heads keyword (None where the kernel
+    takes none), each table argument's length, and whether the k-LayerNorm
+    bias's gradient is held to the plain version's noise (K5 and K9, as
+    phases 24 and 35 hold them)."""
+    import torch
+    from bubbleformer_tpu_torch.ops import axial_block_mega as k5
+    from bubbleformer_tpu_torch.ops import axial_fused as k7
+    from bubbleformer_tpu_torch.ops import axial_fused_block as k4
+    from bubbleformer_tpu_torch.ops import axial_fused_packed as k6
+    from bubbleformer_tpu_torch.ops import axial_lane as k2
+    from bubbleformer_tpu_torch.ops import axial_lane_px as k9
+    from bubbleformer_tpu_torch.ops import axial_pallas as k8
+    from bubbleformer_tpu_torch.ops import temporal_block_mega as k13
+
+    shape = TABLE_SHAPES[key]
+
+    def n(*s, scale=1.0, offset=0.0):
+        return torch.from_numpy((offset + scale * rng.standard_normal(s)).astype(np.float32))
+
+    def scale(heads):
+        return torch.from_numpy(rng.uniform(0.5, 1.5, heads).astype(np.float32))
+
+    fns = {"K1": (k13.mega_temporal_block_fwd, k13.mega_temporal_block_bwd,
+                  k13.temporal_branch_plain, k13.temporal_branch_bwd_plain),
+           "K3": (k13.core_temporal_attention_fwd, k13.core_temporal_attention_bwd,
+                  k13.core_temporal_plain, k13.core_temporal_bwd_plain),
+           "K5": (k5.mega_axial_block_fwd, k5.mega_axial_block_bwd, k5.mega_axial_plain,
+                  k5.mega_axial_bwd_plain),
+           "K2": (k2.lane_axial_attention, k2.lane_axial_attention_bwd,
+                  k2.axial_attention_plain, k2.axial_attention_bwd_plain),
+           "K4": (k4.fused_block_attention, k4.fused_block_attention_bwd, k4.fused_block_plain,
+                  k4.fused_block_bwd_plain),
+           "K6": (k6.fused_axial_attention_packed, k6.fused_axial_attention_packed_bwd,
+                  k6.fused_packed_plain, k6.fused_packed_bwd_plain),
+           "K7": (k7.fused_axial_attention, k7.fused_axial_attention_bwd, k7.fused_plain,
+                  k7.fused_bwd_plain),
+           "K8": (k8.flash_packed_attention, k8.flash_packed_attention_bwd, k8.flash_plain,
+                  k8.flash_bwd_plain),
+           "K9": (k9.lane_px_attention, k9.lane_px_attention_bwd, k9.lane_px_plain,
+                  k9.lane_px_bwd_plain)}[key[:2]]
+    if key[:2] in ("K1", "K3", "K5"):
+        heads = shape[-1] // 64
+        args = branch_args(key[:2], shape, heads, rng)
+        tables = ({"bias": shape[1]} if key[:2] != "K5" else
+                  {"bias_x": shape[2], "bias_y": shape[1]})
+    elif key[:2] in ("K2", "K4", "K9"):
+        bt, h, w, c = shape
+        heads = 6
+        d = (c // 3 if key[:2] != "K9" else c) // heads
+        first = (dict(qkv=n(*shape)) if key[:2] != "K9" else
+                 dict(x=n(*shape), wqkv=n(3 * c, c, scale=c**-0.5), bqkv=n(3 * c, scale=0.1)))
+        args = dict(first, qn_scale=n(d, scale=0.1, offset=1.0), qn_bias=n(d, scale=0.1),
+                    kn_scale=n(d, scale=0.1, offset=1.0), kn_bias=n(d, scale=0.1),
+                    bias_x=None, bias_y=None, scale_x=scale(heads), scale_y=scale(heads))
+        tables = {"bias_x": w, "bias_y": h}
+    elif key[:2] in ("K6", "K7"):
+        bt, h, w, heads, d = shape
+        args = dict(q=n(*shape), k=n(*shape), v=n(*shape), bias_x=None, bias_y=None,
+                    scale_x=scale(heads), scale_y=scale(heads))
+        tables, heads = {"bias_x": w, "bias_y": h}, None
+    else:
+        heads_, _, length, _ = shape
+        args = dict(q=n(*shape), k=n(*shape), v=n(*shape), bias=None,
+                    scale_factor=scale(heads_))
+        tables, heads = {"bias": length}, None
+    args = {k: None if v is None else v.to(dev) for k, v in args.items()}
+    return (*fns, args, heads, tables, key[:2] in ("K5", "K9"))
+
+
+def table_kernel_phase(dev) -> None:
+    """Phase 44: every model-path kernel (``TABLE_SHAPES``) in bfloat16,
+    forward and every gradient against its plain version (``KERNEL_RTOL``),
+    with seeded continuous tables and with none (the table gradients None
+    on both sides)."""
+    import torch
+
+    cpbs = {}  # one seeded MLP per head count
+    for i, key in enumerate(TABLE_SHAPES):
+        fwd, bwd, plain, bwd_plain, base, heads, tables, zero_noise = table_kernel_args(
+            key, np.random.default_rng(SEED + 120 + i), dev)
+        kw = {} if heads is None else {"heads": heads}
+        acts = {k: base[k].to(torch.bfloat16) for k in ACTIVATIONS if k in base}
+        table_heads = heads or next(v for k, v in base.items() if "scale" in k).shape[0]
+        if table_heads not in cpbs:
+            cpbs[table_heads] = seeded_continuous_bias(table_heads, SEED + 140 + table_heads, dev)
+        with torch.no_grad():
+            cont = {k: cpbs[table_heads](n, n) for k, n in tables.items()}
+        for case, given in (("continuous", cont), ("none", dict.fromkeys(tables))):
+            args = dict(base, **given, **acts)
+            got = fwd(*args.values(), **kw)
+            got, res = got if isinstance(got, tuple) else (got, None)
+            kept = {} if res is None else {"residuals": res}
+            ref = plain(**args, **kw)
+            torch.cuda.synchronize()
+            compare(f"{key} bfloat16 {case} tables {TABLE_SHAPES[key]}", got, ref,
+                    KERNEL_RTOL["bfloat16"])
+            do = torch.from_numpy(np.random.default_rng(SEED + 130 + i).standard_normal(
+                tuple(got.shape)).astype(np.float32)).to(dev, torch.bfloat16)
+            del got, ref
+            got = bwd(do, *args.values(), **kw, **kept)
+            ref = bwd_plain(do, **args, **kw)
+            torch.cuda.synchronize()
+            names = tuple(args)
+            compare_grads(f"{key} bwd bfloat16 {case} tables", names, got, ref,
+                          KERNEL_RTOL["bfloat16"], zero_noise=zero_noise)
+            for t in tables:
+                g, r = got[names.index(t)], ref[names.index(t)]
+                if (g is None) != (case == "none") or (r is None) != (case == "none"):
+                    fail(f"{key} {case} tables: the gradient of {t} is "
+                         f"{'None' if g is None else 'a tensor'} (plain: "
+                         f"{'None' if r is None else 'a tensor'})")
+            if case == "continuous":
+                lo = min(float(v.min()) for v in cont.values())
+                hi = max(float(v.max()) for v in cont.values())
+                print(f"  {key}: continuous tables in [{lo:.3f}, {hi:.3f}]", flush=True)
+            del got, ref, do, res, kept, args
+        del base, cont, acts
+
+
+
+# Phase 45: the slice at full width.  A float32 window and a float32
+# training step (batch 1, FiLM near identity) of FiLMAViT-small with
+# ``bias_type=continuous``, the card's kernels against the plain route on the
+# card: summation order alone, so the window is held to NEW_WINDOW_RTOL and
+# each gradient to 1e-3 of its own largest magnitude (phase 9 reads each
+# side within ~4e-5 of float64; a wrong table gradient would be O(1)).
+SLICE_STEP_RTOL = {"loss": 1e-4, "grads": 1e-3}
+SLICE_TRAIN_STEPS = 4
+SLICE_PROFILE_STEPS = (1, 3)
+REFERENCE_WINDOWS = 10
+# The forward kernels of the default route's window (K1, K2), one a block.
+DEFAULT_WINDOW = {"mega_temporal_block": 12, "lane_axial_attention": 12}
+
+
+@contextlib.contextmanager
+def without_module(name: str):
+    """``import name`` fails inside (``sys.modules[name] = None``), whether
+    or not the package is installed; as it was after."""
+    saved = sys.modules.get(name)
+    sys.modules[name] = None
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules[name]
+        else:
+            sys.modules[name] = saved
+
+
+def continuous_weights(weights, seed: int):
+    """``weights`` with every ``cpb_mlp`` drawn as ``seeded_continuous_bias``
+    draws it, so the tables spread over most of (0, 16)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = dict(weights)
+    for name, p in weights.items():
+        if ".cpb_mlp." in name:
+            scale = {"0.weight": CPB_DRAW["fc1"], "0.bias": 1.0,
+                     "2.weight": CPB_DRAW["fc2"] / p.shape[-1] ** 0.5}[name.split(".cpb_mlp.")[1]]
+            out[name] = torch.from_numpy((scale * rng.standard_normal(p.shape))
+                                         .astype(np.float32))
+    return out
+
+
+def continuous_slice_phase(repo: Path, dev, card: str) -> dict:
+    """Phase 45: FiLMAViT-small at 512^2 with ``bias_type=continuous`` on the
+    default route (K1, K2): a float32 window and a float32 training step's
+    gradients (the ``cpb_mlp`` ones among them), card against the plain
+    route on the card; ``Trainer.fit`` in bfloat16 at batch 8 under remat
+    "dots" with ``transfer_dtype=bfloat16``, a profiler window whose trace
+    must name K1's and K2's kernels, ``use_wandb`` with ``wandb`` kept from
+    importing whether or not it is installed (no run may reach a network;
+    the CSV must still be written) and the validation panels where
+    ``matplotlib`` imports; a 20-window bfloat16 rollout."""
+    import importlib.util
+
+    import torch
+    from bubbleformer_tpu_torch.config import load_config
+    from bubbleformer_tpu_torch.data import synthetic_batch
+    from bubbleformer_tpu_torch.models import build_model
+
+    cfg = load_config(["model_cfg.params.bias_type=continuous",
+                       "scheduler_cfg.params.warmup_iters=2"])
+    model_cfg, data_cfg = cfg["model_cfg"], cfg["data_cfg"]
+    train = (model_cfg, data_cfg, cfg["optim_cfg"], cfg["scheduler_cfg"])
+    model = build_model(model_cfg, data_cfg)
+    if model_cfg["name"] != "filmavit" or model.embed_dim != 384 or len(model.blocks) != 12:
+        fail("the default composition's model is not FiLMAViT-small")
+    weights = continuous_weights(film_near_identity(random_state_dict(model, SEED + 150),
+                                                    SEED + 151), SEED + 152)
+    mlp = [k for k in weights if ".cpb_mlp." in k]
+    if len(mlp) != 3 * 2 * 12:
+        fail(f"expected 72 cpb_mlp tensors, found {len(mlp)}")
+    del model
+    run = {}
+    rng = np.random.default_rng(SEED + 153)
+    x = torch.from_numpy(rng.standard_normal((1, TIME_WINDOW, FIELDS, IMAGE, IMAGE))
+                         .astype(np.float32))
+    cond = torch.tensor([FLUID_PARAMS], dtype=torch.float32)
+
+    t0 = time.perf_counter()
+    print(f"== phase 45: FiLMAViT-small bias_type=continuous at {IMAGE}^2: a float32 window "
+          "and a training step's gradients, card vs the plain route on the card", flush=True)
+    gpu = build_model(model_cfg, data_cfg).eval().to(dev)
+    gpu.load_state_dict(weights)
+    with torch.no_grad():
+        zero_counters()
+        y = gpu(x.to(dev), cond.to(dev))
+        torch.cuda.synchronize()
+        check_launches("continuous window", read_counters(),
+                       with_dtype_paths(DEFAULT_WINDOW, "float32"), 1)
+        with plain_attention():
+            y_plain = gpu(x.to(dev), cond.to(dev))
+    compare("continuous window f32 card vs plain route", y, y_plain, NEW_WINDOW_RTOL)
+    del gpu, y_plain
+    batch = synthetic_batch(1, TIME_WINDOW, FIELDS, IMAGE, IMAGE, 9, seed=SEED + 154)
+    loss, grads, secs = train_step_grads(train, weights, batch, dev.type, torch.float32)
+    loss_p, grads_p, _ = train_step_grads(train, weights, batch, dev.type, torch.float32,
+                                          plain=True)
+    if abs(loss - loss_p) > SLICE_STEP_RTOL["loss"] * abs(loss_p):
+        fail(f"continuous step: loss {loss} on the kernels, {loss_p} on the plain route")
+    errs, zero = step_errors(grads_p, grads)
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    mlp_err = max(errs[k] for k in mlp)
+    if worst[0][1] > SLICE_STEP_RTOL["grads"] or any(not grads[k].any() for k in mlp):
+        fail(f"continuous step gradients vs the plain route: worst {worst}, cpb_mlp {mlp_err}")
+    print(f"  step {secs:.2f} s, loss {loss:.7f} (plain {loss_p:.7f}); gradients vs the plain "
+          f"route: worst " + ", ".join(f"{n} {e:.2e}" for n, e in worst) + f"; the 72 cpb_mlp "
+          f"gradients within {mlp_err:.2e} (tol {SLICE_STEP_RTOL['grads']:.0e}); {len(zero)} "
+          "zero up to rounding", flush=True)
+    del grads, grads_p
+    run["window_step_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    installed = importlib.util.find_spec("wandb") is not None
+    plot = importlib.util.find_spec("matplotlib") is not None
+    print(f"== phase 45: Trainer.fit bfloat16 batch {TRAIN_BATCH}, {SLICE_TRAIN_STEPS} steps, "
+          f"transfer_dtype=bfloat16, profiler window {SLICE_PROFILE_STEPS}, use_wandb=True with "
+          f"wandb kept from importing (installed here: {installed}), plot_val_samples={plot} "
+          f"(matplotlib {'imports' if plot else 'absent'})", flush=True)
+    log_dir = repo / "build" / "smoke_continuous"
+    trace_dir = log_dir / "trace"
+
+    def inspect(module, log_dir):
+        trace = trace_dir / "train_steps_{}-{}.pt.trace.json".format(*SLICE_PROFILE_STEPS)
+        if not trace.exists():
+            fail(f"no profiler trace at {trace}")
+        text = trace.read_text()
+        found = {k: text.count(k) for k in ("temporal_attention_kernel", "temporal_attention_bwd",
+                                            "lane_fwd_kernel", "lane_bwd_")}
+        steps = [s for s in range(SLICE_TRAIN_STEPS + 2) if f'"train_step {s}"' in text]
+        if not all(found.values()) or steps != list(range(*SLICE_PROFILE_STEPS)):
+            fail(f"the trace names kernels {found} and steps {steps}")
+        panels = sorted(p.name for p in (log_dir / "val_epoch_0").glob("*.png")) if plot else []
+        if plot and len(panels) != 6:
+            fail(f"validation panels {panels}")
+        print(f"  trace {trace.stat().st_size / 1e6:.1f} MB over steps {steps}: K1's and K2's "
+              f"kernels named {found}; validation panels {panels or 'not asked for'}", flush=True)
+
+    per_step = dict(dots_step(DEFAULT_WINDOW), mega_temporal_block_bwd=12,
+                    lane_axial_attention_bwd=12)
+    with without_module("wandb"):
+        run.update(fit_phase(
+            "FiLMAViT-small continuous", train, TRAIN_BATCH, SLICE_TRAIN_STEPS, (IMAGE, IMAGE),
+            per_step, log_dir, dev, card, fluid=9, on_module=inspect,
+            val_launches=DEFAULT_WINDOW,
+            trainer_kw=dict(transfer_dtype="bfloat16", profile_dir=str(trace_dir),
+                            profile_steps=SLICE_PROFILE_STEPS, use_wandb=True,
+                            plot_val_samples=plot)))
+    run["fit_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    print(f"== phase 45: {WINDOWS}-window bfloat16 rollout, bias_type=continuous", flush=True)
+    bf = build_model(model_cfg, data_cfg, compute_dtype="bfloat16").eval().to(dev)
+    bf.load_state_dict(weights)
+    run["rollout_fps"] = rollout_phase("FiLMAViT-small continuous", bf, x.to(dev), WINDOWS,
+                                       DEFAULT_WINDOW, card, reference=y, cond=cond.to(dev))
+    del bf, y
+    run["rollout_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return run
+
+
+def reference_ckpt_phase(repo: Path, dev, card: str) -> float:
+    """Phase 46: a reference Lightning-style ``.ckpt`` of AViT-small at full
+    width (seeded weights under ``model.``, ``hyper_parameters.
+    normalization_constants``, ``global_step``) through
+    ``scripts/convert_reference_checkpoint_torch.py`` in a subprocess, the
+    result restored into a training module with every tensor, both constant
+    tables and the step equal to what went in, then a bfloat16 rollout of
+    ``REFERENCE_WINDOWS`` windows on the card.  Returns its seconds."""
+    import torch
+    from bubbleformer_tpu_torch.config import load_config
+    from bubbleformer_tpu_torch.models import build_model
+    from bubbleformer_tpu_torch.training import module_class, restore_checkpoint
+
+    t0 = time.perf_counter()
+    print("== phase 46: a reference Lightning checkpoint of AViT-small converted, restored "
+          f"and rolled out for {REFERENCE_WINDOWS} windows", flush=True)
+    cfg = load_config(["model_cfg=avit_small"])
+    model_cfg, data_cfg = cfg["model_cfg"], cfg["data_cfg"]
+    weights = random_state_dict(build_model(model_cfg, data_cfg), SEED + 160)
+    fields = data_cfg["output_fields"]
+    norm = ({f: 0.125 * (i + 1) for i, f in enumerate(fields)},
+            {f: 1.5 + i for i, f in enumerate(fields)})
+    work = repo / "build" / "smoke_reference"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckpt, out = work / "avit_small.ckpt", work / "avit_small.pt"
+    torch.save({"state_dict": {f"model.{k}": v for k, v in weights.items()}, "global_step": 1234,
+                "epoch": 3, "hyper_parameters": {"normalization_constants": norm, "lr": 5e-5}},
+               ckpt)
+    proc = subprocess.run(
+        [sys.executable, str(repo / "scripts" / "convert_reference_checkpoint_torch.py"),
+         "--ckpt", str(ckpt), "--patch-size", "16", "--blocks", "12", "--out", str(out)],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"the converter exited {proc.returncode}: {proc.stderr[-2000:]}")
+    print("  " + "\n  ".join(proc.stdout.strip().splitlines()), flush=True)
+    module = module_class(model_cfg, data_cfg)(model_cfg, data_cfg, cfg["optim_cfg"],
+                                               cfg["scheduler_cfg"], total_steps=1,
+                                               compute_dtype="bfloat16", device=dev.type,
+                                               seed=SEED + 161)
+    restore_checkpoint(str(out), module)
+    state = module.model.state_dict()
+    differ = [k for k, v in weights.items() if not torch.equal(state[k].cpu(), v)]
+    if differ or len(state) != len(weights) or module.step != 1234 or tuple(
+            module.normalization_constants) != norm:
+        fail(f"restored: {len(differ)} tensors differ ({differ[:4]}), step {module.step}, "
+             f"constants {module.normalization_constants}")
+    print(f"  restored {len(state)} tensors equal, step {module.step}, both constant tables "
+          "equal", flush=True)
+    x = torch.from_numpy(np.random.default_rng(SEED + 162).standard_normal(
+        (1, TIME_WINDOW, FIELDS, IMAGE, IMAGE)).astype(np.float32)).to(dev)
+    rollout_phase("AViT-small reference checkpoint", module.model.eval(), x, REFERENCE_WINDOWS,
+                  DEFAULT_WINDOW, card)
+    del module
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
 def main() -> None:
     t_run = time.perf_counter()
     try:
@@ -3340,6 +3769,22 @@ def main() -> None:
               f"{r['launches']['plane_norms']} + {r['launches']['plane_norms_bwd']} launches; "
               f"phases 41 / 42 / 43 took {r['window_s']:.1f} / {r['rollout_s']:.1f} / "
               f"{r['fit_s']:.1f} s", flush=True)
+    # This slice: bias_type through the kernels, the continuous slice at full
+    # width, a reference checkpoint.
+    t0 = time.perf_counter()
+    print(f"== phase 44: every model-path kernel in bfloat16 with continuous tables and with "
+          f"none, {', '.join(TABLE_SHAPES)}", flush=True)
+    table_kernel_phase(dev)
+    t_tables = time.perf_counter() - t0
+    cont = continuous_slice_phase(repo, dev, card)
+    t_reference = reference_ckpt_phase(repo, dev, card)
+    print(f"  FiLMAViT-small continuous: rollout {cont['rollout_fps']:.2f} frames/s; training "
+          f"{cont['ms_per_step']:.2f} ms/step, {cont['samples_per_s']:.2f} samples/s, peak "
+          f"{cont['peak_gb']:.2f} GB (batch {TRAIN_BATCH}, transfer_dtype=bfloat16, profiler "
+          f"on for steps {SLICE_PROFILE_STEPS})", flush=True)
+    print(f"  phases 44 / 45 (window and step, fit, rollout) / 46 took {t_tables:.1f} / "
+          f"{cont['window_step_s']:.1f}, {cont['fit_s']:.1f}, {cont['rollout_s']:.1f} / "
+          f"{t_reference:.1f} s", flush=True)
     print(f"  the run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,7 +12,11 @@ are then normalized by, as ``scripts/inference.py`` does) or a bare
 ``torch.save``d state dict of the port's model, such as
 ``bubbleformer_tpu_torch.utils.convert.jax_params_to_state_dict`` writes
 from JAX params (Orbax checkpoints cannot be read without JAX); a bare state
-dict carries no constants, so the data are read unnormalized.
+dict carries no constants, so the data are read unnormalized.  A reference
+Lightning checkpoint is read after ``scripts/convert_reference_checkpoint_torch.py``
+has converted it.  An AViT's ``bias_type`` is read off the weights
+(``utils/convert.py:bias_type_of``), so a checkpoint of any bias type loads
+under its model config.
 
 The model rolls out in eval mode (ClassicUnet's BatchNorms read their
 running statistics).
@@ -43,6 +47,7 @@ from bubbleformer_tpu_torch.inference import (
 )
 from bubbleformer_tpu_torch.models import build_model
 from bubbleformer_tpu_torch.training import load_checkpoint, module_class, resolve_device
+from bubbleformer_tpu_torch.utils.convert import bias_type_of
 from bubbleformer_tpu_torch.utils.metrics import (
     eikonal_residual_per_step,
     mass_conservation_drift,
@@ -97,6 +102,8 @@ def main(argv=None) -> None:
     # without FiLM are left unused, as in training.
     conditioned = module_class(cfg["model_cfg"], data_cfg).conditioned
 
+    if cfg["model_cfg"]["name"].lower() in ("avit", "filmavit"):
+        cfg["model_cfg"]["params"]["bias_type"] = bias_type_of(state)
     model = build_model(cfg["model_cfg"], data_cfg)
     model.load_state_dict(state)
     model = model.eval().to(device)

@@ -8,6 +8,9 @@ datasets with train normalization constants applied to validation, the
 (conditioned) forecast module and the trainer with preemption checkpoints.
 The module follows the model: a data config that returns fluid parameters
 to a model without FiLM trains the unconditioned module, which ignores them.
+``use_wandb``, ``plot_val_samples`` (null: follow ``use_wandb``),
+``profile_dir`` (a ``torch.profiler`` trace of steps 10-15) and
+``transfer_dtype`` reach the trainer as in ``scripts/train.py:146-164``.
 
 Overrides the JAX script does not have:
 
@@ -22,6 +25,8 @@ Overrides the JAX script does not have:
         synthetic_batches=6 limit_train_batches=6 scheduler_cfg.params.warmup_iters=2
     python scripts/train_torch.py synthetic_batches=6 limit_train_batches=6 \\
         scheduler_cfg.params.warmup_iters=2 log_dir=/tmp/logs
+    python scripts/train_torch.py model_cfg.params.bias_type=continuous synthetic_batches=16 \\
+        limit_train_batches=16 profile_dir=/tmp/trace transfer_dtype=bfloat16
     BUBBLEFORMER_LOSS_KERNEL=1 python scripts/train_torch.py model_cfg=unet_modern \\
         batch_size=8 synthetic_batches=6 limit_train_batches=6 \\
         scheduler_cfg.params.warmup_iters=2
@@ -101,10 +106,16 @@ def main(argv=None) -> None:
         compute_dtype=cfg.get("compute_dtype"), device=str(device), seed=cfg["seed"],
         loss_layout=cfg.get("loss_layout"),
     )
+    use_wandb = bool(cfg.get("use_wandb", False))
     trainer = Trainer(
         module, log_dir=log_dir, limit_train_batches=limit_train,
         limit_val_batches=cfg.get("limit_val_batches", 25), seed=cfg["seed"],
-        preempt_ckpt_path=next_preempt_ckpt_path(log_dir, ckpt_path),
+        preempt_ckpt_path=next_preempt_ckpt_path(log_dir, ckpt_path), use_wandb=use_wandb,
+        # The reference logs the validation panels every epoch when W&B is on.
+        plot_val_samples=(use_wandb if cfg.get("plot_val_samples") is None
+                          else bool(cfg["plot_val_samples"])),
+        profile_dir=cfg.get("profile_dir") or None,
+        transfer_dtype=cfg.get("transfer_dtype") or None,
     )
     pprint.PrettyPrinter(depth=4).pprint(cfg)
     trainer.fit(train_loader, val_loader, max_epochs=cfg["max_epochs"], ckpt_path=ckpt_path)
