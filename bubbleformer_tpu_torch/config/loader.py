@@ -5,9 +5,11 @@ The same composition as ``bubbleformer_tpu/config/loader.py`` (defaults list
 module: ``default.yaml`` and the ``data_cfg``, ``model_cfg``, ``optim_cfg``
 and ``scheduler_cfg`` groups, copied from ``bubbleformer_tpu/config/``
 (``tests/test_torch_config.py`` holds each copy equal to its original).  The
-port has no mesh, so it has no ``mesh_cfg`` group: a ``mesh_cfg`` entry of
-the defaults list or the command line is ignored.  ``yaml`` is imported only
-when a file is read.
+port has no mesh yet, so it has no ``mesh_cfg`` group: ``mesh_cfg: single``
+(every device on the data axis, which on one card is the port's one device)
+is accepted from the defaults list or the command line and adds nothing to
+the config; any other ``mesh_cfg`` (``dp_sp``, ``dp_tp``) raises
+``ValueError``.  ``yaml`` is imported only when a file is read.
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 GROUPS = ("data_cfg", "model_cfg", "optim_cfg", "scheduler_cfg")
-IGNORED_GROUPS = ("mesh_cfg",)  # the JAX package's device mesh
+MESH_GROUP = "mesh_cfg"  # the JAX package's device mesh
+SINGLE_MESH = "single"
 
 DEFAULT_CONFIG_DIR = str(Path(__file__).resolve().parent)
 
@@ -61,15 +64,20 @@ def load_config(overrides: Optional[List[str]] = None, config_dir: str = DEFAULT
         if "=" not in ov:
             raise ValueError(f"Override {ov!r} must be key=value")
         key, _, raw = ov.partition("=")
-        if key in GROUPS:
+        if key in GROUPS or key == MESH_GROUP:
             selections[key] = raw
-        elif key not in IGNORED_GROUPS:
+        elif key.startswith(MESH_GROUP + "."):
+            raise ValueError(f"{key}: the port has no mesh yet, so {MESH_GROUP} has no keys")
+        else:
             value_overrides.append((key, _yaml().safe_load(raw)))
 
+    mesh = selections.pop(MESH_GROUP, SINGLE_MESH)
+    if mesh != SINGLE_MESH:
+        raise ValueError(
+            f"{MESH_GROUP}={mesh}: the port has no mesh yet; only {MESH_GROUP}="
+            f"{SINGLE_MESH} (one device) runs")
     cfg = dict(root)
     for group, name in selections.items():
-        if group in IGNORED_GROUPS:
-            continue
         cfg[group] = _load_yaml(os.path.join(config_dir, group, f"{name}.yaml"))
     for key, value in value_overrides:
         _set_dotted(cfg, key, value)

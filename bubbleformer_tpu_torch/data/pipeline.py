@@ -2,17 +2,24 @@
 
 Counterpart of ``bubbleformer_tpu/data/pipeline.py``'s ``DataLoader`` on one
 process: full batches only (``drop_last``), a per-epoch permutation from
-``seed + epoch`` (``set_epoch``), samples read by a thread pool and batches
-assembled one ahead of the consumer.  The native C batch assembler and the
-per-process sharding of the JAX package are not ported.
+``seed + epoch`` (``set_epoch``) and up to ``prefetch`` batches queued
+ahead of the consumer.  Each batch is the dataset's ``get_batch``.  On the
+numpy path a thread pool reads a batch's samples and the batches are
+assembled one after another; on a native dataset
+(``BubbleForecast.enable_native``) a batch is GIL-releasing C calls, and
+several batches are in flight on the pool at once, each call's OpenMP team
+a share of the CPUs, so that the batches in flight fill the machine once.
+The per-process sharding of the JAX package is not ported.
 :func:`synthetic_batch` makes the same random batches as the JAX package's
 from the same seed, and :class:`SyntheticLoader` serves them where no data
 files are at hand.
 """
 from __future__ import annotations
 
+import os
 import queue
 import threading
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional
 
@@ -20,15 +27,16 @@ import numpy as np
 
 
 class DataLoader:
-    """Iterable over batched numpy samples of a map-style dataset."""
+    """Iterable over batches of a dataset with ``get_batch`` (``BubbleForecast``)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
-                 num_workers: int = 4, drop_last: bool = True):
+                 num_workers: int = 4, prefetch: int = 4, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.num_workers = max(1, num_workers)
+        self.prefetch = max(1, prefetch)
         self.drop_last = drop_last
         self._epoch = 0
 
@@ -46,13 +54,18 @@ class DataLoader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def _collate(self, pool, indices: np.ndarray, threads: int = 0):
+        if getattr(self.dataset, "native", False):
+            return self.dataset.get_batch(indices, threads=threads)
+        return self.dataset.get_batch(indices, pool=pool)
+
     def __iter__(self) -> Iterator:
         indices = self._indices()
         if self.drop_last:
             indices = indices[: len(self) * self.batch_size]
         batches = [indices[i : i + self.batch_size]
                    for i in range(0, len(indices), self.batch_size)]
-        q: queue.Queue = queue.Queue(maxsize=1)
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         errors = []
 
@@ -67,10 +80,26 @@ class DataLoader:
 
         def produce(pool):
             try:
+                if getattr(self.dataset, "native", False):
+                    # A sliding window of futures: several native batches in
+                    # flight, handed on in order.  The numpy path below stays
+                    # serial: its _collate maps over the same pool, and
+                    # submitting it from the pool's workers could deadlock.
+                    # Each C call's OpenMP team is a share of the CPUs, so
+                    # that the batches in flight fill the machine once.
+                    inflight = max(1, min(self.num_workers, self.prefetch + 2, len(batches)))
+                    threads = max(1, len(os.sched_getaffinity(0)) // inflight)
+                    futures = deque(pool.submit(self._collate, pool, b, threads)
+                                    for b in batches[:inflight])
+                    for b in batches[inflight:] + [None] * len(futures):
+                        item = futures.popleft().result()
+                        if b is not None:
+                            futures.append(pool.submit(self._collate, pool, b, threads))
+                        if not put(item):
+                            return
+                    return
                 for idx in batches:
-                    samples = list(pool.map(self.dataset.__getitem__, idx))
-                    parts = range(len(samples[0]))
-                    if not put(tuple(np.stack([s[k] for s in samples]) for k in parts)):
+                    if not put(self._collate(pool, idx)):
                         return
             except BaseException as exc:  # handed to the consumer below
                 errors.append(exc)

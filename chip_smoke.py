@@ -17,7 +17,9 @@ the loss kernel (K10), the four measurement probes (P1-P4,
 baselines at their configs' full width (ModernUnet, 566.7M parameters;
 ClassicUnet with its BatchNorm running statistics) training on K10, every
 model-path kernel with continuous tables and with none, FiLMAViT-small with
-``bias_type=continuous`` and a converted reference checkpoint.  The
+``bias_type=continuous``, a converted reference checkpoint, and the data
+path (``.npy`` caches, the native batch assembler, training from files and
+the physics gate).  The
 serving path (the autoregressive rollout) and the training path
 (``Trainer.fit``: Lion, or AdamW where the config says, with cosine
 warmup); and the hand-written kernels on the way, each at the shapes its
@@ -257,7 +259,25 @@ paths give it — the rollout's (batch 1) and the training step's:
    ``global_step``) through ``scripts/convert_reference_checkpoint_torch.py``
    in a subprocess; the result restored into a training module (every
    tensor, both constant tables and the step equal to what went in) and
-   rolled out for 10 windows in bfloat16 on K1 and K2.
+   rolled out for 10 windows in bfloat16 on K1 and K2;
+47. the data path's environment: the port's C/OpenMP batch assembler
+   (``bubbleformer_tpu_torch/native/batch_assembler.c``) built by the
+   machine's C compiler with ``-fopenmp`` (the phase fails without one),
+   whether ``import h5py`` works (printed), two 40-frame trajectories at
+   512x512 written as ``.npy`` field caches with numpy alone, a dataset over
+   them opened with ``h5py`` hidden, and its native batches equal to the
+   numpy path's bit for bit at factors 1 and 2 under every ``norm``;
+48. ``Trainer.fit`` of FiLMAViT-small from those caches through
+   ``scripts/train_torch.py`` (``data_cfg=samples_smoke``, fluid parameters,
+   ``native_loader=true``; bf16, ``"dots"``, batch 8, 2 epochs of 3 steps
+   and a validation batch each): "native loader: enabled", every loss
+   finite, K1 and K2 launched as in phase 10 plus the validation windows';
+   ms/step and samples/s beside phase 10's, and the loader's ms/batch;
+49. the physics gate (``scripts/physics_gate_torch.py``: AViT-tiny at 64x64
+   through ``auto``, K4 at head dim 16) cut to 3 epochs (the full gate
+   takes longer than the phase may): every key of its JSON, every metric
+   finite, K4 launched as its steps, validation batches and float32
+   rollouts ask and no other kernel.
 
 K2's, K4's, K5's, K6's, K7's, K8's and K9's wrappers count every call on
 the card (``lane_axial_attention``, ``fused_block_attention``,
@@ -2946,6 +2966,223 @@ def reference_ckpt_phase(repo: Path, dev, card: str) -> float:
     return time.perf_counter() - t0
 
 
+# Phases 47-49: the data path.  Trajectories written as ``.npy`` field
+# caches with numpy alone (``scripts/make_sample_data_torch.py --format
+# npy``: the card has no h5py), read through the native C/OpenMP batch
+# assembler (``bubbleformer_tpu_torch/native/batch_assembler.c``, host code,
+# no TPU kernel), trained on and rolled out.
+DATA_TRAJ_FRAMES = 40
+DATA_NORMS = ("none", "std", "minmax", "tanh")
+DATA_FACTORS = (1, 2)
+# Dataset indices of phase 47's batches: both files (26 windows each at
+# start 5), one file's last and the other's first among them.
+DATA_BATCH = (0, 7, 25, 26, 40, 51, 3, 30)
+DATA_TRAIN_EPOCHS = 2  # 3 batches of 8 an epoch on sample_1's 26 windows
+DATA_FIELDS = ["dfun", "temperature", "velx", "vely"]
+# Phase 49 runs the gate cut to 3 epochs of 16 steps, which checks the path
+# alone: the full gate (30 epochs) took 83 s of wall time at its default seed
+# on the card (NVIDIA H100 80GB HBM3, 700.00 W), more than this phase's 60 s,
+# and has a call of its own (scripts/physics_gate_torch.py, whose exit code
+# asserts the tolerances).
+GATE_EPOCHS = 3
+
+
+def data_phase(repo: Path) -> dict:
+    """Phase 47: the environment of the data path, caches-only datasets, and
+    the native batches against the numpy path's, bit for bit."""
+    import os
+
+    from bubbleformer_tpu_torch.data import BubbleForecast, native
+
+    print("== phase 47: the data path's environment, caches alone, native batches vs numpy",
+          flush=True)
+    t0 = time.perf_counter()
+    compilers = {cc: shutil.which(cc) for cc in native.COMPILERS}
+    if not native.available():
+        fail(f"the native batch assembler does not build: {native.unavailable_reason()}")
+    cc = next(c for c, where in compilers.items() if where)
+    version = subprocess.run([cc, "--version"], capture_output=True, text=True).stdout
+    print(f"  compilers {compilers}; {cc}: {version.splitlines()[0] if version else '?'}; "
+          f"built {native.library_path().name} with {' '.join(native.CFLAGS)}", flush=True)
+    try:
+        import h5py  # noqa: F401
+
+        print(f"  import h5py: imports ({h5py.__version__}); the caches are read with it hidden")
+    except ImportError as exc:
+        print(f"  import h5py: fails ({exc})")
+    print(f"  numpy {np.__version__}, {os.cpu_count()} CPUs", flush=True)
+
+    data_dir = repo / "build" / "chip_smoke_data"
+    shutil.rmtree(data_dir, ignore_errors=True)
+    from scripts.make_sample_data_torch import main as make_samples
+
+    make_samples(["--out", str(data_dir), "--n", "2", "--frames", str(DATA_TRAJ_FRAMES),
+                  "--size", str(IMAGE), "--format", "npy"])
+    files = [str(data_dir / f"sample_{i}.hdf5") for i in (1, 2)]
+    ms = {}
+    with without_module("h5py"):
+        for factor in DATA_FACTORS:
+            for norm in DATA_NORMS:
+                ds = BubbleForecast(files, input_fields=DATA_FIELDS, output_fields=DATA_FIELDS,
+                                    norm=norm, downsample_factor=factor,
+                                    time_window=TIME_WINDOW, start_time=5,
+                                    return_fluid_params=True)
+                if not all(isinstance(f, dict) for f in ds.data) or len(ds) != 52:
+                    fail(f"the caches-only dataset opened {[type(f) for f in ds.data]}, "
+                         f"{len(ds)} windows")
+                ds.normalize()
+                t1 = time.perf_counter()
+                ref = ds.get_batch(DATA_BATCH)
+                t2 = time.perf_counter()
+                if not ds.enable_native():
+                    fail(f"enable_native: {native.unavailable_reason()}")
+                got = ds.get_batch(DATA_BATCH)
+                t3 = time.perf_counter()
+                for name, a, b in zip(("input", "target", "fluid"), got, ref):
+                    if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                        fail(f"native {name} batch (factor {factor}, norm {norm}) differs from "
+                             f"the numpy path's: {a.dtype} {a.shape} vs {b.dtype} {b.shape}, "
+                             f"max diff {np.abs(a.astype(np.float64) - b).max()}")
+                ms[(factor, norm)] = (1000 * (t2 - t1), 1000 * (t3 - t2))
+    numpy_ms, native_ms = ms[(1, "std")]
+    print(f"  {len(ms)} cases (factors {DATA_FACTORS}, norms {DATA_NORMS}): native batches equal "
+          f"the numpy path's bit for bit; one batch of {len(DATA_BATCH)} at {IMAGE}^2, std: "
+          f"numpy {numpy_ms:.1f} ms, native {native_ms:.1f} ms (first calls, caches warm)",
+          flush=True)
+    return {"dir": data_dir, "numpy_ms": numpy_ms, "native_ms": native_ms,
+            "seconds": time.perf_counter() - t0}
+
+
+def files_fit_phase(repo: Path, data: dict, synthetic: dict, card: str) -> dict:
+    """Phase 48: ``Trainer.fit`` of FiLMAViT-small from phase 47's caches
+    through ``scripts/train_torch.py`` with the native loader; every loss
+    finite, K1 and K2 launched as in phase 10, plus a validation window."""
+    import io
+
+    import torch
+
+    from bubbleformer_tpu_torch.data import BubbleForecast, DataLoader
+    from scripts.train_torch import main as train_main
+
+    print(f"== phase 48: Trainer.fit from files, FiLMAViT-small, bf16, batch {TRAIN_BATCH} at "
+          f"{IMAGE}^2, native loader, {DATA_TRAIN_EPOCHS} epochs", flush=True)
+    t0 = time.perf_counter()
+    log_dir = repo / "build" / "chip_smoke_files"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    out = io.StringIO()
+    zero_counters()
+    with env_var("BUBBLEML_SAMPLES", str(data["dir"])), contextlib.redirect_stdout(out):
+        trainer = train_main([
+            "data_cfg=samples_smoke", "data_cfg.return_fluid_params=true", "native_loader=true",
+            f"batch_size={TRAIN_BATCH}", f"max_epochs={DATA_TRAIN_EPOCHS}",
+            "limit_val_batches=1", "scheduler_cfg.params.warmup_iters=2",
+            f"log_dir={log_dir}", "device=cuda"])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("native loader", "epoch", "3 train batches")):
+            print(f"  train_torch.py: {line}")
+    if "native loader: enabled" not in text:
+        fail("train_torch.py did not enable the native loader")
+    (metrics_csv,) = log_dir.glob("*/metrics.csv")
+    rows = [r.split(",") for r in metrics_csv.read_text().splitlines()[1:]]
+    losses = {split: [float(r[3]) for r in rows if r[2] == split] for split in ("train", "val")}
+    print(f"  losses {losses}")
+    if (len(losses["train"]) != DATA_TRAIN_EPOCHS or len(losses["val"]) != DATA_TRAIN_EPOCHS
+            or not np.all(np.isfinite(losses["train"] + losses["val"]))):
+        fail(f"expected {DATA_TRAIN_EPOCHS} finite train and validation losses, got {losses}")
+    steps = DATA_TRAIN_EPOCHS * 3
+    per_step = dict(dots_step(DEFAULT_WINDOW), mega_temporal_block_bwd=12,
+                    lane_axial_attention_bwd=12)
+    want = {k: per_step.get(k, 0) * steps + DEFAULT_WINDOW.get(k, 0) * DATA_TRAIN_EPOCHS
+            for k in set(per_step) | set(DEFAULT_WINDOW)}
+    check_launches("Trainer.fit from files", launches, with_dtype_paths(want, "bfloat16"), 1)
+    seconds = trainer.last_epoch_seconds
+    last_steps = 3
+    run = {"ms_per_step": 1000 * seconds / last_steps,
+           "samples_per_s": TRAIN_BATCH * last_steps / seconds, "launches": launches}
+    del trainer
+    # The loader alone on the same caches, as the trainer drives it.
+    train_ds = BubbleForecast([str(data["dir"] / "sample_1.hdf5")], input_fields=DATA_FIELDS,
+                              output_fields=DATA_FIELDS, norm="std", time_window=TIME_WINDOW,
+                              start_time=5, return_fluid_params=True)
+    train_ds.normalize()
+    train_ds.enable_native()
+    loader = DataLoader(train_ds, TRAIN_BATCH, shuffle=True, num_workers=8)
+    t1 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    run["loader_ms"] = 1000 * (time.perf_counter() - t1) / n
+    print(f"  last epoch: {last_steps} steps in {seconds:.3f} s: {run['ms_per_step']:.1f} ms/step, "
+          f"{run['samples_per_s']:.2f} samples/s from files (phase 10, synthetic batches: "
+          f"{synthetic['ms_per_step']:.1f} ms/step, {synthetic['samples_per_s']:.2f} samples/s); "
+          f"the loader alone {run['loader_ms']:.1f} ms/batch over an epoch of {n} batches "
+          f"({card}); launches {launches}", flush=True)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    run["seconds"] = time.perf_counter() - t0
+    return run
+
+
+def physics_gate_phase(repo: Path, card: str) -> dict:
+    """Phase 49: the physics gate on the card (``scripts/physics_gate_torch.py``:
+    AViT-tiny at 64x64 through ``auto``, K4 at head dim 16), cut to
+    ``GATE_EPOCHS``: every key of its JSON there, every metric finite, K4
+    launched as its steps, validation batches and rollouts ask and no other
+    kernel."""
+    import torch
+
+    from scripts.physics_gate_torch import METRIC_KEYS
+    from scripts.physics_gate_torch import main as gate_main
+
+    print("== phase 49: the physics gate on the card (AViT-tiny, K4 at head dim 16)", flush=True)
+    t0 = time.perf_counter()
+
+    work = repo / "build" / "chip_smoke_gate"
+    shutil.rmtree(work, ignore_errors=True)
+    epochs, windows = GATE_EPOCHS, 10
+    zero_counters()
+    metrics = gate_main(["--workdir", str(work), "--out", str(work / "physics.json"),
+                         "--epochs", str(epochs), "--windows", str(windows)])
+    torch.cuda.synchronize()
+    launches = read_counters()
+    written = json.loads((work / "physics.json").read_text())
+    missing = [k for k in METRIC_KEYS if k not in written]
+    if missing:
+        fail(f"the gate's JSON lacks {missing}")
+    numbers = [v for k, v in written.items() if k.startswith(("rollout_", "eikonal", "vapor",
+                                                             "heatflux"))]
+    flat = [x for v in numbers for x in (v if isinstance(v, list) else [v])]
+    if not all(x is not None and np.isfinite(x) for x in flat):
+        fail(f"non-finite gate metrics: {written}")
+    # 66 windows of 5 at start 5 in each 80-frame file: 16 batches of 4 an
+    # epoch, 2 validation batches; two 10-window float32 rollouts.
+    steps = epochs * 16
+    blocks = 4
+    want = {"fused_block_attention": blocks * (steps + 2 * epochs + 2 * windows),
+            "fused_block_attention_bwd": blocks * steps}
+    want = dict(with_dtype_paths(want, "bfloat16"),
+                fused_block_hopper_fwd=blocks * (steps + 2 * epochs),
+                fused_block_line_fwd=blocks * 2 * windows)
+    check_launches("the physics gate", launches, want, 1)
+    if (written["train_steps"], written["train_batches_per_epoch"]) != (steps, 16):
+        fail(f"the gate ran {written['train_steps']} steps, "
+             f"{written['train_batches_per_epoch']} an epoch; want {steps}, 16")
+    seconds = time.perf_counter() - t0
+    print(f"  the gate cut to {epochs} epochs of 16 steps in "
+          f"{seconds:.1f} s (training {metrics['train_seconds']:.1f} s, rollouts "
+          f"{metrics['rollout_seconds']:.2f} s; {card}): rel-L2 final "
+          f"{metrics['rollout_rel_l2_final']:.4f}, mean {metrics['rollout_rel_l2_mean']:.4f} vs "
+          f"untrained {metrics['rollout_rel_l2_untrained_mean']:.4f}, eikonal "
+          f"{metrics['eikonal_residual_mean']:.4f}, drift {metrics['vapor_fraction_drift']:.5f}, "
+          f"heat flux {metrics['heatflux_pred_mean']:.2f} vs sim "
+          f"{metrics['heatflux_sim_mean']:.2f}, KL {metrics['heatflux_kl_sim_vs_model']}; "
+          f"its tolerances' failures (a cut run's) {metrics['failures']}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"seconds": seconds, "launches": launches}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     try:
@@ -3301,6 +3538,8 @@ def main() -> None:
     if resumed.step != module.step or not torch.equal(
             resumed.model.state_dict()[probe], module.model.state_dict()[probe]):
         fail("the checkpoint did not resume the run's step and parameters")
+    synthetic_fit = {"ms_per_step": 1000 * seconds / TRAIN_STEPS,
+                     "samples_per_s": TRAIN_BATCH * TRAIN_STEPS / seconds}
     print(f"  {TRAIN_STEPS} steps in {seconds:.3f} s: {1000 * seconds / TRAIN_STEPS:.1f} ms/step, "
           f"{TRAIN_BATCH * TRAIN_STEPS / seconds:.2f} samples/s; peak memory {peak_gb:.2f} GB; "
           f"{moved}/{len(before)} parameters moved; resumed at step {resumed.step} "
@@ -3785,6 +4024,16 @@ def main() -> None:
     print(f"  phases 44 / 45 (window and step, fit, rollout) / 46 took {t_tables:.1f} / "
           f"{cont['window_step_s']:.1f}, {cont['fit_s']:.1f}, {cont['rollout_s']:.1f} / "
           f"{t_reference:.1f} s", flush=True)
+    # This slice: the data path (phases 47-49), whose training runs and
+    # rollouts add K1's, K2's and K4's launches.
+    data = data_phase(repo)
+    files = files_fit_phase(repo, data, synthetic_fit, card)
+    gate = physics_gate_phase(repo, card)
+    for entry in kernels:
+        counter = counter_of.get(entry["name"], entry["name"])
+        entry["launches"] += sum(r["launches"].get(counter, 0) for r in (files, gate))
+    print(f"  phases 47 / 48 / 49 took {data['seconds']:.1f} / {files['seconds']:.1f} / "
+          f"{gate['seconds']:.1f} s", flush=True)
     print(f"  the run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

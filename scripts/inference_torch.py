@@ -19,7 +19,10 @@ has converted it.  An AViT's ``bias_type`` is read off the weights
 under its model config.
 
 The model rolls out in eval mode (ClassicUnet's BatchNorms read their
-running statistics).
+running statistics).  ``--data`` names a trajectory's ``.hdf5``; where h5py
+or the file is missing (the card has no h5py), the dataset reads its
+``.npy`` field caches beside it (``scripts/make_sample_data_torch.py
+--format npy``).
 
     python scripts/inference_torch.py --ckpt logs/run/last.pt --data test.hdf5 \
         --model-cfg film_avit_small --steps 500 --save-dir out/
@@ -54,11 +57,30 @@ from bubbleformer_tpu_torch.utils.metrics import (
 )
 
 
+def restore_model(ckpt: str, model_cfg, data_cfg, dataset, compute_dtype=None):
+    """The model of ``ckpt`` on the CPU in eval mode (activations in
+    ``compute_dtype``, default float32); a training checkpoint's
+    normalization constants are adopted by ``dataset``."""
+    state = torch.load(ckpt, map_location="cpu", weights_only=True)
+    if "format_version" in state:  # a training checkpoint
+        state = load_checkpoint(ckpt)
+        if state["norm_constants"] is not None:
+            dataset.normalize(*state["norm_constants"])
+        state = state["model"]
+    if model_cfg["name"].lower() in ("avit", "filmavit"):
+        model_cfg = dict(model_cfg, params=dict(model_cfg["params"], bias_type=bias_type_of(state)))
+    model = build_model(model_cfg, data_cfg, compute_dtype)
+    model.load_state_dict(state)
+    return model.eval()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", required=True,
                     help="train_torch.py checkpoint, or a torch.save'd state dict of the model")
-    ap.add_argument("--data", required=True, help="trajectory HDF5 to roll out on")
+    ap.add_argument("--data", required=True,
+                    help="trajectory .hdf5 to roll out on; where h5py or the file is missing, "
+                    "its .npy field caches beside it")
     ap.add_argument("--model-cfg", default="avit_small", help="model config group name")
     ap.add_argument("--data-cfg", default="singlebubble", help="data config group name")
     ap.add_argument("--steps", type=int, default=500, help="total rollout timesteps")
@@ -90,23 +112,12 @@ def main(argv=None) -> None:
         start_time=args.start_time,
         return_fluid_params=data_cfg["return_fluid_params"],
     )
-    state = torch.load(args.ckpt, map_location="cpu", weights_only=True)
-    if "format_version" in state:  # a training checkpoint
-        state = load_checkpoint(args.ckpt)
-        if state["norm_constants"] is not None:
-            dataset.normalize(*state["norm_constants"])
-        state = state["model"]
+    model = restore_model(args.ckpt, cfg["model_cfg"], data_cfg, dataset).to(device)
     tw = dataset.time_window
     num_windows = args.steps // tw
     # The model decides: fluid parameters the data return to a model
     # without FiLM are left unused, as in training.
     conditioned = module_class(cfg["model_cfg"], data_cfg).conditioned
-
-    if cfg["model_cfg"]["name"].lower() in ("avit", "filmavit"):
-        cfg["model_cfg"]["params"]["bias_type"] = bias_type_of(state)
-    model = build_model(cfg["model_cfg"], data_cfg)
-    model.load_state_dict(state)
-    model = model.eval().to(device)
 
     first = dataset[0]
     init_window = torch.from_numpy(first[0])[None].to(device)

@@ -2,9 +2,14 @@
 """Training entry point of the PyTorch port.
 
 Counterpart of ``scripts/train.py`` on ``bubbleformer_tpu_torch``: the same
-``key=value`` overrides composed over the port's own config tree (the
-``mesh_cfg`` group is ignored: the port has no mesh), the sliding-window
-datasets with train normalization constants applied to validation, the
+``key=value`` overrides composed over the port's own config tree (the port
+has no mesh yet: ``mesh_cfg=single`` runs, any other ``mesh_cfg`` raises),
+the sliding-window datasets (each file from its ``.hdf5``, or from its
+``.npy`` field caches where h5py or the file is missing) with train
+normalization constants applied to validation, ``native_loader`` (default
+true: the C/OpenMP batch assembler over memory-mapped caches, as
+``scripts/train.py:87-92``; it prints ``native loader: enabled``, or
+``unavailable`` with the reason and the numpy path), the
 (conditioned) forecast module and the trainer with preemption checkpoints.
 The module follows the model: a data config that returns fluid parameters
 to a model without FiLM trains the unconditioned module, which ignores them.
@@ -17,10 +22,13 @@ Overrides the JAX script does not have:
 * ``device=`` (default ``cuda``): the torch device.  Without a CUDA card
   the run raises unless ``device=cpu`` asks for the CPU.
 * ``synthetic_batches=N``: train on N random batches of 512x512 windows
-  made from ``seed`` instead of the data config's HDF5 files (no
-  validation), where no data are at hand.
+  made from ``seed`` instead of the data config's files (no validation),
+  where no data are at hand.
 
     python scripts/train_torch.py data_cfg=poolboiling_saturated max_epochs=400
+    python scripts/make_sample_data_torch.py --out samples --format npy --size 512 --frames 40
+    BUBBLEML_SAMPLES=samples python scripts/train_torch.py data_cfg=samples_smoke \
+        data_cfg.return_fluid_params=true limit_train_batches=6
     python scripts/train_torch.py model_cfg=avit_big optim_cfg=adamw batch_size=8 \\
         synthetic_batches=6 limit_train_batches=6 scheduler_cfg.params.warmup_iters=2
     python scripts/train_torch.py synthetic_batches=6 limit_train_batches=6 \\
@@ -42,7 +50,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 from bubbleformer_tpu_torch.config import load_config
-from bubbleformer_tpu_torch.data import BubbleForecast, DataLoader, SyntheticLoader
+from bubbleformer_tpu_torch.data import BubbleForecast, DataLoader, SyntheticLoader, native
 from bubbleformer_tpu_torch.training import (
     Trainer,
     module_class,
@@ -53,7 +61,7 @@ from bubbleformer_tpu_torch.training import (
 SYNTHETIC_SIZE = 512  # the BubbleML windows' resolution
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Trainer:
     cfg = load_config(argv if argv is not None else sys.argv[1:])
     device = resolve_device(str(cfg.get("device", "cuda")))
     np.random.seed(cfg["seed"])
@@ -90,6 +98,14 @@ def main(argv=None) -> None:
         normalization_constants = train_dataset.normalize()
         val_dataset = BubbleForecast(filenames=data_cfg["val_paths"], **common)
         val_dataset.normalize(*normalization_constants)
+        if cfg.get("native_loader", True):
+            # C/OpenMP batch assembly over memory-mapped field caches; where
+            # the assembler does not build, the numpy path, and the reason.
+            if train_dataset.enable_native() and val_dataset.enable_native():
+                print("native loader: enabled", flush=True)
+            else:
+                print(f"native loader: unavailable ({native.unavailable_reason()}); "
+                      "reading batches on the numpy path", flush=True)
         train_loader = DataLoader(train_dataset, cfg["batch_size"], shuffle=True,
                                   seed=cfg["seed"], num_workers=8)
         val_loader = DataLoader(val_dataset, cfg["batch_size"], num_workers=4)
@@ -119,6 +135,7 @@ def main(argv=None) -> None:
     )
     pprint.PrettyPrinter(depth=4).pprint(cfg)
     trainer.fit(train_loader, val_loader, max_epochs=cfg["max_epochs"], ckpt_path=ckpt_path)
+    return trainer
 
 
 if __name__ == "__main__":

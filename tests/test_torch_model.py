@@ -42,7 +42,7 @@ def test_config_loader_matches_jax(overrides, monkeypatch):
     want = jax_load_config(overrides)
     assert "mesh_cfg" in want
     del want["mesh_cfg"]
-    assert load_config(overrides + ["mesh_cfg=dp_sp"]) == want
+    assert load_config(overrides + ["mesh_cfg=single"]) == want
 
 
 def randomize(params, seed):
