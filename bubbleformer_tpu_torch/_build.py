@@ -23,6 +23,8 @@ from pathlib import Path
 
 import torch
 
+from bubbleformer_tpu_torch._lock import build_lock
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "bubbleformer_tpu_torch"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -219,13 +221,21 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless this exact build exists; returns its path.
+    Processes that build at once take turns (``_lock.py``): the first
+    builds, the others find its library.
 
     The compiler's output (``-Xptxas -v``: registers, shared memory and spills
     per kernel) is kept beside the library as ``<name>.log``."""
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock(so):
+        if not so.exists():
+            _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
@@ -253,7 +263,6 @@ def build() -> Path:
         if failed:
             raise RuntimeError(f"nvcc failed building {so.name}:\n" + "\n".join(failed))
         os.replace(tmp_so, so)  # atomic: a half-written library is never loaded
-    return so
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,14 +2,15 @@
 
 The same composition as ``bubbleformer_tpu/config/loader.py`` (defaults list
 -> group files -> ``key=value`` overrides) over the YAML files beside this
-module: ``default.yaml`` and the ``data_cfg``, ``model_cfg``, ``optim_cfg``
-and ``scheduler_cfg`` groups, copied from ``bubbleformer_tpu/config/``
-(``tests/test_torch_config.py`` holds each copy equal to its original).  The
-port has no mesh yet, so it has no ``mesh_cfg`` group: ``mesh_cfg: single``
-(every device on the data axis, which on one card is the port's one device)
-is accepted from the defaults list or the command line and adds nothing to
-the config; any other ``mesh_cfg`` (``dp_sp``, ``dp_tp``) raises
-``ValueError``.  ``yaml`` is imported only when a file is read.
+module: ``default.yaml`` and the ``data_cfg``, ``model_cfg``, ``optim_cfg``,
+``scheduler_cfg`` and ``mesh_cfg`` groups, copied from
+``bubbleformer_tpu/config/`` (``tests/test_torch_config.py`` holds each copy
+equal to its original).  The composed config carries ``mesh_cfg`` as the
+JAX loader's does; ``parallel/mesh.py:make_mesh`` reads it, running
+``single`` (data parallelism over every process) and raising ``ValueError``
+for a ``model`` or ``spatial`` axis (``dp_tp``, ``dp_sp``,
+``mesh_cfg.model=2``), which the port does not have.  ``yaml`` is imported
+only when a file is read.
 """
 from __future__ import annotations
 
@@ -17,9 +18,7 @@ import os
 from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-GROUPS = ("data_cfg", "model_cfg", "optim_cfg", "scheduler_cfg")
-MESH_GROUP = "mesh_cfg"  # the JAX package's device mesh
-SINGLE_MESH = "single"
+GROUPS = ("data_cfg", "model_cfg", "optim_cfg", "scheduler_cfg", "mesh_cfg")
 
 DEFAULT_CONFIG_DIR = str(Path(__file__).resolve().parent)
 
@@ -64,18 +63,11 @@ def load_config(overrides: Optional[List[str]] = None, config_dir: str = DEFAULT
         if "=" not in ov:
             raise ValueError(f"Override {ov!r} must be key=value")
         key, _, raw = ov.partition("=")
-        if key in GROUPS or key == MESH_GROUP:
+        if key in GROUPS:
             selections[key] = raw
-        elif key.startswith(MESH_GROUP + "."):
-            raise ValueError(f"{key}: the port has no mesh yet, so {MESH_GROUP} has no keys")
         else:
             value_overrides.append((key, _yaml().safe_load(raw)))
 
-    mesh = selections.pop(MESH_GROUP, SINGLE_MESH)
-    if mesh != SINGLE_MESH:
-        raise ValueError(
-            f"{MESH_GROUP}={mesh}: the port has no mesh yet; only {MESH_GROUP}="
-            f"{SINGLE_MESH} (one device) runs")
     cfg = dict(root)
     for group, name in selections.items():
         cfg[group] = _load_yaml(os.path.join(config_dir, group, f"{name}.yaml"))

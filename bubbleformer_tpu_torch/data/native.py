@@ -28,6 +28,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from bubbleformer_tpu_torch._lock import build_lock
+
 # The kernels' build directory (``_build.py:BUILD_DIR``), named here so that
 # the data path imports numpy alone.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "bubbleformer_tpu_torch"
@@ -44,11 +46,18 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the assembler unless this exact build exists; returns its path.
-    Raises ``RuntimeError`` with each compiler's failure when none builds it."""
+    Processes that build at once take turns (``_lock.py``).  Raises
+    ``RuntimeError`` with each compiler's failure when none builds it."""
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with build_lock(so):
+        if not so.exists():
+            _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
     failures = []
     for cc in COMPILERS:
         fd, tmp = tempfile.mkstemp(prefix=so.name + ".", suffix=".tmp", dir=BUILD_DIR)
@@ -62,7 +71,7 @@ def build() -> Path:
             continue
         if res.returncode == 0:
             os.replace(tmp, so)  # atomic: a half-written library is never loaded
-            return so
+            return
         os.unlink(tmp)
         failures.append(f"{cc} (exit {res.returncode}): {res.stderr.strip()[-500:]}")
     raise RuntimeError("no C compiler built the batch assembler with "

@@ -63,6 +63,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from bubbleformer_tpu_torch.layers.init import dense_
 from bubbleformer_tpu_torch.layers.linear import GeluMLP, dense
 from bubbleformer_tpu_torch.layers.norm import InstanceNorm, LayerNorm, accumulation_dtype
 from bubbleformer_tpu_torch.layers.positional import make_bias_module
@@ -135,8 +136,9 @@ def _table(bias_module: Optional[nn.Module], n: int) -> Optional[torch.Tensor]:
 
 
 def _head(cin: int, cout: int) -> nn.Conv2d:
-    """A 1x1-conv weight container: ``weight (cout, cin, 1, 1)``, ``bias (cout,)``."""
-    return nn.Conv2d(cin, cout, 1)
+    """A 1x1-conv weight container: ``weight (cout, cin, 1, 1)``, ``bias (cout,)``,
+    drawn as flax's ``Dense`` (``input_head``, ``output_head``) draws them."""
+    return dense_(nn.Conv2d(cin, cout, 1))
 
 
 class TemporalAttentionBlock(nn.Module):

@@ -13,7 +13,8 @@ Rounding points follow the JAX modules' under a ``dtype`` (bfloat16):
   ``ConvTranspose``): its output is ``dtype``;
 * :class:`GroupNorm` and :class:`BatchNorm` compute their statistics and
   their output in float32 whatever the input dtype (flax promotes the input
-  against the float32 scale when the norm's ``dtype`` is None); the exact
+  against the float32 scale when the norm's ``dtype`` is None; a float64
+  model, as a test's reference, stays float64); the exact
   GELU after them stays float32 and the next convolution rounds it.
 
 So a ``ResidualBlock`` returns ``dtype`` and a ``ClassicUnetBlock`` float32.
@@ -32,7 +33,22 @@ variance (torch's ``BatchNorm2d`` takes the unbiased one); flax's
 ``momentum=0.9`` is torch's ``momentum=0.1``.  In eval mode it normalises
 with the running statistics, which start at mean 0 and variance 1.
 ``module.train()`` / ``module.eval()`` select the mode, as ``train=`` with
-``mutable=["batch_stats"]`` does in the JAX training module.
+``mutable=["batch_stats"]`` does in the JAX training module.  Under data
+parallelism (``batch_shard`` set by the training module to ``(rank,
+world)``) a train-mode BatchNorm normalises with the statistics of the
+global batch, as flax's batch mean over the JAX package's global arrays
+does: each channel's count and sum, then its second moment about the global
+mean, are summed over the ranks by an autograd-aware all-reduce
+(``parallel/mesh.py:all_reduce_sum``, whose backward sums the gradients the
+same way), and the running update takes the global biased
+variance, so every rank keeps the same statistics (``nn.SyncBatchNorm``
+would update them with the unbiased one).
+
+The convolutions draw their weights as flax's ``Conv`` and ``ConvTranspose``
+do (``layers/init.py``): ``lecun_normal`` over the flax kernel's fan-in and
+zero biases.  flax's ``Conv`` kernel is ``(kh, kw, in, out)``, a fan-in of
+``kh kw in``; the JAX U-Nets' ``ConvTranspose(transpose_kernel=True)``
+kernel is ``(kh, kw, out, in)``, a fan-in of ``kh kw out``.
 """
 from __future__ import annotations
 
@@ -42,6 +58,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bubbleformer_tpu_torch.layers.init import lecun_normal_, zeros_
+
 __all__ = ["Conv2d", "ConvTranspose2d", "GroupNorm", "BatchNorm", "ResidualBlock",
            "MiddleBlock", "ClassicUnetBlock", "Upsample", "Downsample"]
 
@@ -49,6 +67,11 @@ __all__ = ["Conv2d", "ConvTranspose2d", "GroupNorm", "BatchNorm", "ResidualBlock
 def _compute_dtype(dtype: Optional[torch.dtype], x: torch.Tensor,
                    weight: torch.Tensor) -> torch.dtype:
     return dtype if dtype is not None else torch.promote_types(x.dtype, weight.dtype)
+
+
+def _at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 where it is (a float64 reference)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
@@ -62,6 +85,11 @@ class Conv2d(nn.Conv2d):
     def __init__(self, *args, dtype: Optional[torch.dtype] = None, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = dtype
+
+    def reset_parameters(self) -> None:
+        kh, kw = self.kernel_size
+        lecun_normal_(self.weight, kh * kw * self.in_channels)  # flax (kh, kw, in, out)
+        zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute_dtype(self.compute_dtype, x, self.weight)
@@ -79,6 +107,12 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         super().__init__(*args, **kwargs)
         self.compute_dtype = dtype
 
+    def reset_parameters(self) -> None:
+        kh, kw = self.kernel_size
+        # flax's transpose_kernel=True kernel (kh, kw, out, in)
+        lecun_normal_(self.weight, kh * kw * self.out_channels)
+        zeros_(self.bias)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # type: ignore[override]
         dt = _compute_dtype(self.compute_dtype, x, self.weight)
         y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding)
@@ -95,7 +129,7 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
+        return F.group_norm(_at_least_float32(x), self.num_groups, self.weight, self.bias, self.eps)
 
 
 class BatchNorm(nn.Module):
@@ -109,9 +143,28 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
         self.register_buffer("running_mean", torch.zeros(num_channels))
         self.register_buffer("running_var", torch.ones(num_channels))
+        self.batch_shard = (0, 1)  # (rank, world) of a data-parallel run
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the global batch of ``batch_shard[1]`` ranks."""
+        from bubbleformer_tpu_torch.parallel.mesh import all_reduce_sum
+
+        dims = (0, 2, 3)
+        count = torch.tensor([float(x.numel() // x.shape[1])], device=x.device)
+        sums = all_reduce_sum(torch.cat([count, x.sum(dim=dims)]))
+        mean = sums[1:] / sums[0]
+        centred = x - mean[:, None, None]
+        var = all_reduce_sum((centred * centred).sum(dim=dims)) / sums[0]
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        return centred * scale[:, None, None] + self.bias[:, None, None]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = _at_least_float32(x)
+        if self.training and self.batch_shard[1] > 1:
+            return self._global_batch_norm(xf)
         if self.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)

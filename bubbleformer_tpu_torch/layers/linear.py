@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bubbleformer_tpu_torch.layers import remat
+from bubbleformer_tpu_torch.layers.init import dense_
 from bubbleformer_tpu_torch.layers.norm import LayerNorm
 
 
@@ -61,8 +62,8 @@ class GeluMLP(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         hidden = int(hidden_dim * exp_factor)
-        self.fc1 = nn.Linear(hidden_dim, hidden)
-        self.fc2 = nn.Linear(hidden, hidden_dim)
+        self.fc1 = dense_(nn.Linear(hidden_dim, hidden))
+        self.fc2 = dense_(nn.Linear(hidden, hidden_dim))
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +84,7 @@ class FiLMMLP(nn.Module):
         super().__init__()
         self.embed_dim = embed_dim
         self.film_net = nn.Sequential(
-            LayerNorm(param_dim), nn.Linear(param_dim, 2 * embed_dim)
+            LayerNorm(param_dim), dense_(nn.Linear(param_dim, 2 * embed_dim))
         )
         self.dtype = dtype
 

@@ -9,7 +9,11 @@ exact GELU between stages.
 The ``in_proj`` / ``out_proj`` Sequentials hold ``Conv2d`` /
 ``ConvTranspose2d`` modules only as weight containers, so the keys are the
 reference's (``embed.in_proj.{3i}.weight`` ``(O, I, 2, 2)``,
-``debed.out_proj.{3i}.weight`` ``(I, O, 2, 2)``, norms at ``3i+1``).
+``debed.out_proj.{3i}.weight`` ``(I, O, 2, 2)``, norms at ``3i+1``).  Both
+kinds of stage are ``(2, 2, I, O)`` kernels in the JAX package, drawn from
+``lecun_normal`` over a fan-in of ``4 I`` (``layers/init.py``), the
+transposed ones too: torch's own fan-in of a ``ConvTranspose2d`` would be
+``4 O``.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bubbleformer_tpu_torch.layers.init import lecun_normal_
 from bubbleformer_tpu_torch.layers.norm import InstanceNorm
 
 
@@ -50,7 +55,9 @@ class HMLPEmbed(nn.Module):
         for i in range(n):
             is_last = i == n - 1
             out_ch = embed_dim if (is_last or n == 1) else embed_dim // 4
-            layers += [nn.Conv2d(cin, out_ch, 2, 2, bias=False), InstanceNorm(out_ch)]
+            conv = nn.Conv2d(cin, out_ch, 2, 2, bias=False)
+            lecun_normal_(conv.weight, 4 * cin)  # the flax kernel (2, 2, cin, out_ch)
+            layers += [conv, InstanceNorm(out_ch)]
             if not is_last:
                 layers.append(nn.GELU())
             cin = out_ch
@@ -88,7 +95,9 @@ class HMLPDebed(nn.Module):
         for i in range(n):
             is_last = i == n - 1
             out_ch = out_channels if (is_last or n == 1) else embed_dim // 4
-            layers.append(nn.ConvTranspose2d(cin, out_ch, 2, 2, bias=False))
+            deconv = nn.ConvTranspose2d(cin, out_ch, 2, 2, bias=False)
+            lecun_normal_(deconv.weight, 4 * cin)  # the flax kernel (2, 2, cin, out_ch)
+            layers.append(deconv)
             if not is_last:
                 layers += [InstanceNorm(out_ch), nn.GELU()]
             cin = out_ch

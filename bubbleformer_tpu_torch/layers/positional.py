@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from bubbleformer_tpu_torch.layers.init import dense_
 from bubbleformer_tpu_torch.layers.norm import accumulation_dtype
 
 
@@ -109,8 +110,8 @@ class ContinuousPositionBias1D(nn.Module):
 
     def __init__(self, num_heads: int, hidden: int = 512):
         super().__init__()
-        self.cpb_mlp = nn.Sequential(nn.Linear(1, hidden), nn.ReLU(),
-                                     nn.Linear(hidden, num_heads, bias=False))
+        self.cpb_mlp = nn.Sequential(dense_(nn.Linear(1, hidden)), nn.ReLU(),
+                                     dense_(nn.Linear(hidden, num_heads, bias=False)))
         # Offsets and gather index per (n, device): static, so built once.
         self._grids: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, torch.Tensor]] = {}
 

@@ -23,7 +23,7 @@ counterpart here.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,17 +67,22 @@ class SpaceTimeBlock(nn.Module):
                          None if masks is None else tuple(m_s))
         return x.reshape(b, t, h, w, c)
 
-    def draw_masks(self, shape, drop_path_rate: float, generator: Optional[torch.Generator]):
+    def draw_masks(self, shape, drop_path_rate: float, generator: Optional[torch.Generator],
+                   shard: Tuple[int, int] = (0, 1)):
         """The drop-path keep masks of a ``(B, T, h, w, C)`` input: the temporal
         residual's ``(B,)``, then the axial attention's and MLP's ``(B*T,)``,
         drawn from ``generator`` as the forward would draw them; None outside
-        training or without a generator."""
+        training or without a generator.  ``shard`` ``(index, count)``: the
+        input is the ``index``-th of ``count`` equal shares of a global batch,
+        so the masks are drawn for the global batch and this share's rows
+        taken."""
         if not self.training or generator is None:
             return None
         keep = 1.0 - float(drop_path_rate)
         b, t = shape[:2]
-        return tuple(torch.rand((n,) + (1,) * nd, generator=generator,
-                                device=generator.device) < keep
+        index, count = shard
+        return tuple((torch.rand((n * count,) + (1,) * nd, generator=generator,
+                                 device=generator.device) < keep)[index * n:(index + 1) * n]
                      for n, nd in ((b, 4), (b * t, 3), (b * t, 3)))
 
 
@@ -106,6 +111,9 @@ class AViT(nn.Module):
         )
         self.debed = HMLPDebed(patch_size, output_fields, embed_dim, dtype=dtype)
         self.drop_path_rates = [float(r) for r in np.linspace(0.0, drop_path, processor_blocks)]
+        # (index, count): the batch is this share of a global one (the
+        # training module's data parallelism; the drop-path masks).
+        self.batch_shard = (0, 1)
 
     def _encode(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, T, C, H, W)`` -> channels-last patch grid ``(B, T, h, w, E)``.
@@ -124,7 +132,7 @@ class AViT(nn.Module):
         records; each block's drop-path masks are drawn before it, so that its
         rerun applies the same ones."""
         for rate, block in zip(self.drop_path_rates, self.blocks):
-            masks = block.draw_masks(x.shape, rate, generator)
+            masks = block.draw_masks(x.shape, rate, generator, self.batch_shard)
             if self.remat and torch.is_grad_enabled():
                 x = remat_lib.checkpoint_block(
                     lambda y, block=block, rate=rate, masks=masks: block(y, rate, masks=masks),

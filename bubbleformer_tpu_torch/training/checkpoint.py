@@ -4,7 +4,9 @@ Counterpart of ``bubbleformer_tpu/training/checkpoint.py``: everything a
 restore needs travels in one file — the model's state dict, the optimizer
 state, the step, the normalization constants and a ``format_version`` —
 written to a temporary name and renamed, so a reader never sees half a
-file.  A restore that fails raises: there is no params-only fallback.
+file.  A restore that fails raises: there is no params-only fallback.  In a
+world of processes the trainer has the leader write (``Trainer.save``) and
+every rank restore, each onto its own device.
 Preemption checkpoints are numbered ``hpc_ckpt_N.pt`` (``scripts/train.py:
 91-96`` of the reference).
 """
@@ -34,10 +36,10 @@ def save_checkpoint(path: str, module) -> None:
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The saved dict, on the CPU; raises unless it is a checkpoint of this
-    format."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+def load_checkpoint(path: str, map_location: Any = "cpu") -> Dict[str, Any]:
+    """The saved dict, its tensors on ``map_location`` (the CPU by default);
+    raises unless it is a checkpoint of this format."""
+    ckpt = torch.load(path, map_location=map_location, weights_only=True)
     if not isinstance(ckpt, dict) or ckpt.get("format_version") != FORMAT_VERSION:
         found = ckpt.get("format_version") if isinstance(ckpt, dict) else type(ckpt).__name__
         raise ValueError(f"{path} is not a checkpoint of format {FORMAT_VERSION} (found {found!r})")
@@ -46,8 +48,8 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 def restore_checkpoint(path: str, module) -> None:
     """Load model, optimizer, step and normalization constants into
-    ``module``; any mismatch raises."""
-    ckpt = load_checkpoint(path)
+    ``module``, read straight onto its device; any mismatch raises."""
+    ckpt = load_checkpoint(path, map_location=module.device)
     module.model.load_state_dict(ckpt["model"])
     module.optimizer.load_state_dict(ckpt["optimizer"])
     module.step = int(ckpt["step"])

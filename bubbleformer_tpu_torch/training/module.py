@@ -41,6 +41,20 @@ returns fluid parameters to a model without FiLM (``poolboiling_saturated``
 with ``avit_big``, the README's pairing) gets the unconditioned module,
 which reads ``(inp, tgt)`` and leaves the rest of the batch alone, as the
 JAX ``ForecastModule`` does.
+
+Data parallelism (``parallel/mesh.py``): the module takes the run's
+``mesh`` (else :func:`~bubbleformer_tpu_torch.parallel.make_mesh` over the
+world, on ``device``: the card ``LOCAL_RANK`` in a world of processes).
+Where the world has more than one process, or where ``ddp=True`` asks for
+it, :meth:`ForecastModule.train_step` runs the model wrapped in
+``DistributedDataParallel`` (``find_unused_parameters=False``), whose
+all-reduce averages the gradients over the ranks; ``self.model`` stays the
+model itself, so ``state_dict``, :meth:`eval_step`, the rollout and the
+bridges see no ``module.`` prefix.  Each rank's batch is its share of the
+global batch, and the model learns where it sits in it
+(``batch_shard``): the AViTs draw every drop-path mask for the global batch
+and take their rows, and ClassicUnet's BatchNorms normalise with the global
+batch's statistics, as the JAX package's global arrays have them.
 """
 from __future__ import annotations
 
@@ -53,6 +67,7 @@ import torch
 
 from bubbleformer_tpu_torch.models import build_model
 from bubbleformer_tpu_torch.ops.lp_loss import training_lp_loss
+from bubbleformer_tpu_torch.parallel import Mesh, make_mesh
 from bubbleformer_tpu_torch.training.optim import make_optimizer
 from bubbleformer_tpu_torch.utils.losses import LpLoss
 from bubbleformer_tpu_torch.utils.schedulers import make_schedule
@@ -87,6 +102,8 @@ class ForecastModule:
         device: str = "cuda",
         seed: int = 42,
         loss_layout: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
+        ddp: Optional[bool] = None,
     ):
         self.model_cfg = dict(model_cfg)
         self.data_cfg = dict(data_cfg)
@@ -94,13 +111,23 @@ class ForecastModule:
         self.scheduler_cfg = dict(scheduler_cfg)
         self.total_steps = total_steps
         self.normalization_constants = normalization_constants
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(device=str(resolve_device(device)))
+        self.device = resolve_device(str(self.mesh.device))
 
-        # Parameters are drawn from ``seed`` without touching the global RNG.
+        # Parameters are drawn from ``seed`` without touching the global RNG,
+        # the same on every rank.
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = build_model(self.model_cfg, self.data_cfg, compute_dtype)
         self.model = model.to(self.device)
+        self.train_model = self.model
+        if ddp or (ddp is None and self.mesh.data > 1):
+            for m in self.model.modules():
+                if hasattr(m, "batch_shard"):
+                    m.batch_shard = (self.mesh.rank, self.mesh.data)
+            self.train_model = torch.nn.parallel.DistributedDataParallel(
+                self.model, device_ids=None if self.device.type == "cpu" else [self.device],
+                find_unused_parameters=False)
         self.criterion = LpLoss(d=2, p=2, reduce_dims=[0, 1, 2],
                                 reductions=["mean", "mean", "sum"])
         if loss_layout is None:
@@ -161,14 +188,15 @@ class ForecastModule:
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
-        self.model.train()
+        self.train_model.train()
         self.optimizer.zero_grad(set_to_none=True)
         if self._use_nhwc_loss():
-            pred = self.model(*self.inputs(batch), generator=generator, output_layout="nhwc")
+            pred = self.train_model(*self.inputs(batch), generator=generator,
+                                    output_layout="nhwc")
             # The target's relayout is a constant of the step, outside the gradient.
             loss = self._loss_nhwc(pred, self.target(batch).permute(0, 1, 3, 4, 2))
         else:
-            pred = self.model(*self.inputs(batch), generator=generator)
+            pred = self.train_model(*self.inputs(batch), generator=generator)
             loss = self._loss(pred, self.target(batch))
         loss.backward()
         self.optimizer.step()

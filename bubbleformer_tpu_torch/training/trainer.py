@@ -1,6 +1,6 @@
 """The training loop.
 
-Counterpart of ``bubbleformer_tpu/training/trainer.py`` on one device:
+Counterpart of ``bubbleformer_tpu/training/trainer.py``:
 
 * ``limit_train_batches`` / ``limit_val_batches`` budget each epoch;
 * a CSV logger (``metrics.csv``) every ``log_every`` steps;
@@ -24,7 +24,17 @@ Counterpart of ``bubbleformer_tpu/training/trainer.py`` on one device:
   (``:156``) and stay in it, as in JAX: the model's layers compute in their
   ``dtype`` or else the input's, and the loss sees the targets rounded.
 
-The JAX trainer's device mesh is not ported.
+In a world of processes (the module's ``mesh``, ``parallel/mesh.py``) each
+rank steps on its own batch and the module's DDP averages the gradients.
+The CSV, W&B, the validation panels, the parameter table, the profiler
+window and the prints are the leader's (``:79,110,147,252,306``); the
+logged training and validation losses are the means over the ranks; the
+SIGTERM flag and a non-finite loss are agreed by all ranks at the step
+boundary (one flag all-reduced over gloo), so that no rank leaves while the
+others wait in the next all-reduce; a checkpoint is the leader's to write,
+with every rank at a barrier before and after.  The drop-path generator is
+seeded alike on every rank, and the model takes its rows of the global
+batch's masks.
 """
 from __future__ import annotations
 
@@ -38,6 +48,7 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from bubbleformer_tpu_torch.parallel import host_any, host_barrier, host_mean, is_leader
 from bubbleformer_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
 from bubbleformer_tpu_torch.training.module import ForecastModule
 from bubbleformer_tpu_torch.utils.summary import parameter_table
@@ -85,7 +96,8 @@ class Trainer:
         self.limit_val_batches = limit_val_batches
         self.seed = seed
         self.log_every = log_every
-        self.logger = CSVLogger(log_dir)
+        self.leader = is_leader()
+        self.logger = CSVLogger(log_dir) if self.leader else None
         self.preempt_ckpt_path = preempt_ckpt_path or os.path.join(log_dir, "hpc_ckpt_1.pt")
         self._preempted = False
         self._generator = torch.Generator(device=self.device)
@@ -94,7 +106,7 @@ class Trainer:
         self.profile_dir = profile_dir
         self.profile_steps = tuple(profile_steps)
         self.transfer_dtype = None if transfer_dtype is None else getattr(torch, transfer_dtype)
-        self.wandb = _init_wandb(log_dir) if use_wandb else None
+        self.wandb = _init_wandb(log_dir) if use_wandb and self.leader else None
         signal.signal(signal.SIGTERM, self._handle_preemption)
 
     def _handle_preemption(self, signum, frame):
@@ -136,7 +148,12 @@ class Trainer:
         restore_checkpoint(ckpt_path, self.module)
 
     def save(self, path: str) -> None:
-        save_checkpoint(path, self.module)
+        """The leader writes the checkpoint; every rank waits for the others
+        before and after, so that none reads or resumes a half-made one."""
+        host_barrier()
+        if self.leader:
+            save_checkpoint(path, self.module)
+        host_barrier()
 
     def _start_profile(self):
         """Start the ``torch.profiler`` window: CPU activity, and CUDA on the
@@ -168,7 +185,7 @@ class Trainer:
         SDF, temperature and velocity of the first validation sample, target
         against prediction, to ``val_epoch_{epoch}/`` and to W&B when it is
         on."""
-        if not self.plot_val_samples:
+        if not (self.plot_val_samples and self.leader):
             return
         import matplotlib.pyplot as plt
 
@@ -204,7 +221,8 @@ class Trainer:
         module = self.module
         if ckpt_path:
             self.restore(ckpt_path)
-        print(parameter_table(module.model))
+        if self.leader:
+            print(parameter_table(module.model))
         global_step = module.step
         prof = None
         start_epoch = global_step // max(min(self.limit_train_batches, len(train_loader)), 1)
@@ -215,7 +233,7 @@ class Trainer:
             n_batches = batch_size = 0
             for i, batch in enumerate(self._device_prefetch(train_loader,
                                                             self.limit_train_batches)):
-                if self.profile_dir and global_step == self.profile_steps[0]:
+                if self.profile_dir and self.leader and global_step == self.profile_steps[0]:
                     prof = self._start_profile()
                 with (contextlib.nullcontext() if prof is None
                       else torch.profiler.record_function(f"train_step {global_step}")):
@@ -227,13 +245,14 @@ class Trainer:
                     self._stop_profile(prof)
                     prof = None
 
-                if self._preempted:
+                if host_any(self._preempted):  # any rank's SIGTERM stops all
                     self.save(self.preempt_ckpt_path)
-                    print(f"Preemption checkpoint saved to {self.preempt_ckpt_path}")
+                    if self.leader:
+                        print(f"Preemption checkpoint saved to {self.preempt_ckpt_path}")
                     return module
 
                 if i % self.log_every == 0:
-                    loss = float(metrics["loss"])
+                    loss = host_mean(float(metrics["loss"]))
                     if not np.isfinite(loss):
                         crash_path = os.path.join(self.log_dir, "non_finite_state.pt")
                         self.save(crash_path)
@@ -241,8 +260,9 @@ class Trainer:
                             f"non-finite loss {loss} at step {global_step}; "
                             f"state saved to {crash_path}")
                     lr = metrics["learning_rate"]
-                    self.logger.log({"step": global_step, "epoch": epoch, "split": "train",
-                                     "loss": loss, "learning_rate": lr})
+                    if self.logger is not None:
+                        self.logger.log({"step": global_step, "epoch": epoch,
+                                         "split": "train", "loss": loss, "learning_rate": lr})
                     if self.wandb is not None:
                         self.wandb.log({"train_loss": loss, "learning_rate": lr})
 
@@ -251,8 +271,11 @@ class Trainer:
             train_time = time.time() - epoch_start
             if n_batches:
                 self.last_epoch_seconds = train_time
-                print(f"epoch {epoch}: {n_batches} steps in {train_time:.1f}s "
-                      f"({n_batches * batch_size / train_time:.1f} samples/s incl. input pipeline)")
+                world = self.module.mesh.data
+                if self.leader:
+                    print(f"epoch {epoch}: {n_batches} steps in {train_time:.1f}s "
+                          f"({n_batches * batch_size * world / train_time:.1f} samples/s over "
+                          f"{world} process{'es' if world > 1 else ''} incl. input pipeline)")
             if self.wandb is not None:
                 self.wandb.log({"train_epoch_time": train_time, "epoch": epoch})
 
@@ -267,9 +290,10 @@ class Trainer:
                 if val_sample is not None:
                     self._log_val_images(val_sample, epoch)
                 if losses:
-                    val_loss = float(np.mean(losses))
-                    self.logger.log({"step": global_step, "epoch": epoch, "split": "val",
-                                     "loss": val_loss, "learning_rate": float("nan")})
+                    val_loss = host_mean(float(np.mean(losses)))
+                    if self.logger is not None:
+                        self.logger.log({"step": global_step, "epoch": epoch, "split": "val",
+                                         "loss": val_loss, "learning_rate": float("nan")})
                     if self.wandb is not None:
                         self.wandb.log({"val_loss": val_loss,
                                         "val_epoch_time": time.time() - val_start,

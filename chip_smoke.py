@@ -17,9 +17,11 @@ the loss kernel (K10), the four measurement probes (P1-P4,
 baselines at their configs' full width (ModernUnet, 566.7M parameters;
 ClassicUnet with its BatchNorm running statistics) training on K10, every
 model-path kernel with continuous tables and with none, FiLMAViT-small with
-``bias_type=continuous``, a converted reference checkpoint, and the data
+``bias_type=continuous``, a converted reference checkpoint, the data
 path (``.npy`` caches, the native batch assembler, training from files and
-the physics gate).  The
+the physics gate), and data parallelism (DDP: FiLMAViT-small through K1 and
+K2, ClassicUnet through K10 with global BatchNorm statistics, the training
+CLI under ``torch.distributed.run``).  The
 serving path (the autoregressive rollout) and the training path
 (``Trainer.fit``: Lion, or AdamW where the config says, with cosine
 warmup); and the hand-written kernels on the way, each at the shapes its
@@ -50,7 +52,8 @@ paths give it — the rollout's (batch 1) and the training step's:
    backward chains at the training shape (CUDA events around each launch);
 8. K2 backward (``lane_axial_attention_bwd``) against
    ``axial_attention_bwd_plain`` at phase 4's two shapes, likewise;
-9. one float32 training step, batch 1, against the same step in float64 on
+9. one float32 training step, batch 1, the first ``STEP_BLOCKS`` (4) of the
+   12 blocks, against the same step in float64 on
    the CPU: the loss and every parameter gradient, on the card through the
    kernels, on the card through the plain versions (the witness of the
    card's own float32) and on the CPU; once with FiLM drawn near identity
@@ -277,7 +280,29 @@ paths give it — the rollout's (batch 1) and the training step's:
    through ``auto``, K4 at head dim 16) cut to 3 epochs (the full gate
    takes longer than the phase may): every key of its JSON, every metric
    finite, K4 launched as its steps, validation batches and float32
-   rollouts ask and no other kernel.
+   rollouts ask and no other kernel;
+50. a one-rank NCCL world in this process: FiLMAViT-small in bfloat16 at
+   batch 8, 3 Lion steps through ``DistributedDataParallel`` and the same 3
+   steps without it from the same seeded weights and batches: the losses
+   and every parameter bit for bit, K1 and K2 launched as 3 steps ask, and
+   no "bucket view" warning (a gradient DDP would copy);
+51. two ranks on the one card over gloo (NCCL refuses two ranks on one
+   GPU; ``chip_smoke.py --dp-worker`` with torchrun's variables), batch 4
+   each, against this process at batch 8: FiLMAViT-small's float32 step
+   (O(1) weights, FiLM near identity) every gradient within
+   ``KERNEL_RTOL``, then 3 bfloat16 Lion steps from the seeded init, the
+   losses within the bfloat16 bound and every parameter within 2 lr a step,
+   the share of elements apart held to a witness (the one process taking
+   each batch as the ranks' two halves, their gradients accumulated;
+   ``DP_WITNESS``), both ranks' parameters equal bit for bit after each
+   step, K1 and K2 launched as 3 steps ask on each rank;
+52. the same world, ClassicUnet in float32 through K10: each rank's output
+   its rows of the one process's, the gradients against the same step in
+   float64 within 3x the one process's own error, the BatchNorm running
+   statistics (global-batch statistics) the one process's;
+53. ``scripts/train_torch.py`` under ``python -m torch.distributed.run
+   --standalone --nproc_per_node 1`` with ``mesh_cfg=single`` on synthetic
+   batches: its world line, ``last.pt`` and ``metrics.csv`` once.
 
 K2's, K4's, K5's, K6's, K7's, K8's and K9's wrappers count every call on
 the card (``lane_axial_attention``, ``fused_block_attention``,
@@ -311,6 +336,7 @@ phase, without a CUDA card, or without the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import shutil
 import subprocess
@@ -381,6 +407,11 @@ ZERO_GRADS = ("kn_bias",)
 # kernels' statistics sum values shifted by a sample of the plane and read
 # 4.1e-5 here, so the card is held to 1e-4.
 STEP_RTOL = {"loss": 1e-4, "vs_witness": 3.0, "abs": 1e-5, "film_o01": 1e-4}
+# Phase 9's depth: the first 4 of the 12 blocks (all 12 took 56.5 s of the
+# run, most of it the CPU's float64 and float32 steps).  The
+# width, the routes and both FiLM cases stay; the other float32 steps
+# (phases 37 and 45) keep all 12 blocks.
+STEP_BLOCKS = 4
 
 
 def fail(msg: str) -> None:
@@ -839,7 +870,9 @@ LINE_RTOL = {"float32": 2e-5, "bfloat16": 1e-2}
 NEW_WINDOW_RTOL = 1e-4
 FLOW_HEIGHT, FLOW_WIDTH = 512, 2048  # flowboiling_chf frames (scripts/bench_matrix.py:44)
 FLOW_TRAIN_BATCH = 4
-FLOW_TRAIN_STEPS = 4
+# Two steps: each batch of 8 at 512x2048 takes 7.3 s to draw on the host,
+# and the run's time limit is shared.
+FLOW_TRAIN_STEPS = 2
 FUSED_TRAIN_STEPS = 4
 DEMO_SIZE, DEMO_BATCH, DEMO_STEPS, DEMO_WINDOWS = 64, 8, 4, 5  # the make-demo run, cut
 
@@ -1142,6 +1175,39 @@ def rollout_phase(label: str, model, init, windows: int, per_window: dict, card:
     return frames / seconds
 
 
+@functools.lru_cache(maxsize=12)
+def _drawn_batch(batch: int, t: int, fields: int, height: int, width: int, seed: int):
+    from bubbleformer_tpu_torch.data import synthetic_batch
+
+    return synthetic_batch(batch, t, fields, height, width, 9, seed=seed)
+
+
+def cached_batch(batch: int, t: int, fields: int, height: int, width: int, fluid, seed: int):
+    """``synthetic_batch(...)``, its arrays drawn once a run: phases that ask
+    for the same batch share it (host set-up, 1.9 s for a batch of 8 at
+    512^2 and 7.3 s at 512x2048, which phases 10-49 asked for ~60 times).
+    Without fluid parameters, or with 9, the same inputs and targets (the
+    draws come first); the arrays are read, never written."""
+    from bubbleformer_tpu_torch.data import synthetic_batch
+
+    if fluid not in (None, 9):
+        return synthetic_batch(batch, t, fields, height, width, fluid, seed=seed)
+    drawn = _drawn_batch(batch, t, fields, height, width, seed)
+    return drawn if fluid == 9 else drawn[:2]
+
+
+def cached_loader(steps: int, batch: int, t: int, fields: int, height: int, width: int, fluid,
+                  seed: int):
+    """A ``SyntheticLoader`` of ``cached_batch``es: batch ``i`` from seed
+    ``seed + i``, as the loader draws them."""
+    from bubbleformer_tpu_torch.data import SyntheticLoader
+
+    loader = SyntheticLoader(0, batch, t, fields, height, fluid, width=width)
+    loader.batches = [cached_batch(batch, t, fields, height, width, fluid, seed + i)
+                      for i in range(steps)]
+    return loader
+
+
 def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: dict,
               log_dir: Path, dev, card: str, fluid=None, on_module=None, trainer_kw=None,
               val_launches=None) -> dict:
@@ -1155,7 +1221,6 @@ def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: d
     the steady steps (its statistics reset after the warm-up step).  Returns
     ms/step, samples/s, peak GB and the launches."""
     import torch
-    from bubbleformer_tpu_torch.data import SyntheticLoader, synthetic_batch
     from bubbleformer_tpu_torch.training import Trainer, module_class
 
     shutil.rmtree(log_dir, ignore_errors=True)
@@ -1166,17 +1231,17 @@ def fit_phase(label: str, train_cfgs, batch: int, steps: int, frame, per_step: d
     trainer = Trainer(module, log_dir=str(log_dir), limit_train_batches=steps, seed=SEED,
                       log_every=1, **(trainer_kw or {}))
     t, fields = data_cfg["time_window"], len(data_cfg["input_fields"])
-    warm = synthetic_batch(batch, t, fields, *frame, fluid, seed=SEED + 30)
+    warm = cached_batch(batch, t, fields, *frame, fluid, SEED + 30)
     module.train_step(tuple(torch.from_numpy(a).to(dev) for a in warm),
                       torch.Generator(device=dev).manual_seed(SEED))
     before = {n: p.detach().clone() for n, p in module.model.named_parameters()}
     zero_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    val = None if val_launches is None else SyntheticLoader(
-        1, batch, t, fields, frame[0], fluid, seed=SEED + 41, width=frame[1])
-    trainer.fit(SyntheticLoader(steps, batch, t, fields, frame[0], fluid, seed=SEED + 31,
-                                width=frame[1]), val, max_epochs=1)
+    val = None if val_launches is None else cached_loader(1, batch, t, fields, *frame, fluid,
+                                                           SEED + 41)
+    trainer.fit(cached_loader(steps, batch, t, fields, *frame, fluid, SEED + 31), val,
+                max_epochs=1)
     torch.cuda.synchronize()
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3183,6 +3248,491 @@ def physics_gate_phase(repo: Path, card: str) -> dict:
     return {"seconds": seconds, "launches": launches}
 
 
+# Data parallelism (phases 50-53): FiLMAViT-small at full width through K1
+# and K2, ClassicUnet through K10, each across two processes on the one card
+# over gloo (NCCL refuses two ranks on one GPU) against one process at the
+# global batch; a one-rank NCCL world against the same steps without DDP;
+# the training CLI under torchrun.
+DP_RANKS = 2
+DP_BATCH = 8  # the global batch: DP_BATCH // DP_RANKS a rank
+DP_STEPS = 3
+DP_TIMEOUT_S = 420
+DP_KINDS = ("filmavit", "unet")
+# The default path's kernel launches a training step under remat "dots".
+DP_PER_STEP = {"mega_temporal_block": 12 * DOTS_RERUN["mega_temporal_block"],
+               "mega_temporal_block_bwd": 12, "lane_axial_attention": 12,
+               "lane_axial_attention_bwd": 12}
+# Two ranks against one process at the global batch.  The first step in
+# float32: each gradient within KERNEL_RTOL["float32"] of its largest (the
+# batch's sums split in two and added by the all-reduce: reassociation; one
+# zero up to rounding against a hundredth of the largest of all).  Then
+# DP_STEPS bf16 Lion steps: the losses within KERNEL_RTOL["bfloat16"]; a
+# Lion update is lr * sign(.), and bf16 roundings flip where reassociated
+# sums straddle a boundary, so a sign can flip where its argument is near
+# zero: every parameter within 2 lr a step of one process's.  How many flip
+# is held to a witness: the same process taking each batch as the ranks'
+# two halves, their gradients accumulated (what DDP computes), whose share
+# of elements apart from the one pass bounds the ranks' (DP_WITNESS times
+# it, plus DP_FLIP_FLOOR); the ranks against that accumulation, within
+# DP_FLIP_FLOOR (the same sums, but for float atomics' order: the T5
+# table's gradient; 0 of 28.9M elements read apart on the card), and their
+# losses within 1e-6.  (A fixed 1% limit, from a tiny model's CPU run,
+# failed: 1.71% of FiLMAViT-small's elements differ from the one pass on
+# the card, as the witness's do.)  ClassicUnet in float32: its output within
+# KERNEL_RTOL["float32"]; its gradients against the same step in float64,
+# within 3x the one process's own error (``dp_compare_grads_64``: a
+# convolution's weight gradient before a BatchNorm sums terms whose
+# per-rank parts cancel over the global batch: on the card the one
+# process's own float32 gradient lies 7.1e-3 from float64 there, the
+# ranks' 8.3e-3, so no fixed float32 bound holds it); the running
+# statistics within DP_STATS_RTOL of their largest (one BatchNorm over the
+# global batch against two halves summed).
+DP_WITNESS = 3.0
+DP_FLIP_FLOOR = 1e-3
+DP_STATS_RTOL = 1e-5
+# What only the leader of a world writes (every rank's parameters are the
+# leader's, as each step checks).
+DP_LEADER_ONLY = ("f32_grads", "params", "grads", "stats")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_cfgs(kind: str):
+    """The training configs of a DP phase: FiLMAViT-small (the default
+    composition) or ClassicUnet on ``singlebubble``'s 4 fields, Lion with a
+    2-step warmup."""
+    from bubbleformer_tpu_torch.config import load_config
+
+    extra = ["model_cfg=unet_classic"] if kind == "unet" else []
+    cfg = load_config(extra + ["scheduler_cfg.params.warmup_iters=2"])
+    return (cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"])
+
+
+def dp_batches(kind: str, n: int, rows: slice, dev):
+    """``n`` global synthetic batches of DP_BATCH windows at 512^2, the
+    process's ``rows`` of each, on ``dev``."""
+    import torch
+
+    fluid = None if kind == "unet" else 9
+    return [tuple(torch.from_numpy(np.ascontiguousarray(a[rows])).to(dev)
+                  for a in cached_batch(DP_BATCH, TIME_WINDOW, FIELDS, IMAGE, IMAGE, fluid,
+                                        SEED + 60 + i)) for i in range(n)]
+
+
+def dp_run(kind: str, out_dir: Path) -> dict:
+    """One process's part of a DP phase, in a world of two or alone (the
+    reference at the global batch); writes its results to ``out_dir`` and
+    returns them.  ``filmavit``: one float32 step's gradients, then
+    DP_STEPS bf16 Lion steps (losses, the launches, parameters, and in a
+    world whether every rank holds the leader's parameters bit for bit after
+    each step).  ``unet``: ClassicUnet's float32 forward and backward in
+    train mode through K10 (output, gradients, running statistics)."""
+    import torch
+    import torch.distributed as dist
+    from bubbleformer_tpu_torch.parallel import batch_sharding, host_mean, make_mesh
+    from bubbleformer_tpu_torch.training import module_class
+
+    mesh = make_mesh(device="cuda")
+    dev = mesh.device
+    rows = batch_sharding(mesh, DP_BATCH)
+    out = {"rank": mesh.rank, "world": mesh.data}
+
+    def module(dtype):
+        cfgs = dp_cfgs(kind)
+        return module_class(*cfgs[:2])(*cfgs, total_steps=DP_STEPS + 1, compute_dtype=dtype,
+                                       seed=SEED, mesh=mesh)
+
+    def same_on_every_rank(model) -> bool:
+        flat = torch.cat([t.detach().flatten().float() for t in
+                          (*model.parameters(), *model.buffers())])
+        if mesh.data == 1:
+            return True
+        leader = flat.clone()
+        dist.broadcast(leader, src=0)
+        return torch.equal(flat, leader)
+
+    if kind == "filmavit":
+        m = module(None)
+        # O(1) weights, FiLM near identity, as every float32 step here draws
+        # them: the seeded init's FiLM can put the next InstanceNorms' float32
+        # statistics in cancellation, which no two summation orders share.
+        m.model.load_state_dict(film_near_identity(random_state_dict(m.model, SEED + 70),
+                                                   SEED + 70))
+        out["ddp"] = type(m.train_model).__name__
+        batch = dp_batches(kind, 1, rows, dev)[0]
+        m.train_model.train()
+        pred = m.train_model(*m.inputs(batch), generator=torch.Generator(device=dev)
+                             .manual_seed(SEED))
+        loss = m._loss(pred, m.target(batch))
+        loss.backward()
+        out["f32_loss"] = host_mean(float(loss.detach()))
+        out["f32_grads"] = {n: p.grad.cpu() for n, p in m.model.named_parameters()}
+        del m, pred, loss
+        m = module("bfloat16")
+        batches = dp_batches(kind, DP_STEPS, rows, dev)
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, equal = [], []
+        for i, b in enumerate(batches):
+            metrics = m.train_step(b, torch.Generator(device=dev).manual_seed(SEED + i))
+            losses.append(host_mean(float(metrics["loss"])))
+            equal.append(same_on_every_rank(m.model))
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t0, launches=read_counters(), losses=losses,
+                   equal=equal, lr_sum=sum(m.schedule(i) for i in range(DP_STEPS)),
+                   params={n: p.detach().cpu() for n, p in m.model.named_parameters()})
+        if mesh.data == 1:  # the witness: the same steps, each batch as the ranks' halves
+            m = module("bfloat16")
+            out["halves"] = [accumulated_step(m, b, SEED + i) for i, b in enumerate(batches)]
+            out["halves_params"] = {n: p.detach().cpu() for n, p in m.model.named_parameters()}
+    else:
+        m = module(None)
+        out["ddp"] = type(m.train_model).__name__
+        inp, tgt = dp_batches(kind, 1, rows, dev)[0]
+        zero_counters()
+        t0 = time.perf_counter()
+        m.train_model.train()
+        pred = m.train_model(inp)
+        with env_var("BUBBLEFORMER_LOSS_KERNEL", "1"):
+            m._loss(pred, tgt).backward()
+        torch.cuda.synchronize()
+        out.update(seconds=time.perf_counter() - t0, launches=read_counters(), pred=pred.cpu(),
+                   grads={n: p.grad.cpu() for n, p in m.model.named_parameters()},
+                   stats={k: v.cpu() for k, v in m.model.state_dict().items() if "running" in k},
+                   equal=[same_on_every_rank(m.model)])
+        if mesh.data == 1:  # the witness: the same step in float64 (LpLoss: K10 is float32)
+            m = module(None)
+            m.model.double().train()
+            m._loss(m.model(inp.double()), tgt.double()).backward()
+            out["grads64"] = {n: p.grad.cpu() for n, p in m.model.named_parameters()}
+    if mesh.data > 1:  # the leader's tensors; every rank's output (ClassicUnet's rows)
+        keep = DP_LEADER_ONLY if mesh.rank else ()
+        torch.save({k: v for k, v in out.items() if k not in keep},
+                   out_dir / f"{kind}_{mesh.rank}.pt")
+    return out
+
+
+def accumulated_step(m, batch, seed: int) -> float:
+    """One training step of module ``m`` (one process) on ``batch`` taken as
+    DP_RANKS shares in turn, each share's gradient divided by DP_RANKS and
+    accumulated, its drop-path masks its rows of the global batch's: what
+    DDP computes across DP_RANKS ranks, in one process.  Returns the loss."""
+    import torch
+
+    lr = m.schedule(m.step)
+    for group in m.optimizer.param_groups:
+        group["lr"] = lr
+    m.model.train()
+    m.optimizer.zero_grad(set_to_none=True)
+    local, loss = batch[0].shape[0] // DP_RANKS, 0.0
+    for r in range(DP_RANKS):
+        part = tuple(t[r * local:(r + 1) * local] for t in batch)
+        m.model.batch_shard = (r, DP_RANKS)
+        pred = m.model(*m.inputs(part), generator=torch.Generator(device=part[0].device)
+                       .manual_seed(seed))
+        share = m._loss(pred, m.target(part)) / DP_RANKS
+        share.backward()
+        loss += float(share.detach())
+    m.model.batch_shard = (0, 1)
+    m.optimizer.step()
+    m.step += 1
+    return loss
+
+
+def dp_worker(out_dir: str) -> None:
+    """A rank of phases 51-52 (``chip_smoke.py --dp-worker``): the world from
+    torchrun's variables the parent set, over gloo; both phases' runs."""
+    import torch
+
+    from bubbleformer_tpu_torch.parallel import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(backend="gloo")
+    for kind in DP_KINDS:
+        out = dp_run(kind, Path(out_dir))
+        launched = {k: v for k, v in out["launches"].items() if v}
+        print(f"rank {out['rank']} of {out['world']} {kind}: {out['ddp']}, "
+              f"{out['seconds']:.2f} s, launches {launched}", flush=True)
+    torch.distributed.destroy_process_group()
+
+
+def dp_launch(out_dir: Path) -> float:
+    """Start DP_RANKS workers on the card with torchrun's variables and wait
+    for them (each stopped at DP_TIMEOUT_S); fails unless every rank exits
+    0.  Returns the seconds."""
+    import os
+
+    port = str(_free_port())
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(DP_RANKS):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK="0",
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(out_dir)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            left = max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0))
+            outs.append(p.communicate(timeout=left)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("(timed out)")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, p in enumerate(procs):
+        text = outs[rank] if rank < len(outs) else "(no output)"
+        print("\n".join(f"  [rank {rank}] {line}" for line in text.splitlines()[-12:]))
+        if p.returncode != 0:
+            fail(f"DP rank {rank} exited {p.returncode}")
+    return time.perf_counter() - t0
+
+
+def dp_compare_grads(name: str, got: dict, ref: dict) -> float:
+    """Each float32 gradient within KERNEL_RTOL["float32"] of its
+    reference's largest, those zero up to rounding (``step_errors``) of a
+    hundredth of the largest of all."""
+    errors, zero = step_errors({n: g.double() for n, g in ref.items()},
+                               {n: g.double() for n, g in got.items()})
+    worst = max(errors, key=errors.get)
+    print(f"  {name}: {len(errors)} gradients, worst {worst} {errors[worst]:.2e} (tol "
+          f"{KERNEL_RTOL['float32']:.0e}; {len(zero)} zero up to rounding)", flush=True)
+    if errors[worst] > KERNEL_RTOL["float32"]:
+        fail(f"{name}: {worst} at {errors[worst]:.3e}")
+    return errors[worst]
+
+
+def dp_compare_grads_64(name: str, got: dict, one: dict, ref64: dict) -> None:
+    """Float32 gradients of the ranks and of one process against the same
+    step in float64 (``step_errors``): the ranks' worst within
+    ``STEP_RTOL["vs_witness"]`` times the one process's own, plus
+    ``STEP_RTOL["abs"]``, as phase 9 holds the card's step."""
+    errors = {side: step_errors(ref64, {n: g.double() for n, g in grads.items()})[0]
+              for side, grads in (("ranks", got), ("one process", one))}
+    worst = {side: max(e, key=e.get) for side, e in errors.items()}
+    ranks, one = (errors[side][worst[side]] for side in ("ranks", "one process"))
+    limit = STEP_RTOL["vs_witness"] * one + STEP_RTOL["abs"]
+    print(f"  {name} vs float64: 2 ranks {worst['ranks']} {ranks:.2e}, 1 process "
+          f"{worst['one process']} {one:.2e} (limit {limit:.2e})", flush=True)
+    if ranks > limit:
+        fail(f"{name}: the ranks' {worst['ranks']} at {ranks:.3e}")
+
+
+def dp_compare_lion(name: str, got: dict, ref: dict, lr_sum: float,
+                    limit: float = 1.0) -> float:
+    """Parameters after Lion steps whose learning rates sum to ``lr_sum``:
+    each element within ``2 lr_sum`` of the reference's (a flipped sign), and
+    at most the share ``limit`` of all elements apart.  Returns the share."""
+    import torch
+
+    apart = total = 0
+    worst = 0.0
+    for n, r in ref.items():
+        d = (got[n].float() - r.float()).abs()
+        worst = max(worst, float(d.max()))
+        apart += int((d > 1e-3 * lr_sum).sum())
+        total += d.numel()
+    share = apart / total
+    print(f"  {name}: {apart} of {total} elements apart ({share:.2e}, limit {limit:.2e}), the "
+          f"largest by {worst:.3e} (limit 2 lr = {2 * lr_sum:.3e})", flush=True)
+    if worst > 2 * lr_sum * (1 + 1e-3) or share > limit or not torch.isfinite(
+            torch.tensor(worst)):
+        fail(f"{name}: apart by {worst:.3e} in {share:.2e} of the elements")
+    return share
+
+
+def dp_compare_params(name: str, got: dict, ref: dict, rtol: float) -> float:
+    """Each tensor of ``got`` within ``rtol`` of its reference's largest."""
+    names = list(ref)
+    return compare_grads(name, names, [got[n] for n in names], [ref[n] for n in names], rtol)
+
+
+def dp_one_rank_phase(card: str) -> dict:
+    """Phase 50: a one-rank NCCL world in this process: DP_STEPS bf16 Lion
+    steps of FiLMAViT-small at batch DP_BATCH through DDP, then the same
+    steps without it from the same seeded weights and batches; losses and
+    every parameter bit for bit, K1's and K2's launches those of DP_STEPS
+    steps.  Returns the launches and seconds."""
+    import warnings
+
+    import torch
+    import torch.distributed as dist
+    from bubbleformer_tpu_torch.training import module_class
+
+    print(f"== phase 50: a one-rank NCCL world, FiLMAViT-small bf16 batch {DP_BATCH}, "
+          f"{DP_STEPS} Lion steps with and without DDP", flush=True)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    runs = {}
+    try:
+        cfgs = dp_cfgs("filmavit")
+        batches = dp_batches("filmavit", DP_STEPS, slice(None), dev)
+        for ddp in (True, False):
+            module = module_class(*cfgs[:2])(*cfgs, total_steps=DP_STEPS + 1,
+                                             compute_dtype="bfloat16", device="cuda:0",
+                                             seed=SEED, ddp=ddp)
+            if (type(module.train_model).__name__ == "DistributedDataParallel") != ddp:
+                fail(f"ddp={ddp} trained {type(module.train_model).__name__}")
+            zero_counters()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                losses = [float(module.train_step(b, torch.Generator(device=dev)
+                                                  .manual_seed(SEED + i))["loss"])
+                          for i, b in enumerate(batches)]
+            torch.cuda.synchronize()
+            runs[ddp] = dict(losses=losses, seconds=time.perf_counter() - t1,
+                             launches=read_counters(),
+                             params={n: p.detach().clone()
+                                     for n, p in module.model.named_parameters()},
+                             warnings=[str(w.message) for w in caught])
+            del module
+    finally:
+        dist.destroy_process_group()
+    with_ddp, without = runs[True], runs[False]
+    if any("bucket view" in w for w in with_ddp["warnings"]):
+        fail(f"DDP copied gradients to its buckets: {with_ddp['warnings']}")
+    check_launches("the one-rank DDP steps", with_ddp["launches"],
+                   with_dtype_paths(DP_PER_STEP, "bfloat16"), DP_STEPS)
+    if with_ddp["losses"] != without["losses"] or not np.all(np.isfinite(with_ddp["losses"])):
+        fail(f"DDP losses {with_ddp['losses']} against {without['losses']} without")
+    differ = [n for n, p in with_ddp["params"].items() if not torch.equal(p, without["params"][n])]
+    if differ:
+        fail(f"{len(differ)} parameters differ with DDP on one rank: {differ[:5]}")
+    seconds = time.perf_counter() - t0
+    print(f"  losses {with_ddp['losses']} both; all {len(without['params'])} parameters bit for "
+          f"bit; DDP {1000 * with_ddp['seconds'] / DP_STEPS:.1f} ms/step, without "
+          f"{1000 * without['seconds'] / DP_STEPS:.1f} ms/step (the first run pays the "
+          f"allocations; {card}); warnings {with_ddp['warnings'] or 'none'}; phase 50 took "
+          f"{seconds:.1f} s", flush=True)
+    return {"launches": with_ddp["launches"], "seconds": seconds}
+
+
+def dp_two_rank_phases(repo: Path, card: str) -> list:
+    """Phases 51 (FiLMAViT-small) and 52 (ClassicUnet): DP_RANKS processes on
+    the one card over gloo, each at DP_BATCH // DP_RANKS, one world running
+    both, against this process at DP_BATCH (tolerances above).  Returns each
+    phase's launches (summed over the ranks) and the seconds of both."""
+    import torch
+
+    print(f"== phase 51: {DP_RANKS} ranks on one card over gloo at batch "
+          f"{DP_BATCH // DP_RANKS} each against one process at {DP_BATCH}: FiLMAViT-small, K1 + "
+          f"K2, a float32 step then {DP_STEPS} bf16 Lion steps", flush=True)
+    print(f"== phase 52: the same world, ClassicUnet's float32 forward and backward through "
+          f"K10 with global BatchNorm statistics", flush=True)
+    t0 = time.perf_counter()
+    out_dir = repo / "build" / "chip_smoke_dp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    refs = {kind: dp_run(kind, out_dir) for kind in DP_KINDS}
+    torch.cuda.empty_cache()
+    ranks_s = dp_launch(out_dir)
+    got = {kind: [torch.load(out_dir / f"{kind}_{r}.pt", weights_only=False)
+                  for r in range(DP_RANKS)] for kind in DP_KINDS}
+    for kind, ranks in got.items():
+        if ranks[0]["ddp"] != "DistributedDataParallel" or refs[kind]["ddp"] == ranks[0]["ddp"]:
+            fail(f"the ranks trained {ranks[0]['ddp']}, the one process {refs[kind]['ddp']}")
+        if not all(all(r["equal"]) for r in ranks):
+            fail(f"the ranks' {kind} parameters differ bit for bit: {[r['equal'] for r in ranks]}")
+
+    ref, ranks = refs["filmavit"], got["filmavit"]
+    lead = ranks[0]
+    for r in ranks:
+        check_launches(f"rank {r['rank']}'s DP steps", r["launches"],
+                       with_dtype_paths(DP_PER_STEP, "bfloat16"), DP_STEPS)
+    dp_compare_grads("DP float32 step, 2 ranks vs 1 process", lead["f32_grads"],
+                     ref["f32_grads"])
+    rel = abs(lead["f32_loss"] - ref["f32_loss"]) / abs(ref["f32_loss"])
+    losses = np.array(lead["losses"])
+    loss_rel = float(np.abs(losses - ref["losses"]).max() / np.abs(ref["losses"]).max())
+    print(f"  float32 loss {lead['f32_loss']:.6f} vs {ref['f32_loss']:.6f} (rel {rel:.1e}); "
+          f"bf16 losses {lead['losses']} vs {ref['losses']} (rel {loss_rel:.1e})")
+    if rel > KERNEL_RTOL["float32"] or loss_rel > KERNEL_RTOL["bfloat16"]:
+        fail("the DP losses disagree with one process's")
+    witness = dp_compare_lion("the halves' accumulation vs the one pass (the witness)",
+                              ref["halves_params"], ref["params"], ref["lr_sum"])
+    dp_compare_lion(f"DP {DP_STEPS} bf16 Lion steps' parameters, 2 ranks vs 1 process",
+                    lead["params"], ref["params"], ref["lr_sum"],
+                    DP_WITNESS * witness + DP_FLIP_FLOOR)
+    dp_compare_lion(f"DP {DP_STEPS} bf16 Lion steps' parameters, 2 ranks vs the halves' "
+                    "accumulation", lead["params"], ref["halves_params"], ref["lr_sum"],
+                    DP_FLIP_FLOOR)
+    if np.abs(np.array(ref["halves"]) - lead["losses"]).max() > 1e-6 * np.abs(lead["losses"]).max():
+        fail(f"DP losses {lead['losses']} against the halves' accumulation {ref['halves']}")
+    print(f"  bf16 steps: one process {1000 * ref['seconds'] / DP_STEPS:.1f} ms/step, a rank "
+          f"{1000 * max(r['seconds'] for r in ranks) / DP_STEPS:.1f} ms/step (gloo's all-reduce "
+          f"through the host; {card})", flush=True)
+
+    ref, ranks = refs["unet"], got["unet"]
+    lead = ranks[0]
+    for r in ranks:
+        check_launches(f"rank {r['rank']}'s ClassicUnet step", r["launches"],
+                       {"plane_norms": 1, "plane_norms_bwd": 1}, 1)
+        local = DP_BATCH // DP_RANKS
+        rows = slice(r["rank"] * local, (r["rank"] + 1) * local)
+        compare(f"ClassicUnet output, rank {r['rank']} vs its rows of one process",
+                r["pred"], ref["pred"][rows], KERNEL_RTOL["float32"])
+    dp_compare_grads_64("ClassicUnet gradients", lead["grads"], ref["grads"], ref["grads64"])
+    dp_compare_params("ClassicUnet running statistics, 2 ranks vs 1 process",
+                      lead["stats"], ref["stats"], DP_STATS_RTOL)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"  the ranks' processes {ranks_s:.1f} s (start-up included; {card}); phases 51-52 "
+          f"took {seconds:.1f} s", flush=True)
+    return [{"launches": {k: sum(r["launches"][k] for r in got[kind])
+                          for k in got[kind][0]["launches"]}, "seconds": seconds}
+            for kind in DP_KINDS]
+
+
+def dp_cli_phase(repo: Path, card: str) -> float:
+    """Phase 53: ``scripts/train_torch.py`` under ``torch.distributed.run``
+    (one process, ``mesh_cfg=single``) on synthetic batches: its world line,
+    and ``last.pt`` and ``metrics.csv`` written once, by the leader."""
+    print("== phase 53: the training CLI under torch.distributed.run, mesh_cfg=single",
+          flush=True)
+    t0 = time.perf_counter()
+    log_dir = repo / "build" / "chip_smoke_torchrun"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", "scripts/train_torch.py", "synthetic_batches=3", "limit_train_batches=3",
+           "scheduler_cfg.params.warmup_iters=2", "mesh_cfg=single", f"log_dir={log_dir}"]
+    try:
+        res = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("the torchrun CLI did not finish in 300 s")
+    lines = res.stdout.splitlines()
+    world = [line for line in lines if line.startswith("process ")]
+    print("\n".join(f"  {line}" for line in world + lines[-3:]))
+    if res.returncode != 0:
+        print(res.stderr[-3000:])
+        fail(f"the torchrun CLI exited {res.returncode}")
+    written = sorted(p.relative_to(log_dir).as_posix() for p in log_dir.rglob("*")
+                     if p.name in ("last.pt", "metrics.csv"))
+    want = ["filmavit_singlebubble_saturated_local/last.pt",
+            "filmavit_singlebubble_saturated_local/metrics.csv"]
+    if len(world) != 1 or not world[0].startswith("process 0/1:") or written != want:
+        fail(f"the torchrun CLI printed {world} and wrote {written}")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    print(f"  {written} written by the leader; phase 53 took {seconds:.1f} s ({card})",
+          flush=True)
+    return seconds
+
+
 def main() -> None:
     t_run = time.perf_counter()
     try:
@@ -3195,6 +3745,9 @@ def main() -> None:
     if not (repo / "bubbleformer_tpu_torch" / "csrc").is_dir():
         fail(f"bubbleformer_tpu_torch/ is not beside {Path(__file__).name}: run it from the repo")
     sys.path.insert(0, str(repo))
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phases 51-52, started below
+        dp_worker(sys.argv[2])
+        return
 
     from bubbleformer_tpu_torch import _build
     from bubbleformer_tpu_torch.config import FILM_AVIT_SMALL, load_config
@@ -3446,26 +3999,32 @@ def main() -> None:
             results[("K2 bwd", name, where)] = (err, ms, plain_ms)
     del k2_qkv, k2_do
 
-    print(f"== phase 9: one float32 training step vs float64, batch 1 at {IMAGE}^2", flush=True)
+    print(f"== phase 9: one float32 training step vs float64, batch 1 at {IMAGE}^2, the first "
+          f"{STEP_BLOCKS} blocks", flush=True)
     cfg = load_config(["scheduler_cfg.params.warmup_iters=2"])
     train_cfgs = (cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"])
     if train_cfgs[0] != FILM_AVIT_SMALL:
         fail("the default composition's model is not FiLMAViT-small")
+    step_cfgs = (dict(cfg["model_cfg"], params=dict(cfg["model_cfg"]["params"],
+                                                    processor_blocks=STEP_BLOCKS)),
+                 *train_cfgs[1:])
+    step_weights = {k: v for k, v in weights.items()
+                    if not k.startswith("blocks.") or int(k.split(".")[1]) < STEP_BLOCKS}
     batch = synthetic_batch(1, TIME_WINDOW, FIELDS, IMAGE, IMAGE, 9, seed=SEED)
     counters = (mega_temporal_block, mega_temporal_block_bwd, lane_axial_attention,
                 lane_axial_attention_bwd)
     # K2's path in float32: the line kernels (their counters move with K2's).
     step_counters = counters + (lane_line_fwd, lane_line_bwd)
     sides = (("card", "cuda", False), ("card plain", "cuda", True), ("CPU", "cpu", False))
-    for case, case_weights in (("FiLM near identity", film_near_identity(weights, SEED)),
-                               ("FiLM at O(0.1)", weights)):
-        ref_loss, ref, t64 = train_step_grads(train_cfgs, case_weights, batch, "cpu",
+    for case, case_weights in (("FiLM near identity", film_near_identity(step_weights, SEED)),
+                               ("FiLM at O(0.1)", step_weights)):
+        ref_loss, ref, t64 = train_step_grads(step_cfgs, case_weights, batch, "cpu",
                                               torch.float64)
         print(f"  {case}: CPU float64 step {t64:.2f} s, loss {ref_loss:.7f}")
         worst = {}
         for side, where, plain in sides:
             counts = [fn.launches for fn in step_counters]
-            loss, grads, secs = train_step_grads(train_cfgs, case_weights, batch, where,
+            loss, grads, secs = train_step_grads(step_cfgs, case_weights, batch, where,
                                                  torch.float32, plain)
             launched = [fn.launches - n for fn, n in zip(step_counters, counts)]
             if where == "cuda" and (any(launched) if plain else not all(launched)):
@@ -4034,6 +4593,15 @@ def main() -> None:
         entry["launches"] += sum(r["launches"].get(counter, 0) for r in (files, gate))
     print(f"  phases 47 / 48 / 49 took {data['seconds']:.1f} / {files['seconds']:.1f} / "
           f"{gate['seconds']:.1f} s", flush=True)
+    # This slice: data parallelism (phases 50-53), whose runs add K1's, K2's
+    # and K10's launches.
+    dp = [dp_one_rank_phase(card), *dp_two_rank_phases(repo, card)]
+    t_cli = dp_cli_phase(repo, card)
+    for entry in kernels:
+        counter = counter_of.get(entry["name"], entry["name"])
+        entry["launches"] += sum(r["launches"].get(counter, 0) for r in dp)
+    print(f"  phases 50 / 51-52 / 53 took {dp[0]['seconds']:.1f} / {dp[1]['seconds']:.1f} / "
+          f"{t_cli:.1f} s", flush=True)
     print(f"  the run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,10 +1,10 @@
 """The port's own copy of the config tree against the JAX package's originals.
 
 ``bubbleformer_tpu_torch/config/`` keeps ``default.yaml`` and the
-``data_cfg``, ``model_cfg``, ``optim_cfg`` and ``scheduler_cfg`` groups (not
-``mesh_cfg``: the port has no mesh).  Each copy must equal its original key
-for key, so that an edit to one side shows here; and packaging must ship the
-copies with the package.
+``data_cfg``, ``model_cfg``, ``optim_cfg``, ``scheduler_cfg`` and
+``mesh_cfg`` groups.  Each copy must equal its original key for key, so
+that an edit to one side shows here; and packaging must ship the copies
+with the package.
 """
 import tomllib
 from pathlib import Path
@@ -17,7 +17,7 @@ from bubbleformer_tpu_torch.config import DEFAULT_CONFIG_DIR
 REPO = Path(__file__).resolve().parents[1]
 JAX_DIR = REPO / "bubbleformer_tpu" / "config"
 PORT_DIR = Path(DEFAULT_CONFIG_DIR)
-GROUPS = ("data_cfg", "model_cfg", "optim_cfg", "scheduler_cfg")
+GROUPS = ("data_cfg", "model_cfg", "optim_cfg", "scheduler_cfg", "mesh_cfg")
 
 
 def _files(root: Path):
@@ -29,9 +29,12 @@ def test_port_reads_its_own_tree():
 
 
 def test_port_copies_every_group_but_the_mesh():
+    """Every group now, the mesh too: the data-parallel mesh reads
+    ``mesh_cfg`` (``parallel/mesh.py``), and each of its copies equals its
+    original (``test_copy_equals_original``)."""
     want = [f for f in _files(JAX_DIR) if f.split("/")[0] in GROUPS or "/" not in f]
-    assert _files(PORT_DIR) == want
-    assert not (PORT_DIR / "mesh_cfg").exists()
+    assert _files(PORT_DIR) == want == _files(JAX_DIR)
+    assert _files(PORT_DIR / "mesh_cfg") == ["dp_sp.yaml", "dp_tp.yaml", "single.yaml"]
 
 
 @pytest.mark.parametrize("name", _files(PORT_DIR))

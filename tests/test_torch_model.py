@@ -37,11 +37,11 @@ def test_film_avit_small_dict_equals_yaml():
 ])
 def test_config_loader_matches_jax(overrides, monkeypatch):
     """The port composes its own copy of the YAML files exactly as the JAX
-    loader composes the originals, less the JAX package's device mesh."""
+    loader composes the originals, the device mesh included."""
     monkeypatch.setenv("BUBBLEML_DIR", "/data/bubbleml")
     want = jax_load_config(overrides)
-    assert "mesh_cfg" in want
-    del want["mesh_cfg"]
+    assert want["mesh_cfg"] == {"data": -1, "model": 1}
+    assert load_config(overrides) == want
     assert load_config(overrides + ["mesh_cfg=single"]) == want
 
 
