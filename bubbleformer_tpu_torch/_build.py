@@ -43,22 +43,22 @@ _FP = ctypes.POINTER(ctypes.c_float)  # a host array of float32 (per-launch mill
 _SIGNATURES = {
     # dtype, head_dim, x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout,
     # bout, bias, scale, stats1, qkv, ao, ao_r, stats2, out, xs, launch_ms, B,
-    # T, N, C, heads, stream
-    "bf_temporal_block_fwd": [_I] * 2 + [_P] * 19 + [_FP] + [_I] * 5 + [_P],
+    # T, N, C, heads, Cin, partial, stream
+    "bf_temporal_block_fwd": [_I] * 2 + [_P] * 19 + [_FP] + [_I] * 7 + [_P],
     # dtype, head_dim, x, do, qkv, in1_w, in1_b, wqkv_t, ln, in2_w, in2_b,
     # wout_t, bias, scale, stats1, ao_r, stats2, work, sums, dqkv, dx, din1,
     # dwqkv, dbqkv, dln, din2, dwout, dbout, dbias, dscale, xs, part, plan_out,
-    # splits_out, plan_qkv, splits_qkv, launch_ms, B, T, N, C, heads, stream
-    "bf_temporal_block_bwd": [_I] * 2 + [_P] * 30 + [_IP, _I, _IP, _I, _FP] + [_I] * 5 + [_P],
+    # splits_out, plan_qkv, splits_qkv, launch_ms, B, T, N, C, heads, Cin, stream
+    "bf_temporal_block_bwd": [_I] * 2 + [_P] * 30 + [_IP, _I, _IP, _I, _FP] + [_I] * 6 + [_P],
     # layout, epilogue, a, b, out, bias, part, M, N, K, bounds, splits, stream
     "bf_hopper_gemm": [_I] * 2 + [_P] * 5 + [_I] * 3 + [_IP, _I, _P],
     # dtype, head_dim, xn, wqkv, bqkv, ln, bias, scale, qkv, ao, launch_ms, B,
-    # T, N, C, heads, stream
-    "bf_core_temporal_fwd": [_I] * 2 + [_P] * 8 + [_FP] + [_I] * 5 + [_P],
+    # T, N, C, heads, Cin, stream
+    "bf_core_temporal_fwd": [_I] * 2 + [_P] * 8 + [_FP] + [_I] * 6 + [_P],
     # dtype, head_dim, xn, dao, wqkv, bqkv, wqkv_t, ln, bias, scale, qkv,
     # dqkv, dx, dwqkv, dbqkv, dln, dbias, dscale, part, plan, splits,
-    # launch_ms, B, T, N, C, heads, stream
-    "bf_core_temporal_bwd": [_I] * 2 + [_P] * 17 + [_IP, _I, _FP] + [_I] * 5 + [_P],
+    # launch_ms, B, T, N, C, heads, Cin, stream
+    "bf_core_temporal_bwd": [_I] * 2 + [_P] * 17 + [_IP, _I, _FP] + [_I] * 6 + [_P],
     # dtype, head_dim, fused, qkv, ln, bias_x, bias_y, scale, row_out, out,
     # BT, H, W, C, heads, stream
     "bf_axial_attention_fwd": [_I] * 3 + [_P] * 7 + [_I] * 5 + [_P],

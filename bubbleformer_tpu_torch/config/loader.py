@@ -7,10 +7,11 @@ module: ``default.yaml`` and the ``data_cfg``, ``model_cfg``, ``optim_cfg``,
 ``bubbleformer_tpu/config/`` (``tests/test_torch_config.py`` holds each copy
 equal to its original).  The composed config carries ``mesh_cfg`` as the
 JAX loader's does; ``parallel/mesh.py:make_mesh`` reads it, running
-``single`` (data parallelism over every process) and raising ``ValueError``
-for a ``model`` or ``spatial`` axis (``dp_tp``, ``dp_sp``,
-``mesh_cfg.model=2``), which the port does not have.  ``yaml`` is imported
-only when a file is read.
+``single`` (data parallelism over every process) and ``dp_tp`` (``model:
+2``, tensor parallelism, in a world of an even number of processes; in a
+world of one it raises ``ValueError``, as ``mesh_cfg.model=2`` does), and
+raising for a ``spatial`` axis (``dp_sp``), which the port does not have.
+``yaml`` is imported only when a file is read.
 """
 from __future__ import annotations
 

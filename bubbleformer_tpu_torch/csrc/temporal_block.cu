@@ -88,7 +88,7 @@ __global__ void __launch_bounds__(kThreads) qkv_attention64_kernel(
     const float* __restrict__ in1_w, const float* __restrict__ in1_b,
     const T* __restrict__ wqkv, const float* __restrict__ bqkv, const float* __restrict__ ln,
     const float* __restrict__ bias, const float* __restrict__ scale, T* __restrict__ qkv,
-    O* __restrict__ ao, T* __restrict__ ao_r, int steps, int N, int C) {
+    O* __restrict__ ao, T* __restrict__ ao_r, int steps, int N, int C, int Cin) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n0 = blockIdx.x * kP, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -96,14 +96,14 @@ __global__ void __launch_bounds__(kThreads) qkv_attention64_kernel(
 
   auto aload = [&](int m, int k) -> T {
     const int g = b * steps + m / kP;
-    const T v = x[((size_t)g * N + n0 + m % kP) * C + k];
+    const T v = x[((size_t)g * N + n0 + m % kP) * Cin + k];
     if constexpr (!kNorm) return v;
-    const int s = g * C + k;
+    const int s = g * Cin + k;
     return from_f32<T>((to_f32(v) - mean1[s]) * rstd1[s] * in1_w[k] + in1_b[k]);
   };
-  const T* w = wqkv + (size_t)h * kBN * C;
-  auto bload = [&](int n, int k) -> T { return w[(size_t)n * C + k]; };
-  block_gemm<T, false>(steps, kBN / 16, C, aload, bload, smem);
+  const T* w = wqkv + (size_t)h * kBN * Cin;
+  auto bload = [&](int n, int k) -> T { return w[(size_t)n * Cin + k]; };
+  block_gemm<T, false>(steps, kBN / 16, Cin, aload, bload, smem);
   float* Cs = gemm_out<T>(smem, steps);
   __syncthreads();
 
@@ -196,7 +196,7 @@ __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
     const float* __restrict__ in1_w, const float* __restrict__ in1_b,
     const T* __restrict__ wqkv, const float* __restrict__ bqkv, const float* __restrict__ ln,
     const float* __restrict__ bias, const float* __restrict__ scale, T* __restrict__ qkv,
-    O* __restrict__ ao, T* __restrict__ ao_r, int steps, int N, int C) {
+    O* __restrict__ ao, T* __restrict__ ao_r, int steps, int N, int C, int Cin) {
   using G = HeadGroup<D>;
   constexpr int kPer = HeadRow<D>::kPer;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -207,14 +207,14 @@ __global__ void __launch_bounds__(kThreads) qkv_attention_kernel(
 
   auto aload = [&](int m, int k) -> T {
     const int g = b * steps + m / kP;
-    const T v = x[((size_t)g * N + n0 + m % kP) * C + k];
+    const T v = x[((size_t)g * N + n0 + m % kP) * Cin + k];
     if constexpr (!kNorm) return v;
-    const int s = g * C + k;
+    const int s = g * Cin + k;
     return from_f32<T>((to_f32(v) - mean1[s]) * rstd1[s] * in1_w[k] + in1_b[k]);
   };
-  const T* w = wqkv + (size_t)col0 * C;
-  auto bload = [&](int n, int k) -> T { return w[(size_t)n * C + k]; };
-  block_gemm<T, false>(steps, G::kCols / 16, C, aload, bload, smem);
+  const T* w = wqkv + (size_t)col0 * Cin;
+  auto bload = [&](int n, int k) -> T { return w[(size_t)n * Cin + k]; };
+  block_gemm<T, false>(steps, G::kCols / 16, Cin, aload, bload, smem);
   float* Cs = gemm_out<T>(smem, steps);
   __syncthreads();
 
@@ -330,11 +330,11 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
                        const float* bqkv, const float* ln, const float* in2_w, const float* in2_b,
                        const void* wout, const float* bout, const float* bias, const float* scale,
                        float* stats1, void* qkv, float* ao, void* ao_r, float* stats2,
-                       void* out, int B, int steps, int N, int C, int heads,
+                       void* out, int B, int steps, int N, int C, int heads, int Cin,
                        cudaStream_t stream) {
   const int G = B * steps;
   cudaError_t e;
-  if ((e = launch_plane_stats<T>(static_cast<const T*>(x), G, N, C, stats1, stream)) !=
+  if ((e = launch_plane_stats<T>(static_cast<const T*>(x), G, N, Cin, stats1, stream)) !=
       cudaSuccess)
     return e;
 
@@ -344,14 +344,14 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
                                 (int)smem_b)) != cudaSuccess)
     return e;
   kernel<<<dim3(N / kP, heads / HeadGroup<D>::kHeads, B), kThreads, smem_b, stream>>>(
-      static_cast<const T*>(x), stats1, stats1 + (size_t)G * C, in1_w, in1_b,
+      static_cast<const T*>(x), stats1, stats1 + (size_t)G * Cin, in1_w, in1_b,
       static_cast<const T*>(wqkv), bqkv, ln, bias, scale, static_cast<T*>(qkv), ao,
-      static_cast<T*>(ao_r), steps, N, C);
+      static_cast<T*>(ao_r), steps, N, C, Cin);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
 
   if ((e = launch_plane_stats<float>(ao, G, N, C, stats2, stream)) != cudaSuccess) return e;
   return launch_norm_proj<T, float>(ao, stats2, in2_w, in2_b, static_cast<const T*>(wout), bout,
-                                    static_cast<T*>(out), G, N, C, C, stream);
+                                    static_cast<T*>(out), G, N, C, Cin, stream);
 }
 
 // K1's bf16 forward as a chain of launches, its two products on the Hopper
@@ -363,32 +363,39 @@ int run_temporal_block(const void* x, const float* in1_w, const float* in1_b, co
 //        ao_r (bf16);
 //   (c)  plane_stats: IN2's statistics of the float32 ao;
 //   (d') in_norm: y2 = bf16(IN2(ao)) into xs;
-//   (d)  gemm_nt: out = bf16(y2 . (gamma W_out)^T + gamma b_out).
-// launch_ms, when given, receives each launch's device time (LaunchTimer).
+//   (d)  gemm_nt: out = bf16(y2 . (gamma W_out)^T + gamma b_out); with
+//        partial, out = y2 . (gamma W_out)^T in float32 and no bias (one
+//        rank's share of a row-parallel projection).
+// x, xn and out are Cin wide; qkv 3C, ao and y2 C (C = heads * D: Cin
+// unsharded, Cin / m for one rank's heads).  launch_ms, when given,
+// receives each launch's device time (LaunchTimer).
 template <int D>
 int run_temporal_block_hopper(const __nv_bfloat16* x, const float* in1_w, const float* in1_b,
                               const __nv_bfloat16* wqkv, const float* bqkv, const float* ln,
                               const float* in2_w, const float* in2_b, const __nv_bfloat16* wout,
                               const float* bout, const float* bias, const float* scale,
                               float* stats1, __nv_bfloat16* qkv, float* ao, __nv_bfloat16* ao_r,
-                              float* stats2, __nv_bfloat16* out, __nv_bfloat16* xs, int B,
-                              int steps, int N, int C, int heads, cudaStream_t stream,
-                              float* launch_ms) {
+                              float* stats2, void* out, __nv_bfloat16* xs, int B, int steps,
+                              int N, int C, int heads, int Cin, bool partial,
+                              cudaStream_t stream, float* launch_ms) {
   const int G = B * steps, R = G * N;
   LaunchTimer timer(launch_ms, stream);
   cudaError_t e;
 #define BFT_TRY(call)                           \
   if ((e = (call)) != cudaSuccess) return e;    \
   timer.mark()
-  BFT_TRY(launch_plane_stats<__nv_bfloat16>(x, G, N, C, stats1, stream));
-  BFT_TRY(launch_in_norm(x, stats1, in1_w, in1_b, xs, G, N, C, stream));
-  BFT_TRY(hg::gemm_nt<hg::kBiasRound>(xs, C, wqkv, C, R, 3 * C, C, qkv, 3 * C, bqkv, stream));
+  BFT_TRY(launch_plane_stats<__nv_bfloat16>(x, G, N, Cin, stats1, stream));
+  BFT_TRY(launch_in_norm(x, stats1, in1_w, in1_b, xs, G, N, Cin, stream));
+  BFT_TRY(hg::gemm_nt<hg::kBiasRound>(xs, Cin, wqkv, Cin, R, 3 * C, Cin, qkv, 3 * C, bqkv,
+                                      stream));
   BFT_TRY(launch_temporal_attention<D>(qkv, ln, bias, scale, ao, ao_r, B, steps, N, C, heads,
                                        stream));
   BFT_TRY(launch_plane_stats<float>(ao, G, N, C, stats2, stream));
   BFT_TRY(launch_in_norm(static_cast<const float*>(ao), stats2, in2_w, in2_b, xs, G, N, C,
                          stream));
-  BFT_TRY(hg::gemm_nt<hg::kBiasRound>(xs, C, wout, C, R, C, C, out, C, bout, stream));
+  BFT_TRY(partial
+              ? hg::gemm_nt<hg::kStoreF32>(xs, C, wout, C, R, Cin, C, out, Cin, nullptr, stream)
+              : hg::gemm_nt<hg::kBiasRound>(xs, C, wout, C, R, Cin, C, out, Cin, bout, stream));
 #undef BFT_TRY
   return timer.finish();
 }
@@ -397,7 +404,7 @@ int run_temporal_block_hopper(const __nv_bfloat16* x, const float* in1_w, const 
 template <typename T, int D>
 int run_core_temporal(const void* xn, const void* wqkv, const float* bqkv, const float* ln,
                       const float* bias, const float* scale, void* ao, int B, int steps,
-                      int N, int C, int heads, cudaStream_t stream) {
+                      int N, int C, int heads, int Cin, cudaStream_t stream) {
   auto kernel = qkv_attention<T, T, false, D>();
   const size_t smem_b = gemm_smem_bytes<T>(steps);
   cudaError_t e;
@@ -406,7 +413,7 @@ int run_core_temporal(const void* xn, const void* wqkv, const float* bqkv, const
     return e;
   kernel<<<dim3(N / kP, heads / HeadGroup<D>::kHeads, B), kThreads, smem_b, stream>>>(
       static_cast<const T*>(xn), nullptr, nullptr, nullptr, nullptr, static_cast<const T*>(wqkv),
-      bqkv, ln, bias, scale, nullptr, static_cast<T*>(ao), nullptr, steps, N, C);
+      bqkv, ln, bias, scale, nullptr, static_cast<T*>(ao), nullptr, steps, N, C, Cin);
   return cudaGetLastError();
 }
 
@@ -420,7 +427,7 @@ template <int D>
 int run_core_temporal_hopper(const __nv_bfloat16* xn, const __nv_bfloat16* wqkv,
                              const float* bqkv, const float* ln, const float* bias,
                              const float* scale, __nv_bfloat16* qkv, __nv_bfloat16* ao, int B,
-                             int steps, int N, int C, int heads, cudaStream_t stream,
+                             int steps, int N, int C, int heads, int Cin, cudaStream_t stream,
                              float* launch_ms) {
   const int R = B * steps * N;
   LaunchTimer timer(launch_ms, stream);
@@ -428,7 +435,8 @@ int run_core_temporal_hopper(const __nv_bfloat16* xn, const __nv_bfloat16* wqkv,
 #define BFT_TRY(call)                        \
   if ((e = (call)) != cudaSuccess) return e; \
   timer.mark()
-  BFT_TRY(hg::gemm_nt<hg::kBiasRound>(xn, C, wqkv, C, R, 3 * C, C, qkv, 3 * C, bqkv, stream));
+  BFT_TRY(hg::gemm_nt<hg::kBiasRound>(xn, Cin, wqkv, Cin, R, 3 * C, Cin, qkv, 3 * C, bqkv,
+                                      stream));
   BFT_TRY(launch_temporal_attention<D>(qkv, ln, bias, scale, nullptr, ao, B, steps, N, C, heads,
                                        stream));
 #undef BFT_TRY
@@ -436,24 +444,31 @@ int run_core_temporal_hopper(const __nv_bfloat16* xn, const __nv_bfloat16* wqkv,
 }
 
 // The kernels' envelope, checked again here (the wrappers check it first):
-// head dim 16 or 64, whole head groups, T <= 8, N % 16 == 0, C % 32 == 0.
-bool temporal_shape_ok(int head_dim, int steps, int N, int C, int heads) {
+// head dim 16 or 64, whole head groups, T <= 8, N % 16 == 0, the attention
+// width C (heads * head_dim) and the projection width Cin multiples of 32.
+bool temporal_shape_ok(int head_dim, int steps, int N, int C, int heads, int Cin) {
   const int group = head_dim == 64 ? HeadGroup<64>::kHeads : HeadGroup<16>::kHeads;
   return (head_dim == 64 || head_dim == 16) && C == heads * head_dim && heads % group == 0 &&
-         steps >= 1 && steps <= kMaxT && N % kP == 0 && C % kKC == 0;
+         steps >= 1 && steps <= kMaxT && N % kP == 0 && C % kKC == 0 && Cin > 0 &&
+         Cin % kKC == 0;
 }
 
 }  // namespace
 }  // namespace bft
 
-// x, out: (B, T, N, C) in dtype; wqkv (3C, C) and wout (C, C) in dtype, torch
-// (out, in) layout; ln (4, head_dim) = [q scale; q bias; k scale; k bias];
-// bias (heads, T, T); scale (heads,).  Also written: the float32 scratch of
-// IN2, ao (B*T*N, C) and stats2 (2, B*T, C); and for the backward stats1 (2,
-// B*T, C) in float32, ao_r (B*T*N, C) (ao rounded) and the rounded raw qkv
-// (B*T*N, 3C) in dtype.  bf16 runs the launch chain above (xs: a (B*T*N, C)
-// bf16 scratch; every base 16-byte aligned); float32 runs launches (a)-(d)
-// on block_gemm.cuh's FMA tile (xs unused; launch_ms must be null).
+// x, out: (B, T, N, Cin) in dtype (out float32 with partial); wqkv (3C, Cin)
+// and wout (Cin, C) in dtype, torch (out, in) layout, C = heads * head_dim the
+// attention width (Cin unsharded; Cin / m for one rank's heads of m under
+// tensor parallelism); in1_w, in1_b, bout (Cin); in2_w, in2_b (C); ln (4,
+// head_dim) = [q scale; q bias; k scale; k bias]; bias (heads, T, T); scale
+// (heads,).  Also written: the float32 scratch of IN2, ao (B*T*N, C) and
+// stats2 (2, B*T, C); and for the backward stats1 (2, B*T, Cin) in float32,
+// ao_r (B*T*N, C) (ao rounded) and the rounded raw qkv (B*T*N, 3C) in dtype.
+// partial: out is the output projection's float32 product without b_out
+// (bf16: the GEMM's float32 epilogue; float32: the caller passes zeros as
+// bout).  bf16 runs the launch chain above (xs: a (B*T*N, max(C, Cin)) bf16
+// scratch; every base 16-byte aligned); float32 runs launches (a)-(d) on
+// block_gemm.cuh's FMA tile (xs unused; launch_ms must be null).
 // launch_ms: null, or a host array of 7 floats for the bf16 chain's
 // per-launch milliseconds (the call then waits for the card).  head_dim 16
 // (heads a multiple of 3) or 64, T <= 8, N % 16 == 0 and C % 32 == 0.
@@ -465,16 +480,16 @@ extern "C" int bf_temporal_block_fwd(int dtype, int head_dim, const void* x, con
                                      const float* scale, float* stats1, void* qkv, float* ao,
                                      void* ao_r, float* stats2, void* out, void* xs,
                                      float* launch_ms, int B, int steps, int N, int C, int heads,
-                                     void* stream) {
-  if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
+                                     int Cin, int partial, void* stream) {
+  if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads, Cin)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
 #define BFT_RUN(D)                                                                              \
   return bft::run_temporal_block_hopper<D>(                                                     \
       static_cast<const bf16*>(x), in1_w, in1_b, static_cast<const bf16*>(wqkv), bqkv, ln,      \
       in2_w, in2_b, static_cast<const bf16*>(wout), bout, bias, scale, stats1,                  \
-      static_cast<bf16*>(qkv), ao, static_cast<bf16*>(ao_r), stats2, static_cast<bf16*>(out),   \
-      static_cast<bf16*>(xs), B, steps, N, C, heads, s, launch_ms)
+      static_cast<bf16*>(qkv), ao, static_cast<bf16*>(ao_r), stats2, out,                       \
+      static_cast<bf16*>(xs), B, steps, N, C, heads, Cin, partial != 0, s, launch_ms)
   if (dtype == bft::kBF16 && head_dim == 64) BFT_RUN(64);
   if (dtype == bft::kBF16 && head_dim == 16) BFT_RUN(16);
 #undef BFT_RUN
@@ -482,7 +497,7 @@ extern "C" int bf_temporal_block_fwd(int dtype, int head_dim, const void* x, con
 #define BFT_RUN(T, D)                                                                           \
   return bft::run_temporal_block<T, D>(x, in1_w, in1_b, wqkv, bqkv, ln, in2_w, in2_b, wout, bout, \
                                        bias, scale, stats1, qkv, ao, ao_r, stats2, out, B,      \
-                                       steps, N, C, heads, s)
+                                       steps, N, C, heads, Cin, s)
   if (dtype == bft::kF32 && head_dim == 64) BFT_RUN(float, 64);
   if (dtype == bft::kF32 && head_dim == 16) BFT_RUN(float, 16);
 #undef BFT_RUN
@@ -493,9 +508,10 @@ extern "C" int bf_temporal_block_fwd(int dtype, int head_dim, const void* x, con
 // bubbleformer_tpu/ops/temporal_block_mega.py:_core_fwd_kernel, built by
 // _make_temporal_core, entry core_temporal_attention): the QKV projection of
 // the IN1 output xn, qk-LN and the T x T attention, writing ao (B, T, N, C)
-// in dtype and nothing else: as on the TPU, the backward projects again.  xn
-// in dtype; wqkv (3C, C) in dtype; head_dim, ln, bias and scale as for
-// bf_temporal_block_fwd.
+// (B, T, N, C) in dtype and nothing else: as on the TPU, the backward
+// projects again.  xn (B, T, N, Cin) in dtype; wqkv (3C, Cin) in dtype (C =
+// heads * head_dim, as for bf_temporal_block_fwd); head_dim, ln, bias and
+// scale as there.
 //
 // What bounds it at AViT-big's training shape (B=8, T=5, 32x32 tokens,
 // C=768, 12 heads): the QKV product, 2*R*C*3C = 145 GFLOP for R = 40960
@@ -511,21 +527,23 @@ extern "C" int bf_temporal_block_fwd(int dtype, int head_dim, const void* x, con
 extern "C" int bf_core_temporal_fwd(int dtype, int head_dim, const void* xn, const void* wqkv,
                                     const float* bqkv, const float* ln, const float* bias,
                                     const float* scale, void* qkv, void* ao, float* launch_ms,
-                                    int B, int steps, int N, int C, int heads, void* stream) {
-  if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
+                                    int B, int steps, int N, int C, int heads, int Cin,
+                                    void* stream) {
+  if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads, Cin)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using bf16 = __nv_bfloat16;
 #define BFT_RUN(D)                                                                             \
   return bft::run_core_temporal_hopper<D>(                                                     \
       static_cast<const bf16*>(xn), static_cast<const bf16*>(wqkv), bqkv, ln, bias, scale,     \
-      static_cast<bf16*>(qkv), static_cast<bf16*>(ao), B, steps, N, C, heads, s, launch_ms)
+      static_cast<bf16*>(qkv), static_cast<bf16*>(ao), B, steps, N, C, heads, Cin, s,        \
+      launch_ms)
   if (dtype == bft::kBF16 && head_dim == 64) BFT_RUN(64);
   if (dtype == bft::kBF16 && head_dim == 16) BFT_RUN(16);
 #undef BFT_RUN
   if (launch_ms != nullptr) return cudaErrorInvalidValue;
 #define BFT_RUN(D)                                                                            \
   return bft::run_core_temporal<float, D>(xn, wqkv, bqkv, ln, bias, scale, ao, B, steps, N, C, \
-                                          heads, s)
+                                          heads, Cin, s)
   if (dtype == bft::kF32 && head_dim == 64) BFT_RUN(64);
   if (dtype == bft::kF32 && head_dim == 16) BFT_RUN(16);
 #undef BFT_RUN

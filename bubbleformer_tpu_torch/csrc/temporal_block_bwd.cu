@@ -18,8 +18,9 @@
 // training dtype) runs run_temporal_block_bwd_hopper below: its four
 // products on the hand-written TMA + wgmma GEMM (hopper_gemm.cuh), the
 // weight gradients split over tokens and their partials added in a fixed
-// order (bit for bit from run to run), the attention pass one (position,
-// head) per lane group (temporal_hopper.cuh).  float32 keeps the first
+// order, the attention pass one (position, head) per lane group
+// (temporal_hopper.cuh), and every other parameter gradient summed in a
+// fixed order too: bit for bit from run to run.  float32 keeps the first
 // version's eleven launches:
 //   (0) plane_stats:   IN2's statistics again, from the rounded ao
 //   (1) gemm_nt:       dy2 = do . W_out                       (float32 scratch)
@@ -347,7 +348,8 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
                            const T* ao, float* stats2, float* work, float* sums,
                            T* dqkv, T* dx, float* din1, float* dwqkv, float* dbqkv, float* dln,
                            float* din2, float* dwout, float* dbout, float* dbias, float* dscale,
-                           int B, int steps, int N, int C, int heads, cudaStream_t stream) {
+                           int B, int steps, int N, int C, int heads, int Cin,
+                           cudaStream_t stream) {
   const int G = B * steps, R = G * N;
   cudaError_t e;
 #define BFT_TRY(call) \
@@ -355,13 +357,13 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
   // (0) IN2's statistics of the rounded ao
   BFT_TRY((launch_plane_stats<T>(ao, G, N, C, stats2, stream)));
   // (1) dy2 = do . W_out
-  BFT_TRY((launch_gemm_nt<T, float>(dout, wout_t, work, R, C, C, stream)));
+  BFT_TRY((launch_gemm_nt<T, float>(dout, wout_t, work, R, C, Cin, stream)));
   // (2) dW_out += do^T . IN2(ao)
-  BFT_TRY((launch_wgrad<T, T, true>(dout, C, ao, stats2, in2_w, in2_b, C, G, N, dwout,
+  BFT_TRY((launch_wgrad<T, T, true>(dout, Cin, ao, stats2, in2_w, in2_b, C, G, N, dwout,
                                     stream)));
   // (3) db_out
-  BFT_TRY((launch_plane_sums<T, float>(dout, nullptr, nullptr, G, N, C, nullptr, nullptr, dbout,
-                                       stream)));
+  BFT_TRY((launch_plane_sums<T, float>(dout, nullptr, nullptr, G, N, Cin, nullptr, nullptr,
+                                       dbout, stream)));
   // (4) IN2 backward sums; d(in2 scale, bias)
   BFT_TRY((launch_plane_sums<float, T>(work, ao, stats2, G, N, C, sums, din2, din2 + C,
                                        stream)));
@@ -370,19 +372,33 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
                                              nullptr, dqkv, dln, dbias, dscale, B, steps, N, C,
                                              heads, stream)));
   // (6) dW_qkv += dqkv^T . IN1(x)
-  BFT_TRY((launch_wgrad<T, T, true>(dqkv, 3 * C, x, stats1, in1_w, in1_b, C, G, N, dwqkv,
+  BFT_TRY((launch_wgrad<T, T, true>(dqkv, 3 * C, x, stats1, in1_w, in1_b, Cin, G, N, dwqkv,
                                     stream)));
   // (7) db_qkv
   BFT_TRY((launch_plane_sums<T, float>(dqkv, nullptr, nullptr, G, N, 3 * C, nullptr, nullptr,
                                        dbqkv, stream)));
   // (8) dxn = dqkv . W_qkv (into the dy2 scratch, dead since (5))
-  BFT_TRY((launch_gemm_nt<T, float>(dqkv, wqkv_t, work, R, C, 3 * C, stream)));
+  BFT_TRY((launch_gemm_nt<T, float>(dqkv, wqkv_t, work, R, Cin, 3 * C, stream)));
   // (9) IN1 backward sums; d(in1 scale, bias)
-  BFT_TRY((launch_plane_sums<float, T>(work, x, stats1, G, N, C, sums, din1, din1 + C, stream)));
+  BFT_TRY((launch_plane_sums<float, T>(work, x, stats1, G, N, Cin, sums, din1, din1 + Cin,
+                                       stream)));
   // (10) dx
-  BFT_TRY((launch_in_apply<T, T>(work, x, stats1, in1_w, sums, dx, G, N, C, stream)));
+  BFT_TRY((launch_in_apply<T, T>(work, x, stats1, in1_w, sums, dx, G, N, Cin, stream)));
 #undef BFT_TRY
   return cudaSuccess;
+}
+
+// Per-plane sums of a (G, N, C) tensor into sums (2, G, C), then their totals
+// in plane order: out0[c] = sum of a, out1[c] = sum of a * xhat (src given),
+// either null.  No atomics, so they repeat bit for bit (K5's chain does the
+// same, axial_block_mega.cu).
+template <typename A, typename S>
+cudaError_t plane_totals_of(const A* a, const S* src, const float* stats, int G, int N, int C,
+                            float* sums, float* out0, float* out1, cudaStream_t stream) {
+  const cudaError_t e = launch_plane_sums<A, S>(a, src, stats, G, N, C, sums, nullptr, nullptr,
+                                                stream);
+  if (e != cudaSuccess) return e;
+  return launch_plane_totals(sums, G, C, out0, out1, stream);
 }
 
 // K1's bf16 backward: the launches of run_temporal_block_bwd with its four
@@ -394,19 +410,23 @@ int run_temporal_block_bwd(const T* x, const T* dout, const T* qkv, const float*
 //   (2)  in_norm:       y2 = bf16(IN2(ao)) into the scratch xs
 //   (3)  gemm_tn:       dW_out = do^T . y2, split-K over tokens (plan_out),
 //                       partials added in range order
-//   (4)  plane_sums:    db_out
-//   (5)  plane_sums:    IN2 backward sums; d(in2 scale, bias)
-//   (6)  temporal_attention_bwd (temporal_hopper.cuh): dqkv, dln, dbias,
-//        dscale, from the IN2 backward of dy2 at the rounded ao
+//   (4)  plane sums and totals: db_out
+//   (5)  plane sums and totals: IN2 backward sums (kept in sums); d(in2
+//        scale, bias)
+//   (6)  temporal_attention_bwd and its totals (temporal_hopper.cuh): dqkv,
+//        dln, dbias, dscale, from the IN2 backward of dy2 at the rounded ao
+//        (the per-block partials in part)
 //   (7)  in_norm:       xn = bf16(IN1(x)) into xs
 //   (8)  gemm_tn:       dW_qkv = dqkv^T . xn, split-K (plan_qkv)
-//   (9)  plane_sums:    db_qkv
+//   (9)  plane sums and totals: db_qkv
 //   (10) gemm_nt:       dxn = dqkv . W_qkv                  (float32 work)
-//   (11) plane_sums:    IN1 backward sums; d(in1 scale, bias)
+//   (11) plane sums and totals: IN1 backward sums (kept); d(in1 scale, bias)
 //   (12) in_apply:      dx
-// The weight gradients repeat bit for bit from run to run; the bias, norm,
-// table and scale gradients are float32 atomic sums as before.  launch_ms,
-// when given, receives each launch's device time.
+// Every gradient repeats bit for bit from run to run: the weight gradients'
+// split-K ranges, the plane sums and the attention pass's per-block
+// partials are all added in a fixed order.  x, dout, dx and xn are Cin wide,
+// qkv 3C, ao and y2 C (as the forward).  launch_ms, when given, receives
+// each launch's device time.
 template <int D>
 int run_temporal_block_bwd_hopper(
     const __nv_bfloat16* x, const __nv_bfloat16* dout, const __nv_bfloat16* qkv,
@@ -416,7 +436,7 @@ int run_temporal_block_bwd_hopper(
     float* work, float* sums, __nv_bfloat16* dqkv, __nv_bfloat16* dx, float* din1, float* dwqkv,
     float* dbqkv, float* dln, float* din2, float* dwout, float* dbout, float* dbias,
     float* dscale, __nv_bfloat16* xs, float* part, const int* plan_out, int splits_out,
-    const int* plan_qkv, int splits_qkv, int B, int steps, int N, int C, int heads,
+    const int* plan_qkv, int splits_qkv, int B, int steps, int N, int C, int heads, int Cin,
     cudaStream_t stream, float* launch_ms) {
   using bf16 = __nv_bfloat16;
   const int G = B * steps, R = G * N;
@@ -426,26 +446,27 @@ int run_temporal_block_bwd_hopper(
   if ((e = (call)) != cudaSuccess) return e; \
   timer.mark()
   BFT_TRY((launch_plane_stats<bf16>(ao, G, N, C, stats2, stream)));
-  BFT_TRY((hg::gemm_nt<hg::kStoreF32>(dout, C, wout_t, C, R, C, C, work, C, nullptr, stream)));
-  BFT_TRY((launch_in_norm(ao, stats2, in2_w, in2_b, xs, G, N, C, stream)));
-  BFT_TRY((hg::gemm_tn_splitk(dout, xs, R, C, C, plan_out, splits_out, part, dwout, stream)));
-  BFT_TRY((launch_plane_sums<bf16, float>(dout, nullptr, nullptr, G, N, C, nullptr, nullptr,
-                                          dbout, stream)));
-  BFT_TRY((launch_plane_sums<float, bf16>(work, ao, stats2, G, N, C, sums, din2, din2 + C,
-                                          stream)));
-  BFT_TRY((launch_temporal_attention_bwd<D, false>(qkv, ln, bias, scale, nullptr, work, ao,
-                                                   stats2, in2_w, sums, dqkv, dln, dbias, dscale,
-                                                   B, steps, N, C, heads, stream)));
-  BFT_TRY((launch_in_norm(x, stats1, in1_w, in1_b, xs, G, N, C, stream)));
-  BFT_TRY((hg::gemm_tn_splitk(dqkv, xs, R, 3 * C, C, plan_qkv, splits_qkv, part, dwqkv,
-                              stream)));
-  BFT_TRY((launch_plane_sums<bf16, float>(dqkv, nullptr, nullptr, G, N, 3 * C, nullptr, nullptr,
-                                          dbqkv, stream)));
-  BFT_TRY((hg::gemm_nt<hg::kStoreF32>(dqkv, 3 * C, wqkv_t, 3 * C, R, C, 3 * C, work, C, nullptr,
+  BFT_TRY((hg::gemm_nt<hg::kStoreF32>(dout, Cin, wout_t, Cin, R, C, Cin, work, C, nullptr,
                                       stream)));
-  BFT_TRY((launch_plane_sums<float, bf16>(work, x, stats1, G, N, C, sums, din1, din1 + C,
-                                          stream)));
-  BFT_TRY((launch_in_apply<bf16, bf16>(work, x, stats1, in1_w, sums, dx, G, N, C, stream)));
+  BFT_TRY((launch_in_norm(ao, stats2, in2_w, in2_b, xs, G, N, C, stream)));
+  BFT_TRY((hg::gemm_tn_splitk(dout, xs, R, Cin, C, plan_out, splits_out, part, dwout, stream)));
+  BFT_TRY((plane_totals_of<bf16, float>(dout, nullptr, nullptr, G, N, Cin, sums, dbout, nullptr,
+                                        stream)));
+  BFT_TRY((plane_totals_of<float, bf16>(work, ao, stats2, G, N, C, sums, din2 + C, din2,
+                                        stream)));
+  BFT_TRY((launch_temporal_attention_bwd<D, false>(qkv, ln, bias, scale, nullptr, work, ao,
+                                                   stats2, in2_w, sums, dqkv, part, dln, dbias,
+                                                   dscale, B, steps, N, C, heads, stream)));
+  BFT_TRY((launch_in_norm(x, stats1, in1_w, in1_b, xs, G, N, Cin, stream)));
+  BFT_TRY((hg::gemm_tn_splitk(dqkv, xs, R, 3 * C, Cin, plan_qkv, splits_qkv, part, dwqkv,
+                              stream)));
+  BFT_TRY((plane_totals_of<bf16, float>(dqkv, nullptr, nullptr, G, N, 3 * C, sums, dbqkv,
+                                        nullptr, stream)));
+  BFT_TRY((hg::gemm_nt<hg::kStoreF32>(dqkv, 3 * C, wqkv_t, 3 * C, R, Cin, 3 * C, work, Cin,
+                                      nullptr, stream)));
+  BFT_TRY((plane_totals_of<float, bf16>(work, x, stats1, G, N, Cin, sums, din1 + Cin, din1,
+                                        stream)));
+  BFT_TRY((launch_in_apply<bf16, bf16>(work, x, stats1, in1_w, sums, dx, G, N, Cin, stream)));
 #undef BFT_TRY
   return timer.finish();
 }
@@ -459,26 +480,26 @@ int run_core_temporal_bwd(const T* xn, const T* dao, const T* wqkv, const float*
                           const T* wqkv_t, const float* ln, const float* bias, const float* scale,
                           T* qkv, T* dqkv, T* dx, float* dwqkv, float* dbqkv, float* dln,
                           float* dbias, float* dscale, int B, int steps, int N, int C, int heads,
-                          cudaStream_t stream) {
+                          int Cin, cudaStream_t stream) {
   const int G = B * steps, R = G * N;
   cudaError_t e;
 #define BFT_TRY(call) \
   if ((e = (call)) != cudaSuccess) return e
   // (4) qkv = T(xn . W_qkv^T + b), as the forward's
-  BFT_TRY((launch_norm_proj<T, T, false>(xn, nullptr, nullptr, nullptr, wqkv, bqkv, qkv, G, N, C,
-                                         3 * C, stream)));
+  BFT_TRY((launch_norm_proj<T, T, false>(xn, nullptr, nullptr, nullptr, wqkv, bqkv, qkv, G, N,
+                                         Cin, 3 * C, stream)));
   // (5) attention backward -> dqkv, dln, dbias, dscale
   BFT_TRY((launch_attention_bwd<T, true, D>(qkv, ln, bias, scale, nullptr, nullptr, nullptr,
                                             nullptr, nullptr, dao, dqkv, dln, dbias, dscale, B,
                                             steps, N, C, heads, stream)));
   // (6) dW_qkv += dqkv^T . xn
-  BFT_TRY((launch_wgrad<T, T, false>(dqkv, 3 * C, xn, nullptr, nullptr, nullptr, C, G, N, dwqkv,
-                                     stream)));
+  BFT_TRY((launch_wgrad<T, T, false>(dqkv, 3 * C, xn, nullptr, nullptr, nullptr, Cin, G, N,
+                                     dwqkv, stream)));
   // (7) db_qkv
   BFT_TRY((launch_plane_sums<T, float>(dqkv, nullptr, nullptr, G, N, 3 * C, nullptr, nullptr,
                                        dbqkv, stream)));
   // (8) dx = T(dqkv . W_qkv)
-  BFT_TRY((launch_gemm_nt<T, T>(dqkv, wqkv_t, dx, R, C, 3 * C, stream)));
+  BFT_TRY((launch_gemm_nt<T, T>(dqkv, wqkv_t, dx, R, Cin, 3 * C, stream)));
 #undef BFT_TRY
   return cudaSuccess;
 }
@@ -488,14 +509,14 @@ int run_core_temporal_bwd(const T* xn, const T* dao, const T* wqkv, const float*
 //   (1) gemm_nt:                qkv = bf16(xn . W_qkv^T + b_qkv), the
 //                               forward's, into the scratch qkv;
 //   (2) temporal_attention_bwd: the direct-dao flavour: dqkv (bf16; s*dao
-//                               rounded), dln, dbias, dscale;
+//                               rounded), and its totals dln, dbias, dscale
+//                               (the per-block partials in part);
 //   (3) gemm_tn:                dW_qkv = dqkv^T . xn, split-K over token
 //                               ranges (plan), partials added in range order;
-//   (4) plane_sums:             db_qkv = sum dqkv;
-//   (5) gemm_nt:                dx = bf16(dqkv . W_qkv) (wqkv_t: (C, 3C)).
-// dW_qkv repeats bit for bit from run to run; db_qkv, d(qk-LN), the table
-// and scale gradients are float32 atomic sums.  launch_ms, when given,
-// receives each launch's device time.
+//   (4) plane sums and totals:  db_qkv = sum dqkv (the plane sums in part);
+//   (5) gemm_nt:                dx = bf16(dqkv . W_qkv) (wqkv_t: (Cin, 3C)).
+// Every gradient repeats bit for bit from run to run (fixed-order sums, no
+// atomics).  launch_ms, when given, receives each launch's device time.
 template <int D>
 int run_core_temporal_bwd_hopper(const __nv_bfloat16* xn, const __nv_bfloat16* dao,
                                  const __nv_bfloat16* wqkv, const float* bqkv,
@@ -503,7 +524,7 @@ int run_core_temporal_bwd_hopper(const __nv_bfloat16* xn, const __nv_bfloat16* d
                                  const float* scale, __nv_bfloat16* qkv, __nv_bfloat16* dqkv,
                                  __nv_bfloat16* dx, float* dwqkv, float* dbqkv, float* dln,
                                  float* dbias, float* dscale, float* part, const int* plan,
-                                 int splits, int B, int steps, int N, int C, int heads,
+                                 int splits, int B, int steps, int N, int C, int heads, int Cin,
                                  cudaStream_t stream, float* launch_ms) {
   using bf16 = __nv_bfloat16;
   const int G = B * steps, R = G * N;
@@ -512,38 +533,44 @@ int run_core_temporal_bwd_hopper(const __nv_bfloat16* xn, const __nv_bfloat16* d
 #define BFT_TRY(call)                        \
   if ((e = (call)) != cudaSuccess) return e; \
   timer.mark()
-  BFT_TRY((hg::gemm_nt<hg::kBiasRound>(xn, C, wqkv, C, R, 3 * C, C, qkv, 3 * C, bqkv, stream)));
+  BFT_TRY((hg::gemm_nt<hg::kBiasRound>(xn, Cin, wqkv, Cin, R, 3 * C, Cin, qkv, 3 * C, bqkv,
+                                       stream)));
   BFT_TRY((launch_temporal_attention_bwd<D, true>(qkv, ln, bias, scale, dao, nullptr, nullptr,
-                                                  nullptr, nullptr, nullptr, dqkv, dln, dbias,
-                                                  dscale, B, steps, N, C, heads, stream)));
-  BFT_TRY((hg::gemm_tn_splitk(dqkv, xn, R, 3 * C, C, plan, splits, part, dwqkv, stream)));
-  BFT_TRY((launch_plane_sums<bf16, float>(dqkv, nullptr, nullptr, G, N, 3 * C, nullptr, nullptr,
-                                          dbqkv, stream)));
-  BFT_TRY((hg::gemm_nt<hg::kRound>(dqkv, 3 * C, wqkv_t, 3 * C, R, C, 3 * C, dx, C, nullptr,
+                                                  nullptr, nullptr, nullptr, dqkv, part, dln,
+                                                  dbias, dscale, B, steps, N, C, heads,
+                                                  stream)));
+  BFT_TRY((hg::gemm_tn_splitk(dqkv, xn, R, 3 * C, Cin, plan, splits, part, dwqkv, stream)));
+  BFT_TRY((plane_totals_of<bf16, float>(dqkv, nullptr, nullptr, G, N, 3 * C, part, dbqkv,
+                                        nullptr, stream)));
+  BFT_TRY((hg::gemm_nt<hg::kRound>(dqkv, 3 * C, wqkv_t, 3 * C, R, Cin, 3 * C, dx, Cin, nullptr,
                                    stream)));
 #undef BFT_TRY
   return timer.finish();
 }
 
-bool temporal_shape_ok(int head_dim, int steps, int N, int C, int heads) {
+bool temporal_shape_ok(int head_dim, int steps, int N, int C, int heads, int Cin) {
   const int group = head_dim == 64 ? HeadGroup<64>::kHeads : HeadGroup<16>::kHeads;
   return (head_dim == 64 || head_dim == 16) && C == heads * head_dim && heads % group == 0 &&
-         steps >= 1 && steps <= kMaxT && N % kP == 0 && C % kKC == 0;
+         steps >= 1 && steps <= kMaxT && N % kP == 0 && C % kKC == 0 && Cin > 0 &&
+         Cin % kKC == 0;
 }
 
 }  // namespace
 }  // namespace bft
 
-// x, dout, dx: (B, T, N, C) in dtype; wqkv_t (C, 3C) and wout_t (C, C) in
-// dtype (transposes of the torch (out, in) weights); ln (4, head_dim); bias
-// (heads, T, T); scale (heads,); stats1 (2, B*T, C) and, in dtype, qkv
-// (B*T*N, 3C) and ao_r (B*T*N, C) from bf_temporal_block_fwd; work (B*T*N,
-// C), sums and stats2 (2, B*T, C) float32 scratch, dqkv (B*T*N, 3C) dtype
-// scratch.  Outputs, float32 and zeroed by the caller except dx: din1 (2, C)
-// = [scale; bias], dwqkv (3C, C), dbqkv (3C), dln (4, head_dim), din2 (2, C),
-// dwout (C, C), dbout (C), dbias (heads, T, T), dscale (heads).  bf16 runs
-// the launch chain above: xs a (B*T*N, C) bf16 scratch, part a float32
-// scratch of max(splits_out * C, splits_qkv * 3C) * C values, plan_out and
+// x, dout, dx: (B, T, N, Cin) in dtype; wqkv_t (Cin, 3C) and wout_t (C, Cin)
+// in dtype (transposes of the torch (out, in) weights; C = heads * head_dim,
+// as for bf_temporal_block_fwd); ln (4, head_dim); bias (heads, T, T); scale
+// (heads,); stats1 (2, B*T, Cin) and, in dtype, qkv (B*T*N, 3C) and ao_r
+// (B*T*N, C) from bf_temporal_block_fwd; work (B*T*N, max(C, Cin)), sums (2,
+// B*T, max(3C, Cin)) and stats2 (2, B*T, C) float32 scratch, dqkv (B*T*N,
+// 3C) dtype scratch.  Outputs, float32 and zeroed by the caller except dx:
+// din1 (2, Cin) = [scale; bias], dwqkv (3C, Cin), dbqkv (3C), dln (4,
+// head_dim), din2 (2, C), dwout (Cin, C), dbout (Cin), dbias (heads, T, T),
+// dscale (heads).  bf16 runs the launch chain above: xs a (B*T*N, max(C,
+// Cin)) bf16 scratch, part a float32 scratch of max(splits_out, 3
+// splits_qkv) * C * Cin values and at least the attention pass's partials
+// (heads * attention_bwd_blocks of attention_partial_size), plan_out and
 // plan_qkv host arrays of splits + 1 token bounds (0, multiples of 64, B*T*N)
 // for dW_out and dW_qkv, launch_ms null or a host array of 13 floats; every
 // base 16-byte aligned.  float32 runs the launches of
@@ -560,8 +587,8 @@ extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, con
                                      float* dbias, float* dscale, void* xs, float* part,
                                      const int* plan_out, int splits_out, const int* plan_qkv,
                                      int splits_qkv, float* launch_ms, int B, int steps, int N,
-                                     int C, int heads, void* stream) {
-  if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
+                                     int C, int heads, int Cin, void* stream) {
+  if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads, Cin)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BFT_ARGS(T)                                                                           \
   static_cast<const T*>(x), static_cast<const T*>(dout), static_cast<const T*>(qkv), in1_w,   \
@@ -574,15 +601,17 @@ extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, con
 #define BFT_HOPPER(D)                                                                         \
   return bft::run_temporal_block_bwd_hopper<D>(BFT_ARGS(bf16), static_cast<bf16*>(xs), part,  \
                                                plan_out, splits_out, plan_qkv, splits_qkv, B, \
-                                               steps, N, C, heads, s, launch_ms)
+                                               steps, N, C, heads, Cin, s, launch_ms)
   if (dtype == bft::kBF16 && head_dim == 64) BFT_HOPPER(64);
   if (dtype == bft::kBF16 && head_dim == 16) BFT_HOPPER(16);
 #undef BFT_HOPPER
   if (launch_ms != nullptr) return cudaErrorInvalidValue;
   if (dtype == bft::kF32 && head_dim == 64)
-    return bft::run_temporal_block_bwd<float, 64>(BFT_ARGS(float), B, steps, N, C, heads, s);
+    return bft::run_temporal_block_bwd<float, 64>(BFT_ARGS(float), B, steps, N, C, heads, Cin,
+                                                  s);
   if (dtype == bft::kF32 && head_dim == 16)
-    return bft::run_temporal_block_bwd<float, 16>(BFT_ARGS(float), B, steps, N, C, heads, s);
+    return bft::run_temporal_block_bwd<float, 16>(BFT_ARGS(float), B, steps, N, C, heads, Cin,
+                                                  s);
 #undef BFT_ARGS
   return cudaErrorInvalidValue;
 }
@@ -605,12 +634,15 @@ extern "C" int bf_temporal_block_bwd(int dtype, int head_dim, const void* x, con
 // and its weight gradient by float32 atomics (last bits vary from run to
 // run).
 //
-// xn, dao, dx: (B, T, N, C) in dtype; wqkv (3C, C) and wqkv_t (C, 3C), its
-// transpose, in dtype; bqkv (3C) float32; ln (4, head_dim); bias (heads, T,
-// T); scale (heads,); qkv and dqkv (B*T*N, 3C) dtype scratch.  Outputs,
-// float32 and zeroed by the caller except dx: dwqkv (3C, C), dbqkv (3C), dln
-// (4, head_dim), dbias (heads, T, T), dscale (heads).  bf16 only: part a
-// float32 scratch of splits * 3C * C values, plan a host array of splits + 1
+// xn, dx: (B, T, N, Cin) and dao (B, T, N, C) in dtype (C = heads *
+// head_dim); wqkv (3C, Cin) and wqkv_t (Cin, 3C), its transpose, in dtype;
+// bqkv (3C) float32; ln (4, head_dim); bias (heads, T, T); scale (heads,);
+// qkv and dqkv (B*T*N, 3C) dtype scratch.  Outputs, float32 and zeroed by the
+// caller except dx: dwqkv (3C, Cin), dbqkv (3C), dln (4, head_dim), dbias
+// (heads, T, T), dscale (heads).  bf16 only: part a float32 scratch of the
+// most of splits * 3C * Cin values, the plane sums' 2 * B*T * 3C and the
+// attention pass's partials (as for bf_temporal_block_bwd), plan a host
+// array of splits + 1
 // token bounds (0, multiples of 64, B*T*N), launch_ms null or a host array
 // of 5 floats; every base 16-byte aligned.  float32: those unused, launch_ms
 // null.  Returns a cudaError_t.
@@ -620,8 +652,8 @@ extern "C" int bf_core_temporal_bwd(int dtype, int head_dim, const void* xn, con
                                     void* qkv, void* dqkv, void* dx, float* dwqkv, float* dbqkv,
                                     float* dln, float* dbias, float* dscale, float* part,
                                     const int* plan, int splits, float* launch_ms, int B,
-                                    int steps, int N, int C, int heads, void* stream) {
-  if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads)) return cudaErrorInvalidValue;
+                                    int steps, int N, int C, int heads, int Cin, void* stream) {
+  if (!bft::temporal_shape_ok(head_dim, steps, N, C, heads, Cin)) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BFT_ARGS(T)                                                                           \
   static_cast<const T*>(xn), static_cast<const T*>(dao), static_cast<const T*>(wqkv), bqkv,   \
@@ -630,15 +662,17 @@ extern "C" int bf_core_temporal_bwd(int dtype, int head_dim, const void* xn, con
   using bf16 = __nv_bfloat16;
   if (dtype == bft::kBF16 && head_dim == 64)
     return bft::run_core_temporal_bwd_hopper<64>(BFT_ARGS(bf16), part, plan, splits, B, steps,
-                                                 N, C, heads, s, launch_ms);
+                                                 N, C, heads, Cin, s, launch_ms);
   if (dtype == bft::kBF16 && head_dim == 16)
     return bft::run_core_temporal_bwd_hopper<16>(BFT_ARGS(bf16), part, plan, splits, B, steps,
-                                                 N, C, heads, s, launch_ms);
+                                                 N, C, heads, Cin, s, launch_ms);
   if (launch_ms != nullptr) return cudaErrorInvalidValue;
   if (dtype == bft::kF32 && head_dim == 64)
-    return bft::run_core_temporal_bwd<float, 64>(BFT_ARGS(float), B, steps, N, C, heads, s);
+    return bft::run_core_temporal_bwd<float, 64>(BFT_ARGS(float), B, steps, N, C, heads, Cin,
+                                                 s);
   if (dtype == bft::kF32 && head_dim == 16)
-    return bft::run_core_temporal_bwd<float, 16>(BFT_ARGS(float), B, steps, N, C, heads, s);
+    return bft::run_core_temporal_bwd<float, 16>(BFT_ARGS(float), B, steps, N, C, heads, Cin,
+                                                 s);
 #undef BFT_ARGS
   return cudaErrorInvalidValue;
 }

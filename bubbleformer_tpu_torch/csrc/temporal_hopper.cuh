@@ -275,9 +275,17 @@ cudaError_t launch_temporal_attention(const __nv_bfloat16* qkv, const float* ln,
 // D / 2 lanes on each; q_i and dao_i live for their own step only, k, v and
 // the dk, dv sums for all kT steps.  d(T5 table), d(attn scale) and d(qk-LN)
 // are summed in registers (the table's T x T entries spread over the lanes
-// of a group), then in the block, then added atomically once a block: few
-// blocks, so few same-address atomics.  Bound by bytes: it reads qkv and
-// either dy2 (float32) and ao (K1) or dao (K3) once, and writes dqkv.
+// of a group), then across a warp's groups, then over the block's warps in
+// warp order, and each block writes its sums to part (attention_partial_size
+// floats a block, blocks of head h at h * gridDim.x + blockIdx.x); the totals
+// kernel below adds the blocks in a fixed order.  No atomics, so the
+// gradients repeat bit for bit.  Bound by bytes: it reads qkv and either dy2
+// (float32) and ao (K1) or dao (K3) once, and writes dqkv.
+template <int D, int kT>
+__host__ __device__ constexpr int attention_partial_size() {
+  return 4 * D + kT * kT + 1;  // d(qk-LN) rows, the T5 table, d(attn scale)
+}
+
 template <int D, int kT, bool kDirect>
 __global__ void __launch_bounds__(256, 2) temporal_attention_bwd_kernel(
     const __nv_bfloat16* __restrict__ qkv, const float* __restrict__ ln,
@@ -285,20 +293,18 @@ __global__ void __launch_bounds__(256, 2) temporal_attention_bwd_kernel(
     const __nv_bfloat16* __restrict__ dao_in,
     const float* __restrict__ dy2, const __nv_bfloat16* __restrict__ ao,
     const float* __restrict__ stats2, const float* __restrict__ in2_w,
-    const float* __restrict__ sums2, __nv_bfloat16* __restrict__ dqkv, float* __restrict__ dln,
-    float* __restrict__ dbias, float* __restrict__ dscale, int N, int C, int positions) {
+    const float* __restrict__ sums2, __nv_bfloat16* __restrict__ dqkv, float* __restrict__ part,
+    int N, int C, int positions) {
   constexpr int kLanes = D / 2;
   constexpr int kGroups = 32 / kLanes;
   constexpr int kTT = kT * kT;                       // the T5 table, (i, j) at i * kT + j
   constexpr int kOwn = (kTT + kLanes - 1) / kLanes;  // table entries a lane of a group sums
-  __shared__ float dbias_s[kOwn * kLanes];
-  __shared__ float dln_s[4 * D];
-  __shared__ float dscale_s;
+  constexpr int kWarps = 256 / 32;
+  __shared__ float dbias_w[kWarps][kOwn * kLanes];
+  __shared__ float dln_w[kWarps][4 * D];
+  __shared__ float dscale_w[kWarps];
   const int tid = threadIdx.x, lane = tid % 32, gl = lane % kLanes, h = blockIdx.y;
-  for (int i = tid; i < kOwn * kLanes; i += blockDim.x) dbias_s[i] = 0.f;
-  for (int i = tid; i < 4 * D; i += blockDim.x) dln_s[i] = 0.f;
-  if (tid == 0) dscale_s = 0.f;
-  __syncthreads();
+  const int warp = tid / 32;
 
   const int e = gl * 2, c = h * D + e;
   const size_t GC = static_cast<size_t>(positions / N) * kT * C;
@@ -441,8 +447,9 @@ __global__ void __launch_bounds__(256, 2) temporal_attention_bwd_kernel(
     }
   }
 
-  // The warp's sums across its groups, then the block's in shared memory,
-  // then one atomic add each into the outputs.
+  // The warp's sums across its groups (a fixed butterfly), each warp's into
+  // its own slot, then the block's over its warps in warp order, written to
+  // the block's partials.
   float acc[8] = {dq_s.x, dq_s.y, dq_b.x, dq_b.y, dk_s.x, dk_s.y, dk_b.x, dk_b.y};
 #pragma unroll
   for (int o = kLanes; o < 32; o <<= 1) {
@@ -455,41 +462,89 @@ __global__ void __launch_bounds__(256, 2) temporal_attention_bwd_kernel(
   if (lane < kLanes) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      atomicAdd(&dln_s[r * D + e], acc[2 * r]);
-      atomicAdd(&dln_s[r * D + e + 1], acc[2 * r + 1]);
+      dln_w[warp][r * D + e] = acc[2 * r];
+      dln_w[warp][r * D + e + 1] = acc[2 * r + 1];
     }
 #pragma unroll
-    for (int u = 0; u < kOwn; ++u) atomicAdd(&dbias_s[u * kLanes + lane], dbias_acc[u]);
+    for (int u = 0; u < kOwn; ++u) dbias_w[warp][u * kLanes + lane] = dbias_acc[u];
   }
-  if (lane == 0) atomicAdd(&dscale_s, dscale_acc);
+  if (lane == 0) dscale_w[warp] = dscale_acc;
   __syncthreads();
-  for (int ij = tid; ij < kTT; ij += blockDim.x) atomicAdd(&dbias[h * kTT + ij], dbias_s[ij]);
-  for (int i = tid; i < 4 * D; i += blockDim.x) atomicAdd(&dln[i], dln_s[i]);
-  if (tid == 0) atomicAdd(&dscale[h], dscale_s);
+  float* out = part + (static_cast<size_t>(h) * gridDim.x + blockIdx.x) *
+                          attention_partial_size<D, kT>();
+  for (int i = tid; i < attention_partial_size<D, kT>(); i += blockDim.x) {
+    float t = 0.f;
+    for (int w = 0; w < kWarps; ++w)
+      t += i < 4 * D ? dln_w[w][i] : i < 4 * D + kTT ? dbias_w[w][i - 4 * D] : dscale_w[w];
+    out[i] = t;
+  }
+}
+
+// The totals of temporal_attention_bwd_kernel's per-block partials (blocks
+// per head, heads): d(qk-LN) over every block of every head, the table's
+// and the scale's over each head's blocks, in block order, written (not
+// added) to dln (4, D), dbias (heads, T, T) and dscale (heads).
+template <int D, int kT>
+__global__ void attention_totals_kernel(const float* __restrict__ part, int blocks, int heads,
+                                        float* __restrict__ dln, float* __restrict__ dbias,
+                                        float* __restrict__ dscale) {
+  constexpr int kP = attention_partial_size<D, kT>(), kTT = kT * kT;
+  const int outputs = 4 * D + heads * (kTT + 1);
+  for (int o = blockIdx.x * blockDim.x + threadIdx.x; o < outputs; o += gridDim.x * blockDim.x) {
+    float t = 0.f;
+    if (o < 4 * D) {
+      for (int b = 0; b < heads * blocks; ++b) t += part[static_cast<size_t>(b) * kP + o];
+      dln[o] = t;
+    } else if (o < 4 * D + heads * kTT) {
+      const int h = (o - 4 * D) / kTT, ij = (o - 4 * D) % kTT;
+      for (int b = 0; b < blocks; ++b)
+        t += part[(static_cast<size_t>(h) * blocks + b) * kP + 4 * D + ij];
+      dbias[h * kTT + ij] = t;
+    } else {
+      const int h = o - 4 * D - heads * kTT;
+      for (int b = 0; b < blocks; ++b)
+        t += part[(static_cast<size_t>(h) * blocks + b) * kP + 4 * D + kTT];
+      dscale[h] = t;
+    }
+  }
+}
+
+// The most blocks a head launch_temporal_attention_bwd takes: about four
+// blocks an SM of an H100 (132) over all heads, each striding over
+// positions.  The partials' scratch holds heads * this many blocks of
+// attention_partial_size floats (the wrappers size it: ops/
+// temporal_block_mega.py:ATTENTION_PARTIAL).
+inline int attention_bwd_blocks(int positions, int per_block, int heads) {
+  return std::max(1, std::min((positions + per_block - 1) / per_block,
+                              (4 * 132 + heads - 1) / heads));
 }
 
 // kDirect: K3's flavour (dao_in given; dy2, ao, stats2, in2_w, sums2 null).
+// The attention pass, then the totals of its per-block partials (part: a
+// float32 scratch of heads * attention_bwd_blocks(...) partials) into dln,
+// dbias and dscale.
 template <int D, bool kDirect>
 cudaError_t launch_temporal_attention_bwd(const __nv_bfloat16* qkv, const float* ln,
                                           const float* bias, const float* scale,
                                           const __nv_bfloat16* dao_in, const float* dy2,
                                           const __nv_bfloat16* ao, const float* stats2,
                                           const float* in2_w, const float* sums2,
-                                          __nv_bfloat16* dqkv, float* dln, float* dbias,
-                                          float* dscale, int B, int steps, int N, int C,
-                                          int heads, cudaStream_t stream) {
+                                          __nv_bfloat16* dqkv, float* part, float* dln,
+                                          float* dbias, float* dscale, int B, int steps, int N,
+                                          int C, int heads, cudaStream_t stream) {
   constexpr int kPerBlock = 8 * (32 / (D / 2));  // positions a block a stride
   const int positions = B * N;
-  // About four blocks an SM of an H100 (132), each striding over positions.
-  const dim3 grid(std::max(1, std::min((positions + kPerBlock - 1) / kPerBlock,
-                                       (4 * 132 + heads - 1) / heads)),
-                  heads);
+  const int blocks = attention_bwd_blocks(positions, kPerBlock, heads);
+  const dim3 grid(blocks, heads);
   switch (steps) {
-#define BFT_CASE(T)                                                                      \
-  case T:                                                                                \
-    temporal_attention_bwd_kernel<D, T, kDirect><<<grid, 256, 0, stream>>>(              \
-        qkv, ln, bias, scale, dao_in, dy2, ao, stats2, in2_w, sums2, dqkv, dln, dbias,   \
-        dscale, N, C, positions);                                                        \
+#define BFT_CASE(T)                                                                        \
+  case T:                                                                                  \
+    temporal_attention_bwd_kernel<D, T, kDirect><<<grid, 256, 0, stream>>>(                \
+        qkv, ln, bias, scale, dao_in, dy2, ao, stats2, in2_w, sums2, dqkv, part, N, C,     \
+        positions);                                                                        \
+    if (const cudaError_t e = cudaGetLastError(); e != cudaSuccess) return e;              \
+    attention_totals_kernel<D, T><<<(4 * D + heads * (T * T + 1) + 255) / 256, 256, 0,     \
+                                    stream>>>(part, blocks, heads, dln, dbias, dscale);    \
     break;
     BFT_FOR_EACH_T(BFT_CASE)
 #undef BFT_CASE

@@ -55,9 +55,24 @@ route, so checkpoints interchange: the QKV and output heads are 1x1-conv
 weights ``(O, I, 1, 1)``, attn scales ``(1, heads, 1, 1)``, the bias module
 ``rel_pos_bias`` (``relative_attention_bias`` for ``"rel"``, ``cpb_mlp`` for
 ``"continuous"``, absent for ``"none"``).
+
+Tensor parallelism (``model_shard``, set by ``parallel/sharding.py:
+shard_model``): a block holds its rank's ``heads / m`` heads — rows
+``(3C / m, C)`` of ``input_head``, columns ``(C, C / m)`` of
+``output_head`` — and the whole of every other parameter, slicing its heads'
+part of ``norm2``, of the table and of the attn scales.  Routes resolve on
+the whole width and head count, as the JAX model sees them.  The temporal
+branch runs ``mega`` (K1 on ``copy_to_model(x)``, its output a float32
+partial, ``gamma * b_out`` added on model rank 0) or ``core``
+(``copy_to_model`` after InstanceNorm1, K3 on the local heads, ``norm2`` on
+the local channels, the output projection row-parallel); the axial branch
+``lane`` (K2 on the local heads from the local QKV projection, likewise).
+Every other route raises ``ValueError`` naming it and ``mesh_cfg``: none
+runs unsharded.  The MLP is the sharded ``GeluMLP``.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -65,7 +80,12 @@ from torch import nn
 
 from bubbleformer_tpu_torch.layers.init import dense_
 from bubbleformer_tpu_torch.layers.linear import GeluMLP, dense
-from bubbleformer_tpu_torch.layers.norm import InstanceNorm, LayerNorm, accumulation_dtype
+from bubbleformer_tpu_torch.layers.norm import (
+    InstanceNorm,
+    LayerNorm,
+    accumulation_dtype,
+    instance_norm,
+)
 from bubbleformer_tpu_torch.layers.positional import make_bias_module
 from bubbleformer_tpu_torch.layers.stochastic import drop_path
 from bubbleformer_tpu_torch.ops.attention import (
@@ -90,6 +110,12 @@ from bubbleformer_tpu_torch.ops.temporal_block_mega import (
     core_temporal_supported,
     mega_temporal_block,
     mega_temporal_supported,
+)
+from bubbleformer_tpu_torch.parallel.sharding import (
+    copy_to_model,
+    rank0_bias,
+    reduce_from_model,
+    row_parallel_dense,
 )
 
 # The axial routes of K6 and K7, which take q, k, v after the block's
@@ -135,6 +161,39 @@ def _table(bias_module: Optional[nn.Module], n: int) -> Optional[torch.Tensor]:
     return None if bias_module is None else bias_module(n, n)
 
 
+def _unsharded_route(branch: str, impl: str, shard) -> ValueError:
+    """The error of a route that tensor parallelism does not shard."""
+    return ValueError(
+        f"attn_impl={impl!r}: the {branch} branch has no sharded route there; under "
+        f"mesh_cfg model={shard.size} (tensor parallelism) it runs "
+        f"{'mega (K1) or core (K3)' if branch == 'temporal' else 'lane (K2)'}")
+
+
+def _local_heads(block, shard):
+    """``(heads, head slice, channel slice)`` of the rank's heads."""
+    heads = block.num_heads // shard.size
+    hs = slice(shard.rank * heads, (shard.rank + 1) * heads)
+    return heads, hs, shard.part(block.norm2.weight.shape[0])
+
+
+def _sliced(a: Optional[torch.Tensor], hs: slice) -> Optional[torch.Tensor]:
+    return None if a is None else a[hs]
+
+
+def _shared_partials(block) -> list:
+    """The partial-gradient parameters both blocks' sharded routes have:
+    qk-LN (one LayerNorm over ``d`` for all heads), ``norm2`` (sliced per
+    rank), the output bias (rank 0's) and the bias module (each rank's
+    heads of its table)."""
+    if block._route is None:
+        raise RuntimeError("partial_gradient_parameters: the sharded block has not run")
+    out = [*block.qnorm.parameters(), *block.knorm.parameters(), *block.norm2.parameters(),
+           block.output_head.bias]
+    if block.rel_pos_bias is not None:
+        out += list(block.rel_pos_bias.parameters())
+    return out
+
+
 def _head(cin: int, cout: int) -> nn.Conv2d:
     """A 1x1-conv weight container: ``weight (cout, cin, 1, 1)``, ``bias (cout,)``,
     drawn as flax's ``Dense`` (``input_head``, ``output_head``) draws them."""
@@ -165,6 +224,8 @@ class TemporalAttentionBlock(nn.Module):
         self.attn_scale_factor = (
             nn.Parameter(torch.ones(1, num_heads, 1, 1)) if attn_scale else None
         )
+        self.model_shard = None
+        self._route = None  # the route of the last forward (the partial-gradient class)
 
     def forward(self, x: torch.Tensor, drop_path_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
@@ -176,6 +237,9 @@ class TemporalAttentionBlock(nn.Module):
         scale = None if self.attn_scale_factor is None else self.attn_scale_factor.reshape(heads)
         bias = _table(self.rel_pos_bias, t)
         impl = resolve_temporal_impl(self.attn_impl, t, h, w, c)
+        if self.model_shard is not None:
+            branch = self._sharded_branch(x, impl, bias, scale)
+            return drop_path(branch, drop_path_rate, generator, self.training, mask) + x
         if impl == "mega":
             return drop_path(self._mega_branch(x, bias, scale), drop_path_rate, generator,
                              self.training, mask) + x
@@ -212,6 +276,51 @@ class TemporalAttentionBlock(nn.Module):
                     self.output_head.bias, self.dtype)
         branch = out * self.gamma.to(out.dtype)
         return drop_path(branch, drop_path_rate, generator, self.training, mask) + x
+
+    def _sharded_branch(self, x, impl, bias, scale):
+        """The branch on the rank's heads (module docstring), the partials
+        summed over the model group."""
+        shard = self.model_shard
+        if impl not in ("mega", "core"):
+            raise _unsharded_route("temporal", impl, shard)
+        self._route = impl
+        c = x.shape[-1]
+        heads, hs, cs = _local_heads(self, shard)
+        c_a = cs.stop - cs.start
+        bias, scale = _sliced(bias, hs), _sliced(scale, hs)
+        wqkv = self.input_head.weight.reshape(3 * c_a, c)
+        lnp = (self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias)
+        if impl == "mega":
+            acc = accumulation_dtype(self.gamma.dtype)
+            gamma = self.gamma.to(acc)
+            wout = self.output_head.weight.reshape(c, c_a).to(acc) * gamma[:, None]
+            xin = copy_to_model(x if self.dtype is None else x.to(self.dtype), shard)
+            part = mega_temporal_block(
+                xin, self.norm1.weight, self.norm1.bias, wqkv, self.input_head.bias, *lnp,
+                self.norm2.weight[cs], self.norm2.bias[cs], wout, None, bias, scale,
+                heads=heads, partial=True)
+            part = part + rank0_bias(self.output_head.bias.to(acc) * gamma, shard).to(part.dtype)
+            return reduce_from_model(part, shard).to(xin.dtype)
+        xn = copy_to_model(self.norm1(x), shard)
+        ao = core_temporal_attention(xn if self.dtype is None else xn.to(self.dtype), wqkv,
+                                     self.input_head.bias, *lnp, bias, scale, heads=heads)
+        y = instance_norm(ao, self.norm2.weight[cs], self.norm2.bias[cs], self.norm2.eps)
+        out = row_parallel_dense(y, self.output_head.weight.reshape(c, c_a),
+                                 self.output_head.bias, self.dtype, shard)
+        return out * self.gamma.to(out.dtype)
+
+    def partial_gradient_parameters(self) -> list:
+        """Under tensor parallelism, the parameters of the last forward's
+        route whose gradient is the rank's share (``parallel/sharding.py``):
+        :func:`_shared_partials` and the attn scale; on ``mega`` also
+        ``norm1`` (inside K1) and ``gamma`` (folded into the sharded ``wout``
+        and the bias)."""
+        out = _shared_partials(self)
+        if self.attn_scale_factor is not None:
+            out.append(self.attn_scale_factor)
+        if self._route == "mega":
+            out += [*self.norm1.parameters(), self.gamma]
+        return out
 
     def _mega_branch(self, x, bias, scale):
         """K1 with LayerScale folded into the output projection exactly:
@@ -265,6 +374,8 @@ class AxialAttentionBlock(nn.Module):
             self.low_freq_scalar = self.high_freq_scalar = None
         self.mlp = GeluMLP(c, dtype=dtype)
         self.mlp_norm = InstanceNorm(c)
+        self.model_shard = None
+        self._route = None  # the route of the last forward (the partial-gradient class)
 
     def forward(self, x: torch.Tensor, drop_path_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None,
@@ -282,6 +393,9 @@ class AxialAttentionBlock(nn.Module):
         tables = (_table(self.rel_pos_bias, w), _table(self.rel_pos_bias, h),
                   scale(self.attn_scale_factor_x), scale(self.attn_scale_factor_y))
         lnp = (self.qnorm.weight, self.qnorm.bias, self.knorm.weight, self.knorm.bias)
+        if self.model_shard is not None:
+            x = self._sharded_attention(x, impl, tables, lnp)
+            return self._epilogue(x, inp, drop_path_rate, generator, masks)
         wqkv = self.input_head.weight.reshape(3 * c, c)
         if impl == "mega":
             x = mega_axial_block(
@@ -308,6 +422,37 @@ class AxialAttentionBlock(nn.Module):
         x = self.norm2(x)
         x = dense(x, self.output_head.weight.reshape(c, c), self.output_head.bias, self.dtype)
         return self._epilogue(x, inp, drop_path_rate, generator, masks)
+
+    def _sharded_attention(self, x, impl, tables, lnp):
+        """The lane route on the rank's heads (module docstring): its
+        output projection's partials summed over the model group."""
+        shard = self.model_shard
+        if impl != "lane":
+            raise _unsharded_route("axial", impl, shard)
+        if os.environ.get("BUBBLEFORMER_LANE_PROJ", "xla") == "kernel":
+            raise ValueError(
+                "BUBBLEFORMER_LANE_PROJ=kernel (K9) has no sharded route; under mesh_cfg "
+                f"model={shard.size} (tensor parallelism) the axial branch runs lane (K2)")
+        self._route = impl
+        c = x.shape[-1]
+        heads, hs, cs = _local_heads(self, shard)
+        c_a = cs.stop - cs.start
+        xn = copy_to_model(self.norm1(x), shard)
+        y = lane_axial_attention_from_x(
+            xn if self.dtype is None else xn.to(self.dtype),
+            self.input_head.weight.reshape(3 * c_a, c), self.input_head.bias, *lnp,
+            *(_sliced(a, hs) for a in tables), heads=heads, proj="xla")
+        y = instance_norm(y, self.norm2.weight[cs], self.norm2.bias[cs], self.norm2.eps)
+        return row_parallel_dense(y, self.output_head.weight.reshape(c, c_a),
+                                  self.output_head.bias, self.dtype, shard)
+
+    def partial_gradient_parameters(self) -> list:
+        """Under tensor parallelism, the parameters whose gradient is the
+        rank's share (``parallel/sharding.py``): :func:`_shared_partials`
+        and the attn scales."""
+        out = _shared_partials(self)
+        out += [p for p in (self.attn_scale_factor_x, self.attn_scale_factor_y) if p is not None]
+        return out
 
     def _xla_attention(self, qkv, tables, impl):
         """The JAX package's routes from the QKV Dense (``layers/

@@ -38,7 +38,9 @@ parallelism (``batch_shard`` set by the training module to ``(rank,
 world)``) a train-mode BatchNorm normalises with the statistics of the
 global batch, as flax's batch mean over the JAX package's global arrays
 does: each channel's count and sum, then its second moment about the global
-mean, are summed over the ranks by an autograd-aware all-reduce
+mean, are summed over the ranks of the data group (under ``mesh_cfg=dp_tp``
+not over the model ranks, which hold the same rows) by an autograd-aware
+all-reduce
 (``parallel/mesh.py:all_reduce_sum``, whose backward sums the gradients the
 same way), and the running update takes the global biased
 variance, so every rank keeps the same statistics (``nn.SyncBatchNorm``
@@ -144,17 +146,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_channels))
         self.register_buffer("running_var", torch.ones(num_channels))
         self.batch_shard = (0, 1)  # (rank, world) of a data-parallel run
+        self.batch_group = None  # its data group (None: the default group)
 
     def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
-        """Train mode over the global batch of ``batch_shard[1]`` ranks."""
+        """Train mode over the global batch of ``batch_shard[1]`` ranks (the
+        ranks of ``batch_group``)."""
         from bubbleformer_tpu_torch.parallel.mesh import all_reduce_sum
 
         dims = (0, 2, 3)
         count = torch.tensor([float(x.numel() // x.shape[1])], device=x.device)
-        sums = all_reduce_sum(torch.cat([count, x.sum(dim=dims)]))
+        sums = all_reduce_sum(torch.cat([count, x.sum(dim=dims)]), self.batch_group)
         mean = sums[1:] / sums[0]
         centred = x - mean[:, None, None]
-        var = all_reduce_sum((centred * centred).sum(dim=dims)) / sums[0]
+        var = all_reduce_sum((centred * centred).sum(dim=dims), self.batch_group) / sums[0]
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)

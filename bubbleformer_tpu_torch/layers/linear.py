@@ -56,7 +56,13 @@ def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
 
 
 class GeluMLP(nn.Module):
-    """``fc1 (C -> 4C) -> exact GELU -> fc2 (4C -> C)`` on the last axis."""
+    """``fc1 (C -> 4C) -> exact GELU -> fc2 (4C -> C)`` on the last axis.
+
+    Under tensor parallelism (``model_shard``, set by
+    ``parallel/sharding.py:shard_model``) ``fc1`` is column-parallel (a
+    rank's hidden is ``4C / m``; GELU stays local) and ``fc2`` row-parallel:
+    its output is a float32 partial, summed over the model group, then cast
+    once to the activation dtype."""
 
     def __init__(self, hidden_dim: int, exp_factor: float = 4.0,
                  dtype: Optional[torch.dtype] = None):
@@ -65,11 +71,25 @@ class GeluMLP(nn.Module):
         self.fc1 = dense_(nn.Linear(hidden_dim, hidden))
         self.fc2 = dense_(nn.Linear(hidden, hidden_dim))
         self.dtype = dtype
+        self.model_shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shard = self.model_shard
+        if shard is not None:
+            from bubbleformer_tpu_torch.parallel import sharding
+
+            x = sharding.copy_to_model(x, shard)
         x = dense(x, self.fc1.weight, self.fc1.bias, self.dtype)
         x = F.gelu(x, approximate="none")
+        if shard is not None:
+            return sharding.row_parallel_dense(x, self.fc2.weight, self.fc2.bias, self.dtype,
+                                               shard)
         return dense(x, self.fc2.weight, self.fc2.bias, self.dtype)
+
+    def partial_gradient_parameters(self) -> list:
+        """Under tensor parallelism: ``fc2``'s bias, which enters on model
+        rank 0 alone."""
+        return [self.fc2.bias]
 
 
 class FiLMMLP(nn.Module):

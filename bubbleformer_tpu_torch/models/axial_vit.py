@@ -17,6 +17,10 @@ rollout under ``no_grad``.
 ``bias_type`` (default ``"rel"``; ``"continuous"`` or ``"none"``) picks
 every attention block's position bias, as the JAX models' field of that
 name does (``layers/positional.py:make_bias_module``).
+Under tensor parallelism (``mesh_cfg=dp_tp``) the training module shards
+the model with ``parallel/sharding.py:shard_model``: every block keeps its
+rank's heads and every MLP its slices, and heads that do not split over the
+model axis raise.
 The JAX package's other TPU options (the ``carry="cm"`` layout,
 ``scan_blocks`` and its ``lean`` boundary, ``spatial_shard_axis``) have no
 counterpart here.

@@ -651,8 +651,9 @@ def lane_axial_attention_from_x(
     *, heads: int, proj: Optional[str] = None,
 ) -> torch.Tensor:
     """Axial attention from the InstanceNorm1 output ``x`` ``(BT, H, W, C)``:
-    the QKV projection (``wqkv`` torch ``(3C, C)``), then
-    :func:`lane_axial_attention`.
+    the QKV projection (``wqkv`` torch ``(3C, C)``; under tensor parallelism
+    a rank's ``(3C / m, C)``, ``heads`` its ``heads / m``: every width past
+    the projection is read off the qkv), then :func:`lane_axial_attention`.
 
     ``proj``: where the projection runs; None reads
     ``BUBBLEFORMER_LANE_PROJ`` (default ``"xla"``), as the JAX function does

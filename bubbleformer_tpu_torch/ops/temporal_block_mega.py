@@ -58,6 +58,16 @@ projects ``xn`` again into scratch, as the TPU kernel does, so no 3C-wide
 tensor outlives a call (remat ``"dots"`` keeps ``ao`` and the inputs
 alone) at the cost of one 2*R*C*3C-FLOP product per backward.
 
+Under tensor parallelism (``parallel/sharding.py``) both run on one rank's
+heads: the projection width ``C_in`` (x's, xn's and dx's channels, the
+model's width) differs from the attention width ``C = heads * d`` (``C_in /
+m``): ``wqkv (3C, C_in)``, K1's ``norm2`` over ``C`` and ``wout (C_in,
+C)``.  K1's ``partial=True`` returns the output projection's float32 product
+without a bias, the rank's share that the block sums over the model group;
+its backward reads that output's gradient in the activation dtype and
+returns ``dx`` and the IN1, qk-LN, table and scale gradients as the rank's
+shares.  The routing gates are asked on the whole width.
+
 :func:`mega_temporal_supported` and :func:`core_temporal_supported` are the
 JAX package's routing gates, copied.
 """
@@ -122,10 +132,12 @@ def _unseq(a):
 def _qkv_attention(xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias, scale_factor,
                    heads):
     """The middle of the branch, K3's function: the QKV projection of the
-    rounded InstanceNorm1 output ``xn`` ``(b, t, n, c)`` (dtype values),
-    qk-LayerNorm and the T x T attention; returns the blended attention
-    output ``(b, t, n, c)`` in the accumulation dtype, unrounded."""
-    b, t, n, c = xn.shape
+    rounded InstanceNorm1 output ``xn`` ``(b, t, n, c_in)`` (dtype values)
+    by ``wqkv`` ``(3 c_a, c_in)``, qk-LayerNorm and the T x T attention;
+    returns the blended attention output ``(b, t, n, c_a)`` in the
+    accumulation dtype, unrounded."""
+    b, t, n, _ = xn.shape
+    c = wqkv.shape[0] // 3
     d = c // heads
     dt, acc = xn.dtype, accumulation_dtype(xn.dtype)
     # Products of dtype values accumulated in float32, as on the tensor cores.
@@ -146,10 +158,11 @@ def temporal_branch_plain(
     in2_scale: torch.Tensor, in2_bias: torch.Tensor,
     wout: torch.Tensor, bout: torch.Tensor,
     bias: Optional[torch.Tensor] = None, scale_factor: Optional[torch.Tensor] = None,
-    *, heads: int,
+    *, heads: int, partial: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of K1's forward; the arguments of
     :func:`mega_temporal_block`."""
+    _check_partial("temporal_branch_plain", bout, partial)
     b, t, h, w, c = x.shape
     dt, acc = x.dtype, accumulation_dtype(x.dtype)
     xhat1, _ = plane_xhat(x.to(acc).reshape(b, t, h * w, c))
@@ -158,8 +171,19 @@ def temporal_branch_plain(
                         scale_factor, heads)
     xhat2, _ = plane_xhat(ao)
     y2 = (xhat2 * in2_scale.to(acc) + in2_bias.to(acc)).to(dt)
-    out = torch.matmul(y2.to(acc), wout.to(dt).to(acc).t()) + bout.to(acc)
-    return out.to(dt).reshape(b, t, h, w, c)
+    out = torch.matmul(y2.to(acc), wout.to(dt).to(acc).t())
+    if partial:
+        return out.reshape(b, t, h, w, c)
+    return (out + bout.to(acc)).to(dt).reshape(b, t, h, w, c)
+
+
+def _check_partial(what, bout, partial):
+    """A partial output (``partial=True``) takes no bias; a whole one needs
+    it."""
+    if partial and bout is not None:
+        raise ValueError(f"{what}: a partial output takes no output bias (bout must be None)")
+    if not partial and bout is None:
+        raise ValueError(f"{what}: bout is None; only a partial output (partial=True) has none")
 
 
 def _attention_recompute(xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias,
@@ -167,7 +191,8 @@ def _attention_recompute(xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, b
     """The forward of :func:`_qkv_attention` at its rounding points, keeping
     what the backward needs.  ``xn``: ``(b, t, n, c)`` in the accumulation
     dtype, holding dtype values."""
-    b, t, n, c = xn.shape
+    b, t, n, _ = xn.shape
+    c = wqkv.shape[0] // 3
     d, dev, acc = c // heads, xn.device, xn.dtype
     r = dict(w1=wqkv.to(dt).to(acc), sh=(
         torch.ones(heads, device=dev, dtype=acc) if scale_factor is None
@@ -199,7 +224,8 @@ def _attention_bwd(r, dao, xn, qn_scale, kn_scale, heads, dt):
     backward, the raw-component ``dqkv`` rounded to ``dt``, and the
     projection's gradients.  Returns ``(dxn, dwqkv, dbqkv, dqn_scale,
     dqn_bias, dkn_scale, dkn_bias, dbias, dscale)``, ``dxn`` unrounded."""
-    b, t, n, c = xn.shape
+    b, t, n, c_in = xn.shape
+    c = dao.shape[-1]
     acc = xn.dtype
     sh, p = r["sh"], r["p"]
     daos = _seq(dao.reshape(b, t, n, heads, c // heads))
@@ -217,7 +243,7 @@ def _attention_bwd(r, dao, xn, qn_scale, kn_scale, heads, dt):
     dkr, dkn_scale, dkn_bias = layer_norm_bwd(_unseq(dk), r["khat"], r["krstd"], kn_scale)
     dqkv = torch.stack([dqr.to(dt), dkr.to(dt), _unseq(dv).to(dt)], dim=-2).to(acc)
     dqkv = dqkv.reshape(b, t, n, 3 * c)
-    dwqkv = dqkv.reshape(-1, 3 * c).t() @ xn.reshape(-1, c)
+    dwqkv = dqkv.reshape(-1, 3 * c).t() @ xn.reshape(-1, c_in)
     dbqkv = dqkv.sum(dim=(0, 1, 2))
     return (dqkv @ r["w1"], dwqkv, dbqkv, dqn_scale, dqn_bias, dkn_scale, dkn_bias, dbias,
             dscale)
@@ -236,17 +262,21 @@ def temporal_branch_bwd_plain(
     """Plain PyTorch version of K1's backward: explicit formulas, no autograd.
 
     Recomputes the forward from ``x`` and returns the gradients of
-    ``(x, *PARAM_NAMES)`` for the output gradient ``do``: ``dx`` in
-    ``x.dtype``, the rest float32 (None for an absent ``bias`` or
-    ``scale_factor``).  The attention part is :func:`_attention_bwd`, which
-    K3's plain backward shares; ``dao`` is the InstanceNorm2 backward of
-    ``do . W_out``, rounded to the activation dtype.
+    ``(x, *PARAM_NAMES)`` for the output gradient ``do`` (read in the
+    activation dtype, as the kernel reads it; a partial output's gradient
+    holds such values): ``dx`` in ``x.dtype``, the rest float32 (None for an
+    absent ``bias`` or ``scale_factor``, and for ``bout`` of a partial
+    output, which passes None).  The attention part is
+    :func:`_attention_bwd`, which K3's plain backward shares; ``dao`` is the
+    InstanceNorm2 backward of ``do . W_out``, rounded to the activation
+    dtype.
     """
-    b, t, hh, ww, c = x.shape
+    b, t, hh, ww, c_in = x.shape
+    c = wqkv.shape[0] // 3
     n, dt, acc = hh * ww, x.dtype, accumulation_dtype(x.dtype)
 
     # ---- recompute the forward at its rounding points
-    xhat1, rstd1 = plane_xhat(x.to(acc).reshape(b, t, n, c))
+    xhat1, rstd1 = plane_xhat(x.to(acc).reshape(b, t, n, c_in))
     xn = (xhat1 * in1_scale.to(acc) + in1_bias.to(acc)).to(dt).to(acc)
     r = _attention_recompute(xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias,
                              scale_factor, heads, dt)
@@ -255,9 +285,9 @@ def temporal_branch_bwd_plain(
     y2 = (xhat2 * in2_scale.to(acc) + in2_bias.to(acc)).to(dt).to(acc)
 
     # ---- output projection and InstanceNorm2
-    dof = do.to(acc).reshape(b, t, n, c)
-    dwout = dof.reshape(-1, c).t() @ y2.reshape(-1, c)
-    dbout = dof.sum(dim=(0, 1, 2))
+    dof = do.to(dt).to(acc).reshape(b, t, n, c_in)
+    dwout = dof.reshape(-1, c_in).t() @ y2.reshape(-1, c)
+    dbout = None if bout is None else dof.sum(dim=(0, 1, 2))
     dy2 = dof @ wout.to(dt).to(acc)
     dao, din2_scale, din2_bias = plane_norm_bwd(dy2, xhat2, rstd2, in2_scale)
 
@@ -270,19 +300,24 @@ def temporal_branch_bwd_plain(
             None if bias is None else dbias, None if scale_factor is None else dscale)
 
 
-def _check_kernel_shapes(what, x, heads):
+def _check_kernel_shapes(what, x, heads, c=None):
     """The kernels' envelope: head dim 16 (heads a multiple of 3) or 64,
-    T <= 8, H*W % 16 == 0, C % 32 == 0; returns the head dim."""
-    b, t, h, w, c = x.shape
+    T <= 8, H*W % 16 == 0, the attention width ``c`` (``heads * d``, the
+    QKV weight's rows over 3; None: x's channels, the unsharded block) and
+    the projection width (x's channels) both multiples of 32; returns the
+    head dim."""
+    b, t, h, w, c_in = x.shape
+    c = c_in if c is None else c
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what} kernel takes float32 or bfloat16, not {x.dtype}")
     d = c // heads
     if (c != heads * d or d not in HEAD_DIMS or heads % HEAD_GROUP[d] or t > MAX_T
-            or (h * w) % 16 or c % 32):
+            or (h * w) % 16 or c % 32 or c_in % 32):
         raise ValueError(
             f"{what} kernel needs head_dim in {HEAD_DIMS} (heads a multiple of "
-            f"{HEAD_GROUP[16]} at 16), T <= {MAX_T}, H*W % 16 == 0 and C % 32 == 0; got x "
-            f"{tuple(x.shape)} (T={t}, H*W={h * w}, C={c}, heads={heads})"
+            f"{HEAD_GROUP[16]} at 16), T <= {MAX_T}, H*W % 16 == 0 and both widths multiples "
+            f"of 32; got x {tuple(x.shape)} (T={t}, H*W={h * w}, attention width {c}, "
+            f"heads={heads})"
         )
     return d
 
@@ -296,15 +331,15 @@ def _core_params(xn, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias, sca
     """The parameters of K3, and K1's shared with it, as the C entries take
     them: float32 vectors, W_qkv in the activation dtype, the four qk-LN
     vectors stacked, absent bias/scale filled in."""
-    b, t, h, w, c = xn.shape
-    dev = xn.device
+    b, t, h, w, c_in = xn.shape
+    c, dev = wqkv.shape[0] // 3, xn.device
     p = dict(
         wqkv=wqkv.detach().to(device=dev, dtype=xn.dtype).contiguous(), bqkv=_f32(bqkv, dev),
         ln=torch.stack([_f32(a, dev) for a in (qn_scale, qn_bias, kn_scale, kn_bias)]),
         bias=torch.zeros(heads, t, t, device=dev) if bias is None else _f32(bias, dev),
         scale=torch.ones(heads, device=dev) if scale_factor is None else _f32(scale_factor, dev),
     )
-    _build.check_shapes(what, wqkv=(p["wqkv"], (3 * c, c)), bqkv=(p["bqkv"], (3 * c,)),
+    _build.check_shapes(what, wqkv=(p["wqkv"], (3 * c, c_in)), bqkv=(p["bqkv"], (3 * c,)),
                         ln=(p["ln"], (4, c // heads)), bias=(p["bias"], (heads, t, t)),
                         scale_factor=(p["scale"], (heads,)))
     return p
@@ -314,20 +349,22 @@ def _kernel_params(x, in1_scale, in1_bias, wqkv, bqkv, qn_scale, qn_bias, kn_sca
                    in2_scale, in2_bias, wout, bout, bias, scale_factor, heads):
     """K1's parameters as its C entries take them, in their order: those of
     :func:`_core_params`, the InstanceNorm vectors and the output projection
-    (W_out in the activation dtype)."""
-    c, dev = x.shape[-1], x.device
+    (W_out ``(c_in, c)`` in the activation dtype; an absent ``bout``, a
+    partial output's, zeros)."""
+    c_in, c, dev = x.shape[-1], wqkv.shape[0] // 3, x.device
     core = _core_params(x, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias,
                         scale_factor, heads, "mega_temporal_block")
     p = dict(
         in1_w=_f32(in1_scale, dev), in1_b=_f32(in1_bias, dev), wqkv=core["wqkv"],
         bqkv=core["bqkv"], ln=core["ln"], in2_w=_f32(in2_scale, dev), in2_b=_f32(in2_bias, dev),
-        wout=wout.detach().to(device=dev, dtype=x.dtype).contiguous(), bout=_f32(bout, dev),
+        wout=wout.detach().to(device=dev, dtype=x.dtype).contiguous(),
+        bout=torch.zeros(c_in, device=dev) if bout is None else _f32(bout, dev),
         bias=core["bias"], scale=core["scale"],
     )
     _build.check_shapes(
-        "mega_temporal_block", in1_scale=(p["in1_w"], (c,)), in1_bias=(p["in1_b"], (c,)),
-        in2_scale=(p["in2_w"], (c,)), in2_bias=(p["in2_b"], (c,)), wout=(p["wout"], (c, c)),
-        bout=(p["bout"], (c,)),
+        "mega_temporal_block", in1_scale=(p["in1_w"], (c_in,)), in1_bias=(p["in1_b"], (c_in,)),
+        in2_scale=(p["in2_w"], (c,)), in2_bias=(p["in2_b"], (c,)), wout=(p["wout"], (c_in, c)),
+        bout=(p["bout"], (c_in,)),
     )
     return p
 
@@ -338,12 +375,20 @@ def _kernel_params(x, in1_scale, in1_bias, wqkv, bqkv, qn_scale, qn_bias, kn_sca
 FWD_LAUNCHES = ("IN1 statistics", "IN1 apply (xn)", "QKV GEMM", "attention", "IN2 statistics",
                 "IN2 apply (y2)", "output GEMM")
 BWD_LAUNCHES = ("IN2 statistics", "dy2 GEMM", "IN2 apply (y2)", "dW_out split-K GEMM + sum",
-                "db_out", "IN2 backward sums", "attention backward", "IN1 apply (xn)",
+                "db_out", "IN2 backward sums", "attention backward + totals", "IN1 apply (xn)",
                 "dW_qkv split-K GEMM + sum", "db_qkv", "dxn GEMM", "IN1 backward sums", "dx")
 # Likewise K3's bf16 chains (the same files, run_core_temporal*_hopper).
 CORE_FWD_LAUNCHES = ("QKV GEMM", "attention")
-CORE_BWD_LAUNCHES = ("QKV GEMM", "attention backward", "dW_qkv split-K GEMM + sum", "db_qkv",
-                     "dx GEMM")
+CORE_BWD_LAUNCHES = ("QKV GEMM", "attention backward + totals", "dW_qkv split-K GEMM + sum",
+                     "db_qkv", "dx GEMM")
+
+
+def attention_partial_floats(heads: int, d: int, t: int) -> int:
+    """Floats of the bf16 attention backward's per-block partials, which its
+    totals add in a fixed order (``csrc/temporal_hopper.cuh``: at most
+    ``4 * 132 + heads`` blocks, ``attention_bwd_blocks``, of ``4 d + T^2 + 1``,
+    ``attention_partial_size``)."""
+    return (4 * 132 + heads) * (4 * d + t * t + 1)
 
 
 def _launch_times(launch_ms, names):
@@ -352,20 +397,26 @@ def _launch_times(launch_ms, names):
     return None if launch_ms is None else (ctypes.c_float * len(names))()
 
 
-def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int, launch_ms=None):
+def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int, launch_ms=None,
+                            partial: bool = False):
     """K1's forward kernel on CUDA tensors: ``(out, residuals)`` where
     ``residuals = (stats1, qkv, ao_r)`` are what the backward kernel reads —
-    the float32 IN1 statistics of ``x`` ``(2, B*T, C)`` (mean; rstd), the
+    the float32 IN1 statistics of ``x`` ``(2, B*T, C_in)`` (mean; rstd), the
     rounded raw QKV projection ``(B*T*N, 3C)`` and the attention output
-    ``(B*T*N, C)`` rounded, both in ``x.dtype``.  The float32 attention output,
-    its IN2 statistics and (bf16) the normalised operand of each product are
+    ``(B*T*N, C)`` rounded, both in ``x.dtype`` (C the attention width, C_in
+    the projection width: x's channels).  ``partial``: ``out`` is the
+    float32 product without a bias (``bout`` None), one rank's share of a
+    row-parallel projection.  The float32 attention output, its IN2
+    statistics and (bf16) the normalised operand of each product are
     scratch, freed on return.  In bf16, ``launch_ms``, a dict, receives the
     device milliseconds of each launch (:data:`FWD_LAUNCHES`; the call then
     waits for the card).  Counts ``mega_temporal_block.launches``."""
     if x.device.type != "cuda":
         raise ValueError(f"mega_temporal_block_fwd: the kernel needs a CUDA tensor, not {x.device}")
-    d = _check_kernel_shapes("mega_temporal_block", x, heads)
-    b, t, h, w, c = x.shape
+    _check_partial("mega_temporal_block_fwd", params[11], partial)
+    c = params[2].shape[0] // 3
+    d = _check_kernel_shapes("mega_temporal_block", x, heads, c)
+    b, t, h, w, c_in = x.shape
     n, dev, dt = h * w, x.device, x.dtype
     p = _kernel_params(x, *params, heads)
     x = x.contiguous()
@@ -376,20 +427,21 @@ def mega_temporal_block_fwd(x: torch.Tensor, *params, heads: int, launch_ms=None
                          in2_bias=p["in2_b"])
     elif launch_ms is not None:
         raise ValueError("mega_temporal_block_fwd: per-launch times are the bf16 chain's")
-    stats1 = torch.empty(2, b * t, c, device=dev)
+    stats1 = torch.empty(2, b * t, c_in, device=dev)
     qkv = torch.empty(b * t * n, 3 * c, device=dev, dtype=dt)
     ao = torch.empty(b * t * n, c, device=dev)
     ao_r = torch.empty(b * t * n, c, device=dev, dtype=dt)
     stats2 = torch.empty(2, b * t, c, device=dev)
-    out = torch.empty_like(x)
-    xs = torch.empty(b * t * n, c, device=dev, dtype=dt) if hopper else None  # xn, then y2
+    out = torch.empty(x.shape, device=dev, dtype=torch.float32 if partial else dt)
+    # xn, then y2
+    xs = torch.empty(b * t * n, max(c, c_in), device=dev, dtype=dt) if hopper else None
     times = _launch_times(launch_ms, FWD_LAUNCHES)
     lib = _build.library()
     err = lib.bf_temporal_block_fwd(
         _build.DTYPE_CODES[dt], d, x.data_ptr(), *(a.data_ptr() for a in p.values()),
         stats1.data_ptr(), qkv.data_ptr(), ao.data_ptr(), ao_r.data_ptr(), stats2.data_ptr(),
-        out.data_ptr(), None if xs is None else xs.data_ptr(), times, b, t, n, c, heads,
-        _build.stream_handle(dev),
+        out.data_ptr(), None if xs is None else xs.data_ptr(), times, b, t, n, c, heads, c_in,
+        int(partial), _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_temporal_block_fwd")
     mega_temporal_block.launches += 1
@@ -409,23 +461,26 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
     ``mega_temporal_block_bwd.launches``.  In bf16 the weight gradients are
     split-K sums over token ranges (:func:`~bubbleformer_tpu_torch.ops.
     hopper_gemm.split_k_plan`) added in a fixed order, so they repeat bit for
-    bit, and ``launch_ms``, a dict, receives each launch's device
-    milliseconds (:data:`BWD_LAUNCHES`).  The other parameter gradients (and
-    in float32 all of them) are float32 atomic sums over all B*T*N tokens,
-    whose last bits vary from run to run."""
+    bit, as do the other parameter gradients (plane sums and the attention
+    pass's per-block partials, each added in a fixed order), and
+    ``launch_ms``, a dict, receives each launch's device milliseconds
+    (:data:`BWD_LAUNCHES`).  In float32 the parameter gradients other than
+    the weights' are float32 atomic sums over all B*T*N tokens, whose last
+    bits vary from run to run."""
     if x.device.type == "cpu":
         return temporal_branch_bwd_plain(do, x, *params, heads=heads)
     if x.device.type != "cuda":
         raise ValueError(f"mega_temporal_block_bwd: unsupported device {x.device}")
     if residuals is None:
         raise ValueError("mega_temporal_block_bwd on CUDA needs the forward kernel's residuals")
-    d = _check_kernel_shapes("mega_temporal_block_bwd", x, heads)
-    b, t, h, w, c = x.shape
+    c = params[2].shape[0] // 3
+    d = _check_kernel_shapes("mega_temporal_block_bwd", x, heads, c)
+    b, t, h, w, c_in = x.shape
     n, g, dev, dt = h * w, b * t, x.device, x.dtype
     p = _kernel_params(x, *params, heads)
     stats1, qkv, ao_r = residuals
     _build.check_shapes("mega_temporal_block_bwd", do=(do, x.shape), qkv=(qkv, (g * n, 3 * c)),
-                        ao=(ao_r, (g * n, c)), stats1=(stats1, (2, g, c)))
+                        ao=(ao_r, (g * n, c)), stats1=(stats1, (2, g, c_in)))
     if qkv.dtype != dt or ao_r.dtype != dt:
         raise TypeError(f"mega_temporal_block_bwd: residuals qkv {qkv.dtype} and ao "
                         f"{ao_r.dtype}, x is {dt}")
@@ -437,17 +492,18 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
         return torch.zeros(*shape, device=dev)
 
     grads = dict(
-        dx=torch.empty(x.shape, device=dev, dtype=dt), din1=zeros(2, c),
-        dwqkv=zeros(3 * c, c), dbqkv=zeros(3 * c), dln=zeros(4, d), din2=zeros(2, c),
-        dwout=zeros(c, c), dbout=zeros(c), dbias=zeros(heads, t, t), dscale=zeros(heads),
+        dx=torch.empty(x.shape, device=dev, dtype=dt), din1=zeros(2, c_in),
+        dwqkv=zeros(3 * c, c_in), dbqkv=zeros(3 * c), dln=zeros(4, d), din2=zeros(2, c),
+        dwout=zeros(c_in, c), dbout=zeros(c_in), dbias=zeros(heads, t, t), dscale=zeros(heads),
     )
     # Every tensor whose pointer the kernels get is held by a name until the
     # launches are queued: a temporary freed earlier could be handed to the
     # next allocation before the kernels read it.
     x, do = x.contiguous(), do.to(dt).contiguous()
     wqkv_t, wout_t = p["wqkv"].t().contiguous(), p["wout"].t().contiguous()
-    work = torch.empty(g * n, c, device=dev)  # dy2, then dxn
-    sums = torch.empty(2, g, c, device=dev)
+    wide = max(c, c_in)
+    work = torch.empty(g * n, wide, device=dev)  # dy2, then dxn
+    sums = torch.empty(2, g, max(3 * c, c_in), device=dev)  # per-plane sums
     stats2 = torch.empty(2, g, c, device=dev)  # IN2 of ao_r
     dqkv = torch.empty(g * n, 3 * c, device=dev, dtype=dt)
     xs = part = plan_out = plan_qkv = None
@@ -456,12 +512,13 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
         _build.check_tma("mega_temporal_block_bwd", do=do, x=x, ao=ao_r, qkv=qkv,
                          in1_scale=p["in1_w"], in1_bias=p["in1_b"], in2_scale=p["in2_w"],
                          in2_bias=p["in2_b"])
-        bounds_out = hopper_gemm.split_k_plan(g * n, c, c)
-        bounds_qkv = hopper_gemm.split_k_plan(g * n, 3 * c, c)
+        bounds_out = hopper_gemm.split_k_plan(g * n, c_in, c)
+        bounds_qkv = hopper_gemm.split_k_plan(g * n, 3 * c, c_in)
         splits_out, splits_qkv = len(bounds_out) - 1, len(bounds_qkv) - 1
         plan_out, plan_qkv = _build.int32_array(bounds_out), _build.int32_array(bounds_qkv)
-        xs = torch.empty(g * n, c, device=dev, dtype=dt)  # y2, then xn
-        part = torch.empty(max(splits_out * c, splits_qkv * 3 * c) * c, device=dev)
+        xs = torch.empty(g * n, wide, device=dev, dtype=dt)  # y2, then xn
+        part = torch.empty(max(max(splits_out, 3 * splits_qkv) * c * c_in,
+                               attention_partial_floats(heads, d, t)), device=dev)
     times = _launch_times(launch_ms, BWD_LAUNCHES)
     lib = _build.library()
     err = lib.bf_temporal_block_bwd(
@@ -474,27 +531,28 @@ def mega_temporal_block_bwd(do: torch.Tensor, x: torch.Tensor, *params, heads: i
         *(a.data_ptr() for a in grads.values()),
         None if xs is None else xs.data_ptr(), None if part is None else part.data_ptr(),
         plan_out, splits_out, plan_qkv, splits_qkv, times,
-        b, t, n, c, heads, _build.stream_handle(dev),
+        b, t, n, c, heads, c_in, _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_temporal_block_bwd")
     mega_temporal_block_bwd.launches += 1
     if times is not None:
         launch_ms.update(zip(BWD_LAUNCHES, times))
     gr = grads
-    bias, scale_factor = params[-2], params[-1]
+    bout, bias, scale_factor = params[11], params[-2], params[-1]
     return (gr["dx"], gr["din1"][0], gr["din1"][1], gr["dwqkv"], gr["dbqkv"],
             gr["dln"][0], gr["dln"][1], gr["dln"][2], gr["dln"][3], gr["din2"][0], gr["din2"][1],
-            gr["dwout"], gr["dbout"], None if bias is None else gr["dbias"],
+            gr["dwout"], None if bout is None else gr["dbout"],
+            None if bias is None else gr["dbias"],
             None if scale_factor is None else gr["dscale"])
 
 
 class _TemporalBranch(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, heads, x, *params):
+    def forward(ctx, heads, partial, x, *params):
         if x.device.type == "cpu":
-            out, residuals = temporal_branch_plain(x, *params, heads=heads), ()
+            out, residuals = temporal_branch_plain(x, *params, heads=heads, partial=partial), ()
         elif x.device.type == "cuda":
-            out, residuals = mega_temporal_block_fwd(x, *params, heads=heads)
+            out, residuals = mega_temporal_block_fwd(x, *params, heads=heads, partial=partial)
         else:
             raise ValueError(f"mega_temporal_block: unsupported device {x.device}")
         ctx.heads = heads
@@ -511,7 +569,7 @@ class _TemporalBranch(torch.autograd.Function):
                                         residuals=tuple(saved) or None)
         grads = [None if g is None else g.to(a.dtype)
                  for g, a in zip(grads, [x] + params)]
-        return (None, *grads)
+        return (None, None, *grads)
 
 
 def mega_temporal_block(
@@ -520,27 +578,32 @@ def mega_temporal_block(
     qn_scale: torch.Tensor, qn_bias: torch.Tensor,
     kn_scale: torch.Tensor, kn_bias: torch.Tensor,
     in2_scale: torch.Tensor, in2_bias: torch.Tensor,
-    wout: torch.Tensor, bout: torch.Tensor,
+    wout: torch.Tensor, bout: Optional[torch.Tensor],
     bias: Optional[torch.Tensor] = None, scale_factor: Optional[torch.Tensor] = None,
-    *, heads: int,
+    *, heads: int, partial: bool = False,
 ) -> torch.Tensor:
-    """Whole temporal branch; returns the branch output ``(B, T, H, W, C)``
+    """Whole temporal branch; returns the branch output ``(B, T, H, W, C_in)``
     in ``x.dtype`` (the residual is the caller's), differentiable in every
     argument.
 
-    ``x``: ``(B, T, H, W, C)`` float32 or bfloat16.  ``wqkv`` ``(3C, C)`` and
-    ``wout`` ``(C, C)`` are torch ``(out, in)`` weights (``wout``/``bout``
-    already scaled by LayerScale gamma), cast to ``x.dtype`` for the
-    products; every other parameter is used in float32.  ``bias``: the T5
-    table ``(heads, T, T)``; ``scale_factor``: attn_scale ``(heads,)``.
+    ``x``: ``(B, T, H, W, C_in)`` float32 or bfloat16.  ``wqkv`` ``(3C,
+    C_in)`` and ``wout`` ``(C_in, C)`` are torch ``(out, in)`` weights
+    (``wout``/``bout`` already scaled by LayerScale gamma), cast to
+    ``x.dtype`` for the products; every other parameter is used in float32.
+    C, the attention width, is ``heads * d``: C_in unsharded, C_in / m for
+    one rank's heads of m (tensor parallelism).  ``bias``: the T5 table
+    ``(heads, T, T)``; ``scale_factor``: attn_scale ``(heads,)``.
+    ``partial``: the output is the output projection's float32 product
+    without a bias (``bout`` None), the rank's share that the caller sums
+    over the model group; its gradient is read in the activation dtype.
 
     CPU tensors take the plain versions; CUDA tensors launch the kernels
     (``mega_temporal_block.launches`` and ``mega_temporal_block_bwd.launches``
     count them).
     """
-    return _TemporalBranch.apply(heads, x, in1_scale, in1_bias, wqkv, bqkv, qn_scale, qn_bias,
-                                 kn_scale, kn_bias, in2_scale, in2_bias, wout, bout, bias,
-                                 scale_factor)
+    return _TemporalBranch.apply(heads, partial, x, in1_scale, in1_bias, wqkv, bqkv, qn_scale,
+                                 qn_bias, kn_scale, kn_bias, in2_scale, in2_bias, wout, bout,
+                                 bias, scale_factor)
 
 
 mega_temporal_block.launches = 0
@@ -592,7 +655,7 @@ def core_temporal_plain(
     b, t, h, w, c = xn.shape
     ao = _qkv_attention(xn.reshape(b, t, h * w, c), wqkv, bqkv, qn_scale, qn_bias, kn_scale,
                         kn_bias, bias, scale_factor, heads)
-    return ao.to(xn.dtype).reshape(xn.shape)
+    return ao.to(xn.dtype).reshape(b, t, h, w, -1)
 
 
 def core_temporal_bwd_plain(
@@ -614,8 +677,8 @@ def core_temporal_bwd_plain(
     xf = xn.to(acc).reshape(b, t, h * w, c)
     r = _attention_recompute(xf, wqkv, bqkv, qn_scale, qn_bias, kn_scale, kn_bias, bias,
                              scale_factor, heads, dt)
-    dxn, *grads = _attention_bwd(r, dao.to(dt).to(acc).reshape(xf.shape), xf, qn_scale,
-                                 kn_scale, heads, dt)
+    dxn, *grads = _attention_bwd(r, dao.to(dt).to(acc).reshape(b, t, h * w, -1), xf,
+                                 qn_scale, kn_scale, heads, dt)
     return (dxn.to(dt).reshape(xn.shape), *grads[:-2], None if bias is None else grads[-2],
             None if scale_factor is None else grads[-1])
 
@@ -644,22 +707,23 @@ def core_temporal_attention_fwd(xn: torch.Tensor, *params, heads: int,
     if xn.device.type != "cuda":
         raise ValueError(
             f"core_temporal_attention_fwd: the kernel needs a CUDA tensor, not {xn.device}")
-    d = _check_kernel_shapes("core_temporal_attention", xn, heads)
+    c = params[0].shape[0] // 3
+    d = _check_kernel_shapes("core_temporal_attention", xn, heads, c)
     p = _core_params(xn, *params, heads, "core_temporal_attention")
-    b, t, h, w, c = xn.shape
+    b, t, h, w, c_in = xn.shape
     dev, dt = xn.device, xn.dtype
     xn = xn.contiguous()
     qkv = None
     if dt == torch.bfloat16:
         _build.check_tma("core_temporal_attention", xn=xn, wqkv=p["wqkv"])
         qkv = torch.empty(b * t * h * w, 3 * c, device=dev, dtype=dt)
-    ao = torch.empty_like(xn)
+    ao = torch.empty(b, t, h, w, c, device=dev, dtype=dt)
     times = _launch_times(launch_ms, CORE_FWD_LAUNCHES)
     lib = _build.library()
     err = lib.bf_core_temporal_fwd(
         _build.DTYPE_CODES[dt], d, xn.data_ptr(), *(a.data_ptr() for a in p.values()),
         None if qkv is None else qkv.data_ptr(), ao.data_ptr(), times, b, t, h * w, c, heads,
-        _build.stream_handle(dev),
+        c_in, _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_core_temporal_fwd")
     core_temporal_attention.launches += 1
@@ -678,27 +742,29 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, he
     (``_core_bwd_kernel``), and count ``core_temporal_attention_bwd.launches``.
     In bf16 dW_qkv is a split-K sum over token ranges
     (:func:`~bubbleformer_tpu_torch.ops.hopper_gemm.split_k_plan`) added in a
-    fixed order, so it repeats bit for bit, and ``launch_ms``, a dict,
-    receives each launch's device milliseconds (:data:`CORE_BWD_LAUNCHES`).
-    The other parameter gradients (and in float32 all of them) are float32
-    atomic sums over all B*T*N tokens: their last bits vary from run to
-    run."""
+    fixed order, so it repeats bit for bit, as do the other parameter
+    gradients (fixed-order sums of per-plane and per-block partials), and
+    ``launch_ms``, a dict, receives each launch's device milliseconds
+    (:data:`CORE_BWD_LAUNCHES`).  In float32 every parameter gradient is a
+    float32 atomic sum over all B*T*N tokens: their last bits vary from run
+    to run."""
     _check_core_launch_ms("core_temporal_attention_bwd", xn, launch_ms)
     if xn.device.type == "cpu":
         return core_temporal_bwd_plain(dao, xn, *params, heads=heads)
     if xn.device.type != "cuda":
         raise ValueError(f"core_temporal_attention_bwd: unsupported device {xn.device}")
-    d = _check_kernel_shapes("core_temporal_attention_bwd", xn, heads)
+    c = params[0].shape[0] // 3
+    d = _check_kernel_shapes("core_temporal_attention_bwd", xn, heads, c)
     p = _core_params(xn, *params, heads, "core_temporal_attention_bwd")
-    b, t, h, w, c = xn.shape
+    b, t, h, w, c_in = xn.shape
     g, dev, dt = b * t * h * w, xn.device, xn.dtype
-    _build.check_shapes("core_temporal_attention_bwd", dao=(dao, xn.shape))
+    _build.check_shapes("core_temporal_attention_bwd", dao=(dao, (b, t, h, w, c)))
     hopper = dt == torch.bfloat16
 
     def zeros(*shape):
         return torch.zeros(*shape, device=dev)
 
-    grads = dict(dx=torch.empty(xn.shape, device=dev, dtype=dt), dwqkv=zeros(3 * c, c),
+    grads = dict(dx=torch.empty(xn.shape, device=dev, dtype=dt), dwqkv=zeros(3 * c, c_in),
                  dbqkv=zeros(3 * c), dln=zeros(4, d), dbias=zeros(heads, t, t),
                  dscale=zeros(heads))
     # Held by a name until the launches are queued (see mega_temporal_block_bwd).
@@ -710,9 +776,10 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, he
     splits = 0
     if hopper:
         _build.check_tma("core_temporal_attention_bwd", xn=xn, dao=dao, wqkv=p["wqkv"])
-        bounds = hopper_gemm.split_k_plan(g, 3 * c, c)
+        bounds = hopper_gemm.split_k_plan(g, 3 * c, c_in)
         splits, plan = len(bounds) - 1, _build.int32_array(bounds)
-        part = torch.empty(splits * 3 * c * c, device=dev)
+        part = torch.empty(max(splits * 3 * c * c_in, 2 * b * t * 3 * c,
+                               attention_partial_floats(heads, d, t)), device=dev)
     times = _launch_times(launch_ms, CORE_BWD_LAUNCHES)
     lib = _build.library()
     err = lib.bf_core_temporal_bwd(
@@ -720,7 +787,7 @@ def core_temporal_attention_bwd(dao: torch.Tensor, xn: torch.Tensor, *params, he
         p["bqkv"].data_ptr(), wqkv_t.data_ptr(), p["ln"].data_ptr(), p["bias"].data_ptr(),
         p["scale"].data_ptr(), qkv.data_ptr(), dqkv.data_ptr(),
         *(a.data_ptr() for a in grads.values()), None if part is None else part.data_ptr(),
-        plan, splits, times, b, t, h * w, c, heads, _build.stream_handle(dev),
+        plan, splits, times, b, t, h * w, c, heads, c_in, _build.stream_handle(dev),
     )
     _build.check(lib, err, "bf_core_temporal_bwd")
     core_temporal_attention_bwd.launches += 1
@@ -767,13 +834,15 @@ def core_temporal_attention(
     *, heads: int,
 ) -> torch.Tensor:
     """K3: QKV projection + qk-LayerNorm + T x T attention of the
-    InstanceNorm1 output ``xn`` ``(B, T, H, W, C)`` (float32 or bfloat16);
-    returns the blended attention output ``ao`` of the same shape and dtype,
-    differentiable in every argument.  InstanceNorm1, InstanceNorm2 and the
+    InstanceNorm1 output ``xn`` ``(B, T, H, W, C_in)`` (float32 or
+    bfloat16); returns the blended attention output ``ao`` ``(B, T, H, W,
+    C)`` in ``xn.dtype``, differentiable in every argument (C = ``heads *
+    d``, the QKV weight's rows over 3: C_in unsharded, C_in / m for one
+    rank's heads of m).  InstanceNorm1, InstanceNorm2 and the
     output projection are the caller's, as on the TPU
     (``bubbleformer_tpu/ops/temporal_block_mega.py:core_temporal_attention``).
 
-    ``wqkv``: torch ``(3C, C)`` weight, cast to ``xn.dtype`` for the
+    ``wqkv``: torch ``(3C, C_in)`` weight, cast to ``xn.dtype`` for the
     product; the other parameters are used in float32.  CPU tensors take the
     plain versions; CUDA tensors launch the kernels
     (``core_temporal_attention.launches`` and

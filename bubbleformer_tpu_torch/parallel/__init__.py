@@ -1,5 +1,7 @@
-"""Data parallelism across processes (``mesh.py``); tensor and spatial
-parallelism (the JAX package's ``parallel/sharding.py``) are not ported."""
+"""Data parallelism across processes and the (data, model) mesh
+(``mesh.py``); tensor parallelism over the model axis (``sharding.py``, the
+JAX package's ``parallel/sharding.py``).  Spatial parallelism is not
+ported."""
 from bubbleformer_tpu_torch.parallel.mesh import (
     Mesh,
     batch_sharding,
@@ -11,10 +13,23 @@ from bubbleformer_tpu_torch.parallel.mesh import (
     launch_env,
     make_mesh,
 )
+from bubbleformer_tpu_torch.parallel.sharding import (
+    COLUMN_PARALLEL,
+    ROW_PARALLEL,
+    ModelShard,
+    copy_to_model,
+    model_shard,
+    reduce_from_model,
+    shard_model,
+)
 
 __all__ = [
+    "COLUMN_PARALLEL",
     "Mesh",
+    "ModelShard",
+    "ROW_PARALLEL",
     "batch_sharding",
+    "copy_to_model",
     "host_any",
     "host_barrier",
     "host_mean",
@@ -22,4 +37,7 @@ __all__ = [
     "is_leader",
     "launch_env",
     "make_mesh",
+    "model_shard",
+    "reduce_from_model",
+    "shard_model",
 ]

@@ -1,4 +1,4 @@
-"""Process-group bootstrap, leader gating and the data-parallel mesh.
+"""Process-group bootstrap, leader gating and the (data, model) mesh.
 
 Counterpart of ``bubbleformer_tpu/parallel/mesh.py``.  The reference trains
 across GPUs with Lightning's DDP over NCCL; the JAX package with a ``data``
@@ -18,12 +18,21 @@ global batch: the concatenation of the ranks' batches in rank order.
   gloo by name.  One process does nothing; a world of more than one never
   becomes a one-process run, and a misconfigured one raises.
 * :func:`is_leader` gates logging and checkpoint writes.
-* :func:`make_mesh` checks a ``mesh_cfg`` against the world: the ``data``
-  axis must span it; ``model`` (tensor parallelism) and ``spatial``
-  (spatial parallelism) axes are not ported and raise.
-* :func:`batch_sharding` is the rank's rows of a global batch.  The
-  parameters need no counterpart of ``replicated``: DDP broadcasts the
-  leader's when it wraps the model, and equal gradients keep them equal.
+* :func:`make_mesh` checks a ``mesh_cfg`` against the world: ``data *
+  model`` must span it (``data=-1`` takes ``world / model``); a ``spatial``
+  axis (spatial parallelism) is not ported and raises.  The ranks lie as
+  the JAX package lays its devices out, ``devices.reshape(data, model)``
+  (``bubbleformer_tpu/parallel/mesh.py:111-118``): rank = ``data_rank *
+  model + model_rank``, so a model group is ``model`` consecutive ranks —
+  one host's cards under NCCL.  With ``model > 1`` every rank makes every
+  data and model group, in one order, each with a gloo twin for host-side
+  work (checkpoint gathers); tensor parallelism over the model group is
+  ``parallel/sharding.py``'s.
+* :func:`batch_sharding` is the rank's rows of a global batch, by its
+  ``data_rank``: every model rank of a data rank reads the same rows.  The
+  parameters need no counterpart of ``replicated``: every rank builds the
+  model from the same seed, DDP broadcasts the data group's leader's when it
+  wraps the model, and equal gradients keep them equal.
 
 Host-side agreements (the logged loss, the SIGTERM flag, barriers around a
 checkpoint) run over gloo on CPU tensors (:func:`host_group`), so that they
@@ -34,8 +43,8 @@ from __future__ import annotations
 import functools
 import os
 import re
-from dataclasses import dataclass
-from typing import Mapping, Optional
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -180,26 +189,33 @@ class _AllReduceSum(torch.autograd.Function):
     way: the gradient of every rank's loss reaches every rank's input."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.contiguous().clone()
-        dist.all_reduce(out)
-        return out
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the ranks, differentiably (the default group)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks of ``group`` (None: the default group),
+    differentiably."""
+    return _AllReduceSum.apply(x, group)
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """The run's mesh: ``data`` processes (the world), each on ``device``."""
+    """The run's mesh: ``data`` x ``model`` processes (the world), each on
+    ``device``.  ``rank`` is the process's place in the world, ``data_rank``
+    and ``model_rank`` its place on each axis; ``data_group`` and
+    ``model_group`` the groups of its axes (None: the default group, or no
+    collective at all for an axis of one), ``data_host_group`` and
+    ``model_host_group`` their gloo twins for collectives on CPU tensors."""
 
     data: int
     model: int
@@ -207,39 +223,75 @@ class Mesh:
     rank: int
     device: torch.device
     backend: Optional[str]
+    data_rank: int = 0
+    model_rank: int = 0
+    data_group: Any = field(default=None, compare=False, repr=False)
+    model_group: Any = field(default=None, compare=False, repr=False)
+    data_host_group: Any = field(default=None, compare=False, repr=False)
+    model_host_group: Any = field(default=None, compare=False, repr=False)
+
+
+@functools.lru_cache(maxsize=None)
+def _axis_groups(world_id: int, data: int, model: int) -> dict:
+    """Every rank's data and model groups and their gloo twins, made once a
+    world by every rank in the same order (``dist.new_group`` needs it): the
+    model groups ``[i * model, (i + 1) * model)``, then the data groups
+    ``{j, j + model, ...}``; under gloo a twin is the group itself."""
+    gloo = dist.get_backend() == "gloo"
+    model_ranks = [list(range(i * model, (i + 1) * model)) for i in range(data)]
+    data_ranks = [list(range(j, data * model, model)) for j in range(model)]
+    groups = {}
+    for axis, members in (("model", model_ranks), ("data", data_ranks)):
+        groups[axis] = [dist.new_group(r) for r in members]
+        groups[axis + "_host"] = (groups[axis] if gloo else
+                                  [dist.new_group(r, backend="gloo") for r in members])
+    return groups
 
 
 def make_mesh(data: int = -1, model: int = 1, spatial: int = 1,
               device: str = "cuda") -> Mesh:
-    """The data-parallel mesh over the world (``data=-1``: all of it).
+    """The (data, model) mesh over the world (``data=-1``: the processes
+    over ``model``).
 
-    ``model > 1`` and ``spatial > 1`` raise ``ValueError`` naming
-    ``mesh_cfg``: tensor and spatial parallelism are not ported.  ``data``
-    must equal the number of processes (``mesh.py:99-105``).  ``device``
-    ``"cuda"`` is the card ``LOCAL_RANK`` in a world of processes."""
-    if model != 1:
-        raise ValueError(f"mesh_cfg: model={model} asks for tensor parallelism, which the "
-                         "port does not have yet; mesh_cfg=single (data parallelism) runs")
+    ``data * model`` must equal the number of processes (``mesh.py:99-105``)
+    and ``spatial > 1`` (spatial parallelism, not ported) raises: both
+    ``ValueError`` naming ``mesh_cfg``.  So ``model > 1`` raises in a world
+    of one process.  ``device`` ``"cuda"`` is the card ``LOCAL_RANK`` in a
+    world of processes."""
     if spatial != 1:
         raise ValueError(f"mesh_cfg: spatial={spatial} asks for spatial parallelism, which "
-                         "the port does not have yet; mesh_cfg=single (data parallelism) runs")
+                         "the port does not have yet; mesh_cfg=single (data parallelism) and "
+                         "mesh_cfg=dp_tp (tensor parallelism) run")
     n = process_count()
+    if model < 1 or n % model:
+        raise ValueError(f"mesh_cfg: model={model} does not divide a world of {n} "
+                         f"process{'es' if n > 1 else ''} (tensor parallelism needs model "
+                         "processes to a data rank)")
     if data == -1:
-        data = n
-    if data != n:
+        data = n // model
+    if data * model != n:
         raise ValueError(f"mesh_cfg: mesh {data}x{model}x{spatial} != {n} processes")
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None and dist.is_initialized():
         dev = torch.device("cuda", launch_env().local_rank)
-    return Mesh(data, model, spatial, process_index(), dev,
-                dist.get_backend() if dist.is_initialized() else None)
+    rank = process_index()
+    kw = dict(data_rank=rank // model, model_rank=rank % model)
+    if model > 1:
+        groups = _axis_groups(id(dist.group.WORLD), data, model)
+        kw.update(model_group=groups["model"][rank // model],
+                  data_group=groups["data"][rank % model],
+                  model_host_group=groups["model_host"][rank // model],
+                  data_host_group=groups["data_host"][rank % model])
+    return Mesh(data, model, spatial, rank, dev,
+                dist.get_backend() if dist.is_initialized() else None, **kw)
 
 
 def batch_sharding(mesh: Mesh, global_batch: int) -> slice:
     """The rows of a global batch of ``global_batch`` that ``mesh``'s rank
-    holds: the ``rank``-th of ``mesh.data`` equal runs."""
+    holds: the ``data_rank``-th of ``mesh.data`` equal runs (the same rows
+    on every model rank of a data rank)."""
     if global_batch % mesh.data:
         raise ValueError(f"a global batch of {global_batch} does not split over "
                          f"{mesh.data} processes")
     local = global_batch // mesh.data
-    return slice(mesh.rank * local, (mesh.rank + 1) * local)
+    return slice(mesh.data_rank * local, (mesh.data_rank + 1) * local)

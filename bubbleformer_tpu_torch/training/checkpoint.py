@@ -6,7 +6,14 @@ state, the step, the normalization constants and a ``format_version`` —
 written to a temporary name and renamed, so a reader never sees half a
 file.  A restore that fails raises: there is no params-only fallback.  In a
 world of processes the trainer has the leader write (``Trainer.save``) and
-every rank restore, each onto its own device.
+every rank restore, each onto its own device.  Under tensor parallelism
+(the module's ``model_shard``) a checkpoint is still whole, in the
+one-process format: :func:`checkpoint_state` gathers the parameters and
+the optimizer state (Lion's momentum, AdamW's moments) over the model group
+on every rank, and :func:`restore_checkpoint` keeps the rank's slices of a
+whole checkpoint.  So ``scripts/inference_torch.py`` rolls a ``dp_tp``
+checkpoint out on one card, ``mesh_cfg=single`` resumes it, and ``dp_tp``
+resumes a ``single`` one.
 Preemption checkpoints are numbered ``hpc_ckpt_N.pt`` (``scripts/train.py:
 91-96`` of the reference).
 """
@@ -18,18 +25,39 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from bubbleformer_tpu_torch.parallel.sharding import (
+    gather_full_state,
+    gather_optimizer_state,
+    shard_optimizer_state,
+    shard_state,
+)
+
 FORMAT_VERSION = 1
 
 
-def save_checkpoint(path: str, module) -> None:
-    """Write ``module``'s model, optimizer, step and normalization constants."""
-    state = {
+def checkpoint_state(module) -> Dict[str, Any]:
+    """What a checkpoint of ``module`` holds: its model, optimizer, step and
+    normalization constants, whole.  Under tensor parallelism the sharded
+    entries are gathered over the model group: every model rank calls it."""
+    model, optimizer = module.model.state_dict(), module.optimizer.state_dict()
+    shard = getattr(module, "model_shard", None)
+    if shard is not None:
+        names = [n for n, _ in module.model.named_parameters()]
+        model = gather_full_state(model, shard)
+        optimizer = gather_optimizer_state(optimizer, names, shard)
+    return {
         "format_version": FORMAT_VERSION,
         "step": module.step,
-        "model": module.model.state_dict(),
-        "optimizer": module.optimizer.state_dict(),
+        "model": model,
+        "optimizer": optimizer,
         "norm_constants": module.normalization_constants,
     }
+
+
+def save_checkpoint(path: str, module, state: Optional[Dict[str, Any]] = None) -> None:
+    """Write ``module``'s checkpoint (``state``, :func:`checkpoint_state`'s,
+    where the caller gathered it)."""
+    state = checkpoint_state(module) if state is None else state
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp"
     torch.save(state, tmp)
@@ -48,10 +76,16 @@ def load_checkpoint(path: str, map_location: Any = "cpu") -> Dict[str, Any]:
 
 def restore_checkpoint(path: str, module) -> None:
     """Load model, optimizer, step and normalization constants into
-    ``module``, read straight onto its device; any mismatch raises."""
+    ``module``, read straight onto its device (under tensor parallelism the
+    rank's slices of the whole checkpoint); any mismatch raises."""
     ckpt = load_checkpoint(path, map_location=module.device)
-    module.model.load_state_dict(ckpt["model"])
-    module.optimizer.load_state_dict(ckpt["optimizer"])
+    model, optimizer = ckpt["model"], ckpt["optimizer"]
+    shard = getattr(module, "model_shard", None)
+    if shard is not None:
+        names = [n for n, _ in module.model.named_parameters()]
+        model, optimizer = shard_state(model, shard), shard_optimizer_state(optimizer, names, shard)
+    module.model.load_state_dict(model)
+    module.optimizer.load_state_dict(optimizer)
     module.step = int(ckpt["step"])
     if ckpt["norm_constants"] is not None:
         module.normalization_constants = tuple(ckpt["norm_constants"])

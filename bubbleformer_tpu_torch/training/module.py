@@ -55,6 +55,18 @@ global batch, and the model learns where it sits in it
 (``batch_shard``): the AViTs draw every drop-path mask for the global batch
 and take their rows, and ClassicUnet's BatchNorms normalise with the global
 batch's statistics, as the JAX package's global arrays have them.
+
+Tensor parallelism (``mesh_cfg=dp_tp``, ``parallel/sharding.py``): with a
+mesh's ``model > 1`` the module builds the whole model from the seed, then
+keeps its model rank's slices (``model_shard``; the AViTs' heads and MLP
+widths; the U-Nets, which no rule matches, stay whole and their model ranks
+compute the same step).  DDP then runs over the mesh's ``data_group``
+alone, ``batch_shard`` is ``(data_rank, data)`` (every model rank of a data
+rank reads the same rows and draws the same drop-path masks), ClassicUnet's
+BatchNorm sums over the data group, and after each backward one bucketed
+all-reduce sums the partial-gradient class over the model group (a sum:
+its order against DDP's data mean does not matter).  Checkpoints stay
+whole (``training/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -67,7 +79,8 @@ import torch
 
 from bubbleformer_tpu_torch.models import build_model
 from bubbleformer_tpu_torch.ops.lp_loss import training_lp_loss
-from bubbleformer_tpu_torch.parallel import Mesh, make_mesh
+from bubbleformer_tpu_torch.parallel import Mesh, make_mesh, model_shard, shard_model
+from bubbleformer_tpu_torch.parallel.sharding import all_reduce_partial_gradients
 from bubbleformer_tpu_torch.training.optim import make_optimizer
 from bubbleformer_tpu_torch.utils.losses import LpLoss
 from bubbleformer_tpu_torch.utils.schedulers import make_schedule
@@ -120,14 +133,20 @@ class ForecastModule:
             torch.manual_seed(seed)
             model = build_model(self.model_cfg, self.data_cfg, compute_dtype)
         self.model = model.to(self.device)
+        # Tensor parallelism: the whole model drawn above, the rank's slices kept.
+        self.model_shard = model_shard(self.mesh)
+        if self.model_shard is not None:
+            shard_model(self.model, self.model_shard)
         self.train_model = self.model
         if ddp or (ddp is None and self.mesh.data > 1):
             for m in self.model.modules():
                 if hasattr(m, "batch_shard"):
-                    m.batch_shard = (self.mesh.rank, self.mesh.data)
+                    m.batch_shard = (self.mesh.data_rank, self.mesh.data)
+                if hasattr(m, "batch_group"):
+                    m.batch_group = self.mesh.data_group
             self.train_model = torch.nn.parallel.DistributedDataParallel(
                 self.model, device_ids=None if self.device.type == "cpu" else [self.device],
-                find_unused_parameters=False)
+                process_group=self.mesh.data_group, find_unused_parameters=False)
         self.criterion = LpLoss(d=2, p=2, reduce_dims=[0, 1, 2],
                                 reductions=["mean", "mean", "sum"])
         if loss_layout is None:
@@ -199,6 +218,8 @@ class ForecastModule:
             pred = self.train_model(*self.inputs(batch), generator=generator)
             loss = self._loss(pred, self.target(batch))
         loss.backward()
+        if self.model_shard is not None:
+            all_reduce_partial_gradients(self.model, self.model_shard)
         self.optimizer.step()
         self.step += 1
         return {"loss": loss.detach(), "learning_rate": lr}

@@ -25,7 +25,9 @@ Counterpart of ``bubbleformer_tpu/training/trainer.py``:
   ``dtype`` or else the input's, and the loss sees the targets rounded.
 
 In a world of processes (the module's ``mesh``, ``parallel/mesh.py``) each
-rank steps on its own batch and the module's DDP averages the gradients.
+data rank steps on its own batch and the module's DDP averages the
+gradients (under ``mesh_cfg=dp_tp`` the model ranks of a data rank share
+its batch, and the samples counted are the data ranks').
 The CSV, W&B, the validation panels, the parameter table, the profiler
 window and the prints are the leader's (``:79,110,147,252,306``); the
 logged training and validation losses are the means over the ranks; the
@@ -49,7 +51,11 @@ import numpy as np
 import torch
 
 from bubbleformer_tpu_torch.parallel import host_any, host_barrier, host_mean, is_leader
-from bubbleformer_tpu_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+from bubbleformer_tpu_torch.training.checkpoint import (
+    checkpoint_state,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from bubbleformer_tpu_torch.training.module import ForecastModule
 from bubbleformer_tpu_torch.utils.summary import parameter_table
 
@@ -148,11 +154,15 @@ class Trainer:
         restore_checkpoint(ckpt_path, self.module)
 
     def save(self, path: str) -> None:
-        """The leader writes the checkpoint; every rank waits for the others
-        before and after, so that none reads or resumes a half-made one."""
+        """The leader writes the checkpoint, whole (under tensor parallelism
+        every rank takes part in gathering it); every rank waits for the
+        others before and after, so that none reads or resumes a half-made
+        one."""
         host_barrier()
+        sharded = self.module.model_shard is not None
+        state = checkpoint_state(self.module) if self.leader or sharded else None
         if self.leader:
-            save_checkpoint(path, self.module)
+            save_checkpoint(path, self.module, state)
         host_barrier()
 
     def _start_profile(self):
@@ -223,6 +233,9 @@ class Trainer:
             self.restore(ckpt_path)
         if self.leader:
             print(parameter_table(module.model))
+            if module.mesh.model > 1:
+                print(f"(model rank 0's slices of {module.mesh.model}: the column- and "
+                      "row-parallel layers hold a share of their features)")
         global_step = module.step
         prof = None
         start_epoch = global_step // max(min(self.limit_train_batches, len(train_loader)), 1)
@@ -271,11 +284,14 @@ class Trainer:
             train_time = time.time() - epoch_start
             if n_batches:
                 self.last_epoch_seconds = train_time
-                world = self.module.mesh.data
+                world, model = self.module.mesh.data, self.module.mesh.model
+                over = (f"{world} process{'es' if world > 1 else ''}" if model == 1 else
+                        f"{world} data rank{'s' if world > 1 else ''} of {world * model} "
+                        "processes")
                 if self.leader:
                     print(f"epoch {epoch}: {n_batches} steps in {train_time:.1f}s "
                           f"({n_batches * batch_size * world / train_time:.1f} samples/s over "
-                          f"{world} process{'es' if world > 1 else ''} incl. input pipeline)")
+                          f"{over} incl. input pipeline)")
             if self.wandb is not None:
                 self.wandb.log({"train_epoch_time": train_time, "epoch": epoch})
 

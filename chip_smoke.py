@@ -19,9 +19,12 @@ ClassicUnet with its BatchNorm running statistics) training on K10, every
 model-path kernel with continuous tables and with none, FiLMAViT-small with
 ``bias_type=continuous``, a converted reference checkpoint, the data
 path (``.npy`` caches, the native batch assembler, training from files and
-the physics gate), and data parallelism (DDP: FiLMAViT-small through K1 and
+the physics gate), data parallelism (DDP: FiLMAViT-small through K1 and
 K2, ClassicUnet through K10 with global BatchNorm statistics, the training
-CLI under ``torch.distributed.run``).  The
+CLI under ``torch.distributed.run``), and tensor parallelism
+(``mesh_cfg=dp_tp``: FiLMAViT-small through K1 and K2, AViT-big through K3
+and K2, each rank on half the heads, and a whole checkpoint from the
+ranks).  The
 serving path (the autoregressive rollout) and the training path
 (``Trainer.fit``: Lion, or AdamW where the config says, with cosine
 warmup); and the hand-written kernels on the way, each at the shapes its
@@ -281,8 +284,9 @@ paths give it — the rollout's (batch 1) and the training step's:
    takes longer than the phase may): every key of its JSON, every metric
    finite, K4 launched as its steps, validation batches and float32
    rollouts ask and no other kernel;
-50. a one-rank NCCL world in this process: FiLMAViT-small in bfloat16 at
-   batch 8, 3 Lion steps through ``DistributedDataParallel`` and the same 3
+50. a one-rank NCCL world in this process: FiLMAViT-small (4 of its 12
+   blocks, ``DP_BLOCKS``, in phases 50-57) in bfloat16 at batch 8, 3 Lion
+   steps through ``DistributedDataParallel`` and the same 3
    steps without it from the same seeded weights and batches: the losses
    and every parameter bit for bit, K1 and K2 launched as 3 steps ask, and
    no "bucket view" warning (a gradient DDP would copy);
@@ -302,7 +306,35 @@ paths give it — the rollout's (batch 1) and the training step's:
    statistics (global-batch statistics) the one process's;
 53. ``scripts/train_torch.py`` under ``python -m torch.distributed.run
    --standalone --nproc_per_node 1`` with ``mesh_cfg=single`` on synthetic
-   batches: its world line, ``last.pt`` and ``metrics.csv`` once.
+   batches (FiLMAViT-small at 4 blocks): its world line, ``last.pt`` and
+   ``metrics.csv`` once;
+54. K1, K3 and K2 on one rank's heads of two (``TP_KERNELS``): K1 at
+   FiLMAViT-small's training shape with ``wqkv (576, 384)``, ``wout (384,
+   192)`` and its float32 partial output, K3 at AViT-big's with ``wqkv
+   (1152, 768)``, K2 on qkv (40, 32, 32, 576) and (40, 32, 32, 1152):
+   forward and every gradient in float32 and bfloat16 against the plain
+   versions (``KERNEL_RTOL``), every bfloat16 gradient the same bits on a
+   second call, with their times, bounds and cuBLAS's products or sdpa
+   alone;
+55. two ranks on the one card over gloo, ``mesh_cfg=dp_tp``'s model axis
+   (data 1 x model 2; ``chip_smoke.py --dp-worker <dir> tp``) against this
+   process, both models at full width and 4 blocks (gloo's all-reduces go
+   through the host): FiLMAViT-small's float32 step at
+   batch 4 (O(1) weights, FiLM
+   near identity) every gradient within ``KERNEL_RTOL``, then 3 bfloat16
+   Lion steps at batch 8 from the seeded init, the losses within the
+   bfloat16 bound, every parameter within 2 lr a step and the share apart
+   held to a witness (this process with every row-parallel Dense product
+   as its two halves summed in float32), replicated parameters the same
+   bits on both ranks after each step, K1 and K2 launched as 3 steps ask
+   on each rank, each rank's step time and peak memory;
+56. the same world, AViT-big through K3 and K2 with AdamW: a
+   float32 step's gradients within ``KERNEL_RTOL`` and a bfloat16 step's
+   loss within the bfloat16 bound, at batch 2;
+57. phase 55's whole checkpoint (the leader's, gathered over the model
+   group): the one-process format, restored in this process to the ranks'
+   parameters bit for bit, and restored re-sharded by the ranks; a float32
+   window of each within ``NEW_WINDOW_RTOL``.
 
 K2's, K4's, K5's, K6's, K7's, K8's and K9's wrappers count every call on
 the card (``lane_axial_attention``, ``fused_block_attention``,
@@ -744,12 +776,35 @@ def kernel_work(key: str, shape, dtype: str):
     and writes out (dq, dk, dv), the float32 tables aside.  K10 (pred of
     (B, T, C, H, W), the target float32): ~3 operations a value forward, 2
     backward; it reads pred and the target and writes the (m, 2) sums
-    (dpred)."""
+    (dpred).  " tp" (tensor parallelism, phase 54): one rank's share of
+    TP_MODEL, the attention width c_a = C / TP_MODEL against the projection
+    width C.  K1 tp: the QKV product 2R*C*3c_a, the output product
+    2R*c_a*C, the attention 4R*T*c_a; it reads x and writes the float32
+    partial output (R, C), qkv (R, 3c_a) and ao (R, c_a); its backward the
+    four products at those widths and five T x T contractions, reading do,
+    x, qkv and ao and writing dx and the float32 weight gradients.  K3 tp:
+    K3's work at those widths (xn and dxn C wide, ao and dao c_a)."""
     e = 2 if dtype == "bfloat16" else 4
     if key.startswith("P"):
         return probe_work(key, shape, e)
     d = 16 if key.endswith(" d16") or key.endswith(" d16 bwd") else 64
     key = key.replace(" d16", "")
+    if key.startswith(("K1 tp", "K3 tp")):
+        b, t, h, w, c = shape
+        r, ca = b * t * h * w, c // TP_MODEL
+        w_qkv = 3 * ca * c
+        if key == "K3 tp":
+            return (2 * r * w_qkv + 4 * r * t * ca,
+                    e * r * (c + ca) + e * w_qkv + 4 * (3 * ca + 4 * d))
+        if key == "K3 tp bwd":
+            return (3 * 2 * r * w_qkv + 10 * r * t * ca,
+                    e * r * (2 * c + ca) + e * w_qkv + 4 * w_qkv + 4 * (3 * ca + 4 * d))
+        params = 4 * (2 * c + 3 * ca + 4 * d + 2 * ca) + e * (w_qkv + ca * c)
+        if key == "K1 tp":
+            return (2 * r * w_qkv + 2 * r * ca * c + 4 * r * t * ca,
+                    e * r * c + 4 * r * c + e * r * 4 * ca + params)
+        return (2 * (2 * r * w_qkv + 2 * r * ca * c) + 10 * r * t * ca,
+                3 * e * r * c + e * r * 4 * ca + params + 4 * (w_qkv + ca * c))
     if key.startswith("K8"):
         heads, m, n, d = shape
         size, tables = heads * m * n * d, 4 * heads * (n * n + 1)
@@ -3259,9 +3314,13 @@ DP_STEPS = 3
 DP_TIMEOUT_S = 420
 DP_KINDS = ("filmavit", "unet")
 # The default path's kernel launches a training step under remat "dots".
-DP_PER_STEP = {"mega_temporal_block": 12 * DOTS_RERUN["mega_temporal_block"],
-               "mega_temporal_block_bwd": 12, "lane_axial_attention": 12,
-               "lane_axial_attention_bwd": 12}
+# FiLMAViT-small's depth in the parallel phases (50-57): full width, 4 of its
+# 12 blocks, to keep the smoke's time (the gloo all-reduces go through the
+# host).
+DP_BLOCKS = 4
+DP_PER_STEP = {"mega_temporal_block": DP_BLOCKS * DOTS_RERUN["mega_temporal_block"],
+               "mega_temporal_block_bwd": DP_BLOCKS, "lane_axial_attention": DP_BLOCKS,
+               "lane_axial_attention_bwd": DP_BLOCKS}
 # Two ranks against one process at the global batch.  The first step in
 # float32: each gradient within KERNEL_RTOL["float32"] of its largest (the
 # batch's sums split in two and added by the all-reduce: reassociation; one
@@ -3305,11 +3364,12 @@ def _free_port() -> int:
 
 def dp_cfgs(kind: str):
     """The training configs of a DP phase: FiLMAViT-small (the default
-    composition) or ClassicUnet on ``singlebubble``'s 4 fields, Lion with a
-    2-step warmup."""
+    composition) at DP_BLOCKS blocks or ClassicUnet on ``singlebubble``'s 4
+    fields, Lion with a 2-step warmup."""
     from bubbleformer_tpu_torch.config import load_config
 
-    extra = ["model_cfg=unet_classic"] if kind == "unet" else []
+    extra = (["model_cfg=unet_classic"] if kind == "unet" else
+             [f"model_cfg.params.processor_blocks={DP_BLOCKS}"])
     cfg = load_config(extra + ["scheduler_cfg.params.warmup_iters=2"])
     return (cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"])
 
@@ -3446,9 +3506,10 @@ def accumulated_step(m, batch, seed: int) -> float:
     return loss
 
 
-def dp_worker(out_dir: str) -> None:
-    """A rank of phases 51-52 (``chip_smoke.py --dp-worker``): the world from
-    torchrun's variables the parent set, over gloo; both phases' runs."""
+def dp_worker(out_dir: str, scenario: str = "dp") -> None:
+    """A rank of phases 51-52 (``chip_smoke.py --dp-worker <dir>``) or of
+    phases 55-57 (``... <dir> tp``): the world from torchrun's variables the
+    parent set, over gloo; the phases' runs."""
     import torch
 
     from bubbleformer_tpu_torch.parallel import initialize_distributed
@@ -3456,33 +3517,41 @@ def dp_worker(out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     initialize_distributed(backend="gloo")
-    for kind in DP_KINDS:
-        out = dp_run(kind, Path(out_dir))
+    if scenario == "tp":
+        out = tp_run(Path(out_dir))
         launched = {k: v for k, v in out["launches"].items() if v}
-        print(f"rank {out['rank']} of {out['world']} {kind}: {out['ddp']}, "
-              f"{out['seconds']:.2f} s, launches {launched}", flush=True)
+        print(f"rank {out['rank']} mesh {out['mesh']}: {out['seconds']:.2f} s for "
+              f"{DP_STEPS} bf16 steps, peak {out['peak_gb']:.2f} GB, launches {launched}",
+              flush=True)
+    else:
+        for kind in DP_KINDS:
+            out = dp_run(kind, Path(out_dir))
+            launched = {k: v for k, v in out["launches"].items() if v}
+            print(f"rank {out['rank']} of {out['world']} {kind}: {out['ddp']}, "
+                  f"{out['seconds']:.2f} s, launches {launched}", flush=True)
     torch.distributed.destroy_process_group()
 
 
-def dp_launch(out_dir: Path) -> float:
-    """Start DP_RANKS workers on the card with torchrun's variables and wait
-    for them (each stopped at DP_TIMEOUT_S); fails unless every rank exits
-    0.  Returns the seconds."""
+def dp_launch(out_dir: Path, scenario: str = "dp", ranks: int = DP_RANKS,
+              timeout: float = DP_TIMEOUT_S) -> float:
+    """Start ``ranks`` workers of ``scenario`` on the card with torchrun's
+    variables and wait for them (each stopped at ``timeout`` seconds); fails
+    unless every rank exits 0.  Returns the seconds."""
     import os
 
     port = str(_free_port())
     t0 = time.perf_counter()
     procs = []
-    for rank in range(DP_RANKS):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(DP_RANKS), LOCAL_RANK="0",
+    for rank in range(ranks):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(ranks), LOCAL_RANK="0",
                    MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
         procs.append(subprocess.Popen(
-            [sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(out_dir)],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [sys.executable, str(Path(__file__).resolve()), "--dp-worker", str(out_dir),
+             scenario], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     outs = []
     try:
         for p in procs:
-            left = max(1.0, DP_TIMEOUT_S - (time.perf_counter() - t0))
+            left = max(1.0, timeout - (time.perf_counter() - t0))
             outs.append(p.communicate(timeout=left)[0])
     except subprocess.TimeoutExpired:
         outs.append("(timed out)")
@@ -3709,6 +3778,7 @@ def dp_cli_phase(repo: Path, card: str) -> float:
     shutil.rmtree(log_dir, ignore_errors=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
            "1", "scripts/train_torch.py", "synthetic_batches=3", "limit_train_batches=3",
+           f"model_cfg.params.processor_blocks={DP_BLOCKS}",
            "scheduler_cfg.params.warmup_iters=2", "mesh_cfg=single", f"log_dir={log_dir}"]
     try:
         res = subprocess.run(cmd, cwd=repo, capture_output=True, text=True, timeout=300)
@@ -3733,6 +3803,525 @@ def dp_cli_phase(repo: Path, card: str) -> float:
     return seconds
 
 
+# Tensor parallelism (phases 54-57, mesh_cfg=dp_tp): K1, K3 and K2 at the
+# head-sharded training shapes against their plain versions (phase 54);
+# then TP_MODEL ranks on the one card over gloo (NCCL refuses two ranks on
+# one GPU), data 1 x model TP_MODEL, against this process: FiLMAViT-small
+# through K1 + K2 (phase 55), AViT-big through K3 + K2 (phase 56), both at
+# full width and DP_BLOCKS blocks (the gloo all-reduces go through the host,
+# ~0.4 GB a block and step at batch 8), and the ranks' whole checkpoint
+# rolled out in this process (phase 57).
+TP_MODEL = 2
+# Each kernel at a rank's share of its training shape: K1 at FiLMAViT-small's
+# (3 of 6 heads; wqkv (576, 384), wout (384, 192), a float32 partial
+# output), K3 at AViT-big's (6 of 12 heads; wqkv (1152, 768)), K2 on both
+# models' local qkv.  The heads are the whole block's for K1 and K3 (each
+# call runs a rank's half), the rank's own for K2.
+TP_KERNELS = {"K1 tp": ((TRAIN_BATCH, TIME_WINDOW, 32, 32, 384), 6),
+              "K3 tp": ((TRAIN_BATCH, TIME_WINDOW, 32, 32, 768), 12),
+              "K2 tp small": ((TRAIN_BATCH * TIME_WINDOW, 32, 32, 576), 3),
+              "K2 tp big": ((TRAIN_BATCH * TIME_WINDOW, 32, 32, 1152), 6)}
+TP_F32_BATCH = 4  # the float32 step's global batch (phase 55)
+TP_BIG_BATCH = 2  # AViT-big's steps (phase 56)
+TP_TIMEOUT_S = 420
+# Phase 55 holds the ranks to this process as phase 51 holds DP: the float32
+# step's gradients within KERNEL_RTOL["float32"], the bf16 losses within
+# KERNEL_RTOL["bfloat16"], every parameter within 2 lr a step, and the
+# share of elements apart to DP_WITNESS times a witness's plus
+# DP_FLIP_FLOOR.  The witness is this process with every row-parallel Dense
+# product (the axial branches' output projections, the MLPs' fc2) computed
+# as its two halves of input features summed in float32, the bias added to
+# the first, as the ranks' partials are summed (:func:`split_row_products`;
+# K1's output product inside the kernel it leaves whole).  Phase 57: the
+# ranks' whole checkpoint restored by the ranks (re-sharded) and by this
+# process, a float32 window of each within NEW_WINDOW_RTOL.
+
+
+def tp_rank_args(key: str, args: dict, heads: int, rank: int = 0) -> dict:
+    """A rank's share of K1's (``"K1..."``) or K3's whole-block arguments:
+    its heads' rows of the heads-major QKV weight and bias, its channels of
+    InstanceNorm2 and of W_out's columns, its heads' table and scales; K1's
+    output bias dropped (the partial output has none)."""
+    c = args["wqkv"].shape[1]
+    ca, hl = c // TP_MODEL, heads // TP_MODEL
+    rows, cs = slice(3 * rank * ca, 3 * (rank + 1) * ca), slice(rank * ca, (rank + 1) * ca)
+    hs = slice(rank * hl, (rank + 1) * hl)
+    out = dict(args, wqkv=args["wqkv"][rows].contiguous(), bqkv=args["bqkv"][rows].contiguous(),
+               bias=args["bias"][hs].contiguous(),
+               scale_factor=args["scale_factor"][hs].contiguous())
+    if key.startswith("K1"):
+        out.update(in2_scale=args["in2_scale"][cs].contiguous(),
+                   in2_bias=args["in2_bias"][cs].contiguous(),
+                   wout=args["wout"][:, cs].contiguous(), bout=None)
+    return out
+
+
+def tp_k1_gemm_ms(x, wqkv, wout, do=None, dqkv=None) -> float:
+    """cuBLAS (``torch.matmul``) on a rank's K1 products alone, a partial
+    yardstick: the forward's xn W_qkv^T (C -> 3c_a) and y2 W_out^T (c_a ->
+    C; x's first c_a channels stand in for y2), or with ``do`` and a (R,
+    3c_a) ``dqkv`` the backward's do W_out, do^T y2, dqkv W_qkv and dqkv^T
+    xn."""
+    import torch
+
+    x2 = x.reshape(-1, x.shape[-1])
+    y2 = x2[:, :wout.shape[1]].contiguous()
+    if do is None:
+        return ref_ms(lambda: (torch.matmul(x2, wqkv.t()), torch.matmul(y2, wout.t())))
+    d2 = do.reshape(x2.shape)
+    return ref_ms(lambda: (torch.matmul(d2, wout), torch.matmul(d2.t(), y2),
+                            torch.matmul(dqkv, wqkv), torch.matmul(dqkv.t(), x2)))
+
+
+def tp_kernel_phase(dev, results: dict) -> None:
+    """Phase 54: K1 (its partial output), K3 and K2 on a rank's heads at the
+    TP_KERNELS shapes, forward and every gradient, float32 and bfloat16,
+    against their plain versions on the card (``KERNEL_RTOL``), with the
+    kernels', the plain versions' and the library yardsticks' times."""
+    import torch
+    from bubbleformer_tpu_torch.ops import axial_lane as k2
+    from bubbleformer_tpu_torch.ops import temporal_block_mega as k13
+
+    print(f"== phase 54: K1, K3 and K2 on a rank's heads of {TP_MODEL}: "
+          + ", ".join(f"{k} {s} ({h} heads)" for k, (s, h) in TP_KERNELS.items()), flush=True)
+    for i, (key, (shape, heads)) in enumerate(TP_KERNELS.items()):
+        rng = np.random.default_rng(SEED + 90 + i)
+        if key.startswith("K2"):
+            hl, c = heads, shape[-1] // 3
+            d = c // heads
+
+            def n(*s, scale=1.0, offset=0.0):
+                return torch.from_numpy((offset + scale * rng.standard_normal(s))
+                                        .astype(np.float32)).to(dev)
+
+            base = dict(qkv=n(*shape), qn_scale=n(d, scale=0.1, offset=1.0),
+                        qn_bias=n(d, scale=0.1), kn_scale=n(d, scale=0.1, offset=1.0),
+                        kn_bias=n(d, scale=0.1), bias_x=n(hl, shape[2], shape[2]),
+                        bias_y=n(hl, shape[1], shape[1]), scale_x=n(hl, scale=0.2, offset=1.0),
+                        scale_y=n(hl, scale=0.2, offset=1.0))
+            fwd, bwd = k2.lane_axial_attention, k2.lane_axial_attention_bwd
+            plain, bwd_plain = k2.axial_attention_plain, k2.axial_attention_bwd_plain
+            out_shape = shape[:-1] + (c,)
+            kw = {}
+        else:
+            hl = heads // TP_MODEL
+            whole = branch_args(key, shape, heads, rng)
+            base = {k: None if v is None else v.to(dev)
+                    for k, v in tp_rank_args(key, whole, heads).items()}
+            del whole
+            if key.startswith("K1"):
+                fwd, bwd = k13.mega_temporal_block_fwd, k13.mega_temporal_block_bwd
+                plain, bwd_plain = k13.temporal_branch_plain, k13.temporal_branch_bwd_plain
+                out_shape, kw = shape, {"partial": True}
+            else:
+                fwd, bwd = k13.core_temporal_attention_fwd, k13.core_temporal_attention_bwd
+                plain, bwd_plain = k13.core_temporal_plain, k13.core_temporal_bwd_plain
+                out_shape, kw = shape[:-1] + (shape[-1] // TP_MODEL,), {}
+        do32 = torch.from_numpy(np.random.default_rng(SEED + 95 + i).standard_normal(out_shape)
+                                .astype(np.float32)).to(dev)
+        first = next(iter(base))
+        for dt in (torch.float32, torch.bfloat16):
+            name = str(dt).split(".")[-1]
+            args = dict(base, **{first: base[first].to(dt)})
+            params = list(args.values())[1:]
+            act, do = args[first], do32.to(dt)
+            got = fwd(act, *params, heads=hl, **kw)
+            got, res = got if isinstance(got, tuple) else (got, None)
+            kept = {} if res is None else {"residuals": res}
+            ref = plain(**args, heads=hl, **kw)
+            torch.cuda.synchronize()
+            if key.startswith("K1") and got.dtype != torch.float32:
+                fail(f"{key}: the partial output is {got.dtype}, not float32")
+            err_f = compare(f"{key} {name} {shape}", got, ref, KERNEL_RTOL[name])
+            del got, ref
+            got = bwd(do, act, *params, heads=hl, **kept)
+            ref = bwd_plain(do, **args, heads=hl)
+            torch.cuda.synchronize()
+            err_b = compare_grads(f"{key} bwd {name}", tuple(args), got, ref, KERNEL_RTOL[name])
+            if dt == torch.bfloat16:  # every gradient a fixed-order sum
+                check_repeat(f"{key} bwd {name}", tuple(args), got,
+                             bwd(do, act, *params, heads=hl, **kept), 0)
+            del got, ref
+            ms_f = cuda_ms(lambda: fwd(act, *params, heads=hl, **kw))
+            plain_f = ref_ms(lambda: plain(**args, heads=hl, **kw))
+            ms_b = cuda_ms(lambda: bwd(do, act, *params, heads=hl, **kept))
+            plain_b = ref_ms(lambda: bwd_plain(do, **args, heads=hl))
+            if key.startswith("K1"):
+                w1, w2 = args["wqkv"].to(dt), args["wout"].to(dt)
+                lib_f = tp_k1_gemm_ms(act, w1, w2)
+                lib_b = tp_k1_gemm_ms(act, w1, w2, do, res[1])
+                what = "cuBLAS's products alone"
+            elif key.startswith("K3"):
+                w1 = args["wqkv"].to(dt)
+                lib_f = k3_gemm_ms(act, w1)
+                stand_in = torch.matmul(act.reshape(-1, shape[-1]), w1.t())  # a (R, 3c_a) dqkv
+                lib_b = k3_gemm_ms(act, w1, stand_in)
+                del stand_in
+                what = "cuBLAS's products alone"
+            else:
+                lib_f, lib_b = lane_sdpa_ms(act, args["bias_x"], args["bias_y"], hl)
+                what = "sdpa over both directions"
+            results[(key, name, "training")] = (err_f, ms_f, plain_f)
+            results[(key + " bwd", name, "training")] = (err_b, ms_b, plain_b)
+            results[(key + " lib", name, "training")] = lib_f
+            results[(key + " bwd lib", name, "training")] = lib_b
+            b_f = bound(*kernel_work(key, shape, name), name)
+            b_b = bound(*kernel_work(key + " bwd", shape, name), name)
+            print(f"  {key} {name}: forward {ms_f:.4f} ms (plain {plain_f:.4f}, bound "
+                  f"{b_f[0]:.5f} {b_f[1]}), backward {ms_b:.4f} ms (plain {plain_b:.4f}, bound "
+                  f"{b_b[0]:.5f} {b_b[1]}); {what} (partial yardstick) {lib_f:.4f} / "
+                  f"{lib_b:.4f} ms", flush=True)
+            del res, kept, args, params, act, do
+        del base, do32
+
+
+def tp_cfgs(kind: str):
+    """The training configs of a TP phase at DP_BLOCKS blocks:
+    FiLMAViT-small with Lion (the default composition) or AViT-big with
+    AdamW; a 2-step warmup."""
+    from bubbleformer_tpu_torch.config import load_config
+
+    extra = [] if kind == "filmavit" else ["model_cfg=avit_big", "optim_cfg=adamw"]
+    cfg = load_config(extra + [f"model_cfg.params.processor_blocks={DP_BLOCKS}",
+                               "scheduler_cfg.params.warmup_iters=2"])
+    return (cfg["model_cfg"], cfg["data_cfg"], cfg["optim_cfg"], cfg["scheduler_cfg"])
+
+
+def tp_module(kind: str, dtype, mesh=None, device="cuda:0"):
+    """A training module of ``kind`` from the seeded init (whole, then the
+    rank's slices under a mesh with a model axis) on ``device`` (the mesh's
+    under a mesh)."""
+    from bubbleformer_tpu_torch.training import module_class
+
+    cfgs = tp_cfgs(kind)
+    return module_class(*cfgs[:2])(*cfgs, total_steps=DP_STEPS + 1, compute_dtype=dtype,
+                                   device=str(device), seed=SEED, mesh=mesh)
+
+
+def tp_batches(n: int, batch: int, dev, seed: int):
+    import torch
+
+    return [tuple(torch.from_numpy(a).to(dev) for a in
+                  cached_batch(batch, TIME_WINDOW, FIELDS, IMAGE, IMAGE, 9, seed + i))
+            for i in range(n)]
+
+
+def tp_grads(m, batch, seed: int) -> dict:
+    """One float32 forward and backward of module ``m`` on ``batch`` in train
+    mode, the partial-gradient class summed over the model group; the
+    gradients whole (gathered over the model group), on the CPU."""
+    import torch
+    from bubbleformer_tpu_torch.parallel.sharding import (
+        all_reduce_partial_gradients,
+        gather_full_state,
+    )
+
+    m.train_model.train()
+    pred = m.train_model(*m.inputs(batch), generator=torch.Generator(device=batch[0].device)
+                         .manual_seed(seed))
+    m._loss(pred, m.target(batch)).backward()
+    grads = {n: p.grad.detach() for n, p in m.model.named_parameters()}
+    if m.model_shard is None:
+        return {n: g.cpu() for n, g in grads.items()}
+    all_reduce_partial_gradients(m.model, m.model_shard)
+    return gather_full_state({n: p.grad.detach() for n, p in m.model.named_parameters()},
+                             m.model_shard)
+
+
+@contextlib.contextmanager
+def split_row_products():
+    """The witness of phase 55 in one process: every row-parallel Dense
+    product of the blocks (a weight with no more outputs than inputs: the
+    axial branch's and the temporal ``core`` route's ``output_head``, the
+    MLPs' ``fc2``) as its two halves of input features, each accumulated in
+    float32, the bias added to the first, the halves summed in float32 and
+    rounded once: the ranks' partials and their sum."""
+    import torch
+    from bubbleformer_tpu_torch.layers import attention, linear
+    from bubbleformer_tpu_torch.layers.norm import accumulation_dtype
+
+    dense = linear.dense
+
+    def split(x, weight, bias, dtype):
+        if weight.shape[0] > weight.shape[1]:  # QKV, fc1, FiLM: column-parallel or whole
+            return dense(x, weight, bias, dtype)
+        dt = dtype or torch.promote_types(x.dtype, weight.dtype)
+        acc = accumulation_dtype(dt)
+        h = weight.shape[1] // 2
+        xa, wa = x.to(dt).to(acc), weight.to(dt).to(acc)
+        first = linear.linear(xa[..., :h], wa[:, :h], None)
+        if bias is not None:
+            first = first + bias.to(dt).to(acc)
+        return (first + linear.linear(xa[..., h:], wa[:, h:], None)).to(dt)
+
+    attention.dense, linear.dense = split, split
+    try:
+        yield
+    finally:
+        attention.dense, linear.dense = dense, dense
+
+
+# Gradients zero up to rounding (the k-LayerNorm bias: a shift of every key
+# leaves the softmax unchanged; the axial MLP's fc2 bias: the InstanceNorm
+# after the MLP removes any per-channel constant), whose float32 noise the
+# ranks, batching their heads otherwise, do not share: held to a hundredth
+# of the largest gradient of all, as ZERO_GRADS are in the kernel phases.
+TP_ZERO_GRADS = ("knorm.bias", "mlp.fc2.bias")
+
+
+def tp_compare_grads(name: str, got: dict, ref: dict) -> float:
+    """Each float32 gradient of the ranks within KERNEL_RTOL["float32"] of
+    one process's largest magnitude; those in TP_ZERO_GRADS of a hundredth
+    of the largest of all.  Returns the worst."""
+    top = max(r.abs().max().item() for r in ref.values())
+    errors = {n: (got[n].double() - r.double()).abs().max().item()
+              / (1e-2 * top if n.endswith(TP_ZERO_GRADS) else max(r.abs().max().item(), 1e-30))
+              for n, r in ref.items()}
+    worst = max(errors, key=errors.get)
+    print(f"  {name}: {len(errors)} gradients, worst {worst} {errors[worst]:.2e} (tol "
+          f"{KERNEL_RTOL['float32']:.0e}; {', '.join(TP_ZERO_GRADS)} against 1e-2 of the "
+          f"largest, {top:.2e})", flush=True)
+    if errors[worst] > KERNEL_RTOL["float32"]:
+        fail(f"{name}: {worst} at {errors[worst]:.3e}")
+    return errors[worst]
+
+
+# What a TP world's leader writes; a rank's own record holds the rest.
+TP_LEADER_ONLY = ("f32_grads", "params", "big_grads", "window")
+# AViT-big's launches in phase 56 (two steps, each block's K3 and K2 once a
+# step under remat "dots"): float32 on the line kernels, bf16 on Hopper's.
+TP_BIG_LAUNCHES = {"core_temporal_attention": 2, "core_temporal_attention_bwd": 2,
+                   "lane_axial_attention": 2, "lane_axial_attention_bwd": 2, "lane_line_fwd": 1,
+                   "lane_line_bwd": 1, "lane_hopper_fwd": 1, "lane_hopper_bwd": 1}
+
+
+def tp_run(out_dir: Path) -> dict:
+    """A rank of phases 55-57, in a world of TP_MODEL processes
+    (``mesh_cfg=dp_tp``'s model axis, data 1): FiLMAViT-small's float32
+    step from the O(1) weights in ``out_dir`` at TP_F32_BATCH and DP_STEPS
+    bf16 Lion steps from the seeded init at DP_BATCH (losses, launches,
+    replicated parameters the same bits on every rank after each step, the
+    peak memory, the parameters whole), its whole checkpoint, restored
+    re-sharded into a float32 module for a window; AViT-big's float32 and
+    bf16 AdamW steps at TP_BIG_BATCH.  Writes the record to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from bubbleformer_tpu_torch.parallel import host_barrier, host_mean, make_mesh
+    from bubbleformer_tpu_torch.parallel.sharding import gather_full_state, shard_dim, shard_state
+    from bubbleformer_tpu_torch.training import restore_checkpoint, save_checkpoint
+    from bubbleformer_tpu_torch.training.checkpoint import checkpoint_state
+
+    mesh = make_mesh(model=TP_MODEL, device="cuda")
+    dev = mesh.device
+    out = {"rank": mesh.rank, "mesh": (mesh.data, mesh.model, mesh.data_rank, mesh.model_rank)}
+
+    def replicated_equal(model) -> bool:
+        flat = torch.cat([v.detach().flatten().float() for k, v in model.state_dict().items()
+                          if shard_dim(k) is None])
+        leader = flat.clone()
+        dist.broadcast(leader, src=0)
+        return torch.equal(flat, leader)
+
+    m = tp_module("filmavit", None, mesh)
+    m.model.load_state_dict(shard_state(torch.load(out_dir / "film_weights.pt"), m.model_shard))
+    out["ddp"] = type(m.train_model).__name__
+    out["f32_grads"] = tp_grads(m, tp_batches(1, TP_F32_BATCH, dev, SEED + 80)[0], SEED)
+    del m
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    m = tp_module("filmavit", "bfloat16", mesh)
+    batches = tp_batches(DP_STEPS, DP_BATCH, dev, SEED + 60)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, equal = [], []
+    for i, b in enumerate(batches):
+        metrics = m.train_step(b, torch.Generator(device=dev).manual_seed(SEED + i))
+        losses.append(host_mean(float(metrics["loss"])))
+        equal.append(replicated_equal(m.model))
+    torch.cuda.synchronize()
+    out.update(seconds=time.perf_counter() - t0, launches=read_counters(), losses=losses,
+               equal=equal, peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               routes=[(b.temporal._route, b.spatial._route) for b in m.model.blocks])
+    whole = gather_full_state(dict(m.model.named_parameters()), m.model_shard)
+    out["params"] = whole
+    state = checkpoint_state(m)
+    if mesh.rank == 0:
+        save_checkpoint(str(out_dir / "tp_last.pt"), m, state)
+    host_barrier()
+    del m, state, whole, batches
+    torch.cuda.empty_cache()
+    m = tp_module("filmavit", None, mesh)
+    restore_checkpoint(str(out_dir / "tp_last.pt"), m)
+    m.model.eval()
+    x, _, fluid = tp_batches(1, 1, dev, SEED + 85)[0]
+    with torch.no_grad():
+        out["window"] = m.model(x, fluid).cpu()
+    del m
+    torch.cuda.empty_cache()
+
+    big = torch.load(out_dir / "big_weights.pt")
+    m = tp_module("avit_big", None, mesh)
+    m.model.load_state_dict(shard_state(big, m.model_shard))
+    big_batches = tp_batches(2, TP_BIG_BATCH, dev, SEED + 88)
+    zero_counters()
+    out["big_grads"] = tp_grads(m, big_batches[0], SEED)
+    del m
+    m = tp_module("avit_big", "bfloat16", mesh)
+    m.model.load_state_dict(shard_state(big, m.model_shard))
+    out["big_loss"] = host_mean(float(m.train_step(
+        big_batches[1], torch.Generator(device=dev).manual_seed(SEED))["loss"]))
+    torch.cuda.synchronize()
+    out.update(big_launches=read_counters(), big_equal=replicated_equal(m.model),
+               big_routes=[(b.temporal._route, b.spatial._route) for b in m.model.blocks])
+    keep = TP_LEADER_ONLY if mesh.rank else ()
+    torch.save({k: v for k, v in out.items() if k not in keep}, out_dir / f"tp_{mesh.rank}.pt")
+    return out
+
+
+def tp_reference(out_dir: Path, dev) -> dict:
+    """This process's side of phases 55-57, written before the ranks start:
+    the O(1) weights they load, and at the global batch FiLMAViT-small's
+    float32 gradients, its DP_STEPS bf16 Lion steps (losses, parameters) and
+    the witness's (:func:`split_row_products`), AViT-big's float32
+    gradients and bf16 AdamW loss."""
+    import torch
+    from bubbleformer_tpu_torch.models import build_model
+
+    cfgs = tp_cfgs("filmavit")
+    film = film_near_identity(random_state_dict(build_model(*cfgs[:2]), SEED + 70), SEED + 70)
+    torch.save(film, out_dir / "film_weights.pt")
+    big_cfgs = tp_cfgs("avit_big")
+    big = random_state_dict(build_model(*big_cfgs[:2]), SEED + 75)
+    torch.save(big, out_dir / "big_weights.pt")
+    ref = {}
+    m = tp_module("filmavit", None, device=dev)
+    m.model.load_state_dict(film)
+    ref["f32_grads"] = tp_grads(m, tp_batches(1, TP_F32_BATCH, dev, SEED + 80)[0], SEED)
+    del m, film
+    batches = tp_batches(DP_STEPS, DP_BATCH, dev, SEED + 60)
+    for key, ctx in (("", contextlib.nullcontext), ("witness_", split_row_products)):
+        m = tp_module("filmavit", "bfloat16", device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx():
+            losses = [float(m.train_step(b, torch.Generator(device=dev).manual_seed(SEED + i))
+                            ["loss"]) for i, b in enumerate(batches)]
+        torch.cuda.synchronize()
+        ref.update({key + "losses": losses, key + "seconds": time.perf_counter() - t0,
+                    key + "params": {n: p.detach().cpu() for n, p in m.model.named_parameters()}})
+        ref["lr_sum"] = sum(m.schedule(i) for i in range(DP_STEPS))
+        del m
+    big_batches = tp_batches(2, TP_BIG_BATCH, dev, SEED + 88)
+    m = tp_module("avit_big", None, device=dev)
+    m.model.load_state_dict(big)
+    ref["big_grads"] = tp_grads(m, big_batches[0], SEED)
+    m = tp_module("avit_big", "bfloat16", device=dev)
+    m.model.load_state_dict(big)
+    ref["big_loss"] = float(m.train_step(big_batches[1], torch.Generator(device=dev)
+                                         .manual_seed(SEED))["loss"])
+    del m, big, batches, big_batches
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tp_phases(repo: Path, card: str, dev) -> dict:
+    """Phases 55-57: TP_MODEL ranks on the one card over gloo (data 1 x
+    model TP_MODEL, ``chip_smoke.py --dp-worker <dir> tp``) against this
+    process (tolerances above).  Returns the ranks' launches of phase 55
+    and of phase 56 (each summed over the ranks) and the seconds."""
+    import torch
+    from bubbleformer_tpu_torch.parallel.sharding import shard_dim
+    from bubbleformer_tpu_torch.training import load_checkpoint, restore_checkpoint
+
+    print(f"== phase 55: {TP_MODEL} ranks on one card over gloo, mesh_cfg=dp_tp (data 1 x model "
+          f"{TP_MODEL}), against one process: FiLMAViT-small at {DP_BLOCKS} blocks, K1 + K2 on 3 "
+          f"heads a rank, a float32 step at batch {TP_F32_BATCH} then {DP_STEPS} bf16 Lion steps "
+          f"at batch {DP_BATCH}", flush=True)
+    print(f"== phase 56: the same world, AViT-big at {DP_BLOCKS} blocks, K3 + K2 on 6 heads "
+          f"a rank, a float32 and a bf16 AdamW step at batch {TP_BIG_BATCH}", flush=True)
+    t0 = time.perf_counter()
+    out_dir = repo / "build" / "chip_smoke_tp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ref = tp_reference(out_dir, dev)
+    t_ref = time.perf_counter() - t0
+    ranks_s = dp_launch(out_dir, "tp", TP_MODEL, TP_TIMEOUT_S)
+    ranks = [torch.load(out_dir / f"tp_{r}.pt", weights_only=False) for r in range(TP_MODEL)]
+    lead = ranks[0]
+    per_step = with_dtype_paths(DP_PER_STEP, "bfloat16")
+    for r in ranks:
+        if r["mesh"] != (1, TP_MODEL, 0, r["rank"]) or r["ddp"] == "DistributedDataParallel":
+            fail(f"rank {r['rank']}: mesh {r['mesh']}, {r['ddp']}")
+        if r["routes"] != [("mega", "lane")] * DP_BLOCKS or \
+                r["big_routes"] != [("core", "lane")] * DP_BLOCKS:
+            fail(f"rank {r['rank']} took routes {r['routes']} and {r['big_routes']}")
+        if not all(r["equal"]) or not r["big_equal"]:
+            fail(f"rank {r['rank']}: replicated parameters differ from the leader's: "
+                 f"{r['equal']}, {r['big_equal']}")
+        check_launches(f"rank {r['rank']}'s TP steps", r["launches"], per_step, DP_STEPS)
+        check_launches(f"rank {r['rank']}'s AViT-big steps", r["big_launches"],
+                       TP_BIG_LAUNCHES, DP_BLOCKS)
+        print(f"  rank {r['rank']}: bf16 step {1000 * r['seconds'] / DP_STEPS:.1f} ms, peak "
+              f"{r['peak_gb']:.2f} GB (two ranks share the card; {card})", flush=True)
+
+    tp_compare_grads("TP float32 step, 2 ranks vs 1 process", lead["f32_grads"],
+                     ref["f32_grads"])
+    losses = np.array(lead["losses"])
+    loss_rel = float(np.abs(losses - ref["losses"]).max() / np.abs(ref["losses"]).max())
+    print(f"  bf16 losses {lead['losses']} vs {ref['losses']} (rel {loss_rel:.1e})", flush=True)
+    if loss_rel > KERNEL_RTOL["bfloat16"] or any(r["losses"] != lead["losses"] for r in ranks):
+        fail("the TP losses disagree with one process's")
+    witness = dp_compare_lion("the split row products vs the one pass (the witness)",
+                              ref["witness_params"], ref["params"], ref["lr_sum"])
+    share = dp_compare_lion(f"TP {DP_STEPS} bf16 Lion steps' parameters, 2 ranks vs 1 process",
+                            lead["params"], ref["params"], ref["lr_sum"],
+                            DP_WITNESS * witness + DP_FLIP_FLOOR)
+    print(f"  bf16 steps: one process {1000 * ref['seconds'] / DP_STEPS:.1f} ms/step, the "
+          f"witness {1000 * ref['witness_seconds'] / DP_STEPS:.1f}, a rank "
+          f"{1000 * max(r['seconds'] for r in ranks) / DP_STEPS:.1f} ms/step (gloo's all-reduces "
+          f"through the host; {card})", flush=True)
+    tp_compare_grads("TP AViT-big float32 step, 2 ranks vs 1 process", lead["big_grads"],
+                     ref["big_grads"])
+    big_rel = abs(lead["big_loss"] - ref["big_loss"]) / abs(ref["big_loss"])
+    print(f"  AViT-big bf16 loss {lead['big_loss']:.6f} vs {ref['big_loss']:.6f} "
+          f"(rel {big_rel:.1e})", flush=True)
+    if big_rel > KERNEL_RTOL["bfloat16"]:
+        fail("the TP AViT-big bf16 loss disagrees with one process's")
+
+    print("== phase 57: the ranks' whole checkpoint restored in one process on the card, its "
+          "float32 window against the ranks' (each restoring it re-sharded)", flush=True)
+    ckpt = load_checkpoint(str(out_dir / "tp_last.pt"))
+    m = tp_module("filmavit", None, device=dev)
+    sd = m.model.state_dict()
+    if ckpt["model"].keys() != sd.keys() or any(ckpt["model"][k].shape != v.shape
+                                                for k, v in sd.items()):
+        fail("the TP checkpoint is not in the one-process format")
+    restore_checkpoint(str(out_dir / "tp_last.pt"), m)
+    sharded = sum(shard_dim(k) is not None for k in sd)
+    for n, p in m.model.named_parameters():
+        if not torch.equal(p.detach().cpu(), lead["params"][n]):
+            fail(f"the restored {n} differs from the ranks' gathered parameter")
+    m.model.eval()
+    x, _, fluid = tp_batches(1, 1, dev, SEED + 85)[0]
+    with torch.no_grad():
+        y = m.model(x, fluid).cpu()
+    compare("the restored checkpoint's float32 window, one process vs the ranks", y,
+            lead["window"], NEW_WINDOW_RTOL)
+    print(f"  {len(sd)} entries ({sharded} of them gathered from the ranks' slices), step "
+          f"{ckpt['step']}, restored into one process", flush=True)
+    del m, ckpt
+    shutil.rmtree(out_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"  this process's references {t_ref:.1f} s, the ranks' processes {ranks_s:.1f} s "
+          f"(start-up included); phases 55-57 took {seconds:.1f} s ({card})", flush=True)
+    return {"launches": {k: sum(r["launches"][k] for r in ranks) for k in lead["launches"]},
+            "big_launches": {k: sum(r["big_launches"][k] for r in ranks)
+                             for k in lead["big_launches"]},
+            "seconds": seconds, "share": share, "witness": witness}
+
+
 def main() -> None:
     t_run = time.perf_counter()
     try:
@@ -3745,8 +4334,8 @@ def main() -> None:
     if not (repo / "bubbleformer_tpu_torch" / "csrc").is_dir():
         fail(f"bubbleformer_tpu_torch/ is not beside {Path(__file__).name}: run it from the repo")
     sys.path.insert(0, str(repo))
-    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phases 51-52, started below
-        dp_worker(sys.argv[2])
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phases 51-52 or 55-57, started below
+        dp_worker(*sys.argv[2:4])
         return
 
     from bubbleformer_tpu_torch import _build
@@ -4602,6 +5191,50 @@ def main() -> None:
         entry["launches"] += sum(r["launches"].get(counter, 0) for r in dp)
     print(f"  phases 50 / 51-52 / 53 took {dp[0]['seconds']:.1f} / {dp[1]['seconds']:.1f} / "
           f"{t_cli:.1f} s", flush=True)
+    # This slice: tensor parallelism (phases 54-57).  The sharded kernels'
+    # rows carry the launches of the two-rank world at their shapes.
+    t0 = time.perf_counter()
+    tp_kernel_phase(dev, results)
+    t_tp_kernels = time.perf_counter() - t0
+    tp = tp_phases(repo, card, torch.device("cuda", 0))
+    temporal_cu = "bubbleformer_tpu_torch/csrc/temporal_block.cu"
+    for key, name, counter, source, replaces, launches in (
+        ("K1 tp", "mega_temporal_block (3 of 6 heads, partial output)", "mega_temporal_block",
+         temporal_cu, jax_ops + "temporal_block_mega.py:238", tp["launches"]),
+        ("K1 tp bwd", "mega_temporal_block_bwd (3 of 6 heads)", "mega_temporal_block_bwd",
+         "bubbleformer_tpu_torch/csrc/temporal_block_bwd.cu",
+         jax_ops + "temporal_block_mega.py:269", tp["launches"]),
+        ("K3 tp", "core_temporal_attention (6 of 12 heads)", "core_temporal_attention",
+         temporal_cu, jax_ops + "temporal_block_mega.py:452", tp["big_launches"]),
+        ("K3 tp bwd", "core_temporal_attention_bwd (6 of 12 heads)",
+         "core_temporal_attention_bwd", "bubbleformer_tpu_torch/csrc/temporal_block_bwd.cu",
+         jax_ops + "temporal_block_mega.py:476", tp["big_launches"]),
+        ("K2 tp small", "lane_axial_attention (3 of 6 heads)", "lane_hopper_fwd",
+         "bubbleformer_tpu_torch/csrc/lane_hopper.cuh", jax_ops + "axial_lane.py:236",
+         tp["launches"]),
+        ("K2 tp small bwd", "lane_axial_attention_bwd (3 of 6 heads)", "lane_hopper_bwd",
+         "bubbleformer_tpu_torch/csrc/lane_hopper.cuh", jax_ops + "axial_lane.py:370",
+         tp["launches"]),
+        ("K2 tp big", "lane_axial_attention (6 of 12 heads)", "lane_hopper_fwd",
+         "bubbleformer_tpu_torch/csrc/lane_hopper.cuh", jax_ops + "axial_lane.py:236",
+         tp["big_launches"]),
+        ("K2 tp big bwd", "lane_axial_attention_bwd (6 of 12 heads)", "lane_hopper_bwd",
+         "bubbleformer_tpu_torch/csrc/lane_hopper.cuh", jax_ops + "axial_lane.py:370",
+         tp["big_launches"]),
+    ):
+        err, ms, plain_ms = results[(key, "bfloat16", "training")]
+        shape = TP_KERNELS[key.replace(" bwd", "")][0]
+        bound_ms, bound_by = bound(*kernel_work(key, shape, "bfloat16"), "bfloat16")
+        if launches[counter] == 0:
+            fail(f"{name} was not launched on the tensor-parallel path")
+        lib_key = key.replace(" bwd", "") + (" bwd lib" if key.endswith("bwd") else " lib")
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches[counter], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": results[(lib_key, "bfloat16", "training")]})
+    print(f"  tensor parallelism: parameters apart after {DP_STEPS} bf16 Lion steps "
+          f"{tp['share']:.2e} (witness {tp['witness']:.2e}); phases 54 / 55-57 took "
+          f"{t_tp_kernels:.1f} / {tp['seconds']:.1f} s", flush=True)
     print(f"  the run took {time.perf_counter() - t_run:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,8 +5,10 @@ Counterpart of ``scripts/train.py`` on ``bubbleformer_tpu_torch``: the same
 ``key=value`` overrides composed over the port's own config tree, the
 process group joined first (``parallel/mesh.py:initialize_distributed``)
 and the mesh built from ``mesh_cfg`` (``single``: data parallelism over
-every process; ``dp_tp``, ``dp_sp`` and ``mesh_cfg.model>1`` raise, tensor
-and spatial parallelism not being ported), the sliding-window datasets
+every process; ``dp_tp``: ``model: 2``, tensor parallelism over pairs of
+processes and data parallelism across the pairs, which raises in a world of
+one; ``dp_sp`` raises, spatial parallelism not being ported), the
+sliding-window datasets
 (each file from its ``.hdf5``, or from its ``.npy`` field caches where
 h5py or the file is missing) with train
 normalization constants applied to validation, ``native_loader`` (default
@@ -21,13 +23,18 @@ to a model without FiLM trains the unconditioned module, which ignores them.
 ``transfer_dtype`` reach the trainer as in ``scripts/train.py:146-164``.
 
 Data parallelism: one process a GPU, launched by ``torchrun`` or ``srun``;
-each process prints one world line, reads its strided shard of each epoch
-(``batch_size`` is per process: the global batch is ``batch_size`` times
-the processes), and the leader alone writes ``metrics.csv`` and the
-checkpoints.  NCCL on the cards; ``device=cpu`` runs the world on gloo.
+each process prints one world line, reads its data rank's strided shard of
+each epoch (``batch_size`` is per data rank: the global batch is
+``batch_size`` times the data ranks), and the leader alone writes
+``metrics.csv`` and the checkpoints (whole, also under ``dp_tp``).  NCCL on
+the cards; ``device=cpu`` runs the world on gloo.  Under ``mesh_cfg=dp_tp``
+the temporal branches run ``mega`` (K1) or ``core`` (K3) and the axial ones
+``lane`` (K2) on each rank's heads; any other route raises.
 
     python -m torch.distributed.run --standalone --nproc_per_node 4 \
         scripts/train_torch.py data_cfg=poolboiling_saturated batch_size=2
+    python -m torch.distributed.run --standalone --nproc_per_node 4 \
+        scripts/train_torch.py device=cpu mesh_cfg=dp_tp model_cfg=film_avit_tiny ...
     srun --ntasks-per-node 4 --gpus-per-node 4 python scripts/train_torch.py ...
 
 Overrides the JAX script does not have:
@@ -83,7 +90,7 @@ def main(argv=None) -> Trainer:
     mesh_cfg = cfg.get("mesh_cfg", {"data": -1, "model": 1})
     mesh = make_mesh(data=mesh_cfg.get("data", -1), model=mesh_cfg.get("model", 1),
                      spatial=mesh_cfg.get("spatial", 1), device=str(resolve_device(device)))
-    shard = dict(process_index=mesh.rank, process_count=mesh.data)
+    shard = dict(process_index=mesh.data_rank, process_count=mesh.data)
     np.random.seed(cfg["seed"])
     data_cfg, model_cfg = cfg["data_cfg"], cfg["model_cfg"]
 
@@ -134,7 +141,8 @@ def main(argv=None) -> Trainer:
     limit_train = cfg.get("limit_train_batches", 1000)
     total_steps = min(len(train_loader), limit_train) * cfg["max_epochs"]
     # One line a process (scripts/train.py:108-113's world report).
-    print(f"process {mesh.rank}/{mesh.data}: {len(train_loader)} train batches/epoch, "
+    print(f"process {mesh.rank}/{mesh.data * mesh.model}: data {mesh.data_rank}/{mesh.data}, "
+          f"model {mesh.model_rank}/{mesh.model}, {len(train_loader)} train batches/epoch, "
           f"local batch {cfg['batch_size']} (global {cfg['batch_size'] * mesh.data}), "
           f"device {mesh.device}, backend {mesh.backend or 'none'}", flush=True)
 

@@ -14,6 +14,13 @@ against the JAX package and against the port in one process.
   forward and backward with global BatchNorm statistics, and a
   ``Trainer.fit`` that SIGTERM stops on rank 1 alone, then resumes from the
   leader's checkpoint.
+* ``tp``: a world of four, ``mesh_cfg=dp_tp`` (data 2 x model 2):
+  FiLMAViT at film_avit_tiny's widths on 32x64 frames (``mega`` + ``lane``)
+  from the bridged JAX weights in ``<workdir>/jax_weights_tp.pt``, three
+  AdamW steps; ClassicUnet's forward and backward with global BatchNorm
+  statistics over the data group; a ``Trainer.fit`` whose leader writes a
+  whole checkpoint, restored by every rank; and every rank restoring the
+  one-process checkpoint ``<workdir>/single.pt``.
 """
 import os
 import signal
@@ -32,6 +39,10 @@ from bubbleformer_tpu_torch.parallel import (  # noqa: E402
     initialize_distributed,
     is_leader,
     make_mesh,
+)
+from bubbleformer_tpu_torch.parallel.sharding import (  # noqa: E402
+    gather_full_state,
+    shard_state,
 )
 from bubbleformer_tpu_torch.training import (  # noqa: E402
     ConditionedForecastModule,
@@ -54,11 +65,24 @@ GLOBAL_BATCH = 4
 STEPS = 3
 FRAME = (16, 16)
 DROP_PATHS = (0.0, 0.2)
+# The tensor-parallel world: film_avit_tiny's widths (embed 96, 6 heads, 2
+# blocks) on 32x64 frames at patch 4, an 8x16 token grid, where "auto"
+# takes mega (K1) and lane (K2) as on a TPU.
+MODEL_TP = {"name": "filmavit", "params": {"patch_size": 4, "embed_dim": 96, "num_heads": 6,
+                                           "processor_blocks": 2, "drop_path": 0.0,
+                                           "num_fluid_params": 9}}
+FRAME_TP = (32, 64)
+TP_DATA, TP_MODEL = 2, 2
 
 
-def global_batches(n=STEPS, seed=0):
-    return [synthetic_batch(GLOBAL_BATCH, DATA["time_window"], 4, *FRAME, num_fluid_params=9,
+def global_batches(n=STEPS, seed=0, frame=FRAME):
+    return [synthetic_batch(GLOBAL_BATCH, DATA["time_window"], 4, *frame, num_fluid_params=9,
                             seed=seed + i) for i in range(n)]
+
+
+def tp_module(**kw):
+    return ConditionedForecastModule(MODEL_TP, DATA, ADAMW, SCHED, total_steps=10, device="cpu",
+                                     **kw)
 
 
 def step_generator(step: int) -> torch.Generator:
@@ -153,6 +177,44 @@ def preempted_fit(workdir: Path, rank: int):
             "csv_rows": (log_dir / "metrics.csv").read_text().splitlines()}
 
 
+def tensor_parallel(workdir: Path, rank: int) -> dict:
+    """The ``tp`` scenario's runs (module docstring); the parameters as each
+    rank holds them and, gathered, whole."""
+    mesh = make_mesh(model=TP_MODEL, device="cpu")
+    out = {"mesh": (mesh.data, mesh.model, mesh.data_rank, mesh.model_rank)}
+    module = tp_module(mesh=mesh)
+    full = torch.load(workdir / "jax_weights_tp.pt")
+    module.model.load_state_dict(shard_state(full, module.model_shard))
+    losses, local = train_steps(module, global_batches(frame=FRAME_TP), generators=False)
+    blocks = module.model.blocks
+    out.update(losses=losses, local=local, ddp=type(module.train_model).__name__,
+               routes=[(b.temporal._route, b.spatial._route) for b in blocks],
+               whole=gather_full_state(local, module.model_shard))
+    out["unet"] = unet_forward_backward(unet_module(mesh=mesh), global_batches(1, seed=30)[0])
+
+    log_dir = workdir / "tp_fit"
+    fit = tp_module(mesh=mesh)
+    fit.model.load_state_dict(shard_state(full, fit.model_shard))
+    rows = batch_sharding(mesh, GLOBAL_BATCH)
+    local_batches = [tuple(np.ascontiguousarray(a[rows]) for a in b)
+                     for b in global_batches(2, seed=40, frame=FRAME_TP)]
+    Trainer(fit, log_dir=str(log_dir), log_every=1).fit(ListLoader(local_batches), max_epochs=1)
+    again = tp_module(mesh=mesh)
+    restore_checkpoint(str(log_dir / "last.pt"), again)
+    out["fit_local"] = {k: v.clone() for k, v in fit.model.state_dict().items()}
+    out["restored_equal"] = all(torch.equal(v, out["fit_local"][k])
+                                for k, v in again.model.state_dict().items())
+    out["restored_moments_equal"] = all(
+        torch.equal(a["exp_avg"], b["exp_avg"]) and torch.equal(a["exp_avg_sq"], b["exp_avg_sq"])
+        for a, b in zip(again.optimizer.state_dict()["state"].values(),
+                        fit.optimizer.state_dict()["state"].values()))
+    single = tp_module(mesh=mesh)
+    restore_checkpoint(str(workdir / "single.pt"), single)
+    out["from_single"] = {k: v.clone() for k, v in single.model.state_dict().items()}
+    out["from_single_step"] = single.step
+    return out
+
+
 def main():
     scenario, workdir = sys.argv[1], Path(sys.argv[2])
     torch.set_num_threads(1)
@@ -176,6 +238,8 @@ def main():
                                              generators=True)
         out["unet"] = unet_forward_backward(unet_module(), global_batches(1, seed=30)[0])
         out["fit"] = preempted_fit(workdir, rank)
+    elif scenario == "tp":
+        out.update(tensor_parallel(workdir, rank))
     else:
         raise SystemExit(f"unknown scenario {scenario!r}")
     torch.save(out, workdir / f"{scenario}_{rank}.pt")

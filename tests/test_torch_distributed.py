@@ -67,21 +67,22 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _launch(scenario: str, workdir: Path, launcher: str = "torchrun", timeout: float = 240):
-    """Run the worker's ``scenario`` on a world of two processes under
-    ``launcher``'s variables; returns each rank's record."""
+def _launch(scenario: str, workdir: Path, launcher: str = "torchrun", timeout: float = 240,
+            processes: int = PROCESSES):
+    """Run the worker's ``scenario`` on a world of ``processes`` (two by
+    default) under ``launcher``'s variables; returns each rank's record."""
     base = {k: v for k, v in os.environ.items()
             if not k.startswith("SLURM") and k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
                                                         "MASTER_ADDR", "MASTER_PORT")}
     base.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     port = str(_free_port())
     procs = []
-    for rank in range(PROCESSES):
+    for rank in range(processes):
         if launcher == "torchrun":
-            env = dict(base, RANK=str(rank), WORLD_SIZE=str(PROCESSES), LOCAL_RANK=str(rank),
+            env = dict(base, RANK=str(rank), WORLD_SIZE=str(processes), LOCAL_RANK=str(rank),
                        MASTER_ADDR="127.0.0.1", MASTER_PORT=port)
         else:
-            env = dict(base, SLURM_NTASKS=str(PROCESSES), SLURM_PROCID=str(rank),
+            env = dict(base, SLURM_NTASKS=str(processes), SLURM_PROCID=str(rank),
                        SLURM_LOCALID=str(rank), SLURM_STEP_NODELIST="localhost",
                        SLURM_JOB_ID="4242", MASTER_PORT=port)
         procs.append(subprocess.Popen([sys.executable, str(WORKER), scenario, str(workdir)],
@@ -99,7 +100,7 @@ def _launch(scenario: str, workdir: Path, launcher: str = "torchrun", timeout: f
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"rank {rank} {scenario} OK" in out, out
     return [torch.load(workdir / f"{scenario}_{rank}.pt", weights_only=False)
-            for rank in range(PROCESSES)]
+            for rank in range(processes)]
 
 
 @pytest.mark.parametrize("launcher", LAUNCHERS)
@@ -152,6 +153,10 @@ def test_a_misconfigured_world_raises(env, error, match):
 
 @pytest.mark.parametrize("kw", [{"model": 2}, {"spatial": 2}, {"data": 3}])
 def test_mesh_refuses_what_is_not_ported(kw):
+    """In a world of one process a model axis of two (``dp_tp``; it runs in
+    a world that can hold it, ``tests/test_torch_tensor_parallel.py``), a
+    spatial axis (not ported) and a data axis that is not the world raise,
+    naming ``mesh_cfg``."""
     with pytest.raises(ValueError, match="mesh_cfg"):
         make_mesh(device="cpu", **kw)
     mesh = make_mesh(device="cpu")

@@ -330,8 +330,11 @@ def test_train_cli_honours_native_loader(tmp_path, monkeypatch, capsys, no_h5py,
 
 @pytest.mark.parametrize("override", ["mesh_cfg=dp_tp", "mesh_cfg=dp_sp", "mesh_cfg.model=2"])
 def test_mesh_cfg_other_than_single_raises(override):
-    """The composed config carries the mesh group; the mesh the training CLI
-    builds from it raises for a model or spatial axis (not ported)."""
+    """The composed config carries the mesh group; in a world of one process
+    the mesh the training CLI builds from it raises for a model axis
+    (``dp_tp`` runs in a world that can hold it: two processes a data rank,
+    ``tests/test_torch_tensor_parallel.py``) and for a spatial axis (not
+    ported)."""
     with pytest.raises(ValueError, match="mesh_cfg"):
         train_torch.main(["device=cpu", override])
     assert load_config(["mesh_cfg=single"])["mesh_cfg"] == {"data": -1, "model": 1}
